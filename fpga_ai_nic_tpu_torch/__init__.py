@@ -1,0 +1,22 @@
+"""PyTorch/CUDA port of the JAX package beside it, for one NVIDIA H100
+(sm_90a).
+
+The JAX package beside this one is the reference; this package mirrors its
+module names so each counterpart is easy to find:
+
+  utils/config.py       the same frozen config dataclasses and flags
+  ops/bfp.py            "flat16" BFP codec (plain torch)
+  ops/bfp_cuda.py       "sublane" BFP codec: CUDA kernels + plain versions
+  ops/ring.py           plain torch rings over virtual ranks ([n, L] stacks)
+  ops/ring_cuda.py      fused ring reduce-scatter(+SGD) / all-gather kernels
+  ops/fused_update.py   flat ZeRO-1 plumbing and route choice
+  compress/             the Codec protocol, BFP registered
+  optim.py              the fused optimizer formula and its numpy twin
+  models/mlp.py         the canonical MLP (JAX weight layout [in, out])
+  parallel/mesh.py      VirtualRanks: n ranks on one card, in loopback
+  parallel/train.py     DPTrainer: per-rank grads, fused RS+update, AG
+  train_mlp.py          the training driver (``python -m ...train_mlp``)
+
+Nothing here imports JAX or the JAX package.  Kernel sources live in
+``csrc/`` and are built by ``nvcc`` at first use (``ops/_build.py``).
+"""

@@ -1,0 +1,90 @@
+"""BFP as a registered codec — the port of the JAX package's
+``compress/bfp.py``.
+
+``BFPConfig.codec`` picks the block partition, and that choice is part of
+the bit contract: "xla" is the "flat16" layout (``ops.bfp``, plain torch on
+any device), "pallas" the "sublane" layout (``ops.bfp_cuda``: the CUDA
+kernels on a CUDA tensor, their plain versions on a CPU tensor).
+``plain=True`` pins the sublane codec to its plain torch version on every
+device — what the fused ring kernels' plain versions use, so that holding
+a kernel against its plain version never runs a kernel on both sides.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from .base import Codec, register
+from ..ops import bfp as _bfp_flat
+from ..ops import bfp_cuda as _bfp_sub
+from ..utils.config import BFPConfig
+
+
+def use_pallas(cfg: BFPConfig, n_elems: int) -> bool:
+    """Does this payload take the sublane layout?  (``codec="auto"`` is
+    refused at BFPConfig construction in this port.)"""
+    return cfg.codec == "pallas"
+
+
+def codec_pair(cfg: BFPConfig, n_elems: int, plain: bool = False
+               ) -> Tuple[Callable, Callable]:
+    """(encode, decode) for a flat [n_elems] payload."""
+    if use_pallas(cfg, n_elems):
+        enc_fn = _bfp_sub.bfp_encode_plain if plain else _bfp_sub.bfp_encode
+        dec_fn = _bfp_sub.bfp_decode_plain if plain else _bfp_sub.bfp_decode
+    else:
+        enc_fn, dec_fn = _bfp_flat.bfp_encode, _bfp_flat.bfp_decode
+
+    def enc(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return enc_fn(x, cfg.block_size, cfg.mantissa_bits, cfg.rounding)
+
+    def dec(mant: torch.Tensor, se: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+        return dec_fn(mant, se, cfg.block_size, dtype)
+
+    return enc, dec
+
+
+@register
+class BFPCodec(Codec):
+    """Block-floating-point: int8 mantissas + one shared int8 power-of-two
+    exponent per block."""
+
+    name = "bfp"
+    error_feedback = False
+    supports_fused = True
+
+    def __init__(self, cfg: Optional[BFPConfig] = None,
+                 error_feedback: bool = False, plain: bool = False,
+                 **overrides: Any) -> None:
+        self.cfg = replace(cfg or BFPConfig(), **overrides)
+        self.error_feedback = bool(error_feedback)
+        self.plain = plain
+
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        enc, _ = codec_pair(self.cfg, x.shape[0], self.plain)
+        return tuple(enc(x))
+
+    def decode(self, payload: Tuple[torch.Tensor, ...], n_elems: int,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        mant, se = payload
+        _, dec = codec_pair(self.cfg, n_elems, self.plain)
+        return dec(mant, se, dtype)
+
+    @property
+    def pad_elems(self) -> int:
+        return self.cfg.block_size
+
+    def sliceable(self, chunk_elems: int,
+                  slice_elems: Optional[int]) -> bool:
+        # a sublane slice must hold whole (block, 128)-lane tiles, or
+        # slicing would change the block partition (and the bits)
+        return (super().sliceable(chunk_elems, slice_elems)
+                and not (use_pallas(self.cfg, slice_elems) and slice_elems
+                         % (self.cfg.block_size * _bfp_sub.LANES)))
+
+    def wire_bytes(self, n_elems: int) -> int:
+        return _bfp_flat.wire_bytes(n_elems, self.cfg)

@@ -1,0 +1,190 @@
+"""The fused all-reduce + weight-update engine over virtual ranks — the port
+of the JAX package's ``ops/fused_update.py``.
+
+    g_own   = reduce_scatter(flat_grads)      # [n, L] -> [n, C] sums
+    w_own'  = opt(w_own, g_own / n)           # owned f32 master shards
+    params' = all_gather(w_own')              # [n, L] replicas
+
+Every per-rank quantity is stacked over the n virtual ranks as its leading
+dimension (``parallel.mesh.VirtualRanks``).  A parameter tree flattens in
+``jax.tree_util`` order (dict keys sorted, so an MLP's ``b0..b9`` come
+before ``w0..w9``) into one f32 vector, zero-padded so each rank's chunk is
+a whole number of codec units — and of (block, 128)-lane tiles when the
+fused kernels carry the wire.
+
+Routing, as in the JAX package: ``fused_kernel=True`` on a CUDA tensor
+runs the fused CUDA ring (``ops.ring_cuda``) with the update on its final
+hop; everywhere else (a CPU tensor, ``impl="xla"``, the separate-op ring,
+n == 1) the same update formula (``optim.fused_apply_flat``) runs right
+after the reduce, and the ring takes the *configured* codec — with
+``BFPConfig(codec="pallas")`` that is the sublane layout, so the CPU route
+and the kernels quantize in the same blocks.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import ring as ring_ops
+from . import ring_cuda
+from .. import optim
+from ..utils.config import CollectiveConfig, OptimizerConfig, OptimizerSpec
+
+
+class FlatMeta(NamedTuple):
+    keys: Tuple[Tuple[str, int], ...]    # leaf paths, flattening order
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    sizes: Tuple[int, ...]
+    padded_len: int
+
+
+def resolve_codec(coll: CollectiveConfig):
+    """The compress.Codec this config asks for (None = uncompressed)."""
+    from ..compress import resolve
+    return resolve(coll)
+
+
+def pad_multiple(coll: CollectiveConfig, n: int) -> int:
+    """Padding multiple of flat vectors fed to the n-way collective: each
+    rank's chunk must be a whole number of codec units, and of
+    (block, 128)-lane tiles when the fused kernels carry the wire."""
+    codec = resolve_codec(coll)
+    if codec is not None:
+        if coll.fused_kernel:
+            return n * codec.pad_elems * ring_cuda.LANES
+        return n * codec.pad_elems
+    return n
+
+
+def wire_bytes_for(coll: CollectiveConfig, L: int, n: int,
+                   codec: Any = "__resolve__") -> int:
+    """Per-rank wire bytes of one all-reduce of an [L]-element f32 vector
+    under this config; pass ``codec=None`` for the raw-f32 accounting."""
+    if codec == "__resolve__":
+        codec = resolve_codec(coll)
+    return ring_ops.wire_bytes_per_device(L, n, codec)
+
+
+def _leaves(tree: Dict[str, Sequence[Any]]) -> List[Tuple[Tuple[str, int],
+                                                          Any]]:
+    """(path, leaf) pairs of a ``{name: [leaf, ...]}`` tree in
+    ``jax.tree_util`` order: keys sorted, list order kept."""
+    return [((k, i), leaf) for k in sorted(tree)
+            for i, leaf in enumerate(tree[k])]
+
+
+def flat_meta(tree: Dict[str, Sequence[Any]], coll: CollectiveConfig,
+              n: int) -> FlatMeta:
+    """Static flattening metadata of a parameter tree (tensors or numpy
+    arrays; only shapes and dtypes are read)."""
+    pairs = _leaves(tree)
+    shapes = tuple(tuple(leaf.shape) for _, leaf in pairs)
+    dtypes = tuple(leaf.dtype if isinstance(leaf, torch.Tensor)
+                   else torch.as_tensor(np.zeros((), leaf.dtype)).dtype
+                   for _, leaf in pairs)
+    sizes = tuple(int(np.prod(s)) if s else 1 for s in shapes)
+    total = sum(sizes)
+    m = pad_multiple(coll, n)
+    return FlatMeta(tuple(p for p, _ in pairs), shapes, dtypes, sizes,
+                    total + (-total) % m)
+
+
+def flatten_tree(tree: Dict[str, Sequence[torch.Tensor]], meta: FlatMeta,
+                 out: torch.Tensor = None) -> torch.Tensor:
+    """Concatenate a tree into one flat f32 [padded_len] vector (into
+    ``out`` when given), zero-padded."""
+    leaves = [leaf for _, leaf in _leaves(tree)]
+    if out is None:
+        out = torch.empty(meta.padded_len, dtype=torch.float32,
+                          device=leaves[0].device)
+    total = sum(meta.sizes)
+    torch.cat([leaf.reshape(-1).to(torch.float32) for leaf in leaves],
+              out=out[:total])
+    out[total:] = 0
+    return out
+
+
+def unflatten_tree(flat: torch.Tensor, meta: FlatMeta
+                   ) -> Dict[str, List[torch.Tensor]]:
+    """Inverse of flatten_tree.  f32 leaves are views of ``flat``."""
+    tree: Dict[str, List[torch.Tensor]] = {}
+    off = 0
+    for (k, _), shape, dtype, size in zip(meta.keys, meta.shapes,
+                                          meta.dtypes, meta.sizes):
+        tree.setdefault(k, []).append(
+            flat[off:off + size].view(shape).to(dtype))
+        off += size
+    return tree
+
+
+def init_master_shard(params_tree, coll: CollectiveConfig,
+                      opt_cfg: OptimizerConfig, n: int
+                      ) -> Tuple[torch.Tensor, optim.OptState, FlatMeta]:
+    """``(w_own [n, C], opt_state, meta)`` from a replicated parameter
+    tree: rank i owns chunk i of the flat master vector."""
+    meta = flat_meta(params_tree, coll, n)
+    flat = flatten_tree(params_tree, meta)
+    w_own = flat.reshape(n, meta.padded_len // n).clone()
+    return w_own, optim.init_state(opt_cfg, w_own.shape,
+                                   device=w_own.device), meta
+
+
+def _fused_bfp_cfg(coll: CollectiveConfig):
+    return resolve_codec(coll).cfg
+
+
+def _kernel_route(coll: CollectiveConfig, x: torch.Tensor) -> bool:
+    return coll.fused_kernel and x.device.type == "cuda"
+
+
+def reduce_scatter(flat_g: torch.Tensor,
+                   coll: CollectiveConfig) -> torch.Tensor:
+    """[n, L] per-rank vectors -> [n, L/n]: rank i's reduced chunk i."""
+    n, L = flat_g.shape
+    if coll.impl == "xla":
+        return flat_g.reshape(n, n, L // n).sum(dim=0)
+    if _kernel_route(coll, flat_g):
+        return ring_cuda.ring_reduce_scatter_fused(
+            flat_g, compression=_fused_bfp_cfg(coll))
+    codec = resolve_codec(coll)
+    slice_e = coll.slice_elems
+    if coll.fused_kernel:
+        slice_e = ring_cuda.pick_slice_elems(L // n, coll.slice_elems,
+                                             codec.cfg.block_size)
+    return ring_ops.ring_reduce_scatter(flat_g, codec, slice_elems=slice_e)
+
+
+def reduce_scatter_update(flat_g: torch.Tensor, w_own: torch.Tensor,
+                          opt_state: optim.OptState, step: int,
+                          coll: CollectiveConfig, opt_cfg: OptimizerConfig
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     optim.OptState]:
+    """Fused gradient reduce + ZeRO-1 update of each rank's owned shard.
+    Returns ``(g_own_sum [n, C], w_new [n, C], opt_state_new)``."""
+    spec = OptimizerSpec.from_optimizer(opt_cfg)
+    n = flat_g.shape[0]
+    hyper = optim.fused_hyperparams(opt_cfg, step, device=flat_g.device)
+    if _kernel_route(coll, flat_g) and n > 1:
+        return ring_cuda.ring_reduce_scatter_update_fused(
+            flat_g, w_own, opt_state, hyper, opt_kind=spec.kind,
+            compression=_fused_bfp_cfg(coll))
+    g_own = reduce_scatter(flat_g, coll)
+    w_new, st2 = optim.fused_apply_flat(spec, w_own, g_own, opt_state,
+                                        hyper, n)
+    return g_own, w_new, st2
+
+
+def all_gather_flat(owned: torch.Tensor,
+                    coll: CollectiveConfig) -> torch.Tensor:
+    """[n, C] owned chunks -> [n, n*C] replicas."""
+    n, C = owned.shape
+    if coll.impl == "xla":
+        return owned.reshape(1, n * C).expand(n, n * C)
+    if _kernel_route(coll, owned):
+        return ring_cuda.ring_all_gather_fused(
+            owned, compression=_fused_bfp_cfg(coll))
+    return ring_ops.ring_all_gather(owned, resolve_codec(coll))

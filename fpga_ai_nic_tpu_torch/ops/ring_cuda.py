@@ -1,0 +1,244 @@
+"""Fused BFP ring collectives over virtual ranks on one card — the port of
+the JAX package's ``ops/ring_pallas.py``.
+
+The n ranks are the rows of a stacked ``[n, L]`` tensor in one device's
+memory; a "remote copy" is a write into the neighbour rank's receive
+buffer (``csrc/ring_rs.cu``, ``csrc/ring_ag.cu``).  The TPU kernels come in
+VMEM-resident and HBM-streaming twins that compute the same function bit
+for bit; residency is a VMEM concern Hopper does not share, so each pair
+is one CUDA kernel here.  Wire frames use the "sublane" BFP layout
+whatever ``BFPConfig.codec`` says, as the TPU kernels do.
+
+Bit spec: ``ops.ring_golden`` with ``layout="sublane"``, composed with
+``optim.golden_fused_apply`` for the fused update.  Each public function
+takes the plain version (``*_plain``: the ``ops.ring`` rings with the
+plain sublane codec and ``optim.fused_apply_flat``) for a tensor on the
+CPU and launches the kernels for a tensor on CUDA; there is no fallback
+between the two.  ``RING_RS.launches`` / ``RING_AG.launches`` count
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import bfp_cuda
+from . import ring as ring_ops
+from ._build import Kernel, ptr
+from .. import optim
+from ..utils.config import BFPConfig, OptimizerSpec
+
+LANES = bfp_cuda.LANES
+OPT_CODES = {None: 0, "sgd": 1, "momentum": 2, "adamw": 3}
+
+RING_RS = Kernel("ring_rs_update", "ring_rs.cu", "ring_rs_hop_launch",
+                 [ctypes.c_void_p] * 13
+                 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5)
+RING_AG = Kernel("ring_ag", "ring_ag.cu", "ring_ag_hop_launch",
+                 [ctypes.c_void_p] * 5
+                 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_int])
+
+
+def _cfg(compression: Optional[BFPConfig]) -> BFPConfig:
+    return compression or BFPConfig()
+
+
+def _plain_codec(cfg: BFPConfig):
+    """The sublane codec pinned to its plain torch version."""
+    from ..compress.bfp import BFPCodec
+    return BFPCodec(dataclasses.replace(cfg, codec="pallas"), plain=True)
+
+
+def _check_chunk(C: int, cfg: BFPConfig) -> None:
+    tile = cfg.block_size * LANES
+    if C % tile:
+        raise ValueError(f"fused ring needs chunk {C} % {tile} == 0 "
+                         "(whole (block, 128)-lane tiles per rank)")
+
+
+def pick_slice_elems(C: int, target: int, block_size: int) -> int:
+    """Largest divisor of chunk C that is a multiple of block_size*128 and
+    <= target (at least one tile).  Slicing at block boundaries never
+    changes the block partition: a schedule choice, not a numerics one."""
+    tile = block_size * LANES
+    if C % tile:
+        raise ValueError((C, tile))
+    k = C // tile
+    best, d = 1, 1
+    while d * d <= k:
+        if k % d == 0:
+            for c in (d, k // d):
+                if c * tile <= target and c > best:
+                    best = c
+        d += 1
+    return best * tile
+
+
+# -- plain versions -----------------------------------------------------------
+
+def ring_reduce_scatter_update_plain(
+        x: torch.Tensor, w_own: Optional[torch.Tensor],
+        opt_state: Dict[str, torch.Tensor], hyper: Optional[torch.Tensor],
+        *, opt_kind: Optional[str], compression: Optional[BFPConfig] = None,
+        slice_elems: Optional[int] = None):
+    """``(g_own_sum [n, C], w_new, new_state)``; w_new and new_state are
+    None / {} when ``opt_kind`` is None."""
+    n = x.shape[0]
+    g = ring_ops.ring_reduce_scatter(x, _plain_codec(_cfg(compression)),
+                                     slice_elems=slice_elems)
+    if opt_kind is None:
+        return g, None, {}
+    w_new, st = optim.fused_apply_flat(OptimizerSpec(kind=opt_kind), w_own,
+                                       g, opt_state, hyper, n)
+    return g, w_new, st
+
+
+def ring_all_gather_plain(owned: torch.Tensor,
+                          compression: Optional[BFPConfig] = None
+                          ) -> torch.Tensor:
+    return ring_ops.ring_all_gather(owned, _plain_codec(_cfg(compression)))
+
+
+# -- kernel launches ----------------------------------------------------------
+
+def _launch_rs(x: torch.Tensor, cfg: BFPConfig, opt_kind: Optional[str],
+               w_own: Optional[torch.Tensor],
+               state: Tuple[torch.Tensor, ...],
+               hyper: Optional[torch.Tensor]):
+    n, L = x.shape
+    C = L // n
+    B = cfg.block_size
+    bfp_cuda.check_kernel_block(B)
+    bfp_cuda.check_cuda(x, torch.float32, "x")
+    dev = x.device
+    g_out = torch.empty((n, C), dtype=torch.float32, device=dev)
+    w_out = None
+    outs: Tuple[torch.Tensor, ...] = ()
+    if opt_kind is not None:
+        bfp_cuda.check_cuda(w_own, torch.float32, "w_own")
+        bfp_cuda.check_cuda(hyper, torch.float32, "hyper")
+        if hyper.numel() != optim.HYPER_LEN:
+            raise ValueError(f"hyper must hold {optim.HYPER_LEN} values")
+        for t in (w_own,) + state:
+            bfp_cuda.check_cuda(t, torch.float32, "optimizer shard")
+            if t.shape != (n, C):
+                raise ValueError(f"shards must be {(n, C)}, got "
+                                 f"{tuple(t.shape)}")
+        w_out = torch.empty_like(w_own)
+        outs = tuple(torch.empty_like(s) for s in state)
+    m_in, v_in = (state + (None, None))[:2]
+    m_out, v_out = (outs + (None, None))[:2]
+    # two receive slots per rank, by hop parity
+    fm = torch.empty((2, n, C), dtype=torch.int8, device=dev)
+    fs = torch.empty((2, n, C // B), dtype=torch.int8, device=dev)
+
+    def p(t):
+        return None if t is None else ptr(t)
+
+    for k in range(n):
+        fm_in, fs_in = (fm[(k - 1) % 2], fs[(k - 1) % 2]) if k else (None,
+                                                                      None)
+        fm_out, fs_out = (fm[k % 2], fs[k % 2]) if k < n - 1 else (None,
+                                                                   None)
+        RING_RS(ptr(x), p(fm_in), p(fs_in), p(fm_out), p(fs_out),
+                ptr(g_out), p(w_own), p(w_out), p(m_in), p(m_out), p(v_in),
+                p(v_out), p(hyper), n, C, k, B, cfg.mantissa_bits,
+                int(cfg.rounding == "rtz"), OPT_CODES[opt_kind])
+    return g_out, w_out, outs
+
+
+def _launch_ag(owned: torch.Tensor, cfg: BFPConfig) -> torch.Tensor:
+    n, C = owned.shape
+    B = cfg.block_size
+    bfp_cuda.check_cuda(owned, torch.float32, "owned")
+    dev = owned.device
+    # each rank encodes its chunk once (bfp_encode) and decodes its own
+    # slot (bfp_decode); ring_ag forwards the frames for n-1 hops
+    mant, scale = bfp_cuda.bfp_encode(owned.reshape(-1), B,
+                                      cfg.mantissa_bits, cfg.rounding)
+    out = torch.empty((n, n * C), dtype=torch.float32, device=dev)
+    sC = C // B
+    for i in range(n):
+        bfp_cuda.launch_decode(mant[i * C:(i + 1) * C],
+                               scale[i * sC:(i + 1) * sC],
+                               out[i, i * C:(i + 1) * C], B)
+    hold = [(torch.empty((n, C), dtype=torch.int8, device=dev),
+             torch.empty((n, sC), dtype=torch.int8, device=dev))
+            for _ in range(2 if n > 2 else 0)]
+    fm_in, fs_in = mant, scale
+    for s in range(1, n):
+        fm_out, fs_out = hold[s % 2] if s < n - 1 else (None, None)
+        RING_AG(ptr(fm_in), ptr(fs_in),
+                None if fm_out is None else ptr(fm_out),
+                None if fs_out is None else ptr(fs_out), ptr(out), n, C, s,
+                B)
+        fm_in, fs_in = fm_out, fs_out
+    return out
+
+
+# -- public entry points ------------------------------------------------------
+
+def ring_reduce_scatter_update_fused(
+        x: torch.Tensor, w_own: torch.Tensor,
+        opt_state: Dict[str, torch.Tensor], hyper: torch.Tensor, *,
+        opt_kind: str, compression: Optional[BFPConfig] = None):
+    """Fused ring reduce-scatter + ZeRO-1 optimizer update on the final
+    hop.  x: [n, L] gradients, rank i's in row i; w_own and each state
+    shard: [n, C] owned shards (C = L/n); hyper: ``optim.fused_hyperparams``.
+    Returns ``(g_own_sum [n, C], w_new [n, C], new_state)`` with new
+    tensors (nothing is updated in place)."""
+    cfg = _cfg(compression)
+    spec = OptimizerSpec(kind=opt_kind)
+    n, L = x.shape
+    if n < 2 or L % n:
+        raise ValueError(f"need n >= 2 ranks and L % n == 0, got {x.shape}")
+    _check_chunk(L // n, cfg)
+    if x.device.type == "cpu":
+        return ring_reduce_scatter_update_plain(
+            x, w_own, opt_state, hyper, opt_kind=opt_kind, compression=cfg)
+    state = tuple(opt_state[k] for k in spec.state_keys)
+    g, w_new, outs = _launch_rs(x, cfg, opt_kind, w_own, state, hyper)
+    return g, w_new, dict(zip(spec.state_keys, outs))
+
+
+def ring_reduce_scatter_fused(x: torch.Tensor, *,
+                              compression: Optional[BFPConfig] = None
+                              ) -> torch.Tensor:
+    """Fused BFP ring reduce-scatter: [n, L] -> [n, L/n] sums."""
+    cfg = _cfg(compression)
+    n, L = x.shape
+    if L % n:
+        raise ValueError(f"need L % n == 0, got {x.shape}")
+    _check_chunk(L // n, cfg)
+    if n == 1:
+        return x
+    if x.device.type == "cpu":
+        return ring_reduce_scatter_update_plain(
+            x, None, {}, None, opt_kind=None, compression=cfg)[0]
+    return _launch_rs(x, cfg, None, None, (), None)[0]
+
+
+def ring_all_gather_fused(owned: torch.Tensor, *,
+                          compression: Optional[BFPConfig] = None
+                          ) -> torch.Tensor:
+    """Fused BFP ring all-gather: [n, C] owned chunks -> [n, n*C], every
+    rank's replica, all bitwise equal.  n == 1 is the codec roundtrip."""
+    cfg = _cfg(compression)
+    _check_chunk(owned.shape[1], cfg)
+    if owned.device.type == "cpu":
+        return ring_all_gather_plain(owned, cfg)
+    return _launch_ag(owned, cfg)
+
+
+def ring_all_reduce_fused(x: torch.Tensor, *,
+                          compression: Optional[BFPConfig] = None
+                          ) -> torch.Tensor:
+    """Fused all-reduce = fused reduce-scatter + fused all-gather."""
+    return ring_all_gather_fused(
+        ring_reduce_scatter_fused(x, compression=compression),
+        compression=compression)

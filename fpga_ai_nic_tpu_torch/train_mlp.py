@@ -1,0 +1,91 @@
+"""Canonical MLP training driver of the port — the counterpart of the JAX
+package's ``examples/train_mlp.py``, with the same flags and the same JSON
+keys (``loss``, ``samples_per_sec``, ``gflops``, ``wall_s``).
+
+Examples (on the card; ``--device=cpu`` runs the plain versions instead):
+  python -m fpga_ai_nic_tpu_torch.train_mlp --bfp=1 --mesh.dp=8 \\
+      --collective.compression.codec=pallas \\
+      --collective.fused_kernel=true --collective.fused_optimizer=true
+  python -m fpga_ai_nic_tpu_torch.train_mlp --model.layer_sizes=256,256,256 \\
+      --global_batch=64 --iters=3 --device=cpu
+
+Flags split by prefix: ``--model.*`` -> MLPConfig, ``--device=`` picks the
+device (default cuda; it raises when CUDA is absent), everything else ->
+TrainConfig.  ``--bfp=1`` turns on the BFP wire codec and the explicit
+ring; it applies before the dotted flags, so they can refine it.  The
+ranks of ``--mesh.dp`` are virtual ranks on one card.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from .models import mlp
+from .parallel.mesh import make_ranks
+from .parallel.train import DPTrainer
+from .utils.config import MLPConfig, TrainConfig, from_flags
+
+_TRUE, _FALSE = ("1", "true", "yes", "on"), ("0", "false", "no", "off")
+
+
+def parse(argv: Sequence[str]):
+    """``(MLPConfig, TrainConfig, device)`` from the driver's flags."""
+    model_flags: List[str] = []
+    rest: List[str] = []
+    bfp = False
+    device = "cuda"
+    for a in argv:
+        key, _, val = a.partition("=")
+        if a.startswith("--model."):
+            model_flags.append(a.replace("--model.", "--", 1))
+        elif key == "--bfp":
+            if val.lower() not in _TRUE + _FALSE:
+                raise ValueError(f"unrecognized --bfp value: {val!r}")
+            bfp = val.lower() in _TRUE
+        elif key == "--device":
+            device = val
+        else:
+            rest.append(a)
+    if bfp:
+        rest = ["--collective.impl=ring",
+                "--collective.compression.block_size=16"] + rest
+    return (from_flags(MLPConfig, model_flags), from_flags(TrainConfig, rest),
+            device)
+
+
+def main(argv: Sequence[str]) -> dict:
+    mcfg, cfg, device = parse(argv)
+    ranks = make_ranks(cfg.mesh, device)
+    tr = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg), ranks, cfg)
+    state = tr.init_state(mlp.init(torch.Generator().manual_seed(cfg.seed),
+                                   mcfg, ranks.device))
+    rng = np.random.default_rng(cfg.seed)
+    x = torch.from_numpy(rng.standard_normal(
+        (cfg.global_batch, mcfg.layer_sizes[0])).astype(np.float32))
+    y = torch.from_numpy(rng.integers(
+        0, mcfg.num_classes or mcfg.layer_sizes[-1], cfg.global_batch))
+    batch = tr.shard_batch((x.to(getattr(torch, mcfg.dtype)), y))
+
+    state, loss = tr.step(state, batch)          # warm-up: kernel builds
+    float(loss)
+    t0 = time.perf_counter()
+    for _ in range(cfg.iters):
+        state, loss = tr.step(state, batch)
+    loss = float(loss)                           # waits for the device
+    wall = time.perf_counter() - t0
+    fl = mlp.flops_per_sample(mcfg) * cfg.global_batch * cfg.iters
+    return {"loss": loss,
+            "samples_per_sec": cfg.iters * cfg.global_batch / wall,
+            "gflops": fl / wall / 1e9, "wall_s": wall,
+            "device": (torch.cuda.get_device_name(ranks.device)
+                       if ranks.device.type == "cuda" else "cpu")}
+
+
+if __name__ == "__main__":
+    print(json.dumps(main(sys.argv[1:])))

@@ -1,0 +1,82 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA card (sm_90a) and ``nvcc``: the kernels have no
+CPU mode, so without a card they skip.  Run them on the card with
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+The file imports torch only (no JAX), so it runs where JAX is absent.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fpga_ai_nic_tpu_torch import optim
+from fpga_ai_nic_tpu_torch.ops import bfp_cuda, ring_cuda
+from fpga_ai_nic_tpu_torch.utils.config import (BFPConfig, OptimizerConfig,
+                                                OptimizerSpec)
+
+TILE = 16 * 128
+
+
+def _shards(n, C, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, n * C)) * 3).astype(np.float32)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_kernels_bitexact_vs_plain_on_card(cuda_device, n):
+    """ring_rs_update (sgd, none), ring_ag, bfp_encode/decode on the card
+    == their plain versions on the same card tensors, bit for bit."""
+    cfg = BFPConfig(codec="pallas")
+    opt = OptimizerConfig(kind="sgd", learning_rate=0.1, weight_decay=0.01)
+    C = 4 * TILE
+    x = torch.from_numpy(_shards(n, C, seed=n)).to(cuda_device)
+    w = torch.randn((n, C), generator=torch.Generator().manual_seed(n)
+                    ).to(cuda_device)
+    hyper = optim.fused_hyperparams(opt, 0, device=cuda_device)
+    got = ring_cuda.ring_reduce_scatter_update_fused(
+        x, w, {}, hyper, opt_kind="sgd", compression=cfg)
+    want = ring_cuda.ring_reduce_scatter_update_plain(
+        x, w, {}, hyper, opt_kind="sgd", compression=cfg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ag = ring_cuda.ring_all_gather_fused(got[1], compression=cfg)
+    assert torch.equal(ag, ring_cuda.ring_all_gather_plain(got[1], cfg))
+    assert bool((ag == ag[0]).all())
+    flat = x.reshape(-1)
+    m, s = bfp_cuda.bfp_encode(flat)
+    pm, ps = bfp_cuda.bfp_encode_plain(flat)
+    assert torch.equal(m, pm) and torch.equal(s, ps)
+    assert torch.equal(bfp_cuda.bfp_decode(m, s),
+                       bfp_cuda.bfp_decode_plain(pm, ps))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["momentum", "adamw"])
+def test_rs_update_other_optimizers_on_card(cuda_device, kind):
+    cfg = BFPConfig(codec="pallas")
+    opt = OptimizerConfig(kind=kind, learning_rate=1e-3, weight_decay=0.01)
+    n, C = 4, 2 * TILE
+    x = torch.from_numpy(_shards(n, C, seed=7)).to(cuda_device)
+    g = torch.Generator().manual_seed(7)
+    w = torch.randn((n, C), generator=g).to(cuda_device)
+    st = {k: torch.rand((n, C), generator=g).to(cuda_device) * 1e-3
+          for k in OptimizerSpec(kind=kind).state_keys}
+    hyper = optim.fused_hyperparams(opt, 3, device=cuda_device)
+    got = ring_cuda.ring_reduce_scatter_update_fused(
+        x, w, st, hyper, opt_kind=kind, compression=cfg)
+    want = ring_cuda.ring_reduce_scatter_update_plain(
+        x, w, st, hyper, opt_kind=kind, compression=cfg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for k in st:
+        assert torch.equal(got[2][k], want[2][k]), k
