@@ -3,28 +3,41 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
   1. the card (``nvidia-smi`` name and power limit) and the kernel build
      (``nvcc`` for sm_90a, one process per source, all started together);
   2. every CUDA kernel against its plain PyTorch version on the same card
-     tensors, bit for bit, with ms per call: bfp_encode / bfp_decode on 2^24
-     elements and at the main path's shapes, ring_rs_update (SGD) and
-     ring_ag at n=8 for a small payload (<= 4 MiB) and at full width;
+     tensors, with ms per call: bfp_encode / bfp_decode on 2^24 elements
+     and at the main path's shapes, ring_rs_update (SGD) and ring_ag at n=8
+     for a small payload (<= 4 MiB) and at full width, all bit for bit;
+     paged_attend at decode (R=16, H=32, T=1) and prefill (R=1, T=256)
+     shapes, GQA and MHA, page sizes 16 and 128, within 5e-5;
   3. a small reference: a 3-layer MLP, 4 ranks, 3 steps on the card against
      the same steps on the CPU (plain versions);
-  4. the main path: ``DPTrainer`` on the canonical MLP (10 x 2048x2048, f32),
-     global batch 5376, dp=8 virtual ranks, BFP ring with fused kernel and
-     fused SGD — 1 warm-up and 5 timed steps, launch counts checked — then
-     one more step whose gradients also go through the plain collectives,
-     whose masters must be bit-equal to the kernels';
-  5. two more main-path steps under torch.profiler: device time by group
+  4. the training path: ``DPTrainer`` on the canonical MLP (10 x 2048x2048,
+     f32), global batch 5376, dp=8 virtual ranks, BFP ring with fused
+     kernel and fused SGD — 1 warm-up and 5 timed steps, launch counts
+     checked — then one more step whose gradients also go through the
+     plain collectives, whose masters must be bit-equal to the kernels';
+  5. two more training steps under torch.profiler: device time by group
      (the port's kernels, GEMMs, the rest) and the device's idle share;
-  6. the ``kernels`` line, then the last line
+  6. the serving path: ``ServeEngine`` on Llama-3-8B (all 32 layers, bf16,
+     random weights from a seed) answers 24 requests (prompts of 128-1024
+     tokens, 32 new tokens each) over a 2049-page pool with 16 slots,
+     page checksums on; launch counts and zero faults checked, then a
+     profile of one decode and one prefill step;
+  7. serving parity: one decode step's and one prefill chunk's operands,
+     snapshotted during the run, through ``forward_paged`` with the kernel
+     and with the gathered-view reference (logit error within a stated
+     limit that three fault controls exceed); and the 24 streams against
+     the port's contiguous-cache ``generate()``, counted;
+  8. the ``kernels`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
-TF32 is off for matmuls and cuDNN, so the GEMMs run in full float32.  Any
-failed phase raises and the script exits nonzero; without CUDA, or without
-the rest of the repository beside it, it exits nonzero and prints no result.
+TF32 is off for matmuls and cuDNN, so the f32 GEMMs run in full float32.
+Any failed phase raises and the script exits nonzero; without CUDA, or
+without the rest of the repository beside it, it exits nonzero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -77,12 +90,21 @@ def require_equal(name: str, pairs) -> None:
 PORT = "fpga_ai_nic_tpu_torch"
 REF = PORT.removesuffix("_torch")     # the JAX package's directory
 PORT_KERNELS = ("bfp_encode_kernel", "bfp_decode_kernel",
-                "ring_rs_hop_kernel", "ring_ag_hop_kernel")
+                "ring_rs_hop_kernel", "ring_ag_hop_kernel",
+                "paged_attend_kernel")
+GEMM_NAMES = ("gemm", "cutlass", "xmma", "sm90_", "nvjet")
 
 
-def profile_steps(tr, state, batch, steps: int = 2) -> None:
-    """Device time of a few main-path steps by group (the port's kernels,
-    GEMMs, the rest) and the device's idle share, from torch.profiler."""
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def profile_run(phase: str, run, steps: int, **extra) -> dict:
+    """Device time of ``steps`` calls of ``run`` by group (the port's
+    kernels, GEMMs, the rest) and the device's idle share, from
+    torch.profiler; emits one line and returns the groups."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -91,7 +113,7 @@ def profile_steps(tr, state, batch, steps: int = 2) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = tr.step(state, batch)
+            run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     groups = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
@@ -106,18 +128,408 @@ def profile_steps(tr, state, batch, steps: int = 2) -> None:
         low = name.lower()
         if any(k in name for k in PORT_KERNELS):
             groups["port_kernels"] += ms
-        elif any(k in low for k in ("gemm", "cutlass", "xmma", "sm90_")):
+        elif any(k in low for k in GEMM_NAMES):
             groups["gemm"] += ms
         else:
             groups["other"] += ms
         top.append((ms, name[:80], cnt))
     busy = sum(groups.values())
     top.sort(reverse=True)
-    emit(phase="profile", steps=steps, wall_ms=wall_ms,
+    emit(phase=phase, steps=steps, wall_ms=wall_ms,
          device_ms=busy if busy else "not measured",
          device_ms_by_group=groups,
          idle_share=(1 - busy / wall_ms) if busy else "not measured",
-         top=[{"ms": t, "name": nm, "count": c} for t, nm, c in top[:12]])
+         top=[{"ms": t, "name": nm, "count": c} for t, nm, c in top[:12]],
+         **extra)
+    return {"wall_ms": wall_ms, "device_ms": busy, **groups}
+
+
+# -- paged attend: kernel against plain, at the serving path's shapes --------
+
+PAGED_TOL = 5e-5          # f32 sums over <= 2048 keys in another order
+PAGED_SHAPES = (          # name, R, H, n_kv, T, hd, page_size, P
+    ("decode GQA ps16", 16, 32, 8, 1, 128, 16, 128),
+    ("decode MHA ps16", 16, 32, 32, 1, 128, 16, 128),
+    ("decode GQA ps128", 16, 32, 8, 1, 128, 128, 16),
+    ("prefill GQA ps16", 1, 32, 8, 256, 128, 16, 128),
+    ("prefill MHA ps128", 1, 32, 32, 256, 128, 128, 16),
+)
+LIBRARY_ROUTE = ("two calls: the gathered [R, kv, P*page_size, hd] view in "
+                 "f32, then F.scaled_dot_product_attention with the mask")
+
+
+def paged_inputs(dev, R, H, n_kv, T, hd, ps, P, seed):
+    """q f32; a dirty bf16 pool whose live pages are O(1) and whose other
+    pages hold 1e3-sized garbage; a shuffled table; ragged positions."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = R * P + 1
+    pk = torch.randn((n_pages, n_kv, ps, hd), generator=g, device=dev) * 1e3
+    pv = torch.randn((n_pages, n_kv, ps, hd), generator=g, device=dev) * 1e3
+    table = (torch.randperm(n_pages - 1, generator=g, device=dev)[:R * P]
+             + 1).to(torch.int32).reshape(R, P)
+    pos = torch.randint(0, P * ps - T + 1, (R,), generator=g, device=dev,
+                        dtype=torch.int32)
+    live = torch.zeros(n_pages, dtype=torch.bool, device=dev)
+    for r, p in enumerate(pos.tolist()):
+        live[table[r, :min((p + T - 1) // ps + 1, P)].long()] = True
+    pk[live] *= 1e-3
+    pv[live] *= 1e-3
+    q = torch.randn((R, H, T, hd), generator=g, device=dev)
+    return q, pk.to(torch.bfloat16), pv.to(torch.bfloat16), table, pos
+
+
+def paged_bound(pos, R, H, n_kv, T, hd, ps, P):
+    """The bytes the function needs over the HBM rate — K and V (bf16) of
+    the keys some row sees, min(pos + T, P*ps) per slot and KV head; q and
+    out (f32); the live table entries and pos — against 4*hd f32
+    operations per visible (row, key) pair."""
+    keys = sum(min(p + T, P * ps) for p in pos)
+    live = sum(min((p + T - 1) // ps + 1, P) for p in pos)
+    moved = (keys * n_kv * hd * 2 * 2 + 2 * R * H * T * hd * 4 + live * 4
+             + R * 4)
+    visible = sum(min(p + t + 1, P * ps) for p in pos for t in range(T))
+    return bound(moved, 4 * hd * H * visible)
+
+
+def library_attend(q, pk, pv, table, pos, ps):
+    """The nearest library route: the gathered view, then PyTorch's fused
+    attention (a yardstick only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    R, H, T, hd = q.shape
+    n_kv, P = pk.shape[1], table.shape[1]
+    idx = table.long()
+    ck = pk[idx].transpose(1, 2).reshape(R, n_kv, P * ps, hd).float()
+    cv = pv[idx].transpose(1, 2).reshape(R, n_kv, P * ps, hd).float()
+    j = torch.arange(P * ps, device=q.device)
+    t = torch.arange(T, device=q.device)
+    mask = j[None, None, None, :] <= (pos[:, None, None, None]
+                                      + t[None, None, :, None])
+    return F.scaled_dot_product_attention(q, ck, cv, attn_mask=mask,
+                                          scale=hd ** -0.5,
+                                          enable_gqa=H != n_kv)
+
+
+def paged_checks(dev) -> dict:
+    """Kernel against plain at every PAGED_SHAPES entry; returns the rows
+    by shape name."""
+    from fpga_ai_nic_tpu_torch.ops import paged_attend
+    out = {}
+    for i, (name, R, H, n_kv, T, hd, ps, P) in enumerate(PAGED_SHAPES):
+        q, pk, pv, table, pos = paged_inputs(dev, R, H, n_kv, T, hd, ps, P,
+                                             seed=100 + i)
+
+        def kern():
+            return paged_attend.paged_gather_attend(q, pk, pv, table, pos,
+                                                    page_size=ps)
+
+        def plain():
+            return paged_attend.paged_gather_attend_plain(
+                q, pk, pv, table, pos, page_size=ps)
+
+        got, want = kern(), plain()
+        sync(dev)
+        err = max_err([(got, want)])
+        if not (bool(got.isfinite().all()) and err <= PAGED_TOL):
+            raise AssertionError(f"paged_attend {name}: max abs err {err} "
+                                 f"> {PAGED_TOL}")
+        lib_err = max_err([(library_attend(q, pk, pv, table, pos, ps),
+                            want)])
+        b = paged_bound(pos.tolist(), R, H, n_kv, T, hd, ps, P)
+        row = {"max_abs_err": err, "ms": cuda_ms(kern, 20, 3),
+               "plain_ms": cuda_ms(plain, 10),
+               "library_ms": cuda_ms(
+                   lambda: library_attend(q, pk, pv, table, pos, ps), 5),
+               "bound": b}
+        out[name] = row
+        emit(phase="kernel_check", kernel="paged_attend", shape=name, R=R,
+             H=H, n_kv=n_kv, T=T, hd=hd, page_size=ps, P=P, tol=PAGED_TOL,
+             max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+             bound_ms=b[0], bound_by=b[1], library=LIBRARY_ROUTE,
+             library_ms=row["library_ms"], library_max_abs_err=lib_err)
+        del q, pk, pv, table, pos, got, want
+    return out
+
+
+# -- the serving path: Llama-3-8B through ServeEngine ----------------------------
+
+SERVE_SEED = 0
+N_REQUESTS, PROMPT_MIN, PROMPT_MAX, MAX_NEW = 24, 128, 1024, 32
+SERVE_SHAPE = dict(max_reqs=16, page_size=16, max_pages_per_seq=128,
+                   n_pages=2049, prefill_chunk=256, page_integrity=True)
+
+
+def _clone_pool(pool):
+    return [{k: v.clone() for k, v in lyr.items()} for lyr in pool]
+
+
+def capture_steps(eng) -> dict:
+    """Wrap the engine's two device steps so that each keeps its operands,
+    the pool cloned before the step writes it: the decode step with the
+    most active slots and the prefill chunk that starts latest."""
+    snaps = {}
+    decode_step, prefill_step = eng._decode_step, eng._prefill_step
+
+    def decode(pool, tokens, table, pos, active, ledger):
+        n = int(active.sum())
+        if n > snaps.get("decode", {"key": 0})["key"]:
+            snaps.pop("decode", None)
+            snaps["decode"] = {"key": n, "pool": _clone_pool(pool),
+                               "tokens": tokens.clone(),
+                               "table": table.clone(), "pos": pos.clone(),
+                               "active": active.clone()}
+        return decode_step(pool, tokens, table, pos, active, ledger)
+
+    def prefill(pool, tokens, row, pos0, last, ledger):
+        p0 = int(pos0[0])
+        if p0 > snaps.get("prefill", {"key": -1})["key"]:
+            # the chunk's request is the oldest prefilling one; rows past
+            # its true length are padding, whose logits the engine ignores
+            req = min((r for r in eng.batcher.live if r.state == "prefill"),
+                      key=lambda r: r.admit_seq)
+            snaps.pop("prefill", None)
+            snaps["prefill"] = {"key": p0, "pool": _clone_pool(pool),
+                                "tokens": tokens.clone(),
+                                "table": row.clone(), "pos": pos0.clone(),
+                                "active": None, "rows": min(
+                                    tokens.shape[1], req.replay_len - p0)}
+        return prefill_step(pool, tokens, row, pos0, last, ledger)
+
+    eng._decode_step, eng._prefill_step = decode, prefill
+    return snaps
+
+
+def tick_times(eng) -> dict:
+    """Mean ms of the engine's decode-only and prefill+decode ticks, from
+    its ``serve.tick`` spans."""
+    out = {}
+    spans = [e for e in eng.profiler.events.snapshot()
+             if e["name"] == "serve.tick" and "dur_ns" in e]
+    for label, keep in (
+            ("decode_only", lambda a: not a["prefill"] and a["n_decode"]),
+            ("prefill_only", lambda a: a["prefill"] and not a["n_decode"]),
+            ("prefill_and_decode", lambda a: a["prefill"] and a["n_decode"])):
+        durs = [e["dur_ns"] / 1e6 for e in spans if keep(e["attrs"])]
+        out[label] = {"ticks": len(durs),
+                      "mean_ms": sum(durs) / len(durs) if durs else None}
+    dec = [e["attrs"]["n_decode"] for e in spans if e["attrs"]["n_decode"]]
+    out["mean_decode_batch"] = sum(dec) / len(dec) if dec else None
+    return out
+
+
+def serving_path(dev, cfg, scfg, kernels) -> dict:
+    """``ServeEngine`` answers the seeded requests through the kernel; the
+    launch counts are zeroed just before ``run()`` and read just after."""
+    import torch
+    from fpga_ai_nic_tpu_torch import serve_llama
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.serve import ServeEngine
+    t0 = time.perf_counter()
+    params = serve_llama.random_params(cfg, SERVE_SEED, dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    prompts = serve_llama.make_prompts(SERVE_SEED + 1, N_REQUESTS,
+                                       PROMPT_MIN, PROMPT_MAX, cfg.vocab)
+    eng = ServeEngine(params, cfg, scfg, device=dev)
+    snaps = capture_steps(eng)
+    reqs = [eng.submit(p, MAX_NEW) for p in prompts]
+    for k in kernels.values():
+        k.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    s = eng.run()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    calls = s["prefill_calls"] + s["decode_calls"]
+    fresh = sum(1 for r in reqs if r.evictions == 0)
+    if s["completed"] != N_REQUESTS or any(
+            len(r.generated) != MAX_NEW
+            or not all(0 <= t < cfg.vocab for t in r.generated)
+            for r in reqs):
+        raise AssertionError("serving: not every request got its tokens")
+    if (s["recovery"]["faults"] or s["recovery"]["recoveries"]
+            or s["page_trips"] or s["logit_trips"]):
+        raise AssertionError(f"serving: faults or guard trips "
+                             f"{s['recovery']}, page_trips="
+                             f"{s['page_trips']}, logit_trips="
+                             f"{s['logit_trips']}")
+    if launches["paged_attend"] != cfg.n_layers * calls:
+        raise AssertionError(
+            f"paged_attend launched {launches['paged_attend']} times, "
+            f"expected {cfg.n_layers} x {calls} forward_paged calls")
+    req = s["requests"]
+    ticks = tick_times(eng)
+    emit(phase="serving_path", model=(
+        f"Llama (dim {cfg.dim}, {cfg.n_layers} layers, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, ffn {cfg.ffn_dim}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}), random weights"), requests=N_REQUESTS,
+         prompt_lens=[int(p.shape[0]) for p in prompts], max_new=MAX_NEW,
+         serve_config={f: getattr(scfg, f) for f in SERVE_SHAPE},
+         weight_init_s=init_s, wall_s=wall,
+         ticks=s["ticks"], prefill_calls=s["prefill_calls"],
+         decode_calls=s["decode_calls"], prefill_tokens=s["prefill_tokens"],
+         prefill_tok_s=s["prefill_tokens"] / wall,
+         decode_tok_s=(s["tokens_out"] - fresh) / wall,
+         output_tok_s=s["tokens_out"] / wall, tick_ms=ticks,
+         ttft_mean_s=req["ttft_mean_s"], ttft_p95_s=req["ttft_p95_s"],
+         tpot_mean_s=req["tpot_mean_s"], tpot_p95_s=req["tpot_p95_s"],
+         queue_wait_mean_s=req["queue_wait_mean_s"],
+         evictions=s["evictions"], pages_in_use_peak=s["pages_in_use_peak"],
+         pool_bytes=s["serve"]["pool_bytes"],
+         weight_bytes=llama.param_bytes(params),
+         peak_mem_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                      if dev.type == "cuda" else None),
+         launches=launches, recovery=s["recovery"],
+         page_trips=s["page_trips"], logit_trips=s["logit_trips"])
+    eng.pool = []                      # the pool is no longer needed
+    return {"params": params, "prompts": prompts, "reqs": reqs,
+            "snaps": snaps, "launches": launches, "summary": s,
+            "ticks": ticks}
+
+
+def _step(params, cfg, scfg, snap, pool, impl):
+    from fpga_ai_nic_tpu_torch.models import llama_decode
+    logits, _ = llama_decode.forward_paged(
+        params, snap["tokens"], pool, snap["table"], snap["pos"], cfg,
+        page_size=scfg.page_size, active=snap["active"], attend_impl=impl)
+    return logits
+
+
+def serving_profile(dev, cfg, scfg, run) -> dict:
+    """Where a tick's time goes: one decode and one prefill step (kernel
+    route, on the snapshotted operands) under torch.profiler, each step
+    timed alone, and the page-checksum pass timed alone."""
+    from fpga_ai_nic_tpu_torch.ops import integrity
+    params, snaps = run["params"], run["snaps"]
+    out = {"page_checksums_ms": cuda_ms(
+        lambda: integrity.page_checksums(snaps["decode"]["pool"]), 3)}
+    for kind in ("decode", "prefill"):
+        snap = snaps[kind]
+        step = (lambda snap=snap: _step(params, cfg, scfg, snap,
+                                        snap["pool"], "kernel"))
+        out[f"{kind}_step_ms"] = cuda_ms(step, 3)
+        out[f"{kind}_profile"] = profile_run(
+            "serving_profile", step, 2, step_kind=kind,
+            active_slots=(snap["key"] if kind == "decode" else 1),
+            pos0=(snap["key"] if kind == "prefill" else None))
+    # a decode-only tick runs the step plus two checksum passes (verify
+    # the input pool, record the output pool's ledger)
+    ticks = run["ticks"]
+    emit(phase="serving_breakdown",
+         page_checksums_ms=out["page_checksums_ms"],
+         decode_step_ms=out["decode_step_ms"],
+         prefill_step_ms=out["prefill_step_ms"],
+         decode_tick_device_model_ms=(out["decode_step_ms"]
+                                      + 2 * out["page_checksums_ms"]),
+         measured_decode_only_tick_ms=ticks.get("decode_only", {}).get(
+             "mean_ms"))
+    return out
+
+
+# The kernel route's bf16 logits may differ from the reference's by the
+# f32 sums' other order, carried through 32 bf16 layers; the fault controls
+# below, attention with a known fault on the same operands, must differ by
+# more than this limit, or the check could not see them.  On an H100 the
+# sound route differed by 0.078 (decode) and 0.086 (prefill), the weakest
+# control (last key dropped) by 0.59 and 0.36; the limit sits between, six
+# bf16 steps at the logits' magnitude (4 to 8).
+PARITY_LOGIT_TOL = 0.1875
+PARITY_CONTROLS = ("last_key_dropped", "newest_page_hidden", "pages_rotated")
+
+
+def _faulty_attend(attend, fault, page_size):
+    """``_cached_attend`` with one deliberate fault: each row's last visible
+    key hidden, its newest page_size keys hidden, or the gathered pages
+    rotated by one (a table off by one)."""
+    def run(q, ck, cv, pos, n_heads, n_kv, sm_scale):
+        if fault == "last_key_dropped":
+            pos = pos - 1
+        elif fault == "newest_page_hidden":
+            pos = pos - page_size
+        else:
+            ck, cv = ck.roll(page_size, 2), cv.roll(page_size, 2)
+        return attend(q, ck, cv, pos, n_heads, n_kv, sm_scale)
+    return run
+
+
+def serving_parity(dev, cfg, scfg, run) -> None:
+    """Kernel against the gathered-view reference on the snapshotted
+    operands: the largest logit error must stay within PARITY_LOGIT_TOL,
+    every fault control must exceed it, most rows' top-2 margin must exceed
+    the error, and there the argmax must agree.  Then the served streams
+    against the port's contiguous-cache ``generate()``, counted."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import llama_decode
+    params, snaps = run["params"], run["snaps"]
+    for kind in ("decode", "prefill"):
+        snap = snaps.pop(kind)
+
+        def rows(logits):
+            logits = logits.float().reshape(-1, cfg.vocab)
+            if snap["active"] is not None:
+                return logits[snap["active"].reshape(-1)]
+            return logits[:snap["rows"]]
+
+        lk = rows(_step(params, cfg, scfg, snap, _clone_pool(snap["pool"]),
+                        "kernel"))
+        controls = {}
+        attend = llama_decode._cached_attend
+        for fault in PARITY_CONTROLS:
+            llama_decode._cached_attend = _faulty_attend(attend, fault,
+                                                         scfg.page_size)
+            try:
+                controls[fault] = rows(_step(
+                    params, cfg, scfg, snap, _clone_pool(snap["pool"]),
+                    "reference"))
+            finally:
+                llama_decode._cached_attend = attend
+        lr = rows(_step(params, cfg, scfg, snap, snap["pool"], "reference"))
+        del snap["pool"]
+        err = float((lk - lr).abs().max())
+        control_err = {f: float((c - lr).abs().max())
+                       for f, c in controls.items()}
+        top2 = lr.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > err
+        agree = lk.argmax(-1) == lr.argmax(-1)
+        checks = {
+            "finite": bool(lk.isfinite().all()),
+            "err_within_tol": err <= PARITY_LOGIT_TOL,
+            "controls_above_tol": all(e > PARITY_LOGIT_TOL
+                                      for e in control_err.values()),
+            "most_rows_decided": 2 * int(decided.sum()) > lr.shape[0],
+            "argmax_equal_where_decided": bool(agree[decided].all()),
+        }
+        emit(phase="serving_parity", step=kind, rows=int(lr.shape[0]),
+             max_logit_err=err, tol=PARITY_LOGIT_TOL,
+             control_max_logit_err=control_err,
+             ref_logit_absmax=float(lr.abs().max()),
+             rows_with_margin_above_err=int(decided.sum()),
+             argmax_equal_all_rows=int(agree.sum()), checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"serving parity ({kind}) failed: {checks}")
+        del lk, lr, controls
+    equal, diverged = 0, []
+    for req, p in zip(run["reqs"], run["prompts"]):
+        prompt = torch.from_numpy(p).to(dev)
+        ref = llama_decode.generate(params, prompt[None], MAX_NEW, cfg)[
+            0, len(p):].tolist()
+        if ref == req.generated:
+            equal += 1
+            continue
+        k = next(i for i, (a, b) in enumerate(zip(ref, req.generated))
+                 if a != b)
+        ctx = torch.cat([prompt, torch.tensor(ref[:k], dtype=torch.int32,
+                                              device=dev)])
+        cache = llama_decode.init_cache(cfg, 1, len(ctx), device=dev)
+        logits, _ = llama_decode.forward(params, ctx[None], cache, 0, cfg)
+        top2 = logits[0, -1].float().topk(2).values
+        diverged.append({"uid": req.uid, "prompt_len": len(p), "at": k,
+                         "served": req.generated[k], "generate": ref[k],
+                         "generate_margin": float(top2[0] - top2[1])})
+    emit(phase="serving_vs_generate", streams=len(run["reqs"]),
+         token_equal=equal, first_divergences=diverged)
 
 
 def main() -> int:
@@ -129,7 +541,10 @@ def main() -> int:
     try:
         from fpga_ai_nic_tpu_torch import optim
         from fpga_ai_nic_tpu_torch.models import mlp
-        from fpga_ai_nic_tpu_torch.ops import _build, bfp_cuda, ring_cuda
+        from fpga_ai_nic_tpu_torch.models.llama import LlamaConfig
+        from fpga_ai_nic_tpu_torch.ops import (_build, bfp_cuda, paged_attend,
+                                               ring_cuda)
+        from fpga_ai_nic_tpu_torch.serve import ServeConfig
         from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
         from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
         from fpga_ai_nic_tpu_torch.utils.config import (
@@ -237,6 +652,8 @@ def main() -> int:
         del x, w, g_k, w_k, ag_k, ag_p
         torch.cuda.empty_cache()
 
+    paged = paged_checks(dev)
+
     # -- 3. small reference: card against CPU -----------------------------------
     coll = CollectiveConfig(impl="ring", compression=cfg, fused_kernel=True,
                             fused_optimizer=True)
@@ -330,9 +747,28 @@ def main() -> int:
     require_equal("main path replicas", [(new.replicas, rep_plain)])
     emit(phase="plain_step", masters_bitequal=True, replicas_bitequal=True)
     del g, new, w_plain, rep_plain
-    profile_steps(tr, state, batch)
+    held = [state]
 
-    # -- 5. the kernels line and the result ------------------------------------------
+    def train_step():
+        held[0], _ = tr.step(held[0], batch)
+
+    profile_run("profile", train_step, 2)
+    del tr, state, held, batch, ranks, reps
+    torch.cuda.empty_cache()
+
+    # -- 6-7. the serving path, its profile and its parity ------------------------
+    serve_kernels = dict(kernels, paged_attend=paged_attend.PAGED_ATTEND)
+    lcfg = LlamaConfig.llama3_8b()
+    srv = ServeConfig(**SERVE_SHAPE)
+    run = serving_path(dev, lcfg, srv, serve_kernels)
+    if any(k != 0 for name, k in run["launches"].items()
+           if name != "paged_attend"):
+        raise AssertionError(f"serving launched training kernels "
+                             f"{run['launches']}")
+    serving_profile(dev, lcfg, srv, run)
+    serving_parity(dev, lcfg, srv, run)
+
+    # -- 8. the kernels line and the result ------------------------------------------
     meta = {
         "bfp_encode": (PORT + "/csrc/bfp_codec.cu",
                        REF + "/ops/bfp_pallas.py:55"),
@@ -342,7 +778,15 @@ def main() -> int:
                            REF + "/ops/ring_pallas.py:777"),
         "ring_ag": (PORT + "/csrc/ring_ag.cu",
                     REF + "/ops/ring_pallas.py:1301"),
+        "paged_attend": (PORT + "/csrc/paged_attend.cu",
+                         REF + "/ops/paged_attend_pallas.py:112"),
     }
+    launches["paged_attend"] = run["launches"]["paged_attend"]
+    dec_row, pre_row = paged["decode GQA ps16"], paged["prefill GQA ps16"]
+    results["paged_attend"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in paged.values()),
+        "ms": dec_row["ms"], "plain_ms": dec_row["plain_ms"],
+        "bound": dec_row["bound"], "library_ms": dec_row["library_ms"]}
     also = {"ring_rs_update": REF + "/ops/ring_pallas.py:397",
             "ring_ag": REF + "/ops/ring_pallas.py:1144"}
     out = []
@@ -353,9 +797,18 @@ def main() -> int:
                "replaces": repl, "launches": launches[name],
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": None}
+               "bound_by": bound_by, "library_ms": r.get("library_ms")}
         if name in also:
             row["also_replaces"] = also[name]
+        if name == "paged_attend":
+            row.update(shape="decode GQA ps16 (R=16, H=32, kv=8, T=1)",
+                       library=LIBRARY_ROUTE, prefill_shape=(
+                           "prefill GQA ps16 (R=1, H=32, kv=8, T=256)"),
+                       prefill_ms=pre_row["ms"],
+                       prefill_plain_ms=pre_row["plain_ms"],
+                       prefill_bound_ms=pre_row["bound"][0],
+                       prefill_bound_by=pre_row["bound"][1],
+                       prefill_library_ms=pre_row["library_ms"])
         out.append(row)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

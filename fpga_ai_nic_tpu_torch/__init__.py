@@ -16,6 +16,14 @@ module names so each counterpart is easy to find:
   parallel/mesh.py      VirtualRanks: n ranks on one card, in loopback
   parallel/train.py     DPTrainer: per-rank grads, fused RS+update, AG
   train_mlp.py          the training driver (``python -m ...train_mlp``)
+  models/llama.py       Llama config, init, norms, rope (serving subset)
+  models/llama_decode.py  forward / forward_paged / generate
+  ops/paged_attend.py   paged gather-attend: CUDA kernel + plain version
+  ops/integrity.py      exact per-page KV-pool checksums
+  serve/                paged pool, scheduling rules, batcher, ServeEngine
+  runtime/ obs/         request intake, error classes, telemetry
+  utils/observability.py  Profiler and recovery stats
+  serve_llama.py        the serving driver (``python -m ...serve_llama``)
 
 Nothing here imports JAX or the JAX package.  Kernel sources live in
 ``csrc/`` and are built by ``nvcc`` at first use (``ops/_build.py``).

@@ -1,0 +1,214 @@
+"""Llama-3-family decoder: configuration, parameters and the shared pieces
+of the layer math — the subset of the JAX package's ``models/llama.py``
+that the serving path runs (``models/llama_decode.py`` composes them).
+
+The parameter tree keeps the JAX layout, so weights carry across unchanged
+(``params_from_jax``): ``{"tok_emb": [V, D], "final_norm": [D],
+"lm_head": [D, V], "layers": [{"attn_norm", "wq" [D, H*hd], "wk"/"wv"
+[D, kv*hd], "wo" [H*hd, D], "mlp_norm", "w1"/"w3" [D, F], "w2" [F, D]}]}``
+and a projection is ``h @ w``.  Only ``tp_axis=None`` is ported: tensor
+parallelism waits for the multi-card work.  MoE layers
+(``moe_experts > 0``) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+
+Params = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab: int = 128256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    ffn_dim: int = 14336
+    rope_theta: float = 500000.0
+    # Llama-3.1 rope scaling for context extension; 1.0 disables it
+    rope_scaling: float = 1.0
+    rope_old_context: int = 8192
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    moe_experts: int = 0               # > 0 raises NotImplementedError
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def tiny(vocab: int = 256, dim: int = 64, n_layers: int = 2,
+             n_heads: int = 4, n_kv_heads: int = 2, ffn_dim: int = 128,
+             dtype: str = "float32") -> "LlamaConfig":
+        return LlamaConfig(vocab=vocab, dim=dim, n_layers=n_layers,
+                           n_heads=n_heads, n_kv_heads=n_kv_heads,
+                           ffn_dim=ffn_dim, dtype=dtype)
+
+
+def _no_moe(cfg: LlamaConfig) -> None:
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "MoE layers (moe_experts > 0) are not ported yet")
+
+
+def init(generator: torch.Generator, cfg: LlamaConfig,
+         device: DeviceLike = "cuda") -> Params:
+    """Random weights with the JAX package's fan-in scaling (normal times
+    sqrt(1 / fan_in), drawn in f32, cast to ``cfg.dtype``), norms at one.
+    Drawn on ``generator``'s device — give it the card's device for the
+    full-size model — then placed on ``device``.  Torch's generator is not
+    JAX's: the same seed gives other weights (carry JAX's across with
+    ``params_from_jax``)."""
+    _no_moe(cfg)
+    dev = resolve_device(device)
+    dt = cfg.torch_dtype
+    D, Hd = cfg.dim, cfg.head_dim
+
+    def dense(fan_in: int, shape: Tuple[int, ...]) -> torch.Tensor:
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (w * math.sqrt(1.0 / fan_in)).to(dev, dt)
+
+    def ones() -> torch.Tensor:
+        return torch.ones((D,), dtype=dt, device=dev)
+
+    params: Params = {"tok_emb": dense(D, (cfg.vocab, D)),
+                      "final_norm": ones(),
+                      "lm_head": dense(D, (D, cfg.vocab)),
+                      "layers": []}
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_norm": ones(),
+            "wq": dense(D, (D, cfg.n_heads * Hd)),
+            "wk": dense(D, (D, cfg.n_kv_heads * Hd)),
+            "wv": dense(D, (D, cfg.n_kv_heads * Hd)),
+            "wo": dense(cfg.n_heads * Hd, (cfg.n_heads * Hd, D)),
+            "mlp_norm": ones(),
+            "w1": dense(D, (D, cfg.ffn_dim)),
+            "w3": dense(D, (D, cfg.ffn_dim)),
+            "w2": dense(cfg.ffn_dim, (cfg.ffn_dim, D)),
+        })
+    return params
+
+
+def params_from_jax(tree: Params, device: DeviceLike = "cuda") -> Params:
+    """The JAX package's parameter pytree, with numpy arrays at its leaves
+    (``jax.tree_util.tree_map(np.asarray, params)``), as this port's tree:
+    same keys, layout and values (bfloat16 leaves keep their bits)."""
+    dev = resolve_device(device)
+
+    def leaf(a: Any) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":       # numpy's ml_dtypes bfloat16
+            bits = torch.from_numpy(np.array(a).view(np.int16))
+            return bits.view(torch.bfloat16).to(dev)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    out: Params = {k: leaf(v) for k, v in tree.items() if k != "layers"}
+    if any("moe" in lyr for lyr in tree["layers"]):
+        raise NotImplementedError("MoE layers are not ported yet")
+    out["layers"] = [{k: leaf(v) for k, v in lyr.items()}
+                     for lyr in tree["layers"]]
+    return out
+
+
+def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in f32, cast back to ``x.dtype`` BEFORE the weight multiply
+    (as the JAX code does)."""
+    xf = x.to(torch.float32)
+    scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * scale).to(x.dtype) * w
+
+
+def _rope_freqs(cfg: LlamaConfig, half: int,
+                device: DeviceLike = "cpu") -> torch.Tensor:
+    """Inverse frequencies, NTK-scaled by the Llama-3.1 recipe when
+    ``rope_scaling != 1``: wavelengths longer than old_context/low_factor
+    are divided by rope_scaling, shorter than old_context/high_factor are
+    kept, the band between interpolates linearly in 1/wavelength."""
+    freqs = cfg.rope_theta ** (
+        -torch.arange(half, dtype=torch.float32, device=device) / half)
+    if cfg.rope_scaling == 1.0:
+        return freqs
+    wavelen = 2.0 * math.pi / freqs
+    low = cfg.rope_old_context / cfg.rope_low_freq_factor     # long cutoff
+    high = cfg.rope_old_context / cfg.rope_high_freq_factor   # short cutoff
+    if cfg.rope_low_freq_factor == cfg.rope_high_freq_factor:
+        smooth = torch.zeros_like(wavelen)
+    else:
+        smooth = torch.clamp(
+            (cfg.rope_old_context / wavelen - cfg.rope_low_freq_factor)
+            / (cfg.rope_high_freq_factor - cfg.rope_low_freq_factor),
+            0.0, 1.0)
+    scaled = freqs / cfg.rope_scaling
+    mid = (1.0 - smooth) * scaled + smooth * freqs
+    return torch.where(wavelen > low, scaled,
+                       torch.where(wavelen < high, freqs, mid))
+
+
+def _rope(x: torch.Tensor, pos: torch.Tensor,
+          cfg: LlamaConfig) -> torch.Tensor:
+    """Rotate-half rope. x: [B, H, S, dh]; pos: [S] global positions."""
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs(cfg, half, x.device)
+    ang = pos.to(torch.float32)[:, None] * freqs[None, :]       # [S, half]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def _shard_counts(cfg: LlamaConfig,
+                  tp_axis: Optional[str] = None) -> Tuple[int, int]:
+    """(n_heads, n_kv) per rank; only ``tp_axis=None`` (one rank) is
+    ported."""
+    if tp_axis is not None:
+        raise NotImplementedError(
+            "tensor parallelism (tp_axis) is not ported yet")
+    return cfg.n_heads, cfg.n_kv_heads
+
+
+def _positions(S: int, sp_axis: Optional[str] = None,
+               device: DeviceLike = "cpu") -> torch.Tensor:
+    """int32 [S] positions 0..S-1 (``sp_axis=None`` only)."""
+    if sp_axis is not None:
+        raise NotImplementedError(
+            "sequence parallelism (sp_axis) is not ported yet")
+    return torch.arange(S, dtype=torch.int32, device=device)
+
+
+def num_params(cfg: LlamaConfig) -> int:
+    _no_moe(cfg)
+    D, Hd = cfg.dim, cfg.head_dim
+    ffn = 3 * D * cfg.ffn_dim
+    per_layer = (2 * D + D * cfg.n_heads * Hd + 2 * D * cfg.n_kv_heads * Hd
+                 + cfg.n_heads * Hd * D + ffn)
+    return cfg.vocab * D * 2 + D + cfg.n_layers * per_layer
+
+
+def param_bytes(params: Params) -> int:
+    """Bytes the parameter tree holds."""
+    total = sum(t.numel() * t.element_size()
+                for k, t in params.items() if k != "layers")
+    return total + sum(t.numel() * t.element_size()
+                       for lyr in params["layers"] for t in lyr.values())

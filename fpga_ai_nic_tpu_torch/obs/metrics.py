@@ -1,0 +1,109 @@
+"""Serving-plane request telemetry — the port's own copy of
+``RequestSpans`` and ``percentile`` from the JAX package's
+``obs/metrics.py`` (those need no JAX; the rest of that module, the in-graph
+training metrics, is not ported).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+from .events import EventStream
+
+__all__ = ["RequestSpans", "percentile"]
+
+
+def percentile(sorted_vals: List[float], q: float) -> float:
+    """Nearest-rank percentile over an ALREADY-SORTED list — tiny and
+    dependency-free so the gate tooling can share it.  An EMPTY series
+    returns NaN: the caller gets an explicitly not-a-number answer it
+    can flag (RequestSpans.summary's ``*_empty``) instead of an assert
+    that turns "no requests completed yet" into a crash in whatever
+    thread asked for a summary."""
+    assert 0.0 <= q <= 100.0, q
+    if not sorted_vals:
+        return float("nan")
+    idx = min(len(sorted_vals) - 1,
+              max(0, int(round(q / 100.0 * (len(sorted_vals) - 1)))))
+    return float(sorted_vals[idx])
+
+
+class RequestSpans:
+    """Per-request serving telemetry: bounded sample series for queue
+    wait, TTFT (submit -> first new token), TPOT (mean inter-token time
+    after the first) and total latency, plus one ``serve.request`` span
+    per completion on the event stream (lane="serve", request uid).
+
+    Bounded with honest overflow, same contract as the event ring: at
+    most ``max_samples`` per series, every further completion counted in
+    ``samples_dropped`` so a truncated summary can never read as
+    complete.  Thread-safe (the engine loop records; summaries may be
+    read from anywhere)."""
+
+    SERIES: Tuple[str, ...] = ("queue_wait_s", "ttft_s", "tpot_s",
+                               "latency_s")
+
+    def __init__(self, events: Optional[EventStream] = None,
+                 max_samples: int = 4096) -> None:
+        assert max_samples > 0
+        self.events = events
+        self.max_samples = int(max_samples)
+        self._series: Dict[str, List[float]] = {k: [] for k in self.SERIES}
+        self.completed = 0
+        self.samples_dropped = 0
+        self._lock = threading.Lock()
+
+    def record(self, uid: int, *, t_submit: float, t_admit: float,
+               t_first: float, t_done: float, n_tokens: int) -> None:
+        """One completed request (timestamps in perf_counter seconds)."""
+        vals = {"queue_wait_s": t_admit - t_submit,
+                "ttft_s": t_first - t_submit,
+                "tpot_s": ((t_done - t_first) / (n_tokens - 1)
+                           if n_tokens > 1 else 0.0),
+                "latency_s": t_done - t_submit}
+        with self._lock:
+            self.completed += 1
+            if len(self._series["latency_s"]) >= self.max_samples:
+                self.samples_dropped += 1
+            else:
+                for k, v in vals.items():
+                    self._series[k].append(float(v))
+        if self.events is not None:
+            self.events.emit(
+                "span", "serve.request", t_ns=int(t_submit * 1e9),
+                dur_ns=int((t_done - t_submit) * 1e9),
+                attrs={"lane": "serve", "uid": uid, "tokens": n_tokens,
+                       "ttft_s": round(vals["ttft_s"], 6),
+                       "tpot_s": round(vals["tpot_s"], 6),
+                       "queue_wait_s": round(vals["queue_wait_s"], 6)})
+
+    def summary(self) -> Dict[str, Any]:
+        """mean / p50 / p95 / p99 per series + completion/drop
+        accounting.
+        An empty series reports not-a-number stats WITH an explicit
+        ``<series>_empty: True`` flag — "no samples" must read as no
+        samples, never as a silently absent (or zero) latency row.  The
+        not-a-number spelling here is ``None`` (JSON null), NOT float
+        NaN: summaries land verbatim in banked JSON artifacts, and
+        ``json.dump`` would serialize NaN as a bare token strict
+        parsers reject."""
+        with self._lock:
+            series = {k: sorted(v) for k, v in self._series.items()}
+            completed, dropped = self.completed, self.samples_dropped
+        out: Dict[str, Any] = {"completed": completed,
+                               "samples_dropped": dropped}
+        for name, vals in series.items():
+            base = name[:-2] if name.endswith("_s") else name
+            if not vals:
+                out[f"{base}_empty"] = True
+                out[f"{base}_mean_s"] = None
+                out[f"{base}_p50_s"] = None
+                out[f"{base}_p95_s"] = None
+                out[f"{base}_p99_s"] = None
+                continue
+            out[f"{base}_mean_s"] = round(sum(vals) / len(vals), 6)
+            out[f"{base}_p50_s"] = round(percentile(vals, 50.0), 6)
+            out[f"{base}_p95_s"] = round(percentile(vals, 95.0), 6)
+            out[f"{base}_p99_s"] = round(percentile(vals, 99.0), 6)
+        return out
