@@ -12,6 +12,11 @@ Phases, each printing JSON lines:
      for a small payload (<= 4 MiB) and at full width, all bit for bit;
      paged_attend at decode (R=16, H=32, T=1) and prefill (R=1, T=256)
      shapes, GQA and MHA, page sizes 16 and 128, within 5e-5;
+     flash_fwd, flash_dq and flash_dkv at the training path's shape (B=1,
+     H=32, Hkv=8, S=4096, hd=128, causal, bf16) and a non-causal MHA
+     shape (S=1024), within a bf16 limit that two fault controls (the
+     causal mask shifted by one key; the backward at lse + 0.05) exceed,
+     timed beside PyTorch's scaled_dot_product_attention as a yardstick;
   3. a small reference: a 3-layer MLP, 4 ranks, 3 steps on the card against
      the same steps on the CPU (plain versions);
   4. the training path: ``DPTrainer`` on the canonical MLP (10 x 2048x2048,
@@ -31,7 +36,17 @@ Phases, each printing JSON lines:
      and with the gathered-view reference (logit error within a stated
      limit that three fault controls exceed); and the 24 streams against
      the port's contiguous-cache ``generate()``, counted;
-  8. the ``kernels`` line, then the last line
+  8. the Llama training path: ``ShardedTrainer`` as the ``train_llama``
+     driver builds it, Llama-3-8B width with 4 layers (random weights from
+     a seed), attn_block 512 on the flash kernels, sequence 4096, global
+     batch 2 over dp=2 virtual ranks, BFP ring kernels, SGD — 1 warm-up
+     and 5 timed steps, launch counts and equal replicas checked;
+  9. two more training steps under torch.profiler (flash kernels, ring and
+     BFP kernels, GEMMs, the rest);
+ 10. training parity: loss_fn's gradients on one rank's batch through the
+     kernels and through the checkpointed plain route, within a stated
+     limit that a fault control (one layer's mask shifted) exceeds;
+ 11. the ``kernels`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so the f32 GEMMs run in full float32.
@@ -51,6 +66,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 
 
 def emit(**kw) -> None:
@@ -71,8 +87,8 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, ops: float):
-    b, o = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound(bytes_moved: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
+    b, o = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(b, o), ("bytes" if b >= o else "operations")
 
 
@@ -89,9 +105,10 @@ def require_equal(name: str, pairs) -> None:
 
 PORT = "fpga_ai_nic_tpu_torch"
 REF = PORT.removesuffix("_torch")     # the JAX package's directory
-PORT_KERNELS = ("bfp_encode_kernel", "bfp_decode_kernel",
-                "ring_rs_hop_kernel", "ring_ag_hop_kernel",
-                "paged_attend_kernel")
+RING_KERNELS = ("bfp_encode_kernel", "bfp_decode_kernel",
+                "ring_rs_hop_kernel", "ring_ag_hop_kernel")
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+PORT_KERNELS = RING_KERNELS + ("paged_attend_kernel",) + FLASH_KERNELS
 GEMM_NAMES = ("gemm", "cutlass", "xmma", "sm90_", "nvjet")
 
 
@@ -101,10 +118,12 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def profile_run(phase: str, run, steps: int, **extra) -> dict:
-    """Device time of ``steps`` calls of ``run`` by group (the port's
-    kernels, GEMMs, the rest) and the device's idle share, from
-    torch.profiler; emits one line and returns the groups."""
+def profile_run(phase: str, run, steps: int, groups=None, **extra) -> dict:
+    """Device time of ``steps`` calls of ``run`` by group (``groups``:
+    name -> kernel-name substrings, by default the port's kernels; then
+    GEMMs and the rest) and the device's idle share, from torch.profiler;
+    emits one line and returns the groups."""
+    kernel_groups = groups or {"port_kernels": PORT_KERNELS}
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -116,7 +135,7 @@ def profile_run(phase: str, run, steps: int, **extra) -> dict:
             run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    groups = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {g: 0.0 for g in list(kernel_groups) + ["gemm", "other"]}
     by_name = {}
     for ev in prof.events():                  # device-side events only:
         if ev.device_type != DeviceType.CUDA:  # CPU ops would count their
@@ -126,8 +145,10 @@ def profile_run(phase: str, run, steps: int, **extra) -> dict:
     top = []
     for name, (ms, cnt) in by_name.items():
         low = name.lower()
-        if any(k in name for k in PORT_KERNELS):
-            groups["port_kernels"] += ms
+        group = next((g for g, keys in kernel_groups.items()
+                      if any(k in name for k in keys)), None)
+        if group is not None:
+            groups[group] += ms
         elif any(k in low for k in GEMM_NAMES):
             groups["gemm"] += ms
         else:
@@ -250,6 +271,140 @@ def paged_checks(dev) -> dict:
              library_ms=row["library_ms"], library_max_abs_err=lib_err)
         del q, pk, pv, table, pos, got, want
     return out
+
+
+# -- flash attention: kernels against plain, at the training path's shape -----
+
+FLASH_SHAPES = (          # name, B, H, n_kv, S, causal
+    ("path GQA causal S4096", 1, 32, 8, 4096, True),
+    ("MHA non-causal S1024", 1, 32, 32, 1024, False),
+)
+FLASH_LSE_SHIFT = 0.05    # fault control: the plain backward at lse + 0.05
+FLASH_LIBRARY = ("F.scaled_dot_product_attention(q, k, v, is_causal, "
+                 "enable_gqa) in bf16; its autograd backward for dq and "
+                 "dk/dv together")
+
+
+def flash_bound(kind, B, H, n_kv, S, causal):
+    """Each input read once, each output written once (bf16 tensors, f32
+    lse/delta) over the HBM rate, against the multiply-adds the visible
+    (row, key) pairs need over the bf16 tensor-core rate: 2, 3 and 4
+    products of depth hd per pair for the forward, dq and dk/dv."""
+    hd = 128
+    big, small, rows = B * H * S * hd * 2, B * n_kv * S * hd * 2, B * H * S * 4
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    moved, products = {
+        "flash_fwd": (2 * big + 2 * small + rows, 2),
+        "flash_dq": (3 * big + 2 * small + 2 * rows, 3),
+        "flash_dkv": (2 * big + 4 * small + 2 * rows, 4),
+    }[kind]
+    return bound(moved, 2 * products * hd * pairs, BF16_OPS_PER_S)
+
+
+def flash_checks(dev) -> dict:
+    """Each flash kernel against its plain version at every FLASH_SHAPES
+    entry, with the two fault controls that must exceed the limit; times
+    of kernel, plain version and the library's attention.  Returns the
+    rows by kernel, at the path's shape, with the largest errors over all
+    shapes."""
+    import torch
+    import torch.nn.functional as F
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    rows = {}
+    for si, (name, B, H, n_kv, S, causal) in enumerate(FLASH_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(300 + si)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+
+        q, k, v = rand(B, H, S, 128), rand(B, n_kv, S, 128), rand(
+            B, n_kv, S, 128)
+        do = rand(B, H, S, 128)
+        kw = dict(causal=causal, sm_scale=128 ** -0.5)
+        out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta)
+        got = {"out": out, "dq": fa.flash_dq_cuda(*args, **kw)}
+        got["dk"], got["dv"] = fa.flash_dkv_cuda(*args, **kw)
+        p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
+        want = {"out": p_out, "dq": fa.flash_dq_plain(*args, **kw)}
+        want["dk"], want["dv"] = fa.flash_dkv_plain(*args, **kw)
+        sync(dev)
+        ratio = {t: fa.tol_ratio(got[t], want[t]) for t in got}
+        err = {t: max_err([(got[t], want[t])]) for t in got}
+        equal = {t: float((got[t] == want[t]).float().mean()) for t in got}
+        lse_err = max_err([(lse, p_lse)])
+        # fault controls on the same inputs: the causal mask shifted by
+        # one key (forward), lse offset by a small constant (backward)
+        ctrl = {"out_mask_shifted": fa.tol_ratio(out, fa.flash_fwd_plain(
+            q, k, v, q_offset=1, **kw)[0]) if causal else None}
+        bad = (q, k, v, do, lse + FLASH_LSE_SHIFT, delta)
+        ctrl["dq_lse_offset"] = fa.tol_ratio(got["dq"],
+                                             fa.flash_dq_plain(*bad, **kw))
+        bdk, bdv = fa.flash_dkv_plain(*bad, **kw)
+        ctrl["dk_lse_offset"] = fa.tol_ratio(got["dk"], bdk)
+        ctrl["dv_lse_offset"] = fa.tol_ratio(got["dv"], bdv)
+        checks = {"finite": all(bool(t.float().isfinite().all())
+                                for t in got.values()),
+                  "within_tol": max(ratio.values()) <= 1.0,
+                  "lse_within_tol": lse_err <= fa.LSE_TOL,
+                  "controls_above_tol": all(c > 1.0 for c in ctrl.values()
+                                            if c is not None)}
+        del want, bdk, bdv
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(
+            qr, kr, vr, is_causal=causal, enable_gqa=H != n_kv)
+        times = {
+            "flash_fwd": (cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, **kw),
+                                  5),
+                          cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw),
+                                  2),
+                          cuda_ms(lambda: F.scaled_dot_product_attention(
+                              q, k, v, is_causal=causal,
+                              enable_gqa=H != n_kv), 10)),
+            "flash_dq": (cuda_ms(lambda: fa.flash_dq_cuda(*args, **kw), 5),
+                         cuda_ms(lambda: fa.flash_dq_plain(*args, **kw), 2),
+                         None),
+            "flash_dkv": (cuda_ms(lambda: fa.flash_dkv_cuda(*args, **kw), 5),
+                          cuda_ms(lambda: fa.flash_dkv_plain(*args, **kw),
+                                  2), None)}
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), do, retain_graph=True), 10)
+        for kern, (ms, plain_ms, lib_ms) in times.items():
+            b = flash_bound(kern, B, H, n_kv, S, causal)
+            terms = {"flash_fwd": ("out",), "flash_dq": ("dq",),
+                     "flash_dkv": ("dk", "dv")}[kern]
+            row = {"max_abs_err": max(err[t] for t in terms), "ms": ms,
+                   "plain_ms": plain_ms,
+                   "library_ms": lib_bwd if lib_ms is None else lib_ms,
+                   "bound": b}
+            prev = rows.get(kern)
+            if prev is None:
+                rows[kern] = row
+            else:
+                prev["max_abs_err"] = max(prev["max_abs_err"],
+                                          row["max_abs_err"])
+                prev.setdefault("other_shapes", {})[name] = row
+        emit(phase="kernel_check", kernel="flash_fwd/flash_dq/flash_dkv",
+             shape=name, B=B, H=H, n_kv=n_kv, S=S, hd=128, causal=causal,
+             tol=(f"|got - want| <= {fa.REL_TOL} |want| + {fa.FLOOR_TOL} "
+                  f"max|want|; lse within {fa.LSE_TOL}"),
+             tol_ratio=ratio, max_abs_err=err, bitequal_share=equal,
+             lse_max_abs_err=lse_err, control_tol_ratio=ctrl,
+             ms={kk: t[0] for kk, t in times.items()},
+             plain_ms={kk: t[1] for kk, t in times.items()},
+             library=FLASH_LIBRARY, library_fwd_ms=times["flash_fwd"][2],
+             library_bwd_ms=lib_bwd,
+             bound_ms={kk: flash_bound(kk, B, H, n_kv, S, causal)[0]
+                       for kk in times},
+             bound_by={kk: flash_bound(kk, B, H, n_kv, S, causal)[1]
+                       for kk in times}, checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"flash kernels ({name}) failed: {checks}")
+        del q, k, v, do, out, lse, delta, args, got, qr, kr, vr, lib_out
+        torch.cuda.empty_cache()
+    return rows
 
 
 # -- the serving path: Llama-3-8B through ServeEngine ----------------------------
@@ -532,7 +687,188 @@ def serving_parity(dev, cfg, scfg, run) -> None:
          token_equal=equal, first_divergences=diverged)
 
 
+# -- the Llama training path: ShardedTrainer at Llama-3-8B width ----------------
+
+TRAIN_ARGV = ["--model=llama3_8b", "--model.n_layers=4",
+              "--model.attn_block=512", "--model.attn_impl=auto",
+              "--seq=4096", "--global_batch=2", "--mesh.dp=2", "--iters=5",
+              "--collective.impl=ring",
+              "--collective.compression.codec=pallas",
+              "--collective.fused_kernel=true",
+              "--optimizer.kind=sgd", "--optimizer.learning_rate=0.1"]
+TRAIN_GROUPS = {"flash": FLASH_KERNELS, "ring_bfp": RING_KERNELS}
+
+
+def llama_train_path(dev, kernels) -> dict:
+    """``ShardedTrainer`` built by the ``train_llama`` driver's own
+    functions: one warm-up and ``--iters`` timed steps on seeded batches,
+    launch counts zeroed just before the first step and read after the
+    last; then two more steps under the profiler."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.models import llama
+    mcfg, cfg, seq, device = train_llama.parse(TRAIN_ARGV)
+    n = cfg.mesh.dp
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr, state = train_llama.build(mcfg, cfg, device)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    batches = [tr.shard_batch(b) for b in train_llama.batches(
+        mcfg, cfg, seq, cfg.iters + 3)]
+    for k in kernels.values():
+        k.launches = 0
+    state, loss = tr.step(state, batches[0])          # warm-up
+    losses = [float(loss)]
+    sync(dev)
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(cfg.iters + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for b, mark in zip(batches[1:cfg.iters + 1], marks[1:]):
+        state, loss = tr.step(state, b)
+        losses.append(loss)
+        mark.record()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses = [float(v) for v in losses]
+    launches = {name: k.launches for name, k in kernels.items()}
+    steps = cfg.iters + 1
+    per_step = {"flash_fwd": mcfg.n_layers * n, "flash_dq": mcfg.n_layers * n,
+                "flash_dkv": mcfg.n_layers * n, "ring_rs_update": n,
+                "ring_ag": n - 1, "bfp_encode": 1, "bfp_decode": n,
+                "paged_attend": 0}
+    for name, count in launches.items():
+        if count != steps * per_step[name]:
+            raise AssertionError(f"llama training: {name} launched {count} "
+                                 f"times, expected {steps} x "
+                                 f"{per_step[name]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"llama training: non-finite loss {losses}")
+    # no name but the state may hold its 15 GB of replicas: the profiled
+    # steps below allocate the next ones while it lives
+    if not bool((state.replicas == state.replicas[0]).all()):
+        raise AssertionError("llama training: replicas differ")
+    tokens = cfg.iters * cfg.global_batch * seq
+    emit(phase="llama_train_path", model=(
+        f"Llama-3-8B width (dim {mcfg.dim}, {mcfg.n_heads}/{mcfg.n_kv_heads} "
+        f"heads, ffn {mcfg.ffn_dim}, vocab {mcfg.vocab}, {mcfg.dtype}), "
+        f"{mcfg.n_layers} layers, attn_block {mcfg.attn_block}, "
+        f"attn_impl {mcfg.attn_impl}, random weights"),
+         params=llama.num_params(mcfg), seq=seq,
+         global_batch=cfg.global_batch, dp=n, collective=str(cfg.collective),
+         optimizer=str(cfg.optimizer), weight_init_s=init_s,
+         steps=cfg.iters, wall_s=wall, ms_per_step=1e3 * wall / cfg.iters,
+         step_ms=step_ms, tokens_per_sec=tokens / wall, losses=losses,
+         padded_len=int(state.w_own.numel()),
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         launches=launches, launches_per_step=per_step,
+         replicas_equal=True)
+    held = [state]
+    del state            # held[0] alone keeps the state each step replaces
+    extra = iter(batches[cfg.iters + 1:])
+
+    def train_step():
+        held[0], _ = tr.step(held[0], next(extra))
+
+    profile_run("llama_train_profile", train_step, 2, groups=TRAIN_GROUPS)
+    del tr, held, batches
+    torch.cuda.empty_cache()
+    return {"launches": launches, "mcfg": mcfg, "cfg": cfg, "seq": seq}
+
+
+# The kernel route's gradients differ from the plain route's by the f32
+# sums' other order inside attention, carried through four bf16 layers and
+# rounded to bf16; the fault control (one layer's causal mask shifted by
+# one key, on the plain route) must differ by more than the limit.
+PARITY_GRAD_REL_TOL = 0.05
+PARITY_LOSS_TOL = 2e-3
+
+
+def _shifted_mask_attention(q, k, v, *, causal=True, sm_scale=None,
+                            k_block=512, impl="xla"):
+    """The plain blocked route with every query row seeing one key past
+    itself (q positions shifted by one): a fault control."""
+    from torch.utils.checkpoint import checkpoint
+    from fpga_ai_nic_tpu_torch.ops import ring_attention as ra
+
+    def run(q2, k2, v2):
+        import torch
+        B, H, S, dh = q2.shape
+        m, l, o = ra._init_acc(B, H, S, dh, q2.device)
+        pos = torch.arange(S, device=q2.device) + 1
+        m, l, o = ra._attend_chunk(q2.float(), k2, v2, pos, 0, m, l, o,
+                                   dh ** -0.5, True, k_block)
+        return ra._finish(o, l, q2.dtype)
+    return checkpoint(run, q, k, v, use_reentrant=False)
+
+
+def llama_train_parity(dev, run) -> None:
+    """``loss_fn``'s gradients on one rank's batch at the path's widths
+    and sequence, through the kernels (attn_impl="pallas") and the
+    checkpointed plain route ("xla"), compared as one flat vector; and the
+    plain route with layer 0's mask shifted, which must exceed the
+    limit."""
+    import dataclasses
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    mcfg, cfg, seq = run["mcfg"], run["cfg"], run["seq"]
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    params = llama.init(gen, mcfg, dev)
+    leaves = [t.requires_grad_() for t in fused_update.tree_leaves(params)]
+    toks, labels = next(train_llama.batches(mcfg, cfg, seq, 1))
+    batch = (toks[:1].to(dev), labels[:1].to(dev))
+
+    def grads(impl, hook=None):
+        c = dataclasses.replace(mcfg, attn_impl=impl)
+        orig = llama.flash_attention_remat
+        calls = [0]
+
+        def layer_attention(*a, **kw):
+            calls[0] += 1
+            return (hook if calls[0] == 1 else orig)(*a, **kw)
+        if hook is not None:
+            llama.flash_attention_remat = layer_attention
+        try:
+            loss = llama.loss_fn(params, batch, c)
+            return float(loss.detach()), torch.autograd.grad(loss, leaves)
+        finally:
+            llama.flash_attention_remat = orig
+
+    def dist(ga, gb):
+        return math.sqrt(sum(float((a.float() - b.float()).square().sum())
+                             for a, b in zip(ga, gb)))
+
+    l_k, g_k = grads("pallas")
+    l_p, g_p = grads("xla")
+    norm = math.sqrt(sum(float(g.float().square().sum()) for g in g_p))
+    rel = dist(g_k, g_p) / norm
+    del g_k
+    l_c, g_c = grads("xla", hook=_shifted_mask_attention)
+    rel_c = dist(g_c, g_p) / norm
+    checks = {"finite": all(math.isfinite(v) for v in (l_k, l_p, rel)),
+              "grad_within_tol": rel <= PARITY_GRAD_REL_TOL,
+              "loss_within_tol": abs(l_k - l_p) <= PARITY_LOSS_TOL,
+              "control_above_tol": rel_c > PARITY_GRAD_REL_TOL}
+    emit(phase="llama_train_parity", seq=seq, batch_rows=1,
+         loss_kernel=l_k, loss_plain=l_p, loss_diff=abs(l_k - l_p),
+         loss_tol=PARITY_LOSS_TOL, grad_rel_err=rel,
+         grad_tol=PARITY_GRAD_REL_TOL, grad_norm_plain=norm,
+         control_loss=l_c, control_grad_rel_err=rel_c, checks=checks)
+    del params, leaves, g_p, g_c
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"llama training parity failed: {checks}")
+
+
 def main() -> int:
+    # the Llama training phase holds about 60 GB at its peak and frees and
+    # reallocates 7-15 GB buffers every step; growable segments keep the
+    # allocator from fragmenting the card's 80 GB (set before CUDA starts)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -542,7 +878,8 @@ def main() -> int:
         from fpga_ai_nic_tpu_torch import optim
         from fpga_ai_nic_tpu_torch.models import mlp
         from fpga_ai_nic_tpu_torch.models.llama import LlamaConfig
-        from fpga_ai_nic_tpu_torch.ops import (_build, bfp_cuda, paged_attend,
+        from fpga_ai_nic_tpu_torch.ops import (_build, bfp_cuda,
+                                               flash_attention, paged_attend,
                                                ring_cuda)
         from fpga_ai_nic_tpu_torch.serve import ServeConfig
         from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
@@ -653,6 +990,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     paged = paged_checks(dev)
+    flash = flash_checks(dev)
 
     # -- 3. small reference: card against CPU -----------------------------------
     coll = CollectiveConfig(impl="ring", compression=cfg, fused_kernel=True,
@@ -757,7 +1095,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6-7. the serving path, its profile and its parity ------------------------
-    serve_kernels = dict(kernels, paged_attend=paged_attend.PAGED_ATTEND)
+    flash_kernels = {"flash_fwd": flash_attention.FLASH_FWD,
+                     "flash_dq": flash_attention.FLASH_DQ,
+                     "flash_dkv": flash_attention.FLASH_DKV}
+    serve_kernels = dict(kernels, paged_attend=paged_attend.PAGED_ATTEND,
+                         **flash_kernels)
     lcfg = LlamaConfig.llama3_8b()
     srv = ServeConfig(**SERVE_SHAPE)
     run = serving_path(dev, lcfg, srv, serve_kernels)
@@ -767,8 +1109,14 @@ def main() -> int:
                              f"{run['launches']}")
     serving_profile(dev, lcfg, srv, run)
     serving_parity(dev, lcfg, srv, run)
+    del run["params"], run["snaps"], run["reqs"]
+    torch.cuda.empty_cache()
 
-    # -- 8. the kernels line and the result ------------------------------------------
+    # -- 8-10. the Llama training path, its profile and its parity ----------------
+    train = llama_train_path(dev, serve_kernels)
+    llama_train_parity(dev, train)
+
+    # -- 11. the kernels line and the result -----------------------------------------
     meta = {
         "bfp_encode": (PORT + "/csrc/bfp_codec.cu",
                        REF + "/ops/bfp_pallas.py:55"),
@@ -780,8 +1128,17 @@ def main() -> int:
                     REF + "/ops/ring_pallas.py:1301"),
         "paged_attend": (PORT + "/csrc/paged_attend.cu",
                          REF + "/ops/paged_attend_pallas.py:112"),
+        "flash_fwd": (PORT + "/csrc/flash_attn.cu",
+                      REF + "/ops/flash_pallas.py:93"),
+        "flash_dq": (PORT + "/csrc/flash_attn.cu",
+                     REF + "/ops/flash_pallas.py:222"),
+        "flash_dkv": (PORT + "/csrc/flash_attn.cu",
+                      REF + "/ops/flash_pallas.py:267"),
     }
     launches["paged_attend"] = run["launches"]["paged_attend"]
+    for name in flash_kernels:
+        launches[name] = train["launches"][name]
+        results[name] = flash[name]
     dec_row, pre_row = paged["decode GQA ps16"], paged["prefill GQA ps16"]
     results["paged_attend"] = {
         "max_abs_err": max(r["max_abs_err"] for r in paged.values()),
@@ -809,6 +1166,9 @@ def main() -> int:
                        prefill_bound_ms=pre_row["bound"][0],
                        prefill_bound_by=pre_row["bound"][1],
                        prefill_library_ms=pre_row["library_ms"])
+        if name in flash_kernels:
+            row.update(shape=FLASH_SHAPES[0][0], library=FLASH_LIBRARY,
+                       launches_from="llama_train_path")
         out.append(row)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,19 @@
-"""Llama-3-family decoder: configuration, parameters and the shared pieces
-of the layer math — the subset of the JAX package's ``models/llama.py``
-that the serving path runs (``models/llama_decode.py`` composes them).
+"""Llama-3-family decoder: configuration, parameters, the layer math and
+the training loss — the port of the JAX package's ``models/llama.py``
+without its parallel axes (serving composes the shared pieces in
+``models/llama_decode.py``; training differentiates ``loss_fn``).
 
 The parameter tree keeps the JAX layout, so weights carry across unchanged
 (``params_from_jax``): ``{"tok_emb": [V, D], "final_norm": [D],
 "lm_head": [D, V], "layers": [{"attn_norm", "wq" [D, H*hd], "wk"/"wv"
 [D, kv*hd], "wo" [H*hd, D], "mlp_norm", "w1"/"w3" [D, F], "w2" [F, D]}]}``
-and a projection is ``h @ w``.  Only ``tp_axis=None`` is ported: tensor
-parallelism waits for the multi-card work.  MoE layers
-(``moe_experts > 0``) raise ``NotImplementedError``.
+and a projection is ``h @ w``.  Only one rank is ported: ``tp_axis``,
+``sp_axis``, ``ep_axis`` and ``dp_axis`` raise ``NotImplementedError``, as
+do MoE layers (``moe_experts > 0``) and ``remat=True``.  Attention follows
+``attn_block`` / ``attn_impl``: ``None`` is the direct softmax, a block
+size routes through ``ops.ring_attention.flash_attention_remat`` (the
+flash CUDA kernels for "pallas", or "auto" on the card; the checkpointed
+blocked torch path for "xla", or "auto" on the CPU).
 """
 
 from __future__ import annotations
@@ -19,8 +24,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..ops.ring_attention import (flash_attention_remat, full_attention,
+                                  pallas_route)
 
 Params = Dict[str, Any]
 
@@ -41,6 +49,13 @@ class LlamaConfig:
     rope_high_freq_factor: float = 4.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
+    # flash-blocked single-device attention: score memory O(S * attn_block)
+    # instead of full_attention's O(S^2); None keeps the direct softmax
+    attn_block: Optional[int] = None
+    # which flash implementation backs attn_block: "auto" = the CUDA
+    # kernels on the card, the blocked torch path on the CPU;
+    # "pallas" / "xla" pin one (pallas_route)
+    attn_impl: str = "auto"
     moe_experts: int = 0               # > 0 raises NotImplementedError
 
     @property
@@ -195,6 +210,98 @@ def _positions(S: int, sp_axis: Optional[str] = None,
         raise NotImplementedError(
             "sequence parallelism (sp_axis) is not ported yet")
     return torch.arange(S, dtype=torch.int32, device=device)
+
+
+def _block(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
+           cfg: LlamaConfig, n_heads: int, n_kv: int) -> torch.Tensor:
+    """One decoder layer: pre-norm attention + SwiGLU (dense; the JAX
+    layer's MoE load-balance term is 0 without experts)."""
+    B, S = x.shape[:2]
+    Hd = cfg.head_dim
+    h = _rmsnorm(x, lyr["attn_norm"], cfg.norm_eps)
+    q = (h @ lyr["wq"]).reshape(B, S, n_heads, Hd).transpose(1, 2)
+    k = (h @ lyr["wk"]).reshape(B, S, n_kv, Hd).transpose(1, 2)
+    v = (h @ lyr["wv"]).reshape(B, S, n_kv, Hd).transpose(1, 2)
+    q = _rope(q, pos, cfg)
+    k = _rope(k, pos, cfg)
+    if n_kv != n_heads and not (cfg.attn_block is not None
+                                and pallas_route(cfg.attn_impl, q)):
+        # GQA: the flash kernels read grouped K/V; the torch paths'
+        # einsums take the repeat-expanded copy (head h reads KV h // G)
+        k = k.repeat_interleave(n_heads // n_kv, dim=1)
+        v = v.repeat_interleave(n_heads // n_kv, dim=1)
+    if cfg.attn_block is not None:
+        att = flash_attention_remat(q, k, v, causal=True,
+                                    k_block=cfg.attn_block,
+                                    impl=cfg.attn_impl)
+    else:
+        att = full_attention(q, k, v, causal=True)
+    att = att.transpose(1, 2).reshape(B, S, n_heads * Hd)
+    x = x + att @ lyr["wo"]
+    h = _rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
+    gate = F.silu((h @ lyr["w1"]).to(torch.float32)).to(x.dtype)
+    ff = (gate * (h @ lyr["w3"])) @ lyr["w2"]
+    return x + ff
+
+
+def apply(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
+          tp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
+          ep_axis: Optional[str] = None,
+          remat: bool = False) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, vocab] in the model dtype."""
+    if remat:
+        raise NotImplementedError(
+            "remat (per-block activation recomputation) is not ported yet: "
+            "ROADMAP A.6")
+    if ep_axis is not None:
+        raise NotImplementedError(
+            "expert parallelism (ep_axis) is not ported yet")
+    _no_moe(cfg)
+    B, S = tokens.shape
+    n_heads, n_kv = _shard_counts(cfg, tp_axis)
+    pos = _positions(S, sp_axis, tokens.device)
+    x = params["tok_emb"][tokens.long()]                    # [B, S, D]
+    for lyr in params["layers"]:
+        x = _block(lyr, x, pos, cfg, n_heads, n_kv)
+    x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["lm_head"]
+
+
+def _token_nll(logits: torch.Tensor,
+               safe_labels: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL [B, S] from f32 log-softmax."""
+    logz = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -logz.gather(-1, safe_labels.long()[..., None])[..., 0]
+
+
+def _weighted_loss(local_sum: torch.Tensor,
+                   count: torch.Tensor) -> torch.Tensor:
+    """Token-weighted mean over one rank's tokens."""
+    return local_sum / torch.clamp(count, min=1)
+
+
+def loss_fn(params: Params, batch, cfg: LlamaConfig, *,
+            tp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
+            dp_axis: Optional[str] = None, ep_axis: Optional[str] = None,
+            remat: bool = False) -> torch.Tensor:
+    """Next-token cross-entropy.  batch = (tokens, labels), both [B, S];
+    labels are the shifted targets, -100 entries ignored.  ``dp_axis``
+    raises: the trainer's uniform dp average equals the JAX dp_axis
+    weighting when every label is valid, as in the training driver."""
+    if dp_axis is not None:
+        raise NotImplementedError(
+            "dp_axis (the masked-label dp weighting inside a sharded "
+            "program) is not ported; ShardedTrainer averages per-rank "
+            "gradients")
+    tokens, labels = batch
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logits = apply(params, tokens, cfg, tp_axis=tp_axis, sp_axis=sp_axis,
+                   ep_axis=ep_axis, remat=remat)
+    nll = torch.where(valid, _token_nll(logits, safe),
+                      torch.zeros((), dtype=torch.float32,
+                                  device=logits.device))
+    return _weighted_loss(nll.sum(), valid.sum())
 
 
 def num_params(cfg: LlamaConfig) -> int:

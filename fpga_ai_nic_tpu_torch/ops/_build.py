@@ -30,7 +30,8 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 HEADERS = ("bfp.cuh",)
-SOURCES = ("bfp_codec.cu", "ring_rs.cu", "ring_ag.cu", "paged_attend.cu")
+SOURCES = ("bfp_codec.cu", "ring_rs.cu", "ring_ag.cu", "paged_attend.cu",
+           "flash_attn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-ftz=false", "-prec-div=true", "-prec-sqrt=true")

@@ -1,0 +1,337 @@
+"""Flash attention, forward and backward — the port of the JAX package's
+``ops/flash_pallas.py``.
+
+``flash_attention`` is differentiable through ``_FlashFunction``, whose
+forward keeps ``lse`` and whose backward recomputes ``p`` from it, as the
+JAX ``custom_vjp`` does.  Each of its three steps
+has a plain version here that repeats the kernels' arithmetic in torch
+(``flash_fwd_plain``, ``flash_dq_plain``, ``flash_dkv_plain``) and a CUDA
+kernel in ``csrc/flash_attn.cu``.  A tensor on the CPU takes the plain
+version; a tensor on CUDA launches the kernel or raises.  There is no
+fallback between the two.  ``FLASH_FWD``, ``FLASH_DQ`` and ``FLASH_DKV``
+count kernel launches.
+
+Layouts: q is ``[B, H, Sq, hd]``, k and v are ``[B, Hkv, Sk, hd]`` with
+Hkv dividing H (GQA: query head h reads KV head ``h // (H // Hkv)``; K/V
+are never repeated, and dk/dv sum each group's query heads).  The kernels
+take bf16 tensors at head_dim 128 with Sq and Sk multiples of ``TILE``;
+``block_q``/``block_k`` are the TPU kernels' VMEM tiling and only set the
+plain versions' key blocking here.  The q/k offsets of sequence
+parallelism and the BERT key bias have no caller yet and raise
+``NotImplementedError``.
+
+Numerics (``flash_pallas.py``'s contract): bf16 products summed in f32,
+``p`` and ``ds`` kept in f32 through every product, one rounding to the
+output dtype at the end.  Kernel and plain version sum in different
+orders, so they agree to that rounding, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ._build import Kernel, ptr
+from .bfp_cuda import check_cuda
+
+LANES = 128
+TILE = 64                   # rows of a q or k tile in the CUDA kernels
+KERNEL_HEAD_DIM = 128       # Llama-3's; the kernels are built for it alone
+_NEG = -1e30
+_DEF_BLOCK = 512
+_SP_ITEM = "ROADMAP A.6 (sequence parallelism: ring_flash_attention)"
+_BIAS_ITEM = "ROADMAP A.6 (models/bert.py and its key_bias)"
+
+FLASH_FWD = Kernel("flash_fwd", "flash_attn.cu", "flash_fwd_launch",
+                   [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_float])
+FLASH_DQ = Kernel("flash_dq", "flash_attn.cu", "flash_dq_launch",
+                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                  + [ctypes.c_float])
+FLASH_DKV = Kernel("flash_dkv", "flash_attn.cu", "flash_dkv_launch",
+                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.c_float])
+
+
+REL_TOL = 2.0 ** -6          # two to four bf16 ulps of each element
+FLOOR_TOL = 2.0 ** -12       # of the tensor's largest magnitude
+LSE_TOL = 1e-4
+
+
+def tol_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| / (REL_TOL * |want| + FLOOR_TOL * max|want|):
+    at most 1 where kernel and plain version agree.  Both sum in f32 in
+    other orders (relative differences near 1e-6) and round once to
+    bf16, which moves an element by at most one ulp; the floor covers
+    elements that cancel to near zero.  (``lse`` is f32 and held to
+    ``LSE_TOL`` absolute instead.)"""
+    g, w = got.double(), want.double()
+    limit = REL_TOL * w.abs() + FLOOR_TOL * float(w.abs().max())
+    return float(((g - w).abs() / limit).max())
+
+
+def supported(q_shape, dtype=None, kv_seq_len=None) -> bool:
+    """Can the fused kernels take this attention?  [B,H,S,dh] with S a
+    lane multiple (blocks divide S exactly) and a lane-friendly head dim.
+    ``kv_seq_len`` (Sk, when it differs from Sq) must be a lane multiple
+    too.  The JAX package's predicate, unchanged; the CUDA kernels accept
+    a subset of it (bf16, head_dim 128) and raise on the rest."""
+    if len(q_shape) != 4:
+        return False
+    S, dh = q_shape[2], q_shape[3]
+    if kv_seq_len is not None and kv_seq_len % LANES != 0:
+        return False
+    return S % LANES == 0 and dh % 8 == 0 and dh <= 256
+
+
+def _grouped(t: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """[B, H, S, d] -> f32 [B, Hkv, G, S, d] (a view where possible)."""
+    B, H = t.shape[:2]
+    return t.to(torch.float32).reshape(B, Hkv, H // Hkv, *t.shape[2:])
+
+
+def _causal_mask(Sq: int, k0: int, bk: int, q_offset: int,
+                 device) -> torch.Tensor:
+    """[Sq, bk] True where key k0 + j lies after query row q_offset + i."""
+    qpos = q_offset + torch.arange(Sq, device=device)
+    kpos = k0 + torch.arange(bk, device=device)
+    return kpos[None, :] > qpos[:, None]
+
+
+# -- plain versions -----------------------------------------------------------
+
+def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, sm_scale: float,
+                    block_k: int = _DEF_BLOCK, q_offset: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out [B, H, Sq, hd] in q's dtype, lse [B, H, Sq] f32)``: the
+    forward kernel's online softmax over key blocks of ``block_k``.
+    ``q_offset`` is the global position of q's first row (0 in every
+    caller; a nonzero one shifts the causal mask)."""
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    qf = _grouped(q, Hkv)
+    m = torch.full((*qf.shape[:-1], 1), _NEG, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, Sk, block_k):
+        kb = k[:, :, k0:k0 + block_k].to(torch.float32)
+        vb = v[:, :, k0:k0 + block_k].to(torch.float32)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb) * sm_scale
+        if causal:
+            s = s.masked_fill(_causal_mask(Sq, k0, kb.shape[2], q_offset,
+                                           q.device), _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vb)
+        m = m_new
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    out = (acc / safe).to(q.dtype).reshape(B, H, Sq, hd)
+    lse = (m + torch.log(safe)).reshape(B, H, Sq)
+    return out, lse
+
+
+def _bwd_block(q, k, v, do, lse, delta, k0, block_k, causal, sm_scale):
+    """p and ds of one key block, both f32 [B, Hkv, G, Sq, bk]."""
+    Hkv, Sq = k.shape[1], q.shape[2]
+    qf, dof = _grouped(q, Hkv), _grouped(do, Hkv)
+    kb = k[:, :, k0:k0 + block_k].to(torch.float32)
+    vb = v[:, :, k0:k0 + block_k].to(torch.float32)
+    lse_g = _grouped(lse[..., None], Hkv)
+    delta_g = _grouped(delta[..., None], Hkv)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb) * sm_scale
+    p = torch.exp(s - lse_g)
+    if causal:
+        p = p.masked_fill(_causal_mask(Sq, k0, kb.shape[2], 0, q.device),
+                          0.0)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vb)
+    ds = p * (dp - delta_g) * sm_scale
+    return p, ds, qf, dof, kb
+
+
+def flash_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                   *, causal: bool, sm_scale: float,
+                   block_k: int = _DEF_BLOCK) -> torch.Tensor:
+    """dq [B, H, Sq, hd] in q's dtype: p = exp(s - lse) recomputed per key
+    block, ds = p * (dp - delta) * sm_scale, dq = sum of ds . k in f32.
+    ``delta = rowsum(dO * O) - d_lse`` (f32 [B, H, Sq])."""
+    B, H, Sq, hd = q.shape
+    Hkv = k.shape[1]
+    dq = torch.zeros((B, Hkv, H // Hkv, Sq, hd), dtype=torch.float32,
+                     device=q.device)
+    for k0 in range(0, k.shape[2], block_k):
+        _, ds, _, _, kb = _bwd_block(q, k, v, do, lse, delta, k0, block_k,
+                                     causal, sm_scale)
+        dq += torch.einsum("bhgqk,bhkd->bhgqd", ds, kb)
+    return dq.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def flash_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                    *, causal: bool, sm_scale: float,
+                    block_k: int = _DEF_BLOCK
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) [B, Hkv, Sk, hd] in k's / v's dtype: per key block,
+    dk = sum over the group's query heads and rows of ds^T . q and
+    dv = sum of p^T . dO, in f32."""
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    for k0 in range(0, k.shape[2], block_k):
+        p, ds, qf, dof, _ = _bwd_block(q, k, v, do, lse, delta, k0, block_k,
+                                       causal, sm_scale)
+        dk[:, :, k0:k0 + block_k] = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
+        dv[:, :, k0:k0 + block_k] = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    return dk, dv
+
+
+# -- kernel launches ----------------------------------------------------------
+
+def _check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor) -> None:
+    """What the CUDA kernels take: bf16, head_dim 128, sequences in whole
+    tiles, contiguous CUDA tensors."""
+    hd = q.shape[-1]
+    if hd != KERNEL_HEAD_DIM or k.shape[-1] != hd:
+        raise ValueError(f"the flash kernels take head_dim "
+                         f"{KERNEL_HEAD_DIM}, got {hd}")
+    if q.shape[2] % TILE or k.shape[2] % TILE:
+        raise ValueError(f"the flash kernels need Sq and Sk multiples of "
+                         f"{TILE}, got {q.shape[2]} and {k.shape[2]}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        check_cuda(t, torch.bfloat16, name)
+
+
+def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, sm_scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel: ``(out bf16, lse f32)``."""
+    _check_kernel_operands(q, k, v)
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    FLASH_FWD(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), B * H, H // Hkv,
+              Sq, Sk, int(causal), float(sm_scale))
+    return out, lse
+
+
+def _check_bwd_operands(q, k, v, do, lse, delta) -> None:
+    _check_kernel_operands(q, k, v)
+    check_cuda(do, torch.bfloat16, "do")
+    for t, name in ((lse, "lse"), (delta, "delta")):
+        check_cuda(t, torch.float32, name)
+        if t.shape != q.shape[:3]:
+            raise ValueError(f"{name} must be {tuple(q.shape[:3])}, got "
+                             f"{tuple(t.shape)}")
+    if do.shape != q.shape:
+        raise ValueError(f"do must be {tuple(q.shape)}, got "
+                         f"{tuple(do.shape)}")
+
+
+def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool,
+                  sm_scale: float) -> torch.Tensor:
+    """The dq kernel: dq bf16 [B, H, Sq, hd]."""
+    _check_bwd_operands(q, k, v, do, lse, delta)
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    FLASH_DQ(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+             ptr(dq), B * H, H // Hkv, Sq, Sk, int(causal), float(sm_scale))
+    return dq
+
+
+def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool,
+                   sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel: (dk, dv) bf16 [B, Hkv, Sk, hd], each KV head's
+    group of query heads summed in the kernel."""
+    _check_bwd_operands(q, k, v, do, lse, delta)
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    FLASH_DKV(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+              ptr(dk), ptr(dv), B * Hkv, H // Hkv, Sq, Sk, int(causal),
+              float(sm_scale))
+    return dk, dv
+
+
+# -- dispatch: plain version on the CPU, kernel on CUDA -------------------------
+
+def _fwd(q, k, v, causal, sm_scale, block_k):
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale,
+                               block_k=block_k)
+    return flash_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
+def _bwd(q, k, v, do, lse, delta, causal, sm_scale, block_k):
+    if q.device.type == "cpu":
+        kw = dict(causal=causal, sm_scale=sm_scale, block_k=block_k)
+        return (flash_dq_plain(q, k, v, do, lse, delta, **kw),
+                *flash_dkv_plain(q, k, v, do, lse, delta, **kw))
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    return (flash_dq_cuda(q, k, v, do, lse, delta, **kw),
+            *flash_dkv_cuda(q, k, v, do, lse, delta, **kw))
+
+
+class _FlashFunction(torch.autograd.Function):
+    """``out`` of q, k, v; the backward recomputes p from the saved lse
+    with ``delta = rowsum(dO * O)``, as ``flash_pallas._bwd`` does for an
+    unused lse cotangent."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float, block_k: int):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = _fwd(q, k, v, causal, sm_scale, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, sm_scale, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        d_out = d_out.to(q.dtype).contiguous()
+        delta = (d_out.to(torch.float32) * out.to(torch.float32)).sum(-1)
+        dq, dk, dv = _bwd(q, k, v, d_out, lse, delta, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale: Optional[float] = None,
+                    block_q: int = _DEF_BLOCK, block_k: int = _DEF_BLOCK,
+                    q_offset: int = 0, k_offset: int = 0,
+                    key_bias: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Exact attention through the flash kernels, q: [B, H, Sq, hd], k/v:
+    [B, Hkv, Sk, hd] -> [B, H, Sq, hd] in q's dtype.  Differentiable; the
+    backward recomputes p from the saved lse, so residual memory is
+    O(B*H*Sq*(hd+1)), never O(S^2).  ``block_q`` is accepted for the JAX
+    signature and unused (the kernels tile by ``TILE``)."""
+    if q_offset or k_offset:
+        raise NotImplementedError(
+            f"flash_attention: q/k offsets are not ported ({_SP_ITEM})")
+    if key_bias is not None:
+        raise NotImplementedError(
+            f"flash_attention: key_bias is not ported ({_BIAS_ITEM})")
+    if not supported(q.shape):
+        raise ValueError(f"flash_attention: unsupported q shape "
+                         f"{tuple(q.shape)}")
+    H, hd = q.shape[1], q.shape[3]
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"n_heads={H} must be a multiple of kv heads={Hkv}")
+    if Sk % LANES != 0:
+        raise ValueError(
+            f"flash kernels need the K/V sequence length to be a multiple "
+            f"of {LANES} lanes, got Sk={Sk} (k/v shape {tuple(k.shape)}); "
+            "pad the keys or use the plain attention path")
+    if sm_scale is None:
+        sm_scale = hd ** -0.5
+    return _FlashFunction.apply(q, k, v, bool(causal), float(sm_scale),
+                                int(block_k))

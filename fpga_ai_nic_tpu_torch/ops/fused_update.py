@@ -23,7 +23,7 @@ and the kernels quantize in the same blocks.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,8 +34,11 @@ from .. import optim
 from ..utils.config import CollectiveConfig, OptimizerConfig, OptimizerSpec
 
 
+Path = Tuple[Union[str, int], ...]   # dict keys and list indices
+
+
 class FlatMeta(NamedTuple):
-    keys: Tuple[Tuple[str, int], ...]    # leaf paths, flattening order
+    keys: Tuple[Path, ...]               # leaf paths, flattening order
     shapes: Tuple[Tuple[int, ...], ...]
     dtypes: Tuple[torch.dtype, ...]
     sizes: Tuple[int, ...]
@@ -69,16 +72,50 @@ def wire_bytes_for(coll: CollectiveConfig, L: int, n: int,
     return ring_ops.wire_bytes_per_device(L, n, codec)
 
 
-def _leaves(tree: Dict[str, Sequence[Any]]) -> List[Tuple[Tuple[str, int],
-                                                          Any]]:
-    """(path, leaf) pairs of a ``{name: [leaf, ...]}`` tree in
-    ``jax.tree_util`` order: keys sorted, list order kept."""
-    return [((k, i), leaf) for k in sorted(tree)
-            for i, leaf in enumerate(tree[k])]
+def _leaves(tree: Any, path: Path = ()) -> List[Tuple[Path, Any]]:
+    """(path, leaf) pairs of a tree of dicts and lists in
+    ``jax.tree_util`` order: dict keys sorted, list order kept."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in _leaves(tree[k],
+                                                         path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, t in enumerate(tree)
+                for pl in _leaves(t, path + (i,))]
+    return [(path, tree)]
 
 
-def flat_meta(tree: Dict[str, Sequence[Any]], coll: CollectiveConfig,
-              n: int) -> FlatMeta:
+def tree_leaves(tree: Any) -> List[Any]:
+    return [leaf for _, leaf in _leaves(tree)]
+
+
+def tree_map(fn: Any, tree: Any) -> Dict[str, Any]:
+    pairs = _leaves(tree)
+    return tree_from_leaves(tuple(p for p, _ in pairs),
+                            [fn(leaf) for _, leaf in pairs])
+
+
+def tree_from_leaves(paths: Tuple[Path, ...], leaves: List[Any]
+                     ) -> Dict[str, Any]:
+    """Rebuild the tree of dicts and lists that ``_leaves`` walked."""
+    root: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node: Any = root
+        for key, nxt in zip(path[:-1], path[1:]):
+            if isinstance(node, list):
+                if key == len(node):
+                    node.append([] if isinstance(nxt, int) else {})
+                node = node[key]
+            else:
+                node = node.setdefault(key, [] if isinstance(nxt, int)
+                                       else {})
+        if isinstance(node, list):
+            node.append(leaf)
+        else:
+            node[path[-1]] = leaf
+    return root
+
+
+def flat_meta(tree: Any, coll: CollectiveConfig, n: int) -> FlatMeta:
     """Static flattening metadata of a parameter tree (tensors or numpy
     arrays; only shapes and dtypes are read)."""
     pairs = _leaves(tree)
@@ -93,32 +130,34 @@ def flat_meta(tree: Dict[str, Sequence[Any]], coll: CollectiveConfig,
                     total + (-total) % m)
 
 
-def flatten_tree(tree: Dict[str, Sequence[torch.Tensor]], meta: FlatMeta,
-                 out: torch.Tensor = None) -> torch.Tensor:
-    """Concatenate a tree into one flat f32 [padded_len] vector (into
-    ``out`` when given), zero-padded."""
-    leaves = [leaf for _, leaf in _leaves(tree)]
+def flatten_leaves(leaves: List[torch.Tensor], meta: FlatMeta,
+                   out: torch.Tensor = None) -> torch.Tensor:
+    """Copy leaves in tree order into one flat f32 [padded_len] vector
+    (into ``out`` when given), zero-padded, one leaf at a time."""
     if out is None:
         out = torch.empty(meta.padded_len, dtype=torch.float32,
                           device=leaves[0].device)
-    total = sum(meta.sizes)
-    torch.cat([leaf.reshape(-1).to(torch.float32) for leaf in leaves],
-              out=out[:total])
-    out[total:] = 0
+    off = 0
+    for leaf, size in zip(leaves, meta.sizes):
+        out[off:off + size].copy_(leaf.reshape(-1))
+        off += size
+    out[off:] = 0
     return out
 
 
-def unflatten_tree(flat: torch.Tensor, meta: FlatMeta
-                   ) -> Dict[str, List[torch.Tensor]]:
+def flatten_tree(tree: Any, meta: FlatMeta,
+                 out: torch.Tensor = None) -> torch.Tensor:
+    """Concatenate a tree into one flat f32 [padded_len] vector."""
+    return flatten_leaves(tree_leaves(tree), meta, out)
+
+
+def unflatten_tree(flat: torch.Tensor, meta: FlatMeta) -> Dict[str, Any]:
     """Inverse of flatten_tree.  f32 leaves are views of ``flat``."""
-    tree: Dict[str, List[torch.Tensor]] = {}
-    off = 0
-    for (k, _), shape, dtype, size in zip(meta.keys, meta.shapes,
-                                          meta.dtypes, meta.sizes):
-        tree.setdefault(k, []).append(
-            flat[off:off + size].view(shape).to(dtype))
+    leaves, off = [], 0
+    for shape, dtype, size in zip(meta.shapes, meta.dtypes, meta.sizes):
+        leaves.append(flat[off:off + size].view(shape).to(dtype))
         off += size
-    return tree
+    return tree_from_leaves(meta.keys, leaves)
 
 
 def init_master_shard(params_tree, coll: CollectiveConfig,

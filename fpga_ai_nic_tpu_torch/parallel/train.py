@@ -39,6 +39,31 @@ class TrainState(NamedTuple):
     step: int
 
 
+def per_rank_grads(loss_fn: Callable, replicas: torch.Tensor,
+                   meta: fused_update.FlatMeta, batch
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(flat_g [n, L_pad] f32, mean loss)``: rank i differentiates
+    ``loss_fn`` at its own replica ``replicas[i]`` (cast to the leaves'
+    dtypes) on its own shard ``tuple(b[i] for b in batch)``; each gradient
+    leaf is copied into its slot of the flat row as soon as it exists."""
+    n = replicas.shape[0]
+    flat_g = torch.empty((n, meta.padded_len), dtype=torch.float32,
+                         device=replicas.device)
+    losses: List[torch.Tensor] = []
+    for i in range(n):
+        leaves = [t.detach().requires_grad_() for t in
+                  fused_update.tree_leaves(
+                      fused_update.unflatten_tree(replicas[i], meta))]
+        params_i = fused_update.tree_from_leaves(meta.keys, leaves)
+        loss = loss_fn(params_i, tuple(b[i] for b in batch))
+        gs = torch.autograd.grad(loss, leaves)
+        del params_i, leaves
+        fused_update.flatten_leaves(list(gs), meta, out=flat_g[i])
+        del gs
+        losses.append(loss.detach())
+    return flat_g, torch.stack(losses).mean()
+
+
 class DPTrainer:
     """Per-rank gradients + fused collective over n virtual ranks.
 
@@ -78,8 +103,8 @@ class DPTrainer:
         """Split replicated params into the ranks' master shards; every
         rank starts from the given weights as they are."""
         coll, opt_cfg = self.cfg.collective, self.cfg.optimizer
-        params = {k: [t.to(self.ranks.device) for t in v]
-                  for k, v in params.items()}
+        params = fused_update.tree_map(lambda t: t.to(self.ranks.device),
+                                       params)
         w_own, opt_state, meta = fused_update.init_master_shard(
             params, coll, opt_cfg, self.n)
         self._meta = meta
@@ -95,46 +120,41 @@ class DPTrainer:
 
     def grads(self, state: TrainState, batch
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Per-rank backward: ``(flat_g [n, L_pad], mean loss)``.  Rank i
-        differentiates ``loss_fn`` at its own replica on its own shard."""
-        meta = self._meta
-        if meta is None:
+        """Per-rank backward: ``(flat_g [n, L_pad], mean loss)``."""
+        if self._meta is None:
             raise RuntimeError("call init_state first")
-        flat_g = torch.empty((self.n, meta.padded_len), dtype=torch.float32,
-                             device=state.w_own.device)
-        total = sum(meta.sizes)
-        losses: List[torch.Tensor] = []
-        for i in range(self.n):
-            tree = fused_update.unflatten_tree(state.replicas[i], meta)
-            leaves = [t.detach().requires_grad_()
-                      for k in sorted(tree) for t in tree[k]]
-            it = iter(leaves)
-            params_i = {k: [next(it) for _ in tree[k]] for k in sorted(tree)}
-            loss = self.loss_fn(params_i, tuple(b[i] for b in batch))
-            gs = torch.autograd.grad(loss, leaves)
-            torch.cat([g.reshape(-1).to(torch.float32) for g in gs],
-                      out=flat_g[i, :total])
-            losses.append(loss.detach())
-        flat_g[:, total:] = 0
-        return flat_g, torch.stack(losses).mean()
+        return per_rank_grads(self.loss_fn, state.replicas, self._meta,
+                              batch)
 
     def apply_grads(self, state: TrainState, flat_g: torch.Tensor
                     ) -> TrainState:
         """Phase 1 (reduce-scatter + update) and phase 2 (all-gather)."""
-        coll, opt_cfg = self.cfg.collective, self.cfg.optimizer
-        if coll.fused_optimizer:
-            _, w_new, opt_state = fused_update.reduce_scatter_update(
-                flat_g, state.w_own, state.opt_state, state.step, coll,
-                opt_cfg)
-        else:
-            g_own = fused_update.reduce_scatter(flat_g, coll) / self.n
-            g_own = optim.clip_by_global_norm(opt_cfg, g_own)
-            w_new, opt_state = optim.apply(opt_cfg, state.w_own, g_own,
-                                           state.opt_state, state.step)
-        replicas = fused_update.all_gather_flat(w_new, coll)
+        coll = self.cfg.collective
+        if not coll.fused_optimizer:
+            return self.update(
+                state, fused_update.reduce_scatter(flat_g, coll) / self.n)
+        _, w_new, opt_state = fused_update.reduce_scatter_update(
+            flat_g, state.w_own, state.opt_state, state.step, coll,
+            self.cfg.optimizer)
+        return self._gather(w_new, opt_state, state.step + 1)
+
+    def update(self, state: TrainState, g_own: torch.Tensor) -> TrainState:
+        """The unfused phase 1 after the reduce-scatter (clip, optimizer
+        on the owned shards ``g_own [n, C]``, already divided by n), then
+        phase 2."""
+        opt_cfg = self.cfg.optimizer
+        g_own = optim.clip_by_global_norm(opt_cfg, g_own)
+        w_new, opt_state = optim.apply(opt_cfg, state.w_own, g_own,
+                                       state.opt_state, state.step)
+        del g_own
+        return self._gather(w_new, opt_state, state.step + 1)
+
+    def _gather(self, w_new: torch.Tensor, opt_state: optim.OptState,
+                step: int) -> TrainState:
+        replicas = fused_update.all_gather_flat(w_new, self.cfg.collective)
         return TrainState(fused_update.unflatten_tree(replicas[0],
                                                       self._meta),
-                          replicas, w_new, opt_state, state.step + 1)
+                          replicas, w_new, opt_state, step)
 
     def step(self, state: TrainState, batch
              ) -> Tuple[TrainState, torch.Tensor]:

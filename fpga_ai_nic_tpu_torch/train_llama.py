@@ -1,0 +1,123 @@
+"""Llama training driver of the port — the counterpart of the JAX package's
+``examples/train_llama.py`` on its dp axis (no pipeline, tensor, sequence
+or expert parallelism yet).  Prints one JSON line: first and last loss,
+tokens/s, wall time, parameter count and mesh.
+
+Examples (on the card; ``--device=cpu`` runs the plain versions instead):
+  python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
+      --model.n_layers=4 --model.attn_block=512 --seq=4096 \\
+      --global_batch=2 --mesh.dp=2 --iters=3 \\
+      --collective.impl=ring --collective.compression.codec=pallas \\
+      --collective.fused_kernel=true
+  python -m fpga_ai_nic_tpu_torch.train_llama --model=tiny --device=cpu \\
+      --model.attn_block=128 --seq=128 --global_batch=4 --mesh.dp=2 \\
+      --iters=2
+
+Flags: ``--model=llama3_8b|tiny`` (default tiny) picks the base
+configuration and ``--model.<field>=`` overlays ``LlamaConfig`` fields;
+``--seq=`` (default 64) is the sequence length; ``--device=`` (default
+cuda; it raises when CUDA is absent); everything else goes to
+``TrainConfig``.  Batches are seeded uniform tokens, one per step, as
+the JAX driver's ``make_batch`` draws them; the first step is a warm-up
+outside the timed window.  The ranks of ``--mesh.dp`` are virtual ranks
+on one card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import time
+from typing import Iterator, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .models import llama
+from .models.llama import LlamaConfig
+from .parallel.mesh import make_ranks
+from .parallel.sharded import ShardedTrainer
+from .parallel.train import TrainState
+from .utils.config import TrainConfig, _declared_type, coerce_value, from_flags
+
+MODELS = {"llama3_8b": LlamaConfig.llama3_8b, "tiny": LlamaConfig.tiny}
+
+
+def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
+    """``(LlamaConfig, TrainConfig, seq, device)`` from the flags."""
+    model, seq, device = "tiny", 64, "cuda"
+    overlays: List[Tuple[str, str]] = []
+    rest: List[str] = []
+    for a in argv:
+        key, _, val = a.partition("=")
+        if key == "--model":
+            model = val
+        elif key.startswith("--model."):
+            overlays.append((key[len("--model."):], val))
+        elif key == "--seq":
+            seq = int(val)
+        elif key == "--device":
+            device = val
+        else:
+            rest.append(a)
+    if model not in MODELS:
+        raise ValueError(f"--model must be one of {sorted(MODELS)}")
+    mcfg = MODELS[model]()
+    for name, val in overlays:
+        if name not in {f.name for f in dataclasses.fields(mcfg)}:
+            raise ValueError(f"unknown LlamaConfig field {name!r}")
+        mcfg = dataclasses.replace(mcfg, **{name: coerce_value(
+            _declared_type(mcfg, name), val)})
+    return mcfg, from_flags(TrainConfig, rest), seq, device
+
+
+def batches(mcfg: LlamaConfig, cfg: TrainConfig, seq: int,
+            count: int) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """``count`` (tokens, labels) pairs, int32 [global_batch, seq]: uniform
+    tokens from numpy's generator seeded with ``cfg.seed``, labels the
+    tokens shifted by one."""
+    rng = np.random.default_rng(cfg.seed)
+    for _ in range(count):
+        toks = rng.integers(0, mcfg.vocab, (cfg.global_batch, seq + 1)
+                            ).astype(np.int32)
+        yield torch.from_numpy(toks[:, :-1]), torch.from_numpy(toks[:, 1:])
+
+
+def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str
+          ) -> Tuple[ShardedTrainer, TrainState]:
+    """The trainer over ``cfg.mesh.dp`` virtual ranks and its initial
+    state, from weights drawn on the device with seed ``cfg.seed``."""
+    ranks = make_ranks(cfg.mesh, device)
+    tr = ShardedTrainer(lambda p, b: llama.loss_fn(p, b, mcfg), ranks, cfg)
+    gen = torch.Generator(device=ranks.device).manual_seed(cfg.seed)
+    return tr, tr.init_state(llama.init(gen, mcfg, ranks.device))
+
+
+def main(argv: Sequence[str]) -> dict:
+    mcfg, cfg, seq, device = parse(argv)
+    dev = resolve_device(device)
+    tr, state = build(mcfg, cfg, device)
+    losses = []
+    t0 = 0.0
+    for i, batch in enumerate(batches(mcfg, cfg, seq, cfg.iters + 1)):
+        state, loss = tr.step(state, tr.shard_batch(batch))
+        losses.append(loss)
+        if i == 0:                       # warm-up: kernel builds
+            losses[0] = float(losses[0])
+            t0 = time.perf_counter()
+    losses = [float(v) for v in losses]  # waits for the device
+    wall = time.perf_counter() - t0
+    m = cfg.mesh
+    return {"loss_first": losses[0], "loss_last": losses[-1],
+            "tokens_per_sec": cfg.iters * cfg.global_batch * seq / wall,
+            "wall_s": wall, "params": llama.num_params(mcfg),
+            "mesh": {"dp": m.dp, "tp": m.tp, "sp": m.sp, "pp": m.pp,
+                     "ep": m.ep},
+            "device": (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu")}
+
+
+if __name__ == "__main__":
+    print(json.dumps(main(sys.argv[1:])))

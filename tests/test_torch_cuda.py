@@ -125,3 +125,61 @@ def test_paged_attend_kernel_vs_plain_on_card(cuda_device, shape):
     assert paged_attend.PAGED_ATTEND.launches == before + 1
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 5e-5
+
+
+FLASH_SHAPES = {
+    # name: B, H, n_kv, S, causal
+    "gqa_causal": (1, 8, 2, 256, True),
+    "gqa_noncausal": (1, 8, 2, 192, False),
+    "mha_causal": (2, 4, 4, 128, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_flash_kernels_vs_plain_on_card(cuda_device, shape):
+    """flash_fwd, flash_dq and flash_dkv against their plain versions on
+    the same bf16 card tensors (head_dim 128): out, dq, dk, dv within
+    ``flash_attention.tol_ratio`` <= 1, lse within LSE_TOL."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    B, H, n_kv, S, causal = FLASH_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(S + H)
+
+    def rand(*s):
+        return torch.randn(s, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+
+    q, k, v = rand(B, H, S, 128), rand(B, n_kv, S, 128), rand(B, n_kv, S, 128)
+    do = rand(B, H, S, 128)
+    kw = dict(causal=causal, sm_scale=128 ** -0.5)
+    counts = [fa.FLASH_FWD.launches, fa.FLASH_DQ.launches,
+              fa.FLASH_DKV.launches]
+    out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = fa.flash_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    p_dq = fa.flash_dq_plain(q, k, v, do, lse, delta, **kw)
+    p_dk, p_dv = fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert [fa.FLASH_FWD.launches, fa.FLASH_DQ.launches,
+            fa.FLASH_DKV.launches] == [c + 1 for c in counts]
+    assert float((lse - p_lse).abs().max()) <= fa.LSE_TOL
+    for name, a, b in (("out", out, p_out), ("dq", dq, p_dq),
+                       ("dk", dk, p_dk), ("dv", dv, p_dv)):
+        assert bool(torch.isfinite(a.float()).all()), name
+        assert fa.tol_ratio(a, b) <= 1.0, name
+
+
+@pytest.mark.cuda
+def test_flash_kernels_raise_on_unbuilt_operands(cuda_device):
+    """A CUDA tensor the kernels are not built for raises; it never takes
+    the plain version."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    f32 = torch.zeros((1, 2, 128, 128), device=cuda_device)
+    with pytest.raises(TypeError):
+        fa.flash_attention(f32, f32, f32)
+    hd64 = torch.zeros((1, 2, 128, 64), device=cuda_device,
+                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(hd64, hd64, hd64)

@@ -1,0 +1,170 @@
+"""The port's flash attention (``ops/flash_attention.py``) against the JAX
+package's Pallas kernels, run as the JAX tests run them on the CPU
+(``flash_pallas.flash_attention(..., interpret=True)``).
+
+On the CPU the port's entry takes the plain versions, which repeat the
+kernels' arithmetic in torch; the CUDA kernels themselves are held to
+those plain versions on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).  Inputs are seeded numpy arrays in f32, handed to
+both.  Tolerances are the JAX tests' own (``tests/test_flash_pallas.py``):
+2e-5 on the forward, atol 5e-5 / rtol 5e-4 on the gradients — both sides
+sum in f32, in different orders.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from fpga_ai_nic_tpu.ops import flash_pallas
+from fpga_ai_nic_tpu.ops import ring_attention as jax_ra
+from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+from fpga_ai_nic_tpu_torch.ops import ring_attention as ra
+
+DH = 64
+CASES = [(causal, heads, S) for causal in (True, False)
+         for heads in ("mha", "gqa") for S in (256, 384)]
+
+
+def _inputs(seed, heads, S, B=1):
+    H, Hkv = (8, 2) if heads == "gqa" else (2, 2)
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, S, DH)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, S, DH)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, S, DH)).astype(np.float32)
+    return q, k, v
+
+
+def _jax_flash(q, k, v, causal):
+    """JAX's (out, lse) through the Pallas kernels in interpret mode."""
+    return flash_pallas._flash4(q, k, v, 0, 0, None, causal, 128, 128,
+                                True, with_lse=True)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.asarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("causal,heads,S", CASES)
+def test_forward_plain_matches_pallas(causal, heads, S):
+    q, k, v = _inputs(1, heads, S)
+    out, lse = _jax_flash(*map(jnp.asarray, (q, k, v)), causal)
+    got_out, got_lse = fa.flash_fwd_plain(*_t(q, k, v), causal=causal,
+                                          sm_scale=DH ** -0.5, block_k=128)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(out),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("causal,heads,S", CASES)
+def test_backward_plain_matches_pallas_vjp(causal, heads, S):
+    """dq, dk, dv of the Pallas custom vjp for cotangents (dO, d_lse)
+    against flash_dq_plain / flash_dkv_plain given
+    delta = rowsum(dO * O) - d_lse."""
+    q, k, v = _inputs(2, heads, S)
+    rng = np.random.default_rng(3)
+    (out, lse), vjp = jax.vjp(lambda *a: _jax_flash(*a, causal),
+                              *map(jnp.asarray, (q, k, v)))
+    do = rng.standard_normal(out.shape).astype(np.float32)
+    d_lse = rng.standard_normal(lse.shape).astype(np.float32)
+    want = vjp((jnp.asarray(do), jnp.asarray(d_lse)))
+    tq, tk, tv, tdo, tdl = _t(q, k, v, do, d_lse)
+    t_out, t_lse = fa.flash_fwd_plain(tq, tk, tv, causal=causal,
+                                      sm_scale=DH ** -0.5, block_k=128)
+    delta = (tdo * t_out).sum(-1) - tdl
+    kw = dict(causal=causal, sm_scale=DH ** -0.5, block_k=128)
+    dq = fa.flash_dq_plain(tq, tk, tv, tdo, t_lse, delta, **kw)
+    dk, dv = fa.flash_dkv_plain(tq, tk, tv, tdo, t_lse, delta, **kw)
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5,
+                                   rtol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("causal,heads", [(c, h) for c in (True, False)
+                                          for h in ("mha", "gqa")])
+def test_autograd_matches_jax_grad(causal, heads):
+    """The public entry, differentiated by torch autograd, against
+    jax.grad of the Pallas route, with a nonlinear downstream loss."""
+    q, k, v = _inputs(4, heads, 256)
+
+    def loss_jax(q, k, v):
+        o = flash_pallas.flash_attention(q, k, v, causal=causal,
+                                         block_q=128, block_k=128,
+                                         interpret=True)
+        return jnp.sum(o * jnp.cos(o))
+
+    want = jax.grad(loss_jax, argnums=(0, 1, 2))(*map(jnp.asarray,
+                                                      (q, k, v)))
+    tq, tk, tv = [t.requires_grad_() for t in _t(q, k, v)]
+    o = fa.flash_attention(tq, tk, tv, causal=causal, block_q=128,
+                           block_k=128)
+    torch.sum(o * torch.cos(o)).backward()
+    for got, ref, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5,
+                                   rtol=5e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_blocked_torch_path_matches_jax_xla(causal):
+    """ops.ring_attention's blocked and direct torch paths against JAX's
+    (the "xla" route of flash_attention_remat)."""
+    q, k, v = _inputs(5, "mha", 384)
+    want = jax_ra.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                  causal=causal, k_block=128)
+    got = ra.flash_attention(*_t(q, k, v), causal=causal, k_block=128)
+    full = ra.full_attention(*_t(q, k, v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(full.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+SHAPES = [((2, 4, 256, 64), None), ((1, 1, 128, 128), None),
+          ((2, 4, 100, 64), None), ((2, 4, 256, 300), None),
+          ((2, 256, 64), None), ((2, 4, 256, 64), 128),
+          ((2, 4, 256, 64), 100), ((1, 32, 4096, 128), 4096)]
+
+
+@pytest.mark.parametrize("shape,kv_len", SHAPES)
+def test_supported_equals_jax(shape, kv_len):
+    assert fa.supported(shape, kv_seq_len=kv_len) == \
+        flash_pallas.supported(shape, kv_seq_len=kv_len)
+
+
+def test_raising_paths():
+    q = torch.zeros((1, 2, 256, 64))
+    kv = torch.zeros((1, 2, 100, 64))
+    with pytest.raises(ValueError, match="K/V sequence length"):
+        fa.flash_attention(q, kv, kv)
+    with pytest.raises(NotImplementedError, match="A.6"):
+        fa.flash_attention(q, q, q, q_offset=128)
+    with pytest.raises(NotImplementedError, match="A.6"):
+        fa.flash_attention(q, q, q, k_offset=128)
+    with pytest.raises(NotImplementedError, match="key_bias"):
+        fa.flash_attention(q, q, q, key_bias=torch.zeros((1, 256)))
+    with pytest.raises(ValueError, match="unsupported"):
+        fa.flash_attention(torch.zeros((1, 2, 100, 64)), q, q)
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+        ra.ring_attention(q, q, q, "sp")
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+        ra.gathered_attention(q, q, q, "sp")
+    odd = torch.zeros((1, 2, 100, 64))
+    with pytest.raises(ValueError, match="pinned"):
+        ra.flash_attention_remat(odd, odd, odd, impl="pallas")
+    with pytest.raises(ValueError, match="auto.pallas.xla"):
+        ra.flash_attention_remat(odd, odd, odd, impl="pallsa")
+
+
+def test_route_is_the_kernel_only_where_asked_or_on_the_card():
+    """"auto" on a CPU tensor takes the blocked torch path; "pallas"
+    pins the flash route (its plain versions on the CPU)."""
+    q = torch.zeros((1, 2, 256, 128))
+    assert not ra.pallas_route("auto", q)
+    assert ra.pallas_route("pallas", q)
+    assert not ra.pallas_route("xla", q)
+    before = fa.FLASH_FWD.launches
+    ra.flash_attention_remat(q, q, q, impl="pallas")
+    assert fa.FLASH_FWD.launches == before      # CPU: no kernel launch

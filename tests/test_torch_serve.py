@@ -239,7 +239,9 @@ def test_port_imports_without_jax():
     pkg = fpga_ai_nic_tpu_torch
     mods = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                   pkg.__name__ + ".")]
-    assert "fpga_ai_nic_tpu_torch.serve.engine" in mods
+    for m in ("serve.engine", "ops.flash_attention", "ops.ring_attention",
+              "parallel.sharded", "train_llama"):
+        assert f"fpga_ai_nic_tpu_torch.{m}" in mods, m
     mods.append("chip_smoke")
     code = textwrap.dedent(f"""
         import importlib, sys
