@@ -17,6 +17,9 @@ Phases, each printing JSON lines:
      shape (S=1024), within a bf16 limit that two fault controls (the
      causal mask shifted by one key; the backward at lse + 0.05) exceed,
      timed beside PyTorch's scaled_dot_product_attention as a yardstick;
+     int8_encode / int8_decode (sublane layout, block 16) at 10,240 and at
+     the int8 path's 41,963,520 elements, both roundings and seeds 0 and
+     7, bit for bit, with a control (seed 1 against seed 0 must differ);
   3. a small reference: a 3-layer MLP, 4 ranks, 3 steps on the card against
      the same steps on the CPU (plain versions);
   4. the training path: ``DPTrainer`` on the canonical MLP (10 x 2048x2048,
@@ -26,27 +29,35 @@ Phases, each printing JSON lines:
      plain collectives, whose masters must be bit-equal to the kernels';
   5. two more training steps under torch.profiler: device time by group
      (the port's kernels, GEMMs, the rest) and the device's idle share;
-  6. the serving path: ``ServeEngine`` on Llama-3-8B (all 32 layers, bf16,
+  6. the int8 codec path: ``DPTrainer`` on the canonical MLP at dp=2 (each
+     rank's chunk of 20,981,760 elements is whole (16, 128) tiles; at dp=8
+     it is not) with ``codec="int8"`` on the sublane kernels and fused SGD
+     — 1 warm-up and 5 timed steps, launch counts checked; one more step's
+     gradients through ``Int8Codec(plain=True)``, whose masters and
+     replicas must be bit-equal; a profile of two steps; then the codec
+     convergence eval (baseline, top-k with error feedback, int8) on the
+     eval MLP at dp=8 for 40 steps, which reports loss ratios;
+  7. the serving path: ``ServeEngine`` on Llama-3-8B (all 32 layers, bf16,
      random weights from a seed) answers 24 requests (prompts of 128-1024
      tokens, 32 new tokens each) over a 2049-page pool with 16 slots,
      page checksums on; launch counts and zero faults checked, then a
      profile of one decode and one prefill step;
-  7. serving parity: one decode step's and one prefill chunk's operands,
+  8. serving parity: one decode step's and one prefill chunk's operands,
      snapshotted during the run, through ``forward_paged`` with the kernel
      and with the gathered-view reference (logit error within a stated
      limit that three fault controls exceed); and the 24 streams against
      the port's contiguous-cache ``generate()``, counted;
-  8. the Llama training path: ``ShardedTrainer`` as the ``train_llama``
+  9. the Llama training path: ``ShardedTrainer`` as the ``train_llama``
      driver builds it, Llama-3-8B width with 4 layers (random weights from
      a seed), attn_block 512 on the flash kernels, sequence 4096, global
      batch 2 over dp=2 virtual ranks, BFP ring kernels, SGD — 1 warm-up
      and 5 timed steps, launch counts and equal replicas checked;
-  9. two more training steps under torch.profiler (flash kernels, ring and
+ 10. two more training steps under torch.profiler (flash kernels, ring and
      BFP kernels, GEMMs, the rest);
- 10. training parity: loss_fn's gradients on one rank's batch through the
+ 11. training parity: loss_fn's gradients on one rank's batch through the
      kernels and through the checkpointed plain route, within a stated
      limit that a fault control (one layer's mask shifted) exceeds;
- 11. the ``kernels`` line, then the last line
+ 12. the ``kernels`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so the f32 GEMMs run in full float32.
@@ -108,7 +119,9 @@ REF = PORT.removesuffix("_torch")     # the JAX package's directory
 RING_KERNELS = ("bfp_encode_kernel", "bfp_decode_kernel",
                 "ring_rs_hop_kernel", "ring_ag_hop_kernel")
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
-PORT_KERNELS = RING_KERNELS + ("paged_attend_kernel",) + FLASH_KERNELS
+INT8_KERNELS = ("int8_encode_kernel", "int8_decode_kernel")
+PORT_KERNELS = (RING_KERNELS + ("paged_attend_kernel",) + FLASH_KERNELS
+                + INT8_KERNELS)
 GEMM_NAMES = ("gemm", "cutlass", "xmma", "sm90_", "nvjet")
 
 
@@ -163,6 +176,205 @@ def profile_run(phase: str, run, steps: int, groups=None, **extra) -> dict:
          top=[{"ms": t, "name": nm, "count": c} for t, nm, c in top[:12]],
          **extra)
     return {"wall_ms": wall_ms, "device_ms": busy, **groups}
+
+
+# -- int8 codec: kernels against plain, at the int8 training path's shape ----
+
+INT8_PATH_ELEMS = 41_963_520   # canonical MLP at dp=2: both ranks, one call
+INT8_CASES = (("stochastic", 0), ("stochastic", 7), ("nearest", 0),
+              ("nearest", 7))
+
+
+def int8_inputs(dev, N, seed):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(N, generator=g, device=dev) * 3
+    x *= torch.pow(10.0, torch.randint(-3, 3, (N,), generator=g,
+                                       device=dev).float())
+    x[:16 * 128] = 0                  # a tile of all-zero blocks
+    x[5::131] *= 1e-39                # subnormals
+    x[7::97] = -0.0
+    return x
+
+
+def int8_checks(dev) -> dict:
+    """int8_encode / int8_decode against their plain versions, bit for bit,
+    at a small shape and the path's, both roundings and two seeds; the
+    control: seed 1 against seed 0 must differ.  Times at the path's
+    shape.  Returns the two rows of the kernels line."""
+    from fpga_ai_nic_tpu_torch.ops import int8_cuda
+    import torch
+    rows = {}
+    for label, N in (("small", 5 * 16 * 128), ("path", INT8_PATH_ELEMS)):
+        x = int8_inputs(dev, N, N % 1000)
+        for rounding, seed in INT8_CASES:
+            q, s = int8_cuda.int8_encode(x, 16, rounding, seed)
+            pq, ps = int8_cuda.int8_encode_plain(x, 16, rounding, seed)
+            require_equal(f"int8_encode {rounding} seed {seed}",
+                          [(q, pq), (s.view(torch.int16),
+                                     ps.view(torch.int16))])
+            d = int8_cuda.int8_decode(q, s)
+            require_equal(f"int8_decode {rounding} seed {seed}",
+                          [(d, int8_cuda.int8_decode_plain(pq, ps))])
+            del pq, ps, d
+        q0, s0 = int8_cuda.int8_encode(x, 16, "stochastic", 0)
+        q1, _ = int8_cuda.int8_encode(x, 16, "stochastic", 1)
+        control_diff = int((q0 != q1).sum())
+        if control_diff == 0:
+            raise AssertionError("int8 control: seeds 0 and 1 gave equal "
+                                 "bits, so the comparison cannot fail")
+        # encode reads 4 B and writes 1 + 2/16 B per element, decode the
+        # reverse; about 20 operations per element to encode (max, divide,
+        # the hash's 12 integer steps, add, floor, clip, convert), 2 to
+        # decode
+        enc_bound = bound(N * (4 + 1 + 2 / 16), 20 * N)
+        dec_bound = bound(N * (1 + 2 / 16 + 4), 2 * N)
+        enc_ms = cuda_ms(lambda: int8_cuda.int8_encode(x), 20, 3)
+        dec_ms = cuda_ms(lambda: int8_cuda.int8_decode(q0, s0), 20, 3)
+        enc_plain = cuda_ms(lambda: int8_cuda.int8_encode_plain(x), 3)
+        dec_plain = cuda_ms(lambda: int8_cuda.int8_decode_plain(q0, s0), 3)
+        emit(phase="kernel_check", kernel="int8_encode/int8_decode",
+             shape=label, elems=N, cases=[list(c) for c in INT8_CASES],
+             bitexact=True, control_seed1_vs_seed0_differing=control_diff,
+             encode_ms=enc_ms, decode_ms=dec_ms, encode_plain_ms=enc_plain,
+             decode_plain_ms=dec_plain, encode_bound_ms=enc_bound[0],
+             decode_bound_ms=dec_bound[0])
+        if label == "path":
+            rows = {"int8_encode": {"max_abs_err": 0.0, "ms": enc_ms,
+                                    "plain_ms": enc_plain,
+                                    "bound": enc_bound},
+                    "int8_decode": {"max_abs_err": 0.0, "ms": dec_ms,
+                                    "plain_ms": dec_plain,
+                                    "bound": dec_bound}}
+        del x, q0, s0, q1
+        torch.cuda.empty_cache()
+    return rows
+
+
+INT8_DP = 2
+INT8_OPTS = (("backend", "pallas"),)
+
+
+def int8_train_path(dev, kernels, sgd, batch_x, batch_y) -> dict:
+    """``DPTrainer`` on the canonical MLP at dp=2 with the int8 codec's
+    sublane kernels on the ring: one warm-up and five timed steps (CUDA
+    events), launch counts zeroed just before and read just after; then
+    ``int8_plain_step``: the same gradients through ``Int8Codec(plain=True)``
+    must give bit-equal masters and replicas; then a profile of two steps."""
+    import torch
+    from fpga_ai_nic_tpu_torch import compress
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (
+        CollectiveConfig, MeshConfig, MLPConfig, TrainConfig)
+    n, steps = INT8_DP, 5
+    mcfg = MLPConfig()
+
+    def trainer(opts):
+        cfg = TrainConfig(global_batch=batch_x.shape[0],
+                          mesh=MeshConfig(dp=n), optimizer=sgd,
+                          collective=CollectiveConfig(
+                              impl="ring", codec="int8", codec_opts=opts,
+                              fused_optimizer=True))
+        return DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg),
+                         VirtualRanks(n, dev), cfg)
+
+    tr = trainer(INT8_OPTS)
+    state = tr.init_state(mlp.init(torch.Generator().manual_seed(0), mcfg,
+                                   dev))
+    L = state.w_own.numel()
+    if L != INT8_PATH_ELEMS or (L // n) % (16 * 128):
+        raise AssertionError(f"int8 path: padded length {L}")
+    batch = tr.shard_batch((batch_x, batch_y))
+    for k in kernels.values():
+        k.launches = 0
+    state, loss = tr.step(state, batch)           # warm-up
+    losses = [loss]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    sync(dev)
+    t0 = time.perf_counter()
+    marks[0].record()
+    for mark in marks[1:]:
+        state, loss = tr.step(state, batch)
+        losses.append(loss)
+        mark.record()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses = [float(v) for v in losses]
+    # one reduce-scatter hop (1 encode, 1 decode) and the gather's single
+    # encode with n decodes
+    per_step = {name: 0 for name in kernels}
+    per_step.update(int8_encode=2, int8_decode=n + 1)
+    for name, count in launches.items():
+        if count != (steps + 1) * per_step[name]:
+            raise AssertionError(f"int8 path: {name} launched {count} times, "
+                                 f"expected {steps + 1} x {per_step[name]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"int8 path: non-finite loss {losses}")
+    replicas_equal = bool((state.replicas == state.replicas[0]).all())
+    if not replicas_equal:
+        raise AssertionError("int8 path: replicas differ")
+    emit(phase="int8_train_path", model="MLP 10x2048x2048 f32", dp=n,
+         global_batch=batch_x.shape[0], collective=str(tr.cfg.collective),
+         codec=compress.resolve(tr.cfg.collective).describe(), steps=steps,
+         wall_s=wall,
+         ms_per_step=1e3 * wall / steps, step_ms=step_ms,
+         step_ms_mean=sum(step_ms) / steps,
+         samples_per_sec=steps * batch_x.shape[0] / wall, losses=losses,
+         padded_len=L, launches=launches,
+         launches_per_step={k: v for k, v in per_step.items() if v},
+         replicas_equal=replicas_equal)
+
+    # int8_plain_step: the same gradients through both sublane routes
+    g, _ = tr.grads(state, batch)
+    g, codec_state = tr.error_feedback(state, g)
+    new = tr.apply_grads(state, g, codec_state)
+    plain = trainer(INT8_OPTS + (("plain", True),))
+    plain.init_state(state.params)
+    before = {name: k.launches for name, k in kernels.items()}
+    new_p = plain.apply_grads(state, g, codec_state)
+    sync(dev)
+    if {name: k.launches for name, k in kernels.items()} != before:
+        raise AssertionError("int8 plain step launched a kernel")
+    require_equal("int8 path masters", [(new.w_own, new_p.w_own)])
+    require_equal("int8 path replicas", [(new.replicas, new_p.replicas)])
+    emit(phase="int8_plain_step", masters_bitequal=True,
+         replicas_bitequal=True,
+         masters_moved=bool((new.w_own != state.w_own).any()))
+    del g, new, new_p, plain
+    held = [state]
+    del state
+
+    def train_step():
+        held[0], _ = tr.step(held[0], batch)
+
+    profile_run("int8_profile", train_step, 2,
+                groups={"int8": INT8_KERNELS})
+    del tr, held, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def codec_convergence(dev) -> None:
+    """The convergence eval on the card: baseline, top-k (error feedback)
+    and int8 (flat layout) on the eval MLP at dp=8.  It reports; it holds
+    only finiteness."""
+    from fpga_ai_nic_tpu_torch.evals import codec_convergence as cc
+    steps = 40
+    t0 = time.perf_counter()
+    out = cc.run_codec_comparison("mlp", steps, device=dev)
+    wall = time.perf_counter() - t0
+    arms = {arm: {k: out[arm][k] for k in ("losses", "final_loss")
+                  + (("final_loss_ratio",) if arm != "baseline" else ())}
+            for arm in ("baseline", "topk", "int8")}
+    emit(phase="codec_convergence", model="mlp", dp=8, steps=steps,
+         tail_k=out["tail_k"], wall_s=wall, arms=arms,
+         codecs={arm: out[arm]["codec"] for arm in ("topk", "int8")})
+    if not all(math.isfinite(v) for a in arms.values() for v in a["losses"]):
+        raise AssertionError("codec convergence: non-finite loss")
 
 
 # -- paged attend: kernel against plain, at the serving path's shapes --------
@@ -738,7 +950,7 @@ def llama_train_path(dev, kernels) -> dict:
     per_step = {"flash_fwd": mcfg.n_layers * n, "flash_dq": mcfg.n_layers * n,
                 "flash_dkv": mcfg.n_layers * n, "ring_rs_update": n,
                 "ring_ag": n - 1, "bfp_encode": 1, "bfp_decode": n,
-                "paged_attend": 0}
+                "paged_attend": 0, "int8_encode": 0, "int8_decode": 0}
     for name, count in launches.items():
         if count != steps * per_step[name]:
             raise AssertionError(f"llama training: {name} launched {count} "
@@ -879,8 +1091,8 @@ def main() -> int:
         from fpga_ai_nic_tpu_torch.models import mlp
         from fpga_ai_nic_tpu_torch.models.llama import LlamaConfig
         from fpga_ai_nic_tpu_torch.ops import (_build, bfp_cuda,
-                                               flash_attention, paged_attend,
-                                               ring_cuda)
+                                               flash_attention, int8_cuda,
+                                               paged_attend, ring_cuda)
         from fpga_ai_nic_tpu_torch.serve import ServeConfig
         from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
         from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
@@ -989,6 +1201,7 @@ def main() -> int:
         del x, w, g_k, w_k, ag_k, ag_p
         torch.cuda.empty_cache()
 
+    results.update(int8_checks(dev))
     paged = paged_checks(dev)
     flash = flash_checks(dev)
 
@@ -1037,14 +1250,15 @@ def main() -> int:
     if state.w_own.shape != (n, C_full):
         raise AssertionError(f"unexpected padding {tuple(state.w_own.shape)}")
     gx = torch.Generator(device=dev).manual_seed(4)
-    batch = tr.shard_batch((
-        torch.randn((cfg_main.global_batch, 2048), generator=gx, device=dev),
-        torch.randint(0, 2048, (cfg_main.global_batch,), generator=gx,
-                      device=dev)))
+    bx = torch.randn((cfg_main.global_batch, 2048), generator=gx, device=dev)
+    by = torch.randint(0, 2048, (cfg_main.global_batch,), generator=gx,
+                       device=dev)
+    batch = tr.shard_batch((bx, by))
     kernels = {"bfp_encode": bfp_cuda.ENCODE, "bfp_decode": bfp_cuda.DECODE,
-               "ring_rs_update": ring_cuda.RING_RS, "ring_ag": ring_cuda.RING_AG}
+               "ring_rs_update": ring_cuda.RING_RS, "ring_ag": ring_cuda.RING_AG,
+               "int8_encode": int8_cuda.ENCODE, "int8_decode": int8_cuda.DECODE}
     per_step = {"bfp_encode": 1, "bfp_decode": n, "ring_rs_update": n,
-                "ring_ag": n - 1}
+                "ring_ag": n - 1, "int8_encode": 0, "int8_decode": 0}
     for k in kernels.values():
         k.launches = 0
     state, loss = tr.step(state, batch)           # warm-up
@@ -1094,7 +1308,12 @@ def main() -> int:
     del tr, state, held, batch, ranks, reps
     torch.cuda.empty_cache()
 
-    # -- 6-7. the serving path, its profile and its parity ------------------------
+    # -- 6. the int8 codec path and the convergence eval ---------------------------
+    int8_launches = int8_train_path(dev, kernels, sgd, bx, by)
+    del bx, by
+    codec_convergence(dev)
+
+    # -- 7-8. the serving path, its profile and its parity ------------------------
     flash_kernels = {"flash_fwd": flash_attention.FLASH_FWD,
                      "flash_dq": flash_attention.FLASH_DQ,
                      "flash_dkv": flash_attention.FLASH_DKV}
@@ -1112,11 +1331,11 @@ def main() -> int:
     del run["params"], run["snaps"], run["reqs"]
     torch.cuda.empty_cache()
 
-    # -- 8-10. the Llama training path, its profile and its parity ----------------
+    # -- 9-11. the Llama training path, its profile and its parity ---------------
     train = llama_train_path(dev, serve_kernels)
     llama_train_parity(dev, train)
 
-    # -- 11. the kernels line and the result -----------------------------------------
+    # -- 12. the kernels line and the result -----------------------------------------
     meta = {
         "bfp_encode": (PORT + "/csrc/bfp_codec.cu",
                        REF + "/ops/bfp_pallas.py:55"),
@@ -1134,11 +1353,17 @@ def main() -> int:
                      REF + "/ops/flash_pallas.py:222"),
         "flash_dkv": (PORT + "/csrc/flash_attn.cu",
                       REF + "/ops/flash_pallas.py:267"),
+        "int8_encode": (PORT + "/csrc/int8_codec.cu",
+                        REF + "/compress/int8.py:129"),
+        "int8_decode": (PORT + "/csrc/int8_codec.cu",
+                        REF + "/compress/int8.py:148"),
     }
     launches["paged_attend"] = run["launches"]["paged_attend"]
     for name in flash_kernels:
         launches[name] = train["launches"][name]
         results[name] = flash[name]
+    for name in ("int8_encode", "int8_decode"):
+        launches[name] = int8_launches[name]
     dec_row, pre_row = paged["decode GQA ps16"], paged["prefill GQA ps16"]
     results["paged_attend"] = {
         "max_abs_err": max(r["max_abs_err"] for r in paged.values()),
@@ -1169,6 +1394,9 @@ def main() -> int:
         if name in flash_kernels:
             row.update(shape=FLASH_SHAPES[0][0], library=FLASH_LIBRARY,
                        launches_from="llama_train_path")
+        if name in ("int8_encode", "int8_decode"):
+            row.update(shape=f"{INT8_PATH_ELEMS} f32, block 16, stochastic",
+                       launches_from="int8_train_path")
         out.append(row)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,16 @@
 The contract is the reference's: ``encode`` maps a flat f32 vector to a
 tuple of tensors (the hop payload), ``decode`` inverts it given the element
 count; ``pad_elems`` is the alignment of one compression unit;
-``supports_fused`` whether the codec may ride the fused ring
-kernels (``ops.ring_cuda``).  Only ``bfp`` is registered in this port so
-far; asking for another codec the JAX package registers raises
-``NotImplementedError``.
+``error_feedback`` whether the trainer carries a residual across steps
+(``state_init``); ``error_bound`` the declared worst case of one pass as a
+fraction of the unit's max-abs value; ``idempotent`` whether
+decode∘encode is a projection; ``supports_fused`` whether the codec may
+ride the fused ring kernels (``ops.ring_cuda``).  Registered: ``bfp``,
+``int8`` and ``topk``, as in the JAX package.
+
+``unit_elems`` is the port's addition: the rings stack every rank's
+payload into one codec call, which gives each rank's own bits only when
+each rank's part is a whole number of these units (``ops.ring``).
 """
 
 from __future__ import annotations
@@ -17,15 +23,15 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Type
 
 import torch
 
-# codecs the JAX package registers that this port has not ported yet
-UNPORTED_CODECS = ("int8", "topk")
-
-
 class Codec(abc.ABC):
     """One gradient-compression wire format (see module docstring)."""
 
     name: str = ""
+    #: decode∘encode is a projection: a second pass is bit-identical
+    idempotent: bool = False
+    #: carries an error-feedback residual across trainer steps
     error_feedback: bool = False
+    #: may ride the fused ring kernels (ops.ring_cuda)
     supports_fused: bool = False
 
     @abc.abstractmethod
@@ -46,9 +52,13 @@ class Codec(abc.ABC):
     def pad_elems(self) -> int:
         """Elements per independent compression unit (alignment quantum)."""
 
-    @abc.abstractmethod
-    def wire_bytes(self, n_elems: int) -> int:
-        """Bytes one encoded [n_elems] payload puts on the wire."""
+    def unit_elems(self, n_elems: int) -> int:
+        """Elements of the layout unit a [n_elems] payload is cut into:
+        one compression unit, or a whole (block, 128)-lane tile where the
+        codec takes the sublane layout.  Payloads may be joined end to end
+        in one codec call, or sliced, without changing their bits only
+        when each is a whole number of these."""
+        return self.pad_elems
 
     def sliceable(self, chunk_elems: int, slice_elems: Optional[int]) -> bool:
         """May a [chunk_elems] hop be sent as [slice_elems] slices with
@@ -57,7 +67,44 @@ class Codec(abc.ABC):
         return (slice_elems is not None
                 and chunk_elems > slice_elems
                 and chunk_elems % slice_elems == 0
-                and slice_elems % self.pad_elems == 0)
+                and slice_elems % self.unit_elems(slice_elems) == 0)
+
+    def state_init(self, shape: Tuple[int, ...],
+                   device: Optional[torch.device] = None
+                   ) -> Optional[torch.Tensor]:
+        """Fresh residual carry for a gradient stream of ``shape`` (None
+        for codecs without error feedback)."""
+        if not self.error_feedback:
+            return None
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    @property
+    @abc.abstractmethod
+    def error_bound(self) -> float:
+        """Worst-case per-element |x - roundtrip(x)| as a fraction of the
+        unit's max-abs value, for one encode/decode pass."""
+
+    @abc.abstractmethod
+    def wire_bytes(self, n_elems: int) -> int:
+        """Bytes one encoded [n_elems] payload puts on the wire."""
+
+    @property
+    def compression_ratio_vs_f32(self) -> float:
+        n = self.pad_elems
+        return 4.0 * n / self.wire_bytes(n)
+
+    def describe(self) -> Dict[str, Any]:
+        """Static facts for tables and run summaries."""
+        return {
+            "codec": self.name,
+            "pad_elems": self.pad_elems,
+            "compression_ratio_vs_f32":
+                round(self.compression_ratio_vs_f32, 3),
+            "error_bound": self.error_bound,
+            "error_feedback": self.error_feedback,
+            "idempotent": self.idempotent,
+            "supports_fused": self.supports_fused,
+        }
 
 
 _REGISTRY: Dict[str, Type[Codec]] = {}
@@ -76,10 +123,6 @@ def available_codecs() -> Tuple[str, ...]:
 
 def get_codec(name: str, opts: Optional[Mapping[str, Any]] = None) -> Codec:
     """Instantiate a registered codec by name; unknown names fail fast."""
-    if name in UNPORTED_CODECS:
-        raise NotImplementedError(
-            f"codec {name!r} is not ported yet: registered codecs are "
-            f"{list(available_codecs())}")
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown codec {name!r}: registered codecs are "

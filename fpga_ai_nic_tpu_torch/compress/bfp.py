@@ -13,7 +13,7 @@ a kernel against its plain version never runs a kernel on both sides.
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -54,6 +54,7 @@ class BFPCodec(Codec):
     exponent per block."""
 
     name = "bfp"
+    idempotent = True          # re-quantizing the decoded grid is exact
     error_feedback = False
     supports_fused = True
 
@@ -78,13 +79,23 @@ class BFPCodec(Codec):
     def pad_elems(self) -> int:
         return self.cfg.block_size
 
-    def sliceable(self, chunk_elems: int,
-                  slice_elems: Optional[int]) -> bool:
-        # a sublane slice must hold whole (block, 128)-lane tiles, or
-        # slicing would change the block partition (and the bits)
-        return (super().sliceable(chunk_elems, slice_elems)
-                and not (use_pallas(self.cfg, slice_elems) and slice_elems
-                         % (self.cfg.block_size * _bfp_sub.LANES)))
+    def unit_elems(self, n_elems: int) -> int:
+        # the sublane layout's unit is a whole (block, 128)-lane tile
+        if use_pallas(self.cfg, n_elems):
+            return self.cfg.block_size * _bfp_sub.LANES
+        return self.cfg.block_size
+
+    @property
+    def error_bound(self) -> float:
+        # one grid step of the block's scale: 2^(1-m) of the block max
+        return 2.0 ** (1 - self.cfg.mantissa_bits)
 
     def wire_bytes(self, n_elems: int) -> int:
         return _bfp_flat.wire_bytes(n_elems, self.cfg)
+
+    def describe(self) -> Dict[str, Any]:
+        d = super().describe()
+        d.update(block_size=self.cfg.block_size,
+                 mantissa_bits=self.cfg.mantissa_bits,
+                 rounding=self.cfg.rounding, backend=self.cfg.codec)
+        return d

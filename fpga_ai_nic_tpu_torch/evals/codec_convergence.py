@@ -1,0 +1,191 @@
+"""Codec convergence evaluation — the port of the JAX package's
+``evals/codec_convergence.py`` for the models the port can train.
+
+Train the same model through the same explicit ring, compressed and
+uncompressed, and compare final losses.  Every arm uses ``impl="ring"``
+and the ZeRO-1 ``DPTrainer``, and all arms are paired on common random
+numbers (the same initial weights and batch stream per seed), so the
+final-loss ratio isolates the wire codec; for error-feedback codecs
+(top-k) the arm also carries the residual through
+``TrainState.codec_state``.
+
+Ported: ``run_curve`` (``trainer="dp"``), ``run_codec_comparison``,
+``codec_static_table`` and ``codec_error_table`` for the models ``mlp``
+and ``mlp_canonical``.  Not ported: ``bert`` and ``resnet`` (ROADMAP A.6),
+``mlp_fsdp`` (the ZeRO-3 trainer, A.5), ``trainer="ddp"`` (the bucketed
+DDP trainer, A.4); each raises ``NotImplementedError``.  The batch stream
+is the reference's numpy stream; the initial weights come from a torch
+generator unless ``params=`` hands them in (a test passes JAX's).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import compress
+from ..device import DeviceLike, resolve_device
+from ..models import mlp
+from ..ops import bfp
+from ..parallel.mesh import VirtualRanks
+from ..parallel.train import DPTrainer
+from ..utils.config import (BFPConfig, CollectiveConfig, MeshConfig,
+                            MLPConfig, OptimizerConfig, TrainConfig)
+
+MODELS = ("mlp", "mlp_canonical")
+_UNPORTED = {"bert": "A.6", "resnet": "A.6", "mlp_fsdp": "A.5"}
+
+# the codec arms of the default sweep: top-k exercises error feedback,
+# int8 stochastic rounding
+DEFAULT_CODECS: Tuple[Tuple[str, Tuple], ...] = (
+    ("topk", (("bucket_elems", 256), ("k", 64))),
+    ("int8", ()),
+)
+
+
+def mlp_config(model: str) -> MLPConfig:
+    """The eval's MLP: 128-256-256-32 ("mlp"), or the reference
+    benchmark's 2048-wide layers with depth cut to 3 ("mlp_canonical")."""
+    if model in _UNPORTED:
+        raise NotImplementedError(
+            f"model {model!r} is not ported: ROADMAP {_UNPORTED[model]}")
+    if model not in MODELS:
+        raise ValueError(model)
+    canonical = model == "mlp_canonical"
+    width = 2048 if canonical else 128
+    hidden = 2048 if canonical else 256
+    n_cls = 128 if canonical else 32
+    return MLPConfig(layer_sizes=(width, hidden, hidden, n_cls),
+                     dtype="float32")
+
+
+def _make_batches(model: str, n_batches: int, batch: int, seed: int
+                  ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The reference's fixed dataset: per batch, x ~ N(0, 1) then integer
+    labels, drawn from one numpy generator seeded with ``seed``."""
+    cfg = mlp_config(model)
+    width, n_cls = cfg.layer_sizes[0], cfg.layer_sizes[-1]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        x = rng.standard_normal((batch, width)).astype(np.float32)
+        y = rng.integers(0, n_cls, batch).astype(np.int32)
+        out.append((torch.from_numpy(x), torch.from_numpy(y)))
+    return out
+
+
+def run_curve(model: str, steps: int = 200, *, batch: int = 32,
+              codec: Optional[str] = None, codec_opts: Tuple = (),
+              mantissa_bits: Optional[int] = None, n_dev: int = 8,
+              seed: int = 0, record_every: int = 5, n_batches: int = 4,
+              tail_k: int = 1, trainer: str = "dp",
+              params: Optional[mlp.Params] = None,
+              device: DeviceLike = "cuda") -> Dict:
+    """Train ``model`` for ``steps`` over ``n_dev`` virtual ranks through
+    the explicit ring (AdamW, lr 3e-3).  ``codec=None`` is the
+    uncompressed baseline; ``mantissa_bits=m`` means BFP at that width.
+    Returns ``{"losses", "steps", "final_loss"}``, losses recorded every
+    ``record_every`` steps; ``final_loss`` is the mean of the last
+    ``tail_k`` recorded losses.  ``params`` (a parameter tree) replaces
+    the seeded torch initialisation."""
+    if trainer != "dp":
+        raise NotImplementedError(
+            f"trainer={trainer!r} is not ported: the bucketed DDP trainer "
+            "is ROADMAP A.4 (use trainer='dp')")
+    if mantissa_bits is not None:
+        assert codec is None, "pass codec= OR mantissa_bits=, not both"
+        codec = "bfp"
+        codec_opts = tuple(codec_opts) + (("mantissa_bits", mantissa_bits),)
+    mcfg = mlp_config(model)
+    dev = resolve_device(device)
+    cfg = TrainConfig(
+        iters=steps, global_batch=batch, mesh=MeshConfig(dp=n_dev),
+        collective=CollectiveConfig(impl="ring", codec=codec,
+                                    codec_opts=tuple(codec_opts),
+                                    bucket_elems=1 << 16),
+        optimizer=OptimizerConfig(kind="adamw", learning_rate=3e-3))
+    if params is None:
+        params = mlp.init(torch.Generator().manual_seed(seed), mcfg, dev)
+    tr = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg),
+                   VirtualRanks(n_dev, dev), cfg)
+    state = tr.init_state(params)
+    sharded = [tr.shard_batch(b)
+               for b in _make_batches(model, n_batches, batch, seed)]
+    losses: List[float] = []
+    rec_steps: List[int] = []
+    for i in range(steps):
+        state, loss = tr.step(state, sharded[i % len(sharded)])
+        if (i + 1) % record_every == 0 or i == steps - 1:
+            losses.append(float(loss))
+            rec_steps.append(i + 1)
+    final = float(np.mean(losses[-max(tail_k, 1):]))
+    return {"losses": losses, "steps": rec_steps, "final_loss": final}
+
+
+def run_codec_comparison(model: str, steps: int = 200, *,
+                         codecs: Sequence[Tuple[str, Tuple]] = DEFAULT_CODECS,
+                         batch: int = 32, n_dev: int = 8, seed: int = 0,
+                         n_batches: int = 4, tail_k: int = 4,
+                         params: Optional[mlp.Params] = None,
+                         device: DeviceLike = "cuda") -> Dict:
+    """Uncompressed baseline + one arm per (codec, opts), paired on common
+    random numbers.  Each arm carries its ``final_loss_ratio`` (arm /
+    baseline) and the codec's ``describe()``."""
+    kw = dict(batch=batch, n_dev=n_dev, seed=seed, n_batches=n_batches,
+              tail_k=tail_k, params=params, device=device)
+    out: Dict = {"model": model, "steps": steps, "tail_k": tail_k,
+                 "pairing": "common-random-numbers",
+                 "baseline": run_curve(model, steps, **kw)}
+    base = out["baseline"]["final_loss"]
+    for name, opts in codecs:
+        arm = run_curve(model, steps, codec=name, codec_opts=tuple(opts),
+                        **kw)
+        arm["final_loss_ratio"] = arm["final_loss"] / base
+        arm["codec"] = compress.get_codec(name, dict(opts)).describe()
+        out[name] = arm
+    return out
+
+
+def codec_error_table(mantissa_sweep: Sequence[int] = (2, 3, 4, 6, 8),
+                      n: int = 1 << 16, seed: int = 0) -> List[Dict]:
+    """Roundtrip relative error of one BFP encode/decode pass on N(0, 1)
+    data per mantissa width (on the CPU)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    rows = []
+    for m in mantissa_sweep:
+        cfg = dataclasses.replace(BFPConfig(), mantissa_bits=m)
+        err = (bfp.bfp_roundtrip(x, cfg) - x).numpy()
+        rows.append({
+            "mantissa_bits": m,
+            "rel_l2_error": float(np.linalg.norm(err))
+            / float(np.linalg.norm(x.numpy())),
+            "max_abs_error": float(np.max(np.abs(err))),
+            "wire_bytes_per_value": bfp.wire_bytes(n, cfg) / n,
+        })
+    return rows
+
+
+def codec_static_table(codecs: Sequence[Tuple[str, Tuple]] = (
+        ("bfp", ()),) + DEFAULT_CODECS,
+        n: int = 1 << 16, seed: int = 0) -> List[Dict]:
+    """One-pass roundtrip error and wire rate per codec on N(0, 1) data
+    (on the CPU)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for name, opts in codecs:
+        c = compress.get_codec(name, dict(opts))
+        n_use = n - n % c.pad_elems
+        x = torch.from_numpy(rng.standard_normal(n_use).astype(np.float32))
+        err = (c.roundtrip(x) - x).numpy()
+        rows.append(dict(
+            c.describe(),
+            rel_l2_error=float(np.linalg.norm(err)
+                               / np.linalg.norm(x.numpy())),
+            max_abs_error=float(np.max(np.abs(err))),
+            wire_bytes_per_value=c.wire_bytes(n_use) / n_use,
+        ))
+    return rows

@@ -217,6 +217,20 @@ def reduce_scatter_update(flat_g: torch.Tensor, w_own: torch.Tensor,
     return g_own, w_new, st2
 
 
+def error_feedback_encode(codec, flat_g: torch.Tensor, residual: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compensate-then-compress: ``(g_wire, new_residual)`` with ``g_wire =
+    roundtrip(flat_g + residual)``, the locally quantized gradient handed to
+    the collective, and ``new_residual`` what this pass dropped, carried to
+    the next step.  ``flat_g`` / ``residual``: [n, L] per-rank rows, all
+    ranks encoded in one codec call (``ring.check_whole_units``)."""
+    n, L = flat_g.shape
+    g_comp = flat_g + residual
+    ring_ops.check_whole_units(codec, L)
+    g_wire = codec.roundtrip(g_comp.reshape(-1)).reshape(n, L)
+    return g_wire, g_comp - g_wire
+
+
 def all_gather_flat(owned: torch.Tensor,
                     coll: CollectiveConfig) -> torch.Tensor:
     """[n, C] owned chunks -> [n, n*C] replicas."""

@@ -15,11 +15,15 @@ reference's (``ops.ring_golden`` is the bit spec):
     copy; hop s forwards the frames verbatim and rank i decodes the
     arrival into slot (i-s-1) % n.
 
-A codec encodes all ranks' payloads in one call: every rank's chunk is a
-whole number of compression units (``fused_update.pad_multiple``), so the
-block partition is the same as encoding each rank alone.  These are the
-plain versions the fused CUDA ring kernels (``ops.ring_cuda``) are held
-against.
+A codec encodes all ranks' payloads in one call.  That gives the bits of
+encoding each rank alone only when each rank's part is a whole number of
+the codec's layout units (``Codec.unit_elems``: a compression unit, or a
+whole (block, 128)-lane tile in the sublane layout); otherwise the rings
+raise ``ValueError``, as the JAX package's sublane kernels assert.  The
+padding (``fused_update.pad_multiple``) guarantees whole compression units;
+whole tiles only where the fused kernels pad for them or the length
+happens to tile.  These are the plain versions the fused CUDA ring kernels
+(``ops.ring_cuda``) are held against.
 """
 
 from __future__ import annotations
@@ -36,6 +40,17 @@ def _hop(payload: torch.Tensor) -> torch.Tensor:
     return torch.roll(payload, shifts=1, dims=0)
 
 
+def check_whole_units(codec, per_rank_elems: int) -> None:
+    """Raise unless a [per_rank_elems] part of every rank may share one
+    codec call with the others' (each a whole number of layout units)."""
+    unit = codec.unit_elems(per_rank_elems)
+    if per_rank_elems % unit:
+        raise ValueError(
+            f"codec {codec.name!r}: a rank's {per_rank_elems} elements are "
+            f"not a whole number of its {unit}-element layout units, so "
+            f"encoding the ranks together would mix their blocks")
+
+
 def _send(payload: torch.Tensor, codec,
           slice_elems: Optional[int] = None) -> torch.Tensor:
     """One ring hop of every rank's [C] payload ([n, C]), codec-compressed
@@ -46,6 +61,7 @@ def _send(payload: torch.Tensor, codec,
         return _hop(payload)
     n, C = payload.shape
     S = slice_elems if codec.sliceable(C, slice_elems) else C
+    check_whole_units(codec, S)
     out = torch.empty_like(payload)
     for off in range(0, C, S):
         part = payload[:, off:off + S].reshape(-1)
@@ -92,6 +108,7 @@ def ring_all_gather(owned: torch.Tensor, compression=None) -> torch.Tensor:
         def landed(p):
             return p[0]
     else:
+        check_whole_units(codec, C)
         wire = tuple(p.reshape(n, -1)
                      for p in codec.encode(owned.reshape(-1)))
 

@@ -57,8 +57,12 @@ class ShardedTrainer(DPTrainer):
             raise NotImplementedError(
                 "integrity_check is not ported: ROADMAP A.3")
         super().__init__(loss_fn, ranks, cfg)
+        # as in the JAX package, this trainer carries no error-feedback
+        # residual: a codec's error_feedback flag is not read here
+        self._ef = False
 
-    def apply_grads(self, state: TrainState, flat_g: torch.Tensor
+    def apply_grads(self, state: TrainState, flat_g: torch.Tensor,
+                    codec_state: Optional[torch.Tensor] = None
                     ) -> TrainState:
         """Phases 2-5 on given per-rank gradients ``[n, L_pad]``."""
         return self.update(state, self._reduce(flat_g))

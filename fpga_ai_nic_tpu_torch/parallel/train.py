@@ -6,20 +6,26 @@ replica of the working weights; the flat gradients ``[n, L_pad]`` then go
 through the two phases of the JAX ``step_fn``:
 
   phase 1: ``fused_update.reduce_scatter_update`` — ring reduce-scatter
-    (BFP on every hop) with the ZeRO-1 optimizer update of each rank's
-    owned master shard on the final hop;
+    (the codec on every hop) with the ZeRO-1 optimizer update of each
+    rank's owned master shard on the final hop;
   phase 2: ``fused_update.all_gather_flat`` — ring all-gather of the
     updated masters into every rank's replica.
 
-The loss is the mean of the per-rank losses.  ``step`` = ``grads`` then
-``apply_grads``; the two halves are public so a caller can run the same
-gradients through another collective (``chip_smoke.py`` does).  Nothing is
-updated in place: a step returns a new TrainState.
+A codec that declares error feedback (top-k by default; any codec with
+``error_feedback=True``) on the ring first compensates and compresses each
+rank's gradient locally (``fused_update.error_feedback_encode``), carrying
+what it dropped in ``TrainState.codec_state`` ([n, L_pad]).
+
+The loss is the mean of the per-rank losses.  ``step`` = ``grads``, then
+``error_feedback``, then ``apply_grads``; the parts are public so a caller
+can run the same compensated gradients through another collective
+(``chip_smoke.py`` does).  Nothing is updated in place: a step returns a
+new TrainState.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,6 +43,9 @@ class TrainState(NamedTuple):
     w_own: torch.Tensor         # [n, C] f32 master shards (ZeRO-1)
     opt_state: optim.OptState   # {key: [n, C]} optimizer state shards
     step: int
+    # error-feedback residual of the codec, each rank's locally dropped
+    # gradient mass [n, L_pad], re-added next step (None without EF)
+    codec_state: Optional[torch.Tensor] = None
 
 
 def per_rank_grads(loss_fn: Callable, replicas: torch.Tensor,
@@ -85,8 +94,6 @@ class DPTrainer:
             if unported:
                 raise NotImplementedError(f"{name} is not ported")
         codec = fused_update.resolve_codec(coll)
-        if coll.impl == "ring" and codec is not None and codec.error_feedback:
-            raise NotImplementedError("error-feedback codecs are not ported")
         if coll.fused_optimizer and cfg.optimizer.clip_norm is not None:
             raise ValueError(
                 "fused_optimizer cannot honor clip_norm: a global-norm clip "
@@ -95,6 +102,9 @@ class DPTrainer:
         self.ranks = ranks
         self.n = ranks.n
         self.cfg = cfg
+        self._codec = codec
+        self._ef = (coll.impl == "ring" and codec is not None
+                    and codec.error_feedback)
         self._meta = None
 
     # -- init -----------------------------------------------------------------
@@ -110,7 +120,15 @@ class DPTrainer:
         self._meta = meta
         replicas = w_own.reshape(1, -1).expand(self.n, -1)
         return TrainState(fused_update.unflatten_tree(replicas[0], meta),
-                          replicas, w_own, opt_state, 0)
+                          replicas, w_own, opt_state, 0,
+                          self._init_codec_state())
+
+    def _init_codec_state(self) -> Optional[torch.Tensor]:
+        """Zeroed per-rank error-feedback residuals [n, L_pad]."""
+        if not self._ef:
+            return None
+        return self._codec.state_init((self.n, self._meta.padded_len),
+                                      self.ranks.device)
 
     def shard_batch(self, batch) -> Tuple[torch.Tensor, ...]:
         """[B, ...] host tensors -> [n, B/n, ...] on the ranks' device."""
@@ -126,19 +144,37 @@ class DPTrainer:
         return per_rank_grads(self.loss_fn, state.replicas, self._meta,
                               batch)
 
-    def apply_grads(self, state: TrainState, flat_g: torch.Tensor
+    def error_feedback(self, state: TrainState, flat_g: torch.Tensor
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Compensate-then-compress: ``(g_wire, codec_state)``.  The wire
+        then sees each rank's locally quantized gradient; what it dropped
+        is the new residual.  Without error feedback: ``(flat_g,
+        state.codec_state)``."""
+        if not self._ef:
+            return flat_g, state.codec_state
+        return fused_update.error_feedback_encode(self._codec, flat_g,
+                                                  state.codec_state)
+
+    def apply_grads(self, state: TrainState, flat_g: torch.Tensor,
+                    codec_state: Optional[torch.Tensor] = None
                     ) -> TrainState:
-        """Phase 1 (reduce-scatter + update) and phase 2 (all-gather)."""
+        """Phase 1 (reduce-scatter + update) and phase 2 (all-gather).
+        ``codec_state``: the residual ``error_feedback`` returned (the
+        new state keeps ``state.codec_state`` when it is None)."""
         coll = self.cfg.collective
+        if codec_state is None:
+            codec_state = state.codec_state
         if not coll.fused_optimizer:
             return self.update(
-                state, fused_update.reduce_scatter(flat_g, coll) / self.n)
+                state, fused_update.reduce_scatter(flat_g, coll) / self.n,
+                codec_state)
         _, w_new, opt_state = fused_update.reduce_scatter_update(
             flat_g, state.w_own, state.opt_state, state.step, coll,
             self.cfg.optimizer)
-        return self._gather(w_new, opt_state, state.step + 1)
+        return self._gather(w_new, opt_state, state.step + 1, codec_state)
 
-    def update(self, state: TrainState, g_own: torch.Tensor) -> TrainState:
+    def update(self, state: TrainState, g_own: torch.Tensor,
+               codec_state: Optional[torch.Tensor] = None) -> TrainState:
         """The unfused phase 1 after the reduce-scatter (clip, optimizer
         on the owned shards ``g_own [n, C]``, already divided by n), then
         phase 2."""
@@ -147,19 +183,21 @@ class DPTrainer:
         w_new, opt_state = optim.apply(opt_cfg, state.w_own, g_own,
                                        state.opt_state, state.step)
         del g_own
-        return self._gather(w_new, opt_state, state.step + 1)
+        return self._gather(w_new, opt_state, state.step + 1, codec_state)
 
     def _gather(self, w_new: torch.Tensor, opt_state: optim.OptState,
-                step: int) -> TrainState:
+                step: int, codec_state: Optional[torch.Tensor] = None
+                ) -> TrainState:
         replicas = fused_update.all_gather_flat(w_new, self.cfg.collective)
         return TrainState(fused_update.unflatten_tree(replicas[0],
                                                       self._meta),
-                          replicas, w_new, opt_state, step)
+                          replicas, w_new, opt_state, step, codec_state)
 
     def step(self, state: TrainState, batch
              ) -> Tuple[TrainState, torch.Tensor]:
         flat_g, loss = self.grads(state, batch)
-        return self.apply_grads(state, flat_g), loss
+        flat_g, codec_state = self.error_feedback(state, flat_g)
+        return self.apply_grads(state, flat_g, codec_state), loss
 
     # -- restore --------------------------------------------------------------
 

@@ -6,14 +6,22 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
   python -m fpga_ai_nic_tpu_torch.train_mlp --bfp=1 --mesh.dp=8 \\
       --collective.compression.codec=pallas \\
       --collective.fused_kernel=true --collective.fused_optimizer=true
+  python -m fpga_ai_nic_tpu_torch.train_mlp --mesh.dp=2 \\
+      --collective.impl=ring --collective.codec=int8 \\
+      --collective.codec_opts=backend=pallas \\
+      --collective.fused_optimizer=true --global_batch=5376
   python -m fpga_ai_nic_tpu_torch.train_mlp --model.layer_sizes=256,256,256 \\
       --global_batch=64 --iters=3 --device=cpu
 
 Flags split by prefix: ``--model.*`` -> MLPConfig, ``--device=`` picks the
 device (default cuda; it raises when CUDA is absent), everything else ->
 TrainConfig.  ``--bfp=1`` turns on the BFP wire codec and the explicit
-ring; it applies before the dotted flags, so they can refine it.  The
-ranks of ``--mesh.dp`` are virtual ranks on one card.
+ring; it applies before the dotted flags, so they can refine it.
+``--collective.codec=`` names a registered codec (bfp, int8, topk) and
+``--collective.codec_opts=key=value,...`` its options; ``--collective.impl=ring``
+must come first.  The ranks of ``--mesh.dp`` are virtual ranks on one
+card.  The printed JSON carries the codec's ``describe()`` (None when the
+wire is uncompressed).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from .models import mlp
+from .ops import fused_update
 from .parallel.mesh import make_ranks
 from .parallel.train import DPTrainer
 from .utils.config import MLPConfig, TrainConfig, from_flags
@@ -80,9 +89,11 @@ def main(argv: Sequence[str]) -> dict:
     loss = float(loss)                           # waits for the device
     wall = time.perf_counter() - t0
     fl = mlp.flops_per_sample(mcfg) * cfg.global_batch * cfg.iters
+    codec = fused_update.resolve_codec(cfg.collective)
     return {"loss": loss,
             "samples_per_sec": cfg.iters * cfg.global_batch / wall,
             "gflops": fl / wall / 1e9, "wall_s": wall,
+            "codec": codec.describe() if codec is not None else None,
             "device": (torch.cuda.get_device_name(ranks.device)
                        if ranks.device.type == "cuda" else "cpu")}
 

@@ -8,8 +8,8 @@ Pallas or the TPU describe the reference package; in this port
 CUDA kernels of ``ops.bfp_cuda`` / ``ops.ring_cuda`` implement.
 
 Values this port does not implement yet raise ``NotImplementedError`` at
-construction (``codec="auto"`` in either spelling, ``topology="hier"``,
-codecs other than BFP) or at trainer construction
+construction (``codec="auto"`` in either spelling and int8's
+``backend="auto"``, ``topology="hier"``) or at trainer construction
 (``parallel.train.DPTrainer``: integrity checks, in-graph metrics,
 accumulation, plan adaptation, mesh axes other than dp), never silently.
 """
@@ -497,6 +497,31 @@ def coerce_value(T: Any, v: str) -> Any:
 _coerce = coerce_value
 
 
+def parse_codec_opts(v: str) -> Tuple[Tuple[str, Any], ...]:
+    """``key=value`` pairs, comma-separated, as codec constructor kwargs
+    (``--collective.codec_opts=backend=pallas,seed=3``): each value an
+    int, a float, a bool word or else a string."""
+    out = []
+    for part in (p for p in v.split(",") if p):
+        key, eq, raw = part.partition("=")
+        if not eq:
+            raise ValueError(f"codec_opts entries look like key=value, "
+                             f"got {part!r}")
+        for T in (int, float):
+            try:
+                val: Any = T(raw)
+                break
+            except ValueError:
+                continue
+        else:
+            low = raw.lower()
+            val = (low in ("true", "yes", "on")
+                   if low in ("true", "false", "yes", "no", "on", "off")
+                   else raw)
+        out.append((key, val))
+    return tuple(out)
+
+
 def from_flags(cls: Any, argv: Sequence[str]) -> Any:
     """Build a (possibly nested) config dataclass from --dotted.key=value
     flags, e.g. ``from_flags(TrainConfig, ["--mesh.dp=4", "--iters=100"])``."""
@@ -540,6 +565,8 @@ def _replace_path(cfg: Any, path: Sequence[str], val: str) -> Any:
     elif dataclasses.is_dataclass(T):
         raise ValueError(f"{name} is a nested config; set a sub-field "
                          f"(...{name}.<field>=...)")
+    elif name == "codec_opts":
+        new = parse_codec_opts(val)
     elif cur is not None:
         new = coerce_value(T, val)
     else:

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from fpga_ai_nic_tpu_torch import optim
-from fpga_ai_nic_tpu_torch.ops import bfp_cuda, paged_attend, ring_cuda
+from fpga_ai_nic_tpu_torch.ops import (bfp_cuda, int8_cuda, paged_attend,
+                                       ring_cuda)
 from fpga_ai_nic_tpu_torch.utils.config import (BFPConfig, OptimizerConfig,
                                                 OptimizerSpec)
 
@@ -80,6 +81,54 @@ def test_rs_update_other_optimizers_on_card(cuda_device, kind):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     for k in st:
         assert torch.equal(got[2][k], want[2][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [8, 16, 32])
+@pytest.mark.parametrize("rounding,seed", [("stochastic", 0),
+                                          ("stochastic", 7),
+                                          ("nearest", 0)])
+def test_int8_kernels_bitexact_vs_plain_on_card(cuda_device, block, rounding,
+                                                seed):
+    """int8_encode / int8_decode on the card == their plain versions on the
+    same card tensors, bit for bit: mixed magnitudes, all-zero blocks,
+    subnormals, negative zeros; one launch each."""
+    tiles = 7
+    x = torch.from_numpy(_shards(1, tiles * block * 128, seed=block)
+                         .reshape(-1)).to(cuda_device)
+    x = x * torch.logspace(-3, 3, x.numel(), device=cuda_device)
+    x[:block * 128] = 0                        # a whole tile of zero blocks
+    x[5 * 128::128 * 3] *= 1e-39               # subnormals
+    x[7::97] = -0.0
+    counts = [int8_cuda.ENCODE.launches, int8_cuda.DECODE.launches]
+    q, s = int8_cuda.int8_encode(x, block, rounding, seed)
+    pq, ps = int8_cuda.int8_encode_plain(x, block, rounding, seed)
+    d = int8_cuda.int8_decode(q, s, block)
+    pd = int8_cuda.int8_decode_plain(pq, ps, block)
+    torch.cuda.synchronize()
+    assert [int8_cuda.ENCODE.launches, int8_cuda.DECODE.launches] == [
+        c + 1 for c in counts]
+    assert torch.equal(q, pq)
+    assert torch.equal(s.view(torch.int16), ps.view(torch.int16))
+    assert torch.equal(d, pd)
+
+
+@pytest.mark.cuda
+def test_int8_codec_routes_on_card(cuda_device):
+    """Int8Codec(backend="pallas") launches the kernels on a card tensor;
+    plain=True keeps the plain version there, with the same bits; a payload
+    off the tile grid raises."""
+    from fpga_ai_nic_tpu_torch.compress import Int8Codec
+    x = torch.randn(4 * TILE, generator=torch.Generator().manual_seed(3)
+                    ).to(cuda_device)
+    before = int8_cuda.ENCODE.launches
+    got = Int8Codec(backend="pallas", seed=1).roundtrip(x)
+    assert int8_cuda.ENCODE.launches == before + 1
+    want = Int8Codec(backend="pallas", seed=1, plain=True).roundtrip(x)
+    assert int8_cuda.ENCODE.launches == before + 1
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="divisible"):
+        int8_cuda.int8_encode(x[:TILE + 16])
 
 
 PAGED_SHAPES = {

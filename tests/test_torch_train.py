@@ -221,7 +221,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         BFPConfig(codec="auto")
     with pytest.raises(NotImplementedError):
-        CollectiveConfig(impl="ring", codec="int8")
+        CollectiveConfig(impl="ring", codec="int8",
+                         codec_opts=(("backend", "auto"),))
     with pytest.raises(NotImplementedError):
         make_ranks(MeshConfig(dp=2, tp=2), "cpu")
     ranks = VirtualRanks(2, torch.device("cpu"))
