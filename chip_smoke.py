@@ -16,7 +16,9 @@ Phases, each printing JSON lines:
      H=32, Hkv=8, S=4096, hd=128, causal, bf16) and a non-causal MHA
      shape (S=1024), within a bf16 limit that two fault controls (the
      causal mask shifted by one key; the backward at lse + 0.05) exceed,
-     timed beside PyTorch's scaled_dot_product_attention as a yardstick;
+     with repeat launches of flash_dq and flash_dkv bit-equal and HGMMA
+     (wgmma) instructions counted in their SASS, timed beside PyTorch's
+     scaled_dot_product_attention as a yardstick;
      int8_encode / int8_decode (sublane layout, block 16) at 10,240 and at
      the int8 path's 41,963,520 elements, both roundings and seeds 0 and
      7, bit for bit, with a control (seed 1 against seed 0 must differ);
@@ -513,6 +515,37 @@ def flash_bound(kind, B, H, n_kv, S, causal):
     return bound(moved, 2 * products * hd * pairs, BF16_OPS_PER_S)
 
 
+def sass_stats(source: str, kernels) -> dict:
+    """For each kernel of ``source``'s built library: its HGMMA (wgmma)
+    instructions in the SASS (``cuobjdump -sass``), and its registers and
+    local (spill) bytes a thread (``cuobjdump -res-usage``)."""
+    import re
+    from fpga_ai_nic_tpu_torch.ops import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    lib = str(_build.build((source,))[source])
+    stats = {k: {"hgmma": 0, "registers": None, "local_bytes": None}
+             for k in kernels}
+    for flag in ("-sass", "-res-usage"):
+        out = subprocess.run([cuobjdump, flag, lib], check=True,
+                             capture_output=True, text=True,
+                             timeout=120).stdout
+        cur = None
+        for line in out.splitlines():
+            if "Function" in line:
+                cur = next((k for k in kernels if k in line), None)
+            if cur is None:
+                continue
+            if flag == "-sass":
+                stats[cur]["hgmma"] += bool(re.search(r"\bHGMMA\b", line))
+                continue
+            for key, field in (("registers", "REG"), ("local_bytes", "LOCAL")):
+                m = re.search(rf"\b{field}:(\d+)", line)
+                if m:
+                    stats[cur][key] = int(m.group(1))
+    return stats
+
+
 def flash_checks(dev) -> dict:
     """Each flash kernel against its plain version at every FLASH_SHAPES
     entry, with the two fault controls that must exceed the limit; times
@@ -522,6 +555,8 @@ def flash_checks(dev) -> dict:
     import torch
     import torch.nn.functional as F
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    sass = sass_stats(fa.FLASH_DQ.source, ("flash_dq_kernel",
+                                            "flash_dkv_kernel"))
     rows = {}
     for si, (name, B, H, n_kv, S, causal) in enumerate(FLASH_SHAPES):
         g = torch.Generator(device=dev).manual_seed(300 + si)
@@ -539,6 +574,8 @@ def flash_checks(dev) -> dict:
         args = (q, k, v, do, lse, delta)
         got = {"out": out, "dq": fa.flash_dq_cuda(*args, **kw)}
         got["dk"], got["dv"] = fa.flash_dkv_cuda(*args, **kw)
+        again = {"dq": fa.flash_dq_cuda(*args, **kw)}
+        again["dk"], again["dv"] = fa.flash_dkv_cuda(*args, **kw)
         p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
         want = {"out": p_out, "dq": fa.flash_dq_plain(*args, **kw)}
         want["dk"], want["dv"] = fa.flash_dkv_plain(*args, **kw)
@@ -562,8 +599,12 @@ def flash_checks(dev) -> dict:
                   "within_tol": max(ratio.values()) <= 1.0,
                   "lse_within_tol": lse_err <= fa.LSE_TOL,
                   "controls_above_tol": all(c > 1.0 for c in ctrl.values()
-                                            if c is not None)}
-        del want, bdk, bdv
+                                            if c is not None),
+                  "deterministic": all(torch.equal(got[t], again[t])
+                                       for t in again),
+                  "tensor_core_sass": all(st["hgmma"] > 0
+                                          for st in sass.values())}
+        del want, bdk, bdv, again
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(
             qr, kr, vr, is_causal=causal, enable_gqa=H != n_kv)
@@ -604,10 +645,13 @@ def flash_checks(dev) -> dict:
                   f"max|want|; lse within {fa.LSE_TOL}"),
              tol_ratio=ratio, max_abs_err=err, bitequal_share=equal,
              lse_max_abs_err=lse_err, control_tol_ratio=ctrl,
+             sass=sass,
              ms={kk: t[0] for kk, t in times.items()},
              plain_ms={kk: t[1] for kk, t in times.items()},
              library=FLASH_LIBRARY, library_fwd_ms=times["flash_fwd"][2],
              library_bwd_ms=lib_bwd,
+             bwd_over_library=(times["flash_dq"][0]
+                               + times["flash_dkv"][0]) / lib_bwd,
              bound_ms={kk: flash_bound(kk, B, H, n_kv, S, causal)[0]
                        for kk in times},
              bound_by={kk: flash_bound(kk, B, H, n_kv, S, causal)[1]
@@ -1349,9 +1393,9 @@ def main() -> int:
                          REF + "/ops/paged_attend_pallas.py:112"),
         "flash_fwd": (PORT + "/csrc/flash_attn.cu",
                       REF + "/ops/flash_pallas.py:93"),
-        "flash_dq": (PORT + "/csrc/flash_attn.cu",
+        "flash_dq": (PORT + "/csrc/flash_bwd.cu",
                      REF + "/ops/flash_pallas.py:222"),
-        "flash_dkv": (PORT + "/csrc/flash_attn.cu",
+        "flash_dkv": (PORT + "/csrc/flash_bwd.cu",
                       REF + "/ops/flash_pallas.py:267"),
         "int8_encode": (PORT + "/csrc/int8_codec.cu",
                         REF + "/compress/int8.py:129"),

@@ -1,40 +1,36 @@
-// Flash attention for Hopper: forward, dq and dk/dv, three kernels.
+// Flash attention forward for Hopper.  (The backward, dq and dk/dv, is in
+// flash_bwd.cu.)
 //
-// Replaces the Pallas TPU kernels of fpga_ai_nic_tpu/ops/flash_pallas.py:
+// Replaces the Pallas TPU kernel of fpga_ai_nic_tpu/ops/flash_pallas.py:
 //   flash_fwd_kernel  <- _fwd_kernel  (:93)
-//   flash_dq_kernel   <- _dq_kernel   (:222)
-//   flash_dkv_kernel  <- _dkv_kernel  (:267)
 //
-// Layouts: q / out / dq / do are [B*H, S, 128] bf16, k / v / dk / dv are
-// [B*Hkv, S, 128] bf16, lse / delta are [B*H, S] f32.  GQA is handled by
-// indexing: query head bh reads KV head bh / G (G = H / Hkv); the dk/dv
-// kernel sums the G query heads of its KV head itself, in a fixed order.
+// Layouts: q / out are [B*H, S, 128] bf16, k / v are [B*Hkv, S, 128] bf16,
+// lse is [B*H, S] f32.  GQA is handled by indexing: query head bh reads KV
+// head bh / G (G = H / Hkv).
 //
-// What computes: the Pallas kernels' arithmetic.  Scores s = (q . k) *
+// What computes: the Pallas kernel's arithmetic.  Scores s = (q . k) *
 // sm_scale from bf16 products (exact in f32) summed in f32; online softmax
 // with running max, normalizer and accumulator in f32; lse = m + log l
-// with the l == 0 guard of _finish; the backward recomputes
-// p = exp(s - lse) and ds = p * (dp - delta) * sm_scale.  p and ds stay
-// f32 through the p.v, ds.k, p^T.dO and ds^T.q products: nothing is
-// rounded to bf16 or TF32 before the final store.
+// with the l == 0 guard of _finish.  p stays f32 through the p.v product:
+// nothing is rounded to bf16 or TF32 before the final store.
 //
 // What bounds it on this card: at Llama-3-8B's training shape (S = 4096,
-// 32 heads, causal) every kernel is bound by its operations (2*S^2*hd
-// multiply-adds per GEMM-like product and head, halved by causality),
-// hundreds of operations per byte moved.  The card's bf16 tensor cores
-// would do them at 989 TFLOP/s; this first version runs them as f32
-// fused multiply-adds on the CUDA cores (67 TFLOP/s peak), so it is
-// expected to sit well above the bound.
+// 32 heads, causal) it is bound by its operations (2*S^2*hd multiply-adds
+// per GEMM-like product and head, halved by causality), hundreds of
+// operations per byte moved.  The card's bf16 tensor cores would do them
+// at 989 TFLOP/s; this first version runs them as f32 fused multiply-adds
+// on the CUDA cores (67 TFLOP/s peak), so it is expected to sit well above
+// the bound.
 //
 // What the design does about it: one block of 256 threads per 64-row
-// tile; the TPU's sequential grid axis becomes a loop over the other
-// operand's 64-row tiles, staged through shared memory as f32 and read
-// with padded strides (no bank conflicts); each thread owns a 4 x 4
-// block of scores and a 4 x 8 block of the f32 accumulator in registers,
-// so every shared-memory read feeds 4-8 multiply-adds.  Causal loops stop
-// at the diagonal tile (forward, dq) or start there (dk/dv), skipping the
-// masked half.  Blocks are ordered so the longest tiles start first.
-// Tensor-core tiles (wgmma, TMA) are the next step.
+// tile; the TPU's sequential grid axis becomes a loop over the k tiles,
+// staged through shared memory as f32 and read with padded strides (no
+// bank conflicts); each thread owns a 4 x 4 block of scores and a 4 x 8
+// block of the f32 accumulator in registers, so every shared-memory read
+// feeds 4-8 multiply-adds.  The causal loop stops at the diagonal tile,
+// skipping the masked half.  Blocks are ordered so the longest tiles
+// start first.  Tensor-core tiles (wgmma, as flash_bwd.cu) are the next
+// step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -207,138 +203,6 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows(out + ((size_t)bh * Sq + q0) * HD, o, ri, tx);
 }
 
-// ---------------------------------------------------------------------------
-// dq: one block per (query head, q tile); loop over k tiles
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(NT, 1)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dq,
-                int G, int Sq, int Sk, int causal, float sm_scale) {
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + TILE_FLOATS;
-  float* sK = sDO + TILE_FLOATS;
-  float* sV = sK + TILE_FLOATS;
-  float* sDS = sV;  // ds reuses the V tile once dp has been formed
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16, ri = ty * 4;
-  const int bh = blockIdx.y, kvh = bh / G;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qt * T;
-  const bf16* kb = k + (size_t)kvh * Sk * HD;
-  const bf16* vb = v + (size_t)kvh * Sk * HD;
-  load_tile(sQ, q + ((size_t)bh * Sq + q0) * HD, tid);
-  load_tile(sDO, dout + ((size_t)bh * Sq + q0) * HD, tid);
-  float lrow[4], drow[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    lrow[i] = lse[(size_t)bh * Sq + q0 + ri + i];
-    drow[i] = delta[(size_t)bh * Sq + q0 + ri + i];
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
-  }
-  int nk = Sk / T;
-  if (causal) nk = min(nk, qt + 1);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * T;
-    __syncthreads();
-    load_tile(sK, kb + (size_t)k0 * HD, tid);
-    load_tile(sV, vb + (size_t)k0 * HD, tid);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    dot_tiles(s, sQ, ri, sK, tx);
-    dot_tiles(dp, sDO, ri, sV, tx);
-    __syncthreads();  // sV is read; ds takes its place
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = expf(s[i][j] * sm_scale - lrow[i]);
-        if (causal && k0 + tx + 16 * j > q0 + ri + i) p = 0.f;
-        sDS[(ri + i) * SP + tx + 16 * j] = p * (dp[i][j] - drow[i]) * sm_scale;
-      }
-    __syncthreads();
-    pv_tiles(acc, sDS, ri, sK, tx);
-  }
-  store_rows(dq + ((size_t)bh * Sq + q0) * HD, acc, ri, tx);
-}
-
-// ---------------------------------------------------------------------------
-// dk/dv: one block per (KV head, k tile); loop over (query head of the
-// group, q tile), summing the group inside the block
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(NT, 1)
-flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, int G, int Sq, int Sk, int causal,
-                 float sm_scale) {
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + TILE_FLOATS;
-  float* sQ = sV + TILE_FLOATS;
-  float* sDO = sQ + TILE_FLOATS;
-  float* sP = sDO + TILE_FLOATS;  // [T][SP]: p^T, then ds^T
-  float* sL = sP + T * SP;        // [T] lse of the q tile
-  float* sD = sL + T;             // [T] delta of the q tile
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16, ri = ty * 4;
-  const int kvh = blockIdx.y;
-  const int kt = blockIdx.x, k0 = kt * T;  // low k tiles see the most rows
-  load_tile(sK, k + ((size_t)kvh * Sk + k0) * HD, tid);
-  load_tile(sV, v + ((size_t)kvh * Sk + k0) * HD, tid);
-  float ak[4][8], av[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) ak[i][jj] = av[i][jj] = 0.f;
-  const int nq = Sq / T;
-  const int qt_first = causal ? kt : 0;  // q tiles wholly before: no key seen
-  for (int g = 0; g < G; ++g) {
-    const int bh = kvh * G + g;
-    for (int qt = qt_first; qt < nq; ++qt) {
-      const int q0 = qt * T;
-      __syncthreads();
-      load_tile(sQ, q + ((size_t)bh * Sq + q0) * HD, tid);
-      load_tile(sDO, dout + ((size_t)bh * Sq + q0) * HD, tid);
-      if (tid < T) {
-        sL[tid] = lse[(size_t)bh * Sq + q0 + tid];
-        sD[tid] = delta[(size_t)bh * Sq + q0 + tid];
-      }
-      __syncthreads();
-      // transposed recompute: rows are this block's keys, columns q rows
-      float st[4][4] = {}, dpt[4][4] = {};
-      dot_tiles(st, sK, ri, sQ, tx);
-      dot_tiles(dpt, sV, ri, sDO, tx);
-      float dst[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          float p = expf(st[i][j] * sm_scale - sL[c]);
-          if (causal && k0 + ri + i > q0 + c) p = 0.f;
-          sP[(ri + i) * SP + c] = p;
-          dst[i][j] = p * (dpt[i][j] - sD[c]) * sm_scale;
-        }
-      __syncthreads();
-      pv_tiles(av, sP, ri, sDO, tx);  // dv += p^T . dO
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sP[(ri + i) * SP + tx + 16 * j] = dst[i][j];
-      __syncthreads();
-      pv_tiles(ak, sP, ri, sQ, tx);  // dk += ds^T . q
-    }
-  }
-  store_rows(dk + ((size_t)kvh * Sk + k0) * HD, ak, ri, tx);
-  store_rows(dv + ((size_t)kvh * Sk + k0) * HD, av, ri, tx);
-}
-
 template <typename K>
 int launch_prep(K kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
@@ -361,35 +225,6 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
   flash_fwd_kernel<<<dim3(Sq / T, BH), NT, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
       (float*)lse, G, Sq, Sk, causal, sm_scale);
-  return (int)cudaGetLastError();
-}
-
-int flash_dq_launch(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    void* dq, int BH, int G, int Sq, int Sk, int causal,
-                    float sm_scale, cudaStream_t stream) {
-  const size_t smem = 4 * TILE_FLOATS * sizeof(float);
-  int err = launch_prep(flash_dq_kernel, smem);
-  if (err) return err;
-  flash_dq_kernel<<<dim3(Sq / T, BH), NT, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, G, Sq, Sk, causal,
-      sm_scale);
-  return (int)cudaGetLastError();
-}
-
-int flash_dkv_launch(const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     void* dk, void* dv, int BHkv, int G, int Sq, int Sk,
-                     int causal, float sm_scale, cudaStream_t stream) {
-  const size_t smem =
-      (4 * TILE_FLOATS + (size_t)T * SP + 2 * T) * sizeof(float);
-  int err = launch_prep(flash_dkv_kernel, smem);
-  if (err) return err;
-  flash_dkv_kernel<<<dim3(Sk / T, BHkv), NT, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, G, Sq,
-      Sk, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 

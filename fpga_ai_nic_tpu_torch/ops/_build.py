@@ -10,7 +10,8 @@ second process reuses the first one's libraries.  ``build()`` starts one
 Numerics flags: no fast math, denormals kept (``-ftz=false``), IEEE
 division and square root, and ``-fmad=false`` so the only fused
 multiply-adds are the explicit ``__fmaf_rn`` sites that mirror
-``optim.golden_fused_apply``.
+``optim.golden_fused_apply``.  The tensor-core products of ``flash_bwd.cu``
+(``wgmma``) are not touched by these flags.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 HEADERS = ("bfp.cuh",)
 SOURCES = ("bfp_codec.cu", "ring_rs.cu", "ring_ag.cu", "paged_attend.cu",
-           "flash_attn.cu", "int8_codec.cu")
+           "flash_attn.cu", "flash_bwd.cu", "int8_codec.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-ftz=false", "-prec-div=true", "-prec-sqrt=true")

@@ -181,6 +181,7 @@ FLASH_SHAPES = {
     "gqa_causal": (1, 8, 2, 256, True),
     "gqa_noncausal": (1, 8, 2, 192, False),
     "mha_causal": (2, 4, 4, 128, True),
+    "gqa_causal_b2_s512": (2, 8, 2, 512, True),
 }
 
 
@@ -189,7 +190,8 @@ FLASH_SHAPES = {
 def test_flash_kernels_vs_plain_on_card(cuda_device, shape):
     """flash_fwd, flash_dq and flash_dkv against their plain versions on
     the same bf16 card tensors (head_dim 128): out, dq, dk, dv within
-    ``flash_attention.tol_ratio`` <= 1, lse within LSE_TOL."""
+    ``flash_attention.tol_ratio`` <= 1, lse within LSE_TOL; a second
+    launch of each kernel gives the same bits."""
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     B, H, n_kv, S, causal = FLASH_SHAPES[shape]
     g = torch.Generator(device=cuda_device).manual_seed(S + H)
@@ -208,11 +210,17 @@ def test_flash_kernels_vs_plain_on_card(cuda_device, shape):
     delta = (do.float() * out.float()).sum(-1)
     dq = fa.flash_dq_cuda(q, k, v, do, lse, delta, **kw)
     dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    again = (*fa.flash_fwd_cuda(q, k, v, **kw),
+             fa.flash_dq_cuda(q, k, v, do, lse, delta, **kw),
+             *fa.flash_dkv_cuda(q, k, v, do, lse, delta, **kw))
     p_dq = fa.flash_dq_plain(q, k, v, do, lse, delta, **kw)
     p_dk, p_dv = fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
     assert [fa.FLASH_FWD.launches, fa.FLASH_DQ.launches,
-            fa.FLASH_DKV.launches] == [c + 1 for c in counts]
+            fa.FLASH_DKV.launches] == [c + 2 for c in counts]
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"),
+                          (out, lse, dq, dk, dv), again):
+        assert torch.equal(a, b), f"{name}: a second launch differs"
     assert float((lse - p_lse).abs().max()) <= fa.LSE_TOL
     for name, a, b in (("out", out, p_out), ("dq", dq, p_dq),
                        ("dk", dk, p_dk), ("dv", dv, p_dv)):
