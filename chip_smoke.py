@@ -10,14 +10,16 @@ Phases, each printing JSON lines:
      tensors, with ms per call: bfp_encode / bfp_decode on 2^24 elements
      and at the main path's shapes, ring_rs_update (SGD) and ring_ag at n=8
      for a small payload (<= 4 MiB) and at full width, all bit for bit;
-     paged_attend at decode (R=16, H=32, T=1) and prefill (R=1, T=256)
-     shapes, GQA and MHA, page sizes 16 and 128, within 5e-5;
+     paged_attend at decode (R=16, H=32, T=1: keys split over blocks) and
+     prefill (R=1, T=256: wgmma) shapes, GQA and MHA, page sizes 16 and
+     128, within 5e-5, repeat launches bit-equal, HGMMA counted in the
+     prefill kernel's SASS;
      flash_fwd, flash_dq and flash_dkv at the training path's shape (B=1,
      H=32, Hkv=8, S=4096, hd=128, causal, bf16) and a non-causal MHA
      shape (S=1024), within a bf16 limit that two fault controls (the
      causal mask shifted by one key; the backward at lse + 0.05) exceed,
-     with repeat launches of flash_dq and flash_dkv bit-equal and HGMMA
-     (wgmma) instructions counted in their SASS, timed beside PyTorch's
+     with repeat launches of all three bit-equal and HGMMA (wgmma)
+     instructions counted in their SASS, timed beside PyTorch's
      scaled_dot_product_attention as a yardstick;
      int8_encode / int8_decode (sublane layout, block 16) at 10,240 and at
      the int8 path's 41,963,520 elements, both roundings and seeds 0 and
@@ -53,13 +55,22 @@ Phases, each printing JSON lines:
      driver builds it, Llama-3-8B width with 4 layers (random weights from
      a seed), attn_block 512 on the flash kernels, sequence 4096, global
      batch 2 over dp=2 virtual ranks, BFP ring kernels, SGD — 1 warm-up
-     and 5 timed steps, launch counts and equal replicas checked;
+     and 5 timed steps, launch counts, equal replicas in the model dtype
+     and peak memory;
  10. two more training steps under torch.profiler (flash kernels, ring and
      BFP kernels, GEMMs, the rest);
  11. training parity: loss_fn's gradients on one rank's batch through the
      kernels and through the checkpointed plain route, within a stated
      limit that a fault control (one layer's mask shifted) exceeds;
- 12. the ``kernels`` line, then the last line
+ 12. ``auto_route``: the tiny f32 Llama config (head_dim 16) with
+     attn_impl="auto", which takes the flash kernels as JAX's route takes
+     Pallas on a TPU, here the second family (csrc/flash_generic.cu):
+     its forward, dq and dk/dv against their plain versions at the
+     model's attention shape (f32 limits, repeat launches bit-equal, a
+     shifted-mask control), then one step whose launches are counted
+     (the second family only), and the step's gradients against the
+     torch route's on the same weights;
+ 13. the ``kernels`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so the f32 GEMMs run in full float32.
@@ -100,6 +111,28 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, names) -> float:
+    """Device time per call of the kernels whose names hold one of
+    ``names``, from torch.profiler over ``reps`` calls after a warm-up:
+    the kernel's own time where a call's host work (checks, allocation,
+    the launch) takes longer than the kernel, so events around the calls
+    would time the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.device_time_total for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA
+                and any(n in ev.name for n in names))
+    return total / 1e3 / reps
+
+
 def bound(bytes_moved: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     b, o = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(b, o), ("bytes" if b >= o else "operations")
@@ -120,10 +153,12 @@ PORT = "fpga_ai_nic_tpu_torch"
 REF = PORT.removesuffix("_torch")     # the JAX package's directory
 RING_KERNELS = ("bfp_encode_kernel", "bfp_decode_kernel",
                 "ring_rs_hop_kernel", "ring_ag_hop_kernel")
-FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                 "flash_fwd_generic_kernel", "flash_dq_generic_kernel",
+                 "flash_dkv_generic_kernel")
 INT8_KERNELS = ("int8_encode_kernel", "int8_decode_kernel")
-PORT_KERNELS = (RING_KERNELS + ("paged_attend_kernel",) + FLASH_KERNELS
-                + INT8_KERNELS)
+PAGED_KERNELS = ("paged_prefill_kernel", "paged_decode_kernel")
+PORT_KERNELS = RING_KERNELS + PAGED_KERNELS + FLASH_KERNELS + INT8_KERNELS
 GEMM_NAMES = ("gemm", "cutlass", "xmma", "sm90_", "nvjet")
 
 
@@ -393,8 +428,8 @@ LIBRARY_ROUTE = ("two calls: the gathered [R, kv, P*page_size, hd] view in "
                  "f32, then F.scaled_dot_product_attention with the mask")
 
 
-def paged_inputs(dev, R, H, n_kv, T, hd, ps, P, seed):
-    """q f32; a dirty bf16 pool whose live pages are O(1) and whose other
+def paged_inputs(dev, R, H, n_kv, T, hd, ps, P, seed, q_dtype):
+    """q in ``q_dtype``; a dirty bf16 pool whose live pages are O(1) and whose other
     pages hold 1e3-sized garbage; a shuffled table; ragged positions."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -410,21 +445,25 @@ def paged_inputs(dev, R, H, n_kv, T, hd, ps, P, seed):
         live[table[r, :min((p + T - 1) // ps + 1, P)].long()] = True
     pk[live] *= 1e-3
     pv[live] *= 1e-3
-    q = torch.randn((R, H, T, hd), generator=g, device=dev)
+    q = torch.randn((R, H, T, hd), generator=g, device=dev).to(q_dtype)
     return q, pk.to(torch.bfloat16), pv.to(torch.bfloat16), table, pos
 
 
-def paged_bound(pos, R, H, n_kv, T, hd, ps, P):
+def paged_bound(pos, R, H, n_kv, T, hd, ps, P, ops_per_s=F32_OPS_PER_S,
+                q_itemsize=4):
     """The bytes the function needs over the HBM rate — K and V (bf16) of
-    the keys some row sees, min(pos + T, P*ps) per slot and KV head; q and
-    out (f32); the live table entries and pos — against 4*hd f32
-    operations per visible (row, key) pair."""
+    the keys some row sees, min(pos + T, P*ps) per slot and KV head; q (in
+    its dtype) and out (f32); the live table entries and pos — against 4*hd operations
+    per visible (row, key) pair (its two products) over ``ops_per_s``: the
+    f32 rate for decode, which the CUDA cores compute; the bf16 tensor
+    cores' for prefill, whose products run there (as rows 9-11 state
+    theirs)."""
     keys = sum(min(p + T, P * ps) for p in pos)
     live = sum(min((p + T - 1) // ps + 1, P) for p in pos)
-    moved = (keys * n_kv * hd * 2 * 2 + 2 * R * H * T * hd * 4 + live * 4
-             + R * 4)
+    moved = (keys * n_kv * hd * 2 * 2 + R * H * T * hd * (q_itemsize + 4)
+             + live * 4 + R * 4)
     visible = sum(min(p + t + 1, P * ps) for p in pos for t in range(T))
-    return bound(moved, 4 * hd * H * visible)
+    return bound(moved, 4 * hd * H * visible, ops_per_s)
 
 
 def library_attend(q, pk, pv, table, pos, ps):
@@ -441,19 +480,33 @@ def library_attend(q, pk, pv, table, pos, ps):
     t = torch.arange(T, device=q.device)
     mask = j[None, None, None, :] <= (pos[:, None, None, None]
                                       + t[None, None, :, None])
-    return F.scaled_dot_product_attention(q, ck, cv, attn_mask=mask,
+    return F.scaled_dot_product_attention(q.float(), ck, cv, attn_mask=mask,
                                           scale=hd ** -0.5,
                                           enable_gqa=H != n_kv)
 
 
 def paged_checks(dev) -> dict:
-    """Kernel against plain at every PAGED_SHAPES entry; returns the rows
-    by shape name."""
+    """Kernel against plain at every PAGED_SHAPES entry with q in bf16, the
+    serving path's dtype (one bf16 term of q at prefill), and at the two
+    GQA page-16 shapes also with q in f32 (the contract's, two terms); a
+    second launch bit-equal to the first (both regimes); the prefill
+    kernel's HGMMA count, registers and local bytes.  ``ms`` is the
+    kernel's device time (``device_ms``), ``call_ms`` a whole call's
+    (CUDA events, host work included).  Returns the rows by shape name,
+    with " q f32" after the name for the f32 rows."""
+    import torch
     from fpga_ai_nic_tpu_torch.ops import paged_attend
+    sass = sass_stats(paged_attend.PAGED_ATTEND.source, PAGED_KERNELS)
+    if not (sass["paged_prefill_kernel"]["hgmma"] > 0
+            and sass["paged_prefill_kernel"]["local_bytes"] == 0):
+        raise AssertionError(f"paged prefill kernel SASS: {sass}")
+    runs = [(name, torch.bfloat16, shape) for name, *shape in PAGED_SHAPES]
+    runs += [(name + " q f32", torch.float32, shape)
+             for name, *shape in PAGED_SHAPES if name.endswith("GQA ps16")]
     out = {}
-    for i, (name, R, H, n_kv, T, hd, ps, P) in enumerate(PAGED_SHAPES):
+    for i, (name, q_dtype, (R, H, n_kv, T, hd, ps, P)) in enumerate(runs):
         q, pk, pv, table, pos = paged_inputs(dev, R, H, n_kv, T, hd, ps, P,
-                                             seed=100 + i)
+                                             100 + i, q_dtype)
 
         def kern():
             return paged_attend.paged_gather_attend(q, pk, pv, table, pos,
@@ -463,27 +516,41 @@ def paged_checks(dev) -> dict:
             return paged_attend.paged_gather_attend_plain(
                 q, pk, pv, table, pos, page_size=ps)
 
-        got, want = kern(), plain()
+        got, again, want = kern(), kern(), plain()
         sync(dev)
         err = max_err([(got, want)])
-        if not (bool(got.isfinite().all()) and err <= PAGED_TOL):
+        deterministic = torch.equal(got, again)
+        if not (bool(got.isfinite().all()) and err <= PAGED_TOL
+                and deterministic):
             raise AssertionError(f"paged_attend {name}: max abs err {err} "
-                                 f"> {PAGED_TOL}")
+                                 f"> {PAGED_TOL} or a second launch "
+                                 f"differs ({deterministic})")
         lib_err = max_err([(library_attend(q, pk, pv, table, pos, ps),
                             want)])
-        b = paged_bound(pos.tolist(), R, H, n_kv, T, hd, ps, P)
-        row = {"max_abs_err": err, "ms": cuda_ms(kern, 20, 3),
+        shape = (pos.tolist(), R, H, n_kv, T, hd, ps, P)
+        qb = q.element_size()
+        b = paged_bound(*shape, BF16_OPS_PER_S if T > 1 else F32_OPS_PER_S,
+                        q_itemsize=qb)
+        row = {"max_abs_err": err, "ms": device_ms(kern, 20, PAGED_KERNELS),
+               "call_ms": cuda_ms(kern, 20, 3),
                "plain_ms": cuda_ms(plain, 10),
                "library_ms": cuda_ms(
                    lambda: library_attend(q, pk, pv, table, pos, ps), 5),
-               "bound": b}
+               "bound": b,
+               "bound_f32_ms": paged_bound(*shape, q_itemsize=qb)[0]}
         out[name] = row
         emit(phase="kernel_check", kernel="paged_attend", shape=name, R=R,
-             H=H, n_kv=n_kv, T=T, hd=hd, page_size=ps, P=P, tol=PAGED_TOL,
-             max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
-             bound_ms=b[0], bound_by=b[1], library=LIBRARY_ROUTE,
-             library_ms=row["library_ms"], library_max_abs_err=lib_err)
-        del q, pk, pv, table, pos, got, want
+             H=H, n_kv=n_kv, T=T, hd=hd, page_size=ps, P=P,
+             q_dtype=str(q_dtype).removeprefix("torch."), tol=PAGED_TOL,
+             regime="prefill (wgmma)" if paged_attend.decode_split(
+                 T, H // n_kv, ps, P) == 0 else "decode (split keys)",
+             max_abs_err=err, deterministic=deterministic, ms=row["ms"],
+             call_ms=row["call_ms"], plain_ms=row["plain_ms"],
+             bound_ms=b[0], bound_by=b[1], bound_f32_ms=row["bound_f32_ms"],
+             library=LIBRARY_ROUTE,
+             library_ms=row["library_ms"], library_max_abs_err=lib_err,
+             sass=sass)
+        del q, pk, pv, table, pos, got, again, want
     return out
 
 
@@ -499,20 +566,25 @@ FLASH_LIBRARY = ("F.scaled_dot_product_attention(q, k, v, is_causal, "
                  "dk/dv together")
 
 
-def flash_bound(kind, B, H, n_kv, S, causal):
+def flash_bound(kind, B, H, n_kv, S, causal, split=False, hd=128,
+                itemsize=2, ops_per_s=BF16_OPS_PER_S):
     """Each input read once, each output written once (bf16 tensors, f32
     lse/delta) over the HBM rate, against the multiply-adds the visible
     (row, key) pairs need over the bf16 tensor-core rate: 2, 3 and 4
-    products of depth hd per pair for the forward, dq and dk/dv."""
-    hd = 128
-    big, small, rows = B * H * S * hd * 2, B * n_kv * S * hd * 2, B * H * S * 4
+    products of depth hd per pair for the forward, dq and dk/dv.
+    ``split``: the tensor-core passes the kernels run instead, with p and
+    ds as two bf16 terms (3, 4 and 6), a floor of their design.  The
+    second family's f32 operands: ``itemsize`` 4 at the f32 rate."""
+    big = B * H * S * hd * itemsize
+    small, rows = B * n_kv * S * hd * itemsize, B * H * S * 4
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-    moved, products = {
-        "flash_fwd": (2 * big + 2 * small + rows, 2),
-        "flash_dq": (3 * big + 2 * small + 2 * rows, 3),
-        "flash_dkv": (2 * big + 4 * small + 2 * rows, 4),
+    moved, products, passes = {
+        "flash_fwd": (2 * big + 2 * small + rows, 2, 3),
+        "flash_dq": (3 * big + 2 * small + 2 * rows, 3, 4),
+        "flash_dkv": (2 * big + 4 * small + 2 * rows, 4, 6),
     }[kind]
-    return bound(moved, 2 * products * hd * pairs, BF16_OPS_PER_S)
+    return bound(moved, 2 * (passes if split else products) * hd * pairs,
+                 ops_per_s)
 
 
 def sass_stats(source: str, kernels) -> dict:
@@ -555,8 +627,9 @@ def flash_checks(dev) -> dict:
     import torch
     import torch.nn.functional as F
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
-    sass = sass_stats(fa.FLASH_DQ.source, ("flash_dq_kernel",
-                                            "flash_dkv_kernel"))
+    sass = dict(sass_stats(fa.FLASH_FWD.source, ("flash_fwd_kernel",)),
+                **sass_stats(fa.FLASH_DQ.source, ("flash_dq_kernel",
+                                                  "flash_dkv_kernel")))
     rows = {}
     for si, (name, B, H, n_kv, S, causal) in enumerate(FLASH_SHAPES):
         g = torch.Generator(device=dev).manual_seed(300 + si)
@@ -574,7 +647,8 @@ def flash_checks(dev) -> dict:
         args = (q, k, v, do, lse, delta)
         got = {"out": out, "dq": fa.flash_dq_cuda(*args, **kw)}
         got["dk"], got["dv"] = fa.flash_dkv_cuda(*args, **kw)
-        again = {"dq": fa.flash_dq_cuda(*args, **kw)}
+        again = dict(zip(("out", "lse"), fa.flash_fwd_cuda(q, k, v, **kw)))
+        again["dq"] = fa.flash_dq_cuda(*args, **kw)
         again["dk"], again["dv"] = fa.flash_dkv_cuda(*args, **kw)
         p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
         want = {"out": p_out, "dq": fa.flash_dq_plain(*args, **kw)}
@@ -600,10 +674,12 @@ def flash_checks(dev) -> dict:
                   "lse_within_tol": lse_err <= fa.LSE_TOL,
                   "controls_above_tol": all(c > 1.0 for c in ctrl.values()
                                             if c is not None),
-                  "deterministic": all(torch.equal(got[t], again[t])
-                                       for t in again),
+                  "deterministic": all(torch.equal(
+                      dict(got, lse=lse)[t], again[t]) for t in again),
                   "tensor_core_sass": all(st["hgmma"] > 0
-                                          for st in sass.values())}
+                                          for st in sass.values()),
+                  "no_local_bytes": all(st["local_bytes"] == 0
+                                        for st in sass.values())}
         del want, bdk, bdv, again
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(
@@ -631,7 +707,8 @@ def flash_checks(dev) -> dict:
             row = {"max_abs_err": max(err[t] for t in terms), "ms": ms,
                    "plain_ms": plain_ms,
                    "library_ms": lib_bwd if lib_ms is None else lib_ms,
-                   "bound": b}
+                   "bound": b, "split_floor_ms": flash_bound(
+                       kern, B, H, n_kv, S, causal, split=True)[0]}
             prev = rows.get(kern)
             if prev is None:
                 rows[kern] = row
@@ -654,6 +731,8 @@ def flash_checks(dev) -> dict:
                                + times["flash_dkv"][0]) / lib_bwd,
              bound_ms={kk: flash_bound(kk, B, H, n_kv, S, causal)[0]
                        for kk in times},
+             split_floor_ms={kk: flash_bound(kk, B, H, n_kv, S, causal,
+                                             split=True)[0] for kk in times},
              bound_by={kk: flash_bound(kk, B, H, n_kv, S, causal)[1]
                        for kk in times}, checks=checks)
         if not all(checks.values()):
@@ -1002,10 +1081,13 @@ def llama_train_path(dev, kernels) -> dict:
                                  f"{per_step[name]}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"llama training: non-finite loss {losses}")
-    # no name but the state may hold its 15 GB of replicas: the profiled
+    # no name but the state may hold its 7.7 GB of replicas: the profiled
     # steps below allocate the next ones while it lives
     if not bool((state.replicas == state.replicas[0]).all()):
         raise AssertionError("llama training: replicas differ")
+    if state.replicas.dtype != mcfg.torch_dtype:
+        raise AssertionError(f"llama training: replicas in "
+                             f"{state.replicas.dtype}, not the model dtype")
     tokens = cfg.iters * cfg.global_batch * seq
     emit(phase="llama_train_path", model=(
         f"Llama-3-8B width (dim {mcfg.dim}, {mcfg.n_heads}/{mcfg.n_kv_heads} "
@@ -1018,6 +1100,7 @@ def llama_train_path(dev, kernels) -> dict:
          steps=cfg.iters, wall_s=wall, ms_per_step=1e3 * wall / cfg.iters,
          step_ms=step_ms, tokens_per_sec=tokens / wall, losses=losses,
          padded_len=int(state.w_own.numel()),
+         replicas_dtype=str(state.replicas.dtype).removeprefix("torch."),
          peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
          launches=launches, launches_per_step=per_step,
          replicas_equal=True)
@@ -1032,6 +1115,158 @@ def llama_train_path(dev, kernels) -> dict:
     del tr, held, batches
     torch.cuda.empty_cache()
     return {"launches": launches, "mcfg": mcfg, "cfg": cfg, "seq": seq}
+
+
+GENERIC_TOL = {"out": (2e-5, 2e-5), "dq": (5e-5, 5e-4),   # (atol, rtol):
+               "dk": (5e-5, 5e-4), "dv": (5e-5, 5e-4)}    # the JAX tests'
+AUTO_GRAD_REL_TOL = 1e-4  # kernel route against torch route, f32 model
+
+
+def generic_checks(dev, B, H, n_kv, S, hd, causal) -> dict:
+    """The second flash family (csrc/flash_generic.cu) against its plain
+    versions at the tiny f32 model's attention shape: within the JAX
+    tests' own f32 tolerances, a second launch bit-equal, the causal mask
+    shifted by one key as the fault control; times of kernel, plain
+    version and the library's attention.  Returns rows by kernel."""
+    import torch
+    import torch.nn.functional as F
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(400)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def ratio(a, b, t):
+        atol, rtol = GENERIC_TOL[t]
+        return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+    q, k, v = rand(B, H, S, hd), rand(B, n_kv, S, hd), rand(B, n_kv, S, hd)
+    do = rand(B, H, S, hd)
+    kw = dict(causal=causal, sm_scale=hd ** -0.5)
+    out, lse = fa.flash_fwd_generic_cuda(q, k, v, **kw)
+    delta = (do * out).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    got = {"out": out, "dq": fa.flash_dq_generic_cuda(*args, **kw)}
+    got["dk"], got["dv"] = fa.flash_dkv_generic_cuda(*args, **kw)
+    again = dict(zip(("out", "lse"), fa.flash_fwd_generic_cuda(q, k, v,
+                                                               **kw)))
+    again["dq"] = fa.flash_dq_generic_cuda(*args, **kw)
+    again["dk"], again["dv"] = fa.flash_dkv_generic_cuda(*args, **kw)
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
+    want = {"out": p_out, "dq": fa.flash_dq_plain(*args, **kw)}
+    want["dk"], want["dv"] = fa.flash_dkv_plain(*args, **kw)
+    sync(dev)
+    ratios = {t: ratio(got[t], want[t], t) for t in got}
+    err = {t: max_err([(got[t], want[t])]) for t in got}
+    lse_err = max_err([(lse, p_lse)])
+    ctrl = ratio(out, fa.flash_fwd_plain(q, k, v, q_offset=1, **kw)[0],
+                 "out") if causal else None
+    checks = {"finite": all(bool(t.isfinite().all()) for t in got.values()),
+              "within_tol": max(ratios.values()) <= 1.0,
+              "lse_within_tol": lse_err <= fa.LSE_TOL,
+              "control_above_tol": ctrl is None or ctrl > 1.0,
+              "deterministic": all(torch.equal(dict(got, lse=lse)[t],
+                                                again[t]) for t in again)}
+    names = ("flash_fwd_generic", "flash_dq_generic", "flash_dkv_generic")
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
+                                             enable_gqa=H != n_kv)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qr, kr, vr), do, retain_graph=True), 10)
+    calls = {
+        "flash_fwd_generic": (lambda: fa.flash_fwd_generic_cuda(q, k, v, **kw),
+                              lambda: fa.flash_fwd_plain(q, k, v, **kw),
+                              cuda_ms(lambda: F.scaled_dot_product_attention(
+                                  q, k, v, is_causal=causal,
+                                  enable_gqa=H != n_kv), 10), ("out",)),
+        "flash_dq_generic": (lambda: fa.flash_dq_generic_cuda(*args, **kw),
+                             lambda: fa.flash_dq_plain(*args, **kw),
+                             lib_bwd, ("dq",)),
+        "flash_dkv_generic": (lambda: fa.flash_dkv_generic_cuda(*args, **kw),
+                              lambda: fa.flash_dkv_plain(*args, **kw),
+                              lib_bwd, ("dk", "dv"))}
+    rows = {}
+    for name, (kern, plain, lib_ms, terms) in calls.items():
+        b = flash_bound(name[:-len("_generic")], B, H, n_kv, S, causal,
+                        hd=hd, itemsize=4, ops_per_s=F32_OPS_PER_S)
+        rows[name] = {"max_abs_err": max(err[t] for t in terms),
+                      "ms": device_ms(kern, 20, (name + "_kernel",)),
+                      "call_ms": cuda_ms(kern, 20, 3),
+                      "plain_ms": cuda_ms(plain, 10), "library_ms": lib_ms,
+                      "bound": b}
+    emit(phase="kernel_check", kernel="/".join(names), shape=(
+        f"tiny f32 model: B={B}, H={H}, n_kv={n_kv}, S={S}, hd={hd}"),
+         causal=causal, tol=("|got - want| <= atol + rtol |want|, "
+                             f"(atol, rtol) {GENERIC_TOL}"),
+         tol_ratio=ratios, max_abs_err=err, lse_max_abs_err=lse_err,
+         control_tol_ratio=ctrl, library="F.scaled_dot_product_attention "
+         "in f32; its autograd backward for dq and dk/dv together",
+         rows={n: dict(r, bound_ms=r["bound"][0], bound_by=r["bound"][1])
+               for n, r in rows.items()}, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"second flash family failed: {checks}")
+    return rows
+
+
+def auto_route(dev) -> dict:
+    """The tiny f32 Llama config (head_dim 16) with ``attn_impl="auto"`` on
+    the card: it takes the flash kernels, as the JAX route takes Pallas
+    for it on a TPU, and they are the second family's.  Its kernels are
+    held against their plain versions first; then one step runs with the
+    launch counts zeroed just before and read just after; then the
+    step's gradients are held against the torch route's on the same
+    weights and batch.  Returns the launches and the kernel rows."""
+    import dataclasses
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    from fpga_ai_nic_tpu_torch.ops import ring_attention as ra
+    mcfg, cfg, seq, _ = train_llama.parse([
+        "--model=tiny", "--model.attn_block=128", "--model.attn_impl=auto",
+        "--seq=128", "--global_batch=4", "--mesh.dp=2", "--iters=1"])
+    B = cfg.global_batch // cfg.mesh.dp
+    rows = generic_checks(dev, B, mcfg.n_heads, mcfg.n_kv_heads, seq,
+                          mcfg.head_dim, True)
+    q = torch.zeros((B, mcfg.n_heads, seq, mcfg.head_dim), device=dev,
+                    dtype=mcfg.torch_dtype)
+    routed = ra.pallas_route("auto", q, kv_seq_len=seq)
+    kernels = {"flash_fwd_generic": fa.FLASH_FWD_GENERIC,
+               "flash_dq_generic": fa.FLASH_DQ_GENERIC,
+               "flash_dkv_generic": fa.FLASH_DKV_GENERIC,
+               "flash_fwd": fa.FLASH_FWD, "flash_dq": fa.FLASH_DQ,
+               "flash_dkv": fa.FLASH_DKV}
+    tr, state = train_llama.build(mcfg, cfg, "cuda")
+    batch = tr.shard_batch(next(train_llama.batches(mcfg, cfg, seq, 1)))
+    g_auto, loss_auto = tr.grads(state, batch)
+    tr_x, state_x = train_llama.build(
+        dataclasses.replace(mcfg, attn_impl="xla"), cfg, "cuda")
+    g_xla, loss_xla = tr_x.grads(state_x, batch)
+    for kern in kernels.values():
+        kern.launches = 0
+    state, loss = tr.step(state, batch)
+    sync(dev)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    loss = float(loss)
+    per_step = mcfg.n_layers * cfg.mesh.dp
+    grad_rel = float((g_auto - g_xla).abs().max() / g_xla.abs().max())
+    loss_rel = abs(float(loss_auto) - float(loss_xla)) / abs(float(loss_xla))
+    checks = {"finite": math.isfinite(loss), "routed_to_kernels": routed,
+              "second_family_launched": all(
+                  launches[n] == per_step for n in rows),
+              "no_tensor_core_launch": all(
+                  launches[n] == 0 for n in ("flash_fwd", "flash_dq",
+                                             "flash_dkv")),
+              "grads_match_torch_route": grad_rel <= AUTO_GRAD_REL_TOL,
+              "loss_matches_torch_route": loss_rel <= AUTO_GRAD_REL_TOL}
+    emit(phase="auto_route", model=dataclasses.asdict(mcfg), seq=seq,
+         dp=cfg.mesh.dp, loss=loss, launches=launches,
+         grad_rel_err_vs_torch_route=grad_rel,
+         loss_rel_err_vs_torch_route=loss_rel, tol=AUTO_GRAD_REL_TOL,
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"auto route failed: {checks}")
+    del tr, state, tr_x, state_x, g_auto, g_xla
+    return {"launches": launches, "rows": rows}
 
 
 # The kernel route's gradients differ from the plain route's by the f32
@@ -1378,8 +1613,9 @@ def main() -> int:
     # -- 9-11. the Llama training path, its profile and its parity ---------------
     train = llama_train_path(dev, serve_kernels)
     llama_train_parity(dev, train)
+    auto = auto_route(dev)
 
-    # -- 12. the kernels line and the result -----------------------------------------
+    # -- 13. the kernels line and the result -----------------------------------------
     meta = {
         "bfp_encode": (PORT + "/csrc/bfp_codec.cu",
                        REF + "/ops/bfp_pallas.py:55"),
@@ -1397,6 +1633,12 @@ def main() -> int:
                      REF + "/ops/flash_pallas.py:222"),
         "flash_dkv": (PORT + "/csrc/flash_bwd.cu",
                       REF + "/ops/flash_pallas.py:267"),
+        "flash_fwd_generic": (PORT + "/csrc/flash_generic.cu",
+                              REF + "/ops/flash_pallas.py:93"),
+        "flash_dq_generic": (PORT + "/csrc/flash_generic.cu",
+                             REF + "/ops/flash_pallas.py:222"),
+        "flash_dkv_generic": (PORT + "/csrc/flash_generic.cu",
+                              REF + "/ops/flash_pallas.py:267"),
         "int8_encode": (PORT + "/csrc/int8_codec.cu",
                         REF + "/compress/int8.py:129"),
         "int8_decode": (PORT + "/csrc/int8_codec.cu",
@@ -1408,6 +1650,9 @@ def main() -> int:
         results[name] = flash[name]
     for name in ("int8_encode", "int8_decode"):
         launches[name] = int8_launches[name]
+    for name, r in auto["rows"].items():
+        launches[name] = auto["launches"][name]
+        results[name] = r
     dec_row, pre_row = paged["decode GQA ps16"], paged["prefill GQA ps16"]
     results["paged_attend"] = {
         "max_abs_err": max(r["max_abs_err"] for r in paged.values()),
@@ -1430,17 +1675,27 @@ def main() -> int:
             row.update(shape="decode GQA ps16 (R=16, H=32, kv=8, T=1)",
                        library=LIBRARY_ROUTE, prefill_shape=(
                            "prefill GQA ps16 (R=1, H=32, kv=8, T=256)"),
+                       q_dtype="bfloat16 (the serving path's)",
+                       call_ms=dec_row["call_ms"],
                        prefill_ms=pre_row["ms"],
+                       prefill_call_ms=pre_row["call_ms"],
+                       prefill_q_f32_ms=paged["prefill GQA ps16 q f32"][
+                           "ms"],
                        prefill_plain_ms=pre_row["plain_ms"],
                        prefill_bound_ms=pre_row["bound"][0],
                        prefill_bound_by=pre_row["bound"][1],
+                       prefill_bound_f32_ms=pre_row["bound_f32_ms"],
                        prefill_library_ms=pre_row["library_ms"])
         if name in flash_kernels:
             row.update(shape=FLASH_SHAPES[0][0], library=FLASH_LIBRARY,
-                       launches_from="llama_train_path")
+                       launches_from="llama_train_path",
+                       split_floor_ms=r["split_floor_ms"])
         if name in ("int8_encode", "int8_decode"):
             row.update(shape=f"{INT8_PATH_ELEMS} f32, block 16, stochastic",
                        launches_from="int8_train_path")
+        if name in auto["rows"]:
+            row.update(shape="tiny f32 Llama, head_dim 16, S=128",
+                       launches_from="auto_route", call_ms=r["call_ms"])
         out.append(row)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -225,7 +225,8 @@ def _block(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
     q = _rope(q, pos, cfg)
     k = _rope(k, pos, cfg)
     if n_kv != n_heads and not (cfg.attn_block is not None
-                                and pallas_route(cfg.attn_impl, q)):
+                                and pallas_route(cfg.attn_impl, q,
+                                                 kv_seq_len=k.shape[2])):
         # GQA: the flash kernels read grouped K/V; the torch paths'
         # einsums take the repeat-expanded copy (head h reads KV h // G)
         k = k.repeat_interleave(n_heads // n_kv, dim=1)

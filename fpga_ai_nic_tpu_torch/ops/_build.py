@@ -10,8 +10,9 @@ second process reuses the first one's libraries.  ``build()`` starts one
 Numerics flags: no fast math, denormals kept (``-ftz=false``), IEEE
 division and square root, and ``-fmad=false`` so the only fused
 multiply-adds are the explicit ``__fmaf_rn`` sites that mirror
-``optim.golden_fused_apply``.  The tensor-core products of ``flash_bwd.cu``
-(``wgmma``) are not touched by these flags.
+``optim.golden_fused_apply``.  The tensor-core products (``wgmma``) of
+``flash_attn.cu``, ``flash_bwd.cu`` and ``paged_attend.cu`` are not
+touched by these flags.
 """
 
 from __future__ import annotations
@@ -30,9 +31,10 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-HEADERS = ("bfp.cuh",)
+HEADERS = ("bfp.cuh", "hopper_mma.cuh", "attn_fwd.cuh")
 SOURCES = ("bfp_codec.cu", "ring_rs.cu", "ring_ag.cu", "paged_attend.cu",
-           "flash_attn.cu", "flash_bwd.cu", "int8_codec.cu")
+           "flash_attn.cu", "flash_bwd.cu", "flash_generic.cu",
+           "int8_codec.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-ftz=false", "-prec-div=true", "-prec-sqrt=true")

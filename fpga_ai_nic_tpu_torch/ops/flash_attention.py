@@ -6,16 +6,24 @@ forward keeps ``lse`` and whose backward recomputes ``p`` from it, as the
 JAX ``custom_vjp`` does.  Each of its three steps
 has a plain version here that repeats the kernels' arithmetic in torch
 (``flash_fwd_plain``, ``flash_dq_plain``, ``flash_dkv_plain``) and a CUDA
-kernel: the forward in ``csrc/flash_attn.cu``, dq and dk/dv in
-``csrc/flash_bwd.cu`` (tensor cores).  A tensor on the CPU takes the plain
-version; a tensor on CUDA launches the kernel or raises.  There is no
+kernel on the tensor cores: the forward in ``csrc/flash_attn.cu``, dq and
+dk/dv in ``csrc/flash_bwd.cu``.  A tensor on the CPU takes the plain
+version; a tensor on CUDA launches a kernel or raises.  There is no
 fallback between the two.  ``FLASH_FWD``, ``FLASH_DQ`` and ``FLASH_DKV``
 count kernel launches.
 
+The tensor-core kernels take bf16 q, k and v at head_dim 128 with Sq and
+Sk multiples of ``TILE`` (``tensor_cores_take``), Llama-3's training
+shape.  Every other CUDA call that ``supported()`` takes, in float32,
+bfloat16 or float16 (``GENERIC_DTYPES``), launches the second family,
+``csrc/flash_generic.cu``: f32 on the CUDA cores, for any head_dim the
+JAX package's predicate allows, as the Pallas kernels run every dtype and
+head_dim.  ``FLASH_FWD_GENERIC``, ``FLASH_DQ_GENERIC`` and
+``FLASH_DKV_GENERIC`` count its launches.  Other dtypes raise.
+
 Layouts: q is ``[B, H, Sq, hd]``, k and v are ``[B, Hkv, Sk, hd]`` with
 Hkv dividing H (GQA: query head h reads KV head ``h // (H // Hkv)``; K/V
-are never repeated, and dk/dv sum each group's query heads).  The kernels
-take bf16 tensors at head_dim 128 with Sq and Sk multiples of ``TILE``;
+are never repeated, and dk/dv sum each group's query heads).
 ``block_q``/``block_k`` are the TPU kernels' VMEM tiling and only set the
 plain versions' key blocking here.  The q/k offsets of sequence
 parallelism and the BERT key bias have no caller yet and raise
@@ -24,20 +32,23 @@ parallelism and the BERT key bias have no caller yet and raise
 Numerics (``flash_pallas.py``'s contract): bf16 products summed in f32,
 ``p`` and ``ds`` kept in f32 through every product, one rounding to the
 output dtype at the end.  The plain versions keep it exactly.  The
-backward kernels run their products on the tensor cores, which take bf16
+kernels run their products on the tensor cores, which take bf16
 operands: ``s = q.k^T`` and ``dp = dO.v^T`` are exact there (bf16 inputs),
-while ``p`` (into dv) and ``ds`` (into dq and dk) each enter as two bf16
-terms, ``hi = bf16(x)`` and ``lo = bf16(x - hi)``, both products summed in
-f32, which carries x to about 16 bits.  One bf16 rounding of p and ds, as
-the library's bf16 backward does, was refused: emulated on the CPU
-(``tests/test_torch_flash.py``, H=8, Hkv=2, S=1024, hd=128, causal, bf16
-inputs from seed 0) it gives ``tol_ratio`` 1.73 / 3.98 / 3.23 (dq / dk /
+while ``p`` (into out and dv) and ``ds`` (into dq and dk) each enter as
+two bf16 terms, ``hi = bf16(x)`` and ``lo = bf16(x - hi)``, both products
+summed in f32, which carries x to about 16 bits.  One bf16 rounding of p
+and ds, as the library's bf16 backward does, was refused: emulated on the
+CPU (``tests/test_torch_flash.py``, H=8, Hkv=2, S=1024, hd=128, causal,
+bf16 inputs from seed 0) it gives ``tol_ratio`` 1.73 / 3.98 / 3.23 (dq / dk /
 dv) against the limit of 1, near the card check's fault control (the
 plain backward at lse + 0.05, about 3.6), so no looser limit could still
 tell a fault apart; the hi + lo split gives 0.39 / 0.41 / 0.34 there and
-at most 0.48 over GQA and MHA, causal or not, S of 256 and 1024.
+at most 0.48 over GQA and MHA, causal or not, S of 256 and 1024.  The
+forward's p is split the same way: emulated at the same sizes it gives
+``tol_ratio`` 0.36-0.45 on the output, where one rounding gives 1.74-3.64.
 Kernel and plain version sum in different orders, so they agree to that
-limit, not bit for bit.
+limit, not bit for bit.  The second family keeps p and ds in f32 (no
+split) and differs from the plain versions by the f32 sums' order only.
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ from .bfp_cuda import check_cuda
 
 LANES = 128
 TILE = 64                   # rows of a q or k tile in the CUDA kernels
-KERNEL_HEAD_DIM = 128       # Llama-3's; the kernels are built for it alone
+KERNEL_HEAD_DIM = 128       # Llama-3's; the tensor-core kernels take it alone
 _NEG = -1e30
 _DEF_BLOCK = 512
 _SP_ITEM = "ROADMAP A.6 (sequence parallelism: ring_flash_attention)"
@@ -67,6 +78,18 @@ FLASH_DQ = Kernel("flash_dq", "flash_bwd.cu", "flash_dq_launch",
 FLASH_DKV = Kernel("flash_dkv", "flash_bwd.cu", "flash_dkv_launch",
                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_float])
+
+GENERIC_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+GENERIC_ROWS = 32           # rows a block of the second family owns
+FLASH_FWD_GENERIC = Kernel(
+    "flash_fwd_generic", "flash_generic.cu", "flash_fwd_generic_launch",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float])
+FLASH_DQ_GENERIC = Kernel(
+    "flash_dq_generic", "flash_generic.cu", "flash_dq_generic_launch",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float])
+FLASH_DKV_GENERIC = Kernel(
+    "flash_dkv_generic", "flash_generic.cu", "flash_dkv_generic_launch",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float])
 
 
 REL_TOL = 2.0 ** -6          # two to four bf16 ulps of each element
@@ -90,14 +113,36 @@ def supported(q_shape, dtype=None, kv_seq_len=None) -> bool:
     """Can the fused kernels take this attention?  [B,H,S,dh] with S a
     lane multiple (blocks divide S exactly) and a lane-friendly head dim.
     ``kv_seq_len`` (Sk, when it differs from Sq) must be a lane multiple
-    too.  The JAX package's predicate, unchanged; the CUDA kernels accept
-    a subset of it (bf16, head_dim 128) and raise on the rest."""
+    too.  The JAX package's predicate, unchanged.  The CUDA kernels take
+    all of it in float32, bfloat16 and float16."""
     if len(q_shape) != 4:
         return False
     S, dh = q_shape[2], q_shape[3]
     if kv_seq_len is not None and kv_seq_len % LANES != 0:
         return False
     return S % LANES == 0 and dh % 8 == 0 and dh <= 256
+
+
+def kernels_take(q_shape, device_type: str,
+                 kv_seq_len: Optional[int] = None) -> bool:
+    """Does "auto" take the flash kernels?  On a CUDA device wherever
+    ``supported()`` holds: the JAX package's rule (a TPU with tiling
+    shapes) with the card in the TPU's place.  Pure (shape and device
+    type), so a CPU test can hold it against JAX's decision; the dtype
+    picks the kernel family (``tensor_cores_take``), not the route."""
+    return device_type == "cuda" and supported(q_shape,
+                                               kv_seq_len=kv_seq_len)
+
+
+def tensor_cores_take(q_shape, dtypes, kv_seq_len: Optional[int] = None
+                      ) -> bool:
+    """Are the tensor-core kernels built for these operands?  q, k and v
+    all bf16, head_dim ``KERNEL_HEAD_DIM``, Sq and Sk multiples of
+    ``TILE``.  Elsewhere a CUDA call takes the second family."""
+    Sk = q_shape[2] if kv_seq_len is None else kv_seq_len
+    return (all(d == torch.bfloat16 for d in dtypes)
+            and q_shape[3] == KERNEL_HEAD_DIM and q_shape[2] % TILE == 0
+            and Sk % TILE == 0)
 
 
 def _grouped(t: torch.Tensor, Hkv: int) -> torch.Tensor:
@@ -208,14 +253,14 @@ def flash_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor) -> None:
-    """What the CUDA kernels take: bf16, head_dim 128, sequences in whole
-    tiles, contiguous CUDA tensors."""
+    """What the tensor-core kernels take: bf16, head_dim 128, sequences in
+    whole tiles, contiguous CUDA tensors."""
     hd = q.shape[-1]
     if hd != KERNEL_HEAD_DIM or k.shape[-1] != hd:
-        raise ValueError(f"the flash kernels take head_dim "
+        raise ValueError(f"the tensor-core flash kernels take head_dim "
                          f"{KERNEL_HEAD_DIM}, got {hd}")
     if q.shape[2] % TILE or k.shape[2] % TILE:
-        raise ValueError(f"the flash kernels need Sq and Sk multiples of "
+        raise ValueError(f"the tensor-core flash kernels need Sq and Sk multiples of "
                          f"{TILE}, got {q.shape[2]} and {k.shape[2]}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         check_cuda(t, torch.bfloat16, name)
@@ -275,13 +320,98 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool,
     return dk, dv
 
 
-# -- dispatch: plain version on the CPU, kernel on CUDA -------------------------
+def _check_generic_operands(q, k, v, do=None, lse=None,
+                            delta=None) -> int:
+    """What ``csrc/flash_generic.cu`` takes: q, k, v (and do) in one of
+    ``GENERIC_DTYPES``, head_dim a multiple of 8 up to 256, Sq and Sk
+    multiples of ``GENERIC_ROWS``, H a multiple of Hkv, contiguous CUDA
+    tensors; lse and delta f32 [B, H, Sq].  Returns the dtype code."""
+    code = GENERIC_DTYPES.get(q.dtype)
+    if code is None:
+        raise TypeError(f"the flash kernels take {list(GENERIC_DTYPES)}, "
+                        f"got {q.dtype}")
+    hd = q.shape[-1]
+    if hd % 8 or hd > 256 or k.shape[-1] != hd or v.shape != k.shape:
+        raise ValueError(f"the flash kernels take head_dim a multiple of 8 "
+                         f"up to 256 in q, k and v, got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.shape[2] % GENERIC_ROWS or k.shape[2] % GENERIC_ROWS:
+        raise ValueError(f"the flash kernels need Sq and Sk multiples of "
+                         f"{GENERIC_ROWS}, got {q.shape[2]} and {k.shape[2]}")
+    if q.shape[0] != k.shape[0] or q.shape[1] % k.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"share a batch and a head grouping")
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
+        if t is not None:
+            check_cuda(t, q.dtype, name)
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"do must be {tuple(q.shape)}, got "
+                         f"{tuple(do.shape)}")
+    for t, name in ((lse, "lse"), (delta, "delta")):
+        if t is not None:
+            check_cuda(t, torch.float32, name)
+            if t.shape != q.shape[:3]:
+                raise ValueError(f"{name} must be {tuple(q.shape[:3])}, "
+                                 f"got {tuple(t.shape)}")
+    return code
+
+
+def flash_fwd_generic_cuda(q, k, v, *, causal: bool, sm_scale: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The second family's forward: ``(out in q's dtype, lse f32)``."""
+    code = _check_generic_operands(q, k, v)
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    FLASH_FWD_GENERIC(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), code,
+                      B * H, H // Hkv, Sq, Sk, hd, int(causal),
+                      float(sm_scale))
+    return out, lse
+
+
+def flash_dq_generic_cuda(q, k, v, do, lse, delta, *, causal: bool,
+                          sm_scale: float) -> torch.Tensor:
+    """The second family's dq, in q's dtype."""
+    code = _check_generic_operands(q, k, v, do, lse, delta)
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    FLASH_DQ_GENERIC(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+                     ptr(dq), code, B * H, H // Hkv, Sq, Sk, hd, int(causal),
+                     float(sm_scale))
+    return dq
+
+
+def flash_dkv_generic_cuda(q, k, v, do, lse, delta, *, causal: bool,
+                           sm_scale: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The second family's (dk, dv), each KV head's group summed."""
+    code = _check_generic_operands(q, k, v, do, lse, delta)
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    FLASH_DKV_GENERIC(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+                      ptr(dk), ptr(dv), code, B * Hkv, H // Hkv, Sq, Sk, hd,
+                      int(causal), float(sm_scale))
+    return dk, dv
+
+
+# -- dispatch: plain version on the CPU, a kernel on CUDA -----------------------
+
+def _on_tensor_cores(q, k, v) -> bool:
+    return tensor_cores_take(q.shape, (q.dtype, k.dtype, v.dtype),
+                             kv_seq_len=k.shape[2])
+
 
 def _fwd(q, k, v, causal, sm_scale, block_k):
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                                block_k=block_k)
-    return flash_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale)
+    fwd = flash_fwd_cuda if _on_tensor_cores(q, k, v) \
+        else flash_fwd_generic_cuda
+    return fwd(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
 def _bwd(q, k, v, do, lse, delta, causal, sm_scale, block_k):
@@ -290,8 +420,11 @@ def _bwd(q, k, v, do, lse, delta, causal, sm_scale, block_k):
         return (flash_dq_plain(q, k, v, do, lse, delta, **kw),
                 *flash_dkv_plain(q, k, v, do, lse, delta, **kw))
     kw = dict(causal=causal, sm_scale=sm_scale)
-    return (flash_dq_cuda(q, k, v, do, lse, delta, **kw),
-            *flash_dkv_cuda(q, k, v, do, lse, delta, **kw))
+    if _on_tensor_cores(q, k, v):
+        return (flash_dq_cuda(q, k, v, do, lse, delta, **kw),
+                *flash_dkv_cuda(q, k, v, do, lse, delta, **kw))
+    return (flash_dq_generic_cuda(q, k, v, do, lse, delta, **kw),
+            *flash_dkv_generic_cuda(q, k, v, do, lse, delta, **kw))
 
 
 class _FlashFunction(torch.autograd.Function):

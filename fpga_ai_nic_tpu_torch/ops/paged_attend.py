@@ -8,17 +8,35 @@ reference path of ``forward_paged``).  For tensors on CUDA it launches the
 kernel of ``csrc/paged_attend.cu``, which walks the page table and reads
 only the live pages, so the gathered view is never formed; it takes the
 serving path's bfloat16 pools at head_dim 128 and raises on anything
-else.  There is no fallback between the two.  ``PAGED_ATTEND.launches`` counts kernel
-launches.
+else.  There is no fallback between the two.  ``PAGED_ATTEND.launches``
+counts kernel launches, one per call.
 
-The kernel sums in another order than the plain version (an online softmax
-over key tiles), so the two agree to float32 rounding, not bit for bit.
+The one C entry holds two designs, picked here by the regime:
+
+- decode (T == 1, at most ``DECODE_MAX_ROWS`` query heads a KV head): the
+  live keys of each (slot, KV head) split into chunks of
+  ``DECODE_CHUNK_KEYS`` keys (whole pages) over blocks, f32 on the CUDA
+  cores, the chunks' partial softmax states combined in chunk order by the
+  last block to finish (``_decode_counters`` are its per-(slot, head)
+  arrival counters, which the kernel leaves at zero);
+- prefill (everything else): the flash forward's tensor-core mainloop
+  (``csrc/attn_fwd.cuh``) over 64-key tiles gathered through the table.
+  q enters the products as bf16 terms hi + lo (``q_terms`` 2), or hi alone
+  where q came in as bf16 (its lo term is exactly zero), and p as hi + lo.
+  Emulated on the CPU (``tests/test_torch_paged_attend.py``) at the
+  serving path's prefill shapes, the two terms stay within about 2e-6 of
+  the plain version, against ``PAGED_TOL`` = 5e-5.
+
+The kernels sum in another order than the plain version (online softmax
+over key tiles; bf16 terms on the tensor cores), so the two agree within
+that limit, not bit for bit.  Two launches on the same inputs give the
+same bits: no sum depends on the order in which blocks finish.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -29,7 +47,30 @@ KERNEL_HEAD_DIM = 128          # Llama-3's; the kernel is built for it alone
 
 PAGED_ATTEND = Kernel(
     "paged_attend", "paged_attend.cu", "paged_attend_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float])
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float])
+
+DECODE_CHUNK_KEYS = 256        # keys a decode block streams (whole pages)
+DECODE_MAX_ROWS = 8            # query heads a KV head the decode kernel takes
+
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def decode_split(T: int, G: int, page_size: int, P: int) -> int:
+    """Pages per decode chunk, or 0 where the call takes the prefill
+    kernel (T > 1, or more than ``DECODE_MAX_ROWS`` rows a KV head)."""
+    if T != 1 or G > DECODE_MAX_ROWS:
+        return 0
+    return min(P, max(1, DECODE_CHUNK_KEYS // page_size))
+
+
+def _decode_counters(device: torch.device, n: int) -> torch.Tensor:
+    """n int32 zeros on the device, kept between calls (the kernel resets
+    each counter it uses)."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(n, dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
 
 
 def _validate(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -124,7 +165,18 @@ def paged_gather_attend(q: torch.Tensor, pool_k: torch.Tensor,
         if not (t.is_cuda and t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous CUDA tensor")
     out = torch.empty((R, H, T, hd), dtype=torch.float32, device=q.device)
+    P = table.shape[1]
+    G = H // n_kv
+    chunk_pages = decode_split(T, G, page_size, P)
+    if chunk_pages:
+        n_chunks = -(-P // chunk_pages)
+        part = torch.empty(R * n_kv * n_chunks * G * (hd + 2),
+                           dtype=torch.float32, device=q.device)
+        counters = _decode_counters(q.device, R * n_kv)
+    else:
+        part = counters = out              # unread by the prefill kernel
+    q_terms = 1 if q.dtype == torch.bfloat16 else 2
     PAGED_ATTEND(ptr(qf), ptr(pool_k), ptr(pool_v), ptr(table), ptr(pos),
-                 ptr(out), R, H, n_kv, T, hd, table.shape[1], page_size,
-                 n_pages, float(sm_scale))
+                 ptr(out), ptr(part), ptr(counters), R, H, n_kv, T, hd, P,
+                 page_size, n_pages, q_terms, chunk_pages, float(sm_scale))
     return out

@@ -92,20 +92,23 @@ def pallas_route(impl: str, q: torch.Tensor,
                  kv_seq_len: Optional[int] = None) -> bool:
     """Attention-backend dispatch: the flash kernels when pinned
     ("pallas") or, for "auto", on a CUDA tensor whose shape tiles
-    (``flash_attention.supported``); pinned-but-unsupported raises.  An
-    auto-routed CUDA tensor the kernels do not build for (not bf16, or
-    head_dim != 128) raises in the kernel wrapper: it never falls back."""
+    (``flash_attention.kernels_take``), as the JAX route takes Pallas
+    under "auto" on a TPU with tiling shapes.  The dtype and head_dim pick
+    the kernel family inside ``flash_attention``, never the route.
+    Pinned-but-unsupported raises; a CUDA tensor no kernel takes (a dtype
+    outside float32, bfloat16 and float16) raises in the kernel wrapper:
+    nothing falls back."""
     shape = tuple(q.shape)
     if impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"attn impl {impl!r}: want auto|pallas|xla")
-    ok = flash_ops.supported(shape, kv_seq_len=kv_seq_len)
-    if impl == "pallas" and not ok:
+    if impl == "pallas" and not flash_ops.supported(shape,
+                                                    kv_seq_len=kv_seq_len):
         raise ValueError(
             f"impl='pallas' pinned but q shape {shape} / kv_seq_len="
             f"{kv_seq_len} does not tile (need S % 128 == 0, "
             "head_dim % 8 == 0, head_dim <= 256, Sk % 128 == 0)")
-    return impl == "pallas" or (impl == "auto" and q.device.type == "cuda"
-                                and ok)
+    return impl == "pallas" or (impl == "auto" and flash_ops.kernels_take(
+        shape, q.device.type, kv_seq_len=kv_seq_len))
 
 
 def full_attention(q, k, v, *, causal=True, sm_scale=None):

@@ -39,7 +39,9 @@ Params = Any
 
 class TrainState(NamedTuple):
     params: Params              # rank 0's working weights (views of replicas)
-    replicas: torch.Tensor      # [n, L_pad] every rank's working weights
+    # [n, L_pad] every rank's working weights, in the leaves' dtype when
+    # they share one (the model dtype, as JAX keeps them), else f32
+    replicas: torch.Tensor
     w_own: torch.Tensor         # [n, C] f32 master shards (ZeRO-1)
     opt_state: optim.OptState   # {key: [n, C]} optimizer state shards
     step: int
@@ -53,8 +55,9 @@ def per_rank_grads(loss_fn: Callable, replicas: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(flat_g [n, L_pad] f32, mean loss)``: rank i differentiates
     ``loss_fn`` at its own replica ``replicas[i]`` (cast to the leaves'
-    dtypes) on its own shard ``tuple(b[i] for b in batch)``; each gradient
-    leaf is copied into its slot of the flat row as soon as it exists."""
+    dtypes; views where the replica is in them already) on its own shard
+    ``tuple(b[i] for b in batch)``; each gradient leaf is copied into its
+    slot of the flat row as soon as it exists."""
     n = replicas.shape[0]
     flat_g = torch.empty((n, meta.padded_len), dtype=torch.float32,
                          device=replicas.device)
@@ -118,10 +121,19 @@ class DPTrainer:
         w_own, opt_state, meta = fused_update.init_master_shard(
             params, coll, opt_cfg, self.n)
         self._meta = meta
-        replicas = w_own.reshape(1, -1).expand(self.n, -1)
+        replicas = self._working(w_own.reshape(1, -1)).expand(self.n, -1)
         return TrainState(fused_update.unflatten_tree(replicas[0], meta),
                           replicas, w_own, opt_state, 0,
                           self._init_codec_state())
+
+    def _working(self, flat: torch.Tensor) -> torch.Tensor:
+        """Gathered f32 weights in the working dtype: the leaves' one
+        dtype (every leaf of a Llama tree is ``cfg.dtype``), else f32.  One
+        cast right after the all-gather, as JAX's gather casts in
+        ``unflatten_tree``; the per-rank leaves are then views."""
+        dtypes = set(self._meta.dtypes)
+        dt = dtypes.pop() if len(dtypes) == 1 else torch.float32
+        return flat if flat.dtype == dt else flat.to(dt)
 
     def _init_codec_state(self) -> Optional[torch.Tensor]:
         """Zeroed per-rank error-feedback residuals [n, L_pad]."""
@@ -188,7 +200,8 @@ class DPTrainer:
     def _gather(self, w_new: torch.Tensor, opt_state: optim.OptState,
                 step: int, codec_state: Optional[torch.Tensor] = None
                 ) -> TrainState:
-        replicas = fused_update.all_gather_flat(w_new, self.cfg.collective)
+        replicas = self._working(fused_update.all_gather_flat(
+            w_new, self.cfg.collective))
         return TrainState(fused_update.unflatten_tree(replicas[0],
                                                       self._meta),
                           replicas, w_new, opt_state, step, codec_state)

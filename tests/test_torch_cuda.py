@@ -137,7 +137,36 @@ PAGED_SHAPES = {
     "decode_mha_ps128": (4, 8, 8, 1, 128, 128, 16, torch.bfloat16),
     "prefill_gqa_ps16": (1, 32, 8, 256, 128, 16, 128, torch.bfloat16),
     "prefill_gqa_t33": (2, 8, 2, 33, 128, 16, 8, torch.bfloat16),
+    # chip_smoke.py's PAGED_SHAPES, the serving path's
+    "smoke_decode_gqa_ps16": (16, 32, 8, 1, 128, 16, 128, torch.bfloat16),
+    "smoke_decode_mha_ps16": (16, 32, 32, 1, 128, 16, 128, torch.bfloat16),
+    "smoke_decode_gqa_ps128": (16, 32, 8, 1, 128, 128, 16, torch.bfloat16),
+    "smoke_prefill_gqa_ps16": (1, 32, 8, 256, 128, 16, 128, torch.bfloat16),
+    "smoke_prefill_mha_ps128": (1, 32, 32, 256, 128, 128, 16,
+                                torch.bfloat16),
 }
+
+
+def _paged_inputs(device, R, H, n_kv, T, hd, ps, P, dt, seed):
+    """A shuffled table over a dirty pool (live pages O(1), dead ones 1e3
+    garbage), ragged positions, f32 q."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_pages = R * P + 1
+    pk = (torch.randn((n_pages, n_kv, ps, hd), generator=g,
+                      device=device) * 1e3).to(dt)
+    pv = (torch.randn((n_pages, n_kv, ps, hd), generator=g,
+                      device=device) * 1e3).to(dt)
+    table = (torch.randperm(n_pages - 1, generator=g, device=device)
+             [:R * P] + 1).to(torch.int32).reshape(R, P)
+    pos = torch.randint(0, P * ps - T + 1, (R,), generator=g,
+                        device=device, dtype=torch.int32)
+    for r in range(R):
+        n_live = min((int(pos[r]) + T - 1) // ps + 1, P)
+        live = table[r, :n_live].long()
+        pk[live] = (pk[live].float() * 1e-3).to(dt)
+        pv[live] = (pv[live].float() * 1e-3).to(dt)
+    q = torch.randn((R, H, T, hd), generator=g, device=device)
+    return q, pk, pv, table, pos
 
 
 @pytest.mark.cuda
@@ -146,33 +175,41 @@ def test_paged_attend_kernel_vs_plain_on_card(cuda_device, shape):
     """The paged gather-attend kernel against its plain version on the same
     card tensors: a shuffled table over a dirty pool, ragged positions.
     max abs error <= 5e-5 on O(1) outputs (f32 sums over at most 2048
-    keys, taken in another order)."""
+    keys, taken in another order; at prefill q and p as bf16 hi + lo
+    terms); a second launch gives the same bits."""
     R, H, n_kv, T, hd, ps, P, dt = PAGED_SHAPES[shape]
-    g = torch.Generator(device=cuda_device).manual_seed(R * 1000 + T)
-    n_pages = R * P + 1
-    pk = (torch.randn((n_pages, n_kv, ps, hd), generator=g,
-                      device=cuda_device) * 1e3).to(dt)
-    pv = (torch.randn((n_pages, n_kv, ps, hd), generator=g,
-                      device=cuda_device) * 1e3).to(dt)
-    table = (torch.randperm(n_pages - 1, generator=g, device=cuda_device)
-             [:R * P] + 1).to(torch.int32).reshape(R, P)
-    pos = torch.randint(0, P * ps - T + 1, (R,), generator=g,
-                        device=cuda_device, dtype=torch.int32)
-    # live pages at O(1); dead ones keep their 1e3 garbage
-    for r in range(R):
-        n_live = min((int(pos[r]) + T - 1) // ps + 1, P)
-        live = table[r, :n_live].long()
-        pk[live] = (pk[live].float() * 1e-3).to(dt)
-        pv[live] = (pv[live].float() * 1e-3).to(dt)
-    q = torch.randn((R, H, T, hd), generator=g, device=cuda_device)
+    q, pk, pv, table, pos = _paged_inputs(cuda_device, R, H, n_kv, T, hd,
+                                          ps, P, dt, R * 1000 + T)
     before = paged_attend.PAGED_ATTEND.launches
+    got = paged_attend.paged_gather_attend(q, pk, pv, table, pos,
+                                           page_size=ps)
+    again = paged_attend.paged_gather_attend(q, pk, pv, table, pos,
+                                             page_size=ps)
+    want = paged_attend.paged_gather_attend_plain(q, pk, pv, table, pos,
+                                                  page_size=ps)
+    torch.cuda.synchronize()
+    assert paged_attend.PAGED_ATTEND.launches == before + 2
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 5e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["prefill_gqa_ps16", "prefill_gqa_t33",
+                                   "decode_gqa_ps16"])
+def test_paged_attend_bf16_q_on_card(cuda_device, shape):
+    """A bf16 q (the serving path's) takes one bf16 term of q at prefill:
+    its lo term would be exactly zero.  Within 5e-5 of the plain version
+    on the same bf16 q."""
+    R, H, n_kv, T, hd, ps, P, dt = PAGED_SHAPES[shape]
+    q, pk, pv, table, pos = _paged_inputs(cuda_device, R, H, n_kv, T, hd,
+                                          ps, P, dt, 7 + T)
+    q = q.to(torch.bfloat16)
     got = paged_attend.paged_gather_attend(q, pk, pv, table, pos,
                                            page_size=ps)
     want = paged_attend.paged_gather_attend_plain(q, pk, pv, table, pos,
                                                   page_size=ps)
     torch.cuda.synchronize()
-    assert paged_attend.PAGED_ATTEND.launches == before + 1
-    assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 5e-5
 
 
@@ -182,6 +219,10 @@ FLASH_SHAPES = {
     "gqa_noncausal": (1, 8, 2, 192, False),
     "mha_causal": (2, 4, 4, 128, True),
     "gqa_causal_b2_s512": (2, 8, 2, 512, True),
+    "gqa_causal_s320": (1, 8, 2, 320, True),     # an odd count of q tiles
+    # chip_smoke.py's FLASH_SHAPES: the training path's, and MHA S=1024
+    "path_gqa_causal_s4096": (1, 32, 8, 4096, True),
+    "mha_noncausal_s1024": (1, 32, 32, 1024, False),
 }
 
 
@@ -230,13 +271,102 @@ def test_flash_kernels_vs_plain_on_card(cuda_device, shape):
 
 @pytest.mark.cuda
 def test_flash_kernels_raise_on_unbuilt_operands(cuda_device):
-    """A CUDA tensor the kernels are not built for raises; it never takes
-    the plain version."""
+    """A CUDA tensor a kernel is not built for raises; it never takes the
+    plain version: the tensor-core wrappers refuse f32 and head_dim 64
+    (the entry sends those to the second family), and the entry refuses
+    a dtype no kernel takes."""
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    kw = dict(causal=True, sm_scale=0.125)
     f32 = torch.zeros((1, 2, 128, 128), device=cuda_device)
     with pytest.raises(TypeError):
-        fa.flash_attention(f32, f32, f32)
+        fa.flash_fwd_cuda(f32, f32, f32, **kw)
     hd64 = torch.zeros((1, 2, 128, 64), device=cuda_device,
                        dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(hd64, hd64, hd64)
+        fa.flash_fwd_cuda(hd64, hd64, hd64, **kw)
+    f64 = torch.zeros((1, 2, 128, 128), device=cuda_device,
+                      dtype=torch.float64)
+    with pytest.raises(TypeError):
+        fa.flash_attention(f64, f64, f64)
+
+
+GENERIC_SHAPES = {
+    # name: B, H, n_kv, S, hd, causal, dtype
+    "tiny_f32_hd16": (2, 4, 2, 128, 16, True, torch.float32),
+    "f32_hd64_noncausal": (1, 4, 2, 256, 64, False, torch.float32),
+    "bf16_hd64": (1, 8, 2, 256, 64, True, torch.bfloat16),
+    "f16_hd256_mha": (1, 2, 2, 128, 256, True, torch.float16),
+    "f32_hd128_s512": (1, 4, 1, 512, 128, True, torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(GENERIC_SHAPES))
+def test_flash_generic_kernels_vs_plain_on_card(cuda_device, shape):
+    """The second family (csrc/flash_generic.cu) through the entry and its
+    autograd against the plain versions on the same card tensors: f32
+    within the JAX tests' own tolerances (2e-5 forward, atol 5e-5 / rtol
+    5e-4 gradients), bf16 and f16 within ``tol_ratio`` <= 1; one launch of
+    each of its kernels a call, none of the tensor-core ones; a second
+    launch gives the same bits."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    B, H, n_kv, S, hd, causal, dt = GENERIC_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(S + hd)
+
+    def rand(*s):
+        return torch.randn(s, generator=g, device=cuda_device).to(dt)
+
+    q, k, v = rand(B, H, S, hd), rand(B, n_kv, S, hd), rand(B, n_kv, S, hd)
+    do = rand(B, H, S, hd)
+    kw = dict(causal=causal, sm_scale=hd ** -0.5)
+    tc = [fa.FLASH_FWD.launches, fa.FLASH_DQ.launches, fa.FLASH_DKV.launches]
+    gen = [fa.FLASH_FWD_GENERIC, fa.FLASH_DQ_GENERIC, fa.FLASH_DKV_GENERIC]
+    before = [k_.launches for k_ in gen]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, **kw)
+    dq, dk, dv = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert [k_.launches for k_ in gen] == [b + 1 for b in before]
+    assert [fa.FLASH_FWD.launches, fa.FLASH_DQ.launches,
+            fa.FLASH_DKV.launches] == tc
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
+    o2, lse = fa.flash_fwd_generic_cuda(q, k, v, **kw)
+    delta = (do.float() * out.detach().float()).sum(-1)
+    p_dq = fa.flash_dq_plain(q, k, v, do, lse, delta, **kw)
+    p_dk, p_dv = fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+    again = (fa.flash_dq_generic_cuda(q, k, v, do, lse, delta, **kw),
+             *fa.flash_dkv_generic_cuda(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(o2, out.detach())
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+        assert torch.equal(a, b), f"{name}: a second launch differs"
+    assert float((lse - p_lse).abs().max()) <= fa.LSE_TOL
+    for name, a, b, tol in (("out", out.detach(), p_out, (2e-5, 2e-5)),
+                            ("dq", dq, p_dq, (5e-5, 5e-4)),
+                            ("dk", dk, p_dk, (5e-5, 5e-4)),
+                            ("dv", dv, p_dv, (5e-5, 5e-4))):
+        assert bool(torch.isfinite(a.float()).all()), name
+        if dt == torch.float32:
+            torch.testing.assert_close(a, b, atol=tol[0], rtol=tol[1])
+        else:
+            assert fa.tol_ratio(a, b) <= 1.0, name
+
+
+@pytest.mark.cuda
+def test_auto_route_runs_an_f32_llama_step_on_card(cuda_device):
+    """attn_impl="auto" on the tiny f32 config (head_dim 16) takes the
+    flash kernels on the card, as the JAX route takes Pallas for it on a
+    TPU: the second family's, which trains (ROADMAP C.1)."""
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    before = [fa.FLASH_FWD.launches, fa.FLASH_FWD_GENERIC.launches,
+              fa.FLASH_DKV_GENERIC.launches]
+    out = train_llama.main([
+        "--model=tiny", "--model.attn_block=128", "--model.attn_impl=auto",
+        "--seq=128", "--global_batch=4", "--mesh.dp=2", "--iters=1"])
+    torch.cuda.synchronize()
+    assert np.isfinite(out["loss_first"]) and np.isfinite(out["loss_last"])
+    assert out["device"] == torch.cuda.get_device_name(cuda_device)
+    assert fa.FLASH_FWD.launches == before[0]
+    assert fa.FLASH_FWD_GENERIC.launches > before[1]
+    assert fa.FLASH_DKV_GENERIC.launches > before[2]

@@ -249,3 +249,51 @@ def test_unported_options_raise():
         ShardedTrainer(lambda p, b: None, ranks,
                        TrainConfig(mesh=MeshConfig(dp=2)),
                        loss_and_grads_fn=lambda p, b: None)
+
+
+class _F32ReplicaTrainer(ShardedTrainer):
+    """The route before the replicas moved to the model dtype: f32
+    replicas, each rank's leaves cast to bf16 every step."""
+
+    def _working(self, flat):
+        return flat
+
+
+@pytest.mark.parametrize("coll", [
+    CollectiveConfig(impl="xla"),
+    CollectiveConfig(impl="ring", compression=BFPConfig(codec="pallas"),
+                     fused_kernel=True)], ids=["xla", "bfp_ring"])
+def test_bf16_replicas_bitequal_to_f32_replica_route(coll):
+    """A bf16 model keeps its working replicas in bf16 (cast once after
+    the all-gather, as JAX's gather casts); three steps give losses,
+    masters and working params bit-equal to the f32-replica route's on the
+    same seed: the cast is elementwise, so where it happens changes no
+    value the model sees."""
+    c = dataclasses.replace(CFG, dtype="bfloat16", attn_impl="xla")
+    cfg = TrainConfig(global_batch=BATCH, mesh=MeshConfig(dp=N),
+                      collective=coll,
+                      optimizer=OptimizerConfig(kind="sgd", learning_rate=LR))
+    ranks = VirtualRanks(N, torch.device("cpu"))
+    params = llama.init(torch.Generator().manual_seed(4), c, "cpu")
+    runs = []
+    for cls in (ShardedTrainer, _F32ReplicaTrainer):
+        tr = cls(lambda p, b: llama.loss_fn(p, b, c), ranks, cfg)
+        st = tr.init_state(params)
+        losses = []
+        for step in range(3):
+            toks, labels = _tokens(30 + step)
+            st, loss = tr.step(st, tr.shard_batch((torch.from_numpy(toks),
+                                                   torch.from_numpy(labels))))
+            losses.append(float(loss))
+        runs.append((st, losses))
+    (new, l_new), (old, l_old) = runs
+    assert new.replicas.dtype == torch.bfloat16
+    assert old.replicas.dtype == torch.float32
+    assert l_new == l_old
+    assert torch.equal(new.w_own, old.w_own)
+    for a, b in zip(fused_update.tree_leaves(new.params),
+                    fused_update.tree_leaves(old.params)):
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert torch.equal(a, b)
+    assert torch.equal(new.replicas[1],
+                       old.replicas[1].to(torch.bfloat16))

@@ -160,3 +160,199 @@ def test_words_u32_widths_and_rejects_8_byte():
     assert integrity.words_u32(f).tolist() == [0x80000000]
     with pytest.raises(TypeError):
         integrity.words_u32(torch.zeros(2, dtype=torch.float64))
+
+
+# -- the CUDA kernel's two regimes, emulated on the CPU -------------------------
+#
+# The card check (chip_smoke.py) holds the kernel within PAGED_TOL of the
+# plain version.  These emulations repeat each regime's algorithm and
+# rounding points in torch: the prefill kernel's 64-key tiles gathered
+# through the table (keys past the cell's last visible key never gathered,
+# so dead pages are never read), q and p as bf16 terms into f32 products,
+# an online softmax in f32; the decode kernel's chunks of whole pages, each
+# a partial (m, l, o), combined in chunk order.
+
+PAGED_TOL = 5e-5          # chip_smoke.py's limit for the kernel
+KEY_TILE = 64
+
+
+def _terms(x, n):
+    """n bf16 terms of x (hi, lo, ...), as f32 values."""
+    out, r = [], x
+    for _ in range(n):
+        h = r.to(torch.bfloat16).float()
+        out.append(h)
+        r = r - h
+    return out
+
+
+def _gather(pool, table_r, j, ok, n_pages, ps):
+    """[kv, len(j), hd] f32 K or V rows of keys j through one slot's
+    table; keys where ``ok`` is False are zero and touch no page."""
+    page = table_r[torch.where(ok, j // ps, 0)].long().clamp(0, n_pages - 1)
+    rows = pool[page, :, j % ps].float().transpose(0, 1)
+    return torch.where(ok[None, :, None], rows, torch.zeros(()))
+
+
+def _emulated_prefill(q, pk, pv, table, pos, ps, q_terms):
+    R, H, T, hd = q.shape
+    n_pages, n_kv = pk.shape[:2]
+    P = table.shape[1]
+    G, scale = H // n_kv, hd ** -0.5
+    out = torch.empty((R, H, T, hd))
+    t_row = torch.arange(G * T) % T
+    for r in range(R):
+        pos_r = max(int(pos[r]), 0)
+        live_end = min((pos_r + T - 1) // ps + 1, P) * ps
+        key_end = min(pos_r + T, live_end)
+        lim = torch.clamp(pos_r + t_row, max=live_end - 1)
+        qg = q[r].float().reshape(n_kv, G * T, hd)
+        m = torch.full((n_kv, G * T, 1), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((n_kv, G * T, hd))
+        for k0 in range(0, key_end, KEY_TILE):
+            j = k0 + torch.arange(KEY_TILE)
+            ok = j < key_end
+            kt = _gather(pk, table[r], j, ok, n_pages, ps)
+            vt = _gather(pv, table[r], j, ok, n_pages, ps)
+            s = sum(torch.einsum("krd,kjd->krj", t, kt)
+                    for t in _terms(qg, q_terms)) * scale
+            s = s.masked_fill(j[None, None, :] > lim[None, :, None],
+                              float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + sum(torch.einsum("krj,kjd->krd", t, vt)
+                                    for t in _terms(p, 2))
+            m = m_new
+        out[r] = (acc / l).reshape(H, T, hd)
+    return out
+
+
+def _emulated_decode(q, pk, pv, table, pos, ps):
+    R, H, T, hd = q.shape
+    n_pages, n_kv = pk.shape[:2]
+    P = table.shape[1]
+    G, scale = H // n_kv, hd ** -0.5
+    cp = paged_attend.decode_split(T, G, ps, P)
+    assert cp > 0
+    out = torch.empty((R, H, T, hd))
+    for r in range(R):
+        pos_r = max(int(pos[r]), 0)
+        n_live = min(pos_r // ps + 1, P)
+        key_end = min(pos_r + 1, n_live * ps)
+        qg = q[r].float().reshape(n_kv, G, hd)
+        parts = []
+        for c in range(-(-n_live // cp)):
+            j = torch.arange(c * cp * ps, min((c + 1) * cp * ps, key_end))
+            ok = torch.ones_like(j, dtype=torch.bool)
+            kt = _gather(pk, table[r], j, ok, n_pages, ps)
+            vt = _gather(pv, table[r], j, ok, n_pages, ps)
+            s = torch.einsum("kgd,kjd->kgj", qg, kt) * scale
+            mc = s.amax(-1, keepdim=True)
+            p = torch.exp(s - mc)
+            parts.append((mc, p.sum(-1, keepdim=True),
+                          torch.einsum("kgj,kjd->kgd", p, vt)))
+        mx = torch.stack([mc for mc, _, _ in parts]).amax(0)
+        num = den = 0
+        for mc, lc, oc in parts:           # chunk order
+            f = torch.exp(mc - mx)
+            num = num + oc * f
+            den = den + lc * f
+        out[r] = (num / den).reshape(H, T, hd)
+    return out
+
+
+def _emulated(q, pk, pv, table, pos, ps, q_terms=2):
+    """The regime the wrapper picks for these shapes."""
+    R, H, T, hd = q.shape
+    if paged_attend.decode_split(T, H // pk.shape[1], ps, table.shape[1]):
+        return _emulated_decode(q, pk, pv, table, pos, ps)
+    return _emulated_prefill(q, pk, pv, table, pos, ps, q_terms)
+
+
+def _serving_inputs(seed, R, H, n_kv, T, hd, ps, P):
+    """chip_smoke.py's paged inputs in numpy: f32 q (rounded to bf16, the
+    serving path's dtype, where a test says so), a bf16 pool with O(1)
+    live pages and 1e3 garbage elsewhere, a shuffled table, ragged
+    positions; returned with the dead pages' ids."""
+    rng = np.random.default_rng(seed)
+    n_pages = R * P + 1
+    pk = rng.standard_normal((n_pages, n_kv, ps, hd)) * 1e3
+    pv = rng.standard_normal((n_pages, n_kv, ps, hd)) * 1e3
+    table = (rng.permutation(n_pages - 1)[:R * P] + 1).reshape(R, P)
+    pos = rng.integers(0, P * ps - T + 1, R)
+    live = np.zeros(n_pages, bool)
+    for r in range(R):
+        live[table[r, :min((pos[r] + T - 1) // ps + 1, P)]] = True
+    pk[live] *= 1e-3
+    pv[live] *= 1e-3
+    q = rng.standard_normal((R, H, T, hd))
+    return (torch.from_numpy(q.astype(np.float32)),
+            torch.from_numpy(pk.astype(np.float32)).to(torch.bfloat16),
+            torch.from_numpy(pv.astype(np.float32)).to(torch.bfloat16),
+            torch.from_numpy(table.astype(np.int32)),
+            torch.from_numpy(pos.astype(np.int32)), np.flatnonzero(~live))
+
+
+EMU_SHAPES = {
+    # name: R, H, n_kv, T, hd, page_size, P (chip_smoke.py's, scaled down)
+    "decode_gqa_ps16": (4, 8, 2, 1, 128, 16, 48),
+    "decode_mha_ps16": (4, 8, 8, 1, 128, 16, 48),
+    "decode_gqa_ps128": (4, 8, 2, 1, 128, 128, 6),
+    "prefill_gqa_ps16": (1, 8, 2, 256, 128, 16, 40),
+    "prefill_mha_ps128": (1, 4, 4, 256, 128, 128, 5),
+    "prefill_gqa_t33": (2, 8, 2, 33, 128, 16, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EMU_SHAPES))
+def test_kernel_emulation_within_card_limit(case):
+    """Each regime's emulation within PAGED_TOL of the plain version; at
+    prefill with q as two bf16 terms (f32 q) and as one (bf16 q)."""
+    q, pk, pv, table, pos, _ = _serving_inputs(11, *EMU_SHAPES[case])
+    ps = EMU_SHAPES[case][5]
+    want = paged_attend.paged_gather_attend_plain(q, pk, pv, table, pos,
+                                                  page_size=ps)
+    got = _emulated(q, pk, pv, table, pos, ps)
+    assert float((got - want).abs().max()) <= PAGED_TOL
+    qb = q.to(torch.bfloat16)
+    want_b = paged_attend.paged_gather_attend_plain(qb, pk, pv, table, pos,
+                                                    page_size=ps)
+    got_b = _emulated(qb, pk, pv, table, pos, ps, q_terms=1)
+    assert float((got_b - want_b).abs().max()) <= PAGED_TOL
+
+
+@pytest.mark.parametrize("case", ["decode_gqa_ps16", "prefill_gqa_ps16",
+                                  "prefill_gqa_t33"])
+def test_kernel_emulation_reads_no_dead_page(case):
+    """Dead pages filled with NaN change no bit of either regime's result:
+    no byte of them is read (a NaN times a zero weight would show)."""
+    q, pk, pv, table, pos, dead = _serving_inputs(12, *EMU_SHAPES[case])
+    ps = EMU_SHAPES[case][5]
+    clean = _emulated(q, pk, pv, table, pos, ps)
+    pk, pv = pk.clone(), pv.clone()
+    pk[dead] = float("nan")
+    pv[dead] = float("nan")
+    assert torch.equal(_emulated(q, pk, pv, table, pos, ps), clean)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_emulation_matches_jax_kernel(case):
+    """The emulated regime against JAX's Pallas kernel in interpret mode,
+    within PAGED_TOL, at the small cases above (page tables past their
+    span, a single KV head, ragged positions)."""
+    R, H, n_kv, T, hd, ps, P, n_pages, positions = CASES[case]
+    q, pk, pv, table, pos = _inputs(13, R, H, n_kv, T, hd, ps, P, n_pages,
+                                    positions)
+    tk = torch.from_numpy(pk).to(torch.bfloat16)
+    tv = torch.from_numpy(pv).to(torch.bfloat16)
+    got = _emulated(torch.from_numpy(q), tk, tv, torch.from_numpy(table),
+                    torch.from_numpy(pos), ps)
+    want = jax_pa.paged_gather_attend(
+        jnp.asarray(q), jnp.asarray(tk.float().numpy(), jnp.bfloat16),
+        jnp.asarray(tv.float().numpy(), jnp.bfloat16), jnp.asarray(table),
+        jnp.asarray(pos), page_size=ps, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=PAGED_TOL)
