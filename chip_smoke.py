@@ -8,8 +8,13 @@ Phases, each printing JSON lines:
      (``nvcc`` for sm_90a, one process per source, all started together);
   2. every CUDA kernel against its plain PyTorch version on the same card
      tensors, with ms per call: bfp_encode / bfp_decode on 2^24 elements
-     and at the main path's shapes, ring_rs_update (SGD) and ring_ag at n=8
-     for a small payload (<= 4 MiB) and at full width, all bit for bit;
+     and at the main path's shapes; ring_rs_update (SGD) and ring_ag at n=8
+     for a small payload (4 MiB a rank) and at full width, all bit for
+     bit, one launch a call, repeat launches bit-equal, GB/s beside each
+     bound; both timed at the Llama path's shape (n=2, 1,923,125,248
+     elements, the reduce-scatter without an optimizer) and held bit for
+     bit at whole tiles of each chunk (first, last, middle, and the two
+     beside flat offset 2^31) against the plain versions on those tiles;
      paged_attend at decode (R=16, H=32, T=1: keys split over blocks) and
      prefill (R=1, T=256: wgmma) shapes, GQA and MHA, page sizes 16 and
      128, within 5e-5, repeat launches bit-equal, HGMMA counted in the
@@ -29,8 +34,12 @@ Phases, each printing JSON lines:
   4. the training path: ``DPTrainer`` on the canonical MLP (10 x 2048x2048,
      f32), global batch 5376, dp=8 virtual ranks, BFP ring with fused
      kernel and fused SGD — 1 warm-up and 5 timed steps, launch counts
-     checked — then one more step whose gradients also go through the
-     plain collectives, whose masters must be bit-equal to the kernels';
+     checked (one ring_rs_update and one ring_ag a step) — then one more
+     step whose gradients also go through the plain collectives, whose
+     masters must be bit-equal to the kernels', and through the codec
+     route (fused_kernel=False: the unfused rings on the bfp_encode /
+     bfp_decode kernels), launches counted, masters and replicas
+     bit-equal;
   5. two more training steps under torch.profiler: device time by group
      (the port's kernels, GEMMs, the rest) and the device's idle share;
   6. the int8 codec path: ``DPTrainer`` on the canonical MLP at dp=2 (each
@@ -152,7 +161,7 @@ def require_equal(name: str, pairs) -> None:
 PORT = "fpga_ai_nic_tpu_torch"
 REF = PORT.removesuffix("_torch")     # the JAX package's directory
 RING_KERNELS = ("bfp_encode_kernel", "bfp_decode_kernel",
-                "ring_rs_hop_kernel", "ring_ag_hop_kernel")
+                "ring_rs_kernel", "ring_ag_kernel")
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
                  "flash_fwd_generic_kernel", "flash_dq_generic_kernel",
                  "flash_dkv_generic_kernel")
@@ -213,6 +222,216 @@ def profile_run(phase: str, run, steps: int, groups=None, **extra) -> dict:
          top=[{"ms": t, "name": nm, "count": c} for t, nm, c in top[:12]],
          **extra)
     return {"wall_ms": wall_ms, "device_ms": busy, **groups}
+
+
+# -- ring collectives: one launch a call, against plain, at the paths' shapes -
+
+LLAMA_RING = (2, 1_923_125_248)   # Llama path: dp=2, padded flat length
+
+
+def ring_bytes(n, L, C, opt_shards=0):
+    """Bytes the whole reduce-scatter (+ update) and the whole gather must
+    move: x read once and g written (and each optimizer shard read and
+    written); the owned chunks read once and n replicas written."""
+    return 4 * (n * L + n * C + 2 * opt_shards * n * C), 4 * (n * C + n * L)
+
+
+def tile_sample(t, n_chunks, tile, picks):
+    """[rows, n_chunks * C] -> [rows, n_chunks * len(picks) * tile]: the
+    tiles ``picks`` of each chunk, in order.  Every output of either ring
+    depends only on the inputs at its own offset of each chunk
+    (tests/test_torch_ring.py -k offset), so the rings of the sampled
+    inputs give the full rings' outputs at the sampled tiles."""
+    import torch
+    C = t.shape[1] // n_chunks
+    return torch.cat([t[:, c * C + p * tile:c * C + (p + 1) * tile]
+                      for c in range(n_chunks) for p in picks], dim=1)
+
+
+def ring_checks(dev, cfg, sgd, n, L_full) -> dict:
+    """ring_rs_update (SGD) and ring_ag against their plain versions, bit
+    for bit, at a small payload (4 MiB a rank) and at the MLP path's
+    width: one launch a call, repeat launches bit-equal, ms beside the
+    bound and the achieved GB/s.  Then the Llama path's shape (n=2,
+    reduce-scatter without an optimizer, then the gather), timed; the
+    plain versions do not fit beside the kernels there, so ``tile_sample``
+    takes whole tiles of each chunk, and the kernels' outputs at those
+    tiles must equal the plain versions' on the sampled inputs."""
+    import torch
+    from fpga_ai_nic_tpu_torch import optim
+    from fpga_ai_nic_tpu_torch.ops import ring_cuda
+    hyper = optim.fused_hyperparams(sgd, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = {}
+
+    def rs(x, w):
+        return ring_cuda.ring_reduce_scatter_update_fused(
+            x, w, {}, hyper, opt_kind="sgd", compression=cfg)
+
+    def ag(owned):
+        return ring_cuda.ring_all_gather_fused(owned, compression=cfg)
+
+    def one_launch(fn, kernel):
+        before = kernel.launches
+        out = fn()
+        if kernel.launches != before + 1:
+            raise AssertionError(f"{kernel.name}: {kernel.launches - before}"
+                                 " launches in one call, expected 1")
+        return out
+
+    for label, L in (("small", n * 2048 * 64), ("full", L_full)):
+        C = L // n
+        x = torch.randn((n, L), generator=gen, device=dev)
+        x[:, ::97] = 0
+        x[:, 5::131] *= 1e-39              # subnormals
+        w = torch.randn((n, C), generator=gen, device=dev) * 0.02
+        g_k, w_k, _ = one_launch(lambda: rs(x, w), ring_cuda.RING_RS)
+        g_p, w_p, _ = ring_cuda.ring_reduce_scatter_update_plain(
+            x, w, {}, hyper, opt_kind="sgd", compression=cfg)
+        require_equal("ring_rs_update", [(g_k, g_p), (w_k, w_p)])
+        del g_p, w_p
+        g_2, w_2, _ = rs(x, w)
+        require_equal("ring_rs_update repeat", [(g_k, g_2), (w_k, w_2)])
+        del g_2, w_2
+        rs_ms = cuda_ms(lambda: rs(x, w), 10)
+        rs_plain = cuda_ms(lambda: ring_cuda.ring_reduce_scatter_update_plain(
+            x, w, {}, hyper, opt_kind="sgd", compression=cfg), 2)
+        ag_k = one_launch(lambda: ag(w_k), ring_cuda.RING_AG)
+        ag_p = ring_cuda.ring_all_gather_plain(w_k, cfg)
+        require_equal("ring_ag", [(ag_k, ag_p)])
+        del ag_p
+        if not bool((ag_k == ag_k[0]).all()):
+            raise AssertionError("ring_ag: replicas differ")
+        require_equal("ring_ag repeat", [(ag_k, ag(w_k))])
+        ag_ms = cuda_ms(lambda: ag(w_k), 10)
+        ag_plain = cuda_ms(lambda: ring_cuda.ring_all_gather_plain(w_k, cfg),
+                           2)
+        # per element of x: decode, add, encode; per owned element: encode,
+        # decode
+        rs_b, ag_b = ring_bytes(n, L, C, opt_shards=1)
+        rs_bound = bound(rs_b, 11 * n * L + 5 * n * C)
+        ag_bound = bound(ag_b, 10 * n * C)
+        emit(phase="kernel_check", kernel="ring_rs_update(sgd)/ring_ag",
+             payload=label, n=n, L=L, payload_bytes_per_rank=4 * L,
+             bitexact=True, repeat_bitequal=True, replicas_equal=True,
+             launches_per_call=1, rs_ms=rs_ms, rs_plain_ms=rs_plain,
+             rs_bound_ms=rs_bound[0], rs_bytes=rs_b,
+             rs_gb_per_s=rs_b / rs_ms / 1e6, ag_ms=ag_ms,
+             ag_plain_ms=ag_plain, ag_bound_ms=ag_bound[0], ag_bytes=ag_b,
+             ag_gb_per_s=ag_b / ag_ms / 1e6)
+        if label == "full":
+            rows["ring_rs_update"] = {"max_abs_err": 0.0, "ms": rs_ms,
+                                      "plain_ms": rs_plain, "bound": rs_bound}
+            rows["ring_ag"] = {"max_abs_err": 0.0, "ms": ag_ms,
+                               "plain_ms": ag_plain, "bound": ag_bound}
+        else:   # a call's host work outlasts the kernel here
+            small = {"rs": rs_ms, "ag": ag_ms,
+                     "rs_device": device_ms(lambda: rs(x, w), 10,
+                                            ("ring_rs_kernel",)),
+                     "ag_device": device_ms(lambda: ag(w_k), 10,
+                                            ("ring_ag_kernel",))}
+            emit(phase="kernel_check", kernel="ring_rs_update(sgd)/ring_ag",
+                 payload=label, rs_device_ms=small["rs_device"],
+                 ag_device_ms=small["ag_device"])
+        del x, w, g_k, w_k, ag_k
+        torch.cuda.empty_cache()
+
+    n2, L = LLAMA_RING
+    C = L // n2
+    tile = cfg.block_size * ring_cuda.LANES
+    hi = 2 ** 31 % C // tile      # holds flat offset 2^31 of x and replicas
+    picks = sorted({0, hi - 1, hi, C // tile // 2, C // tile - 1})
+    x = torch.randn((n2, L), generator=gen, device=dev)
+    x[:, ::97] = 0
+    x[:, 5::131] *= 1e-39
+    g = one_launch(lambda: ring_cuda.ring_reduce_scatter_fused(
+        x, compression=cfg), ring_cuda.RING_RS)
+    g_p = ring_cuda.ring_reduce_scatter_update_plain(
+        tile_sample(x, n2, tile, picks), None, {}, None, opt_kind=None,
+        compression=cfg)[0]
+    require_equal("ring_rs at the Llama shape, sampled tiles",
+                  [(tile_sample(g, 1, tile, picks), g_p)])
+    rs_ms = cuda_ms(lambda: ring_cuda.ring_reduce_scatter_fused(
+        x, compression=cfg), 3)
+    del x
+    torch.cuda.empty_cache()
+    rep = one_launch(lambda: ag(g), ring_cuda.RING_AG)
+    require_equal("ring_ag at the Llama shape, sampled tiles",
+                  [(tile_sample(rep, n2, tile, picks),
+                    ring_cuda.ring_all_gather_plain(
+                        tile_sample(g, 1, tile, picks), cfg))])
+    if not bool(torch.isfinite(rep[0]).all()) or not bool(
+            (rep == rep[0]).all()):
+        raise AssertionError("ring_ag at the Llama shape: replicas differ "
+                             "or are not finite")
+    del rep
+    ag_ms = cuda_ms(lambda: ag(g), 3)
+    rs_b, ag_b = ring_bytes(n2, L, C)
+    rs_bound = bound(rs_b, 11 * n2 * L)
+    ag_bound = bound(ag_b, 10 * n2 * C)
+    emit(phase="kernel_check", kernel="ring_rs(no optimizer)/ring_ag",
+         payload="llama", n=n2, L=L, bitexact_at_tiles=picks,
+         tile_elems=tile, rs_ms=rs_ms,
+         rs_bound_ms=rs_bound[0], rs_gb_per_s=rs_b / rs_ms / 1e6,
+         ag_ms=ag_ms, ag_bound_ms=ag_bound[0],
+         ag_gb_per_s=ag_b / ag_ms / 1e6)
+    for name, key, ms, bnd in (("ring_rs_update", "rs", rs_ms, rs_bound),
+                               ("ring_ag", "ag", ag_ms, ag_bound)):
+        rows[name]["extra"] = {
+            "shape": f"n={n}, L={L_full}" + (", SGD" if key == "rs" else ""),
+            "small_ms": small[key], "small_device_ms": small[key + "_device"],
+            "llama_shape": f"n={n2}, L={L}",
+            "llama_ms": ms, "llama_bound_ms": bnd[0]}
+    del g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def codec_route(dev, tr, state, g, new, kernels) -> dict:
+    """The BFP codec route on the main path's gradients ``g``: the same
+    step with ``fused_kernel=False``, entered where ``DPTrainer`` enters the
+    collective (``fused_update.reduce_scatter_update``, ``all_gather_flat``),
+    so the unfused ``ops.ring`` rings carry the wire and the sublane codec's
+    encode and decode are the ``bfp_codec.cu`` kernels.  Launch counts are
+    zeroed just before and read just after; the masters and replicas must
+    be bit-equal to the fused kernels' step ``new``."""
+    import dataclasses
+    import torch
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    coll = dataclasses.replace(tr.cfg.collective, fused_kernel=False)
+    n, L = g.shape
+    C = L // n
+    codec = fused_update.resolve_codec(coll)
+    slices = C // coll.slice_elems if codec.sliceable(
+        C, coll.slice_elems) else 1
+
+    def run():
+        _, w, _ = fused_update.reduce_scatter_update(
+            g, state.w_own, state.opt_state, state.step, coll,
+            tr.cfg.optimizer)
+        return w, fused_update.all_gather_flat(w, coll)
+
+    for k in kernels.values():
+        k.launches = 0
+    w, reps = run()
+    sync(dev)
+    launches = {name: k.launches for name, k in kernels.items()}
+    # reduce-scatter: n-1 hops of one encode and one decode a slice;
+    # gather: one encode, then the own slot and n-1 hops, one decode each
+    expect = dict.fromkeys(kernels, 0)
+    expect.update(bfp_encode=(n - 1) * slices + 1,
+                  bfp_decode=(n - 1) * slices + n)
+    if launches != expect:
+        raise AssertionError(f"codec route: launches {launches}, expected "
+                             f"{expect}")
+    require_equal("codec route masters", [(w, new.w_own)])
+    require_equal("codec route replicas", [(reps, new.replicas)])
+    del w, reps
+    ms = cuda_ms(run, 3)
+    emit(phase="codec_route", collective=str(coll), n=n, L=L, ms=ms,
+         launches=launches, masters_bitequal=True, replicas_bitequal=True)
+    torch.cuda.empty_cache()
+    return launches
 
 
 # -- int8 codec: kernels against plain, at the int8 training path's shape ----
@@ -815,6 +1034,7 @@ def serving_path(dev, cfg, scfg, kernels) -> dict:
     from fpga_ai_nic_tpu_torch import serve_llama
     from fpga_ai_nic_tpu_torch.models import llama
     from fpga_ai_nic_tpu_torch.serve import ServeEngine
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = serve_llama.random_params(cfg, SERVE_SEED, dev)
     sync(dev)
@@ -1071,8 +1291,8 @@ def llama_train_path(dev, kernels) -> dict:
     launches = {name: k.launches for name, k in kernels.items()}
     steps = cfg.iters + 1
     per_step = {"flash_fwd": mcfg.n_layers * n, "flash_dq": mcfg.n_layers * n,
-                "flash_dkv": mcfg.n_layers * n, "ring_rs_update": n,
-                "ring_ag": n - 1, "bfp_encode": 1, "bfp_decode": n,
+                "flash_dkv": mcfg.n_layers * n, "ring_rs_update": 1,
+                "ring_ag": 1, "bfp_encode": 0, "bfp_decode": 0,
                 "paged_attend": 0, "int8_encode": 0, "int8_decode": 0}
     for name, count in launches.items():
         if count != steps * per_step[name]:
@@ -1438,48 +1658,7 @@ def main() -> int:
                 bound=bound(N * (1 + 1 / B + 4), 2 * N))
         del x, m, s, pm, ps, d, pd
 
-    hyper = optim.fused_hyperparams(sgd, 0, device=dev)
-    for label, L in (("small", n * 2048 * 64), ("full", L_full)):
-        C = L // n
-        x = torch.randn((n, L), generator=gen, device=dev)
-        w = torch.randn((n, C), generator=gen, device=dev) * 0.02
-        g_k, w_k, _ = ring_cuda.ring_reduce_scatter_update_fused(
-            x, w, {}, hyper, opt_kind="sgd", compression=cfg)
-        g_p, w_p, _ = ring_cuda.ring_reduce_scatter_update_plain(
-            x, w, {}, hyper, opt_kind="sgd", compression=cfg)
-        require_equal("ring_rs_update", [(g_k, g_p), (w_k, w_p)])
-        rs_ms = cuda_ms(lambda: ring_cuda.ring_reduce_scatter_update_fused(
-            x, w, {}, hyper, opt_kind="sgd", compression=cfg), 10)
-        rs_plain = cuda_ms(lambda: ring_cuda.ring_reduce_scatter_update_plain(
-            x, w, {}, hyper, opt_kind="sgd", compression=cfg), 2)
-        del g_p, w_p
-        ag_k = ring_cuda.ring_all_gather_fused(w_k, compression=cfg)
-        ag_p = ring_cuda.ring_all_gather_plain(w_k, cfg)
-        require_equal("ring_ag", [(ag_k, ag_p)])
-        if not bool((ag_k == ag_k[0]).all()):
-            raise AssertionError("ring_ag: replicas differ")
-        ag_ms = cuda_ms(lambda: ring_cuda.ring_all_gather_fused(
-            w_k, compression=cfg), 10)
-        ag_plain = cuda_ms(lambda: ring_cuda.ring_all_gather_plain(w_k, cfg),
-                           2)
-        # the whole reduce-scatter + update: x, w read; g, w_new written
-        # (per element and hop: decode, add, encode); the whole gather:
-        # owned chunks read, n replicas written
-        rs_bound = bound(4 * (n * L + 3 * n * C), 11 * n * L + 5 * n * C)
-        ag_bound = bound(4 * (n * C + n * n * C), 8 * n * C + 2 * n * n * C)
-        emit(phase="kernel_check", kernel="ring_rs_update(sgd)/ring_ag",
-             payload=label, n=n, L=L, payload_bytes_per_rank=4 * L,
-             bitexact=True, replicas_equal=True, rs_ms=rs_ms,
-             rs_plain_ms=rs_plain, rs_bound_ms=rs_bound[0], ag_ms=ag_ms,
-             ag_plain_ms=ag_plain, ag_bound_ms=ag_bound[0])
-        if label == "full":
-            rec("ring_rs_update", max_abs_err=0.0, ms=rs_ms,
-                plain_ms=rs_plain, bound=rs_bound)
-            rec("ring_ag", max_abs_err=0.0, ms=ag_ms, plain_ms=ag_plain,
-                bound=ag_bound)
-        del x, w, g_k, w_k, ag_k, ag_p
-        torch.cuda.empty_cache()
-
+    results.update(ring_checks(dev, cfg, sgd, n, L_full))
     results.update(int8_checks(dev))
     paged = paged_checks(dev)
     flash = flash_checks(dev)
@@ -1519,6 +1698,7 @@ def main() -> int:
         raise AssertionError("small reference: card and CPU disagree")
 
     # -- 4. the main path ---------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)   # the checks' peaks are not its
     mcfg = MLPConfig()
     cfg_main = TrainConfig(global_batch=5376, mesh=MeshConfig(dp=n),
                            collective=coll, optimizer=sgd)
@@ -1536,19 +1716,25 @@ def main() -> int:
     kernels = {"bfp_encode": bfp_cuda.ENCODE, "bfp_decode": bfp_cuda.DECODE,
                "ring_rs_update": ring_cuda.RING_RS, "ring_ag": ring_cuda.RING_AG,
                "int8_encode": int8_cuda.ENCODE, "int8_decode": int8_cuda.DECODE}
-    per_step = {"bfp_encode": 1, "bfp_decode": n, "ring_rs_update": n,
-                "ring_ag": n - 1, "int8_encode": 0, "int8_decode": 0}
+    per_step = {"bfp_encode": 0, "bfp_decode": 0, "ring_rs_update": 1,
+                "ring_ag": 1, "int8_encode": 0, "int8_decode": 0}
     for k in kernels.values():
         k.launches = 0
     state, loss = tr.step(state, batch)           # warm-up
     losses = [float(loss)]
+    steps = 5
+    # the first timed step still maps the second replica buffer (its
+    # host time shows in the mean); the median is the steady step
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    steps = 5
-    for _ in range(steps):
+    marks[0].record()
+    for mark in marks[1:]:
         state, loss = tr.step(state, batch)
+        mark.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     launches = {name: k.launches for name, k in kernels.items()}
     losses.append(float(loss))
     for name, k in launches.items():
@@ -1562,7 +1748,8 @@ def main() -> int:
         raise AssertionError("replicas differ after the main path")
     emit(phase="main_path", model="MLP 10x2048x2048 f32", dp=n,
          global_batch=cfg_main.global_batch, steps=steps, wall_s=wall,
-         ms_per_step=1e3 * wall / steps,
+         ms_per_step=1e3 * wall / steps, step_ms=step_ms,
+         median_step_ms=sorted(step_ms)[steps // 2],
          samples_per_sec=steps * cfg_main.global_batch / wall,
          loss_first=losses[0], loss_last=losses[-1], launches=launches,
          padded_len=L_full, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1577,14 +1764,17 @@ def main() -> int:
     rep_plain = ring_cuda.ring_all_gather_plain(w_plain, cfg)
     require_equal("main path replicas", [(new.replicas, rep_plain)])
     emit(phase="plain_step", masters_bitequal=True, replicas_bitequal=True)
-    del g, new, w_plain, rep_plain
+    del w_plain, rep_plain
+    codec_launches = codec_route(dev, tr, state, g, new, kernels)
+    del g, new, reps
     held = [state]
+    del state        # held[0] alone keeps the state each step replaces
 
     def train_step():
         held[0], _ = tr.step(held[0], batch)
 
     profile_run("profile", train_step, 2)
-    del tr, state, held, batch, ranks, reps
+    del tr, held, batch, ranks
     torch.cuda.empty_cache()
 
     # -- 6. the int8 codec path and the convergence eval ---------------------------
@@ -1650,6 +1840,8 @@ def main() -> int:
         results[name] = flash[name]
     for name in ("int8_encode", "int8_decode"):
         launches[name] = int8_launches[name]
+    for name in ("bfp_encode", "bfp_decode"):
+        launches[name] = codec_launches[name]
     for name, r in auto["rows"].items():
         launches[name] = auto["launches"][name]
         results[name] = r
@@ -1671,6 +1863,7 @@ def main() -> int:
                "bound_by": bound_by, "library_ms": r.get("library_ms")}
         if name in also:
             row["also_replaces"] = also[name]
+        row.update(r.get("extra", {}))
         if name == "paged_attend":
             row.update(shape="decode GQA ps16 (R=16, H=32, kv=8, T=1)",
                        library=LIBRARY_ROUTE, prefill_shape=(
@@ -1693,6 +1886,8 @@ def main() -> int:
         if name in ("int8_encode", "int8_decode"):
             row.update(shape=f"{INT8_PATH_ELEMS} f32, block 16, stochastic",
                        launches_from="int8_train_path")
+        if name in ("bfp_encode", "bfp_decode"):
+            row.update(launches_from="codec_route")
         if name in auto["rows"]:
             row.update(shape="tiny f32 Llama, head_dim 16, S=128",
                        launches_from="auto_route", call_ms=r["call_ms"])

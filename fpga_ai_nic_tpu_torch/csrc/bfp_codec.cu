@@ -12,9 +12,9 @@
 // four blocks' B rows in registers (the block max never leaves the thread,
 // no shared memory, no second pass), loads are float4 and stores char4 so a
 // warp moves whole 128-byte lines, and neighbouring threads own
-// neighbouring lanes.  In the fused rings (ring_rs.cu, ring_ag.cu) the
-// first hop's encode and each rank's own-slot decode are launches of these
-// two kernels.
+// neighbouring lanes.  The codec route (compress/bfp.py, the unfused
+// ops/ring.py rings) launches these two; the fused rings (ring_rs.cu,
+// ring_ag.cu) run the same encode_quad / decode4 inside their own kernels.
 #include "bfp.cuh"
 
 using namespace bfp;

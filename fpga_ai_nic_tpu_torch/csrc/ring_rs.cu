@@ -1,5 +1,5 @@
-// One hop of the loopback BFP ring reduce-scatter, with the fused ZeRO-1
-// optimizer update on the final hop.
+// The whole loopback BFP ring reduce-scatter in one launch, with the fused
+// ZeRO-1 optimizer update where each chunk's sum completes.
 //
 // Replaces the Pallas TPU kernels of the JAX package, ops/ring_pallas.py
 // _rs_kernel (VMEM-resident, wrapper _rs_call) and _rs_stream_kernel (HBM
@@ -12,29 +12,44 @@
 //
 // The n ranks are virtual: rank i's gradient is row i of x [n, L], L = n*C.
 // Schedule (ops/ring.py): at hop h rank i sends chunk (i-h-1) % n to rank
-// i+1, which adds it into its chunk (i-h-2) % n.  A chunk a rank receives
-// at hop h is the chunk it sends at hop h+1, so launch k (k = 1..n-1) fuses
-// "decode the hop k-1 frame + add it to x" with "encode that sum as the hop
-// k frame into rank i+1's receive slot"; launch 0 has no arriving frame and
-// encodes x's chunk (i-1) % n as it is.  Partial sums never go back to
-// memory: each chunk of a rank is summed exactly once, so x stays
-// read-only.  Frames live in two receive slots per rank (hop parity):
-// within a launch rank i reads its own slot (k-1)%2 and writes slot k%2 of
-// rank i+1, so no two threads touch one byte.  The final launch (k = n-1)
-// lands on the rank's own chunk i,
-// writes the reduced sum, and with an optimizer updates the master shard:
+// i+1, which adds the decoded frame into its own copy of that chunk and
+// sends the sum on at hop h+1.  Followed through the ring, chunk c is one
+// chain: it starts at rank c+1 as x[c+1, c], and each later rank r of
+// c+2, ..., c adds its x[r, c] to the roundtrip decode(encode(.)) of the
+// sum so far, ending at rank c, which owns it.  So
+//   p_0 = x[c+1, c];  p_j = x[c+1+j, c] + decode(encode(p_{j-1}));
+//   g[c] = p_{n-1}
+// with ranks mod n, the add order of ops/ring_golden.py.
+//
+// Why one thread can run a chain: the "sublane" BFP block is B rows of one
+// lane inside one (B, 128) tile (bfp.cuh), and every rank's chunks are
+// whole tiles, so each output element depends only on the inputs at the
+// same offset in each rank's chunk c.  One thread owns one quad (4 lanes x
+// B rows) at offset `off` of one chunk and walks the n ranks of its chain:
+// the frame rank r would send to rank r+1 is encoded and decoded in the
+// thread's registers and never leaves them.  The encode, decode, add order
+// and update are those of every (rank, hop) of the hop-by-hop ring, so the
+// bits are the same; the bytes that would cross a wire between cards
+// (fused_update.wire_bytes_for) are unchanged.  What the design gives up is
+// the per-hop frame itself: across cards (ROADMAP A.11) the wire comes
+// back, as a different kernel.  Chains share nothing, so the grid is plain
+// (one thread per quad of each chunk, 256 a block, n from 2 up, 64-bit
+// offsets) and needs no barrier.
+//
+// On the final rank (c itself) it writes the reduced sum and, with an
+// optimizer, updates the master shard:
 //   g = sum / n;  sgd: w' = fmaf(-lr, fmaf(wd, w, g), w)
 // and the momentum / adamw forms of optim.fused_apply_blocks, each
 // contraction site an explicit __fmaf_rn (sources build with -fmad=false).
 //
-// What bounds it on the card: bytes.  Per element and hop it does a few
-// integer and float operations against 4 bytes of x and 2 x (1 + 1/B)
-// bytes of frames.  The design reads x once in all (the TPU kernels copy it
-// into an accumulator first), keeps the hop's sum in registers between the
-// decode and the encode, and uses float4 / char4 accesses, one thread per
-// four lanes of a tile.  Hops are separate launches on one stream: the
-// launch boundary is the ring's barrier.  Frames still cross device memory
-// once per hop, which is the wire of the loopback ring.
+// What bounds it on the card: bytes.  Per element it reads x once (4*n*L
+// bytes in all) and writes g (4*n*C); with SGD it reads and writes w (8*n*C
+// more; momentum and AdamW add their state), against about 11 integer and
+// float operations per element of x.  At the MLP shape (n=8, 41,975,808
+// elements, SGD) that is 1,847 MB, 0.551 ms at 3.35 TB/s.  Loads are
+// float4 and a warp covers the 32 quads of one tile row (512 contiguous
+// bytes); the next rank's loads do not depend on the roundtrip, so they
+// issue ahead of it.
 #include "bfp.cuh"
 
 using namespace bfp;
@@ -65,11 +80,7 @@ __device__ __forceinline__ void fused_update(int kind, const float* h, float g,
 
 struct RsArgs {
   const float* x;                 // [n, n*C] gradients, read-only
-  const signed char* fm_in;       // [n, C]   arriving frames (null: hop 0)
-  const signed char* fs_in;       // [n, C/B] scales of the arriving frames
-  signed char* fm_out;            // [n, C]   next hop's frames (null: final)
-  signed char* fs_out;            // [n, C/B]
-  float* g_out;                   // [n, C]   reduced sums (final hop)
+  float* g_out;                   // [n, C]   reduced sums
   const float* w;                 // [n, C]   master shards (optimizer only)
   float* w_out;
   const float* m_in;              // [n, C]   momentum / first moment
@@ -79,67 +90,55 @@ struct RsArgs {
   const float* hyper;             // f32[8]
   int n;
   long long C;
-  int k;                          // launch index, 0..n-1
   int mant_bits;
   int rtz;
   int opt_kind;
 };
 
 template <int B>
-__global__ void __launch_bounds__(THREADS) ring_rs_hop_kernel(RsArgs a) {
-  const long long per_rank = a.C / (4LL * B);
+__global__ void __launch_bounds__(THREADS) ring_rs_kernel(RsArgs a) {
+  const long long per_chunk = a.C / (4LL * B);
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= per_rank * a.n) return;
-  const int i = (int)(gid / per_rank);
-  const long long rem = gid % per_rank;
-  const long long t = rem / QUADS;
-  const int q = (int)(rem % QUADS);
-  const long long off = t * (long long)(B * LANES) + 4 * q;  // in the chunk
-  const long long soff = t * LANES + 4 * q;                  // its scales
-  const long long sC = a.C / B;
-  const int c = ((i - a.k - 1) % a.n + a.n) % a.n;         // chunk summed
-  const float* xs = a.x + (long long)i * a.n * a.C + (long long)c * a.C + off;
+  if (gid >= per_chunk * a.n) return;
+  const int c = (int)(gid / per_chunk);                      // the chunk
+  const long long rem = gid % per_chunk;
+  const long long off = (rem / QUADS) * (long long)(B * LANES) +
+                        4 * (rem % QUADS);                   // in the chunk
+  const long long row = (long long)a.n * a.C;                // one rank's x
+  const float* xc = a.x + (long long)c * a.C + off;
 
   float4 v[B];
+  int r = (c + 1) % a.n;                  // hop 0: rank c+1 sends x as is
+  {
+    const float* xs = xc + r * row;
 #pragma unroll
-  for (int r = 0; r < B; ++r)
-    v[r] = *reinterpret_cast<const float4*>(xs + r * LANES);
-  if (a.fm_in != nullptr) {        // add the frame that arrived at hop k-1
-    const signed char* fm = a.fm_in + (long long)i * a.C + off;
-    const char4 s_in =
-        *reinterpret_cast<const char4*>(a.fs_in + i * sC + soff);
-#pragma unroll
-    for (int r = 0; r < B; ++r) {
-      const char4 m = *reinterpret_cast<const char4*>(fm + r * LANES);
-      v[r] = add4(v[r], decode4(m, s_in));
-    }
+    for (int k = 0; k < B; ++k)
+      v[k] = *reinterpret_cast<const float4*>(xs + k * LANES);
   }
-
-  if (a.fm_out != nullptr) {       // forward the partial sum as hop k
+  for (int j = 1; j < a.n; ++j) {         // rank r+1 receives r's frame
+    r = (r + 1 == a.n) ? 0 : r + 1;
+    const float* xs = xc + r * row;
     char4 m[B];
     char4 s;
     encode_quad<B>(v, a.mant_bits, a.rtz, m, s);
-    const int dst = (i + 1) % a.n;
-    signed char* om = a.fm_out + (long long)dst * a.C + off;
 #pragma unroll
-    for (int r = 0; r < B; ++r)
-      *reinterpret_cast<char4*>(om + r * LANES) = m[r];
-    *reinterpret_cast<char4*>(a.fs_out + dst * sC + soff) = s;
-    return;
+    for (int k = 0; k < B; ++k)
+      v[k] = add4(*reinterpret_cast<const float4*>(xs + k * LANES),
+                  decode4(m[k], s));
   }
 
-  // final hop: c == i, the rank's own chunk
-  const long long own = (long long)i * a.C + off;
+  // r == c: the owner of the chunk
+  const long long own = (long long)c * a.C + off;
 #pragma unroll
-  for (int r = 0; r < B; ++r)
-    *reinterpret_cast<float4*>(a.g_out + own + r * LANES) = v[r];
+  for (int k = 0; k < B; ++k)
+    *reinterpret_cast<float4*>(a.g_out + own + k * LANES) = v[k];
   if (a.opt_kind == OPT_NONE) return;
   const float nf = (float)a.n;
 #pragma unroll
-  for (int r = 0; r < B; ++r) {
-    const long long e = own + r * LANES;
-    const float g[4] = {v[r].x / nf, v[r].y / nf,
-                        v[r].z / nf, v[r].w / nf};
+  for (int k = 0; k < B; ++k) {
+    const long long e = own + k * LANES;
+    const float g[4] = {v[k].x / nf, v[k].y / nf,
+                        v[k].z / nf, v[k].w / nf};
     const float4 w4 = *reinterpret_cast<const float4*>(a.w + e);
     const float w[4] = {w4.x, w4.y, w4.z, w4.w};
     float m[4] = {0.f, 0.f, 0.f, 0.f}, vv[4] = {0.f, 0.f, 0.f, 0.f};
@@ -153,9 +152,9 @@ __global__ void __launch_bounds__(THREADS) ring_rs_hop_kernel(RsArgs a) {
     }
     float w2[4], m2[4], v2[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      fused_update(a.opt_kind, a.hyper, g[j], w[j], m[j], vv[j], w2[j],
-                   m2[j], v2[j]);
+    for (int q = 0; q < 4; ++q)
+      fused_update(a.opt_kind, a.hyper, g[q], w[q], m[q], vv[q], w2[q],
+                   m2[q], v2[q]);
     *reinterpret_cast<float4*>(a.w_out + e) =
         make_float4(w2[0], w2[1], w2[2], w2[3]);
     if (a.m_out != nullptr)
@@ -167,22 +166,20 @@ __global__ void __launch_bounds__(THREADS) ring_rs_hop_kernel(RsArgs a) {
   }
 }
 
-// One launch = hop k of every rank.  fm_in == null marks hop 0, fm_out ==
-// null the final hop.
-extern "C" int ring_rs_hop_launch(
-    const float* x, const signed char* fm_in, const signed char* fs_in,
-    signed char* fm_out, signed char* fs_out, float* g_out, const float* w,
-    float* w_out, const float* m_in, float* m_out, const float* v_in,
-    float* v_out, const float* hyper, int n, long long C, int k,
-    int block_size, int mant_bits, int rtz, int opt_kind,
-    cudaStream_t stream) {
-  const RsArgs a{x, fm_in, fs_in, fm_out, fs_out, g_out, w, w_out, m_in,
-                 m_out, v_in, v_out, hyper, n, C, k, mant_bits, rtz,
-                 opt_kind};
+// One launch = the whole reduce-scatter (and update) of every rank.
+// opt_kind == OPT_NONE leaves w .. v_out unread (they may be null).
+extern "C" int ring_rs_launch(const float* x, float* g_out, const float* w,
+                              float* w_out, const float* m_in, float* m_out,
+                              const float* v_in, float* v_out,
+                              const float* hyper, int n, long long C,
+                              int block_size, int mant_bits, int rtz,
+                              int opt_kind, cudaStream_t stream) {
+  const RsArgs a{x, g_out, w, w_out, m_in, m_out, v_in, v_out, hyper,
+                 n, C, mant_bits, rtz, opt_kind};
   const long long n_threads = (long long)n * (C / (4LL * block_size));
-#define HOP(BS) \
-  ring_rs_hop_kernel<BS><<<grid_for(n_threads), THREADS, 0, stream>>>(a)
-  BFP_DISPATCH_BLOCK(block_size, HOP)
-#undef HOP
+#define RS(BS) \
+  ring_rs_kernel<BS><<<grid_for(n_threads), THREADS, 0, stream>>>(a)
+  BFP_DISPATCH_BLOCK(block_size, RS)
+#undef RS
   return (int)cudaGetLastError();
 }

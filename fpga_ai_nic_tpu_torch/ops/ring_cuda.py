@@ -2,12 +2,16 @@
 the JAX package's ``ops/ring_pallas.py``.
 
 The n ranks are the rows of a stacked ``[n, L]`` tensor in one device's
-memory; a "remote copy" is a write into the neighbour rank's receive
-buffer (``csrc/ring_rs.cu``, ``csrc/ring_ag.cu``).  The TPU kernels come in
-VMEM-resident and HBM-streaming twins that compute the same function bit
-for bit; residency is a VMEM concern Hopper does not share, so each pair
-is one CUDA kernel here.  Wire frames use the "sublane" BFP layout
-whatever ``BFPConfig.codec`` says, as the TPU kernels do.
+memory.  Each collective is one launch (``csrc/ring_rs.cu``,
+``csrc/ring_ag.cu``): with the sublane BFP block inside one tile, every
+output element depends only on the inputs at the same offset of each
+rank's chunks, so one thread runs the whole ring for its quad and the
+frames a hop would put on the wire stay in its registers, with the same
+bits.  The TPU kernels come in VMEM-resident and HBM-streaming twins that
+compute the same function bit for bit; residency is a VMEM concern Hopper
+does not share, so each pair is one CUDA kernel here.  Wire frames use
+the "sublane" BFP layout whatever ``BFPConfig.codec`` says, as the TPU
+kernels do.
 
 Bit spec: ``ops.ring_golden`` with ``layout="sublane"``, composed with
 ``optim.golden_fused_apply`` for the fused update.  Each public function
@@ -15,7 +19,7 @@ takes the plain version (``*_plain``: the ``ops.ring`` rings with the
 plain sublane codec and ``optim.fused_apply_flat``) for a tensor on the
 CPU and launches the kernels for a tensor on CUDA; there is no fallback
 between the two.  ``RING_RS.launches`` / ``RING_AG.launches`` count
-kernel launches.
+kernel launches, one per call.
 """
 
 from __future__ import annotations
@@ -35,13 +39,12 @@ from ..utils.config import BFPConfig, OptimizerSpec
 LANES = bfp_cuda.LANES
 OPT_CODES = {None: 0, "sgd": 1, "momentum": 2, "adamw": 3}
 
-RING_RS = Kernel("ring_rs_update", "ring_rs.cu", "ring_rs_hop_launch",
-                 [ctypes.c_void_p] * 13
-                 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5)
-RING_AG = Kernel("ring_ag", "ring_ag.cu", "ring_ag_hop_launch",
-                 [ctypes.c_void_p] * 5
-                 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_int])
+RING_RS = Kernel("ring_rs_update", "ring_rs.cu", "ring_rs_launch",
+                 [ctypes.c_void_p] * 9
+                 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4)
+RING_AG = Kernel("ring_ag", "ring_ag.cu", "ring_ag_launch",
+                 [ctypes.c_void_p] * 2
+                 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3)
 
 
 def _cfg(compression: Optional[BFPConfig]) -> BFPConfig:
@@ -133,51 +136,23 @@ def _launch_rs(x: torch.Tensor, cfg: BFPConfig, opt_kind: Optional[str],
         outs = tuple(torch.empty_like(s) for s in state)
     m_in, v_in = (state + (None, None))[:2]
     m_out, v_out = (outs + (None, None))[:2]
-    # two receive slots per rank, by hop parity
-    fm = torch.empty((2, n, C), dtype=torch.int8, device=dev)
-    fs = torch.empty((2, n, C // B), dtype=torch.int8, device=dev)
 
     def p(t):
         return None if t is None else ptr(t)
 
-    for k in range(n):
-        fm_in, fs_in = (fm[(k - 1) % 2], fs[(k - 1) % 2]) if k else (None,
-                                                                      None)
-        fm_out, fs_out = (fm[k % 2], fs[k % 2]) if k < n - 1 else (None,
-                                                                   None)
-        RING_RS(ptr(x), p(fm_in), p(fs_in), p(fm_out), p(fs_out),
-                ptr(g_out), p(w_own), p(w_out), p(m_in), p(m_out), p(v_in),
-                p(v_out), p(hyper), n, C, k, B, cfg.mantissa_bits,
-                int(cfg.rounding == "rtz"), OPT_CODES[opt_kind])
+    RING_RS(ptr(x), ptr(g_out), p(w_own), p(w_out), p(m_in), p(m_out),
+            p(v_in), p(v_out), p(hyper), n, C, B, cfg.mantissa_bits,
+            int(cfg.rounding == "rtz"), OPT_CODES[opt_kind])
     return g_out, w_out, outs
 
 
 def _launch_ag(owned: torch.Tensor, cfg: BFPConfig) -> torch.Tensor:
     n, C = owned.shape
-    B = cfg.block_size
+    bfp_cuda.check_kernel_block(cfg.block_size)
     bfp_cuda.check_cuda(owned, torch.float32, "owned")
-    dev = owned.device
-    # each rank encodes its chunk once (bfp_encode) and decodes its own
-    # slot (bfp_decode); ring_ag forwards the frames for n-1 hops
-    mant, scale = bfp_cuda.bfp_encode(owned.reshape(-1), B,
-                                      cfg.mantissa_bits, cfg.rounding)
-    out = torch.empty((n, n * C), dtype=torch.float32, device=dev)
-    sC = C // B
-    for i in range(n):
-        bfp_cuda.launch_decode(mant[i * C:(i + 1) * C],
-                               scale[i * sC:(i + 1) * sC],
-                               out[i, i * C:(i + 1) * C], B)
-    hold = [(torch.empty((n, C), dtype=torch.int8, device=dev),
-             torch.empty((n, sC), dtype=torch.int8, device=dev))
-            for _ in range(2 if n > 2 else 0)]
-    fm_in, fs_in = mant, scale
-    for s in range(1, n):
-        fm_out, fs_out = hold[s % 2] if s < n - 1 else (None, None)
-        RING_AG(ptr(fm_in), ptr(fs_in),
-                None if fm_out is None else ptr(fm_out),
-                None if fs_out is None else ptr(fs_out), ptr(out), n, C, s,
-                B)
-        fm_in, fs_in = fm_out, fs_out
+    out = torch.empty((n, n * C), dtype=torch.float32, device=owned.device)
+    RING_AG(ptr(owned), ptr(out), n, C, cfg.block_size, cfg.mantissa_bits,
+            int(cfg.rounding == "rtz"))
     return out
 
 

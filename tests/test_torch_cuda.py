@@ -33,49 +33,90 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _mixed(x, seed):
+    """Magnitudes over 12 decades, zeros and subnormals: every scale and
+    clamp branch of the BFP encode."""
+    g = torch.Generator().manual_seed(seed)
+    x = x * torch.pow(10.0, torch.randint(-6, 6, x.shape, generator=g)
+                      .float()).to(x.device)
+    x.view(-1)[::97] = 0
+    x.view(-1)[5::131] *= 1e-39
+    return x
+
+
+def _launches():
+    return [ring_cuda.RING_RS.launches, ring_cuda.RING_AG.launches]
+
+
+# (n, block, mantissa_bits, rounding, tiles a chunk); 1 tile: a chunk of
+# one tile; n * tiles * 32 threads that are not a multiple of 256 leave the
+# last block of the launch part-filled
+RING_CASES = [(2, 16, 8, "nearest", 4), (3, 16, 8, "nearest", 4),
+              (8, 16, 8, "nearest", 4), (16, 16, 8, "nearest", 3),
+              (3, 4, 8, "nearest", 1), (2, 32, 8, "nearest", 1),
+              (8, 32, 8, "rtz", 3), (16, 4, 5, "rtz", 2),
+              (3, 16, 6, "rtz", 5)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2, 3, 8])
-def test_kernels_bitexact_vs_plain_on_card(cuda_device, n):
+@pytest.mark.parametrize("n,block,mant,rounding,tiles", RING_CASES)
+def test_kernels_bitexact_vs_plain_on_card(cuda_device, n, block, mant,
+                                           rounding, tiles):
     """ring_rs_update (sgd, none), ring_ag, bfp_encode/decode on the card
-    == their plain versions on the same card tensors, bit for bit."""
-    cfg = BFPConfig(codec="pallas")
+    == their plain versions on the same card tensors, bit for bit; each
+    ring collective one launch a call."""
+    cfg = BFPConfig(codec="pallas", block_size=block, mantissa_bits=mant,
+                    rounding=rounding)
     opt = OptimizerConfig(kind="sgd", learning_rate=0.1, weight_decay=0.01)
-    C = 4 * TILE
-    x = torch.from_numpy(_shards(n, C, seed=n)).to(cuda_device)
+    C = tiles * block * 128
+    x = _mixed(torch.from_numpy(_shards(n, C, seed=n)), n).to(cuda_device)
     w = torch.randn((n, C), generator=torch.Generator().manual_seed(n)
                     ).to(cuda_device)
     hyper = optim.fused_hyperparams(opt, 0, device=cuda_device)
+    before = _launches()
     got = ring_cuda.ring_reduce_scatter_update_fused(
         x, w, {}, hyper, opt_kind="sgd", compression=cfg)
+    g_only = ring_cuda.ring_reduce_scatter_fused(x, compression=cfg)
+    ag = ring_cuda.ring_all_gather_fused(got[1], compression=cfg)
+    torch.cuda.synchronize()
+    assert _launches() == [before[0] + 2, before[1] + 1]
     want = ring_cuda.ring_reduce_scatter_update_plain(
         x, w, {}, hyper, opt_kind="sgd", compression=cfg)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    ag = ring_cuda.ring_all_gather_fused(got[1], compression=cfg)
+    assert torch.equal(g_only, want[0])
     assert torch.equal(ag, ring_cuda.ring_all_gather_plain(got[1], cfg))
     assert bool((ag == ag[0]).all())
+    assert torch.equal(ring_cuda.ring_all_gather_fused(got[1],
+                                                       compression=cfg), ag)
     flat = x.reshape(-1)
-    m, s = bfp_cuda.bfp_encode(flat)
-    pm, ps = bfp_cuda.bfp_encode_plain(flat)
+    m, s = bfp_cuda.bfp_encode(flat, block, mant, rounding)
+    pm, ps = bfp_cuda.bfp_encode_plain(flat, block, mant, rounding)
     assert torch.equal(m, pm) and torch.equal(s, ps)
-    assert torch.equal(bfp_cuda.bfp_decode(m, s),
-                       bfp_cuda.bfp_decode_plain(pm, ps))
+    assert torch.equal(bfp_cuda.bfp_decode(m, s, block),
+                       bfp_cuda.bfp_decode_plain(pm, ps, block))
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,block,mant,rounding", [
+    (4, 16, 8, "nearest"), (3, 4, 8, "rtz"), (16, 32, 6, "nearest")])
 @pytest.mark.parametrize("kind", ["momentum", "adamw"])
-def test_rs_update_other_optimizers_on_card(cuda_device, kind):
-    cfg = BFPConfig(codec="pallas")
+def test_rs_update_other_optimizers_on_card(cuda_device, kind, n, block, mant,
+                                            rounding):
+    cfg = BFPConfig(codec="pallas", block_size=block, mantissa_bits=mant,
+                    rounding=rounding)
     opt = OptimizerConfig(kind=kind, learning_rate=1e-3, weight_decay=0.01)
-    n, C = 4, 2 * TILE
+    C = 2 * block * 128
     x = torch.from_numpy(_shards(n, C, seed=7)).to(cuda_device)
     g = torch.Generator().manual_seed(7)
     w = torch.randn((n, C), generator=g).to(cuda_device)
     st = {k: torch.rand((n, C), generator=g).to(cuda_device) * 1e-3
           for k in OptimizerSpec(kind=kind).state_keys}
     hyper = optim.fused_hyperparams(opt, 3, device=cuda_device)
+    before = ring_cuda.RING_RS.launches
     got = ring_cuda.ring_reduce_scatter_update_fused(
         x, w, st, hyper, opt_kind=kind, compression=cfg)
+    assert ring_cuda.RING_RS.launches == before + 1
     want = ring_cuda.ring_reduce_scatter_update_plain(
         x, w, st, hyper, opt_kind=kind, compression=cfg)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

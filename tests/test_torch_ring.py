@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
+from fpga_ai_nic_tpu.ops import bfp_golden as jax_bfp_golden
 from fpga_ai_nic_tpu.ops import ring as jax_ring
 from fpga_ai_nic_tpu.ops import ring_golden as jax_ring_golden
 from fpga_ai_nic_tpu.utils.config import BFPConfig as JaxBFPConfig
@@ -130,6 +131,83 @@ def test_reduce_scatter_update_bitexact_vs_composed_golden(n, kind):
         np.testing.assert_array_equal(w2[i].numpy(), w_want)
         for k in st_want:
             np.testing.assert_array_equal(st2[k][i].numpy(), st_want[k])
+
+
+def _quad_mask(C, block, tile, quad):
+    """Offsets inside a chunk of one quad column (4 lanes x block rows) of
+    one (block, 128) tile: one thread's unit in the fused ring kernels."""
+    mask = np.zeros(C, bool)
+    base = tile * block * 128 + 4 * quad
+    for r in range(block):
+        mask[base + r * 128:base + r * 128 + 4] = True
+    return mask
+
+
+@pytest.mark.parametrize("collective", ["reduce_scatter", "all_gather"])
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_ring_outputs_depend_only_on_their_offset(n, collective):
+    """The locality the one-launch ring kernels rest on: changing one quad
+    column of one tile of one rank's chunk changes, through the golden and
+    through the plain versions, only the outputs at that same offset of
+    that chunk (g and w_new of the reduce-scatter + SGD; that slot of every
+    replica of the gather), and nothing else.  The JAX package's golden
+    gives the same outputs."""
+    cfg = BFPConfig(codec="pallas")
+    block, C = cfg.block_size, 3 * TILE
+    opt = OptimizerConfig(kind="sgd", learning_rate=0.1, weight_decay=0.01)
+    hyper = optim.fused_hyperparams(opt, 0)
+    rng = np.random.default_rng(40 + n)
+    rank, chunk = n - 1, (n + 1) // 2 % n
+    mask = _quad_mask(C, block, tile=1, quad=5)
+
+    if collective == "reduce_scatter":
+        x = _shards(n, C, seed=30 + n)
+        w = (rng.standard_normal((n, C)) * 0.1).astype(np.float32)
+        x2 = x.copy()
+        part = x2[rank, chunk * C:(chunk + 1) * C]
+        part[mask] = part[mask] * 1e3 + 1
+
+        def outs(v):
+            g, w_new, _ = ring_cuda.ring_reduce_scatter_update_plain(
+                torch.from_numpy(v), torch.from_numpy(w), {}, hyper,
+                opt_kind="sgd", compression=cfg)
+            want = ring_golden.ring_reduce_scatter(v, cfg, "sublane")
+            np.testing.assert_array_equal(g.numpy(), want)
+            np.testing.assert_array_equal(
+                want, jax_ring_golden.ring_reduce_scatter(
+                    v, JaxBFPConfig(), "sublane"))
+            return [want, g.numpy(), w_new.numpy()]
+
+        allowed = np.zeros((n, C), bool)
+        allowed[chunk] = mask
+    else:
+        x = (rng.standard_normal((n, C)) * 3).astype(np.float32)
+        x2 = x.copy()
+        x2[rank, mask] = x2[rank, mask] * 1e3 + 1
+
+        def outs(v):
+            ag = ring_cuda.ring_all_gather_plain(torch.from_numpy(v), cfg)
+            want = ring_golden.ring_all_gather(v, cfg, "sublane")
+            np.testing.assert_array_equal(ag.numpy(), want)
+            # the JAX golden's gather is flat16 only; its sublane bit spec
+            # is each chunk's codec roundtrip in every replica
+            slots = [jax_bfp_golden.bfp_decode(
+                *jax_bfp_golden.bfp_encode(v[j], block, layout="sublane"),
+                block, layout="sublane") for j in range(n)]
+            np.testing.assert_array_equal(
+                want, np.tile(np.concatenate(slots), (n, 1)))
+            return [want, ag.numpy()]
+
+        allowed = np.zeros((n, n, C), bool)
+        allowed[:, rank] = mask
+        allowed = allowed.reshape(n, n * C)
+
+    for a, b in zip(outs(x), outs(x2)):
+        changed = a != b
+        assert not (changed & ~allowed).any()
+        assert changed[allowed].any()
+        if collective == "all_gather":
+            assert (b == b[0]).all()
 
 
 def test_sliced_hops_bitexact_vs_whole():
