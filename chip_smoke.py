@@ -29,6 +29,13 @@ Phases, each printing JSON lines:
      int8_encode / int8_decode (sublane layout, block 16) at 10,240 and at
      the int8 path's 41,963,520 elements, both roundings and seeds 0 and
      7, bit for bit, with a control (seed 1 against seed 0 must differ);
+     then the encode's division over every pair of an f32 significand and
+     a bf16 scale significand (2^30 pairs) and over exponent extremes
+     (subnormal x, scales from 0 to 2^121, underflowing quotients, NaN
+     and +-inf blocks), bit for bit, with a flipped-bit control; the
+     codec kernels' ``ms`` is their device time (torch.profiler),
+     ``call_ms`` whole calls (CUDA events), and the encode's SASS counts
+     its conversion, MUFU and call instructions;
   3. a small reference: a 3-layer MLP, 4 ranks, 3 steps on the card against
      the same steps on the CPU (plain versions);
   4. the training path: ``DPTrainer`` on the canonical MLP (10 x 2048x2048,
@@ -439,6 +446,11 @@ def codec_route(dev, tr, state, g, new, kernels) -> dict:
 INT8_PATH_ELEMS = 41_963_520   # canonical MLP at dp=2: both ranks, one call
 INT8_CASES = (("stochastic", 0), ("stochastic", 7), ("nearest", 0),
               ("nearest", 7))
+# the B=16 instantiations (mangled names): the encode's, stochastic and
+# nearest, and the decode's
+INT8_SASS_KERNELS = ("int8_encode_kernelILi16ELb0E",
+                     "int8_encode_kernelILi16ELb1E",
+                     "int8_decode_kernelILi16E")
 
 
 def int8_inputs(dev, N, seed):
@@ -453,11 +465,142 @@ def int8_inputs(dev, N, seed):
     return x
 
 
+def int8_extreme_inputs(dev, n_tiles, seed):
+    """Sublane tiles (block 16) whose blocks reach every branch of the
+    encode's division: scales from 0 and bf16's subnormals up to the
+    largest a finite block gives, x from the block max down past the
+    subnormals (quotients that underflow), ties k + 1/2, values clipped at
+    +-127, all-zero, all-subnormal, NaN and +-inf blocks: the card's
+    version of tests/test_torch_int8.py's ``_extreme_tiles``."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev)
+
+    def pow2(e):
+        return torch.pow(2.0, e.double())
+
+    shape, col = (n_tiles, 16, 128), (n_tiles, 1, 128)
+    E, sig = ints(-142, 121, col), 128 + ints(0, 128, col)
+    M = (127.0 * sig * pow2(E - 7)).float()     # scale sig * 2^(E - 7)
+    expo = (E + 127 + ints(-180, 7, shape)).clamp(0, 254)
+    bits = (ints(0, 2, shape) << 31) | (expo << 23) | ints(0, 1 << 23, shape)
+    x = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+        torch.int32).view(torch.float32)
+    sign = torch.where(ints(0, 2, (n_tiles, 2, 128)) == 1, -1.0, 1.0)
+    k = ints(0, 127, col)
+    x[:, 0:1] = M * sign[:, 0:1]                              # fixes the scale
+    x[:, 1:2] = ((2 * k + 1) * sig * pow2(E - 8)).float() * sign[:, 1:2]
+    x[:, 2:3] = -x[:, 0:1]                                    # clips
+    x.view(-1)[::37] = -0.0
+    x[0, :, 0] = 0.0                                          # all zero
+    x[0, 3, 1] = math.nan
+    x[0, 4, 2] = math.inf
+    x[0, 5, 3] = -math.inf
+    x[0, 6, 4], x[0, 7, 4] = math.nan, math.inf
+    x[0, :, 5] = ints(1, 1 << 23, (16,)).to(torch.int32).view(
+        torch.float32)                                        # subnormal
+    x[0, :, 6] = 2.0 ** -149 * ints(0, 3, (16,)).float()     # scale 0
+    return x.reshape(-1)
+
+
+SWEEP_TILES = 4370          # 4370 * 128 blocks * 15 values >= 2^23 a scale
+SWEEP_SCALES = 8            # scale significands a slice: 71,598,080 f32
+
+
+def int8_sweep_slice(dev, j0):
+    """x for the bf16 scale significands j0 .. j0 + SWEEP_SCALES - 1: for
+    each, SWEEP_TILES tiles whose blocks hold 127 * s_j in row 0 (which
+    makes s_j = (1 + j/128) 2^(j % 9 - 4) the block's scale) and, in rows
+    1-15, every f32 significand m once (the first 1792 twice), at the
+    exponent (m % 8) - 2 of s_j's binade and with m's bit 3 as sign, so
+    each significand pair meets once and the quotients span 2^-3 .. 2^6.
+    Returns x and the scales s_j as f32."""
+    import torch
+    j = torch.arange(j0, j0 + SWEEP_SCALES, device=dev).view(-1, 1, 1, 1)
+    E = j % 9 - 4
+    s_j = ((128 + j).double() * torch.pow(2.0, (E - 7).double())).float()
+    blk = (torch.arange(SWEEP_TILES, device=dev).view(1, -1, 1, 1) * 128
+           + torch.arange(128, device=dev).view(1, 1, 1, 128))
+    m = (blk * 15 + torch.arange(15, device=dev).view(1, 1, 15, 1)) % (
+        1 << 23)
+    bits = ((m >> 3 & 1) << 31) | ((127 + E + (m & 7) - 2) << 23) | m
+    rows = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+        torch.int32).view(torch.float32)
+    top = (127 * s_j).expand(-1, SWEEP_TILES, 1, 128)
+    return torch.cat([top, rows], dim=2).reshape(-1), s_j.view(-1)
+
+
+def int8_encode_diffs(x, q, s, rounding, seed) -> int:
+    """Elements of q and of the scales where the kernel's output differs
+    from int8_encode_plain's on x."""
+    import torch
+    from fpga_ai_nic_tpu_torch.ops import int8_cuda
+    pq, ps = int8_cuda.int8_encode_plain(x, 16, rounding, seed)
+    return int((q != pq).sum()) + int(
+        (s.view(torch.int16) != ps.view(torch.int16)).sum())
+
+
+def int8_exhaustive(dev) -> dict:
+    """The encode's division over every pair of an f32 significand and a
+    bf16 scale significand (``int8_sweep_slice``, 2^30 pairs, 1.15e9
+    elements in 16 slices), then ``int8_extreme_inputs`` (exponent
+    extremes), each for every INT8_CASES entry, q and scales bit for bit
+    against int8_encode_plain; the sweep's scales must be the s_j it
+    builds.  Control: one bit flipped in the kernel's q must count as one
+    difference.  Raises on any difference; returns the phase's numbers."""
+    import torch
+    from fpga_ai_nic_tpu_torch.ops import int8_cuda
+    t0 = time.perf_counter()
+    elems = flipped = 0
+    for j0 in range(0, 128, SWEEP_SCALES):
+        x, s_j = int8_sweep_slice(dev, j0)
+        elems += x.numel()
+        for rounding, seed in INT8_CASES:
+            q, s = int8_cuda.int8_encode(x, 16, rounding, seed)
+            got = s.float().view(SWEEP_SCALES, -1)
+            if not bool((got == s_j.view(-1, 1)).all()):
+                raise AssertionError(f"int8 sweep: scales at j0={j0} are "
+                                     f"not the constructed s_j")
+            diff = int8_encode_diffs(x, q, s, rounding, seed)
+            if diff:
+                raise AssertionError(f"int8_encode sweep j0={j0} {rounding} "
+                                     f"seed {seed}: {diff} elements differ")
+            if not flipped:
+                q[x.numel() // 3] ^= 1
+                flipped = int8_encode_diffs(x, q, s, rounding, seed)
+                if flipped != 1:
+                    raise AssertionError(f"int8 sweep control: a flipped bit "
+                                         f"counted {flipped} differences")
+            del q, s
+        del x
+    sweep_s = time.perf_counter() - t0
+    x = int8_extreme_inputs(dev, 4096, 11)
+    for rounding, seed in INT8_CASES:
+        q, s = int8_cuda.int8_encode(x, 16, rounding, seed)
+        diff = int8_encode_diffs(x, q, s, rounding, seed)
+        if diff:
+            raise AssertionError(f"int8_encode extremes {rounding} seed "
+                                 f"{seed}: {diff} elements differ")
+    del x, q, s
+    torch.cuda.empty_cache()
+    out = {"sweep_pairs": 128 << 23, "sweep_elems": elems,
+           "extreme_elems": 4096 * 2048, "cases": [list(c) for c in
+                                                   INT8_CASES],
+           "bitexact": True, "control_flipped_bit_differences": flipped,
+           "sweep_s": sweep_s, "seconds": time.perf_counter() - t0}
+    emit(phase="int8_exhaustive", **out)
+    return out
+
+
 def int8_checks(dev) -> dict:
     """int8_encode / int8_decode against their plain versions, bit for bit,
     at a small shape and the path's, both roundings and two seeds; the
     control: seed 1 against seed 0 must differ.  Times at the path's
-    shape.  Returns the two rows of the kernels line."""
+    shape: ``ms`` the kernel's device time, ``call_ms`` whole calls; the
+    encode's SASS counts.  Then ``int8_exhaustive``.  Returns the two rows
+    of the kernels line."""
     from fpga_ai_nic_tpu_torch.ops import int8_cuda
     import torch
     rows = {}
@@ -489,21 +632,43 @@ def int8_checks(dev) -> dict:
         dec_ms = cuda_ms(lambda: int8_cuda.int8_decode(q0, s0), 20, 3)
         enc_plain = cuda_ms(lambda: int8_cuda.int8_encode_plain(x), 3)
         dec_plain = cuda_ms(lambda: int8_cuda.int8_decode_plain(q0, s0), 3)
+        dev_ms = {}
+        if label == "path":
+            dev_ms = {
+                "encode_device_ms": device_ms(
+                    lambda: int8_cuda.int8_encode(x), 20,
+                    ("int8_encode_kernel",)),
+                "encode_nearest_device_ms": device_ms(
+                    lambda: int8_cuda.int8_encode(x, 16, "nearest"), 20,
+                    ("int8_encode_kernel",)),
+                "decode_device_ms": device_ms(
+                    lambda: int8_cuda.int8_decode(q0, s0), 20,
+                    ("int8_decode_kernel",))}
         emit(phase="kernel_check", kernel="int8_encode/int8_decode",
              shape=label, elems=N, cases=[list(c) for c in INT8_CASES],
              bitexact=True, control_seed1_vs_seed0_differing=control_diff,
              encode_ms=enc_ms, decode_ms=dec_ms, encode_plain_ms=enc_plain,
              decode_plain_ms=dec_plain, encode_bound_ms=enc_bound[0],
-             decode_bound_ms=dec_bound[0])
+             decode_bound_ms=dec_bound[0], **dev_ms)
         if label == "path":
-            rows = {"int8_encode": {"max_abs_err": 0.0, "ms": enc_ms,
-                                    "plain_ms": enc_plain,
-                                    "bound": enc_bound},
-                    "int8_decode": {"max_abs_err": 0.0, "ms": dec_ms,
-                                    "plain_ms": dec_plain,
-                                    "bound": dec_bound}}
+            sass = sass_stats(int8_cuda.ENCODE.source, INT8_SASS_KERNELS,
+                              CONVERT_OPS)
+            emit(phase="int8_sass", sass=sass)
+            rows = {"int8_encode": {
+                        "max_abs_err": 0.0, "ms": dev_ms["encode_device_ms"],
+                        "plain_ms": enc_plain, "bound": enc_bound,
+                        "extra": {"call_ms": enc_ms,
+                                  "nearest_ms": dev_ms[
+                                      "encode_nearest_device_ms"],
+                                  "sass": {k: sass[k] for k in
+                                           INT8_SASS_KERNELS[:2]}}},
+                    "int8_decode": {
+                        "max_abs_err": 0.0, "ms": dev_ms["decode_device_ms"],
+                        "plain_ms": dec_plain, "bound": dec_bound,
+                        "extra": {"call_ms": dec_ms}}}
         del x, q0, s0, q1
         torch.cuda.empty_cache()
+    rows["int8_encode"]["extra"]["exhaustive"] = int8_exhaustive(dev)
     return rows
 
 
@@ -806,17 +971,26 @@ def flash_bound(kind, B, H, n_kv, S, causal, split=False, hd=128,
                  ops_per_s)
 
 
-def sass_stats(source: str, kernels) -> dict:
-    """For each kernel of ``source``'s built library: its HGMMA (wgmma)
-    instructions in the SASS (``cuobjdump -sass``), and its registers and
-    local (spill) bytes a thread (``cuobjdump -res-usage``)."""
+SASS_LINE = r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)"
+# the int8 encode's conversion, MUFU and division-check instructions (the
+# conversion and MUFU units take 16 a clock on an SM, FP32 128)
+CONVERT_OPS = ("MUFU", "I2F", "I2FP", "F2I", "F2IP", "FRND", "F2F", "FCHK",
+               "CALL")
+
+
+def sass_stats(source: str, kernels, ops=("HGMMA",)) -> dict:
+    """For each kernel of ``source``'s built library (a substring of its
+    mangled name: ``ILi16E`` picks the B=16 instantiation of a template):
+    how many of its SASS instructions (``cuobjdump -sass``) have each
+    opcode of ``ops`` (lower-case keys) and how many it has in all, and its
+    registers and local (spill) bytes a thread (``cuobjdump -res-usage``)."""
     import re
     from fpga_ai_nic_tpu_torch.ops import _build
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
     lib = str(_build.build((source,))[source])
-    stats = {k: {"hgmma": 0, "registers": None, "local_bytes": None}
-             for k in kernels}
+    stats = {k: dict({op.lower(): 0 for op in ops}, instructions=0,
+                     registers=None, local_bytes=None) for k in kernels}
     for flag in ("-sass", "-res-usage"):
         out = subprocess.run([cuobjdump, flag, lib], check=True,
                              capture_output=True, text=True,
@@ -828,7 +1002,11 @@ def sass_stats(source: str, kernels) -> dict:
             if cur is None:
                 continue
             if flag == "-sass":
-                stats[cur]["hgmma"] += bool(re.search(r"\bHGMMA\b", line))
+                m = re.match(SASS_LINE, line)
+                if m and m.group(1) != "NOP":
+                    stats[cur]["instructions"] += 1
+                    if m.group(1) in ops:
+                        stats[cur][m.group(1).lower()] += 1
                 continue
             for key, field in (("registers", "REG"), ("local_bytes", "LOCAL")):
                 m = re.search(rf"\b{field}:(\d+)", line)
@@ -1643,19 +1821,29 @@ def main() -> int:
         d = bfp_cuda.bfp_decode(m, s)
         pd = bfp_cuda.bfp_decode_plain(pm, ps)
         require_equal("bfp_decode", [(d, pd)])
-        enc_ms = cuda_ms(lambda: bfp_cuda.bfp_encode(x), 20, 3)
-        dec_ms = cuda_ms(lambda: bfp_cuda.bfp_decode(m, s), 20, 3)
+        # ms: the kernel's device time; call_ms: whole calls (CUDA events),
+        # host work included, which at 5,246,976 elements outlasts the
+        # decode kernel
+        enc_ms = device_ms(lambda: bfp_cuda.bfp_encode(x), 20,
+                           ("bfp_encode_kernel",))
+        dec_ms = device_ms(lambda: bfp_cuda.bfp_decode(m, s), 20,
+                           ("bfp_decode_kernel",))
+        enc_call = cuda_ms(lambda: bfp_cuda.bfp_encode(x), 20, 3)
+        dec_call = cuda_ms(lambda: bfp_cuda.bfp_decode(m, s), 20, 3)
         enc_plain = cuda_ms(lambda: bfp_cuda.bfp_encode_plain(x), 3)
         dec_plain = cuda_ms(lambda: bfp_cuda.bfp_decode_plain(m, s), 3)
         emit(phase="kernel_check", kernel="bfp_encode/bfp_decode", shape=label,
              elems=N, bitexact=True, encode_ms=enc_ms, decode_ms=dec_ms,
+             encode_call_ms=enc_call, decode_call_ms=dec_call,
              encode_plain_ms=enc_plain, decode_plain_ms=dec_plain)
         if label == "main path encode":
             rec("bfp_encode", max_abs_err=0.0, ms=enc_ms, plain_ms=enc_plain,
-                bound=bound(N * (4 + 1 + 1 / B), 8 * N))
+                bound=bound(N * (4 + 1 + 1 / B), 8 * N),
+                extra={"call_ms": enc_call})
         if label == "main path decode":
             rec("bfp_decode", max_abs_err=0.0, ms=dec_ms, plain_ms=dec_plain,
-                bound=bound(N * (1 + 1 / B + 4), 2 * N))
+                bound=bound(N * (1 + 1 / B + 4), 2 * N),
+                extra={"call_ms": dec_call})
         del x, m, s, pm, ps, d, pd
 
     results.update(ring_checks(dev, cfg, sgd, n, L_full))

@@ -1,0 +1,240 @@
+#!/usr/bin/env python3
+"""Device time of the port's codec kernels on one NVIDIA card.
+
+    python3 codec_probe.py [--root DIR] [--control] [--step]
+
+Times ``int8_encode`` (both roundings), ``int8_decode``, ``bfp_encode`` and
+``bfp_decode`` at the main paths' shapes (``chip_smoke.py``'s), each by the
+kernel's device time (torch.profiler, ``chip_smoke.device_ms``), the same
+with the L2 cache flushed before each call, and the CUDA-event time of
+whole calls (host work included), and counts the
+conversion, MUFU and call instructions and the registers of
+``int8_encode_kernel<16>`` in its SASS.  ``--root`` times the port of
+another checkout (a parent commit unpacked with ``git archive``) with this
+script's helpers, so two commits compare in one process order on one card.
+``--control`` adds a copy-only control with ``int8_encode``'s access
+pattern (float4 loads of 16 rows, char4 stores and one 8-byte scale store a
+thread), the floor that pattern reaches; ``--step`` times the int8 MLP
+step of ``chip_smoke.py``'s ``int8_train_path`` (dp=2, 1 warm-up and 10
+timed steps).  Each result is one JSON line; the last line sums them up.
+Without a card it exits nonzero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+CONTROL_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+constexpr int LANES = 128, QUADS = 32, THREADS = 256, B = 16;
+// int8_encode_kernel<16>'s indexing, loads and stores, with no arithmetic
+// but what keeps every loaded word alive
+__global__ void __launch_bounds__(THREADS)
+copy_control_kernel(const float* __restrict__ x, signed char* __restrict__ q,
+                    unsigned short* __restrict__ scale, long long n_threads) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n_threads) return;
+  const long long t = gid / QUADS;
+  const int qd = (int)(gid % QUADS);
+  const long long base = t * (long long)(B * LANES) + 4 * qd;
+  float4 v[B];
+#pragma unroll
+  for (int r = 0; r < B; ++r)
+    v[r] = *reinterpret_cast<const float4*>(x + base + r * LANES);
+  uint32_t acc = 0;
+#pragma unroll
+  for (int r = 0; r < B; ++r) {
+    const uint32_t a = __float_as_uint(v[r].x), b = __float_as_uint(v[r].y);
+    const uint32_t c = __float_as_uint(v[r].z), d = __float_as_uint(v[r].w);
+    acc ^= a ^ b ^ c ^ d;
+    *reinterpret_cast<char4*>(q + base + r * LANES) =
+        make_char4(a >> 24, b >> 24, c >> 24, d >> 24);
+  }
+  *reinterpret_cast<uint2*>(scale + t * LANES + 4 * qd) = make_uint2(acc, acc);
+}
+extern "C" int copy_control_launch(const float* x, signed char* q,
+                                   unsigned short* scale, long long n_elems,
+                                   cudaStream_t stream) {
+  const long long n_threads = n_elems / (4LL * B);
+  copy_control_kernel<<<(unsigned)((n_threads + THREADS - 1) / THREADS),
+                        THREADS, 0, stream>>>(x, q, scale, n_threads);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def load_chip_smoke():
+    """This checkout's chip_smoke.py, for its timing helpers and shapes."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def build_control(build_mod):
+    """Compile CONTROL_SRC with the port's flags into its build directory."""
+    out_dir = build_mod.BUILD_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / "copy_control.cu"
+    src.write_text(CONTROL_SRC)
+    lib = out_dir / f"copy_control.{os.getpid()}.so"
+    subprocess.run([build_mod.nvcc_path(), *build_mod.NVCC_FLAGS, "-o",
+                    str(lib), str(src)], check=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).copy_control_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def time_row(cs, fn, names, reps=20) -> dict:
+    """Per call of ``fn``: the kernels' device time, the same with the L2
+    cache flushed (a 256 MB write) before each call, and CUDA-event time
+    of whole calls."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+
+    def cold():
+        flush.zero_()
+        fn()
+
+    return {"device_ms": cs.device_ms(fn, reps, names),
+            "cold_device_ms": cs.device_ms(cold, reps, names),
+            "event_ms": cs.cuda_ms(fn, reps, 3)}
+
+
+def int8_step(cs, dev, steps=10):
+    """ms per int8 MLP step (CUDA events), as ``int8_train_path`` builds it."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (
+        CollectiveConfig, MeshConfig, MLPConfig, OptimizerConfig,
+        TrainConfig)
+    mcfg = MLPConfig()
+    cfg = TrainConfig(global_batch=5376, mesh=MeshConfig(dp=cs.INT8_DP),
+                      optimizer=OptimizerConfig(kind="sgd",
+                                                learning_rate=0.1),
+                      collective=CollectiveConfig(
+                          impl="ring", codec="int8",
+                          codec_opts=cs.INT8_OPTS, fused_optimizer=True))
+    tr = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg),
+                   VirtualRanks(cs.INT8_DP, dev), cfg)
+    state = tr.init_state(mlp.init(torch.Generator().manual_seed(0), mcfg,
+                                   dev))
+    gx = torch.Generator(device=dev).manual_seed(4)
+    bx = torch.randn((cfg.global_batch, 2048), generator=gx, device=dev)
+    by = torch.randint(0, 2048, (cfg.global_batch,), generator=gx,
+                       device=dev)
+    batch = tr.shard_batch((bx, by))
+    state, _ = tr.step(state, batch)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    marks[0].record()
+    for mark in marks[1:]:
+        state, loss = tr.step(state, batch)
+        mark.record()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return {"step_ms": step_ms, "median_step_ms": sorted(step_ms)[steps // 2],
+            "loss_last": float(loss)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=HERE,
+                    help="checkout whose port is timed")
+    ap.add_argument("--control", action="store_true")
+    ap.add_argument("--step", action="store_true")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("codec_probe: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    cs = load_chip_smoke()
+    from fpga_ai_nic_tpu_torch.ops import _build, bfp_cuda, int8_cuda
+    if not _build.__file__.startswith(root + os.sep):
+        raise RuntimeError(f"imported {_build.__file__}, not under {root}")
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    _build.build(("int8_codec.cu", "bfp_codec.cu"))
+    out = {"root": root, "card": smi}
+    cs.emit(phase="probe_start", **out)
+
+    N = cs.INT8_PATH_ELEMS
+    g = torch.Generator(device=dev).manual_seed(1)
+    data = {"chip_smoke": cs.int8_inputs(dev, N, N % 1000),
+            "normal": torch.randn(N, generator=g, device=dev) * torch.pow(
+                10.0, torch.randint(-3, 3, (N,), generator=g,
+                                    device=dev).float())}
+    enc_names = ("int8_encode_kernel",)
+    for label, x in data.items():
+        for rounding in int8_cuda.ROUNDINGS:
+            out[f"int8_encode {rounding} {label}"] = time_row(
+                cs, lambda: int8_cuda.int8_encode(x, 16, rounding, 0),
+                enc_names)
+    x = data["chip_smoke"]
+    q, s = int8_cuda.int8_encode(x)
+    out["int8_decode"] = time_row(cs, lambda: int8_cuda.int8_decode(q, s),
+                                  ("int8_decode_kernel",))
+    if args.control:
+        launch = build_control(_build)
+        q2 = torch.empty_like(q)
+        s2 = torch.empty_like(s)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def control():
+            if launch(x.data_ptr(), q2.data_ptr(), s2.data_ptr(), N, stream):
+                raise RuntimeError("copy control launch failed")
+
+        out["copy_control"] = time_row(cs, control, ("copy_control_kernel",))
+        del q2, s2
+    del data, x, q, s
+    for label, n_el in (("bfp_encode", 41_975_808), ("bfp_decode",
+                                                     41_975_808 // 8)):
+        gb = torch.Generator(device=dev).manual_seed(0)
+        xb = torch.randn(n_el, generator=gb, device=dev) * 3
+        xb[::97] = 0
+        xb[5::131] *= 1e-39
+        m, e = bfp_cuda.bfp_encode(xb)
+        fn = ((lambda: bfp_cuda.bfp_encode(xb)) if label == "bfp_encode"
+              else (lambda: bfp_cuda.bfp_decode(m, e)))
+        out[label] = dict(time_row(cs, fn, (label + "_kernel",)),
+                          elems=n_el)
+        del xb, m, e
+    torch.cuda.empty_cache()
+    for name, row in out.items():
+        if isinstance(row, dict):
+            cs.emit(phase="probe_time", kernel=name, **row)
+    # the parent's encode takes the rounding at run time (one instantiation,
+    # ILi16EEv); this one as a template argument (Lb0E stochastic, Lb1E
+    # nearest)
+    out["sass"] = cs.sass_stats("int8_codec.cu", cs.INT8_SASS_KERNELS
+                                + ("int8_encode_kernelILi16EEv",),
+                                cs.CONVERT_OPS)
+    cs.emit(phase="probe_sass", sass=out["sass"])
+    if args.step:
+        out["int8_step"] = int8_step(cs, dev)
+        cs.emit(phase="probe_step", **out["int8_step"])
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

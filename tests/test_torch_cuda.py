@@ -124,8 +124,28 @@ def test_rs_update_other_optimizers_on_card(cuda_device, kind, n, block, mant,
         assert torch.equal(got[2][k], want[2][k]), k
 
 
+def _int8_edge_blocks(x, block, seed):
+    """Blocks of x ([tiles >= 3] sublane tiles) set to the encode's edges:
+    in tile 1, blocks of max 127 * 1.5 (scale 1.5 exactly) whose other
+    values are quotients k + 1/2 (the ties of "nearest"), or 127 * 1.5 *
+    (1 + 2^-9), whose scale still rounds to 1.5 (quotients past 127, which
+    clip); in tile 2, NaN, +inf, -inf and NaN-with-inf blocks."""
+    g = torch.Generator().manual_seed(seed)
+    t = x.view(-1, block, 128)
+    k = torch.randint(0, 127, (block, 32), generator=g).float()
+    sign = torch.where(torch.rand((block, 32), generator=g) < 0.5, -1.0, 1.0)
+    t[1, :, 9:41] = ((k + 0.5) * 1.5 * sign).to(x.device)
+    t[1, :, 41:51] = -127 * 1.5 * (1 + 2.0 ** -9)
+    t[1, 0, 9:51] = 127 * 1.5
+    t[2, 0, 0] = float("nan")
+    t[2, 0, 1] = float("inf")
+    t[2, block - 1, 2] = -float("inf")
+    t[2, 0, 3], t[2, block - 1, 3] = float("nan"), float("inf")
+    return x
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("block", [8, 16, 32])
+@pytest.mark.parametrize("block", [2, 4, 8, 16, 32])
 @pytest.mark.parametrize("rounding,seed", [("stochastic", 0),
                                           ("stochastic", 7),
                                           ("nearest", 0)])
@@ -133,7 +153,9 @@ def test_int8_kernels_bitexact_vs_plain_on_card(cuda_device, block, rounding,
                                                 seed):
     """int8_encode / int8_decode on the card == their plain versions on the
     same card tensors, bit for bit: mixed magnitudes, all-zero blocks,
-    subnormals, negative zeros; one launch each."""
+    subnormals, negative zeros, quotients k + 1/2, values that clip at
+    +-127, NaN and +-inf blocks; one launch each, and a second launch
+    bit-equal to the first."""
     tiles = 7
     x = torch.from_numpy(_shards(1, tiles * block * 128, seed=block)
                          .reshape(-1)).to(cuda_device)
@@ -141,6 +163,7 @@ def test_int8_kernels_bitexact_vs_plain_on_card(cuda_device, block, rounding,
     x[:block * 128] = 0                        # a whole tile of zero blocks
     x[5 * 128::128 * 3] *= 1e-39               # subnormals
     x[7::97] = -0.0
+    x = _int8_edge_blocks(x, block, seed)
     counts = [int8_cuda.ENCODE.launches, int8_cuda.DECODE.launches]
     q, s = int8_cuda.int8_encode(x, block, rounding, seed)
     pq, ps = int8_cuda.int8_encode_plain(x, block, rounding, seed)
@@ -151,7 +174,12 @@ def test_int8_kernels_bitexact_vs_plain_on_card(cuda_device, block, rounding,
         c + 1 for c in counts]
     assert torch.equal(q, pq)
     assert torch.equal(s.view(torch.int16), ps.view(torch.int16))
-    assert torch.equal(d, pd)
+    assert torch.equal(d.view(torch.int32), pd.view(torch.int32))
+    q2, s2 = int8_cuda.int8_encode(x, block, rounding, seed)
+    assert torch.equal(q2, q) and torch.equal(s2.view(torch.int16),
+                                              s.view(torch.int16))
+    assert torch.equal(int8_cuda.int8_decode(q, s, block).view(torch.int32),
+                       d.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -248,8 +248,8 @@ def test_error_bound_and_unbiased():
 
 
 def test_port_imports_without_jax_or_ml_dtypes():
-    """Every module of the port, and ``chip_smoke``, imports with ``jax``,
-    ``ml_dtypes`` and the JAX package blocked."""
+    """Every module of the port, ``chip_smoke`` and ``codec_probe`` import
+    with ``jax``, ``ml_dtypes`` and the JAX package blocked."""
     import pkgutil
     pkg = fpga_ai_nic_tpu_torch
     mods = [m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -257,7 +257,7 @@ def test_port_imports_without_jax_or_ml_dtypes():
     for m in ("compress.int8", "compress.topk", "compress.golden",
               "ops.int8_cuda", "evals.codec_convergence"):
         assert f"fpga_ai_nic_tpu_torch.{m}" in mods, m
-    mods.append("chip_smoke")
+    mods += ["chip_smoke", "codec_probe"]
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in ("jax", "jaxlib", "ml_dtypes", "fpga_ai_nic_tpu"):
@@ -278,3 +278,183 @@ def test_port_imports_without_jax_or_ml_dtypes():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) == len(mods)
+
+
+# -- csrc/int8_codec.cu's encode arithmetic, emulated op by op ----------------
+#
+# The kernel divides by no element: it takes each block's r = RN(1/s),
+# corrects y = RN(x r) with one FMA (div_rn), scales x by 2^64 first where
+# x or y is below 2^-60, and floors (or rounds), clips and converts with one
+# cvt.rmi (cvt.rni) and an integer clamp.  numpy's f32 arithmetic is IEEE
+# (round to nearest even, subnormals kept) and _fma32 rounds a*b + c once,
+# so these functions take the kernel's steps with the kernel's roundings;
+# the kernel itself is held against the plain version on the card
+# (tests/test_torch_cuda.py, chip_smoke.py).
+
+F32 = np.float32
+TINY, UP, DOWN = F32(2.0 ** -60), F32(2.0 ** 64), F32(2.0 ** -64)
+S_MIN, S_MAX = F32(2.0 ** -100), F32(2.0 ** 122)
+
+
+def _fma32(a, b, c):
+    """RN_f32(a * b + c), rounded once (``__fmaf_rn``).  a * b is exact in
+    f64; TwoSum splits p + c into hi + lo exactly; hi rounds to f32 as the
+    exact sum does unless hi is the midpoint of two f32 neighbours, where
+    lo's sign decides."""
+    p = np.multiply(a, b, dtype=np.float64)
+    c = np.broadcast_to(c, p.shape).astype(np.float64)
+    hi = p + c
+    bb = hi - p
+    lo = (p - (hi - bb)) + (c - bb)
+    out = hi.astype(F32)
+    down = np.where(out.astype(np.float64) > hi,
+                    np.nextafter(out, F32(-np.inf)), out)
+    up = np.nextafter(down, F32(np.inf))
+    tie = (hi == (down.astype(np.float64) + up) / 2) & (lo != 0)
+    return np.where(tie, np.where(lo > 0, up, down), out)
+
+
+def _div_rn_emulated(x, s):
+    """The kernel's div_rn: x / s for a finite x and a block's bf16 scale s
+    (broadcast) in [S_MIN, S_MAX]."""
+    with np.errstate(all="ignore"):
+        r = F32(1) / s                                # __frcp_rn
+        y0 = x * r
+        small = (np.abs(x) < TINY) | (np.abs(y0) < TINY)
+        xs = np.where(small, x * UP, x)
+        y = xs * r
+        e = _fma32(-s, y, xs)
+        y = _fma32(e, r, y)
+        return np.where(small, y * DOWN, y)
+
+
+def _cvt_s32(v):
+    """cvt.s32.f32 of an integral f32: saturating, NaN to 0."""
+    return np.where(np.isnan(v), 0.0, np.clip(v, -2.0 ** 31,
+                                              2.0 ** 31 - 1)).astype(np.int64)
+
+
+def _kernel_encode_emulated(x, rounding, seed, block=16):
+    """Flat f32 [N] -> (int8 q, bf16 bits) as int8_encode_kernel makes them."""
+    xb = x.reshape(-1, block, 128).transpose(0, 2, 1)
+    with np.errstate(all="ignore"):
+        m = np.abs(xb).max(-1)                         # max.NaN: NaN stays
+        bits = golden._to_bf16(np.where(m > 0, m * int8_cuda.INV127,
+                                        F32(1)))
+        s = (bits.astype(np.uint32) << 16).view(F32)[..., None]
+        # the block's divisor is ok: div_rn for all its elements, else
+        # exact_lanes' __fdiv_rn
+        ok = (s >= S_MIN) & (s <= S_MAX) & ~np.isnan(m)[..., None]
+        v = np.where(ok, _div_rn_emulated(xb, s), xb / s)
+        if rounding == "nearest":
+            k = np.rint(v)
+        else:
+            u = golden.hash_u01(np.ascontiguousarray(xb).view(np.uint32),
+                                seed)
+            k = np.floor(v + u)
+    q = np.clip(_cvt_s32(k), -127, 127).astype(np.int8)
+    return q.transpose(0, 2, 1).reshape(-1), bits.reshape(-1)
+
+
+def _extreme_tiles(n_tiles, seed):
+    """Sublane tiles (block 16) whose blocks reach every branch of the
+    kernel's encode: scales from 0 and bf16's subnormals to the largest a
+    finite block gives, subnormal and tiny x, quotients that underflow,
+    ties k + 1/2, clipped values, all-zero, NaN and +-inf blocks."""
+    rng = np.random.default_rng(seed)
+    shape = (n_tiles, 16, 128)
+    E = rng.integers(-142, 121, (n_tiles, 1, 128))
+    sig = 128 + rng.integers(0, 128, (n_tiles, 1, 128))
+    M = (127.0 * sig * 2.0 ** (E - 7)).astype(F32)   # scale sig * 2^(E-7)
+    expo = np.clip(E + 127 + rng.integers(-180, 7, shape), 0, 254)
+    bits = ((rng.integers(0, 2, shape) << 31) | (expo << 23)
+            | rng.integers(0, 2 ** 23, shape)).astype(np.uint32)
+    x = bits.view(F32).copy()
+    sign = np.where(rng.integers(0, 2, (n_tiles, 2, 128)) == 1, -1.0, 1.0)
+    k = rng.integers(0, 127, (n_tiles, 1, 128))
+    x[:, 0:1] = M * sign[:, 0:1]                      # fixes the scale
+    x[:, 1:2] = ((2 * k + 1) * sig * 2.0 ** (E - 8)).astype(F32) * sign[
+        :, 1:2]                                       # quotient k + 1/2
+    x[:, 2:3] = -x[:, 0:1]                            # clips at -127 / 127
+    x.reshape(-1)[::37] = -0.0
+    x[0, :, 0] = 0.0                                  # all-zero block
+    x[0, 3, 1] = np.nan
+    x[0, 4, 2] = np.inf
+    x[0, 5, 3] = -np.inf
+    x[0, 6, 4], x[0, 7, 4] = np.nan, np.inf
+    x[0, :, 5] = (rng.integers(1, 2 ** 23, 16).astype(np.uint32)
+                  .view(F32))                         # all subnormal
+    x[0, :, 6] = F32(2.0 ** -149) * rng.integers(0, 3, 16)   # scale 0
+    return x.reshape(-1)
+
+
+def test_kernel_division_equals_ieee_division():
+    """div_rn == f32 division for each of the 128 bf16 scale significands
+    against 8192 x significands (edges among them), at the exponents of
+    a normal block; and for random pairs over its whole domain, bit for
+    bit where the quotient is normal and, below 2^-126, in what reaches
+    the output: whether it is zero, and its sign.  chip_smoke.py runs every
+    x significand on the card."""
+    rng = np.random.default_rng(3)
+    m = np.concatenate([[0, 1, 2, 2 ** 22, 2 ** 23 - 2, 2 ** 23 - 1],
+                        rng.integers(0, 2 ** 23, 8186)]).astype(np.uint32)
+    x = (np.uint32(0x3F800000) | m).view(F32)         # [1, 2)
+    s = ((np.arange(128, dtype=np.uint32) | 0x3F80) << 16).view(F32)
+    for ex, es in ((0, 0), (6, 0), (-3, 5), (-1, 0)):
+        xx = x[None, :] * F32(2.0 ** ex)
+        ss = s[:, None] * F32(2.0 ** es)
+        with np.errstate(all="ignore"):
+            want = xx / ss
+        np.testing.assert_array_equal(_div_rn_emulated(xx, ss), want)
+    xb = rng.integers(0, 0x7F800000, 400_000, dtype=np.uint64).astype(
+        np.uint32) | (rng.integers(0, 2, 400_000).astype(np.uint32) << 31)
+    sb = rng.integers(0, 0x7F00, 400_000).astype(np.uint32) << 16
+    sb[::16] = 0x3F800000
+    xx, ss = xb.view(F32), sb.view(F32)
+    with np.errstate(all="ignore"):
+        want = xx / ss
+        exact = xx.astype(np.float64) / ss.astype(np.float64)
+        got = _div_rn_emulated(xx, ss)
+    # div_rn's domain: scales in [S_MIN, S_MAX], quotients within a block's
+    # max, below 128, or any x under scale 1.0
+    keep = ((ss >= S_MIN) & (ss <= S_MAX)
+            & ((np.abs(exact) < 128) | (ss == 1)))
+    got, want, exact = got[keep], want[keep], exact[keep]
+    normal = np.abs(exact) >= 2.0 ** -126
+    assert normal.sum() > 50_000 and (~normal).sum() > 20_000
+    np.testing.assert_array_equal(got[normal], want[normal])
+    np.testing.assert_array_equal(got[~normal] == 0, want[~normal] == 0)
+    np.testing.assert_array_equal(np.signbit(got[~normal & (want != 0)]),
+                                  np.signbit(want[~normal & (want != 0)]))
+
+
+@pytest.mark.parametrize("rounding,seed", [("stochastic", 0),
+                                          ("stochastic", 7),
+                                          ("nearest", 0)])
+def test_kernel_encode_emulation_equals_plain(rounding, seed):
+    """The kernel's encode, emulated step by step, == int8_encode_plain bit
+    for bit on _extreme_tiles (and on _data), q and scales."""
+    for x in (_extreme_tiles(24, seed + 1), _data(4 * TILE, seed)):
+        q, bits = _kernel_encode_emulated(x, rounding, seed)
+        pq, ps = int8_cuda.int8_encode_plain(torch.from_numpy(x), 16,
+                                             rounding, seed)
+        np.testing.assert_array_equal(q, pq.numpy())
+        np.testing.assert_array_equal(bits, _bits(ps))
+
+
+def test_floor_convert_clamp_equals_floor_clip_cast():
+    """One cvt (saturating, NaN to 0) then an integer clamp == the plain
+    version's floor (or round) -> clamp(-127, 127) -> int8 cast, on +-0,
+    +-inf, NaN, values past +-2^31 and halves."""
+    halves = np.arange(-130, 131) + 0.5
+    v = np.concatenate([[0.0, -0.0, np.inf, -np.inf, np.nan, 2.0 ** 31,
+                         -2.0 ** 31, 3e9, -3e9, 3e38, -3e38, 1e-45, -1e-45,
+                         127.0, -127.0, 126.99999, -127.00001],
+                        halves, -halves / 3]).astype(F32)
+    t = torch.from_numpy(v)
+    for np_round, t_round in ((np.floor, torch.floor),
+                              (np.rint, torch.round)):
+        with np.errstate(invalid="ignore"):
+            got = np.clip(_cvt_s32(np_round(v)), -127, 127).astype(np.int8)
+        want = torch.clamp(t_round(t), -127.0, 127.0).to(torch.int8)
+        np.testing.assert_array_equal(got, want.numpy())
