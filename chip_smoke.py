@@ -36,6 +36,14 @@ Phases, each printing JSON lines:
      codec kernels' ``ms`` is their device time (torch.profiler),
      ``call_ms`` whole calls (CUDA events), and the encode's SASS counts
      its conversion, MUFU and call instructions;
+     ring_rs with its checksum pair (the integrity launch) at 4 MiB a rank
+     and at the MLP width, with SGD and without an optimizer: the pair
+     bit-equal to the plain version's, g and w to the launch without it,
+     device time with and without, in turns; row_checksums
+     (csrc/checksum.cu) against its plain version on u8, bf16 and f32
+     rows of odd lengths, on the serving pool (64 x [2049, 8, 16, 128]
+     bf16, with a flipped-bit control) and on the MLP replicas, device
+     time beside the bytes bound;
   3. a small reference: a 3-layer MLP, 4 ranks, 3 steps on the card against
      the same steps on the CPU (plain versions);
   4. the training path: ``DPTrainer`` on the canonical MLP (10 x 2048x2048,
@@ -49,6 +57,15 @@ Phases, each printing JSON lines:
      bit-equal;
   5. two more training steps under torch.profiler: device time by group
      (the port's kernels, GEMMs, the rest) and the device's idle share;
+     then ``integrity_path``: the same trainer with
+     ``integrity_check=True``, 1 warm-up and 5 timed steps (both verdicts
+     true every step; one ring_rs_update with its pair, one ring_ag and
+     one row_checksums launch a step), masters and replicas bit-equal to
+     an integrity-off trainer's on the same batch, ms/step of both; the
+     codec route with a ``wirebit`` fault on the wire (WireIntegrityError,
+     the update gated, finite outputs) and a ``scale`` fault at the
+     collective tap (IntegrityError), each after a clean step; the int8
+     path (dp=2) with integrity, bit-equal to off;
   6. the int8 codec path: ``DPTrainer`` on the canonical MLP at dp=2 (each
      rank's chunk of 20,981,760 elements is whole (16, 128) tiles; at dp=8
      it is not) with ``codec="int8"`` on the sublane kernels and fused SGD
@@ -60,8 +77,9 @@ Phases, each printing JSON lines:
   7. the serving path: ``ServeEngine`` on Llama-3-8B (all 32 layers, bf16,
      random weights from a seed) answers 24 requests (prompts of 128-1024
      tokens, 32 new tokens each) over a 2049-page pool with 16 slots,
-     page checksums on; launch counts and zero faults checked, then a
-     profile of one decode and one prefill step;
+     page checksums on (row_checksums, two launches a step); launch counts
+     and zero faults checked, then a profile of one decode and one
+     prefill step and of one page-checksum pass;
   8. serving parity: one decode step's and one prefill chunk's operands,
      snapshotted during the run, through ``forward_paged`` with the kernel
      and with the gathered-view reference (logit error within a stated
@@ -129,24 +147,49 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def device_ms(fn, reps: int, names) -> float:
     """Device time per call of the kernels whose names hold one of
-    ``names``, from torch.profiler over ``reps`` calls after a warm-up:
-    the kernel's own time where a call's host work (checks, allocation,
-    the launch) takes longer than the kernel, so events around the calls
-    would time the host."""
+    ``names``, from torch.profiler over windows of ``reps`` calls after a
+    warm-up: the kernel's own time where a call's host work (checks,
+    allocation, the launch) takes longer than the kernel, so events around
+    the calls would time the host.  Each call launches one such kernel.  A
+    trace may miss some of them (on an H100 one held 9 of 10, another 9 of
+    20), so the time is the mean over the kernels the traces hold, pooled
+    over up to three windows until they hold half as many as one window
+    launched.  Where the traces hold fewer than three in all, the time is
+    the calls' own, from CUDA events (host gaps included), and a note says
+    so on standard error."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ev.device_time_total for ev in prof.events()
-                if ev.device_type == DeviceType.CUDA
-                and any(n in ev.name for n in names))
-    return total / 1e3 / reps
+    evs = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        window = [ev.device_time_total for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA
+                  and any(n in ev.name for n in names)]
+        if len(window) > reps:
+            raise AssertionError(f"device_ms: more than one kernel of "
+                                 f"{names} a call")
+        evs += window
+        if 2 * len(evs) >= reps:
+            return sum(evs) / 1e3 / len(evs)
+    if len(evs) >= 3:
+        return sum(evs) / 1e3 / len(evs)
+    print(f"device_ms: the traces held {len(evs)} kernel events of {names} "
+          f"in {3 * reps} calls; timing the calls with CUDA events",
+          file=sys.stderr)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound(bytes_moved: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -437,6 +480,353 @@ def codec_route(dev, tr, state, g, new, kernels) -> dict:
     ms = cuda_ms(run, 3)
     emit(phase="codec_route", collective=str(coll), n=n, L=L, ms=ms,
          launches=launches, masters_bitequal=True, replicas_bitequal=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- integrity: the ring's checksum pair and the row checksum kernel ----------
+
+POOL_SHAPE = (2049, 8, 16, 128)   # the serving pool's blocks: pages x kv x
+POOL_ARRAYS = 64                  # page x head_dim, 32 layers of K and V
+
+
+def ring_integrity_checks(dev, cfg, sgd, n, L_full) -> dict:
+    """ring_rs with its checksum pair at the small payload (4 MiB a rank)
+    and at the MLP width, with SGD and without an optimizer: the pair
+    bit-equal to the plain version's, g and w bit-equal to the launch
+    without the pair, a repeat launch bit-equal, the pair conserving; the
+    kernel's device time and the call's event time with the pair beside
+    without it, in turns (off, on, on, off)."""
+    import torch
+    from fpga_ai_nic_tpu_torch import optim
+    from fpga_ai_nic_tpu_torch.ops import integrity, ring_cuda
+    hyper = optim.fused_hyperparams(sgd, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {}
+    for label, L in (("small", n * 2048 * 64), ("full", L_full)):
+        C = L // n
+        se = ring_cuda.pick_slice_elems(C, ring_cuda.DEFAULT_SLICE,
+                                        cfg.block_size)
+        x = torch.randn((n, L), generator=gen, device=dev)
+        x[:, ::97] = 0
+        x[:, 5::131] *= 1e-39
+        w = torch.randn((n, C), generator=gen, device=dev) * 0.02
+        for kind in ("sgd", None):
+            def run(integ, kind=kind):
+                if kind is None:
+                    out = ring_cuda.ring_reduce_scatter_fused(
+                        x, compression=cfg, slice_elems=se, integrity=integ)
+                    return ((out[0], None, out[1]) if integ
+                            else (out, None))
+                out = ring_cuda.ring_reduce_scatter_update_fused(
+                    x, w, {}, hyper, opt_kind="sgd", compression=cfg,
+                    slice_elems=se, integrity=integ)
+                return (out[0], out[1], out[3]) if integ else out[:2]
+
+            before = ring_cuda.RING_RS.launches
+            off, on, again = run(False), run(True), run(True)
+            if ring_cuda.RING_RS.launches != before + 3:
+                raise AssertionError("ring_rs with the pair: not one launch "
+                                     "a call")
+            t0 = time.perf_counter()
+            plain = ring_cuda.ring_reduce_scatter_update_plain(
+                x, w if kind else None, {}, hyper if kind else None,
+                opt_kind=kind, compression=cfg, slice_elems=se,
+                integrity=True)
+            sync(dev)
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            name = f"ring_rs({kind or 'no optimizer'}) pair"
+            require_equal(name, [(on[2], plain[3]), (again[2], on[2]),
+                                 (on[0], off[0]), (on[0], plain[0]),
+                                 (again[0], on[0])])
+            if kind:
+                require_equal(name + " masters", [(on[1], off[1]),
+                                                  (on[1], plain[1])])
+            if not bool(integrity.conservation_ok(on[2][:, 0], on[2][:, 1])):
+                raise AssertionError(f"{name}: the pair does not conserve")
+            del plain, off, again
+            dev_off = device_ms(lambda: run(False), 10, ("ring_rs_kernel",))
+            dev_on = device_ms(lambda: run(True), 10, ("ring_rs_kernel",))
+            dev_on2 = device_ms(lambda: run(True), 10, ("ring_rs_kernel",))
+            dev_off2 = device_ms(lambda: run(False), 10, ("ring_rs_kernel",))
+            call_off = cuda_ms(lambda: run(False), 10)
+            call_on = cuda_ms(lambda: run(True), 10)
+            r = {"frame_elems": se, "frames_a_chunk": C // se,
+                 "device_ms_off": [dev_off, dev_off2],
+                 "device_ms_on": [dev_on, dev_on2], "call_ms_off": call_off,
+                 "call_ms_on": call_on, "plain_ms": plain_ms,
+                 "on_over_off": (dev_on + dev_on2) / (dev_off + dev_off2)}
+            emit(phase="kernel_check", kernel=name, payload=label, n=n, L=L,
+                 pair_bitexact=True, bits_unchanged=True,
+                 repeat_bitequal=True, conserves=True, **r)
+            rows[(label, kind)] = r
+            del on
+        del x, w
+        torch.cuda.empty_cache()
+    return rows
+
+
+def checksum_checks(dev, n, L_full) -> dict:
+    """row_checksums against its plain version: u8, bf16 and f32 rows of
+    odd lengths (the word-by-word path) and whole 16-byte runs, several
+    arrays in one launch; the serving pool (64 x [2049, 8, 16, 128] bf16,
+    4.30 GB) against page_checksums_plain with a flipped-bit control; the
+    MLP replicas ([8, 41,975,808] f32) and their agreement; device time
+    beside the bytes bound."""
+    import torch
+    from fpga_ai_nic_tpu_torch.ops import integrity
+    k = integrity.ROW_CHECKSUMS
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for dtype in (torch.uint8, torch.bfloat16, torch.float32):
+        size = torch.empty((), dtype=dtype).element_size()
+        for rows, cols in ((1, 7), (3, 6151), (5, 4096), (2049, 24)):
+            x = torch.randint(0, 256, (rows, cols * size), dtype=torch.uint8,
+                              generator=gen, device=dev).view(dtype)
+            blocks = [x, x[:, :max(1, cols // 3)].contiguous()]
+            before = k.launches
+            got = [integrity.row_checksums(x), integrity.row_checksums(blocks)]
+            if k.launches != before + 2:
+                raise AssertionError("row_checksums: not one launch a call")
+            require_equal(f"row_checksums {dtype} {rows}x{cols}", [
+                (got[0], integrity.row_checksums_plain([x], [1])),
+                (got[1], integrity.row_checksums_plain(blocks))])
+    pool = [{key: torch.randint(-2 ** 15, 2 ** 15, POOL_SHAPE,
+                                dtype=torch.int16, generator=gen,
+                                device=dev).view(torch.bfloat16)
+             for key in ("k", "v")} for _ in range(POOL_ARRAYS // 2)]
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for lyr in pool for t in lyr.values())
+    before = k.launches
+    got = integrity.page_checksums(pool)
+    if k.launches != before + 1:
+        raise AssertionError("page_checksums: not one launch a pass")
+    want = integrity.page_checksums_plain(pool)
+    require_equal("row_checksums at the serving pool", [(got, want)])
+    require_equal("row_checksums repeat", [(integrity.page_checksums(pool),
+                                            got)])
+    page = POOL_SHAPE[0] * 3 // 5
+    flip = pool[17]["v"].view(torch.int16)
+    flip[page, 1, 3, 7] ^= 1
+    moved = integrity.page_checksums(pool) != got
+    flip[page, 1, 3, 7] ^= 1
+    if not bool(moved[page]) or int(moved.sum()) != 1:
+        raise AssertionError("row_checksums: the flipped-bit control did "
+                             "not change its page alone")
+    pool_dev = device_ms(lambda: integrity.page_checksums(pool), 10,
+                         ("row_checksums_kernel",))
+    pool_call = cuda_ms(lambda: integrity.page_checksums(pool), 10, 2)
+    pool_plain = cuda_ms(lambda: integrity.page_checksums_plain(pool), 2)
+    words = pool_bytes // 2
+    pool_bound = bound(pool_bytes, 3 * words)
+    del pool, got, want, moved, flip
+    torch.cuda.empty_cache()
+    reps = torch.randn((1, L_full), generator=gen, device=dev).expand(
+        n, L_full).contiguous()
+    got = integrity.row_checksums(reps)
+    require_equal("row_checksums at the MLP replicas",
+                  [(got, integrity.row_checksums_plain([reps], [1]))])
+    if not bool(integrity.replica_consistent(reps)):
+        raise AssertionError("replica_consistent: equal replicas disagree")
+    reps[5, 777] = torch.nextafter(reps[5, 777], reps[5, 777] + 1)
+    if bool(integrity.replica_consistent(reps)):
+        raise AssertionError("replica_consistent missed a changed replica")
+    rep_dev = device_ms(lambda: integrity.row_checksums(reps), 10,
+                        ("row_checksums_kernel",))
+    rep_call = cuda_ms(lambda: integrity.replica_consistent(reps), 10, 2)
+    rep_plain = cuda_ms(lambda: integrity.row_checksums_plain([reps], [1]),
+                        2)
+    rep_bytes = reps.numel() * 4
+    rep_bound = bound(rep_bytes, 3 * reps.numel())
+    del reps, got
+    torch.cuda.empty_cache()
+    row = {"max_abs_err": 0.0, "ms": pool_dev, "plain_ms": pool_plain,
+           "bound": pool_bound, "library_ms": None,
+           "extra": {"shape": (f"serving pool, {POOL_ARRAYS} x "
+                               f"{list(POOL_SHAPE)} bf16, {pool_bytes} B"),
+                     "call_ms": pool_call,
+                     "replicas_shape": f"[{n}, {L_full}] f32",
+                     "replicas_ms": rep_dev, "replicas_call_ms": rep_call,
+                     "replicas_plain_ms": rep_plain,
+                     "replicas_bound_ms": rep_bound[0]}}
+    emit(phase="kernel_check", kernel="row_checksums", bitexact=True,
+         flipped_bit_control=True, pool_bytes=pool_bytes,
+         pool_device_ms=pool_dev, pool_call_ms=pool_call,
+         pool_plain_ms=pool_plain, pool_bound_ms=pool_bound[0],
+         pool_gb_per_s=pool_bytes / pool_dev / 1e6, replicas_bytes=rep_bytes,
+         replicas_device_ms=rep_dev, replicas_call_ms=rep_call,
+         replicas_plain_ms=rep_plain, replicas_bound_ms=rep_bound[0],
+         replicas_gb_per_s=rep_bytes / rep_dev / 1e6)
+    return row
+
+
+def integrity_path(dev, kernels, mcfg, cfg_main, bx, by) -> dict:
+    """``DPTrainer`` on the main path's configuration with
+    ``integrity_check=True``: 1 warm-up and 5 timed steps (counts zeroed
+    just before, read just after; both verdicts true every step), then an
+    integrity-off trainer from the same weights on the same batch, whose
+    masters and replicas must be bit-equal.  Then the codec route
+    (``fused_kernel=False``) with a ``wirebit`` fault on the wire
+    (WireIntegrityError, the step gated, finite outputs) and a ``scale``
+    fault at the collective tap (IntegrityError), each after a clean step;
+    then the int8 path (dp=2) with integrity on clean steps against off."""
+    import dataclasses
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    from fpga_ai_nic_tpu_torch.utils.config import (CollectiveConfig,
+                                                    MeshConfig)
+    steps = 5
+
+    def trainer(cfg):
+        n = cfg.mesh.dp
+        tr = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg),
+                       VirtualRanks(n, dev), cfg)
+        st = tr.init_state(mlp.init(torch.Generator().manual_seed(0), mcfg,
+                                    dev))
+        return tr, st, tr.shard_batch((bx, by))
+
+    def timed(tr, st, batch):
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(steps + 1)]
+        outs = []
+        st, out = tr.step(st, batch)                  # warm-up
+        outs.append(out)
+        marks[0].record()
+        for mark in marks[1:]:
+            st, out = tr.step(st, batch)
+            outs.append(out)
+            mark.record()
+        sync(dev)
+        return st, outs, [a.elapsed_time(b) for a, b in zip(marks,
+                                                            marks[1:])]
+
+    coll_on = dataclasses.replace(cfg_main.collective, integrity_check=True)
+    tr, st, batch = trainer(dataclasses.replace(cfg_main,
+                                                collective=coll_on))
+    for k in kernels.values():
+        k.launches = 0
+    st, diags, on_ms = timed(tr, st, batch)
+    launches = {name: k.launches for name, k in kernels.items()}
+    per_step = dict.fromkeys(kernels, 0)
+    per_step.update(ring_rs_update=1, ring_ag=1, row_checksums=1)
+    for name, count in launches.items():
+        if count != (steps + 1) * per_step[name]:
+            raise AssertionError(f"integrity path: {name} launched {count} "
+                                 f"times, expected {steps + 1} x "
+                                 f"{per_step[name]}")
+    for i, d in enumerate(diags):
+        chaos.check_step_diag(d, i)
+        if not (bool(d["wire_ok"]) and bool(d["integrity_ok"])):
+            raise AssertionError(f"integrity path: step {i} verdicts {d}")
+    off_tr, off_st, off_batch = trainer(cfg_main)
+    off_st, losses, off_ms = timed(off_tr, off_st, off_batch)
+    require_equal("integrity on against off, masters",
+                  [(st.w_own, off_st.w_own)])
+    require_equal("integrity on against off, replicas",
+                  [(st.replicas, off_st.replicas)])
+    if [float(d["loss"]) for d in diags] != [float(v) for v in losses]:
+        raise AssertionError("integrity path: losses differ from off")
+    med = sorted(on_ms)[steps // 2], sorted(off_ms)[steps // 2]
+    emit(phase="integrity_path", model="MLP 10x2048x2048 f32",
+         dp=cfg_main.mesh.dp, global_batch=cfg_main.global_batch,
+         collective=str(coll_on), steps=steps, step_ms_on=on_ms,
+         step_ms_off=off_ms, median_step_ms_on=med[0],
+         median_step_ms_off=med[1], launches=launches,
+         launches_per_step={k: v for k, v in per_step.items() if v},
+         verdicts_true_every_step=True, masters_bitequal_to_off=True,
+         replicas_bitequal_to_off=True,
+         grad_norm_last=float(diags[-1]["grad_norm"]),
+         integrity_err_max=max(float(d["integrity_err"]) for d in diags))
+    del tr, st, batch, off_tr, off_st, off_batch, diags
+    torch.cuda.empty_cache()
+
+    # the codec route: a wirebit on the wire, a scale fault at the tap.  On
+    # the main path's layout, as codec_route takes it: a trainer built with
+    # fused_kernel=False pads to whole BFP blocks only, which the sublane
+    # codec's rings refuse, so the trainer is built for the fused route and
+    # then switched to the codec route
+    coll_codec = dataclasses.replace(coll_on, fused_kernel=False)
+    tr, st, batch = trainer(dataclasses.replace(cfg_main,
+                                                collective=coll_on))
+    tr.cfg = dataclasses.replace(tr.cfg, collective=coll_codec)
+    faults = {}
+    for mode, install, uninstall, err in (
+            ("wirebit", chaos.install_wire_tap, chaos.uninstall_wire_tap,
+             chaos.WireIntegrityError),
+            ("scale", chaos.install_collective_tap,
+             chaos.uninstall_collective_tap, chaos.IntegrityError)):
+        plan = chaos.FaultPlan([chaos.FaultSpec(
+            "corruption", "collective", step=1, mode=mode)], seed=3)
+        install()
+        try:
+            with chaos.activate(plan):
+                plan.begin_step(0)
+                st, d = tr.step(st, batch)              # a clean step
+                chaos.check_step_diag(d, 0)
+                plan.begin_step(1)
+                for k in kernels.values():
+                    k.launches = 0
+                new, d = tr.step(st, batch)
+                sync(dev)
+                step_launches = {name: k.launches
+                                 for name, k in kernels.items()}
+        finally:
+            uninstall()
+        if len(plan.fired) != 1:
+            raise AssertionError(f"codec route: the {mode} fault fired "
+                                 f"{len(plan.fired)} times")
+        try:
+            chaos.check_step_diag(d, 1)
+            raised = None
+        except chaos.IntegrityError as e:
+            raised = type(e)
+        if raised is not err:
+            raise AssertionError(f"codec route {mode}: raised {raised}, "
+                                 f"expected {err.__name__}")
+        require_equal(f"codec route {mode}: gated masters and state",
+                      [(new.w_own, st.w_own)]
+                      + [(new.opt_state[k], st.opt_state[k])
+                         for k in st.opt_state])
+        if (new.codec_state is None) != (st.codec_state is None) or (
+                st.codec_state is not None
+                and not torch.equal(new.codec_state, st.codec_state)):
+            raise AssertionError(f"codec route {mode}: codec state moved")
+        if not bool(torch.isfinite(new.replicas).all()):
+            raise AssertionError(f"codec route {mode}: non-finite output")
+        faults[mode] = {"raised": err.__name__,
+                        "wire_ok": bool(d["wire_ok"]),
+                        "integrity_ok": bool(d["integrity_ok"]),
+                        "integrity_err": float(d["integrity_err"]),
+                        "launches": step_launches}
+    emit(phase="integrity_faults", collective=str(coll_codec),
+         masters_gated=True, outputs_finite=True, clean_steps_passed=True,
+         **faults)
+    del tr, st, new, batch
+    torch.cuda.empty_cache()
+
+    # the int8 path with integrity, clean steps, against off
+    int8 = {}
+    for integ in (True, False):
+        cfg = dataclasses.replace(
+            cfg_main, mesh=MeshConfig(dp=INT8_DP),
+            collective=CollectiveConfig(impl="ring", codec="int8",
+                                        codec_opts=INT8_OPTS,
+                                        fused_optimizer=True,
+                                        integrity_check=integ))
+        tr, st, batch = trainer(cfg)
+        for i in range(2):
+            st, d = tr.step(st, batch)
+            if integ:
+                chaos.check_step_diag(d, i)
+        int8[integ] = st
+    require_equal("int8 path integrity on against off",
+                  [(int8[True].w_own, int8[False].w_own),
+                   (int8[True].replicas, int8[False].replicas)])
+    emit(phase="integrity_int8", dp=INT8_DP, steps=2, verdicts_true=True,
+         masters_bitequal_to_off=True)
+    del int8, tr, st, batch
     torch.cuda.empty_cache()
     return launches
 
@@ -1291,8 +1681,12 @@ def serving_profile(dev, cfg, scfg, run) -> dict:
     timed alone, and the page-checksum pass timed alone."""
     from fpga_ai_nic_tpu_torch.ops import integrity
     params, snaps = run["params"], run["snaps"]
+    pool = snaps["decode"]["pool"]
     out = {"page_checksums_ms": cuda_ms(
-        lambda: integrity.page_checksums(snaps["decode"]["pool"]), 3)}
+        lambda: integrity.page_checksums(pool), 3),
+        "page_checksums_device_ms": device_ms(
+            lambda: integrity.page_checksums(pool), 10,
+            ("row_checksums_kernel",))}
     for kind in ("decode", "prefill"):
         snap = snaps[kind]
         step = (lambda snap=snap: _step(params, cfg, scfg, snap,
@@ -1307,6 +1701,7 @@ def serving_profile(dev, cfg, scfg, run) -> dict:
     ticks = run["ticks"]
     emit(phase="serving_breakdown",
          page_checksums_ms=out["page_checksums_ms"],
+         page_checksums_device_ms=out["page_checksums_device_ms"],
          decode_step_ms=out["decode_step_ms"],
          prefill_step_ms=out["prefill_step_ms"],
          decode_tick_device_model_ms=(out["decode_step_ms"]
@@ -1471,7 +1866,8 @@ def llama_train_path(dev, kernels) -> dict:
     per_step = {"flash_fwd": mcfg.n_layers * n, "flash_dq": mcfg.n_layers * n,
                 "flash_dkv": mcfg.n_layers * n, "ring_rs_update": 1,
                 "ring_ag": 1, "bfp_encode": 0, "bfp_decode": 0,
-                "paged_attend": 0, "int8_encode": 0, "int8_decode": 0}
+                "paged_attend": 0, "int8_encode": 0, "int8_decode": 0,
+                "row_checksums": 0}
     for name, count in launches.items():
         if count != steps * per_step[name]:
             raise AssertionError(f"llama training: {name} launched {count} "
@@ -1769,7 +2165,8 @@ def main() -> int:
         from fpga_ai_nic_tpu_torch.models.llama import LlamaConfig
         from fpga_ai_nic_tpu_torch.ops import (_build, bfp_cuda,
                                                flash_attention, int8_cuda,
-                                               paged_attend, ring_cuda)
+                                               integrity, paged_attend,
+                                               ring_cuda)
         from fpga_ai_nic_tpu_torch.serve import ServeConfig
         from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
         from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
@@ -1847,6 +2244,8 @@ def main() -> int:
         del x, m, s, pm, ps, d, pd
 
     results.update(ring_checks(dev, cfg, sgd, n, L_full))
+    ring_pair = ring_integrity_checks(dev, cfg, sgd, n, L_full)
+    results["row_checksums"] = checksum_checks(dev, n, L_full)
     results.update(int8_checks(dev))
     paged = paged_checks(dev)
     flash = flash_checks(dev)
@@ -1903,9 +2302,11 @@ def main() -> int:
     batch = tr.shard_batch((bx, by))
     kernels = {"bfp_encode": bfp_cuda.ENCODE, "bfp_decode": bfp_cuda.DECODE,
                "ring_rs_update": ring_cuda.RING_RS, "ring_ag": ring_cuda.RING_AG,
-               "int8_encode": int8_cuda.ENCODE, "int8_decode": int8_cuda.DECODE}
+               "int8_encode": int8_cuda.ENCODE, "int8_decode": int8_cuda.DECODE,
+               "row_checksums": integrity.ROW_CHECKSUMS}
     per_step = {"bfp_encode": 0, "bfp_decode": 0, "ring_rs_update": 1,
-                "ring_ag": 1, "int8_encode": 0, "int8_decode": 0}
+                "ring_ag": 1, "int8_encode": 0, "int8_decode": 0,
+                "row_checksums": 0}
     for k in kernels.values():
         k.launches = 0
     state, loss = tr.step(state, batch)           # warm-up
@@ -1965,6 +2366,9 @@ def main() -> int:
     del tr, held, batch, ranks
     torch.cuda.empty_cache()
 
+    # -- 4b. the main path with integrity checks, and its fault controls ----------
+    integ_launches = integrity_path(dev, kernels, mcfg, cfg_main, bx, by)
+
     # -- 6. the int8 codec path and the convergence eval ---------------------------
     int8_launches = int8_train_path(dev, kernels, sgd, bx, by)
     del bx, by
@@ -1980,9 +2384,14 @@ def main() -> int:
     srv = ServeConfig(**SERVE_SHAPE)
     run = serving_path(dev, lcfg, srv, serve_kernels)
     if any(k != 0 for name, k in run["launches"].items()
-           if name != "paged_attend"):
+           if name not in ("paged_attend", "row_checksums")):
         raise AssertionError(f"serving launched training kernels "
                              f"{run['launches']}")
+    calls = run["summary"]["prefill_calls"] + run["summary"]["decode_calls"]
+    if run["launches"]["row_checksums"] != 2 * calls:
+        raise AssertionError(   # verify the input pool, record the output's
+            f"serving: {run['launches']['row_checksums']} page-checksum "
+            f"launches, expected 2 x {calls} steps")
     serving_profile(dev, lcfg, srv, run)
     serving_parity(dev, lcfg, srv, run)
     del run["params"], run["snaps"], run["reqs"]
@@ -2021,6 +2430,8 @@ def main() -> int:
                         REF + "/compress/int8.py:129"),
         "int8_decode": (PORT + "/csrc/int8_codec.cu",
                         REF + "/compress/int8.py:148"),
+        "row_checksums": (PORT + "/csrc/checksum.cu",
+                          REF + "/ops/integrity.py:163"),
     }
     launches["paged_attend"] = run["launches"]["paged_attend"]
     for name in flash_kernels:
@@ -2030,6 +2441,20 @@ def main() -> int:
         launches[name] = int8_launches[name]
     for name in ("bfp_encode", "bfp_decode"):
         launches[name] = codec_launches[name]
+    launches["row_checksums"] = integ_launches["row_checksums"]
+    pair = ring_pair[("full", "sgd")]
+    results["ring_rs_update"]["extra"].update(
+        integrity_launches=integ_launches["ring_rs_update"],
+        integrity_launches_from="integrity_path",
+        integrity_device_ms=pair["device_ms_on"],
+        integrity_off_device_ms=pair["device_ms_off"],
+        integrity_call_ms=pair["call_ms_on"],
+        integrity_on_over_off=pair["on_over_off"],
+        integrity_plain_ms=pair["plain_ms"],
+        integrity_small_device_ms=ring_pair[("small", "sgd")][
+            "device_ms_on"],
+        integrity_no_optimizer_device_ms=ring_pair[("full", None)][
+            "device_ms_on"])
     for name, r in auto["rows"].items():
         launches[name] = auto["launches"][name]
         results[name] = r
@@ -2076,6 +2501,12 @@ def main() -> int:
                        launches_from="int8_train_path")
         if name in ("bfp_encode", "bfp_decode"):
             row.update(launches_from="codec_route")
+        if name == "row_checksums":
+            row.update(launches_from="integrity_path",
+                       serving_launches=run["launches"]["row_checksums"],
+                       replaces_kind=("an XLA-fused jnp function "
+                                      "(gathered_page_checksums), no "
+                                      "pallas_call"))
         if name in auto["rows"]:
             row.update(shape="tiny f32 Llama, head_dim 16, S=128",
                        launches_from="auto_route", call_ms=r["call_ms"])

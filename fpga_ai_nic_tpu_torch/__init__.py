@@ -19,9 +19,10 @@ module names so each counterpart is easy to find:
   models/llama.py       Llama config, init, norms, rope (serving subset)
   models/llama_decode.py  forward / forward_paged / generate
   ops/paged_attend.py   paged gather-attend: CUDA kernel + plain version
-  ops/integrity.py      exact per-page KV-pool checksums
+  ops/integrity.py      exact checksums: KV pages, wire payloads, verdicts
   serve/                paged pool, scheduling rules, batcher, ServeEngine
-  runtime/ obs/         request intake, error classes, telemetry
+  runtime/chaos.py      the collective integrity guard and fault plans
+  runtime/ obs/         request intake, telemetry
   utils/observability.py  Profiler and recovery stats
   serve_llama.py        the serving driver (``python -m ...serve_llama``)
 

@@ -224,3 +224,67 @@ def ring_all_gather(owned: np.ndarray,
 def ring_all_reduce(shards: np.ndarray,
                     roundtrip: Optional[RoundtripFn] = None) -> np.ndarray:
     return ring_all_gather(ring_reduce_scatter(shards, roundtrip), roundtrip)
+
+
+# ---------------------------------------------------------------------------
+# exact wire checksums (spec for ops.integrity)
+# ---------------------------------------------------------------------------
+
+_U32 = np.uint64(0xFFFFFFFF)
+
+
+def golden_words_u32(x: np.ndarray) -> np.ndarray:
+    """An array as the flat uint32 word vector the checksum is defined
+    over: 4-byte dtypes reinterpreted word for word (little-endian),
+    1- and 2-byte dtypes zero-extended (bf16 arrives here as its uint16
+    bit patterns).  8-byte dtypes are rejected."""
+    x = np.ascontiguousarray(x).reshape(-1)
+    size = x.dtype.itemsize
+    if size == 4:
+        return x.view(np.uint32)
+    if size == 2:
+        return x.view(np.uint16).astype(np.uint32)
+    if size == 1:
+        return x.view(np.uint8).astype(np.uint32)
+    raise TypeError(f"no wire payload may have itemsize {size}")
+
+
+def _weighted_sum(w: np.ndarray) -> np.ndarray:
+    """sum_i (2i + 1) * w[..., i] (mod 2^32) over the last axis, each
+    product reduced mod 2^32 before the uint64 sum."""
+    w = w.astype(np.uint64)
+    weights = (((np.arange(w.shape[-1], dtype=np.uint64) << np.uint64(1))
+                | np.uint64(1)) & _U32)
+    return np.sum((w * weights) & _U32, axis=-1, dtype=np.uint64) & _U32
+
+
+def golden_word_checksum(x: np.ndarray) -> np.uint32:
+    """The odd-weighted wraparound word sum sum_i (2i+1) * word_i
+    (mod 2^32) of one array."""
+    return np.uint32(_weighted_sum(golden_words_u32(x)))
+
+
+def golden_payload_checksum(payload) -> np.uint32:
+    """Per-element odd multipliers over a hop's payload tuple."""
+    acc = 0
+    for k, p in enumerate(payload):
+        acc += (2 * k + 1) * int(golden_word_checksum(np.asarray(p)))
+    return np.uint32(acc & 0xFFFFFFFF)
+
+
+def golden_page_checksums(pool) -> np.ndarray:
+    """[n_pages] uint32: one checksum per KV-pool page over every layer's
+    K and V bytes, word weights restarting per page per array, odd
+    per-array multipliers in layer-major K-then-V order."""
+    acc = None
+    j = 0
+    for layer in pool:
+        for key in ("k", "v"):
+            arr = np.ascontiguousarray(np.asarray(layer[key]))
+            n_pages = arr.shape[0]
+            per_page = _weighted_sum(
+                golden_words_u32(arr).reshape(n_pages, -1))
+            term = (np.uint64(2 * j + 1) * per_page) & _U32
+            acc = term if acc is None else (acc + term) & _U32
+            j += 1
+    return acc.astype(np.uint32)

@@ -50,6 +50,21 @@
 // float4 and a warp covers the 32 quads of one tile row (512 contiguous
 // bytes); the next rank's loads do not depend on the roundtrip, so they
 // issue ahead of it.
+//
+// The integrity variant (ring_pallas.py integrity=True: _frame_checksum,
+// _emission_weight) adds the checksum pair.  Slice k of a chunk is a frame
+// of R = slice/128 rows: its mantissa bytes row-major, then its scale bytes
+// (R/B rows x 128), each byte zero-extended; chk(F) = sum_pos (2 pos + 1) *
+// byte_pos (mod 2^32).  Rank r's k-th slice at hop h is emission q =
+// h * S + k (S slices a chunk), and
+//   send[r] += (2q + 1) * chk(F),   recv[r + 1] += (2q + 1) * chk(F')
+// with F' the bytes rank r+1's decode reads.  Unlike the TPU kernel, the
+// frame's tile-padding rows are not summed.  In loopback F' is F in the
+// same registers, so on one card the pair checks the encode/decode bytes,
+// not a link.  The sums are uint32 and wrap, so the order of the atomics
+// does not change them: the pair is the same on every run.
+#include <cstring>
+
 #include "bfp.cuh"
 
 using namespace bfp;
@@ -88,24 +103,73 @@ struct RsArgs {
   const float* v_in;              // [n, C]   second moment
   float* v_out;
   const float* hyper;             // f32[8]
+  unsigned* pair;                 // [n, 2] (send, recv) checksums, or null
   int n;
   long long C;
+  long long tiles_per_slice;      // frame size of the checksum pair
   int mant_bits;
   int rtz;
   int opt_kind;
 };
 
+__device__ __forceinline__ unsigned as_u32(char4 c) {
+  unsigned u;
+  memcpy(&u, &c, 4);
+  return u;
+}
+
+// sum_t (2(p+t)+1) * byte_t (mod 2^32) over the 4 bytes of a char4 (lane
+// order x, y, z, w), each byte zero-extended: (2p+1) * sum + 2 * sum t*b.
+__device__ __forceinline__ unsigned weighted4(char4 c, unsigned p) {
+  const unsigned u = as_u32(c);
+  return (2u * p + 1u) * __dp4a(u, 0x01010101u, 0u) +
+         2u * __dp4a(u, 0x03020100u, 0u);
+}
+
+// This quad's part of its frame's checksum.  The frame of a slice is its
+// mantissa bytes (R = slice/128 rows x 128 lanes, row-major) then its scale
+// bytes (R/B rows x 128); the quad holds lanes 4*ql .. 4*ql+3 of rows
+// tl*B .. tl*B+B-1 and of scale row tl.
 template <int B>
-__global__ void __launch_bounds__(THREADS) ring_rs_kernel(RsArgs a) {
+__device__ __forceinline__ unsigned frame_part(const char4 (&m)[B], char4 s,
+                                               unsigned tl, unsigned ql,
+                                               unsigned slice_elems) {
+  unsigned part = weighted4(s, slice_elems + tl * LANES + 4u * ql);
+#pragma unroll
+  for (int k = 0; k < B; ++k)
+    part += weighted4(m[k], (tl * B + k) * LANES + 4u * ql);
+  return part;
+}
+
+__device__ __forceinline__ unsigned warp_sum(unsigned v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One thread's chain: the quad at offset `off` of chunk c through every
+// rank, then the owner's writes.  With CHK, each hop's frame checksum is
+// summed over the warp (one tile row of one chunk: the same slice, sender
+// and receiver) and added to the block's per-rank partials `spair`.
+template <int B, bool CHK>
+__device__ __forceinline__ void rs_chain(const RsArgs& a, long long gid,
+                                         unsigned* spair) {
   const long long per_chunk = a.C / (4LL * B);
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= per_chunk * a.n) return;
   const int c = (int)(gid / per_chunk);                      // the chunk
   const long long rem = gid % per_chunk;
-  const long long off = (rem / QUADS) * (long long)(B * LANES) +
+  const long long tile = rem / QUADS;                        // in the chunk
+  const long long off = tile * (long long)(B * LANES) +
                         4 * (rem % QUADS);                   // in the chunk
   const long long row = (long long)a.n * a.C;                // one rank's x
   const float* xc = a.x + (long long)c * a.C + off;
+  // the checksum pair: slice ks of the chunk, tile tl of that slice
+  unsigned ks = 0u, tl = 0u, slice_elems = 0u, n_slices = 0u;
+  if constexpr (CHK) {
+    ks = (unsigned)(tile / a.tiles_per_slice);
+    tl = (unsigned)(tile % a.tiles_per_slice);
+    slice_elems = (unsigned)(a.tiles_per_slice * B * LANES);
+    n_slices = (unsigned)(a.C / slice_elems);
+  }
 
   float4 v[B];
   int r = (c + 1) % a.n;                  // hop 0: rank c+1 sends x as is
@@ -116,11 +180,26 @@ __global__ void __launch_bounds__(THREADS) ring_rs_kernel(RsArgs a) {
       v[k] = *reinterpret_cast<const float4*>(xs + k * LANES);
   }
   for (int j = 1; j < a.n; ++j) {         // rank r+1 receives r's frame
+    const int sender = r;
     r = (r + 1 == a.n) ? 0 : r + 1;
     const float* xs = xc + r * row;
     char4 m[B];
     char4 s;
     encode_quad<B>(v, a.mant_bits, a.rtz, m, s);
+    if constexpr (CHK) {
+      // the emission checksum of the bytes encode_quad made; the bytes
+      // decode4 reads below are these registers, so the arrival checksum
+      // is the same sum: in loopback the wire is the thread's registers
+      const unsigned part =
+          warp_sum(frame_part<B>(m, s, tl, (unsigned)(rem % QUADS),
+                                 slice_elems));
+      if ((threadIdx.x & 31) == 0) {
+        const unsigned q = (unsigned)(j - 1) * n_slices + ks;  // emission
+        const unsigned hw = 2u * q + 1u;                        // hop_weight
+        atomicAdd(spair + 2 * sender, hw * part);
+        atomicAdd(spair + 2 * r + 1, hw * part);
+      }
+    }
 #pragma unroll
     for (int k = 0; k < B; ++k)
       v[k] = add4(*reinterpret_cast<const float4*>(xs + k * LANES),
@@ -166,19 +245,57 @@ __global__ void __launch_bounds__(THREADS) ring_rs_kernel(RsArgs a) {
   }
 }
 
+// CHK = false is the kernel as it was before the checksum pair existed.
+// CHK = true adds each hop's frame checksums: warp sums into a per-block
+// [n, 2] table in shared memory, then one atomicAdd a nonzero entry into
+// a.pair.  Whole warps are live or dead together (a chunk is whole tiles,
+// 32 quads each), so the shuffles see all 32 lanes.  Two blocks an SM (at
+// most 128 registers a thread) for B <= 16: left free, the compiler gave
+// the B = 16 kernel 164 registers once rs_chain became a function, one
+// block an SM, and 0.80 ms in place of 0.67 at the MLP shape.
+template <int B, bool CHK>
+__global__ void __launch_bounds__(THREADS, B <= 16 ? 2 : 1)
+    ring_rs_kernel(RsArgs a) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long live = a.C / (4LL * B) * a.n;
+  if constexpr (!CHK) {
+    if (gid >= live) return;
+    rs_chain<B, false>(a, gid, nullptr);
+  } else {
+    extern __shared__ unsigned spair[];                  // [n, 2]
+    for (int i = threadIdx.x; i < 2 * a.n; i += blockDim.x) spair[i] = 0u;
+    __syncthreads();
+    if (gid < live) rs_chain<B, true>(a, gid, spair);
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * a.n; i += blockDim.x)
+      if (spair[i] != 0u) atomicAdd(a.pair + i, spair[i]);
+  }
+}
+
 // One launch = the whole reduce-scatter (and update) of every rank.
-// opt_kind == OPT_NONE leaves w .. v_out unread (they may be null).
+// opt_kind == OPT_NONE leaves w .. v_out unread (they may be null).  With
+// `pair` (zeroed [n, 2] uint32) the launch also accumulates the checksum
+// pair of every frame, sliced tiles_per_slice tiles to a frame.
 extern "C" int ring_rs_launch(const float* x, float* g_out, const float* w,
                               float* w_out, const float* m_in, float* m_out,
                               const float* v_in, float* v_out,
                               const float* hyper, int n, long long C,
                               int block_size, int mant_bits, int rtz,
-                              int opt_kind, cudaStream_t stream) {
-  const RsArgs a{x, g_out, w, w_out, m_in, m_out, v_in, v_out, hyper,
-                 n, C, mant_bits, rtz, opt_kind};
+                              int opt_kind, unsigned* pair,
+                              long long tiles_per_slice, cudaStream_t stream) {
+  const RsArgs a{x, g_out, w, w_out, m_in, m_out, v_in, v_out, hyper, pair,
+                 n, C, tiles_per_slice, mant_bits, rtz, opt_kind};
   const long long n_threads = (long long)n * (C / (4LL * block_size));
-#define RS(BS) \
-  ring_rs_kernel<BS><<<grid_for(n_threads), THREADS, 0, stream>>>(a)
+  if (pair != nullptr &&
+      (tiles_per_slice < 1 || C % (tiles_per_slice * block_size * LANES)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = pair != nullptr ? 2 * n * sizeof(unsigned) : 0;
+#define RS(BS)                                                              \
+  if (pair != nullptr)                                                      \
+    ring_rs_kernel<BS, true><<<grid_for(n_threads), THREADS, smem, stream>>>( \
+        a);                                                                 \
+  else                                                                      \
+    ring_rs_kernel<BS, false><<<grid_for(n_threads), THREADS, 0, stream>>>(a)
   BFP_DISPATCH_BLOCK(block_size, RS)
 #undef RS
   return (int)cudaGetLastError();

@@ -34,7 +34,7 @@ BUILD_DIR = PKG_DIR / "_build"
 HEADERS = ("bfp.cuh", "hopper_mma.cuh", "attn_fwd.cuh")
 SOURCES = ("bfp_codec.cu", "ring_rs.cu", "ring_ag.cu", "paged_attend.cu",
            "flash_attn.cu", "flash_bwd.cu", "flash_generic.cu",
-           "int8_codec.cu")
+           "int8_codec.cu", "checksum.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-ftz=false", "-prec-div=true", "-prec-sqrt=true")

@@ -19,6 +19,13 @@ n == 1) the same update formula (``optim.fused_apply_flat``) runs right
 after the reduce, and the ring takes the *configured* codec — with
 ``BFPConfig(codec="pallas")`` that is the sublane layout, so the CPU route
 and the kernels quantize in the same blocks.
+
+``integrity=True`` on the three collectives appends the exact wire verdict
+(``ops.integrity``): frame conservation on the rings (the per-rank payload
+checksums of ``ops.ring``, or the checksum pair of the fused
+reduce-scatter kernel), replica agreement after the fused all-gather
+kernel (its wire lives inside the kernel), constant True for
+``impl="xla"`` (no explicit frames).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple, Union
 import numpy as np
 import torch
 
+from . import integrity as integrity_lib
 from . import ring as ring_ops
 from . import ring_cuda
 from .. import optim
@@ -180,41 +188,77 @@ def _kernel_route(coll: CollectiveConfig, x: torch.Tensor) -> bool:
     return coll.fused_kernel and x.device.type == "cuda"
 
 
-def reduce_scatter(flat_g: torch.Tensor,
-                   coll: CollectiveConfig) -> torch.Tensor:
-    """[n, L] per-rank vectors -> [n, L/n]: rank i's reduced chunk i."""
+def _fused_slice(coll: CollectiveConfig, L: int, n: int) -> int:
+    """The fused route's slice (and checksum frame): whole tiles of the
+    chunk, at most ``coll.slice_elems``."""
+    return ring_cuda.pick_slice_elems(L // n, coll.slice_elems,
+                                      _fused_bfp_cfg(coll).block_size)
+
+
+def _true(x: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(True, device=x.device)
+
+
+def _pair_ok(pair: torch.Tensor) -> torch.Tensor:
+    return integrity_lib.conservation_ok(pair[:, 0], pair[:, 1])
+
+
+def reduce_scatter(flat_g: torch.Tensor, coll: CollectiveConfig,
+                   integrity: bool = False):
+    """[n, L] per-rank vectors -> [n, L/n]: rank i's reduced chunk i; with
+    ``integrity``, ``(owned, wire_ok)``."""
     n, L = flat_g.shape
     if coll.impl == "xla":
-        return flat_g.reshape(n, n, L // n).sum(dim=0)
+        out = flat_g.reshape(n, n, L // n).sum(dim=0)
+        return (out, _true(out)) if integrity else out
     if _kernel_route(coll, flat_g):
-        return ring_cuda.ring_reduce_scatter_fused(
-            flat_g, compression=_fused_bfp_cfg(coll))
-    codec = resolve_codec(coll)
-    slice_e = coll.slice_elems
-    if coll.fused_kernel:
-        slice_e = ring_cuda.pick_slice_elems(L // n, coll.slice_elems,
-                                             codec.cfg.block_size)
-    return ring_ops.ring_reduce_scatter(flat_g, codec, slice_elems=slice_e)
+        res = ring_cuda.ring_reduce_scatter_fused(
+            flat_g, compression=_fused_bfp_cfg(coll),
+            slice_elems=_fused_slice(coll, L, n), integrity=integrity)
+        return (res[0], _pair_ok(res[1])) if integrity else res
+    slice_e = (_fused_slice(coll, L, n) if coll.fused_kernel
+               else coll.slice_elems)
+    return ring_ops.ring_reduce_scatter(flat_g, resolve_codec(coll),
+                                        slice_elems=slice_e,
+                                        integrity=integrity)
 
 
 def reduce_scatter_update(flat_g: torch.Tensor, w_own: torch.Tensor,
                           opt_state: optim.OptState, step: int,
-                          coll: CollectiveConfig, opt_cfg: OptimizerConfig
-                          ) -> Tuple[torch.Tensor, torch.Tensor,
-                                     optim.OptState]:
+                          coll: CollectiveConfig, opt_cfg: OptimizerConfig,
+                          integrity: bool = False):
     """Fused gradient reduce + ZeRO-1 update of each rank's owned shard.
-    Returns ``(g_own_sum [n, C], w_new [n, C], opt_state_new)``."""
+    Returns ``(g_own_sum [n, C], w_new [n, C], opt_state_new)``, and the
+    wire verdict last with ``integrity``.  On the CUDA kernel route the
+    update retires inside the kernel (``update_route_gatable`` is False
+    there); every other route applies the same formula after the reduce."""
     spec = OptimizerSpec.from_optimizer(opt_cfg)
-    n = flat_g.shape[0]
+    n, L = flat_g.shape
     hyper = optim.fused_hyperparams(opt_cfg, step, device=flat_g.device)
     if _kernel_route(coll, flat_g) and n > 1:
-        return ring_cuda.ring_reduce_scatter_update_fused(
+        res = ring_cuda.ring_reduce_scatter_update_fused(
             flat_g, w_own, opt_state, hyper, opt_kind=spec.kind,
-            compression=_fused_bfp_cfg(coll))
-    g_own = reduce_scatter(flat_g, coll)
+            compression=_fused_bfp_cfg(coll),
+            slice_elems=_fused_slice(coll, L, n), integrity=integrity)
+        return res[:3] + (_pair_ok(res[3]),) if integrity else res
+    res = reduce_scatter(flat_g, coll, integrity=integrity)
+    g_own = res[0] if integrity else res
     w_new, st2 = optim.fused_apply_flat(spec, w_own, g_own, opt_state,
                                         hyper, n)
-    return g_own, w_new, st2
+    return (g_own, w_new, st2) + ((res[1],) if integrity else ())
+
+
+def update_route_gatable(coll: CollectiveConfig, n: int = 0,
+                         device=None) -> bool:
+    """True when ``reduce_scatter_update`` takes a route on which the
+    caller gates a tripped verdict (``torch.where(ok, new, old)``).  False
+    only on the CUDA kernel route (``fused_kernel``, n != 1, a CUDA
+    device), where the update retires with the final hop inside the kernel
+    and, as in the JAX package, ``chaos.check_step_diag`` invalidating the
+    step is the only recovery.  ``n`` 0 or ``device`` None mean unknown:
+    the kernel route is then assumed reachable."""
+    on_card = device is None or torch.device(device).type == "cuda"
+    return not (coll.fused_kernel and n != 1 and on_card)
 
 
 def error_feedback_encode(codec, flat_g: torch.Tensor, residual: torch.Tensor
@@ -231,13 +275,18 @@ def error_feedback_encode(codec, flat_g: torch.Tensor, residual: torch.Tensor
     return g_wire, g_comp - g_wire
 
 
-def all_gather_flat(owned: torch.Tensor,
-                    coll: CollectiveConfig) -> torch.Tensor:
-    """[n, C] owned chunks -> [n, n*C] replicas."""
+def all_gather_flat(owned: torch.Tensor, coll: CollectiveConfig,
+                    integrity: bool = False):
+    """[n, C] owned chunks -> [n, n*C] replicas; with ``integrity``,
+    ``(replicas, wire_ok)``."""
     n, C = owned.shape
     if coll.impl == "xla":
-        return owned.reshape(1, n * C).expand(n, n * C)
+        out = owned.reshape(1, n * C).expand(n, n * C)
+        return (out, _true(out)) if integrity else out
     if _kernel_route(coll, owned):
-        return ring_cuda.ring_all_gather_fused(
+        out = ring_cuda.ring_all_gather_fused(
             owned, compression=_fused_bfp_cfg(coll))
-    return ring_ops.ring_all_gather(owned, resolve_codec(coll))
+        return (out, integrity_lib.replica_consistent(out)) if integrity \
+            else out
+    return ring_ops.ring_all_gather(owned, resolve_codec(coll),
+                                    integrity=integrity)

@@ -20,6 +20,16 @@ plain sublane codec and ``optim.fused_apply_flat``) for a tensor on the
 CPU and launches the kernels for a tensor on CUDA; there is no fallback
 between the two.  ``RING_RS.launches`` / ``RING_AG.launches`` count
 kernel launches, one per call.
+
+``integrity=True`` on the reduce-scatter adds the checksum pair of the TPU
+kernel's ``integrity`` output: ``pair [n, 2]`` (int64 holding uint32), each
+rank's weighted frame checksums of what it sent and what it received,
+defined in ``csrc/ring_rs.cu`` with a frame of ``slice_elems`` elements
+(``pick_slice_elems``, as the fused route picks it).  The plain version
+computes the same pair through ``ops.ring.ring_reduce_scatter_pair``, the
+numpy twin is ``ops.ring_golden.ring_reduce_scatter_pair``, and
+``ops.integrity.conservation_ok(pair[:, 0], pair[:, 1])`` is the verdict.
+The gradient, master and moment bits are those of integrity off.
 """
 
 from __future__ import annotations
@@ -31,17 +41,22 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import bfp_cuda
+from . import integrity as integrity_lib
 from . import ring as ring_ops
 from ._build import Kernel, ptr
 from .. import optim
-from ..utils.config import BFPConfig, OptimizerSpec
+from ..utils.config import BFPConfig, CollectiveConfig, OptimizerSpec
 
 LANES = bfp_cuda.LANES
 OPT_CODES = {None: 0, "sgd": 1, "momentum": 2, "adamw": 3}
+# the frame size the checksum pair falls back to, as a target for
+# pick_slice_elems: the collective's default slice
+DEFAULT_SLICE = CollectiveConfig.slice_elems
 
 RING_RS = Kernel("ring_rs_update", "ring_rs.cu", "ring_rs_launch",
                  [ctypes.c_void_p] * 9
-                 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4)
+                 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p, ctypes.c_longlong])
 RING_AG = Kernel("ring_ag", "ring_ag.cu", "ring_ag_launch",
                  [ctypes.c_void_p] * 2
                  + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3)
@@ -82,23 +97,53 @@ def pick_slice_elems(C: int, target: int, block_size: int) -> int:
     return best * tile
 
 
+def _frame_slice(C: int, cfg: BFPConfig, slice_elems: Optional[int]) -> int:
+    """The pair's frame: ``slice_elems`` when given (whole tiles dividing C),
+    else ``pick_slice_elems(C, DEFAULT_SLICE)``."""
+    if slice_elems is None:
+        return pick_slice_elems(C, DEFAULT_SLICE, cfg.block_size)
+    if C % slice_elems or slice_elems % (cfg.block_size * LANES):
+        raise ValueError(f"slice_elems {slice_elems} must be whole "
+                         f"(block, 128)-lane tiles dividing the chunk {C}")
+    return slice_elems
+
+
+def frame_checksums(wire) -> torch.Tensor:
+    """[n]: each rank's frame checksum as ``csrc/ring_rs.cu`` defines it,
+    over the sublane codec's (mantissa [n, S], scale [n, S/B]) rows: the
+    mantissa bytes then the scale bytes, one zero-extended word each.  In
+    plain torch on any device (part of the kernel's plain version)."""
+    mant, scale = wire
+    return integrity_lib.row_checksums_plain([torch.cat(
+        [mant.view(torch.uint8), scale.view(torch.uint8)], dim=1)])
+
+
 # -- plain versions -----------------------------------------------------------
 
 def ring_reduce_scatter_update_plain(
         x: torch.Tensor, w_own: Optional[torch.Tensor],
         opt_state: Dict[str, torch.Tensor], hyper: Optional[torch.Tensor],
         *, opt_kind: Optional[str], compression: Optional[BFPConfig] = None,
-        slice_elems: Optional[int] = None):
-    """``(g_own_sum [n, C], w_new, new_state)``; w_new and new_state are
-    None / {} when ``opt_kind`` is None."""
-    n = x.shape[0]
-    g = ring_ops.ring_reduce_scatter(x, _plain_codec(_cfg(compression)),
-                                     slice_elems=slice_elems)
+        slice_elems: Optional[int] = None, integrity: bool = False):
+    """``(g_own_sum [n, C], w_new, new_state)``, and the checksum pair
+    ``[n, 2]`` last with ``integrity``; w_new and new_state are None / {}
+    when ``opt_kind`` is None."""
+    n, L = x.shape
+    cfg = _cfg(compression)
+    codec = _plain_codec(cfg)
+    if integrity:
+        slice_elems = _frame_slice(L // n, cfg, slice_elems)
+        g, sa, ra = ring_ops.ring_reduce_scatter_pair(
+            x, codec, slice_elems, frame_checksums)
+        tail = (torch.stack([sa, ra], dim=1),)
+    else:
+        g = ring_ops.ring_reduce_scatter(x, codec, slice_elems=slice_elems)
+        tail = ()
     if opt_kind is None:
-        return g, None, {}
+        return (g, None, {}) + tail
     w_new, st = optim.fused_apply_flat(OptimizerSpec(kind=opt_kind), w_own,
                                        g, opt_state, hyper, n)
-    return g, w_new, st
+    return (g, w_new, st) + tail
 
 
 def ring_all_gather_plain(owned: torch.Tensor,
@@ -112,7 +157,10 @@ def ring_all_gather_plain(owned: torch.Tensor,
 def _launch_rs(x: torch.Tensor, cfg: BFPConfig, opt_kind: Optional[str],
                w_own: Optional[torch.Tensor],
                state: Tuple[torch.Tensor, ...],
-               hyper: Optional[torch.Tensor]):
+               hyper: Optional[torch.Tensor],
+               pair_slice: Optional[int] = None):
+    """One launch; ``pair_slice`` (a frame's elements) adds the checksum
+    pair as a fourth output."""
     n, L = x.shape
     C = L // n
     B = cfg.block_size
@@ -140,10 +188,19 @@ def _launch_rs(x: torch.Tensor, cfg: BFPConfig, opt_kind: Optional[str],
     def p(t):
         return None if t is None else ptr(t)
 
+    pair = tps = None
+    if pair_slice is not None:
+        if n > 6144:
+            raise ValueError("the checksum pair's per-block table holds at "
+                             "most 6144 ranks")
+        pair = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+        tps = pair_slice // (B * LANES)
     RING_RS(ptr(x), ptr(g_out), p(w_own), p(w_out), p(m_in), p(m_out),
             p(v_in), p(v_out), p(hyper), n, C, B, cfg.mantissa_bits,
-            int(cfg.rounding == "rtz"), OPT_CODES[opt_kind])
-    return g_out, w_out, outs
+            int(cfg.rounding == "rtz"), OPT_CODES[opt_kind], p(pair), tps or 0)
+    if pair is None:
+        return g_out, w_out, outs
+    return g_out, w_out, outs, pair.to(torch.int64) & integrity_lib.MASK32
 
 
 def _launch_ag(owned: torch.Tensor, cfg: BFPConfig) -> torch.Tensor:
@@ -161,12 +218,14 @@ def _launch_ag(owned: torch.Tensor, cfg: BFPConfig) -> torch.Tensor:
 def ring_reduce_scatter_update_fused(
         x: torch.Tensor, w_own: torch.Tensor,
         opt_state: Dict[str, torch.Tensor], hyper: torch.Tensor, *,
-        opt_kind: str, compression: Optional[BFPConfig] = None):
+        opt_kind: str, compression: Optional[BFPConfig] = None,
+        slice_elems: Optional[int] = None, integrity: bool = False):
     """Fused ring reduce-scatter + ZeRO-1 optimizer update on the final
     hop.  x: [n, L] gradients, rank i's in row i; w_own and each state
     shard: [n, C] owned shards (C = L/n); hyper: ``optim.fused_hyperparams``.
     Returns ``(g_own_sum [n, C], w_new [n, C], new_state)`` with new
-    tensors (nothing is updated in place)."""
+    tensors (nothing is updated in place), and with ``integrity`` the
+    checksum pair ``[n, 2]`` of ``slice_elems``-element frames last."""
     cfg = _cfg(compression)
     spec = OptimizerSpec(kind=opt_kind)
     n, L = x.shape
@@ -175,27 +234,38 @@ def ring_reduce_scatter_update_fused(
     _check_chunk(L // n, cfg)
     if x.device.type == "cpu":
         return ring_reduce_scatter_update_plain(
-            x, w_own, opt_state, hyper, opt_kind=opt_kind, compression=cfg)
+            x, w_own, opt_state, hyper, opt_kind=opt_kind, compression=cfg,
+            slice_elems=slice_elems, integrity=integrity)
     state = tuple(opt_state[k] for k in spec.state_keys)
-    g, w_new, outs = _launch_rs(x, cfg, opt_kind, w_own, state, hyper)
-    return g, w_new, dict(zip(spec.state_keys, outs))
+    res = _launch_rs(x, cfg, opt_kind, w_own, state, hyper,
+                     _frame_slice(L // n, cfg, slice_elems) if integrity
+                     else None)
+    return (res[0], res[1], dict(zip(spec.state_keys, res[2]))) + res[3:]
 
 
 def ring_reduce_scatter_fused(x: torch.Tensor, *,
-                              compression: Optional[BFPConfig] = None
-                              ) -> torch.Tensor:
-    """Fused BFP ring reduce-scatter: [n, L] -> [n, L/n] sums."""
+                              compression: Optional[BFPConfig] = None,
+                              slice_elems: Optional[int] = None,
+                              integrity: bool = False):
+    """Fused BFP ring reduce-scatter: [n, L] -> [n, L/n] sums; with
+    ``integrity``, ``(sums, pair [n, 2])``."""
     cfg = _cfg(compression)
     n, L = x.shape
     if L % n:
         raise ValueError(f"need L % n == 0, got {x.shape}")
     _check_chunk(L // n, cfg)
     if n == 1:
-        return x
+        return (x, torch.zeros((1, 2), dtype=torch.int64,
+                               device=x.device)) if integrity else x
     if x.device.type == "cpu":
-        return ring_reduce_scatter_update_plain(
-            x, None, {}, None, opt_kind=None, compression=cfg)[0]
-    return _launch_rs(x, cfg, None, None, (), None)[0]
+        res = ring_reduce_scatter_update_plain(
+            x, None, {}, None, opt_kind=None, compression=cfg,
+            slice_elems=slice_elems, integrity=integrity)
+    else:
+        res = _launch_rs(x, cfg, None, None, (), None,
+                         _frame_slice(L // n, cfg, slice_elems) if integrity
+                         else None)
+    return (res[0], res[3]) if integrity else res[0]
 
 
 def ring_all_gather_fused(owned: torch.Tensor, *,

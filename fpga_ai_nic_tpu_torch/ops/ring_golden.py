@@ -98,3 +98,47 @@ def ring_all_reduce(shards: np.ndarray,
     """Full all-reduce = reduce-scatter + all-gather. Returns [n, L]."""
     owned = ring_reduce_scatter(shards, compression, layout)
     return ring_all_gather(owned, compression, layout)
+
+
+def ring_reduce_scatter_pair(shards: np.ndarray, compression: BFPConfig,
+                             slice_elems: int
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """The sublane reduce-scatter with the fused kernel's checksum pair
+    (``csrc/ring_rs.cu`` with a pair): ``(owned [n, C], pair [n, 2]
+    uint32)``, pair[r] = (send, recv) of rank r.
+
+    Slice k of a chunk ([slice_elems], whole tiles) is one frame: its int8
+    mantissas then its int8 scales in the sublane layout, each byte
+    zero-extended, checksummed with ``golden_word_checksum``.  Rank i's
+    k-th slice at hop s is emission q = s * S + k (S slices a chunk),
+    weighted 2q + 1; it adds to send[i] and to recv[i + 1]."""
+    from ..compress.golden import golden_word_checksum
+    n, L = shards.shape
+    C = L // n
+    assert L % n == 0 and C % slice_elems == 0
+    S = C // slice_elems
+    chunks = shards.reshape(n, n, C).astype(np.float32).copy()
+    pair = np.zeros((n, 2), np.uint64)
+    mask = np.uint64(0xFFFFFFFF)
+    for s in range(n - 1):
+        sends = []
+        for i in range(n):
+            part = chunks[i, (i - s - 1) % n]
+            dec = np.empty(C, np.float32)
+            for k in range(S):
+                sl = slice(k * slice_elems, (k + 1) * slice_elems)
+                mant, se = _compress(part[sl], compression, "sublane")
+                frame = np.concatenate([mant.reshape(-1).view(np.uint8),
+                                        se.reshape(-1).view(np.uint8)])
+                term = np.uint64(((2 * (s * S + k) + 1) & 0xFFFFFFFF)
+                                 * int(golden_word_checksum(frame))) & mask
+                pair[i, 0] = (pair[i, 0] + term) & mask
+                pair[(i + 1) % n, 1] = (pair[(i + 1) % n, 1] + term) & mask
+                dec[sl] = bfp_golden.bfp_decode(mant, se,
+                                                compression.block_size,
+                                                layout="sublane")
+            sends.append(dec)
+        for i in range(n):
+            chunks[i, (i - s - 2) % n] += sends[(i - 1) % n]
+    return (np.stack([chunks[i, i] for i in range(n)]),
+            pair.astype(np.uint32))

@@ -14,8 +14,9 @@ The JAX step, phase by phase (``sharded.py`` ``step_fn``):
 
 As in the JAX package the fused optimizer kernel is not used: the update
 is ``optim.apply`` between the two collectives.  Other mesh axes (tp, sp,
-pp, ep, fsdp), ``loss_and_grads_fn`` (the 1F1B schedule),
-``accum_steps > 1`` and ``integrity_check`` raise ``NotImplementedError``.
+pp, ep, fsdp), ``loss_and_grads_fn`` (the 1F1B schedule) and
+``accum_steps > 1`` raise ``NotImplementedError``; ``integrity_check``
+raises ``ValueError``, as the JAX package's does (it is DPTrainer's).
 The state is ``parallel.train.TrainState``; ``step`` drops the flat
 gradients before the update, so at full width they never coexist with
 the gathered replicas.
@@ -54,8 +55,13 @@ class ShardedTrainer(DPTrainer):
             raise NotImplementedError(
                 "accum_steps > 1 is not ported: ROADMAP A.1")
         if cfg.collective.integrity_check:
-            raise NotImplementedError(
-                "integrity_check is not ported: ROADMAP A.3")
+            raise ValueError(
+                "integrity_check is implemented on DPTrainer only (both "
+                "value and exact wire tiers ride its step diag); "
+                "ShardedTrainer's dp reduce/gather do not thread the "
+                "verdicts, and a silently ignored flag would be "
+                "claimed-but-absent coverage: construct with "
+                "integrity_check=False")
         super().__init__(loss_fn, ranks, cfg)
         # as in the JAX package, this trainer carries no error-feedback
         # residual: a codec's error_feedback flag is not read here

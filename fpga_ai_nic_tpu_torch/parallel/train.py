@@ -21,6 +21,18 @@ The loss is the mean of the per-rank losses.  ``step`` = ``grads``, then
 can run the same compensated gradients through another collective
 (``chip_smoke.py`` does).  Nothing is updated in place: a step returns a
 new TrainState.
+
+``CollectiveConfig(integrity_check=True)`` guards the collective with two
+tiers (``runtime.chaos``): the value tier (chunk sums against the input's,
+within ``integrity_tol``, and non-finite counts) and the exact tier
+(``wire_ok``: the frame conservation of the rings or the checksum pair of
+the fused kernel, ANDed with the gather's verdict).  Where
+``fused_update.update_route_gatable`` holds, a tripped step leaves the
+masters, the optimizer state and the codec state as they were; on the
+CUDA kernel route the caller's ``chaos.check_step_diag`` is the recovery,
+as in the JAX package.  With it on, ``step`` returns ``(state, diag)`` with
+``diag`` = {integrity_ok, integrity_err, nonfinite, wire_ok, grad_norm,
+loss}, and ``apply_grads`` returns ``(state, diag)`` without the loss.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import torch
 from .mesh import VirtualRanks
 from .. import optim
 from ..ops import fused_update
+from ..runtime import chaos
 from ..utils.config import TrainConfig
 
 Params = Any
@@ -90,7 +103,6 @@ class DPTrainer:
                              f"{ranks.n} dp ranks")
         coll = cfg.collective
         for name, unported in (
-                ("collective.integrity_check", coll.integrity_check),
                 ("obs_metrics", cfg.obs_metrics),
                 ("accum_steps > 1", cfg.accum_steps != 1),
                 ("adapt.enabled", cfg.adapt.enabled)):
@@ -168,49 +180,109 @@ class DPTrainer:
                                                   state.codec_state)
 
     def apply_grads(self, state: TrainState, flat_g: torch.Tensor,
-                    codec_state: Optional[torch.Tensor] = None
-                    ) -> TrainState:
+                    codec_state: Optional[torch.Tensor] = None):
         """Phase 1 (reduce-scatter + update) and phase 2 (all-gather).
         ``codec_state``: the residual ``error_feedback`` returned (the
-        new state keeps ``state.codec_state`` when it is None)."""
+        new state keeps ``state.codec_state`` when it is None).  Returns
+        the new TrainState, or ``(state, diag)`` with integrity on."""
         coll = self.cfg.collective
         if codec_state is None:
             codec_state = state.codec_state
+        icheck = coll.integrity_check
+        diag = None
+        if icheck:
+            # the checksums guard what rides the wire: under error
+            # feedback, the compensated and compressed gradient
+            expect, l1 = chaos.chunk_checksums(flat_g, self.n)
+            tol = (coll.integrity_tol if coll.integrity_tol is not None
+                   else chaos.integrity_tol(coll, self.n))
         if not coll.fused_optimizer:
-            return self.update(
-                state, fused_update.reduce_scatter(flat_g, coll) / self.n,
-                codec_state)
-        _, w_new, opt_state = fused_update.reduce_scatter_update(
+            if not icheck:
+                return self.update(
+                    state, fused_update.reduce_scatter(flat_g, coll) / self.n,
+                    codec_state)
+            g_red, wire_ok = fused_update.reduce_scatter(flat_g, coll,
+                                                         integrity=True)
+            diag = self._diag(expect, l1, g_red, tol, wire_ok)
+            return self.update(state, g_red / self.n, codec_state, diag)
+        res = fused_update.reduce_scatter_update(
             flat_g, state.w_own, state.opt_state, state.step, coll,
-            self.cfg.optimizer)
-        return self._gather(w_new, opt_state, state.step + 1, codec_state)
+            self.cfg.optimizer, integrity=icheck)
+        _, w_new, opt_state = res[:3]
+        if icheck:
+            diag = self._diag(expect, l1, res[0], tol, res[3])
+            if fused_update.update_route_gatable(coll, self.n,
+                                                 flat_g.device):
+                w_new, opt_state, codec_state = self._gate(
+                    diag, state, w_new, opt_state, codec_state)
+        return self._gather(w_new, opt_state, state.step + 1, codec_state,
+                            diag)
+
+    def _diag(self, expect, l1, g_red, tol, wire_ok) -> dict:
+        """Both tiers' verdicts on one reduce-scatter (``g_red``: the raw
+        sums) and the pre-clip gradient norm."""
+        diag = chaos.collective_integrity(expect, l1, g_red, self.n, tol)
+        diag["wire_ok"] = wire_ok
+        diag["grad_norm"] = torch.sqrt(
+            ((g_red / self.n).to(torch.float32) ** 2).sum())
+        return diag
+
+    def _gate(self, diag: dict, state: TrainState, w_new: torch.Tensor,
+              opt_state: optim.OptState, codec_state):
+        """A tripped verdict makes the update a no-op: masters, optimizer
+        state and the error-feedback residual keep their old values (a
+        replayed step must not count its dropped mass twice)."""
+        ok = diag["integrity_ok"] & diag["wire_ok"]
+        w_new = torch.where(ok, w_new, state.w_own)
+        opt_state = {k: torch.where(ok, v, state.opt_state[k])
+                     for k, v in opt_state.items()}
+        if self._ef:
+            codec_state = torch.where(ok, codec_state, state.codec_state)
+        return w_new, opt_state, codec_state
 
     def update(self, state: TrainState, g_own: torch.Tensor,
-               codec_state: Optional[torch.Tensor] = None) -> TrainState:
+               codec_state: Optional[torch.Tensor] = None,
+               diag: Optional[dict] = None):
         """The unfused phase 1 after the reduce-scatter (clip, optimizer
         on the owned shards ``g_own [n, C]``, already divided by n), then
-        phase 2."""
+        phase 2.  With ``diag`` (the reduce-scatter's verdicts, integrity
+        on) the update is gated by them and ``(state, diag)`` returned."""
         opt_cfg = self.cfg.optimizer
         g_own = optim.clip_by_global_norm(opt_cfg, g_own)
         w_new, opt_state = optim.apply(opt_cfg, state.w_own, g_own,
                                        state.opt_state, state.step)
         del g_own
-        return self._gather(w_new, opt_state, state.step + 1, codec_state)
+        if diag is not None:
+            w_new, opt_state, codec_state = self._gate(
+                diag, state, w_new, opt_state, codec_state)
+        return self._gather(w_new, opt_state, state.step + 1, codec_state,
+                            diag)
 
     def _gather(self, w_new: torch.Tensor, opt_state: optim.OptState,
-                step: int, codec_state: Optional[torch.Tensor] = None
-                ) -> TrainState:
-        replicas = self._working(fused_update.all_gather_flat(
-            w_new, self.cfg.collective))
-        return TrainState(fused_update.unflatten_tree(replicas[0],
-                                                      self._meta),
-                          replicas, w_new, opt_state, step, codec_state)
+                step: int, codec_state: Optional[torch.Tensor] = None,
+                diag: Optional[dict] = None):
+        """Phase 2; with ``diag``, its verdict is ANDed into ``wire_ok``
+        and ``(state, diag)`` returned."""
+        gathered = fused_update.all_gather_flat(
+            w_new, self.cfg.collective, integrity=diag is not None)
+        if diag is not None:
+            gathered, ag_ok = gathered
+            diag = dict(diag, wire_ok=diag["wire_ok"] & ag_ok)
+        replicas = self._working(gathered)
+        new = TrainState(fused_update.unflatten_tree(replicas[0], self._meta),
+                         replicas, w_new, opt_state, step, codec_state)
+        return new if diag is None else (new, diag)
 
-    def step(self, state: TrainState, batch
-             ) -> Tuple[TrainState, torch.Tensor]:
+    def step(self, state: TrainState, batch):
+        """One step: ``(state, loss)``, or ``(state, diag)`` with the loss
+        in ``diag`` when integrity is on."""
         flat_g, loss = self.grads(state, batch)
         flat_g, codec_state = self.error_feedback(state, flat_g)
-        return self.apply_grads(state, flat_g, codec_state), loss
+        res = self.apply_grads(state, flat_g, codec_state)
+        if self.cfg.collective.integrity_check:
+            new, diag = res
+            return new, dict(diag, loss=loss)
+        return res, loss
 
     # -- restore --------------------------------------------------------------
 

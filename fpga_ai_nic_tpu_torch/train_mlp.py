@@ -12,6 +12,10 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
       --collective.fused_optimizer=true --global_batch=5376
   python -m fpga_ai_nic_tpu_torch.train_mlp --model.layer_sizes=256,256,256 \\
       --global_batch=64 --iters=3 --device=cpu
+  python -m fpga_ai_nic_tpu_torch.train_mlp --bfp=1 --mesh.dp=8 \\
+      --collective.compression.codec=pallas \\
+      --collective.fused_kernel=true --collective.fused_optimizer=true \\
+      --collective.integrity_check=true
 
 Flags split by prefix: ``--model.*`` -> MLPConfig, ``--device=`` picks the
 device (default cuda; it raises when CUDA is absent), everything else ->
@@ -21,7 +25,10 @@ ring; it applies before the dotted flags, so they can refine it.
 ``--collective.codec_opts=key=value,...`` its options; ``--collective.impl=ring``
 must come first.  The ranks of ``--mesh.dp`` are virtual ranks on one
 card.  The printed JSON carries the codec's ``describe()`` (None when the
-wire is uncompressed).
+wire is uncompressed).  With ``--collective.integrity_check=true`` a step
+returns its diagnostics dict (``parallel.train``): the loss is read from
+it, each step goes through ``runtime.chaos.check_step_diag``, and the JSON
+carries the last step's ``wire_ok`` and ``integrity_ok``.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from .models import mlp
 from .ops import fused_update
 from .parallel.mesh import make_ranks
 from .parallel.train import DPTrainer
+from .runtime import chaos
 from .utils.config import MLPConfig, TrainConfig, from_flags
 
 _TRUE, _FALSE = ("1", "true", "yes", "on"), ("0", "false", "no", "off")
@@ -81,16 +89,31 @@ def main(argv: Sequence[str]) -> dict:
         0, mcfg.num_classes or mcfg.layer_sizes[-1], cfg.global_batch))
     batch = tr.shard_batch((x.to(getattr(torch, mcfg.dtype)), y))
 
-    state, loss = tr.step(state, batch)          # warm-up: kernel builds
+    checked = cfg.collective.integrity_check
+    diags = []
+
+    def step(state):
+        state, out = tr.step(state, batch)
+        if not checked:
+            return state, out
+        diags.append(out)               # verdicts read after the timing
+        return state, out["loss"]
+
+    state, loss = step(state)                    # warm-up: kernel builds
     float(loss)
     t0 = time.perf_counter()
     for _ in range(cfg.iters):
-        state, loss = tr.step(state, batch)
+        state, loss = step(state)
     loss = float(loss)                           # waits for the device
     wall = time.perf_counter() - t0
+    for i, diag in enumerate(diags):
+        chaos.check_step_diag(diag, i)
     fl = mlp.flops_per_sample(mcfg) * cfg.global_batch * cfg.iters
     codec = fused_update.resolve_codec(cfg.collective)
-    return {"loss": loss,
+    verdicts = ({"wire_ok": bool(diags[-1]["wire_ok"]),
+                 "integrity_ok": bool(diags[-1]["integrity_ok"])}
+                if checked else {})
+    return {"loss": loss, **verdicts,
             "samples_per_sec": cfg.iters * cfg.global_batch / wall,
             "gflops": fl / wall / 1e9, "wall_s": wall,
             "codec": codec.describe() if codec is not None else None,

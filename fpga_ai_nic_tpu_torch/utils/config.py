@@ -10,8 +10,11 @@ CUDA kernels of ``ops.bfp_cuda`` / ``ops.ring_cuda`` implement.
 Values this port does not implement yet raise ``NotImplementedError`` at
 construction (``codec="auto"`` in either spelling and int8's
 ``backend="auto"``, ``topology="hier"``) or at trainer construction
-(``parallel.train.DPTrainer``: integrity checks, in-graph metrics,
-accumulation, plan adaptation, mesh axes other than dp), never silently.
+(``parallel.train.DPTrainer``: in-graph metrics, accumulation, plan
+adaptation, mesh axes other than dp), never silently.
+``collective.integrity_check`` is ported on ``DPTrainer``;
+``ShardedTrainer`` refuses it with ``ValueError``, as the JAX package's
+does.
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from fpga_ai_nic_tpu_torch import optim
-from fpga_ai_nic_tpu_torch.ops import (bfp_cuda, int8_cuda, paged_attend,
+from fpga_ai_nic_tpu_torch.ops import (bfp_cuda, int8_cuda, integrity,
+                                       paged_attend,
                                        ring_cuda)
 from fpga_ai_nic_tpu_torch.utils.config import (BFPConfig, OptimizerConfig,
                                                 OptimizerSpec)
@@ -439,3 +440,95 @@ def test_auto_route_runs_an_f32_llama_step_on_card(cuda_device):
     assert fa.FLASH_FWD.launches == before[0]
     assert fa.FLASH_FWD_GENERIC.launches > before[1]
     assert fa.FLASH_DKV_GENERIC.launches > before[2]
+
+
+# (n, block, tiles a chunk, tiles a frame, optimizer)
+PAIR_CASES = [(2, 16, 4, 2, None), (8, 16, 3, 1, "sgd"), (3, 4, 6, 3, "sgd"),
+              (4, 16, 4, 4, "momentum"), (5, 32, 2, 1, "adamw")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block,tiles,frame_tiles,kind", PAIR_CASES)
+def test_ring_rs_checksum_pair_on_card(cuda_device, n, block, tiles,
+                                       frame_tiles, kind):
+    """The integrity launch of ring_rs: its (send, recv) pair equals the
+    plain version's bit for bit, g, w and the moments equal the
+    integrity-off launch's, a repeat launch gives the same pair, and the
+    pair conserves."""
+    cfg = BFPConfig(codec="pallas", block_size=block)
+    C = tiles * block * 128
+    se = frame_tiles * block * 128
+    x = _mixed(torch.from_numpy(_shards(n, C, seed=n + 1)), n).to(cuda_device)
+    g = torch.Generator().manual_seed(n)
+    w = torch.randn((n, C), generator=g).to(cuda_device)
+    st = {} if kind is None else {
+        k: torch.rand((n, C), generator=g).to(cuda_device) * 1e-3
+        for k in OptimizerSpec(kind=kind).state_keys}
+    if kind is None:
+        off = ring_cuda.ring_reduce_scatter_fused(x, compression=cfg)
+        before = ring_cuda.RING_RS.launches
+        got, pair = ring_cuda.ring_reduce_scatter_fused(
+            x, compression=cfg, slice_elems=se, integrity=True)
+        assert ring_cuda.RING_RS.launches == before + 1
+        want = ring_cuda.ring_reduce_scatter_update_plain(
+            x, None, {}, None, opt_kind=None, compression=cfg,
+            slice_elems=se, integrity=True)
+        assert torch.equal(got, off) and torch.equal(got, want[0])
+        again = ring_cuda.ring_reduce_scatter_fused(
+            x, compression=cfg, slice_elems=se, integrity=True)[1]
+    else:
+        hyper = optim.fused_hyperparams(
+            OptimizerConfig(kind=kind, learning_rate=1e-2), 2,
+            device=cuda_device)
+
+        def run(integ):
+            return ring_cuda.ring_reduce_scatter_update_fused(
+                x, w, st, hyper, opt_kind=kind, compression=cfg,
+                slice_elems=se, integrity=integ)
+        off, on = run(False), run(True)
+        pair = on[3]
+        want = ring_cuda.ring_reduce_scatter_update_plain(
+            x, w, st, hyper, opt_kind=kind, compression=cfg, slice_elems=se,
+            integrity=True)
+        assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+        for k in st:
+            assert torch.equal(on[2][k], off[2][k]), k
+        assert torch.equal(on[1], want[1])
+        again = run(True)[3]
+    torch.cuda.synchronize()
+    assert pair.dtype == torch.int64 and pair.shape == (n, 2)
+    assert torch.equal(pair, want[-1]), (pair, want[-1])
+    assert torch.equal(again, pair)
+    assert bool(integrity.conservation_ok(pair[:, 0], pair[:, 1]))
+    assert bool((pair != 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8, torch.bfloat16,
+                                   torch.float16, torch.float32, torch.int32])
+@pytest.mark.parametrize("rows,cols", [(1, 7), (5, 4096), (3, 6151),
+                                       (2049, 24), (2, 70001)])
+def test_row_checksums_vs_plain_on_card(cuda_device, dtype, rows, cols):
+    """row_checksums on the card == the plain version, for each element
+    size, rows of odd lengths (the word-by-word path) and of whole 16-byte
+    runs (the vector path), one launch a call; a flipped bit changes its
+    row's checksum and no other."""
+    g = torch.Generator().manual_seed(rows * cols)
+    raw = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, cols), dtype=torch.int64,
+                        generator=g)
+    size = torch.empty((), dtype=dtype).element_size()
+    x = raw.to(torch.int32).view(torch.uint8)[:, :cols * size].contiguous()
+    x = x.view(dtype).to(cuda_device)
+    before = integrity.ROW_CHECKSUMS.launches
+    got = integrity.row_checksums(x)
+    assert integrity.ROW_CHECKSUMS.launches == before + 1
+    assert torch.equal(got, integrity.row_checksums_plain([x], [1]))
+    blocks = [x, x[:, : max(1, cols // 3)].contiguous(), x.flip(0)]
+    assert torch.equal(integrity.row_checksums(blocks),
+                       integrity.row_checksums_plain(blocks))
+    flipped = x.clone()
+    r = rows // 2
+    flipped.view(torch.uint8)[r, -1] ^= 1
+    diff = integrity.row_checksums(flipped) != got
+    assert bool(diff[r]) and int(diff.sum()) == 1
+    torch.cuda.synchronize()

@@ -240,11 +240,14 @@ def test_unported_options_raise():
             llama.loss_fn(params, batch, CFG, **kw)
     ranks = VirtualRanks(2, torch.device("cpu"))
     for cfg in (TrainConfig(mesh=MeshConfig(dp=2, tp=2)),
-                TrainConfig(mesh=MeshConfig(dp=2), accum_steps=2),
-                TrainConfig(mesh=MeshConfig(dp=2), collective=CollectiveConfig(
-                    impl="ring", integrity_check=True))):
+                TrainConfig(mesh=MeshConfig(dp=2), accum_steps=2)):
         with pytest.raises(NotImplementedError):
             ShardedTrainer(lambda p, b: None, ranks, cfg)
+    # as the JAX package's: integrity checks are DPTrainer's
+    with pytest.raises(ValueError, match="DPTrainer only"):
+        ShardedTrainer(lambda p, b: None, ranks, TrainConfig(
+            mesh=MeshConfig(dp=2), collective=CollectiveConfig(
+                impl="ring", integrity_check=True)))
     with pytest.raises(NotImplementedError, match="loss_and_grads_fn"):
         ShardedTrainer(lambda p, b: None, ranks,
                        TrainConfig(mesh=MeshConfig(dp=2)),

@@ -227,10 +227,7 @@ def test_unported_options_raise():
         make_ranks(MeshConfig(dp=2, tp=2), "cpu")
     ranks = VirtualRanks(2, torch.device("cpu"))
     for cfg in (TrainConfig(mesh=MeshConfig(dp=2), accum_steps=2),
-                TrainConfig(mesh=MeshConfig(dp=2), obs_metrics=True),
-                TrainConfig(mesh=MeshConfig(dp=2),
-                            collective=CollectiveConfig(
-                                impl="ring", integrity_check=True))):
+                TrainConfig(mesh=MeshConfig(dp=2), obs_metrics=True)):
         with pytest.raises(NotImplementedError):
             DPTrainer(lambda p, b: None, ranks, cfg)
 
