@@ -104,7 +104,31 @@ Phases, each printing JSON lines:
      shifted-mask control), then one step whose launches are counted
      (the second family only), and the step's gradients against the
      torch route's on the same weights;
- 13. the ``kernels`` line, then the last line
+ 13. ``bert_flash_checks``: the flash kernels' key-bias channel (BERT's
+     padding mask, 0 / -1e30 a key) against the plain versions with the
+     same bias: the second family at BERT-base's attention shape (B=8,
+     H=12, S=512, hd=64, bf16, non-causal, valid lengths 256-512), timed
+     by device time beside its bound, its plain version and the
+     library's masked attention; the tensor-core kernels at B=2, H=8,
+     S=1024, hd=128, non-causal and causal with the mask, timed with and
+     without the bias in turns, their bias instantiations' SASS counted;
+     each within the flash limits, a second launch bit-equal, and the
+     same kernels with a zero bias (the mask dropped) above the limit;
+ 14. ``bert_train_path``: BERT-base masked-LM training as the
+     ``train_bert`` driver builds it (12 layers at full width, random
+     weights from a seed, sequence 512, global batch 64 over dp=8 virtual
+     ranks, valid lengths 256-512, 15% masked, the bucketed
+     ``DDPTrainer`` with the fused BFP ring kernels on every bucket,
+     AdamW lr 1e-4 on the replicated f32 masters) — 2 warm-up and 5 timed
+     steps, launch counts (96 of each generic flash kernel, one ring
+     reduce-scatter and one all-gather a bucket, nothing else), every
+     rank's replica bit-identical after every step, a falling loss, then
+     a profile of two steps (flash, ring, GEMMs, the rest);
+ 15. ``bert_train_parity``: loss_fn's gradients on one rank's padded batch
+     at BERT-base width and 2 layers through the kernels and through the
+     plain softmax route, within the Llama parity limits, and the kernels
+     with a zero key bias (the fault control) above them;
+ 16. the ``kernels`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so the f32 GEMMs run in full float32.
@@ -1341,22 +1365,28 @@ FLASH_LIBRARY = ("F.scaled_dot_product_attention(q, k, v, is_causal, "
 
 
 def flash_bound(kind, B, H, n_kv, S, causal, split=False, hd=128,
-                itemsize=2, ops_per_s=BF16_OPS_PER_S):
+                itemsize=2, ops_per_s=BF16_OPS_PER_S, key_bias=False,
+                pairs=None):
     """Each input read once, each output written once (bf16 tensors, f32
-    lse/delta) over the HBM rate, against the multiply-adds the visible
-    (row, key) pairs need over the bf16 tensor-core rate: 2, 3 and 4
-    products of depth hd per pair for the forward, dq and dk/dv.
-    ``split``: the tensor-core passes the kernels run instead, with p and
-    ds as two bf16 terms (3, 4 and 6), a floor of their design.  The
-    second family's f32 operands: ``itemsize`` 4 at the f32 rate."""
+    lse/delta, the f32 [B, S] key bias where ``key_bias``) over the HBM
+    rate, against the multiply-adds the visible (row, key) pairs need over
+    the bf16 tensor-core rate: 2, 3 and 4 products of depth hd per pair for
+    the forward, dq and dk/dv.  ``pairs``: the pairs this run's data needs
+    (those with a valid key under a padding mask) in place of the causal
+    or full count.  ``split``: the tensor-core passes the kernels run
+    instead, with p and ds as two bf16 terms (3, 4 and 6), a floor of their
+    design.  The second family's f32 operands: ``itemsize`` 4 at the f32
+    rate."""
     big = B * H * S * hd * itemsize
     small, rows = B * n_kv * S * hd * itemsize, B * H * S * 4
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    if pairs is None:
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     moved, products, passes = {
         "flash_fwd": (2 * big + 2 * small + rows, 2, 3),
         "flash_dq": (3 * big + 2 * small + 2 * rows, 3, 4),
         "flash_dkv": (2 * big + 4 * small + 2 * rows, 4, 6),
     }[kind]
+    moved += B * S * 4 if key_bias else 0
     return bound(moved, 2 * (passes if split else products) * hd * pairs,
                  ops_per_s)
 
@@ -1405,6 +1435,16 @@ def sass_stats(source: str, kernels, ops=("HGMMA",)) -> dict:
     return stats
 
 
+def flash_sass(bias: bool) -> dict:
+    """SASS stats of the tensor-core flash kernels' instantiation with
+    (``ILb1``) or without (``ILb0``) the key-bias channel."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    flag = "ILb1" if bias else "ILb0"
+    return dict(sass_stats(fa.FLASH_FWD.source, ("flash_fwd_kernel" + flag,)),
+                **sass_stats(fa.FLASH_DQ.source, ("flash_dq_kernel" + flag,
+                                                  "flash_dkv_kernel" + flag)))
+
+
 def flash_checks(dev) -> dict:
     """Each flash kernel against its plain version at every FLASH_SHAPES
     entry, with the two fault controls that must exceed the limit; times
@@ -1414,9 +1454,7 @@ def flash_checks(dev) -> dict:
     import torch
     import torch.nn.functional as F
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
-    sass = dict(sass_stats(fa.FLASH_FWD.source, ("flash_fwd_kernel",)),
-                **sass_stats(fa.FLASH_DQ.source, ("flash_dq_kernel",
-                                                  "flash_dkv_kernel")))
+    sass = flash_sass(bias=False)
     rows = {}
     for si, (name, B, H, n_kv, S, causal) in enumerate(FLASH_SHAPES):
         g = torch.Generator(device=dev).manual_seed(300 + si)
@@ -2149,6 +2187,338 @@ def llama_train_parity(dev, run) -> None:
         raise AssertionError(f"llama training parity failed: {checks}")
 
 
+# -- BERT-base training: the key-bias channel, the bucketed DDP trainer --------
+
+BERT_SHAPE = (8, 12, 512, 64)     # B (a rank's batch), H, S, hd: BERT-base
+BERT_PAD_MIN = 256                # valid lengths uniform in [256, 512]
+TC_BIAS_SHAPE = (2, 8, 8, 1024)   # B, H, Hkv, S at head_dim 128
+BERT_LIBRARY = ("F.scaled_dot_product_attention(q, k, v, attn_mask="
+                "bias[:, None, None, :]) in bf16; its autograd backward for "
+                "dq and dk/dv together")
+
+
+def padding_bias(dev, B, S, pad_min, seed):
+    """[B, S] f32 key bias (0 valid, -1e30 padding) of valid lengths drawn
+    uniformly from [pad_min, S], and those lengths."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.randint(pad_min, S + 1, (B,), generator=g, device=dev)
+    pos = torch.arange(S, device=dev)
+    bias = torch.where(pos[None, :] < lens[:, None], 0.0, -1e30)
+    return bias.to(torch.float32).contiguous(), lens
+
+
+def bias_case(dev, fwd, dq, dkv, q, k, v, do, bias, causal):
+    """One family's three kernels with ``bias`` against their plain
+    versions: tol ratios, max errors, lse error, repeat-launch bits, and
+    the zero-bias control (the kernels without the mask, against the
+    masked plain versions), which must exceed the limit."""
+    import torch
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    hd = q.shape[-1]
+    kw = dict(causal=causal, sm_scale=hd ** -0.5)
+    out, lse = fwd(q, k, v, key_bias=bias, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    got = {"out": out, "dq": dq(*args, key_bias=bias, **kw)}
+    got["dk"], got["dv"] = dkv(*args, key_bias=bias, **kw)
+    again = dict(zip(("out", "lse"), fwd(q, k, v, key_bias=bias, **kw)))
+    again["dq"] = dq(*args, key_bias=bias, **kw)
+    again["dk"], again["dv"] = dkv(*args, key_bias=bias, **kw)
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, key_bias=bias, **kw)
+    want = {"out": p_out, "dq": fa.flash_dq_plain(*args, key_bias=bias,
+                                                  **kw)}
+    want["dk"], want["dv"] = fa.flash_dkv_plain(*args, key_bias=bias, **kw)
+    sync(dev)
+    ratio = {t: fa.tol_ratio(got[t], want[t]) for t in got}
+    z_out, z_lse = fwd(q, k, v, **kw)
+    zdelta = (do.float() * z_out.float()).sum(-1)
+    zargs = (q, k, v, do, z_lse, zdelta)
+    ctrl = {"out_zero_bias": fa.tol_ratio(z_out, p_out),
+            "dq_zero_bias": fa.tol_ratio(dq(*zargs, **kw), want["dq"]),
+            "dv_zero_bias": fa.tol_ratio(dkv(*zargs, **kw)[1], want["dv"])}
+    checks = {"finite": all(bool(t.float().isfinite().all())
+                            for t in got.values()),
+              "within_tol": max(ratio.values()) <= 1.0,
+              "lse_within_tol": max_err([(lse, p_lse)]) <= fa.LSE_TOL,
+              "controls_above_tol": min(ctrl.values()) > 1.0,
+              "deterministic": all(torch.equal(dict(got, lse=lse)[t],
+                                               again[t]) for t in again)}
+    return {"tol_ratio": ratio, "control_tol_ratio": ctrl,
+            "max_abs_err": {t: max_err([(got[t], want[t])]) for t in got},
+            "lse_max_abs_err": max_err([(lse, p_lse)]), "checks": checks,
+            "args": args, "kw": kw}
+
+
+def bert_flash_checks(dev) -> dict:
+    """The key-bias channel of both flash families against the plain
+    versions: the second family at BERT-base's attention shape (bf16,
+    head_dim 64, non-causal, a padding mask), timed by device time beside
+    its bound, its plain version and the library's masked attention; the
+    tensor-core kernels at B=2, H=8, S=1024, head_dim 128, non-causal and
+    causal with the mask, timed with and without the bias.  Returns the
+    generic family's rows and the tensor-core bias timings."""
+    import torch
+    import torch.nn.functional as F
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(500)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    B, H, S, hd = BERT_SHAPE
+    bias, lens = padding_bias(dev, B, S, BERT_PAD_MIN, 501)
+    q, k, v, do = (rand(B, H, S, hd) for _ in range(4))
+    gen = bias_case(dev, fa.flash_fwd_generic_cuda, fa.flash_dq_generic_cuda,
+                    fa.flash_dkv_generic_cuda, q, k, v, do, bias, False)
+    args, kw = gen.pop("args"), gen.pop("kw")
+    # the work this data needs: every query row against its valid keys
+    pairs_valid = H * S * int(lens.sum())
+    mask = bias.to(torch.bfloat16)[:, None, None, :]
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), 10)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qr, kr, vr), do, retain_graph=True), 10)
+    calls = {
+        "flash_fwd_generic": (
+            lambda: fa.flash_fwd_generic_cuda(q, k, v, key_bias=bias, **kw),
+            lambda: fa.flash_fwd_plain(q, k, v, key_bias=bias, **kw),
+            lib_fwd, ("out",)),
+        "flash_dq_generic": (
+            lambda: fa.flash_dq_generic_cuda(*args, key_bias=bias, **kw),
+            lambda: fa.flash_dq_plain(*args, key_bias=bias, **kw),
+            lib_bwd, ("dq",)),
+        "flash_dkv_generic": (
+            lambda: fa.flash_dkv_generic_cuda(*args, key_bias=bias, **kw),
+            lambda: fa.flash_dkv_plain(*args, key_bias=bias, **kw),
+            lib_bwd, ("dk", "dv"))}
+    rows = {}
+    for name, (kern, plain, lib_ms, terms) in calls.items():
+        b = flash_bound(name[:-len("_generic")], B, H, H, S, False, hd=hd,
+                        key_bias=True, pairs=pairs_valid)
+        rows[name + "_bias"] = {
+            "max_abs_err": max(gen["max_abs_err"][t] for t in terms),
+            "ms": device_ms(kern, 10, (name + "_kernel",)),
+            "call_ms": cuda_ms(kern, 10, 2), "plain_ms": cuda_ms(plain, 3),
+            "library_ms": lib_ms, "bound": b,
+            "tol_ratio": max(gen["tol_ratio"][t] for t in terms)}
+    emit(phase="bert_flash_checks", family="generic (csrc/flash_generic.cu)",
+         shape=f"B={B}, H={H}, S={S}, hd={hd}, bf16, non-causal",
+         valid_lengths=lens.tolist(), masked_key_share=1 - float(
+             lens.sum()) / (B * S),
+         tol=(f"|got - want| <= {fa.REL_TOL} |want| + {fa.FLOOR_TOL} "
+              f"max|want|; lse within {fa.LSE_TOL}"),
+         library=BERT_LIBRARY,
+         rows={n: dict(r, bound_ms=r["bound"][0], bound_by=r["bound"][1])
+               for n, r in rows.items()}, **gen)
+    if not all(gen["checks"].values()):
+        raise AssertionError(f"generic flash with a key bias failed: "
+                             f"{gen['checks']}")
+    del q, k, v, do, args, qr, kr, vr, lib_out
+
+    Bt, Ht, Hkv, St = TC_BIAS_SHAPE
+    sass = flash_sass(bias=True)
+    tc = {}
+    for causal in (False, True):
+        bias_t, lens_t = padding_bias(dev, Bt, St, St // 2, 502 + causal)
+        # the pairs this mask leaves: row r sees keys below min(r + 1, len)
+        # causal, below len otherwise
+        pairs_t = Ht * sum(
+            sum(min(r + 1, n) for r in range(St)) if causal else St * n
+            for n in lens_t.tolist())
+        q, k, v, do = (rand(Bt, Ht, St, 128), rand(Bt, Hkv, St, 128),
+                       rand(Bt, Hkv, St, 128), rand(Bt, Ht, St, 128))
+        res = bias_case(dev, fa.flash_fwd_cuda, fa.flash_dq_cuda,
+                        fa.flash_dkv_cuda, q, k, v, do, bias_t, causal)
+        args, kw = res.pop("args"), res.pop("kw")
+        res["checks"].update(
+            tensor_core_sass=all(st["hgmma"] > 0 for st in sass.values()),
+            no_local_bytes=all(st["local_bytes"] == 0
+                               for st in sass.values()))
+        times = {}
+        for name, fn in (("flash_fwd", lambda **b: fa.flash_fwd_cuda(
+                              q, k, v, **kw, **b)),
+                         ("flash_dq", lambda **b: fa.flash_dq_cuda(
+                             *args, **kw, **b)),
+                         ("flash_dkv", lambda **b: fa.flash_dkv_cuda(
+                             *args, **kw, **b))):
+            # in turns: without, with, with, without
+            t = [cuda_ms(lambda: fn(), 10), cuda_ms(lambda: fn(
+                key_bias=bias_t), 10), cuda_ms(lambda: fn(key_bias=bias_t),
+                                                10), cuda_ms(lambda: fn(), 10)]
+            times[name] = {"no_bias_ms": (t[0] + t[3]) / 2,
+                           "bias_ms": (t[1] + t[2]) / 2,
+                           "bias_over_no_bias": (t[1] + t[2]) / (t[0] + t[3]),
+                           "bound_ms": flash_bound(name, Bt, Ht, Hkv, St,
+                                                   causal)[0],
+                           "bias_bound_ms": flash_bound(
+                               name, Bt, Ht, Hkv, St, causal, key_bias=True,
+                               pairs=pairs_t)[0]}
+        tc["causal" if causal else "non_causal"] = dict(res, times=times)
+        emit(phase="bert_flash_checks", family="tensor cores (csrc/"
+             "flash_attn.cu, csrc/flash_bwd.cu)", shape=(
+                 f"B={Bt}, H={Ht}, Hkv={Hkv}, S={St}, hd=128, bf16"),
+             causal=causal, sass=sass, times=times, **res)
+        if not all(res["checks"].values()):
+            raise AssertionError(f"tensor-core flash with a key bias "
+                                 f"(causal={causal}) failed: {res['checks']}")
+        del q, k, v, do, args
+    torch.cuda.empty_cache()
+    return {"generic": rows, "tensor_cores": tc}
+
+
+BERT_ARGV = ["--model=base", "--seq=512", f"--pad-min={BERT_PAD_MIN}",
+             "--bfp=1", "--mesh.dp=8", "--iters=5"]
+BERT_WARMUP = 2
+
+
+def bert_train_path(dev, kernels) -> dict:
+    """BERT-base masked-LM training as the ``train_bert`` driver builds it:
+    bucketed ``DDPTrainer`` over 8 virtual ranks, 8 padded sequences of 512
+    a rank, the fused BFP ring kernels on every bucket, AdamW on the
+    replicated f32 masters; launch counts zeroed just before the first
+    warm-up step and read after the last timed one; every rank's replica
+    bit-identical after every step; then two more steps under the
+    profiler."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_bert
+    from fpga_ai_nic_tpu_torch.models import bert
+    from fpga_ai_nic_tpu_torch.parallel.ddp import replicas_identical
+    mcfg, cfg, run = train_bert.parse(BERT_ARGV)
+    n = cfg.mesh.dp
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr, state = train_bert.build(mcfg, cfg, run)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    steps = BERT_WARMUP + cfg.iters
+    stream = [(tr.shard_batch(b), valid) for b, valid in
+              train_bert.batches(mcfg, cfg, run, steps + 2)]
+    n_buckets = len(tr.plan.buckets)
+    for k in kernels.values():
+        k.launches = 0
+    losses, step_ms, identical = [], [], []
+    for batch, _ in stream[:steps]:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, loss = tr.step(state, batch)
+        end.record()
+        identical.append(replicas_identical(state))   # synchronises
+        losses.append(float(loss))
+        step_ms.append(start.elapsed_time(end))
+    launches = {name: k.launches for name, k in kernels.items()}
+    per_step = dict({name: 0 for name in kernels},
+                    flash_fwd_generic=mcfg.n_layers * n,
+                    flash_dq_generic=mcfg.n_layers * n,
+                    flash_dkv_generic=mcfg.n_layers * n,
+                    ring_rs_update=n_buckets, ring_ag=n_buckets)
+    for name, count in launches.items():
+        if count != steps * per_step[name]:
+            raise AssertionError(f"bert training: {name} launched {count} "
+                                 f"times, expected {steps} x "
+                                 f"{per_step[name]}")
+    timed = step_ms[BERT_WARMUP:]
+    t_losses = losses[BERT_WARMUP:]
+    checks = {"finite": all(math.isfinite(v) for v in losses),
+              "loss_falls": t_losses[-1] < t_losses[0],
+              "replicas_identical_every_step": all(identical)}
+    valid = sum(v for _, v in stream[BERT_WARMUP:steps])
+    tokens = cfg.iters * cfg.global_batch * run.seq
+    wall = sum(timed) / 1e3
+    emit(phase="bert_train_path", model=(
+        f"BERT-base (vocab {mcfg.vocab}, dim {mcfg.dim}, {mcfg.n_layers} "
+        f"layers, {mcfg.n_heads} heads, head_dim {mcfg.head_dim}, ffn "
+        f"{mcfg.ffn_dim}, {mcfg.dtype}, attn_impl {mcfg.attn_impl}), "
+        "random weights"), params=bert.num_params(mcfg), seq=run.seq,
+         pad_min=run.pad_min, global_batch=cfg.global_batch, dp=n,
+         trainer=run.trainer, collective=str(cfg.collective),
+         optimizer=str(cfg.optimizer), n_buckets=n_buckets,
+         bucket_padded_lens=[b.padded_len for b in tr.plan.buckets],
+         weight_init_s=init_s, warmup_steps=BERT_WARMUP, steps=cfg.iters,
+         step_ms=step_ms, median_step_ms=sorted(timed)[len(timed) // 2],
+         tokens_per_sec=valid / wall, padded_tokens_per_sec=tokens / wall,
+         valid_token_share=valid / tokens, losses=losses,
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         launches=launches, launches_per_step=per_step, checks=checks,
+         obs_static=tr.obs_static_metrics())
+    if not all(checks.values()):
+        raise AssertionError(f"bert training failed: {checks}")
+    held = [state]
+    del state
+    extra = iter(stream[steps:])
+
+    def train_step():
+        held[0], _ = tr.step(held[0], next(extra)[0])
+
+    profile_run("bert_train_profile", train_step, 2, groups=TRAIN_GROUPS)
+    del tr, held, stream
+    torch.cuda.empty_cache()
+    return {"launches": launches, "mcfg": mcfg, "cfg": cfg, "run": run}
+
+
+def bert_train_parity(dev, run) -> None:
+    """``bert.loss_fn``'s gradients on one rank's padded batch at BERT-base
+    width and 2 layers, through the flash kernels (attn_impl="pallas":
+    the key-bias channel of the second family) and the plain softmax
+    route ("xla"), compared as one flat vector; and the kernels with a
+    zero bias (the padding mask dropped), which must exceed the limit."""
+    import dataclasses
+    import torch
+    from fpga_ai_nic_tpu_torch import train_bert
+    from fpga_ai_nic_tpu_torch.models import bert
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    mcfg = dataclasses.replace(run["mcfg"], n_layers=2)
+    cfg, r = run["cfg"], run["run"]
+    params = bert.init(torch.Generator(device=dev).manual_seed(cfg.seed),
+                       mcfg, dev)
+    leaves = [t.requires_grad_() for t in fused_update.tree_leaves(params)]
+    (toks, labels, _), _ = next(train_bert.batches(mcfg, cfg, r, 1))
+    per = cfg.global_batch // cfg.mesh.dp
+    batch = (toks[:per].to(dev), labels[:per].to(dev))
+
+    def grads(impl, zero_bias=False):
+        c = dataclasses.replace(mcfg, attn_impl=impl)
+        orig = bert.flash_attention
+
+        def unmasked(q, k, v, *, key_bias, **kw):
+            return orig(q, k, v, key_bias=torch.zeros_like(key_bias), **kw)
+        if zero_bias:
+            bert.flash_attention = unmasked
+        try:
+            loss = bert.loss_fn(params, batch, c)
+            return float(loss.detach()), torch.autograd.grad(loss, leaves)
+        finally:
+            bert.flash_attention = orig
+
+    def dist(ga, gb):
+        return math.sqrt(sum(float((a.float() - b.float()).square().sum())
+                             for a, b in zip(ga, gb)))
+
+    l_k, g_k = grads("pallas")
+    l_p, g_p = grads("xla")
+    norm = math.sqrt(sum(float(g.float().square().sum()) for g in g_p))
+    rel = dist(g_k, g_p) / norm
+    del g_k
+    l_c, g_c = grads("pallas", zero_bias=True)
+    rel_c = dist(g_c, g_p) / norm
+    checks = {"finite": all(math.isfinite(v) for v in (l_k, l_p, rel)),
+              "grad_within_tol": rel <= PARITY_GRAD_REL_TOL,
+              "loss_within_tol": abs(l_k - l_p) <= PARITY_LOSS_TOL,
+              "control_above_tol": rel_c > PARITY_GRAD_REL_TOL}
+    emit(phase="bert_train_parity", layers=mcfg.n_layers, seq=r.seq,
+         batch_rows=per, loss_kernel=l_k, loss_plain=l_p,
+         loss_diff=abs(l_k - l_p), loss_tol=PARITY_LOSS_TOL,
+         grad_rel_err=rel, grad_tol=PARITY_GRAD_REL_TOL,
+         grad_norm_plain=norm, control="kernels with a zero key bias",
+         control_loss=l_c, control_grad_rel_err=rel_c, checks=checks)
+    del params, leaves, g_p, g_c
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"bert training parity failed: {checks}")
+
+
 def main() -> int:
     # the Llama training phase holds about 60 GB at its peak and frees and
     # reallocates 7-15 GB buffers every step; growable segments keep the
@@ -2402,6 +2772,15 @@ def main() -> int:
     llama_train_parity(dev, train)
     auto = auto_route(dev)
 
+    # -- 13-15. BERT-base: the key-bias channel, the DDP path, its parity ----------
+    bert_flash = bert_flash_checks(dev)
+    bert_kernels = dict(serve_kernels,
+                        flash_fwd_generic=flash_attention.FLASH_FWD_GENERIC,
+                        flash_dq_generic=flash_attention.FLASH_DQ_GENERIC,
+                        flash_dkv_generic=flash_attention.FLASH_DKV_GENERIC)
+    bert_run = bert_train_path(dev, bert_kernels)
+    bert_train_parity(dev, bert_run)
+
     # -- 13. the kernels line and the result -----------------------------------------
     meta = {
         "bfp_encode": (PORT + "/csrc/bfp_codec.cu",
@@ -2426,6 +2805,12 @@ def main() -> int:
                              REF + "/ops/flash_pallas.py:222"),
         "flash_dkv_generic": (PORT + "/csrc/flash_generic.cu",
                               REF + "/ops/flash_pallas.py:267"),
+        "flash_fwd_generic_bias": (PORT + "/csrc/flash_generic.cu",
+                                   REF + "/ops/flash_pallas.py:93"),
+        "flash_dq_generic_bias": (PORT + "/csrc/flash_generic.cu",
+                                  REF + "/ops/flash_pallas.py:222"),
+        "flash_dkv_generic_bias": (PORT + "/csrc/flash_generic.cu",
+                                   REF + "/ops/flash_pallas.py:267"),
         "int8_encode": (PORT + "/csrc/int8_codec.cu",
                         REF + "/compress/int8.py:129"),
         "int8_decode": (PORT + "/csrc/int8_codec.cu",
@@ -2457,6 +2842,9 @@ def main() -> int:
             "device_ms_on"])
     for name, r in auto["rows"].items():
         launches[name] = auto["launches"][name]
+        results[name] = r
+    for name, r in bert_flash["generic"].items():
+        launches[name] = bert_run["launches"][name[:-len("_bias")]]
         results[name] = r
     dec_row, pre_row = paged["decode GQA ps16"], paged["prefill GQA ps16"]
     results["paged_attend"] = {
@@ -2510,6 +2898,22 @@ def main() -> int:
         if name in auto["rows"]:
             row.update(shape="tiny f32 Llama, head_dim 16, S=128",
                        launches_from="auto_route", call_ms=r["call_ms"])
+        if name in bert_flash["generic"]:
+            row.update(shape=("BERT-base attention: B=8, H=12, S=512, hd=64, "
+                              "bf16, non-causal, padding mask as key bias"),
+                       launches_from="bert_train_path", library=BERT_LIBRARY,
+                       call_ms=r["call_ms"], tol_ratio=r["tol_ratio"])
+        if name in flash_kernels:
+            tcb = bert_flash["tensor_cores"]
+            row.update(bias_shape=("B=2, H=8, Hkv=8, S=1024, hd=128, bf16, "
+                                   "padding mask as key bias"),
+                       **{f"bias_{c}_{key}": tcb[c]["times"][name][key]
+                          for c in tcb for key in ("bias_ms", "no_bias_ms",
+                                                   "bias_over_no_bias",
+                                                   "bound_ms",
+                                                   "bias_bound_ms")},
+                       bias_tol_ratio=max(max(tcb[c]["tol_ratio"].values())
+                                          for c in tcb))
         out.append(row)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device time of the port's codec kernels on one NVIDIA card.
 
-    python3 codec_probe.py [--root DIR] [--control] [--step]
+    python3 codec_probe.py [--root DIR] [--control] [--step] [--flash]
 
 Times ``int8_encode`` (both roundings), ``int8_decode``, ``bfp_encode`` and
 ``bfp_decode`` at the main paths' shapes (``chip_smoke.py``'s), each by the
@@ -16,7 +16,11 @@ script's helpers, so two commits compare in one process order on one card.
 pattern (float4 loads of 16 rows, char4 stores and one 8-byte scale store a
 thread), the floor that pattern reaches; ``--step`` times the int8 MLP
 step of ``chip_smoke.py``'s ``int8_train_path`` (dp=2, 1 warm-up and 10
-timed steps).  Each result is one JSON line; the last line sums them up.
+timed steps).  ``--flash`` times the tensor-core flash kernels without a
+key bias (``flash_fwd``, ``flash_dq``, ``flash_dkv``, by device time) at
+``chip_smoke.py``'s two shapes and prints a sha256 digest of their
+outputs on numpy-seeded inputs, so two checkouts' bias-free kernels
+compare bit for bit.  Each result is one JSON line; the last line sums them up.
 Without a card it exits nonzero.
 """
 
@@ -151,12 +155,64 @@ def int8_step(cs, dev, steps=10):
             "loss_last": float(loss)}
 
 
+def flash_case(cs, dev, si):
+    """``cs.FLASH_SHAPES[si]``'s bf16 inputs on the card (drawn with numpy
+    from seed ``300 + si``, so no torch version changes them), the
+    bias-free tensor-core kernels' outputs on them, and the sha256 digest
+    of out, lse, dq, dk and dv: ``(name, digest, (q, k, v), args, kw)``."""
+    import hashlib
+    import numpy as np
+    import torch
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    name, B, H, n_kv, S, causal = cs.FLASH_SHAPES[si]
+    rng = np.random.default_rng(300 + si)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev).to(torch.bfloat16)
+
+    q, k, v = rand(B, H, S, 128), rand(B, n_kv, S, 128), rand(B, n_kv, S,
+                                                              128)
+    do = rand(B, H, S, 128)
+    kw = dict(causal=causal, sm_scale=128 ** -0.5)
+    out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    h = hashlib.sha256()
+    for t in (out, lse, fa.flash_dq_cuda(*args, **kw),
+              *fa.flash_dkv_cuda(*args, **kw)):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return name, h.hexdigest(), (q, k, v), args, kw
+
+
+def flash_rows(cs, dev) -> dict:
+    """The bias-free tensor-core flash kernels at ``cs.FLASH_SHAPES``:
+    device ms a call and the digest of their outputs (seeded inputs on
+    the card; the kernels are deterministic)."""
+    import torch
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    rows = {}
+    for si in range(len(cs.FLASH_SHAPES)):
+        name, digest, (q, k, v), args, kw = flash_case(cs, dev, si)
+        rows[name] = {"digest": digest, "device_ms": {
+            "flash_fwd": cs.device_ms(lambda: fa.flash_fwd_cuda(
+                q, k, v, **kw), 10, ("flash_fwd_kernel",)),
+            "flash_dq": cs.device_ms(lambda: fa.flash_dq_cuda(*args, **kw),
+                                     10, ("flash_dq_kernel",)),
+            "flash_dkv": cs.device_ms(lambda: fa.flash_dkv_cuda(
+                *args, **kw), 10, ("flash_dkv_kernel",))}}
+        del q, k, v, args
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE,
                     help="checkout whose port is timed")
     ap.add_argument("--control", action="store_true")
     ap.add_argument("--step", action="store_true")
+    ap.add_argument("--flash", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -232,6 +288,10 @@ def main() -> int:
     if args.step:
         out["int8_step"] = int8_step(cs, dev)
         cs.emit(phase="probe_step", **out["int8_step"])
+    if args.flash:
+        _build.build(("flash_attn.cu", "flash_bwd.cu"))
+        out["flash"] = flash_rows(cs, dev)
+        cs.emit(phase="probe_flash", **out["flash"])
     print(json.dumps(out), flush=True)
     return 0
 

@@ -21,7 +21,10 @@
 // The two warpgroups take turns to issue s (named barriers 1 and 2, FA3's
 // ping-pong): while one runs its softmax the tensor cores work on the
 // other's products.  Each row keeps a limit: key j is seen iff
-// j <= lim[row]; the masked scores are -inf.
+// j <= lim[row]; the masked scores are -inf.  With BIAS (the Pallas
+// kernels' has_bias channel, flash_attn.cu only) every score also takes
+// an additive per-key bias before the softmax; without it the code is the
+// mainloop the paged prefill shares, unchanged.
 
 #pragma once
 
@@ -86,15 +89,18 @@ __device__ __forceinline__ void fwd_producer(uint32_t ring, uint32_t bars,
 // the first nk_w and only releases the rest (both warpgroups walk all nk,
 // so the turn-taking barriers stay paired).  sQ holds nq bf16 terms of
 // this warpgroup's q tile, TILE bytes apart.  lim[h]: the last key seen by
-// row r0 + 8 h of the tile (-1: none).  Leaves o unnormalised, m in log2
+// row r0 + 8 h of the tile (-1: none).  brow (BIAS only): the f32 biases
+// of this head's keys, in natural units.  Leaves o unnormalised, m in log2
 // units and l this thread's part of the row sums (fwd_finish completes
 // them).
+template <bool BIAS = false>
 __device__ __forceinline__ void fwd_consumer(uint32_t ring, uint32_t bars,
                                              uint32_t sQ, int nq, int w,
                                              int nk, int nk_w,
                                              const int (&lim)[2],
                                              float scale2, float (&o)[64],
-                                             float (&m)[2], float (&l)[2]) {
+                                             float (&m)[2], float (&l)[2],
+                                             const float* brow = nullptr) {
   const int lane = threadIdx.x & 31, c0 = 2 * (lane & 3);
   const uint32_t full = bars, empty = bars + 8 * FWD_STAGES;
 #pragma unroll
@@ -129,8 +135,23 @@ __device__ __forceinline__ void fwd_consumer(uint32_t ring, uint32_t bars,
       pin(s);
       // raw scores: the max is taken before the scale (scale2 > 0), and
       // p = 2^(s * scale2 - m) is one fused multiply-add and one ex2; only
-      // a tile that crosses a row's limit is masked
+      // a tile that crosses a row's limit is masked.  With a bias the
+      // scores are scaled first, t = s * scale2 + bias * log2(e) (a bias
+      // can reorder them), and p = 2^(t - m).
       const int k0 = it * T;
+      if constexpr (BIAS) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {  // this thread's column pair j
+          const float2 b = __ldg(reinterpret_cast<const float2*>(
+              brow + k0 + 8 * j + c0));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            s[4 * j + 2 * h] = __fmaf_rn(s[4 * j + 2 * h], scale2, b.x * LOG2E);
+            s[4 * j + 2 * h + 1] =
+                __fmaf_rn(s[4 * j + 2 * h + 1], scale2, b.y * LOG2E);
+          }
+        }
+      }
       if (k0 + T - 1 > min(lim[0], lim[1])) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
@@ -149,7 +170,7 @@ __device__ __forceinline__ void fwd_consumer(uint32_t ring, uint32_t bars,
       for (int h = 0; h < 2; ++h) {
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        mx[h] = fmaxf(m[h], mx[h] * scale2);
+        mx[h] = fmaxf(m[h], BIAS ? mx[h] : mx[h] * scale2);
         alpha[h] = ex2(m[h] - mx[h]);
         m[h] = mx[h];
         nm[h] = -mx[h];
@@ -158,7 +179,8 @@ __device__ __forceinline__ void fwd_consumer(uint32_t ring, uint32_t bars,
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int h = (i >> 1) & 1;
-        const float p = ex2(__fmaf_rn(s[i], scale2, nm[h]));
+        const float p = BIAS ? ex2(s[i] + nm[h])
+                             : ex2(__fmaf_rn(s[i], scale2, nm[h]));
         s[i] = p;
         l[h] += p;
       }

@@ -6,7 +6,10 @@
 //
 // Layouts: q / out are [B*H, S, 128] bf16, k / v are [B*Hkv, S, 128] bf16,
 // lse is [B*H, S] f32.  GQA is handled by indexing: query head bh reads KV
-// head bh / G (G = H / Hkv).
+// head bh / G (G = H / Hkv).  The key bias (the Pallas kernel's has_bias,
+// BERT's padding mask) is an f32 [B, Sk] row added to every score of the
+// batch's heads before the softmax; it is a template flag (BIAS), so the
+// launch without it is the kernel it was before the channel existed.
 //
 // What computes: the Pallas kernel's arithmetic.  s = q . k^T is a bf16
 // product summed in f32 (exact operands); the online softmax runs in f32;
@@ -38,11 +41,13 @@ namespace {
 
 using FlashSmem = FwdSmem<1>;
 
+template <bool BIAS>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  float* __restrict__ lse, int G, int Sq, int Sk,
-                 int causal, float sm_scale) {
+                 int causal, float sm_scale,
+                 const float* __restrict__ bias, int H) {
   extern __shared__ uint8_t smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t ring = base + FlashSmem::RING;
@@ -90,8 +95,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int h = 0; h < 2; ++h)
     lim[h] = causal ? qt * T + r0 + 8 * h : Sk - 1;
   float o[64], m[2], l[2], ls[2];
-  fwd_consumer(ring, bars, sQ, 1, w, nk, w ? nkw[1] : nkw[0], lim,
-               sm_scale * LOG2E, o, m, l);
+  fwd_consumer<BIAS>(ring, bars, sQ, 1, w, nk, w ? nkw[1] : nkw[0], lim,
+                     sm_scale * LOG2E, o, m, l,
+                     BIAS ? bias + (size_t)(bh / H) * Sk : nullptr);
   if (!valid) return;
   fwd_finish(o, m, l, ls);
   store_tile(out + row0 * HD, o, r0, c0);
@@ -101,24 +107,36 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <bool BIAS>
+int fwd(const void* q, const void* k, const void* v, const void* bias,
+        void* out, void* lse, int BH, int G, int H, int Sq, int Sk,
+        int causal, float sm_scale, cudaStream_t stream) {
+  int err = launch_prep(flash_fwd_kernel<BIAS>, FlashSmem::BYTES);
+  if (err) return err;
+  const int pairs = (Sq / T + 1) / 2;
+  flash_fwd_kernel<BIAS><<<dim3(pairs, BH), FWD_THREADS, FlashSmem::BYTES,
+                           stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
+      (float*)lse, G, Sq, Sk, causal, sm_scale, (const float*)bias, H);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface (ctypes).  BH = B * H query heads, G = H / Hkv; Sq and Sk
-// are multiples of 64; every pointer is 16-byte aligned and contiguous.
-// Returns the launch's cudaError_t.
+// are multiples of 64; every pointer is 16-byte aligned and contiguous;
+// bias is f32 [B, Sk] or null (the kernel without the channel).  Returns
+// the launch's cudaError_t.
 extern "C" {
 
-int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
-                     void* lse, int BH, int G, int Sq, int Sk, int causal,
-                     float sm_scale, cudaStream_t stream) {
-  int err = launch_prep(flash_fwd_kernel, FlashSmem::BYTES);
-  if (err) return err;
-  const int pairs = (Sq / T + 1) / 2;
-  flash_fwd_kernel<<<dim3(pairs, BH), FWD_THREADS, FlashSmem::BYTES,
-                     stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                               (bf16*)out, (float*)lse, G, Sq, Sk, causal,
-                               sm_scale);
-  return (int)cudaGetLastError();
+int flash_fwd_launch(const void* q, const void* k, const void* v,
+                     const void* bias, void* out, void* lse, int BH, int G,
+                     int H, int Sq, int Sk, int causal, float sm_scale,
+                     cudaStream_t stream) {
+  return bias ? fwd<true>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk, causal,
+                          sm_scale, stream)
+              : fwd<false>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk, causal,
+                           sm_scale, stream);
 }
 
 }  // extern "C"

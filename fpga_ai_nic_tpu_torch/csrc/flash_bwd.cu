@@ -8,6 +8,11 @@
 // [B*Hkv, S, 128] bf16, lse / delta are [B*H, S] f32.  GQA is handled by
 // indexing: query head bh reads KV head bh / G (G = H / Hkv); the dk/dv
 // kernel sums the G query heads of its KV head itself, in a fixed order.
+// The key bias (the Pallas kernels' has_bias, BERT's padding mask) is an
+// f32 [B, Sk] row, a template flag (BIAS) of both kernels: with it, p is
+// recomputed as exp(s * sm_scale + bias - lse) on every tile, so a masked
+// key's p is 0 wherever it lies, not only where the causal index test of
+// the diagonal tile reaches; without it the kernels are unchanged.
 //
 // What computes: the Pallas kernels' recompute.  s = q . k^T and
 // dp = dO . v^T are bf16 products summed in f32 (exact operands);
@@ -49,12 +54,14 @@ namespace {
 
 // -- dq: one block per (query head, q tile); loop over k tiles ---------------
 
+template <bool BIAS>
 __global__ void __launch_bounds__(NT, 2)
 flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ dq,
-                int G, int Sq, int Sk, int causal, float sm_scale) {
+                int G, int Sq, int Sk, int causal, float sm_scale,
+                const float* __restrict__ bias, int H) {
   extern __shared__ uint8_t smem[];
   const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t sDO = sQ + TILE;
@@ -118,10 +125,23 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pin(dp);
 
     const bool diag = causal && kt == qt;  // key k0 + c vs query q0 + r
+    if constexpr (BIAS) {  // s * scale2 + bias * log2(e), every tile
+      const float* brow = bias + (size_t)(bh / H) * Sk + kt * T;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 b =
+            __ldg(reinterpret_cast<const float2*>(brow + 8 * j + c0));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s[4 * j + 2 * h] = s[4 * j + 2 * h] * scale2 + b.x * LOG2E;
+          s[4 * j + 2 * h + 1] = s[4 * j + 2 * h + 1] * scale2 + b.y * LOG2E;
+        }
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int h = (i >> 1) & 1;
-      float p = ex2(s[i] * scale2 - lr[h]);
+      float p = ex2((BIAS ? s[i] : s[i] * scale2) - lr[h]);
       if (diag && 8 * (i >> 2) + c0 + (i & 1) > r0 + 8 * h) p = 0.f;
       dp[i] = p * (dp[i] - dr[h]) * sm_scale;  // ds
     }
@@ -145,13 +165,14 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // -- dk/dv: one block per (KV head, k tile); loop over (query head of the
 // group, q tile), summing the group inside the block ---------------------------
 
+template <bool BIAS>
 __global__ void __launch_bounds__(NT, 2)
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dk,
                  bf16* __restrict__ dv, int G, int Sq, int Sk, int causal,
-                 float sm_scale) {
+                 float sm_scale, const float* __restrict__ bias, int Hkv) {
   extern __shared__ uint8_t smem[];
   const uint32_t raw = smem_u32(smem);
   const uint32_t sK = (raw + 1023) & ~1023u;
@@ -219,10 +240,17 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pin(dp);
 
     const bool diag = causal && qt_first + it % nqs == kt;
+    if constexpr (BIAS) {  // s * scale2 + bias * log2(e), every step
+      const float* brow = bias + (size_t)(kvh / Hkv) * Sk + k0 + r0;
+      const float b0 = __ldg(brow) * LOG2E, b1 = __ldg(brow + 8) * LOG2E;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = s[i] * scale2 + ((i >> 1) & 1 ? b1 : b0);
+    }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int c = 8 * (i >> 2) + c0 + (i & 1);
-      float p = ex2(s[i] * scale2 - sL[c] * LOG2E);
+      float p = ex2((BIAS ? s[i] : s[i] * scale2) - sL[c] * LOG2E);
       if (diag && r0 + 8 * ((i >> 1) & 1) > c) p = 0.f;
       s[i] = p;
       dp[i] = p * (dp[i] - sD[c]) * sm_scale;  // ds^T
@@ -258,37 +286,63 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 constexpr size_t DQ_SMEM = 6 * TILE + 1024;
 constexpr size_t DKV_SMEM = 6 * TILE + 1024 + 1024;
 
+template <bool BIAS>
+int dq(const void* q, const void* k, const void* v, const void* dout,
+       const void* lse, const void* delta, const void* bias, void* dq_,
+       int BH, int G, int H, int Sq, int Sk, int causal, float sm_scale,
+       cudaStream_t stream) {
+  int err = launch_prep(flash_dq_kernel<BIAS>, DQ_SMEM);
+  if (err) return err;
+  flash_dq_kernel<BIAS><<<dim3(Sq / T, BH), NT, DQ_SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dq_, G, Sq, Sk, causal,
+      sm_scale, (const float*)bias, H);
+  return (int)cudaGetLastError();
+}
+
+template <bool BIAS>
+int dkv(const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, const void* bias, void* dk,
+        void* dv, int BHkv, int G, int Hkv, int Sq, int Sk, int causal,
+        float sm_scale, cudaStream_t stream) {
+  int err = launch_prep(flash_dkv_kernel<BIAS>, DKV_SMEM);
+  if (err) return err;
+  flash_dkv_kernel<BIAS><<<dim3(Sk / T, BHkv), NT, DKV_SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, G, Sq,
+      Sk, causal, sm_scale, (const float*)bias, Hkv);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface (ctypes).  BH = B * H query heads, G = H / Hkv; Sq and Sk
-// are multiples of 64; every pointer is 16-byte aligned and contiguous.
-// Each returns the launch's cudaError_t.
+// are multiples of 64; every pointer is 16-byte aligned and contiguous;
+// bias is f32 [B, Sk] or null (the kernels without the channel); H / Hkv
+// are the heads a batch of the grid's head index.  Each returns the
+// launch's cudaError_t.
 extern "C" {
 
 int flash_dq_launch(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
-                    void* dq, int BH, int G, int Sq, int Sk, int causal,
-                    float sm_scale, cudaStream_t stream) {
-  int err = launch_prep(flash_dq_kernel, DQ_SMEM);
-  if (err) return err;
-  flash_dq_kernel<<<dim3(Sq / T, BH), NT, DQ_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, G, Sq, Sk, causal,
-      sm_scale);
-  return (int)cudaGetLastError();
+                    const void* bias, void* dq_, int BH, int G, int H,
+                    int Sq, int Sk, int causal, float sm_scale,
+                    cudaStream_t stream) {
+  return bias ? dq<true>(q, k, v, dout, lse, delta, bias, dq_, BH, G, H, Sq,
+                         Sk, causal, sm_scale, stream)
+              : dq<false>(q, k, v, dout, lse, delta, bias, dq_, BH, G, H,
+                          Sq, Sk, causal, sm_scale, stream);
 }
 
 int flash_dkv_launch(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
-                     void* dk, void* dv, int BHkv, int G, int Sq, int Sk,
-                     int causal, float sm_scale, cudaStream_t stream) {
-  int err = launch_prep(flash_dkv_kernel, DKV_SMEM);
-  if (err) return err;
-  flash_dkv_kernel<<<dim3(Sk / T, BHkv), NT, DKV_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, G, Sq,
-      Sk, causal, sm_scale);
-  return (int)cudaGetLastError();
+                     const void* bias, void* dk, void* dv, int BHkv, int G,
+                     int Hkv, int Sq, int Sk, int causal, float sm_scale,
+                     cudaStream_t stream) {
+  return bias ? dkv<true>(q, k, v, dout, lse, delta, bias, dk, dv, BHkv, G,
+                          Hkv, Sq, Sk, causal, sm_scale, stream)
+              : dkv<false>(q, k, v, dout, lse, delta, bias, dk, dv, BHkv, G,
+                           Hkv, Sq, Sk, causal, sm_scale, stream);
 }
 
 }  // extern "C"

@@ -14,12 +14,17 @@
 // Layouts as in flash_attn.cu: q / out / dq / do are [B*H, Sq, hd], k / v /
 // dk / dv are [B*Hkv, Sk, hd], all in one element type E; lse and delta
 // are [B*H, Sq] f32.  Query head bh reads KV head bh / G; dk/dv sum the G
-// query heads of their KV head in the kernel, in a fixed order.
+// query heads of their KV head in the kernel, in a fixed order.  bias is
+// the Pallas kernels' has_bias channel: an f32 [B, Sk] row of additive key
+// biases (BERT's padding mask, 0 or -1e30), or null when absent; the
+// grid's head index h belongs to batch h / hpb (hpb = H, or Hkv in dk/dv).
 //
 // What computes: the Pallas kernels' arithmetic, all in f32 on the CUDA
-// cores.  Elements are widened to f32 on load; s = (q . k) * sm_scale;
-// masked scores are -1e30 before the online softmax (forward), masked p
-// is 0 (backward), as the plain versions have it; lse = m + log l with the
+// cores.  Elements are widened to f32 on load; s = (q . k) * sm_scale,
+// then + bias[key] where there is a bias (before the online softmax and
+// before the backward's p = exp(s - lse), as the Pallas kernels add it);
+// causally masked scores are -1e30 before the online softmax (forward),
+// masked p is 0 (backward), as the plain versions have it; lse = m + log l with the
 // l == 0 guard; p and ds stay f32 through every product; one rounding to
 // E at the store.  No atomics: two launches give the same bits.
 //
@@ -98,9 +103,11 @@ __device__ __forceinline__ void stage(float* dst, const E* src, int row0,
 template <typename E>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                         const E* __restrict__ v, E* __restrict__ out,
-                         float* __restrict__ lse, int G, int Sq, int Sk,
-                         int hd, int causal, float sm_scale) {
+                         const E* __restrict__ v,
+                         const float* __restrict__ bias,
+                         E* __restrict__ out, float* __restrict__ lse,
+                         int G, int hpb, int Sq, int Sk, int hd, int causal,
+                         float sm_scale) {
   extern __shared__ float sm[];
   const int sd = hd + 1;
   float* Qs = sm;                   // [ROWS][hd]
@@ -110,6 +117,7 @@ flash_fwd_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const E* kb = k + (size_t)kvh * Sk * hd;
   const E* vb = v + (size_t)kvh * Sk * hd;
+  const float* brow = bias ? bias + (size_t)(bh / hpb) * Sk : nullptr;
   stage(Qs, q + (size_t)bh * Sq * hd, r0, ROWS, hd, hd);
   float m[RW], l[RW], o[RW][MAXC];
 #pragma unroll
@@ -135,10 +143,12 @@ flash_fwd_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
         s[r] = __fmaf_rn(Qs[(w * RW + r) * hd + d], kk, s[r]);
     }
     const int key = k0 + lane;
+    const float kbias = brow ? brow[key] : 0.f;
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
       const int row = r0 + w * RW + r;
       float sr = __fmul_rn(s[r], sm_scale);
+      if (brow) sr = __fadd_rn(sr, kbias);
       if (causal && key > row) sr = NEG;
       const float mn = fmaxf(m[r], warp_max(sr));
       const float alpha = expf(m[r] - mn);
@@ -182,8 +192,9 @@ __global__ void __launch_bounds__(THREADS)
 flash_dq_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
                         const E* __restrict__ v, const E* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, E* __restrict__ dq,
-                        int G, int Sq, int Sk, int hd, int causal,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ bias, E* __restrict__ dq,
+                        int G, int hpb, int Sq, int Sk, int hd, int causal,
                         float sm_scale) {
   extern __shared__ float sm[];
   const int sd = hd + 1;
@@ -195,6 +206,7 @@ flash_dq_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const E* kb = k + (size_t)kvh * Sk * hd;
   const E* vb = v + (size_t)kvh * Sk * hd;
+  const float* brow = bias ? bias + (size_t)(bh / hpb) * Sk : nullptr;
   stage(Qs, q + (size_t)bh * Sq * hd, r0, ROWS, hd, hd);
   stage(Ds, dout + (size_t)bh * Sq * hd, r0, ROWS, hd, hd);
   float lr[RW], dr[RW], acc[RW][MAXC];
@@ -224,10 +236,13 @@ flash_dq_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
       }
     }
     const int key = k0 + lane;
+    const float kbias = brow ? brow[key] : 0.f;
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
       const int row = r0 + w * RW + r;
-      float p = expf(__fsub_rn(__fmul_rn(s[r], sm_scale), lr[r]));
+      float t = __fmul_rn(s[r], sm_scale);
+      if (brow) t = __fadd_rn(t, kbias);
+      float p = expf(__fsub_rn(t, lr[r]));
       if (causal && key > row) p = 0.f;
       s[r] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[r], dr[r])), sm_scale);
     }
@@ -264,8 +279,10 @@ flash_dkv_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
                          const E* __restrict__ v, const E* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
+                         const float* __restrict__ bias,
                          E* __restrict__ dk, E* __restrict__ dv, int G,
-                         int Sq, int Sk, int hd, int causal, float sm_scale) {
+                         int hpb, int Sq, int Sk, int hd, int causal,
+                         float sm_scale) {
   extern __shared__ float sm[];
   const int sd = hd + 1;
   float* Kr = sm;                   // [ROWS][hd]  the block's keys
@@ -278,6 +295,11 @@ flash_dkv_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   stage(Kr, k + (size_t)kvh * Sk * hd, c0, ROWS, hd, hd);
   stage(Vr, v + (size_t)kvh * Sk * hd, c0, ROWS, hd, hd);
+  // the biases of this warp's keys: one per row it owns
+  float kbias[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+    kbias[r] = bias ? bias[(size_t)(kvh / hpb) * Sk + c0 + w * RW + r] : 0.f;
   float gk[RW][MAXC], gv[RW][MAXC];
 #pragma unroll
   for (int r = 0; r < RW; ++r)
@@ -315,7 +337,9 @@ flash_dkv_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
         const int key = c0 + w * RW + r;
-        p[r] = expf(__fsub_rn(__fmul_rn(s[r], sm_scale), lq));
+        float t = __fmul_rn(s[r], sm_scale);
+        if (bias) t = __fadd_rn(t, kbias[r]);
+        p[r] = expf(__fsub_rn(t, lq));
         if (causal && key > qrow) p[r] = 0.f;
         s[r] = __fmul_rn(__fmul_rn(p[r], __fsub_rn(dp[r], dq_)), sm_scale);
       }
@@ -366,37 +390,38 @@ int prep(Kern kernel, size_t smem) {
 }
 
 template <typename E>
-int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-        int BH, int G, int Sq, int Sk, int hd, int causal, float sm_scale,
-        cudaStream_t stream) {
+int fwd(const void* q, const void* k, const void* v, const void* bias,
+        void* out, void* lse, int BH, int G, int hpb, int Sq, int Sk, int hd,
+        int causal, float sm_scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (ROWS * hd + 2 * KT * (hd + 1));
   const int err = prep(flash_fwd_generic_kernel<E>, smem);
   if (err) return err;
   flash_fwd_generic_kernel<E><<<dim3(Sq / ROWS, BH), THREADS, smem, stream>>>(
-      (const E*)q, (const E*)k, (const E*)v, (E*)out, (float*)lse, G, Sq, Sk,
-      hd, causal, sm_scale);
+      (const E*)q, (const E*)k, (const E*)v, (const float*)bias, (E*)out,
+      (float*)lse, G, hpb, Sq, Sk, hd, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <typename E>
 int dq(const void* q, const void* k, const void* v, const void* dout,
-       const void* lse, const void* delta, void* dq_, int BH, int G, int Sq,
-       int Sk, int hd, int causal, float sm_scale, cudaStream_t stream) {
+       const void* lse, const void* delta, const void* bias, void* dq_,
+       int BH, int G, int hpb, int Sq, int Sk, int hd, int causal,
+       float sm_scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * ROWS * hd + 2 * KT * (hd + 1));
   const int err = prep(flash_dq_generic_kernel<E>, smem);
   if (err) return err;
   flash_dq_generic_kernel<E><<<dim3(Sq / ROWS, BH), THREADS, smem, stream>>>(
       (const E*)q, (const E*)k, (const E*)v, (const E*)dout,
-      (const float*)lse, (const float*)delta, (E*)dq_, G, Sq, Sk, hd, causal,
-      sm_scale);
+      (const float*)lse, (const float*)delta, (const float*)bias, (E*)dq_, G,
+      hpb, Sq, Sk, hd, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <typename E>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
-        const void* lse, const void* delta, void* dk, void* dv, int BHkv,
-        int G, int Sq, int Sk, int hd, int causal, float sm_scale,
-        cudaStream_t stream) {
+        const void* lse, const void* delta, const void* bias, void* dk,
+        void* dv, int BHkv, int G, int hpb, int Sq, int Sk, int hd,
+        int causal, float sm_scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * ROWS * hd + 2 * KT * (hd + 1) + 2 * KT);
   const int err = prep(flash_dkv_generic_kernel<E>, smem);
@@ -404,67 +429,58 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   flash_dkv_generic_kernel<E><<<dim3(Sk / ROWS, BHkv), THREADS, smem,
                                 stream>>>(
       (const E*)q, (const E*)k, (const E*)v, (const E*)dout,
-      (const float*)lse, (const float*)delta, (E*)dk, (E*)dv, G, Sq, Sk, hd,
-      causal, sm_scale);
+      (const float*)lse, (const float*)delta, (const float*)bias, (E*)dk,
+      (E*)dv, G, hpb, Sq, Sk, hd, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16 (ops/flash_attention.py's
-// GENERIC_DTYPES)
+// GENERIC_DTYPES); bias: f32 [B, Sk] or null; hpb: H (forward, dq) or Hkv
+// (dk/dv), the grid's heads a batch
 extern "C" {
 
-int flash_fwd_generic_launch(const void* q, const void* k, const void* v,
-                             void* out, void* lse, int dtype, int BH, int G,
-                             int Sq, int Sk, int hd, int causal,
-                             float sm_scale, cudaStream_t stream) {
-  if (bad_shape(G, Sq, Sk, hd)) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return fwd<float>(q, k, v, out, lse, BH, G, Sq, Sk, hd, causal,
-                              sm_scale, stream);
-    case 1: return fwd<__nv_bfloat16>(q, k, v, out, lse, BH, G, Sq, Sk, hd,
-                                      causal, sm_scale, stream);
-    case 2: return fwd<__half>(q, k, v, out, lse, BH, G, Sq, Sk, hd, causal,
-                               sm_scale, stream);
-  }
+#define GENERIC_DISPATCH(FN, ...)                                          \
+  switch (dtype) {                                                         \
+    case 0: return FN<float>(__VA_ARGS__);                                 \
+    case 1: return FN<__nv_bfloat16>(__VA_ARGS__);                         \
+    case 2: return FN<__half>(__VA_ARGS__);                                \
+  }                                                                        \
   return (int)cudaErrorInvalidValue;
+
+int flash_fwd_generic_launch(const void* q, const void* k, const void* v,
+                             const void* bias, void* out, void* lse,
+                             int dtype, int BH, int G, int hpb, int Sq,
+                             int Sk, int hd, int causal, float sm_scale,
+                             cudaStream_t stream) {
+  if (bad_shape(G, Sq, Sk, hd) || hpb < 1) return (int)cudaErrorInvalidValue;
+  GENERIC_DISPATCH(fwd, q, k, v, bias, out, lse, BH, G, hpb, Sq, Sk, hd,
+                   causal, sm_scale, stream)
 }
 
 int flash_dq_generic_launch(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
-                            const void* delta, void* dq_, int dtype, int BH,
-                            int G, int Sq, int Sk, int hd, int causal,
-                            float sm_scale, cudaStream_t stream) {
-  if (bad_shape(G, Sq, Sk, hd)) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return dq<float>(q, k, v, dout, lse, delta, dq_, BH, G, Sq, Sk,
-                             hd, causal, sm_scale, stream);
-    case 1: return dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq_, BH, G,
-                                     Sq, Sk, hd, causal, sm_scale, stream);
-    case 2: return dq<__half>(q, k, v, dout, lse, delta, dq_, BH, G, Sq, Sk,
-                              hd, causal, sm_scale, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+                            const void* delta, const void* bias, void* dq_,
+                            int dtype, int BH, int G, int hpb, int Sq, int Sk,
+                            int hd, int causal, float sm_scale,
+                            cudaStream_t stream) {
+  if (bad_shape(G, Sq, Sk, hd) || hpb < 1) return (int)cudaErrorInvalidValue;
+  GENERIC_DISPATCH(dq, q, k, v, dout, lse, delta, bias, dq_, BH, G, hpb, Sq,
+                   Sk, hd, causal, sm_scale, stream)
 }
 
 int flash_dkv_generic_launch(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
-                             const void* delta, void* dk, void* dv, int dtype,
-                             int BHkv, int G, int Sq, int Sk, int hd,
-                             int causal, float sm_scale,
-                             cudaStream_t stream) {
-  if (bad_shape(G, Sq, Sk, hd)) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return dkv<float>(q, k, v, dout, lse, delta, dk, dv, BHkv, G, Sq,
-                              Sk, hd, causal, sm_scale, stream);
-    case 1: return dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv,
-                                      BHkv, G, Sq, Sk, hd, causal, sm_scale,
-                                      stream);
-    case 2: return dkv<__half>(q, k, v, dout, lse, delta, dk, dv, BHkv, G,
-                               Sq, Sk, hd, causal, sm_scale, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+                             const void* delta, const void* bias, void* dk,
+                             void* dv, int dtype, int BHkv, int G, int hpb,
+                             int Sq, int Sk, int hd, int causal,
+                             float sm_scale, cudaStream_t stream) {
+  if (bad_shape(G, Sq, Sk, hd) || hpb < 1) return (int)cudaErrorInvalidValue;
+  GENERIC_DISPATCH(dkv, q, k, v, dout, lse, delta, bias, dk, dv, BHkv, G,
+                   hpb, Sq, Sk, hd, causal, sm_scale, stream)
 }
+
+#undef GENERIC_DISPATCH
 
 }  // extern "C"

@@ -3,18 +3,21 @@
 
 Train the same model through the same explicit ring, compressed and
 uncompressed, and compare final losses.  Every arm uses ``impl="ring"``
-and the ZeRO-1 ``DPTrainer``, and all arms are paired on common random
-numbers (the same initial weights and batch stream per seed), so the
-final-loss ratio isolates the wire codec; for error-feedback codecs
-(top-k) the arm also carries the residual through
+and one trainer, the ZeRO-1 ``DPTrainer`` (``trainer="dp"``, the default
+here and the one the comparison uses) or the bucketed ``DDPTrainer``
+(``"ddp"``, which carries no error-feedback residual), and all arms are
+paired on common random numbers (the same initial weights and batch
+stream per seed), so the final-loss ratio isolates the wire codec; for
+error-feedback codecs (top-k) the arm also carries the residual through
 ``TrainState.codec_state``.
 
-Ported: ``run_curve`` (``trainer="dp"``), ``run_codec_comparison``,
-``codec_static_table`` and ``codec_error_table`` for the models ``mlp``
-and ``mlp_canonical``.  Not ported: ``bert`` and ``resnet`` (ROADMAP A.6),
-``mlp_fsdp`` (the ZeRO-3 trainer, A.5), ``trainer="ddp"`` (the bucketed
-DDP trainer, A.4); each raises ``NotImplementedError``.  The batch stream
-is the reference's numpy stream; the initial weights come from a torch
+Ported: ``run_curve``, ``run_codec_comparison``, ``codec_static_table``
+and ``codec_error_table`` for the models ``mlp``, ``mlp_canonical`` and
+``bert`` (the tiny BERT on masked-LM batches of 32 tokens, each carrying
+the global target count, ``models.bert.with_global_count``).  Not
+ported: ``resnet`` (ROADMAP A.6) and ``mlp_fsdp`` (the ZeRO-3 trainer,
+A.5); each raises ``NotImplementedError``.  The batch stream is the
+reference's numpy stream; the initial weights come from a torch
 generator unless ``params=`` hands them in (a test passes JAX's).
 """
 
@@ -28,15 +31,18 @@ import torch
 
 from .. import compress
 from ..device import DeviceLike, resolve_device
-from ..models import mlp
-from ..ops import bfp
+from ..models import bert, mlp
+from ..ops import bfp, fused_update
+from ..parallel.ddp import DDPTrainer
 from ..parallel.mesh import VirtualRanks
 from ..parallel.train import DPTrainer
 from ..utils.config import (BFPConfig, CollectiveConfig, MeshConfig,
                             MLPConfig, OptimizerConfig, TrainConfig)
 
-MODELS = ("mlp", "mlp_canonical")
-_UNPORTED = {"bert": "A.6", "resnet": "A.6", "mlp_fsdp": "A.5"}
+MODELS = ("mlp", "mlp_canonical", "bert")
+_UNPORTED = {"resnet": "A.6", "mlp_fsdp": "A.5"}
+TRAINERS = {"dp": DPTrainer, "ddp": DDPTrainer}
+BERT_SEQ = 32               # the reference eval's masked-LM batches
 
 # the codec arms of the default sweep: top-k exercises error feedback,
 # int8 stochastic rounding
@@ -46,14 +52,20 @@ DEFAULT_CODECS: Tuple[Tuple[str, Tuple], ...] = (
 )
 
 
-def mlp_config(model: str) -> MLPConfig:
-    """The eval's MLP: 128-256-256-32 ("mlp"), or the reference
-    benchmark's 2048-wide layers with depth cut to 3 ("mlp_canonical")."""
+def _check_model(model: str) -> None:
     if model in _UNPORTED:
         raise NotImplementedError(
             f"model {model!r} is not ported: ROADMAP {_UNPORTED[model]}")
     if model not in MODELS:
         raise ValueError(model)
+
+
+def mlp_config(model: str) -> MLPConfig:
+    """The eval's MLP: 128-256-256-32 ("mlp"), or the reference
+    benchmark's 2048-wide layers with depth cut to 3 ("mlp_canonical")."""
+    _check_model(model)
+    if model == "bert":
+        raise ValueError("bert is not an MLP: see models.bert.BertConfig")
     canonical = model == "mlp_canonical"
     width = 2048 if canonical else 128
     hidden = 2048 if canonical else 256
@@ -64,12 +76,25 @@ def mlp_config(model: str) -> MLPConfig:
 
 def _make_batches(model: str, n_batches: int, batch: int, seed: int
                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """The reference's fixed dataset: per batch, x ~ N(0, 1) then integer
-    labels, drawn from one numpy generator seeded with ``seed``."""
-    cfg = mlp_config(model)
-    width, n_cls = cfg.layer_sizes[0], cfg.layer_sizes[-1]
+    """The reference's fixed dataset from one numpy generator seeded with
+    ``seed``: per batch, x ~ N(0, 1) then integer labels (the MLPs), or
+    uniform tokens and 15% of them (position 0 always) masked to token 3
+    and labelled, -100 elsewhere (``bert``, ``BERT_SEQ`` tokens)."""
     rng = np.random.default_rng(seed)
     out = []
+    if model == "bert":
+        vocab = bert.BertConfig.tiny().vocab
+        for _ in range(n_batches):
+            toks = rng.integers(1, vocab, (batch, BERT_SEQ)).astype(np.int32)
+            labels = np.full((batch, BERT_SEQ), -100, np.int32)
+            m = rng.random((batch, BERT_SEQ)) < 0.15
+            m[:, 0] = True
+            labels[m] = toks[m]
+            toks[m] = 3
+            out.append((torch.from_numpy(toks), torch.from_numpy(labels)))
+        return out
+    cfg = mlp_config(model)
+    width, n_cls = cfg.layer_sizes[0], cfg.layer_sizes[-1]
     for _ in range(n_batches):
         x = rng.standard_normal((batch, width)).astype(np.float32)
         y = rng.integers(0, n_cls, batch).astype(np.int32)
@@ -82,24 +107,23 @@ def run_curve(model: str, steps: int = 200, *, batch: int = 32,
               mantissa_bits: Optional[int] = None, n_dev: int = 8,
               seed: int = 0, record_every: int = 5, n_batches: int = 4,
               tail_k: int = 1, trainer: str = "dp",
-              params: Optional[mlp.Params] = None,
+              params: Optional[dict] = None,
               device: DeviceLike = "cuda") -> Dict:
     """Train ``model`` for ``steps`` over ``n_dev`` virtual ranks through
-    the explicit ring (AdamW, lr 3e-3).  ``codec=None`` is the
-    uncompressed baseline; ``mantissa_bits=m`` means BFP at that width.
-    Returns ``{"losses", "steps", "final_loss"}``, losses recorded every
-    ``record_every`` steps; ``final_loss`` is the mean of the last
-    ``tail_k`` recorded losses.  ``params`` (a parameter tree) replaces
-    the seeded torch initialisation."""
-    if trainer != "dp":
-        raise NotImplementedError(
-            f"trainer={trainer!r} is not ported: the bucketed DDP trainer "
-            "is ROADMAP A.4 (use trainer='dp')")
+    the explicit ring (AdamW, lr 3e-3) with ``trainer`` ("dp" or "ddp").
+    ``codec=None`` is the uncompressed baseline; ``mantissa_bits=m`` means
+    BFP at that width.  Returns ``{"losses", "steps", "final_loss"}``,
+    losses recorded every ``record_every`` steps; ``final_loss`` is the
+    mean of the last ``tail_k`` recorded losses.  ``params`` (a parameter
+    tree) replaces the seeded torch initialisation."""
+    _check_model(model)
+    if trainer not in TRAINERS:
+        raise ValueError(f"trainer must be one of {sorted(TRAINERS)}, got "
+                         f"{trainer!r}")
     if mantissa_bits is not None:
         assert codec is None, "pass codec= OR mantissa_bits=, not both"
         codec = "bfp"
         codec_opts = tuple(codec_opts) + (("mantissa_bits", mantissa_bits),)
-    mcfg = mlp_config(model)
     dev = resolve_device(device)
     cfg = TrainConfig(
         iters=steps, global_batch=batch, mesh=MeshConfig(dp=n_dev),
@@ -107,13 +131,25 @@ def run_curve(model: str, steps: int = 200, *, batch: int = 32,
                                     codec_opts=tuple(codec_opts),
                                     bucket_elems=1 << 16),
         optimizer=OptimizerConfig(kind="adamw", learning_rate=3e-3))
-    if params is None:
-        params = mlp.init(torch.Generator().manual_seed(seed), mcfg, dev)
-    tr = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg),
-                   VirtualRanks(n_dev, dev), cfg)
+    c = fused_update.resolve_codec(cfg.collective)
+    if trainer == "ddp" and c is not None and c.error_feedback:
+        raise ValueError("error-feedback codecs need trainer='dp' "
+                         "(DDPTrainer does not carry the residual)")
+    gen = torch.Generator().manual_seed(seed)
+    batches = _make_batches(model, n_batches, batch, seed)
+    if model == "bert":
+        bcfg = bert.BertConfig.tiny()
+        loss_fn = lambda p, b: bert.loss_fn(p, b, bcfg,  # noqa: E731
+                                            dp_size=n_dev)
+        params = bert.init(gen, bcfg, dev) if params is None else params
+        batches = [bert.with_global_count(b, n_dev) for b in batches]
+    else:
+        mcfg = mlp_config(model)
+        loss_fn = lambda p, b: mlp.loss_fn(p, b, mcfg)  # noqa: E731
+        params = mlp.init(gen, mcfg, dev) if params is None else params
+    tr = TRAINERS[trainer](loss_fn, VirtualRanks(n_dev, dev), cfg)
     state = tr.init_state(params)
-    sharded = [tr.shard_batch(b)
-               for b in _make_batches(model, n_batches, batch, seed)]
+    sharded = [tr.shard_batch(b) for b in batches]
     losses: List[float] = []
     rec_steps: List[int] = []
     for i in range(steps):
@@ -129,7 +165,7 @@ def run_codec_comparison(model: str, steps: int = 200, *,
                          codecs: Sequence[Tuple[str, Tuple]] = DEFAULT_CODECS,
                          batch: int = 32, n_dev: int = 8, seed: int = 0,
                          n_batches: int = 4, tail_k: int = 4,
-                         params: Optional[mlp.Params] = None,
+                         params: Optional[dict] = None,
                          device: DeviceLike = "cuda") -> Dict:
     """Uncompressed baseline + one arm per (codec, opts), paired on common
     random numbers.  Each arm carries its ``final_loss_ratio`` (arm /

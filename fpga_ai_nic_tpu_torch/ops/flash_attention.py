@@ -26,8 +26,15 @@ Hkv dividing H (GQA: query head h reads KV head ``h // (H // Hkv)``; K/V
 are never repeated, and dk/dv sum each group's query heads).
 ``block_q``/``block_k`` are the TPU kernels' VMEM tiling and only set the
 plain versions' key blocking here.  The q/k offsets of sequence
-parallelism and the BERT key bias have no caller yet and raise
-``NotImplementedError``.
+parallelism have no caller yet and raise ``NotImplementedError``.
+
+``key_bias`` ([B, Sk] f32, the Pallas kernels' ``has_bias`` channel) is
+added to every query row's scores after ``sm_scale``, before the online
+softmax and before the backward's recompute of p; ``-1e30`` masks a key
+(BERT's padding mask).  It is not differentiable (the JAX wrapper's
+``stop_gradient``).  Both kernel families take it: the second family as
+a null-or-not pointer, the tensor-core kernels as a template flag, so
+their launches without it are the kernels they were before.
 
 Numerics (``flash_pallas.py``'s contract): bf16 products summed in f32,
 ``p`` and ``ds`` kept in f32 through every product, one rounding to the
@@ -67,29 +74,28 @@ KERNEL_HEAD_DIM = 128       # Llama-3's; the tensor-core kernels take it alone
 _NEG = -1e30
 _DEF_BLOCK = 512
 _SP_ITEM = "ROADMAP A.6 (sequence parallelism: ring_flash_attention)"
-_BIAS_ITEM = "ROADMAP A.6 (models/bert.py and its key_bias)"
 
 FLASH_FWD = Kernel("flash_fwd", "flash_attn.cu", "flash_fwd_launch",
-                   [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_float])
 FLASH_DQ = Kernel("flash_dq", "flash_bwd.cu", "flash_dq_launch",
-                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                   + [ctypes.c_float])
 FLASH_DKV = Kernel("flash_dkv", "flash_bwd.cu", "flash_dkv_launch",
-                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                    + [ctypes.c_float])
 
 GENERIC_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 GENERIC_ROWS = 32           # rows a block of the second family owns
 FLASH_FWD_GENERIC = Kernel(
     "flash_fwd_generic", "flash_generic.cu", "flash_fwd_generic_launch",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float])
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float])
 FLASH_DQ_GENERIC = Kernel(
     "flash_dq_generic", "flash_generic.cu", "flash_dq_generic_launch",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float])
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float])
 FLASH_DKV_GENERIC = Kernel(
     "flash_dkv_generic", "flash_generic.cu", "flash_dkv_generic_launch",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float])
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float])
 
 
 REL_TOL = 2.0 ** -6          # two to four bf16 ulps of each element
@@ -159,16 +165,26 @@ def _causal_mask(Sq: int, k0: int, bk: int, q_offset: int,
     return kpos[None, :] > qpos[:, None]
 
 
+def _bias_block(key_bias: Optional[torch.Tensor], k0: int, bk: int):
+    """Key block [k0, k0 + bk) of a [B, Sk] bias, shaped to add to grouped
+    scores [B, Hkv, G, Sq, bk]; None without a bias."""
+    if key_bias is None:
+        return None
+    return key_bias[:, None, None, None, k0:k0 + bk].to(torch.float32)
+
+
 # -- plain versions -----------------------------------------------------------
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, sm_scale: float,
-                    block_k: int = _DEF_BLOCK, q_offset: int = 0
+                    block_k: int = _DEF_BLOCK, q_offset: int = 0,
+                    key_bias: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [B, H, Sq, hd] in q's dtype, lse [B, H, Sq] f32)``: the
     forward kernel's online softmax over key blocks of ``block_k``.
     ``q_offset`` is the global position of q's first row (0 in every
-    caller; a nonzero one shifts the causal mask)."""
+    caller; a nonzero one shifts the causal mask).  ``key_bias`` [B, Sk]
+    is added to the scaled scores before the causal mask."""
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     qf = _grouped(q, Hkv)
@@ -180,6 +196,9 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kb = k[:, :, k0:k0 + block_k].to(torch.float32)
         vb = v[:, :, k0:k0 + block_k].to(torch.float32)
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb) * sm_scale
+        bias = _bias_block(key_bias, k0, kb.shape[2])
+        if bias is not None:
+            s = s + bias
         if causal:
             s = s.masked_fill(_causal_mask(Sq, k0, kb.shape[2], q_offset,
                                            q.device), _NEG)
@@ -195,8 +214,10 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out, lse
 
 
-def _bwd_block(q, k, v, do, lse, delta, k0, block_k, causal, sm_scale):
-    """p and ds of one key block, both f32 [B, Hkv, G, Sq, bk]."""
+def _bwd_block(q, k, v, do, lse, delta, k0, block_k, causal, sm_scale,
+               key_bias=None):
+    """p and ds of one key block, both f32 [B, Hkv, G, Sq, bk]; p =
+    exp(s * sm_scale + bias - lse) with the bias in every block."""
     Hkv, Sq = k.shape[1], q.shape[2]
     qf, dof = _grouped(q, Hkv), _grouped(do, Hkv)
     kb = k[:, :, k0:k0 + block_k].to(torch.float32)
@@ -204,6 +225,9 @@ def _bwd_block(q, k, v, do, lse, delta, k0, block_k, causal, sm_scale):
     lse_g = _grouped(lse[..., None], Hkv)
     delta_g = _grouped(delta[..., None], Hkv)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb) * sm_scale
+    bias = _bias_block(key_bias, k0, kb.shape[2])
+    if bias is not None:
+        s = s + bias
     p = torch.exp(s - lse_g)
     if causal:
         p = p.masked_fill(_causal_mask(Sq, k0, kb.shape[2], 0, q.device),
@@ -216,7 +240,8 @@ def _bwd_block(q, k, v, do, lse, delta, k0, block_k, causal, sm_scale):
 def flash_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                    *, causal: bool, sm_scale: float,
-                   block_k: int = _DEF_BLOCK) -> torch.Tensor:
+                   block_k: int = _DEF_BLOCK,
+                   key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dq [B, H, Sq, hd] in q's dtype: p = exp(s - lse) recomputed per key
     block, ds = p * (dp - delta) * sm_scale, dq = sum of ds . k in f32.
     ``delta = rowsum(dO * O) - d_lse`` (f32 [B, H, Sq])."""
@@ -226,7 +251,7 @@ def flash_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      device=q.device)
     for k0 in range(0, k.shape[2], block_k):
         _, ds, _, _, kb = _bwd_block(q, k, v, do, lse, delta, k0, block_k,
-                                     causal, sm_scale)
+                                     causal, sm_scale, key_bias)
         dq += torch.einsum("bhgqk,bhkd->bhgqd", ds, kb)
     return dq.reshape(B, H, Sq, hd).to(q.dtype)
 
@@ -234,7 +259,8 @@ def flash_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                     *, causal: bool, sm_scale: float,
-                    block_k: int = _DEF_BLOCK
+                    block_k: int = _DEF_BLOCK,
+                    key_bias: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B, Hkv, Sk, hd] in k's / v's dtype: per key block,
     dk = sum over the group's query heads and rows of ds^T . q and
@@ -243,7 +269,7 @@ def flash_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(v)
     for k0 in range(0, k.shape[2], block_k):
         p, ds, qf, dof, _ = _bwd_block(q, k, v, do, lse, delta, k0, block_k,
-                                       causal, sm_scale)
+                                       causal, sm_scale, key_bias)
         dk[:, :, k0:k0 + block_k] = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
         dv[:, :, k0:k0 + block_k] = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
     return dk, dv
@@ -266,17 +292,33 @@ def _check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
         check_cuda(t, torch.bfloat16, name)
 
 
+def _bias_ptr(key_bias: Optional[torch.Tensor], q: torch.Tensor,
+              k: torch.Tensor):
+    """The kernels' bias operand: null without a bias, else a contiguous
+    f32 CUDA [B, Sk] tensor's address."""
+    if key_bias is None:
+        return None
+    check_cuda(key_bias, torch.float32, "key_bias")
+    if tuple(key_bias.shape) != (q.shape[0], k.shape[2]):
+        raise ValueError(f"key_bias must be {(q.shape[0], k.shape[2])}, got "
+                         f"{tuple(key_bias.shape)}")
+    return ptr(key_bias)
+
+
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool, sm_scale: float
+                   causal: bool, sm_scale: float,
+                   key_bias: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel: ``(out bf16, lse f32)``."""
+    """The forward kernel: ``(out bf16, lse f32)``; with ``key_bias``
+    its bias instantiation."""
     _check_kernel_operands(q, k, v)
+    bias = _bias_ptr(key_bias, q, k)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    FLASH_FWD(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), B * H, H // Hkv,
-              Sq, Sk, int(causal), float(sm_scale))
+    FLASH_FWD(ptr(q), ptr(k), ptr(v), bias, ptr(out), ptr(lse), B * H,
+              H // Hkv, H, Sq, Sk, int(causal), float(sm_scale))
     return out, lse
 
 
@@ -294,28 +336,33 @@ def _check_bwd_operands(q, k, v, do, lse, delta) -> None:
 
 
 def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool,
-                  sm_scale: float) -> torch.Tensor:
+                  sm_scale: float,
+                  key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The dq kernel: dq bf16 [B, H, Sq, hd]."""
     _check_bwd_operands(q, k, v, do, lse, delta)
+    bias = _bias_ptr(key_bias, q, k)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
-    FLASH_DQ(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-             ptr(dq), B * H, H // Hkv, Sq, Sk, int(causal), float(sm_scale))
+    FLASH_DQ(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), bias,
+             ptr(dq), B * H, H // Hkv, H, Sq, Sk, int(causal),
+             float(sm_scale))
     return dq
 
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool,
-                   sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                   sm_scale: float, key_bias: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel: (dk, dv) bf16 [B, Hkv, Sk, hd], each KV head's
     group of query heads summed in the kernel."""
     _check_bwd_operands(q, k, v, do, lse, delta)
+    bias = _bias_ptr(key_bias, q, k)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    FLASH_DKV(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-              ptr(dk), ptr(dv), B * Hkv, H // Hkv, Sq, Sk, int(causal),
+    FLASH_DKV(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), bias,
+              ptr(dk), ptr(dv), B * Hkv, H // Hkv, Hkv, Sq, Sk, int(causal),
               float(sm_scale))
     return dk, dv
 
@@ -356,45 +403,52 @@ def _check_generic_operands(q, k, v, do=None, lse=None,
     return code
 
 
-def flash_fwd_generic_cuda(q, k, v, *, causal: bool, sm_scale: float
+def flash_fwd_generic_cuda(q, k, v, *, causal: bool, sm_scale: float,
+                           key_bias: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The second family's forward: ``(out in q's dtype, lse f32)``."""
     code = _check_generic_operands(q, k, v)
+    bias = _bias_ptr(key_bias, q, k)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    FLASH_FWD_GENERIC(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), code,
-                      B * H, H // Hkv, Sq, Sk, hd, int(causal),
+    FLASH_FWD_GENERIC(ptr(q), ptr(k), ptr(v), bias, ptr(out), ptr(lse), code,
+                      B * H, H // Hkv, H, Sq, Sk, hd, int(causal),
                       float(sm_scale))
     return out, lse
 
 
 def flash_dq_generic_cuda(q, k, v, do, lse, delta, *, causal: bool,
-                          sm_scale: float) -> torch.Tensor:
+                          sm_scale: float,
+                          key_bias: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """The second family's dq, in q's dtype."""
     code = _check_generic_operands(q, k, v, do, lse, delta)
+    bias = _bias_ptr(key_bias, q, k)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     FLASH_DQ_GENERIC(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-                     ptr(dq), code, B * H, H // Hkv, Sq, Sk, hd, int(causal),
-                     float(sm_scale))
+                     bias, ptr(dq), code, B * H, H // Hkv, H, Sq, Sk, hd,
+                     int(causal), float(sm_scale))
     return dq
 
 
 def flash_dkv_generic_cuda(q, k, v, do, lse, delta, *, causal: bool,
-                           sm_scale: float
+                           sm_scale: float,
+                           key_bias: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The second family's (dk, dv), each KV head's group summed."""
     code = _check_generic_operands(q, k, v, do, lse, delta)
+    bias = _bias_ptr(key_bias, q, k)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     FLASH_DKV_GENERIC(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-                      ptr(dk), ptr(dv), code, B * Hkv, H // Hkv, Sq, Sk, hd,
-                      int(causal), float(sm_scale))
+                      bias, ptr(dk), ptr(dv), code, B * Hkv, H // Hkv, Hkv,
+                      Sq, Sk, hd, int(causal), float(sm_scale))
     return dk, dv
 
 
@@ -405,21 +459,22 @@ def _on_tensor_cores(q, k, v) -> bool:
                              kv_seq_len=k.shape[2])
 
 
-def _fwd(q, k, v, causal, sm_scale, block_k):
+def _fwd(q, k, v, key_bias, causal, sm_scale, block_k):
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale,
-                               block_k=block_k)
+                               block_k=block_k, key_bias=key_bias)
     fwd = flash_fwd_cuda if _on_tensor_cores(q, k, v) \
         else flash_fwd_generic_cuda
-    return fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+    return fwd(q, k, v, causal=causal, sm_scale=sm_scale, key_bias=key_bias)
 
 
-def _bwd(q, k, v, do, lse, delta, causal, sm_scale, block_k):
+def _bwd(q, k, v, do, lse, delta, key_bias, causal, sm_scale, block_k):
     if q.device.type == "cpu":
-        kw = dict(causal=causal, sm_scale=sm_scale, block_k=block_k)
+        kw = dict(causal=causal, sm_scale=sm_scale, block_k=block_k,
+                  key_bias=key_bias)
         return (flash_dq_plain(q, k, v, do, lse, delta, **kw),
                 *flash_dkv_plain(q, k, v, do, lse, delta, **kw))
-    kw = dict(causal=causal, sm_scale=sm_scale)
+    kw = dict(causal=causal, sm_scale=sm_scale, key_bias=key_bias)
     if _on_tensor_cores(q, k, v):
         return (flash_dq_cuda(q, k, v, do, lse, delta, **kw),
                 *flash_dkv_cuda(q, k, v, do, lse, delta, **kw))
@@ -428,25 +483,29 @@ def _bwd(q, k, v, do, lse, delta, causal, sm_scale, block_k):
 
 
 class _FlashFunction(torch.autograd.Function):
-    """``out`` of q, k, v; the backward recomputes p from the saved lse
-    with ``delta = rowsum(dO * O)``, as ``flash_pallas._bwd`` does for an
-    unused lse cotangent."""
+    """``out`` of q, k, v (and an optional f32 key bias, saved beside
+    them); the backward recomputes p from the saved lse with ``delta =
+    rowsum(dO * O)``, as ``flash_pallas._bwd`` does for an unused lse
+    cotangent.  The bias gets no gradient (``stop_gradient`` in JAX)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float, block_k: int):
+    def forward(ctx, q, k, v, key_bias, causal: bool, sm_scale: float,
+                block_k: int):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = _fwd(q, k, v, causal, sm_scale, block_k)
-        ctx.save_for_backward(q, k, v, out, lse)
+        if key_bias is not None:
+            key_bias = key_bias.detach().to(torch.float32).contiguous()
+        out, lse = _fwd(q, k, v, key_bias, causal, sm_scale, block_k)
+        ctx.save_for_backward(q, k, v, out, lse, key_bias)
         ctx.args = (causal, sm_scale, block_k)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, key_bias = ctx.saved_tensors
         d_out = d_out.to(q.dtype).contiguous()
         delta = (d_out.to(torch.float32) * out.to(torch.float32)).sum(-1)
-        dq, dk, dv = _bwd(q, k, v, d_out, lse, delta, *ctx.args)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = _bwd(q, k, v, d_out, lse, delta, key_bias, *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -459,13 +518,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B, Hkv, Sk, hd] -> [B, H, Sq, hd] in q's dtype.  Differentiable; the
     backward recomputes p from the saved lse, so residual memory is
     O(B*H*Sq*(hd+1)), never O(S^2).  ``block_q`` is accepted for the JAX
-    signature and unused (the kernels tile by ``TILE``)."""
+    signature and unused (the kernels tile by ``TILE``).
+
+    ``key_bias`` ([B, Sk], cast to f32) is added to every query row's
+    scores: the padding-mask channel (0 / -1e30), not differentiable.
+    JAX's precondition holds here too: every query row must see at least
+    one unmasked key.  For a row whose keys are all masked the backward's
+    recompute p = exp(s - lse) gives 1 per key instead of 1/Sk (that
+    row's gradients inflated about Sk-fold), and the forward degenerates:
+    a uniform average of v in the plain version and the second family,
+    zeros on the tensor-core kernels (their running max starts at -1e30
+    in log2 units, above a masked score)."""
     if q_offset or k_offset:
         raise NotImplementedError(
             f"flash_attention: q/k offsets are not ported ({_SP_ITEM})")
-    if key_bias is not None:
-        raise NotImplementedError(
-            f"flash_attention: key_bias is not ported ({_BIAS_ITEM})")
+    if key_bias is not None and tuple(key_bias.shape) != (q.shape[0],
+                                                          k.shape[2]):
+        raise ValueError(f"flash_attention: key_bias must be [B, Sk] = "
+                         f"{[q.shape[0], k.shape[2]]}, got "
+                         f"{list(key_bias.shape)}")
     if not supported(q.shape):
         raise ValueError(f"flash_attention: unsupported q shape "
                          f"{tuple(q.shape)}")
@@ -480,5 +551,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "pad the keys or use the plain attention path")
     if sm_scale is None:
         sm_scale = hd ** -0.5
-    return _FlashFunction.apply(q, k, v, bool(causal), float(sm_scale),
-                                int(block_k))
+    return _FlashFunction.apply(q, k, v, key_bias, bool(causal),
+                                float(sm_scale), int(block_k))

@@ -275,6 +275,26 @@ def error_feedback_encode(codec, flat_g: torch.Tensor, residual: torch.Tensor
     return g_wire, g_comp - g_wire
 
 
+def ring_all_reduce_routed(x: torch.Tensor, coll: CollectiveConfig
+                           ) -> torch.Tensor:
+    """Explicit-ring sum all-reduce [n, L] -> [n, L] (every row the sums)
+    under the config's routing, as the JAX function routes it for the
+    bucketed DDP trainer: ``fused_kernel`` takes the fused BFP ring
+    (``ring_cuda.ring_all_reduce_fused``: the kernels on a CUDA tensor,
+    their plain versions on the CPU), otherwise the ``ops.ring`` rings with
+    the configured codec.  ``topology="hier"`` is not ported (ROADMAP
+    A.5).  No integrity seam: the DDP trainer refuses integrity_check, as
+    the JAX one does."""
+    if coll.topology == "hier":
+        raise NotImplementedError(
+            "topology='hier' (ops.ring_hier) is not ported: ROADMAP A.5")
+    if coll.fused_kernel:
+        return ring_cuda.ring_all_reduce_fused(
+            x, compression=_fused_bfp_cfg(coll))
+    return ring_ops.ring_all_reduce(x, resolve_codec(coll),
+                                    slice_elems=coll.slice_elems)
+
+
 def all_gather_flat(owned: torch.Tensor, coll: CollectiveConfig,
                     integrity: bool = False):
     """[n, C] owned chunks -> [n, n*C] replicas; with ``integrity``,

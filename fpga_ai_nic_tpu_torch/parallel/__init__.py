@@ -1,1 +1,5 @@
-"""Virtual data-parallel ranks and the trainer of the port."""
+"""Virtual data-parallel ranks and the trainers of the port."""
+
+from .ddp import DDPState, DDPTrainer
+
+__all__ = ["DDPState", "DDPTrainer"]

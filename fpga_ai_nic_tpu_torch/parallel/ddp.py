@@ -1,0 +1,190 @@
+"""DDP trainer: bucketed gradient all-reduce + replicated optimizer — the
+port of the JAX package's ``parallel/ddp.py`` (BASELINE.json's "BERT-base
+DP (bucketed ring all-reduce)").
+
+Each virtual rank runs forward and backward on its shard with its own
+replica of the working weights; its gradient leaves are copied once into
+its rows of the per-bucket f32 vectors (``ops.bucketed``, reverse tree
+order); each bucket is mean-all-reduced by one collective (with
+``fused_kernel`` the fused BFP ring kernels, one reduce-scatter and one
+all-gather launch a bucket); the mean gradient, assembled in forward leaf
+order and never rounded to the model dtype, then drives every rank's
+full optimizer on its replicated f32 master (``optim.clip_by_global_norm``
+and ``optim.apply``), and the working weights are cast back to the model
+dtype.  Every per-rank quantity is stacked over the ranks as its leading
+dimension, so the replicated masters, optimizer state and working weights
+are ``[n, L]``: the gathered gradient rows are bitwise equal and the
+update is deterministic, so the ranks' replicas stay bit-identical, which
+a caller can check (``replicas_identical``).
+
+The loss is the mean of the per-rank losses.  The buckets are reduced one
+after the other once the backward is done: the explicit issue/wait queue
+that overlaps them with it (``runtime/queue.py``, ``parallel/queued.py``)
+is ROADMAP A.4.  ``integrity_check`` raises ``ValueError`` as the JAX
+trainer's does (its bucketed reduces do not carry the verdicts);
+accumulation, in-graph metrics, plan adaptation and restore raise
+``NotImplementedError`` naming their ROADMAP items (``codec="auto"``
+already raises in ``CollectiveConfig``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from .mesh import VirtualRanks
+from .train import per_rank_grads
+from .. import optim
+from ..ops import bucketed, fused_update
+from ..utils.config import CollectiveConfig, TrainConfig
+
+Params = Any
+
+
+class DDPState(NamedTuple):
+    params: Params              # rank 0's working weights (views of replicas)
+    replicas: torch.Tensor      # [n, L] every rank's working weights
+    w_master: torch.Tensor      # [n, L] every rank's f32 master
+    opt_state: optim.OptState   # {key: [n, L]} every rank's optimizer state
+    step: int
+
+
+class DDPTrainer:
+    """``loss_fn(params, batch) -> scalar``; a batch is a tuple of tensors
+    with a leading global-batch axis, split over the ranks by
+    ``shard_batch``."""
+
+    def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
+                 cfg: TrainConfig):
+        if cfg.mesh.nproc != ranks.n or cfg.mesh.dp != ranks.n:
+            raise ValueError(f"cfg.mesh ({cfg.mesh}) does not describe "
+                             f"{ranks.n} dp ranks")
+        if cfg.collective.integrity_check:
+            raise ValueError(
+                "integrity_check is implemented on DPTrainer only: the "
+                "bucketed DDP reduces do not carry the verdicts, as in the "
+                "JAX package; construct with integrity_check=False")
+        for name, unported, item in (
+                ("accum_steps > 1", cfg.accum_steps != 1, "A.1"),
+                ("obs_metrics", cfg.obs_metrics, "A.9"),
+                ("adapt.enabled", cfg.adapt.enabled, "A.5")):
+            if unported:
+                raise NotImplementedError(
+                    f"{name} is not ported: ROADMAP {item}")
+        self.loss_fn = loss_fn
+        self.ranks = ranks
+        self.n = ranks.n
+        self.cfg = cfg
+        self._meta: Optional[fused_update.FlatMeta] = None
+        self._plan: Optional[bucketed.BucketPlan] = None
+
+    # -- init -----------------------------------------------------------------
+
+    def _ensure_meta(self, params_like) -> None:
+        # the masters' flat layout: no codec and one rank, so no padding
+        self._meta = fused_update.flat_meta(params_like, CollectiveConfig(),
+                                            1)
+        self._plan = bucketed.plan_buckets(params_like, self.cfg.collective,
+                                           self.n)
+
+    @property
+    def plan(self) -> bucketed.BucketPlan:
+        if self._plan is None:
+            raise RuntimeError("call init_state first")
+        return self._plan
+
+    def obs_static_metrics(self) -> dict:
+        """The bucketed collective's static accounting: buckets, per-rank
+        wire bytes of one all-reduce and the raw f32 bytes."""
+        plan, coll = self.plan, self.cfg.collective
+        codec = fused_update.resolve_codec(coll)
+        d = {"n_devices": self.n, "impl": coll.impl,
+             "topology": coll.topology, "n_buckets": len(plan.buckets),
+             "bucket_elems": coll.bucket_elems,
+             "wire_bytes_per_allreduce":
+                 bucketed.bucket_wire_bytes(plan, self.n, coll),
+             "raw_bytes_per_allreduce": sum(
+                 fused_update.wire_bytes_for(coll, b.padded_len, self.n,
+                                             codec=None)
+                 for b in plan.buckets)}
+        if codec is not None:
+            d["codec"] = codec.name
+        return d
+
+    def init_state(self, params: Params) -> DDPState:
+        """Every rank's master is the given weights in f32; the optimizer
+        state starts at zero."""
+        params = fused_update.tree_map(lambda t: t.to(self.ranks.device),
+                                       params)
+        self._ensure_meta(params)
+        flat = fused_update.flatten_tree(params, self._meta)
+        w_master = flat.reshape(1, -1).repeat(self.n, 1)
+        opt_state = optim.init_state(self.cfg.optimizer, w_master.shape,
+                                     device=w_master.device)
+        replicas = self._working(w_master)
+        return DDPState(fused_update.unflatten_tree(replicas[0], self._meta),
+                        replicas, w_master, opt_state, 0)
+
+    def _working(self, w: torch.Tensor) -> torch.Tensor:
+        """The masters in the working dtype: the leaves' one dtype, else
+        f32 (cast per leaf by ``unflatten_tree``)."""
+        dtypes = set(self._meta.dtypes)
+        dt = dtypes.pop() if len(dtypes) == 1 else torch.float32
+        return w if w.dtype == dt else w.to(dt)
+
+    def restore_state(self, restored: dict, params_like=None) -> DDPState:
+        raise NotImplementedError(
+            "DDPTrainer.restore_state (utils/checkpoint.py) is not ported: "
+            "ROADMAP A.8")
+
+    def shard_batch(self, batch) -> Tuple[torch.Tensor, ...]:
+        """[B, ...] host tensors -> [n, B/n, ...] on the ranks' device."""
+        return self.ranks.shard_batch(batch)
+
+    # -- step -----------------------------------------------------------------
+
+    def grads(self, state: DDPState, batch
+              ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """Per-rank backward into the bucket rows: ``(rows, mean loss)``,
+        rows ``[n, padded_len]`` f32 a bucket, in issue order."""
+        plan = self.plan
+        rows = bucketed.bucket_rows(plan, self.n, state.replicas.device)
+
+        def write(i: int, leaves: List[torch.Tensor]) -> None:
+            bucketed.bucket_locals(leaves, plan, [r[i] for r in rows])
+
+        _, loss = per_rank_grads(self.loss_fn, state.replicas, self._meta,
+                                 batch, write)
+        return rows, loss
+
+    def all_reduce(self, rows: List[torch.Tensor]) -> torch.Tensor:
+        """The bucketed mean all-reduce: ``[n, L]`` f32, every rank's row
+        its dp-mean gradient in forward leaf order (``rows`` consumed)."""
+        return bucketed.all_reduce_bucketed_flat(rows, self.cfg.collective,
+                                                 self.plan)
+
+    def update(self, state: DDPState, flat_g: torch.Tensor) -> DDPState:
+        """Every rank's replicated optimizer on its own mean gradient row:
+        the global-norm clip per rank, then ``optim.apply``."""
+        opt_cfg = self.cfg.optimizer
+        if opt_cfg.clip_norm is not None:
+            flat_g = torch.stack([optim.clip_by_global_norm(opt_cfg, g)
+                                  for g in flat_g])
+        w_new, opt_state = optim.apply(opt_cfg, state.w_master, flat_g,
+                                       state.opt_state, state.step)
+        del flat_g
+        replicas = self._working(w_new)
+        return DDPState(fused_update.unflatten_tree(replicas[0], self._meta),
+                        replicas, w_new, opt_state, state.step + 1)
+
+    def step(self, state: DDPState, batch) -> Tuple[DDPState, torch.Tensor]:
+        rows, loss = self.grads(state, batch)
+        return self.update(state, self.all_reduce(rows)), loss
+
+
+def replicas_identical(state: DDPState) -> bool:
+    """Are every rank's master, optimizer state and working weights
+    bitwise equal to rank 0's?"""
+    return all(bool((t == t[0]).all()) for t in
+               (state.w_master, state.replicas, *state.opt_state.values()))

@@ -64,16 +64,25 @@ class TrainState(NamedTuple):
 
 
 def per_rank_grads(loss_fn: Callable, replicas: torch.Tensor,
-                   meta: fused_update.FlatMeta, batch
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   meta: fused_update.FlatMeta, batch,
+                   write: Optional[Callable[[int, List[torch.Tensor]],
+                                            None]] = None
+                   ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """``(flat_g [n, L_pad] f32, mean loss)``: rank i differentiates
     ``loss_fn`` at its own replica ``replicas[i]`` (cast to the leaves'
     dtypes; views where the replica is in them already) on its own shard
     ``tuple(b[i] for b in batch)``; each gradient leaf is copied into its
-    slot of the flat row as soon as it exists."""
+    slot of the flat row as soon as it exists.  ``write(i, leaves)``
+    places rank i's gradient leaves elsewhere instead (flat_g is then
+    None)."""
     n = replicas.shape[0]
-    flat_g = torch.empty((n, meta.padded_len), dtype=torch.float32,
-                         device=replicas.device)
+    flat_g = None
+    if write is None:
+        flat_g = torch.empty((n, meta.padded_len), dtype=torch.float32,
+                             device=replicas.device)
+
+        def write(i: int, gs: List[torch.Tensor]) -> None:
+            fused_update.flatten_leaves(gs, meta, out=flat_g[i])
     losses: List[torch.Tensor] = []
     for i in range(n):
         leaves = [t.detach().requires_grad_() for t in
@@ -83,7 +92,7 @@ def per_rank_grads(loss_fn: Callable, replicas: torch.Tensor,
         loss = loss_fn(params_i, tuple(b[i] for b in batch))
         gs = torch.autograd.grad(loss, leaves)
         del params_i, leaves
-        fused_update.flatten_leaves(list(gs), meta, out=flat_g[i])
+        write(i, list(gs))
         del gs
         losses.append(loss.detach())
     return flat_g, torch.stack(losses).mean()

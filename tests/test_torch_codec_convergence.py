@@ -62,9 +62,48 @@ def test_static_tables_equal_jax():
         n=1 << 12)
 
 
+# the arms that raised until their ROADMAP item was ported keep their
+# cases: ("bert", "dp") (A.6, the BERT model) and ("mlp", "ddp") (A.4's
+# bucketed DDP trainer) now train; resnet and mlp_fsdp still raise
+PORTED_ARMS = {("bert", "dp"), ("mlp", "ddp")}
+
+
 @pytest.mark.parametrize("model,trainer,roadmap", [
     ("bert", "dp", "A.6"), ("resnet", "dp", "A.6"), ("mlp_fsdp", "dp", "A.5"),
     ("mlp", "ddp", "A.4")])
 def test_unported_arms_raise(model, trainer, roadmap):
+    """Arms of unported items raise naming their ROADMAP item; the arms
+    ported since run a short curve with finite losses."""
+    if (model, trainer) in PORTED_ARMS:
+        out = cc.run_curve(model, 3, trainer=trainer, record_every=1,
+                           device="cpu")
+        assert out["steps"] == [1, 2, 3]
+        assert all(np.isfinite(out["losses"]))
+        return
     with pytest.raises(NotImplementedError, match=roadmap):
         cc.run_curve(model, 1, trainer=trainer, device="cpu")
+
+
+def test_bert_batches_are_the_reference_stream():
+    """The bert arm's masked-LM stream is the JAX eval's, bit for bit."""
+    _, _, want = jax_cc._make_batches("bert", 2, 8, 5)
+    got = cc._make_batches("bert", 2, 8, 5)
+    for (t, l), (jt, jl) in zip(got, want):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
+        np.testing.assert_array_equal(l.numpy(), np.asarray(jl))
+
+
+@pytest.mark.parametrize("trainer", ["dp", "ddp"])
+def test_bert_curve_matches_jax(trainer):
+    """The bert arm from JAX's initial weights against JAX's ``run_curve``
+    (DDP over the explicit ring, or ZeRO-1), uncompressed, 4 steps over 8
+    ranks: the recorded losses within 1e-4 (f32 GEMMs summed in other
+    orders, carried through AdamW)."""
+    from fpga_ai_nic_tpu_torch.models import bert
+    params, _, _ = jax_cc._make_batches("bert", 1, 32, 0)
+    want = jax_cc.run_curve("bert", 4, record_every=1, trainer=trainer)
+    got = cc.run_curve("bert", 4, record_every=1, trainer=trainer,
+                       params=bert.from_jax_params(
+                           jax.tree_util.tree_map(np.asarray, params),
+                           "cpu"), device="cpu")
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)

@@ -532,3 +532,126 @@ def test_row_checksums_vs_plain_on_card(cuda_device, dtype, rows, cols):
     diff = integrity.row_checksums(flipped) != got
     assert bool(diff[r]) and int(diff.sum()) == 1
     torch.cuda.synchronize()
+
+
+BIAS_SHAPES = {
+    # name: B, H, n_kv, S, hd, causal (bf16, a padding mask as key bias)
+    "generic_bert_base": (8, 12, 12, 512, 64, False),
+    "generic_gqa_causal": (2, 8, 2, 256, 64, True),
+    "tensor_cores": (2, 8, 8, 1024, 128, False),
+    "tensor_cores_causal_gqa": (2, 8, 2, 512, 128, True),
+}
+
+
+def _padding_bias(B, S, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=device)
+    pos = torch.arange(S, device=device)
+    return torch.where(pos[None, :] < lens[:, None], 0.0, -1e30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(BIAS_SHAPES))
+def test_flash_key_bias_vs_plain_on_card(cuda_device, shape):
+    """The key-bias channel of both families through the entry and its
+    autograd against the plain versions with the same bias: out, dq, dk,
+    dv within ``tol_ratio`` <= 1, lse within LSE_TOL; one launch of the
+    family's kernels a call (hd 64 the second family, hd 128 the tensor
+    cores), a second launch bit-equal; the bias gets no gradient."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    B, H, n_kv, S, hd, causal = BIAS_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(S + H + hd)
+
+    def rand(*s):
+        return torch.randn(s, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+
+    q, k, v = rand(B, H, S, hd), rand(B, n_kv, S, hd), rand(B, n_kv, S, hd)
+    do = rand(B, H, S, hd)
+    bias = _padding_bias(B, S, cuda_device, S).requires_grad_()
+    kw = dict(causal=causal, sm_scale=hd ** -0.5)
+    fam = ([fa.FLASH_FWD, fa.FLASH_DQ, fa.FLASH_DKV] if hd == 128 else
+           [fa.FLASH_FWD_GENERIC, fa.FLASH_DQ_GENERIC, fa.FLASH_DKV_GENERIC])
+    before = [k_.launches for k_ in fam]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, key_bias=bias, **kw)
+    dq, dk, dv = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert [k_.launches for k_ in fam] == [b + 1 for b in before]
+    assert bias.grad is None
+    b = bias.detach()
+    fwd = fa.flash_fwd_cuda if hd == 128 else fa.flash_fwd_generic_cuda
+    o2, lse = fwd(q, k, v, key_bias=b, **kw)
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, key_bias=b, **kw)
+    delta = (do.float() * o2.float()).sum(-1)
+    p_dq = fa.flash_dq_plain(q, k, v, do, lse, delta, key_bias=b, **kw)
+    p_dk, p_dv = fa.flash_dkv_plain(q, k, v, do, lse, delta, key_bias=b,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, out.detach()), "a second launch differs"
+    assert float((lse - p_lse).abs().max()) <= fa.LSE_TOL
+    for name, a, ref in (("out", o2, p_out), ("dq", dq, p_dq),
+                         ("dk", dk, p_dk), ("dv", dv, p_dv)):
+        assert bool(torch.isfinite(a.float()).all()), name
+        assert fa.tol_ratio(a, ref) <= 1.0, name
+
+
+@pytest.mark.cuda
+def test_flash_generic_zero_bias_keeps_the_bias_free_bits(cuda_device):
+    """The second family's bias is one f32 add (s + 0 is s): a zero bias
+    gives the bias-free launch's bits in out, lse, dq, dk and dv."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    B, H, S, hd = 2, 4, 256, 64
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, do = (torch.randn((B, H, S, hd), generator=g,
+                               device=cuda_device).to(torch.bfloat16)
+                   for _ in range(4))
+    zero = torch.zeros((B, S), device=cuda_device)
+    kw = dict(causal=True, sm_scale=hd ** -0.5)
+    got = {}
+    for name, b in (("none", None), ("zero", zero)):
+        out, lse = fa.flash_fwd_generic_cuda(q, k, v, key_bias=b, **kw)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta)
+        got[name] = (out, lse, fa.flash_dq_generic_cuda(*args, key_bias=b,
+                                                        **kw),
+                     *fa.flash_dkv_generic_cuda(*args, key_bias=b, **kw))
+    torch.cuda.synchronize()
+    for a, b in zip(got["none"], got["zero"]):
+        assert torch.equal(a, b)
+
+
+# sha256 of out, lse, dq, dk and dv of the tensor-core flash kernels
+# without a key bias on ``codec_probe.flash_case``'s inputs (drawn with
+# numpy from a seed, so no torch version changes them), as the kernels
+# computed them before the key-bias channel existed (NVIDIA H100 80GB HBM3;
+# ``codec_probe.py --flash`` on that tree and on this one gave these): the
+# bias-free instantiations must keep these bits.  Another nvcc may compile
+# other bits; then rerun the probe on both trees.
+BIAS_FREE_DIGESTS = {
+    "path GQA causal S4096":
+        "ef1beb15fd830d8bf2468895f5f7abbff24bae5cff32d65ddbbc7cb5a7b7e409",
+    "MHA non-causal S1024":
+        "53fbdbb78277b08fd41c63957b573717cf7d1f57f4efee4e6d64109545a0c7da",
+}
+
+
+@pytest.mark.cuda
+def test_flash_tensor_cores_bias_free_bits_unchanged(cuda_device):
+    """The bias-free tensor-core kernels' outputs, bit for bit, are the
+    kernels' from before the key-bias channel (``BIAS_FREE_DIGESTS``)."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    mods = {}
+    for name in ("chip_smoke", "codec_probe"):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(root, name + ".py"))
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    cs = mods["chip_smoke"]
+    for si in range(len(cs.FLASH_SHAPES)):
+        name, digest, *_ = mods["codec_probe"].flash_case(cs, cuda_device,
+                                                          si)
+        assert digest == BIAS_FREE_DIGESTS[name], (
+            f"{name}: bits differ (CUDA {torch.version.cuda})")

@@ -143,8 +143,8 @@ def test_raising_paths():
         fa.flash_attention(q, q, q, q_offset=128)
     with pytest.raises(NotImplementedError, match="A.6"):
         fa.flash_attention(q, q, q, k_offset=128)
-    with pytest.raises(NotImplementedError, match="key_bias"):
-        fa.flash_attention(q, q, q, key_bias=torch.zeros((1, 256)))
+    with pytest.raises(ValueError, match="key_bias"):
+        fa.flash_attention(q, q, q, key_bias=torch.zeros((1, 128)))
     with pytest.raises(ValueError, match="unsupported"):
         fa.flash_attention(torch.zeros((1, 2, 100, 64)), q, q)
     with pytest.raises(NotImplementedError, match="sequence parallelism"):
@@ -168,6 +168,78 @@ def test_route_is_the_kernel_only_where_asked_or_on_the_card():
     before = fa.FLASH_FWD.launches
     ra.flash_attention_remat(q, q, q, impl="pallas")
     assert fa.FLASH_FWD.launches == before      # CPU: no kernel launch
+
+
+# -- the key-bias channel (BERT's padding mask) against JAX's kernels --------
+
+BIAS_CASES = {"mha": (2, 2, False), "causal": (2, 2, True),
+              "gqa": (4, 2, False)}      # name: H, Hkv, causal
+
+
+@pytest.mark.parametrize("case", sorted(BIAS_CASES))
+def test_key_bias_matches_pallas(case):
+    """``flash_attention(..., key_bias=)`` against
+    ``flash_pallas.flash_attention(..., key_bias=, interpret=True)`` at
+    ``tests/test_flash_pallas.py``'s bias shape (B=2, S=256, dh=64, a
+    random padding mask with key 0 kept, 0 / -1e30): the forward within
+    atol / rtol 2e-5, dq, dk and dv of a nonlinear loss within atol 5e-5,
+    rtol 5e-4 (f32 sums in other orders).  The bias gets no gradient."""
+    H, Hkv, causal = BIAS_CASES[case]
+    B, S = 2, 256
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((B, H, S, DH)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, S, DH)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, S, DH)).astype(np.float32)
+    mask = rng.integers(0, 2, (B, S)).astype(bool)
+    mask[:, 0] = True
+    bias = np.where(mask, 0.0, -1e30).astype(np.float32)
+
+    def loss_jax(q, k, v):
+        o = flash_pallas.flash_attention(
+            q, k, v, causal=causal, key_bias=jnp.asarray(bias),
+            block_q=128, block_k=128, interpret=True)
+        return jnp.sum(o * jnp.cos(o)), o
+
+    (_, want), grads = jax.value_and_grad(loss_jax, argnums=(0, 1, 2),
+                                          has_aux=True)(
+        *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = [t.requires_grad_() for t in _t(q, k, v)]
+    tb = torch.from_numpy(bias).requires_grad_()
+    o = fa.flash_attention(tq, tk, tv, causal=causal, block_k=128,
+                           key_bias=tb)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+    torch.sum(o * torch.cos(o)).backward()
+    for got, ref, name in zip((tq.grad, tk.grad, tv.grad), grads, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5,
+                                   rtol=5e-4, err_msg=f"d{name}")
+    assert tb.grad is None
+
+
+def test_key_bias_masks_keys_in_every_block():
+    """A masked key moves neither the output nor dq, dk, dv of the other
+    keys, in every key block of the plain versions (block 128 of S=256):
+    the same attention with those keys' values scrambled gives the same
+    output, and their dk, dv are zero."""
+    rng = np.random.default_rng(8)
+    q, k, v = _t(*_inputs(9, "mha", 256, B=2))
+    mask = torch.from_numpy(rng.integers(0, 2, (2, 256)).astype(bool))
+    mask[:, 0] = True
+    bias = torch.where(mask, 0.0, -1e30)
+    k2, v2 = k.clone(), v.clone()
+    dead = ~mask[:, None, :, None].expand_as(k)
+    k2[dead] = 5.0
+    v2[dead] = -7.0
+    kw = dict(causal=False, sm_scale=DH ** -0.5, block_k=128,
+              key_bias=bias)
+    out, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    out2, _ = fa.flash_fwd_plain(q, k2, v2, **kw)
+    torch.testing.assert_close(out, out2, atol=1e-6, rtol=1e-6)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32))
+    delta = (do * out).sum(-1)
+    dk, dv = fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+    assert float(dk[dead].abs().max()) == 0.0
+    assert float(dv[dead].abs().max()) == 0.0
 
 
 # -- the CUDA backward's rounding points, emulated on the CPU -----------------
