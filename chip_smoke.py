@@ -106,22 +106,27 @@ Phases, each printing JSON lines:
      torch route's on the same weights;
  13. ``bert_flash_checks``: the flash kernels' key-bias channel (BERT's
      padding mask, 0 / -1e30 a key) against the plain versions with the
-     same bias: the second family at BERT-base's attention shape (B=8,
-     H=12, S=512, hd=64, bf16, non-causal, valid lengths 256-512), timed
-     by device time beside its bound, its plain version and the
-     library's masked attention; the tensor-core kernels at B=2, H=8,
-     S=1024, hd=128, non-causal and causal with the mask, timed with and
-     without the bias in turns, their bias instantiations' SASS counted;
-     each within the flash limits, a second launch bit-equal, and the
-     same kernels with a zero bias (the mask dropped) above the limit;
+     same bias: at BERT-base's attention shape (B=8, H=12, S=512, hd=64,
+     bf16, non-causal, valid lengths 256-512) the second family's three
+     kernels, and the tensor-core forward and dq (their head_dim-64
+     instantiations, with and without the bias, HGMMA and no spills in
+     their SASS) beside the second family's dk/dv fed their lse, all timed
+     by device time beside the bound, the plain version and the library's
+     masked attention; the tensor-core kernels at B=2, H=8, S=1024,
+     hd=128, non-causal and causal with the mask, timed with and without
+     the bias in turns, their bias instantiations' SASS counted; each
+     within the flash limits, a second launch bit-equal, and the same
+     kernels with a zero bias (the mask dropped) above the limit (without
+     a bias: the plain backward at lse + 0.05);
  14. ``bert_train_path``: BERT-base masked-LM training as the
      ``train_bert`` driver builds it (12 layers at full width, random
      weights from a seed, sequence 512, global batch 64 over dp=8 virtual
      ranks, valid lengths 256-512, 15% masked, the bucketed
      ``DDPTrainer`` with the fused BFP ring kernels on every bucket,
      AdamW lr 1e-4 on the replicated f32 masters) — 2 warm-up and 5 timed
-     steps, launch counts (96 of each generic flash kernel, one ring
-     reduce-scatter and one all-gather a bucket, nothing else), every
+     steps, launch counts (96 a step of the tensor-core forward and dq
+     and of the second family's dk/dv, one ring reduce-scatter and one
+     all-gather a bucket, nothing else), every
      rank's replica bit-identical after every step, a falling loss, then
      a profile of two steps (flash, ring, GEMMs, the rest);
  15. ``bert_train_parity``: loss_fn's gradients on one rank's padded batch
@@ -1398,17 +1403,18 @@ CONVERT_OPS = ("MUFU", "I2F", "I2FP", "F2I", "F2IP", "FRND", "F2F", "FCHK",
                "CALL")
 
 
-def sass_stats(source: str, kernels, ops=("HGMMA",)) -> dict:
-    """For each kernel of ``source``'s built library (a substring of its
-    mangled name: ``ILi16E`` picks the B=16 instantiation of a template):
-    how many of its SASS instructions (``cuobjdump -sass``) have each
-    opcode of ``ops`` (lower-case keys) and how many it has in all, and its
-    registers and local (spill) bytes a thread (``cuobjdump -res-usage``)."""
+def sass_stats(source: str, kernels, ops=("HGMMA",), lib=None) -> dict:
+    """For each kernel of ``source``'s built library (or of the library at
+    ``lib``) (a substring of its mangled name: ``ILi16E`` picks the B=16
+    instantiation of a template): how many of its SASS instructions
+    (``cuobjdump -sass``) have each opcode of ``ops`` (lower-case keys)
+    and how many it has in all, and its registers and local (spill) bytes
+    a thread (``cuobjdump -res-usage``)."""
     import re
     from fpga_ai_nic_tpu_torch.ops import _build
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
-    lib = str(_build.build((source,))[source])
+    lib = str(lib or _build.build((source,))[source])
     stats = {k: dict({op.lower(): 0 for op in ops}, instructions=0,
                      registers=None, local_bytes=None) for k in kernels}
     for flag in ("-sass", "-res-usage"):
@@ -1435,14 +1441,28 @@ def sass_stats(source: str, kernels, ops=("HGMMA",)) -> dict:
     return stats
 
 
-def flash_sass(bias: bool) -> dict:
+def flash_sass(bias: bool, hd: int = 128) -> dict:
     """SASS stats of the tensor-core flash kernels' instantiation with
-    (``ILb1``) or without (``ILb0``) the key-bias channel."""
+    (``ILb1``) or without (``ILb0``) the key-bias channel at head dim
+    ``hd``: the forward and dq by their head-dim argument (``ELi128E``,
+    ``ELi64E``); dk/dv, built at 128 only, at 128."""
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     flag = "ILb1" if bias else "ILb0"
-    return dict(sass_stats(fa.FLASH_FWD.source, ("flash_fwd_kernel" + flag,)),
-                **sass_stats(fa.FLASH_DQ.source, ("flash_dq_kernel" + flag,
-                                                  "flash_dkv_kernel" + flag)))
+    dims = f"ELi{hd}E"
+    bwd = ("flash_dq_kernel" + flag + dims,)
+    if hd in fa.TENSOR_CORE_HEAD_DIMS["dkv"]:
+        bwd += ("flash_dkv_kernel" + flag,)
+    return dict(sass_stats(fa.FLASH_FWD.source,
+                           ("flash_fwd_kernel" + flag + dims,)),
+                **sass_stats(fa.FLASH_DQ.source, bwd))
+
+
+def sass_checks(sass) -> dict:
+    """Every kernel of ``sass`` (``sass_stats``) runs wgmma (HGMMA) and
+    spills nothing (no local bytes)."""
+    return {"tensor_core_sass": all(st["hgmma"] > 0 for st in sass.values()),
+            "no_local_bytes": all(st["local_bytes"] == 0
+                                  for st in sass.values())}
 
 
 def flash_checks(dev) -> dict:
@@ -1501,10 +1521,7 @@ def flash_checks(dev) -> dict:
                                             if c is not None),
                   "deterministic": all(torch.equal(
                       dict(got, lse=lse)[t], again[t]) for t in again),
-                  "tensor_core_sass": all(st["hgmma"] > 0
-                                          for st in sass.values()),
-                  "no_local_bytes": all(st["local_bytes"] == 0
-                                        for st in sass.values())}
+                  **sass_checks(sass)}
         del want, bdk, bdv, again
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(
@@ -2209,10 +2226,12 @@ def padding_bias(dev, B, S, pad_min, seed):
 
 
 def bias_case(dev, fwd, dq, dkv, q, k, v, do, bias, causal):
-    """One family's three kernels with ``bias`` against their plain
-    versions: tol ratios, max errors, lse error, repeat-launch bits, and
-    the zero-bias control (the kernels without the mask, against the
-    masked plain versions), which must exceed the limit."""
+    """Three kernels (one family's, or the tensor-core forward and dq
+    beside the second family's dk/dv) with ``bias`` (or none) against
+    their plain versions: tol ratios, max errors, lse error, repeat-launch
+    bits, and a fault control that must exceed the limit: with a bias the
+    same kernels with a zero bias (the mask dropped), without one the
+    plain backward at lse + FLASH_LSE_SHIFT."""
     import torch
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     hd = q.shape[-1]
@@ -2231,12 +2250,20 @@ def bias_case(dev, fwd, dq, dkv, q, k, v, do, bias, causal):
     want["dk"], want["dv"] = fa.flash_dkv_plain(*args, key_bias=bias, **kw)
     sync(dev)
     ratio = {t: fa.tol_ratio(got[t], want[t]) for t in got}
-    z_out, z_lse = fwd(q, k, v, **kw)
-    zdelta = (do.float() * z_out.float()).sum(-1)
-    zargs = (q, k, v, do, z_lse, zdelta)
-    ctrl = {"out_zero_bias": fa.tol_ratio(z_out, p_out),
-            "dq_zero_bias": fa.tol_ratio(dq(*zargs, **kw), want["dq"]),
-            "dv_zero_bias": fa.tol_ratio(dkv(*zargs, **kw)[1], want["dv"])}
+    if bias is None:
+        bad = (q, k, v, do, lse + FLASH_LSE_SHIFT, delta)
+        ctrl = {"dq_lse_offset": fa.tol_ratio(got["dq"],
+                                              fa.flash_dq_plain(*bad, **kw)),
+                "dv_lse_offset": fa.tol_ratio(got["dv"], fa.flash_dkv_plain(
+                    *bad, **kw)[1])}
+    else:
+        z_out, z_lse = fwd(q, k, v, **kw)
+        zdelta = (do.float() * z_out.float()).sum(-1)
+        zargs = (q, k, v, do, z_lse, zdelta)
+        ctrl = {"out_zero_bias": fa.tol_ratio(z_out, p_out),
+                "dq_zero_bias": fa.tol_ratio(dq(*zargs, **kw), want["dq"]),
+                "dv_zero_bias": fa.tol_ratio(dkv(*zargs, **kw)[1],
+                                             want["dv"])}
     checks = {"finite": all(bool(t.float().isfinite().all())
                             for t in got.values()),
               "within_tol": max(ratio.values()) <= 1.0,
@@ -2251,13 +2278,19 @@ def bias_case(dev, fwd, dq, dkv, q, k, v, do, bias, causal):
 
 
 def bert_flash_checks(dev) -> dict:
-    """The key-bias channel of both flash families against the plain
-    versions: the second family at BERT-base's attention shape (bf16,
-    head_dim 64, non-causal, a padding mask), timed by device time beside
-    its bound, its plain version and the library's masked attention; the
-    tensor-core kernels at B=2, H=8, S=1024, head_dim 128, non-causal and
-    causal with the mask, timed with and without the bias.  Returns the
-    generic family's rows and the tensor-core bias timings."""
+    """The flash kernels at BERT-base's attention shape (bf16, head_dim
+    64, non-causal, a padding mask as key bias) and the tensor-core
+    kernels' key-bias channel at head_dim 128, against the plain versions.
+    At BERT's shape: the second family's three kernels with the bias; the
+    tensor-core forward and dq (head_dim 64) with and without the bias,
+    each beside the second family's dk/dv fed their lse (the BERT
+    backward's mixed route); each kernel timed by device time beside its
+    bound, its plain version and the library's masked attention, the
+    tensor-core ones also beside the second-family kernel they replace.
+    Then the tensor-core kernels at B=2, H=8, S=1024, head_dim 128,
+    non-causal and causal with the mask, timed with and without the bias.
+    Returns the rows of both families at BERT's shape and the head_dim-128
+    bias timings."""
     import torch
     import torch.nn.functional as F
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
@@ -2272,6 +2305,14 @@ def bert_flash_checks(dev) -> dict:
     gen = bias_case(dev, fa.flash_fwd_generic_cuda, fa.flash_dq_generic_cuda,
                     fa.flash_dkv_generic_cuda, q, k, v, do, bias, False)
     args, kw = gen.pop("args"), gen.pop("kw")
+    sass64 = dict(flash_sass(False, hd), **flash_sass(True, hd))
+    tc64 = {}
+    for name, b in (("bias", bias), ("no_bias", None)):
+        res = bias_case(dev, fa.flash_fwd_cuda, fa.flash_dq_cuda,
+                        fa.flash_dkv_generic_cuda, q, k, v, do, b, False)
+        res["checks"].update(sass_checks(sass64))
+        tc64[name] = res
+    args64 = tc64["bias"]["args"]
     # the work this data needs: every query row against its valid keys
     pairs_valid = H * S * int(lens.sum())
     mask = bias.to(torch.bfloat16)[:, None, None, :]
@@ -2281,42 +2322,78 @@ def bert_flash_checks(dev) -> dict:
         q, k, v, attn_mask=mask), 10)
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(
         lib_out, (qr, kr, vr), do, retain_graph=True), 10)
+    plain = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd_plain(
+                 q, k, v, key_bias=bias, **kw), 3),
+             "flash_dq": cuda_ms(lambda: fa.flash_dq_plain(
+                 *args, key_bias=bias, **kw), 3),
+             "flash_dkv": cuda_ms(lambda: fa.flash_dkv_plain(
+                 *args, key_bias=bias, **kw), 3)}
     calls = {
-        "flash_fwd_generic": (
-            lambda: fa.flash_fwd_generic_cuda(q, k, v, key_bias=bias, **kw),
-            lambda: fa.flash_fwd_plain(q, k, v, key_bias=bias, **kw),
-            lib_fwd, ("out",)),
-        "flash_dq_generic": (
-            lambda: fa.flash_dq_generic_cuda(*args, key_bias=bias, **kw),
-            lambda: fa.flash_dq_plain(*args, key_bias=bias, **kw),
-            lib_bwd, ("dq",)),
-        "flash_dkv_generic": (
-            lambda: fa.flash_dkv_generic_cuda(*args, key_bias=bias, **kw),
-            lambda: fa.flash_dkv_plain(*args, key_bias=bias, **kw),
-            lib_bwd, ("dk", "dv"))}
+        "flash_fwd": (lambda: fa.flash_fwd_generic_cuda(
+            q, k, v, key_bias=bias, **kw), lib_fwd, ("out",)),
+        "flash_dq": (lambda: fa.flash_dq_generic_cuda(
+            *args, key_bias=bias, **kw), lib_bwd, ("dq",)),
+        "flash_dkv": (lambda: fa.flash_dkv_generic_cuda(
+            *args, key_bias=bias, **kw), lib_bwd, ("dk", "dv"))}
     rows = {}
-    for name, (kern, plain, lib_ms, terms) in calls.items():
-        b = flash_bound(name[:-len("_generic")], B, H, H, S, False, hd=hd,
-                        key_bias=True, pairs=pairs_valid)
-        rows[name + "_bias"] = {
+    for name, (kern, lib_ms, terms) in calls.items():
+        rows[name + "_generic_bias"] = {
             "max_abs_err": max(gen["max_abs_err"][t] for t in terms),
-            "ms": device_ms(kern, 10, (name + "_kernel",)),
-            "call_ms": cuda_ms(kern, 10, 2), "plain_ms": cuda_ms(plain, 3),
-            "library_ms": lib_ms, "bound": b,
+            "ms": device_ms(kern, 10, (name + "_generic_kernel",)),
+            "call_ms": cuda_ms(kern, 10, 2), "plain_ms": plain[name],
+            "library_ms": lib_ms, "bound": flash_bound(
+                name, B, H, H, S, False, hd=hd, key_bias=True,
+                pairs=pairs_valid),
             "tol_ratio": max(gen["tol_ratio"][t] for t in terms)}
+    tc_calls = {
+        "flash_fwd": (lambda **b: fa.flash_fwd_cuda(q, k, v, **kw, **b),
+                      lib_fwd, ("out",)),
+        "flash_dq": (lambda **b: fa.flash_dq_cuda(*args64, **kw, **b),
+                     lib_bwd, ("dq",))}
+    rows64 = {}
+    for name, (kern, lib_ms, terms) in tc_calls.items():
+        names = (name + "_kernel",)
+        rows64[name + "_hd64"] = {
+            "max_abs_err": max(tc64[c]["max_abs_err"][t] for c in tc64
+                               for t in terms),
+            "ms": device_ms(lambda: kern(key_bias=bias), 10, names),
+            "no_bias_ms": device_ms(kern, 10, names),
+            "call_ms": cuda_ms(lambda: kern(key_bias=bias), 10, 2),
+            "plain_ms": plain[name], "library_ms": lib_ms,
+            "replaced_generic_ms": rows[name + "_generic_bias"]["ms"],
+            "bound": rows[name + "_generic_bias"]["bound"],
+            "split_floor_ms": flash_bound(
+                name, B, H, H, S, False, hd=hd, key_bias=True,
+                pairs=pairs_valid, split=True)[0],
+            "tol_ratio": max(tc64[c]["tol_ratio"][t] for c in tc64
+                             for t in terms)}
+    tol = (f"|got - want| <= {fa.REL_TOL} |want| + {fa.FLOOR_TOL} "
+           f"max|want|; lse within {fa.LSE_TOL}")
+    shape = f"B={B}, H={H}, S={S}, hd={hd}, bf16, non-causal"
+    valid = dict(valid_lengths=lens.tolist(),
+                 masked_key_share=1 - float(lens.sum()) / (B * S))
     emit(phase="bert_flash_checks", family="generic (csrc/flash_generic.cu)",
-         shape=f"B={B}, H={H}, S={S}, hd={hd}, bf16, non-causal",
-         valid_lengths=lens.tolist(), masked_key_share=1 - float(
-             lens.sum()) / (B * S),
-         tol=(f"|got - want| <= {fa.REL_TOL} |want| + {fa.FLOOR_TOL} "
-              f"max|want|; lse within {fa.LSE_TOL}"),
-         library=BERT_LIBRARY,
+         shape=shape, **valid, tol=tol, library=BERT_LIBRARY,
          rows={n: dict(r, bound_ms=r["bound"][0], bound_by=r["bound"][1])
                for n, r in rows.items()}, **gen)
+    for name, res in tc64.items():
+        emit(phase="bert_flash_checks", family=(
+            "tensor cores at head_dim 64 (csrc/flash_attn.cu, csrc/"
+            "flash_bwd.cu dq) with the second family's dk/dv"),
+             shape=shape, key_bias=name == "bias", **valid, tol=tol,
+             sass=sass64, **{k_: v_ for k_, v_ in res.items()
+                             if k_ not in ("args", "kw")})
+    emit(phase="bert_flash_times", shape=shape, library=BERT_LIBRARY,
+         rows={n: dict(r, bound_ms=r["bound"][0], bound_by=r["bound"][1])
+               for n, r in rows64.items()})
     if not all(gen["checks"].values()):
         raise AssertionError(f"generic flash with a key bias failed: "
                              f"{gen['checks']}")
-    del q, k, v, do, args, qr, kr, vr, lib_out
+    for name, res in tc64.items():
+        if not all(res["checks"].values()):
+            raise AssertionError(f"tensor-core flash at head_dim 64 "
+                                 f"({name}) failed: {res['checks']}")
+    del q, k, v, do, args, args64, qr, kr, vr, lib_out, tc64
 
     Bt, Ht, Hkv, St = TC_BIAS_SHAPE
     sass = flash_sass(bias=True)
@@ -2333,10 +2410,7 @@ def bert_flash_checks(dev) -> dict:
         res = bias_case(dev, fa.flash_fwd_cuda, fa.flash_dq_cuda,
                         fa.flash_dkv_cuda, q, k, v, do, bias_t, causal)
         args, kw = res.pop("args"), res.pop("kw")
-        res["checks"].update(
-            tensor_core_sass=all(st["hgmma"] > 0 for st in sass.values()),
-            no_local_bytes=all(st["local_bytes"] == 0
-                               for st in sass.values()))
+        res["checks"].update(sass_checks(sass))
         times = {}
         for name, fn in (("flash_fwd", lambda **b: fa.flash_fwd_cuda(
                               q, k, v, **kw, **b)),
@@ -2366,7 +2440,8 @@ def bert_flash_checks(dev) -> dict:
                                  f"(causal={causal}) failed: {res['checks']}")
         del q, k, v, do, args
     torch.cuda.empty_cache()
-    return {"generic": rows, "tensor_cores": tc}
+    return {"generic": rows, "tensor_cores_hd64": rows64,
+            "tensor_cores": tc}
 
 
 BERT_ARGV = ["--model=base", "--seq=512", f"--pad-min={BERT_PAD_MIN}",
@@ -2409,9 +2484,11 @@ def bert_train_path(dev, kernels) -> dict:
         losses.append(float(loss))
         step_ms.append(start.elapsed_time(end))
     launches = {name: k.launches for name, k in kernels.items()}
+    # head_dim 64 in bf16: the tensor-core forward and dq, the second
+    # family's dk/dv, one launch of each a layer and rank
     per_step = dict({name: 0 for name in kernels},
-                    flash_fwd_generic=mcfg.n_layers * n,
-                    flash_dq_generic=mcfg.n_layers * n,
+                    flash_fwd=mcfg.n_layers * n,
+                    flash_dq=mcfg.n_layers * n,
                     flash_dkv_generic=mcfg.n_layers * n,
                     ring_rs_update=n_buckets, ring_ag=n_buckets)
     for name, count in launches.items():
@@ -2438,7 +2515,7 @@ def bert_train_path(dev, kernels) -> dict:
          bucket_padded_lens=[b.padded_len for b in tr.plan.buckets],
          weight_init_s=init_s, warmup_steps=BERT_WARMUP, steps=cfg.iters,
          step_ms=step_ms, median_step_ms=sorted(timed)[len(timed) // 2],
-         tokens_per_sec=valid / wall, padded_tokens_per_sec=tokens / wall,
+         tokens_per_sec=tokens / wall, valid_tokens_per_sec=valid / wall,
          valid_token_share=valid / tokens, losses=losses,
          peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
          launches=launches, launches_per_step=per_step, checks=checks,
@@ -2461,9 +2538,10 @@ def bert_train_path(dev, kernels) -> dict:
 def bert_train_parity(dev, run) -> None:
     """``bert.loss_fn``'s gradients on one rank's padded batch at BERT-base
     width and 2 layers, through the flash kernels (attn_impl="pallas":
-    the key-bias channel of the second family) and the plain softmax
-    route ("xla"), compared as one flat vector; and the kernels with a
-    zero bias (the padding mask dropped), which must exceed the limit."""
+    the key-bias channel of the tensor-core forward and dq at head_dim 64
+    and of the second family's dk/dv) and the plain softmax route
+    ("xla"), compared as one flat vector; and the kernels with a zero bias
+    (the padding mask dropped), which must exceed the limit."""
     import dataclasses
     import torch
     from fpga_ai_nic_tpu_torch import train_bert
@@ -2774,7 +2852,7 @@ def main() -> int:
 
     # -- 13-15. BERT-base: the key-bias channel, the DDP path, its parity ----------
     bert_flash = bert_flash_checks(dev)
-    bert_kernels = dict(serve_kernels,
+    bert_kernels = dict(serve_kernels,        # flash_fwd, flash_dq among them
                         flash_fwd_generic=flash_attention.FLASH_FWD_GENERIC,
                         flash_dq_generic=flash_attention.FLASH_DQ_GENERIC,
                         flash_dkv_generic=flash_attention.FLASH_DKV_GENERIC)
@@ -2811,6 +2889,10 @@ def main() -> int:
                                   REF + "/ops/flash_pallas.py:222"),
         "flash_dkv_generic_bias": (PORT + "/csrc/flash_generic.cu",
                                    REF + "/ops/flash_pallas.py:267"),
+        "flash_fwd_hd64": (PORT + "/csrc/flash_attn.cu",
+                           REF + "/ops/flash_pallas.py:93"),
+        "flash_dq_hd64": (PORT + "/csrc/flash_bwd.cu",
+                          REF + "/ops/flash_pallas.py:222"),
         "int8_encode": (PORT + "/csrc/int8_codec.cu",
                         REF + "/compress/int8.py:129"),
         "int8_decode": (PORT + "/csrc/int8_codec.cu",
@@ -2845,6 +2927,9 @@ def main() -> int:
         results[name] = r
     for name, r in bert_flash["generic"].items():
         launches[name] = bert_run["launches"][name[:-len("_bias")]]
+        results[name] = r
+    for name, r in bert_flash["tensor_cores_hd64"].items():
+        launches[name] = bert_run["launches"][name[:-len("_hd64")]]
         results[name] = r
     dec_row, pre_row = paged["decode GQA ps16"], paged["prefill GQA ps16"]
     results["paged_attend"] = {
@@ -2898,11 +2983,20 @@ def main() -> int:
         if name in auto["rows"]:
             row.update(shape="tiny f32 Llama, head_dim 16, S=128",
                        launches_from="auto_route", call_ms=r["call_ms"])
-        if name in bert_flash["generic"]:
+        if name in bert_flash["generic"] or name in bert_flash[
+                "tensor_cores_hd64"]:
             row.update(shape=("BERT-base attention: B=8, H=12, S=512, hd=64, "
                               "bf16, non-causal, padding mask as key bias"),
                        launches_from="bert_train_path", library=BERT_LIBRARY,
                        call_ms=r["call_ms"], tol_ratio=r["tol_ratio"])
+        if name in ("flash_fwd_generic_bias", "flash_dq_generic_bias"):
+            row.update(bert_path_kernel=name.replace("generic_bias",
+                                                     "hd64"))
+        if name in bert_flash["tensor_cores_hd64"]:
+            row.update(instantiation="head_dim 64, key bias (ILb1ELi64E)",
+                       no_bias_ms=r["no_bias_ms"],
+                       replaced_generic_ms=r["replaced_generic_ms"],
+                       split_floor_ms=r["split_floor_ms"])
         if name in flash_kernels:
             tcb = bert_flash["tensor_cores"]
             row.update(bias_shape=("B=2, H=8, Hkv=8, S=1024, hd=128, bf16, "

@@ -2,6 +2,7 @@
 """Device time of the port's codec kernels on one NVIDIA card.
 
     python3 codec_probe.py [--root DIR] [--control] [--step] [--flash]
+                           [--flash64]
 
 Times ``int8_encode`` (both roundings), ``int8_decode``, ``bfp_encode`` and
 ``bfp_decode`` at the main paths' shapes (``chip_smoke.py``'s), each by the
@@ -20,8 +21,15 @@ timed steps).  ``--flash`` times the tensor-core flash kernels without a
 key bias (``flash_fwd``, ``flash_dq``, ``flash_dkv``, by device time) at
 ``chip_smoke.py``'s two shapes and prints a sha256 digest of their
 outputs on numpy-seeded inputs, so two checkouts' bias-free kernels
-compare bit for bit.  Each result is one JSON line; the last line sums them up.
-Without a card it exits nonzero.
+compare bit for bit, and the SASS instruction count and registers of the
+head_dim-128 tensor-core kernels with and without the key bias and of the
+paged prefill (named as either checkout builds them).  ``--flash64``
+builds the head_dim-64 forward and dq for other blocks an SM than
+``csrc/`` does (copies of the sources with another ``FWD_BLOCKS<64>`` /
+``DQ_BLOCKS<64>``, compiled beside the port's libraries) and times each
+build's launch at BERT-base's attention shape with the key bias (device
+time), beside its registers and spills.  Each result is one JSON line;
+the last line sums them up.  Without a card it exits nonzero.
 """
 
 from __future__ import annotations
@@ -206,6 +214,103 @@ def flash_rows(cs, dev) -> dict:
     return rows
 
 
+# (source, kernel): the head_dim-128 kernels whose SASS must not move
+FLASH_SASS = (("flash_attn.cu", "flash_fwd_kernel"),
+              ("flash_bwd.cu", "flash_dq_kernel"),
+              ("flash_bwd.cu", "flash_dkv_kernel"))
+
+
+def flash_sass(cs) -> dict:
+    """SASS instructions, registers and local bytes of the head_dim-128
+    tensor-core flash kernels, without (``ILb0``) and with (``ILb1``) the
+    key bias, and of the paged prefill.  This tree names the forward and
+    dq instantiations ``...ILb0ELi128E``; a tree from before the head-dim
+    parameter ``...ILb0EE``; dk/dv is ``...ILb0EE`` in both."""
+    out = {}
+    for src, name in FLASH_SASS:
+        for flag in ("ILb0", "ILb1"):
+            pats = (name + flag + "ELi128E", name + flag + "EE")
+            st = cs.sass_stats(src, pats)
+            hit = [p for p in pats if st[p]["instructions"]]
+            if len(hit) != 1:
+                raise RuntimeError(f"{src}: {len(hit)} kernels match {pats}")
+            out[name + flag] = dict(st[hit[0]], matched=hit[0])
+    out.update(cs.sass_stats("paged_attend.cu", ("paged_prefill_kernel",)))
+    return out
+
+
+# (source, C entry, the constant's text and the blocks an SM to try)
+FLASH64_BLOCKS = (
+    ("flash_attn.cu", "flash_fwd", "FWD_BLOCKS = D == 128 ? 1 : ", (1, 2)),
+    ("flash_bwd.cu", "flash_dq", "DQ_BLOCKS = D == 128 ? 2 : ", (2, 3, 4)))
+
+
+def flash64_blocks(cs, dev) -> dict:
+    """The head_dim-64 forward and dq built for each blocks-an-SM count of
+    ``FLASH64_BLOCKS`` (the source's own among them): device ms a call at
+    BERT-base's attention shape with the key bias, registers, local bytes
+    and SASS instructions of the bias instantiation, and whether the
+    outputs equal the port's build bit for bit."""
+    import re
+    import torch
+    from fpga_ai_nic_tpu_torch.ops import _build
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    from fpga_ai_nic_tpu_torch.ops._build import ptr
+    B, H, S, hd = cs.BERT_SHAPE
+    g = torch.Generator(device=dev).manual_seed(500)
+    q, k, v, do = (torch.randn((B, H, S, hd), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    bias, _ = cs.padding_bias(dev, B, S, cs.BERT_PAD_MIN, 501)
+    kw = dict(causal=False, sm_scale=hd ** -0.5, key_bias=bias)
+    ref_out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    ref_dq = fa.flash_dq_cuda(q, k, v, do, lse, delta, **kw)
+    out = torch.empty_like(q)
+    lse2 = torch.empty_like(lse)
+    dq = torch.empty_like(q)
+    head = (B * H, 1, H, S, S, 0, hd ** -0.5, hd)
+    launch_args = {
+        "flash_fwd": ((ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out),
+                       ptr(lse2)) + head, (out, ref_out)),
+        "flash_dq": ((ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
+                      ptr(delta), ptr(bias), ptr(dq)) + head, (dq, ref_dq))}
+    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_dq": fa.FLASH_DQ}
+    rows = {}
+    for src, name, text, counts in FLASH64_BLOCKS:
+        code = (_build.CSRC / src).read_text()
+        m = re.search(re.escape(text) + r"(\d+);", code)
+        if m is None:
+            raise RuntimeError(f"{src}: no '{text}N;' to vary")
+        for n in counts:
+            var = _build.BUILD_DIR / f"{src[:-3]}_blocks{n}.cu"
+            var.write_text(code.replace(m.group(0), f"{text}{n};"))
+            lib = _build.BUILD_DIR / f"{src[:-3]}_blocks{n}.{os.getpid()}.so"
+            subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                            str(_build.CSRC), "-o", str(lib), str(var)],
+                           check=True, timeout=600)
+            fn = getattr(ctypes.CDLL(str(lib)), name + "_launch")
+            fn.argtypes = kernels[name].argtypes
+            fn.restype = ctypes.c_int
+            args, (got, ref) = launch_args[name]
+
+            def call():
+                err = fn(*args, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name} ({n} blocks) launch: {err}")
+
+            call()
+            torch.cuda.synchronize()
+            kern = name + "_kernelILb1ELi64E"
+            rows[f"{name} {n} blocks"] = dict(
+                cs.sass_stats(src, (kern,), lib=lib)[kern],
+                device_ms=cs.device_ms(call, 10, (name + "_kernel",)),
+                source_default=n == int(m.group(1)),
+                bits_equal_port=bool(torch.equal(got, ref)))
+    del q, k, v, do, out, dq, ref_out, ref_dq
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE,
@@ -213,6 +318,7 @@ def main() -> int:
     ap.add_argument("--control", action="store_true")
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--flash", action="store_true")
+    ap.add_argument("--flash64", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -292,6 +398,12 @@ def main() -> int:
         _build.build(("flash_attn.cu", "flash_bwd.cu"))
         out["flash"] = flash_rows(cs, dev)
         cs.emit(phase="probe_flash", **out["flash"])
+        out["flash_sass"] = flash_sass(cs)
+        cs.emit(phase="probe_flash_sass", sass=out["flash_sass"])
+    if args.flash64:
+        _build.build(("flash_attn.cu", "flash_bwd.cu"))
+        out["flash64_blocks"] = flash64_blocks(cs, dev)
+        cs.emit(phase="probe_flash64_blocks", **out["flash64_blocks"])
     print(json.dumps(out), flush=True)
     return 0
 

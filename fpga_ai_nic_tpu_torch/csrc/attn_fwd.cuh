@@ -5,7 +5,7 @@
 //
 // A block is two consumer warpgroups, each owning 64 query rows, and one
 // producer warp.  The producer fills a ring of FWD_STAGES K/V stages
-// (a [64 keys][128] bf16 K tile and its V tile each) with 16-byte cp.async
+// (a [64 keys][D] bf16 K tile and its V tile each) with 16-byte cp.async
 // copies into the 128-byte swizzled layout; each lane waits for its own
 // copies, fences them to the async proxy and arrives on the stage's
 // "full" mbarrier (32 arrivals).  Both warpgroups read every stage and
@@ -14,10 +14,13 @@
 //   s = q . k^T          m64n64k16 wgmma, both operands in shared memory,
 //                        one product per bf16 term of q (hi, then lo);
 //   online softmax       in f32 on the s accumulator fragment, log2 units;
-//   o += p . v           m64n128k16 wgmma with p packed from the s
+//   o += p . v           m64nDk16 wgmma with p packed from the s
 //                        fragment as bf16 hi + lo A operands (two
 //                        products), v read MN-major through the transpose
 //                        bit.
+// D, the head dim, is a template parameter (last, default HD = 128) of
+// every piece here; flash_attn.cu also instantiates D = 64 (BERT's), where
+// o is m64n64 (32 registers a thread) and a stage is half as large.
 // The two warpgroups take turns to issue s (named barriers 1 and 2, FA3's
 // ping-pong): while one runs its softmax the tensor cores work on the
 // other's products.  Each row keeps a limit: key j is seen iff
@@ -42,10 +45,10 @@ constexpr float M_INIT = -1e30f;           // the Pallas kernels' -inf
 // One block's shared memory, from a 1024-byte aligned base: the two
 // warpgroups' Q tiles (NQT bf16 terms each), the K/V ring, then the
 // full and empty mbarriers.
-template <int NQT>
+template <int NQT, int D = HD>
 struct FwdSmem {
-  static constexpr uint32_t RING = 2 * NQT * TILE;
-  static constexpr uint32_t BARS = RING + FWD_STAGES * 2 * TILE;
+  static constexpr uint32_t RING = 2 * NQT * TILE_OF<D>;
+  static constexpr uint32_t BARS = RING + FWD_STAGES * 2 * TILE_OF<D>;
   static constexpr size_t BYTES = BARS + 2 * FWD_STAGES * 8 + 1024;
 };
 
@@ -61,16 +64,17 @@ __device__ __forceinline__ void fwd_init_barriers(uint32_t bars) {
 // The producer warp: load_kv(k_dst, v_dst, it, lane) issues this lane's
 // copies of K/V tile it; stage it % FWD_STAGES is refilled once both
 // warpgroups have released its previous tile.
-template <class LoadKV>
+template <class LoadKV, int D = HD>
 __device__ __forceinline__ void fwd_producer(uint32_t ring, uint32_t bars,
                                              int nk, int lane,
                                              LoadKV load_kv) {
+  constexpr int TL = TILE_OF<D>;
   const uint32_t full = bars, empty = bars + 8 * FWD_STAGES;
   for (int it = 0; it < nk; ++it) {
     const int st = it % FWD_STAGES;
     if (it >= FWD_STAGES)
       mbar_wait(empty + 8 * st, ((it / FWD_STAGES) - 1) & 1);
-    load_kv(ring + st * 2 * TILE, ring + st * 2 * TILE + TILE, it, lane);
+    load_kv(ring + st * 2 * TL, ring + st * 2 * TL + TL, it, lane);
     cp_commit();
     if (it > 0) {  // tile it - 1 has landed (this lane's part of it)
       cp_wait<1>();
@@ -88,30 +92,32 @@ __device__ __forceinline__ void fwd_producer(uint32_t ring, uint32_t bars,
 // Consumer warpgroup w (0 or 1) over the block's nk tiles: it computes
 // the first nk_w and only releases the rest (both warpgroups walk all nk,
 // so the turn-taking barriers stay paired).  sQ holds nq bf16 terms of
-// this warpgroup's q tile, TILE bytes apart.  lim[h]: the last key seen by
-// row r0 + 8 h of the tile (-1: none).  brow (BIAS only): the f32 biases
-// of this head's keys, in natural units.  Leaves o unnormalised, m in log2
-// units and l this thread's part of the row sums (fwd_finish completes
-// them).
-template <bool BIAS = false>
+// this warpgroup's q tile, TILE_OF<D> bytes apart.  lim[h]: the last key
+// seen by row r0 + 8 h of the tile (-1: none).  brow (BIAS only): the f32
+// biases of this head's keys, in natural units.  Leaves o unnormalised, m
+// in log2 units and l this thread's part of the row sums (fwd_finish
+// completes them).
+template <bool BIAS = false, int D = HD>
 __device__ __forceinline__ void fwd_consumer(uint32_t ring, uint32_t bars,
                                              uint32_t sQ, int nq, int w,
                                              int nk, int nk_w,
                                              const int (&lim)[2],
-                                             float scale2, float (&o)[64],
+                                             float scale2,
+                                             float (&o)[D / 2],
                                              float (&m)[2], float (&l)[2],
                                              const float* brow = nullptr) {
+  constexpr int TL = TILE_OF<D>;
   const int lane = threadIdx.x & 31, c0 = 2 * (lane & 3);
   const uint32_t full = bars, empty = bars + 8 * FWD_STAGES;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   m[0] = m[1] = M_INIT;
   l[0] = l[1] = 0.f;
   if (w == 1) bar_arrive(1, 2 * NT);  // warpgroup 0 issues first
 
   for (int it = 0; it < nk; ++it) {
     const int st = it % FWD_STAGES;
-    const uint32_t sK = ring + st * 2 * TILE, sV = sK + TILE;
+    const uint32_t sK = ring + st * 2 * TL, sV = sK + TL;
     const bool active = it < nk_w;
     mbar_wait(full + 8 * st, (it / FWD_STAGES) & 1);
 
@@ -124,8 +130,8 @@ __device__ __forceinline__ void fwd_consumer(uint32_t ring, uint32_t bars,
       wg_fence();
       for (int t = 0; t < nq; ++t)
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
-          mma_ss(s, desc_k(sQ + t * TILE, kk), desc_k(sK, kk), t | kk);
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss(s, desc_k(sQ + t * TL, kk), desc_k(sK, kk), t | kk);
       wg_commit();
     }
     if (w == 0 || it + 1 < nk) bar_arrive(2 - w, 2 * NT);  // the other's turn
@@ -185,7 +191,7 @@ __device__ __forceinline__ void fwd_consumer(uint32_t ring, uint32_t bars,
         l[h] += p;
       }
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       uint32_t hi[4][4], lo[4][4];
       split(s, hi, lo);
       pin(o);
@@ -206,7 +212,8 @@ __device__ __forceinline__ void fwd_consumer(uint32_t ring, uint32_t bars,
 // Complete the row sums over the quad of lanes that shares a row, divide
 // o by them (the l == 0 guard of the Pallas kernels' _finish) and return
 // lse = m + log l in natural units.
-__device__ __forceinline__ void fwd_finish(float (&o)[64],
+template <int D = HD>
+__device__ __forceinline__ void fwd_finish(float (&o)[D / 2],
                                            const float (&m)[2],
                                            float (&l)[2], float (&lse)[2]) {
   float safe[2];
@@ -218,7 +225,7 @@ __device__ __forceinline__ void fwd_finish(float (&o)[64],
     lse[h] = m[h] * LN2 + logf(safe[h]);
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = o[i] / safe[(i >> 1) & 1];
+  for (int i = 0; i < D / 2; ++i) o[i] = o[i] / safe[(i >> 1) & 1];
 }
 
 }  // namespace

@@ -4,12 +4,15 @@
 // Replaces the Pallas TPU kernel of fpga_ai_nic_tpu/ops/flash_pallas.py:
 //   flash_fwd_kernel  <- _fwd_kernel  (:93)
 //
-// Layouts: q / out are [B*H, S, 128] bf16, k / v are [B*Hkv, S, 128] bf16,
-// lse is [B*H, S] f32.  GQA is handled by indexing: query head bh reads KV
-// head bh / G (G = H / Hkv).  The key bias (the Pallas kernel's has_bias,
-// BERT's padding mask) is an f32 [B, Sk] row added to every score of the
-// batch's heads before the softmax; it is a template flag (BIAS), so the
-// launch without it is the kernel it was before the channel existed.
+// Layouts: q / out are [B*H, S, D] bf16, k / v are [B*Hkv, S, D] bf16,
+// lse is [B*H, S] f32, with D (the head dim) 128 (Llama's) or 64 (BERT's),
+// a template parameter of the kernel, last, so the head_dim-128 launch is
+// the kernel it was before D existed.  GQA is handled by indexing: query
+// head bh reads KV head bh / G (G = H / Hkv).  The key bias (the Pallas
+// kernel's has_bias, BERT's padding mask) is an f32 [B, Sk] row added to
+// every score of the batch's heads before the softmax; it is a template
+// flag (BIAS), so the launch without it is the kernel it was before the
+// channel existed.
 //
 // What computes: the Pallas kernel's arithmetic.  s = q . k^T is a bf16
 // product summed in f32 (exact operands); the online softmax runs in f32;
@@ -24,7 +27,9 @@
 // (S = 4096, 32 heads, 8 KV heads, causal) it does 2 products of depth 128
 // per visible (row, key) pair, hundreds of operations per byte moved; the
 // split makes them 3 tensor-core passes.  Only the bf16 tensor cores
-// (989 TFLOP/s) come near that bound.
+// (989 TFLOP/s) come near that bound.  At BERT's shape (head_dim 64,
+// S = 512, a quarter of the keys padded) the bytes bound it (q, k, v and
+// out once), a little above the operations of the valid pairs.
 //
 // What the design does about it: attn_fwd.cuh's mainloop.  A block takes
 // two consecutive 64-row q tiles of one head, one per consumer warpgroup,
@@ -33,21 +38,30 @@
 // tensor cores, so one's softmax overlaps the other's products.  Causal
 // loops stop at each warpgroup's diagonal tile (the first warpgroup skips
 // the block's last tile), and blocks are dealt longest first across all
-// heads.  160 KB of shared memory: one block an SM.
+// heads.  At head_dim 128, 160 KB of shared memory: one block an SM.  At
+// head_dim 64 a tile row is one 128-byte swizzle atom, o is m64n64 (32
+// registers) and a block takes about 81 KB (two 8 KB q tiles and four
+// 16 KB K/V stages), so it is built for two blocks an SM (96 registers,
+// no spills): at BERT's shape (S = 512, 96 heads) the grid is 384
+// blocks, 1.5 waves on 132 SMs where one block an SM would take three
+// (codec_probe.py --flash64 times both builds).
 
 #include "attn_fwd.cuh"
 
 namespace {
 
-using FlashSmem = FwdSmem<1>;
+// blocks an SM each head dim's instantiation is built for
+template <int D>
+constexpr int FWD_BLOCKS = D == 128 ? 1 : 2;
 
-template <bool BIAS>
-__global__ void __launch_bounds__(FWD_THREADS, 1)
+template <bool BIAS, int D = HD>
+__global__ void __launch_bounds__(FWD_THREADS, FWD_BLOCKS<D>)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  float* __restrict__ lse, int G, int Sq, int Sk,
                  int causal, float sm_scale,
                  const float* __restrict__ bias, int H) {
+  using FlashSmem = FwdSmem<1, D>;
   extern __shared__ uint8_t smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t ring = base + FlashSmem::RING;
@@ -68,22 +82,23 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   if (tid >= 2 * NT) {  // the producer warp
-    const bf16* kb = k + (size_t)kvh * Sk * HD;
-    const bf16* vb = v + (size_t)kvh * Sk * HD;
-    fwd_producer(ring, bars, nk, tid - 2 * NT,
-                 [&](uint32_t dk, uint32_t dv, int it, int lane) {
-                   load_tile_by<32>(dk, kb + (size_t)it * T * HD, lane);
-                   load_tile_by<32>(dv, vb + (size_t)it * T * HD, lane);
-                 });
+    const bf16* kb = k + (size_t)kvh * Sk * D;
+    const bf16* vb = v + (size_t)kvh * Sk * D;
+    auto load_kv = [&](uint32_t dk, uint32_t dv, int it, int lane) {
+      load_tile_by<32, D>(dk, kb + (size_t)it * T * D, lane);
+      load_tile_by<32, D>(dv, vb + (size_t)it * T * D, lane);
+    };
+    fwd_producer<decltype(load_kv), D>(ring, bars, nk, tid - 2 * NT,
+                                       load_kv);
     return;
   }
 
   const int w = tid >> 7, t = tid & (NT - 1);
   const int qt = 2 * qp + w;
   const bool valid = qt < nqt;
-  const uint32_t sQ = base + w * TILE;
+  const uint32_t sQ = base + w * TILE_OF<D>;
   const size_t row0 = (size_t)bh * Sq + (size_t)qt * T;
-  if (valid) load_tile(sQ, q + row0 * HD, t);
+  if (valid) load_tile<D>(sQ, q + row0 * D, t);
   cp_commit();
   cp_wait<0>();
   proxy_fence();
@@ -94,28 +109,28 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     lim[h] = causal ? qt * T + r0 + 8 * h : Sk - 1;
-  float o[64], m[2], l[2], ls[2];
-  fwd_consumer<BIAS>(ring, bars, sQ, 1, w, nk, w ? nkw[1] : nkw[0], lim,
-                     sm_scale * LOG2E, o, m, l,
-                     BIAS ? bias + (size_t)(bh / H) * Sk : nullptr);
+  float o[D / 2], m[2], l[2], ls[2];
+  fwd_consumer<BIAS, D>(ring, bars, sQ, 1, w, nk, w ? nkw[1] : nkw[0], lim,
+                        sm_scale * LOG2E, o, m, l,
+                        BIAS ? bias + (size_t)(bh / H) * Sk : nullptr);
   if (!valid) return;
-  fwd_finish(o, m, l, ls);
-  store_tile(out + row0 * HD, o, r0, c0);
+  fwd_finish<D>(o, m, l, ls);
+  store_tile<D>(out + row0 * D, o, r0, c0);
   if ((t & 3) == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) lse[row0 + r0 + 8 * h] = ls[h];
   }
 }
 
-template <bool BIAS>
+template <bool BIAS, int D>
 int fwd(const void* q, const void* k, const void* v, const void* bias,
         void* out, void* lse, int BH, int G, int H, int Sq, int Sk,
         int causal, float sm_scale, cudaStream_t stream) {
-  int err = launch_prep(flash_fwd_kernel<BIAS>, FlashSmem::BYTES);
+  constexpr size_t smem = FwdSmem<1, D>::BYTES;
+  int err = launch_prep(flash_fwd_kernel<BIAS, D>, smem);
   if (err) return err;
   const int pairs = (Sq / T + 1) / 2;
-  flash_fwd_kernel<BIAS><<<dim3(pairs, BH), FWD_THREADS, FlashSmem::BYTES,
-                           stream>>>(
+  flash_fwd_kernel<BIAS, D><<<dim3(pairs, BH), FWD_THREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
       (float*)lse, G, Sq, Sk, causal, sm_scale, (const float*)bias, H);
   return (int)cudaGetLastError();
@@ -125,18 +140,27 @@ int fwd(const void* q, const void* k, const void* v, const void* bias,
 
 // C interface (ctypes).  BH = B * H query heads, G = H / Hkv; Sq and Sk
 // are multiples of 64; every pointer is 16-byte aligned and contiguous;
-// bias is f32 [B, Sk] or null (the kernel without the channel).  Returns
-// the launch's cudaError_t.
+// bias is f32 [B, Sk] or null (the kernel without the channel); hd, the
+// head dim, picks the instantiation (128 or 64; any other is refused with
+// cudaErrorInvalidValue, nothing launched).  Returns the launch's
+// cudaError_t.
 extern "C" {
 
 int flash_fwd_launch(const void* q, const void* k, const void* v,
                      const void* bias, void* out, void* lse, int BH, int G,
                      int H, int Sq, int Sk, int causal, float sm_scale,
-                     cudaStream_t stream) {
-  return bias ? fwd<true>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk, causal,
-                          sm_scale, stream)
-              : fwd<false>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk, causal,
-                           sm_scale, stream);
+                     int hd, cudaStream_t stream) {
+  if (hd == 128)
+    return bias ? fwd<true, 128>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk,
+                                 causal, sm_scale, stream)
+                : fwd<false, 128>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk,
+                                  causal, sm_scale, stream);
+  if (hd == 64)
+    return bias ? fwd<true, 64>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk,
+                                causal, sm_scale, stream)
+                : fwd<false, 64>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk,
+                                 causal, sm_scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -4,10 +4,18 @@
 //   flash_dq_kernel   <- _dq_kernel   (:222)
 //   flash_dkv_kernel  <- _dkv_kernel  (:267)
 //
-// Layouts: q / dout / dq are [B*H, S, 128] bf16, k / v / dk / dv are
-// [B*Hkv, S, 128] bf16, lse / delta are [B*H, S] f32.  GQA is handled by
-// indexing: query head bh reads KV head bh / G (G = H / Hkv); the dk/dv
-// kernel sums the G query heads of its KV head itself, in a fixed order.
+// Layouts: q / dout / dq are [B*H, S, D] bf16, k / v / dk / dv are
+// [B*Hkv, S, D] bf16, lse / delta are [B*H, S] f32.  D, the head dim, is
+// 128 (Llama's) for both kernels; the dq kernel also has a D = 64
+// instantiation (BERT's: a template parameter, last, so the head_dim-128
+// launch is the kernel it was before D existed), where s and dp take 4 k
+// steps, dq = ds . k is an m64n64k16 product into 32 accumulators, and a
+// block takes about 49 KB of shared memory (Q, dO and two K/V stages of
+// 8 KB tiles), so three blocks share an SM.  dk/dv at head_dim 64 is not
+// built here (the second family, flash_generic.cu, takes it).  GQA is
+// handled by indexing: query head bh reads KV head bh / G (G = H / Hkv);
+// the dk/dv kernel sums the G query heads of its KV head itself, in a
+// fixed order.
 // The key bias (the Pallas kernels' has_bias, BERT's padding mask) is an
 // f32 [B, Sk] row, a template flag (BIAS) of both kernels: with it, p is
 // recomputed as exp(s * sm_scale + bias - lse) on every tile, so a masked
@@ -54,8 +62,12 @@ namespace {
 
 // -- dq: one block per (query head, q tile); loop over k tiles ---------------
 
-template <bool BIAS>
-__global__ void __launch_bounds__(NT, 2)
+// blocks an SM each head dim's dq instantiation is built for
+template <int D>
+constexpr int DQ_BLOCKS = D == 128 ? 2 : 3;
+
+template <bool BIAS, int D = HD>
+__global__ void __launch_bounds__(NT, DQ_BLOCKS<D>)
 flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse,
@@ -63,9 +75,10 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 int G, int Sq, int Sk, int causal, float sm_scale,
                 const float* __restrict__ bias, int H) {
   extern __shared__ uint8_t smem[];
+  constexpr int TL = TILE_OF<D>;
   const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
-  const uint32_t sDO = sQ + TILE;
-  const uint32_t sKV = sDO + TILE;  // stage s: K at sKV + 2 s TILE, V after
+  const uint32_t sDO = sQ + TL;
+  const uint32_t sKV = sDO + TL;  // stage s: K at sKV + 2 s TL, V after
   const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
   const int r0 = 16 * w + (l >> 2), c0 = 2 * (l & 3);
   // longest causal tiles first, across all heads
@@ -73,15 +86,15 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qt = gridDim.x - 1 - id / BH, bh = id % BH, kvh = bh / G;
   const int q0 = qt * T;
   const size_t row0 = (size_t)bh * Sq + q0;
-  const bf16* kb = k + (size_t)kvh * Sk * HD;
-  const bf16* vb = v + (size_t)kvh * Sk * HD;
+  const bf16* kb = k + (size_t)kvh * Sk * D;
+  const bf16* vb = v + (size_t)kvh * Sk * D;
   int nk = Sk / T;
   if (causal) nk = min(nk, qt + 1);  // tiles past the diagonal see nothing
 
-  load_tile(sQ, q + row0 * HD, tid);
-  load_tile(sDO, dout + row0 * HD, tid);
-  load_tile(sKV, kb, tid);
-  load_tile(sKV + TILE, vb, tid);
+  load_tile<D>(sQ, q + row0 * D, tid);
+  load_tile<D>(sDO, dout + row0 * D, tid);
+  load_tile<D>(sKV, kb, tid);
+  load_tile<D>(sKV + TL, vb, tid);
   cp_commit();
   const float scale2 = sm_scale * LOG2E;
   float lr[2], dr[2];
@@ -90,16 +103,16 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lr[h] = lse[row0 + r0 + 8 * h] * LOG2E;
     dr[h] = delta[row0 + r0 + 8 * h];
   }
-  float acc[64];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   for (int kt = 0; kt < nk; ++kt) {
-    const uint32_t sK = sKV + (kt & 1) * 2 * TILE, sV = sK + TILE;
+    const uint32_t sK = sKV + (kt & 1) * 2 * TL, sV = sK + TL;
     if (kt + 1 < nk) {  // the other stage was released at the end of kt - 1
-      const uint32_t nK = sKV + ((kt + 1) & 1) * 2 * TILE;
-      load_tile(nK, kb + (size_t)(kt + 1) * T * HD, tid);
-      load_tile(nK + TILE, vb + (size_t)(kt + 1) * T * HD, tid);
+      const uint32_t nK = sKV + ((kt + 1) & 1) * 2 * TL;
+      load_tile<D>(nK, kb + (size_t)(kt + 1) * T * D, tid);
+      load_tile<D>(nK + TL, vb + (size_t)(kt + 1) * T * D, tid);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -114,10 +127,10 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pin(dp);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk)
       mma_ss(s, desc_k(sQ, kk), desc_k(sK, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk)
       mma_ss(dp, desc_k(sDO, kk), desc_k(sV, kk), kk);
     wg_commit();
     wg_wait<0>();
@@ -159,7 +172,7 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // this stage is free for the copy of tile kt + 2
   }
   cp_wait<0>();
-  store_tile(dq + row0 * HD, acc, r0, c0);
+  store_tile<D>(dq + row0 * D, acc, r0, c0);
 }
 
 // -- dk/dv: one block per (KV head, k tile); loop over (query head of the
@@ -283,17 +296,18 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_tile(dv + krow0 * HD, av, r0, c0);
 }
 
-constexpr size_t DQ_SMEM = 6 * TILE + 1024;
+template <int D>
+constexpr size_t DQ_SMEM = 6 * TILE_OF<D> + 1024;
 constexpr size_t DKV_SMEM = 6 * TILE + 1024 + 1024;
 
-template <bool BIAS>
+template <bool BIAS, int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, const void* bias, void* dq_,
        int BH, int G, int H, int Sq, int Sk, int causal, float sm_scale,
        cudaStream_t stream) {
-  int err = launch_prep(flash_dq_kernel<BIAS>, DQ_SMEM);
+  int err = launch_prep(flash_dq_kernel<BIAS, D>, DQ_SMEM<D>);
   if (err) return err;
-  flash_dq_kernel<BIAS><<<dim3(Sq / T, BH), NT, DQ_SMEM, stream>>>(
+  flash_dq_kernel<BIAS, D><<<dim3(Sq / T, BH), NT, DQ_SMEM<D>, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dq_, G, Sq, Sk, causal,
       sm_scale, (const float*)bias, H);
@@ -319,26 +333,36 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 // C interface (ctypes).  BH = B * H query heads, G = H / Hkv; Sq and Sk
 // are multiples of 64; every pointer is 16-byte aligned and contiguous;
 // bias is f32 [B, Sk] or null (the kernels without the channel); H / Hkv
-// are the heads a batch of the grid's head index.  Each returns the
-// launch's cudaError_t.
+// are the heads a batch of the grid's head index; hd, the head dim, picks
+// the instantiation (dq: 128 or 64, dk/dv: 128; any other is refused with
+// cudaErrorInvalidValue, nothing launched).  Each returns the launch's
+// cudaError_t.
 extern "C" {
 
 int flash_dq_launch(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     const void* bias, void* dq_, int BH, int G, int H,
-                    int Sq, int Sk, int causal, float sm_scale,
+                    int Sq, int Sk, int causal, float sm_scale, int hd,
                     cudaStream_t stream) {
-  return bias ? dq<true>(q, k, v, dout, lse, delta, bias, dq_, BH, G, H, Sq,
-                         Sk, causal, sm_scale, stream)
-              : dq<false>(q, k, v, dout, lse, delta, bias, dq_, BH, G, H,
-                          Sq, Sk, causal, sm_scale, stream);
+  if (hd == 128)
+    return bias ? dq<true, 128>(q, k, v, dout, lse, delta, bias, dq_, BH, G,
+                                H, Sq, Sk, causal, sm_scale, stream)
+                : dq<false, 128>(q, k, v, dout, lse, delta, bias, dq_, BH,
+                                 G, H, Sq, Sk, causal, sm_scale, stream);
+  if (hd == 64)
+    return bias ? dq<true, 64>(q, k, v, dout, lse, delta, bias, dq_, BH, G,
+                               H, Sq, Sk, causal, sm_scale, stream)
+                : dq<false, 64>(q, k, v, dout, lse, delta, bias, dq_, BH, G,
+                                H, Sq, Sk, causal, sm_scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int flash_dkv_launch(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      const void* bias, void* dk, void* dv, int BHkv, int G,
                      int Hkv, int Sq, int Sk, int causal, float sm_scale,
-                     cudaStream_t stream) {
+                     int hd, cudaStream_t stream) {
+  if (hd != 128) return (int)cudaErrorInvalidValue;
   return bias ? dkv<true>(q, k, v, dout, lse, delta, bias, dk, dv, BHkv, G,
                           Hkv, Sq, Sk, causal, sm_scale, stream)
               : dkv<false>(q, k, v, dout, lse, delta, bias, dk, dv, BHkv, G,

@@ -2,14 +2,20 @@
 // flash_bwd.cu, paged_attend.cu): 16-byte cp.async copies into the
 // 128-byte swizzled tile layout that wgmma's shared-memory descriptors
 // read, the descriptors themselves, the wgmma products (m64n64k16 with
-// both operands in shared memory, m64n128k16 with A from registers), the
-// packing of an f32 accumulator into bf16 hi + lo A fragments, mbarriers
-// and named barriers.  Everything is in an anonymous namespace: each
-// source that includes it gets its own copy.
+// both operands in shared memory, m64n128k16 and m64n64k16 with A from
+// registers), the packing of an f32 accumulator into bf16 hi + lo A
+// fragments, mbarriers and named barriers.  Everything is in an anonymous
+// namespace: each source that includes it gets its own copy.
 //
 // The tile layout: a [64 rows][128 cols] bf16 tile is two [64][64] halves
 // (columns 0-63, then 64-127), each row 128 bytes with 16-byte chunk c of
-// row r at chunk c ^ (r % 8).
+// row r at chunk c ^ (r % 8).  A [64 rows][64 cols] tile (head_dim 64,
+// BERT's) is one such half: a row is exactly one 128-byte swizzle atom.
+// The helpers whose work depends on the head dim take it as a template
+// parameter D, last, defaulting to HD = 128; swz, desc_k and desc_mn
+// serve both widths unchanged (at D = 64 the chunk index stays below 8,
+// the k step below 4, and N spans one half, so the offset to a second
+// half is never used).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,11 +24,13 @@
 
 namespace {
 
-constexpr int HD = 128;                    // head dim; the only one built
+constexpr int HD = 128;                    // head dim (Llama's); the default
 constexpr int T = 64;                      // rows of a q or k tile
 constexpr int NT = 128;                    // one warpgroup
 constexpr int HALF = T * 64 * 2;           // [64 rows][64 cols] bf16: 8 KB
-constexpr int TILE = 2 * HALF;             // [64 rows][128 cols] bf16
+template <int D>
+constexpr int TILE_OF = T * D * 2;         // [64 rows][D cols] bf16
+constexpr int TILE = TILE_OF<HD>;          // [64 rows][128 cols] bf16
 constexpr float LOG2E = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
@@ -60,22 +68,25 @@ __device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t a,
                : "memory");
 }
 
-// A [64][128] bf16 tile at src (row stride 128) into shared memory at dst
+// A [64][D] bf16 tile at src (row stride D) into shared memory at dst
 // (1024-byte aligned) in the swizzled layout, by NTHR threads (tid < NTHR)
-template <int NTHR>
+template <int NTHR, int D = HD>
 __device__ __forceinline__ void load_tile_by(uint32_t dst, const bf16* src,
                                              int tid) {
+  static_assert(D == 64 || D == 128, "tiles are built for head_dim 64, 128");
+  constexpr int SH = D == 128 ? 4 : 3;  // log2 of the 16-byte chunks a row
 #pragma unroll
-  for (int i = 0; i < T * HD / 8 / NTHR; ++i) {
-    const int c = tid + i * NTHR, row = c >> 4, cc = c & 15;
-    cp16(dst + swz(row, cc), src + row * HD + cc * 8);
+  for (int i = 0; i < T * D / 8 / NTHR; ++i) {
+    const int c = tid + i * NTHR, row = c >> SH, cc = c & ((1 << SH) - 1);
+    cp16(dst + swz(row, cc), src + row * D + cc * 8);
   }
 }
 
 // the same, by one warpgroup
+template <int D = HD>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           int tid) {
-  load_tile_by<NT>(dst, src, tid);
+  load_tile_by<NT, D>(dst, src, tid);
 }
 
 // 64 f32 (256 bytes) at src into dst: threads 0-15, one 16-byte chunk each
@@ -119,7 +130,8 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
 }
 
 // MN-major (B transposed): the tile's rows 16 kk .. 16 kk + 15 along K,
-// all 128 head-dim columns along N (two 64-column halves HALF apart)
+// all 128 head-dim columns along N (two 64-column halves HALF apart; a
+// 64-column tile is one half and an N=64 product reads no second one)
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return desc(tile + kk * 2048, HALF, 1024);
 }
@@ -178,6 +190,21 @@ __device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[64 x 64] += A[64 x 16] . B[16 x 64]: the same with N = 64 (a
+// head_dim-64 update, B one 64-column half)
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef F8
 
 // -- elementwise -------------------------------------------------------------
@@ -210,14 +237,15 @@ __device__ __forceinline__ void split(const float (&x)[32],
     }
 }
 
-// an m64n128 accumulator (rows r0, r0 + 8 of the thread) to bf16 rows
-__device__ __forceinline__ void store_tile(bf16* dst, const float (&d)[64],
+// an m64nD accumulator (rows r0, r0 + 8 of the thread) to bf16 rows of D
+template <int D = HD>
+__device__ __forceinline__ void store_tile(bf16* dst, const float (&d)[D / 2],
                                            int r0, int c0) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (r0 + 8 * h) * HD + 8 * j +
+      *reinterpret_cast<__nv_bfloat162*>(dst + (r0 + 8 * h) * D + 8 * j +
                                          c0) =
           __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
 }

@@ -96,8 +96,9 @@ def _load(source: str) -> ctypes.CDLL:
 
 def _error_string(code: int) -> str:
     try:
-        return torch.cuda.cudart().cudaGetErrorString(code)
-    except (AttributeError, RuntimeError):
+        rt = torch.cuda.cudart()
+        return rt.cudaGetErrorString(rt.cudaError(code))
+    except (AttributeError, RuntimeError, TypeError, ValueError):
         return f"cudaError {code}"
 
 

@@ -12,14 +12,20 @@ version; a tensor on CUDA launches a kernel or raises.  There is no
 fallback between the two.  ``FLASH_FWD``, ``FLASH_DQ`` and ``FLASH_DKV``
 count kernel launches.
 
-The tensor-core kernels take bf16 q, k and v at head_dim 128 with Sq and
-Sk multiples of ``TILE`` (``tensor_cores_take``), Llama-3's training
-shape.  Every other CUDA call that ``supported()`` takes, in float32,
-bfloat16 or float16 (``GENERIC_DTYPES``), launches the second family,
+The tensor-core kernels take bf16 q, k and v with Sq and Sk multiples of
+``TILE``, each at the head dims it is built for (``TENSOR_CORE_HEAD_DIMS``,
+``tensor_cores_take``, decided per kernel): the forward and dq at 128
+(Llama-3's) and 64 (BERT-base's), dk/dv at 128 only.  Every other CUDA
+call that ``supported()`` takes, in float32, bfloat16 or float16
+(``GENERIC_DTYPES``), launches the second family,
 ``csrc/flash_generic.cu``: f32 on the CUDA cores, for any head_dim the
 JAX package's predicate allows, as the Pallas kernels run every dtype and
 head_dim.  ``FLASH_FWD_GENERIC``, ``FLASH_DQ_GENERIC`` and
-``FLASH_DKV_GENERIC`` count its launches.  Other dtypes raise.
+``FLASH_DKV_GENERIC`` count its launches.  Other dtypes raise.  So BERT's
+bf16 attention at head_dim 64 runs the tensor-core forward and dq and the
+second family's dk/dv, fed the tensor-core forward's lse: both families
+write the natural-log lse, f32 [B, H, Sq], so the mixed backward needs no
+conversion.
 
 Layouts: q is ``[B, H, Sq, hd]``, k and v are ``[B, Hkv, Sk, hd]`` with
 Hkv dividing H (GQA: query head h reads KV head ``h // (H // Hkv)``; K/V
@@ -53,6 +59,9 @@ tell a fault apart; the hi + lo split gives 0.39 / 0.41 / 0.34 there and
 at most 0.48 over GQA and MHA, causal or not, S of 256 and 1024.  The
 forward's p is split the same way: emulated at the same sizes it gives
 ``tol_ratio`` 0.36-0.45 on the output, where one rounding gives 1.74-3.64.
+At head_dim 64 with a padding mask (B=2, H=4, S of 256 and 512, causal
+or not) the split gives 0.36-0.45 on the forward's output and 0.35-0.45
+on dq, one rounding 1.50-2.79 and 2.22-2.95.
 Kernel and plain version sum in different orders, so they agree to that
 limit, not bit for bit.  The second family keeps p and ds in f32 (no
 split) and differs from the plain versions by the f32 sums' order only.
@@ -70,20 +79,22 @@ from .bfp_cuda import check_cuda
 
 LANES = 128
 TILE = 64                   # rows of a q or k tile in the CUDA kernels
-KERNEL_HEAD_DIM = 128       # Llama-3's; the tensor-core kernels take it alone
+# the head dims each tensor-core kernel is built for: Llama-3's 128 and,
+# for the forward and dq, BERT-base's 64
+TENSOR_CORE_HEAD_DIMS = {"fwd": (64, 128), "dq": (64, 128), "dkv": (128,)}
 _NEG = -1e30
 _DEF_BLOCK = 512
 _SP_ITEM = "ROADMAP A.6 (sequence parallelism: ring_flash_attention)"
 
 FLASH_FWD = Kernel("flash_fwd", "flash_attn.cu", "flash_fwd_launch",
                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_float])
+                   + [ctypes.c_float, ctypes.c_int])
 FLASH_DQ = Kernel("flash_dq", "flash_bwd.cu", "flash_dq_launch",
                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                  + [ctypes.c_float])
+                  + [ctypes.c_float, ctypes.c_int])
 FLASH_DKV = Kernel("flash_dkv", "flash_bwd.cu", "flash_dkv_launch",
                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                   + [ctypes.c_float])
+                   + [ctypes.c_float, ctypes.c_int])
 
 GENERIC_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 GENERIC_ROWS = 32           # rows a block of the second family owns
@@ -135,20 +146,22 @@ def kernels_take(q_shape, device_type: str,
     ``supported()`` holds: the JAX package's rule (a TPU with tiling
     shapes) with the card in the TPU's place.  Pure (shape and device
     type), so a CPU test can hold it against JAX's decision; the dtype
-    picks the kernel family (``tensor_cores_take``), not the route."""
+    and head dim pick each kernel's family (``tensor_cores_take``), not
+    the route."""
     return device_type == "cuda" and supported(q_shape,
                                                kv_seq_len=kv_seq_len)
 
 
-def tensor_cores_take(q_shape, dtypes, kv_seq_len: Optional[int] = None
-                      ) -> bool:
-    """Are the tensor-core kernels built for these operands?  q, k and v
-    all bf16, head_dim ``KERNEL_HEAD_DIM``, Sq and Sk multiples of
-    ``TILE``.  Elsewhere a CUDA call takes the second family."""
+def tensor_cores_take(kernel: str, q_shape, dtypes,
+                      kv_seq_len: Optional[int] = None) -> bool:
+    """Is the tensor-core ``kernel`` ("fwd", "dq" or "dkv") built for
+    these operands?  q, k and v all bf16, a head_dim of
+    ``TENSOR_CORE_HEAD_DIMS[kernel]``, Sq and Sk multiples of ``TILE``.
+    Elsewhere a CUDA call takes that kernel of the second family."""
     Sk = q_shape[2] if kv_seq_len is None else kv_seq_len
     return (all(d == torch.bfloat16 for d in dtypes)
-            and q_shape[3] == KERNEL_HEAD_DIM and q_shape[2] % TILE == 0
-            and Sk % TILE == 0)
+            and q_shape[3] in TENSOR_CORE_HEAD_DIMS[kernel]
+            and q_shape[2] % TILE == 0 and Sk % TILE == 0)
 
 
 def _grouped(t: torch.Tensor, Hkv: int) -> torch.Tensor:
@@ -277,14 +290,16 @@ def flash_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # -- kernel launches ----------------------------------------------------------
 
-def _check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
+def _check_kernel_operands(kernel: str, q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor) -> None:
-    """What the tensor-core kernels take: bf16, head_dim 128, sequences in
-    whole tiles, contiguous CUDA tensors."""
-    hd = q.shape[-1]
-    if hd != KERNEL_HEAD_DIM or k.shape[-1] != hd:
-        raise ValueError(f"the tensor-core flash kernels take head_dim "
-                         f"{KERNEL_HEAD_DIM}, got {hd}")
+    """What the tensor-core ``kernel`` takes: bf16, a head_dim it is built
+    for (``TENSOR_CORE_HEAD_DIMS``), sequences in whole tiles, contiguous
+    CUDA tensors."""
+    hd, built = q.shape[-1], TENSOR_CORE_HEAD_DIMS[kernel]
+    if hd not in built or k.shape[-1] != hd or v.shape[-1] != hd:
+        raise ValueError(f"the tensor-core flash {kernel} kernel takes "
+                         f"head_dim {' or '.join(map(str, built))}, got q "
+                         f"{hd}, k {k.shape[-1]}, v {v.shape[-1]}")
     if q.shape[2] % TILE or k.shape[2] % TILE:
         raise ValueError(f"the tensor-core flash kernels need Sq and Sk multiples of "
                          f"{TILE}, got {q.shape[2]} and {k.shape[2]}")
@@ -311,19 +326,19 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel: ``(out bf16, lse f32)``; with ``key_bias``
     its bias instantiation."""
-    _check_kernel_operands(q, k, v)
+    _check_kernel_operands("fwd", q, k, v)
     bias = _bias_ptr(key_bias, q, k)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     FLASH_FWD(ptr(q), ptr(k), ptr(v), bias, ptr(out), ptr(lse), B * H,
-              H // Hkv, H, Sq, Sk, int(causal), float(sm_scale))
+              H // Hkv, H, Sq, Sk, int(causal), float(sm_scale), hd)
     return out, lse
 
 
-def _check_bwd_operands(q, k, v, do, lse, delta) -> None:
-    _check_kernel_operands(q, k, v)
+def _check_bwd_operands(kernel, q, k, v, do, lse, delta) -> None:
+    _check_kernel_operands(kernel, q, k, v)
     check_cuda(do, torch.bfloat16, "do")
     for t, name in ((lse, "lse"), (delta, "delta")):
         check_cuda(t, torch.float32, name)
@@ -339,14 +354,14 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool,
                   sm_scale: float,
                   key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The dq kernel: dq bf16 [B, H, Sq, hd]."""
-    _check_bwd_operands(q, k, v, do, lse, delta)
+    _check_bwd_operands("dq", q, k, v, do, lse, delta)
     bias = _bias_ptr(key_bias, q, k)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     FLASH_DQ(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), bias,
              ptr(dq), B * H, H // Hkv, H, Sq, Sk, int(causal),
-             float(sm_scale))
+             float(sm_scale), hd)
     return dq
 
 
@@ -355,7 +370,7 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel: (dk, dv) bf16 [B, Hkv, Sk, hd], each KV head's
     group of query heads summed in the kernel."""
-    _check_bwd_operands(q, k, v, do, lse, delta)
+    _check_bwd_operands("dkv", q, k, v, do, lse, delta)
     bias = _bias_ptr(key_bias, q, k)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -363,7 +378,7 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool,
     dv = torch.empty_like(v)
     FLASH_DKV(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), bias,
               ptr(dk), ptr(dv), B * Hkv, H // Hkv, Hkv, Sq, Sk, int(causal),
-              float(sm_scale))
+              float(sm_scale), hd)
     return dk, dv
 
 
@@ -454,8 +469,8 @@ def flash_dkv_generic_cuda(q, k, v, do, lse, delta, *, causal: bool,
 
 # -- dispatch: plain version on the CPU, a kernel on CUDA -----------------------
 
-def _on_tensor_cores(q, k, v) -> bool:
-    return tensor_cores_take(q.shape, (q.dtype, k.dtype, v.dtype),
+def _on_tensor_cores(kernel, q, k, v) -> bool:
+    return tensor_cores_take(kernel, q.shape, (q.dtype, k.dtype, v.dtype),
                              kv_seq_len=k.shape[2])
 
 
@@ -463,7 +478,7 @@ def _fwd(q, k, v, key_bias, causal, sm_scale, block_k):
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                                block_k=block_k, key_bias=key_bias)
-    fwd = flash_fwd_cuda if _on_tensor_cores(q, k, v) \
+    fwd = flash_fwd_cuda if _on_tensor_cores("fwd", q, k, v) \
         else flash_fwd_generic_cuda
     return fwd(q, k, v, causal=causal, sm_scale=sm_scale, key_bias=key_bias)
 
@@ -475,11 +490,12 @@ def _bwd(q, k, v, do, lse, delta, key_bias, causal, sm_scale, block_k):
         return (flash_dq_plain(q, k, v, do, lse, delta, **kw),
                 *flash_dkv_plain(q, k, v, do, lse, delta, **kw))
     kw = dict(causal=causal, sm_scale=sm_scale, key_bias=key_bias)
-    if _on_tensor_cores(q, k, v):
-        return (flash_dq_cuda(q, k, v, do, lse, delta, **kw),
-                *flash_dkv_cuda(q, k, v, do, lse, delta, **kw))
-    return (flash_dq_generic_cuda(q, k, v, do, lse, delta, **kw),
-            *flash_dkv_generic_cuda(q, k, v, do, lse, delta, **kw))
+    dq = flash_dq_cuda if _on_tensor_cores("dq", q, k, v) \
+        else flash_dq_generic_cuda
+    dkv = flash_dkv_cuda if _on_tensor_cores("dkv", q, k, v) \
+        else flash_dkv_generic_cuda
+    return (dq(q, k, v, do, lse, delta, **kw),
+            *dkv(q, k, v, do, lse, delta, **kw))
 
 
 class _FlashFunction(torch.autograd.Function):

@@ -32,8 +32,9 @@ positions (position 0 always) masked to token 3 and labelled, -100
 elsewhere; each batch carries the global target count
 (``bert.with_global_count``) so every rank's loss is weighted as JAX's
 ``loss_fn(dp_axis="dp")``.  The first step is a warm-up outside the
-timed window; ``tokens_per_sec`` counts valid tokens, ``padded_tokens_
-per_sec`` every position.
+timed window; ``tokens_per_sec`` is the JAX driver's quantity, ``iters *
+global_batch * seq / wall`` (every position, padding included), and
+``valid_tokens_per_sec`` counts the valid tokens alone.
 """
 
 from __future__ import annotations
@@ -195,9 +196,9 @@ def main(argv: Sequence[str]) -> dict:
     valid = sum(v for _, v in stream[1:])
     codec = fused_update.resolve_codec(cfg.collective)
     out = {"loss_first": losses[0], "loss_last": losses[-1],
-           "tokens_per_sec": valid / wall,
-           "padded_tokens_per_sec": cfg.iters * cfg.global_batch * run.seq
-           / wall, "ms_per_step": 1e3 * wall / cfg.iters, "wall_s": wall,
+           "tokens_per_sec": cfg.iters * cfg.global_batch * run.seq / wall,
+           "valid_tokens_per_sec": valid / wall,
+           "ms_per_step": 1e3 * wall / cfg.iters, "wall_s": wall,
            "params": bert.num_params(mcfg), "trainer": run.trainer,
            "seq": run.seq, "pad_min": run.pad_min,
            "global_batch": cfg.global_batch, "dp": cfg.mesh.dp,

@@ -194,8 +194,28 @@ def test_driver_runs_tiny_on_cpu():
         out = train_bert.main(argv + [f"--trainer={trainer}"])
         assert np.isfinite(out["loss_first"]) and np.isfinite(
             out["loss_last"])
-        assert out["tokens_per_sec"] < out["padded_tokens_per_sec"]
+        assert out["valid_tokens_per_sec"] < out["tokens_per_sec"]
         assert out["device"] == "cpu" and out["trainer"] == trainer
+
+
+def test_driver_tokens_per_sec_is_jax_quantity():
+    """``tokens_per_sec`` is what JAX's ``examples/train_bert.py`` prints
+    under that key, ``iters * global_batch * seq / wall`` (every
+    position); ``valid_tokens_per_sec`` is the valid tokens of the timed
+    batches over the same wall time."""
+    argv = ["--model=tiny", "--device=cpu", "--mesh.dp=2", "--iters=2",
+            "--seq=64", "--pad-min=40", "--global_batch=8"]
+    mcfg, cfg, run = train_bert.parse(argv)
+    out = train_bert.main(argv)
+    wall = out["wall_s"]
+    assert out["tokens_per_sec"] == pytest.approx(
+        cfg.iters * cfg.global_batch * run.seq / wall, rel=1e-12)
+    valid = sum(v for _, v in train_bert.batches(mcfg, cfg, run,
+                                                 cfg.iters + 1))
+    first = next(train_bert.batches(mcfg, cfg, run, 1))[1]
+    assert out["valid_tokens_per_sec"] == pytest.approx(
+        (valid - first) / wall, rel=1e-12)
+    assert "padded_tokens_per_sec" not in out
 
 
 def test_driver_batches_pad_and_mask():

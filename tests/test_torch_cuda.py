@@ -342,18 +342,42 @@ def test_flash_kernels_vs_plain_on_card(cuda_device, shape):
 @pytest.mark.cuda
 def test_flash_kernels_raise_on_unbuilt_operands(cuda_device):
     """A CUDA tensor a kernel is not built for raises; it never takes the
-    plain version: the tensor-core wrappers refuse f32 and head_dim 64
-    (the entry sends those to the second family), and the entry refuses
-    a dtype no kernel takes."""
+    plain version: the tensor-core wrappers refuse f32, dk/dv refuses
+    head_dim 64 and the forward and dq refuse head_dim 96 (the entry
+    sends those to the second family); the C entries themselves refuse a
+    head dim they have no instantiation for, and nothing launches; the
+    entry refuses a dtype no kernel takes."""
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    from fpga_ai_nic_tpu_torch.ops._build import ptr
     kw = dict(causal=True, sm_scale=0.125)
     f32 = torch.zeros((1, 2, 128, 128), device=cuda_device)
     with pytest.raises(TypeError):
         fa.flash_fwd_cuda(f32, f32, f32, **kw)
-    hd64 = torch.zeros((1, 2, 128, 64), device=cuda_device,
-                       dtype=torch.bfloat16)
+
+    def bf16(hd):
+        return torch.zeros((1, 2, 128, hd), device=cuda_device,
+                           dtype=torch.bfloat16)
+
+    rows = torch.zeros((1, 2, 128), device=cuda_device)
+    hd64, hd96 = bf16(64), bf16(96)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_fwd_cuda(hd64, hd64, hd64, **kw)
+        fa.flash_dkv_cuda(hd64, hd64, hd64, hd64, rows, rows, **kw)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd_cuda(hd96, hd96, hd96, **kw)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_dq_cuda(hd96, hd96, hd96, hd96, rows, rows, **kw)
+    counts = [fa.FLASH_FWD.launches, fa.FLASH_DQ.launches,
+              fa.FLASH_DKV.launches]
+    head = (2, 1, 2, 128, 128, 1, 0.125)
+    p96, p64, pr = ptr(hd96), ptr(hd64), ptr(rows)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.FLASH_FWD(p96, p96, p96, None, p96, pr, *head, 96)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.FLASH_DQ(p96, p96, p96, p96, pr, pr, None, p96, *head, 96)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.FLASH_DKV(p64, p64, p64, p64, pr, pr, None, p64, p64, *head, 64)
+    assert [fa.FLASH_FWD.launches, fa.FLASH_DQ.launches,
+            fa.FLASH_DKV.launches] == counts
     f64 = torch.zeros((1, 2, 128, 128), device=cuda_device,
                       dtype=torch.float64)
     with pytest.raises(TypeError):
@@ -377,8 +401,10 @@ def test_flash_generic_kernels_vs_plain_on_card(cuda_device, shape):
     autograd against the plain versions on the same card tensors: f32
     within the JAX tests' own tolerances (2e-5 forward, atol 5e-5 / rtol
     5e-4 gradients), bf16 and f16 within ``tol_ratio`` <= 1; one launch of
-    each of its kernels a call, none of the tensor-core ones; a second
-    launch gives the same bits."""
+    each step's kernel a call, in the family its route picks (the second
+    family everywhere but bf16 at head_dim 64, whose forward and dq take
+    the tensor cores beside the second family's dk/dv), none of the
+    other family's; a second launch gives the same bits."""
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     B, H, n_kv, S, hd, causal, dt = GENERIC_SHAPES[shape]
     g = torch.Generator(device=cuda_device).manual_seed(S + hd)
@@ -389,23 +415,33 @@ def test_flash_generic_kernels_vs_plain_on_card(cuda_device, shape):
     q, k, v = rand(B, H, S, hd), rand(B, n_kv, S, hd), rand(B, n_kv, S, hd)
     do = rand(B, H, S, hd)
     kw = dict(causal=causal, sm_scale=hd ** -0.5)
-    tc = [fa.FLASH_FWD.launches, fa.FLASH_DQ.launches, fa.FLASH_DKV.launches]
+    picks = [fa.tensor_cores_take(kd, q.shape, [dt] * 3)
+             for kd in ("fwd", "dq", "dkv")]
+    assert picks == [dt == torch.bfloat16 and hd == 64] * 2 + [False]
+    tc = [fa.FLASH_FWD, fa.FLASH_DQ, fa.FLASH_DKV]
     gen = [fa.FLASH_FWD_GENERIC, fa.FLASH_DQ_GENERIC, fa.FLASH_DKV_GENERIC]
-    before = [k_.launches for k_ in gen]
+    fam = [t if p else g_ for p, t, g_ in zip(picks, tc, gen)]
+    other = [g_ if p else t for p, t, g_ in zip(picks, tc, gen)]
+    before = [k_.launches for k_ in fam]
+    before_other = [k_.launches for k_ in other]
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = fa.flash_attention(*leaves, **kw)
     dq, dk, dv = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    assert [k_.launches for k_ in gen] == [b + 1 for b in before]
-    assert [fa.FLASH_FWD.launches, fa.FLASH_DQ.launches,
-            fa.FLASH_DKV.launches] == tc
+    assert [k_.launches for k_ in fam] == [b + 1 for b in before]
+    assert [k_.launches for k_ in other] == before_other
+    fwd, dq_fn, dkv_fn = (
+        (t if p else g_) for p, t, g_ in zip(
+            picks, (fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda),
+            (fa.flash_fwd_generic_cuda, fa.flash_dq_generic_cuda,
+             fa.flash_dkv_generic_cuda)))
     p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
-    o2, lse = fa.flash_fwd_generic_cuda(q, k, v, **kw)
+    o2, lse = fwd(q, k, v, **kw)
     delta = (do.float() * out.detach().float()).sum(-1)
     p_dq = fa.flash_dq_plain(q, k, v, do, lse, delta, **kw)
     p_dk, p_dv = fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw)
-    again = (fa.flash_dq_generic_cuda(q, k, v, do, lse, delta, **kw),
-             *fa.flash_dkv_generic_cuda(q, k, v, do, lse, delta, **kw))
+    again = (dq_fn(q, k, v, do, lse, delta, **kw),
+             *dkv_fn(q, k, v, do, lse, delta, **kw))
     torch.cuda.synchronize()
     assert torch.equal(o2, out.detach())
     for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
@@ -535,11 +571,15 @@ def test_row_checksums_vs_plain_on_card(cuda_device, dtype, rows, cols):
 
 
 BIAS_SHAPES = {
-    # name: B, H, n_kv, S, hd, causal (bf16, a padding mask as key bias)
+    # name: B, H, n_kv, S, hd, causal (bf16, a padding mask as key bias);
+    # "generic_" cases call the second family's wrappers directly (the
+    # entry sends bf16 at head_dim 64 to the tensor-core forward and dq)
     "generic_bert_base": (8, 12, 12, 512, 64, False),
     "generic_gqa_causal": (2, 8, 2, 256, 64, True),
     "tensor_cores": (2, 8, 8, 1024, 128, False),
     "tensor_cores_causal_gqa": (2, 8, 2, 512, 128, True),
+    "tensor_cores_bert_base": (8, 12, 12, 512, 64, False),
+    "tensor_cores_hd64_causal_gqa": (2, 8, 2, 256, 64, True),
 }
 
 
@@ -553,11 +593,14 @@ def _padding_bias(B, S, device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", sorted(BIAS_SHAPES))
 def test_flash_key_bias_vs_plain_on_card(cuda_device, shape):
-    """The key-bias channel of both families through the entry and its
-    autograd against the plain versions with the same bias: out, dq, dk,
-    dv within ``tol_ratio`` <= 1, lse within LSE_TOL; one launch of the
-    family's kernels a call (hd 64 the second family, hd 128 the tensor
-    cores), a second launch bit-equal; the bias gets no gradient."""
+    """The key-bias channel against the plain versions with the same
+    bias: out, dq, dk, dv within ``tol_ratio`` <= 1, lse within LSE_TOL;
+    one launch of each step's kernel a call, a second launch bit-equal.
+    "tensor_cores" cases go through the entry and its autograd (the bias
+    gets no gradient), each kernel's family picked per kernel: head_dim
+    128 all three on the tensor cores, head_dim 64 the tensor-core
+    forward and dq beside the second family's dk/dv; "generic_" cases
+    call the second family's three wrappers."""
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     B, H, n_kv, S, hd, causal = BIAS_SHAPES[shape]
     g = torch.Generator(device=cuda_device).manual_seed(S + H + hd)
@@ -569,18 +612,30 @@ def test_flash_key_bias_vs_plain_on_card(cuda_device, shape):
     q, k, v = rand(B, H, S, hd), rand(B, n_kv, S, hd), rand(B, n_kv, S, hd)
     do = rand(B, H, S, hd)
     bias = _padding_bias(B, S, cuda_device, S).requires_grad_()
-    kw = dict(causal=causal, sm_scale=hd ** -0.5)
-    fam = ([fa.FLASH_FWD, fa.FLASH_DQ, fa.FLASH_DKV] if hd == 128 else
-           [fa.FLASH_FWD_GENERIC, fa.FLASH_DQ_GENERIC, fa.FLASH_DKV_GENERIC])
-    before = [k_.launches for k_ in fam]
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = fa.flash_attention(*leaves, key_bias=bias, **kw)
-    dq, dk, dv = torch.autograd.grad(out, leaves, do)
-    torch.cuda.synchronize()
-    assert [k_.launches for k_ in fam] == [b + 1 for b in before]
-    assert bias.grad is None
     b = bias.detach()
-    fwd = fa.flash_fwd_cuda if hd == 128 else fa.flash_fwd_generic_cuda
+    kw = dict(causal=causal, sm_scale=hd ** -0.5)
+    direct = shape.startswith("generic_")
+    tc = [not direct and fa.tensor_cores_take(kd, q.shape, [q.dtype] * 3)
+          for kd in ("fwd", "dq", "dkv")]
+    if shape == "tensor_cores_bert_base":
+        assert tc == [True, True, False]
+    fam = [tc_k if use else gen for use, tc_k, gen in zip(
+        tc, (fa.FLASH_FWD, fa.FLASH_DQ, fa.FLASH_DKV),
+        (fa.FLASH_FWD_GENERIC, fa.FLASH_DQ_GENERIC, fa.FLASH_DKV_GENERIC))]
+    fwd = fa.flash_fwd_cuda if tc[0] else fa.flash_fwd_generic_cuda
+    before = [k_.launches for k_ in fam]
+    if direct:
+        out, lse0 = fwd(q, k, v, key_bias=b, **kw)
+        args0 = (q, k, v, do, lse0, (do.float() * out.float()).sum(-1))
+        dq = fa.flash_dq_generic_cuda(*args0, key_bias=b, **kw)
+        dk, dv = fa.flash_dkv_generic_cuda(*args0, key_bias=b, **kw)
+    else:
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, key_bias=bias, **kw)
+        dq, dk, dv = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert [k_.launches for k_ in fam] == [b_ + 1 for b_ in before]
+    assert bias.grad is None
     o2, lse = fwd(q, k, v, key_bias=b, **kw)
     p_out, p_lse = fa.flash_fwd_plain(q, k, v, key_bias=b, **kw)
     delta = (do.float() * o2.float()).sum(-1)

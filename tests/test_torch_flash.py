@@ -244,23 +244,34 @@ def test_key_bias_masks_keys_in_every_block():
 
 # -- the CUDA backward's rounding points, emulated on the CPU -----------------
 
-def _bf16_inputs(seed, heads, S, hd=128):
-    """bf16 q, k, v, dO at head_dim 128 (the kernels' only one), with the
-    forward's lse and delta = rowsum(dO * O) from the plain versions."""
+def _bf16_inputs(seed, heads, S, hd=128, B=1):
+    """bf16 q, k, v, dO (head_dim 128 by default, Llama-3's; 64 is
+    BERT-base's)."""
     H, Hkv = (8, 2) if heads == "gqa" else (4, 4)
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(torch.bfloat16) for shape in
-        ((1, H, S, hd), (1, Hkv, S, hd), (1, Hkv, S, hd), (1, H, S, hd)))
+        ((B, H, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd), (B, H, S, hd)))
     return q, k, v, do
 
 
-def _emulated_bwd(q, k, v, do, lse, delta, causal, sm_scale, terms):
+def _padding_bias(seed, B, S):
+    """[B, S] f32 key bias, 0 on valid keys and -1e30 on the padding tail,
+    valid lengths uniform in [S/2, S] (chip_smoke.py's BERT mask)."""
+    lens = np.random.default_rng(seed).integers(S // 2, S + 1, B)
+    valid = np.arange(S)[None, :] < lens[:, None]
+    return torch.from_numpy(np.where(valid, 0.0, -1e30).astype(np.float32))
+
+
+def _emulated_bwd(q, k, v, do, lse, delta, causal, sm_scale, terms,
+                  key_bias=None):
     """dq, dk, dv as ``csrc/flash_bwd.cu`` rounds them: p and ds from the
-    plain recompute, fed to their products as ``terms(x)`` (bf16 values),
-    each product summed in f32, the outputs rounded to bf16 once."""
+    plain recompute (the key bias added to every score), fed to their
+    products as ``terms(x)`` (bf16 values), each product summed in f32,
+    the outputs rounded to bf16 once."""
     p, ds, qf, dof, kb = fa._bwd_block(q, k, v, do, lse, delta, 0,
-                                       k.shape[2], causal, sm_scale)
+                                       k.shape[2], causal, sm_scale,
+                                       key_bias)
     dq = sum(torch.einsum("bhgqk,bhkd->bhgqd", t, kb) for t in terms(ds))
     dk = sum(torch.einsum("bhgqk,bhgqd->bhkd", t, qf) for t in terms(ds))
     dv = sum(torch.einsum("bhgqk,bhgqd->bhkd", t, dof) for t in terms(p))
@@ -314,11 +325,11 @@ def test_single_bf16_rounding_exceeds_the_card_limit():
 
 # -- the CUDA forward's rounding points, emulated on the CPU ------------------
 
-def _emulated_fwd(q, k, v, causal, sm_scale, terms):
+def _emulated_fwd(q, k, v, causal, sm_scale, terms, key_bias=None):
     """(out bf16, lse f32) as ``csrc/flash_attn.cu`` rounds them: exact
-    f32 scores of the bf16 inputs, an online softmax in f32 over 64-key
-    tiles, p fed to p . v as ``terms(p)`` (bf16 values) summed in f32,
-    the output rounded to bf16 once."""
+    f32 scores of the bf16 inputs (plus the key bias), an online softmax
+    in f32 over 64-key tiles, p fed to p . v as ``terms(p)`` (bf16
+    values) summed in f32, the output rounded to bf16 once."""
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     qf = fa._grouped(q, Hkv)
@@ -329,6 +340,9 @@ def _emulated_fwd(q, k, v, causal, sm_scale, terms):
         kb = k[:, :, k0:k0 + fa.TILE].float()
         vb = v[:, :, k0:k0 + fa.TILE].float()
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb) * sm_scale
+        bias = fa._bias_block(key_bias, k0, fa.TILE)
+        if bias is not None:
+            s = s + bias
         if causal:
             s = s.masked_fill(fa._causal_mask(Sq, k0, fa.TILE, 0, q.device),
                               float("-inf"))
@@ -359,6 +373,47 @@ def test_forward_split_rounding_within_half_the_card_limit(heads, causal, S):
     want, want_lse = fa.flash_fwd_plain(q, k, v, **kw)
     assert fa.tol_ratio(got, want) <= 0.5
     assert float((got_lse - want_lse).abs().max()) <= fa.LSE_TOL
+
+
+# BERT-like: B=2, H=4, head_dim 64 (the forward's and dq's second
+# tensor-core width), a padding mask as key bias
+BERT_EMU_SHAPES = [(causal, S) for causal in (False, True)
+                   for S in (256, 512)]
+
+
+def _bert_emu_case(causal, S):
+    q, k, v, do = _bf16_inputs(0, "mha", S, hd=64, B=2)
+    bias = _padding_bias(S, 2, S)
+    kw = dict(causal=causal, sm_scale=64 ** -0.5, key_bias=bias)
+    return q, k, v, do, bias, kw
+
+
+@pytest.mark.parametrize("causal,S", BERT_EMU_SHAPES)
+def test_hd64_bias_forward_split_rounding_within_half_the_card_limit(
+        causal, S):
+    """The head_dim-64 forward with a padding mask, p as bf16 hi + lo
+    terms: the output within ``tol_ratio`` <= 0.5 of the f32 plain
+    forward with the same bias, lse within LSE_TOL."""
+    q, k, v, _, bias, kw = _bert_emu_case(causal, S)
+    got, got_lse = _emulated_fwd(q, k, v, causal, kw["sm_scale"], _split,
+                                 key_bias=bias)
+    want, want_lse = fa.flash_fwd_plain(q, k, v, **kw)
+    assert fa.tol_ratio(got, want) <= 0.5
+    assert float((got_lse - want_lse).abs().max()) <= fa.LSE_TOL
+
+
+@pytest.mark.parametrize("causal,S", BERT_EMU_SHAPES)
+def test_hd64_bias_dq_split_rounding_within_the_card_limit(causal, S):
+    """The head_dim-64 dq with a padding mask, ds as bf16 hi + lo terms
+    into ds . k: within ``tol_ratio`` <= 1 of the f32 plain dq, the limit
+    the card check holds the kernel to."""
+    q, k, v, do, bias, kw = _bert_emu_case(causal, S)
+    out, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    got = _emulated_bwd(q, k, v, do, lse, delta, causal, kw["sm_scale"],
+                        _split, key_bias=bias)[0]
+    want = fa.flash_dq_plain(q, k, v, do, lse, delta, **kw)
+    assert fa.tol_ratio(got, want) <= 1.0
 
 
 # -- the "auto" route (ROADMAP C.1) --------------------------------------------
@@ -399,15 +454,63 @@ def test_auto_route_matches_jax_decision(shape, kv_len, dtype, monkeypatch):
 @pytest.mark.parametrize("shape,kv_len", ROUTE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_family_by_operands(shape, kv_len, dtype):
-    """Inside the kernels, the tensor-core family takes bf16 at head_dim
-    128 in whole tiles; every other call takes the second family."""
+    """Inside the kernels, each tensor-core kernel takes bf16 at a head
+    dim it is built for, in whole tiles; every other call takes that
+    kernel of the second family."""
     Sk = shape[2] if kv_len is None else kv_len
-    want = (dtype == torch.bfloat16 and shape[3] == fa.KERNEL_HEAD_DIM
-            and shape[2] % fa.TILE == 0 and Sk % fa.TILE == 0)
-    assert fa.tensor_cores_take(shape, [dtype] * 3, kv_seq_len=kv_len) == want
-    assert not fa.tensor_cores_take(
-        shape, [torch.bfloat16, torch.float32, torch.bfloat16],
-        kv_seq_len=kv_len)
+    for kernel, dims in fa.TENSOR_CORE_HEAD_DIMS.items():
+        want = (dtype == torch.bfloat16 and shape[3] in dims
+                and shape[2] % fa.TILE == 0 and Sk % fa.TILE == 0)
+        assert fa.tensor_cores_take(kernel, shape, [dtype] * 3,
+                                    kv_seq_len=kv_len) == want
+        assert not fa.tensor_cores_take(
+            kernel, shape, [torch.bfloat16, torch.float32, torch.bfloat16],
+            kv_seq_len=kv_len)
+
+
+@pytest.mark.parametrize("hd", [16, 64, 96, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+def test_tensor_cores_per_kernel(hd, dtype):
+    """The forward and dq take the tensor cores for bf16 at head_dim 64
+    and 128, dk/dv at 128 only; the second family takes everything
+    else."""
+    shape = (2, 4, 256, hd)
+    bf16 = dtype == torch.bfloat16
+    assert fa.tensor_cores_take("fwd", shape, [dtype] * 3) == (
+        bf16 and hd in (64, 128))
+    assert fa.tensor_cores_take("dq", shape, [dtype] * 3) == (
+        bf16 and hd in (64, 128))
+    assert fa.tensor_cores_take("dkv", shape, [dtype] * 3) == (
+        bf16 and hd == 128)
+
+
+@pytest.mark.parametrize("hd,want", [
+    (64, ("fwd", "dq", "dkv_generic")), (128, ("fwd", "dq", "dkv")),
+    (32, ("fwd_generic", "dq_generic", "dkv_generic"))])
+def test_cuda_dispatch_calls_the_kernel_of_each_step(hd, want, monkeypatch):
+    """``_fwd`` and ``_bwd`` on non-CPU bf16 tensors (meta here) call one
+    wrapper a step, the one each kernel's route picks: BERT's head_dim 64
+    the tensor-core forward and dq beside the second family's dk/dv, fed
+    the forward's lse."""
+    calls = []
+
+    def fake(name, n_out):
+        def run(*args, **kw):
+            calls.append((name, args[4] if name.startswith("d") else None))
+            out = torch.empty_like(args[0])
+            return out if n_out == 1 else (out, out.sum(-1).float())
+        return run
+
+    for name, n_out in (("fwd", 2), ("dq", 1), ("dkv", 2)):
+        monkeypatch.setattr(fa, f"flash_{name}_cuda", fake(name, n_out))
+        monkeypatch.setattr(fa, f"flash_{name}_generic_cuda",
+                            fake(name + "_generic", n_out))
+    q = torch.empty((2, 4, 256, hd), dtype=torch.bfloat16, device="meta")
+    out, lse = fa._fwd(q, q, q, None, False, hd ** -0.5, 512)
+    fa._bwd(q, q, q, q, lse, lse, None, False, hd ** -0.5, 512)
+    assert tuple(name for name, _ in calls) == want
+    assert all(got is lse for _, got in calls[1:])
 
 
 def test_auto_route_takes_the_kernels_for_the_tiny_f32_model(monkeypatch):
@@ -422,8 +525,10 @@ def test_auto_route_takes_the_kernels_for_the_tiny_f32_model(monkeypatch):
     monkeypatch.setattr(flash_pallas, "_is_tpu", lambda: True)
     assert jax_ra.pallas_route("auto", shape)
     assert fa.kernels_take(shape, "cuda")
-    assert not fa.tensor_cores_take(shape, [c.torch_dtype] * 3)
-    assert fa.tensor_cores_take((1, 32, 4096, 128), [torch.bfloat16] * 3)
+    for kernel in fa.TENSOR_CORE_HEAD_DIMS:
+        assert not fa.tensor_cores_take(kernel, shape, [c.torch_dtype] * 3)
+        assert fa.tensor_cores_take(kernel, (1, 32, 4096, 128),
+                                    [torch.bfloat16] * 3)
 
 
 GENERIC_CASES = [  # heads, S, dh, causal: the tiny model's and others
