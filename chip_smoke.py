@@ -108,11 +108,11 @@ Phases, each printing JSON lines:
      padding mask, 0 / -1e30 a key) against the plain versions with the
      same bias: at BERT-base's attention shape (B=8, H=12, S=512, hd=64,
      bf16, non-causal, valid lengths 256-512) the second family's three
-     kernels, and the tensor-core forward and dq (their head_dim-64
-     instantiations, with and without the bias, HGMMA and no spills in
-     their SASS) beside the second family's dk/dv fed their lse, all timed
-     by device time beside the bound, the plain version and the library's
-     masked attention; the tensor-core kernels at B=2, H=8, S=1024,
+     kernels, and the tensor-core forward, dq and dk/dv (their
+     head_dim-64 instantiations, with and without the bias, HGMMA and no
+     spills in their SASS), all timed by device time beside the bound,
+     the plain version and the library's masked attention; the
+     tensor-core kernels at B=2, H=8, S=1024,
      hd=128, non-causal and causal with the mask, timed with and without
      the bias in turns, their bias instantiations' SASS counted; each
      within the flash limits, a second launch bit-equal, and the same
@@ -124,9 +124,9 @@ Phases, each printing JSON lines:
      ranks, valid lengths 256-512, 15% masked, the bucketed
      ``DDPTrainer`` with the fused BFP ring kernels on every bucket,
      AdamW lr 1e-4 on the replicated f32 masters) — 2 warm-up and 5 timed
-     steps, launch counts (96 a step of the tensor-core forward and dq
-     and of the second family's dk/dv, one ring reduce-scatter and one
-     all-gather a bucket, nothing else), every
+     steps, launch counts (96 a step of the tensor-core forward, dq and
+     dk/dv, one ring reduce-scatter and one all-gather a bucket, nothing
+     else), every
      rank's replica bit-identical after every step, a falling loss, then
      a profile of two steps (flash, ring, GEMMs, the rest);
  15. ``bert_train_parity``: loss_fn's gradients on one rank's padded batch
@@ -1444,17 +1444,15 @@ def sass_stats(source: str, kernels, ops=("HGMMA",), lib=None) -> dict:
 def flash_sass(bias: bool, hd: int = 128) -> dict:
     """SASS stats of the tensor-core flash kernels' instantiation with
     (``ILb1``) or without (``ILb0``) the key-bias channel at head dim
-    ``hd``: the forward and dq by their head-dim argument (``ELi128E``,
-    ``ELi64E``); dk/dv, built at 128 only, at 128."""
+    ``hd``, each by its head-dim argument (``ELi128E``, ``ELi64E``)."""
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     flag = "ILb1" if bias else "ILb0"
     dims = f"ELi{hd}E"
-    bwd = ("flash_dq_kernel" + flag + dims,)
-    if hd in fa.TENSOR_CORE_HEAD_DIMS["dkv"]:
-        bwd += ("flash_dkv_kernel" + flag,)
     return dict(sass_stats(fa.FLASH_FWD.source,
                            ("flash_fwd_kernel" + flag + dims,)),
-                **sass_stats(fa.FLASH_DQ.source, bwd))
+                **sass_stats(fa.FLASH_DQ.source,
+                             ("flash_dq_kernel" + flag + dims,
+                              "flash_dkv_kernel" + flag + dims)))
 
 
 def sass_checks(sass) -> dict:
@@ -2226,8 +2224,7 @@ def padding_bias(dev, B, S, pad_min, seed):
 
 
 def bias_case(dev, fwd, dq, dkv, q, k, v, do, bias, causal):
-    """Three kernels (one family's, or the tensor-core forward and dq
-    beside the second family's dk/dv) with ``bias`` (or none) against
+    """Three kernels of one family with ``bias`` (or none) against
     their plain versions: tol ratios, max errors, lse error, repeat-launch
     bits, and a fault control that must exceed the limit: with a bias the
     same kernels with a zero bias (the mask dropped), without one the
@@ -2282,11 +2279,10 @@ def bert_flash_checks(dev) -> dict:
     64, non-causal, a padding mask as key bias) and the tensor-core
     kernels' key-bias channel at head_dim 128, against the plain versions.
     At BERT's shape: the second family's three kernels with the bias; the
-    tensor-core forward and dq (head_dim 64) with and without the bias,
-    each beside the second family's dk/dv fed their lse (the BERT
-    backward's mixed route); each kernel timed by device time beside its
-    bound, its plain version and the library's masked attention, the
-    tensor-core ones also beside the second-family kernel they replace.
+    tensor-core forward, dq and dk/dv (head_dim 64) with and without the
+    bias; each kernel timed by device time beside its bound, its plain
+    version and the library's masked attention, the tensor-core ones also
+    beside the second-family kernel they replace.
     Then the tensor-core kernels at B=2, H=8, S=1024, head_dim 128,
     non-causal and causal with the mask, timed with and without the bias.
     Returns the rows of both families at BERT's shape and the head_dim-128
@@ -2309,7 +2305,7 @@ def bert_flash_checks(dev) -> dict:
     tc64 = {}
     for name, b in (("bias", bias), ("no_bias", None)):
         res = bias_case(dev, fa.flash_fwd_cuda, fa.flash_dq_cuda,
-                        fa.flash_dkv_generic_cuda, q, k, v, do, b, False)
+                        fa.flash_dkv_cuda, q, k, v, do, b, False)
         res["checks"].update(sass_checks(sass64))
         tc64[name] = res
     args64 = tc64["bias"]["args"]
@@ -2349,7 +2345,9 @@ def bert_flash_checks(dev) -> dict:
         "flash_fwd": (lambda **b: fa.flash_fwd_cuda(q, k, v, **kw, **b),
                       lib_fwd, ("out",)),
         "flash_dq": (lambda **b: fa.flash_dq_cuda(*args64, **kw, **b),
-                     lib_bwd, ("dq",))}
+                     lib_bwd, ("dq",)),
+        "flash_dkv": (lambda **b: fa.flash_dkv_cuda(*args64, **kw, **b),
+                      lib_bwd, ("dk", "dv"))}
     rows64 = {}
     for name, (kern, lib_ms, terms) in tc_calls.items():
         names = (name + "_kernel",)
@@ -2379,7 +2377,7 @@ def bert_flash_checks(dev) -> dict:
     for name, res in tc64.items():
         emit(phase="bert_flash_checks", family=(
             "tensor cores at head_dim 64 (csrc/flash_attn.cu, csrc/"
-            "flash_bwd.cu dq) with the second family's dk/dv"),
+            "flash_bwd.cu)"),
              shape=shape, key_bias=name == "bias", **valid, tol=tol,
              sass=sass64, **{k_: v_ for k_, v_ in res.items()
                              if k_ not in ("args", "kw")})
@@ -2484,12 +2482,12 @@ def bert_train_path(dev, kernels) -> dict:
         losses.append(float(loss))
         step_ms.append(start.elapsed_time(end))
     launches = {name: k.launches for name, k in kernels.items()}
-    # head_dim 64 in bf16: the tensor-core forward and dq, the second
-    # family's dk/dv, one launch of each a layer and rank
+    # head_dim 64 in bf16: the tensor-core forward, dq and dk/dv, one
+    # launch of each a layer and rank, none of the second family's
     per_step = dict({name: 0 for name in kernels},
                     flash_fwd=mcfg.n_layers * n,
                     flash_dq=mcfg.n_layers * n,
-                    flash_dkv_generic=mcfg.n_layers * n,
+                    flash_dkv=mcfg.n_layers * n,
                     ring_rs_update=n_buckets, ring_ag=n_buckets)
     for name, count in launches.items():
         if count != steps * per_step[name]:
@@ -2538,8 +2536,8 @@ def bert_train_path(dev, kernels) -> dict:
 def bert_train_parity(dev, run) -> None:
     """``bert.loss_fn``'s gradients on one rank's padded batch at BERT-base
     width and 2 layers, through the flash kernels (attn_impl="pallas":
-    the key-bias channel of the tensor-core forward and dq at head_dim 64
-    and of the second family's dk/dv) and the plain softmax route
+    the key-bias channel of the tensor-core forward, dq and dk/dv at
+    head_dim 64) and the plain softmax route
     ("xla"), compared as one flat vector; and the kernels with a zero bias
     (the padding mask dropped), which must exceed the limit."""
     import dataclasses
@@ -2852,7 +2850,7 @@ def main() -> int:
 
     # -- 13-15. BERT-base: the key-bias channel, the DDP path, its parity ----------
     bert_flash = bert_flash_checks(dev)
-    bert_kernels = dict(serve_kernels,        # flash_fwd, flash_dq among them
+    bert_kernels = dict(serve_kernels,        # the tensor-core flash kernels
                         flash_fwd_generic=flash_attention.FLASH_FWD_GENERIC,
                         flash_dq_generic=flash_attention.FLASH_DQ_GENERIC,
                         flash_dkv_generic=flash_attention.FLASH_DKV_GENERIC)
@@ -2893,6 +2891,8 @@ def main() -> int:
                            REF + "/ops/flash_pallas.py:93"),
         "flash_dq_hd64": (PORT + "/csrc/flash_bwd.cu",
                           REF + "/ops/flash_pallas.py:222"),
+        "flash_dkv_hd64": (PORT + "/csrc/flash_bwd.cu",
+                           REF + "/ops/flash_pallas.py:267"),
         "int8_encode": (PORT + "/csrc/int8_codec.cu",
                         REF + "/compress/int8.py:129"),
         "int8_decode": (PORT + "/csrc/int8_codec.cu",
@@ -2989,7 +2989,7 @@ def main() -> int:
                               "bf16, non-causal, padding mask as key bias"),
                        launches_from="bert_train_path", library=BERT_LIBRARY,
                        call_ms=r["call_ms"], tol_ratio=r["tol_ratio"])
-        if name in ("flash_fwd_generic_bias", "flash_dq_generic_bias"):
+        if name in bert_flash["generic"]:
             row.update(bert_path_kernel=name.replace("generic_bias",
                                                      "hd64"))
         if name in bert_flash["tensor_cores_hd64"]:

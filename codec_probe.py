@@ -21,12 +21,15 @@ timed steps).  ``--flash`` times the tensor-core flash kernels without a
 key bias (``flash_fwd``, ``flash_dq``, ``flash_dkv``, by device time) at
 ``chip_smoke.py``'s two shapes and prints a sha256 digest of their
 outputs on numpy-seeded inputs, so two checkouts' bias-free kernels
-compare bit for bit, and the SASS instruction count and registers of the
-head_dim-128 tensor-core kernels with and without the key bias and of the
-paged prefill (named as either checkout builds them).  ``--flash64``
-builds the head_dim-64 forward and dq for other blocks an SM than
+compare bit for bit, the same digest of the head_dim-64 forward and dq
+at BERT-base's shape with and without a key bias, and the SASS
+instruction count and registers of the head_dim-128 tensor-core kernels
+with and without the key bias and of the paged prefill (named as either
+checkout builds them).  ``--flash64``
+builds the head_dim-64 forward, dq and dk/dv for other blocks an SM than
 ``csrc/`` does (copies of the sources with another ``FWD_BLOCKS<64>`` /
-``DQ_BLOCKS<64>``, compiled beside the port's libraries) and times each
+``DQ_BLOCKS<64>`` / ``DKV_BLOCKS<64>``, compiled beside the port's
+libraries) and times each
 build's launch at BERT-base's attention shape with the key bias (device
 time), beside its registers and spills.  Each result is one JSON line;
 the last line sums them up.  Without a card it exits nonzero.
@@ -214,6 +217,37 @@ def flash_rows(cs, dev) -> dict:
     return rows
 
 
+def flash64_digests(cs, dev) -> dict:
+    """sha256 of the head_dim-64 tensor-core forward's out and lse and of
+    dq, with and without a padding mask as key bias, at BERT-base's
+    attention shape on inputs and valid lengths drawn with numpy (seed
+    400), so two checkouts' head_dim-64 forward and dq compare bit for
+    bit.  dk/dv is left out: a tree from before its head_dim-64 kernel
+    has none."""
+    import hashlib
+    import numpy as np
+    import torch
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    B, H, S, hd = cs.BERT_SHAPE
+    rng = np.random.default_rng(400)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B, H, S, hd), np.float32)).to(dev).to(torch.bfloat16)
+        for _ in range(4))
+    lens = torch.from_numpy(rng.integers(cs.BERT_PAD_MIN, S + 1, B)).to(dev)
+    bias = torch.where(torch.arange(S, device=dev)[None, :] < lens[:, None],
+                       0.0, -1e30).to(torch.float32).contiguous()
+    digests = {}
+    for name, b in (("bias", bias), ("no_bias", None)):
+        kw = dict(causal=False, sm_scale=hd ** -0.5, key_bias=b)
+        out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+        delta = (do.float() * out.float()).sum(-1)
+        h = hashlib.sha256()
+        for t in (out, lse, fa.flash_dq_cuda(q, k, v, do, lse, delta, **kw)):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()
+    return digests
+
+
 # (source, kernel): the head_dim-128 kernels whose SASS must not move
 FLASH_SASS = (("flash_attn.cu", "flash_fwd_kernel"),
               ("flash_bwd.cu", "flash_dq_kernel"),
@@ -223,9 +257,10 @@ FLASH_SASS = (("flash_attn.cu", "flash_fwd_kernel"),
 def flash_sass(cs) -> dict:
     """SASS instructions, registers and local bytes of the head_dim-128
     tensor-core flash kernels, without (``ILb0``) and with (``ILb1``) the
-    key bias, and of the paged prefill.  This tree names the forward and
-    dq instantiations ``...ILb0ELi128E``; a tree from before the head-dim
-    parameter ``...ILb0EE``; dk/dv is ``...ILb0EE`` in both."""
+    key bias, and of the paged prefill.  This tree names the
+    instantiations ``...ILb0ELi128E``; a tree from before a kernel's
+    head-dim parameter ``...ILb0EE`` (dk/dv gained it after the forward
+    and dq)."""
     out = {}
     for src, name in FLASH_SASS:
         for flag in ("ILb0", "ILb1"):
@@ -242,11 +277,14 @@ def flash_sass(cs) -> dict:
 # (source, C entry, the constant's text and the blocks an SM to try)
 FLASH64_BLOCKS = (
     ("flash_attn.cu", "flash_fwd", "FWD_BLOCKS = D == 128 ? 1 : ", (1, 2)),
-    ("flash_bwd.cu", "flash_dq", "DQ_BLOCKS = D == 128 ? 2 : ", (2, 3, 4)))
+    ("flash_bwd.cu", "flash_dq", "DQ_BLOCKS = D == 128 ? 2 : ", (2, 3, 4)),
+    ("flash_bwd.cu", "flash_dkv", "DKV_BLOCKS = D == 128 ? 2 : ",
+     (2, 3, 4)))
 
 
 def flash64_blocks(cs, dev) -> dict:
-    """The head_dim-64 forward and dq built for each blocks-an-SM count of
+    """The head_dim-64 forward, dq and dk/dv built for each blocks-an-SM
+    count of
     ``FLASH64_BLOCKS`` (the source's own among them): device ms a call at
     BERT-base's attention shape with the key bias, registers, local bytes
     and SASS instructions of the bias instantiation, and whether the
@@ -265,16 +303,22 @@ def flash64_blocks(cs, dev) -> dict:
     ref_out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
     delta = (do.float() * ref_out.float()).sum(-1)
     ref_dq = fa.flash_dq_cuda(q, k, v, do, lse, delta, **kw)
+    ref_dkv = torch.cat(fa.flash_dkv_cuda(q, k, v, do, lse, delta, **kw))
     out = torch.empty_like(q)
     lse2 = torch.empty_like(lse)
     dq = torch.empty_like(q)
+    dkv = torch.empty_like(ref_dkv)   # dk, then dv
     head = (B * H, 1, H, S, S, 0, hd ** -0.5, hd)
     launch_args = {
         "flash_fwd": ((ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out),
                        ptr(lse2)) + head, (out, ref_out)),
         "flash_dq": ((ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
-                      ptr(delta), ptr(bias), ptr(dq)) + head, (dq, ref_dq))}
-    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_dq": fa.FLASH_DQ}
+                      ptr(delta), ptr(bias), ptr(dq)) + head, (dq, ref_dq)),
+        "flash_dkv": ((ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
+                       ptr(delta), ptr(bias), ptr(dkv[:B]), ptr(dkv[B:]))
+                      + head, (dkv, ref_dkv))}
+    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_dq": fa.FLASH_DQ,
+               "flash_dkv": fa.FLASH_DKV}
     rows = {}
     for src, name, text, counts in FLASH64_BLOCKS:
         code = (_build.CSRC / src).read_text()
@@ -282,9 +326,9 @@ def flash64_blocks(cs, dev) -> dict:
         if m is None:
             raise RuntimeError(f"{src}: no '{text}N;' to vary")
         for n in counts:
-            var = _build.BUILD_DIR / f"{src[:-3]}_blocks{n}.cu"
+            var = _build.BUILD_DIR / f"{name}_blocks{n}.cu"
             var.write_text(code.replace(m.group(0), f"{text}{n};"))
-            lib = _build.BUILD_DIR / f"{src[:-3]}_blocks{n}.{os.getpid()}.so"
+            lib = _build.BUILD_DIR / f"{name}_blocks{n}.{os.getpid()}.so"
             subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
                             str(_build.CSRC), "-o", str(lib), str(var)],
                            check=True, timeout=600)
@@ -306,7 +350,7 @@ def flash64_blocks(cs, dev) -> dict:
                 device_ms=cs.device_ms(call, 10, (name + "_kernel",)),
                 source_default=n == int(m.group(1)),
                 bits_equal_port=bool(torch.equal(got, ref)))
-    del q, k, v, do, out, dq, ref_out, ref_dq
+    del q, k, v, do, out, dq, dkv, ref_out, ref_dq, ref_dkv
     torch.cuda.empty_cache()
     return rows
 
@@ -398,6 +442,8 @@ def main() -> int:
         _build.build(("flash_attn.cu", "flash_bwd.cu"))
         out["flash"] = flash_rows(cs, dev)
         cs.emit(phase="probe_flash", **out["flash"])
+        out["flash64_digests"] = flash64_digests(cs, dev)
+        cs.emit(phase="probe_flash64_digests", **out["flash64_digests"])
         out["flash_sass"] = flash_sass(cs)
         cs.emit(phase="probe_flash_sass", sass=out["flash_sass"])
     if args.flash64:

@@ -6,13 +6,14 @@
 //
 // Layouts: q / dout / dq are [B*H, S, D] bf16, k / v / dk / dv are
 // [B*Hkv, S, D] bf16, lse / delta are [B*H, S] f32.  D, the head dim, is
-// 128 (Llama's) for both kernels; the dq kernel also has a D = 64
-// instantiation (BERT's: a template parameter, last, so the head_dim-128
-// launch is the kernel it was before D existed), where s and dp take 4 k
-// steps, dq = ds . k is an m64n64k16 product into 32 accumulators, and a
-// block takes about 49 KB of shared memory (Q, dO and two K/V stages of
-// 8 KB tiles), so three blocks share an SM.  dk/dv at head_dim 64 is not
-// built here (the second family, flash_generic.cu, takes it).  GQA is
+// 128 (Llama's) or 64 (BERT's): a template parameter of both kernels,
+// last, so the head_dim-128 launch is the kernel it was before D existed.
+// At D = 64 s and dp take 4 k steps, the updates (dq = ds . k, dk =
+// ds^T . q, dv = p^T . dO) are m64n64k16 products into 32 accumulators
+// each, and a block takes about 49 KB (dq: Q, dO and two K/V stages of
+// 8 KB tiles) or 50 KB (dk/dv: K, V and two Q/dO/lse/delta stages) of
+// shared memory, so registers, not shared memory, decide how many blocks
+// share an SM (DQ_BLOCKS, DKV_BLOCKS).  GQA is
 // handled by indexing: query head bh reads KV head bh / G (G = H / Hkv);
 // the dk/dv kernel sums the G query heads of its KV head itself, in a
 // fixed order.
@@ -51,10 +52,10 @@
 // tile's products.  Each tile is stored once, rows along the sequence:
 // products that need it K-major (s, dp) and MN-major (dq, dk, dv: B runs
 // along the sequence) read the same bytes, the latter through the
-// descriptor's transpose bit.  Blocks take about 97 KB of shared memory,
-// so two share an SM.  Causal tiles past the diagonal are skipped, the
-// mask is applied on the diagonal tile only, and blocks are dealt longest
-// first across all heads.
+// descriptor's transpose bit.  At head_dim 128 blocks take about 97 KB of
+// shared memory, so two share an SM.  Causal tiles past the diagonal are
+// skipped, the mask is applied on the diagonal tile only, and blocks are
+// dealt longest first across all heads.
 
 #include "hopper_mma.cuh"
 
@@ -178,8 +179,12 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // -- dk/dv: one block per (KV head, k tile); loop over (query head of the
 // group, q tile), summing the group inside the block ---------------------------
 
-template <bool BIAS>
-__global__ void __launch_bounds__(NT, 2)
+// blocks an SM each head dim's dk/dv instantiation is built for
+template <int D>
+constexpr int DKV_BLOCKS = D == 128 ? 2 : 3;
+
+template <bool BIAS, int D = HD>
+__global__ void __launch_bounds__(NT, DKV_BLOCKS<D>)
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse,
@@ -187,11 +192,12 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  bf16* __restrict__ dv, int G, int Sq, int Sk, int causal,
                  float sm_scale, const float* __restrict__ bias, int Hkv) {
   extern __shared__ uint8_t smem[];
+  constexpr int TL = TILE_OF<D>;
   const uint32_t raw = smem_u32(smem);
   const uint32_t sK = (raw + 1023) & ~1023u;
-  const uint32_t sV = sK + TILE;
-  const uint32_t sQD = sV + TILE;       // stage s: Q at sQD + 2 s TILE, dO after
-  const uint32_t sLD = sQD + 4 * TILE;  // stage s: lse at sLD + 512 s, delta +256
+  const uint32_t sV = sK + TL;
+  const uint32_t sQD = sV + TL;       // stage s: Q at sQD + 2 s TL, dO after
+  const uint32_t sLD = sQD + 4 * TL;  // stage s: lse at sLD + 512 s, delta +256
   const float* ld = reinterpret_cast<const float*>(smem + (sLD - raw));
   const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
   const int r0 = 16 * w + (l >> 2), c0 = 2 * (l & 3);
@@ -205,24 +211,35 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_step = [&](int it, int st) {
     const int bh = kvh * G + it / nqs, q0 = (qt_first + it % nqs) * T;
     const size_t row0 = (size_t)bh * Sq + q0;
-    load_tile(sQD + st * 2 * TILE, q + row0 * HD, tid);
-    load_tile(sQD + st * 2 * TILE + TILE, dout + row0 * HD, tid);
+    load_tile<D>(sQD + st * 2 * TL, q + row0 * D, tid);
+    load_tile<D>(sQD + st * 2 * TL + TL, dout + row0 * D, tid);
     if (tid < 16) load_row(sLD + 512 * st, lse + row0, tid);
     else if (tid < 32) load_row(sLD + 512 * st + 256, delta + row0, tid - 16);
   };
 
-  load_tile(sK, k + krow0 * HD, tid);
-  load_tile(sV, v + krow0 * HD, tid);
+  load_tile<D>(sK, k + krow0 * D, tid);
+  load_tile<D>(sV, v + krow0 * D, tid);
   if (steps > 0) load_step(0, 0);
   cp_commit();
   const float scale2 = sm_scale * LOG2E;
-  float ak[64], av[64];
+  // the bias of this thread's keys (rows r0, r0 + 8) is the same every
+  // step: at head_dim 64 it is read once, here; at 128, where the kernel
+  // sits at 255 registers, it is read each step, so that no two more
+  // registers live across the loop
+  constexpr bool BIAS_ONCE = BIAS && D == 64;
+  float hb0 = 0.f, hb1 = 0.f;
+  if constexpr (BIAS_ONCE) {
+    const float* brow = bias + (size_t)(kvh / Hkv) * Sk + k0 + r0;
+    hb0 = __ldg(brow) * LOG2E;
+    hb1 = __ldg(brow + 8) * LOG2E;
+  }
+  float ak[D / 2], av[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) ak[i] = av[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) ak[i] = av[i] = 0.f;
 
   for (int it = 0; it < steps; ++it) {
     const int st = it & 1;
-    const uint32_t sQ = sQD + st * 2 * TILE, sDO = sQ + TILE;
+    const uint32_t sQ = sQD + st * 2 * TL, sDO = sQ + TL;
     const float* sL = ld + 128 * st;
     const float* sD = sL + 64;
     if (it + 1 < steps) {  // the other stage was released at the end of it - 1
@@ -242,10 +259,10 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pin(dp);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk)
       mma_ss(s, desc_k(sK, kk), desc_k(sQ, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk)
       mma_ss(dp, desc_k(sV, kk), desc_k(sDO, kk), kk);
     wg_commit();
     wg_wait<0>();
@@ -254,8 +271,12 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const bool diag = causal && qt_first + it % nqs == kt;
     if constexpr (BIAS) {  // s * scale2 + bias * log2(e), every step
-      const float* brow = bias + (size_t)(kvh / Hkv) * Sk + k0 + r0;
-      const float b0 = __ldg(brow) * LOG2E, b1 = __ldg(brow + 8) * LOG2E;
+      float b0 = hb0, b1 = hb1;
+      if constexpr (!BIAS_ONCE) {
+        const float* brow = bias + (size_t)(kvh / Hkv) * Sk + k0 + r0;
+        b0 = __ldg(brow) * LOG2E;
+        b1 = __ldg(brow + 8) * LOG2E;
+      }
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         s[i] = s[i] * scale2 + ((i >> 1) & 1 ? b1 : b0);
@@ -292,13 +313,14 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // this stage is free for the copy of step it + 2
   }
   cp_wait<0>();
-  store_tile(dk + krow0 * HD, ak, r0, c0);
-  store_tile(dv + krow0 * HD, av, r0, c0);
+  store_tile<D>(dk + krow0 * D, ak, r0, c0);
+  store_tile<D>(dv + krow0 * D, av, r0, c0);
 }
 
 template <int D>
 constexpr size_t DQ_SMEM = 6 * TILE_OF<D> + 1024;
-constexpr size_t DKV_SMEM = 6 * TILE + 1024 + 1024;
+template <int D>
+constexpr size_t DKV_SMEM = 6 * TILE_OF<D> + 1024 + 1024;
 
 template <bool BIAS, int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
@@ -314,14 +336,14 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <bool BIAS>
+template <bool BIAS, int D>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, const void* bias, void* dk,
         void* dv, int BHkv, int G, int Hkv, int Sq, int Sk, int causal,
         float sm_scale, cudaStream_t stream) {
-  int err = launch_prep(flash_dkv_kernel<BIAS>, DKV_SMEM);
+  int err = launch_prep(flash_dkv_kernel<BIAS, D>, DKV_SMEM<D>);
   if (err) return err;
-  flash_dkv_kernel<BIAS><<<dim3(Sk / T, BHkv), NT, DKV_SMEM, stream>>>(
+  flash_dkv_kernel<BIAS, D><<<dim3(Sk / T, BHkv), NT, DKV_SMEM<D>, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, G, Sq,
       Sk, causal, sm_scale, (const float*)bias, Hkv);
@@ -334,7 +356,7 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 // are multiples of 64; every pointer is 16-byte aligned and contiguous;
 // bias is f32 [B, Sk] or null (the kernels without the channel); H / Hkv
 // are the heads a batch of the grid's head index; hd, the head dim, picks
-// the instantiation (dq: 128 or 64, dk/dv: 128; any other is refused with
+// the instantiation (128 or 64 for both; any other is refused with
 // cudaErrorInvalidValue, nothing launched).  Each returns the launch's
 // cudaError_t.
 extern "C" {
@@ -362,11 +384,21 @@ int flash_dkv_launch(const void* q, const void* k, const void* v,
                      const void* bias, void* dk, void* dv, int BHkv, int G,
                      int Hkv, int Sq, int Sk, int causal, float sm_scale,
                      int hd, cudaStream_t stream) {
-  if (hd != 128) return (int)cudaErrorInvalidValue;
-  return bias ? dkv<true>(q, k, v, dout, lse, delta, bias, dk, dv, BHkv, G,
-                          Hkv, Sq, Sk, causal, sm_scale, stream)
-              : dkv<false>(q, k, v, dout, lse, delta, bias, dk, dv, BHkv, G,
-                           Hkv, Sq, Sk, causal, sm_scale, stream);
+  if (hd == 128)
+    return bias ? dkv<true, 128>(q, k, v, dout, lse, delta, bias, dk, dv,
+                                 BHkv, G, Hkv, Sq, Sk, causal, sm_scale,
+                                 stream)
+                : dkv<false, 128>(q, k, v, dout, lse, delta, bias, dk, dv,
+                                  BHkv, G, Hkv, Sq, Sk, causal, sm_scale,
+                                  stream);
+  if (hd == 64)
+    return bias ? dkv<true, 64>(q, k, v, dout, lse, delta, bias, dk, dv,
+                                BHkv, G, Hkv, Sq, Sk, causal, sm_scale,
+                                stream)
+                : dkv<false, 64>(q, k, v, dout, lse, delta, bias, dk, dv,
+                                 BHkv, G, Hkv, Sq, Sk, causal, sm_scale,
+                                 stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -14,18 +14,15 @@ count kernel launches.
 
 The tensor-core kernels take bf16 q, k and v with Sq and Sk multiples of
 ``TILE``, each at the head dims it is built for (``TENSOR_CORE_HEAD_DIMS``,
-``tensor_cores_take``, decided per kernel): the forward and dq at 128
-(Llama-3's) and 64 (BERT-base's), dk/dv at 128 only.  Every other CUDA
-call that ``supported()`` takes, in float32, bfloat16 or float16
-(``GENERIC_DTYPES``), launches the second family,
+``tensor_cores_take``, decided per kernel): all three at 128 (Llama-3's)
+and 64 (BERT-base's).  Every other CUDA call that ``supported()`` takes,
+in float32, bfloat16 or float16 (``GENERIC_DTYPES``), launches the
+second family,
 ``csrc/flash_generic.cu``: f32 on the CUDA cores, for any head_dim the
 JAX package's predicate allows, as the Pallas kernels run every dtype and
 head_dim.  ``FLASH_FWD_GENERIC``, ``FLASH_DQ_GENERIC`` and
-``FLASH_DKV_GENERIC`` count its launches.  Other dtypes raise.  So BERT's
-bf16 attention at head_dim 64 runs the tensor-core forward and dq and the
-second family's dk/dv, fed the tensor-core forward's lse: both families
-write the natural-log lse, f32 [B, H, Sq], so the mixed backward needs no
-conversion.
+``FLASH_DKV_GENERIC`` count its launches.  Other dtypes raise.  Both
+families write the natural-log lse, f32 [B, H, Sq].
 
 Layouts: q is ``[B, H, Sq, hd]``, k and v are ``[B, Hkv, Sk, hd]`` with
 Hkv dividing H (GQA: query head h reads KV head ``h // (H // Hkv)``; K/V
@@ -60,8 +57,9 @@ at most 0.48 over GQA and MHA, causal or not, S of 256 and 1024.  The
 forward's p is split the same way: emulated at the same sizes it gives
 ``tol_ratio`` 0.36-0.45 on the output, where one rounding gives 1.74-3.64.
 At head_dim 64 with a padding mask (B=2, H=4, S of 256 and 512, causal
-or not) the split gives 0.36-0.45 on the forward's output and 0.35-0.45
-on dq, one rounding 1.50-2.79 and 2.22-2.95.
+or not) the split gives 0.36-0.45 on the forward's output, 0.35-0.45
+on dq and 0.36-0.46 on dk and dv, one rounding 1.50-2.79, 2.22-2.95 and
+2.43-4.73.
 Kernel and plain version sum in different orders, so they agree to that
 limit, not bit for bit.  The second family keeps p and ds in f32 (no
 split) and differs from the plain versions by the f32 sums' order only.
@@ -79,9 +77,9 @@ from .bfp_cuda import check_cuda
 
 LANES = 128
 TILE = 64                   # rows of a q or k tile in the CUDA kernels
-# the head dims each tensor-core kernel is built for: Llama-3's 128 and,
-# for the forward and dq, BERT-base's 64
-TENSOR_CORE_HEAD_DIMS = {"fwd": (64, 128), "dq": (64, 128), "dkv": (128,)}
+# the head dims each tensor-core kernel is built for: Llama-3's 128 and
+# BERT-base's 64
+TENSOR_CORE_HEAD_DIMS = {"fwd": (64, 128), "dq": (64, 128), "dkv": (64, 128)}
 _NEG = -1e30
 _DEF_BLOCK = 512
 _SP_ITEM = "ROADMAP A.6 (sequence parallelism: ring_flash_attention)"

@@ -342,11 +342,11 @@ def test_flash_kernels_vs_plain_on_card(cuda_device, shape):
 @pytest.mark.cuda
 def test_flash_kernels_raise_on_unbuilt_operands(cuda_device):
     """A CUDA tensor a kernel is not built for raises; it never takes the
-    plain version: the tensor-core wrappers refuse f32, dk/dv refuses
-    head_dim 64 and the forward and dq refuse head_dim 96 (the entry
-    sends those to the second family); the C entries themselves refuse a
-    head dim they have no instantiation for, and nothing launches; the
-    entry refuses a dtype no kernel takes."""
+    plain version: the tensor-core wrappers refuse f32, and the forward,
+    dq and dk/dv refuse head_dim 96 (the entry sends it to the second
+    family); the C entries themselves refuse a head dim they have no
+    instantiation for, and nothing launches; the entry refuses a dtype no
+    kernel takes."""
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     from fpga_ai_nic_tpu_torch.ops._build import ptr
     kw = dict(causal=True, sm_scale=0.125)
@@ -359,9 +359,9 @@ def test_flash_kernels_raise_on_unbuilt_operands(cuda_device):
                            dtype=torch.bfloat16)
 
     rows = torch.zeros((1, 2, 128), device=cuda_device)
-    hd64, hd96 = bf16(64), bf16(96)
+    hd96 = bf16(96)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_dkv_cuda(hd64, hd64, hd64, hd64, rows, rows, **kw)
+        fa.flash_dkv_cuda(hd96, hd96, hd96, hd96, rows, rows, **kw)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd_cuda(hd96, hd96, hd96, **kw)
     with pytest.raises(ValueError, match="head_dim"):
@@ -369,13 +369,13 @@ def test_flash_kernels_raise_on_unbuilt_operands(cuda_device):
     counts = [fa.FLASH_FWD.launches, fa.FLASH_DQ.launches,
               fa.FLASH_DKV.launches]
     head = (2, 1, 2, 128, 128, 1, 0.125)
-    p96, p64, pr = ptr(hd96), ptr(hd64), ptr(rows)
+    p96, pr = ptr(hd96), ptr(rows)
     with pytest.raises(RuntimeError, match="launch failed"):
         fa.FLASH_FWD(p96, p96, p96, None, p96, pr, *head, 96)
     with pytest.raises(RuntimeError, match="launch failed"):
         fa.FLASH_DQ(p96, p96, p96, p96, pr, pr, None, p96, *head, 96)
     with pytest.raises(RuntimeError, match="launch failed"):
-        fa.FLASH_DKV(p64, p64, p64, p64, pr, pr, None, p64, p64, *head, 64)
+        fa.FLASH_DKV(p96, p96, p96, p96, pr, pr, None, p96, p96, *head, 96)
     assert [fa.FLASH_FWD.launches, fa.FLASH_DQ.launches,
             fa.FLASH_DKV.launches] == counts
     f64 = torch.zeros((1, 2, 128, 128), device=cuda_device,
@@ -402,9 +402,9 @@ def test_flash_generic_kernels_vs_plain_on_card(cuda_device, shape):
     within the JAX tests' own tolerances (2e-5 forward, atol 5e-5 / rtol
     5e-4 gradients), bf16 and f16 within ``tol_ratio`` <= 1; one launch of
     each step's kernel a call, in the family its route picks (the second
-    family everywhere but bf16 at head_dim 64, whose forward and dq take
-    the tensor cores beside the second family's dk/dv), none of the
-    other family's; a second launch gives the same bits."""
+    family everywhere but bf16 at head_dim 64, which takes the tensor
+    cores for all three), none of the other family's; a second launch
+    gives the same bits."""
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     B, H, n_kv, S, hd, causal, dt = GENERIC_SHAPES[shape]
     g = torch.Generator(device=cuda_device).manual_seed(S + hd)
@@ -417,7 +417,7 @@ def test_flash_generic_kernels_vs_plain_on_card(cuda_device, shape):
     kw = dict(causal=causal, sm_scale=hd ** -0.5)
     picks = [fa.tensor_cores_take(kd, q.shape, [dt] * 3)
              for kd in ("fwd", "dq", "dkv")]
-    assert picks == [dt == torch.bfloat16 and hd == 64] * 2 + [False]
+    assert picks == [dt == torch.bfloat16 and hd == 64] * 3
     tc = [fa.FLASH_FWD, fa.FLASH_DQ, fa.FLASH_DKV]
     gen = [fa.FLASH_FWD_GENERIC, fa.FLASH_DQ_GENERIC, fa.FLASH_DKV_GENERIC]
     fam = [t if p else g_ for p, t, g_ in zip(picks, tc, gen)]
@@ -573,7 +573,7 @@ def test_row_checksums_vs_plain_on_card(cuda_device, dtype, rows, cols):
 BIAS_SHAPES = {
     # name: B, H, n_kv, S, hd, causal (bf16, a padding mask as key bias);
     # "generic_" cases call the second family's wrappers directly (the
-    # entry sends bf16 at head_dim 64 to the tensor-core forward and dq)
+    # entry sends bf16 at head_dim 64 to the tensor cores)
     "generic_bert_base": (8, 12, 12, 512, 64, False),
     "generic_gqa_causal": (2, 8, 2, 256, 64, True),
     "tensor_cores": (2, 8, 8, 1024, 128, False),
@@ -597,9 +597,8 @@ def test_flash_key_bias_vs_plain_on_card(cuda_device, shape):
     bias: out, dq, dk, dv within ``tol_ratio`` <= 1, lse within LSE_TOL;
     one launch of each step's kernel a call, a second launch bit-equal.
     "tensor_cores" cases go through the entry and its autograd (the bias
-    gets no gradient), each kernel's family picked per kernel: head_dim
-    128 all three on the tensor cores, head_dim 64 the tensor-core
-    forward and dq beside the second family's dk/dv; "generic_" cases
+    gets no gradient), each kernel's family picked per kernel (bf16 at
+    head_dim 128 and 64: all three on the tensor cores); "generic_" cases
     call the second family's three wrappers."""
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     B, H, n_kv, S, hd, causal = BIAS_SHAPES[shape]
@@ -618,7 +617,7 @@ def test_flash_key_bias_vs_plain_on_card(cuda_device, shape):
     tc = [not direct and fa.tensor_cores_take(kd, q.shape, [q.dtype] * 3)
           for kd in ("fwd", "dq", "dkv")]
     if shape == "tensor_cores_bert_base":
-        assert tc == [True, True, False]
+        assert tc == [True, True, True]
     fam = [tc_k if use else gen for use, tc_k, gen in zip(
         tc, (fa.FLASH_FWD, fa.FLASH_DQ, fa.FLASH_DKV),
         (fa.FLASH_FWD_GENERIC, fa.FLASH_DQ_GENERIC, fa.FLASH_DKV_GENERIC))]
@@ -647,6 +646,48 @@ def test_flash_key_bias_vs_plain_on_card(cuda_device, shape):
     assert float((lse - p_lse).abs().max()) <= fa.LSE_TOL
     for name, a, ref in (("out", o2, p_out), ("dq", dq, p_dq),
                          ("dk", dk, p_dk), ("dv", dv, p_dv)):
+        assert bool(torch.isfinite(a.float()).all()), name
+        assert fa.tol_ratio(a, ref) <= 1.0, name
+
+
+DKV_HD64_SHAPES = {
+    # name: B, H, n_kv, S, causal (bf16, head_dim 64)
+    "bert_base": (8, 12, 12, 512, False),
+    "gqa_causal": (2, 8, 2, 256, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("shape", sorted(DKV_HD64_SHAPES))
+def test_flash_dkv_hd64_vs_plain_on_card(cuda_device, shape, with_bias):
+    """The tensor-core dk/dv at head_dim 64, with a padding mask as key
+    bias and without, against ``flash_dkv_plain`` on the same card
+    tensors: dk and dv within ``tol_ratio`` <= 1, one launch a call, a
+    second launch bit-equal."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    B, H, n_kv, S, causal = DKV_HD64_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(S + H + 64)
+
+    def rand(*s):
+        return torch.randn(s, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+
+    q, k, v = rand(B, H, S, 64), rand(B, n_kv, S, 64), rand(B, n_kv, S, 64)
+    do = rand(B, H, S, 64)
+    bias = _padding_bias(B, S, cuda_device, S) if with_bias else None
+    kw = dict(causal=causal, sm_scale=64 ** -0.5, key_bias=bias)
+    out, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    args = (q, k, v, do, lse, (do.float() * out.float()).sum(-1))
+    before = fa.FLASH_DKV.launches
+    dk, dv = fa.flash_dkv_cuda(*args, **kw)
+    again = fa.flash_dkv_cuda(*args, **kw)
+    p_dk, p_dv = fa.flash_dkv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fa.FLASH_DKV.launches == before + 2
+    for name, a, b, ref in (("dk", dk, again[0], p_dk),
+                            ("dv", dv, again[1], p_dv)):
+        assert torch.equal(a, b), f"{name}: a second launch differs"
         assert bool(torch.isfinite(a.float()).all()), name
         assert fa.tol_ratio(a, ref) <= 1.0, name
 

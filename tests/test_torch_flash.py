@@ -416,6 +416,36 @@ def test_hd64_bias_dq_split_rounding_within_the_card_limit(causal, S):
     assert fa.tol_ratio(got, want) <= 1.0
 
 
+def _hd64_bias_dkv_ratios(causal, S, terms):
+    """tol_ratio of the emulated head_dim-64 dk and dv (p and ds fed as
+    ``terms``) against the f32 plain dk/dv with the same padding mask."""
+    q, k, v, do, bias, kw = _bert_emu_case(causal, S)
+    out, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    got = _emulated_bwd(q, k, v, do, lse, delta, causal, kw["sm_scale"],
+                        terms, key_bias=bias)[1:]
+    want = fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+    return {n: fa.tol_ratio(g, w) for n, g, w in zip(("dk", "dv"), got,
+                                                     want)}
+
+
+@pytest.mark.parametrize("causal,S,terms,within", [
+    *((causal, S, _split, True) for causal, S in BERT_EMU_SHAPES),
+    (False, 512, _single, False)])
+def test_hd64_bias_dkv_split_rounding_within_the_card_limit(causal, S, terms,
+                                                            within):
+    """The head_dim-64 dk/dv with a padding mask: p and ds as bf16 hi + lo
+    terms into p^T . dO and ds^T . q keep dk and dv within ``tol_ratio``
+    <= 1 of the f32 plain dk/dv, the limit the card check holds the kernel
+    to; one bf16 rounding of each (the BERT-like non-causal S=512 case)
+    lands above it for both."""
+    ratios = _hd64_bias_dkv_ratios(causal, S, terms)
+    if within:
+        assert max(ratios.values()) <= 1.0, ratios
+    else:
+        assert min(ratios.values()) > 1.0, ratios
+
+
 # -- the "auto" route (ROADMAP C.1) --------------------------------------------
 
 ROUTE_SHAPES = [  # q shape, kv_seq_len
@@ -472,9 +502,8 @@ def test_kernel_family_by_operands(shape, kv_len, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.float16])
 def test_tensor_cores_per_kernel(hd, dtype):
-    """The forward and dq take the tensor cores for bf16 at head_dim 64
-    and 128, dk/dv at 128 only; the second family takes everything
-    else."""
+    """The forward, dq and dk/dv take the tensor cores for bf16 at
+    head_dim 64 and 128; the second family takes everything else."""
     shape = (2, 4, 256, hd)
     bf16 = dtype == torch.bfloat16
     assert fa.tensor_cores_take("fwd", shape, [dtype] * 3) == (
@@ -482,17 +511,17 @@ def test_tensor_cores_per_kernel(hd, dtype):
     assert fa.tensor_cores_take("dq", shape, [dtype] * 3) == (
         bf16 and hd in (64, 128))
     assert fa.tensor_cores_take("dkv", shape, [dtype] * 3) == (
-        bf16 and hd == 128)
+        bf16 and hd in (64, 128))
 
 
 @pytest.mark.parametrize("hd,want", [
-    (64, ("fwd", "dq", "dkv_generic")), (128, ("fwd", "dq", "dkv")),
+    (64, ("fwd", "dq", "dkv")), (128, ("fwd", "dq", "dkv")),
     (32, ("fwd_generic", "dq_generic", "dkv_generic"))])
 def test_cuda_dispatch_calls_the_kernel_of_each_step(hd, want, monkeypatch):
     """``_fwd`` and ``_bwd`` on non-CPU bf16 tensors (meta here) call one
-    wrapper a step, the one each kernel's route picks: BERT's head_dim 64
-    the tensor-core forward and dq beside the second family's dk/dv, fed
-    the forward's lse."""
+    wrapper a step, the one each kernel's route picks (BERT's head_dim 64
+    all three on the tensor cores), the backward's fed the forward's
+    lse."""
     calls = []
 
     def fake(name, n_out):
