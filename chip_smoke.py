@@ -133,7 +133,28 @@ Phases, each printing JSON lines:
      at BERT-base width and 2 layers through the kernels and through the
      plain softmax route, within the Llama parity limits, and the kernels
      with a zero key bias (the fault control) above them;
- 16. the ``kernels`` line, then the last line
+ 16. ``resnet_train_path``: ResNet-50 data-parallel training as the
+     ``train_resnet`` driver builds it (bf16, random weights from a seed,
+     224x224 images of train_resnet's stream, global batch 256 over dp=8
+     virtual ranks, ``DPTrainer`` with sync-BN over the ranks in one
+     autograd graph, the fused BFP ring kernels with the fused momentum
+     SGD, lr 0.1, momentum 0.9, weight decay 1e-4) — 2 warm-up and 5
+     timed steps on one batch already on the card, launch counts (one
+     ring_rs_update and one ring_ag a step, no other port kernel), every
+     rank's replica bit-equal after every step, the loss on the repeated
+     batch falling, peak memory; one more step whose gradients also go
+     through the plain collectives (masters and momentum shards
+     bit-equal); ring_rs_update (momentum) and ring_ag timed at this
+     shape (n=8, 3,194,880 f32 a rank); a profile of two steps (ring,
+     convolutions, the fc GEMM, the BN/elementwise rest, idle share);
+     then ``train_resnet.main`` with its loader drawing the stream on
+     the host;
+ 17. ``resnet_train_parity``: at ResNet-50 width, 64 images (8 a rank),
+     the joint graph's gradients summed over the ranks over n against
+     ``loss_fn`` on the whole batch through one replica, in f32 within a
+     limit that per-rank moments (the control) exceed; the floor (the
+     batch permuted) and the bf16 model's numbers reported beside;
+ 18. the ``kernels`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so the f32 GEMMs run in full float32.
@@ -256,12 +277,17 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def profile_run(phase: str, run, steps: int, groups=None, **extra) -> dict:
+def profile_run(phase: str, run, steps: int, groups=None, op_groups=None,
+                **extra) -> dict:
     """Device time of ``steps`` calls of ``run`` by group (``groups``:
     name -> kernel-name substrings, by default the port's kernels; then
     GEMMs and the rest) and the device's idle share, from torch.profiler;
-    emits one line and returns the groups."""
+    emits one line and returns the groups.  ``op_groups`` (name -> aten op
+    name substrings) takes every kernel an op of the group launched (the
+    innermost op the trace links it to) out of its name's group: cuDNN's
+    convolutions run GEMM-named kernels too."""
     kernel_groups = groups or {"port_kernels": PORT_KERNELS}
+    op_groups = op_groups or {}
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -273,34 +299,59 @@ def profile_run(phase: str, run, steps: int, groups=None, **extra) -> dict:
             run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    groups = {g: 0.0 for g in list(kernel_groups) + ["gemm", "other"]}
+
+    def name_group(name):
+        group = next((g for g, keys in kernel_groups.items()
+                      if any(k in name for k in keys)), None)
+        if group is not None:
+            return group
+        return "gemm" if any(k in name.lower() for k in GEMM_NAMES) \
+            else "other"
+
+    groups = {g: 0.0 for g in list(kernel_groups) + list(op_groups)
+              + ["gemm", "other"]}
+    group_top = {g: [] for g in groups}
     by_name = {}
     for ev in prof.events():                  # device-side events only:
         if ev.device_type != DeviceType.CUDA:  # CPU ops would count their
             continue                           # kernels a second time
         ms, cnt = by_name.get(ev.name, (0.0, 0))
         by_name[ev.name] = (ms + ev.device_time_total / 1e3, cnt + 1)
+    taken = {g: {} for g in op_groups}    # op group -> name -> (ms, n)
+    for ev in prof.events():
+        group = next((g for g, keys in op_groups.items()
+                      if any(k in ev.name for k in keys)), None)
+        if ev.device_type != DeviceType.CPU or group is None:
+            continue
+        for k in ev.kernels:
+            ms, cnt = taken[group].get(k.name, (0.0, 0))
+            taken[group][k.name] = (ms + k.duration / 1e3, cnt + 1)
     top = []
     for name, (ms, cnt) in by_name.items():
-        low = name.lower()
-        group = next((g for g, keys in kernel_groups.items()
-                      if any(k in name for k in keys)), None)
-        if group is not None:
-            groups[group] += ms
-        elif any(k in low for k in GEMM_NAMES):
-            groups["gemm"] += ms
-        else:
-            groups["other"] += ms
         top.append((ms, name[:80], cnt))
+        for group in op_groups:
+            t_ms, t_cnt = taken[group].get(name, (0.0, 0))
+            if t_cnt:
+                groups[group] += t_ms
+                group_top[group].append((t_ms, name[:100], t_cnt))
+                ms, cnt = ms - t_ms, cnt - t_cnt
+        if cnt:
+            group = name_group(name)
+            groups[group] += ms
+            group_top[group].append((ms, name[:100], cnt))
     busy = sum(groups.values())
+    n_kernels = sum(cnt for _, cnt in by_name.values())
     top.sort(reverse=True)
     emit(phase=phase, steps=steps, wall_ms=wall_ms,
          device_ms=busy if busy else "not measured",
-         device_ms_by_group=groups,
+         device_ms_by_group=groups, kernels_traced=n_kernels,
          idle_share=(1 - busy / wall_ms) if busy else "not measured",
          top=[{"ms": t, "name": nm, "count": c} for t, nm, c in top[:12]],
-         **extra)
-    return {"wall_ms": wall_ms, "device_ms": busy, **groups}
+         top_by_group={g: [{"ms": t, "name": nm, "count": c}
+                           for t, nm, c in sorted(v, reverse=True)[:3]]
+                       for g, v in group_top.items()}, **extra)
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "kernels_traced": n_kernels, **groups}
 
 
 # -- ring collectives: one launch a call, against plain, at the paths' shapes -
@@ -2595,6 +2646,275 @@ def bert_train_parity(dev, run) -> None:
         raise AssertionError(f"bert training parity failed: {checks}")
 
 
+RESNET_ARGV = ["--model=resnet50", "--image-size=224", "--mesh.dp=8",
+               "--global_batch=256", "--bfp=1",
+               "--collective.fused_optimizer=true",
+               "--optimizer.kind=momentum", "--optimizer.learning_rate=0.1",
+               "--optimizer.momentum=0.9", "--optimizer.weight_decay=1e-4",
+               "--iters=5"]
+RESNET_WARMUP = 2          # cuDNN picks its algorithms on the first calls
+RESNET_LOADER_ITERS = 3
+RESNET_PARITY_BATCH = 64   # cut from 256: three graphs of it are held
+RESNET_GROUPS = {"ring": ("ring_rs_kernel", "ring_ag_kernel"),
+                 "port_other": tuple(k for k in PORT_KERNELS if k not in (
+                     "ring_rs_kernel", "ring_ag_kernel"))}
+# by the aten op that launched a kernel: cuDNN's convolutions (forward,
+# data and weight gradients; their GEMM-named kernels too) and the fc GEMM
+RESNET_OP_GROUPS = {"conv": ("convolution",), "fc_gemm": ("aten::mm",
+                                                          "aten::addmm")}
+
+
+def resnet_ring_times(dev, tr, state, g, new, ccfg) -> dict:
+    """ring_rs_update (momentum) and ring_ag at the ResNet path's shape
+    (n=8, 3,194,880 f32 a rank) on the path's own gradients and shards:
+    device time, whole calls, the plain versions and the bounds.  These
+    launches come after the path's counts were read."""
+    from fpga_ai_nic_tpu_torch import optim
+    from fpga_ai_nic_tpu_torch.ops import ring_cuda
+    n, L = g.shape
+    C = L // n
+    h = optim.fused_hyperparams(tr.cfg.optimizer, state.step, device=dev)
+
+    def rs():
+        return ring_cuda.ring_reduce_scatter_update_fused(
+            g, state.w_own, state.opt_state, h, opt_kind="momentum",
+            compression=ccfg)
+
+    def ag():
+        return ring_cuda.ring_all_gather_fused(new.w_own, compression=ccfg)
+    rs_b, ag_b = ring_bytes(n, L, C, opt_shards=2)     # w and m
+    out = {"shape": f"n={n}, L={L} (C={C} f32 a rank), momentum + wd",
+           "rs_device_ms": device_ms(rs, 10, ("ring_rs_kernel",)),
+           "rs_call_ms": cuda_ms(rs, 10),
+           "rs_plain_ms": cuda_ms(
+               lambda: ring_cuda.ring_reduce_scatter_update_plain(
+                   g, state.w_own, state.opt_state, h, opt_kind="momentum",
+                   compression=ccfg), 2),
+           "rs_bound": bound(rs_b, 11 * n * L + 7 * n * C),
+           "ag_device_ms": device_ms(ag, 10, ("ring_ag_kernel",)),
+           "ag_call_ms": cuda_ms(ag, 10),
+           "ag_plain_ms": cuda_ms(lambda: ring_cuda.ring_all_gather_plain(
+               new.w_own, ccfg), 2),
+           "ag_bound": bound(ag_b, 10 * n * C)}
+    emit(phase="resnet_ring_times", **out)
+    return out
+
+
+def resnet_train_path(dev, kernels) -> dict:
+    """ResNet-50 data-parallel training as the ``train_resnet`` driver
+    builds it: ``DPTrainer`` with sync-BN over 8 virtual ranks (one graph
+    for all ranks), 32 images of 224x224 a rank, the fused BFP ring
+    kernels with the fused momentum SGD; 2 warm-up and 5 timed steps on
+    one batch of train_resnet's stream already on the card, launch counts
+    zeroed just before the first and read after the last; every rank's
+    replica bit-equal after every step and a falling loss; one more step
+    whose gradients also go through the plain collectives (masters and
+    momentum shards bit-equal); the ring kernels timed at this shape; a
+    profile of two steps; then ``train_resnet.main``, its loader drawing the
+    stream on the host."""
+    import torch
+    from fpga_ai_nic_tpu_torch import optim, train_resnet
+    from fpga_ai_nic_tpu_torch.models import resnet
+    from fpga_ai_nic_tpu_torch.ops import ring_cuda
+    mcfg, cfg, size, device = train_resnet.parse(RESNET_ARGV)
+    n = cfg.mesh.dp
+    ccfg = cfg.collective.compression
+    held_before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr, state = train_resnet.build(mcfg, cfg, device)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (host,) = list(train_resnet.batches(mcfg, cfg, size, 1))
+    host_batch_s = time.perf_counter() - t0
+    batch = tr.shard_batch(host)
+    del host
+    steps = RESNET_WARMUP + cfg.iters
+    for k in kernels.values():
+        k.launches = 0
+    losses, step_ms, identical = [], [], []
+    for _ in range(steps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, loss = tr.step(state, batch)
+        end.record()
+        reps = state.replicas
+        identical.append(bool((reps == reps[0]).all()))    # synchronises
+        losses.append(float(loss))
+        step_ms.append(start.elapsed_time(end))
+    del reps
+    launches = {name: k.launches for name, k in kernels.items()}
+    per_step = dict({name: 0 for name in kernels}, ring_rs_update=1,
+                    ring_ag=1)
+    for name, count in launches.items():
+        if count != steps * per_step[name]:
+            raise AssertionError(f"resnet training: {name} launched {count} "
+                                 f"times, expected {steps} x "
+                                 f"{per_step[name]}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    timed = step_ms[RESNET_WARMUP:]
+    checks = {"finite": all(math.isfinite(v) for v in losses),
+              "loss_falls": losses[-1] < losses[0],
+              "replicas_identical_every_step": all(identical)}
+    emit(phase="resnet_train_path", model=(
+        f"ResNet-50 (stages {list(mcfg.stage_sizes)}, width {mcfg.width}, "
+        f"{mcfg.num_classes} classes, {mcfg.dtype}), random weights (seed "
+        f"{cfg.seed})"), params=resnet.num_params(mcfg),
+         padded_len=state.replicas.shape[1],
+         chunk_per_rank=state.w_own.shape[1], image_size=size,
+         global_batch=cfg.global_batch, dp=n, trainer="DPTrainer, sync-BN "
+         "over the ranks (joint_grads)", collective=str(cfg.collective),
+         optimizer=str(cfg.optimizer), weight_init_s=init_s,
+         host_batch_s=host_batch_s, held_before_gb=held_before / 1e9,
+         warmup_steps=RESNET_WARMUP, steps=cfg.iters, step_ms=step_ms,
+         median_step_ms=sorted(timed)[len(timed) // 2],
+         samples_per_sec=cfg.iters * cfg.global_batch / (sum(timed) / 1e3),
+         losses=losses, peak_mem_gb=peak, launches=launches,
+         launches_per_step=per_step, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"resnet training failed: {checks}")
+
+    # one more step: the same gradients through the kernels and the plain
+    # collectives
+    g, _ = tr.grads(state, batch)
+    new = tr.apply_grads(state, g)
+    h = optim.fused_hyperparams(cfg.optimizer, state.step, device=dev)
+    _, w_plain, st_plain = ring_cuda.ring_reduce_scatter_update_plain(
+        g, state.w_own, state.opt_state, h, opt_kind="momentum",
+        compression=ccfg)
+    require_equal("resnet masters and momentum", [
+        (new.w_own, w_plain), (new.opt_state["m"], st_plain["m"])])
+    rep_plain = ring_cuda.ring_all_gather_plain(w_plain, ccfg)
+    require_equal("resnet replicas", [
+        (new.replicas, rep_plain.to(new.replicas.dtype))])
+    emit(phase="resnet_plain_step", masters_bitequal=True,
+         momentum_bitequal=True, replicas_bitequal=True)
+    del w_plain, st_plain, rep_plain
+    ring = resnet_ring_times(dev, tr, state, g, new, ccfg)
+    del g, state
+    held = [new]
+    del new
+
+    def train_step():
+        held[0], _ = tr.step(held[0], batch)
+
+    prof = profile_run("resnet_train_profile", train_step, 2,
+                       groups=RESNET_GROUPS, op_groups=RESNET_OP_GROUPS)
+    del tr, held, batch
+    torch.cuda.empty_cache()
+    # train_resnet as a user runs it: the loader draws each batch on the
+    # host and copies it from pinned memory
+    out = train_resnet.main(
+        [a for a in RESNET_ARGV if not a.startswith("--iters=")]
+        + [f"--iters={RESNET_LOADER_ITERS}"])
+    emit(phase="resnet_driver_loader", **out)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ring": ring, "profile": prof,
+            "steps": steps}
+
+
+# The parity phase runs in f32 (cuDNN's TF32 off): this random-init
+# ResNet-50's gradient is ill-conditioned, so the same function summed in
+# another order (the batch permuted: the phase's floor) moves it by a few
+# percent in f32, and in bf16 by about as much as dropping sync-BN does
+# (the phase reports the bf16 numbers beside).
+RESNET_PARITY_GRAD_REL_TOL = 0.1
+RESNET_PARITY_LOSS_TOL = PARITY_LOSS_TOL
+
+
+def resnet_parity_case(dev, mcfg, reps, meta, x, y, n) -> dict:
+    """One dtype's comparisons at ResNet-50 width: the joint graph's
+    gradients summed over the ranks over n (``joint``), the one-replica
+    gradient of the batch permuted (``floor``: the same function in
+    another summation order) and the per-rank moments (``control``), each
+    as ``|g - g_one| / |g_one|`` over the flat vector, with the losses."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import resnet
+    from fpga_ai_nic_tpu_torch.parallel.train import (joint_grads,
+                                                      per_rank_grads)
+    B = x.shape[0]
+    split = (x.reshape(n, B // n, *x.shape[1:]), y.reshape(n, B // n))
+
+    def one_replica_loss(p, b):
+        return resnet.loss_fn(p, b, mcfg)
+
+    g_1, l_1 = per_rank_grads(one_replica_loss, reps[:1], meta,
+                              (x[None], y[None]))
+    g_1 = g_1[0]
+    norm = float(g_1.norm())
+    out = {"dtype": mcfg.dtype, "loss_one_replica": float(l_1),
+           "grad_norm_one_replica": norm}
+    perm = torch.arange(B - 1, -1, -1, device=x.device)
+    for name, fn, batch, reduce in (
+            ("joint", joint_grads, split, True),
+            ("floor", per_rank_grads, (x[perm][None], y[perm][None]), False),
+            ("control", per_rank_grads, split, True)):
+        loss_fn = (resnet.dp_loss_fn(mcfg) if name == "joint"
+                   else one_replica_loss)
+        g, loss = fn(loss_fn, reps if reduce else reps[:1], meta, batch)
+        g = g.sum(0) / n if reduce else g[0]
+        out[name + "_grad_rel_err"] = float((g - g_1).norm()) / norm
+        out[name + "_loss"] = float(loss)
+        del g
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_train_parity(dev) -> None:
+    """Sync-BN at ResNet-50 width on the card: the joint graph's
+    gradients over 8 ranks of 8 images, summed over the ranks and divided
+    by n, against ``loss_fn`` on the whole batch of 64 through one replica
+    (JAX's ``test_sync_bn_matches_single_device`` invariant), compared as
+    one flat vector, in f32 within RESNET_PARITY_GRAD_REL_TOL; the same
+    split with every rank's own moments (nothing pooled) must exceed it.
+    The floor (the batch permuted) and the bf16 model's numbers are
+    reported beside them."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from fpga_ai_nic_tpu_torch import train_resnet
+    from fpga_ai_nic_tpu_torch.models import resnet
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    from fpga_ai_nic_tpu_torch.utils.config import CollectiveConfig
+    mcfg, cfg, size, _ = train_resnet.parse(RESNET_ARGV)
+    n, B = cfg.mesh.dp, RESNET_PARITY_BATCH
+    x, y = train_resnet.make_batch(np.random.default_rng(cfg.seed), mcfg,
+                                   B, size)
+    cases = {}
+    for dt in ("float32", mcfg.dtype):
+        c = dataclasses.replace(mcfg, dtype=dt)
+        params = resnet.init(
+            torch.Generator(device=dev).manual_seed(cfg.seed), c, dev)
+        meta = fused_update.flat_meta(params, CollectiveConfig(), n)
+        reps = fused_update.flatten_tree(params, meta).to(
+            c.torch_dtype).reshape(1, -1).expand(n, -1)
+        del params
+        cases[dt] = resnet_parity_case(dev, c, reps, meta,
+                                       x.to(dev, c.torch_dtype), y.to(dev), n)
+        del reps
+    f32 = cases["float32"]
+    rel, rel_c = f32["joint_grad_rel_err"], f32["control_grad_rel_err"]
+    l_diff = abs(f32["joint_loss"] - f32["loss_one_replica"])
+    checks = {"finite": all(math.isfinite(v) for v in f32.values()
+                            if isinstance(v, float)),
+              "grad_within_tol": rel <= RESNET_PARITY_GRAD_REL_TOL,
+              "loss_within_tol": l_diff <= RESNET_PARITY_LOSS_TOL,
+              "control_above_tol": rel_c > RESNET_PARITY_GRAD_REL_TOL}
+    emit(phase="resnet_train_parity", batch=B, dp=n, image_size=size,
+         cut=f"global batch {cfg.global_batch} -> {B} ({B // n} a rank)",
+         checked="float32 (cuDNN TF32 off)",
+         grad_tol=RESNET_PARITY_GRAD_REL_TOL,
+         loss_tol=RESNET_PARITY_LOSS_TOL, loss_diff=l_diff,
+         control="per-rank moments (nothing pooled)",
+         floor="one replica, the batch permuted", cases=cases,
+         checks=checks)
+    del x, y
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"resnet training parity failed: {checks}")
+
+
 def main() -> int:
     # the Llama training phase holds about 60 GB at its peak and frees and
     # reallocates 7-15 GB buffers every step; growable segments keep the
@@ -2857,7 +3177,11 @@ def main() -> int:
     bert_run = bert_train_path(dev, bert_kernels)
     bert_train_parity(dev, bert_run)
 
-    # -- 13. the kernels line and the result -----------------------------------------
+    # -- 16-17. ResNet-50: sync-BN DP with the fused momentum SGD -------------
+    resnet_run = resnet_train_path(dev, bert_kernels)
+    resnet_train_parity(dev)
+
+    # -- 18. the kernels line and the result ----------------------------------
     meta = {
         "bfp_encode": (PORT + "/csrc/bfp_codec.cu",
                        REF + "/ops/bfp_pallas.py:55"),
@@ -2931,6 +3255,18 @@ def main() -> int:
     for name, r in bert_flash["tensor_cores_hd64"].items():
         launches[name] = bert_run["launches"][name[:-len("_hd64")]]
         results[name] = r
+    rr = resnet_run["ring"]
+    for name, key in (("ring_rs_update", "rs"), ("ring_ag", "ag")):
+        results[name]["extra"].update(
+            resnet_shape=rr["shape"],
+            resnet_launches=resnet_run["launches"][name],
+            resnet_launches_from=(f"resnet_train_path ({resnet_run['steps']}"
+                                  " steps)"),
+            resnet_device_ms=rr[key + "_device_ms"],
+            resnet_call_ms=rr[key + "_call_ms"],
+            resnet_plain_ms=rr[key + "_plain_ms"],
+            resnet_bound_ms=rr[key + "_bound"][0],
+            resnet_bound_by=rr[key + "_bound"][1])
     dec_row, pre_row = paged["decode GQA ps16"], paged["prefill GQA ps16"]
     results["paged_attend"] = {
         "max_abs_err": max(r["max_abs_err"] for r in paged.values()),

@@ -12,13 +12,14 @@ error-feedback codecs (top-k) the arm also carries the residual through
 ``TrainState.codec_state``.
 
 Ported: ``run_curve``, ``run_codec_comparison``, ``codec_static_table``
-and ``codec_error_table`` for the models ``mlp``, ``mlp_canonical`` and
+and ``codec_error_table`` for the models ``mlp``, ``mlp_canonical``,
 ``bert`` (the tiny BERT on masked-LM batches of 32 tokens, each carrying
-the global target count, ``models.bert.with_global_count``).  Not
-ported: ``resnet`` (ROADMAP A.6) and ``mlp_fsdp`` (the ZeRO-3 trainer,
-A.5); each raises ``NotImplementedError``.  The batch stream is the
-reference's numpy stream; the initial weights come from a torch
-generator unless ``params=`` hands them in (a test passes JAX's).
+the global target count, ``models.bert.with_global_count``) and
+``resnet`` (the tiny ResNet on 16x16 images, sync-BN over the ranks
+through ``models.resnet.dp_loss_fn``).  Not ported: ``mlp_fsdp`` (the
+ZeRO-3 trainer, A.5), which raises ``NotImplementedError``.  The batch
+stream is the reference's numpy stream; the initial weights come from a
+torch generator unless ``params=`` hands them in (a test passes JAX's).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 
 from .. import compress
 from ..device import DeviceLike, resolve_device
-from ..models import bert, mlp
+from ..models import bert, mlp, resnet
 from ..ops import bfp, fused_update
 from ..parallel.ddp import DDPTrainer
 from ..parallel.mesh import VirtualRanks
@@ -39,8 +40,8 @@ from ..parallel.train import DPTrainer
 from ..utils.config import (BFPConfig, CollectiveConfig, MeshConfig,
                             MLPConfig, OptimizerConfig, TrainConfig)
 
-MODELS = ("mlp", "mlp_canonical", "bert")
-_UNPORTED = {"resnet": "A.6", "mlp_fsdp": "A.5"}
+MODELS = ("mlp", "mlp_canonical", "bert", "resnet")
+_UNPORTED = {"mlp_fsdp": "A.5"}
 TRAINERS = {"dp": DPTrainer, "ddp": DDPTrainer}
 BERT_SEQ = 32               # the reference eval's masked-LM batches
 
@@ -64,8 +65,8 @@ def mlp_config(model: str) -> MLPConfig:
     """The eval's MLP: 128-256-256-32 ("mlp"), or the reference
     benchmark's 2048-wide layers with depth cut to 3 ("mlp_canonical")."""
     _check_model(model)
-    if model == "bert":
-        raise ValueError("bert is not an MLP: see models.bert.BertConfig")
+    if model in ("bert", "resnet"):
+        raise ValueError(f"{model} is not an MLP: see models.{model}")
     canonical = model == "mlp_canonical"
     width = 2048 if canonical else 128
     hidden = 2048 if canonical else 256
@@ -77,11 +78,19 @@ def mlp_config(model: str) -> MLPConfig:
 def _make_batches(model: str, n_batches: int, batch: int, seed: int
                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """The reference's fixed dataset from one numpy generator seeded with
-    ``seed``: per batch, x ~ N(0, 1) then integer labels (the MLPs), or
-    uniform tokens and 15% of them (position 0 always) masked to token 3
-    and labelled, -100 elsewhere (``bert``, ``BERT_SEQ`` tokens)."""
+    ``seed``: per batch, x ~ N(0, 1) then integer labels (the MLPs; for
+    ``resnet`` x is [batch, 16, 16, 3] images), or uniform tokens and 15%
+    of them (position 0 always) masked to token 3 and labelled, -100
+    elsewhere (``bert``, ``BERT_SEQ`` tokens)."""
     rng = np.random.default_rng(seed)
     out = []
+    if model == "resnet":
+        n_cls = resnet.ResNetConfig.tiny().num_classes
+        for _ in range(n_batches):
+            x = rng.standard_normal((batch, 16, 16, 3)).astype(np.float32)
+            y = rng.integers(0, n_cls, batch).astype(np.int32)
+            out.append((torch.from_numpy(x), torch.from_numpy(y)))
+        return out
     if model == "bert":
         vocab = bert.BertConfig.tiny().vocab
         for _ in range(n_batches):
@@ -143,6 +152,10 @@ def run_curve(model: str, steps: int = 200, *, batch: int = 32,
                                             dp_size=n_dev)
         params = bert.init(gen, bcfg, dev) if params is None else params
         batches = [bert.with_global_count(b, n_dev) for b in batches]
+    elif model == "resnet":
+        rcfg = resnet.ResNetConfig.tiny()
+        loss_fn = resnet.dp_loss_fn(rcfg)
+        params = resnet.init(gen, rcfg, dev) if params is None else params
     else:
         mcfg = mlp_config(model)
         loss_fn = lambda p, b: mlp.loss_fn(p, b, mcfg)  # noqa: E731

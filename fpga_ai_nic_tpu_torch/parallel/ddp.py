@@ -34,7 +34,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 import torch
 
 from .mesh import VirtualRanks
-from .train import per_rank_grads
+from .train import rank_grads
 from .. import optim
 from ..ops import bucketed, fused_update
 from ..utils.config import CollectiveConfig, TrainConfig
@@ -51,9 +51,10 @@ class DDPState(NamedTuple):
 
 
 class DDPTrainer:
-    """``loss_fn(params, batch) -> scalar``; a batch is a tuple of tensors
-    with a leading global-batch axis, split over the ranks by
-    ``shard_batch``."""
+    """``loss_fn(params, batch) -> scalar``, or a loss marked
+    ``joint_ranks`` over all ranks at once (``train.joint_grads``: sync-BN);
+    a batch is a tuple of tensors with a leading global-batch axis, split
+    over the ranks by ``shard_batch``."""
 
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig):
@@ -154,8 +155,8 @@ class DDPTrainer:
         def write(i: int, leaves: List[torch.Tensor]) -> None:
             bucketed.bucket_locals(leaves, plan, [r[i] for r in rows])
 
-        _, loss = per_rank_grads(self.loss_fn, state.replicas, self._meta,
-                                 batch, write)
+        _, loss = rank_grads(self.loss_fn, state.replicas, self._meta,
+                             batch, write)
         return rows, loss
 
     def all_reduce(self, rows: List[torch.Tensor]) -> torch.Tensor:

@@ -2,8 +2,10 @@
 the port of the JAX package's ``parallel/train.py`` (``DPTrainer``).
 
 Each virtual rank runs forward and backward on its batch shard with its own
-replica of the working weights; the flat gradients ``[n, L_pad]`` then go
-through the two phases of the JAX ``step_fn``:
+replica of the working weights (``per_rank_grads``); a loss that couples
+the ranks, sync-BN's, is marked ``joint_ranks`` and differentiated over
+all ranks in one graph (``joint_grads``).  The flat gradients
+``[n, L_pad]`` then go through the two phases of the JAX ``step_fn``:
 
   phase 1: ``fused_update.reduce_scatter_update`` — ring reduce-scatter
     (the codec on every hop) with the ZeRO-1 optimizer update of each
@@ -63,6 +65,31 @@ class TrainState(NamedTuple):
     codec_state: Optional[torch.Tensor] = None
 
 
+def _row_writer(replicas: torch.Tensor, meta: fused_update.FlatMeta,
+                write: Optional[Callable[[int, List[torch.Tensor]], None]]
+                ) -> Tuple[Optional[torch.Tensor],
+                           Callable[[int, List[torch.Tensor]], None]]:
+    """``(flat_g, write)``: the given ``write`` (flat_g None), or one that
+    copies rank i's gradient leaves into row i of a new ``[n, L_pad]``
+    f32 flat_g."""
+    if write is not None:
+        return None, write
+    flat_g = torch.empty((replicas.shape[0], meta.padded_len),
+                         dtype=torch.float32, device=replicas.device)
+
+    def into_row(i: int, gs: List[torch.Tensor]) -> None:
+        fused_update.flatten_leaves(gs, meta, out=flat_g[i])
+    return flat_g, into_row
+
+
+def _rank_leaves(replicas: torch.Tensor, meta: fused_update.FlatMeta,
+                 i: int) -> List[torch.Tensor]:
+    """Rank i's leaves, cast to their dtypes (views where the replica is
+    in them already), detached and requiring grad."""
+    return [t.detach().requires_grad_() for t in fused_update.tree_leaves(
+        fused_update.unflatten_tree(replicas[i], meta))]
+
+
 def per_rank_grads(loss_fn: Callable, replicas: torch.Tensor,
                    meta: fused_update.FlatMeta, batch,
                    write: Optional[Callable[[int, List[torch.Tensor]],
@@ -75,19 +102,10 @@ def per_rank_grads(loss_fn: Callable, replicas: torch.Tensor,
     slot of the flat row as soon as it exists.  ``write(i, leaves)``
     places rank i's gradient leaves elsewhere instead (flat_g is then
     None)."""
-    n = replicas.shape[0]
-    flat_g = None
-    if write is None:
-        flat_g = torch.empty((n, meta.padded_len), dtype=torch.float32,
-                             device=replicas.device)
-
-        def write(i: int, gs: List[torch.Tensor]) -> None:
-            fused_update.flatten_leaves(gs, meta, out=flat_g[i])
+    flat_g, write = _row_writer(replicas, meta, write)
     losses: List[torch.Tensor] = []
-    for i in range(n):
-        leaves = [t.detach().requires_grad_() for t in
-                  fused_update.tree_leaves(
-                      fused_update.unflatten_tree(replicas[i], meta))]
+    for i in range(replicas.shape[0]):
+        leaves = _rank_leaves(replicas, meta, i)
         params_i = fused_update.tree_from_leaves(meta.keys, leaves)
         loss = loss_fn(params_i, tuple(b[i] for b in batch))
         gs = torch.autograd.grad(loss, leaves)
@@ -98,11 +116,52 @@ def per_rank_grads(loss_fn: Callable, replicas: torch.Tensor,
     return flat_g, torch.stack(losses).mean()
 
 
+def joint_grads(loss_fn: Callable, replicas: torch.Tensor,
+                meta: fused_update.FlatMeta, batch,
+                write: Optional[Callable[[int, List[torch.Tensor]],
+                                         None]] = None
+                ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """As ``per_rank_grads`` for a loss over all n ranks at once
+    (``loss_fn.joint_ranks``, e.g. sync-BN's ``models.resnet.dp_loss_fn``):
+    ``loss_fn(params_per_rank, batch) -> [n]`` losses in one graph, rank
+    i's rows through leaves made from its own replica; one backward of
+    their sum gives rank j d(sum_i loss_i)/d(theta_j), the gradient JAX
+    gives rank j when the params are cast dp-varying before ``jax.grad``
+    (``parallel/train.py`` there).  Every rank's activations are alive at
+    once."""
+    flat_g, write = _row_writer(replicas, meta, write)
+    n = replicas.shape[0]
+    leaves = [_rank_leaves(replicas, meta, i) for i in range(n)]
+    losses = loss_fn([fused_update.tree_from_leaves(meta.keys, ls)
+                      for ls in leaves], batch)
+    gs = list(torch.autograd.grad(losses.sum(),
+                                  [t for ls in leaves for t in ls]))
+    del leaves
+    k = len(meta.keys)
+    for i in range(n):
+        write(i, gs[i * k:(i + 1) * k])
+        gs[i * k:(i + 1) * k] = [None] * k
+    return flat_g, losses.detach().mean()
+
+
+def rank_grads(loss_fn: Callable, replicas: torch.Tensor,
+               meta: fused_update.FlatMeta, batch,
+               write: Optional[Callable[[int, List[torch.Tensor]],
+                                        None]] = None
+               ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The trainers' backward: ``joint_grads`` for a loss marked
+    ``joint_ranks``, ``per_rank_grads`` for any other."""
+    fn = (joint_grads if getattr(loss_fn, "joint_ranks", False)
+          else per_rank_grads)
+    return fn(loss_fn, replicas, meta, batch, write)
+
+
 class DPTrainer:
     """Per-rank gradients + fused collective over n virtual ranks.
 
-    ``loss_fn(params, batch) -> scalar``; a batch is a tuple of tensors
-    with a leading global-batch axis, split over the ranks by
+    ``loss_fn(params, batch) -> scalar``, or a loss marked ``joint_ranks``
+    over all ranks at once (``joint_grads``); a batch is a tuple of
+    tensors with a leading global-batch axis, split over the ranks by
     ``shard_batch``."""
 
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
@@ -171,11 +230,11 @@ class DPTrainer:
 
     def grads(self, state: TrainState, batch
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Per-rank backward: ``(flat_g [n, L_pad], mean loss)``."""
+        """The ranks' backward (``rank_grads``): ``(flat_g [n, L_pad],
+        mean loss)``."""
         if self._meta is None:
             raise RuntimeError("call init_state first")
-        return per_rank_grads(self.loss_fn, state.replicas, self._meta,
-                              batch)
+        return rank_grads(self.loss_fn, state.replicas, self._meta, batch)
 
     def error_feedback(self, state: TrainState, flat_g: torch.Tensor
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

@@ -63,9 +63,10 @@ def test_static_tables_equal_jax():
 
 
 # the arms that raised until their ROADMAP item was ported keep their
-# cases: ("bert", "dp") (A.6, the BERT model) and ("mlp", "ddp") (A.4's
-# bucketed DDP trainer) now train; resnet and mlp_fsdp still raise
-PORTED_ARMS = {("bert", "dp"), ("mlp", "ddp")}
+# cases: ("bert", "dp") and ("resnet", "dp") (A.6, the BERT and ResNet
+# models) and ("mlp", "ddp") (A.4's bucketed DDP trainer) now train;
+# mlp_fsdp still raises
+PORTED_ARMS = {("bert", "dp"), ("resnet", "dp"), ("mlp", "ddp")}
 
 
 @pytest.mark.parametrize("model,trainer,roadmap", [

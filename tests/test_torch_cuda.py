@@ -751,3 +751,66 @@ def test_flash_tensor_cores_bias_free_bits_unchanged(cuda_device):
                                                           si)
         assert digest == BIAS_FREE_DIGESTS[name], (
             f"{name}: bits differ (CUDA {torch.version.cuda})")
+
+
+@pytest.mark.cuda
+def test_resnet_dp_step_on_card_matches_cpu(cuda_device):
+    """The tiny f32 ResNet with sync-BN over 4 virtual ranks and the
+    slice's collective (fused BFP ring kernels, fused momentum SGD, weight
+    decay 1e-4), three steps on the card against the same steps on the
+    CPU (the kernels' plain versions), cuDNN's TF32 off: one
+    ring_rs_update and one ring_ag launch a step; losses within rtol 1e-4
+    (f32 convolutions summed in other orders); masters within 1e-6 plus
+    what BFP flips may carry (a value on a rounding boundary lands one
+    grid step, 2^-6 of its block's max, away on any of the n hops; the
+    momentum keeps 0.9 of each step's error); replicas bit-identical."""
+    from fpga_ai_nic_tpu_torch.models import resnet
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (CollectiveConfig,
+                                                    MeshConfig, TrainConfig)
+    n, lr, mom = 4, 0.1, 0.9
+    mcfg = resnet.ResNetConfig.tiny()
+    cfg = TrainConfig(
+        global_batch=16, mesh=MeshConfig(dp=n),
+        collective=CollectiveConfig(
+            impl="ring", compression=BFPConfig(codec="pallas"),
+            fused_kernel=True, fused_optimizer=True),
+        optimizer=OptimizerConfig(kind="momentum", learning_rate=lr,
+                                  momentum=mom, weight_decay=1e-4))
+    params = resnet.init(torch.Generator().manual_seed(0), mcfg, "cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((16, 16, 16, 3)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 16).astype(np.int32))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tr = DPTrainer(resnet.dp_loss_fn(mcfg),
+                           VirtualRanks(n, torch.device(dev)), cfg)
+            st = tr.init_state(params)
+            b = tr.shard_batch((x, y))
+            before = _launches()
+            losses, gmax = [], []
+            for _ in range(3):
+                g, loss = tr.grads(st, b)
+                gmax.append(float(g.abs().max()))
+                st = tr.apply_grads(st, g)
+                losses.append(float(loss))
+                assert bool((st.replicas == st.replicas[0]).all())
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert _launches() == [before[0] + 3, before[1] + 3]
+            runs[dev] = (losses, st.w_own.cpu(), gmax)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    m_err = w_err = 0.0
+    for gm in runs["cpu"][2]:
+        # n hops, each at most 2^-6 of a block max <= n max|g|, over n
+        m_err = mom * m_err + n * 2.0 ** -6 * gm
+        w_err += lr * m_err
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    err = float((runs["cuda"][1] - runs["cpu"][1]).abs().max())
+    assert err <= 1e-6 + w_err, (err, w_err)
