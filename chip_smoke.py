@@ -104,6 +104,32 @@ Phases, each printing JSON lines:
      shifted-mask control), then one step whose launches are counted
      (the second family only), and the step's gradients against the
      torch route's on the same weights;
+ 12b. ``flash_offset_checks``: the flash kernels' q/k offsets (the sp
+     ring's past hop and diagonal, the gathered shape, a shift of 100 that
+     cuts through the tiles, a chunk wholly in the future) against the
+     plain versions: the tensor-core forward, dq and dk/dv at a ring hop's
+     width (B=1, H=32, Hkv=8, 2048 rows, hd=128, bf16) and the second
+     family in f32 (H=8, Hkv=2, hd=64, 512 rows), after the zero-offset
+     launches' output digests against the pinned ones; within the limits, a
+     second launch bit-equal, zeros where nothing is seen, the lse + 0.05
+     and the offsets-dropped controls above the limit; the offset
+     instantiations' SASS; the tensor-core kernels timed by device time at
+     the past hop and the diagonal beside the bound, the plain version and
+     the library's attention;
+ 12c. ``llama_sp_train_path``: ``ShardedTrainer`` at Llama-3-8B width, 4
+     layers, sequence 8192, global batch 2 over dp=2 x sp=4 virtual ranks
+     (ring attention over the sp shards of each dp rank), the BFP ring
+     kernels, SGD — 1 warm-up and 3 timed steps on one batch, launches
+     counted (32 a step of the flash kernels without offsets and 48 of
+     their offset instantiations, one ring_rs_update and one ring_ag, no
+     second-family launch), replicas bit-equal, the loss falling; then a
+     profile of two steps (flash, ring, the K/V rotations, GEMMs, the
+     rest);
+ 12d. ``llama_sp_parity``: at that width, sequence 8192 and 2 layers,
+     one row: the sp=4 kernel ring's loss and gradients against sp=1 (the
+     unsharded flash path) and against the sp=4 plain ring, within the
+     Llama parity limits, and the kernel ring with its hops merged
+     without their lse weights (the fault control) above them;
  13. ``bert_flash_checks``: the flash kernels' key-bias channel (BERT's
      padding mask, 0 / -1e30 a key) against the plain versions with the
      same bias: at BERT-base's attention shape (B=8, H=12, S=512, hd=64,
@@ -154,7 +180,8 @@ Phases, each printing JSON lines:
      ``loss_fn`` on the whole batch through one replica, in f32 within a
      limit that per-rank moments (the control) exceed; the floor (the
      batch permuted) and the bf16 model's numbers reported beside;
- 18. the ``kernels`` line, then the last line
+ 18. the ``kernels`` line (the offset instantiations' rows among them,
+     their launches from ``llama_sp_train_path``), then the last line
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so the f32 GEMMs run in full float32.
@@ -1492,13 +1519,14 @@ def sass_stats(source: str, kernels, ops=("HGMMA",), lib=None) -> dict:
     return stats
 
 
-def flash_sass(bias: bool, hd: int = 128) -> dict:
+def flash_sass(bias: bool, hd: int = 128, offsets: bool = False) -> dict:
     """SASS stats of the tensor-core flash kernels' instantiation with
     (``ILb1``) or without (``ILb0``) the key-bias channel at head dim
-    ``hd``, each by its head-dim argument (``ELi128E``, ``ELi64E``)."""
+    ``hd``, each by its head-dim argument (``ELi128E``, ``ELi64E``), and
+    with (``ELb1E``) or without (``ELb0E``) the q/k offsets."""
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     flag = "ILb1" if bias else "ILb0"
-    dims = f"ELi{hd}E"
+    dims = f"ELi{hd}ELb{int(offsets)}E"
     return dict(sass_stats(fa.FLASH_FWD.source,
                            ("flash_fwd_kernel" + flag + dims,)),
                 **sass_stats(fa.FLASH_DQ.source,
@@ -2251,6 +2279,419 @@ def llama_train_parity(dev, run) -> None:
     torch.cuda.empty_cache()
     if not all(checks.values()):
         raise AssertionError(f"llama training parity failed: {checks}")
+
+
+# -- sequence parallelism: the flash offsets, the dp x sp Llama path ---------
+
+SP_HOP = (1, 32, 8, 2048)     # B, H, Hkv, S_local: one ring hop at Llama-3-8B
+#                               width, sequence 8192 over sp=4
+SP_OFFSET_CASES = (           # name, Sq, Sk, q_offset, k_offset at the hop
+    ("past hop", 2048, 2048, 2048, 0),
+    ("diagonal", 2048, 2048, 4096, 4096),
+    ("gathered", 2048, 8192, 4096, 0),       # k tiles past 6143: unseen
+    ("shift 100", 2048, 2048, 100, 0),       # cuts through the 64-row tiles
+    ("future chunk", 2048, 2048, 0, 2048),   # out 0, lse -1e30, no grads
+)
+GENERIC_OFFSET_SHAPE = (1, 8, 2, 64, 4)      # B, H, Hkv, hd, length divisor
+OFFSET_KERNELS = ("flash_fwd_offsets", "flash_dq_offsets",
+                  "flash_dkv_offsets")
+
+
+# sha256 of the zero-offset tensor-core kernels' out, lse, dq, dk and dv on
+# ``codec_probe.flash_case``'s numpy-seeded inputs at FLASH_SHAPES: the bits
+# the kernels computed before the offset channel and the key bias existed
+# (tests/test_torch_cuda.py pins the same values as BIAS_FREE_DIGESTS).
+ZERO_OFFSET_DIGESTS = {
+    "path GQA causal S4096":
+        "ef1beb15fd830d8bf2468895f5f7abbff24bae5cff32d65ddbbc7cb5a7b7e409",
+    "MHA non-causal S1024":
+        "53fbdbb78277b08fd41c63957b573717cf7d1f57f4efee4e6d64109545a0c7da",
+}
+
+
+def zero_offset_digests(dev) -> dict:
+    """The digests ``codec_probe.flash_case`` computes at each FLASH_SHAPES
+    entry with this script's kernels (offsets 0)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "codec_probe", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "codec_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    me = sys.modules[__name__]
+    return {name: digest for name, digest, *_ in (
+        probe.flash_case(me, dev, si) for si in range(len(FLASH_SHAPES)))}
+
+
+def _offset_ratio(got, want, family, term):
+    """The family's limit ratio for output ``term`` (``tol_ratio``; the
+    JAX tests' f32 limits, GENERIC_TOL, for the second family); 0 where
+    both are all zero."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    if not bool(want.any()) and not bool(got.any()):
+        return 0.0
+    if family == "tensor_cores":
+        return fa.tol_ratio(got, want)
+    atol, rtol = GENERIC_TOL[term]
+    return float(((got.double() - want.double()).abs()
+                  / (atol + rtol * want.double().abs())).max())
+
+
+def flash_offset_checks(dev) -> dict:
+    """The flash kernels' q/k offset channel against the plain versions on
+    the card: the tensor-core forward, dq and dk/dv at a ring hop's width
+    (B=1, H=32, Hkv=8, hd=128, bf16, causal) and the second family in f32
+    (H=8, Hkv=2, hd=64, a quarter of the lengths), at SP_OFFSET_CASES:
+    within the limits, lse within LSE_TOL, a second launch bit-equal,
+    zeros where nothing is seen; two controls that must exceed the limit
+    (the plain backward at lse + 0.05; the plain forward without the
+    offsets).  The tensor-core kernels timed by device time at the past
+    hop (their offset instantiations) and the diagonal beside the bound,
+    the plain version and the library's attention at the same shape.
+    Launches with zero offsets keep their bits (ZERO_OFFSET_DIGESTS).
+    Returns the rows of the offset instantiations."""
+    import torch
+    import torch.nn.functional as F
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    digests = zero_offset_digests(dev)
+    emit(phase="zero_offset_digests", digests=digests,
+         equal=digests == ZERO_OFFSET_DIGESTS)
+    if digests != ZERO_OFFSET_DIGESTS:
+        raise AssertionError(f"zero-offset flash kernels changed bits: "
+                             f"{digests} against {ZERO_OFFSET_DIGESTS}")
+    B, H, n_kv, Sl = SP_HOP
+    g = torch.Generator(device=dev).manual_seed(600)
+    sass = flash_sass(bias=False, offsets=True)
+    gB, gH, gkv, ghd, div = GENERIC_OFFSET_SHAPE
+    families = {
+        "tensor_cores": (torch.bfloat16, B, H, n_kv, 128, 1,
+                         (fa.flash_fwd_cuda, fa.flash_dq_cuda,
+                          fa.flash_dkv_cuda)),
+        "second_family": (torch.float32, gB, gH, gkv, ghd, div,
+                          (fa.flash_fwd_generic_cuda, fa.flash_dq_generic_cuda,
+                           fa.flash_dkv_generic_cuda))}
+    errs = {k: 0.0 for k in OFFSET_KERNELS}
+    worst = {}
+    for family, (dt, b, h, kv, hd, d, (fwd, dq, dkv)) in families.items():
+        for name, Sq, Sk, qo, ko in SP_OFFSET_CASES:
+            Sq, Sk, qo, ko = Sq // d, Sk // d, qo // d, ko // d
+
+            def rand(*shape):
+                return torch.randn(shape, generator=g, device=dev).to(dt)
+
+            q, k, v = rand(b, h, Sq, hd), rand(b, kv, Sk, hd), rand(
+                b, kv, Sk, hd)
+            do = rand(b, h, Sq, hd)
+            kw = dict(causal=True, sm_scale=hd ** -0.5, q_offset=qo,
+                      k_offset=ko)
+            out, lse = fwd(q, k, v, **kw)
+            delta = (do.float() * out.float()).sum(-1)
+            args = (q, k, v, do, lse, delta)
+            got = {"out": out, "dq": dq(*args, **kw)}
+            got["dk"], got["dv"] = dkv(*args, **kw)
+            again = dict(zip(("out", "lse"), fwd(q, k, v, **kw)))
+            again["dq"] = dq(*args, **kw)
+            again["dk"], again["dv"] = dkv(*args, **kw)
+            p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
+            want = {"out": p_out, "dq": fa.flash_dq_plain(*args, **kw)}
+            want["dk"], want["dv"] = fa.flash_dkv_plain(*args, **kw)
+            sync(dev)
+            ratio = {t: _offset_ratio(got[t], want[t], family, t)
+                     for t in got}
+            err = {t: max_err([(got[t], want[t])]) for t in got}
+            lse_err = max_err([(lse, p_lse)])
+            rows = qo + torch.arange(Sq, device=dev) < ko   # see no key
+            keys = ko + torch.arange(Sk, device=dev) > qo + Sq - 1
+            unseen = (bool((lse[..., rows] == -1e30).all())
+                      and not any(got[t][..., rows, :].any()
+                                  for t in ("out", "dq"))
+                      and not any(got[t][..., keys, :].any()
+                                  for t in ("dk", "dv")))
+            ctrl = {}
+            if qo != ko:      # the plain forward without the offsets
+                ctrl["out_offsets_dropped"] = _offset_ratio(
+                    out, fa.flash_fwd_plain(q, k, v, causal=True,
+                                            sm_scale=hd ** -0.5)[0], family,
+                    "out")
+            if bool(want["dq"].any()):
+                bad = (q, k, v, do, lse + FLASH_LSE_SHIFT, delta)
+                ctrl["dq_lse_offset"] = _offset_ratio(
+                    got["dq"], fa.flash_dq_plain(*bad, **kw), family, "dq")
+            checks = {
+                "finite": all(bool(t.float().isfinite().all())
+                              for t in got.values()),
+                "within_tol": max(ratio.values()) <= 1.0,
+                "lse_within_tol": lse_err <= fa.LSE_TOL,
+                "zeros_where_unseen": unseen,
+                "controls_above_tol": all(c > 1.0 for c in ctrl.values()),
+                "deterministic": all(torch.equal(dict(got, lse=lse)[t],
+                                                 again[t]) for t in again)}
+            if family == "tensor_cores":
+                checks.update(sass_checks(sass))
+                if qo != ko:
+                    for kern, terms in zip(OFFSET_KERNELS, (
+                            ("out",), ("dq",), ("dk", "dv"))):
+                        errs[kern] = max(errs[kern],
+                                         *(err[t] for t in terms))
+                worst[name] = max(ratio.values())
+            emit(phase="flash_offset_checks", family=family, case=name,
+                 dtype=str(dt).removeprefix("torch."), B=b, H=h, n_kv=kv,
+                 hd=hd, Sq=Sq, Sk=Sk, q_offset=qo, k_offset=ko,
+                 tol=("tol_ratio <= 1" if family == "tensor_cores" else
+                      f"|got - want| <= atol + rtol |want|, {GENERIC_TOL}"),
+                 tol_ratio=ratio, max_abs_err=err, lse_max_abs_err=lse_err,
+                 control_tol_ratio=ctrl, checks=checks)
+            if not all(checks.values()):
+                raise AssertionError(f"flash offsets ({family}, {name}) "
+                                     f"failed: {checks}")
+            del q, k, v, do, out, lse, delta, args, got, again, want
+    # times at the hop: the past hop (all keys seen, the OFF
+    # instantiations) and the diagonal (causal, the kernels without)
+    times = {}
+    for name, causal, qo in (("past hop", False, Sl), ("diagonal", True,
+                                                       0)):
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+
+        q, k, v = rand(B, H, Sl, 128), rand(B, n_kv, Sl, 128), rand(
+            B, n_kv, Sl, 128)
+        do = rand(B, H, Sl, 128)
+        kw = dict(causal=True, sm_scale=128 ** -0.5, q_offset=qo,
+                  k_offset=0)
+        out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta)
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qr, kr, vr,
+                                                 is_causal=causal,
+                                                 enable_gqa=True)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), do, retain_graph=True), 10)
+        calls = {
+            "flash_fwd": (lambda: fa.flash_fwd_cuda(q, k, v, **kw),
+                          lambda: fa.flash_fwd_plain(q, k, v, **kw),
+                          cuda_ms(lambda: F.scaled_dot_product_attention(
+                              q, k, v, is_causal=causal, enable_gqa=True),
+                              10)),
+            "flash_dq": (lambda: fa.flash_dq_cuda(*args, **kw),
+                         lambda: fa.flash_dq_plain(*args, **kw), lib_bwd),
+            "flash_dkv": (lambda: fa.flash_dkv_cuda(*args, **kw),
+                          lambda: fa.flash_dkv_plain(*args, **kw), lib_bwd)}
+        times[name] = {}
+        for kern, (call, plain, lib_ms) in calls.items():
+            times[name][kern] = {
+                "ms": device_ms(call, 20, (kern + "_kernel",)),
+                "call_ms": cuda_ms(call, 20, 3),
+                "plain_ms": cuda_ms(plain, 2), "library_ms": lib_ms,
+                "bound": flash_bound(kern, B, H, n_kv, Sl, causal),
+                "split_floor_ms": flash_bound(kern, B, H, n_kv, Sl, causal,
+                                              split=True)[0]}
+        del q, k, v, do, out, lse, delta, args, qr, kr, vr, lib_out
+    emit(phase="flash_offset_times", shape=(
+        f"B={B}, H={H}, Hkv={n_kv}, Sq=Sk={Sl}, hd=128, bf16"),
+         library=FLASH_LIBRARY + " (is_causal=False at the past hop)",
+         sass_offsets=sass,
+         times={c: {kk: dict(r, bound_ms=r["bound"][0],
+                             bound_by=r["bound"][1])
+                    for kk, r in t.items()} for c, t in times.items()},
+         worst_tol_ratio=worst)
+    torch.cuda.empty_cache()
+    rows = {}
+    for kern, off in zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                         OFFSET_KERNELS):
+        past, diag = times["past hop"][kern], times["diagonal"][kern]
+        rows[off] = {"max_abs_err": errs[off], "ms": past["ms"],
+                     "plain_ms": past["plain_ms"],
+                     "library_ms": past["library_ms"],
+                     "bound": past["bound"],
+                     "extra": {"call_ms": past["call_ms"],
+                               "split_floor_ms": past["split_floor_ms"],
+                               "diagonal_ms": diag["ms"],
+                               "diagonal_plain_ms": diag["plain_ms"],
+                               "diagonal_library_ms": diag["library_ms"],
+                               "diagonal_bound_ms": diag["bound"][0],
+                               "worst_tol_ratio": max(worst.values())}}
+    return rows
+
+
+TRAIN_SP_ARGV = ["--model=llama3_8b", "--model.n_layers=4",
+                 "--model.attn_block=512", "--model.attn_impl=auto",
+                 "--seq=8192", "--global_batch=2", "--mesh.dp=2",
+                 "--mesh.sp=4", "--iters=3", "--collective.impl=ring",
+                 "--collective.compression.codec=pallas",
+                 "--collective.fused_kernel=true",
+                 "--optimizer.kind=sgd", "--optimizer.learning_rate=0.1"]
+SP_GROUPS = {"flash": FLASH_KERNELS, "ring_bfp": RING_KERNELS,
+             "rotation": ("roll_cuda_kernel",)}
+
+
+def llama_sp_train_path(dev, kernels) -> dict:
+    """``ShardedTrainer`` at dp=2 x sp=4 as ``train_llama.build`` builds
+    it (Llama-3-8B width, 4 layers, sequence 8192, global batch
+    2): one warm-up and ``--iters`` timed steps on one batch, launch
+    counts zeroed just before the first step and read after the last
+    (a step: per dp rank and layer, sp diagonal hops on the flash kernels
+    without offsets and sp (sp - 1) / 2 past hops on their offset
+    instantiations; one ring_rs_update and one ring_ag), replicas
+    bit-equal, a finite loss that falls on the repeated batch; then two
+    more steps under the profiler."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.models import llama
+    mcfg, cfg, seq, device = train_llama.parse(TRAIN_SP_ARGV)
+    n, sp = cfg.mesh.dp, cfg.mesh.sp
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr, state = train_llama.build(mcfg, cfg, device)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    batch = tr.shard_batch(next(train_llama.batches(mcfg, cfg, seq, 1)))
+    for kern in kernels.values():
+        kern.launches = 0
+    state, loss = tr.step(state, batch)               # warm-up
+    losses = [float(loss)]
+    sync(dev)
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(cfg.iters + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for mark in marks[1:]:
+        state, loss = tr.step(state, batch)
+        losses.append(loss)
+        mark.record()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses = [float(v) for v in losses]
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    steps = cfg.iters + 1
+    diag, past = mcfg.n_layers * n * sp, mcfg.n_layers * n * sp * (sp - 1) // 2
+    per_step = {name: 0 for name in kernels}
+    per_step.update(flash_fwd=diag, flash_dq=diag, flash_dkv=diag,
+                    flash_fwd_offsets=past, flash_dq_offsets=past,
+                    flash_dkv_offsets=past, ring_rs_update=1, ring_ag=1)
+    for name, count in launches.items():
+        if count != steps * per_step[name]:
+            raise AssertionError(f"llama sp training: {name} launched "
+                                 f"{count} times, expected {steps} x "
+                                 f"{per_step[name]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"llama sp training: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"llama sp training: the loss on the repeated "
+                             f"batch did not fall {losses}")
+    if not bool((state.replicas == state.replicas[0]).all()):
+        raise AssertionError("llama sp training: replicas differ")
+    tokens = cfg.iters * cfg.global_batch * seq
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    emit(phase="llama_sp_train_path", model=(
+        f"Llama-3-8B width (dim {mcfg.dim}, {mcfg.n_heads}/{mcfg.n_kv_heads} "
+        f"heads, ffn {mcfg.ffn_dim}, vocab {mcfg.vocab}, {mcfg.dtype}), "
+        f"{mcfg.n_layers} layers, attn_impl {mcfg.attn_impl}, random "
+        "weights"), params=llama.num_params(mcfg), seq=seq,
+         global_batch=cfg.global_batch, dp=n, sp=sp, tokens_per_step=(
+             cfg.global_batch * seq), collective=str(cfg.collective),
+         optimizer=str(cfg.optimizer), weight_init_s=init_s,
+         steps=cfg.iters, wall_s=wall, ms_per_step=1e3 * wall / cfg.iters,
+         step_ms=step_ms, median_step_ms=sorted(step_ms)[cfg.iters // 2],
+         tokens_per_sec=tokens / wall, losses=losses,
+         peak_mem_gb=peak, launches=launches, launches_per_step=per_step,
+         replicas_equal=True)
+    held = [state]
+    del state
+
+    def train_step():
+        held[0], _ = tr.step(held[0], batch)
+
+    prof = profile_run("llama_sp_train_profile", train_step, 2,
+                       groups=SP_GROUPS)
+    del tr, held, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "mcfg": mcfg, "cfg": cfg, "seq": seq,
+            "steps": steps, "step_ms": step_ms, "peak_mem_gb": peak,
+            "profile": prof}
+
+
+SP_PARITY_LAYERS = 2
+
+
+def _unweighted_merge(out, lse, o_h, lse_h):
+    """The fault control: the hops' partial outputs summed without their
+    lse weights."""
+    import torch
+    return out + o_h.to(torch.float32), torch.logaddexp(lse, lse_h)
+
+
+def llama_sp_parity(dev, run) -> None:
+    """``loss_fn``'s gradients at Llama-3-8B width, sequence 8192,
+    ``SP_PARITY_LAYERS`` layers, one row: the sp=4 kernel ring against
+    sp=1 (the unsharded flash path, attn_block 512) and against the sp=4
+    plain ring route, within the Llama parity limits; the kernel ring
+    with its hops merged without the lse weights must exceed them."""
+    import dataclasses
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    cfg, seq = run["cfg"], run["seq"]
+    sp = cfg.mesh.sp
+    mcfg = dataclasses.replace(run["mcfg"], n_layers=SP_PARITY_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    params = llama.init(gen, mcfg, dev)
+    leaves = [t.requires_grad_() for t in fused_update.tree_leaves(params)]
+    toks, labels = next(train_llama.batches(mcfg, cfg, seq, 1))
+    whole = (toks[:1].to(dev), labels[:1].to(dev))
+    shards = tuple(VirtualRanks(1, dev, sp).shard(t)[0] for t in whole)
+
+    def grads(impl, sharded, merge=None):
+        c = dataclasses.replace(mcfg, attn_impl=impl)
+        orig = fa._lse_merge
+        if merge is not None:
+            fa._lse_merge = merge
+        try:
+            loss = llama.loss_fn(params, shards if sharded else whole, c,
+                                 sp_axis="sp" if sharded else None)
+            return float(loss.detach()), torch.autograd.grad(loss, leaves)
+        finally:
+            fa._lse_merge = orig
+
+    def dist(ga, gb):
+        return math.sqrt(sum(float((a.float() - b.float()).square().sum())
+                             for a, b in zip(ga, gb)))
+
+    l_k, g_k = grads("pallas", True)
+    norm = math.sqrt(sum(float(g.float().square().sum()) for g in g_k))
+    res = {}
+    for name, args in (("sp1_flash", ("pallas", False)),
+                       ("sp4_plain_ring", ("xla", True)),
+                       ("control_unweighted_merge",
+                        ("pallas", True, _unweighted_merge))):
+        l_o, g_o = grads(*args)
+        res[name] = {"loss": l_o, "loss_diff": abs(l_k - l_o),
+                     "grad_rel_err": dist(g_k, g_o) / norm}
+        del g_o
+        torch.cuda.empty_cache()
+    ctrl = res.pop("control_unweighted_merge")
+    checks = {"finite": all(math.isfinite(v) for v in (l_k, norm)),
+              **{f"{k}_grad_within_tol": r["grad_rel_err"]
+                 <= PARITY_GRAD_REL_TOL for k, r in res.items()},
+              **{f"{k}_loss_within_tol": r["loss_diff"] <= PARITY_LOSS_TOL
+                 for k, r in res.items()},
+              "control_above_tol": ctrl["grad_rel_err"] > PARITY_GRAD_REL_TOL}
+    emit(phase="llama_sp_parity", seq=seq, sp=sp, layers=mcfg.n_layers,
+         batch_rows=1, loss_kernel_ring=l_k, against=res, control=ctrl,
+         grad_tol=PARITY_GRAD_REL_TOL, loss_tol=PARITY_LOSS_TOL,
+         grad_norm=norm,
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         checks=checks)
+    del params, leaves, g_k
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"llama sp parity failed: {checks}")
 
 
 # -- BERT-base training: the key-bias channel, the bucketed DDP trainer --------
@@ -3168,6 +3609,18 @@ def main() -> int:
     llama_train_parity(dev, train)
     auto = auto_route(dev)
 
+    # -- 12b-12d. sequence parallelism: the offsets, the dp x sp Llama path -----
+    offsets = flash_offset_checks(dev)
+    sp_kernels = dict(
+        serve_kernels, flash_fwd_offsets=flash_attention.FLASH_FWD_OFFSETS,
+        flash_dq_offsets=flash_attention.FLASH_DQ_OFFSETS,
+        flash_dkv_offsets=flash_attention.FLASH_DKV_OFFSETS,
+        flash_fwd_generic=flash_attention.FLASH_FWD_GENERIC,
+        flash_dq_generic=flash_attention.FLASH_DQ_GENERIC,
+        flash_dkv_generic=flash_attention.FLASH_DKV_GENERIC)
+    sp_run = llama_sp_train_path(dev, sp_kernels)
+    llama_sp_parity(dev, sp_run)
+
     # -- 13-15. BERT-base: the key-bias channel, the DDP path, its parity ----------
     bert_flash = bert_flash_checks(dev)
     bert_kernels = dict(serve_kernels,        # the tensor-core flash kernels
@@ -3199,6 +3652,12 @@ def main() -> int:
                      REF + "/ops/flash_pallas.py:222"),
         "flash_dkv": (PORT + "/csrc/flash_bwd.cu",
                       REF + "/ops/flash_pallas.py:267"),
+        "flash_fwd_offsets": (PORT + "/csrc/flash_attn.cu",
+                              REF + "/ops/flash_pallas.py:93"),
+        "flash_dq_offsets": (PORT + "/csrc/flash_bwd.cu",
+                             REF + "/ops/flash_pallas.py:222"),
+        "flash_dkv_offsets": (PORT + "/csrc/flash_bwd.cu",
+                              REF + "/ops/flash_pallas.py:267"),
         "flash_fwd_generic": (PORT + "/csrc/flash_generic.cu",
                               REF + "/ops/flash_pallas.py:93"),
         "flash_dq_generic": (PORT + "/csrc/flash_generic.cu",
@@ -3228,6 +3687,9 @@ def main() -> int:
     for name in flash_kernels:
         launches[name] = train["launches"][name]
         results[name] = flash[name]
+    for name in OFFSET_KERNELS:
+        launches[name] = sp_run["launches"][name]
+        results[name] = offsets[name]
     for name in ("int8_encode", "int8_decode"):
         launches[name] = int8_launches[name]
     for name in ("bfp_encode", "bfp_decode"):
@@ -3304,7 +3766,23 @@ def main() -> int:
         if name in flash_kernels:
             row.update(shape=FLASH_SHAPES[0][0], library=FLASH_LIBRARY,
                        launches_from="llama_train_path",
-                       split_floor_ms=r["split_floor_ms"])
+                       split_floor_ms=r["split_floor_ms"],
+                       sp_path_launches=sp_run["launches"][name],
+                       sp_path_launches_from=(
+                           f"llama_sp_train_path ({sp_run['steps']} steps; "
+                           "the diagonal hops)"))
+        if name in OFFSET_KERNELS:
+            B_, H_, kv_, Sl_ = SP_HOP
+            row.update(shape=(f"past ring hop: B={B_}, H={H_}, Hkv={kv_}, "
+                              f"Sq=Sk={Sl_}, hd=128, bf16, q_offset "
+                              f"{Sl_}, k_offset 0 (every key seen)"),
+                       instantiation="the offset one (ELb1E)",
+                       library=FLASH_LIBRARY + " (is_causal=False)",
+                       launches_from=(f"llama_sp_train_path ("
+                                      f"{sp_run['steps']} steps; the past "
+                                      "hops)"),
+                       max_abs_err_over=[c[0] for c in SP_OFFSET_CASES
+                                         if c[3] != c[4]])
         if name in ("int8_encode", "int8_decode"):
             row.update(shape=f"{INT8_PATH_ELEMS} f32, block 16, stochastic",
                        launches_from="int8_train_path")

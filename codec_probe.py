@@ -258,18 +258,25 @@ def flash_sass(cs) -> dict:
     """SASS instructions, registers and local bytes of the head_dim-128
     tensor-core flash kernels, without (``ILb0``) and with (``ILb1``) the
     key bias, and of the paged prefill.  This tree names the
-    instantiations ``...ILb0ELi128E``; a tree from before a kernel's
-    head-dim parameter ``...ILb0EE`` (dk/dv gained it after the forward
-    and dq)."""
+    instantiations ``...ILb0ELi128ELb0E`` (the last flag: the q/k offsets;
+    their ``ELb1E`` instantiations are reported apart, as
+    ``..._offsets``); a tree from before the offsets ``...ILb0ELi128E``,
+    and one from before a kernel's head-dim parameter ``...ILb0EE``
+    (dk/dv gained it after the forward and dq).  A function takes the
+    first pattern its name holds."""
     out = {}
     for src, name in FLASH_SASS:
         for flag in ("ILb0", "ILb1"):
-            pats = (name + flag + "ELi128E", name + flag + "EE")
+            offs = name + flag + "ELi128ELb1E"
+            pats = (name + flag + "ELi128ELb0E", offs,
+                    name + flag + "ELi128E", name + flag + "EE")
             st = cs.sass_stats(src, pats)
-            hit = [p for p in pats if st[p]["instructions"]]
+            hit = [p for p in pats if p != offs and st[p]["instructions"]]
             if len(hit) != 1:
                 raise RuntimeError(f"{src}: {len(hit)} kernels match {pats}")
             out[name + flag] = dict(st[hit[0]], matched=hit[0])
+            if st[offs]["instructions"]:
+                out[name + flag + "_offsets"] = dict(st[offs], matched=offs)
     out.update(cs.sass_stats("paged_attend.cu", ("paged_prefill_kernel",)))
     return out
 
@@ -308,7 +315,7 @@ def flash64_blocks(cs, dev) -> dict:
     lse2 = torch.empty_like(lse)
     dq = torch.empty_like(q)
     dkv = torch.empty_like(ref_dkv)   # dk, then dv
-    head = (B * H, 1, H, S, S, 0, hd ** -0.5, hd)
+    head = (B * H, 1, H, S, S, 0, hd ** -0.5, hd, 0, 0)   # ..., offsets
     launch_args = {
         "flash_fwd": ((ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out),
                        ptr(lse2)) + head, (out, ref_out)),
@@ -344,7 +351,7 @@ def flash64_blocks(cs, dev) -> dict:
 
             call()
             torch.cuda.synchronize()
-            kern = name + "_kernelILb1ELi64E"
+            kern = name + "_kernelILb1ELi64ELb0E"
             rows[f"{name} {n} blocks"] = dict(
                 cs.sass_stats(src, (kern,), lib=lib)[kern],
                 device_ms=cs.device_ms(call, 10, (name + "_kernel",)),

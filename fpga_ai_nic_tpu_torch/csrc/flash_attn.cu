@@ -12,7 +12,14 @@
 // kernel's has_bias, BERT's padding mask) is an f32 [B, Sk] row added to
 // every score of the batch's heads before the softmax; it is a template
 // flag (BIAS), so the launch without it is the kernel it was before the
-// channel existed.
+// channel existed.  The q/k offsets (the Pallas kernel's off_ref pair, the
+// global positions of q's and k's first rows) enter only as their
+// difference, shift = q_offset - k_offset under causal: key j is seen by
+// query row i iff j <= i + shift.  A non-zero shift takes the OFF
+// instantiation (a template flag, last), so a launch with zero offsets is
+// the kernel it was before the channel existed.  With OFF, a row that sees
+// no key writes out 0 and lse -1e30 (the Pallas kernel's skipped-block
+// result), and a block none of whose rows sees a key writes just that.
 //
 // What computes: the Pallas kernel's arithmetic.  s = q . k^T is a bf16
 // product summed in f32 (exact operands); the online softmax runs in f32;
@@ -54,13 +61,20 @@ namespace {
 template <int D>
 constexpr int FWD_BLOCKS = D == 128 ? 1 : 2;
 
-template <bool BIAS, int D = HD>
+// the causal k tiles a q tile (rows qt T .. qt T + 63) computes: the
+// tiles up to the one holding its last row's last visible key
+__device__ __forceinline__ int visible_tiles(int qt, int shift, int nkt) {
+  const int last = qt * T + T - 1 + shift;
+  return last < 0 ? 0 : min(nkt, last / T + 1);
+}
+
+template <bool BIAS, int D = HD, bool OFF = false>
 __global__ void __launch_bounds__(FWD_THREADS, FWD_BLOCKS<D>)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  float* __restrict__ lse, int G, int Sq, int Sk,
                  int causal, float sm_scale,
-                 const float* __restrict__ bias, int H) {
+                 const float* __restrict__ bias, int H, int qk_shift) {
   using FlashSmem = FwdSmem<1, D>;
   extern __shared__ uint8_t smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
@@ -71,13 +85,28 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int BH = gridDim.y, id = blockIdx.x + gridDim.x * blockIdx.y;
   const int qp = gridDim.x - 1 - id / BH, bh = id % BH, kvh = bh / G;
   const int nqt = Sq / T, nkt = Sk / T;
+  const int shift = OFF ? qk_shift : 0;
   int nkw[2];
 #pragma unroll
   for (int w = 0; w < 2; ++w) {
     const int qt = 2 * qp + w;
-    nkw[w] = qt >= nqt ? 0 : causal ? min(nkt, qt + 1) : nkt;
+    if constexpr (OFF)
+      nkw[w] = qt >= nqt ? 0 : causal ? visible_tiles(qt, shift, nkt) : nkt;
+    else
+      nkw[w] = qt >= nqt ? 0 : causal ? min(nkt, qt + 1) : nkt;
   }
   const int nk = max(nkw[0], nkw[1]);
+  if constexpr (OFF) {
+    if (nk == 0) {  // no row of the block sees a key
+      const int q0 = 2 * qp * T, rows = min(2 * T, Sq - q0);
+      bf16* o = out + ((size_t)bh * Sq + q0) * D;
+      for (int i = tid; i < rows * D; i += FWD_THREADS)
+        o[i] = __float2bfloat16_rn(0.f);
+      for (int i = tid; i < rows; i += FWD_THREADS)
+        lse[(size_t)bh * Sq + q0 + i] = M_INIT;
+      return;
+    }
+  }
   if (tid == 0) fwd_init_barriers(bars);
   __syncthreads();
 
@@ -108,13 +137,18 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int lim[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
-    lim[h] = causal ? qt * T + r0 + 8 * h : Sk - 1;
+    lim[h] = causal ? qt * T + r0 + 8 * h + shift : Sk - 1;
   float o[D / 2], m[2], l[2], ls[2];
   fwd_consumer<BIAS, D>(ring, bars, sQ, 1, w, nk, w ? nkw[1] : nkw[0], lim,
                         sm_scale * LOG2E, o, m, l,
                         BIAS ? bias + (size_t)(bh / H) * Sk : nullptr);
   if (!valid) return;
   fwd_finish<D>(o, m, l, ls);
+  if constexpr (OFF) {  // a row that saw no key: lse -1e30, as JAX's
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (l[h] == 0.f) ls[h] = M_INIT;
+  }
   store_tile<D>(out + row0 * D, o, r0, c0);
   if ((t & 3) == 0) {
 #pragma unroll
@@ -122,18 +156,35 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <bool BIAS, int D>
+template <bool BIAS, int D, bool OFF>
 int fwd(const void* q, const void* k, const void* v, const void* bias,
         void* out, void* lse, int BH, int G, int H, int Sq, int Sk,
-        int causal, float sm_scale, cudaStream_t stream) {
+        int causal, float sm_scale, int shift, cudaStream_t stream) {
   constexpr size_t smem = FwdSmem<1, D>::BYTES;
-  int err = launch_prep(flash_fwd_kernel<BIAS, D>, smem);
+  int err = launch_prep(flash_fwd_kernel<BIAS, D, OFF>, smem);
   if (err) return err;
   const int pairs = (Sq / T + 1) / 2;
-  flash_fwd_kernel<BIAS, D><<<dim3(pairs, BH), FWD_THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-      (float*)lse, G, Sq, Sk, causal, sm_scale, (const float*)bias, H);
+  flash_fwd_kernel<BIAS, D, OFF>
+      <<<dim3(pairs, BH), FWD_THREADS, smem, stream>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
+          (float*)lse, G, Sq, Sk, causal, sm_scale, (const float*)bias, H,
+          shift);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int fwd_at(const void* q, const void* k, const void* v, const void* bias,
+           void* out, void* lse, int BH, int G, int H, int Sq, int Sk,
+           int causal, float sm_scale, int shift, cudaStream_t stream) {
+  if (shift)
+    return bias ? fwd<true, D, true>(q, k, v, bias, out, lse, BH, G, H, Sq,
+                                     Sk, causal, sm_scale, shift, stream)
+                : fwd<false, D, true>(q, k, v, bias, out, lse, BH, G, H, Sq,
+                                      Sk, causal, sm_scale, shift, stream);
+  return bias ? fwd<true, D, false>(q, k, v, bias, out, lse, BH, G, H, Sq,
+                                    Sk, causal, sm_scale, 0, stream)
+              : fwd<false, D, false>(q, k, v, bias, out, lse, BH, G, H, Sq,
+                                     Sk, causal, sm_scale, 0, stream);
 }
 
 }  // namespace
@@ -143,23 +194,23 @@ int fwd(const void* q, const void* k, const void* v, const void* bias,
 // bias is f32 [B, Sk] or null (the kernel without the channel); hd, the
 // head dim, picks the instantiation (128 or 64; any other is refused with
 // cudaErrorInvalidValue, nothing launched).  Returns the launch's
-// cudaError_t.
+// cudaError_t.  q_offset / k_offset: the global positions of q's and k's
+// first rows; under causal their difference picks the instantiation (0:
+// the one without offsets); without causal they change nothing.
 extern "C" {
 
 int flash_fwd_launch(const void* q, const void* k, const void* v,
                      const void* bias, void* out, void* lse, int BH, int G,
                      int H, int Sq, int Sk, int causal, float sm_scale,
-                     int hd, cudaStream_t stream) {
+                     int hd, int q_offset, int k_offset,
+                     cudaStream_t stream) {
+  const int shift = causal ? q_offset - k_offset : 0;
   if (hd == 128)
-    return bias ? fwd<true, 128>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk,
-                                 causal, sm_scale, stream)
-                : fwd<false, 128>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk,
-                                  causal, sm_scale, stream);
+    return fwd_at<128>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk, causal,
+                       sm_scale, shift, stream);
   if (hd == 64)
-    return bias ? fwd<true, 64>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk,
-                                causal, sm_scale, stream)
-                : fwd<false, 64>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk,
-                                 causal, sm_scale, stream);
+    return fwd_at<64>(q, k, v, bias, out, lse, BH, G, H, Sq, Sk, causal,
+                      sm_scale, shift, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -22,6 +22,16 @@
 // recomputed as exp(s * sm_scale + bias - lse) on every tile, so a masked
 // key's p is 0 wherever it lies, not only where the causal index test of
 // the diagonal tile reaches; without it the kernels are unchanged.
+// The q/k offsets (the Pallas kernels' off_ref pair) enter only as their
+// difference, shift = q_offset - k_offset under causal: key j is seen by
+// query row i iff j <= i + shift.  A non-zero shift takes the OFF
+// instantiation of each kernel (a template flag, last), so a launch with
+// zero offsets is the kernel it was before the channel existed: dq walks
+// the k tiles up to its last row's last visible key, dk/dv starts at the
+// first q tile whose last row sees its first key, and the mask is applied
+// on the tiles that straddle the boundary.  A tile with nothing to
+// compute stores zeros (dq of rows that see no key, dk/dv of keys no row
+// sees).
 //
 // What computes: the Pallas kernels' recompute.  s = q . k^T and
 // dp = dO . v^T are bf16 products summed in f32 (exact operands);
@@ -67,14 +77,14 @@ namespace {
 template <int D>
 constexpr int DQ_BLOCKS = D == 128 ? 2 : 3;
 
-template <bool BIAS, int D = HD>
+template <bool BIAS, int D = HD, bool OFF = false>
 __global__ void __launch_bounds__(NT, DQ_BLOCKS<D>)
 flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ dq,
                 int G, int Sq, int Sk, int causal, float sm_scale,
-                const float* __restrict__ bias, int H) {
+                const float* __restrict__ bias, int H, int qk_shift) {
   extern __shared__ uint8_t smem[];
   constexpr int TL = TILE_OF<D>;
   const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
@@ -89,8 +99,14 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t row0 = (size_t)bh * Sq + q0;
   const bf16* kb = k + (size_t)kvh * Sk * D;
   const bf16* vb = v + (size_t)kvh * Sk * D;
+  const int shift = OFF ? qk_shift : 0;
   int nk = Sk / T;
-  if (causal) nk = min(nk, qt + 1);  // tiles past the diagonal see nothing
+  if constexpr (OFF) {  // tiles past the last row's last key see nothing
+    const int last = q0 + T - 1 + shift;
+    if (causal) nk = last < 0 ? 0 : min(nk, last / T + 1);
+  } else if (causal) {
+    nk = min(nk, qt + 1);  // tiles past the diagonal see nothing
+  }
 
   load_tile<D>(sQ, q + row0 * D, tid);
   load_tile<D>(sDO, dout + row0 * D, tid);
@@ -138,7 +154,9 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pin(s);
     pin(dp);
 
-    const bool diag = causal && kt == qt;  // key k0 + c vs query q0 + r
+    // key kt T + c is seen by query q0 + r iff c <= r + e
+    const int e = OFF ? q0 + shift - kt * T : 0;
+    const bool diag = causal && (OFF ? e < T - 1 : kt == qt);
     if constexpr (BIAS) {  // s * scale2 + bias * log2(e), every tile
       const float* brow = bias + (size_t)(bh / H) * Sk + kt * T;
 #pragma unroll
@@ -156,7 +174,7 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 32; ++i) {
       const int h = (i >> 1) & 1;
       float p = ex2((BIAS ? s[i] : s[i] * scale2) - lr[h]);
-      if (diag && 8 * (i >> 2) + c0 + (i & 1) > r0 + 8 * h) p = 0.f;
+      if (diag && 8 * (i >> 2) + c0 + (i & 1) > r0 + 8 * h + e) p = 0.f;
       dp[i] = p * (dp[i] - dr[h]) * sm_scale;  // ds
     }
     uint32_t hi[4][4], lo[4][4];
@@ -179,18 +197,25 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // -- dk/dv: one block per (KV head, k tile); loop over (query head of the
 // group, q tile), summing the group inside the block ---------------------------
 
+// the first q tile whose last row (shifted) sees key k0
+__device__ __forceinline__ int first_q_tile(int k0, int shift) {
+  const int x = k0 - shift - (T - 1);
+  return x <= 0 ? 0 : (x + T - 1) / T;
+}
+
 // blocks an SM each head dim's dk/dv instantiation is built for
 template <int D>
 constexpr int DKV_BLOCKS = D == 128 ? 2 : 3;
 
-template <bool BIAS, int D = HD>
+template <bool BIAS, int D = HD, bool OFF = false>
 __global__ void __launch_bounds__(NT, DKV_BLOCKS<D>)
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dk,
                  bf16* __restrict__ dv, int G, int Sq, int Sk, int causal,
-                 float sm_scale, const float* __restrict__ bias, int Hkv) {
+                 float sm_scale, const float* __restrict__ bias, int Hkv,
+                 int qk_shift) {
   extern __shared__ uint8_t smem[];
   constexpr int TL = TILE_OF<D>;
   const uint32_t raw = smem_u32(smem);
@@ -204,7 +229,10 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // low k tiles (the most rows under the causal mask) first, all heads
   const int BHkv = gridDim.y, id = blockIdx.x + gridDim.x * blockIdx.y;
   const int kt = id / BHkv, kvh = id % BHkv, k0 = kt * T;
-  const int qt_first = causal ? kt : 0;  // q tiles wholly before: no key seen
+  const int shift = OFF ? qk_shift : 0;
+  // q tiles wholly before: no key seen (with OFF: before the first q tile
+  // whose last row sees key k0)
+  const int qt_first = causal ? (OFF ? first_q_tile(k0, shift) : kt) : 0;
   const int nqs = max(Sq / T - qt_first, 0), steps = G * nqs;
   const size_t krow0 = (size_t)kvh * Sk + k0;
 
@@ -269,7 +297,11 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pin(s);
     pin(dp);
 
-    const bool diag = causal && qt_first + it % nqs == kt;
+    // key k0 + r is seen by query (qt_first + it % nqs) T + c iff
+    // r <= c + e
+    const int e = OFF ? (qt_first + it % nqs) * T + shift - k0 : 0;
+    const bool diag =
+        causal && (OFF ? e < T - 1 : qt_first + it % nqs == kt);
     if constexpr (BIAS) {  // s * scale2 + bias * log2(e), every step
       float b0 = hb0, b1 = hb1;
       if constexpr (!BIAS_ONCE) {
@@ -285,7 +317,7 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 32; ++i) {
       const int c = 8 * (i >> 2) + c0 + (i & 1);
       float p = ex2((BIAS ? s[i] : s[i] * scale2) - sL[c] * LOG2E);
-      if (diag && r0 + 8 * ((i >> 1) & 1) > c) p = 0.f;
+      if (diag && r0 + 8 * ((i >> 1) & 1) > c + e) p = 0.f;
       s[i] = p;
       dp[i] = p * (dp[i] - sD[c]) * sm_scale;  // ds^T
     }
@@ -322,32 +354,74 @@ constexpr size_t DQ_SMEM = 6 * TILE_OF<D> + 1024;
 template <int D>
 constexpr size_t DKV_SMEM = 6 * TILE_OF<D> + 1024 + 1024;
 
-template <bool BIAS, int D>
+template <bool BIAS, int D, bool OFF>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, const void* bias, void* dq_,
        int BH, int G, int H, int Sq, int Sk, int causal, float sm_scale,
-       cudaStream_t stream) {
-  int err = launch_prep(flash_dq_kernel<BIAS, D>, DQ_SMEM<D>);
+       int shift, cudaStream_t stream) {
+  int err = launch_prep(flash_dq_kernel<BIAS, D, OFF>, DQ_SMEM<D>);
   if (err) return err;
-  flash_dq_kernel<BIAS, D><<<dim3(Sq / T, BH), NT, DQ_SMEM<D>, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq_, G, Sq, Sk, causal,
-      sm_scale, (const float*)bias, H);
+  flash_dq_kernel<BIAS, D, OFF>
+      <<<dim3(Sq / T, BH), NT, DQ_SMEM<D>, stream>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+          (const float*)lse, (const float*)delta, (bf16*)dq_, G, Sq, Sk,
+          causal, sm_scale, (const float*)bias, H, shift);
   return (int)cudaGetLastError();
 }
 
-template <bool BIAS, int D>
+template <bool BIAS, int D, bool OFF>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, const void* bias, void* dk,
         void* dv, int BHkv, int G, int Hkv, int Sq, int Sk, int causal,
-        float sm_scale, cudaStream_t stream) {
-  int err = launch_prep(flash_dkv_kernel<BIAS, D>, DKV_SMEM<D>);
+        float sm_scale, int shift, cudaStream_t stream) {
+  int err = launch_prep(flash_dkv_kernel<BIAS, D, OFF>, DKV_SMEM<D>);
   if (err) return err;
-  flash_dkv_kernel<BIAS, D><<<dim3(Sk / T, BHkv), NT, DKV_SMEM<D>, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, G, Sq,
-      Sk, causal, sm_scale, (const float*)bias, Hkv);
+  flash_dkv_kernel<BIAS, D, OFF>
+      <<<dim3(Sk / T, BHkv), NT, DKV_SMEM<D>, stream>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+          (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, G,
+          Sq, Sk, causal, sm_scale, (const float*)bias, Hkv, shift);
   return (int)cudaGetLastError();
+}
+
+// the instantiation for a bias pointer (null or not) and a shift (zero or
+// not) at head dim D
+template <int D>
+int dq_at(const void* q, const void* k, const void* v, const void* dout,
+          const void* lse, const void* delta, const void* bias, void* dq_,
+          int BH, int G, int H, int Sq, int Sk, int causal, float sm_scale,
+          int shift, cudaStream_t stream) {
+  if (shift)
+    return bias ? dq<true, D, true>(q, k, v, dout, lse, delta, bias, dq_, BH,
+                                    G, H, Sq, Sk, causal, sm_scale, shift,
+                                    stream)
+                : dq<false, D, true>(q, k, v, dout, lse, delta, bias, dq_, BH,
+                                     G, H, Sq, Sk, causal, sm_scale, shift,
+                                     stream);
+  return bias ? dq<true, D, false>(q, k, v, dout, lse, delta, bias, dq_, BH,
+                                   G, H, Sq, Sk, causal, sm_scale, 0, stream)
+              : dq<false, D, false>(q, k, v, dout, lse, delta, bias, dq_, BH,
+                                    G, H, Sq, Sk, causal, sm_scale, 0, stream);
+}
+
+template <int D>
+int dkv_at(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, const void* bias, void* dk,
+           void* dv, int BHkv, int G, int Hkv, int Sq, int Sk, int causal,
+           float sm_scale, int shift, cudaStream_t stream) {
+  if (shift)
+    return bias ? dkv<true, D, true>(q, k, v, dout, lse, delta, bias, dk, dv,
+                                     BHkv, G, Hkv, Sq, Sk, causal, sm_scale,
+                                     shift, stream)
+                : dkv<false, D, true>(q, k, v, dout, lse, delta, bias, dk, dv,
+                                      BHkv, G, Hkv, Sq, Sk, causal, sm_scale,
+                                      shift, stream);
+  return bias ? dkv<true, D, false>(q, k, v, dout, lse, delta, bias, dk, dv,
+                                    BHkv, G, Hkv, Sq, Sk, causal, sm_scale, 0,
+                                    stream)
+              : dkv<false, D, false>(q, k, v, dout, lse, delta, bias, dk, dv,
+                                     BHkv, G, Hkv, Sq, Sk, causal, sm_scale,
+                                     0, stream);
 }
 
 }  // namespace
@@ -357,25 +431,24 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 // bias is f32 [B, Sk] or null (the kernels without the channel); H / Hkv
 // are the heads a batch of the grid's head index; hd, the head dim, picks
 // the instantiation (128 or 64 for both; any other is refused with
-// cudaErrorInvalidValue, nothing launched).  Each returns the launch's
-// cudaError_t.
+// cudaErrorInvalidValue, nothing launched); q_offset / k_offset are the
+// global positions of q's and k's first rows (under causal their
+// difference picks the instantiation, 0 the one without offsets; without
+// causal they change nothing).  Each returns the launch's cudaError_t.
 extern "C" {
 
 int flash_dq_launch(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     const void* bias, void* dq_, int BH, int G, int H,
                     int Sq, int Sk, int causal, float sm_scale, int hd,
-                    cudaStream_t stream) {
+                    int q_offset, int k_offset, cudaStream_t stream) {
+  const int shift = causal ? q_offset - k_offset : 0;
   if (hd == 128)
-    return bias ? dq<true, 128>(q, k, v, dout, lse, delta, bias, dq_, BH, G,
-                                H, Sq, Sk, causal, sm_scale, stream)
-                : dq<false, 128>(q, k, v, dout, lse, delta, bias, dq_, BH,
-                                 G, H, Sq, Sk, causal, sm_scale, stream);
+    return dq_at<128>(q, k, v, dout, lse, delta, bias, dq_, BH, G, H, Sq, Sk,
+                      causal, sm_scale, shift, stream);
   if (hd == 64)
-    return bias ? dq<true, 64>(q, k, v, dout, lse, delta, bias, dq_, BH, G,
-                               H, Sq, Sk, causal, sm_scale, stream)
-                : dq<false, 64>(q, k, v, dout, lse, delta, bias, dq_, BH, G,
-                                H, Sq, Sk, causal, sm_scale, stream);
+    return dq_at<64>(q, k, v, dout, lse, delta, bias, dq_, BH, G, H, Sq, Sk,
+                     causal, sm_scale, shift, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -383,21 +456,15 @@ int flash_dkv_launch(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      const void* bias, void* dk, void* dv, int BHkv, int G,
                      int Hkv, int Sq, int Sk, int causal, float sm_scale,
-                     int hd, cudaStream_t stream) {
+                     int hd, int q_offset, int k_offset,
+                     cudaStream_t stream) {
+  const int shift = causal ? q_offset - k_offset : 0;
   if (hd == 128)
-    return bias ? dkv<true, 128>(q, k, v, dout, lse, delta, bias, dk, dv,
-                                 BHkv, G, Hkv, Sq, Sk, causal, sm_scale,
-                                 stream)
-                : dkv<false, 128>(q, k, v, dout, lse, delta, bias, dk, dv,
-                                  BHkv, G, Hkv, Sq, Sk, causal, sm_scale,
-                                  stream);
+    return dkv_at<128>(q, k, v, dout, lse, delta, bias, dk, dv, BHkv, G, Hkv,
+                       Sq, Sk, causal, sm_scale, shift, stream);
   if (hd == 64)
-    return bias ? dkv<true, 64>(q, k, v, dout, lse, delta, bias, dk, dv,
-                                BHkv, G, Hkv, Sq, Sk, causal, sm_scale,
-                                stream)
-                : dkv<false, 64>(q, k, v, dout, lse, delta, bias, dk, dv,
-                                 BHkv, G, Hkv, Sq, Sk, causal, sm_scale,
-                                 stream);
+    return dkv_at<64>(q, k, v, dout, lse, delta, bias, dk, dv, BHkv, G, Hkv,
+                      Sq, Sk, causal, sm_scale, shift, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -28,6 +28,13 @@
 // l == 0 guard; p and ds stay f32 through every product; one rounding to
 // E at the store.  No atomics: two launches give the same bits.
 //
+// The q/k offsets (the Pallas kernels' off_ref pair, the global positions
+// of q's and k's first rows) enter as their difference, shift = q_offset -
+// k_offset under causal (0 without): key j is seen by query row i iff
+// j <= i + shift.  A shift of 0 runs the arithmetic of the launches before
+// the offsets existed.  A row that sees no key writes out 0 and lse
+// -1e30, as the Pallas kernel does for a chunk wholly in its future.
+//
 // What bounds it: operations, at the f32 rate (67 TFLOP/s), for long
 // sequences; at the tiny model's shapes (S = 128, head_dim 16) the launch.
 // A simple design that is right: a block of 8 warps takes 32 rows, 4 a
@@ -36,7 +43,7 @@
 // products, then the lane's columns (lane + 32 c) for the accumulation,
 // each score broadcast by a shuffle.  Causal loops stop at the last key
 // any row of the block sees (forward, dq) or start at the block's first
-// key (dk/dv).
+// key (dk/dv), each moved by the shift.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -107,7 +114,7 @@ flash_fwd_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
                          const float* __restrict__ bias,
                          E* __restrict__ out, float* __restrict__ lse,
                          int G, int hpb, int Sq, int Sk, int hd, int causal,
-                         float sm_scale) {
+                         float sm_scale, int shift) {
   extern __shared__ float sm[];
   const int sd = hd + 1;
   float* Qs = sm;                   // [ROWS][hd]
@@ -127,7 +134,7 @@ flash_fwd_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) o[r][c] = 0.f;
   }
-  const int nk = causal ? min(Sk, r0 + ROWS) : Sk;
+  const int nk = causal ? max(0, min(Sk, r0 + ROWS + shift)) : Sk;
   for (int k0 = 0; k0 < nk; k0 += KT) {
     __syncthreads();                // the last tile is consumed
     stage(Ks, kb, k0, KT, hd, sd);
@@ -149,7 +156,7 @@ flash_fwd_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
       const int row = r0 + w * RW + r;
       float sr = __fmul_rn(s[r], sm_scale);
       if (brow) sr = __fadd_rn(sr, kbias);
-      if (causal && key > row) sr = NEG;
+      if (causal && key > row + shift) sr = NEG;
       const float mn = fmaxf(m[r], warp_max(sr));
       const float alpha = expf(m[r] - mn);
       const float p = expf(sr - mn);
@@ -178,12 +185,14 @@ flash_fwd_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
   for (int r = 0; r < RW; ++r) {
     const size_t row = (size_t)bh * Sq + r0 + w * RW + r;
     const float safe = l[r] == 0.f ? 1.f : l[r];
+    const bool dead = causal && r0 + w * RW + r + shift < 0;  // sees no key
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
       const int col = lane + 32 * c;
-      if (col < hd) out[row * hd + col] = narrow<E>(__fdiv_rn(o[r][c], safe));
+      if (col < hd)
+        out[row * hd + col] = narrow<E>(dead ? 0.f : __fdiv_rn(o[r][c], safe));
     }
-    if (lane == 0) lse[row] = __fadd_rn(m[r], logf(safe));
+    if (lane == 0) lse[row] = dead ? NEG : __fadd_rn(m[r], logf(safe));
   }
 }
 
@@ -195,7 +204,7 @@ flash_dq_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
                         const float* __restrict__ delta,
                         const float* __restrict__ bias, E* __restrict__ dq,
                         int G, int hpb, int Sq, int Sk, int hd, int causal,
-                        float sm_scale) {
+                        float sm_scale, int shift) {
   extern __shared__ float sm[];
   const int sd = hd + 1;
   float* Qs = sm;                   // [ROWS][hd]
@@ -218,7 +227,7 @@ flash_dq_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) acc[r][c] = 0.f;
   }
-  const int nk = causal ? min(Sk, r0 + ROWS) : Sk;
+  const int nk = causal ? max(0, min(Sk, r0 + ROWS + shift)) : Sk;
   for (int k0 = 0; k0 < nk; k0 += KT) {
     __syncthreads();
     stage(Ks, kb, k0, KT, hd, sd);
@@ -243,7 +252,7 @@ flash_dq_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
       float t = __fmul_rn(s[r], sm_scale);
       if (brow) t = __fadd_rn(t, kbias);
       float p = expf(__fsub_rn(t, lr[r]));
-      if (causal && key > row) p = 0.f;
+      if (causal && key > row + shift) p = 0.f;
       s[r] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[r], dr[r])), sm_scale);
     }
     for (int j = 0; j < KT; ++j) {
@@ -282,7 +291,7 @@ flash_dkv_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
                          const float* __restrict__ bias,
                          E* __restrict__ dk, E* __restrict__ dv, int G,
                          int hpb, int Sq, int Sk, int hd, int causal,
-                         float sm_scale) {
+                         float sm_scale, int shift) {
   extern __shared__ float sm[];
   const int sd = hd + 1;
   float* Kr = sm;                   // [ROWS][hd]  the block's keys
@@ -305,8 +314,10 @@ flash_dkv_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
   for (int r = 0; r < RW; ++r)
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) gk[r][c] = gv[r][c] = 0.f;
-  // query rows before c0 see none of the block's keys under the mask
-  const int q_first = causal ? min(Sq, c0) : 0;
+  // query rows before c0 - shift see none of the block's keys under the
+  // mask; the loop starts at the tile (KT rows) that holds the first one
+  const int first = c0 - shift;
+  const int q_first = causal && first > 0 ? min(Sq, first / KT * KT) : 0;
   for (int g = 0; g < G; ++g) {
     const int bh = kvh * G + g;
     const E* qb = q + (size_t)bh * Sq * hd;
@@ -340,7 +351,7 @@ flash_dkv_generic_kernel(const E* __restrict__ q, const E* __restrict__ k,
         float t = __fmul_rn(s[r], sm_scale);
         if (bias) t = __fadd_rn(t, kbias[r]);
         p[r] = expf(__fsub_rn(t, lq));
-        if (causal && key > qrow) p[r] = 0.f;
+        if (causal && key > qrow + shift) p[r] = 0.f;
         s[r] = __fmul_rn(__fmul_rn(p[r], __fsub_rn(dp[r], dq_)), sm_scale);
       }
       for (int i = 0; i < KT; ++i) {
@@ -392,13 +403,13 @@ int prep(Kern kernel, size_t smem) {
 template <typename E>
 int fwd(const void* q, const void* k, const void* v, const void* bias,
         void* out, void* lse, int BH, int G, int hpb, int Sq, int Sk, int hd,
-        int causal, float sm_scale, cudaStream_t stream) {
+        int causal, float sm_scale, int shift, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (ROWS * hd + 2 * KT * (hd + 1));
   const int err = prep(flash_fwd_generic_kernel<E>, smem);
   if (err) return err;
   flash_fwd_generic_kernel<E><<<dim3(Sq / ROWS, BH), THREADS, smem, stream>>>(
       (const E*)q, (const E*)k, (const E*)v, (const float*)bias, (E*)out,
-      (float*)lse, G, hpb, Sq, Sk, hd, causal, sm_scale);
+      (float*)lse, G, hpb, Sq, Sk, hd, causal, sm_scale, shift);
   return (int)cudaGetLastError();
 }
 
@@ -406,14 +417,14 @@ template <typename E>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, const void* bias, void* dq_,
        int BH, int G, int hpb, int Sq, int Sk, int hd, int causal,
-       float sm_scale, cudaStream_t stream) {
+       float sm_scale, int shift, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * ROWS * hd + 2 * KT * (hd + 1));
   const int err = prep(flash_dq_generic_kernel<E>, smem);
   if (err) return err;
   flash_dq_generic_kernel<E><<<dim3(Sq / ROWS, BH), THREADS, smem, stream>>>(
       (const E*)q, (const E*)k, (const E*)v, (const E*)dout,
       (const float*)lse, (const float*)delta, (const float*)bias, (E*)dq_, G,
-      hpb, Sq, Sk, hd, causal, sm_scale);
+      hpb, Sq, Sk, hd, causal, sm_scale, shift);
   return (int)cudaGetLastError();
 }
 
@@ -421,7 +432,7 @@ template <typename E>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, const void* bias, void* dk,
         void* dv, int BHkv, int G, int hpb, int Sq, int Sk, int hd,
-        int causal, float sm_scale, cudaStream_t stream) {
+        int causal, float sm_scale, int shift, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * ROWS * hd + 2 * KT * (hd + 1) + 2 * KT);
   const int err = prep(flash_dkv_generic_kernel<E>, smem);
@@ -430,7 +441,7 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
                                 stream>>>(
       (const E*)q, (const E*)k, (const E*)v, (const E*)dout,
       (const float*)lse, (const float*)delta, (const float*)bias, (E*)dk,
-      (E*)dv, G, hpb, Sq, Sk, hd, causal, sm_scale);
+      (E*)dv, G, hpb, Sq, Sk, hd, causal, sm_scale, shift);
   return (int)cudaGetLastError();
 }
 
@@ -438,7 +449,9 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 float32, 1 bfloat16, 2 float16 (ops/flash_attention.py's
 // GENERIC_DTYPES); bias: f32 [B, Sk] or null; hpb: H (forward, dq) or Hkv
-// (dk/dv), the grid's heads a batch
+// (dk/dv), the grid's heads a batch; q_offset / k_offset: the global
+// positions of q's and k's first rows, last (they change nothing without
+// causal)
 extern "C" {
 
 #define GENERIC_DISPATCH(FN, ...)                                          \
@@ -453,10 +466,12 @@ int flash_fwd_generic_launch(const void* q, const void* k, const void* v,
                              const void* bias, void* out, void* lse,
                              int dtype, int BH, int G, int hpb, int Sq,
                              int Sk, int hd, int causal, float sm_scale,
+                             int q_offset, int k_offset,
                              cudaStream_t stream) {
   if (bad_shape(G, Sq, Sk, hd) || hpb < 1) return (int)cudaErrorInvalidValue;
+  const int shift = causal ? q_offset - k_offset : 0;
   GENERIC_DISPATCH(fwd, q, k, v, bias, out, lse, BH, G, hpb, Sq, Sk, hd,
-                   causal, sm_scale, stream)
+                   causal, sm_scale, shift, stream)
 }
 
 int flash_dq_generic_launch(const void* q, const void* k, const void* v,
@@ -464,10 +479,12 @@ int flash_dq_generic_launch(const void* q, const void* k, const void* v,
                             const void* delta, const void* bias, void* dq_,
                             int dtype, int BH, int G, int hpb, int Sq, int Sk,
                             int hd, int causal, float sm_scale,
+                            int q_offset, int k_offset,
                             cudaStream_t stream) {
   if (bad_shape(G, Sq, Sk, hd) || hpb < 1) return (int)cudaErrorInvalidValue;
+  const int shift = causal ? q_offset - k_offset : 0;
   GENERIC_DISPATCH(dq, q, k, v, dout, lse, delta, bias, dq_, BH, G, hpb, Sq,
-                   Sk, hd, causal, sm_scale, stream)
+                   Sk, hd, causal, sm_scale, shift, stream)
 }
 
 int flash_dkv_generic_launch(const void* q, const void* k, const void* v,
@@ -475,10 +492,12 @@ int flash_dkv_generic_launch(const void* q, const void* k, const void* v,
                              const void* delta, const void* bias, void* dk,
                              void* dv, int dtype, int BHkv, int G, int hpb,
                              int Sq, int Sk, int hd, int causal,
-                             float sm_scale, cudaStream_t stream) {
+                             float sm_scale, int q_offset, int k_offset,
+                             cudaStream_t stream) {
   if (bad_shape(G, Sq, Sk, hd) || hpb < 1) return (int)cudaErrorInvalidValue;
+  const int shift = causal ? q_offset - k_offset : 0;
   GENERIC_DISPATCH(dkv, q, k, v, dout, lse, delta, bias, dk, dv, BHkv, G,
-                   hpb, Sq, Sk, hd, causal, sm_scale, stream)
+                   hpb, Sq, Sk, hd, causal, sm_scale, shift, stream)
 }
 
 #undef GENERIC_DISPATCH

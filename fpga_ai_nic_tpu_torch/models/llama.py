@@ -1,19 +1,28 @@
 """Llama-3-family decoder: configuration, parameters, the layer math and
 the training loss — the port of the JAX package's ``models/llama.py``
-without its parallel axes (serving composes the shared pieces in
+with its sequence-parallel axis (serving composes the shared pieces in
 ``models/llama_decode.py``; training differentiates ``loss_fn``).
 
 The parameter tree keeps the JAX layout, so weights carry across unchanged
 (``params_from_jax``): ``{"tok_emb": [V, D], "final_norm": [D],
 "lm_head": [D, V], "layers": [{"attn_norm", "wq" [D, H*hd], "wk"/"wv"
 [D, kv*hd], "wo" [H*hd, D], "mlp_norm", "w1"/"w3" [D, F], "w2" [F, D]}]}``
-and a projection is ``h @ w``.  Only one rank is ported: ``tp_axis``,
-``sp_axis``, ``ep_axis`` and ``dp_axis`` raise ``NotImplementedError``, as
-do MoE layers (``moe_experts > 0``) and ``remat=True``.  Attention follows
-``attn_block`` / ``attn_impl``: ``None`` is the direct softmax, a block
-size routes through ``ops.ring_attention.flash_attention_remat`` (the
-flash CUDA kernels for "pallas", or "auto" on the card; the checkpointed
-blocked torch path for "xla", or "auto" on the CPU).
+and a projection is ``h @ w``.  ``tp_axis``, ``ep_axis`` and ``dp_axis``
+raise ``NotImplementedError``, as do MoE layers (``moe_experts > 0``) and
+``remat=True``.  Attention follows ``attn_block`` / ``attn_impl``:
+``None`` is the direct softmax, a block size routes through
+``ops.ring_attention.flash_attention_remat`` (the flash CUDA kernels for
+"pallas", or "auto" on the card; the checkpointed blocked torch path for
+"xla", or "auto" on the CPU).
+
+``sp_axis`` (sequence parallelism): the tokens are ``[n_sp, B, S_local]``,
+the n_sp contiguous sequence shards stacked (``parallel.mesh``'s virtual
+sp ranks), and shard i holds global positions [i S_local, (i + 1)
+S_local).  Every per-token op runs on the stacked shards at once; only
+attention couples them, through ``ops.ring_attention.ring_attention``
+over the stack (the flash kernels' ring with q/k offsets where the route
+takes the kernels), and the loss sums the shards' token sums and counts
+(JAX's psum over sp).
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
 from ..ops.ring_attention import (flash_attention_remat, full_attention,
-                                  pallas_route)
+                                  pallas_route, ring_attention)
 
 Params = Dict[str, Any]
 
@@ -182,10 +191,13 @@ def _rope_freqs(cfg: LlamaConfig, half: int,
 
 def _rope(x: torch.Tensor, pos: torch.Tensor,
           cfg: LlamaConfig) -> torch.Tensor:
-    """Rotate-half rope. x: [B, H, S, dh]; pos: [S] global positions."""
+    """Rotate-half rope. x: [B, H, S, dh]; pos: [S] global positions (or
+    x [n_sp, B, H, S, dh] and pos [n_sp, S], each shard's own)."""
     half = x.shape[-1] // 2
     freqs = _rope_freqs(cfg, half, x.device)
-    ang = pos.to(torch.float32)[:, None] * freqs[None, :]       # [S, half]
+    ang = pos.to(torch.float32)[..., None] * freqs              # [.., S, half]
+    if pos.dim() == 2:
+        ang = ang[:, None, None]                     # [n_sp, 1, 1, S, half]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1 = x[..., :half].to(torch.float32)
     x2 = x[..., half:].to(torch.float32)
@@ -204,40 +216,52 @@ def _shard_counts(cfg: LlamaConfig,
 
 
 def _positions(S: int, sp_axis: Optional[str] = None,
-               device: DeviceLike = "cpu") -> torch.Tensor:
-    """int32 [S] positions 0..S-1 (``sp_axis=None`` only)."""
-    if sp_axis is not None:
-        raise NotImplementedError(
-            "sequence parallelism (sp_axis) is not ported yet")
-    return torch.arange(S, dtype=torch.int32, device=device)
+               device: DeviceLike = "cpu", n_sp: int = 1) -> torch.Tensor:
+    """int32 [S] positions 0..S-1; with ``sp_axis``, [n_sp, S]: shard i's
+    global positions i S .. (i + 1) S - 1 (JAX's ``axis_index * S``
+    offset)."""
+    pos = torch.arange(S, dtype=torch.int32, device=device)
+    if sp_axis is None:
+        return pos
+    return S * torch.arange(n_sp, dtype=torch.int32,
+                            device=device)[:, None] + pos
 
 
 def _block(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
-           cfg: LlamaConfig, n_heads: int, n_kv: int) -> torch.Tensor:
+           cfg: LlamaConfig, n_heads: int, n_kv: int,
+           sp_axis: Optional[str] = None) -> torch.Tensor:
     """One decoder layer: pre-norm attention + SwiGLU (dense; the JAX
-    layer's MoE load-balance term is 0 without experts)."""
-    B, S = x.shape[:2]
+    layer's MoE load-balance term is 0 without experts).  x: [B, S, D],
+    or [n_sp, B, S, D] with ``sp_axis``."""
+    lead, S = x.shape[:-2], x.shape[-2]
     Hd = cfg.head_dim
     h = _rmsnorm(x, lyr["attn_norm"], cfg.norm_eps)
-    q = (h @ lyr["wq"]).reshape(B, S, n_heads, Hd).transpose(1, 2)
-    k = (h @ lyr["wk"]).reshape(B, S, n_kv, Hd).transpose(1, 2)
-    v = (h @ lyr["wv"]).reshape(B, S, n_kv, Hd).transpose(1, 2)
+    q = (h @ lyr["wq"]).reshape(*lead, S, n_heads, Hd).transpose(-3, -2)
+    k = (h @ lyr["wk"]).reshape(*lead, S, n_kv, Hd).transpose(-3, -2)
+    v = (h @ lyr["wv"]).reshape(*lead, S, n_kv, Hd).transpose(-3, -2)
     q = _rope(q, pos, cfg)
     k = _rope(k, pos, cfg)
-    if n_kv != n_heads and not (cfg.attn_block is not None
-                                and pallas_route(cfg.attn_impl, q,
-                                                 kv_seq_len=k.shape[2])):
-        # GQA: the flash kernels read grouped K/V; the torch paths'
-        # einsums take the repeat-expanded copy (head h reads KV h // G)
-        k = k.repeat_interleave(n_heads // n_kv, dim=1)
-        v = v.repeat_interleave(n_heads // n_kv, dim=1)
-    if cfg.attn_block is not None:
+    # GQA: the flash kernels read grouped K/V (on the sp ring: 1/G of the
+    # rotated bytes); the torch paths' einsums take the repeat-expanded
+    # copy (head h reads KV h // G).  Grouped K/V only reach the branches
+    # that can take the kernels, by the route the ops themselves take.
+    kernel_branch = sp_axis is not None or cfg.attn_block is not None
+    q_shard = q if sp_axis is None else q[0]
+    if n_kv != n_heads and not (kernel_branch
+                                and pallas_route(cfg.attn_impl, q_shard,
+                                                 kv_seq_len=S)):
+        k = k.repeat_interleave(n_heads // n_kv, dim=-3)
+        v = v.repeat_interleave(n_heads // n_kv, dim=-3)
+    if sp_axis is not None:
+        att = ring_attention(q, k, v, sp_axis, causal=True,
+                             impl=cfg.attn_impl)
+    elif cfg.attn_block is not None:
         att = flash_attention_remat(q, k, v, causal=True,
                                     k_block=cfg.attn_block,
                                     impl=cfg.attn_impl)
     else:
         att = full_attention(q, k, v, causal=True)
-    att = att.transpose(1, 2).reshape(B, S, n_heads * Hd)
+    att = att.transpose(-3, -2).reshape(*lead, S, n_heads * Hd)
     x = x + att @ lyr["wo"]
     h = _rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
     gate = F.silu((h @ lyr["w1"]).to(torch.float32)).to(x.dtype)
@@ -249,7 +273,8 @@ def apply(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
           tp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
           ep_axis: Optional[str] = None,
           remat: bool = False) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, vocab] in the model dtype."""
+    """tokens [B, S] -> logits [B, S, vocab] in the model dtype; with
+    ``sp_axis``, tokens [n_sp, B, S_local] -> [n_sp, B, S_local, vocab]."""
     if remat:
         raise NotImplementedError(
             "remat (per-block activation recomputation) is not ported yet: "
@@ -258,12 +283,15 @@ def apply(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
         raise NotImplementedError(
             "expert parallelism (ep_axis) is not ported yet")
     _no_moe(cfg)
-    B, S = tokens.shape
+    if tokens.dim() != (2 if sp_axis is None else 3):
+        raise ValueError(f"tokens must be [B, S] (or [n_sp, B, S_local] "
+                         f"with sp_axis), got {tuple(tokens.shape)}")
+    S = tokens.shape[-1]
     n_heads, n_kv = _shard_counts(cfg, tp_axis)
-    pos = _positions(S, sp_axis, tokens.device)
-    x = params["tok_emb"][tokens.long()]                    # [B, S, D]
+    pos = _positions(S, sp_axis, tokens.device, n_sp=tokens.shape[0])
+    x = params["tok_emb"][tokens.long()]                    # [.., S, D]
     for lyr in params["layers"]:
-        x = _block(lyr, x, pos, cfg, n_heads, n_kv)
+        x = _block(lyr, x, pos, cfg, n_heads, n_kv, sp_axis)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"]
 
@@ -277,7 +305,10 @@ def _token_nll(logits: torch.Tensor,
 
 def _weighted_loss(local_sum: torch.Tensor,
                    count: torch.Tensor) -> torch.Tensor:
-    """Token-weighted mean over one rank's tokens."""
+    """Token-weighted mean: the sums and counts are over every token the
+    call holds, all its sp shards with ``sp_axis`` (JAX's psum over the
+    token-sharding axes), so the value is the global mean over them and
+    its gradient sums the shards' contributions."""
     return local_sum / torch.clamp(count, min=1)
 
 
@@ -285,10 +316,14 @@ def loss_fn(params: Params, batch, cfg: LlamaConfig, *,
             tp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
             dp_axis: Optional[str] = None, ep_axis: Optional[str] = None,
             remat: bool = False) -> torch.Tensor:
-    """Next-token cross-entropy.  batch = (tokens, labels), both [B, S];
-    labels are the shifted targets, -100 entries ignored.  ``dp_axis``
-    raises: the trainer's uniform dp average equals the JAX dp_axis
-    weighting when every label is valid, as in the training driver."""
+    """Next-token cross-entropy.  batch = (tokens, labels), both [B, S]
+    (or [n_sp, B, S_local] with ``sp_axis``: the stacked shards, labels
+    the globally shifted targets, so the shift crosses shard boundaries);
+    -100 entries are ignored.  With ``sp_axis`` the value is the
+    token-weighted mean over all the shards, as each JAX sp rank's.
+    ``dp_axis`` raises: the trainer's uniform dp average equals the JAX
+    dp_axis weighting when every label is valid, as in
+    ``train_llama``."""
     if dp_axis is not None:
         raise NotImplementedError(
             "dp_axis (the masked-label dp weighting inside a sharded "

@@ -10,7 +10,9 @@ kernel on the tensor cores: the forward in ``csrc/flash_attn.cu``, dq and
 dk/dv in ``csrc/flash_bwd.cu``.  A tensor on the CPU takes the plain
 version; a tensor on CUDA launches a kernel or raises.  There is no
 fallback between the two.  ``FLASH_FWD``, ``FLASH_DQ`` and ``FLASH_DKV``
-count kernel launches.
+count kernel launches; ``FLASH_*_OFFSETS`` count the launches whose q/k
+offsets move the causal mask (the same entries, the kernels' offset
+instantiations).
 
 The tensor-core kernels take bf16 q, k and v with Sq and Sk multiples of
 ``TILE``, each at the head dims it is built for (``TENSOR_CORE_HEAD_DIMS``,
@@ -28,8 +30,25 @@ Layouts: q is ``[B, H, Sq, hd]``, k and v are ``[B, Hkv, Sk, hd]`` with
 Hkv dividing H (GQA: query head h reads KV head ``h // (H // Hkv)``; K/V
 are never repeated, and dk/dv sum each group's query heads).
 ``block_q``/``block_k`` are the TPU kernels' VMEM tiling and only set the
-plain versions' key blocking here.  The q/k offsets of sequence
-parallelism have no caller yet and raise ``NotImplementedError``.
+plain versions' key blocking here.
+
+``q_offset``/``k_offset`` (the Pallas kernels' ``off_ref`` pair) are the
+global positions of q's and k's first rows: under ``causal`` key j is
+seen by row i iff ``k_offset + j <= q_offset + i``, so a sequence shard
+attending a visiting K/V chunk (``ops.ring_attention``'s sequence
+parallelism) keeps causality over global positions.  Only the difference
+``q_offset - k_offset`` enters the mask, and without ``causal`` the pair
+changes nothing.  A row that sees no key (a chunk wholly in its future)
+gets ``out = 0`` and ``lse = -1e30`` in every version, and zero gradients:
+a logsumexp merge of such a hop is a no-op (JAX's kernels give that where
+their whole block is skipped).  ``flash_attention(..., with_lse=True)``
+returns ``(out, lse)``, both differentiable: the lse cotangent folds into
+the backward's ``delta`` operand, ``delta = rowsum(dO * O) - d_lse``
+(``flash_pallas._bwd``), so the kernels need no other input.  The CUDA
+kernels take the offsets as their last scalar arguments; the tensor-core
+ones build an instantiation for a non-zero difference beside the one
+without (a template flag, as the key bias), so a launch with zero offsets
+is the kernel it was before the channel existed.
 
 ``key_bias`` ([B, Sk] f32, the Pallas kernels' ``has_bias`` channel) is
 added to every query row's scores after ``sm_scale``, before the online
@@ -82,29 +101,35 @@ TILE = 64                   # rows of a q or k tile in the CUDA kernels
 TENSOR_CORE_HEAD_DIMS = {"fwd": (64, 128), "dq": (64, 128), "dkv": (64, 128)}
 _NEG = -1e30
 _DEF_BLOCK = 512
-_SP_ITEM = "ROADMAP A.6 (sequence parallelism: ring_flash_attention)"
 
+_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
 FLASH_FWD = Kernel("flash_fwd", "flash_attn.cu", "flash_fwd_launch",
-                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int])
+                   [ctypes.c_void_p] * 6 + _TAIL)
 FLASH_DQ = Kernel("flash_dq", "flash_bwd.cu", "flash_dq_launch",
-                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                  + [ctypes.c_float, ctypes.c_int])
+                  [ctypes.c_void_p] * 8 + _TAIL)
 FLASH_DKV = Kernel("flash_dkv", "flash_bwd.cu", "flash_dkv_launch",
-                   [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int])
+                   [ctypes.c_void_p] * 9 + _TAIL)
+# the same C entries called with a causal shift (q_offset - k_offset) that
+# is not zero, which run the kernels' OFF instantiations: counted apart
+FLASH_FWD_OFFSETS = Kernel("flash_fwd_offsets", "flash_attn.cu",
+                           "flash_fwd_launch", [ctypes.c_void_p] * 6 + _TAIL)
+FLASH_DQ_OFFSETS = Kernel("flash_dq_offsets", "flash_bwd.cu",
+                          "flash_dq_launch", [ctypes.c_void_p] * 8 + _TAIL)
+FLASH_DKV_OFFSETS = Kernel("flash_dkv_offsets", "flash_bwd.cu",
+                           "flash_dkv_launch", [ctypes.c_void_p] * 9 + _TAIL)
 
 GENERIC_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 GENERIC_ROWS = 32           # rows a block of the second family owns
+_GENERIC_TAIL = [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 2
 FLASH_FWD_GENERIC = Kernel(
     "flash_fwd_generic", "flash_generic.cu", "flash_fwd_generic_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float])
+    [ctypes.c_void_p] * 6 + _GENERIC_TAIL)
 FLASH_DQ_GENERIC = Kernel(
     "flash_dq_generic", "flash_generic.cu", "flash_dq_generic_launch",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float])
+    [ctypes.c_void_p] * 8 + _GENERIC_TAIL)
 FLASH_DKV_GENERIC = Kernel(
     "flash_dkv_generic", "flash_generic.cu", "flash_dkv_generic_launch",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float])
+    [ctypes.c_void_p] * 9 + _GENERIC_TAIL)
 
 
 REL_TOL = 2.0 ** -6          # two to four bf16 ulps of each element
@@ -169,11 +194,28 @@ def _grouped(t: torch.Tensor, Hkv: int) -> torch.Tensor:
 
 
 def _causal_mask(Sq: int, k0: int, bk: int, q_offset: int,
-                 device) -> torch.Tensor:
-    """[Sq, bk] True where key k0 + j lies after query row q_offset + i."""
+                 device, k_offset: int = 0) -> torch.Tensor:
+    """[Sq, bk] True where key k_offset + k0 + j lies after query row
+    q_offset + i."""
     qpos = q_offset + torch.arange(Sq, device=device)
-    kpos = k0 + torch.arange(bk, device=device)
+    kpos = k_offset + k0 + torch.arange(bk, device=device)
     return kpos[None, :] > qpos[:, None]
+
+
+def _unseen(Sq: int, k0: int, causal: bool, q_offset: int,
+            k_offset: int) -> bool:
+    """Does no row of q see key k0 or any later one?  (The Pallas kernels'
+    causal block skip, for a block that starts at key k0.)"""
+    return causal and k_offset + k0 > q_offset + Sq - 1
+
+
+def _dead_rows(Sq: int, causal: bool, q_offset: int, k_offset: int,
+               device) -> Optional[torch.Tensor]:
+    """[Sq] True for the rows that see no key at all, or None where every
+    row sees one."""
+    if not causal or q_offset >= k_offset:
+        return None
+    return q_offset + torch.arange(Sq, device=device) < k_offset
 
 
 def _bias_block(key_bias: Optional[torch.Tensor], k0: int, bk: int):
@@ -189,13 +231,15 @@ def _bias_block(key_bias: Optional[torch.Tensor], k0: int, bk: int):
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, sm_scale: float,
                     block_k: int = _DEF_BLOCK, q_offset: int = 0,
-                    key_bias: Optional[torch.Tensor] = None
+                    key_bias: Optional[torch.Tensor] = None,
+                    k_offset: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [B, H, Sq, hd] in q's dtype, lse [B, H, Sq] f32)``: the
-    forward kernel's online softmax over key blocks of ``block_k``.
-    ``q_offset`` is the global position of q's first row (0 in every
-    caller; a nonzero one shifts the causal mask).  ``key_bias`` [B, Sk]
-    is added to the scaled scores before the causal mask."""
+    forward kernel's online softmax over key blocks of ``block_k``, key
+    blocks wholly after every row skipped.  ``q_offset``/``k_offset`` are
+    the global positions of q's and k's first rows (they shift the causal
+    mask); a row that sees no key gets out 0 and lse -1e30.  ``key_bias``
+    [B, Sk] is added to the scaled scores before the causal mask."""
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     qf = _grouped(q, Hkv)
@@ -204,6 +248,8 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = torch.zeros_like(m)
     acc = torch.zeros_like(qf)
     for k0 in range(0, Sk, block_k):
+        if _unseen(Sq, k0, causal, q_offset, k_offset):
+            break
         kb = k[:, :, k0:k0 + block_k].to(torch.float32)
         vb = v[:, :, k0:k0 + block_k].to(torch.float32)
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb) * sm_scale
@@ -212,7 +258,7 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             s = s + bias
         if causal:
             s = s.masked_fill(_causal_mask(Sq, k0, kb.shape[2], q_offset,
-                                           q.device), _NEG)
+                                           q.device, k_offset), _NEG)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -222,11 +268,15 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     safe = torch.where(l == 0, torch.ones_like(l), l)
     out = (acc / safe).to(q.dtype).reshape(B, H, Sq, hd)
     lse = (m + torch.log(safe)).reshape(B, H, Sq)
+    dead = _dead_rows(Sq, causal, q_offset, k_offset, q.device)
+    if dead is not None:
+        out = out.masked_fill(dead[:, None], 0)
+        lse = lse.masked_fill(dead, _NEG)
     return out, lse
 
 
 def _bwd_block(q, k, v, do, lse, delta, k0, block_k, causal, sm_scale,
-               key_bias=None):
+               key_bias=None, q_offset=0, k_offset=0):
     """p and ds of one key block, both f32 [B, Hkv, G, Sq, bk]; p =
     exp(s * sm_scale + bias - lse) with the bias in every block."""
     Hkv, Sq = k.shape[1], q.shape[2]
@@ -241,8 +291,8 @@ def _bwd_block(q, k, v, do, lse, delta, k0, block_k, causal, sm_scale,
         s = s + bias
     p = torch.exp(s - lse_g)
     if causal:
-        p = p.masked_fill(_causal_mask(Sq, k0, kb.shape[2], 0, q.device),
-                          0.0)
+        p = p.masked_fill(_causal_mask(Sq, k0, kb.shape[2], q_offset,
+                                       q.device, k_offset), 0.0)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vb)
     ds = p * (dp - delta_g) * sm_scale
     return p, ds, qf, dof, kb
@@ -252,7 +302,8 @@ def flash_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                    *, causal: bool, sm_scale: float,
                    block_k: int = _DEF_BLOCK,
-                   key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   key_bias: Optional[torch.Tensor] = None,
+                   q_offset: int = 0, k_offset: int = 0) -> torch.Tensor:
     """dq [B, H, Sq, hd] in q's dtype: p = exp(s - lse) recomputed per key
     block, ds = p * (dp - delta) * sm_scale, dq = sum of ds . k in f32.
     ``delta = rowsum(dO * O) - d_lse`` (f32 [B, H, Sq])."""
@@ -261,8 +312,11 @@ def flash_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.zeros((B, Hkv, H // Hkv, Sq, hd), dtype=torch.float32,
                      device=q.device)
     for k0 in range(0, k.shape[2], block_k):
+        if _unseen(Sq, k0, causal, q_offset, k_offset):
+            break
         _, ds, _, _, kb = _bwd_block(q, k, v, do, lse, delta, k0, block_k,
-                                     causal, sm_scale, key_bias)
+                                     causal, sm_scale, key_bias, q_offset,
+                                     k_offset)
         dq += torch.einsum("bhgqk,bhkd->bhgqd", ds, kb)
     return dq.reshape(B, H, Sq, hd).to(q.dtype)
 
@@ -271,16 +325,20 @@ def flash_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                     *, causal: bool, sm_scale: float,
                     block_k: int = _DEF_BLOCK,
-                    key_bias: Optional[torch.Tensor] = None
+                    key_bias: Optional[torch.Tensor] = None,
+                    q_offset: int = 0, k_offset: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B, Hkv, Sk, hd] in k's / v's dtype: per key block,
     dk = sum over the group's query heads and rows of ds^T . q and
-    dv = sum of p^T . dO, in f32."""
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dv = sum of p^T . dO, in f32; zero for keys no row sees."""
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(v)
     for k0 in range(0, k.shape[2], block_k):
+        if _unseen(q.shape[2], k0, causal, q_offset, k_offset):
+            break
         p, ds, qf, dof, _ = _bwd_block(q, k, v, do, lse, delta, k0, block_k,
-                                       causal, sm_scale, key_bias)
+                                       causal, sm_scale, key_bias, q_offset,
+                                       k_offset)
         dk[:, :, k0:k0 + block_k] = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
         dv[:, :, k0:k0 + block_k] = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
     return dk, dv
@@ -305,6 +363,12 @@ def _check_kernel_operands(kernel: str, q: torch.Tensor, k: torch.Tensor,
         check_cuda(t, torch.bfloat16, name)
 
 
+def _shifted(causal: bool, q_offset: int, k_offset: int) -> bool:
+    """Do the offsets move the causal mask (the kernels' OFF
+    instantiations)?"""
+    return bool(causal) and q_offset != k_offset
+
+
 def _bias_ptr(key_bias: Optional[torch.Tensor], q: torch.Tensor,
               k: torch.Tensor):
     """The kernels' bias operand: null without a bias, else a contiguous
@@ -320,18 +384,23 @@ def _bias_ptr(key_bias: Optional[torch.Tensor], q: torch.Tensor,
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, sm_scale: float,
-                   key_bias: Optional[torch.Tensor] = None
+                   key_bias: Optional[torch.Tensor] = None,
+                   q_offset: int = 0, k_offset: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel: ``(out bf16, lse f32)``; with ``key_bias``
-    its bias instantiation."""
+    its bias instantiation, with offsets whose difference is not zero
+    (under ``causal``) its offset one."""
     _check_kernel_operands("fwd", q, k, v)
     bias = _bias_ptr(key_bias, q, k)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    FLASH_FWD(ptr(q), ptr(k), ptr(v), bias, ptr(out), ptr(lse), B * H,
-              H // Hkv, H, Sq, Sk, int(causal), float(sm_scale), hd)
+    kern = FLASH_FWD_OFFSETS if _shifted(causal, q_offset, k_offset) \
+        else FLASH_FWD
+    kern(ptr(q), ptr(k), ptr(v), bias, ptr(out), ptr(lse), B * H, H // Hkv,
+         H, Sq, Sk, int(causal), float(sm_scale), hd, int(q_offset),
+         int(k_offset))
     return out, lse
 
 
@@ -350,21 +419,25 @@ def _check_bwd_operands(kernel, q, k, v, do, lse, delta) -> None:
 
 def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool,
                   sm_scale: float,
-                  key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  key_bias: Optional[torch.Tensor] = None,
+                  q_offset: int = 0, k_offset: int = 0) -> torch.Tensor:
     """The dq kernel: dq bf16 [B, H, Sq, hd]."""
     _check_bwd_operands("dq", q, k, v, do, lse, delta)
     bias = _bias_ptr(key_bias, q, k)
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
-    FLASH_DQ(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), bias,
-             ptr(dq), B * H, H // Hkv, H, Sq, Sk, int(causal),
-             float(sm_scale), hd)
+    kern = FLASH_DQ_OFFSETS if _shifted(causal, q_offset, k_offset) \
+        else FLASH_DQ
+    kern(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), bias,
+         ptr(dq), B * H, H // Hkv, H, Sq, Sk, int(causal), float(sm_scale),
+         hd, int(q_offset), int(k_offset))
     return dq
 
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool,
-                   sm_scale: float, key_bias: Optional[torch.Tensor] = None
+                   sm_scale: float, key_bias: Optional[torch.Tensor] = None,
+                   q_offset: int = 0, k_offset: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel: (dk, dv) bf16 [B, Hkv, Sk, hd], each KV head's
     group of query heads summed in the kernel."""
@@ -374,9 +447,11 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool,
     Hkv, Sk = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    FLASH_DKV(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), bias,
-              ptr(dk), ptr(dv), B * Hkv, H // Hkv, Hkv, Sq, Sk, int(causal),
-              float(sm_scale), hd)
+    kern = FLASH_DKV_OFFSETS if _shifted(causal, q_offset, k_offset) \
+        else FLASH_DKV
+    kern(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), bias,
+         ptr(dk), ptr(dv), B * Hkv, H // Hkv, Hkv, Sq, Sk, int(causal),
+         float(sm_scale), hd, int(q_offset), int(k_offset))
     return dk, dv
 
 
@@ -417,7 +492,8 @@ def _check_generic_operands(q, k, v, do=None, lse=None,
 
 
 def flash_fwd_generic_cuda(q, k, v, *, causal: bool, sm_scale: float,
-                           key_bias: Optional[torch.Tensor] = None
+                           key_bias: Optional[torch.Tensor] = None,
+                           q_offset: int = 0, k_offset: int = 0
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The second family's forward: ``(out in q's dtype, lse f32)``."""
     code = _check_generic_operands(q, k, v)
@@ -428,13 +504,14 @@ def flash_fwd_generic_cuda(q, k, v, *, causal: bool, sm_scale: float,
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     FLASH_FWD_GENERIC(ptr(q), ptr(k), ptr(v), bias, ptr(out), ptr(lse), code,
                       B * H, H // Hkv, H, Sq, Sk, hd, int(causal),
-                      float(sm_scale))
+                      float(sm_scale), int(q_offset), int(k_offset))
     return out, lse
 
 
 def flash_dq_generic_cuda(q, k, v, do, lse, delta, *, causal: bool,
                           sm_scale: float,
-                          key_bias: Optional[torch.Tensor] = None
+                          key_bias: Optional[torch.Tensor] = None,
+                          q_offset: int = 0, k_offset: int = 0
                           ) -> torch.Tensor:
     """The second family's dq, in q's dtype."""
     code = _check_generic_operands(q, k, v, do, lse, delta)
@@ -444,13 +521,15 @@ def flash_dq_generic_cuda(q, k, v, do, lse, delta, *, causal: bool,
     dq = torch.empty_like(q)
     FLASH_DQ_GENERIC(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
                      bias, ptr(dq), code, B * H, H // Hkv, H, Sq, Sk, hd,
-                     int(causal), float(sm_scale))
+                     int(causal), float(sm_scale), int(q_offset),
+                     int(k_offset))
     return dq
 
 
 def flash_dkv_generic_cuda(q, k, v, do, lse, delta, *, causal: bool,
                            sm_scale: float,
-                           key_bias: Optional[torch.Tensor] = None
+                           key_bias: Optional[torch.Tensor] = None,
+                           q_offset: int = 0, k_offset: int = 0
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The second family's (dk, dv), each KV head's group summed."""
     code = _check_generic_operands(q, k, v, do, lse, delta)
@@ -461,7 +540,8 @@ def flash_dkv_generic_cuda(q, k, v, do, lse, delta, *, causal: bool,
     dv = torch.empty_like(v)
     FLASH_DKV_GENERIC(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
                       bias, ptr(dk), ptr(dv), code, B * Hkv, H // Hkv, Hkv,
-                      Sq, Sk, hd, int(causal), float(sm_scale))
+                      Sq, Sk, hd, int(causal), float(sm_scale),
+                      int(q_offset), int(k_offset))
     return dk, dv
 
 
@@ -472,22 +552,27 @@ def _on_tensor_cores(kernel, q, k, v) -> bool:
                              kv_seq_len=k.shape[2])
 
 
-def _fwd(q, k, v, key_bias, causal, sm_scale, block_k):
+def _fwd(q, k, v, key_bias, causal, sm_scale, block_k, offsets=(0, 0)):
+    q_offset, k_offset = offsets
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale,
-                               block_k=block_k, key_bias=key_bias)
+                               block_k=block_k, key_bias=key_bias,
+                               q_offset=q_offset, k_offset=k_offset)
     fwd = flash_fwd_cuda if _on_tensor_cores("fwd", q, k, v) \
         else flash_fwd_generic_cuda
-    return fwd(q, k, v, causal=causal, sm_scale=sm_scale, key_bias=key_bias)
+    return fwd(q, k, v, causal=causal, sm_scale=sm_scale, key_bias=key_bias,
+               q_offset=q_offset, k_offset=k_offset)
 
 
-def _bwd(q, k, v, do, lse, delta, key_bias, causal, sm_scale, block_k):
+def _bwd(q, k, v, do, lse, delta, key_bias, causal, sm_scale, block_k,
+         offsets=(0, 0)):
+    kw = dict(causal=causal, sm_scale=sm_scale, key_bias=key_bias,
+              q_offset=offsets[0], k_offset=offsets[1])
     if q.device.type == "cpu":
-        kw = dict(causal=causal, sm_scale=sm_scale, block_k=block_k,
-                  key_bias=key_bias)
-        return (flash_dq_plain(q, k, v, do, lse, delta, **kw),
-                *flash_dkv_plain(q, k, v, do, lse, delta, **kw))
-    kw = dict(causal=causal, sm_scale=sm_scale, key_bias=key_bias)
+        return (flash_dq_plain(q, k, v, do, lse, delta, block_k=block_k,
+                               **kw),
+                *flash_dkv_plain(q, k, v, do, lse, delta, block_k=block_k,
+                                 **kw))
     dq = flash_dq_cuda if _on_tensor_cores("dq", q, k, v) \
         else flash_dq_generic_cuda
     dkv = flash_dkv_cuda if _on_tensor_cores("dkv", q, k, v) \
@@ -497,55 +582,68 @@ def _bwd(q, k, v, do, lse, delta, key_bias, causal, sm_scale, block_k):
 
 
 class _FlashFunction(torch.autograd.Function):
-    """``out`` of q, k, v (and an optional f32 key bias, saved beside
-    them); the backward recomputes p from the saved lse with ``delta =
-    rowsum(dO * O)``, as ``flash_pallas._bwd`` does for an unused lse
-    cotangent.  The bias gets no gradient (``stop_gradient`` in JAX)."""
+    """``(out, lse)`` of q, k, v (and an optional f32 key bias, saved
+    beside them); the backward recomputes p from the saved lse with
+    ``delta = rowsum(dO * O) - d_lse``, as ``flash_pallas._bwd`` does: the
+    lse cotangent (absent when lse is unused) needs no other operand.  The
+    bias and the offsets get no gradient (``stop_gradient`` and a float0
+    cotangent in JAX)."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, causal: bool, sm_scale: float,
-                block_k: int):
+                block_k: int, q_offset: int, k_offset: int):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if key_bias is not None:
             key_bias = key_bias.detach().to(torch.float32).contiguous()
-        out, lse = _fwd(q, k, v, key_bias, causal, sm_scale, block_k)
+        offsets = (q_offset, k_offset)
+        out, lse = _fwd(q, k, v, key_bias, causal, sm_scale, block_k,
+                        offsets)
         ctx.save_for_backward(q, k, v, out, lse, key_bias)
-        ctx.args = (causal, sm_scale, block_k)
-        return out
+        ctx.args = (causal, sm_scale, block_k, offsets)
+        ctx.set_materialize_grads(False)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, d_out):
+    def backward(ctx, d_out, d_lse):
         q, k, v, out, lse, key_bias = ctx.saved_tensors
+        if d_out is None:
+            d_out = torch.zeros_like(out)
         d_out = d_out.to(q.dtype).contiguous()
         delta = (d_out.to(torch.float32) * out.to(torch.float32)).sum(-1)
+        if d_lse is not None:
+            delta = delta - d_lse
         dq, dk, dv = _bwd(q, k, v, d_out, lse, delta, key_bias, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     block_q: int = _DEF_BLOCK, block_k: int = _DEF_BLOCK,
                     q_offset: int = 0, k_offset: int = 0,
-                    key_bias: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    key_bias: Optional[torch.Tensor] = None,
+                    with_lse: bool = False):
     """Exact attention through the flash kernels, q: [B, H, Sq, hd], k/v:
-    [B, Hkv, Sk, hd] -> [B, H, Sq, hd] in q's dtype.  Differentiable; the
-    backward recomputes p from the saved lse, so residual memory is
-    O(B*H*Sq*(hd+1)), never O(S^2).  ``block_q`` is accepted for the JAX
-    signature and unused (the kernels tile by ``TILE``).
+    [B, Hkv, Sk, hd] -> [B, H, Sq, hd] in q's dtype (with ``with_lse``,
+    ``(out, lse f32 [B, H, Sq])``, both differentiable: the entry
+    ``flash_pallas._flash4(..., with_lse=True)`` gives the sequence-parallel
+    ring).  Differentiable; the backward recomputes p from the saved lse,
+    so residual memory is O(B*H*Sq*(hd+1)), never O(S^2).  ``block_q`` is
+    accepted for the JAX signature and unused (the kernels tile by
+    ``TILE``).
 
-    ``key_bias`` ([B, Sk], cast to f32) is added to every query row's
-    scores: the padding-mask channel (0 / -1e30), not differentiable.
-    JAX's precondition holds here too: every query row must see at least
-    one unmasked key.  For a row whose keys are all masked the backward's
-    recompute p = exp(s - lse) gives 1 per key instead of 1/Sk (that
-    row's gradients inflated about Sk-fold), and the forward degenerates:
-    a uniform average of v in the plain version and the second family,
-    zeros on the tensor-core kernels (their running max starts at -1e30
-    in log2 units, above a masked score)."""
-    if q_offset or k_offset:
-        raise NotImplementedError(
-            f"flash_attention: q/k offsets are not ported ({_SP_ITEM})")
+    ``q_offset``/``k_offset``: the global positions of q's and k's first
+    rows, for causality over a sharded sequence (integers, as JAX's traced
+    int32 pair); a row that sees no key gives out 0, lse -1e30 and no
+    gradient.  ``key_bias`` ([B, Sk], cast to f32) is added to every query
+    row's scores: the padding-mask channel (0 / -1e30), not
+    differentiable.  JAX's precondition holds for the bias: every query
+    row must see at least one unmasked key.  For a row whose keys are all
+    masked by the bias the backward's recompute p = exp(s - lse) gives 1
+    per key instead of 1/Sk (that row's gradients inflated about
+    Sk-fold), and the forward degenerates: a uniform average of v in the
+    plain version and the second family, zeros on the tensor-core
+    kernels (their running max starts at -1e30 in log2 units, above a
+    masked score)."""
     if key_bias is not None and tuple(key_bias.shape) != (q.shape[0],
                                                           k.shape[2]):
         raise ValueError(f"flash_attention: key_bias must be [B, Sk] = "
@@ -565,5 +663,79 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "pad the keys or use the plain attention path")
     if sm_scale is None:
         sm_scale = hd ** -0.5
-    return _FlashFunction.apply(q, k, v, key_bias, bool(causal),
-                                float(sm_scale), int(block_k))
+    out, lse = _FlashFunction.apply(q, k, v, key_bias, bool(causal),
+                                    float(sm_scale), int(block_k),
+                                    int(q_offset), int(k_offset))
+    return (out, lse) if with_lse else out
+
+
+# -- sequence parallelism: the ring over the stacked sp ranks -------------------
+
+def rotate(t: torch.Tensor) -> torch.Tensor:
+    """One hop of the sp ring over the stacked ranks (leading dimension):
+    rank i receives rank i - 1's chunk, as ``lax.ppermute`` with the pairs
+    (i, i + 1) sends it; a copy into the neighbour's slot.  Its gradient
+    is the reverse rotation, as the permute's transpose is."""
+    return torch.roll(t, 1, dims=0)
+
+
+def _lse_merge(out: torch.Tensor, lse: torch.Tensor, o_h: torch.Tensor,
+               lse_h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Logsumexp merge of two normalised partial attentions (f32 running
+    output and lse; ``o_h`` in any dtype): a fully masked hop arrives as
+    (0, -1e30) and merges as a no-op."""
+    lse_n = torch.logaddexp(lse, lse_h)
+    w, w_h = torch.exp(lse - lse_n), torch.exp(lse_h - lse_n)
+    return (out * w[..., None]
+            + o_h.to(torch.float32) * w_h[..., None]), lse_n
+
+
+def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         axis_name: str = "sp", *, causal: bool = True,
+                         sm_scale: Optional[float] = None,
+                         block_q: int = _DEF_BLOCK,
+                         block_k: int = _DEF_BLOCK) -> torch.Tensor:
+    """Sequence-parallel exact attention on the flash kernels
+    (``flash_pallas.ring_flash_attention``), over n sp ranks stacked as
+    the leading dimension (``axis_name`` names that axis): q [n, B, H,
+    Sl, hd], k/v [n, B, Hkv, Sl, hd]; rank i holds global positions
+    [i Sl, (i + 1) Sl).  Returns [n, B, H, Sl, hd] in q's dtype.
+
+    Hop 0 attends each rank's own chunk; then K/V rotate one rank a hop
+    (``rotate``, grouped: 1/G of the bytes of repeated K/V), and at hop s
+    rank i holds chunk ``src = (i - s) % n``.  Each visible hop is one
+    flash call with offsets ``(i Sl, src Sl)`` and ``with_lse=True``;
+    under ``causal`` a chunk wholly in rank i's future (src > i) is
+    skipped.  The partials merge by logsumexp in f32 (``_lse_merge``),
+    cast once at the end.  Differentiable through every hop: each call's
+    backward folds its lse cotangent into delta, and the rotations
+    transpose to the reverse rotation."""
+    n, _, _, Sl, hd = q.shape
+    if not supported(q.shape[1:]):
+        raise ValueError(f"ring_flash_attention: unsupported shard shape "
+                         f"{tuple(q.shape[1:])}")
+    if sm_scale is None:
+        sm_scale = hd ** -0.5
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+
+    def attend(i, kc, vc, src):
+        return flash_attention(q[i], kc[i], vc[i], causal=causal,
+                               sm_scale=sm_scale, block_q=block_q,
+                               block_k=block_k, q_offset=i * Sl,
+                               k_offset=src * Sl, with_lse=True)
+
+    outs, lses = [], []
+    for i in range(n):
+        o, lse = attend(i, k, v, i)
+        outs.append(o.to(torch.float32))
+        lses.append(lse)
+    kc, vc = k, v
+    for s in range(1, n):
+        kc, vc = rotate(kc), rotate(vc)
+        for i in range(n):
+            src = (i - s) % n
+            if causal and src > i:
+                continue
+            outs[i], lses[i] = _lse_merge(outs[i], lses[i],
+                                          *attend(i, kc, vc, src))
+    return torch.stack(outs).to(q.dtype)

@@ -1,5 +1,6 @@
-"""Exact attention in plain torch and the route to the flash kernels — the
-single-device part of the JAX package's ``ops/ring_attention.py``.
+"""Exact attention in plain torch, its sequence-parallel forms and the
+route to the flash kernels — the port of the JAX package's
+``ops/ring_attention.py``.
 
 ``full_attention`` is the direct softmax; ``flash_attention`` the same
 online-softmax accumulation over key blocks that the ring variants use
@@ -9,8 +10,14 @@ under ``torch.utils.checkpoint``, as the JAX function picks Pallas or
 ``jax.checkpoint``.  ``pallas_route`` is that choice; "pallas" names the
 port's CUDA kernels, as ``BFPConfig(codec="pallas")`` does.
 
-Sequence parallelism (``ring_attention``, ``gathered_attention``) needs a
-mesh the port does not have yet and raises ``NotImplementedError``.
+Sequence parallelism (``ring_attention``, ``gathered_attention``) runs
+over n sp ranks stacked as the leading dimension of q, k and v (the port's
+virtual ranks, as ``parallel.mesh.VirtualRanks`` stacks dp): q [n, B, H,
+Sl, dh], k/v [n, B, Hkv, Sl, dh], rank i holding global positions
+[i Sl, (i + 1) Sl); ``axis_name`` names that axis, as JAX's names the mesh
+axis.  A ring hop is ``flash_attention.rotate``, JAX's ``lax.ppermute``;
+the all-gather is one [B, Hkv, n Sl, dh] copy every rank reads.  The plain
+route takes repeat-expanded K/V (Hkv = H), the kernels grouped ones.
 """
 
 from __future__ import annotations
@@ -23,8 +30,6 @@ from torch.utils.checkpoint import checkpoint
 from . import flash_attention as flash_ops
 
 _NEG = -1e30
-_SP_ITEM = ("sequence parallelism (sp) is not ported yet: ROADMAP A.6 "
-            "(ring_flash_attention and the sp mesh axis)")
 
 
 def _init_acc(B: int, H: int, S: int, dh: int, device):
@@ -159,11 +164,90 @@ def flash_attention_remat(q, k, v, *, causal=True, sm_scale=None,
         q, k, v, use_reentrant=False)
 
 
-def ring_attention(q, k, v, axis_name: str, **kw):
-    """Sequence-parallel ring attention: not ported."""
-    raise NotImplementedError(_SP_ITEM)
+def _positions(i: int, S: int, device) -> torch.Tensor:
+    """Global positions of sp rank i's S rows."""
+    return i * S + torch.arange(S, device=device)
 
 
-def gathered_attention(q, k, v, axis_name: str, **kw):
-    """Sequence-parallel attention by K/V all-gather: not ported."""
-    raise NotImplementedError(_SP_ITEM)
+def ring_attention(q, k, v, axis_name: str, *, causal: bool = True,
+                   sm_scale: Optional[float] = None,
+                   k_block: Optional[int] = 512, unroll: bool = False,
+                   impl: str = "auto"):
+    """Sequence-parallel exact attention over the stacked sp ranks: q, k,
+    v [n, B, H, Sl, dh] (k/v grouped, [n, B, Hkv, Sl, dh], on the kernel
+    route) -> [n, B, H, Sl, dh] in q's dtype.
+
+    "auto" takes ``flash_attention.ring_flash_attention`` where
+    ``pallas_route`` takes the kernels (the same K/V rotation, per-hop
+    flash calls with offsets, logsumexp merge); "xla" pins the plain ring:
+    each hop's visiting chunk goes through ``_attend_chunk`` in blocks of
+    ``k_block`` keys against global positions, the accumulators in f32,
+    one cast at the end; a chunk wholly in a rank's future (src > i) is
+    skipped under ``causal``.  ``unroll`` and ``k_block=None`` are the
+    plain ring's schedules (JAX's knob rules): "auto" keeps the plain ring
+    when either is set, pinned "pallas" rejects them."""
+    xla_only_knobs = unroll or k_block is None
+    if impl == "pallas" and xla_only_knobs:
+        raise ValueError(
+            "impl='pallas' cannot honor unroll=True / k_block=None: the "
+            "kernel ring is a loop of blocked kernels; drop the knob or use "
+            "impl='xla'")
+    if not xla_only_knobs and pallas_route(impl, q[0],
+                                           kv_seq_len=k.shape[-2]):
+        return flash_ops.ring_flash_attention(
+            q, k, v, axis_name, causal=causal, sm_scale=sm_scale,
+            block_q=k_block, block_k=k_block)
+    n, B, H, S, dh = q.shape
+    if sm_scale is None:
+        sm_scale = dh ** -0.5
+    qf = q.to(torch.float32)
+    pos = [_positions(i, S, q.device) for i in range(n)]
+    acc = [_attend_chunk(qf[i], k[i], v[i], pos[i], i * S,
+                         *_init_acc(B, H, S, dh, q.device), sm_scale, causal,
+                         k_block) for i in range(n)]
+    kc, vc = k, v
+    for s in range(1, n):
+        kc, vc = flash_ops.rotate(kc), flash_ops.rotate(vc)
+        for i in range(n):
+            src = (i - s) % n
+            if causal and src > i:
+                continue
+            acc[i] = _attend_chunk(qf[i], kc[i], vc[i], pos[i], src * S,
+                                   *acc[i], sm_scale, causal, k_block)
+    return torch.stack([_finish(o, l, q.dtype) for _, l, o in acc])
+
+
+def _all_gather(t: torch.Tensor) -> torch.Tensor:
+    """[n, B, h, Sl, dh] stacked shards -> [B, h, n Sl, dh], the sequence
+    gathered in rank order (``lax.all_gather(..., axis=2, tiled=True)``;
+    every rank reads the one copy, and its gradient sums theirs)."""
+    n, B, h, Sl, dh = t.shape
+    return t.permute(1, 2, 0, 3, 4).reshape(B, h, n * Sl, dh)
+
+
+def gathered_attention(q, k, v, axis_name: str, *, causal: bool = True,
+                       sm_scale: Optional[float] = None,
+                       k_block: Optional[int] = 512, impl: str = "auto"):
+    """Sequence-parallel attention by a K/V all-gather over the stacked sp
+    ranks: queries stay sharded, K/V are gathered once, and each rank's
+    local attention runs against the whole sequence: on the kernel route
+    one flash call a rank with ``q_offset = i Sl`` (global-position
+    causality), on the plain one ``_attend_chunk`` from position 0.
+    Shapes as ``ring_attention``'s."""
+    n, B, H, Sl, dh = q.shape
+    if sm_scale is None:
+        sm_scale = dh ** -0.5
+    kf, vf = _all_gather(k), _all_gather(v)
+    if pallas_route(impl, q[0], kv_seq_len=kf.shape[2]):
+        b = k_block or flash_ops._DEF_BLOCK
+        return torch.stack([flash_ops.flash_attention(
+            q[i], kf, vf, causal=causal, sm_scale=sm_scale,
+            q_offset=i * Sl, block_q=b, block_k=b) for i in range(n)])
+    qf = q.to(torch.float32)
+    outs = []
+    for i in range(n):
+        _, l, o = _attend_chunk(qf[i], kf, vf, _positions(i, Sl, q.device),
+                                0, *_init_acc(B, H, Sl, dh, q.device),
+                                sm_scale, causal, k_block)
+        outs.append(_finish(o, l, q.dtype))
+    return torch.stack(outs)

@@ -58,6 +58,10 @@ class DDPTrainer:
 
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig):
+        if ranks.sp != 1:
+            raise NotImplementedError(
+                f"sp={ranks.sp}: sequence parallelism runs on "
+                "ShardedTrainer, as in the JAX package")
         if cfg.mesh.nproc != ranks.n or cfg.mesh.dp != ranks.n:
             raise ValueError(f"cfg.mesh ({cfg.mesh}) does not describe "
                              f"{ranks.n} dp ranks")

@@ -1,5 +1,5 @@
-"""Virtual ranks on one card — what stands in for the JAX package's dp
-mesh axis (``parallel/mesh.py``).
+"""Virtual ranks on one card — what stands in for the JAX package's dp and
+sp mesh axes (``parallel/mesh.py``).
 
 The port runs the reference's 1-D data-parallel ring in loopback: n ranks
 share one device, every per-rank tensor is stacked over the ranks as its
@@ -7,6 +7,12 @@ leading dimension, and a ring hop is a write into the neighbour's rows
 (``ops.ring_cuda``).  This mirrors the JAX package's
 ``ring_pallas.loopback_microbench``, which runs ``virtual_n`` ranks on one
 TPU chip.  Rings across cards (NCCL) are not part of the port yet.
+
+An sp axis (sequence parallelism) stacks the sequence shards of each dp
+rank as a second leading dimension: a ``[B, S]`` batch leaf becomes
+``[n_dp, n_sp, B / n_dp, S / n_sp]`` (JAX's ``P(dp, sp)``: rank (d, s)
+holds JAX device (d, s)'s rows and columns), and one dp rank's loss runs
+over its n_sp shards at once (``models.llama.loss_fn(..., sp_axis=...)``).
 """
 
 from __future__ import annotations
@@ -22,35 +28,55 @@ from ..utils.config import MeshConfig
 
 @dataclass(frozen=True)
 class VirtualRanks:
-    """n data-parallel ranks stacked on one device."""
+    """n data-parallel ranks stacked on one device, each holding ``sp``
+    sequence shards."""
 
     n: int
     device: torch.device
+    sp: int = 1
 
     def __post_init__(self) -> None:
-        if self.n < 1:
-            raise ValueError(f"need at least one rank, got {self.n}")
+        if self.n < 1 or self.sp < 1:
+            raise ValueError(f"need at least one rank, got dp={self.n}, "
+                             f"sp={self.sp}")
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
         """[B, ...] global batch -> [n, B/n, ...] on the device: rank i
-        gets rows i*B/n .. (i+1)*B/n - 1 (the MPI_Scatter analogue)."""
+        gets rows i*B/n .. (i+1)*B/n - 1 (the MPI_Scatter analogue).  With
+        sp > 1, [B, S, ...] -> [n, sp, B/n, S/sp, ...]: rank (i, j) gets
+        those rows' columns j*S/sp .. (j+1)*S/sp - 1."""
         if x.shape[0] % self.n:
             raise ValueError(f"global batch {x.shape[0]} does not split "
                              f"over {self.n} ranks")
-        return x.to(self.device).reshape(self.n, -1, *x.shape[1:])
+        x = x.to(self.device)
+        if self.sp == 1:
+            return x.reshape(self.n, -1, *x.shape[1:])
+        if x.dim() < 2 or x.shape[1] % self.sp:
+            raise ValueError(f"a batch leaf of shape {tuple(x.shape)} has "
+                             f"no sequence axis that splits over "
+                             f"sp={self.sp} ranks")
+        B, S = x.shape[:2]
+        return x.reshape(self.n, B // self.n, self.sp, S // self.sp,
+                         *x.shape[2:]).transpose(1, 2).contiguous()
 
     def shard_batch(self, batch: Sequence[torch.Tensor]
                     ) -> Tuple[torch.Tensor, ...]:
         return tuple(self.shard(x) for x in batch)
 
 
+UNPORTED_AXES = {"fsdp": "ROADMAP A.5 (parallel/fsdp.py)",
+                 "tp": "ROADMAP A.5 (the tp axis of parallel/sharded.py)",
+                 "pp": "ROADMAP A.6 item 4 (parallel/pipeline.py)",
+                 "ep": "ROADMAP A.6 item 3 (ops/moe.py)"}
+
+
 def make_ranks(cfg: MeshConfig, device: DeviceLike = "cuda"
                ) -> VirtualRanks:
-    """The dp axis of a MeshConfig as virtual ranks on ``device``; the
-    other axes are not ported."""
+    """The dp and sp axes of a MeshConfig as virtual ranks on ``device``;
+    the other axes are not ported."""
     for name, size in cfg.axis_sizes():
-        if name != "dp" and size != 1:
+        if name in UNPORTED_AXES and size != 1:
             raise NotImplementedError(
-                f"mesh axis {name}={size} is not ported: the port runs "
-                "data parallelism only")
-    return VirtualRanks(cfg.dp, resolve_device(device))
+                f"mesh axis {name}={size} is not ported: "
+                f"{UNPORTED_AXES[name]}; the port runs dp and sp")
+    return VirtualRanks(cfg.dp, resolve_device(device), cfg.sp)

@@ -1,5 +1,6 @@
 """ZeRO-1 sharded trainer over virtual ranks — the port of the JAX
-package's ``parallel/sharded.py`` (``ShardedTrainer``) for its dp axis.
+package's ``parallel/sharded.py`` (``ShardedTrainer``) for its dp and sp
+axes.
 
 The JAX step, phase by phase (``sharded.py`` ``step_fn``):
 
@@ -12,8 +13,17 @@ The JAX step, phase by phase (``sharded.py`` ``step_fn``):
   5. ``fused_update.all_gather_flat`` of the updated masters into every
      rank's replica, cast to the model dtype for the next step.
 
+With sp > 1 (``MeshConfig(dp, sp)``) the batch shards as JAX's ``P(dp,
+sp)`` (``VirtualRanks.shard``) and each dp rank's loss takes its n_sp
+sequence shards stacked (a loss closed over ``sp_axis``, e.g.
+``llama.loss_fn(..., sp_axis="sp")``): one graph over the shards, so
+autograd sums the sp ranks' contributions to the replicated weights, as
+JAX's varying-axes transposes psum them over sp.  The dp phases then run
+once per dp rank; JAX runs them once per (dp, sp) device on identical
+inputs, with the same result.
+
 As in the JAX package the fused optimizer kernel is not used: the update
-is ``optim.apply`` between the two collectives.  Other mesh axes (tp, sp,
+is ``optim.apply`` between the two collectives.  Other mesh axes (tp,
 pp, ep, fsdp), ``loss_and_grads_fn`` (the 1F1B schedule) and
 ``accum_steps > 1`` raise ``NotImplementedError``; ``integrity_check``
 raises ``ValueError``, as the JAX package's does (it is DPTrainer's).
@@ -35,18 +45,21 @@ from ..utils.config import TrainConfig
 
 
 class ShardedTrainer(DPTrainer):
-    """``loss_fn(params, batch) -> scalar`` over n virtual dp ranks; a
-    batch is a tuple of tensors with a leading global-batch axis, split
-    over the ranks by ``shard_batch``."""
+    """``loss_fn(params, batch) -> scalar`` over n virtual dp ranks (each
+    holding ``ranks.sp`` sequence shards); a batch is a tuple of tensors
+    with a leading global-batch axis (and, with sp, a sequence axis),
+    split over the ranks by ``shard_batch``."""
+
+    takes_sp = True
 
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig, *,
                  loss_and_grads_fn: Optional[Callable] = None):
         for name, size in cfg.mesh.axis_sizes():
-            if name != "dp" and size != 1:
+            if name not in ("dp", "sp") and size != 1:
                 raise NotImplementedError(
                     f"mesh axis {name}={size} is not ported: ShardedTrainer "
-                    "runs the dp axis only")
+                    "runs the dp and sp axes")
         if loss_and_grads_fn is not None:
             raise NotImplementedError(
                 "loss_and_grads_fn (explicit-gradient schedules such as the "

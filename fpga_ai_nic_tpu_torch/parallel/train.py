@@ -164,11 +164,18 @@ class DPTrainer:
     tensors with a leading global-batch axis, split over the ranks by
     ``shard_batch``."""
 
+    takes_sp = False     # ShardedTrainer's: the sp axis of the mesh
+
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig):
-        if cfg.mesh.nproc != ranks.n or cfg.mesh.dp != ranks.n:
+        if (cfg.mesh.nproc != ranks.n * ranks.sp or cfg.mesh.dp != ranks.n
+                or cfg.mesh.sp != ranks.sp):
             raise ValueError(f"cfg.mesh ({cfg.mesh}) does not describe "
-                             f"{ranks.n} dp ranks")
+                             f"{ranks.n} dp x {ranks.sp} sp ranks")
+        if ranks.sp != 1 and not self.takes_sp:
+            raise NotImplementedError(
+                f"sp={ranks.sp}: sequence parallelism runs on "
+                "ShardedTrainer, as in the JAX package")
         coll = cfg.collective
         for name, unported in (
                 ("obs_metrics", cfg.obs_metrics),

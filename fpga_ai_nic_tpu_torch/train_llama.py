@@ -1,12 +1,17 @@
 """Llama training driver of the port — the counterpart of the JAX package's
-``examples/train_llama.py`` on its dp axis (no pipeline, tensor, sequence
-or expert parallelism yet).  Prints one JSON line: first and last loss,
+``examples/train_llama.py`` on its dp and sp axes (no pipeline, tensor or
+expert parallelism yet).  Prints one JSON line: first and last loss,
 tokens/s, wall time, parameter count and mesh.
 
 Examples (on the card; ``--device=cpu`` runs the plain versions instead):
   python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
       --model.n_layers=4 --model.attn_block=512 --seq=4096 \\
       --global_batch=2 --mesh.dp=2 --iters=3 \\
+      --collective.impl=ring --collective.compression.codec=pallas \\
+      --collective.fused_kernel=true
+  python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
+      --model.n_layers=4 --model.attn_block=512 --seq=8192 \\
+      --global_batch=2 --mesh.dp=2 --mesh.sp=4 --iters=3 \\
       --collective.impl=ring --collective.compression.codec=pallas \\
       --collective.fused_kernel=true
   python -m fpga_ai_nic_tpu_torch.train_llama --model=tiny --device=cpu \\
@@ -19,8 +24,12 @@ configuration and ``--model.<field>=`` overlays ``LlamaConfig`` fields;
 cuda; it raises when CUDA is absent); everything else goes to
 ``TrainConfig``.  Batches are seeded uniform tokens, one per step, as
 the JAX driver's ``make_batch`` draws them; the first step is a warm-up
-outside the timed window.  The ranks of ``--mesh.dp`` are virtual ranks
-on one card.
+outside the timed window.  The ranks of ``--mesh.dp`` and ``--mesh.sp``
+are virtual ranks on one card: with sp > 1 each dp rank's loss runs over
+its sp sequence shards (``llama.loss_fn(..., sp_axis="sp")``, ring
+attention across them; the labels are the globally shifted targets, so
+the shift crosses shard boundaries), and the sequence must split into
+shards of a multiple of 128 tokens.
 """
 
 from __future__ import annotations
@@ -70,7 +79,12 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
             raise ValueError(f"unknown LlamaConfig field {name!r}")
         mcfg = dataclasses.replace(mcfg, **{name: coerce_value(
             _declared_type(mcfg, name), val)})
-    return mcfg, from_flags(TrainConfig, rest), seq, device
+    cfg = from_flags(TrainConfig, rest)
+    sp = cfg.mesh.sp
+    if sp > 1 and (seq % sp or (seq // sp) % 128):
+        raise ValueError(f"--seq={seq} does not split into --mesh.sp={sp} "
+                         "shards of a multiple of 128 tokens")
+    return mcfg, cfg, seq, device
 
 
 def batches(mcfg: LlamaConfig, cfg: TrainConfig, seq: int,
@@ -87,10 +101,13 @@ def batches(mcfg: LlamaConfig, cfg: TrainConfig, seq: int,
 
 def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str
           ) -> Tuple[ShardedTrainer, TrainState]:
-    """The trainer over ``cfg.mesh.dp`` virtual ranks and its initial
-    state, from weights drawn on the device with seed ``cfg.seed``."""
+    """The trainer over ``cfg.mesh.dp`` x ``cfg.mesh.sp`` virtual ranks
+    and its initial state, from weights drawn on the device with seed
+    ``cfg.seed``."""
     ranks = make_ranks(cfg.mesh, device)
-    tr = ShardedTrainer(lambda p, b: llama.loss_fn(p, b, mcfg), ranks, cfg)
+    sp_axis = "sp" if cfg.mesh.sp > 1 else None
+    tr = ShardedTrainer(
+        lambda p, b: llama.loss_fn(p, b, mcfg, sp_axis=sp_axis), ranks, cfg)
     gen = torch.Generator(device=ranks.device).manual_seed(cfg.seed)
     return tr, tr.init_state(llama.init(gen, mcfg, ranks.device))
 

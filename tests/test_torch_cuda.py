@@ -371,11 +371,13 @@ def test_flash_kernels_raise_on_unbuilt_operands(cuda_device):
     head = (2, 1, 2, 128, 128, 1, 0.125)
     p96, pr = ptr(hd96), ptr(rows)
     with pytest.raises(RuntimeError, match="launch failed"):
-        fa.FLASH_FWD(p96, p96, p96, None, p96, pr, *head, 96)
+        fa.FLASH_FWD(p96, p96, p96, None, p96, pr, *head, 96, 0, 0)
     with pytest.raises(RuntimeError, match="launch failed"):
-        fa.FLASH_DQ(p96, p96, p96, p96, pr, pr, None, p96, *head, 96)
+        fa.FLASH_DQ(p96, p96, p96, p96, pr, pr, None, p96, *head, 96, 0,
+                    0)
     with pytest.raises(RuntimeError, match="launch failed"):
-        fa.FLASH_DKV(p96, p96, p96, p96, pr, pr, None, p96, p96, *head, 96)
+        fa.FLASH_DKV(p96, p96, p96, p96, pr, pr, None, p96, p96, *head, 96,
+                     0, 0)
     assert [fa.FLASH_FWD.launches, fa.FLASH_DQ.launches,
             fa.FLASH_DKV.launches] == counts
     f64 = torch.zeros((1, 2, 128, 128), device=cuda_device,
@@ -715,6 +717,161 @@ def test_flash_generic_zero_bias_keeps_the_bias_free_bits(cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(got["none"], got["zero"]):
         assert torch.equal(a, b)
+
+
+# the q/k offset channel: name -> (Sq, Sk, q_offset, k_offset); the ring's
+# past hop and diagonal, the gathered shape (k tiles no row sees), a shift
+# that cuts through tiles either way, a chunk wholly in the future
+OFFSET_CASES = {
+    "past_hop": (256, 256, 256, 0),
+    "diagonal": (256, 256, 512, 512),
+    "gathered": (128, 512, 256, 0),
+    "shift_100": (256, 256, 100, 0),
+    "shift_minus_96": (256, 320, 0, 96),
+    "future_chunk": (256, 256, 0, 256),
+}
+
+
+def _unseen(Sq, Sk, q_offset, k_offset, device):
+    """([Sq] rows that see no key, [Sk] keys no row sees) under causal."""
+    rows = q_offset + torch.arange(Sq, device=device) < k_offset
+    keys = k_offset + torch.arange(Sk, device=device) > q_offset + Sq - 1
+    return rows, keys
+
+
+def _offset_check(fwd, dq_fn, dkv_fn, q, k, v, do, kw, close):
+    """One offset case through a kernel family against the plain versions
+    on the same card tensors; rows that see no key: out 0, lse -1e30, dq
+    0, and keys no row sees: dk, dv 0."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    out, lse = fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = dq_fn(q, k, v, do, lse, delta, **kw)
+    dk, dv = dkv_fn(q, k, v, do, lse, delta, **kw)
+    again = (*fwd(q, k, v, **kw), dq_fn(q, k, v, do, lse, delta, **kw),
+             *dkv_fn(q, k, v, do, lse, delta, **kw))
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
+    p_dq = fa.flash_dq_plain(q, k, v, do, lse, delta, **kw)
+    p_dk, p_dv = fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"),
+                          (out, lse, dq, dk, dv), again):
+        assert torch.equal(a, b), f"{name}: a second launch differs"
+    assert float((lse - p_lse).abs().max()) <= fa.LSE_TOL
+    rows, keys = _unseen(q.shape[2], k.shape[2], kw["q_offset"],
+                         kw["k_offset"], q.device)
+    assert bool((lse[..., rows] == -1e30).all())
+    for name, a in (("out", out), ("dq", dq)):
+        assert not a[..., rows, :].any(), f"{name}: not 0 where unseen"
+    for name, a in (("dk", dk), ("dv", dv)):
+        assert not a[..., keys, :].any(), f"{name}: not 0 where unseen"
+    for name, a, b in (("out", out, p_out), ("dq", dq, p_dq),
+                       ("dk", dk, p_dk), ("dv", dv, p_dv)):
+        assert bool(torch.isfinite(a.float()).all()), name
+        if bool(b.any()):
+            close(name, a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 64])
+@pytest.mark.parametrize("case", sorted(OFFSET_CASES))
+def test_flash_offsets_vs_plain_on_card(cuda_device, case, hd):
+    """The tensor-core forward, dq and dk/dv with q/k offsets (their OFF
+    instantiations; the diagonal's zero shift takes the ones without)
+    against the plain versions: within ``tol_ratio`` <= 1, lse within
+    LSE_TOL, a second launch bit-equal, zeros where nothing is seen."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    Sq, Sk, qo, ko = OFFSET_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + qo + hd)
+
+    def rand(*s):
+        return torch.randn(s, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+
+    q, k, v = rand(1, 8, Sq, hd), rand(1, 2, Sk, hd), rand(1, 2, Sk, hd)
+    kw = dict(causal=True, sm_scale=hd ** -0.5, q_offset=qo, k_offset=ko)
+
+    def close(name, a, b):
+        assert fa.tol_ratio(a, b) <= 1.0, name
+
+    _offset_check(fa.flash_fwd_cuda, fa.flash_dq_cuda, fa.flash_dkv_cuda,
+                  q, k, v, rand(1, 8, Sq, hd), kw, close)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(OFFSET_CASES))
+def test_flash_generic_offsets_vs_plain_on_card(cuda_device, case):
+    """The second family with q/k offsets (f32, head_dim 32) against the
+    plain versions: the JAX tests' f32 limits (2e-5 forward, atol 5e-5 /
+    rtol 5e-4 gradients), a second launch bit-equal, zeros where nothing
+    is seen."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    Sq, Sk, qo, ko = OFFSET_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + qo)
+
+    def rand(*s):
+        return torch.randn(s, generator=g, device=cuda_device)
+
+    q, k, v = rand(1, 4, Sq, 32), rand(1, 2, Sk, 32), rand(1, 2, Sk, 32)
+    kw = dict(causal=True, sm_scale=32 ** -0.5, q_offset=qo, k_offset=ko)
+
+    def close(name, a, b):
+        atol, rtol = (2e-5, 2e-5) if name == "out" else (5e-5, 5e-4)
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+
+    _offset_check(fa.flash_fwd_generic_cuda, fa.flash_dq_generic_cuda,
+                  fa.flash_dkv_generic_cuda, q, k, v, rand(1, 4, Sq, 32),
+                  kw, close)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_flash_attention_on_card(cuda_device, causal):
+    """``ring_flash_attention`` over 4 stacked sp ranks (GQA, head_dim
+    128) on the card against the same call on CPU copies (the plain
+    versions).  Causal in bf16 (the tensor-core kernels): output and
+    q/k/v gradients within ``tol_ratio`` <= 1, one forward, dq and dk/dv
+    launch a visible hop (10), the past hops counted on the offset
+    wrappers.  Not causal in f32 (the second family): the JAX ring tests'
+    limits (atol/rtol 3e-5 forward, 1e-4 / 1e-3 gradients); in bf16 each
+    of the 4 hops' outputs is rounded once before the merge, which no
+    elementwise bf16 limit of the merged value bounds."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    n, Sl = 4, 256
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    dt = torch.bfloat16 if causal else torch.float32
+
+    def rand(*s):
+        return torch.randn(s, generator=g, device=cuda_device).to(dt)
+
+    q, k, v = rand(n, 1, 8, Sl, 128), rand(n, 1, 2, Sl, 128), rand(
+        n, 1, 2, Sl, 128)
+    do = rand(n, 1, 8, Sl, 128)
+    kernels = ((fa.FLASH_FWD, fa.FLASH_DQ, fa.FLASH_DKV, fa.FLASH_FWD_OFFSETS,
+                fa.FLASH_DQ_OFFSETS, fa.FLASH_DKV_OFFSETS) if causal else
+               (fa.FLASH_FWD_GENERIC, fa.FLASH_DQ_GENERIC,
+                fa.FLASH_DKV_GENERIC))
+    before = [k_.launches for k_ in kernels]
+    res = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = fa.ring_flash_attention(*leaves, "sp", causal=causal)
+        res[dev.type] = (out.detach(), *torch.autograd.grad(
+            out, leaves, do.to(dev)))
+    # causal: the n diagonal hops take the kernels without offsets, the
+    # n (n - 1) / 2 past hops their OFF instantiation; without causal all
+    # n^2 hops run (on the second family here)
+    hops = (n, n * (n - 1) // 2) if causal else (n * n,)
+    assert [k_.launches for k_ in kernels] == [
+        b + hops[i // 3] for i, b in enumerate(before)]
+    for name, a, b in zip(("out", "dq", "dk", "dv"), res["cuda"],
+                          res["cpu"]):
+        assert bool(torch.isfinite(a.float()).all()), name
+        if causal:
+            assert fa.tol_ratio(a.cpu(), b) <= 1.0, name
+        else:
+            atol, rtol = (3e-5, 3e-5) if name == "out" else (1e-4, 1e-3)
+            torch.testing.assert_close(a.cpu(), b, atol=atol, rtol=rtol)
 
 
 # sha256 of out, lse, dq, dk and dv of the tensor-core flash kernels

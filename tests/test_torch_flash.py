@@ -139,18 +139,34 @@ def test_raising_paths():
     kv = torch.zeros((1, 2, 100, 64))
     with pytest.raises(ValueError, match="K/V sequence length"):
         fa.flash_attention(q, kv, kv)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        fa.flash_attention(q, q, q, q_offset=128)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        fa.flash_attention(q, q, q, k_offset=128)
+    # the q/k offsets (ported with sequence parallelism): a q shard at its
+    # global position gives the matching rows of whole-sequence attention,
+    # equal offsets change nothing, and rows before the first key give 0
+    # (tests/test_torch_sp.py holds them against the Pallas kernels)
+    x = torch.randn((1, 2, 256, 64), generator=torch.Generator().manual_seed(9))
+    full = fa.flash_attention(x, x, x, block_k=128)
+    torch.testing.assert_close(
+        fa.flash_attention(x[:, :, 128:], x, x, q_offset=128, block_k=128),
+        full[:, :, 128:], atol=2e-5, rtol=2e-5)
+    assert torch.equal(fa.flash_attention(x, x, x, q_offset=128,
+                                          k_offset=128, block_k=128), full)
+    late = fa.flash_attention(x, x, x, k_offset=128, block_k=128)
+    assert not late[:, :, :128].any()
+    torch.testing.assert_close(late[:, :, 128:], fa.flash_attention(
+        x[:, :, 128:], x[:, :, :128], x[:, :, :128], block_k=128),
+        atol=2e-5, rtol=2e-5)
     with pytest.raises(ValueError, match="key_bias"):
         fa.flash_attention(q, q, q, key_bias=torch.zeros((1, 128)))
     with pytest.raises(ValueError, match="unsupported"):
         fa.flash_attention(torch.zeros((1, 2, 100, 64)), q, q)
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        ra.ring_attention(q, q, q, "sp")
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        ra.gathered_attention(q, q, q, "sp")
+    # ring and gathered attention over two stacked sp shards: the rows of
+    # whole-sequence attention
+    shards = x.reshape(1, 2, 2, 128, 64).permute(2, 0, 1, 3, 4)
+    for fn in (ra.ring_attention, ra.gathered_attention):
+        got = fn(shards, shards, shards, "sp")
+        torch.testing.assert_close(
+            got.permute(1, 2, 0, 3, 4).reshape(1, 2, 256, 64),
+            ra.full_attention(x, x, x), atol=2e-5, rtol=2e-5)
     odd = torch.zeros((1, 2, 100, 64))
     with pytest.raises(ValueError, match="pinned"):
         ra.flash_attention_remat(odd, odd, odd, impl="pallas")

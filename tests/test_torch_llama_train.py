@@ -235,9 +235,19 @@ def test_unported_options_raise():
         llama.loss_fn(params, batch, CFG, remat=True)
     with pytest.raises(NotImplementedError, match="dp_axis"):
         llama.loss_fn(params, batch, CFG, dp_axis="dp")
-    for kw in ({"tp_axis": "tp"}, {"sp_axis": "sp"}, {"ep_axis": "ep"}):
+    for kw in ({"tp_axis": "tp"}, {"ep_axis": "ep"}):
         with pytest.raises(NotImplementedError):
             llama.loss_fn(params, batch, CFG, **kw)
+    # sp_axis (ported with sequence parallelism): the loss over the two
+    # stacked sequence shards is the whole sequence's (f32, rtol 1e-5;
+    # tests/test_torch_sp.py holds it against JAX's sp loss)
+    shards = tuple(t.reshape(BATCH, 2, SEQ // 2).transpose(0, 1)
+                   for t in batch)
+    np.testing.assert_allclose(
+        float(llama.loss_fn(params, shards, CFG, sp_axis="sp")),
+        float(llama.loss_fn(params, batch, CFG)), rtol=1e-5)
+    with pytest.raises(ValueError, match="n_sp"):
+        llama.loss_fn(params, batch, CFG, sp_axis="sp")
     ranks = VirtualRanks(2, torch.device("cpu"))
     for cfg in (TrainConfig(mesh=MeshConfig(dp=2, tp=2)),
                 TrainConfig(mesh=MeshConfig(dp=2), accum_steps=2)):
