@@ -180,8 +180,33 @@ Phases, each printing JSON lines:
      ``loss_fn`` on the whole batch through one replica, in f32 within a
      limit that per-rank moments (the control) exceed; the floor (the
      batch permuted) and the bf16 model's numbers reported beside;
- 18. the ``kernels`` line (the offset instantiations' rows among them,
-     their launches from ``llama_sp_train_path``), then the last line
+ 18. ``moe_train_path``: Mixtral-8x7B width (dim 4096, 32/8 heads, ffn
+     14336, vocab 32000, 8 experts top-2, capacity factor 2, aux weight
+     0.01, bf16, random weights from a seed), 1 layer, sequence 4096,
+     global batch 4 over dp=2 x ep=2 virtual ranks as ``train_llama``
+     builds it (``ShardedTrainer`` on JAX's (ep, dp) master layout, the
+     MoE loss over all ranks in one graph, the flash kernels, the BFP
+     ring kernels within each ep group, SGD) — 1 warm-up (its expert
+     stats) and 5 timed steps on one batch, launches counted (4 a step of
+     each tensor-core flash kernel, one ring_rs_update and one ring_ag an
+     ep group), replicas bit-equal within each ep group and their
+     replicated leaves across the groups, the f32 router held apart, the
+     loss falling; the ring kernels timed at this shape; a profile of two
+     steps (flash, ring, expert GEMMs, dense GEMMs, dispatch/combine, the
+     rest);
+ 19. ``moe_train_parity``: at that width, 1 layer, one sequence on each
+     of ep=2 ranks: the kernel route's loss and gradients against the
+     plain attention route (expert choices pinned to the kernel route's)
+     and against dp=2 x ep=1, within the Llama parity limits, the ep
+     exchange with its destinations swapped (the control) above them,
+     the flip share reported;
+ 20. ``moe_serving_path``: ``ServeEngine`` at Mixtral-8x7B width with 8
+     layers, the serving path's config and requests, its parity (routing
+     pinned to the kernel route's, the unpinned error reported) and its
+     streams against ``generate()``, counted;
+ 21. the ``kernels`` line (the offset instantiations' rows among them,
+     their launches from ``llama_sp_train_path``; the MoE paths'
+     launches and ring times as ``moe_*`` keys), then the last line
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so the f32 GEMMs run in full float32.
@@ -1727,9 +1752,10 @@ def tick_times(eng) -> dict:
     return out
 
 
-def serving_path(dev, cfg, scfg, kernels) -> dict:
+def serving_path(dev, cfg, scfg, kernels, label="") -> dict:
     """``ServeEngine`` answers the seeded requests through the kernel; the
-    launch counts are zeroed just before ``run()`` and read just after."""
+    launch counts are zeroed just before ``run()`` and read just after.
+    ``label`` prefixes the phase's name."""
     import torch
     from fpga_ai_nic_tpu_torch import serve_llama
     from fpga_ai_nic_tpu_torch.models import llama
@@ -1771,10 +1797,13 @@ def serving_path(dev, cfg, scfg, kernels) -> dict:
             f"expected {cfg.n_layers} x {calls} forward_paged calls")
     req = s["requests"]
     ticks = tick_times(eng)
-    emit(phase="serving_path", model=(
+    moe = ("" if cfg.moe is None else
+           f", {cfg.moe_experts} experts top-{cfg.moe_top_k}, capacity "
+           f"factor {cfg.moe_capacity_factor}")
+    emit(phase=label + "serving_path", model=(
         f"Llama (dim {cfg.dim}, {cfg.n_layers} layers, {cfg.n_heads}/"
         f"{cfg.n_kv_heads} heads, ffn {cfg.ffn_dim}, vocab {cfg.vocab}, "
-        f"{cfg.dtype}), random weights"), requests=N_REQUESTS,
+        f"{cfg.dtype}{moe}), random weights"), requests=N_REQUESTS,
          prompt_lens=[int(p.shape[0]) for p in prompts], max_new=MAX_NEW,
          serve_config={f: getattr(scfg, f) for f in SERVE_SHAPE},
          weight_init_s=init_s, wall_s=wall,
@@ -1869,14 +1898,21 @@ def _faulty_attend(attend, fault, page_size):
     return run
 
 
-def serving_parity(dev, cfg, scfg, run) -> None:
+def serving_parity(dev, cfg, scfg, run, label="") -> None:
     """Kernel against the gathered-view reference on the snapshotted
     operands: the largest logit error must stay within PARITY_LOGIT_TOL,
     every fault control must exceed it, most rows' top-2 margin must exceed
     the error, and there the argmax must agree.  Then the served streams
-    against the port's contiguous-cache ``generate()``, counted."""
+    against the port's contiguous-cache ``generate()``, counted.  With MoE
+    layers the reference and the controls take the kernel route's expert
+    choices (``pinned_routing``): a near tie that the two attention
+    routes' rounding decides differently moves a row's logits by more
+    than any rounding, so the unpinned error and the share of flipped
+    assignments are reported beside.  ``label`` prefixes the phases'
+    names."""
     import torch
     from fpga_ai_nic_tpu_torch.models import llama_decode
+    from fpga_ai_nic_tpu_torch.ops import moe
     params, snaps = run["params"], run["snaps"]
     for kind in ("decode", "prefill"):
         snap = snaps.pop(kind)
@@ -1887,20 +1923,39 @@ def serving_parity(dev, cfg, scfg, run) -> None:
                 return logits[snap["active"].reshape(-1)]
             return logits[:snap["rows"]]
 
-        lk = rows(_step(params, cfg, scfg, snap, _clone_pool(snap["pool"]),
-                        "kernel"))
+        kernel_routes, ref_routes = [], []
+        with pinned_routing(moe, kernel_routes):
+            lk = rows(_step(params, cfg, scfg, snap,
+                            _clone_pool(snap["pool"]), "kernel"))
+        pin = kernel_routes if cfg.moe is not None else None
         controls = {}
         attend = llama_decode._cached_attend
         for fault in PARITY_CONTROLS:
             llama_decode._cached_attend = _faulty_attend(attend, fault,
                                                          scfg.page_size)
             try:
-                controls[fault] = rows(_step(
-                    params, cfg, scfg, snap, _clone_pool(snap["pool"]),
-                    "reference"))
+                with pinned_routing(moe, [], pin):
+                    controls[fault] = rows(_step(
+                        params, cfg, scfg, snap, _clone_pool(snap["pool"]),
+                        "reference"))
             finally:
                 llama_decode._cached_attend = attend
-        lr = rows(_step(params, cfg, scfg, snap, snap["pool"], "reference"))
+        moe_extra = {}
+        if pin is not None:
+            with pinned_routing(moe, ref_routes):
+                lu = rows(_step(params, cfg, scfg, snap,
+                                _clone_pool(snap["pool"]), "reference"))
+            live = (snap["active"] if snap["active"] is not None else
+                    torch.arange(snap["tokens"].shape[1]) < snap["rows"])
+            moe_extra = {"unpinned_max_logit_err": float(
+                (lk - lu).abs().max()), "routing_flip_share": flip_share(
+                    kernel_routes, ref_routes),
+                "live_rows_flip_share": flip_share(
+                    kernel_routes, ref_routes, live)}
+            del lu
+        with pinned_routing(moe, [], pin):
+            lr = rows(_step(params, cfg, scfg, snap, snap["pool"],
+                            "reference"))
         del snap["pool"]
         err = float((lk - lr).abs().max())
         control_err = {f: float((c - lr).abs().max())
@@ -1916,8 +1971,9 @@ def serving_parity(dev, cfg, scfg, run) -> None:
             "most_rows_decided": 2 * int(decided.sum()) > lr.shape[0],
             "argmax_equal_where_decided": bool(agree[decided].all()),
         }
-        emit(phase="serving_parity", step=kind, rows=int(lr.shape[0]),
-             max_logit_err=err, tol=PARITY_LOGIT_TOL,
+        emit(phase=label + "serving_parity", step=kind,
+             rows=int(lr.shape[0]), max_logit_err=err, tol=PARITY_LOGIT_TOL,
+             **moe_extra,
              control_max_logit_err=control_err,
              ref_logit_absmax=float(lr.abs().max()),
              rows_with_margin_above_err=int(decided.sum()),
@@ -1943,7 +1999,7 @@ def serving_parity(dev, cfg, scfg, run) -> None:
         diverged.append({"uid": req.uid, "prompt_len": len(p), "at": k,
                          "served": req.generated[k], "generate": ref[k],
                          "generate_margin": float(top2[0] - top2[1])})
-    emit(phase="serving_vs_generate", streams=len(run["reqs"]),
+    emit(phase=label + "serving_vs_generate", streams=len(run["reqs"]),
          token_equal=equal, first_divergences=diverged)
 
 
@@ -3356,6 +3412,320 @@ def resnet_train_parity(dev) -> None:
         raise AssertionError(f"resnet training parity failed: {checks}")
 
 
+# -- Mixtral-8x7B width: MoE training over dp x ep, its parity, MoE serving ---
+
+MOE_MODEL_ARGV = ["--model=llama3_8b", "--model.vocab=32000",
+                  "--model.rope_theta=1000000", "--model.moe_experts=8"]
+MOE_TRAIN_ARGV = MOE_MODEL_ARGV + [
+    "--model.n_layers=1", "--model.attn_block=512", "--model.attn_impl=auto",
+    "--seq=4096", "--global_batch=4", "--mesh.dp=2", "--mesh.ep=2",
+    "--iters=5", "--collective.impl=ring",
+    "--collective.compression.codec=pallas",
+    "--collective.fused_kernel=true", "--optimizer.kind=sgd",
+    "--optimizer.learning_rate=0.1"]
+MOE_SERVE_LAYERS = 8
+# the aten ops of routing, dispatch and combine (the token embedding's
+# gather and its backward are aten::index ops too: about 4 x 16 MB a step)
+MOE_DISPATCH_OPS = ("aten::index", "aten::sort", "aten::cumsum",
+                    "aten::one_hot", "aten::repeat_interleave")
+MOE_OP_GROUPS = {"expert_gemm": ("aten::bmm",),
+                 "dispatch_combine": MOE_DISPATCH_OPS}
+
+
+class pinned_routing:
+    """Within the block, ``ops.moe._route`` appends each call's routing
+    to ``record``; with ``pin`` (another run's records, in call order) it
+    takes that run's experts, keep and slots instead, and gates from this
+    run's router probabilities at those experts."""
+
+    def __init__(self, moe, record, pin=None):
+        self.moe, self.record = moe, record
+        self.pin = None if pin is None else iter(pin)
+
+    def __enter__(self):
+        moe, orig = self.moe, self.moe._route
+        self.orig = orig
+
+        def route(wr, xf, cfg, C):
+            r = orig(wr, xf, cfg, C)
+            if self.pin is not None:
+                p = next(self.pin)
+                g = r.probs.gather(-1, p.e_flat.reshape(r.gates.shape))
+                r = moe.Routing(g / g.sum(-1, keepdim=True), p.e_flat,
+                                p.onehot, p.keep, p.slot, r.probs)
+            self.record.append(r._replace(gates=None, probs=None))
+            return r
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.orig
+
+
+def flip_share(a, b, tokens=None) -> float:
+    """Share of (token, k) assignments whose expert differs between two
+    runs' routing records (each run's calls in order, ranks in order);
+    ``tokens`` (bool, a call's tokens) counts only those tokens'."""
+    import torch
+
+    def experts(run):
+        out = []
+        for r in run:
+            e = r.e_flat
+            if tokens is not None:
+                e = e[:, tokens.reshape(-1).repeat_interleave(
+                    e.shape[1] // tokens.numel()).to(e.device)]
+            out.append(e.reshape(-1))
+        return torch.cat(out)
+    ea, eb = experts(a), experts(b)
+    return int((ea != eb).sum()) / ea.numel()
+
+
+def moe_train_path(dev, kernels) -> dict:
+    """``ShardedTrainer`` at Mixtral-8x7B width (1 layer) over dp=2 x ep=2
+    as ``train_llama.build`` builds it: one warm-up (its routing
+    statistics kept) and ``--iters`` timed steps on one batch, launch
+    counts zeroed just before the first step and read after the last (a
+    step: a flash forward, dq and dk/dv a rank and layer, one ring
+    reduce-scatter and one all-gather an ep group); the replicas
+    bit-equal within each ep group and their replicated leaves across the
+    groups, the router held apart in f32; the ring kernels timed at this
+    shape on the path's own gradient rows; then two steps under the
+    profiler."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.ops import fused_update, moe
+    mcfg, cfg, seq, device = train_llama.parse(MOE_TRAIN_ARGV)
+    n, ep = cfg.mesh.dp, cfg.mesh.ep
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr, state = train_llama.build(mcfg, cfg, device)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    batch = tr.shard_batch(next(train_llama.batches(mcfg, cfg, seq, 1)))
+    parts = []
+    ranks_fn = llama.moe_ops.moe_ranks
+
+    def keep_parts(*a):
+        y, p = ranks_fn(*a)
+        parts.append(p._replace(psum_p=p.psum_p.detach()))
+        return y, p
+    for kern in kernels.values():
+        kern.launches = 0
+    llama.moe_ops.moe_ranks = keep_parts
+    try:
+        state, loss = tr.step(state, batch)           # warm-up
+    finally:
+        llama.moe_ops.moe_ranks = ranks_fn
+    stats = moe._stats_from_routing(moe.pool(parts), mcfg.moe.top_k)
+    losses = [float(loss)]
+    sync(dev)
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(cfg.iters + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for mark in marks[1:]:
+        state, loss = tr.step(state, batch)
+        losses.append(loss)
+        mark.record()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses = [float(v) for v in losses]
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    steps = cfg.iters + 1
+    per_step = {name: 0 for name in kernels}
+    flash = mcfg.n_layers * n * ep
+    per_step.update(flash_fwd=flash, flash_dq=flash, flash_dkv=flash,
+                    ring_rs_update=ep, ring_ag=ep)
+    for name, count in launches.items():
+        if count != steps * per_step[name]:
+            raise AssertionError(f"moe training: {name} launched {count} "
+                                 f"times, expected {steps} x "
+                                 f"{per_step[name]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"moe training: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"moe training: the loss on the repeated "
+                             f"batch did not fall {losses}")
+    reps = state.replicas.view(ep, n, -1)
+    masters = state.w_own.view(ep, -1)
+    checks = {
+        "replicas_equal_within_ep_groups": bool((reps == reps[:, :1]).all()),
+        "replicated_leaves_equal_across_ep_groups": all(
+            bool((reps[:, :, a:b] == reps[:1, :, a:b]).all())
+            and bool((masters[:, a:b] == masters[:1, a:b]).all())
+            for a, b in tr._rep_spans),
+        "expert_shards_differ": not bool((masters[0] == masters[1]).all()),
+        "replicas_in_model_dtype": state.replicas.dtype == mcfg.torch_dtype,
+        "router_held_apart_f32": (state.side is not None
+                                  and state.side.dtype == torch.float32)}
+    tokens = cfg.iters * cfg.global_batch * seq
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    emit(phase="moe_train_path", model=(
+        f"Mixtral-8x7B width (dim {mcfg.dim}, {mcfg.n_heads}/"
+        f"{mcfg.n_kv_heads} heads, ffn {mcfg.ffn_dim}, vocab {mcfg.vocab}, "
+        f"rope_theta {mcfg.rope_theta}, {mcfg.moe_experts} experts top-"
+        f"{mcfg.moe_top_k}, capacity factor {mcfg.moe_capacity_factor}, "
+        f"aux weight {mcfg.moe_aux_weight}, {mcfg.dtype}), "
+        f"{mcfg.n_layers} layer, attn_block {mcfg.attn_block}, random "
+        "weights"), params=llama.num_params(mcfg),
+         active_params=llama.active_params(mcfg), seq=seq,
+         global_batch=cfg.global_batch, dp=n, ep=ep,
+         tokens_per_step=cfg.global_batch * seq,
+         collective=str(cfg.collective), optimizer=str(cfg.optimizer),
+         weight_init_s=init_s, steps=cfg.iters, wall_s=wall,
+         ms_per_step=1e3 * wall / cfg.iters, step_ms=step_ms,
+         median_step_ms=sorted(step_ms)[cfg.iters // 2],
+         tokens_per_sec=tokens / wall, losses=losses, peak_mem_gb=peak,
+         padded_len_per_row=int(state.replicas.shape[1]),
+         launches=launches, launches_per_step=per_step,
+         expert_stats_warmup={k: v.tolist() for k, v in stats.items()},
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"moe training: {checks}")
+    flat_g, _ = tr.grads(state, batch)
+    g, w = flat_g[:n], state.w_own[:n]
+    L = g.shape[1]
+    C = L // n
+
+    def rs():
+        return fused_update.reduce_scatter(g, cfg.collective)
+
+    def ag():
+        return fused_update.all_gather_flat(w, cfg.collective)
+    rs_b, ag_b = ring_bytes(n, L, C)
+    ring = {"shape": f"n={n}, L={L} (one ep group's rows), no optimizer",
+            "rs_device_ms": device_ms(rs, 5, ("ring_rs_kernel",)),
+            "rs_bound": bound(rs_b, 11 * n * L),
+            "ag_device_ms": device_ms(ag, 5, ("ring_ag_kernel",)),
+            "ag_bound": bound(ag_b, 10 * n * C)}
+    emit(phase="moe_ring_times", **ring)
+    del flat_g, g, w, reps, masters
+    held = [state]
+    del state
+
+    def train_step():
+        held[0], _ = tr.step(held[0], batch)
+
+    prof = profile_run("moe_train_profile", train_step, 2,
+                       groups=TRAIN_GROUPS, op_groups=MOE_OP_GROUPS)
+    del tr, held, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "mcfg": mcfg, "cfg": cfg, "seq": seq,
+            "steps": steps, "ring": ring, "profile": prof}
+
+
+def moe_train_parity(dev, run) -> None:
+    """The MoE loss's gradients at the path's widths, 1 layer, one
+    sequence on each of ep=2 ranks (the whole tree's gradient: experts
+    through their shards' views, replicated leaves summed over the
+    ranks): the kernel route against the plain attention route (its
+    expert choices pinned to the kernel route's, the unpinned error and
+    the flip share reported) and against dp=2 x ep=1 (every rank all the
+    experts, gradient over n_dp), within the Llama parity limits; the ep
+    exchange with its destination ranks swapped (the fault control) must
+    exceed them."""
+    import dataclasses
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.ops import fused_update, moe
+    from fpga_ai_nic_tpu_torch.parallel.sharded import split_ep
+    mcfg, cfg, seq = run["mcfg"], run["cfg"], run["seq"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    params = llama.init(gen, mcfg, dev)
+    leaves = [t.requires_grad_() for t in fused_update.tree_leaves(params)]
+    toks, labels = next(train_llama.batches(mcfg, cfg, seq, 1))
+    batch = tuple(t[:2].to(dev) for t in (toks, labels))
+
+    def grads(impl, n_dp, record, pin=None, swap=False):
+        c = dataclasses.replace(mcfg, attn_impl=impl)
+        n_ep = 2 // n_dp
+        trees = (split_ep(params, llama.param_specs(c), n_ep) if n_ep > 1
+                 else [params] * n_dp)
+        ranks_fn = llama.moe_ops.moe_ranks
+        if swap:
+            llama.moe_ops.moe_ranks = (
+                lambda wr, shards, x, mc: ranks_fn(wr, list(shards)[::-1],
+                                                   x, mc))
+        try:
+            with pinned_routing(moe, record, pin):
+                losses = llama.dp_loss_fn(c, n_dp, n_ep)(
+                    trees, tuple(b.reshape(n_dp, n_ep, 1, seq)
+                                 for b in batch))
+                gs = torch.autograd.grad(losses.sum(), leaves)
+        finally:
+            llama.moe_ops.moe_ranks = ranks_fn
+        return float(losses.detach().mean()), [g / n_dp for g in gs]
+
+    def dist(ga, gb):
+        return math.sqrt(sum(float((a.float() - b.float()).square().sum())
+                             for a, b in zip(ga, gb)))
+
+    rk = []
+    l_k, g_k = grads("pallas", 1, rk)
+    norm = math.sqrt(sum(float(g.float().square().sum()) for g in g_k))
+    res = {}
+    for name, args in (("plain_attention_pinned", ("xla", 1, [], rk)),
+                       ("plain_attention_unpinned", ("xla", 1, [])),
+                       ("dp2_ep1", ("pallas", 2, [])),
+                       ("control_exchange_swapped",
+                        ("pallas", 1, [], None, True))):
+        l_o, g_o = grads(*args)
+        res[name] = {"loss": l_o, "loss_diff": abs(l_k - l_o),
+                     "grad_rel_err": dist(g_k, g_o) / norm,
+                     "routing_flip_share": flip_share(rk, args[2])}
+        del g_o
+        torch.cuda.empty_cache()
+    ctrl = res.pop("control_exchange_swapped")
+    unpinned = res.pop("plain_attention_unpinned")
+    checks = {"finite": all(math.isfinite(v) for v in (l_k, norm)),
+              **{f"{k}_grad_within_tol": r["grad_rel_err"]
+                 <= PARITY_GRAD_REL_TOL for k, r in res.items()},
+              **{f"{k}_loss_within_tol": r["loss_diff"] <= PARITY_LOSS_TOL
+                 for k, r in res.items()},
+              "control_above_tol": ctrl["grad_rel_err"] > PARITY_GRAD_REL_TOL}
+    emit(phase="moe_train_parity", seq=seq, layers=mcfg.n_layers,
+         ranks="ep=2, one sequence each", loss_kernel=l_k, against=res,
+         unpinned=unpinned, control=ctrl, grad_tol=PARITY_GRAD_REL_TOL,
+         loss_tol=PARITY_LOSS_TOL, grad_norm=norm,
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         checks=checks)
+    del params, leaves, g_k
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"moe training parity failed: {checks}")
+
+
+def moe_serving_path(dev, kernels) -> dict:
+    """``ServeEngine`` at Mixtral-8x7B width, ``MOE_SERVE_LAYERS`` layers
+    (random weights from a seed), the serving path's ServeConfig and
+    requests; then its parity (routing pinned, see ``serving_parity``)."""
+    import torch
+    from fpga_ai_nic_tpu_torch import serve_llama
+    from fpga_ai_nic_tpu_torch.serve import ServeConfig
+    _, _, cfg = serve_llama.parse(MOE_MODEL_ARGV + [
+        f"--model.n_layers={MOE_SERVE_LAYERS}"])
+    srv = ServeConfig(**SERVE_SHAPE)
+    run = serving_path(dev, cfg, srv, kernels, label="moe_")
+    if any(k != 0 for name, k in run["launches"].items()
+           if name not in ("paged_attend", "row_checksums")):
+        raise AssertionError(f"moe serving launched training kernels "
+                             f"{run['launches']}")
+    calls = run["summary"]["prefill_calls"] + run["summary"]["decode_calls"]
+    if run["launches"]["row_checksums"] != 2 * calls:
+        raise AssertionError(
+            f"moe serving: {run['launches']['row_checksums']} page-checksum "
+            f"launches, expected 2 x {calls} steps")
+    serving_parity(dev, cfg, srv, run, label="moe_")
+    del run["params"], run["snaps"], run["reqs"]
+    torch.cuda.empty_cache()
+    return run
+
+
 def main() -> int:
     # the Llama training phase holds about 60 GB at its peak and frees and
     # reallocates 7-15 GB buffers every step; growable segments keep the
@@ -3634,6 +4004,11 @@ def main() -> int:
     resnet_run = resnet_train_path(dev, bert_kernels)
     resnet_train_parity(dev)
 
+    # -- 18-20. Mixtral-8x7B width: MoE over dp x ep, its parity, serving ------
+    moe_run = moe_train_path(dev, bert_kernels)
+    moe_train_parity(dev, moe_run)
+    moe_serve = moe_serving_path(dev, bert_kernels)
+
     # -- 18. the kernels line and the result ----------------------------------
     meta = {
         "bfp_encode": (PORT + "/csrc/bfp_codec.cu",
@@ -3717,8 +4092,16 @@ def main() -> int:
     for name, r in bert_flash["tensor_cores_hd64"].items():
         launches[name] = bert_run["launches"][name[:-len("_hd64")]]
         results[name] = r
-    rr = resnet_run["ring"]
+    rr, mr = resnet_run["ring"], moe_run["ring"]
     for name, key in (("ring_rs_update", "rs"), ("ring_ag", "ag")):
+        results[name]["extra"].update(
+            moe_shape=mr["shape"],
+            moe_launches=moe_run["launches"][name],
+            moe_launches_from=(f"moe_train_path ({moe_run['steps']} steps, "
+                               "one a step for each of the 2 ep groups)"),
+            moe_device_ms=mr[key + "_device_ms"],
+            moe_bound_ms=mr[key + "_bound"][0],
+            moe_bound_by=mr[key + "_bound"][1])
         results[name]["extra"].update(
             resnet_shape=rr["shape"],
             resnet_launches=resnet_run["launches"][name],
@@ -3762,12 +4145,21 @@ def main() -> int:
                        prefill_bound_ms=pre_row["bound"][0],
                        prefill_bound_by=pre_row["bound"][1],
                        prefill_bound_f32_ms=pre_row["bound_f32_ms"],
-                       prefill_library_ms=pre_row["library_ms"])
+                       prefill_library_ms=pre_row["library_ms"],
+                       moe_serving_launches=moe_serve["launches"][
+                           "paged_attend"],
+                       moe_serving_launches_from=(
+                           f"moe_serving_path (Mixtral-8x7B width, "
+                           f"{MOE_SERVE_LAYERS} layers)"))
         if name in flash_kernels:
             row.update(shape=FLASH_SHAPES[0][0], library=FLASH_LIBRARY,
                        launches_from="llama_train_path",
                        split_floor_ms=r["split_floor_ms"],
                        sp_path_launches=sp_run["launches"][name],
+                       moe_path_launches=moe_run["launches"][name],
+                       moe_path_launches_from=(
+                           f"moe_train_path ({moe_run['steps']} steps, "
+                           "Mixtral-8x7B width, dp=2 x ep=2)"),
                        sp_path_launches_from=(
                            f"llama_sp_train_path ({sp_run['steps']} steps; "
                            "the diagonal hops)"))

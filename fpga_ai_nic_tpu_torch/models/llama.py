@@ -7,9 +7,11 @@ The parameter tree keeps the JAX layout, so weights carry across unchanged
 (``params_from_jax``): ``{"tok_emb": [V, D], "final_norm": [D],
 "lm_head": [D, V], "layers": [{"attn_norm", "wq" [D, H*hd], "wk"/"wv"
 [D, kv*hd], "wo" [H*hd, D], "mlp_norm", "w1"/"w3" [D, F], "w2" [F, D]}]}``
-and a projection is ``h @ w``.  ``tp_axis``, ``ep_axis`` and ``dp_axis``
-raise ``NotImplementedError``, as do MoE layers (``moe_experts > 0``) and
-``remat=True``.  Attention follows ``attn_block`` / ``attn_impl``:
+and a projection is ``h @ w``; a MoE layer (``moe_experts > 0``) holds
+``"moe": {"wr" [D, E] f32, "w1"/"w3" [E, D, F], "w2" [E, F, D]}`` in
+place of ``w1``/``w3``/``w2`` (``ops.moe``).  ``tp_axis``, ``dp_axis``
+and ``remat=True`` raise ``NotImplementedError``.  Attention follows
+``attn_block`` / ``attn_impl``:
 ``None`` is the direct softmax, a block size routes through
 ``ops.ring_attention.flash_attention_remat`` (the flash CUDA kernels for
 "pallas", or "auto" on the card; the checkpointed blocked torch path for
@@ -23,19 +25,30 @@ attention couples them, through ``ops.ring_attention.ring_attention``
 over the stack (the flash kernels' ring with q/k offsets where the route
 takes the kernels), and the loss sums the shards' token sums and counts
 (JAX's psum over sp).
+
+``ep_axis`` (expert parallelism): ``params`` is a list of the ep ranks'
+trees (each its replicated leaves and its ``[E/ep, ...]`` expert shard,
+``parallel.sharded.split_ep``), tokens ``[n_ep, B, S]``; the dense parts run a rank at a
+time on its own tree, each MoE layer over the stacked ranks
+(``ops.moe.moe_ranks``: the ep exchange is a transpose of the stack),
+and the loss and the aux are over every rank's tokens.  ``dp_loss_fn``
+is the trainers' MoE loss over dp x ep ranks at once (``joint_ranks``):
+the aux is taken once over the global statistics, as JAX's is under
+``dp_axis``, which a per-dp-rank loss cannot do.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..ops import moe as moe_ops
 from ..ops.ring_attention import (flash_attention_remat, full_attention,
                                   pallas_route, ring_attention)
 
@@ -65,11 +78,25 @@ class LlamaConfig:
     # kernels on the card, the blocked torch path on the CPU;
     # "pallas" / "xla" pin one (pallas_route)
     attn_impl: str = "auto"
-    moe_experts: int = 0               # > 0 raises NotImplementedError
+    # MoE: when moe_experts > 0 every FFN is a top-k routed expert layer
+    # (ops.moe); dense SwiGLU otherwise
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+    @property
+    def moe(self) -> Optional[moe_ops.MoEConfig]:
+        if self.moe_experts == 0:
+            return None
+        return moe_ops.MoEConfig(
+            num_experts=self.moe_experts, top_k=self.moe_top_k,
+            capacity_factor=self.moe_capacity_factor,
+            aux_weight=self.moe_aux_weight)
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -88,12 +115,6 @@ class LlamaConfig:
                            ffn_dim=ffn_dim, dtype=dtype)
 
 
-def _no_moe(cfg: LlamaConfig) -> None:
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE layers (moe_experts > 0) are not ported yet")
-
-
 def init(generator: torch.Generator, cfg: LlamaConfig,
          device: DeviceLike = "cuda") -> Params:
     """Random weights with the JAX package's fan-in scaling (normal times
@@ -101,8 +122,8 @@ def init(generator: torch.Generator, cfg: LlamaConfig,
     Drawn on ``generator``'s device — give it the card's device for the
     full-size model — then placed on ``device``.  Torch's generator is not
     JAX's: the same seed gives other weights (carry JAX's across with
-    ``params_from_jax``)."""
-    _no_moe(cfg)
+    ``params_from_jax``).  A MoE layer draws its router and experts
+    after ``wo``, in JAX's order of use (``ops.moe.init_ffn``)."""
     dev = resolve_device(device)
     dt = cfg.torch_dtype
     D, Hd = cfg.dim, cfg.head_dim
@@ -120,18 +141,42 @@ def init(generator: torch.Generator, cfg: LlamaConfig,
                       "lm_head": dense(D, (D, cfg.vocab)),
                       "layers": []}
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        lyr = {
             "attn_norm": ones(),
             "wq": dense(D, (D, cfg.n_heads * Hd)),
             "wk": dense(D, (D, cfg.n_kv_heads * Hd)),
             "wv": dense(D, (D, cfg.n_kv_heads * Hd)),
             "wo": dense(cfg.n_heads * Hd, (cfg.n_heads * Hd, D)),
             "mlp_norm": ones(),
-            "w1": dense(D, (D, cfg.ffn_dim)),
-            "w3": dense(D, (D, cfg.ffn_dim)),
-            "w2": dense(cfg.ffn_dim, (cfg.ffn_dim, D)),
-        })
+        }
+        if cfg.moe is not None:
+            lyr["moe"] = moe_ops.init_ffn(generator, D, cfg.ffn_dim,
+                                          cfg.moe, dt, dev)
+        else:
+            lyr.update({
+                "w1": dense(D, (D, cfg.ffn_dim)),
+                "w3": dense(D, (D, cfg.ffn_dim)),
+                "w2": dense(cfg.ffn_dim, (cfg.ffn_dim, D)),
+            })
+        params["layers"].append(lyr)
     return params
+
+
+def param_specs(cfg: LlamaConfig) -> Params:
+    """Which leaves shard over ep on their leading axis (``"ep"``) and
+    which replicate (None): JAX's ``param_specs(cfg, tp_axis=None,
+    ep_axis="ep")`` reduced to the ep axis, the trainer's layout
+    (``parallel.sharded.split_ep``)."""
+    layer: Dict[str, Any] = {k: None for k in (
+        "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")}
+    if cfg.moe is not None:
+        layer["moe"] = moe_ops.param_specs()
+    else:
+        layer.update(w1=None, w3=None, w2=None)
+    return {"tok_emb": None, "final_norm": None, "lm_head": None,
+            "layers": [{k: dict(v) if isinstance(v, dict) else v
+                        for k, v in layer.items()}
+                       for _ in range(cfg.n_layers)]}
 
 
 def params_from_jax(tree: Params, device: DeviceLike = "cuda") -> Params:
@@ -147,10 +192,12 @@ def params_from_jax(tree: Params, device: DeviceLike = "cuda") -> Params:
             return bits.view(torch.bfloat16).to(dev)
         return torch.from_numpy(np.array(a)).to(dev)
 
+    def node(v: Any) -> Any:
+        return ({k: leaf(a) for k, a in v.items()} if isinstance(v, dict)
+                else leaf(v))
+
     out: Params = {k: leaf(v) for k, v in tree.items() if k != "layers"}
-    if any("moe" in lyr for lyr in tree["layers"]):
-        raise NotImplementedError("MoE layers are not ported yet")
-    out["layers"] = [{k: leaf(v) for k, v in lyr.items()}
+    out["layers"] = [{k: node(v) for k, v in lyr.items()}
                      for lyr in tree["layers"]]
     return out
 
@@ -227,12 +274,12 @@ def _positions(S: int, sp_axis: Optional[str] = None,
                             device=device)[:, None] + pos
 
 
-def _block(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
-           cfg: LlamaConfig, n_heads: int, n_kv: int,
-           sp_axis: Optional[str] = None) -> torch.Tensor:
-    """One decoder layer: pre-norm attention + SwiGLU (dense; the JAX
-    layer's MoE load-balance term is 0 without experts).  x: [B, S, D],
-    or [n_sp, B, S, D] with ``sp_axis``."""
+def _attention(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
+               cfg: LlamaConfig, n_heads: int, n_kv: int,
+               sp_axis: Optional[str] = None) -> torch.Tensor:
+    """The attention half of a decoder layer with its residual: pre-norm
+    attention, ``x + att @ wo``.  x: [B, S, D], or [n_sp, B, S, D] with
+    ``sp_axis``."""
     lead, S = x.shape[:-2], x.shape[-2]
     Hd = cfg.head_dim
     h = _rmsnorm(x, lyr["attn_norm"], cfg.norm_eps)
@@ -262,38 +309,128 @@ def _block(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
     else:
         att = full_attention(q, k, v, causal=True)
     att = att.transpose(-3, -2).reshape(*lead, S, n_heads * Hd)
-    x = x + att @ lyr["wo"]
+    return x + att @ lyr["wo"]
+
+
+def _dense_ffn(lyr: Params, h: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: silu in f32, back to the activation dtype."""
+    gate = F.silu((h @ lyr["w1"]).to(torch.float32)).to(h.dtype)
+    return (gate * (h @ lyr["w3"])) @ lyr["w2"]
+
+
+def _block(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
+           cfg: LlamaConfig, n_heads: int, n_kv: int,
+           sp_axis: Optional[str] = None
+           ) -> Tuple[torch.Tensor, Optional[moe_ops.AuxParts]]:
+    """One decoder layer: pre-norm attention + SwiGLU or MoE FFN.  x:
+    [B, S, D], or [n_sp, B, S, D] with ``sp_axis`` (each sp shard routes
+    its own tokens, as a JAX sp rank does).  Returns ``(x, parts)``:
+    the MoE layer's aux statistics over its tokens, None when dense."""
+    x = _attention(lyr, x, pos, cfg, n_heads, n_kv, sp_axis)
     h = _rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
-    gate = F.silu((h @ lyr["w1"]).to(torch.float32)).to(x.dtype)
-    ff = (gate * (h @ lyr["w3"])) @ lyr["w2"]
-    return x + ff
+    if "moe" not in lyr:
+        return x + _dense_ffn(lyr, h), None
+    hs = h if sp_axis is not None else h[None]
+    ff, parts = moe_ops.moe_ranks(lyr["moe"]["wr"], [lyr["moe"]], hs,
+                                  cfg.moe)
+    return x + (ff if sp_axis is not None else ff[0]), parts
 
 
-def apply(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
+def _aux(layer_parts: Sequence[moe_ops.AuxParts], cfg: LlamaConfig,
+         device: torch.device) -> torch.Tensor:
+    """The layers' load-balance terms summed (0 without MoE layers)."""
+    return sum((moe_ops.aux_loss(p, cfg.moe) for p in layer_parts),
+               torch.zeros((), dtype=torch.float32, device=device))
+
+
+def _forward_groups(groups: Sequence[Sequence[Params]],
+                    tokens: Sequence[torch.Tensor], cfg: LlamaConfig
+                    ) -> Tuple[List[torch.Tensor],
+                               List[moe_ops.AuxParts]]:
+    """Expert-parallel forward: ``groups`` the ep groups' rank trees (ep
+    trees each, rank e holding expert shard e), ``tokens`` a ``[n_ep, B,
+    S]`` stack a group.  The dense parts run a rank at a time on its own
+    tree, each MoE layer over the group's stacked ranks.  Returns the
+    logits, ``[n_ep, B, S, V]`` a group, and each MoE layer's statistics
+    pooled over every group (JAX's psum over all token axes)."""
+    S = tokens[0].shape[-1]
+    pos = _positions(S, device=tokens[0].device)
+    n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
+    xs = [[t["tok_emb"][tok.long()] for t, tok in zip(trees, toks)]
+          for trees, toks in zip(groups, tokens)]
+    layer_parts = []
+    for i in range(cfg.n_layers):
+        parts = []
+        for g, trees in enumerate(groups):
+            lyrs = [t["layers"][i] for t in trees]
+            xg = [_attention(lyr, x, pos, cfg, n_heads, n_kv)
+                  for lyr, x in zip(lyrs, xs[g])]
+            hs = [_rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
+                  for lyr, x in zip(lyrs, xg)]
+            if "moe" in lyrs[0]:
+                ff, p = moe_ops.moe_ranks(
+                    torch.stack([lyr["moe"]["wr"] for lyr in lyrs]),
+                    [lyr["moe"] for lyr in lyrs], torch.stack(hs), cfg.moe)
+                parts.append(p)
+            else:
+                ff = [_dense_ffn(lyr, h) for lyr, h in zip(lyrs, hs)]
+            xs[g] = [x + f for x, f in zip(xg, ff)]
+        if parts:
+            layer_parts.append(moe_ops.pool(parts))
+    logits = [torch.stack([_rmsnorm(x, t["final_norm"], cfg.norm_eps)
+                           @ t["lm_head"] for t, x in zip(trees, xg)])
+              for trees, xg in zip(groups, xs)]
+    return logits, layer_parts
+
+
+def _check_ep(params: Any, tokens: torch.Tensor,
+              sp_axis: Optional[str]) -> None:
+    if sp_axis is not None:
+        raise NotImplementedError(
+            "sp_axis with ep_axis (sequence shards of expert-parallel "
+            "ranks) is not ported: ROADMAP A.6 item 6")
+    if isinstance(params, dict) or tokens.dim() != 3 \
+            or len(params) != tokens.shape[0]:
+        raise ValueError("with ep_axis, params is the list of the ep "
+                         "ranks' trees and tokens [n_ep, B, S]")
+
+
+def apply(params: Any, tokens: torch.Tensor, cfg: LlamaConfig, *,
           tp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
-          ep_axis: Optional[str] = None,
-          remat: bool = False) -> torch.Tensor:
+          ep_axis: Optional[str] = None, with_aux: bool = False,
+          remat: bool = False):
     """tokens [B, S] -> logits [B, S, vocab] in the model dtype; with
-    ``sp_axis``, tokens [n_sp, B, S_local] -> [n_sp, B, S_local, vocab]."""
+    ``sp_axis``, tokens [n_sp, B, S_local] -> [n_sp, B, S_local, vocab];
+    with ``ep_axis``, params the ep ranks' trees and tokens [n_ep, B, S]
+    -> [n_ep, B, S, vocab].  ``with_aux``: ``(logits, aux)``, the MoE
+    load-balance term over every token of the call (0 when dense)."""
     if remat:
         raise NotImplementedError(
             "remat (per-block activation recomputation) is not ported yet: "
             "ROADMAP A.6")
     if ep_axis is not None:
-        raise NotImplementedError(
-            "expert parallelism (ep_axis) is not ported yet")
-    _no_moe(cfg)
-    if tokens.dim() != (2 if sp_axis is None else 3):
-        raise ValueError(f"tokens must be [B, S] (or [n_sp, B, S_local] "
-                         f"with sp_axis), got {tuple(tokens.shape)}")
-    S = tokens.shape[-1]
-    n_heads, n_kv = _shard_counts(cfg, tp_axis)
-    pos = _positions(S, sp_axis, tokens.device, n_sp=tokens.shape[0])
-    x = params["tok_emb"][tokens.long()]                    # [.., S, D]
-    for lyr in params["layers"]:
-        x = _block(lyr, x, pos, cfg, n_heads, n_kv, sp_axis)
-    x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"]
+        _check_ep(params, tokens, sp_axis)
+        _shard_counts(cfg, tp_axis)
+        logits, layer_parts = _forward_groups([params], [tokens], cfg)
+        logits = logits[0]
+    else:
+        if tokens.dim() != (2 if sp_axis is None else 3):
+            raise ValueError(f"tokens must be [B, S] (or [n_sp, B, S_local] "
+                             f"with sp_axis), got {tuple(tokens.shape)}")
+        S = tokens.shape[-1]
+        n_heads, n_kv = _shard_counts(cfg, tp_axis)
+        pos = _positions(S, sp_axis, tokens.device, n_sp=tokens.shape[0])
+        x = params["tok_emb"][tokens.long()]                # [.., S, D]
+        layer_parts = []
+        for lyr in params["layers"]:
+            x, parts = _block(lyr, x, pos, cfg, n_heads, n_kv, sp_axis)
+            if parts is not None:
+                layer_parts.append(parts)
+        x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = x @ params["lm_head"]
+    if not with_aux:
+        return logits
+    return logits, _aux(layer_parts, cfg, logits.device)
 
 
 def _token_nll(logits: torch.Tensor,
@@ -301,6 +438,17 @@ def _token_nll(logits: torch.Tensor,
     """Per-token NLL [B, S] from f32 log-softmax."""
     logz = torch.log_softmax(logits.to(torch.float32), dim=-1)
     return -logz.gather(-1, safe_labels.long()[..., None])[..., 0]
+
+
+def _masked_nll(logits: torch.Tensor,
+                labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(per-token NLL with -100 labels zeroed, the valid mask)."""
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    nll = torch.where(valid, _token_nll(logits, safe),
+                      torch.zeros((), dtype=torch.float32,
+                                  device=logits.device))
+    return nll, valid
 
 
 def _weighted_loss(local_sum: torch.Tensor,
@@ -312,46 +460,100 @@ def _weighted_loss(local_sum: torch.Tensor,
     return local_sum / torch.clamp(count, min=1)
 
 
-def loss_fn(params: Params, batch, cfg: LlamaConfig, *,
+def _grad_scale(x: torch.Tensor, n: float) -> torch.Tensor:
+    """Value-preserving gradient scale by n (JAX's ``_grad_scale``)."""
+    return x.detach() + n * (x - x.detach())
+
+
+def loss_fn(params: Any, batch, cfg: LlamaConfig, *,
             tp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
             dp_axis: Optional[str] = None, ep_axis: Optional[str] = None,
             remat: bool = False) -> torch.Tensor:
-    """Next-token cross-entropy.  batch = (tokens, labels), both [B, S]
-    (or [n_sp, B, S_local] with ``sp_axis``: the stacked shards, labels
-    the globally shifted targets, so the shift crosses shard boundaries);
-    -100 entries are ignored.  With ``sp_axis`` the value is the
-    token-weighted mean over all the shards, as each JAX sp rank's.
-    ``dp_axis`` raises: the trainer's uniform dp average equals the JAX
-    dp_axis weighting when every label is valid, as in
-    ``train_llama``."""
+    """Next-token cross-entropy plus the MoE load-balance term.  batch =
+    (tokens, labels), both [B, S] (or [n_sp, B, S_local] with
+    ``sp_axis``: the stacked shards, labels the globally shifted targets,
+    so the shift crosses shard boundaries; or [n_ep, B, S] with
+    ``ep_axis``, params the ep ranks' trees); -100 entries are ignored.
+    With ``sp_axis`` or ``ep_axis`` the value is the token-weighted mean
+    over all the shards, as each JAX rank's.  ``dp_axis`` raises: a dense
+    model's per-rank loss and the trainer's uniform dp average equal the
+    JAX dp_axis weighting when every label is valid, as in
+    ``train_llama``; a MoE model trains through ``dp_loss_fn``."""
     if dp_axis is not None:
         raise NotImplementedError(
             "dp_axis (the masked-label dp weighting inside a sharded "
             "program) is not ported; ShardedTrainer averages per-rank "
-            "gradients")
+            "gradients (a MoE model takes llama.dp_loss_fn)")
     tokens, labels = batch
-    valid = labels >= 0
-    safe = torch.where(valid, labels, torch.zeros_like(labels))
-    logits = apply(params, tokens, cfg, tp_axis=tp_axis, sp_axis=sp_axis,
-                   ep_axis=ep_axis, remat=remat)
-    nll = torch.where(valid, _token_nll(logits, safe),
-                      torch.zeros((), dtype=torch.float32,
-                                  device=logits.device))
-    return _weighted_loss(nll.sum(), valid.sum())
+    out = apply(params, tokens, cfg, tp_axis=tp_axis, sp_axis=sp_axis,
+                ep_axis=ep_axis, with_aux=cfg.moe is not None, remat=remat)
+    logits = out[0] if cfg.moe is not None else out
+    nll, valid = _masked_nll(logits, labels)
+    loss = _weighted_loss(nll.sum(), valid.sum())
+    return loss + out[1] if cfg.moe is not None else loss
+
+
+def dp_loss_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1) -> Callable:
+    """The trainers' loss of a MoE Llama over n_dp x n_ep ranks at once,
+    marked ``joint_ranks`` (``parallel.train.joint_grads``):
+    ``(params_per_rank, batch) -> [n_dp n_ep]`` losses, rank (d, e) at
+    index ``e n_dp + d`` (JAX's master layout, ep major), its batch
+    ``batch[d, e]`` (``[n_dp, n_ep, B, S]``, JAX's ``P((dp, ep))``; or
+    ``[n_dp, B, S]`` without ep).
+
+    JAX's ``loss_fn(dp_axis="dp", ep_axis="ep")``: every value is the
+    global token-weighted cross-entropy plus the aux over the global
+    routing statistics; the gradient of the losses' sum is n_dp times the
+    unsharded one (the CE through each rank's own tokens, the aux once),
+    which the trainer's ep sum of the replicated leaves and its dp
+    average (sum / n_dp) turn into the single-device gradient."""
+    n = n_dp * n_ep
+
+    def loss(params_per_rank, batch):
+        toks, labels = (b.reshape(n_dp, n_ep, *b.shape[-2:]) for b in batch)
+        groups = [[params_per_rank[e * n_dp + d] for e in range(n_ep)]
+                  for d in range(n_dp)]
+        logits, layer_parts = _forward_groups(groups, list(toks), cfg)
+        sums, counts = [], []
+        for d in range(n_dp):
+            nll, valid = _masked_nll(logits[d], labels[d])
+            sums.append(nll.reshape(n_ep, -1).sum(dim=1))
+            counts.append(valid.reshape(n_ep, -1).sum(dim=1))
+        local = torch.stack(sums, dim=1).reshape(n)       # [ep, dp] order
+        denom = torch.clamp(torch.stack(counts, dim=1).reshape(n).sum(),
+                            min=1).to(torch.float32)
+        ce = (local.sum() / denom).detach() + n_dp * (
+            local - local.detach()) / denom
+        aux = _aux(layer_parts, cfg, local.device)
+        return ce + aux.detach() + n_dp * (aux - aux.detach()) / n
+
+    loss.joint_ranks = True
+    return loss
 
 
 def num_params(cfg: LlamaConfig) -> int:
-    _no_moe(cfg)
     D, Hd = cfg.dim, cfg.head_dim
-    ffn = 3 * D * cfg.ffn_dim
+    if cfg.moe is not None:
+        ffn = D * cfg.moe_experts + 3 * cfg.moe_experts * D * cfg.ffn_dim
+    else:
+        ffn = 3 * D * cfg.ffn_dim
     per_layer = (2 * D + D * cfg.n_heads * Hd + 2 * D * cfg.n_kv_heads * Hd
                  + cfg.n_heads * Hd * D + ffn)
     return cfg.vocab * D * 2 + D + cfg.n_layers * per_layer
 
 
+def active_params(cfg: LlamaConfig) -> int:
+    """Parameters a token's products touch: of a MoE layer's experts only
+    the top_k routed (plus the router), so 6 P tokens/s stays an honest
+    FLOP model.  ``num_params`` for a dense config."""
+    if cfg.moe is None:
+        return num_params(cfg)
+    per_expert = 3 * cfg.dim * cfg.ffn_dim
+    return num_params(cfg) - cfg.n_layers * per_expert * (
+        cfg.moe_experts - cfg.moe_top_k)
+
+
 def param_bytes(params: Params) -> int:
     """Bytes the parameter tree holds."""
-    total = sum(t.numel() * t.element_size()
-                for k, t in params.items() if k != "layers")
-    return total + sum(t.numel() * t.element_size()
-                       for lyr in params["layers"] for t in lyr.values())
+    from ..ops.fused_update import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))

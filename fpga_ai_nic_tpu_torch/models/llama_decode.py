@@ -1,6 +1,8 @@
 """Incremental (KV-cache) decoding for the Llama family — the port of the
 JAX package's ``models/llama_decode.py`` (without its tensor-parallel
-branches).
+branches).  A MoE layer runs ``ops.moe.moe_ffn`` on the call's tokens, no
+ep: capacity is over all ``B T`` tokens of the call, idle and padded rows
+included, in token-major order, as JAX's does at the same shapes.
 
 Two caches: ``init_cache`` allocates a contiguous ``[B, kv, max_seq, hd]``
 cache per layer for ``forward``/``generate``; the serving plane's
@@ -16,9 +18,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..ops import moe as moe_ops
 from . import llama
 from .llama import LlamaConfig, Params
 
@@ -84,15 +86,12 @@ def _cached_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return out.reshape(B, H, T, hd)
 
 
-def _ffn(lyr: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: silu in f32, back to the activation dtype."""
-    gate = F.silu((h @ lyr["w1"]).to(torch.float32)).to(h.dtype)
-    return (gate * (h @ lyr["w3"])) @ lyr["w2"]
-
-
-def _check_dense(params: Params) -> None:
-    if any("moe" in lyr for lyr in params["layers"]):
-        raise NotImplementedError("MoE layers are not ported yet")
+def _ffn(lyr: Dict, h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """SwiGLU (silu in f32, back to the activation dtype), or the MoE FFN
+    over h's tokens (its aux is training's, dropped here)."""
+    if "moe" in lyr:
+        return moe_ops.moe_ffn(lyr["moe"], h, cfg.moe)[0]
+    return llama._dense_ffn(lyr, h)
 
 
 def forward(params: Params, tokens: torch.Tensor, cache: Cache,
@@ -101,7 +100,6 @@ def forward(params: Params, tokens: torch.Tensor, cache: Cache,
     """Run ``tokens [B, T]`` (positions pos..pos+T-1) through the decoder,
     writing their K/V into ``cache`` in place and reading it back.
     Returns (logits [B, T, vocab], cache)."""
-    _check_dense(params)
     B, T = tokens.shape
     Hd = cfg.head_dim
     n_heads, n_kv = llama._shard_counts(cfg, tp_axis)
@@ -123,7 +121,7 @@ def forward(params: Params, tokens: torch.Tensor, cache: Cache,
         att = att.to(x.dtype).transpose(1, 2).reshape(B, T, n_heads * Hd)
         x = x + att @ lyr["wo"]
         h = llama._rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(lyr, h)
+        x = x + _ffn(lyr, h, cfg)
 
     x = llama._rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"], cache
@@ -184,7 +182,6 @@ def forward_paged(params: Params, tokens: torch.Tensor, pool: Cache,
     if attend_impl not in ATTEND_IMPLS:
         raise ValueError(f"forward_paged: unknown attend_impl="
                          f"{attend_impl!r}; expected one of {ATTEND_IMPLS}")
-    _check_dense(params)
     from ..ops import paged_attend
 
     R, T = tokens.shape
@@ -240,7 +237,7 @@ def forward_paged(params: Params, tokens: torch.Tensor, pool: Cache,
         att = att.to(x.dtype).transpose(1, 2).reshape(R, T, n_heads * Hd)
         x = x + att @ lyr["wo"]
         h = llama._rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(lyr, h)
+        x = x + _ffn(lyr, h, cfg)
 
     x = llama._rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"], pool

@@ -159,13 +159,44 @@ def flatten_tree(tree: Any, meta: FlatMeta,
     return flatten_leaves(tree_leaves(tree), meta, out)
 
 
-def unflatten_tree(flat: torch.Tensor, meta: FlatMeta) -> Dict[str, Any]:
-    """Inverse of flatten_tree.  f32 leaves are views of ``flat``."""
-    leaves, off = [], 0
+def unflatten_tree(flat: torch.Tensor, meta: FlatMeta,
+                   side: torch.Tensor = None) -> Dict[str, Any]:
+    """Inverse of flatten_tree.  Leaves in ``flat``'s dtype are views of
+    it.  ``side`` (``split_working``): the leaves of another dtype come
+    from it instead, in tree order."""
+    leaves, off, s_off = [], 0, 0
     for shape, dtype, size in zip(meta.shapes, meta.dtypes, meta.sizes):
-        leaves.append(flat[off:off + size].view(shape).to(dtype))
+        if side is not None and dtype != flat.dtype:
+            leaves.append(side[s_off:s_off + size].view(shape).to(dtype))
+            s_off += size
+        else:
+            leaves.append(flat[off:off + size].view(shape).to(dtype))
         off += size
     return tree_from_leaves(meta.keys, leaves)
+
+
+def split_working(flat: torch.Tensor, meta: FlatMeta
+                  ) -> Tuple[torch.Tensor, Any]:
+    """Gathered f32 weights ``[n, L_pad]`` as working replicas: ``(flat in
+    the model dtype, side)``, the model dtype the one that holds most of
+    the tree's elements (a bf16 Llama with MoE's f32 routers is bf16).
+    ``side`` is None when every leaf has that dtype, else ``[n, L_side]`` f32, the other leaves' exact values in
+    tree order (``unflatten_tree(..., side)`` reads them).  One cast of
+    the whole row gives each leaf of the working dtype the bits of JAX's
+    per-leaf cast in ``unflatten_tree``; the side keeps the others'."""
+    held: Dict[torch.dtype, int] = {}
+    for dtype, size in zip(meta.dtypes, meta.sizes):
+        held[dtype] = held.get(dtype, 0) + size
+    dt = max(held, key=held.get)
+    rows = flat if flat.dtype == dt else flat.to(dt)
+    if len(set(meta.dtypes)) == 1:
+        return rows, None
+    spans, off = [], 0
+    for dtype, size in zip(meta.dtypes, meta.sizes):
+        if dtype != dt:
+            spans.append(flat[:, off:off + size])
+        off += size
+    return rows, torch.cat(spans, dim=1).to(torch.float32)
 
 
 def init_master_shard(params_tree, coll: CollectiveConfig,

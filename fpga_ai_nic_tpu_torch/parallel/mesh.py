@@ -1,5 +1,5 @@
-"""Virtual ranks on one card — what stands in for the JAX package's dp and
-sp mesh axes (``parallel/mesh.py``).
+"""Virtual ranks on one card — what stands in for the JAX package's dp, sp
+and ep mesh axes (``parallel/mesh.py``).
 
 The port runs the reference's 1-D data-parallel ring in loopback: n ranks
 share one device, every per-rank tensor is stacked over the ranks as its
@@ -13,6 +13,12 @@ rank as a second leading dimension: a ``[B, S]`` batch leaf becomes
 ``[n_dp, n_sp, B / n_dp, S / n_sp]`` (JAX's ``P(dp, sp)``: rank (d, s)
 holds JAX device (d, s)'s rows and columns), and one dp rank's loss runs
 over its n_sp shards at once (``models.llama.loss_fn(..., sp_axis=...)``).
+
+An ep axis (expert parallelism) splits the batch alongside dp, as JAX's
+``P((dp, ep), sp)`` does: a ``[B, S]`` leaf becomes ``[n_dp, n_ep, B /
+(n_dp n_ep), S]``, rank (d, e) holding JAX device (d, e)'s rows (dp
+major), and the MoE loss runs over all the ranks at once
+(``models.llama.dp_loss_fn``).  sp and ep together are not ported.
 """
 
 from __future__ import annotations
@@ -29,26 +35,35 @@ from ..utils.config import MeshConfig
 @dataclass(frozen=True)
 class VirtualRanks:
     """n data-parallel ranks stacked on one device, each holding ``sp``
-    sequence shards."""
+    sequence shards or ``ep`` expert-parallel ranks."""
 
     n: int
     device: torch.device
     sp: int = 1
+    ep: int = 1
 
     def __post_init__(self) -> None:
-        if self.n < 1 or self.sp < 1:
+        if self.n < 1 or self.sp < 1 or self.ep < 1:
             raise ValueError(f"need at least one rank, got dp={self.n}, "
-                             f"sp={self.sp}")
+                             f"sp={self.sp}, ep={self.ep}")
+        if self.sp > 1 and self.ep > 1:
+            raise NotImplementedError(
+                f"sp={self.sp} with ep={self.ep} (sequence shards of "
+                "expert-parallel ranks) is not ported: ROADMAP A.6 item 6")
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
         """[B, ...] global batch -> [n, B/n, ...] on the device: rank i
         gets rows i*B/n .. (i+1)*B/n - 1 (the MPI_Scatter analogue).  With
         sp > 1, [B, S, ...] -> [n, sp, B/n, S/sp, ...]: rank (i, j) gets
-        those rows' columns j*S/sp .. (j+1)*S/sp - 1."""
-        if x.shape[0] % self.n:
+        those rows' columns j*S/sp .. (j+1)*S/sp - 1.  With ep > 1,
+        [B, ...] -> [n, ep, B/(n ep), ...]: rank (i, e) gets rows
+        (i ep + e) B/(n ep) onward."""
+        if x.shape[0] % (self.n * self.ep):
             raise ValueError(f"global batch {x.shape[0]} does not split "
-                             f"over {self.n} ranks")
+                             f"over {self.n * self.ep} ranks")
         x = x.to(self.device)
+        if self.ep > 1:
+            return x.reshape(self.n, self.ep, -1, *x.shape[1:])
         if self.sp == 1:
             return x.reshape(self.n, -1, *x.shape[1:])
         if x.dim() < 2 or x.shape[1] % self.sp:
@@ -66,17 +81,16 @@ class VirtualRanks:
 
 UNPORTED_AXES = {"fsdp": "ROADMAP A.5 (parallel/fsdp.py)",
                  "tp": "ROADMAP A.5 (the tp axis of parallel/sharded.py)",
-                 "pp": "ROADMAP A.6 item 4 (parallel/pipeline.py)",
-                 "ep": "ROADMAP A.6 item 3 (ops/moe.py)"}
+                 "pp": "ROADMAP A.6 item 4 (parallel/pipeline.py)"}
 
 
 def make_ranks(cfg: MeshConfig, device: DeviceLike = "cuda"
                ) -> VirtualRanks:
-    """The dp and sp axes of a MeshConfig as virtual ranks on ``device``;
-    the other axes are not ported."""
+    """The dp, sp and ep axes of a MeshConfig as virtual ranks on
+    ``device``; the other axes are not ported."""
     for name, size in cfg.axis_sizes():
         if name in UNPORTED_AXES and size != 1:
             raise NotImplementedError(
                 f"mesh axis {name}={size} is not ported: "
-                f"{UNPORTED_AXES[name]}; the port runs dp and sp")
-    return VirtualRanks(cfg.dp, resolve_device(device), cfg.sp)
+                f"{UNPORTED_AXES[name]}; the port runs dp, sp and ep")
+    return VirtualRanks(cfg.dp, resolve_device(device), cfg.sp, cfg.ep)

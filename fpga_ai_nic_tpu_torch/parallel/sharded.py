@@ -1,10 +1,10 @@
 """ZeRO-1 sharded trainer over virtual ranks — the port of the JAX
-package's ``parallel/sharded.py`` (``ShardedTrainer``) for its dp and sp
-axes.
+package's ``parallel/sharded.py`` (``ShardedTrainer``) for its dp, sp and
+ep axes.
 
 The JAX step, phase by phase (``sharded.py`` ``step_fn``):
 
-  1. per-rank gradients of ``loss_fn`` (``parallel.train.per_rank_grads``,
+  1. per-rank gradients of ``loss_fn`` (``parallel.train.rank_grads``,
      the loop ``DPTrainer.grads`` runs);
   2. ``fused_update.reduce_scatter(flat_g) / n`` — with
      ``fused_kernel=True`` on the card, the BFP ring kernels;
@@ -22,44 +22,85 @@ JAX's varying-axes transposes psum them over sp.  The dp phases then run
 once per dp rank; JAX runs them once per (dp, sp) device on identical
 inputs, with the same result.
 
+With ep > 1 (``MeshConfig(dp, ep=...)``, ``param_specs`` naming the
+leaves that shard over ep, e.g. ``llama.param_specs``) the state is JAX's
+master layout ``P((ep, dp))``: one flat row a (dp, ep) rank, row ``e n_dp
++ d``, holding the replicated leaves and ep rank e's expert shard; the
+batch shards as ``P((dp, ep))`` and the loss runs over every rank at once
+(``joint_ranks``, ``llama.dp_loss_fn``).  After the backward each
+replicated leaf's gradient is summed over the ep ranks of its dp rank
+and written into every ep row (JAX's varying-axes psum over ep); the
+dp phases 2-5 then run within each ep group (rows ``e n_dp`` to ``(e + 1)
+n_dp - 1``), one reduce-scatter and one all-gather a group, so the BFP
+codec quantizes the blocks of JAX's layout.
+
 As in the JAX package the fused optimizer kernel is not used: the update
 is ``optim.apply`` between the two collectives.  Other mesh axes (tp,
-pp, ep, fsdp), ``loss_and_grads_fn`` (the 1F1B schedule) and
-``accum_steps > 1`` raise ``NotImplementedError``; ``integrity_check``
-raises ``ValueError``, as the JAX package's does (it is DPTrainer's).
-The state is ``parallel.train.TrainState``; ``step`` drops the flat
-gradients before the update, so at full width they never coexist with
-the gathered replicas.
+pp, fsdp), ``loss_and_grads_fn`` (the 1F1B schedule), ``accum_steps >
+1`` and ``clip_norm`` with ep raise ``NotImplementedError``;
+``integrity_check`` raises ``ValueError``, as the JAX package's does (it
+is DPTrainer's).  The state is ``parallel.train.TrainState``; ``step``
+drops the flat gradients before the update, so at full width they never
+coexist with the gathered replicas.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
 from .mesh import VirtualRanks
-from .train import DPTrainer, TrainState
+from .train import DPTrainer, Params, TrainState
+from .. import optim
 from ..ops import fused_update
 from ..utils.config import TrainConfig
 
 
+def split_ep(params: Params, specs: Any, n_ep: int) -> List[Params]:
+    """The whole tree as the n_ep ranks' local trees: a leaf whose spec is
+    set (``"ep"``) split on its leading axis (rank e's chunk, a view), the
+    others shared."""
+    pairs = fused_update._leaves(params)
+    paths = tuple(p for p, _ in pairs)
+    flags = [s is not None for s in fused_update.tree_leaves(specs)]
+    if len(flags) != len(pairs):
+        raise ValueError("param_specs does not match the params tree")
+    return [fused_update.tree_from_leaves(paths, [
+        leaf.chunk(n_ep)[e] if sharded else leaf
+        for (_, leaf), sharded in zip(pairs, flags)]) for e in range(n_ep)]
+
+
+def join_ep(trees: List[Params], specs: Any) -> Params:
+    """Inverse of ``split_ep``: the sharded leaves concatenated, the
+    others rank 0's."""
+    pairs = fused_update._leaves(trees[0])
+    leaves = zip(*(fused_update.tree_leaves(t) for t in trees))
+    return fused_update.tree_from_leaves(tuple(p for p, _ in pairs), [
+        torch.cat(ls) if s is not None else ls[0]
+        for ls, s in zip(leaves, fused_update.tree_leaves(specs))])
+
+
 class ShardedTrainer(DPTrainer):
     """``loss_fn(params, batch) -> scalar`` over n virtual dp ranks (each
-    holding ``ranks.sp`` sequence shards); a batch is a tuple of tensors
-    with a leading global-batch axis (and, with sp, a sequence axis),
-    split over the ranks by ``shard_batch``."""
+    holding ``ranks.sp`` sequence shards), or a loss marked
+    ``joint_ranks`` over all n x ``ranks.ep`` ranks; a batch is a tuple of
+    tensors with a leading global-batch axis (and, with sp, a sequence
+    axis), split over the ranks by ``shard_batch``.  ``param_specs``: a
+    tree of the params' structure, ``"ep"`` at each leaf sharded over ep
+    on its leading axis and None at each replicated leaf (needed with
+    ep > 1)."""
 
     takes_sp = True
 
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
-                 cfg: TrainConfig, *,
+                 cfg: TrainConfig, *, param_specs: Any = None,
                  loss_and_grads_fn: Optional[Callable] = None):
         for name, size in cfg.mesh.axis_sizes():
-            if name not in ("dp", "sp") and size != 1:
+            if name not in ("dp", "sp", "ep") and size != 1:
                 raise NotImplementedError(
                     f"mesh axis {name}={size} is not ported: ShardedTrainer "
-                    "runs the dp and sp axes")
+                    "runs the dp, sp and ep axes")
         if loss_and_grads_fn is not None:
             raise NotImplementedError(
                 "loss_and_grads_fn (explicit-gradient schedules such as the "
@@ -75,19 +116,136 @@ class ShardedTrainer(DPTrainer):
                 "verdicts, and a silently ignored flag would be "
                 "claimed-but-absent coverage: construct with "
                 "integrity_check=False")
+        if ranks.ep > 1:
+            if param_specs is None:
+                raise ValueError("ep > 1 needs param_specs: which leaves "
+                                 "shard over ep (llama.param_specs)")
+            if not getattr(loss_fn, "joint_ranks", False):
+                raise ValueError("ep > 1 needs a loss over all ranks at "
+                                 "once (joint_ranks, llama.dp_loss_fn): "
+                                 "the ep ranks exchange tokens")
+            if cfg.optimizer.clip_norm is not None:
+                raise NotImplementedError(
+                    "clip_norm with ep > 1 (a global norm that counts each "
+                    "replicated leaf once) is not ported: ROADMAP A.6 "
+                    "item 7")
         super().__init__(loss_fn, ranks, cfg)
         # as in the JAX package, this trainer carries no error-feedback
         # residual: a codec's error_feedback flag is not read here
         self._ef = False
+        self.n_ep = ranks.ep
+        self.param_specs = param_specs
+        self._rep_spans: List[Tuple[int, int]] = []
+
+    # -- the ep layout ---------------------------------------------------------
+
+    def init_state(self, params: Params) -> TrainState:
+        """Every (dp, ep) rank's master shard of its ep rank's flat row
+        (``P((ep, dp))``); with ep = 1, ``DPTrainer.init_state``."""
+        if self.n_ep == 1:
+            return super().init_state(params)
+        params = fused_update.tree_map(lambda t: t.to(self.ranks.device),
+                                       params)
+        local = split_ep(params, self.param_specs, self.n_ep)
+        meta = fused_update.flat_meta(local[0], self.cfg.collective, self.n)
+        self._meta = meta
+        spans, off = [], 0
+        for size, spec in zip(meta.sizes, fused_update.tree_leaves(
+                self.param_specs)):
+            if spec is None:       # merge neighbouring replicated leaves
+                if spans and spans[-1][1] == off:
+                    spans[-1] = (spans[-1][0], off + size)
+                else:
+                    spans.append((off, off + size))
+            off += size
+        self._rep_spans = spans
+        flat = torch.empty((self.n_ep, meta.padded_len),
+                           dtype=torch.float32, device=self.ranks.device)
+        for t, row in zip(local, flat):
+            fused_update.flatten_tree(t, meta, out=row)
+        del local, params
+        w_own = flat.reshape(self.n_ep * self.n, -1)
+        opt_state = optim.init_state(self.cfg.optimizer, w_own.shape,
+                                     device=w_own.device)
+        replicas, side = self._working(flat)
+        replicas = replicas.repeat_interleave(self.n, dim=0)
+        side = None if side is None else side.repeat_interleave(self.n, 0)
+        return TrainState(self._rank0(replicas, side), replicas, w_own,
+                          opt_state, 0, None, side)
+
+    def _groups(self, rows: torch.Tensor) -> List[torch.Tensor]:
+        """The ep groups' rows of a ``[n_ep n_dp, ...]`` tensor."""
+        return list(rows.split(self.n))
+
+    def global_params(self, state: TrainState) -> Params:
+        """The whole tree the state holds: each ep group's expert shard
+        (its dp rank 0's row), the replicated leaves of group 0."""
+        if self.n_ep == 1:
+            return state.params
+        return join_ep([self._rank0(
+            state.replicas[e * self.n:],
+            None if state.side is None else state.side[e * self.n:])
+            for e in range(self.n_ep)], self.param_specs)
+
+    # -- step ------------------------------------------------------------------
+
+    def grads(self, state: TrainState, batch
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The ranks' backward; with ep > 1, each replicated leaf's
+        gradient summed over the ep ranks of its dp rank, in ep order, and
+        written into every ep row."""
+        flat_g, loss = super().grads(state, batch)
+        if self.n_ep > 1:
+            g = flat_g.view(self.n_ep, self.n, -1)
+            for a, b in self._rep_spans:
+                acc = g[0, :, a:b]
+                for e in range(1, self.n_ep):
+                    acc.add_(g[e, :, a:b])
+                for e in range(1, self.n_ep):
+                    g[e, :, a:b].copy_(acc)
+        return flat_g, loss
 
     def apply_grads(self, state: TrainState, flat_g: torch.Tensor,
                     codec_state: Optional[torch.Tensor] = None
                     ) -> TrainState:
-        """Phases 2-5 on given per-rank gradients ``[n, L_pad]``."""
+        """Phases 2-5 on given per-rank gradients ``[n, L_pad]`` (with
+        ep, ``grads``'s rows, the ep sum taken)."""
         return self.update(state, self._reduce(flat_g))
 
     def _reduce(self, flat_g: torch.Tensor) -> torch.Tensor:
-        return fused_update.reduce_scatter(flat_g, self.cfg.collective) / self.n
+        coll = self.cfg.collective
+        if self.n_ep == 1:
+            return fused_update.reduce_scatter(flat_g, coll) / self.n
+        out = torch.empty((flat_g.shape[0], flat_g.shape[1] // self.n),
+                          dtype=torch.float32, device=flat_g.device)
+        for g, o in zip(self._groups(flat_g), self._groups(out)):
+            torch.div(fused_update.reduce_scatter(g, coll), self.n, out=o)
+        return out
+
+    def _gather(self, w_new: torch.Tensor, opt_state: optim.OptState,
+                step: int, codec_state: Optional[torch.Tensor] = None,
+                diag: Optional[dict] = None):
+        if self.n_ep == 1:
+            return super()._gather(w_new, opt_state, step, codec_state,
+                                   diag)
+        reps, sides = [], []
+        for w in self._groups(w_new):
+            r, s = self._working(fused_update.all_gather_flat(
+                w, self.cfg.collective))
+            reps.append(r)
+            sides.append(s)
+        replicas = torch.cat(reps)
+        del reps
+        side = None if sides[0] is None else torch.cat(sides)
+        return TrainState(self._rank0(replicas, side), replicas, w_new,
+                          opt_state, step, codec_state, side)
+
+    def params_from_master(self, w_own: torch.Tensor) -> Params:
+        """Rank 0's working params rebuilt from the master shards (its ep
+        group's gather)."""
+        if self.n_ep == 1:
+            return super().params_from_master(w_own)
+        return super().params_from_master(self._groups(w_own)[0])
 
     def step(self, state: TrainState, batch
              ) -> Tuple[TrainState, torch.Tensor]:

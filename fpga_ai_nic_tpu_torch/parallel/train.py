@@ -54,8 +54,8 @@ Params = Any
 
 class TrainState(NamedTuple):
     params: Params              # rank 0's working weights (views of replicas)
-    # [n, L_pad] every rank's working weights, in the leaves' dtype when
-    # they share one (the model dtype, as JAX keeps them), else f32
+    # [n, L_pad] every rank's working weights in the model dtype (the one
+    # most of the tree's elements have, as JAX keeps them)
     replicas: torch.Tensor
     w_own: torch.Tensor         # [n, C] f32 master shards (ZeRO-1)
     opt_state: optim.OptState   # {key: [n, C]} optimizer state shards
@@ -63,6 +63,10 @@ class TrainState(NamedTuple):
     # error-feedback residual of the codec, each rank's locally dropped
     # gradient mass [n, L_pad], re-added next step (None without EF)
     codec_state: Optional[torch.Tensor] = None
+    # [n, L_side] f32: the leaves of another dtype than the replicas'
+    # (a MoE router in a bf16 tree), exact, in tree order
+    # (fused_update.split_working); None when the tree has one dtype
+    side: Optional[torch.Tensor] = None
 
 
 def _row_writer(replicas: torch.Tensor, meta: fused_update.FlatMeta,
@@ -83,17 +87,20 @@ def _row_writer(replicas: torch.Tensor, meta: fused_update.FlatMeta,
 
 
 def _rank_leaves(replicas: torch.Tensor, meta: fused_update.FlatMeta,
-                 i: int) -> List[torch.Tensor]:
-    """Rank i's leaves, cast to their dtypes (views where the replica is
-    in them already), detached and requiring grad."""
+                 i: int, side: Optional[torch.Tensor] = None
+                 ) -> List[torch.Tensor]:
+    """Rank i's leaves, cast to their dtypes (views where the replica, or
+    the side, is in them already), detached and requiring grad."""
     return [t.detach().requires_grad_() for t in fused_update.tree_leaves(
-        fused_update.unflatten_tree(replicas[i], meta))]
+        fused_update.unflatten_tree(replicas[i], meta,
+                                    None if side is None else side[i]))]
 
 
 def per_rank_grads(loss_fn: Callable, replicas: torch.Tensor,
                    meta: fused_update.FlatMeta, batch,
                    write: Optional[Callable[[int, List[torch.Tensor]],
-                                            None]] = None
+                                            None]] = None,
+                   side: Optional[torch.Tensor] = None
                    ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """``(flat_g [n, L_pad] f32, mean loss)``: rank i differentiates
     ``loss_fn`` at its own replica ``replicas[i]`` (cast to the leaves'
@@ -101,11 +108,11 @@ def per_rank_grads(loss_fn: Callable, replicas: torch.Tensor,
     ``tuple(b[i] for b in batch)``; each gradient leaf is copied into its
     slot of the flat row as soon as it exists.  ``write(i, leaves)``
     places rank i's gradient leaves elsewhere instead (flat_g is then
-    None)."""
+    None).  ``side``: the replicas' side rows (``TrainState.side``)."""
     flat_g, write = _row_writer(replicas, meta, write)
     losses: List[torch.Tensor] = []
     for i in range(replicas.shape[0]):
-        leaves = _rank_leaves(replicas, meta, i)
+        leaves = _rank_leaves(replicas, meta, i, side)
         params_i = fused_update.tree_from_leaves(meta.keys, leaves)
         loss = loss_fn(params_i, tuple(b[i] for b in batch))
         gs = torch.autograd.grad(loss, leaves)
@@ -119,7 +126,8 @@ def per_rank_grads(loss_fn: Callable, replicas: torch.Tensor,
 def joint_grads(loss_fn: Callable, replicas: torch.Tensor,
                 meta: fused_update.FlatMeta, batch,
                 write: Optional[Callable[[int, List[torch.Tensor]],
-                                         None]] = None
+                                         None]] = None,
+                side: Optional[torch.Tensor] = None
                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """As ``per_rank_grads`` for a loss over all n ranks at once
     (``loss_fn.joint_ranks``, e.g. sync-BN's ``models.resnet.dp_loss_fn``):
@@ -131,7 +139,7 @@ def joint_grads(loss_fn: Callable, replicas: torch.Tensor,
     once."""
     flat_g, write = _row_writer(replicas, meta, write)
     n = replicas.shape[0]
-    leaves = [_rank_leaves(replicas, meta, i) for i in range(n)]
+    leaves = [_rank_leaves(replicas, meta, i, side) for i in range(n)]
     losses = loss_fn([fused_update.tree_from_leaves(meta.keys, ls)
                       for ls in leaves], batch)
     gs = list(torch.autograd.grad(losses.sum(),
@@ -147,13 +155,14 @@ def joint_grads(loss_fn: Callable, replicas: torch.Tensor,
 def rank_grads(loss_fn: Callable, replicas: torch.Tensor,
                meta: fused_update.FlatMeta, batch,
                write: Optional[Callable[[int, List[torch.Tensor]],
-                                        None]] = None
+                                        None]] = None,
+               side: Optional[torch.Tensor] = None
                ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """The trainers' backward: ``joint_grads`` for a loss marked
     ``joint_ranks``, ``per_rank_grads`` for any other."""
     fn = (joint_grads if getattr(loss_fn, "joint_ranks", False)
           else per_rank_grads)
-    return fn(loss_fn, replicas, meta, batch, write)
+    return fn(loss_fn, replicas, meta, batch, write, side)
 
 
 class DPTrainer:
@@ -164,18 +173,21 @@ class DPTrainer:
     tensors with a leading global-batch axis, split over the ranks by
     ``shard_batch``."""
 
-    takes_sp = False     # ShardedTrainer's: the sp axis of the mesh
+    takes_sp = False     # ShardedTrainer's: the sp and ep axes of the mesh
 
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig):
-        if (cfg.mesh.nproc != ranks.n * ranks.sp or cfg.mesh.dp != ranks.n
-                or cfg.mesh.sp != ranks.sp):
+        if (cfg.mesh.nproc != ranks.n * ranks.sp * ranks.ep
+                or cfg.mesh.dp != ranks.n or cfg.mesh.sp != ranks.sp
+                or cfg.mesh.ep != ranks.ep):
             raise ValueError(f"cfg.mesh ({cfg.mesh}) does not describe "
-                             f"{ranks.n} dp x {ranks.sp} sp ranks")
-        if ranks.sp != 1 and not self.takes_sp:
-            raise NotImplementedError(
-                f"sp={ranks.sp}: sequence parallelism runs on "
-                "ShardedTrainer, as in the JAX package")
+                             f"{ranks.n} dp x {ranks.sp} sp x {ranks.ep} "
+                             "ep ranks")
+        for axis, size in (("sp", ranks.sp), ("ep", ranks.ep)):
+            if size != 1 and not self.takes_sp:
+                raise NotImplementedError(
+                    f"{axis}={size}: sequence and expert parallelism run "
+                    "on ShardedTrainer, as in the JAX package")
         coll = cfg.collective
         for name, unported in (
                 ("obs_metrics", cfg.obs_metrics),
@@ -208,19 +220,25 @@ class DPTrainer:
         w_own, opt_state, meta = fused_update.init_master_shard(
             params, coll, opt_cfg, self.n)
         self._meta = meta
-        replicas = self._working(w_own.reshape(1, -1)).expand(self.n, -1)
-        return TrainState(fused_update.unflatten_tree(replicas[0], meta),
-                          replicas, w_own, opt_state, 0,
-                          self._init_codec_state())
+        replicas, side = self._working(w_own.reshape(1, -1))
+        replicas = replicas.expand(self.n, -1)
+        side = None if side is None else side.expand(self.n, -1)
+        return TrainState(self._rank0(replicas, side), replicas, w_own,
+                          opt_state, 0, self._init_codec_state(), side)
 
-    def _working(self, flat: torch.Tensor) -> torch.Tensor:
-        """Gathered f32 weights in the working dtype: the leaves' one
-        dtype (every leaf of a Llama tree is ``cfg.dtype``), else f32.  One
-        cast right after the all-gather, as JAX's gather casts in
-        ``unflatten_tree``; the per-rank leaves are then views."""
-        dtypes = set(self._meta.dtypes)
-        dt = dtypes.pop() if len(dtypes) == 1 else torch.float32
-        return flat if flat.dtype == dt else flat.to(dt)
+    def _working(self, flat: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Gathered f32 weights as ``(replicas, side)``: one cast to the
+        model dtype right after the all-gather, as JAX's gather casts in
+        ``unflatten_tree``, so the per-rank leaves are views; leaves of
+        another dtype (MoE's f32 router) are held apart exactly
+        (``fused_update.split_working``)."""
+        return fused_update.split_working(flat, self._meta)
+
+    def _rank0(self, replicas: torch.Tensor,
+               side: Optional[torch.Tensor]) -> Params:
+        return fused_update.unflatten_tree(
+            replicas[0], self._meta, None if side is None else side[0])
 
     def _init_codec_state(self) -> Optional[torch.Tensor]:
         """Zeroed per-rank error-feedback residuals [n, L_pad]."""
@@ -241,7 +259,8 @@ class DPTrainer:
         mean loss)``."""
         if self._meta is None:
             raise RuntimeError("call init_state first")
-        return rank_grads(self.loss_fn, state.replicas, self._meta, batch)
+        return rank_grads(self.loss_fn, state.replicas, self._meta, batch,
+                          side=state.side)
 
     def error_feedback(self, state: TrainState, flat_g: torch.Tensor
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -343,9 +362,9 @@ class DPTrainer:
         if diag is not None:
             gathered, ag_ok = gathered
             diag = dict(diag, wire_ok=diag["wire_ok"] & ag_ok)
-        replicas = self._working(gathered)
-        new = TrainState(fused_update.unflatten_tree(replicas[0], self._meta),
-                         replicas, w_new, opt_state, step, codec_state)
+        replicas, side = self._working(gathered)
+        new = TrainState(self._rank0(replicas, side), replicas, w_new,
+                         opt_state, step, codec_state, side)
         return new if diag is None else (new, diag)
 
     def step(self, state: TrainState, batch):
@@ -367,4 +386,4 @@ class DPTrainer:
         if self._meta is None:
             raise RuntimeError("call init_state first")
         replicas = fused_update.all_gather_flat(w_own, self.cfg.collective)
-        return fused_update.unflatten_tree(replicas[0], self._meta)
+        return self._rank0(*self._working(replicas[:1]))

@@ -55,11 +55,14 @@ StepOut = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                 Optional[torch.Tensor]]
 
 
-def _params_to(params: Params, dev: torch.device) -> Params:
-    out = {k: v.to(dev) for k, v in params.items() if k != "layers"}
-    out["layers"] = [{k: v.to(dev) for k, v in lyr.items()}
-                     for lyr in params["layers"]]
-    return out
+def _params_to(params: Any, dev: torch.device) -> Any:
+    """The tree (dicts and lists, a MoE layer's ``"moe"`` dict too) on
+    ``dev``."""
+    if isinstance(params, dict):
+        return {k: _params_to(v, dev) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_params_to(v, dev) for v in params]
+    return params.to(dev)
 
 
 class ServeEngine:

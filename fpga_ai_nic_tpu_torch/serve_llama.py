@@ -8,13 +8,18 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
       --requests=24 --prompt_min=128 --prompt_max=1024 --max_new=32 \\
       --max_reqs=16 --page_size=16 --max_pages_per_seq=128 \\
       --n_pages=2049 --prefill_chunk=256
+  python -m fpga_ai_nic_tpu_torch.serve_llama --model=llama3_8b \\
+      --model.n_layers=8 --model.vocab=32000 --model.rope_theta=1000000 \\
+      --model.moe_experts=8 --requests=24
   python -m fpga_ai_nic_tpu_torch.serve_llama --model=tiny --device=cpu \\
       --requests=6 --prompt_min=4 --prompt_max=16 --max_new=4 \\
       --max_reqs=4 --page_size=4 --max_pages_per_seq=8 --n_pages=40 \\
       --prefill_chunk=8
 
 Flags are ``--name=value``: ``--model`` (``llama3_8b`` or ``tiny``),
-``--seed``, ``--device`` (default cuda; it raises when CUDA is absent),
+``--model.<field>=`` overlays ``LlamaConfig`` fields (e.g.
+``--model.moe_experts=8`` for Mixtral's routed experts), ``--seed``,
+``--device`` (default cuda; it raises when CUDA is absent),
 ``--attend_impl`` (``kernel`` or ``reference``), the request shape
 (``--requests``, ``--prompt_min``, ``--prompt_max``, ``--max_new``) and
 the ``ServeConfig`` fields.
@@ -22,6 +27,7 @@ the ``ServeConfig`` fields.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 from dataclasses import fields
@@ -34,6 +40,7 @@ from .device import resolve_device
 from .models import llama
 from .models.llama import LlamaConfig
 from .serve import ServeConfig, ServeEngine
+from .utils.config import _declared_type, coerce_value
 
 MODELS = {"llama3_8b": LlamaConfig.llama3_8b, "tiny": LlamaConfig.tiny}
 DEFAULTS: Dict[str, Any] = {
@@ -45,9 +52,11 @@ SERVE_DEFAULTS: Dict[str, Any] = {
     "n_pages": 2049, "prefill_chunk": 256}
 
 
-def parse(argv: Sequence[str]) -> Tuple[Dict[str, Any], ServeConfig]:
-    """(options, ServeConfig) from ``--name=value`` flags."""
+def parse(argv: Sequence[str]
+          ) -> Tuple[Dict[str, Any], ServeConfig, LlamaConfig]:
+    """(options, ServeConfig, LlamaConfig) from ``--name=value`` flags."""
     opts = dict(DEFAULTS)
+    overlays: List[Tuple[str, str]] = []
     serve_kw = dict(SERVE_DEFAULTS)
     serve_fields = {f.name: f.type for f in fields(ServeConfig)}
     for a in argv:
@@ -55,7 +64,9 @@ def parse(argv: Sequence[str]) -> Tuple[Dict[str, Any], ServeConfig]:
         name = key.removeprefix("--")
         if not key.startswith("--") or not eq:
             raise ValueError(f"expected --name=value, got {a!r}")
-        if name in opts:
+        if name.startswith("model."):
+            overlays.append((name[len("model."):], val))
+        elif name in opts:
             opts[name] = type(DEFAULTS[name])(val)
         elif name == "page_integrity":
             serve_kw[name] = val.lower() in ("1", "true", "yes", "on")
@@ -65,7 +76,13 @@ def parse(argv: Sequence[str]) -> Tuple[Dict[str, Any], ServeConfig]:
             raise ValueError(f"unknown flag {key}")
     if opts["model"] not in MODELS:
         raise ValueError(f"--model must be one of {sorted(MODELS)}")
-    return opts, ServeConfig(**serve_kw)
+    cfg = MODELS[opts["model"]]()
+    for name, val in overlays:
+        if name not in {f.name for f in dataclasses.fields(cfg)}:
+            raise ValueError(f"unknown LlamaConfig field {name!r}")
+        cfg = dataclasses.replace(cfg, **{name: coerce_value(
+            _declared_type(cfg, name), val)})
+    return opts, ServeConfig(**serve_kw), cfg
 
 
 def make_prompts(seed: int, n: int, lo: int, hi: int,
@@ -86,9 +103,8 @@ def random_params(cfg: LlamaConfig, seed: int,
 
 
 def main(argv: Sequence[str]) -> Dict[str, Any]:
-    opts, scfg = parse(argv)
+    opts, scfg, cfg = parse(argv)
     dev = resolve_device(opts["device"])
-    cfg = MODELS[opts["model"]]()
     params = random_params(cfg, opts["seed"], dev)
     eng = ServeEngine(params, cfg, scfg, device=dev,
                       attend_impl=opts["attend_impl"])

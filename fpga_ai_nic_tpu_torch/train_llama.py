@@ -1,7 +1,8 @@
 """Llama training driver of the port — the counterpart of the JAX package's
-``examples/train_llama.py`` on its dp and sp axes (no pipeline, tensor or
-expert parallelism yet).  Prints one JSON line: first and last loss,
-tokens/s, wall time, parameter count and mesh.
+``examples/train_llama.py`` on its dp, sp and ep axes (no pipeline or
+tensor parallelism yet).  Prints one JSON line: first and last loss,
+tokens/s, wall time, parameter counts (all, and those a token's products
+touch) and mesh.
 
 Examples (on the card; ``--device=cpu`` runs the plain versions instead):
   python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
@@ -12,6 +13,12 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
   python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
       --model.n_layers=4 --model.attn_block=512 --seq=8192 \\
       --global_batch=2 --mesh.dp=2 --mesh.sp=4 --iters=3 \\
+      --collective.impl=ring --collective.compression.codec=pallas \\
+      --collective.fused_kernel=true
+  python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
+      --model.n_layers=1 --model.vocab=32000 --model.rope_theta=1000000 \\
+      --model.moe_experts=8 --model.attn_block=512 --seq=4096 \\
+      --global_batch=4 --mesh.dp=2 --mesh.ep=2 --iters=3 \\
       --collective.impl=ring --collective.compression.codec=pallas \\
       --collective.fused_kernel=true
   python -m fpga_ai_nic_tpu_torch.train_llama --model=tiny --device=cpu \\
@@ -29,7 +36,13 @@ are virtual ranks on one card: with sp > 1 each dp rank's loss runs over
 its sp sequence shards (``llama.loss_fn(..., sp_axis="sp")``, ring
 attention across them; the labels are the globally shifted targets, so
 the shift crosses shard boundaries), and the sequence must split into
-shards of a multiple of 128 tokens.
+shards of a multiple of 128 tokens.  ``--model.moe_experts=E`` (with
+``--model.moe_top_k``, ``moe_capacity_factor``, ``moe_aux_weight``) makes
+every FFN a routed expert layer, trained through ``llama.dp_loss_fn`` (one
+loss over all ranks, the aux over the global routing statistics, as
+JAX's driver's ``dp_axis="dp"`` gives); ``--mesh.ep`` shards the experts
+over that many ranks of each dp rank, the batch over dp x ep.  sp with
+MoE raises (ROADMAP A.6 item 6).
 """
 
 from __future__ import annotations
@@ -81,6 +94,13 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
             _declared_type(mcfg, name), val)})
     cfg = from_flags(TrainConfig, rest)
     sp = cfg.mesh.sp
+    if (mcfg.moe is not None or cfg.mesh.ep > 1) and sp > 1:
+        raise NotImplementedError(
+            "sp with MoE or ep (sequence shards of expert-parallel ranks) "
+            "is not ported: ROADMAP A.6 item 6")
+    if cfg.mesh.ep > 1 and mcfg.moe is None:
+        raise ValueError(f"--mesh.ep={cfg.mesh.ep} needs MoE layers "
+                         "(--model.moe_experts)")
     if sp > 1 and (seq % sp or (seq // sp) % 128):
         raise ValueError(f"--seq={seq} does not split into --mesh.sp={sp} "
                          "shards of a multiple of 128 tokens")
@@ -101,13 +121,18 @@ def batches(mcfg: LlamaConfig, cfg: TrainConfig, seq: int,
 
 def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str
           ) -> Tuple[ShardedTrainer, TrainState]:
-    """The trainer over ``cfg.mesh.dp`` x ``cfg.mesh.sp`` virtual ranks
-    and its initial state, from weights drawn on the device with seed
-    ``cfg.seed``."""
+    """The trainer over ``cfg.mesh.dp`` x ``cfg.mesh.sp`` (or x
+    ``cfg.mesh.ep``) virtual ranks and its initial state, from weights
+    drawn on the device with seed ``cfg.seed``."""
     ranks = make_ranks(cfg.mesh, device)
-    sp_axis = "sp" if cfg.mesh.sp > 1 else None
-    tr = ShardedTrainer(
-        lambda p, b: llama.loss_fn(p, b, mcfg, sp_axis=sp_axis), ranks, cfg)
+    if mcfg.moe is not None:
+        tr = ShardedTrainer(llama.dp_loss_fn(mcfg, ranks.n, ranks.ep),
+                            ranks, cfg, param_specs=llama.param_specs(mcfg))
+    else:
+        sp_axis = "sp" if cfg.mesh.sp > 1 else None
+        tr = ShardedTrainer(
+            lambda p, b: llama.loss_fn(p, b, mcfg, sp_axis=sp_axis), ranks,
+            cfg)
     gen = torch.Generator(device=ranks.device).manual_seed(cfg.seed)
     return tr, tr.init_state(llama.init(gen, mcfg, ranks.device))
 
@@ -130,6 +155,7 @@ def main(argv: Sequence[str]) -> dict:
     return {"loss_first": losses[0], "loss_last": losses[-1],
             "tokens_per_sec": cfg.iters * cfg.global_batch * seq / wall,
             "wall_s": wall, "params": llama.num_params(mcfg),
+            "active_params": llama.active_params(mcfg),
             "mesh": {"dp": m.dp, "tp": m.tp, "sp": m.sp, "pp": m.pp,
                      "ep": m.ep},
             "device": (torch.cuda.get_device_name(dev)

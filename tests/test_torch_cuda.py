@@ -971,3 +971,59 @@ def test_resnet_dp_step_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
     err = float((runs["cuda"][1] - runs["cpu"][1]).abs().max())
     assert err <= 1e-6 + w_err, (err, w_err)
+
+
+@pytest.mark.cuda
+def test_moe_llama_step_on_card_matches_cpu(cuda_device):
+    """The tiny f32 MoE Llama (4 experts, top-2, capacity factor 16: no
+    drops) over dp=2 x ep=2 virtual ranks with the slice's collective
+    (fused BFP ring kernels within each ep group, SGD), attn_impl "auto"
+    (the flash kernels on the card), two steps on the card against the
+    same steps on the CPU (the plain versions): one ring_rs_update and
+    one ring_ag launch an ep group a step; losses within rtol 1e-4 (f32
+    sums in other orders); masters within 1e-6 plus what BFP flips may
+    carry (one grid step, 2^-6 of a block's max, on any of the n hops,
+    times lr); the replicas equal within each ep group."""
+    import dataclasses
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.sharded import ShardedTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (CollectiveConfig,
+                                                    MeshConfig, TrainConfig)
+    dp, ep, lr = 2, 2, 0.1
+    mcfg = dataclasses.replace(llama.LlamaConfig.tiny(), moe_experts=4,
+                               moe_capacity_factor=16.0, attn_block=128)
+    cfg = TrainConfig(
+        global_batch=4, mesh=MeshConfig(dp=dp, ep=ep),
+        collective=CollectiveConfig(
+            impl="ring", compression=BFPConfig(codec="pallas"),
+            fused_kernel=True),
+        optimizer=OptimizerConfig(kind="sgd", learning_rate=lr))
+    params = llama.init(torch.Generator().manual_seed(0), mcfg, "cpu")
+    toks = np.random.default_rng(0).integers(
+        0, mcfg.vocab, (4, 129)).astype(np.int32)
+    batch = (torch.from_numpy(toks[:, :-1]), torch.from_numpy(toks[:, 1:]))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = ShardedTrainer(llama.dp_loss_fn(mcfg, dp, ep),
+                            VirtualRanks(dp, torch.device(dev), ep=ep), cfg,
+                            param_specs=llama.param_specs(mcfg))
+        st = tr.init_state(params)
+        b = tr.shard_batch(batch)
+        before = _launches()
+        losses, gmax = [], []
+        for _ in range(2):
+            g, loss = tr.grads(st, b)
+            gmax.append(float(g.abs().max()))
+            st = tr.apply_grads(st, g)
+            losses.append(float(loss))
+            reps = st.replicas.view(ep, dp, -1)
+            assert bool((reps == reps[:, :1]).all())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert _launches() == [before[0] + 2 * ep, before[1] + 2 * ep]
+        runs[dev] = (losses, st.w_own.cpu(), gmax)
+    w_err = sum(lr * dp * 2.0 ** -6 * gm for gm in runs["cpu"][2])
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    err = float((runs["cuda"][1] - runs["cpu"][1]).abs().max())
+    assert err <= 1e-6 + w_err, (err, w_err)

@@ -89,9 +89,16 @@ def test_init_fan_in_scaling():
     assert abs(float(lyr["wq"].std()) - 256 ** -0.5) < 0.05 * 256 ** -0.5
     assert abs(float(lyr["w2"].std()) - 512 ** -0.5) < 0.05 * 512 ** -0.5
     assert bool((lyr["attn_norm"] == 1).all())
-    with pytest.raises(NotImplementedError):
-        llama.init(torch.Generator(), llama.LlamaConfig(moe_experts=4),
-                   "cpu")
+    # a MoE layer: the router stays f32, the experts take the model dtype,
+    # both at JAX's fan-in scaling
+    moe_cfg = llama.LlamaConfig(**{**big.__dict__, "moe_experts": 4,
+                                   "dtype": "bfloat16"})
+    m = llama.init(torch.Generator().manual_seed(0), moe_cfg,
+                   "cpu")["layers"][0]["moe"]
+    assert m["wr"].dtype == torch.float32 and m["w1"].dtype == torch.bfloat16
+    assert abs(float(m["w1"].float().std()) - 256 ** -0.5) < 0.05 * 256 ** -0.5
+    assert abs(float(m["w2"].float().std()) - 512 ** -0.5) < 0.05 * 512 ** -0.5
+    assert m["w1"].shape == (4, 256, 512) and m["wr"].shape == (256, 4)
 
 
 @pytest.mark.parametrize("scaling", [1.0, 8.0])

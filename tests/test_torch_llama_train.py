@@ -235,9 +235,12 @@ def test_unported_options_raise():
         llama.loss_fn(params, batch, CFG, remat=True)
     with pytest.raises(NotImplementedError, match="dp_axis"):
         llama.loss_fn(params, batch, CFG, dp_axis="dp")
-    for kw in ({"tp_axis": "tp"}, {"ep_axis": "ep"}):
-        with pytest.raises(NotImplementedError):
-            llama.loss_fn(params, batch, CFG, **kw)
+    with pytest.raises(NotImplementedError):
+        llama.loss_fn(params, batch, CFG, tp_axis="tp")
+    # ep_axis (ported with MoE, tests/test_torch_moe.py) takes the ep
+    # ranks' trees and [n_ep, B, S] tokens: one tree is refused
+    with pytest.raises(ValueError, match="ep ranks' trees"):
+        llama.loss_fn(params, batch, CFG, ep_axis="ep")
     # sp_axis (ported with sequence parallelism): the loss over the two
     # stacked sequence shards is the whole sequence's (f32, rtol 1e-5;
     # tests/test_torch_sp.py holds it against JAX's sp loss)
@@ -269,7 +272,7 @@ class _F32ReplicaTrainer(ShardedTrainer):
     replicas, each rank's leaves cast to bf16 every step."""
 
     def _working(self, flat):
-        return flat
+        return flat, None          # (replicas, no side leaves)
 
 
 @pytest.mark.parametrize("coll", [

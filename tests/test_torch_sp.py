@@ -393,9 +393,13 @@ def test_sp_on_unported_trainers_and_axes_raises():
         ShardedTrainer(lambda p, b: None, VirtualRanks(2, torch.device(
             "cpu")), cfg)
     for axis, item in (("tp", "A.5"), ("pp", "A.6 item 4"),
-                       ("ep", "A.6 item 3"), ("fsdp", "A.5")):
+                       ("fsdp", "A.5")):
         with pytest.raises(NotImplementedError, match=item):
             make_ranks(MeshConfig(dp=2, **{axis: 2}), "cpu")
+    # ep is ported (tests/test_torch_moe.py), but not together with sp
+    assert make_ranks(MeshConfig(dp=2, ep=2), "cpu").ep == 2
+    with pytest.raises(NotImplementedError, match="A.6 item 6"):
+        make_ranks(MeshConfig(dp=2, sp=2, ep=2), "cpu")
     with pytest.raises(ValueError, match="sequence axis"):
         ranks.shard(torch.zeros((4, 3)))
 
