@@ -217,6 +217,7 @@ no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -2407,7 +2408,6 @@ def flash_offset_checks(dev) -> dict:
     Launches with zero offsets keep their bits (ZERO_OFFSET_DIGESTS).
     Returns the rows of the offset instantiations."""
     import torch
-    import torch.nn.functional as F
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     digests = zero_offset_digests(dev)
     emit(phase="zero_offset_digests", digests=digests,
@@ -2501,8 +2501,43 @@ def flash_offset_checks(dev) -> dict:
                 raise AssertionError(f"flash offsets ({family}, {name}) "
                                      f"failed: {checks}")
             del q, k, v, do, out, lse, delta, args, got, again, want
-    # times at the hop: the past hop (all keys seen, the OFF
-    # instantiations) and the diagonal (causal, the kernels without)
+    times = hop_times(dev, g, B, H, n_kv, Sl)
+    emit(phase="flash_offset_times", shape=(
+        f"B={B}, H={H}, Hkv={n_kv}, Sq=Sk={Sl}, hd=128, bf16"),
+         library=FLASH_LIBRARY + " (is_causal=False at the past hop)",
+         sass_offsets=sass,
+         times={c: {kk: dict(r, bound_ms=r["bound"][0],
+                             bound_by=r["bound"][1])
+                    for kk, r in t.items()} for c, t in times.items()},
+         worst_tol_ratio=worst)
+    torch.cuda.empty_cache()
+    rows = {}
+    for kern, off in zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                         OFFSET_KERNELS):
+        past, diag = times["past hop"][kern], times["diagonal"][kern]
+        rows[off] = {"max_abs_err": errs[off], "ms": past["ms"],
+                     "plain_ms": past["plain_ms"],
+                     "library_ms": past["library_ms"],
+                     "bound": past["bound"],
+                     "extra": {"call_ms": past["call_ms"],
+                               "split_floor_ms": past["split_floor_ms"],
+                               "diagonal_ms": diag["ms"],
+                               "diagonal_plain_ms": diag["plain_ms"],
+                               "diagonal_library_ms": diag["library_ms"],
+                               "diagonal_bound_ms": diag["bound"][0],
+                               "worst_tol_ratio": max(worst.values())}}
+    return rows
+
+
+def hop_times(dev, g, B, H, n_kv, Sl) -> dict:
+    """The tensor-core kernels timed at a ring hop of B x H (Hkv) x Sl,
+    hd=128, bf16: the past hop (q_offset Sl, every key seen, the OFF
+    instantiations) and the diagonal (causal, the kernels without), each
+    by device time beside a whole call's time, the plain version, the
+    library's attention and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     times = {}
     for name, causal, qo in (("past hop", False, Sl), ("diagonal", True,
                                                        0)):
@@ -2544,30 +2579,80 @@ def flash_offset_checks(dev) -> dict:
                 "split_floor_ms": flash_bound(kern, B, H, n_kv, Sl, causal,
                                               split=True)[0]}
         del q, k, v, do, out, lse, delta, args, qr, kr, vr, lib_out
-    emit(phase="flash_offset_times", shape=(
-        f"B={B}, H={H}, Hkv={n_kv}, Sq=Sk={Sl}, hd=128, bf16"),
+    return times
+
+
+MOE_SP_HOP = (1, 32, 8, 4096)  # B, H, Hkv, S_local: a ring hop of the MoE
+#                               sp x ep path (sequence 8192 over sp=2)
+
+
+def moe_sp_hop_checks(dev) -> dict:
+    """The tensor-core kernels at the MoE sp x ep path's past hop (MOE_SP_HOP,
+    q_offset S_local, k_offset 0, causal: every key seen) against the plain
+    versions (``tol_ratio`` <= 1, lse within LSE_TOL, a second launch
+    bit-equal), then ``hop_times`` at that shape.  Returns the rows the
+    offset kernels' line entries take from it."""
+    import torch
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    B, H, n_kv, Sl = MOE_SP_HOP
+    g = torch.Generator(device=dev).manual_seed(610)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v = rand(B, H, Sl, 128), rand(B, n_kv, Sl, 128), rand(
+        B, n_kv, Sl, 128)
+    do = rand(B, H, Sl, 128)
+    kw = dict(causal=True, sm_scale=128 ** -0.5, q_offset=Sl, k_offset=0)
+    out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    got = {"out": out, "dq": fa.flash_dq_cuda(*args, **kw)}
+    got["dk"], got["dv"] = fa.flash_dkv_cuda(*args, **kw)
+    again = {"out": fa.flash_fwd_cuda(q, k, v, **kw)[0],
+             "dq": fa.flash_dq_cuda(*args, **kw)}
+    again["dk"], again["dv"] = fa.flash_dkv_cuda(*args, **kw)
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
+    want = {"out": p_out, "dq": fa.flash_dq_plain(*args, **kw)}
+    want["dk"], want["dv"] = fa.flash_dkv_plain(*args, **kw)
+    sync(dev)
+    ratio = {t: fa.tol_ratio(got[t], want[t]) for t in got}
+    err = {t: max_err([(got[t], want[t])]) for t in got}
+    lse_err = max_err([(lse, p_lse)])
+    checks = {"finite": all(bool(t.float().isfinite().all())
+                            for t in got.values()),
+              "within_tol": max(ratio.values()) <= 1.0,
+              "lse_within_tol": lse_err <= fa.LSE_TOL,
+              "deterministic": all(torch.equal(got[t], again[t])
+                                   for t in again)}
+    del q, k, v, do, out, lse, delta, args, got, again, want, p_out, p_lse
+    times = hop_times(dev, g, B, H, n_kv, Sl)
+    emit(phase="moe_sp_hop_checks", shape=(
+        f"B={B}, H={H}, Hkv={n_kv}, Sq=Sk={Sl}, hd=128, bf16, q_offset "
+        f"{Sl}, k_offset 0"), tol="tol_ratio <= 1", tol_ratio=ratio,
+         max_abs_err=err, lse_max_abs_err=lse_err, checks=checks,
          library=FLASH_LIBRARY + " (is_causal=False at the past hop)",
-         sass_offsets=sass,
          times={c: {kk: dict(r, bound_ms=r["bound"][0],
                              bound_by=r["bound"][1])
-                    for kk, r in t.items()} for c, t in times.items()},
-         worst_tol_ratio=worst)
+                    for kk, r in t.items()} for c, t in times.items()})
     torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"flash kernels at the MoE sp hop: {checks}")
     rows = {}
-    for kern, off in zip(("flash_fwd", "flash_dq", "flash_dkv"),
-                         OFFSET_KERNELS):
-        past, diag = times["past hop"][kern], times["diagonal"][kern]
-        rows[off] = {"max_abs_err": errs[off], "ms": past["ms"],
-                     "plain_ms": past["plain_ms"],
-                     "library_ms": past["library_ms"],
-                     "bound": past["bound"],
-                     "extra": {"call_ms": past["call_ms"],
-                               "split_floor_ms": past["split_floor_ms"],
-                               "diagonal_ms": diag["ms"],
-                               "diagonal_plain_ms": diag["plain_ms"],
-                               "diagonal_library_ms": diag["library_ms"],
-                               "diagonal_bound_ms": diag["bound"][0],
-                               "worst_tol_ratio": max(worst.values())}}
+    for kern, off, terms in zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                                OFFSET_KERNELS, (("out",), ("dq",),
+                                                 ("dk", "dv"))):
+        past = times["past hop"][kern]
+        rows[off] = {"moe_sp_hop_ms": past["ms"],
+                     "moe_sp_hop_call_ms": past["call_ms"],
+                     "moe_sp_hop_plain_ms": past["plain_ms"],
+                     "moe_sp_hop_library_ms": past["library_ms"],
+                     "moe_sp_hop_bound_ms": past["bound"][0],
+                     "moe_sp_hop_bound_by": past["bound"][1],
+                     "moe_sp_hop_max_abs_err": max(err[t] for t in terms),
+                     "moe_sp_hop_diagonal_ms": times["diagonal"][kern]["ms"],
+                     "moe_sp_hop_diagonal_bound_ms": times["diagonal"][
+                         kern]["bound"][0]}
     return rows
 
 
@@ -2582,24 +2667,30 @@ SP_GROUPS = {"flash": FLASH_KERNELS, "ring_bfp": RING_KERNELS,
              "rotation": ("roll_cuda_kernel",)}
 
 
-def llama_sp_train_path(dev, kernels) -> dict:
+def llama_sp_train_path(dev, kernels, remat=False) -> dict:
     """``ShardedTrainer`` at dp=2 x sp=4 as ``train_llama.build`` builds
     it (Llama-3-8B width, 4 layers, sequence 8192, global batch
     2): one warm-up and ``--iters`` timed steps on one batch, launch
     counts zeroed just before the first step and read after the last
     (a step: per dp rank and layer, sp diagonal hops on the flash kernels
     without offsets and sp (sp - 1) / 2 past hops on their offset
-    instantiations; one ring_rs_update and one ring_ag), replicas
-    bit-equal, a finite loss that falls on the repeated batch; then two
-    more steps under the profiler."""
+    instantiations, the forwards twice with ``remat``; one ring_rs_update
+    and one ring_ag), replicas bit-equal, a finite loss that falls on the
+    repeated batch; then two more steps under the profiler.  With
+    ``remat`` (``--remat=true``, the phase ``llama_sp_remat_path``) the
+    trainer's gradients at its final state are also taken with the loss
+    without remat (``remat_grads``)."""
     import torch
     from fpga_ai_nic_tpu_torch import train_llama
     from fpga_ai_nic_tpu_torch.models import llama
-    mcfg, cfg, seq, device = train_llama.parse(TRAIN_SP_ARGV)
+    argv = TRAIN_SP_ARGV + (["--remat=true"] if remat else [])
+    phase = "llama_sp_remat_path" if remat else "llama_sp_train_path"
+    mcfg, cfg, seq, device = train_llama.parse(argv)
     n, sp = cfg.mesh.dp, cfg.mesh.sp
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    tr, state = train_llama.build(mcfg, cfg, device)
+    tr, state = train_llama.build(mcfg, cfg, device,
+                                  train_llama.remat_flag(argv))
     sync(dev)
     init_s = time.perf_counter() - t0
     batch = tr.shard_batch(next(train_llama.batches(mcfg, cfg, seq, 1)))
@@ -2623,34 +2714,37 @@ def llama_sp_train_path(dev, kernels) -> dict:
     launches = {name: kern.launches for name, kern in kernels.items()}
     steps = cfg.iters + 1
     diag, past = mcfg.n_layers * n * sp, mcfg.n_layers * n * sp * (sp - 1) // 2
+    fwd = 2 if remat else 1              # the recomputation's forwards
     per_step = {name: 0 for name in kernels}
-    per_step.update(flash_fwd=diag, flash_dq=diag, flash_dkv=diag,
-                    flash_fwd_offsets=past, flash_dq_offsets=past,
+    per_step.update(flash_fwd=fwd * diag, flash_dq=diag, flash_dkv=diag,
+                    flash_fwd_offsets=fwd * past, flash_dq_offsets=past,
                     flash_dkv_offsets=past, ring_rs_update=1, ring_ag=1)
     for name, count in launches.items():
         if count != steps * per_step[name]:
-            raise AssertionError(f"llama sp training: {name} launched "
+            raise AssertionError(f"{phase}: {name} launched "
                                  f"{count} times, expected {steps} x "
                                  f"{per_step[name]}")
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"llama sp training: non-finite loss {losses}")
+        raise AssertionError(f"{phase}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"llama sp training: the loss on the repeated "
+        raise AssertionError(f"{phase}: the loss on the repeated "
                              f"batch did not fall {losses}")
     if not bool((state.replicas == state.replicas[0]).all()):
-        raise AssertionError("llama sp training: replicas differ")
+        raise AssertionError(f"{phase}: replicas differ")
     tokens = cfg.iters * cfg.global_batch * seq
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    emit(phase="llama_sp_train_path", model=(
+    median = sorted(step_ms)[cfg.iters // 2]
+    emit(phase=phase, model=(
         f"Llama-3-8B width (dim {mcfg.dim}, {mcfg.n_heads}/{mcfg.n_kv_heads} "
         f"heads, ffn {mcfg.ffn_dim}, vocab {mcfg.vocab}, {mcfg.dtype}), "
         f"{mcfg.n_layers} layers, attn_impl {mcfg.attn_impl}, random "
         "weights"), params=llama.num_params(mcfg), seq=seq,
-         global_batch=cfg.global_batch, dp=n, sp=sp, tokens_per_step=(
-             cfg.global_batch * seq), collective=str(cfg.collective),
+         global_batch=cfg.global_batch, dp=n, sp=sp, remat=remat,
+         tokens_per_step=cfg.global_batch * seq,
+         collective=str(cfg.collective),
          optimizer=str(cfg.optimizer), weight_init_s=init_s,
          steps=cfg.iters, wall_s=wall, ms_per_step=1e3 * wall / cfg.iters,
-         step_ms=step_ms, median_step_ms=sorted(step_ms)[cfg.iters // 2],
+         step_ms=step_ms, median_step_ms=median,
          tokens_per_sec=tokens / wall, losses=losses,
          peak_mem_gb=peak, launches=launches, launches_per_step=per_step,
          replicas_equal=True)
@@ -2660,13 +2754,77 @@ def llama_sp_train_path(dev, kernels) -> dict:
     def train_step():
         held[0], _ = tr.step(held[0], batch)
 
-    prof = profile_run("llama_sp_train_profile", train_step, 2,
+    prof = profile_run(phase.replace("path", "profile"), train_step, 2,
                        groups=SP_GROUPS)
+    out = {"launches": launches, "mcfg": mcfg, "cfg": cfg, "seq": seq,
+           "steps": steps, "step_ms": step_ms, "median_step_ms": median,
+           "tokens_per_sec": tokens / wall, "peak_mem_gb": peak,
+           "losses": losses, "profile": prof,
+           "idle_share": 1 - prof["device_ms"] / prof["wall_ms"]}
+    if remat:
+        out["grads"] = remat_grads(dev, tr, held[0], batch, mcfg)
     del tr, held, batch
     torch.cuda.empty_cache()
-    return {"launches": launches, "mcfg": mcfg, "cfg": cfg, "seq": seq,
-            "steps": steps, "step_ms": step_ms, "peak_mem_gb": peak,
-            "profile": prof}
+    return out
+
+
+def chunked_tol_ratio(got, want, chunk=1 << 27) -> tuple:
+    """``(max |got - want|, flash_attention.tol_ratio(got, want))`` over
+    flat gradient rows too large for the ratio's whole-tensor
+    temporaries, a chunk at a time."""
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    top = float(want.abs().max())
+    diff, ratio = 0.0, 0.0
+    for a, b in zip(got.reshape(-1).split(chunk), want.reshape(-1).split(
+            chunk)):
+        d = (a - b).abs()
+        diff = max(diff, float(d.max()))
+        ratio = max(ratio, float((d / (fa.REL_TOL * b.abs()
+                                       + fa.FLOOR_TOL * top)).max()))
+    return diff, ratio
+
+
+def remat_grads(dev, tr, state, batch, mcfg) -> dict:
+    """The remat trainer's flat gradients at ``state`` against the same
+    trainer's with the loss without remat (taken first: the larger
+    activations before the second flat gradient exists): bit-equal or
+    not, the largest difference and the flash kernels' limit ratio
+    (REL_TOL, FLOOR_TOL), which must hold."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import llama
+    remat_loss = tr.loss_fn
+    tr.loss_fn = lambda p, b: llama.loss_fn(p, b, mcfg, sp_axis="sp")
+    try:
+        g_off, l_off = tr.grads(state, batch)
+    finally:
+        tr.loss_fn = remat_loss
+    g_on, l_on = tr.grads(state, batch)
+    diff, ratio = chunked_tol_ratio(g_on, g_off)
+    res = {"loss_bitequal": bool(torch.equal(l_on, l_off)),
+           "grad_bitequal": bool(torch.equal(g_on, g_off)),
+           "grad_max_abs_diff": diff, "grad_tol_ratio": ratio,
+           "grad_max_abs": float(g_off.abs().max()),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del g_on, g_off
+    emit(phase="llama_sp_remat_grads", **res)
+    if not (res["loss_bitequal"] and ratio <= 1.0):
+        raise AssertionError(f"remat gradients: {res}")
+    return res
+
+
+def llama_sp_remat_compare(off, on) -> None:
+    """Remat off against on over the same steps (same seed, batch and
+    steps): the losses bit-equal at every step; each run's median step,
+    tokens/s, peak memory and idle share side by side."""
+    keys = ("median_step_ms", "tokens_per_sec", "peak_mem_gb", "idle_share")
+    res = {k: {"remat_off": off[k], "remat_on": on[k]} for k in keys}
+    equal = off["losses"] == on["losses"]
+    emit(phase="llama_sp_remat_compare", losses_off=off["losses"],
+         losses_on=on["losses"], losses_bitequal=equal,
+         grads=on["grads"], **res)
+    if not equal:
+        raise AssertionError(f"remat changed the losses: {off['losses']} "
+                             f"against {on['losses']}")
 
 
 SP_PARITY_LAYERS = 2
@@ -3423,6 +3581,14 @@ MOE_TRAIN_ARGV = MOE_MODEL_ARGV + [
     "--collective.compression.codec=pallas",
     "--collective.fused_kernel=true", "--optimizer.kind=sgd",
     "--optimizer.learning_rate=0.1"]
+MOE_SP_TRAIN_ARGV = MOE_MODEL_ARGV + [
+    "--model.n_layers=1", "--model.attn_block=512", "--model.attn_impl=auto",
+    "--seq=8192", "--global_batch=4", "--mesh.dp=2", "--mesh.sp=2",
+    "--mesh.ep=2", "--remat=true", "--optimizer.clip_norm=1.0",
+    "--iters=5", "--collective.impl=ring",
+    "--collective.compression.codec=pallas",
+    "--collective.fused_kernel=true", "--optimizer.kind=sgd",
+    "--optimizer.learning_rate=0.1"]
 MOE_SERVE_LAYERS = 8
 # the aten ops of routing, dispatch and combine (the token embedding's
 # gather and its backward are aten::index ops too: about 4 x 16 MB a step)
@@ -3435,8 +3601,11 @@ MOE_OP_GROUPS = {"expert_gemm": ("aten::bmm",),
 class pinned_routing:
     """Within the block, ``ops.moe._route`` appends each call's routing
     to ``record``; with ``pin`` (another run's records, in call order) it
-    takes that run's experts, keep and slots instead, and gates from this
-    run's router probabilities at those experts."""
+    takes that run's experts instead, reshaped to this call's source
+    devices (the same tokens in the same order: a run over sp shards
+    takes a run without sp's, source (e, s) the shard s of source e), the
+    capacity assignment redone at this call's capacity, and gates from
+    this run's router probabilities at those experts."""
 
     def __init__(self, moe, record, pin=None):
         self.moe, self.record = moe, record
@@ -3449,10 +3618,11 @@ class pinned_routing:
         def route(wr, xf, cfg, C):
             r = orig(wr, xf, cfg, C)
             if self.pin is not None:
-                p = next(self.pin)
-                g = r.probs.gather(-1, p.e_flat.reshape(r.gates.shape))
-                r = moe.Routing(g / g.sum(-1, keepdim=True), p.e_flat,
-                                p.onehot, p.keep, p.slot, r.probs)
+                e_flat = next(self.pin).e_flat.reshape(r.e_flat.shape)
+                g = r.probs.gather(-1, e_flat.reshape(r.gates.shape))
+                r = moe.Routing(g / g.sum(-1, keepdim=True), e_flat,
+                                *moe.assign(e_flat, cfg.num_experts, C),
+                                r.probs)
             self.record.append(r._replace(gates=None, probs=None))
             return r
         moe._route = route
@@ -3481,44 +3651,76 @@ def flip_share(a, b, tokens=None) -> float:
     return int((ea != eb).sum()) / ea.numel()
 
 
-def moe_train_path(dev, kernels) -> dict:
-    """``ShardedTrainer`` at Mixtral-8x7B width (1 layer) over dp=2 x ep=2
-    as ``train_llama.build`` builds it: one warm-up (its routing
-    statistics kept) and ``--iters`` timed steps on one batch, launch
-    counts zeroed just before the first step and read after the last (a
-    step: a flash forward, dq and dk/dv a rank and layer, one ring
-    reduce-scatter and one all-gather an ep group); the replicas
-    bit-equal within each ep group and their replicated leaves across the
-    groups, the router held apart in f32; the ring kernels timed at this
-    shape on the path's own gradient rows; then two steps under the
-    profiler."""
+def moe_train_path(dev, kernels, argv=MOE_TRAIN_ARGV,
+                   phase="moe_train_path") -> dict:
+    """``ShardedTrainer`` at Mixtral-8x7B width (1 layer) as
+    ``train_llama.build`` builds it from ``argv``: over dp=2 x ep=2
+    (``MOE_TRAIN_ARGV``), or dp=2 x sp=2 x ep=2 with remat and a clip
+    (``MOE_SP_TRAIN_ARGV``, the phase ``moe_sp_train_path``).  One warm-up
+    (its routing statistics kept, the recomputation's checked equal to
+    the forward's, and the pre-clip global norm) and ``--iters`` timed
+    steps on one batch, launch counts zeroed just before the first step
+    and read after the last (a step: per (dp, ep) rank and layer, the
+    flash kernels as ``llama_sp_train_path`` counts them at this sp, the
+    forwards twice with remat; one ring reduce-scatter and one
+    all-gather an ep group); the replicas bit-equal within each ep group
+    and their replicated leaves across the groups, the router held apart
+    in f32; without sp, the ring kernels timed at this shape on the
+    path's own gradient rows; then two steps under the profiler."""
     import torch
-    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch import optim, train_llama
     from fpga_ai_nic_tpu_torch.models import llama
     from fpga_ai_nic_tpu_torch.ops import fused_update, moe
-    mcfg, cfg, seq, device = train_llama.parse(MOE_TRAIN_ARGV)
-    n, ep = cfg.mesh.dp, cfg.mesh.ep
+    mcfg, cfg, seq, device = train_llama.parse(argv)
+    remat = train_llama.remat_flag(argv)
+    n, ep, sp = cfg.mesh.dp, cfg.mesh.ep, cfg.mesh.sp
+    clip = cfg.optimizer.clip_norm
+    # an earlier phase's reference cycles (the serving engine and the
+    # closures wrapping its steps) may still hold its weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    tr, state = train_llama.build(mcfg, cfg, device)
+    tr, state = train_llama.build(mcfg, cfg, device, remat)
     sync(dev)
     init_s = time.perf_counter() - t0
     batch = tr.shard_batch(next(train_llama.batches(mcfg, cfg, seq, 1)))
-    parts = []
-    ranks_fn = llama.moe_ops.moe_ranks
+    parts, routes, norms = [], [], []
+    ranks_fn, route_fn = moe.moe_ranks, moe._route
+    clip_fn = optim.clip_by_global_norm
 
     def keep_parts(*a):
         y, p = ranks_fn(*a)
         parts.append(p._replace(psum_p=p.psum_p.detach()))
         return y, p
+
+    def keep_route(*a):
+        r = route_fn(*a)
+        routes.append(r._replace(gates=None, probs=None))
+        return r
+
+    def keep_norm(c, g, weights=None):
+        if c.clip_norm is not None:
+            norms.append(float(optim.global_norm(g, weights)))
+        return clip_fn(c, g, weights)
     for kern in kernels.values():
         kern.launches = 0
-    llama.moe_ops.moe_ranks = keep_parts
+    moe.moe_ranks, moe._route = keep_parts, keep_route
+    optim.clip_by_global_norm = keep_norm
     try:
         state, loss = tr.step(state, batch)           # warm-up
     finally:
-        llama.moe_ops.moe_ranks = ranks_fn
-    stats = moe._stats_from_routing(moe.pool(parts), mcfg.moe.top_k)
+        moe.moe_ranks, moe._route = ranks_fn, route_fn
+        optim.clip_by_global_norm = clip_fn
+    n_fwd = mcfg.n_layers * n         # one moe_ranks call a layer and group
+    stats = moe._stats_from_routing(moe.pool(parts[:n_fwd]),
+                                    mcfg.moe.top_k)
+    # the backward recomputes the last layer first, its groups in order
+    # (and stops once the saved tensors are back: after the last
+    # group's routing, before its statistics)
+    rec = [r for i in reversed(range(mcfg.n_layers))
+           for r in routes[n_fwd + i * n:n_fwd + (i + 1) * n]]
     losses = [float(loss)]
     sync(dev)
     marks = [torch.cuda.Event(enable_timing=True)
@@ -3536,18 +3738,23 @@ def moe_train_path(dev, kernels) -> dict:
     launches = {name: kern.launches for name, kern in kernels.items()}
     steps = cfg.iters + 1
     per_step = {name: 0 for name in kernels}
-    flash = mcfg.n_layers * n * ep
-    per_step.update(flash_fwd=flash, flash_dq=flash, flash_dkv=flash,
+    ranks = mcfg.n_layers * n * ep
+    diag, past = ranks * sp, ranks * sp * (sp - 1) // 2
+    fwd = 2 if remat else 1
+    per_step.update(flash_fwd=fwd * diag, flash_dq=diag, flash_dkv=diag,
                     ring_rs_update=ep, ring_ag=ep)
+    if past:
+        per_step.update(flash_fwd_offsets=fwd * past, flash_dq_offsets=past,
+                        flash_dkv_offsets=past)
     for name, count in launches.items():
         if count != steps * per_step[name]:
-            raise AssertionError(f"moe training: {name} launched {count} "
+            raise AssertionError(f"{phase}: {name} launched {count} "
                                  f"times, expected {steps} x "
                                  f"{per_step[name]}")
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"moe training: non-finite loss {losses}")
+        raise AssertionError(f"{phase}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"moe training: the loss on the repeated "
+        raise AssertionError(f"{phase}: the loss on the repeated "
                              f"batch did not fall {losses}")
     reps = state.replicas.view(ep, n, -1)
     masters = state.w_own.view(ep, -1)
@@ -3561,9 +3768,18 @@ def moe_train_path(dev, kernels) -> dict:
         "replicas_in_model_dtype": state.replicas.dtype == mcfg.torch_dtype,
         "router_held_apart_f32": (state.side is not None
                                   and state.side.dtype == torch.float32)}
+    if remat:
+        checks["recomputed_routing_equal"] = len(rec) == n_fwd and all(
+            torch.equal(getattr(a, f), getattr(b, f))
+            for a, b in zip(routes[:n_fwd], rec)
+            for f in ("e_flat", "keep", "slot"))
+    if clip is not None:
+        checks["pre_clip_norm_finite"] = len(norms) == 1 and math.isfinite(
+            norms[0])
     tokens = cfg.iters * cfg.global_batch * seq
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    emit(phase="moe_train_path", model=(
+    median = sorted(step_ms)[cfg.iters // 2]
+    emit(phase=phase, model=(
         f"Mixtral-8x7B width (dim {mcfg.dim}, {mcfg.n_heads}/"
         f"{mcfg.n_kv_heads} heads, ffn {mcfg.ffn_dim}, vocab {mcfg.vocab}, "
         f"rope_theta {mcfg.rope_theta}, {mcfg.moe_experts} experts top-"
@@ -3572,49 +3788,72 @@ def moe_train_path(dev, kernels) -> dict:
         f"{mcfg.n_layers} layer, attn_block {mcfg.attn_block}, random "
         "weights"), params=llama.num_params(mcfg),
          active_params=llama.active_params(mcfg), seq=seq,
-         global_batch=cfg.global_batch, dp=n, ep=ep,
-         tokens_per_step=cfg.global_batch * seq,
+         global_batch=cfg.global_batch, dp=n, sp=sp, ep=ep, remat=remat,
+         held_at_start_gb=held_gb, tokens_per_step=cfg.global_batch * seq,
+         tokens_per_device=cfg.global_batch * seq // (n * sp * ep),
          collective=str(cfg.collective), optimizer=str(cfg.optimizer),
          weight_init_s=init_s, steps=cfg.iters, wall_s=wall,
          ms_per_step=1e3 * wall / cfg.iters, step_ms=step_ms,
-         median_step_ms=sorted(step_ms)[cfg.iters // 2],
-         tokens_per_sec=tokens / wall, losses=losses, peak_mem_gb=peak,
-         padded_len_per_row=int(state.replicas.shape[1]),
+         median_step_ms=median, tokens_per_sec=tokens / wall, losses=losses,
+         peak_mem_gb=peak, padded_len_per_row=int(state.replicas.shape[1]),
          launches=launches, launches_per_step=per_step,
          expert_stats_warmup={k: v.tolist() for k, v in stats.items()},
+         pre_clip_norm_warmup=norms[0] if norms else None, clip_norm=clip,
+         clip_bound_warmup=(norms[0] > clip) if norms else None,
          checks=checks)
     if not all(checks.values()):
-        raise AssertionError(f"moe training: {checks}")
+        raise AssertionError(f"{phase}: {checks}")
     flat_g, _ = tr.grads(state, batch)
-    g, w = flat_g[:n], state.w_own[:n]
-    L = g.shape[1]
-    C = L // n
+    out = {"launches": launches, "mcfg": mcfg, "cfg": cfg, "seq": seq,
+           "steps": steps, "median_step_ms": median, "peak_mem_gb": peak,
+           "tokens_per_sec": tokens / wall, "stats": stats}
+    if clip is not None:        # the norm the next step would clip
+        norm = float(optim.global_norm(tr._reduce(flat_g),
+                                       tr.norm_weight_tables()))
+        out["pre_clip_norm"] = {"warmup": norms[0], "final_state": norm}
+        emit(phase=phase + "_clip", clip_norm=clip,
+             pre_clip_norm=out["pre_clip_norm"],
+             bound={"warmup": norms[0] > clip, "final_state": norm > clip})
+    if sp == 1:
+        g, w = flat_g[:n], state.w_own[:n]
+        L = g.shape[1]
+        C = L // n
 
-    def rs():
-        return fused_update.reduce_scatter(g, cfg.collective)
+        def rs():
+            return fused_update.reduce_scatter(g, cfg.collective)
 
-    def ag():
-        return fused_update.all_gather_flat(w, cfg.collective)
-    rs_b, ag_b = ring_bytes(n, L, C)
-    ring = {"shape": f"n={n}, L={L} (one ep group's rows), no optimizer",
+        def ag():
+            return fused_update.all_gather_flat(w, cfg.collective)
+        rs_b, ag_b = ring_bytes(n, L, C)
+        out["ring"] = {
+            "shape": f"n={n}, L={L} (one ep group's rows), no optimizer",
             "rs_device_ms": device_ms(rs, 5, ("ring_rs_kernel",)),
             "rs_bound": bound(rs_b, 11 * n * L),
             "ag_device_ms": device_ms(ag, 5, ("ring_ag_kernel",)),
             "ag_bound": bound(ag_b, 10 * n * C)}
-    emit(phase="moe_ring_times", **ring)
-    del flat_g, g, w, reps, masters
+        emit(phase="moe_ring_times", **out["ring"])
+        del g, w
+    del flat_g, reps, masters
     held = [state]
     del state
 
     def train_step():
         held[0], _ = tr.step(held[0], batch)
 
-    prof = profile_run("moe_train_profile", train_step, 2,
-                       groups=TRAIN_GROUPS, op_groups=MOE_OP_GROUPS)
+    prof = profile_run(phase.replace("path", "profile"), train_step, 2,
+                       groups=SP_GROUPS if sp > 1 else TRAIN_GROUPS,
+                       op_groups=MOE_OP_GROUPS)
+    out["profile"] = prof
+    out["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
+    emit(phase=phase + "_summary", median_step_ms=median,
+         tokens_per_sec=tokens / wall, peak_mem_gb=peak,
+         idle_share=out["idle_share"],
+         drop_frac=float(stats["drop_frac"]),
+         load_frac=stats["load_frac"].tolist(),
+         pre_clip_norm=out.get("pre_clip_norm"), launches=launches)
     del tr, held, batch
     torch.cuda.empty_cache()
-    return {"launches": launches, "mcfg": mcfg, "cfg": cfg, "seq": seq,
-            "steps": steps, "ring": ring, "profile": prof}
+    return out
 
 
 def moe_train_parity(dev, run) -> None:
@@ -3698,6 +3937,108 @@ def moe_train_parity(dev, run) -> None:
     torch.cuda.empty_cache()
     if not all(checks.values()):
         raise AssertionError(f"moe training parity failed: {checks}")
+
+
+MOE_SP_PARITY_SEQ = 4096      # 2048 tokens a device at sp=2
+MOE_SP_PARITY_CF = 4.0        # E / top_k: an expert can take every token
+#                               of a device, so nothing drops at sp 1 or 2
+
+
+def moe_sp_train_parity(dev, run) -> None:
+    """The MoE loss's gradients at the sp x ep path's widths, 1 layer,
+    sequence ``MOE_SP_PARITY_SEQ``, one sequence on each (dp, ep) rank of
+    dp=2 x ep=2, capacity factor ``MOE_SP_PARITY_CF`` (nothing drops,
+    ``drop_frac`` reported): dp=2 x sp=2 x ep=2 on the kernel route
+    against the plain attention route (the expert choices pinned to the
+    kernel route's) and against dp=2 x sp=1 x ep=2 on the same tokens
+    (pinned likewise; capacity is per device, but nothing drops), within
+    the Llama parity limits; the unpinned errors and flip shares beside
+    them; the kernel ring with its hops merged without the lse weights
+    (the fault control) must exceed the limit."""
+    import dataclasses
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    from fpga_ai_nic_tpu_torch.ops import fused_update, moe
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.sharded import split_ep
+    cfg, seq = run["cfg"], MOE_SP_PARITY_SEQ
+    n_dp, n_ep = cfg.mesh.dp, cfg.mesh.ep
+    mcfg = dataclasses.replace(run["mcfg"],
+                               moe_capacity_factor=MOE_SP_PARITY_CF)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    params = llama.init(gen, mcfg, dev)
+    leaves = [t.requires_grad_() for t in fused_update.tree_leaves(params)]
+    trees = split_ep(params, llama.param_specs(mcfg), n_ep)
+    per_rank = [trees[e] for e in range(n_ep) for _ in range(n_dp)]
+    whole = tuple(t.to(dev) for t in next(train_llama.batches(
+        mcfg, dataclasses.replace(cfg, global_batch=n_dp * n_ep), seq, 1)))
+
+    def grads(impl, n_sp, record, pin=None, merge=None):
+        c = dataclasses.replace(mcfg, attn_impl=impl)
+        batch = VirtualRanks(n_dp, dev, n_sp, n_ep).shard_batch(whole)
+        orig = fa._lse_merge
+        if merge is not None:
+            fa._lse_merge = merge
+        try:
+            with pinned_routing(moe, record, pin):
+                losses = llama.dp_loss_fn(c, n_dp, n_ep, n_sp=n_sp)(
+                    per_rank, batch)
+                gs = torch.autograd.grad(losses.sum(), leaves)
+        finally:
+            fa._lse_merge = orig
+        return float(losses.detach().mean()), [g / n_dp for g in gs]
+
+    def dist(ga, gb):
+        return math.sqrt(sum(float((a.float() - b.float()).square().sum())
+                             for a, b in zip(ga, gb)))
+
+    def drop_frac(record):
+        return 1.0 - float(torch.cat([r.keep.reshape(-1) for r in record])
+                           .float().mean())
+
+    rk = []
+    l_k, g_k = grads("pallas", 2, rk)
+    norm = math.sqrt(sum(float(g.float().square().sum()) for g in g_k))
+    res = {}
+    for name, args in (("plain_attention_pinned", ("xla", 2, [], rk)),
+                       ("plain_attention_unpinned", ("xla", 2, [])),
+                       ("dp2_sp1_ep2_pinned", ("pallas", 1, [], rk)),
+                       ("dp2_sp1_ep2_unpinned", ("pallas", 1, [])),
+                       ("control_unweighted_merge",
+                        ("pallas", 2, [], rk, _unweighted_merge))):
+        l_o, g_o = grads(*args)
+        res[name] = {"loss": l_o, "loss_diff": abs(l_k - l_o),
+                     "grad_rel_err": dist(g_k, g_o) / norm,
+                     "routing_flip_share": flip_share(rk, args[2]),
+                     "drop_frac": drop_frac(args[2])}
+        del g_o
+        torch.cuda.empty_cache()
+    ctrl = res.pop("control_unweighted_merge")
+    unpinned = {k: res.pop(k) for k in ("plain_attention_unpinned",
+                                        "dp2_sp1_ep2_unpinned")}
+    checks = {"finite": all(math.isfinite(v) for v in (l_k, norm)),
+              "nothing_dropped": drop_frac(rk) == 0.0 and all(
+                  r["drop_frac"] == 0.0 for r in res.values()),
+              **{f"{k}_grad_within_tol": r["grad_rel_err"]
+                 <= PARITY_GRAD_REL_TOL for k, r in res.items()},
+              **{f"{k}_loss_within_tol": r["loss_diff"] <= PARITY_LOSS_TOL
+                 for k, r in res.items()},
+              "control_above_tol": ctrl["grad_rel_err"] > PARITY_GRAD_REL_TOL}
+    emit(phase="moe_sp_train_parity", seq=seq, layers=mcfg.n_layers,
+         ranks="dp=2 x sp=2 x ep=2, one sequence each (dp, ep) rank",
+         capacity_factor=MOE_SP_PARITY_CF, drop_frac=drop_frac(rk),
+         loss_kernel=l_k, against=res, unpinned=unpinned, control=ctrl,
+         grad_tol=PARITY_GRAD_REL_TOL, loss_tol=PARITY_LOSS_TOL,
+         grad_norm=norm,
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         checks=checks)
+    del params, leaves, trees, per_rank, g_k
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"moe sp training parity failed: {checks}")
 
 
 def moe_serving_path(dev, kernels) -> dict:
@@ -3990,6 +4331,8 @@ def main() -> int:
         flash_dkv_generic=flash_attention.FLASH_DKV_GENERIC)
     sp_run = llama_sp_train_path(dev, sp_kernels)
     llama_sp_parity(dev, sp_run)
+    remat_run = llama_sp_train_path(dev, sp_kernels, remat=True)
+    llama_sp_remat_compare(sp_run, remat_run)
 
     # -- 13-15. BERT-base: the key-bias channel, the DDP path, its parity ----------
     bert_flash = bert_flash_checks(dev)
@@ -4008,6 +4351,12 @@ def main() -> int:
     moe_run = moe_train_path(dev, bert_kernels)
     moe_train_parity(dev, moe_run)
     moe_serve = moe_serving_path(dev, bert_kernels)
+
+    # -- 21-23. sp with MoE over dp x sp x ep: the hop, the path, its parity --
+    moe_sp_hop = moe_sp_hop_checks(dev)
+    moe_sp_run = moe_train_path(dev, sp_kernels, MOE_SP_TRAIN_ARGV,
+                                "moe_sp_train_path")
+    moe_sp_train_parity(dev, moe_sp_run)
 
     # -- 18. the kernels line and the result ----------------------------------
     meta = {
@@ -4065,6 +4414,7 @@ def main() -> int:
     for name in OFFSET_KERNELS:
         launches[name] = sp_run["launches"][name]
         results[name] = offsets[name]
+        results[name]["extra"].update(moe_sp_hop[name])
     for name in ("int8_encode", "int8_decode"):
         launches[name] = int8_launches[name]
     for name in ("bfp_encode", "bfp_decode"):
@@ -4095,6 +4445,11 @@ def main() -> int:
     rr, mr = resnet_run["ring"], moe_run["ring"]
     for name, key in (("ring_rs_update", "rs"), ("ring_ag", "ag")):
         results[name]["extra"].update(
+            moe_sp_launches=moe_sp_run["launches"][name],
+            moe_sp_launches_from=(
+                f"moe_sp_train_path ({moe_sp_run['steps']} steps, one a "
+                "step for each of the 2 ep groups, unfused: the clip "
+                "between the reduce-scatter and the update)"),
             moe_shape=mr["shape"],
             moe_launches=moe_run["launches"][name],
             moe_launches_from=(f"moe_train_path ({moe_run['steps']} steps, "
@@ -4162,7 +4517,16 @@ def main() -> int:
                            "Mixtral-8x7B width, dp=2 x ep=2)"),
                        sp_path_launches_from=(
                            f"llama_sp_train_path ({sp_run['steps']} steps; "
-                           "the diagonal hops)"))
+                           "the diagonal hops)"),
+                       sp_remat_path_launches=remat_run["launches"][name],
+                       sp_remat_path_launches_from=(
+                           f"llama_sp_remat_path ({remat_run['steps']} "
+                           "steps; the diagonal hops, the forward twice)"),
+                       moe_sp_path_launches=moe_sp_run["launches"][name],
+                       moe_sp_path_launches_from=(
+                           f"moe_sp_train_path ({moe_sp_run['steps']} "
+                           "steps, dp=2 x sp=2 x ep=2, remat; the "
+                           "diagonal hops)"))
         if name in OFFSET_KERNELS:
             B_, H_, kv_, Sl_ = SP_HOP
             row.update(shape=(f"past ring hop: B={B_}, H={H_}, Hkv={kv_}, "
@@ -4173,6 +4537,15 @@ def main() -> int:
                        launches_from=(f"llama_sp_train_path ("
                                       f"{sp_run['steps']} steps; the past "
                                       "hops)"),
+                       sp_remat_path_launches=remat_run["launches"][name],
+                       moe_sp_path_launches=moe_sp_run["launches"][name],
+                       moe_sp_path_launches_from=(
+                           f"moe_sp_train_path ({moe_sp_run['steps']} "
+                           "steps; the past hops, the forward twice)"),
+                       moe_sp_hop_shape=(
+                           "past ring hop: B={}, H={}, Hkv={}, Sq=Sk={}, "
+                           "hd=128, bf16, q_offset {}, k_offset 0".format(
+                               *MOE_SP_HOP, MOE_SP_HOP[3])),
                        max_abs_err_over=[c[0] for c in SP_OFFSET_CASES
                                          if c[3] != c[4]])
         if name in ("int8_encode", "int8_decode"):

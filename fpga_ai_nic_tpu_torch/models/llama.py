@@ -9,8 +9,12 @@ The parameter tree keeps the JAX layout, so weights carry across unchanged
 [D, kv*hd], "wo" [H*hd, D], "mlp_norm", "w1"/"w3" [D, F], "w2" [F, D]}]}``
 and a projection is ``h @ w``; a MoE layer (``moe_experts > 0``) holds
 ``"moe": {"wr" [D, E] f32, "w1"/"w3" [E, D, F], "w2" [E, F, D]}`` in
-place of ``w1``/``w3``/``w2`` (``ops.moe``).  ``tp_axis``, ``dp_axis``
-and ``remat=True`` raise ``NotImplementedError``.  Attention follows
+place of ``w1``/``w3``/``w2`` (``ops.moe``).  ``tp_axis`` and ``dp_axis``
+raise ``NotImplementedError``.  ``remat=True`` recomputes each decoder
+block in the backward (``torch.utils.checkpoint``, JAX's
+``jax.checkpoint`` of the block): a layer keeps only its input, on every
+route (the dense and sp blocks, and a layer of the joint-ranks graph as
+one unit, since the ep exchange couples its ranks).  Attention follows
 ``attn_block`` / ``attn_impl``:
 ``None`` is the direct softmax, a block size routes through
 ``ops.ring_attention.flash_attention_remat`` (the flash CUDA kernels for
@@ -31,10 +35,14 @@ trees (each its replicated leaves and its ``[E/ep, ...]`` expert shard,
 ``parallel.sharded.split_ep``), tokens ``[n_ep, B, S]``; the dense parts run a rank at a
 time on its own tree, each MoE layer over the stacked ranks
 (``ops.moe.moe_ranks``: the ep exchange is a transpose of the stack),
-and the loss and the aux are over every rank's tokens.  ``dp_loss_fn``
-is the trainers' MoE loss over dp x ep ranks at once (``joint_ranks``):
-the aux is taken once over the global statistics, as JAX's is under
-``dp_axis``, which a per-dp-rank loss cannot do.
+and the loss and the aux are over every rank's tokens.  With both
+``ep_axis`` and ``sp_axis`` the tokens are ``[n_ep, n_sp, B, S_local]``:
+each ep rank runs its sp ring over its own shards, and each (ep, sp)
+device routes its own tokens (capacity over ``B S_local``).
+``dp_loss_fn`` is the trainers' MoE loss over dp x ep (x sp) ranks at
+once (``joint_ranks``): the aux is taken once over the global
+statistics, as JAX's is under ``dp_axis``, which a per-dp-rank loss
+cannot do.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..ops import moe as moe_ops
@@ -343,40 +352,78 @@ def _aux(layer_parts: Sequence[moe_ops.AuxParts], cfg: LlamaConfig,
                torch.zeros((), dtype=torch.float32, device=device))
 
 
+def _moe_group(lyrs: Sequence[Params], hs: Sequence[torch.Tensor],
+               cfg: LlamaConfig
+               ) -> Tuple[torch.Tensor, moe_ops.AuxParts]:
+    """One ep group's MoE layer: ``hs`` its ranks' normed activations,
+    ``[B, S, D]`` each, or ``[n_sp, B, S_local, D]`` with sp.  Every (ep,
+    sp) device is a source of the exchange, routing its own tokens with
+    its ep rank's router copy; returns the outputs stacked as ``hs``."""
+    x = torch.stack(hs)
+    wr = torch.stack([lyr["moe"]["wr"] for lyr in lyrs])
+    if x.dim() == 5:                            # [n_ep, n_sp, B, S, D]
+        wr = wr.repeat_interleave(x.shape[1], dim=0)
+    ff, parts = moe_ops.moe_ranks(wr, [lyr["moe"] for lyr in lyrs],
+                                  x.flatten(0, x.dim() - 4), cfg.moe)
+    return ff.reshape(x.shape), parts
+
+
+def _layer_groups(lyrs: Sequence[Sequence[Params]], sizes: Sequence[int],
+                  pos: torch.Tensor, cfg: LlamaConfig,
+                  sp_axis: Optional[str], *flat: torch.Tensor
+                  ) -> Tuple[List[torch.Tensor], Optional[moe_ops.AuxParts]]:
+    """One decoder layer over every group's ranks, ``flat`` their
+    activations in group order (``sizes`` ranks a group): attention a
+    rank at a time on its own tree (its sp ring with ``sp_axis``), the
+    FFN dense a rank or MoE over the group.  Returns the new activations
+    in the same order and the MoE statistics pooled over the groups
+    (None when dense)."""
+    n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
+    out, parts, at = [], [], 0
+    for g_lyrs, k in zip(lyrs, sizes):
+        xg = [_attention(lyr, x, pos, cfg, n_heads, n_kv, sp_axis)
+              for lyr, x in zip(g_lyrs, flat[at:at + k])]
+        at += k
+        hs = [_rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
+              for lyr, x in zip(g_lyrs, xg)]
+        if "moe" in g_lyrs[0]:
+            ff, p = _moe_group(g_lyrs, hs, cfg)
+            parts.append(p)
+        else:
+            ff = [_dense_ffn(lyr, h) for lyr, h in zip(g_lyrs, hs)]
+        out += [x + f for x, f in zip(xg, ff)]
+    return out, (moe_ops.pool(parts) if parts else None)
+
+
 def _forward_groups(groups: Sequence[Sequence[Params]],
-                    tokens: Sequence[torch.Tensor], cfg: LlamaConfig
+                    tokens: Sequence[torch.Tensor], cfg: LlamaConfig,
+                    sp_axis: Optional[str] = None, remat: bool = False
                     ) -> Tuple[List[torch.Tensor],
                                List[moe_ops.AuxParts]]:
     """Expert-parallel forward: ``groups`` the ep groups' rank trees (ep
     trees each, rank e holding expert shard e), ``tokens`` a ``[n_ep, B,
-    S]`` stack a group.  The dense parts run a rank at a time on its own
-    tree, each MoE layer over the group's stacked ranks.  Returns the
-    logits, ``[n_ep, B, S, V]`` a group, and each MoE layer's statistics
+    S]`` stack a group (``[n_ep, n_sp, B, S_local]`` with ``sp_axis``).
+    The dense parts run a rank at a time on its own tree, each MoE layer
+    over the group's stacked ranks; with ``remat`` each layer, all groups
+    at once, is recomputed in the backward.  Returns the logits, shaped
+    as the tokens plus ``V`` a group, and each MoE layer's statistics
     pooled over every group (JAX's psum over all token axes)."""
     S = tokens[0].shape[-1]
-    pos = _positions(S, device=tokens[0].device)
-    n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
-    xs = [[t["tok_emb"][tok.long()] for t, tok in zip(trees, toks)]
-          for trees, toks in zip(groups, tokens)]
+    pos = _positions(S, sp_axis, tokens[0].device,
+                     n_sp=tokens[0].shape[1] if sp_axis else 1)
+    xs = [t["tok_emb"][tok.long()] for trees, toks in zip(groups, tokens)
+          for t, tok in zip(trees, toks)]
+    sizes = [len(trees) for trees in groups]
     layer_parts = []
     for i in range(cfg.n_layers):
-        parts = []
-        for g, trees in enumerate(groups):
-            lyrs = [t["layers"][i] for t in trees]
-            xg = [_attention(lyr, x, pos, cfg, n_heads, n_kv)
-                  for lyr, x in zip(lyrs, xs[g])]
-            hs = [_rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
-                  for lyr, x in zip(lyrs, xg)]
-            if "moe" in lyrs[0]:
-                ff, p = moe_ops.moe_ranks(
-                    torch.stack([lyr["moe"]["wr"] for lyr in lyrs]),
-                    [lyr["moe"] for lyr in lyrs], torch.stack(hs), cfg.moe)
-                parts.append(p)
-            else:
-                ff = [_dense_ffn(lyr, h) for lyr, h in zip(lyrs, hs)]
-            xs[g] = [x + f for x, f in zip(xg, ff)]
-        if parts:
-            layer_parts.append(moe_ops.pool(parts))
+        args = ([[t["layers"][i] for t in trees] for trees in groups],
+                sizes, pos, cfg, sp_axis, *xs)
+        xs, parts = (checkpoint(_layer_groups, *args, use_reentrant=False)
+                     if remat else _layer_groups(*args))
+        if parts is not None:
+            layer_parts.append(parts)
+    it = iter(xs)
+    xs = [[next(it) for _ in range(k)] for k in sizes]
     logits = [torch.stack([_rmsnorm(x, t["final_norm"], cfg.norm_eps)
                            @ t["lm_head"] for t, x in zip(trees, xg)])
               for trees, xg in zip(groups, xs)]
@@ -385,14 +432,12 @@ def _forward_groups(groups: Sequence[Sequence[Params]],
 
 def _check_ep(params: Any, tokens: torch.Tensor,
               sp_axis: Optional[str]) -> None:
-    if sp_axis is not None:
-        raise NotImplementedError(
-            "sp_axis with ep_axis (sequence shards of expert-parallel "
-            "ranks) is not ported: ROADMAP A.6 item 6")
-    if isinstance(params, dict) or tokens.dim() != 3 \
+    dims = 4 if sp_axis is not None else 3
+    if isinstance(params, dict) or tokens.dim() != dims \
             or len(params) != tokens.shape[0]:
         raise ValueError("with ep_axis, params is the list of the ep "
-                         "ranks' trees and tokens [n_ep, B, S]")
+                         "ranks' trees and tokens [n_ep, B, S] ([n_ep, "
+                         "n_sp, B, S_local] with sp_axis)")
 
 
 def apply(params: Any, tokens: torch.Tensor, cfg: LlamaConfig, *,
@@ -402,16 +447,15 @@ def apply(params: Any, tokens: torch.Tensor, cfg: LlamaConfig, *,
     """tokens [B, S] -> logits [B, S, vocab] in the model dtype; with
     ``sp_axis``, tokens [n_sp, B, S_local] -> [n_sp, B, S_local, vocab];
     with ``ep_axis``, params the ep ranks' trees and tokens [n_ep, B, S]
-    -> [n_ep, B, S, vocab].  ``with_aux``: ``(logits, aux)``, the MoE
-    load-balance term over every token of the call (0 when dense)."""
-    if remat:
-        raise NotImplementedError(
-            "remat (per-block activation recomputation) is not ported yet: "
-            "ROADMAP A.6")
+    -> [n_ep, B, S, vocab] (with both, [n_ep, n_sp, B, S_local] ->
+    [n_ep, n_sp, B, S_local, vocab]).  ``with_aux``: ``(logits, aux)``,
+    the MoE load-balance term over every token of the call (0 when
+    dense).  ``remat``: each block recomputed in the backward."""
     if ep_axis is not None:
         _check_ep(params, tokens, sp_axis)
         _shard_counts(cfg, tp_axis)
-        logits, layer_parts = _forward_groups([params], [tokens], cfg)
+        logits, layer_parts = _forward_groups([params], [tokens], cfg,
+                                              sp_axis, remat)
         logits = logits[0]
     else:
         if tokens.dim() != (2 if sp_axis is None else 3):
@@ -423,7 +467,9 @@ def apply(params: Any, tokens: torch.Tensor, cfg: LlamaConfig, *,
         x = params["tok_emb"][tokens.long()]                # [.., S, D]
         layer_parts = []
         for lyr in params["layers"]:
-            x, parts = _block(lyr, x, pos, cfg, n_heads, n_kv, sp_axis)
+            args = (lyr, x, pos, cfg, n_heads, n_kv, sp_axis)
+            x, parts = (checkpoint(_block, *args, use_reentrant=False)
+                        if remat else _block(*args))
             if parts is not None:
                 layer_parts.append(parts)
         x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -473,7 +519,8 @@ def loss_fn(params: Any, batch, cfg: LlamaConfig, *,
     (tokens, labels), both [B, S] (or [n_sp, B, S_local] with
     ``sp_axis``: the stacked shards, labels the globally shifted targets,
     so the shift crosses shard boundaries; or [n_ep, B, S] with
-    ``ep_axis``, params the ep ranks' trees); -100 entries are ignored.
+    ``ep_axis``, params the ep ranks' trees; [n_ep, n_sp, B, S_local]
+    with both); -100 entries are ignored.
     With ``sp_axis`` or ``ep_axis`` the value is the token-weighted mean
     over all the shards, as each JAX rank's.  ``dp_axis`` raises: a dense
     model's per-rank loss and the trainer's uniform dp average equal the
@@ -493,27 +540,36 @@ def loss_fn(params: Any, batch, cfg: LlamaConfig, *,
     return loss + out[1] if cfg.moe is not None else loss
 
 
-def dp_loss_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1) -> Callable:
+def dp_loss_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1, *,
+               n_sp: int = 1, remat: bool = False) -> Callable:
     """The trainers' loss of a MoE Llama over n_dp x n_ep ranks at once,
     marked ``joint_ranks`` (``parallel.train.joint_grads``):
     ``(params_per_rank, batch) -> [n_dp n_ep]`` losses, rank (d, e) at
     index ``e n_dp + d`` (JAX's master layout, ep major), its batch
     ``batch[d, e]`` (``[n_dp, n_ep, B, S]``, JAX's ``P((dp, ep))``; or
-    ``[n_dp, B, S]`` without ep).
+    ``[n_dp, B, S]`` without ep).  With ``n_sp > 1`` the batch is
+    ``[n_dp, n_ep, n_sp, B, S_local]`` (JAX's ``P((dp, ep), sp)``,
+    ``parallel.mesh.VirtualRanks.shard``) and each rank runs its sp ring
+    over its shards; a rank's loss then sums its shards' tokens (JAX's
+    psum over sp).  ``remat``: each layer recomputed in the backward.
 
-    JAX's ``loss_fn(dp_axis="dp", ep_axis="ep")``: every value is the
-    global token-weighted cross-entropy plus the aux over the global
-    routing statistics; the gradient of the losses' sum is n_dp times the
-    unsharded one (the CE through each rank's own tokens, the aux once),
-    which the trainer's ep sum of the replicated leaves and its dp
-    average (sum / n_dp) turn into the single-device gradient."""
+    JAX's ``loss_fn(dp_axis="dp", ep_axis="ep"[, sp_axis="sp"])``: every
+    value is the global token-weighted cross-entropy plus the aux over
+    the global routing statistics; the gradient of the losses' sum is
+    n_dp times the unsharded one (the CE through each rank's own tokens,
+    the aux once), which the trainer's ep sum of the replicated leaves
+    and its dp average (sum / n_dp) turn into the single-device
+    gradient."""
     n = n_dp * n_ep
+    sp_axis = "sp" if n_sp > 1 else None
+    lead = (n_dp, n_ep) + ((n_sp,) if n_sp > 1 else ())
 
     def loss(params_per_rank, batch):
-        toks, labels = (b.reshape(n_dp, n_ep, *b.shape[-2:]) for b in batch)
+        toks, labels = (b.reshape(*lead, *b.shape[-2:]) for b in batch)
         groups = [[params_per_rank[e * n_dp + d] for e in range(n_ep)]
                   for d in range(n_dp)]
-        logits, layer_parts = _forward_groups(groups, list(toks), cfg)
+        logits, layer_parts = _forward_groups(groups, list(toks), cfg,
+                                              sp_axis, remat)
         sums, counts = [], []
         for d in range(n_dp):
             nll, valid = _masked_nll(logits[d], labels[d])

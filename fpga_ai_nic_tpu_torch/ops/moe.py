@@ -17,7 +17,8 @@ The semantics are JAX's (GShard/Switch-style, static shapes):
 Expert parallelism (JAX: ``moe_ffn(ep_axis=...)`` inside ``shard_map``)
 runs over ranks stacked as a leading dimension, as ``parallel.mesh``
 stacks every virtual rank: tokens ``[n, B, S, D]``, each rank its own
-router copy, expert shard r holding experts ``[r E/ep, (r + 1) E/ep)``.
+router copy, expert shard r holding experts ``[r E/ep, (r + 1) E/ep)``
+(with sp, the sources are the (ep, sp) devices of a dp rank, ep major).
 JAX's two ``lax.all_to_all(split_axis=0, concat_axis=0)`` become a
 transpose of the stacked ``[n_src, ep_dst, E/ep, C, D]`` buffer: shard r's
 experts see ``[E/ep, n C, D]``, source-major, exactly as JAX reshapes its
@@ -113,19 +114,27 @@ def _route(wr: torch.Tensor, xf: torch.Tensor, cfg: MoEConfig,
     local tokens ``xf [n, T, D]``; ``wr`` [D, E] shared or [n, D, E] one
     router a rank.  ``torch.sort(stable=True)`` picks ``lax.top_k``'s
     experts: the larger probability first, the lower index on a tie."""
-    E, k = cfg.num_experts, cfg.top_k
+    k = cfg.top_k
     logits = xf.to(torch.float32) @ wr                          # [n, T, E]
     probs = torch.softmax(logits, dim=-1)
     srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, eidx = srt[..., :k], order[..., :k]
     gates = gates / gates.sum(dim=-1, keepdim=True)
     e_flat = eidx.reshape(eidx.shape[0], -1)                    # [n, T*k]
+    return Routing(gates, e_flat, *assign(e_flat, cfg.num_experts, C),
+                   probs)
+
+
+def assign(e_flat: torch.Tensor, E: int, C: int):
+    """Token-major capacity assignment of each rank's ``e_flat [n, T k]``:
+    ``(onehot [n, T k, E] int32, keep, slot)``, an assignment kept while
+    fewer than C earlier ones chose its expert."""
     onehot = F.one_hot(e_flat, E).to(torch.int32)               # [n,T*k,E]
     prio = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
     pos = (prio * onehot).sum(dim=-1)                           # [n, T*k]
     keep = pos < C
     slot = torch.where(keep, pos, torch.zeros_like(pos))
-    return Routing(gates, e_flat, onehot, keep, slot, probs)
+    return onehot, keep, slot
 
 
 class AuxParts(NamedTuple):
@@ -177,15 +186,21 @@ def _parts(r: Routing, C: int) -> AuxParts:
 
 def moe_ranks(wr: torch.Tensor, shards: Sequence[Params], x: torch.Tensor,
               cfg: MoEConfig):
-    """The MoE FFN over ``n`` stacked ranks: ``x [n, B, S, D]`` each rank's
-    local tokens, ``wr`` [D, E] or [n, D, E], ``shards`` the ep expert
-    shards (``len(shards)`` = ep; ep = n, one shard a rank, or ep = 1, every
-    rank all experts).  Returns ``(y [n, B, S, D], AuxParts)``."""
+    """The MoE FFN over ``n`` stacked source devices: ``x [n, B, S, D]``
+    each device's local tokens (capacity and drop priority over its ``B
+    S``), ``wr`` [D, E] or [n, D, E], ``shards`` the ep expert shards
+    (``len(shards)`` = ep; ep = n, one shard a rank, ep = 1, every rank
+    all experts, or n = ep m: the m sp devices of each ep rank, ep major).
+    Shard j's experts see every source's rows for them: with sp, the m
+    (dp, sp) groups' all_to_alls of JAX side by side, which give the same
+    rows since an expert acts on each row alone.  Returns ``(y [n, B, S,
+    D], AuxParts)``."""
     n, B, S, D = x.shape
     ep = len(shards)
-    if ep not in (1, n):
-        raise ValueError(f"{ep} expert shards for {n} ranks: one a rank, "
-                         "or one for all")
+    if n % ep:
+        raise ValueError(f"{ep} expert shards for {n} source devices: "
+                         "one a rank, one for all, or one a rank's sp "
+                         "devices")
     E, k = cfg.num_experts, cfg.top_k
     if E % ep:
         raise ValueError(f"num_experts={E} does not split over ep={ep}")

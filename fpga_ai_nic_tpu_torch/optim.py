@@ -18,7 +18,7 @@ equals ``fmaf`` bit for bit (``_fmaf``); the square root goes the same way
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -182,13 +182,42 @@ def init_state(cfg: OptimizerConfig, shape: Sequence[int],
             for k in OptimizerSpec(kind=cfg.kind).state_keys}
 
 
-def clip_by_global_norm(cfg: OptimizerConfig, g: torch.Tensor
-                        ) -> torch.Tensor:
+def global_norm(g: torch.Tensor, weights: Any = None) -> torch.Tensor:
+    """The L2 norm of ``g`` (f32) with per-element norm weights: None,
+    a tensor broadcastable to ``g``, or the segment tables ``(bounds [m +
+    1], values [m])`` of one flat row (``parallel.sharded``'s
+    ``norm_weight_tables``), ``g`` then holding whole rows of length
+    ``bounds[-1]`` end to end (a ``[rows, C]`` stack of owned shards whose
+    every ``bounds[-1] / C`` consecutive rows make one flat row).  The
+    tables are read a segment at a time: no weight vector is built."""
+    if weights is None:
+        return torch.sqrt(torch.sum(torch.square(g.to(torch.float32))))
+    if isinstance(weights, torch.Tensor):
+        sq = torch.square(g.to(torch.float32)) * weights
+        return torch.sqrt(torch.sum(sq))
+    bounds, values = weights
+    rows = g.reshape(-1, int(bounds[-1]))
+    sq = torch.zeros((), dtype=torch.float32, device=g.device)
+    for a, b, v in zip(bounds[:-1], bounds[1:], values):
+        if v:
+            seg = torch.linalg.vector_norm(rows[:, int(a):int(b)],
+                                           dtype=torch.float32)
+            sq = sq + float(v) * torch.square(seg)
+    return torch.sqrt(sq)
+
+
+def clip_by_global_norm(cfg: OptimizerConfig, g: torch.Tensor,
+                        weights: Any = None) -> torch.Tensor:
     """Scale ``g`` (all ranks' owned shards, so the whole flat gradient) to
-    a global L2 norm of at most ``cfg.clip_norm``; no-op when None."""
+    a global L2 norm of at most ``cfg.clip_norm``; no-op when None.  The
+    port has no mesh axes (one process holds every rank's shard), so the
+    sum of squares runs over the whole stack; ``weights`` (JAX's per-element
+    norm weights, or their segment tables: ``global_norm``) count a leaf
+    replicated over r master rows 1/r a copy, so each parameter counts
+    once."""
     if cfg.clip_norm is None:
         return g
-    norm = torch.sqrt(torch.sum(torch.square(g.to(torch.float32))))
+    norm = global_norm(g, weights)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(norm, min=1e-12),
                         max=1.0)
     return (g.to(torch.float32) * scale).to(g.dtype)

@@ -18,7 +18,9 @@ An ep axis (expert parallelism) splits the batch alongside dp, as JAX's
 ``P((dp, ep), sp)`` does: a ``[B, S]`` leaf becomes ``[n_dp, n_ep, B /
 (n_dp n_ep), S]``, rank (d, e) holding JAX device (d, e)'s rows (dp
 major), and the MoE loss runs over all the ranks at once
-(``models.llama.dp_loss_fn``).  sp and ep together are not ported.
+(``models.llama.dp_loss_fn``).  With both, a ``[B, S]`` leaf becomes
+``[n_dp, n_ep, n_sp, B / (n_dp n_ep), S / n_sp]``: device (d, e, s)
+holds JAX device (d, s, e)'s rows and columns of ``P((dp, ep), sp)``.
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ from ..utils.config import MeshConfig
 
 @dataclass(frozen=True)
 class VirtualRanks:
-    """n data-parallel ranks stacked on one device, each holding ``sp``
-    sequence shards or ``ep`` expert-parallel ranks."""
+    """n data-parallel ranks stacked on one device, each holding ``ep``
+    expert-parallel ranks, each of those ``sp`` sequence shards."""
 
     n: int
     device: torch.device
@@ -46,33 +48,31 @@ class VirtualRanks:
         if self.n < 1 or self.sp < 1 or self.ep < 1:
             raise ValueError(f"need at least one rank, got dp={self.n}, "
                              f"sp={self.sp}, ep={self.ep}")
-        if self.sp > 1 and self.ep > 1:
-            raise NotImplementedError(
-                f"sp={self.sp} with ep={self.ep} (sequence shards of "
-                "expert-parallel ranks) is not ported: ROADMAP A.6 item 6")
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
         """[B, ...] global batch -> [n, B/n, ...] on the device: rank i
         gets rows i*B/n .. (i+1)*B/n - 1 (the MPI_Scatter analogue).  With
-        sp > 1, [B, S, ...] -> [n, sp, B/n, S/sp, ...]: rank (i, j) gets
-        those rows' columns j*S/sp .. (j+1)*S/sp - 1.  With ep > 1,
-        [B, ...] -> [n, ep, B/(n ep), ...]: rank (i, e) gets rows
-        (i ep + e) B/(n ep) onward."""
+        ep > 1, [B, ...] -> [n, ep, B/(n ep), ...]: rank (i, e) gets rows
+        (i ep + e) B/(n ep) onward.  With sp > 1 the sequence axis splits
+        too, its shards stacked after the rank axes: [B, S, ...] -> [n,
+        sp, B/n, S/sp, ...] (or [n, ep, sp, B/(n ep), S/sp, ...]), rank
+        (i[, e], j) holding its rows' columns j*S/sp .. (j+1)*S/sp - 1."""
         if x.shape[0] % (self.n * self.ep):
             raise ValueError(f"global batch {x.shape[0]} does not split "
                              f"over {self.n * self.ep} ranks")
         x = x.to(self.device)
-        if self.ep > 1:
-            return x.reshape(self.n, self.ep, -1, *x.shape[1:])
+        lead = (self.n, self.ep) if self.ep > 1 else (self.n,)
         if self.sp == 1:
-            return x.reshape(self.n, -1, *x.shape[1:])
+            return x.reshape(*lead, -1, *x.shape[1:])
         if x.dim() < 2 or x.shape[1] % self.sp:
             raise ValueError(f"a batch leaf of shape {tuple(x.shape)} has "
                              f"no sequence axis that splits over "
                              f"sp={self.sp} ranks")
         B, S = x.shape[:2]
-        return x.reshape(self.n, B // self.n, self.sp, S // self.sp,
-                         *x.shape[2:]).transpose(1, 2).contiguous()
+        rows = B // (self.n * self.ep)
+        return x.reshape(*lead, rows, self.sp, S // self.sp,
+                         *x.shape[2:]).transpose(len(lead),
+                                                 len(lead) + 1).contiguous()
 
     def shard_batch(self, batch: Sequence[torch.Tensor]
                     ) -> Tuple[torch.Tensor, ...]:

@@ -32,12 +32,19 @@ replicated leaf's gradient is summed over the ep ranks of its dp rank
 and written into every ep row (JAX's varying-axes psum over ep); the
 dp phases 2-5 then run within each ep group (rows ``e n_dp`` to ``(e + 1)
 n_dp - 1``), one reduce-scatter and one all-gather a group, so the BFP
-codec quantizes the blocks of JAX's layout.
+codec quantizes the blocks of JAX's layout.  ``clip_norm`` with ep takes
+the global norm over every row's owned shard with JAX's norm weights
+(``norm_weight_tables``: a replicated leaf 1/ep a copy, an expert shard
+1, the padding 0), so each parameter counts once.  With sp and ep
+together (``MeshConfig(dp, sp, ep)``) the batch is ``[n_dp, n_ep, n_sp,
+B, S_local]`` and the joint loss runs each (dp, ep) rank's sp ring
+(``llama.dp_loss_fn(..., n_sp=)``): the one backward sums a rank's sp
+shards (JAX's psum over sp), then the ep sum and the dp phases as above.
 
 As in the JAX package the fused optimizer kernel is not used: the update
 is ``optim.apply`` between the two collectives.  Other mesh axes (tp,
-pp, fsdp), ``loss_and_grads_fn`` (the 1F1B schedule), ``accum_steps >
-1`` and ``clip_norm`` with ep raise ``NotImplementedError``;
+pp, fsdp), ``loss_and_grads_fn`` (the 1F1B schedule) and ``accum_steps >
+1`` raise ``NotImplementedError``;
 ``integrity_check`` raises ``ValueError``, as the JAX package's does (it
 is DPTrainer's).  The state is ``parallel.train.TrainState``; ``step``
 drops the flat gradients before the update, so at full width they never
@@ -48,6 +55,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .mesh import VirtualRanks
@@ -124,11 +132,6 @@ class ShardedTrainer(DPTrainer):
                 raise ValueError("ep > 1 needs a loss over all ranks at "
                                  "once (joint_ranks, llama.dp_loss_fn): "
                                  "the ep ranks exchange tokens")
-            if cfg.optimizer.clip_norm is not None:
-                raise NotImplementedError(
-                    "clip_norm with ep > 1 (a global norm that counts each "
-                    "replicated leaf once) is not ported: ROADMAP A.6 "
-                    "item 7")
         super().__init__(loss_fn, ranks, cfg)
         # as in the JAX package, this trainer carries no error-feedback
         # residual: a codec's error_feedback flag is not read here
@@ -159,6 +162,8 @@ class ShardedTrainer(DPTrainer):
                     spans.append((off, off + size))
             off += size
         self._rep_spans = spans
+        if self.cfg.optimizer.clip_norm is not None:
+            self._norm_weights = self.norm_weight_tables()
         flat = torch.empty((self.n_ep, meta.padded_len),
                            dtype=torch.float32, device=self.ranks.device)
         for t, row in zip(local, flat):
@@ -172,6 +177,26 @@ class ShardedTrainer(DPTrainer):
         side = None if side is None else side.repeat_interleave(self.n, 0)
         return TrainState(self._rank0(replicas, side), replicas, w_own,
                           opt_state, 0, None, side)
+
+    def norm_weight_tables(self) -> Tuple[np.ndarray, np.ndarray]:
+        """JAX's ``_norm_weight_tables`` over one flat row of the ep
+        layout: ``(bounds [m + 1] int32, values [m] f32)``, a segment a
+        leaf, its value 1/ep where the leaf replicates over ep (each of
+        the ep rows holds a copy) and 1 where it is ep rank e's own
+        shard, then the padding at 0.  ``optim.global_norm`` reads them
+        over the ``[n_ep n_dp, C]`` owned shards."""
+        if self._meta is None:
+            raise RuntimeError("call init_state first")
+        bounds, values = [0], []
+        for size, spec in zip(self._meta.sizes, fused_update.tree_leaves(
+                self.param_specs)):
+            bounds.append(bounds[-1] + size)
+            values.append(1.0 if spec is not None else 1.0 / self.n_ep)
+        if bounds[-1] < self._meta.padded_len:
+            bounds.append(self._meta.padded_len)
+            values.append(0.0)
+        return (np.asarray(bounds, np.int32),
+                np.asarray(values, np.float32))
 
     def _groups(self, rows: torch.Tensor) -> List[torch.Tensor]:
         """The ep groups' rows of a ``[n_ep n_dp, ...]`` tensor."""

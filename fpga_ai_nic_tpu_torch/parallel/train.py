@@ -208,6 +208,10 @@ class DPTrainer:
         self._ef = (coll.impl == "ring" and codec is not None
                     and codec.error_feedback)
         self._meta = None
+        # per-element norm weights of the clip (optim.global_norm); the
+        # ep layout's tables (ShardedTrainer), None where every master
+        # row holds distinct elements
+        self._norm_weights = None
 
     # -- init -----------------------------------------------------------------
 
@@ -342,7 +346,8 @@ class DPTrainer:
         phase 2.  With ``diag`` (the reduce-scatter's verdicts, integrity
         on) the update is gated by them and ``(state, diag)`` returned."""
         opt_cfg = self.cfg.optimizer
-        g_own = optim.clip_by_global_norm(opt_cfg, g_own)
+        g_own = optim.clip_by_global_norm(opt_cfg, g_own,
+                                          self._norm_weights)
         w_new, opt_state = optim.apply(opt_cfg, state.w_own, g_own,
                                        state.opt_state, state.step)
         del g_own

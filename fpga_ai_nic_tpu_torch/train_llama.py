@@ -21,6 +21,12 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
       --global_batch=4 --mesh.dp=2 --mesh.ep=2 --iters=3 \\
       --collective.impl=ring --collective.compression.codec=pallas \\
       --collective.fused_kernel=true
+  python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
+      --model.n_layers=1 --model.vocab=32000 --model.rope_theta=1000000 \\
+      --model.moe_experts=8 --model.attn_block=512 --seq=8192 \\
+      --global_batch=4 --mesh.dp=2 --mesh.sp=2 --mesh.ep=2 --remat=true \\
+      --optimizer.clip_norm=1.0 --iters=3 --collective.impl=ring \\
+      --collective.compression.codec=pallas --collective.fused_kernel=true
   python -m fpga_ai_nic_tpu_torch.train_llama --model=tiny --device=cpu \\
       --model.attn_block=128 --seq=128 --global_batch=4 --mesh.dp=2 \\
       --iters=2
@@ -28,8 +34,9 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
 Flags: ``--model=llama3_8b|tiny`` (default tiny) picks the base
 configuration and ``--model.<field>=`` overlays ``LlamaConfig`` fields;
 ``--seq=`` (default 64) is the sequence length; ``--device=`` (default
-cuda; it raises when CUDA is absent); everything else goes to
-``TrainConfig``.  Batches are seeded uniform tokens, one per step, as
+cuda; it raises when CUDA is absent); ``--remat=`` (default false, JAX's
+flag) recomputes each decoder block in the backward; everything else
+goes to ``TrainConfig``.  Batches are seeded uniform tokens, one per step, as
 the JAX driver's ``make_batch`` draws them; the first step is a warm-up
 outside the timed window.  The ranks of ``--mesh.dp`` and ``--mesh.sp``
 are virtual ranks on one card: with sp > 1 each dp rank's loss runs over
@@ -41,8 +48,11 @@ shards of a multiple of 128 tokens.  ``--model.moe_experts=E`` (with
 every FFN a routed expert layer, trained through ``llama.dp_loss_fn`` (one
 loss over all ranks, the aux over the global routing statistics, as
 JAX's driver's ``dp_axis="dp"`` gives); ``--mesh.ep`` shards the experts
-over that many ranks of each dp rank, the batch over dp x ep.  sp with
-MoE raises (ROADMAP A.6 item 6).
+over that many ranks of each dp rank, the batch over dp x ep; with
+``--mesh.sp`` too, each (dp, ep) rank runs its sp ring over its sequence
+shards and each (dp, ep, sp) device routes its own tokens.
+``--optimizer.clip_norm`` clips the global norm, each parameter counted
+once across the ep rows (it needs the unfused update, the default).
 """
 
 from __future__ import annotations
@@ -68,7 +78,8 @@ MODELS = {"llama3_8b": LlamaConfig.llama3_8b, "tiny": LlamaConfig.tiny}
 
 
 def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
-    """``(LlamaConfig, TrainConfig, seq, device)`` from the flags."""
+    """``(LlamaConfig, TrainConfig, seq, device)`` from the flags
+    (``--remat=`` is read by ``remat_flag``)."""
     model, seq, device = "tiny", 64, "cuda"
     overlays: List[Tuple[str, str]] = []
     rest: List[str] = []
@@ -82,7 +93,7 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
             seq = int(val)
         elif key == "--device":
             device = val
-        else:
+        elif key != "--remat":           # remat_flag reads --remat
             rest.append(a)
     if model not in MODELS:
         raise ValueError(f"--model must be one of {sorted(MODELS)}")
@@ -94,10 +105,6 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
             _declared_type(mcfg, name), val)})
     cfg = from_flags(TrainConfig, rest)
     sp = cfg.mesh.sp
-    if (mcfg.moe is not None or cfg.mesh.ep > 1) and sp > 1:
-        raise NotImplementedError(
-            "sp with MoE or ep (sequence shards of expert-parallel ranks) "
-            "is not ported: ROADMAP A.6 item 6")
     if cfg.mesh.ep > 1 and mcfg.moe is None:
         raise ValueError(f"--mesh.ep={cfg.mesh.ep} needs MoE layers "
                          "(--model.moe_experts)")
@@ -105,6 +112,16 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
         raise ValueError(f"--seq={seq} does not split into --mesh.sp={sp} "
                          "shards of a multiple of 128 tokens")
     return mcfg, cfg, seq, device
+
+
+def remat_flag(argv: Sequence[str]) -> bool:
+    """JAX's ``--remat=`` flag (the last one given; false without)."""
+    remat = False
+    for a in argv:
+        key, _, val = a.partition("=")
+        if key == "--remat":
+            remat = coerce_value(bool, val)
+    return remat
 
 
 def batches(mcfg: LlamaConfig, cfg: TrainConfig, seq: int,
@@ -119,20 +136,22 @@ def batches(mcfg: LlamaConfig, cfg: TrainConfig, seq: int,
         yield torch.from_numpy(toks[:, :-1]), torch.from_numpy(toks[:, 1:])
 
 
-def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str
-          ) -> Tuple[ShardedTrainer, TrainState]:
-    """The trainer over ``cfg.mesh.dp`` x ``cfg.mesh.sp`` (or x
-    ``cfg.mesh.ep``) virtual ranks and its initial state, from weights
-    drawn on the device with seed ``cfg.seed``."""
+def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str,
+          remat: bool = False) -> Tuple[ShardedTrainer, TrainState]:
+    """The trainer over ``cfg.mesh.dp`` x ``cfg.mesh.ep`` x
+    ``cfg.mesh.sp`` virtual ranks and its initial state, from weights
+    drawn on the device with seed ``cfg.seed``; ``remat`` goes to the
+    loss."""
     ranks = make_ranks(cfg.mesh, device)
     if mcfg.moe is not None:
-        tr = ShardedTrainer(llama.dp_loss_fn(mcfg, ranks.n, ranks.ep),
+        tr = ShardedTrainer(llama.dp_loss_fn(mcfg, ranks.n, ranks.ep,
+                                             n_sp=ranks.sp, remat=remat),
                             ranks, cfg, param_specs=llama.param_specs(mcfg))
     else:
         sp_axis = "sp" if cfg.mesh.sp > 1 else None
         tr = ShardedTrainer(
-            lambda p, b: llama.loss_fn(p, b, mcfg, sp_axis=sp_axis), ranks,
-            cfg)
+            lambda p, b: llama.loss_fn(p, b, mcfg, sp_axis=sp_axis,
+                                       remat=remat), ranks, cfg)
     gen = torch.Generator(device=ranks.device).manual_seed(cfg.seed)
     return tr, tr.init_state(llama.init(gen, mcfg, ranks.device))
 
@@ -140,7 +159,8 @@ def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str
 def main(argv: Sequence[str]) -> dict:
     mcfg, cfg, seq, device = parse(argv)
     dev = resolve_device(device)
-    tr, state = build(mcfg, cfg, device)
+    remat = remat_flag(argv)
+    tr, state = build(mcfg, cfg, device, remat)
     losses = []
     t0 = 0.0
     for i, batch in enumerate(batches(mcfg, cfg, seq, cfg.iters + 1)):
@@ -157,7 +177,7 @@ def main(argv: Sequence[str]) -> dict:
             "wall_s": wall, "params": llama.num_params(mcfg),
             "active_params": llama.active_params(mcfg),
             "mesh": {"dp": m.dp, "tp": m.tp, "sp": m.sp, "pp": m.pp,
-                     "ep": m.ep},
+                     "ep": m.ep}, "remat": remat,
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else "cpu")}
 

@@ -1027,3 +1027,134 @@ def test_moe_llama_step_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
     err = float((runs["cuda"][1] - runs["cpu"][1]).abs().max())
     assert err <= 1e-6 + w_err, (err, w_err)
+
+
+def _hd128_llama(**kw):
+    """A small Llama at head_dim 128 (dim 256, 2 heads over 1 KV head),
+    the tensor-core flash kernels' width."""
+    import dataclasses
+    from fpga_ai_nic_tpu_torch.models import llama
+    return dataclasses.replace(
+        llama.LlamaConfig.tiny(dim=256, n_heads=2, n_kv_heads=1,
+                               ffn_dim=512), attn_block=128, **kw)
+
+
+def _seeded_batch(vocab, B, S, seed=0):
+    toks = np.random.default_rng(seed).integers(
+        0, vocab, (B, S + 1)).astype(np.int32)
+    return torch.from_numpy(toks[:, :-1]), torch.from_numpy(toks[:, 1:])
+
+
+@pytest.mark.cuda
+def test_remat_matches_no_remat_on_card(cuda_device):
+    """dp=2 x sp=2, bf16, head_dim 128 (the flash ring kernels, offsets
+    included): the trainer's loss with remat bit-equal to the loss
+    without, the flat gradients within the flash kernels' limit
+    (``tol_ratio``: REL_TOL of each element plus FLOOR_TOL of the
+    largest; the difference is printed), and remat launching one more
+    forward a hop and no more backward kernels."""
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    from fpga_ai_nic_tpu_torch.parallel.mesh import make_ranks
+    from fpga_ai_nic_tpu_torch.parallel.sharded import ShardedTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (CollectiveConfig,
+                                                    MeshConfig, TrainConfig)
+    mcfg = _hd128_llama(dtype="bfloat16")
+    cfg = TrainConfig(global_batch=4, mesh=MeshConfig(dp=2, sp=2),
+                      collective=CollectiveConfig(impl="xla"),
+                      optimizer=OptimizerConfig(kind="sgd",
+                                                learning_rate=0.1))
+    params = llama.init(torch.Generator(device=cuda_device).manual_seed(0),
+                        mcfg, cuda_device)
+    kernels = (fa.FLASH_FWD, fa.FLASH_FWD_OFFSETS, fa.FLASH_DQ,
+               fa.FLASH_DQ_OFFSETS, fa.FLASH_DKV, fa.FLASH_DKV_OFFSETS)
+    out = {}
+    for remat in (False, True):
+        tr = ShardedTrainer(lambda p, b, r=remat: llama.loss_fn(
+            p, b, mcfg, sp_axis="sp", remat=r), make_ranks(
+                cfg.mesh, cuda_device), cfg)
+        st = tr.init_state(params)
+        before = [k.launches for k in kernels]
+        g, loss = tr.grads(st, tr.shard_batch(_seeded_batch(mcfg.vocab, 4,
+                                                            512)))
+        torch.cuda.synchronize()
+        out[remat] = (g, loss, [k.launches - b
+                                for k, b in zip(kernels, before)])
+    (g0, l0, n0), (g1, l1, n1) = out[False], out[True]
+    # per dp rank and layer: 2 diagonal hops and 1 past hop at sp=2
+    assert n0 == [8, 4, 8, 4, 8, 4]
+    assert n1 == [16, 8, 8, 4, 8, 4]
+    assert torch.equal(l0, l1)
+    ratio = fa.tol_ratio(g1, g0)
+    print(f"remat gradients: max |diff| {float((g1 - g0).abs().max())}, "
+          f"bit-equal {torch.equal(g0, g1)}, tol_ratio {ratio}")
+    assert ratio <= 1.0
+
+
+@pytest.mark.cuda
+def test_moe_sp_ep_step_on_card_kernel_vs_plain(cuda_device):
+    """dp=2 x sp=2 x ep=2, the small f32 MoE Llama at head_dim 128 (4
+    experts, top-2, capacity factor 4: nothing drops): the flash kernel
+    route's gradients against the plain attention route's, the expert
+    choices pinned to the kernel route's (near ties may flip between the
+    routes), within the f32 route limit of ``chip_smoke.auto_route``
+    (relative L2 1e-4) and the loss within rtol 1e-5; then one step on
+    the kernel route: one ring reduce-scatter and one all-gather an ep
+    group, the replicas equal within each group."""
+    import dataclasses
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.ops import moe
+    from fpga_ai_nic_tpu_torch.parallel.mesh import make_ranks
+    from fpga_ai_nic_tpu_torch.parallel.sharded import ShardedTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (CollectiveConfig,
+                                                    MeshConfig, TrainConfig)
+    dp, sp, ep = 2, 2, 2
+    base = _hd128_llama(moe_experts=4, moe_capacity_factor=4.0)
+    cfg = TrainConfig(global_batch=4, mesh=MeshConfig(dp=dp, sp=sp, ep=ep),
+                      collective=CollectiveConfig(
+                          impl="ring", compression=BFPConfig(codec="pallas"),
+                          fused_kernel=True),
+                      optimizer=OptimizerConfig(kind="sgd", learning_rate=0.1,
+                                                clip_norm=1.0))
+    params = llama.init(torch.Generator().manual_seed(0), base, "cpu")
+    batch = _seeded_batch(base.vocab, 4, 512)
+    route = moe._route
+    record, runs = [], {}
+    for impl in ("pallas", "xla"):
+        mcfg = dataclasses.replace(base, attn_impl=impl)
+        pin = iter(record) if impl == "xla" else None
+
+        def pinned(wr, xf, c, C, pin=pin):
+            r = route(wr, xf, c, C)
+            if pin is None:
+                record.append(r.e_flat)
+                return r
+            e_flat = next(pin)
+            g = r.probs.gather(-1, e_flat.reshape(r.gates.shape))
+            return moe.Routing(g / g.sum(-1, keepdim=True), e_flat,
+                               *moe.assign(e_flat, c.num_experts, C),
+                               r.probs)
+
+        tr = ShardedTrainer(llama.dp_loss_fn(mcfg, dp, ep, n_sp=sp),
+                            make_ranks(cfg.mesh, cuda_device), cfg,
+                            param_specs=llama.param_specs(mcfg))
+        st = tr.init_state(params)
+        b = tr.shard_batch(batch)
+        moe._route = pinned
+        try:
+            g, loss = tr.grads(st, b)
+        finally:
+            moe._route = route
+        runs[impl] = (g, float(loss), tr, st, b)
+    g_k, l_k, tr, st, b = runs["pallas"]
+    g_p, l_p = runs["xla"][:2]
+    rel = float((g_k - g_p).norm() / g_p.norm())
+    print(f"sp x ep kernel vs plain: loss {l_k} / {l_p}, grad rel {rel}")
+    np.testing.assert_allclose(l_k, l_p, rtol=1e-5)
+    assert rel <= 1e-4
+    before = _launches()
+    st = tr.apply_grads(st, g_k)
+    torch.cuda.synchronize()
+    assert _launches() == [before[0] + ep, before[1] + ep]
+    reps = st.replicas.view(ep, dp, -1)
+    assert bool((reps == reps[:, :1]).all())

@@ -389,9 +389,14 @@ def test_moe_llama_ep_loss_matches_unsharded(ep):
     for a, b in zip(fused_update.tree_leaves(joined),
                     fused_update.tree_leaves(whole)):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="A.6 item 6"):
-        llama.loss_fn([p for _, p in per_rank], tb, pc, ep_axis="ep",
-                      sp_axis="sp")
+    # sp with ep is ported (tests/test_torch_sp_ep.py): each ep rank's
+    # tokens in two sequence shards give the same loss
+    tb_sp = VirtualRanks(1, torch.device("cpu"), 2, ep).shard_batch(
+        tuple(map(torch.from_numpy, (toks, labels))))
+    loss_sp = llama.loss_fn([p for _, p in per_rank],
+                            tuple(b[0] for b in tb_sp), pc, ep_axis="ep",
+                            sp_axis="sp")
+    np.testing.assert_allclose(float(loss_sp), float(loss_w), rtol=1e-5)
 
 
 # -- (d) the trainer ----------------------------------------------------------------
@@ -516,14 +521,23 @@ def test_ep_trainer_refusals():
     with pytest.raises(ValueError, match="joint_ranks"):
         ShardedTrainer(lambda p, b: None, ranks, cfg,
                        param_specs=llama.param_specs(pc))
-    with pytest.raises(NotImplementedError, match="A.6 item 7"):
-        ShardedTrainer(loss, ranks, dataclasses.replace(
-            cfg, optimizer=OptimizerConfig(clip_norm=1.0)),
-            param_specs=llama.param_specs(pc))
+    # clip_norm with ep is ported (tests/test_torch_sp_ep.py): it builds
+    # and steps
+    tr = ShardedTrainer(loss, ranks, dataclasses.replace(
+        cfg, optimizer=OptimizerConfig(clip_norm=1.0)),
+        param_specs=llama.param_specs(pc))
+    jc, _ = _mcfgs()
+    state = tr.init_state(llama.params_from_jax(jax.tree_util.tree_map(
+        np.asarray, jax_llama.init(jax.random.PRNGKey(0), jc)), "cpu"))
+    state, loss_v = tr.step(state, tr.shard_batch(
+        tuple(map(torch.from_numpy, _batch(jc.vocab)))))
+    assert np.isfinite(float(loss_v)) and tr._norm_weights is not None
     with pytest.raises(NotImplementedError, match="ShardedTrainer"):
         DPTrainer(loss, ranks, cfg)
-    with pytest.raises(NotImplementedError, match="A.6 item 6"):
-        make_ranks(MeshConfig(dp=1, sp=2, ep=2), "cpu")
+    # sp with ep is ported: the ranks build and shard [n, ep, sp, B, Sl]
+    r = make_ranks(MeshConfig(dp=1, sp=2, ep=2), "cpu")
+    assert (r.n, r.sp, r.ep) == (1, 2, 2)
+    assert r.shard(torch.zeros((4, 16))).shape == (1, 2, 2, 2, 8)
 
 
 # -- (e) decoding with MoE layers ---------------------------------------------------
@@ -634,9 +648,10 @@ def test_train_llama_moe_ep_on_cpu():
     mcfg = dataclasses.replace(llama.LlamaConfig.tiny(), moe_experts=4)
     assert out["params"] == llama.num_params(mcfg)
     assert out["active_params"] == llama.active_params(mcfg) < out["params"]
-    with pytest.raises(NotImplementedError, match="A.6 item 6"):
-        train_llama.parse(["--model.moe_experts=4", "--seq=256",
-                           "--mesh.sp=2"])
+    # sp with MoE is ported (tests/test_torch_sp_ep.py): it parses
+    mcfg, cfg, _, _ = train_llama.parse(["--model.moe_experts=4",
+                                         "--seq=256", "--mesh.sp=2"])
+    assert cfg.mesh.sp == 2 and mcfg.moe_experts == 4
     with pytest.raises(ValueError, match="moe_experts"):
         train_llama.parse(["--mesh.ep=2", "--global_batch=4"])
     mcfg, cfg, seq, _ = train_llama.parse([

@@ -396,10 +396,11 @@ def test_sp_on_unported_trainers_and_axes_raises():
                        ("fsdp", "A.5")):
         with pytest.raises(NotImplementedError, match=item):
             make_ranks(MeshConfig(dp=2, **{axis: 2}), "cpu")
-    # ep is ported (tests/test_torch_moe.py), but not together with sp
+    # ep is ported (tests/test_torch_moe.py), and together with sp
+    # (tests/test_torch_sp_ep.py)
     assert make_ranks(MeshConfig(dp=2, ep=2), "cpu").ep == 2
-    with pytest.raises(NotImplementedError, match="A.6 item 6"):
-        make_ranks(MeshConfig(dp=2, sp=2, ep=2), "cpu")
+    r = make_ranks(MeshConfig(dp=2, sp=2, ep=2), "cpu")
+    assert (r.n, r.sp, r.ep) == (2, 2, 2)
     with pytest.raises(ValueError, match="sequence axis"):
         ranks.shard(torch.zeros((4, 3)))
 
