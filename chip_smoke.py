@@ -204,10 +204,39 @@ Phases, each printing JSON lines:
      layers, the serving path's config and requests, its parity (routing
      pinned to the kernel route's, the unpinned error reported) and its
      streams against ``generate()``, counted;
- 21. the ``kernels`` line (the offset instantiations' rows among them,
+ 21. ``moe_sp_hop_checks``, ``moe_sp_train_path`` and
+     ``moe_sp_train_parity``: sp with MoE over dp=2 x sp=2 x ep=2 at
+     Mixtral-8x7B width, remat and a clip (the hop's flash kernels, the
+     path, its parity);
+ 22. ``llama_pp_train_path``: ``ShardedTrainer`` at Llama-3-8B width, 4
+     layers, sequence 4096, global batch 8 over dp=2 x pp=2 virtual
+     ranks (one flat row a (pp, dp) rank: a stage's 2 layers and its
+     copy of the embedding, final norm and head), 4 microbatches of one
+     sequence, remat, the flash kernels, the BFP ring kernels within
+     each stage group, SGD lr 0.1 — under ``gpipe``, ``1f1b`` and
+     ``1f1b-interleaved`` (v=2, a layer a chunk) in turn: 1 warm-up and
+     3 timed steps on one batch, launches counted (a (dp rank,
+     microbatch, layer): 2 flash forwards under GPipe, 3 under 1F1B,
+     one dq and one dk/dv; one ring_rs_update and one ring_ag a stage
+     group), replicas bit-equal within each stage group and the
+     replicated leaves across the groups, the loss falling, peak memory,
+     ``pipeline_cost``; under GPipe the ring kernels timed at the stage
+     row's shape; a profile of two steps (flash, ring, GEMMs, the rest;
+     idle share); then 1F1B at 8 microbatches (global batch 16): whether
+     its peak memory stays flat in M (``llama_pp_memory``);
+ 23. ``llama_pp_train_parity``: at that width, sequence 2048, batch 4
+     over dp=2 x pp=2, 2 microbatches, two steps each: GPipe on the plain
+     attention route, 1F1B, interleaved 1F1B and the dp=2 path at pp=1
+     against GPipe on the kernels, the losses within 2e-3 and the
+     updated masters (every stage's layers, every stage's copy of the
+     replicated leaves, by model layer) within 0.05 of the reference's
+     update, bit-equality reported; the interleaved masters read without
+     their layer permutation (the control) above the limit;
+ 24. the ``kernels`` line (the offset instantiations' rows among them,
      their launches from ``llama_sp_train_path``; the MoE paths'
-     launches and ring times as ``moe_*`` keys), then the last line
-     ``{"ok": true, "device": {...}}``.
+     launches and ring times as ``moe_*`` keys, the pipeline's as
+     ``pp_*`` keys), then the last line ``{"ok": true, "device":
+     {...}}``.
 
 TF32 is off for matmuls and cuDNN, so the f32 GEMMs run in full float32.
 Any failed phase raises and the script exits nonzero; without CUDA, or
@@ -4067,6 +4096,321 @@ def moe_serving_path(dev, kernels) -> dict:
     return run
 
 
+# -- pipeline parallelism: GPipe, 1F1B and interleaved 1F1B over dp x pp ------
+
+PP_RING_ARGV = ["--collective.impl=ring",
+                "--collective.compression.codec=pallas",
+                "--collective.fused_kernel=true",
+                "--optimizer.kind=sgd", "--optimizer.learning_rate=0.1"]
+PP_MODEL_ARGV = ["--model=llama3_8b", "--model.n_layers=4",
+                 "--model.attn_block=512", "--model.attn_impl=auto"]
+PP_TRAIN_ARGV = PP_MODEL_ARGV + [
+    "--seq=4096", "--global_batch=8", "--mesh.dp=2", "--mesh.pp=2",
+    "--microbatches=4", "--iters=3"] + PP_RING_ARGV
+PP_SCHEDULES = {"gpipe": ["--pp_schedule=gpipe"],
+                "1f1b": ["--pp_schedule=1f1b"],
+                "1f1b-interleaved": ["--pp_schedule=1f1b-interleaved",
+                                     "--virtual_stages=2"]}
+PP_M8_ARGV = ["--global_batch=16", "--microbatches=8"]   # later flags win
+# flash forwards a (dp rank, microbatch, layer), remat on as in JAX's
+# driver: GPipe's forward and the backward's recomputation of the layer;
+# 1F1B's forward unit, its backward unit's stage forward, and that
+# forward's layer recomputed in the backward
+PP_FWD_PER_UNIT = {"gpipe": 2, "1f1b": 3, "1f1b-interleaved": 3}
+PP_PARITY_ARGV = PP_MODEL_ARGV + [
+    "--seq=2048", "--global_batch=4", "--mesh.dp=2", "--mesh.pp=2",
+    "--microbatches=2", "--iters=2"] + PP_RING_ARGV
+
+
+def llama_pp_train_path(dev, kernels, schedule, extra=(),
+                        phase="llama_pp_train_path") -> dict:
+    """``ShardedTrainer`` at dp=2 x pp=2 as ``train_llama.build`` builds it
+    from ``PP_TRAIN_ARGV`` under ``schedule`` (Llama-3-8B width, 4
+    layers, sequence 4096, global batch 8, 4 microbatches of one sequence
+    a dp rank; ``extra`` flags override): one warm-up and ``--iters``
+    timed steps on one batch, launch counts zeroed just before the first
+    step and read after the last (a step: ``PP_FWD_PER_UNIT`` flash
+    forwards and one dq and dk/dv a (dp rank, microbatch, layer), one
+    ring_rs_update and one ring_ag a stage group); replicas bit-equal
+    within each stage group and the replicated leaves (replicas and
+    masters) across the groups, the loss falling on the repeated batch,
+    peak memory and ``pipeline_cost``; with GPipe the ring kernels timed
+    at the stage row's shape; then two steps under the profiler."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    from fpga_ai_nic_tpu_torch.parallel import pipeline
+    argv = PP_TRAIN_ARGV + PP_SCHEDULES[schedule] + list(extra)
+    mcfg, cfg, seq, device = train_llama.parse(argv)
+    pipe = train_llama.pipeline_flags(argv)
+    n, pp, M = cfg.mesh.dp, cfg.mesh.pp, pipe.microbatches
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr, state = train_llama.build(mcfg, cfg, device, True, pipe)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    batch = tr.shard_batch(next(train_llama.batches(mcfg, cfg, seq, 1)))
+    for kern in kernels.values():
+        kern.launches = 0
+    state, loss = tr.step(state, batch)               # warm-up
+    losses = [float(loss)]
+    sync(dev)
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(cfg.iters + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for mark in marks[1:]:
+        state, loss = tr.step(state, batch)
+        losses.append(loss)
+        mark.record()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses = [float(v) for v in losses]
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    steps = cfg.iters + 1
+    units = n * M * mcfg.n_layers
+    per_step = {name: 0 for name in kernels}
+    per_step.update(flash_fwd=PP_FWD_PER_UNIT[schedule] * units,
+                    flash_dq=units, flash_dkv=units, ring_rs_update=pp,
+                    ring_ag=pp)
+    for name, count in launches.items():
+        if count != steps * per_step[name]:
+            raise AssertionError(f"{phase} ({schedule}): {name} launched "
+                                 f"{count} times, expected {steps} x "
+                                 f"{per_step[name]}")
+    reps = state.replicas.view(pp, n, -1)
+    masters = state.w_own.view(pp, -1)
+    checks = {
+        "losses_finite": all(math.isfinite(v) for v in losses),
+        "loss_falls": losses[-1] < losses[0],
+        "replicas_equal_within_stage_groups": bool(
+            (reps == reps[:, :1]).all()),
+        "replicated_leaves_equal_across_stage_groups": all(
+            bool((reps[:, :, a:b] == reps[:1, :, a:b]).all())
+            and bool((masters[:, a:b] == masters[:1, a:b]).all())
+            for a, b in tr._rep_spans),
+        "stage_slices_differ": not bool((masters[0] == masters[1]).all()),
+        "replicas_in_model_dtype": state.replicas.dtype == mcfg.torch_dtype}
+    tokens = cfg.iters * cfg.global_batch * seq
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    median = sorted(step_ms)[cfg.iters // 2]
+    cost = pipeline.cost_model(M, pp, schedule, pipe.virtual_stages)
+    row_len = int(state.replicas.shape[1])
+    emit(phase=phase, schedule=schedule, model=(
+        f"Llama-3-8B width (dim {mcfg.dim}, {mcfg.n_heads}/{mcfg.n_kv_heads} "
+        f"heads, ffn {mcfg.ffn_dim}, vocab {mcfg.vocab}, {mcfg.dtype}), "
+        f"{mcfg.n_layers} layers, attn_impl {mcfg.attn_impl}, remat, random "
+        "weights"), params=llama.num_params(mcfg), seq=seq,
+         global_batch=cfg.global_batch, dp=n, pp=pp, microbatches=M,
+         virtual_stages=pipe.virtual_stages, held_at_start_gb=held_gb,
+         tokens_per_step=cfg.global_batch * seq,
+         collective=str(cfg.collective), optimizer=str(cfg.optimizer),
+         weight_init_s=init_s, steps=cfg.iters, wall_s=wall,
+         ms_per_step=1e3 * wall / cfg.iters, step_ms=step_ms,
+         median_step_ms=median, tokens_per_sec=tokens / wall, losses=losses,
+         peak_mem_gb=peak, padded_len_per_row=row_len, launches=launches,
+         launches_per_step=per_step, pipeline_cost=cost, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"{phase} ({schedule}): {checks}")
+    # the backward alone (the step's peak is its reduce phase's): the
+    # state, the flat gradient rows and the schedule's activations
+    torch.cuda.reset_peak_memory_stats(dev)
+    state_gb = torch.cuda.memory_allocated(dev) / 1e9
+    flat_g, _ = tr.grads(state, batch)
+    sync(dev)
+    bwd_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    emit(phase=phase + "_backward_peak", schedule=schedule, microbatches=M,
+         held_gb=state_gb, backward_peak_gb=bwd_gb,
+         flat_grad_gb=flat_g.numel() * 4 / 1e9,
+         activations_gb=bwd_gb - state_gb - flat_g.numel() * 4 / 1e9)
+    out = {"launches": launches, "steps": steps, "median_step_ms": median,
+           "tokens_per_sec": tokens / wall, "peak_mem_gb": peak,
+           "backward_peak_gb": bwd_gb, "losses": losses,
+           "pipeline_cost": cost, "row_len": row_len}
+    if schedule == "gpipe" and not extra:
+        g, w = flat_g[:n], state.w_own[:n]
+        C = row_len // n
+
+        def rs():
+            return fused_update.reduce_scatter(g, cfg.collective)
+
+        def ag():
+            return fused_update.all_gather_flat(w, cfg.collective)
+        rs_b, ag_b = ring_bytes(n, row_len, C)
+        out["ring"] = {
+            "shape": (f"n={n}, L={row_len} (one stage group's rows: 2 "
+                      "layers and the embedding, final norm and head), no "
+                      "optimizer"),
+            "rs_device_ms": device_ms(rs, 5, ("ring_rs_kernel",)),
+            "rs_bound": bound(rs_b, 11 * n * row_len),
+            "ag_device_ms": device_ms(ag, 5, ("ring_ag_kernel",)),
+            "ag_bound": bound(ag_b, 10 * n * C)}
+        emit(phase="llama_pp_ring_times", **out["ring"])
+        del g, w
+    del flat_g, reps, masters
+    held = [state]
+    del state
+
+    def train_step():
+        held[0], _ = tr.step(held[0], batch)
+
+    prof = profile_run(phase.replace("path", "profile"), train_step, 2,
+                       groups=TRAIN_GROUPS, schedule=schedule)
+    out["profile"] = prof
+    out["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
+    emit(phase=phase + "_summary", schedule=schedule, microbatches=M,
+         median_step_ms=median, tokens_per_sec=tokens / wall,
+         peak_mem_gb=peak, idle_share=out["idle_share"],
+         device_ms_by_group={k: prof[k] for k in ("gemm", "flash",
+                                                  "ring_bfp", "other")},
+         launches_per_step={k: v for k, v in per_step.items() if v},
+         losses=losses, pipeline_cost=cost)
+    del tr, held, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _diff(a, b, chunk=1 << 27) -> tuple:
+    """``(squared L2 norm of a - b, a == b)`` over chunks (f64 sums), b's
+    chunks brought to a's device (a reference held in host memory)."""
+    import torch
+    a, b = a.reshape(-1), b.reshape(-1)
+    tot, equal = 0.0, True
+    for i in range(0, a.numel(), chunk):
+        d = a[i:i + chunk] - b[i:i + chunk].to(a.device)
+        tot += float(d.square().sum(dtype=torch.float64))
+        equal = equal and not bool(d.any())
+    return tot, equal
+
+
+def pp_master_leaves(tr, state, layer_of) -> dict:
+    """The f32 masters a state holds, as ``{(leaf, model layer or None):
+    [views]}``: one view a stage group's copy (views of the flat master
+    rows); ``layer_of(s, j)``: the model layer of stage s's j-th stacked
+    row (a pp=1 state's list of layers names its own)."""
+    meta = tr._meta
+    out = {}
+    for s, row in enumerate(state.w_own.view(tr.n_shards, -1)):
+        off = 0
+        for path, shape, size in zip(meta.keys, meta.shapes, meta.sizes):
+            leaf = row[off:off + size].view(shape)
+            off += size
+            if path[0] != "layers":
+                out.setdefault((path[0], None), []).append(leaf)
+            elif isinstance(path[1], int):             # pp = 1: a list
+                out.setdefault((path[2], path[1]), []).append(leaf)
+            else:
+                for j in range(shape[0]):
+                    out.setdefault((path[1], layer_of(s, j)), []).append(
+                        leaf[j])
+    return out
+
+
+def llama_pp_train_parity(dev) -> None:
+    """Two SGD steps at Llama-3-8B width, 4 layers, sequence 2048, batch 4
+    over dp=2 x pp=2, 2 microbatches (``PP_PARITY_ARGV``), each from the
+    same seeded weights and batch: GPipe on the kernels is the reference;
+    GPipe on the plain attention route (attn_impl xla), 1F1B and
+    interleaved 1F1B (v=2) on the kernels, and the dp=2 path at pp=1, are
+    held against it.  Each compares the losses of both steps (within
+    ``PARITY_LOSS_TOL``) and the updated f32 masters of every stage's
+    layers and every stage's copy of the replicated leaves, layer by
+    model layer (the pp=1 state's whole tree), as the L2 distance over
+    the reference's two-step update (within ``PARITY_GRAD_REL_TOL``);
+    bit-equality where it holds.  The control: the interleaved masters
+    read in plain stage order (the layer permutation dropped) must
+    exceed the limit.  The reference masters wait in host memory: on the
+    card they would add 11.9 GB to a run's 65.5 GB reduce phase."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.parallel import pipeline
+
+    def layers_of(pipe, pp, L):
+        if pipe.schedule == "1f1b-interleaved":
+            perm = pipeline._layer_perm(L, pp, pipe.virtual_stages)
+            return lambda s, j: perm[s * (L // pp) + j]
+        return lambda s, j: s * (L // pp) + j
+
+    def run(extra, steps=2):
+        argv = PP_PARITY_ARGV + list(extra)
+        mcfg, cfg, seq, device = train_llama.parse(argv)
+        pipe = train_llama.pipeline_flags(argv)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr, state = train_llama.build(mcfg, cfg, device, True, pipe)
+        batch = tr.shard_batch(next(train_llama.batches(mcfg, cfg, seq, 1)))
+        losses = []
+        for _ in range(steps):
+            state, loss = tr.step(state, batch)
+            losses.append(float(loss))
+        w_own, layer_of = state.w_own, layers_of(pipe, cfg.mesh.pp,
+                                                 mcfg.n_layers)
+        state = state._replace(replicas=None, params=None)
+        del batch
+        torch.cuda.empty_cache()
+        return tr, state, losses, layer_of
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr, ref_state, ref_losses, ref_layer = run(PP_SCHEDULES["gpipe"])
+    ref_state = ref_state._replace(w_own=ref_state.w_own.cpu())
+    ref = pp_master_leaves(tr, ref_state, ref_layer)
+    torch.cuda.empty_cache()
+    tr0, init_state, _, _ = run(PP_SCHEDULES["gpipe"], steps=0)
+    init = pp_master_leaves(tr0, init_state, ref_layer)
+    upd_sq = {k: _diff(init[k][0], ref[k][0])[0] for k in ref}
+    del tr0, init_state, init
+    torch.cuda.empty_cache()
+
+    def compare(tr_x, st_x, layer_of):
+        got = pp_master_leaves(tr_x, st_x, layer_of)
+        diffs = [_diff(c, ref[k][0]) for k, cs in got.items() for c in cs]
+        den = sum(len(cs) * upd_sq[k] for k, cs in got.items())
+        return (math.sqrt(sum(d for d, _ in diffs) / den),
+                all(e for _, e in diffs))
+
+    rows = {}
+    for name, extra in (
+            ("gpipe_plain_attention", PP_SCHEDULES["gpipe"]
+             + ["--model.attn_impl=xla"]),
+            ("1f1b", PP_SCHEDULES["1f1b"]),
+            ("1f1b_interleaved", PP_SCHEDULES["1f1b-interleaved"]),
+            ("pp1_dp2", ["--mesh.pp=1"])):
+        tr_x, st_x, losses, layer_of = run(extra)
+        rel, equal = compare(tr_x, st_x, layer_of)
+        rows[name] = {"master_update_rel_err": rel,
+                      "limit": PARITY_GRAD_REL_TOL, "masters_bitequal": equal,
+                      "losses": losses,
+                      "loss_diffs": [abs(a - b) for a, b in
+                                     zip(losses, ref_losses)],
+                      "loss_tol": PARITY_LOSS_TOL,
+                      "losses_bitequal": losses == ref_losses}
+        if name == "1f1b_interleaved":
+            plain_order, _ = compare(tr_x, st_x, ref_layer)
+        del tr_x, st_x
+        torch.cuda.empty_cache()
+    checks = {f"{k}_within_tol": r["master_update_rel_err"]
+              <= PARITY_GRAD_REL_TOL and max(r["loss_diffs"])
+              <= PARITY_LOSS_TOL for k, r in rows.items()}
+    checks["finite"] = all(math.isfinite(v) for v in ref_losses) and all(
+        math.isfinite(r["master_update_rel_err"]) for r in rows.values())
+    checks["control_above_tol"] = plain_order > PARITY_GRAD_REL_TOL
+    emit(phase="llama_pp_train_parity", argv=PP_PARITY_ARGV,
+         reference="gpipe, flash kernels", reference_losses=ref_losses,
+         reference_update_norm=math.sqrt(sum(upd_sq.values())),
+         against=rows, control_interleaved_order_dropped=plain_order,
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         checks=checks)
+    del tr, ref_state, ref
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"llama pp training parity failed: {checks}")
+
+
 def main() -> int:
     # the Llama training phase holds about 60 GB at its peak and frees and
     # reallocates 7-15 GB buffers every step; growable segments keep the
@@ -4352,13 +4696,30 @@ def main() -> int:
     moe_train_parity(dev, moe_run)
     moe_serve = moe_serving_path(dev, bert_kernels)
 
-    # -- 21-23. sp with MoE over dp x sp x ep: the hop, the path, its parity --
+    # -- 21. sp with MoE over dp x sp x ep: the hop, the path, its parity -----
     moe_sp_hop = moe_sp_hop_checks(dev)
     moe_sp_run = moe_train_path(dev, sp_kernels, MOE_SP_TRAIN_ARGV,
                                 "moe_sp_train_path")
     moe_sp_train_parity(dev, moe_sp_run)
 
-    # -- 18. the kernels line and the result ----------------------------------
+    # -- 22-23. the pipeline over dp x pp: three schedules, 1F1B at M=8, parity
+    pp_runs = {sched: llama_pp_train_path(dev, sp_kernels, sched)
+               for sched in PP_SCHEDULES}
+    pp_m8 = llama_pp_train_path(dev, sp_kernels, "1f1b", PP_M8_ARGV,
+                                "llama_pp_1f1b_m8_path")
+    emit(phase="llama_pp_memory", peak_mem_gb={
+        **{f"{k}_m4": r["peak_mem_gb"] for k, r in pp_runs.items()},
+        "1f1b_m8": pp_m8["peak_mem_gb"]}, backward_peak_gb={
+        **{f"{k}_m4": r["backward_peak_gb"] for k, r in pp_runs.items()},
+        "1f1b_m8": pp_m8["backward_peak_gb"]},
+         one_f_one_b_m8_minus_m4_gb=(pp_m8["backward_peak_gb"]
+                                     - pp_runs["1f1b"]["backward_peak_gb"]),
+         median_step_ms={**{k: r["median_step_ms"]
+                            for k, r in pp_runs.items()},
+                         "1f1b_m8": pp_m8["median_step_ms"]})
+    llama_pp_train_parity(dev)
+
+    # -- 24. the kernels line and the result ----------------------------------
     meta = {
         "bfp_encode": (PORT + "/csrc/bfp_codec.cu",
                        REF + "/ops/bfp_pallas.py:55"),
@@ -4442,8 +4803,17 @@ def main() -> int:
     for name, r in bert_flash["tensor_cores_hd64"].items():
         launches[name] = bert_run["launches"][name[:-len("_hd64")]]
         results[name] = r
-    rr, mr = resnet_run["ring"], moe_run["ring"]
+    rr, mr, pr = resnet_run["ring"], moe_run["ring"], pp_runs["gpipe"]["ring"]
+    pp_from = (f"llama_pp_train_path ({pp_runs['gpipe']['steps']} steps a "
+               "schedule, Llama-3-8B width, dp=2 x pp=2, 4 microbatches)")
     for name, key in (("ring_rs_update", "rs"), ("ring_ag", "ag")):
+        results[name]["extra"].update(
+            pp_launches={k: r["launches"][name] for k, r in pp_runs.items()},
+            pp_launches_from=pp_from + ", one a step for each of the 2 "
+            "stage groups", pp_shape=pr["shape"],
+            pp_device_ms=pr[key + "_device_ms"],
+            pp_bound_ms=pr[key + "_bound"][0],
+            pp_bound_by=pr[key + "_bound"][1])
         results[name]["extra"].update(
             moe_sp_launches=moe_sp_run["launches"][name],
             moe_sp_launches_from=(
@@ -4526,7 +4896,10 @@ def main() -> int:
                        moe_sp_path_launches_from=(
                            f"moe_sp_train_path ({moe_sp_run['steps']} "
                            "steps, dp=2 x sp=2 x ep=2, remat; the "
-                           "diagonal hops)"))
+                           "diagonal hops)"),
+                       pp_path_launches={k: r["launches"][name]
+                                         for k, r in pp_runs.items()},
+                       pp_path_launches_from=pp_from + ", remat")
         if name in OFFSET_KERNELS:
             B_, H_, kv_, Sl_ = SP_HOP
             row.update(shape=(f"past ring hop: B={B_}, H={H_}, Hkv={kv_}, "

@@ -58,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..ops import moe as moe_ops
+from ..parallel import pipeline
 from ..ops.ring_attention import (flash_attention_remat, full_attention,
                                   pallas_route, ring_attention)
 
@@ -191,7 +192,10 @@ def param_specs(cfg: LlamaConfig) -> Params:
 def params_from_jax(tree: Params, device: DeviceLike = "cuda") -> Params:
     """The JAX package's parameter pytree, with numpy arrays at its leaves
     (``jax.tree_util.tree_map(np.asarray, params)``), as this port's tree:
-    same keys, layout and values (bfloat16 leaves keep their bits)."""
+    same keys, layout and values (bfloat16 leaves keep their bits).  The
+    stacked tree of JAX's ``stack_params`` (``"layers"`` a dict of
+    ``[n_layers, ...]`` leaves, in model or ``interleave_layers`` order)
+    comes across stacked."""
     dev = resolve_device(device)
 
     def leaf(a: Any) -> torch.Tensor:
@@ -206,8 +210,10 @@ def params_from_jax(tree: Params, device: DeviceLike = "cuda") -> Params:
                 else leaf(v))
 
     out: Params = {k: leaf(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [{k: node(v) for k, v in lyr.items()}
-                     for lyr in tree["layers"]]
+    layers = tree["layers"]
+    out["layers"] = ({k: node(v) for k, v in layers.items()}
+                     if isinstance(layers, dict) else
+                     [{k: node(v) for k, v in lyr.items()} for lyr in layers])
     return out
 
 
@@ -585,6 +591,208 @@ def dp_loss_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1, *,
 
     loss.joint_ranks = True
     return loss
+
+
+# -- the pipeline-parallel path ---------------------------------------------
+
+
+def stack_params(params: Params) -> Params:
+    """The list-of-layers tree with its layers stacked into ``[n_layers,
+    ...]`` leaves, the axis pp splits (``parallel.pipeline.stack_layers``)."""
+    out = dict(params)
+    out["layers"] = pipeline.stack_layers(params["layers"])
+    return out
+
+
+def stacked_param_specs(cfg: LlamaConfig) -> Params:
+    """JAX's ``stacked_param_specs(cfg, tp_axis=None)`` reduced to the pp
+    axis: ``"pp"`` at the stacked layer leaves (split on their leading
+    axis, one slice a stage), None at ``tok_emb``, ``final_norm`` and
+    ``lm_head`` (every stage holds them; ``parallel.sharded``)."""
+    _check_pp(cfg)
+    return {"tok_emb": None, "final_norm": None, "lm_head": None,
+            "layers": {k: "pp" for k in param_specs(cfg)["layers"][0]}}
+
+
+def _check_pp(cfg: LlamaConfig, tp_axis: Optional[str] = None,
+              sp_axis: Optional[str] = None, dp_axis: Optional[str] = None,
+              ep_axis: Optional[str] = None) -> None:
+    if tp_axis is not None:
+        raise NotImplementedError("pp with tp is not ported: ROADMAP A.5")
+    if sp_axis is not None or ep_axis is not None or cfg.moe is not None:
+        raise NotImplementedError("pp with sp, ep or MoE layers is not "
+                                  "ported: ROADMAP A.6 item 4b")
+    if dp_axis is not None:
+        raise NotImplementedError(
+            "dp_axis is a JAX mesh axis; the port's dp ranks carry the "
+            "global label count in the batch (models.bert."
+            "with_global_count) and pass dp_size=n")
+
+
+def _pp_weight(batch, dp_size: Optional[int]
+               ) -> Tuple[int, torch.Tensor]:
+    """``(numerator, denominator)`` of JAX's ``_weighted_loss`` for one
+    dp rank: ``(1, this batch's valid labels)``, or with the global count
+    as a third batch leaf, ``(dp_size, the global count)`` (JAX's
+    ``dp_axis`` weighting: the ranks' mean is the global value and each
+    rank's gradient carries the n_dp that cancels the trainer's /n)."""
+    labels = batch[1]
+    if len(batch) == 2:
+        if dp_size is not None:
+            raise ValueError("dp_size needs the global count in the batch "
+                             "(models.bert.with_global_count)")
+        return 1, torch.clamp((labels >= 0).sum(), min=1).to(torch.float32)
+    if dp_size is None:
+        raise ValueError("a batch with the global count needs dp_size")
+    return dp_size, torch.clamp(batch[2].reshape(()), min=1).to(
+        torch.float32)
+
+
+def _pp_block(cfg: LlamaConfig, S: int, device) -> Callable:
+    pos = _positions(S, None, device)
+
+    def block(lyr: Params, h: torch.Tensor) -> torch.Tensor:
+        return _block(lyr, h, pos, cfg, cfg.n_heads, cfg.n_kv_heads)[0]
+    return block
+
+
+def _pp_body(params: Sequence[Params], tokens: torch.Tensor,
+             cfg: LlamaConfig, num_microbatches: int,
+             remat: bool) -> torch.Tensor:
+    """Stage 0's embedding, then GPipe over the stages' layer slices:
+    the last stage's output ``[B, S, D]``."""
+    block = _pp_block(cfg, tokens.shape[-1], tokens.device)
+    x = params[0]["tok_emb"][tokens.long()]
+    return pipeline.pipeline_apply(
+        lambda p, h: pipeline.scan_layers(block, p["layers"], h,
+                                          remat=remat),
+        params, x, num_microbatches)
+
+
+def apply_pp(params: Sequence[Params], tokens: torch.Tensor,
+             cfg: LlamaConfig, *, num_microbatches: int,
+             tp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
+             ep_axis: Optional[str] = None,
+             remat: bool = False) -> torch.Tensor:
+    """The pipelined forward: ``params`` the pp stages' trees (stage s's
+    stacked layer slice and its copies of ``tok_emb``, ``final_norm``
+    and ``lm_head``; ``parallel.sharded.split_ep`` of ``stack_params``
+    over ``stacked_param_specs``), tokens [B, S] -> logits [B, S, vocab]:
+    stage 0's embedding, GPipe over ``num_microbatches``, the last
+    stage's head.  ``remat``: each layer recomputed in the backward."""
+    _check_pp(cfg, tp_axis, sp_axis, None, ep_axis)
+    x = _pp_body(params, tokens, cfg, num_microbatches, remat)
+    x = _rmsnorm(x, params[-1]["final_norm"], cfg.norm_eps)
+    return x @ params[-1]["lm_head"]
+
+
+def _head_nll_sum(hp: Params, h: torch.Tensor, labels: torch.Tensor,
+                  cfg: LlamaConfig) -> torch.Tensor:
+    """The head on one microbatch: the NLL summed over its valid labels."""
+    logits = _rmsnorm(h, hp["final_norm"], cfg.norm_eps) @ hp["lm_head"]
+    return _masked_nll(logits, labels)[0].sum()
+
+
+def loss_fn_pp(params: Sequence[Params], batch, cfg: LlamaConfig, *,
+               num_microbatches: int, dp_size: Optional[int] = None,
+               tp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
+               dp_axis: Optional[str] = None, ep_axis: Optional[str] = None,
+               remat: bool = False) -> torch.Tensor:
+    """Next-token cross-entropy through GPipe (``apply_pp``'s forward) for
+    one dp rank: ``batch = (tokens, labels)`` [B, S], -100 labels
+    ignored; the NLL summed over the batch (the head a microbatch at a
+    time: at most ``num_microbatches`` microbatches' log-softmax held for
+    the backward) over the valid count.  With ``batch = (tokens, labels,
+    count)`` (a rank's shard of ``models.bert.with_global_count``) and
+    ``dp_size=n``: ``n * local_sum / count``, JAX's ``dp_axis``
+    weighting.  ``remat``: each layer recomputed in the backward, as
+    JAX's driver runs its pp losses."""
+    _check_pp(cfg, tp_axis, sp_axis, dp_axis, ep_axis)
+    tokens, labels = batch[0], batch[1]
+    num, denom = _pp_weight(batch, dp_size)
+    x = _pp_body(params, tokens, cfg, num_microbatches, remat)
+    mb = x.shape[0] // num_microbatches
+    local_sum = sum(_head_nll_sum(params[-1], h, lab, cfg)
+                    for h, lab in zip(x.split(mb), labels.split(mb)))
+    return num * local_sum / denom
+
+
+def loss_and_grads_pp_1f1b(params: Sequence[Params], batch,
+                           cfg: LlamaConfig, *, num_microbatches: int,
+                           dp_size: Optional[int] = None,
+                           virtual_stages: int = 1, remat: bool = False,
+                           tp_axis: Optional[str] = None,
+                           sp_axis: Optional[str] = None,
+                           dp_axis: Optional[str] = None,
+                           ep_axis: Optional[str] = None,
+                           out: Optional[List[Params]] = None):
+    """``loss_fn_pp``'s loss and its gradients under the 1F1B schedule
+    (``parallel.pipeline.pipeline_train_1f1b``; with ``virtual_stages`` >
+    1 the interleaved one, the stacked layers then in
+    ``pipeline.interleave_layers`` order and num_microbatches a multiple
+    of pp).  As JAX's: the head returns the microbatch's NLL sum, the
+    schedule their mean, so ``M * mean`` is ``loss_fn_pp``'s local sum;
+    the schedule seeds each unit's loss 1/M, so every gradient is scaled
+    by ``M * num / denom`` at the end; the embedding is differentiated
+    outside the schedule through its d_x.
+
+    Returns ``(loss, grads)``: one f32 tree a stage, the layer slice's
+    gradients its own, the replicated leaves' the same in every stage
+    (summed over the stages: the embedding's from stage 0, the head's
+    from the last).  ``out``: per-stage f32 trees to write the gradients
+    into (zeroed, e.g. views of the trainer's flat rows), returned as
+    ``grads``."""
+    _check_pp(cfg, tp_axis, sp_axis, dp_axis, ep_axis)
+    tokens, labels = batch[0], batch[1]
+    M, v = num_microbatches, virtual_stages
+    num, denom = _pp_weight(batch, dp_size)
+    block = _pp_block(cfg, tokens.shape[-1], tokens.device)
+
+    def stage_fn(sp, hp, x_in, c_in):
+        h = pipeline.scan_layers(block, sp, x_in, remat=remat)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def loss_head_fn(hp, h, c_in):
+        return _head_nll_sum(hp, h, c_in, cfg)
+
+    def chunks(tree):
+        return {k: t.reshape(v, t.shape[0] // v, *t.shape[1:])
+                for k, t in tree.items()}
+    layers = [p["layers"] if v == 1 else chunks(p["layers"])
+              for p in params]
+    d_out = None if out is None else [
+        o["layers"] if v == 1 else chunks(o["layers"]) for o in out]
+    head = {k: params[-1][k] for k in ("final_norm", "lm_head")}
+    emb = params[0]["tok_emb"].detach().requires_grad_()
+    with torch.enable_grad():
+        x_full = emb[tokens.long()]
+    sched = ((lambda *a, **kw: pipeline.pipeline_train_1f1b_interleaved(
+        *a, virtual_stages=v, **kw)) if v > 1
+        else pipeline.pipeline_train_1f1b)
+    mean_nll_sum, d_layers, d_head, d_x = sched(
+        stage_fn, loss_head_fn, layers, head, x_full.detach(), labels, M,
+        out=d_out)
+    loss = num * (M * mean_nll_sum) / denom
+    scale = M * num / denom
+    d_emb, = torch.autograd.grad(x_full, emb, d_x.to(x_full.dtype))
+    del x_full
+    if out is None:
+        out = [{"layers": {k: t.reshape(-1, *t.shape[2:]) if v > 1 else t
+                           for k, t in d.items()}} for d in d_layers]
+        rep = {"tok_emb": d_emb.to(torch.float32), **d_head}
+        for o in out:
+            o.update(rep)
+        for t in [rep["tok_emb"], *d_head.values()] + [
+                t for o in out for t in o["layers"].values()]:
+            t.mul_(scale)
+        return loss, out
+    for o, d in zip(out, d_layers):
+        for t in d.values():
+            t.mul_(scale)
+        o["tok_emb"].copy_(d_emb).mul_(scale)
+        for k, g in d_head.items():
+            o[k].copy_(g).mul_(scale)
+    return loss, out
 
 
 def num_params(cfg: LlamaConfig) -> int:

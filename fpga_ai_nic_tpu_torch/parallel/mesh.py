@@ -1,5 +1,5 @@
-"""Virtual ranks on one card — what stands in for the JAX package's dp, sp
-and ep mesh axes (``parallel/mesh.py``).
+"""Virtual ranks on one card — what stands in for the JAX package's dp, sp,
+ep and pp mesh axes (``parallel/mesh.py``).
 
 The port runs the reference's 1-D data-parallel ring in loopback: n ranks
 share one device, every per-rank tensor is stacked over the ranks as its
@@ -21,6 +21,12 @@ major), and the MoE loss runs over all the ranks at once
 (``models.llama.dp_loss_fn``).  With both, a ``[B, S]`` leaf becomes
 ``[n_dp, n_ep, n_sp, B / (n_dp n_ep), S / n_sp]``: device (d, e, s)
 holds JAX device (d, s, e)'s rows and columns of ``P((dp, ep), sp)``.
+
+A pp axis (pipeline parallelism) does not split the batch (JAX's batch
+spec never names pp): each dp rank's batch runs through its pp stages,
+one parameter row a (pp, dp) rank (``parallel.sharded``,
+``parallel.pipeline``).  pp together with sp or ep is not ported (ROADMAP
+A.6 item 4b).
 """
 
 from __future__ import annotations
@@ -37,17 +43,23 @@ from ..utils.config import MeshConfig
 @dataclass(frozen=True)
 class VirtualRanks:
     """n data-parallel ranks stacked on one device, each holding ``ep``
-    expert-parallel ranks, each of those ``sp`` sequence shards."""
+    expert-parallel ranks, each of those ``sp`` sequence shards; or each
+    dp rank's model split over ``pp`` pipeline stages."""
 
     n: int
     device: torch.device
     sp: int = 1
     ep: int = 1
+    pp: int = 1
 
     def __post_init__(self) -> None:
-        if self.n < 1 or self.sp < 1 or self.ep < 1:
+        if min(self.n, self.sp, self.ep, self.pp) < 1:
             raise ValueError(f"need at least one rank, got dp={self.n}, "
-                             f"sp={self.sp}, ep={self.ep}")
+                             f"sp={self.sp}, ep={self.ep}, pp={self.pp}")
+        if self.pp > 1 and (self.sp > 1 or self.ep > 1):
+            raise NotImplementedError(
+                f"pp={self.pp} with sp={self.sp}, ep={self.ep} is not "
+                "ported: ROADMAP A.6 item 4b")
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
         """[B, ...] global batch -> [n, B/n, ...] on the device: rank i
@@ -80,17 +92,17 @@ class VirtualRanks:
 
 
 UNPORTED_AXES = {"fsdp": "ROADMAP A.5 (parallel/fsdp.py)",
-                 "tp": "ROADMAP A.5 (the tp axis of parallel/sharded.py)",
-                 "pp": "ROADMAP A.6 item 4 (parallel/pipeline.py)"}
+                 "tp": "ROADMAP A.5 (the tp axis of parallel/sharded.py)"}
 
 
 def make_ranks(cfg: MeshConfig, device: DeviceLike = "cuda"
                ) -> VirtualRanks:
-    """The dp, sp and ep axes of a MeshConfig as virtual ranks on
+    """The dp, sp, ep and pp axes of a MeshConfig as virtual ranks on
     ``device``; the other axes are not ported."""
     for name, size in cfg.axis_sizes():
         if name in UNPORTED_AXES and size != 1:
             raise NotImplementedError(
                 f"mesh axis {name}={size} is not ported: "
-                f"{UNPORTED_AXES[name]}; the port runs dp, sp and ep")
-    return VirtualRanks(cfg.dp, resolve_device(device), cfg.sp, cfg.ep)
+                f"{UNPORTED_AXES[name]}; the port runs dp, sp, ep and pp")
+    return VirtualRanks(cfg.dp, resolve_device(device), cfg.sp, cfg.ep,
+                        cfg.pp)

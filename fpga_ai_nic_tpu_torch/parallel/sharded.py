@@ -1,6 +1,6 @@
 """ZeRO-1 sharded trainer over virtual ranks — the port of the JAX
-package's ``parallel/sharded.py`` (``ShardedTrainer``) for its dp, sp and
-ep axes.
+package's ``parallel/sharded.py`` (``ShardedTrainer``) for its dp, sp, ep
+and pp axes.
 
 The JAX step, phase by phase (``sharded.py`` ``step_fn``):
 
@@ -41,12 +41,29 @@ B, S_local]`` and the joint loss runs each (dp, ep) rank's sp ring
 (``llama.dp_loss_fn(..., n_sp=)``): the one backward sums a rank's sp
 shards (JAX's psum over sp), then the ep sum and the dp phases as above.
 
+With pp > 1 (``MeshConfig(dp, pp=...)``, ``param_specs`` naming the
+stacked layer leaves that split over pp, ``llama.stacked_param_specs``)
+the layout is JAX's ``P((pp, dp))``: one flat row a (pp, dp) rank, row
+``s n_dp + d``, holding stage s's layer slice and its copy of the
+replicated leaves (embedding, final norm, head), so the BFP blocks on
+the wire are JAX's.  The loss takes one dp rank's stage trees at once
+(``loss_fn(stage_params, batch)``, e.g. ``llama.loss_fn_pp``), a dp rank
+at a time, and autograd differentiates the whole pipeline; each stage's
+gradient goes into its row and the replicated leaves' are summed over
+the stages (the embedding's come from stage 0, the head's from the
+last: JAX's psum over pp).  ``loss_and_grads_fn(stage_params, batch,
+out=...) -> (loss, grads)`` (the 1F1B schedules,
+``llama.loss_and_grads_pp_1f1b``) writes its gradients, the replicated
+leaves' already summed, into ``out``, the stages' f32 rows.  The dp
+phases then run within each stage group, as within an ep group;
+``clip_norm`` counts a replicated leaf 1/pp a copy.
+
 As in the JAX package the fused optimizer kernel is not used: the update
 is ``optim.apply`` between the two collectives.  Other mesh axes (tp,
-pp, fsdp), ``loss_and_grads_fn`` (the 1F1B schedule) and ``accum_steps >
-1`` raise ``NotImplementedError``;
-``integrity_check`` raises ``ValueError``, as the JAX package's does (it
-is DPTrainer's).  The state is ``parallel.train.TrainState``; ``step``
+fsdp) and ``accum_steps > 1`` raise ``NotImplementedError``;
+``loss_and_grads_fn`` with ``accum_steps > 1`` and ``integrity_check``
+raise ``ValueError``, as the JAX package's do (the latter is
+DPTrainer's).  The state is ``parallel.train.TrainState``; ``step``
 drops the flat gradients before the update, so at full width they never
 coexist with the gathered replicas.
 """
@@ -58,8 +75,8 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .mesh import VirtualRanks
-from .train import DPTrainer, Params, TrainState
+from .mesh import UNPORTED_AXES, VirtualRanks
+from .train import DPTrainer, Params, TrainState, _rank_leaves
 from .. import optim
 from ..ops import fused_update
 from ..utils.config import TrainConfig
@@ -67,8 +84,8 @@ from ..utils.config import TrainConfig
 
 def split_ep(params: Params, specs: Any, n_ep: int) -> List[Params]:
     """The whole tree as the n_ep ranks' local trees: a leaf whose spec is
-    set (``"ep"``) split on its leading axis (rank e's chunk, a view), the
-    others shared."""
+    set (``"ep"``, or ``"pp"`` for a stacked layer leaf) split on its
+    leading axis (rank e's chunk, a view), the others shared."""
     pairs = fused_update._leaves(params)
     paths = tuple(p for p, _ in pairs)
     flags = [s is not None for s in fused_update.tree_leaves(specs)]
@@ -92,27 +109,35 @@ def join_ep(trees: List[Params], specs: Any) -> Params:
 class ShardedTrainer(DPTrainer):
     """``loss_fn(params, batch) -> scalar`` over n virtual dp ranks (each
     holding ``ranks.sp`` sequence shards), or a loss marked
-    ``joint_ranks`` over all n x ``ranks.ep`` ranks; a batch is a tuple of
-    tensors with a leading global-batch axis (and, with sp, a sequence
-    axis), split over the ranks by ``shard_batch``.  ``param_specs``: a
-    tree of the params' structure, ``"ep"`` at each leaf sharded over ep
-    on its leading axis and None at each replicated leaf (needed with
-    ep > 1)."""
+    ``joint_ranks`` over all n x ``ranks.ep`` ranks, or with pp > 1 a loss
+    over one dp rank's ``ranks.pp`` stage trees (or
+    ``loss_and_grads_fn``); a batch is a tuple of tensors with a leading
+    global-batch axis (and, with sp, a sequence axis), split over the
+    ranks by ``shard_batch``.  ``param_specs``: a tree of the params'
+    structure, ``"ep"`` (``"pp"``) at each leaf split over ep (pp) on its
+    leading axis and None at each replicated leaf (needed with ep or pp
+    > 1)."""
 
     takes_sp = True
 
-    def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
+    def __init__(self, loss_fn: Optional[Callable], ranks: VirtualRanks,
                  cfg: TrainConfig, *, param_specs: Any = None,
                  loss_and_grads_fn: Optional[Callable] = None):
+        if loss_and_grads_fn is not None and cfg.accum_steps > 1:
+            raise ValueError(
+                "loss_and_grads_fn (explicit-gradient schedule) does not "
+                "compose with accum_steps > 1 — fold accumulation into "
+                "the schedule's num_microbatches instead")
         for name, size in cfg.mesh.axis_sizes():
-            if name not in ("dp", "sp", "ep") and size != 1:
+            if name not in ("dp", "sp", "ep", "pp") and size != 1:
                 raise NotImplementedError(
-                    f"mesh axis {name}={size} is not ported: ShardedTrainer "
-                    "runs the dp, sp and ep axes")
-        if loss_and_grads_fn is not None:
+                    f"mesh axis {name}={size} is not ported: "
+                    f"{UNPORTED_AXES[name]}; ShardedTrainer runs the dp, "
+                    "sp, ep and pp axes")
+        if loss_and_grads_fn is not None and ranks.pp == 1:
             raise NotImplementedError(
-                "loss_and_grads_fn (explicit-gradient schedules such as the "
-                "1F1B pipeline) is not ported: ROADMAP A.6")
+                "loss_and_grads_fn without pp is not ported: the port's "
+                "takes the pp stages (the 1F1B schedules, pp > 1)")
         if cfg.accum_steps != 1:
             raise NotImplementedError(
                 "accum_steps > 1 is not ported: ROADMAP A.1")
@@ -132,24 +157,31 @@ class ShardedTrainer(DPTrainer):
                 raise ValueError("ep > 1 needs a loss over all ranks at "
                                  "once (joint_ranks, llama.dp_loss_fn): "
                                  "the ep ranks exchange tokens")
+        if ranks.pp > 1 and param_specs is None:
+            raise ValueError("pp > 1 needs param_specs: which leaves split "
+                             "over the stages (llama.stacked_param_specs)")
         super().__init__(loss_fn, ranks, cfg)
         # as in the JAX package, this trainer carries no error-feedback
         # residual: a codec's error_feedback flag is not read here
         self._ef = False
-        self.n_ep = ranks.ep
+        self.loss_and_grads_fn = loss_and_grads_fn
+        # model shards a dp rank's parameters split into: its ep ranks or
+        # its pp stages (not both: VirtualRanks), one flat row each
+        self.n_shards = ranks.ep * ranks.pp
         self.param_specs = param_specs
         self._rep_spans: List[Tuple[int, int]] = []
 
-    # -- the ep layout ---------------------------------------------------------
+    # -- the ep / pp layout ----------------------------------------------------
 
     def init_state(self, params: Params) -> TrainState:
-        """Every (dp, ep) rank's master shard of its ep rank's flat row
-        (``P((ep, dp))``); with ep = 1, ``DPTrainer.init_state``."""
-        if self.n_ep == 1:
+        """Every (dp, shard) rank's master shard of its shard's flat row
+        (``P((ep, dp))`` or ``P((pp, dp))``); with one shard,
+        ``DPTrainer.init_state``."""
+        if self.n_shards == 1:
             return super().init_state(params)
         params = fused_update.tree_map(lambda t: t.to(self.ranks.device),
                                        params)
-        local = split_ep(params, self.param_specs, self.n_ep)
+        local = split_ep(params, self.param_specs, self.n_shards)
         meta = fused_update.flat_meta(local[0], self.cfg.collective, self.n)
         self._meta = meta
         spans, off = [], 0
@@ -164,12 +196,12 @@ class ShardedTrainer(DPTrainer):
         self._rep_spans = spans
         if self.cfg.optimizer.clip_norm is not None:
             self._norm_weights = self.norm_weight_tables()
-        flat = torch.empty((self.n_ep, meta.padded_len),
+        flat = torch.empty((self.n_shards, meta.padded_len),
                            dtype=torch.float32, device=self.ranks.device)
         for t, row in zip(local, flat):
             fused_update.flatten_tree(t, meta, out=row)
         del local, params
-        w_own = flat.reshape(self.n_ep * self.n, -1)
+        w_own = flat.reshape(self.n_shards * self.n, -1)
         opt_state = optim.init_state(self.cfg.optimizer, w_own.shape,
                                      device=w_own.device)
         replicas, side = self._working(flat)
@@ -179,19 +211,19 @@ class ShardedTrainer(DPTrainer):
                           opt_state, 0, None, side)
 
     def norm_weight_tables(self) -> Tuple[np.ndarray, np.ndarray]:
-        """JAX's ``_norm_weight_tables`` over one flat row of the ep
+        """JAX's ``_norm_weight_tables`` over one flat row of the ep (pp)
         layout: ``(bounds [m + 1] int32, values [m] f32)``, a segment a
-        leaf, its value 1/ep where the leaf replicates over ep (each of
-        the ep rows holds a copy) and 1 where it is ep rank e's own
-        shard, then the padding at 0.  ``optim.global_norm`` reads them
-        over the ``[n_ep n_dp, C]`` owned shards."""
+        leaf, its value 1/ep (1/pp) where the leaf replicates over the
+        shards (each of their rows holds a copy) and 1 where it is the
+        shard's own slice, then the padding at 0.  ``optim.global_norm``
+        reads them over the ``[n_shards n_dp, C]`` owned shards."""
         if self._meta is None:
             raise RuntimeError("call init_state first")
         bounds, values = [0], []
         for size, spec in zip(self._meta.sizes, fused_update.tree_leaves(
                 self.param_specs)):
             bounds.append(bounds[-1] + size)
-            values.append(1.0 if spec is not None else 1.0 / self.n_ep)
+            values.append(1.0 if spec is not None else 1.0 / self.n_shards)
         if bounds[-1] < self._meta.padded_len:
             bounds.append(self._meta.padded_len)
             values.append(0.0)
@@ -199,47 +231,96 @@ class ShardedTrainer(DPTrainer):
                 np.asarray(values, np.float32))
 
     def _groups(self, rows: torch.Tensor) -> List[torch.Tensor]:
-        """The ep groups' rows of a ``[n_ep n_dp, ...]`` tensor."""
+        """The shard groups' rows of a ``[n_shards n_dp, ...]`` tensor."""
         return list(rows.split(self.n))
 
     def global_params(self, state: TrainState) -> Params:
-        """The whole tree the state holds: each ep group's expert shard
-        (its dp rank 0's row), the replicated leaves of group 0."""
-        if self.n_ep == 1:
+        """The whole tree the state holds: each shard group's slice (its
+        dp rank 0's row), the replicated leaves of group 0."""
+        if self.n_shards == 1:
             return state.params
         return join_ep([self._rank0(
             state.replicas[e * self.n:],
             None if state.side is None else state.side[e * self.n:])
-            for e in range(self.n_ep)], self.param_specs)
+            for e in range(self.n_shards)], self.param_specs)
 
     # -- step ------------------------------------------------------------------
 
     def grads(self, state: TrainState, batch
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The ranks' backward; with ep > 1, each replicated leaf's
-        gradient summed over the ep ranks of its dp rank, in ep order, and
-        written into every ep row."""
-        flat_g, loss = super().grads(state, batch)
-        if self.n_ep > 1:
-            g = flat_g.view(self.n_ep, self.n, -1)
+        """The ranks' backward; with ep or pp > 1, each replicated leaf's
+        gradient summed over the shards of its dp rank, in shard order,
+        and written into every shard's row (``loss_and_grads_fn`` gives
+        the sum itself)."""
+        if self.ranks.pp > 1:
+            flat_g, loss = self._stage_grads(state, batch)
+            if self.loss_and_grads_fn is not None:
+                return flat_g, loss
+        else:
+            flat_g, loss = super().grads(state, batch)
+        if self.n_shards > 1:
+            g = flat_g.view(self.n_shards, self.n, -1)
             for a, b in self._rep_spans:
                 acc = g[0, :, a:b]
-                for e in range(1, self.n_ep):
+                for e in range(1, self.n_shards):
                     acc.add_(g[e, :, a:b])
-                for e in range(1, self.n_ep):
+                for e in range(1, self.n_shards):
                     g[e, :, a:b].copy_(acc)
         return flat_g, loss
+
+    def _grad_tree(self, row: torch.Tensor) -> Params:
+        """A flat f32 gradient row as a tree of views, one a leaf."""
+        meta = self._meta
+        return fused_update.unflatten_tree(row, meta._replace(
+            dtypes=(torch.float32,) * len(meta.dtypes)))
+
+    def _stage_grads(self, state: TrainState, batch
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pp > 1: a dp rank at a time, the loss over its stage trees (rows
+        ``s n_dp + d``) and each stage's gradients into its row of a
+        zeroed ``[n_pp n_dp, L_pad]`` f32 flat_g; ``(flat_g, mean
+        loss)``."""
+        meta, n, pp = self._meta, self.n, self.ranks.pp
+        if meta is None:
+            raise RuntimeError("call init_state first")
+        flat_g = torch.zeros((pp * n, meta.padded_len), dtype=torch.float32,
+                             device=state.replicas.device)
+        losses = []
+        for d in range(n):
+            rows = [s * n + d for s in range(pp)]
+            leaves = [_rank_leaves(state.replicas, meta, r, state.side)
+                      for r in rows]
+            trees = [fused_update.tree_from_leaves(meta.keys, ls)
+                     for ls in leaves]
+            b = tuple(x[d] for x in batch)
+            outs = [self._grad_tree(flat_g[r]) for r in rows]
+            if self.loss_and_grads_fn is not None:
+                loss, _ = self.loss_and_grads_fn(trees, b, out=outs)
+            else:
+                loss = self.loss_fn(trees, b)
+                gs = torch.autograd.grad(loss, [t for ls in leaves
+                                                for t in ls],
+                                         allow_unused=True)
+                views = [v for o in outs
+                         for v in fused_update.tree_leaves(o)]
+                for v, g in zip(views, gs):
+                    if g is not None:
+                        v.copy_(g)
+                del gs
+            del leaves, trees, outs
+            losses.append(loss.detach())
+        return flat_g, torch.stack(losses).mean()
 
     def apply_grads(self, state: TrainState, flat_g: torch.Tensor,
                     codec_state: Optional[torch.Tensor] = None
                     ) -> TrainState:
         """Phases 2-5 on given per-rank gradients ``[n, L_pad]`` (with
-        ep, ``grads``'s rows, the ep sum taken)."""
+        ep or pp, ``grads``'s rows, the shard sum taken)."""
         return self.update(state, self._reduce(flat_g))
 
     def _reduce(self, flat_g: torch.Tensor) -> torch.Tensor:
         coll = self.cfg.collective
-        if self.n_ep == 1:
+        if self.n_shards == 1:
             return fused_update.reduce_scatter(flat_g, coll) / self.n
         out = torch.empty((flat_g.shape[0], flat_g.shape[1] // self.n),
                           dtype=torch.float32, device=flat_g.device)
@@ -250,7 +331,7 @@ class ShardedTrainer(DPTrainer):
     def _gather(self, w_new: torch.Tensor, opt_state: optim.OptState,
                 step: int, codec_state: Optional[torch.Tensor] = None,
                 diag: Optional[dict] = None):
-        if self.n_ep == 1:
+        if self.n_shards == 1:
             return super()._gather(w_new, opt_state, step, codec_state,
                                    diag)
         reps, sides = [], []
@@ -266,9 +347,9 @@ class ShardedTrainer(DPTrainer):
                           opt_state, step, codec_state, side)
 
     def params_from_master(self, w_own: torch.Tensor) -> Params:
-        """Rank 0's working params rebuilt from the master shards (its ep
-        group's gather)."""
-        if self.n_ep == 1:
+        """Rank 0's working params rebuilt from the master shards (its
+        shard group's gather)."""
+        if self.n_shards == 1:
             return super().params_from_master(w_own)
         return super().params_from_master(self._groups(w_own)[0])
 

@@ -173,21 +173,23 @@ class DPTrainer:
     tensors with a leading global-batch axis, split over the ranks by
     ``shard_batch``."""
 
-    takes_sp = False     # ShardedTrainer's: the sp and ep axes of the mesh
+    takes_sp = False     # ShardedTrainer's: the sp, ep and pp axes
 
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig):
-        if (cfg.mesh.nproc != ranks.n * ranks.sp * ranks.ep
+        if (cfg.mesh.nproc != ranks.n * ranks.sp * ranks.ep * ranks.pp
                 or cfg.mesh.dp != ranks.n or cfg.mesh.sp != ranks.sp
-                or cfg.mesh.ep != ranks.ep):
+                or cfg.mesh.ep != ranks.ep or cfg.mesh.pp != ranks.pp):
             raise ValueError(f"cfg.mesh ({cfg.mesh}) does not describe "
                              f"{ranks.n} dp x {ranks.sp} sp x {ranks.ep} "
-                             "ep ranks")
-        for axis, size in (("sp", ranks.sp), ("ep", ranks.ep)):
+                             f"ep x {ranks.pp} pp ranks")
+        for axis, size in (("sp", ranks.sp), ("ep", ranks.ep),
+                           ("pp", ranks.pp)):
             if size != 1 and not self.takes_sp:
                 raise NotImplementedError(
-                    f"{axis}={size}: sequence and expert parallelism run "
-                    "on ShardedTrainer, as in the JAX package")
+                    f"{axis}={size}: sequence, expert and pipeline "
+                    "parallelism run on ShardedTrainer, as in the JAX "
+                    "package")
         coll = cfg.collective
         for name, unported in (
                 ("obs_metrics", cfg.obs_metrics),

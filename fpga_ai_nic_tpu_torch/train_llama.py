@@ -1,8 +1,8 @@
 """Llama training driver of the port — the counterpart of the JAX package's
-``examples/train_llama.py`` on its dp, sp and ep axes (no pipeline or
-tensor parallelism yet).  Prints one JSON line: first and last loss,
-tokens/s, wall time, parameter counts (all, and those a token's products
-touch) and mesh.
+``examples/train_llama.py`` on its dp, sp, ep and pp axes (no tensor
+parallelism yet).  Prints one JSON line: first and last loss, tokens/s,
+wall time, parameter counts (all, and those a token's products touch),
+mesh, and with pp the schedule's ``pipeline_cost``.
 
 Examples (on the card; ``--device=cpu`` runs the plain versions instead):
   python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
@@ -27,6 +27,12 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
       --global_batch=4 --mesh.dp=2 --mesh.sp=2 --mesh.ep=2 --remat=true \\
       --optimizer.clip_norm=1.0 --iters=3 --collective.impl=ring \\
       --collective.compression.codec=pallas --collective.fused_kernel=true
+  python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
+      --model.n_layers=4 --model.attn_block=512 --seq=4096 \\
+      --global_batch=8 --mesh.dp=2 --mesh.pp=2 --microbatches=4 \\
+      --pp_schedule=1f1b-interleaved --virtual_stages=2 --iters=3 \\
+      --collective.impl=ring --collective.compression.codec=pallas \\
+      --collective.fused_kernel=true
   python -m fpga_ai_nic_tpu_torch.train_llama --model=tiny --device=cpu \\
       --model.attn_block=128 --seq=128 --global_batch=4 --mesh.dp=2 \\
       --iters=2
@@ -52,7 +58,16 @@ over that many ranks of each dp rank, the batch over dp x ep; with
 ``--mesh.sp`` too, each (dp, ep) rank runs its sp ring over its sequence
 shards and each (dp, ep, sp) device routes its own tokens.
 ``--optimizer.clip_norm`` clips the global norm, each parameter counted
-once across the ep rows (it needs the unfused update, the default).
+once across the ep (pp) rows (it needs the unfused update, the default).
+``--mesh.pp=P`` splits the stacked layers over P pipeline stages (JAX's
+flags): ``--microbatches=M`` (default 1) microbatches of each dp rank's
+batch, ``--pp_schedule=gpipe|1f1b|1f1b-interleaved`` (default gpipe;
+``llama.loss_fn_pp``, or ``llama.loss_and_grads_pp_1f1b``), and
+``--virtual_stages=v`` chunks a stage (the interleaved schedule only,
+default 2; the layers live in ``pipeline.interleave_layers`` order for
+the whole run, as JAX's driver keeps them).  As in JAX's driver the pp
+losses always recompute each layer in the backward (remat).  pp with sp,
+ep or MoE layers raises (ROADMAP A.6 item 4b).
 """
 
 from __future__ import annotations
@@ -69,17 +84,48 @@ import torch
 from .device import resolve_device
 from .models import llama
 from .models.llama import LlamaConfig
+from .parallel import pipeline
 from .parallel.mesh import make_ranks
 from .parallel.sharded import ShardedTrainer
 from .parallel.train import TrainState
 from .utils.config import TrainConfig, _declared_type, coerce_value, from_flags
 
 MODELS = {"llama3_8b": LlamaConfig.llama3_8b, "tiny": LlamaConfig.tiny}
+SCHEDULES = ("gpipe", "1f1b", "1f1b-interleaved")
+PIPELINE_FLAGS = ("--microbatches", "--pp_schedule", "--virtual_stages")
+
+
+@dataclasses.dataclass(frozen=True)
+class Pipeline:
+    """JAX's pipeline flags: microbatches a dp rank's batch, the schedule,
+    and the chunks a stage (1 unless interleaved)."""
+
+    microbatches: int = 1
+    schedule: str = "gpipe"
+    virtual_stages: int = 1
+
+
+def pipeline_flags(argv: Sequence[str]) -> Pipeline:
+    """``--microbatches``, ``--pp_schedule`` and ``--virtual_stages``, with
+    JAX's errors (the last flag given wins)."""
+    flags = dict(a.partition("=")[::2] for a in argv
+                 if a.partition("=")[0] in PIPELINE_FLAGS)
+    schedule = flags.get("--pp_schedule", "gpipe")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"--pp_schedule must be gpipe|1f1b|"
+                         f"1f1b-interleaved, got {schedule!r}")
+    if "--virtual_stages" in flags and schedule != "1f1b-interleaved":
+        raise ValueError("--virtual_stages only applies to "
+                         "--pp_schedule=1f1b-interleaved")
+    v = (int(flags.get("--virtual_stages", 2))
+         if schedule == "1f1b-interleaved" else 1)
+    return Pipeline(int(flags.get("--microbatches", 1)), schedule, v)
 
 
 def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
     """``(LlamaConfig, TrainConfig, seq, device)`` from the flags
-    (``--remat=`` is read by ``remat_flag``)."""
+    (``--remat=`` is read by ``remat_flag``, the pipeline's by
+    ``pipeline_flags``)."""
     model, seq, device = "tiny", 64, "cuda"
     overlays: List[Tuple[str, str]] = []
     rest: List[str] = []
@@ -93,7 +139,7 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
             seq = int(val)
         elif key == "--device":
             device = val
-        elif key != "--remat":           # remat_flag reads --remat
+        elif key != "--remat" and key not in PIPELINE_FLAGS:
             rest.append(a)
     if model not in MODELS:
         raise ValueError(f"--model must be one of {sorted(MODELS)}")
@@ -111,6 +157,15 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
     if sp > 1 and (seq % sp or (seq // sp) % 128):
         raise ValueError(f"--seq={seq} does not split into --mesh.sp={sp} "
                          "shards of a multiple of 128 tokens")
+    if cfg.mesh.pp > 1:
+        if sp > 1 or cfg.mesh.ep > 1 or mcfg.moe is not None:
+            raise NotImplementedError("pp with sp, ep or MoE layers is not "
+                                      "ported: ROADMAP A.6 item 4b")
+        M = pipeline_flags(argv).microbatches
+        local = cfg.global_batch // cfg.mesh.dp
+        if local % M:
+            raise ValueError(f"a dp rank's batch of {local} does not split "
+                             f"into --microbatches={M}")
     return mcfg, cfg, seq, device
 
 
@@ -137,12 +192,22 @@ def batches(mcfg: LlamaConfig, cfg: TrainConfig, seq: int,
 
 
 def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str,
-          remat: bool = False) -> Tuple[ShardedTrainer, TrainState]:
+          remat: bool = False, pipe: Pipeline = Pipeline()
+          ) -> Tuple[ShardedTrainer, TrainState]:
     """The trainer over ``cfg.mesh.dp`` x ``cfg.mesh.ep`` x
-    ``cfg.mesh.sp`` virtual ranks and its initial state, from weights
-    drawn on the device with seed ``cfg.seed``; ``remat`` goes to the
-    loss."""
+    ``cfg.mesh.sp`` (or x ``cfg.mesh.pp``) virtual ranks and its initial
+    state, from weights drawn on the device with seed ``cfg.seed``;
+    ``remat`` goes to the loss (with pp the losses always recompute);
+    ``pipe``: the pipeline flags."""
     ranks = make_ranks(cfg.mesh, device)
+    gen = torch.Generator(device=ranks.device).manual_seed(cfg.seed)
+    if ranks.pp > 1:
+        tr = _pp_trainer(mcfg, cfg, ranks, pipe)
+        params = llama.stack_params(llama.init(gen, mcfg, ranks.device))
+        if pipe.schedule == "1f1b-interleaved":
+            params["layers"] = pipeline.interleave_layers(
+                params["layers"], ranks.pp, pipe.virtual_stages)
+        return tr, tr.init_state(params)
     if mcfg.moe is not None:
         tr = ShardedTrainer(llama.dp_loss_fn(mcfg, ranks.n, ranks.ep,
                                              n_sp=ranks.sp, remat=remat),
@@ -152,15 +217,35 @@ def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str,
         tr = ShardedTrainer(
             lambda p, b: llama.loss_fn(p, b, mcfg, sp_axis=sp_axis,
                                        remat=remat), ranks, cfg)
-    gen = torch.Generator(device=ranks.device).manual_seed(cfg.seed)
     return tr, tr.init_state(llama.init(gen, mcfg, ranks.device))
+
+
+def _pp_trainer(mcfg: LlamaConfig, cfg: TrainConfig, ranks,
+                pipe: Pipeline) -> ShardedTrainer:
+    """The pp trainer of JAX's driver (``examples/train_llama.py:96-131``):
+    GPipe through ``loss_fn_pp``, the 1F1B schedules through
+    ``loss_and_grads_pp_1f1b``, remat on.  Every label is valid here, so
+    the per-rank weighting equals JAX's ``dp_axis`` one."""
+    specs = llama.stacked_param_specs(mcfg)
+    M = pipe.microbatches
+    if pipe.schedule == "gpipe":
+        return ShardedTrainer(
+            lambda p, b: llama.loss_fn_pp(p, b, mcfg, num_microbatches=M,
+                                          remat=True),
+            ranks, cfg, param_specs=specs)
+    return ShardedTrainer(
+        None, ranks, cfg, param_specs=specs,
+        loss_and_grads_fn=lambda p, b, out=None: llama.loss_and_grads_pp_1f1b(
+            p, b, mcfg, num_microbatches=M,
+            virtual_stages=pipe.virtual_stages, remat=True, out=out))
 
 
 def main(argv: Sequence[str]) -> dict:
     mcfg, cfg, seq, device = parse(argv)
     dev = resolve_device(device)
     remat = remat_flag(argv)
-    tr, state = build(mcfg, cfg, device, remat)
+    pipe = pipeline_flags(argv)
+    tr, state = build(mcfg, cfg, device, remat, pipe)
     losses = []
     t0 = 0.0
     for i, batch in enumerate(batches(mcfg, cfg, seq, cfg.iters + 1)):
@@ -172,14 +257,19 @@ def main(argv: Sequence[str]) -> dict:
     losses = [float(v) for v in losses]  # waits for the device
     wall = time.perf_counter() - t0
     m = cfg.mesh
-    return {"loss_first": losses[0], "loss_last": losses[-1],
-            "tokens_per_sec": cfg.iters * cfg.global_batch * seq / wall,
-            "wall_s": wall, "params": llama.num_params(mcfg),
-            "active_params": llama.active_params(mcfg),
-            "mesh": {"dp": m.dp, "tp": m.tp, "sp": m.sp, "pp": m.pp,
-                     "ep": m.ep}, "remat": remat,
-            "device": (torch.cuda.get_device_name(dev)
-                       if dev.type == "cuda" else "cpu")}
+    out = {"loss_first": losses[0], "loss_last": losses[-1],
+           "tokens_per_sec": cfg.iters * cfg.global_batch * seq / wall,
+           "wall_s": wall, "params": llama.num_params(mcfg),
+           "active_params": llama.active_params(mcfg),
+           "mesh": {"dp": m.dp, "tp": m.tp, "sp": m.sp, "pp": m.pp,
+                    "ep": m.ep}, "remat": remat or m.pp > 1,
+           "device": (torch.cuda.get_device_name(dev)
+                      if dev.type == "cuda" else "cpu")}
+    if m.pp > 1:
+        out["pipeline_cost"] = pipeline.cost_model(
+            pipe.microbatches, m.pp, schedule=pipe.schedule,
+            virtual_stages=pipe.virtual_stages)
+    return out
 
 
 if __name__ == "__main__":

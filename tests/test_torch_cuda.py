@@ -1158,3 +1158,70 @@ def test_moe_sp_ep_step_on_card_kernel_vs_plain(cuda_device):
     assert _launches() == [before[0] + ep, before[1] + ep]
     reps = st.replicas.view(ep, dp, -1)
     assert bool((reps == reps[:, :1]).all())
+
+
+def _pp_masters(tr, w_own, v):
+    """A dp x pp trainer's f32 masters as one flat vector in model order:
+    the stage rows' leaves joined over the stages (the layers
+    deinterleaved when v > 1)."""
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    from fpga_ai_nic_tpu_torch.parallel import pipeline
+    from fpga_ai_nic_tpu_torch.parallel.sharded import join_ep
+    tree = join_ep([tr._grad_tree(r) for r in w_own.view(tr.n_shards, -1)],
+                   tr.param_specs)
+    if v > 1:
+        tree["layers"] = pipeline.deinterleave_layers(tree["layers"],
+                                                      tr.ranks.pp, v)
+    return torch.cat([t.reshape(-1)
+                      for t in fused_update.tree_leaves(tree)]).clone()
+
+
+@pytest.mark.cuda
+def test_pp_trainer_schedules_on_card(cuda_device):
+    """dp=2 x pp=2, the small bf16 Llama at head_dim 128 (4 layers,
+    sequence 256, 2 microbatches, remat) as ``train_llama.build`` builds
+    it: under each schedule the flash kernel route's two SGD steps
+    against the plain attention route's, and 1F1B and interleaved 1F1B
+    against GPipe on the kernels: losses within 2e-3, the masters'
+    distance within 0.05 of the reference's two-step update (the Llama
+    parity limits of ``chip_smoke.py``); the kernel route launching the
+    tensor-core flash kernels and the plain route none."""
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    from fpga_ai_nic_tpu_torch.utils.config import (CollectiveConfig,
+                                                    MeshConfig, TrainConfig)
+    cfg = TrainConfig(global_batch=4, mesh=MeshConfig(dp=2, pp=2),
+                      collective=CollectiveConfig(impl="xla"),
+                      optimizer=OptimizerConfig(kind="sgd",
+                                                learning_rate=0.1))
+
+    def run(impl, schedule):
+        v = 2 if schedule == "1f1b-interleaved" else 1
+        mcfg = _hd128_llama(dtype="bfloat16", n_layers=4, attn_impl=impl)
+        before = fa.FLASH_FWD.launches
+        tr, st = train_llama.build(mcfg, cfg, "cuda", True,
+                                   train_llama.Pipeline(2, schedule, v))
+        w0 = _pp_masters(tr, st.w_own, v)
+        batch = tr.shard_batch(_seeded_batch(mcfg.vocab, 4, 256))
+        losses = []
+        for _ in range(2):
+            st, loss = tr.step(st, batch)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        return (losses, w0, _pp_masters(tr, st.w_own, v),
+                fa.FLASH_FWD.launches - before)
+
+    def rel(a, b):
+        return float((a[2] - b[2]).norm() / (b[2] - b[1]).norm())
+
+    ref = run("pallas", "gpipe")
+    for schedule in ("gpipe", "1f1b", "1f1b-interleaved"):
+        kern = ref if schedule == "gpipe" else run("pallas", schedule)
+        plain = run("xla", schedule)
+        assert kern[3] > 0 and plain[3] == 0
+        assert torch.equal(kern[1], ref[1])          # the same weights
+        for other in (plain, ref):
+            print(f"{schedule}: rel {rel(kern, other)}, losses {kern[0]} "
+                  f"against {other[0]}")
+            assert rel(kern, other) <= 0.05
+            assert max(abs(a - b) for a, b in zip(kern[0], other[0])) <= 2e-3

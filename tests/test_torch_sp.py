@@ -392,10 +392,14 @@ def test_sp_on_unported_trainers_and_axes_raises():
     with pytest.raises(ValueError, match="does not describe"):
         ShardedTrainer(lambda p, b: None, VirtualRanks(2, torch.device(
             "cpu")), cfg)
-    for axis, item in (("tp", "A.5"), ("pp", "A.6 item 4"),
-                       ("fsdp", "A.5")):
+    for axis, item in (("tp", "A.5"), ("fsdp", "A.5")):
         with pytest.raises(NotImplementedError, match=item):
             make_ranks(MeshConfig(dp=2, **{axis: 2}), "cpu")
+    # pp is ported (tests/test_torch_pp.py), but not with sp or ep
+    assert make_ranks(MeshConfig(dp=2, pp=2), "cpu").pp == 2
+    for axis in ("sp", "ep"):
+        with pytest.raises(NotImplementedError, match="A.6 item 4b"):
+            make_ranks(MeshConfig(dp=2, pp=2, **{axis: 2}), "cpu")
     # ep is ported (tests/test_torch_moe.py), and together with sp
     # (tests/test_torch_sp_ep.py)
     assert make_ranks(MeshConfig(dp=2, ep=2), "cpu").ep == 2
