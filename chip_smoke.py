@@ -232,10 +232,35 @@ Phases, each printing JSON lines:
      replicated leaves, by model layer) within 0.05 of the reference's
      update, bit-equality reported; the interleaved masters read without
      their layer permutation (the control) above the limit;
- 24. the ``kernels`` line (the offset instantiations' rows among them,
+ 24. ``llama_pp_sp_train_path``: the pipeline with sp, at Llama-3-8B
+     width, 4 layers, sequence 8192, global batch 4 over dp=2 x pp=2 x
+     sp=2, 2 microbatches of one sequence, remat, the BFP ring kernels
+     within each stage group, SGD lr 0.1, under each schedule (GPipe on
+     the ring attention, the 1F1B schedules on the gathered attention):
+     1 warm-up and 3 timed steps, launches counted by instantiation
+     (``pp_axes_per_step``), the replicas and the replicated leaves
+     checked, the loss falling, the step's and the backward's peaks,
+     ``pipeline_cost``, a profile of two steps;
+ 25. ``moe_pp_train_path``: the pipeline with ep, sp and MoE layers, at
+     Mixtral-8x7B width, 2 layers (one a stage), sequence 8192, global
+     batch 4 over dp=1 x pp=2 x ep=2 x sp=2, 2 microbatches, remat, clip
+     1.0, under GPipe and 1F1B: as 24, plus ``drop_frac`` (at dp=1 the
+     reduce-scatter is the identity: no ring_rs_update launches);
+ 26. ``llama_pp_sp_train_parity``: 23 at sequence 4096 over dp=2 x pp=2 x
+     sp=2 (GPipe on the plain attention, 1F1B, interleaved 1F1B and the
+     dp=2 x sp=2 path at pp=1 against GPipe on the kernels);
+ 27. ``moe_pp_train_parity``: at Mixtral-8x7B width, 2 layers, sequence
+     4096, batch 4 over dp=1 x pp=2 x ep=2 x sp=2, capacity factor 4
+     (nothing drops): the whole tree's gradient under 1F1B, GPipe on the
+     plain attention and the sp x ep path at pp=1 against GPipe on the
+     kernels, the experts pinned to the reference's a token at a time,
+     within the Llama parity limits (the unpinned errors and flip shares
+     beside), the ep exchange swapped (the control) above them;
+ 28. the ``kernels`` line (the offset instantiations' rows among them,
      their launches from ``llama_sp_train_path``; the MoE paths'
      launches and ring times as ``moe_*`` keys, the pipeline's as
-     ``pp_*`` keys), then the last line ``{"ok": true, "device":
+     ``pp_*`` keys, the pipeline with sp and ep's as ``pp_sp_*`` and
+     ``moe_pp_*``), then the last line ``{"ok": true, "device":
      {...}}``.
 
 TF32 is off for matmuls and cuDNN, so the f32 GEMMs run in full float32.
@@ -4122,159 +4147,6 @@ PP_PARITY_ARGV = PP_MODEL_ARGV + [
     "--microbatches=2", "--iters=2"] + PP_RING_ARGV
 
 
-def llama_pp_train_path(dev, kernels, schedule, extra=(),
-                        phase="llama_pp_train_path") -> dict:
-    """``ShardedTrainer`` at dp=2 x pp=2 as ``train_llama.build`` builds it
-    from ``PP_TRAIN_ARGV`` under ``schedule`` (Llama-3-8B width, 4
-    layers, sequence 4096, global batch 8, 4 microbatches of one sequence
-    a dp rank; ``extra`` flags override): one warm-up and ``--iters``
-    timed steps on one batch, launch counts zeroed just before the first
-    step and read after the last (a step: ``PP_FWD_PER_UNIT`` flash
-    forwards and one dq and dk/dv a (dp rank, microbatch, layer), one
-    ring_rs_update and one ring_ag a stage group); replicas bit-equal
-    within each stage group and the replicated leaves (replicas and
-    masters) across the groups, the loss falling on the repeated batch,
-    peak memory and ``pipeline_cost``; with GPipe the ring kernels timed
-    at the stage row's shape; then two steps under the profiler."""
-    import torch
-    from fpga_ai_nic_tpu_torch import train_llama
-    from fpga_ai_nic_tpu_torch.models import llama
-    from fpga_ai_nic_tpu_torch.ops import fused_update
-    from fpga_ai_nic_tpu_torch.parallel import pipeline
-    argv = PP_TRAIN_ARGV + PP_SCHEDULES[schedule] + list(extra)
-    mcfg, cfg, seq, device = train_llama.parse(argv)
-    pipe = train_llama.pipeline_flags(argv)
-    n, pp, M = cfg.mesh.dp, cfg.mesh.pp, pipe.microbatches
-    gc.collect()
-    torch.cuda.empty_cache()
-    held_gb = torch.cuda.memory_allocated(dev) / 1e9
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    tr, state = train_llama.build(mcfg, cfg, device, True, pipe)
-    sync(dev)
-    init_s = time.perf_counter() - t0
-    batch = tr.shard_batch(next(train_llama.batches(mcfg, cfg, seq, 1)))
-    for kern in kernels.values():
-        kern.launches = 0
-    state, loss = tr.step(state, batch)               # warm-up
-    losses = [float(loss)]
-    sync(dev)
-    marks = [torch.cuda.Event(enable_timing=True)
-             for _ in range(cfg.iters + 1)]
-    t0 = time.perf_counter()
-    marks[0].record()
-    for mark in marks[1:]:
-        state, loss = tr.step(state, batch)
-        losses.append(loss)
-        mark.record()
-    sync(dev)
-    wall = time.perf_counter() - t0
-    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-    losses = [float(v) for v in losses]
-    launches = {name: kern.launches for name, kern in kernels.items()}
-    steps = cfg.iters + 1
-    units = n * M * mcfg.n_layers
-    per_step = {name: 0 for name in kernels}
-    per_step.update(flash_fwd=PP_FWD_PER_UNIT[schedule] * units,
-                    flash_dq=units, flash_dkv=units, ring_rs_update=pp,
-                    ring_ag=pp)
-    for name, count in launches.items():
-        if count != steps * per_step[name]:
-            raise AssertionError(f"{phase} ({schedule}): {name} launched "
-                                 f"{count} times, expected {steps} x "
-                                 f"{per_step[name]}")
-    reps = state.replicas.view(pp, n, -1)
-    masters = state.w_own.view(pp, -1)
-    checks = {
-        "losses_finite": all(math.isfinite(v) for v in losses),
-        "loss_falls": losses[-1] < losses[0],
-        "replicas_equal_within_stage_groups": bool(
-            (reps == reps[:, :1]).all()),
-        "replicated_leaves_equal_across_stage_groups": all(
-            bool((reps[:, :, a:b] == reps[:1, :, a:b]).all())
-            and bool((masters[:, a:b] == masters[:1, a:b]).all())
-            for a, b in tr._rep_spans),
-        "stage_slices_differ": not bool((masters[0] == masters[1]).all()),
-        "replicas_in_model_dtype": state.replicas.dtype == mcfg.torch_dtype}
-    tokens = cfg.iters * cfg.global_batch * seq
-    peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    median = sorted(step_ms)[cfg.iters // 2]
-    cost = pipeline.cost_model(M, pp, schedule, pipe.virtual_stages)
-    row_len = int(state.replicas.shape[1])
-    emit(phase=phase, schedule=schedule, model=(
-        f"Llama-3-8B width (dim {mcfg.dim}, {mcfg.n_heads}/{mcfg.n_kv_heads} "
-        f"heads, ffn {mcfg.ffn_dim}, vocab {mcfg.vocab}, {mcfg.dtype}), "
-        f"{mcfg.n_layers} layers, attn_impl {mcfg.attn_impl}, remat, random "
-        "weights"), params=llama.num_params(mcfg), seq=seq,
-         global_batch=cfg.global_batch, dp=n, pp=pp, microbatches=M,
-         virtual_stages=pipe.virtual_stages, held_at_start_gb=held_gb,
-         tokens_per_step=cfg.global_batch * seq,
-         collective=str(cfg.collective), optimizer=str(cfg.optimizer),
-         weight_init_s=init_s, steps=cfg.iters, wall_s=wall,
-         ms_per_step=1e3 * wall / cfg.iters, step_ms=step_ms,
-         median_step_ms=median, tokens_per_sec=tokens / wall, losses=losses,
-         peak_mem_gb=peak, padded_len_per_row=row_len, launches=launches,
-         launches_per_step=per_step, pipeline_cost=cost, checks=checks)
-    if not all(checks.values()):
-        raise AssertionError(f"{phase} ({schedule}): {checks}")
-    # the backward alone (the step's peak is its reduce phase's): the
-    # state, the flat gradient rows and the schedule's activations
-    torch.cuda.reset_peak_memory_stats(dev)
-    state_gb = torch.cuda.memory_allocated(dev) / 1e9
-    flat_g, _ = tr.grads(state, batch)
-    sync(dev)
-    bwd_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    emit(phase=phase + "_backward_peak", schedule=schedule, microbatches=M,
-         held_gb=state_gb, backward_peak_gb=bwd_gb,
-         flat_grad_gb=flat_g.numel() * 4 / 1e9,
-         activations_gb=bwd_gb - state_gb - flat_g.numel() * 4 / 1e9)
-    out = {"launches": launches, "steps": steps, "median_step_ms": median,
-           "tokens_per_sec": tokens / wall, "peak_mem_gb": peak,
-           "backward_peak_gb": bwd_gb, "losses": losses,
-           "pipeline_cost": cost, "row_len": row_len}
-    if schedule == "gpipe" and not extra:
-        g, w = flat_g[:n], state.w_own[:n]
-        C = row_len // n
-
-        def rs():
-            return fused_update.reduce_scatter(g, cfg.collective)
-
-        def ag():
-            return fused_update.all_gather_flat(w, cfg.collective)
-        rs_b, ag_b = ring_bytes(n, row_len, C)
-        out["ring"] = {
-            "shape": (f"n={n}, L={row_len} (one stage group's rows: 2 "
-                      "layers and the embedding, final norm and head), no "
-                      "optimizer"),
-            "rs_device_ms": device_ms(rs, 5, ("ring_rs_kernel",)),
-            "rs_bound": bound(rs_b, 11 * n * row_len),
-            "ag_device_ms": device_ms(ag, 5, ("ring_ag_kernel",)),
-            "ag_bound": bound(ag_b, 10 * n * C)}
-        emit(phase="llama_pp_ring_times", **out["ring"])
-        del g, w
-    del flat_g, reps, masters
-    held = [state]
-    del state
-
-    def train_step():
-        held[0], _ = tr.step(held[0], batch)
-
-    prof = profile_run(phase.replace("path", "profile"), train_step, 2,
-                       groups=TRAIN_GROUPS, schedule=schedule)
-    out["profile"] = prof
-    out["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
-    emit(phase=phase + "_summary", schedule=schedule, microbatches=M,
-         median_step_ms=median, tokens_per_sec=tokens / wall,
-         peak_mem_gb=peak, idle_share=out["idle_share"],
-         device_ms_by_group={k: prof[k] for k in ("gemm", "flash",
-                                                  "ring_bfp", "other")},
-         launches_per_step={k: v for k, v in per_step.items() if v},
-         losses=losses, pipeline_cost=cost)
-    del tr, held, batch
-    torch.cuda.empty_cache()
-    return out
-
-
 def _diff(a, b, chunk=1 << 27) -> tuple:
     """``(squared L2 norm of a - b, a == b)`` over chunks (f64 sums), b's
     chunks brought to a's device (a reference held in host memory)."""
@@ -4311,14 +4183,18 @@ def pp_master_leaves(tr, state, layer_of) -> dict:
     return out
 
 
-def llama_pp_train_parity(dev) -> None:
+def llama_pp_train_parity(dev, argv=PP_PARITY_ARGV,
+                          phase="llama_pp_train_parity",
+                          pp1="pp1_dp2") -> None:
     """Two SGD steps at Llama-3-8B width, 4 layers, sequence 2048, batch 4
-    over dp=2 x pp=2, 2 microbatches (``PP_PARITY_ARGV``), each from the
-    same seeded weights and batch: GPipe on the kernels is the reference;
-    GPipe on the plain attention route (attn_impl xla), 1F1B and
-    interleaved 1F1B (v=2) on the kernels, and the dp=2 path at pp=1, are
-    held against it.  Each compares the losses of both steps (within
-    ``PARITY_LOSS_TOL``) and the updated f32 masters of every stage's
+    over dp=2 x pp=2, 2 microbatches (``PP_PARITY_ARGV``; or ``argv``:
+    ``PP_SP_PARITY_ARGV``, sequence 4096 over dp=2 x pp=2 x sp=2, the
+    phase ``llama_pp_sp_train_parity``), each from the same seeded
+    weights and batch: GPipe on the kernels is the reference; GPipe on
+    the plain attention route (attn_impl xla), 1F1B and interleaved 1F1B
+    (v=2) on the kernels (with sp, on the gathered attention), and the
+    same mesh at pp=1 (``pp1``), are held against it.  Each compares the
+    losses of both steps (within ``PARITY_LOSS_TOL``) and the updated f32 masters of every stage's
     layers and every stage's copy of the replicated leaves, layer by
     model layer (the pp=1 state's whole tree), as the L2 distance over
     the reference's two-step update (within ``PARITY_GRAD_REL_TOL``);
@@ -4337,9 +4213,9 @@ def llama_pp_train_parity(dev) -> None:
         return lambda s, j: s * (L // pp) + j
 
     def run(extra, steps=2):
-        argv = PP_PARITY_ARGV + list(extra)
-        mcfg, cfg, seq, device = train_llama.parse(argv)
-        pipe = train_llama.pipeline_flags(argv)
+        flags = list(argv) + list(extra)
+        mcfg, cfg, seq, device = train_llama.parse(flags)
+        pipe = train_llama.pipeline_flags(flags)
         gc.collect()
         torch.cuda.empty_cache()
         tr, state = train_llama.build(mcfg, cfg, device, True, pipe)
@@ -4379,7 +4255,7 @@ def llama_pp_train_parity(dev) -> None:
              + ["--model.attn_impl=xla"]),
             ("1f1b", PP_SCHEDULES["1f1b"]),
             ("1f1b_interleaved", PP_SCHEDULES["1f1b-interleaved"]),
-            ("pp1_dp2", ["--mesh.pp=1"])):
+            (pp1, ["--mesh.pp=1"])):
         tr_x, st_x, losses, layer_of = run(extra)
         rel, equal = compare(tr_x, st_x, layer_of)
         rows[name] = {"master_update_rel_err": rel,
@@ -4399,7 +4275,7 @@ def llama_pp_train_parity(dev) -> None:
     checks["finite"] = all(math.isfinite(v) for v in ref_losses) and all(
         math.isfinite(r["master_update_rel_err"]) for r in rows.values())
     checks["control_above_tol"] = plain_order > PARITY_GRAD_REL_TOL
-    emit(phase="llama_pp_train_parity", argv=PP_PARITY_ARGV,
+    emit(phase=phase, argv=list(argv),
          reference="gpipe, flash kernels", reference_losses=ref_losses,
          reference_update_norm=math.sqrt(sum(upd_sq.values())),
          against=rows, control_interleaved_order_dropped=plain_order,
@@ -4408,7 +4284,460 @@ def llama_pp_train_parity(dev) -> None:
     del tr, ref_state, ref
     torch.cuda.empty_cache()
     if not all(checks.values()):
-        raise AssertionError(f"llama pp training parity failed: {checks}")
+        raise AssertionError(f"{phase} failed: {checks}")
+
+
+# -- the pipeline with every batch axis: dp x pp x sp, pp x ep x sp (MoE) ----
+
+PP_SP_TRAIN_ARGV = PP_MODEL_ARGV + [
+    "--seq=8192", "--global_batch=4", "--mesh.dp=2", "--mesh.pp=2",
+    "--mesh.sp=2", "--microbatches=2", "--iters=3"] + PP_RING_ARGV
+MOE_PP_TRAIN_ARGV = MOE_MODEL_ARGV + [
+    "--model.n_layers=2", "--model.attn_block=512", "--model.attn_impl=auto",
+    "--seq=8192", "--global_batch=4", "--mesh.dp=1", "--mesh.pp=2",
+    "--mesh.ep=2", "--mesh.sp=2", "--microbatches=2", "--iters=3"
+] + PP_RING_ARGV + ["--optimizer.clip_norm=1.0"]
+MOE_PP_SCHEDULES = ("gpipe", "1f1b")
+PP_SP_PARITY_ARGV = PP_MODEL_ARGV + [
+    "--seq=4096", "--global_batch=4", "--mesh.dp=2", "--mesh.pp=2",
+    "--mesh.sp=2", "--microbatches=2", "--iters=2"] + PP_RING_ARGV
+MOE_PP_PARITY_SEQ = 4096
+MOE_PP_PARITY_CF = 4.0        # E / top_k: nothing drops at any cut
+
+
+def pp_axes_per_step(mcfg, cfg, pipe, schedule) -> dict:
+    """Port kernel launches a step of the pp path with sp and ep: per
+    (dp, ep) rank, microbatch and layer, ``PP_FWD_PER_UNIT`` forwards of
+    each flash call and one dq and dk/dv; GPipe's ring attention makes a
+    call a visible hop (the sp diagonal ones without offsets, the past
+    ones with), the 1F1B schedules' gathered attention one a shard (shard
+    0's without offsets, the others at q_offset i S_local with); one
+    ring_ag and, with dp > 1, one ring_rs_update a (pp, ep) group (at
+    dp = 1 the reduce-scatter is the identity and launches nothing)."""
+    sp, groups = cfg.mesh.sp, cfg.mesh.pp * cfg.mesh.ep
+    units = cfg.mesh.dp * cfg.mesh.ep * pipe.microbatches * mcfg.n_layers
+    diag, past = ((sp, sp * (sp - 1) // 2) if schedule == "gpipe"
+                  else (1, sp - 1))
+    fwd = PP_FWD_PER_UNIT[schedule]
+    return {"flash_fwd": fwd * units * diag, "flash_dq": units * diag,
+            "flash_dkv": units * diag,
+            "flash_fwd_offsets": fwd * units * past,
+            "flash_dq_offsets": units * past,
+            "flash_dkv_offsets": units * past,
+            "ring_rs_update": groups if cfg.mesh.dp > 1 else 0,
+            "ring_ag": groups}
+
+
+def pp_train_path(dev, kernels, argv, schedule, phase,
+                  time_rings=False) -> dict:
+    """``ShardedTrainer`` over pp (with dp, sp, ep and MoE layers) as
+    ``train_llama.build`` builds it from ``argv`` under ``schedule``
+    (``PP_TRAIN_ARGV``: Llama-3-8B width over dp=2 x pp=2, sequence 4096,
+    4 microbatches, or with ``PP_M8_ARGV`` 8; ``PP_SP_TRAIN_ARGV``: over
+    dp=2 x pp=2 x sp=2, sequence 8192; ``MOE_PP_TRAIN_ARGV``: Mixtral-8x7B
+    width over pp=2 x ep=2 x sp=2 at dp=1, a clip): one warm-up (with MoE
+    its routing statistics) and
+    ``--iters`` timed steps on one batch, launch counts zeroed just
+    before the first step and read after the last
+    (``pp_axes_per_step``); the replicas bit-equal within each (pp, ep)
+    group, the leaves every row holds equal across the groups (replicas
+    and masters), a stage's slices that replicate over ep equal across
+    its ep ranks, the loss falling, peak memory and ``pipeline_cost``;
+    the backward's own peak; with ``time_rings`` the ring kernels timed
+    on a stage group's gradient rows; two steps under the profiler."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.ops import fused_update, moe
+    from fpga_ai_nic_tpu_torch.parallel import pipeline
+    argv = list(argv) + PP_SCHEDULES[schedule]
+    mcfg, cfg, seq, device = train_llama.parse(argv)
+    pipe = train_llama.pipeline_flags(argv)
+    n, pp, sp, ep = cfg.mesh.dp, cfg.mesh.pp, cfg.mesh.sp, cfg.mesh.ep
+    M, G = pipe.microbatches, cfg.mesh.pp * cfg.mesh.ep
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr, state = train_llama.build(mcfg, cfg, device, True, pipe)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    batch = tr.shard_batch(next(train_llama.batches(mcfg, cfg, seq, 1)))
+    parts, ranks_fn = [], moe.moe_ranks
+
+    def keep_parts(*a):
+        y, p = ranks_fn(*a)
+        parts.append(p._replace(psum_p=p.psum_p.detach()))
+        return y, p
+    for kern in kernels.values():
+        kern.launches = 0
+    moe.moe_ranks = keep_parts
+    try:
+        state, loss = tr.step(state, batch)               # warm-up
+    finally:
+        moe.moe_ranks = ranks_fn
+    losses = [float(loss)]
+    sync(dev)
+    # the allocator's frees of its cache to satisfy a request (each one
+    # synchronizes the card): what holds a step near the card's capacity
+    retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(cfg.iters + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for mark in marks[1:]:
+        state, loss = tr.step(state, batch)
+        losses.append(loss)
+        mark.record()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    retries = torch.cuda.memory_stats(dev).get("num_alloc_retries",
+                                               0) - retries
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses = [float(v) for v in losses]
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    steps = cfg.iters + 1
+    per_step = {name: 0 for name in kernels}
+    per_step.update(pp_axes_per_step(mcfg, cfg, pipe, schedule))
+    for name, count in launches.items():
+        if count != steps * per_step[name]:
+            raise AssertionError(f"{phase} ({schedule}): {name} launched "
+                                 f"{count} times, expected {steps} x "
+                                 f"{per_step[name]}")
+    reps = state.replicas.view(G, n, -1)
+    masters = state.w_own.view(G, -1)
+    by_stage = masters.view(pp, ep, -1)
+    checks = {
+        "losses_finite": all(math.isfinite(v) for v in losses),
+        "loss_falls": losses[-1] < losses[0],
+        "replicas_equal_within_groups": bool((reps == reps[:, :1]).all()),
+        "replicated_leaves_equal_across_groups": all(
+            bool((reps[:, :, a:b] == reps[:1, :, a:b]).all())
+            and bool((masters[:, a:b] == masters[:1, a:b]).all())
+            for a, b in tr._rep_spans),
+        "stage_slices_equal_across_ep": all(
+            bool((by_stage[:, :, a:b] == by_stage[:, :1, a:b]).all())
+            for a, b in tr._ep_rep_spans),
+        "stage_slices_differ": not bool((masters[0] == masters[-1]).all()),
+        "replicas_in_model_dtype": state.replicas.dtype == mcfg.torch_dtype}
+    stats = None
+    if mcfg.moe is not None:
+        checks["router_held_apart_f32"] = (
+            mcfg.torch_dtype == torch.float32 or (
+                state.side is not None and state.side.dtype == torch.float32))
+        # every routing call of the warm-up (the recomputations route the
+        # same tokens alike)
+        stats = moe._stats_from_routing(moe.pool(parts), mcfg.moe.top_k)
+    tokens = cfg.iters * cfg.global_batch * seq
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    median = sorted(step_ms)[cfg.iters // 2]
+    cost = pipeline.cost_model(M, pp, schedule, pipe.virtual_stages)
+    emit(phase=phase, schedule=schedule, model=(
+        f"dim {mcfg.dim}, {mcfg.n_heads}/{mcfg.n_kv_heads} heads, ffn "
+        f"{mcfg.ffn_dim}, vocab {mcfg.vocab}, {mcfg.moe_experts} experts "
+        f"(capacity factor {mcfg.moe_capacity_factor}), {mcfg.dtype}, "
+        f"{mcfg.n_layers} layers, attn_impl {mcfg.attn_impl}, remat, random "
+        "weights"), params=llama.num_params(mcfg),
+         active_params=llama.active_params(mcfg), seq=seq,
+         global_batch=cfg.global_batch, dp=n, pp=pp, sp=sp, ep=ep,
+         microbatches=M, virtual_stages=pipe.virtual_stages,
+         held_at_start_gb=held_gb, tokens_per_step=cfg.global_batch * seq,
+         collective=str(cfg.collective), optimizer=str(cfg.optimizer),
+         weight_init_s=init_s, steps=cfg.iters, wall_s=wall,
+         ms_per_step=1e3 * wall / cfg.iters, step_ms=step_ms,
+         median_step_ms=median, tokens_per_sec=tokens / wall, losses=losses,
+         peak_mem_gb=peak, padded_len_per_row=int(state.replicas.shape[1]),
+         rows=int(state.replicas.shape[0]), alloc_retries_timed=retries,
+         launches=launches, launches_per_step=per_step, pipeline_cost=cost,
+         expert_stats_warmup=None if stats is None else {
+             k: v.tolist() for k, v in stats.items()}, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"{phase} ({schedule}): {checks}")
+    del parts, reps, masters, by_stage
+    torch.cuda.reset_peak_memory_stats(dev)
+    state_gb = torch.cuda.memory_allocated(dev) / 1e9
+    flat_g, _ = tr.grads(state, batch)
+    sync(dev)
+    bwd_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    flat_gb = flat_g.numel() * 4 / 1e9
+    emit(phase=phase + "_backward_peak", schedule=schedule, held_gb=state_gb,
+         backward_peak_gb=bwd_gb, flat_grad_gb=flat_gb,
+         activations_gb=bwd_gb - state_gb - flat_gb)
+    row_len = int(state.replicas.shape[1])
+    out = {"launches": None, "steps": steps, "row_len": row_len}
+    if time_rings:
+        g, w = flat_g[:n], state.w_own[:n]
+        C = row_len // n
+
+        def rs():
+            return fused_update.reduce_scatter(g, cfg.collective)
+
+        def ag():
+            return fused_update.all_gather_flat(w, cfg.collective)
+        rs_b, ag_b = ring_bytes(n, row_len, C)
+        out["ring"] = {
+            "shape": (f"n={n}, L={row_len} (one stage group's rows: "
+                      f"{mcfg.n_layers // pp} layers and the embedding, "
+                      "final norm and head), no optimizer"),
+            "rs_device_ms": device_ms(rs, 5, ("ring_rs_kernel",)),
+            "rs_bound": bound(rs_b, 11 * n * row_len),
+            "ag_device_ms": device_ms(ag, 5, ("ring_ag_kernel",)),
+            "ag_bound": bound(ag_b, 10 * n * C)}
+        emit(phase="llama_pp_ring_times", **out["ring"])
+        del g, w
+    del flat_g
+    held = [state]
+    del state
+
+    def train_step():
+        held[0], _ = tr.step(held[0], batch)
+
+    prof = profile_run(phase.replace("path", "profile"), train_step, 2,
+                       groups=SP_GROUPS,
+                       op_groups=MOE_OP_GROUPS if mcfg.moe else None,
+                       schedule=schedule)
+    idle = 1 - prof["device_ms"] / prof["wall_ms"]
+    summary = dict(
+        schedule=schedule, median_step_ms=median,
+        tokens_per_sec=tokens / wall, peak_mem_gb=peak,
+        backward_peak_gb=bwd_gb, idle_share=idle,
+        alloc_retries_timed=retries,
+        device_ms_by_group={k: v for k, v in prof.items()
+                            if k not in ("wall_ms", "kernels_traced")},
+        launches_per_step={k: v for k, v in per_step.items() if v},
+        losses=losses, pipeline_cost=cost)
+    if stats is not None:
+        summary["drop_frac"] = float(stats["drop_frac"])
+    emit(phase=phase + "_summary", **summary)
+    del tr, held, batch
+    torch.cuda.empty_cache()
+    return {**out, **summary, "launches": launches}
+
+
+class token_pinned_routing:
+    """Within the block, ``ops.moe._route`` routes each token as a
+    reference run routed it, whatever the calls that cut the tokens (a
+    pipeline schedule's microbatches and units, or one call a layer):
+    with ``ref`` None the run is recorded, each call's routed activations
+    and experts under its layer (told by the router's weights, the same
+    in every run from the same weights); otherwise each token takes the
+    experts of the reference token of the same layer nearest to its
+    activation (the same token: ``max_rel``, the largest such distance
+    over the token's norm, stays small), with ``pin`` the capacity
+    assignment redone and the gates from this run's probabilities at
+    those experts, without it only the flips counted (``flips`` of
+    ``assigned`` (token, k) assignments differ from the reference's)."""
+
+    def __init__(self, moe, ref=None, pin=True):
+        self.moe, self.ref, self.pin = moe, ref, pin
+        self.table, self.cat = {}, {}
+        self.flips = self.assigned = 0
+        self.max_rel = 0.0
+        self.keep = []
+
+    @staticmethod
+    def _key(wr):
+        w = wr.reshape(-1, *wr.shape[-2:])[0]
+        return tuple(w[:2].reshape(-1).tolist())
+
+    def _reference(self, key):
+        import torch
+        if key not in self.cat:
+            xs, es = zip(*self.table.pop(key))
+            x = torch.cat(xs)
+            self.cat[key] = (x, (x * x).sum(1), torch.cat(es))
+        return self.cat[key]
+
+    def _match(self, key, xf):
+        import torch
+        rx, rn, re = self.ref._reference(key)
+        q = xf.reshape(-1, xf.shape[-1]).float()
+        idx, best = [], []
+        for c in q.split(2048):
+            d = (c * c).sum(1, keepdim=True) - 2 * c @ rx.T + rn
+            v, i = d.min(1)
+            idx.append(i)
+            best.append(v.clamp_min(0).sqrt() / c.norm(dim=1))
+        self.max_rel = max(self.max_rel, float(torch.cat(best).max()))
+        return re[torch.cat(idx)]
+
+    def __enter__(self):
+        moe, orig = self.moe, self.moe._route
+        self.orig = orig
+
+        def route(wr, xf, cfg, C):
+            r = orig(wr, xf, cfg, C)
+            key = self._key(wr)
+            n, T = xf.shape[:2]
+            k = cfg.top_k
+            if self.ref is None:
+                self.table.setdefault(key, []).append(
+                    (xf.reshape(n * T, -1).detach().float(),
+                     r.e_flat.reshape(n * T, k)))
+            else:
+                e = self._match(key, xf.detach())
+                self.flips += int((e != r.e_flat.reshape(n * T, k)).sum())
+                self.assigned += e.numel()
+                if self.pin:
+                    e_flat = e.reshape(r.e_flat.shape)
+                    g = r.probs.gather(-1, e_flat.reshape(r.gates.shape))
+                    r = moe.Routing(g / g.sum(-1, keepdim=True), e_flat,
+                                    *moe.assign(e_flat, cfg.num_experts, C),
+                                    r.probs)
+            self.keep.append(r.keep.reshape(-1))
+            return r
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.orig
+
+    def drop_frac(self) -> float:
+        import torch
+        return 1.0 - float(torch.cat(self.keep).float().mean())
+
+
+def moe_pp_train_parity(dev) -> None:
+    """The MoE pipeline's gradients at Mixtral-8x7B width, 2 layers,
+    sequence ``MOE_PP_PARITY_SEQ``, batch 4 over dp=1 x pp=2 x ep=2 x
+    sp=2, 2 microbatches, remat, capacity factor ``MOE_PP_PARITY_CF``
+    (nothing drops), from the same seeded weights and batch, as the
+    whole tree's gradient: GPipe on the kernels (ring attention) is the
+    reference; 1F1B (gathered attention), GPipe on the plain attention
+    route and the sp x ep path at pp=1 (``llama.dp_loss_fn``) are held
+    against it with their expert choices pinned to the reference's, a
+    token at a time (``token_pinned_routing``: the schedules cut the
+    tokens into other calls), within the Llama parity limits; the
+    unpinned errors and flip shares beside them; GPipe with the ep
+    exchange's destinations swapped (the fault control) must exceed the
+    limit.  The reference gradient waits in host memory."""
+    import dataclasses
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.ops import fused_update, moe
+    from fpga_ai_nic_tpu_torch.parallel import pipeline
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.sharded import split_ep
+    argv = [a for a in MOE_PP_TRAIN_ARGV if not a.startswith("--seq=")] + [
+        f"--seq={MOE_PP_PARITY_SEQ}",
+        f"--model.moe_capacity_factor={MOE_PP_PARITY_CF}"]
+    mcfg, cfg, seq, _ = train_llama.parse(argv)
+    n_dp, pp, sp, ep = cfg.mesh.dp, cfg.mesh.pp, cfg.mesh.sp, cfg.mesh.ep
+    M = train_llama.pipeline_flags(argv).microbatches
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    stacked = llama.stack_params(llama.init(gen, mcfg, dev))
+    leaves = [t.requires_grad_() for t in fused_update.tree_leaves(stacked)]
+    paths = [p for p, _ in fused_update._leaves(stacked)]
+    grid = {"pp": pp, "ep": ep}
+    specs = llama.stacked_param_specs(mcfg, ep_axis="ep")
+    spec_leaves = fused_update.tree_leaves(specs)
+    whole = tuple(t.to(dev) for t in next(train_llama.batches(
+        mcfg, cfg, seq, 1)))
+    batch = VirtualRanks(n_dp, dev, sp, ep, pp).shard_batch(whole)
+
+    def rows_to_whole(rows):
+        """1F1B's row gradients (the leaves every row holds already summed
+        over the stages) as the whole tree's."""
+        acc = [torch.zeros(t.shape, dtype=torch.float32, device=dev)
+               for t in leaves]
+        views = split_ep(fused_update.tree_from_leaves(tuple(paths), acc),
+                         specs, grid)
+        for i, (v, g) in enumerate(zip(views, rows)):
+            for vv, gg, spec in zip(fused_update.tree_leaves(v),
+                                    fused_update.tree_leaves(g),
+                                    spec_leaves):
+                if spec is not None or i < ep:
+                    vv.add_(gg)
+        return acc
+
+    def grads(kind, impl="pallas", swap=False):
+        c = dataclasses.replace(mcfg, attn_impl=impl)
+        ranks_fn = llama.moe_ops.moe_ranks
+        if swap:
+            llama.moe_ops.moe_ranks = (
+                lambda wr, shards, x, mc: ranks_fn(wr, list(shards)[::-1],
+                                                   x, mc))
+        try:
+            if kind == "pp1":
+                tree = dict(stacked, layers=pipeline.unstack_layers(
+                    stacked["layers"]))
+                trees = split_ep(tree, llama.param_specs(c), ep)
+                losses = llama.dp_loss_fn(c, n_dp, ep, n_sp=sp, remat=True)(
+                    [trees[e] for e in range(ep) for _ in range(n_dp)],
+                    batch)
+                return float(losses.detach().mean()), torch.autograd.grad(
+                    losses.sum(), leaves)
+            rows = split_ep(stacked, specs, grid)
+            stages = [rows[s * ep:(s + 1) * ep] for s in range(pp)]
+            if kind == "gpipe":
+                losses = llama.pp_dp_loss_fn(
+                    c, n_dp, ep, n_sp=sp, num_microbatches=M, remat=True)(
+                    stages, batch)
+                return float(losses.detach().mean()), torch.autograd.grad(
+                    losses.sum(), leaves)
+            with torch.no_grad():
+                loss, g = llama.pp_dp_loss_and_grads_fn(
+                    c, n_dp, ep, n_sp=sp, num_microbatches=M, remat=True)(
+                    stages, batch)
+            return float(loss), rows_to_whole([t for st in g for t in st])
+        finally:
+            llama.moe_ops.moe_ranks = ranks_fn
+
+    def dist(ga, gb):
+        return math.sqrt(sum(_diff(a.float(), b)[0] for a, b in zip(ga, gb)))
+
+    ref = token_pinned_routing(moe)
+    with ref:
+        l_ref, g_ref = grads("gpipe")
+    g_ref = [g.float().cpu() for g in g_ref]
+    norm = math.sqrt(sum(float(g.square().sum(dtype=torch.float64))
+                         for g in g_ref))
+    torch.cuda.empty_cache()
+    res, unpinned = {}, {}
+    for name, args in (("1f1b", ("1f1b",)),
+                       ("gpipe_plain_attention", ("gpipe", "xla")),
+                       ("pp1_sp_ep", ("pp1",)),
+                       ("control_exchange_swapped",
+                        ("gpipe", "pallas", True))):
+        for pinned in (True, False):
+            if not pinned and name.startswith("control"):
+                continue
+            pin = token_pinned_routing(moe, ref, pin=pinned)
+            with pin:
+                l_o, g_o = grads(*args)
+            row = {"loss": l_o, "loss_diff": abs(l_o - l_ref),
+                   "grad_rel_err": dist(g_o, g_ref) / norm,
+                   "routing_flip_share": pin.flips / max(pin.assigned, 1),
+                   "match_max_rel": pin.max_rel,
+                   "drop_frac": pin.drop_frac()}
+            (res if pinned else unpinned)[name] = row
+            del g_o
+            torch.cuda.empty_cache()
+    ctrl = res.pop("control_exchange_swapped")
+    checks = {"finite": all(math.isfinite(v) for v in (l_ref, norm)),
+              "nothing_dropped": ref.drop_frac() == 0.0 and all(
+                  r["drop_frac"] == 0.0 for r in res.values()),
+              **{f"{k}_grad_within_tol": r["grad_rel_err"]
+                 <= PARITY_GRAD_REL_TOL for k, r in res.items()},
+              **{f"{k}_loss_within_tol": r["loss_diff"] <= PARITY_LOSS_TOL
+                 for k, r in res.items()},
+              "control_above_tol": ctrl["grad_rel_err"] > PARITY_GRAD_REL_TOL}
+    emit(phase="moe_pp_train_parity", argv=argv,
+         reference="gpipe, flash kernels (ring attention)",
+         loss_reference=l_ref, grad_norm=norm, against=res,
+         unpinned=unpinned, control=ctrl, grad_tol=PARITY_GRAD_REL_TOL,
+         loss_tol=PARITY_LOSS_TOL, capacity_factor=MOE_PP_PARITY_CF,
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         checks=checks)
+    del stacked, leaves, g_ref
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"moe pp training parity failed: {checks}")
 
 
 def main() -> int:
@@ -4703,10 +5032,12 @@ def main() -> int:
     moe_sp_train_parity(dev, moe_sp_run)
 
     # -- 22-23. the pipeline over dp x pp: three schedules, 1F1B at M=8, parity
-    pp_runs = {sched: llama_pp_train_path(dev, sp_kernels, sched)
+    pp_runs = {sched: pp_train_path(dev, sp_kernels, PP_TRAIN_ARGV, sched,
+                                    "llama_pp_train_path",
+                                    time_rings=sched == "gpipe")
                for sched in PP_SCHEDULES}
-    pp_m8 = llama_pp_train_path(dev, sp_kernels, "1f1b", PP_M8_ARGV,
-                                "llama_pp_1f1b_m8_path")
+    pp_m8 = pp_train_path(dev, sp_kernels, PP_TRAIN_ARGV + PP_M8_ARGV, "1f1b",
+                          "llama_pp_1f1b_m8_path")
     emit(phase="llama_pp_memory", peak_mem_gb={
         **{f"{k}_m4": r["peak_mem_gb"] for k, r in pp_runs.items()},
         "1f1b_m8": pp_m8["peak_mem_gb"]}, backward_peak_gb={
@@ -4719,7 +5050,18 @@ def main() -> int:
                          "1f1b_m8": pp_m8["median_step_ms"]})
     llama_pp_train_parity(dev)
 
-    # -- 24. the kernels line and the result ----------------------------------
+    # -- 24-27. the pipeline with sp, ep and MoE layers: both paths, parity --
+    pp_sp_runs = {sched: pp_train_path(dev, sp_kernels, PP_SP_TRAIN_ARGV,
+                                       sched, "llama_pp_sp_train_path")
+                  for sched in PP_SCHEDULES}
+    moe_pp_runs = {sched: pp_train_path(dev, sp_kernels, MOE_PP_TRAIN_ARGV,
+                                        sched, "moe_pp_train_path")
+                   for sched in MOE_PP_SCHEDULES}
+    llama_pp_train_parity(dev, PP_SP_PARITY_ARGV, "llama_pp_sp_train_parity",
+                          "pp1_dp2_sp2")
+    moe_pp_train_parity(dev)
+
+    # -- 28. the kernels line and the result ----------------------------------
     meta = {
         "bfp_encode": (PORT + "/csrc/bfp_codec.cu",
                        REF + "/ops/bfp_pallas.py:55"),
@@ -4845,6 +5187,34 @@ def main() -> int:
     also = {"ring_rs_update": REF + "/ops/ring_pallas.py:397",
             "ring_ag": REF + "/ops/ring_pallas.py:1144"}
     out = []
+    pp_axes_from = {
+        "pp_sp": (f"llama_pp_sp_train_path ({pp_sp_runs['gpipe']['steps']} "
+                  "steps a schedule, Llama-3-8B width, dp=2 x pp=2 x sp=2, "
+                  "2 microbatches, remat; GPipe on the ring attention, the "
+                  "1F1B schedules on the gathered attention)"),
+        "moe_pp": (f"moe_pp_train_path ({moe_pp_runs['gpipe']['steps']} "
+                   "steps a schedule, Mixtral-8x7B width, 2 layers, dp=1 x "
+                   "pp=2 x ep=2 x sp=2, 2 microbatches, remat)")}
+    for name in ("ring_rs_update", "ring_ag"):
+        results[name]["extra"].update(
+            pp_sp_launches={k: r["launches"][name]
+                            for k, r in pp_sp_runs.items()},
+            pp_sp_launches_from=pp_axes_from["pp_sp"] + ", one a step for "
+            "each of the 2 (pp, ep) groups",
+            moe_pp_launches={k: r["launches"][name]
+                             for k, r in moe_pp_runs.items()},
+            moe_pp_launches_from=pp_axes_from["moe_pp"] + (
+                ": at dp=1 the reduce-scatter is the identity" if name ==
+                "ring_rs_update" else ", one a step for each of the 4 (pp, "
+                "ep) groups, the BFP roundtrip at n=1"))
+    for name in list(flash_kernels) + list(OFFSET_KERNELS):
+        results[name].setdefault("extra", {}).update(
+            pp_sp_path_launches={k: r["launches"][name]
+                                 for k, r in pp_sp_runs.items()},
+            pp_sp_path_launches_from=pp_axes_from["pp_sp"],
+            moe_pp_path_launches={k: r["launches"][name]
+                                  for k, r in moe_pp_runs.items()},
+            moe_pp_path_launches_from=pp_axes_from["moe_pp"])
     for name, (src, repl) in meta.items():
         r = results[name]
         bound_ms, bound_by = r["bound"]

@@ -43,6 +43,15 @@ device routes its own tokens (capacity over ``B S_local``).
 once (``joint_ranks``): the aux is taken once over the global
 statistics, as JAX's is under ``dp_axis``, which a per-dp-rank loss
 cannot do.
+
+The pipeline (``stack_params``, ``stacked_param_specs``, ``apply_pp``,
+``loss_fn_pp``, ``loss_and_grads_pp_1f1b``; ``parallel.pipeline``) takes
+the same layouts with every axis: a stage's ranks run its layer slice
+together, the sp shards on the ring attention under GPipe and on the
+gathered one in the 1F1B schedules (JAX's choice), and a MoE stage
+routes each microbatch of every rank at once.  ``pp_dp_loss_fn`` and
+``pp_dp_loss_and_grads_fn`` are the trainers' MoE pipeline losses over
+all dp x ep ranks.
 """
 
 from __future__ import annotations
@@ -58,9 +67,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..ops import moe as moe_ops
-from ..parallel import pipeline
+from ..ops.fused_update import tree_leaves, tree_map
 from ..ops.ring_attention import (flash_attention_remat, full_attention,
-                                  pallas_route, ring_attention)
+                                  gathered_attention, pallas_route,
+                                  ring_attention)
+from ..parallel import pipeline
 
 Params = Dict[str, Any]
 
@@ -291,10 +302,13 @@ def _positions(S: int, sp_axis: Optional[str] = None,
 
 def _attention(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
                cfg: LlamaConfig, n_heads: int, n_kv: int,
-               sp_axis: Optional[str] = None) -> torch.Tensor:
+               sp_axis: Optional[str] = None,
+               sp_attn: str = "ring") -> torch.Tensor:
     """The attention half of a decoder layer with its residual: pre-norm
     attention, ``x + att @ wo``.  x: [B, S, D], or [n_sp, B, S, D] with
-    ``sp_axis``."""
+    ``sp_axis``, the shards attending through ``ring_attention``
+    (``sp_attn="ring"``) or ``gathered_attention`` (``"gather"``, JAX's
+    form inside the 1F1B schedules)."""
     lead, S = x.shape[:-2], x.shape[-2]
     Hd = cfg.head_dim
     h = _rmsnorm(x, lyr["attn_norm"], cfg.norm_eps)
@@ -309,12 +323,17 @@ def _attention(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
     # that can take the kernels, by the route the ops themselves take.
     kernel_branch = sp_axis is not None or cfg.attn_block is not None
     q_shard = q if sp_axis is None else q[0]
+    gather = sp_axis is not None and sp_attn == "gather"
+    kv_len = S * x.shape[0] if gather else S
     if n_kv != n_heads and not (kernel_branch
                                 and pallas_route(cfg.attn_impl, q_shard,
-                                                 kv_seq_len=S)):
+                                                 kv_seq_len=kv_len)):
         k = k.repeat_interleave(n_heads // n_kv, dim=-3)
         v = v.repeat_interleave(n_heads // n_kv, dim=-3)
-    if sp_axis is not None:
+    if gather:
+        att = gathered_attention(q, k, v, sp_axis, causal=True,
+                                 impl=cfg.attn_impl)
+    elif sp_axis is not None:
         att = ring_attention(q, k, v, sp_axis, causal=True,
                              impl=cfg.attn_impl)
     elif cfg.attn_block is not None:
@@ -376,18 +395,18 @@ def _moe_group(lyrs: Sequence[Params], hs: Sequence[torch.Tensor],
 
 def _layer_groups(lyrs: Sequence[Sequence[Params]], sizes: Sequence[int],
                   pos: torch.Tensor, cfg: LlamaConfig,
-                  sp_axis: Optional[str], *flat: torch.Tensor
+                  sp_axis: Optional[str], sp_attn: str, *flat: torch.Tensor
                   ) -> Tuple[List[torch.Tensor], Optional[moe_ops.AuxParts]]:
     """One decoder layer over every group's ranks, ``flat`` their
     activations in group order (``sizes`` ranks a group): attention a
-    rank at a time on its own tree (its sp ring with ``sp_axis``), the
-    FFN dense a rank or MoE over the group.  Returns the new activations
-    in the same order and the MoE statistics pooled over the groups
-    (None when dense)."""
+    rank at a time on its own tree (its sp shards with ``sp_axis``, by
+    ``sp_attn``), the FFN dense a rank or MoE over the group.  Returns
+    the new activations in the same order and the MoE statistics pooled
+    over the groups (None when dense)."""
     n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
     out, parts, at = [], [], 0
     for g_lyrs, k in zip(lyrs, sizes):
-        xg = [_attention(lyr, x, pos, cfg, n_heads, n_kv, sp_axis)
+        xg = [_attention(lyr, x, pos, cfg, n_heads, n_kv, sp_axis, sp_attn)
               for lyr, x in zip(g_lyrs, flat[at:at + k])]
         at += k
         hs = [_rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
@@ -423,7 +442,7 @@ def _forward_groups(groups: Sequence[Sequence[Params]],
     layer_parts = []
     for i in range(cfg.n_layers):
         args = ([[t["layers"][i] for t in trees] for trees in groups],
-                sizes, pos, cfg, sp_axis, *xs)
+                sizes, pos, cfg, sp_axis, "ring", *xs)
         xs, parts = (checkpoint(_layer_groups, *args, use_reentrant=False)
                      if remat else _layer_groups(*args))
         if parts is not None:
@@ -594,6 +613,17 @@ def dp_loss_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1, *,
 
 
 # -- the pipeline-parallel path ---------------------------------------------
+#
+# The pp losses run over a set of batch ranks at once: ``stages[s]`` the
+# ranks' trees of stage s (a rank's row of the trainer's ``P((pp, ep,
+# dp))`` layout) in group order, ``sizes`` the ranks of each MoE
+# exchange group (a dp rank's ep ranks).  The ranks' activations go batch
+# first into one ``[b, R, ...]`` tensor (``_batch_first``), so the
+# schedules cut every rank's batch into the same microbatches: microbatch
+# m is the m-th of every rank, and a stage's MoE layers route it over all
+# the ranks at once (the statistics pooled per microbatch and layer,
+# JAX's psum over the batch axes).  A dense model's trainer runs one dp
+# rank at a time (R = 1); a MoE model's runs every rank in one graph.
 
 
 def stack_params(params: Params) -> Params:
@@ -604,29 +634,42 @@ def stack_params(params: Params) -> Params:
     return out
 
 
-def stacked_param_specs(cfg: LlamaConfig) -> Params:
-    """JAX's ``stacked_param_specs(cfg, tp_axis=None)`` reduced to the pp
-    axis: ``"pp"`` at the stacked layer leaves (split on their leading
-    axis, one slice a stage), None at ``tok_emb``, ``final_norm`` and
-    ``lm_head`` (every stage holds them; ``parallel.sharded``)."""
-    _check_pp(cfg)
+def stacked_param_specs(cfg: LlamaConfig,
+                        ep_axis: Optional[str] = None) -> Params:
+    """JAX's ``stacked_param_specs(cfg, tp_axis=None, ep_axis=...)``:
+    ``"pp"`` at the stacked layer leaves (split on their layer axis, one
+    slice a stage); with ``ep_axis``, ``"pp,ep"`` at a MoE layer's
+    experts (JAX's ``P("pp", "ep")``: the layer axis over pp, then the
+    expert axis over ep) and ``"pp"`` at its router, which replicates
+    over ep; None at ``tok_emb``, ``final_norm`` and ``lm_head`` (every
+    stage holds them; ``parallel.sharded.split_ep``)."""
+    def one(spec):
+        return "pp," + spec if spec is not None and ep_axis is not None \
+            else "pp"
+    layer = param_specs(cfg)["layers"][0]
     return {"tok_emb": None, "final_norm": None, "lm_head": None,
-            "layers": {k: "pp" for k in param_specs(cfg)["layers"][0]}}
+            "layers": {k: ({kk: one(vv) for kk, vv in v.items()}
+                           if isinstance(v, dict) else one(v))
+                       for k, v in layer.items()}}
 
 
-def _check_pp(cfg: LlamaConfig, tp_axis: Optional[str] = None,
-              sp_axis: Optional[str] = None, dp_axis: Optional[str] = None,
-              ep_axis: Optional[str] = None) -> None:
+def _check_pp(tp_axis: Optional[str] = None,
+              dp_axis: Optional[str] = None) -> None:
     if tp_axis is not None:
         raise NotImplementedError("pp with tp is not ported: ROADMAP A.5")
-    if sp_axis is not None or ep_axis is not None or cfg.moe is not None:
-        raise NotImplementedError("pp with sp, ep or MoE layers is not "
-                                  "ported: ROADMAP A.6 item 4b")
     if dp_axis is not None:
         raise NotImplementedError(
             "dp_axis is a JAX mesh axis; the port's dp ranks carry the "
             "global label count in the batch (models.bert."
             "with_global_count) and pass dp_size=n")
+
+
+def _check_moe_dp(cfg: LlamaConfig, dp_size: Optional[int]) -> None:
+    if cfg.moe is not None and dp_size is not None:
+        raise NotImplementedError(
+            "a MoE model's dp ranks share the aux of their pooled routing "
+            "statistics, which a loss of one dp rank cannot take: train "
+            "through llama.pp_dp_loss_fn / pp_dp_loss_and_grads_fn")
 
 
 def _pp_weight(batch, dp_size: Optional[int]
@@ -648,42 +691,136 @@ def _pp_weight(batch, dp_size: Optional[int]
         torch.float32)
 
 
-def _pp_block(cfg: LlamaConfig, S: int, device) -> Callable:
-    pos = _positions(S, None, device)
+def _pp_ranks(params: Sequence[Any], tokens: torch.Tensor,
+              labels: torch.Tensor, sp_axis: Optional[str],
+              ep_axis: Optional[str]):
+    """One dp rank's call as the ranks the pp cores take: ``(stages,
+    tokens, labels, sizes)``, one rank, or with ``ep_axis`` its ep ranks
+    (``params[s]`` their trees of stage s, tokens ``[n_ep, ...]``) as one
+    group."""
+    dims = 2 + (sp_axis is not None) + (ep_axis is not None)
+    if tokens.dim() != dims:
+        raise ValueError(
+            f"tokens must be [B, S] ([n_sp, B, S_local] with sp_axis; "
+            f"[n_ep, ...] ahead with ep_axis), got {tuple(tokens.shape)}")
+    if ep_axis is None:
+        return [[p] for p in params], [tokens], [labels], [1]
+    if any(isinstance(p, dict) or len(p) != tokens.shape[0]
+           for p in params):
+        raise ValueError("with ep_axis, params[s] is the list of the ep "
+                         "ranks' trees of stage s")
+    return ([list(p) for p in params], list(tokens), list(labels),
+            [tokens.shape[0]])
 
-    def block(lyr: Params, h: torch.Tensor) -> torch.Tensor:
-        return _block(lyr, h, pos, cfg, cfg.n_heads, cfg.n_kv_heads)[0]
-    return block
+
+def _batch_first(xs: Sequence[torch.Tensor], sp: bool) -> torch.Tensor:
+    """The ranks' ``[b, ...]`` tensors (``[n_sp, b, ...]`` with sp)
+    stacked batch first: ``[b, R, ...]`` (``[b, R, n_sp, ...]``)."""
+    return torch.stack([x.transpose(0, 1) if sp else x for x in xs], 1)
 
 
-def _pp_body(params: Sequence[Params], tokens: torch.Tensor,
-             cfg: LlamaConfig, num_microbatches: int,
-             remat: bool) -> torch.Tensor:
-    """Stage 0's embedding, then GPipe over the stages' layer slices:
-    the last stage's output ``[B, S, D]``."""
-    block = _pp_block(cfg, tokens.shape[-1], tokens.device)
-    x = params[0]["tok_emb"][tokens.long()]
-    return pipeline.pipeline_apply(
-        lambda p, h: pipeline.scan_layers(block, p["layers"], h,
-                                          remat=remat),
-        params, x, num_microbatches)
+def _rank_view(X: torch.Tensor, r: int, sp: bool) -> torch.Tensor:
+    """Rank r's slice of a ``_batch_first`` stack in the model's layout."""
+    x = X[:, r]
+    return x.transpose(0, 1) if sp else x
 
 
-def apply_pp(params: Sequence[Params], tokens: torch.Tensor,
+def _pp_stage(cfg: LlamaConfig, sizes: Sequence[int], pos: torch.Tensor,
+              sp_axis: Optional[str], sp_attn: str, remat: bool) -> Callable:
+    """``stage(layers, X) -> (X, aux)``: a stage's layer slice over the
+    ranks (``layers[r]`` rank r's stacked layers, group order; X ``[b,
+    R, ...]``),
+    aux its MoE layers' load-balance terms summed (None when dense).
+    ``remat``: each layer, all ranks at once, recomputed in the
+    backward."""
+    R, sp = sum(sizes), sp_axis is not None
+
+    def stage(layers, X):
+        per_rank = [pipeline.unstack_layers(layers[r]) for r in range(R)]
+        xs = [_rank_view(X, r, sp) for r in range(R)]
+        aux = None
+        for i in range(len(per_rank[0])):
+            lyrs, at = [], 0
+            for k in sizes:
+                lyrs.append([per_rank[r][i] for r in range(at, at + k)])
+                at += k
+            xs, parts = pipeline._maybe_remat(
+                _layer_groups, remat, lyrs, sizes, pos, cfg, sp_axis,
+                sp_attn, *xs)
+            if parts is not None:
+                a = moe_ops.aux_loss(parts, cfg.moe)
+                aux = a if aux is None else aux + a
+        return _batch_first(xs, sp), aux
+    return stage
+
+
+def _pp_pos(tokens: Sequence[torch.Tensor],
+            sp_axis: Optional[str]) -> torch.Tensor:
+    t = tokens[0]
+    return _positions(t.shape[-1], sp_axis, t.device,
+                      n_sp=t.shape[0] if sp_axis is not None else 1)
+
+
+def _pp_forward(stages, tokens, cfg: LlamaConfig, M: int,
+                sizes: Sequence[int], sp_axis: Optional[str], sp_attn: str,
+                remat: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage 0's embedding, then GPipe over the stages: the last stage's
+    output ``[b, R, ...]`` and the aux (summed over the stages, a mean
+    over the microbatches; 0 when dense)."""
+    sp = sp_axis is not None
+    X = _batch_first([t["tok_emb"][tok.long()]
+                      for t, tok in zip(stages[0], tokens)], sp)
+    return pipeline.pipeline_apply_aux(
+        _pp_stage(cfg, sizes, _pp_pos(tokens, sp_axis), sp_axis, sp_attn,
+                  remat), [[t["layers"] for t in st] for st in stages], X, M)
+
+
+def _pp_gpipe(stages, tokens, labels, cfg: LlamaConfig, M: int,
+              sizes: Sequence[int], sp_axis: Optional[str], sp_attn: str,
+              remat: bool):
+    """GPipe over the ranks: ``(NLL sums [R], valid counts [R], aux)``,
+    the head a microbatch at a time on the last stage (at most M
+    microbatches' log-softmax held for the backward)."""
+    sp = sp_axis is not None
+    X, aux = _pp_forward(stages, tokens, cfg, M, sizes, sp_axis, sp_attn,
+                         remat)
+    mb = X.shape[0] // M
+    sums = []
+    for r, (hp, lab) in enumerate(zip(stages[-1], labels)):
+        lab = lab.transpose(0, 1) if sp else lab
+        sums.append(sum(_head_nll_sum(hp, h, lb, cfg) for h, lb in
+                        zip(X[:, r].split(mb), lab.split(mb))))
+    counts = torch.stack([(lab >= 0).sum() for lab in labels])
+    return torch.stack(sums), counts, aux
+
+
+def apply_pp(params: Sequence[Any], tokens: torch.Tensor,
              cfg: LlamaConfig, *, num_microbatches: int,
              tp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
-             ep_axis: Optional[str] = None,
-             remat: bool = False) -> torch.Tensor:
+             ep_axis: Optional[str] = None, sp_attn: str = "ring",
+             with_aux: bool = False, remat: bool = False):
     """The pipelined forward: ``params`` the pp stages' trees (stage s's
     stacked layer slice and its copies of ``tok_emb``, ``final_norm``
     and ``lm_head``; ``parallel.sharded.split_ep`` of ``stack_params``
     over ``stacked_param_specs``), tokens [B, S] -> logits [B, S, vocab]:
     stage 0's embedding, GPipe over ``num_microbatches``, the last
-    stage's head.  ``remat``: each layer recomputed in the backward."""
-    _check_pp(cfg, tp_axis, sp_axis, None, ep_axis)
-    x = _pp_body(params, tokens, cfg, num_microbatches, remat)
-    x = _rmsnorm(x, params[-1]["final_norm"], cfg.norm_eps)
-    return x @ params[-1]["lm_head"]
+    stage's head.  ``apply``'s layouts: with ``sp_axis`` tokens [n_sp, B,
+    S_local], the shards attending by ``sp_attn``; with ``ep_axis``
+    ``params[s]`` the ep ranks' trees of stage s and tokens [n_ep, ...].
+    ``with_aux``: ``(logits, aux)``, the MoE term (summed over the
+    stages, a mean over the microbatches).  ``remat``: each layer
+    recomputed in the backward."""
+    _check_pp(tp_axis)
+    stages, toks, _, sizes = _pp_ranks(params, tokens, tokens, sp_axis,
+                                       ep_axis)
+    sp = sp_axis is not None
+    X, aux = _pp_forward(stages, toks, cfg, num_microbatches, sizes,
+                         sp_axis, sp_attn, remat)
+    logits = torch.stack([
+        _rmsnorm(_rank_view(X, r, sp), hp["final_norm"], cfg.norm_eps)
+        @ hp["lm_head"] for r, hp in enumerate(stages[-1])])
+    logits = logits if ep_axis is not None else logits[0]
+    return (logits, aux) if with_aux else logits
 
 
 def _head_nll_sum(hp: Params, h: torch.Tensor, labels: torch.Tensor,
@@ -693,31 +830,167 @@ def _head_nll_sum(hp: Params, h: torch.Tensor, labels: torch.Tensor,
     return _masked_nll(logits, labels)[0].sum()
 
 
-def loss_fn_pp(params: Sequence[Params], batch, cfg: LlamaConfig, *,
+def loss_fn_pp(params: Sequence[Any], batch, cfg: LlamaConfig, *,
                num_microbatches: int, dp_size: Optional[int] = None,
                tp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
                dp_axis: Optional[str] = None, ep_axis: Optional[str] = None,
-               remat: bool = False) -> torch.Tensor:
-    """Next-token cross-entropy through GPipe (``apply_pp``'s forward) for
-    one dp rank: ``batch = (tokens, labels)`` [B, S], -100 labels
-    ignored; the NLL summed over the batch (the head a microbatch at a
+               sp_attn: str = "ring", remat: bool = False) -> torch.Tensor:
+    """Next-token cross-entropy plus the MoE term through GPipe
+    (``apply_pp``'s forward) for one dp rank: ``batch = (tokens,
+    labels)`` in ``apply_pp``'s layouts, -100 labels ignored; the NLL
+    summed over every token of the call (the head a microbatch at a
     time: at most ``num_microbatches`` microbatches' log-softmax held for
-    the backward) over the valid count.  With ``batch = (tokens, labels,
-    count)`` (a rank's shard of ``models.bert.with_global_count``) and
-    ``dp_size=n``: ``n * local_sum / count``, JAX's ``dp_axis``
-    weighting.  ``remat``: each layer recomputed in the backward, as
-    JAX's driver runs its pp losses."""
-    _check_pp(cfg, tp_axis, sp_axis, dp_axis, ep_axis)
-    tokens, labels = batch[0], batch[1]
+    the backward) over the valid count, plus the aux.  With ``batch =
+    (tokens, labels, count)`` (a rank's shard of
+    ``models.bert.with_global_count``) and ``dp_size=n``: ``n * local_sum
+    / count``, JAX's ``dp_axis`` weighting (dense models; a MoE model's
+    dp ranks train through ``pp_dp_loss_fn``).  ``remat``: each layer
+    recomputed in the backward, as JAX's driver runs its pp losses."""
+    _check_pp(tp_axis, dp_axis)
+    _check_moe_dp(cfg, dp_size)
+    stages, toks, labs, sizes = _pp_ranks(params, batch[0], batch[1],
+                                          sp_axis, ep_axis)
     num, denom = _pp_weight(batch, dp_size)
-    x = _pp_body(params, tokens, cfg, num_microbatches, remat)
-    mb = x.shape[0] // num_microbatches
-    local_sum = sum(_head_nll_sum(params[-1], h, lab, cfg)
-                    for h, lab in zip(x.split(mb), labels.split(mb)))
-    return num * local_sum / denom
+    local, _, aux = _pp_gpipe(stages, toks, labs, cfg, num_microbatches,
+                              sizes, sp_axis, sp_attn, remat)
+    return num * local.sum() / denom + aux
 
 
-def loss_and_grads_pp_1f1b(params: Sequence[Params], batch,
+def _rank_order(n_dp: int, n_ep: int) -> List[int]:
+    """Each rank's row (``e n_dp + d``, JAX's ``P((ep, dp))`` within a
+    stage group) in group order (a dp rank's ep ranks together)."""
+    return [e * n_dp + d for d in range(n_dp) for e in range(n_ep)]
+
+
+def _rank_batch(x: torch.Tensor, n: int, n_sp: int) -> List[torch.Tensor]:
+    """A ``[n_dp, (n_ep,) (n_sp,) B, S]`` batch leaf as the ranks' leaves
+    in group order."""
+    tail = 3 if n_sp > 1 else 2
+    return list(x.reshape(n, *x.shape[x.dim() - tail:]).unbind(0))
+
+
+def pp_dp_loss_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1, *,
+                  num_microbatches: int, n_sp: int = 1, remat: bool = False,
+                  sp_attn: str = "ring") -> Callable:
+    """The trainers' GPipe loss of a MoE Llama over n_dp x n_ep ranks at
+    once, marked ``joint_ranks``: ``(stage_trees, batch) -> [n_dp n_ep]``
+    losses, ``stage_trees[s][e n_dp + d]`` rank (d, e)'s tree of stage s
+    (its row of ``P((pp, ep, dp))``), the batch ``[n_dp, n_ep, (n_sp,)
+    B, S]`` (``VirtualRanks.shard``; ``[n_dp, ...]`` without ep).
+    ``dp_loss_fn``'s weighting: every value the global token-weighted
+    cross-entropy plus the aux (each stage's MoE layers routing every
+    rank's microbatch at once, summed over the stages, a mean over the
+    microbatches: JAX's ``loss_fn_pp`` over the batch axes), the
+    gradient of the values' sum n_dp times the unsharded one."""
+    n = n_dp * n_ep
+    sp_axis = "sp" if n_sp > 1 else None
+    order = _rank_order(n_dp, n_ep)
+    inv = np.argsort(order).tolist()
+
+    def loss(stage_trees, batch):
+        toks, labels = (_rank_batch(b, n, n_sp) for b in batch[:2])
+        stages = [[st[r] for r in order] for st in stage_trees]
+        local, counts, aux = _pp_gpipe(stages, toks, labels, cfg,
+                                       num_microbatches, [n_ep] * n_dp,
+                                       sp_axis, sp_attn, remat)
+        local = torch.stack([local[i] for i in inv])     # row order
+        denom = torch.clamp(counts.sum(), min=1).to(torch.float32)
+        ce = (local.sum() / denom).detach() + n_dp * (
+            local - local.detach()) / denom
+        return ce + aux.detach() + n_dp * (aux - aux.detach()) / n
+
+    loss.joint_ranks = True
+    return loss
+
+
+def _pp_1f1b(stages, tokens, labels, cfg: LlamaConfig, M: int, v: int,
+             sizes: Sequence[int], sp_axis: Optional[str], remat: bool,
+             num: int, denom: torch.Tensor, aux_w: float,
+             out: Optional[List[List[Params]]]):
+    """The 1F1B schedules (interleaved when v > 1) over the ranks: a unit
+    is stage s on microbatch m across every rank, the sp shards on the
+    gathered attention (JAX's form inside the schedules).  As JAX's: the
+    head returns the microbatch's NLL sum over the ranks, the schedule
+    the mean over M, and every gradient is scaled by ``M num / denom`` at
+    the end; a MoE stage adds its aux times ``c = aux_w denom / (M
+    num)`` to the differentiated channel, so the scaled gradient is
+    ``aux_w`` times the aux's (JAX's ``c_aux = 1 / (M w n_rep)`` holds
+    one aux copy a device; the one graph here holds one copy), and the
+    report channel carries the raw NLL and aux sums.  The embedding is
+    differentiated outside the schedule through its d_x.  Returns
+    ``(NLL sum, aux, grads)``: aux summed over the stages, a mean over M
+    (0 when dense); ``grads[s][r]`` f32 trees (``out``'s when given),
+    the replicated leaves' the same in every stage."""
+    sp, moe = sp_axis is not None, cfg.moe is not None
+    R = len(stages[0])
+    zero = torch.zeros((), dtype=torch.float32, device=tokens[0].device)
+    block = _pp_stage(cfg, sizes, _pp_pos(tokens, sp_axis), sp_axis,
+                      "gather" if sp else "ring", remat)
+    scale = M * num / denom
+    c_aux = aux_w / scale
+
+    def stage_fn(sp_, hp, x_in, c_in):
+        h, aux = block(sp_, x_in)
+        if moe:
+            return h, c_aux * aux, torch.stack([zero, aux.detach()])
+        return h, zero
+
+    def loss_head_fn(hp, h, lab):
+        tot = sum(_head_nll_sum(hp[r], h[:, r], lab[:, r], cfg)
+                  for r in range(R))
+        return (tot, torch.stack([tot.detach(), zero])) if moe else tot
+
+    def chunks(tree):
+        return tree if v == 1 else tree_map(
+            lambda t: t.reshape(v, t.shape[0] // v, *t.shape[1:]), tree)
+    layers = [[chunks(t["layers"]) for t in st] for st in stages]
+    d_out = None if out is None else [[chunks(o["layers"]) for o in os]
+                                      for os in out]
+    head = [{k: t[k] for k in ("final_norm", "lm_head")} for t in stages[-1]]
+    embs = [t["tok_emb"].detach().requires_grad_() for t in stages[0]]
+    with torch.enable_grad():
+        x_full = _batch_first([e[tok.long()] for e, tok in zip(embs, tokens)],
+                              sp)
+    sched = ((lambda *a, **kw: pipeline.pipeline_train_1f1b_interleaved(
+        *a, virtual_stages=v, **kw)) if v > 1
+        else pipeline.pipeline_train_1f1b)
+    res = sched(stage_fn, loss_head_fn, layers, head, x_full.detach(),
+                _batch_first(labels, sp), M, report_len=2 if moe else 0,
+                out=d_out)
+    if moe:
+        _, d_layers, d_head, d_x, report = res
+        nll_sum, aux = report[0], report[1] / M
+    else:
+        mean_nll_sum, d_layers, d_head, d_x = res
+        nll_sum, aux = M * mean_nll_sum, zero
+    d_embs = torch.autograd.grad(x_full, embs, d_x.to(x_full.dtype))
+    del x_full, d_x
+    if out is None:
+        out = [[{"layers": tree_map(
+            lambda t: t.reshape(-1, *t.shape[2:]) if v > 1 else t,
+            d_layers[s][r])} for r in range(R)] for s in range(len(stages))]
+        reps = [{"tok_emb": d_embs[r].to(torch.float32),
+                 **d_head[r]} for r in range(R)]
+        for rep in reps:
+            for t in rep.values():
+                t.mul_(scale)
+        for row in out:
+            for r, o in enumerate(row):
+                o.update(reps[r])
+    else:
+        for row in out:
+            for r, o in enumerate(row):
+                o["tok_emb"].copy_(d_embs[r]).mul_(scale)
+                for k, g in d_head[r].items():
+                    o[k].copy_(g).mul_(scale)
+    for row in d_layers:
+        for r in range(R):
+            for t in tree_leaves(row[r]):
+                t.mul_(scale)
+    return nll_sum, aux, out
+
+
+def loss_and_grads_pp_1f1b(params: Sequence[Any], batch,
                            cfg: LlamaConfig, *, num_microbatches: int,
                            dp_size: Optional[int] = None,
                            virtual_stages: int = 1, remat: bool = False,
@@ -725,74 +998,68 @@ def loss_and_grads_pp_1f1b(params: Sequence[Params], batch,
                            sp_axis: Optional[str] = None,
                            dp_axis: Optional[str] = None,
                            ep_axis: Optional[str] = None,
-                           out: Optional[List[Params]] = None):
+                           out: Optional[List[Any]] = None):
     """``loss_fn_pp``'s loss and its gradients under the 1F1B schedule
     (``parallel.pipeline.pipeline_train_1f1b``; with ``virtual_stages`` >
     1 the interleaved one, the stacked layers then in
     ``pipeline.interleave_layers`` order and num_microbatches a multiple
-    of pp).  As JAX's: the head returns the microbatch's NLL sum, the
-    schedule their mean, so ``M * mean`` is ``loss_fn_pp``'s local sum;
-    the schedule seeds each unit's loss 1/M, so every gradient is scaled
-    by ``M * num / denom`` at the end; the embedding is differentiated
-    outside the schedule through its d_x.
+    of pp), with sp on the gathered attention (JAX's form inside the
+    schedules) and ``apply_pp``'s layouts; the arithmetic is
+    ``_pp_1f1b``'s.
 
-    Returns ``(loss, grads)``: one f32 tree a stage, the layer slice's
-    gradients its own, the replicated leaves' the same in every stage
-    (summed over the stages: the embedding's from stage 0, the head's
-    from the last).  ``out``: per-stage f32 trees to write the gradients
-    into (zeroed, e.g. views of the trainer's flat rows), returned as
+    Returns ``(loss, grads)``: one f32 tree a stage (with ``ep_axis``, a
+    list of the ep ranks' trees a stage), the layer slice's gradients
+    its own, the replicated leaves' the same in every stage (summed over
+    the stages: the embedding's from stage 0, the head's from the last).
+    ``out``: f32 trees of that structure to write the gradients into
+    (zeroed, e.g. views of the trainer's flat rows), returned as
     ``grads``."""
-    _check_pp(cfg, tp_axis, sp_axis, dp_axis, ep_axis)
-    tokens, labels = batch[0], batch[1]
-    M, v = num_microbatches, virtual_stages
+    _check_pp(tp_axis, dp_axis)
+    _check_moe_dp(cfg, dp_size)
+    stages, toks, labs, sizes = _pp_ranks(params, batch[0], batch[1],
+                                          sp_axis, ep_axis)
     num, denom = _pp_weight(batch, dp_size)
-    block = _pp_block(cfg, tokens.shape[-1], tokens.device)
+    one = ep_axis is None
+    if one and out is not None:
+        out = [[o] for o in out]
+    nll_sum, aux, grads = _pp_1f1b(
+        stages, toks, labs, cfg, num_microbatches, virtual_stages, sizes,
+        sp_axis, remat, num, denom, 1.0, out)
+    loss = num * nll_sum / denom + aux
+    return loss, [g[0] for g in grads] if one else grads
 
-    def stage_fn(sp, hp, x_in, c_in):
-        h = pipeline.scan_layers(block, sp, x_in, remat=remat)
-        return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
-    def loss_head_fn(hp, h, c_in):
-        return _head_nll_sum(hp, h, c_in, cfg)
+def pp_dp_loss_and_grads_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1, *,
+                            num_microbatches: int, n_sp: int = 1,
+                            virtual_stages: int = 1,
+                            remat: bool = False) -> Callable:
+    """``pp_dp_loss_fn`` under the 1F1B schedules (interleaved when
+    ``virtual_stages`` > 1), marked ``joint_ranks``: ``(stage_trees,
+    batch, out=None) -> (loss, grads)``, ``grads[s][e n_dp + d]`` rank
+    (d, e)'s f32 gradient tree of stage s (into ``out`` of that shape
+    when given), the replicated leaves' already summed over the stages;
+    the gradient of the summed losses of ``pp_dp_loss_fn``, the loss its
+    common value."""
+    n = n_dp * n_ep
+    sp_axis = "sp" if n_sp > 1 else None
+    order = _rank_order(n_dp, n_ep)
+    inv = np.argsort(order).tolist()
 
-    def chunks(tree):
-        return {k: t.reshape(v, t.shape[0] // v, *t.shape[1:])
-                for k, t in tree.items()}
-    layers = [p["layers"] if v == 1 else chunks(p["layers"])
-              for p in params]
-    d_out = None if out is None else [
-        o["layers"] if v == 1 else chunks(o["layers"]) for o in out]
-    head = {k: params[-1][k] for k in ("final_norm", "lm_head")}
-    emb = params[0]["tok_emb"].detach().requires_grad_()
-    with torch.enable_grad():
-        x_full = emb[tokens.long()]
-    sched = ((lambda *a, **kw: pipeline.pipeline_train_1f1b_interleaved(
-        *a, virtual_stages=v, **kw)) if v > 1
-        else pipeline.pipeline_train_1f1b)
-    mean_nll_sum, d_layers, d_head, d_x = sched(
-        stage_fn, loss_head_fn, layers, head, x_full.detach(), labels, M,
-        out=d_out)
-    loss = num * (M * mean_nll_sum) / denom
-    scale = M * num / denom
-    d_emb, = torch.autograd.grad(x_full, emb, d_x.to(x_full.dtype))
-    del x_full
-    if out is None:
-        out = [{"layers": {k: t.reshape(-1, *t.shape[2:]) if v > 1 else t
-                           for k, t in d.items()}} for d in d_layers]
-        rep = {"tok_emb": d_emb.to(torch.float32), **d_head}
-        for o in out:
-            o.update(rep)
-        for t in [rep["tok_emb"], *d_head.values()] + [
-                t for o in out for t in o["layers"].values()]:
-            t.mul_(scale)
-        return loss, out
-    for o, d in zip(out, d_layers):
-        for t in d.values():
-            t.mul_(scale)
-        o["tok_emb"].copy_(d_emb).mul_(scale)
-        for k, g in d_head.items():
-            o[k].copy_(g).mul_(scale)
-    return loss, out
+    def loss_and_grads(stage_trees, batch, out=None):
+        toks, labels = (_rank_batch(b, n, n_sp) for b in batch[:2])
+        stages = [[st[r] for r in order] for st in stage_trees]
+        outs = None if out is None else [[os[r] for r in order]
+                                         for os in out]
+        denom = torch.clamp(sum((lab >= 0).sum() for lab in labels),
+                            min=1).to(torch.float32)
+        nll_sum, aux, grads = _pp_1f1b(
+            stages, toks, labels, cfg, num_microbatches, virtual_stages,
+            [n_ep] * n_dp, sp_axis, remat, n_dp, denom, float(n_dp), outs)
+        return nll_sum / denom + aux, [[g[inv[r]] for r in range(n)]
+                                       for g in grads]
+
+    loss_and_grads.joint_ranks = True
+    return loss_and_grads
 
 
 def num_params(cfg: LlamaConfig) -> int:
@@ -819,5 +1086,4 @@ def active_params(cfg: LlamaConfig) -> int:
 
 def param_bytes(params: Params) -> int:
     """Bytes the parameter tree holds."""
-    from ..ops.fused_update import tree_leaves
     return sum(t.numel() * t.element_size() for t in tree_leaves(params))

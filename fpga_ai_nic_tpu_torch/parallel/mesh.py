@@ -25,8 +25,9 @@ holds JAX device (d, s, e)'s rows and columns of ``P((dp, ep), sp)``.
 A pp axis (pipeline parallelism) does not split the batch (JAX's batch
 spec never names pp): each dp rank's batch runs through its pp stages,
 one parameter row a (pp, dp) rank (``parallel.sharded``,
-``parallel.pipeline``).  pp together with sp or ep is not ported (ROADMAP
-A.6 item 4b).
+``parallel.pipeline``).  With sp or ep too the batch keeps the layout
+above, and a stage's trees are the pp index into the parameter rows
+(``P((pp, ep, dp))``).
 """
 
 from __future__ import annotations
@@ -43,8 +44,8 @@ from ..utils.config import MeshConfig
 @dataclass(frozen=True)
 class VirtualRanks:
     """n data-parallel ranks stacked on one device, each holding ``ep``
-    expert-parallel ranks, each of those ``sp`` sequence shards; or each
-    dp rank's model split over ``pp`` pipeline stages."""
+    expert-parallel ranks, each of those ``sp`` sequence shards; each
+    rank's model split over ``pp`` pipeline stages."""
 
     n: int
     device: torch.device
@@ -56,10 +57,6 @@ class VirtualRanks:
         if min(self.n, self.sp, self.ep, self.pp) < 1:
             raise ValueError(f"need at least one rank, got dp={self.n}, "
                              f"sp={self.sp}, ep={self.ep}, pp={self.pp}")
-        if self.pp > 1 and (self.sp > 1 or self.ep > 1):
-            raise NotImplementedError(
-                f"pp={self.pp} with sp={self.sp}, ep={self.ep} is not "
-                "ported: ROADMAP A.6 item 4b")
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
         """[B, ...] global batch -> [n, B/n, ...] on the device: rank i

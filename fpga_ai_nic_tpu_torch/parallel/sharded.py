@@ -58,6 +58,20 @@ leaves' already summed, into ``out``, the stages' f32 rows.  The dp
 phases then run within each stage group, as within an ep group;
 ``clip_norm`` counts a replicated leaf 1/pp a copy.
 
+pp composes with sp and ep (``MeshConfig(dp, pp=, sp=, ep=)``): the batch
+keeps its ``P((dp, ep), sp)`` layout (pp never splits it) and the rows
+are JAX's ``P((pp, ep, dp))``, row ``(s n_ep + e) n_dp + d``, rank (d,
+e)'s slice of stage s (``llama.stacked_param_specs(cfg, ep_axis="ep")``:
+a MoE layer's experts ``"pp,ep"``, split over pp, then over ep).  A loss marked
+``joint_ranks`` (a MoE model's, ``llama.pp_dp_loss_fn`` or
+``pp_dp_loss_and_grads_fn``) takes every rank's stage trees and the
+whole batch at once.  After the backward a leaf every row holds (the
+embedding, norm, head) is summed over the stages and the ep ranks of
+its dp rank, a stage's slice that replicates over ep (attention, norms,
+the router) over the stage's ep ranks; the dp phases run within each
+(pp, ep) group, and ``clip_norm`` weights a leaf 1 / (its copies over
+pp x ep).
+
 As in the JAX package the fused optimizer kernel is not used: the update
 is ``optim.apply`` between the two collectives.  Other mesh axes (tp,
 fsdp) and ``accum_steps > 1`` raise ``NotImplementedError``;
@@ -70,7 +84,8 @@ coexist with the gathered replicas.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple
+import itertools
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -82,28 +97,82 @@ from ..ops import fused_update
 from ..utils.config import TrainConfig
 
 
-def split_ep(params: Params, specs: Any, n_ep: int) -> List[Params]:
-    """The whole tree as the n_ep ranks' local trees: a leaf whose spec is
-    set (``"ep"``, or ``"pp"`` for a stacked layer leaf) split on its
-    leading axis (rank e's chunk, a view), the others shared."""
+def _spec_axes(spec: Optional[str]) -> Tuple[str, ...]:
+    """The mesh axis each leading dimension of a leaf splits over, from
+    its spec: None (replicated) -> (), ``"ep"`` -> ("ep",), ``"pp,ep"``
+    -> ("pp", "ep") (JAX's ``P("pp", "ep")``)."""
+    return () if spec is None else tuple(spec.split(","))
+
+
+def _shard_grid(specs: Any, n: Union[int, Dict[str, int]]
+                ) -> Dict[str, int]:
+    """The shard axes and their sizes, major first: ``n`` as given, or an
+    int for the one axis the specs name."""
+    if isinstance(n, dict):
+        return dict(n)
+    names = {a for s in fused_update.tree_leaves(specs)
+             for a in _spec_axes(s)}
+    if len(names) > 1:
+        raise ValueError(f"specs name the axes {sorted(names)}: give "
+                         "their sizes as a dict")
+    return {a: n for a in names} or {"ep": n}
+
+
+def split_ep(params: Params, specs: Any,
+             n: Union[int, Dict[str, int]]) -> List[Params]:
+    """The whole tree as the shards' local trees, one a point of the grid
+    ``n`` (``{"pp": pp, "ep": ep}``: shard ``s ep + e``, pp major; an int
+    for the one axis the specs name): a leaf's leading dimensions split
+    over the axes its spec names (``"ep"`` or ``"pp"`` the first,
+    ``"pp,ep"`` the first two; each shard's chunk a view), the others
+    shared."""
     pairs = fused_update._leaves(params)
     paths = tuple(p for p, _ in pairs)
-    flags = [s is not None for s in fused_update.tree_leaves(specs)]
-    if len(flags) != len(pairs):
+    axes = [_spec_axes(s) for s in fused_update.tree_leaves(specs)]
+    if len(axes) != len(pairs):
         raise ValueError("param_specs does not match the params tree")
-    return [fused_update.tree_from_leaves(paths, [
-        leaf.chunk(n_ep)[e] if sharded else leaf
-        for (_, leaf), sharded in zip(pairs, flags)]) for e in range(n_ep)]
+    grid = _shard_grid(specs, n)
+    out = []
+    for idx in itertools.product(*(range(k) for k in grid.values())):
+        at = dict(zip(grid, idx))
+        leaves = []
+        for (_, leaf), names in zip(pairs, axes):
+            for d, a in enumerate(names):
+                leaf = leaf.chunk(grid[a], dim=d)[at[a]]
+            leaves.append(leaf)
+        out.append(fused_update.tree_from_leaves(paths, leaves))
+    return out
 
 
-def join_ep(trees: List[Params], specs: Any) -> Params:
-    """Inverse of ``split_ep``: the sharded leaves concatenated, the
-    others rank 0's."""
+def join_ep(trees: List[Params], specs: Any,
+            n: Union[int, Dict[str, int], None] = None) -> Params:
+    """Inverse of ``split_ep`` (``n`` as given there; by default the one
+    axis the specs name, of ``len(trees)`` shards): the sharded leaves
+    concatenated, the others shard 0's."""
+    grid = _shard_grid(specs, len(trees) if n is None else n)
     pairs = fused_update._leaves(trees[0])
-    leaves = zip(*(fused_update.tree_leaves(t) for t in trees))
-    return fused_update.tree_from_leaves(tuple(p for p, _ in pairs), [
-        torch.cat(ls) if s is not None else ls[0]
-        for ls, s in zip(leaves, fused_update.tree_leaves(specs))])
+    cols = list(zip(*(fused_update.tree_leaves(t) for t in trees)))
+    leaves = []
+    for ls, spec in zip(cols, fused_update.tree_leaves(specs)):
+        names = _spec_axes(spec)
+        parts = list(ls)
+        # fold the grid from its minor axis: each step joins one axis
+        for a in reversed(list(grid)):
+            k = grid[a]
+            dim = names.index(a) if a in names else None
+            parts = [torch.cat(parts[i:i + k], dim=dim) if dim is not None
+                     else parts[i] for i in range(0, len(parts), k)]
+        leaves.append(parts[0])
+    return fused_update.tree_from_leaves(tuple(p for p, _ in pairs), leaves)
+
+
+def _sum_into_all(g: torch.Tensor) -> None:
+    """``g [k, ...]``: the k copies' sum, in order, written into each."""
+    acc = g[0]
+    for e in range(1, g.shape[0]):
+        acc.add_(g[e])
+    for e in range(1, g.shape[0]):
+        g[e].copy_(acc)
 
 
 class ShardedTrainer(DPTrainer):
@@ -153,7 +222,8 @@ class ShardedTrainer(DPTrainer):
             if param_specs is None:
                 raise ValueError("ep > 1 needs param_specs: which leaves "
                                  "shard over ep (llama.param_specs)")
-            if not getattr(loss_fn, "joint_ranks", False):
+            if not getattr(loss_and_grads_fn or loss_fn, "joint_ranks",
+                           False):
                 raise ValueError("ep > 1 needs a loss over all ranks at "
                                  "once (joint_ranks, llama.dp_loss_fn): "
                                  "the ep ranks exchange tokens")
@@ -165,11 +235,14 @@ class ShardedTrainer(DPTrainer):
         # residual: a codec's error_feedback flag is not read here
         self._ef = False
         self.loss_and_grads_fn = loss_and_grads_fn
-        # model shards a dp rank's parameters split into: its ep ranks or
-        # its pp stages (not both: VirtualRanks), one flat row each
+        # model shards a dp rank's parameters split into: its pp stages
+        # times its ep ranks, one flat row each (pp major)
         self.n_shards = ranks.ep * ranks.pp
         self.param_specs = param_specs
+        # leaves replicated over every shard, and (pp and ep together)
+        # the stage slices replicated over ep: flat spans of a row
         self._rep_spans: List[Tuple[int, int]] = []
+        self._ep_rep_spans: List[Tuple[int, int]] = []
 
     # -- the ep / pp layout ----------------------------------------------------
 
@@ -181,19 +254,22 @@ class ShardedTrainer(DPTrainer):
             return super().init_state(params)
         params = fused_update.tree_map(lambda t: t.to(self.ranks.device),
                                        params)
-        local = split_ep(params, self.param_specs, self.n_shards)
+        local = split_ep(params, self.param_specs, self._grid())
         meta = fused_update.flat_meta(local[0], self.cfg.collective, self.n)
         self._meta = meta
-        spans, off = [], 0
+        spans, ep_spans, off = [], [], 0
         for size, spec in zip(meta.sizes, fused_update.tree_leaves(
                 self.param_specs)):
-            if spec is None:       # merge neighbouring replicated leaves
-                if spans and spans[-1][1] == off:
-                    spans[-1] = (spans[-1][0], off + size)
+            axes = _spec_axes(spec)
+            into = (spans if not axes else ep_spans
+                    if self.ranks.ep > 1 and "ep" not in axes else None)
+            if into is not None:   # merge neighbouring spans
+                if into and into[-1][1] == off:
+                    into[-1] = (into[-1][0], off + size)
                 else:
-                    spans.append((off, off + size))
+                    into.append((off, off + size))
             off += size
-        self._rep_spans = spans
+        self._rep_spans, self._ep_rep_spans = spans, ep_spans
         if self.cfg.optimizer.clip_norm is not None:
             self._norm_weights = self.norm_weight_tables()
         flat = torch.empty((self.n_shards, meta.padded_len),
@@ -210,20 +286,29 @@ class ShardedTrainer(DPTrainer):
         return TrainState(self._rank0(replicas, side), replicas, w_own,
                           opt_state, 0, None, side)
 
+    def _grid(self) -> Dict[str, int]:
+        """The shard axes of a dp rank's rows and their sizes, pp major."""
+        return {"pp": self.ranks.pp, "ep": self.ranks.ep}
+
     def norm_weight_tables(self) -> Tuple[np.ndarray, np.ndarray]:
-        """JAX's ``_norm_weight_tables`` over one flat row of the ep (pp)
+        """JAX's ``_norm_weight_tables`` over one flat row of the pp x ep
         layout: ``(bounds [m + 1] int32, values [m] f32)``, a segment a
-        leaf, its value 1/ep (1/pp) where the leaf replicates over the
-        shards (each of their rows holds a copy) and 1 where it is the
-        shard's own slice, then the padding at 0.  ``optim.global_norm``
-        reads them over the ``[n_shards n_dp, C]`` owned shards."""
+        leaf, its value 1 / (the product of the shard axes it does not
+        split over: each of those rows holds a copy), so 1/ep, 1/pp or
+        1/(pp ep) where it replicates and 1 where it is the shard's own
+        slice, then the padding at 0.  ``optim.global_norm`` reads them
+        over the ``[n_shards n_dp, C]`` owned shards."""
         if self._meta is None:
             raise RuntimeError("call init_state first")
         bounds, values = [0], []
         for size, spec in zip(self._meta.sizes, fused_update.tree_leaves(
                 self.param_specs)):
+            rep = 1
+            for a, k in self._grid().items():
+                if a not in _spec_axes(spec):
+                    rep *= k
             bounds.append(bounds[-1] + size)
-            values.append(1.0 if spec is not None else 1.0 / self.n_shards)
+            values.append(1.0 / rep)
         if bounds[-1] < self._meta.padded_len:
             bounds.append(self._meta.padded_len)
             values.append(0.0)
@@ -242,30 +327,34 @@ class ShardedTrainer(DPTrainer):
         return join_ep([self._rank0(
             state.replicas[e * self.n:],
             None if state.side is None else state.side[e * self.n:])
-            for e in range(self.n_shards)], self.param_specs)
+            for e in range(self.n_shards)], self.param_specs, self._grid())
 
     # -- step ------------------------------------------------------------------
 
     def grads(self, state: TrainState, batch
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The ranks' backward; with ep or pp > 1, each replicated leaf's
-        gradient summed over the shards of its dp rank, in shard order,
-        and written into every shard's row (``loss_and_grads_fn`` gives
-        the sum itself)."""
+        gradient summed over the shards of its dp rank that hold a copy,
+        in row order, and written into each of their rows: a leaf every
+        shard holds over all of them (``loss_and_grads_fn`` gives the sum
+        over the stages itself, so only over ep), a stage's slice that
+        replicates over ep over the stage's ep ranks."""
         if self.ranks.pp > 1:
             flat_g, loss = self._stage_grads(state, batch)
-            if self.loss_and_grads_fn is not None:
-                return flat_g, loss
         else:
             flat_g, loss = super().grads(state, batch)
         if self.n_shards > 1:
-            g = flat_g.view(self.n_shards, self.n, -1)
+            g = flat_g.view(self.ranks.pp, self.ranks.ep, self.n, -1)
+            over_pp = self.loss_and_grads_fn is None
             for a, b in self._rep_spans:
-                acc = g[0, :, a:b]
-                for e in range(1, self.n_shards):
-                    acc.add_(g[e, :, a:b])
-                for e in range(1, self.n_shards):
-                    g[e, :, a:b].copy_(acc)
+                if over_pp:
+                    _sum_into_all(g[..., a:b].flatten(0, 1))
+                else:
+                    for s in range(self.ranks.pp):
+                        _sum_into_all(g[s, :, :, a:b])
+            for a, b in self._ep_rep_spans:
+                for s in range(self.ranks.pp):
+                    _sum_into_all(g[s, :, :, a:b])
         return flat_g, loss
 
     def _grad_tree(self, row: torch.Tensor) -> Params:
@@ -276,39 +365,51 @@ class ShardedTrainer(DPTrainer):
 
     def _stage_grads(self, state: TrainState, batch
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """pp > 1: a dp rank at a time, the loss over its stage trees (rows
-        ``s n_dp + d``) and each stage's gradients into its row of a
-        zeroed ``[n_pp n_dp, L_pad]`` f32 flat_g; ``(flat_g, mean
-        loss)``."""
+        """pp > 1: each stage's gradients into its rows (``(s n_ep + e)
+        n_dp + d``) of a zeroed ``[pp n_ep n_dp, L_pad]`` f32 flat_g;
+        ``(flat_g, mean loss)``.  A loss marked ``joint_ranks`` (a MoE
+        model's: ``llama.pp_dp_loss_fn``, ``pp_dp_loss_and_grads_fn``)
+        takes every rank's stage trees at once, ``trees[s][e n_dp + d]``,
+        and the whole batch; any other one dp rank's stage trees and its
+        batch, a dp rank at a time."""
         meta, n, pp = self._meta, self.n, self.ranks.pp
         if meta is None:
             raise RuntimeError("call init_state first")
-        flat_g = torch.zeros((pp * n, meta.padded_len), dtype=torch.float32,
+        N = self.ranks.ep * n
+        flat_g = torch.zeros((pp * N, meta.padded_len), dtype=torch.float32,
                              device=state.replicas.device)
+        fn = self.loss_and_grads_fn or self.loss_fn
+        if getattr(fn, "joint_ranks", False):
+            calls = [([list(range(s * N, (s + 1) * N)) for s in range(pp)],
+                      tuple(batch), True)]
+        else:
+            calls = [([[s * n + d] for s in range(pp)],
+                      tuple(x[d] for x in batch), False)
+                     for d in range(n)]
         losses = []
-        for d in range(n):
-            rows = [s * n + d for s in range(pp)]
-            leaves = [_rank_leaves(state.replicas, meta, r, state.side)
-                      for r in rows]
-            trees = [fused_update.tree_from_leaves(meta.keys, ls)
-                     for ls in leaves]
-            b = tuple(x[d] for x in batch)
-            outs = [self._grad_tree(flat_g[r]) for r in rows]
+        for rows, b, joint in calls:
+            leaves = [[_rank_leaves(state.replicas, meta, r, state.side)
+                       for r in rs] for rs in rows]
+            trees = [[fused_update.tree_from_leaves(meta.keys, ls)
+                      for ls in st] for st in leaves]
+            outs = [[self._grad_tree(flat_g[r]) for r in rs] for rs in rows]
+            if not joint:
+                trees = [st[0] for st in trees]
+                outs = [o[0] for o in outs]
             if self.loss_and_grads_fn is not None:
                 loss, _ = self.loss_and_grads_fn(trees, b, out=outs)
             else:
                 loss = self.loss_fn(trees, b)
-                gs = torch.autograd.grad(loss, [t for ls in leaves
-                                                for t in ls],
+                flat = [t for st in leaves for ls in st for t in ls]
+                gs = torch.autograd.grad(loss.sum(), flat,
                                          allow_unused=True)
-                views = [v for o in outs
-                         for v in fused_update.tree_leaves(o)]
-                for v, g in zip(views, gs):
+                del flat
+                for v, g in zip(fused_update.tree_leaves(outs), gs):
                     if g is not None:
                         v.copy_(g)
                 del gs
             del leaves, trees, outs
-            losses.append(loss.detach())
+            losses.append(loss.detach().mean())
         return flat_g, torch.stack(losses).mean()
 
     def apply_grads(self, state: TrainState, flat_g: torch.Tensor,
@@ -327,6 +428,34 @@ class ShardedTrainer(DPTrainer):
         for g, o in zip(self._groups(flat_g), self._groups(out)):
             torch.div(fused_update.reduce_scatter(g, coll), self.n, out=o)
         return out
+
+    def update(self, state: TrainState, g_own: torch.Tensor,
+               codec_state: Optional[torch.Tensor] = None,
+               diag: Optional[dict] = None):
+        """``DPTrainer.update``; with shard groups the optimizer takes a
+        (pp, ep) group's rows at a time (JAX's runs a device at a time),
+        so its temporaries are a group's, not every row's: the same
+        elementwise arithmetic, the same bits."""
+        if self.n_shards == 1:
+            return super().update(state, g_own, codec_state, diag)
+        opt_cfg = self.cfg.optimizer
+        g_own = optim.clip_by_global_norm(opt_cfg, g_own,
+                                          self._norm_weights)
+        w_new = torch.empty_like(state.w_own)
+        opt_state = {k: torch.empty_like(v)
+                     for k, v in state.opt_state.items()}
+        for i in range(self.n_shards):
+            rows = slice(i * self.n, (i + 1) * self.n)
+            w, st = optim.apply(opt_cfg, state.w_own[rows], g_own[rows],
+                                {k: v[rows] for k, v in
+                                 state.opt_state.items()}, state.step)
+            w_new[rows].copy_(w)
+            for k, v in st.items():
+                opt_state[k][rows].copy_(v)
+            del w, st
+        del g_own
+        return self._gather(w_new, opt_state, state.step + 1, codec_state,
+                            diag)
 
     def _gather(self, w_new: torch.Tensor, opt_state: optim.OptState,
                 step: int, codec_state: Optional[torch.Tensor] = None,

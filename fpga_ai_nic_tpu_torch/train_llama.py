@@ -33,6 +33,13 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
       --pp_schedule=1f1b-interleaved --virtual_stages=2 --iters=3 \\
       --collective.impl=ring --collective.compression.codec=pallas \\
       --collective.fused_kernel=true
+  python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
+      --model.n_layers=2 --model.vocab=32000 --model.rope_theta=1000000 \\
+      --model.moe_experts=8 --model.attn_block=512 --seq=8192 \\
+      --global_batch=4 --mesh.pp=2 --mesh.ep=2 --mesh.sp=2 \\
+      --microbatches=2 --pp_schedule=1f1b --optimizer.clip_norm=1.0 \\
+      --iters=3 --collective.impl=ring \\
+      --collective.compression.codec=pallas --collective.fused_kernel=true
   python -m fpga_ai_nic_tpu_torch.train_llama --model=tiny --device=cpu \\
       --model.attn_block=128 --seq=128 --global_batch=4 --mesh.dp=2 \\
       --iters=2
@@ -66,8 +73,13 @@ batch, ``--pp_schedule=gpipe|1f1b|1f1b-interleaved`` (default gpipe;
 ``--virtual_stages=v`` chunks a stage (the interleaved schedule only,
 default 2; the layers live in ``pipeline.interleave_layers`` order for
 the whole run, as JAX's driver keeps them).  As in JAX's driver the pp
-losses always recompute each layer in the backward (remat).  pp with sp,
-ep or MoE layers raises (ROADMAP A.6 item 4b).
+losses always recompute each layer in the backward (remat).  pp takes
+``--mesh.sp``, ``--mesh.ep`` and MoE layers too: the batch splits over
+dp x ep and the sequence over sp as without pp, ``--microbatches`` cuts
+each (dp, ep) rank's batch, the 1F1B schedules run the sp shards on the
+gathered attention, and a MoE model trains through
+``llama.pp_dp_loss_fn`` / ``pp_dp_loss_and_grads_fn`` (every rank in one
+graph, the aux over the pooled statistics of each microbatch).
 """
 
 from __future__ import annotations
@@ -158,14 +170,15 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
         raise ValueError(f"--seq={seq} does not split into --mesh.sp={sp} "
                          "shards of a multiple of 128 tokens")
     if cfg.mesh.pp > 1:
-        if sp > 1 or cfg.mesh.ep > 1 or mcfg.moe is not None:
-            raise NotImplementedError("pp with sp, ep or MoE layers is not "
-                                      "ported: ROADMAP A.6 item 4b")
-        M = pipeline_flags(argv).microbatches
-        local = cfg.global_batch // cfg.mesh.dp
+        pipe = pipeline_flags(argv)
+        M, chunks = pipe.microbatches, cfg.mesh.pp * pipe.virtual_stages
+        local = cfg.global_batch // (cfg.mesh.dp * cfg.mesh.ep)
         if local % M:
-            raise ValueError(f"a dp rank's batch of {local} does not split "
-                             f"into --microbatches={M}")
+            raise ValueError(f"a (dp, ep) rank's batch of {local} does not "
+                             f"split into --microbatches={M}")
+        if pipe.virtual_stages > 1 and mcfg.n_layers % chunks:
+            raise ValueError(f"{mcfg.n_layers} layers do not split into "
+                             f"pp x virtual_stages = {chunks} chunks")
     return mcfg, cfg, seq, device
 
 
@@ -195,7 +208,7 @@ def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str,
           remat: bool = False, pipe: Pipeline = Pipeline()
           ) -> Tuple[ShardedTrainer, TrainState]:
     """The trainer over ``cfg.mesh.dp`` x ``cfg.mesh.ep`` x
-    ``cfg.mesh.sp`` (or x ``cfg.mesh.pp``) virtual ranks and its initial
+    ``cfg.mesh.sp`` (x ``cfg.mesh.pp``) virtual ranks and its initial
     state, from weights drawn on the device with seed ``cfg.seed``;
     ``remat`` goes to the loss (with pp the losses always recompute);
     ``pipe``: the pipeline flags."""
@@ -224,20 +237,35 @@ def _pp_trainer(mcfg: LlamaConfig, cfg: TrainConfig, ranks,
                 pipe: Pipeline) -> ShardedTrainer:
     """The pp trainer of JAX's driver (``examples/train_llama.py:96-131``):
     GPipe through ``loss_fn_pp``, the 1F1B schedules through
-    ``loss_and_grads_pp_1f1b``, remat on.  Every label is valid here, so
-    the per-rank weighting equals JAX's ``dp_axis`` one."""
-    specs = llama.stacked_param_specs(mcfg)
-    M = pipe.microbatches
+    ``loss_and_grads_pp_1f1b``, remat on; a MoE model through
+    ``pp_dp_loss_fn`` / ``pp_dp_loss_and_grads_fn``, every rank at once.
+    Every label is valid here, so a dense model's per-rank weighting
+    equals JAX's ``dp_axis`` one."""
+    specs = llama.stacked_param_specs(
+        mcfg, ep_axis="ep" if ranks.ep > 1 else None)
+    M, v = pipe.microbatches, pipe.virtual_stages
+    if mcfg.moe is not None:
+        if pipe.schedule == "gpipe":
+            return ShardedTrainer(
+                llama.pp_dp_loss_fn(mcfg, ranks.n, ranks.ep, n_sp=ranks.sp,
+                                    num_microbatches=M, remat=True),
+                ranks, cfg, param_specs=specs)
+        return ShardedTrainer(
+            None, ranks, cfg, param_specs=specs,
+            loss_and_grads_fn=llama.pp_dp_loss_and_grads_fn(
+                mcfg, ranks.n, ranks.ep, n_sp=ranks.sp, num_microbatches=M,
+                virtual_stages=v, remat=True))
+    sp_axis = "sp" if ranks.sp > 1 else None
     if pipe.schedule == "gpipe":
         return ShardedTrainer(
             lambda p, b: llama.loss_fn_pp(p, b, mcfg, num_microbatches=M,
-                                          remat=True),
+                                          sp_axis=sp_axis, remat=True),
             ranks, cfg, param_specs=specs)
     return ShardedTrainer(
         None, ranks, cfg, param_specs=specs,
         loss_and_grads_fn=lambda p, b, out=None: llama.loss_and_grads_pp_1f1b(
-            p, b, mcfg, num_microbatches=M,
-            virtual_stages=pipe.virtual_stages, remat=True, out=out))
+            p, b, mcfg, num_microbatches=M, virtual_stages=v,
+            sp_axis=sp_axis, remat=True, out=out))
 
 
 def main(argv: Sequence[str]) -> dict:

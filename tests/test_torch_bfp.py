@@ -9,6 +9,7 @@ the CPU).  Every comparison is bit for bit.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 

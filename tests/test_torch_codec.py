@@ -12,6 +12,7 @@ sublane layout, whole (16, 128) tiles — as JAX's Pallas kernels assert.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 

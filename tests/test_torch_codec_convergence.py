@@ -15,6 +15,7 @@ import jax
 from fpga_ai_nic_tpu.evals import codec_convergence as jax_cc
 from fpga_ai_nic_tpu_torch.evals import codec_convergence as cc
 from fpga_ai_nic_tpu_torch.models import mlp
+from torch_threads import one_torch_thread  # noqa: F401
 
 # AdamW divides each coordinate by its own running RMS, so the last-bit
 # gradient differences between torch's and XLA's GEMMs move coordinates

@@ -11,6 +11,7 @@ The file imports torch only (no JAX), so it runs where JAX is absent.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from fpga_ai_nic_tpu_torch import optim
 from fpga_ai_nic_tpu_torch.ops import (bfp_cuda, int8_cuda, integrity,
@@ -1225,3 +1226,98 @@ def test_pp_trainer_schedules_on_card(cuda_device):
                   f"against {other[0]}")
             assert rel(kern, other) <= 0.05
             assert max(abs(a - b) for a, b in zip(kern[0], other[0])) <= 2e-3
+
+
+@pytest.mark.cuda
+def test_pp_axes_moe_on_card(cuda_device):
+    """The MoE pipeline with every batch axis in small: dp=1 x pp=2 x ep=2
+    x sp=2, the small f32 MoE Llama at head_dim 128 (2 layers, one a
+    stage; 4 experts top-2, capacity factor 4: nothing drops), sequence
+    512, batch 4, 2 microbatches, remat, as ``train_llama.build`` builds
+    it: GPipe's gradient on the flash kernels against the plain attention
+    route's (the expert choices pinned to the kernel route's, call by
+    call: near ties may flip between the routes), 1F1B's on the kernels
+    (the gathered attention) against GPipe's (the ring attention), and at
+    4 layers interleaved 1F1B (v=2) against GPipe, the gradients joined
+    into the whole tree in model order, within the Llama parity limits
+    of ``chip_smoke.py`` (relative L2 0.05, losses 2e-3); the kernel
+    routes launching the f32 flash family's kernels
+    (``flash_generic.cu``, the q offsets of the past hop and of the
+    gathered shards among them), the plain route none; then one step:
+    one ring all-gather a (pp, ep) group and, at dp=1, no reduce-scatter
+    launch."""
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    from fpga_ai_nic_tpu_torch.ops import fused_update, moe
+    from fpga_ai_nic_tpu_torch.parallel import pipeline
+    from fpga_ai_nic_tpu_torch.parallel.sharded import join_ep
+    from fpga_ai_nic_tpu_torch.utils.config import (CollectiveConfig,
+                                                    MeshConfig, TrainConfig)
+    cfg = TrainConfig(global_batch=4, mesh=MeshConfig(dp=1, pp=2, sp=2, ep=2),
+                      collective=CollectiveConfig(
+                          impl="ring", compression=BFPConfig(codec="pallas"),
+                          fused_kernel=True),
+                      optimizer=OptimizerConfig(kind="sgd", learning_rate=0.1,
+                                                clip_norm=1.0))
+    batch = _seeded_batch(256, 4, 512)
+    route = moe._route
+    record = []
+
+    def whole(tr, g, v):
+        tree = join_ep([tr._grad_tree(r) for r in g], tr.param_specs,
+                       tr._grid())
+        if v > 1:
+            tree["layers"] = pipeline.deinterleave_layers(tree["layers"], 2,
+                                                          v)
+        return torch.cat([t.reshape(-1)
+                          for t in fused_update.tree_leaves(tree)])
+
+    def run(impl, schedule, n_layers=2, pin=None):
+        mcfg = _hd128_llama(n_layers=n_layers, moe_experts=4,
+                            moe_capacity_factor=4.0, attn_impl=impl)
+        v = 2 if schedule == "1f1b-interleaved" else 1
+        pins = None if pin is None else iter(pin)
+
+        def pinned(wr, xf, c, C):
+            r = route(wr, xf, c, C)
+            if pins is None:
+                record.append(r.e_flat)
+                return r
+            e_flat = next(pins)
+            g = r.probs.gather(-1, e_flat.reshape(r.gates.shape))
+            return moe.Routing(g / g.sum(-1, keepdim=True), e_flat,
+                               *moe.assign(e_flat, c.num_experts, C),
+                               r.probs)
+
+        tr, st = train_llama.build(mcfg, cfg, "cuda", True,
+                                   train_llama.Pipeline(2, schedule, v))
+        before = fa.FLASH_FWD_GENERIC.launches
+        moe._route = pinned if (pin is not None or impl == "pallas"
+                                and schedule == "gpipe"
+                                and n_layers == 2) else route
+        try:
+            g, loss = tr.grads(st, tr.shard_batch(batch))
+        finally:
+            moe._route = route
+        torch.cuda.synchronize()
+        return (whole(tr, g, v), float(loss), tr, st,
+                fa.FLASH_FWD_GENERIC.launches - before)
+
+    ref = run("pallas", "gpipe")
+    assert record and ref[4] > 0
+    ref4 = run("pallas", "gpipe", 4)
+    for name, other, want in (
+            ("plain", run("xla", "gpipe", 2, list(record)), ref),
+            ("1f1b", run("pallas", "1f1b"), ref),
+            ("interleaved", run("pallas", "1f1b-interleaved", 4), ref4)):
+        rel = float((other[0] - want[0]).norm() / want[0].norm())
+        print(f"pp x ep x sp {name}: loss {other[1]} / {want[1]}, grad rel "
+              f"{rel}")
+        assert abs(other[1] - want[1]) <= 2e-3
+        assert rel <= 0.05
+        assert (other[4] == 0) == (name == "plain")
+    _, _, tr, st = ref[:4]
+    before = _launches()
+    st, _ = tr.step(st, tr.shard_batch(batch))
+    torch.cuda.synchronize()
+    assert _launches() == [before[0], before[1] + 4]

@@ -14,6 +14,7 @@ sum in f32, in different orders.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

@@ -18,6 +18,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 

@@ -25,6 +25,7 @@ port is one JAX device's shard.  Held:
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

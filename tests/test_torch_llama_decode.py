@@ -16,6 +16,7 @@ the JAX parameter pytree is carried across with ``llama.params_from_jax``.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

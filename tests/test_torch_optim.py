@@ -9,6 +9,7 @@ each ``fmaf`` site of the golden twin through float64.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

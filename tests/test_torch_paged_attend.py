@@ -14,6 +14,7 @@ held against the plain version on the card (``tests/test_torch_cuda.py``).
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 

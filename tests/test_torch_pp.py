@@ -25,9 +25,9 @@ numpy inputs go through both:
   losses against JAX's ``ShardedTrainer`` GPipe run (rtol 1e-4, JAX's
   passing trainer tests' setup, run once for the module);
   ``norm_weight_tables`` against JAX's over a pp mesh;
-- (e) the refusals: pp with sp, ep, MoE layers or tp; ``--virtual_stages``
-  without the interleaved schedule; ``loss_and_grads_fn`` with
-  ``accum_steps=2``;
+- (e) the refusals: pp with tp or JAX's ``dp_axis``, a MoE loss of one
+  dp rank with ``dp_size``; ``--virtual_stages`` without the interleaved
+  schedule; ``loss_and_grads_fn`` with ``accum_steps=2``;
 - (f) ``train_llama`` under each schedule on the CPU, its
   ``pipeline_cost`` equal to JAX's ``cost_model``.
 """
@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +51,7 @@ from fpga_ai_nic_tpu_torch import train_llama
 from fpga_ai_nic_tpu_torch.models import bert, llama
 from fpga_ai_nic_tpu_torch.ops import fused_update
 from fpga_ai_nic_tpu_torch.parallel import pipeline
-from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks, make_ranks
+from fpga_ai_nic_tpu_torch.parallel.mesh import make_ranks
 from fpga_ai_nic_tpu_torch.parallel.sharded import ShardedTrainer
 from fpga_ai_nic_tpu_torch.utils.config import (
     CollectiveConfig, MeshConfig, OptimizerConfig, TrainConfig)
@@ -719,35 +720,27 @@ def test_norm_weight_tables_match_jax_pp():
 # -- (e) the refusals -------------------------------------------------------------
 
 def test_pp_refusals():
+    """What the pp path still refuses: tp (ROADMAP A.5) and JAX's
+    ``dp_axis`` (the port's dp ranks carry the global count in the
+    batch); a MoE model's loss of one dp rank with ``dp_size`` (its dp
+    ranks share the aux); pp with sp, ep and MoE layers runs
+    (``tests/test_torch_pp_axes.py``)."""
     moe = dataclasses.replace(llama.LlamaConfig.tiny(n_layers=2),
                               moe_experts=4)
-    for axis in ("sp", "ep"):
-        with pytest.raises(NotImplementedError, match="A.6 item 4b"):
-            make_ranks(MeshConfig(dp=2, pp=2, **{axis: 2}), "cpu")
-        with pytest.raises(NotImplementedError, match="A.6 item 4b"):
-            VirtualRanks(2, torch.device("cpu"), **{axis: 2, "pp": 2})
     with pytest.raises(NotImplementedError, match="A.5"):
         make_ranks(MeshConfig(tp=2, pp=2), "cpu")
-    with pytest.raises(NotImplementedError, match="A.6 item 4b"):
-        llama.stacked_param_specs(moe)
     pc = llama.LlamaConfig.tiny()
     toks = torch.zeros((2, 8), dtype=torch.int32)
     for fn in (llama.loss_fn_pp, llama.loss_and_grads_pp_1f1b):
-        for kw, item in ((dict(sp_axis="sp"), "A.6 item 4b"),
-                         (dict(ep_axis="ep"), "A.6 item 4b"),
-                         (dict(tp_axis="tp"), "A.5"),
+        for kw, item in ((dict(tp_axis="tp"), "A.5"),
                          (dict(dp_axis="dp"), "with_global_count")):
             with pytest.raises(NotImplementedError, match=item):
                 fn([], (toks, toks), pc, num_microbatches=1, **kw)
-        with pytest.raises(NotImplementedError, match="A.6 item 4b"):
-            fn([], (toks, toks), moe, num_microbatches=1)
+        with pytest.raises(NotImplementedError, match="pp_dp_loss_fn"):
+            fn([], (toks, toks, torch.ones(1)), moe, num_microbatches=1,
+               dp_size=2)
     base = ["--model=tiny", "--device=cpu", "--mesh.dp=2", "--mesh.pp=2",
             "--global_batch=4"]
-    for extra in (["--mesh.sp=2", "--seq=256"], ["--mesh.ep=2",
-                                                 "--model.moe_experts=4"],
-                  ["--model.moe_experts=4"]):
-        with pytest.raises(NotImplementedError, match="A.6 item 4b"):
-            train_llama.parse(base + extra)
     with pytest.raises(ValueError, match="virtual_stages only applies"):
         train_llama.pipeline_flags(["--pp_schedule=1f1b",
                                     "--virtual_stages=2"])

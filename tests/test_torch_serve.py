@@ -20,6 +20,7 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 

@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp
@@ -395,11 +396,11 @@ def test_sp_on_unported_trainers_and_axes_raises():
     for axis, item in (("tp", "A.5"), ("fsdp", "A.5")):
         with pytest.raises(NotImplementedError, match=item):
             make_ranks(MeshConfig(dp=2, **{axis: 2}), "cpu")
-    # pp is ported (tests/test_torch_pp.py), but not with sp or ep
+    # pp is ported (tests/test_torch_pp.py), and together with sp and ep
+    # (tests/test_torch_pp_axes.py)
     assert make_ranks(MeshConfig(dp=2, pp=2), "cpu").pp == 2
-    for axis in ("sp", "ep"):
-        with pytest.raises(NotImplementedError, match="A.6 item 4b"):
-            make_ranks(MeshConfig(dp=2, pp=2, **{axis: 2}), "cpu")
+    r = make_ranks(MeshConfig(dp=2, pp=2, sp=2, ep=2), "cpu")
+    assert (r.n, r.pp, r.sp, r.ep) == (2, 2, 2, 2)
     # ep is ported (tests/test_torch_moe.py), and together with sp
     # (tests/test_torch_sp_ep.py)
     assert make_ranks(MeshConfig(dp=2, ep=2), "cpu").ep == 2
