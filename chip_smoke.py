@@ -66,9 +66,28 @@ Phases, each printing JSON lines:
      the update gated, finite outputs) and a ``scale`` fault at the
      collective tap (IntegrityError), each after a clean step; the int8
      path (dp=2) with integrity, bit-equal to off;
+  5b. ``fsdp_path``: ZeRO-3 (``FSDPTrainer``) on the canonical MLP, fsdp=8,
+     the same batch, the BFP ring kernels (the gather's forward ``ring_ag``,
+     its backward the reduce-scatter kernel without an optimizer) and the
+     fused SGD formula: 1 warm-up and 5 timed steps, one launch of each a
+     step, peak memory; two steps' masters bit-equal to the plain route's
+     (``plain_collectives``); the reduce-scatter kernel at this shape by
+     device time beside its bound;
+  5c. ``hier_path``: ``DPTrainer`` at dp=8 with ``topology="hier"`` at
+     intra_size 2 and 4 (the sublane BFP codec on the slow hop only, the
+     ``bfp_codec.cu`` kernels, fused SGD): 3 timed steps each, the codec
+     launches against the phase program, the wire bytes by phase, two
+     steps' masters bit-equal to the plain route's; the flat separate-op
+     codec route timed beside;
+  5d. ``ring_cost_stages``: the ablate=None reduce-scatter's SASS and output
+     digests against the kernel from before the stage parameter
+     (``RING_RS_SASS``, ``RING_RS_DIGESTS``), then ``ring_cost.decompose``
+     fed by every ablate= stage's device time, at the MLP's shape
+     (streaming stages, SGD) and at 4 MiB a rank (resident stages), each
+     stage measured (a stage error fails the phase);
   6. the int8 codec path: ``DPTrainer`` on the canonical MLP at dp=2 (each
-     rank's chunk of 20,981,760 elements is whole (16, 128) tiles; at dp=8
-     it is not) with ``codec="int8"`` on the sublane kernels and fused SGD
+     rank's chunk of 20,981,760 elements is whole (16, 128) tiles without
+     padding) with ``codec="int8"`` on the sublane kernels and fused SGD
      — 1 warm-up and 5 timed steps, launch counts checked; one more step's
      gradients through ``Int8Codec(plain=True)``, whose masters and
      replicas must be bit-equal; a profile of two steps; then the codec
@@ -257,6 +276,7 @@ Phases, each printing JSON lines:
      within the Llama parity limits (the unpinned errors and flip shares
      beside), the ep exchange swapped (the control) above them;
  28. the ``kernels`` line (the offset instantiations' rows among them,
+     the ablated ring_rs instantiations' rows from ``ring_cost_stages``,
      their launches from ``llama_sp_train_path``; the MoE paths'
      launches and ring times as ``moe_*`` keys, the pipeline's as
      ``pp_*`` keys, the pipeline with sp and ep's as ``pp_sp_*`` and
@@ -669,6 +689,422 @@ def codec_route(dev, tr, state, g, new, kernels) -> dict:
          launches=launches, masters_bitequal=True, replicas_bitequal=True)
     torch.cuda.empty_cache()
     return launches
+
+
+# -- ZeRO-3, the hierarchical ring, the ring kernel's ablate= stages ----------
+
+class plain_collectives:
+    """Within it, the fused ring wrappers and the BFP codec kernels are
+    their plain versions (on the same card tensors), so a trainer's step
+    takes the plain route: no port kernel launches inside."""
+
+    def __enter__(self):
+        from fpga_ai_nic_tpu_torch.ops import bfp_cuda, ring_cuda
+        self.saved = [(m, k, getattr(m, k)) for m, k in (
+            (ring_cuda, "ring_reduce_scatter_fused"),
+            (ring_cuda, "ring_reduce_scatter_update_fused"),
+            (ring_cuda, "ring_all_gather_fused"),
+            (bfp_cuda, "bfp_encode"), (bfp_cuda, "bfp_decode"))]
+
+        def rs(x, *, compression=None, slice_elems=None, integrity=False):
+            res = ring_cuda.ring_reduce_scatter_update_plain(
+                x, None, {}, None, opt_kind=None, compression=compression,
+                slice_elems=slice_elems, integrity=integrity)
+            return (res[0], res[3]) if integrity else res[0]
+
+        def ag(owned, *, compression=None):
+            return ring_cuda.ring_all_gather_plain(owned, compression)
+
+        ring_cuda.ring_reduce_scatter_fused = rs
+        ring_cuda.ring_reduce_scatter_update_fused = \
+            ring_cuda.ring_reduce_scatter_update_plain
+        ring_cuda.ring_all_gather_fused = ag
+        bfp_cuda.bfp_encode = bfp_cuda.bfp_encode_plain
+        bfp_cuda.bfp_decode = bfp_cuda.bfp_decode_plain
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def timed_steps(tr, state, batch, kernels, steps, plain=False):
+    """1 warm-up and ``steps`` timed steps (CUDA events around each), the
+    launch counts zeroed just before and read just after; ``plain`` runs
+    them inside ``plain_collectives``."""
+    import contextlib
+    import torch
+    for k in kernels.values():
+        k.launches = 0
+    with plain_collectives() if plain else contextlib.nullcontext():
+        state, loss = tr.step(state, batch)
+        losses = [float(loss)]
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(steps + 1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks[0].record()
+        for mark in marks[1:]:
+            state, loss = tr.step(state, batch)
+            mark.record()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses.append(float(loss))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return state, {"steps": steps, "wall_s": wall,
+                   "ms_per_step": 1e3 * wall / steps, "step_ms": step_ms,
+                   "median_step_ms": sorted(step_ms)[steps // 2],
+                   "loss_first": losses[0], "loss_last": losses[-1],
+                   "launches": {k: v.launches for k, v in kernels.items()}}
+
+
+def two_step_masters(tr, state, batch, kernels, plain):
+    """The masters after two steps from ``state``, on the kernels or the
+    plain route; the plain route launches no port kernel."""
+    import contextlib
+    for k in kernels.values():
+        k.launches = 0
+    with plain_collectives() if plain else contextlib.nullcontext():
+        for _ in range(2):
+            state, _ = tr.step(state, batch)
+    if plain and any(k.launches for k in kernels.values()):
+        raise AssertionError("the plain route launched a port kernel")
+    return state.w_own
+
+
+def fsdp_path(dev, kernels, mcfg, sgd, bx, by) -> dict:
+    """ZeRO-3 (``parallel.fsdp.FSDPTrainer``) on the canonical MLP, fsdp=8
+    virtual ranks, global batch 5376, the BFP ring kernels (the gather's
+    forward ``ring_ag``, its backward the reduce-scatter without an
+    optimizer), the fused SGD formula after the reduce: 1 warm-up and 5
+    timed steps, one launch of each ring kernel a step, peak memory; two
+    steps' masters bit-equal to the plain route's; the RS kernel at this
+    shape (no optimizer) by device time beside its bound."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.ops import ring_cuda
+    from fpga_ai_nic_tpu_torch.parallel import FSDPTrainer
+    from fpga_ai_nic_tpu_torch.parallel.mesh import make_ranks
+    from fpga_ai_nic_tpu_torch.utils.config import (
+        BFPConfig, CollectiveConfig, MeshConfig, TrainConfig)
+    n = 8
+    bcfg = BFPConfig(codec="pallas")
+    cfg = TrainConfig(global_batch=bx.shape[0], mesh=MeshConfig(fsdp=n),
+                      collective=CollectiveConfig(
+                          impl="ring", compression=bcfg, fused_kernel=True,
+                          fused_optimizer=True), optimizer=sgd)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = FSDPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg),
+                     make_ranks(cfg.mesh, dev), cfg)
+    state0 = tr.init_state(mlp.init(torch.Generator().manual_seed(0), mcfg,
+                                    dev))
+    batch = tr.shard_batch((bx, by))
+    steps = 5
+    _, run = timed_steps(tr, state0, batch, kernels, steps)
+    expect = dict.fromkeys(kernels, 0)
+    expect.update(ring_rs_update=steps + 1, ring_ag=steps + 1)
+    if run["launches"] != expect:
+        raise AssertionError(f"fsdp_path: launches {run['launches']}, "
+                             f"expected {expect}")
+    if not run["loss_last"] < run["loss_first"]:
+        raise AssertionError(f"fsdp_path: the loss did not fall {run}")
+    L = tr._meta.padded_len
+    emit(phase="fsdp_path", model="MLP 10x2048x2048 f32", fsdp=n,
+         global_batch=cfg.global_batch, padded_len=L,
+         samples_per_sec=steps * cfg.global_batch / run["wall_s"],
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         state_shapes={"w_own": list(state0.w_own.shape)},
+         wire=tr.obs_static_metrics(), **run)
+    w_k = two_step_masters(tr, state0, batch, kernels, False)
+    w_p = two_step_masters(tr, state0, batch, kernels, True)
+    require_equal("fsdp masters after two steps", [(w_k, w_p)])
+    emit(phase="fsdp_parity", steps=2, masters_bitequal=True)
+    del w_k, w_p
+    held = [state0]
+
+    def step():
+        held[0], _ = tr.step(held[0], batch)
+
+    groups = profile_run("fsdp_profile", step, 2, groups={
+        "ring": ("ring_rs_kernel", "ring_ag_kernel")})
+    del held, state0, batch, tr
+    torch.cuda.empty_cache()
+    # the backward's reduce-scatter kernel at this shape
+    C = L // n
+    x = torch.randn((n, L), generator=torch.Generator(device=dev)
+                    .manual_seed(9), device=dev)
+    before = ring_cuda.RING_RS.launches
+
+    def rs():
+        return ring_cuda.ring_reduce_scatter_fused(x, compression=bcfg)
+
+    rs_dev = device_ms(rs, 10, ("ring_rs_kernel",))
+    rs_call = cuda_ms(rs, 5)
+    rs_plain = cuda_ms(lambda: ring_cuda.ring_reduce_scatter_update_plain(
+        x, None, {}, None, opt_kind=None, compression=bcfg), 2)
+    require_equal("ring_rs at the fsdp shape", [(rs(), ring_cuda.
+                  ring_reduce_scatter_update_plain(
+                      x, None, {}, None, opt_kind=None,
+                      compression=bcfg)[0])])
+    rs_bound = bound(ring_bytes(n, L, C)[0], 11 * n * L)
+    del x
+    torch.cuda.empty_cache()
+    row = {"device_ms": rs_dev, "call_ms": rs_call, "plain_ms": rs_plain,
+           "bound": rs_bound, "shape": f"n={n}, L={L}, no optimizer",
+           "timing_launches": ring_cuda.RING_RS.launches - before}
+    emit(phase="fsdp_ring_times", rs=row)
+    return {"launches": run["launches"], "median_step_ms":
+            run["median_step_ms"], "rs": row, "profile": groups}
+
+
+def hier_path(dev, kernels, mcfg, sgd, bx, by) -> dict:
+    """``DPTrainer`` on the canonical MLP, dp=8, with ``topology="hier"``
+    at intra_size 2 and 4: phase A the raw f32 ring inside each group,
+    phase B the BFP (sublane) codec ring across groups on the
+    ``bfp_codec.cu`` kernels, the fused SGD formula after the reduce.  For
+    each: 1 warm-up and 3 timed steps, the codec launches checked against
+    the phase program, the wire bytes by phase (the plan), and two steps'
+    masters bit-equal to the plain route's.  Then the flat separate-op
+    codec route (fused_kernel=False) timed the same way, beside."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (
+        BFPConfig, CollectiveConfig, MeshConfig, TrainConfig)
+    n, steps = 8, 3
+    params = mlp.init(torch.Generator().manual_seed(0), mcfg, dev)
+    out = {}
+    for ni in (2, 4, None):
+        hier = dict(topology="hier", intra_size=ni) if ni else {}
+        coll = CollectiveConfig(impl="ring", compression=BFPConfig(
+            codec="pallas"), fused_optimizer=True, **hier)
+        cfg = TrainConfig(global_batch=bx.shape[0], mesh=MeshConfig(dp=n),
+                          collective=coll, optimizer=sgd)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg),
+                       VirtualRanks(n, dev), cfg)
+        state0 = tr.init_state(params)
+        batch = tr.shard_batch((bx, by))
+        _, run = timed_steps(tr, state0, batch, kernels, steps)
+        C = state0.w_own.shape[1]
+        codec = fused_update.resolve_codec(coll)
+        S = C // coll.slice_elems if codec.sliceable(
+            C, coll.slice_elems) else 1
+        ng = n // (ni or 1)
+        # a step: phase B's ng-1 hops of S slices (an encode and a decode
+        # each), then the gather's one encode and ng decodes (the own
+        # slot and ng-1 hops)
+        expect = dict.fromkeys(kernels, 0)
+        expect.update(bfp_encode=(steps + 1) * ((ng - 1) * S + 1),
+                      bfp_decode=(steps + 1) * ((ng - 1) * S + ng))
+        if run["launches"] != expect:
+            raise AssertionError(f"hier_path (intra {ni}): launches "
+                                 f"{run['launches']}, expected {expect}")
+        label = f"hier_intra{ni}" if ni else "flat_codec_route"
+        stat = tr.obs_static_metrics()
+        emit(phase="hier_path" if ni else "hier_flat_codec_route",
+             model="MLP 10x2048x2048 f32", dp=n, intra_size=ni,
+             collective=str(coll), slices_a_hop=S,
+             samples_per_sec=steps * cfg.global_batch / run["wall_s"],
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             wire=stat, **run)
+        if ni:
+            w_k = two_step_masters(tr, state0, batch, kernels, False)
+            w_p = two_step_masters(tr, state0, batch, kernels, True)
+            require_equal(f"hier (intra {ni}) masters after two steps",
+                          [(w_k, w_p)])
+            emit(phase="hier_parity", intra_size=ni, steps=2,
+                 masters_bitequal=True)
+            del w_k, w_p
+        held = [state0]
+
+        def step():
+            held[0], _ = tr.step(held[0], batch)
+
+        profile_run("hier_profile", step, 2, groups={
+            "bfp_codec": ("bfp_encode_kernel", "bfp_decode_kernel")},
+            intra_size=ni)
+        del held
+        out[label] = {"median_step_ms": run["median_step_ms"],
+                      "launches": run["launches"],
+                      "wire_bytes_per_allreduce":
+                          stat["wire_bytes_per_allreduce"],
+                      "hier_plan": stat.get("hier_plan")}
+        del tr, state0, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+# The ablate=None instantiation of csrc/ring_rs.cu before the stage
+# parameter existed, as ``codec_probe.py --ring`` reads it from that tree's
+# build on this card and toolkit: the SASS of the B=16 kernels without and
+# with the checksum pair, and sha256 digests of ``ring_rs_digests``.
+RING_RS_SASS = {"chk0": {"instructions": 5510, "registers": 128,
+                         "local_bytes": 0},
+                "chk1": {"instructions": 5882, "registers": 128,
+                         "local_bytes": 0}}
+RING_RS_DIGESTS = {
+    "4MiB": "5fdc459c64f7ed55eae377bba9e24919593747c7f50a268ba5ba90cb36aabf6d",
+    "mlp": "1daeba8d1c161cf76091f9fb52e6e498d468e98352fd67c9c76512036fc90e7a"}
+ABLATE_OPS = {"enc": 8, "dec": 3}   # a hop's operations an element of x
+
+
+def ring_rs_sass(this_tree=True) -> dict:
+    """SASS stats of the B=16 ring_rs kernels without and with the pair:
+    this tree's ablate=None instantiations (``...ELi127EE``), or a tree's
+    from before the stage parameter (``...ELb0EEv``)."""
+    stats = {}
+    for chk in (0, 1):
+        pat = (f"ring_rs_kernelILi16ELb{chk}ELi127EE" if this_tree
+               else f"ring_rs_kernelILi16ELb{chk}EEv")
+        st = sass_stats("ring_rs.cu", (pat,))[pat]
+        stats[f"chk{chk}"] = {k: st[k] for k in ("instructions", "registers",
+                                                 "local_bytes")}
+    return stats
+
+
+def ring_rs_digests(dev) -> dict:
+    """sha256 of ``ring_reduce_scatter_update_fused``'s outputs (SGD, BFP
+    sublane) on seeded inputs, at 4 MiB a rank and at the MLP's shape
+    (n=8), so two trees' kernels compare bit for bit."""
+    import hashlib
+    import torch
+    from fpga_ai_nic_tpu_torch import optim
+    from fpga_ai_nic_tpu_torch.ops import ring_cuda
+    from fpga_ai_nic_tpu_torch.utils.config import BFPConfig, OptimizerConfig
+    hyper = optim.fused_hyperparams(
+        OptimizerConfig(kind="sgd", learning_rate=0.1), 0, device=dev)
+    out = {}
+    for label, L in (("4MiB", 1 << 20), ("mlp", 41_975_808)):
+        g = torch.Generator(device=dev).manual_seed(11)
+        x = torch.randn((8, L), generator=g, device=dev)
+        w = torch.randn((8, L // 8), generator=g, device=dev) * 0.02
+        gs, ws, _ = ring_cuda.ring_reduce_scatter_update_fused(
+            x, w, {}, hyper, opt_kind="sgd",
+            compression=BFPConfig(codec="pallas"))
+        h = hashlib.sha256(gs.cpu().numpy().tobytes())
+        h.update(ws.cpu().numpy().tobytes())
+        out[label] = h.hexdigest()
+        del x, w, gs, ws
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage_work(stage, streaming, n, L, opt_kind):
+    """(bytes, operations) an ablate= stage must do at [n, L]: its x loads
+    (hop 0's, and the n-1 later ranks'), the write of g (or one word a
+    thread without it), the optimizer's shards; encode and decode
+    operations a hop and element (``ABLATE_OPS``), the update's."""
+    from fpga_ai_nic_tpu_torch.ops import ring_cost, ring_cuda as rc
+    C = L // n
+    mask = 127 if stage is None else rc.ABLATE_MASKS[streaming][stage]
+    ld, enc, stld = mask & rc.ST_LD, mask & rc.ST_ENC, mask & rc.ST_STLD
+    dec, wb, upd = mask & rc.ST_DEC, mask & rc.ST_WB, mask & rc.ST_UPD
+    loads = (1 if ld else 0) + ((n - 1) if stld or (ld and not dec) else 0)
+    nbytes = 4 * n * C * loads + (4 * n * C if wb else n * C // 16)
+    ops = (n - 1) * n * C * ((ABLATE_OPS["enc"] if enc else 0)
+                             + (ABLATE_OPS["dec"] if dec else 0))
+    if upd and opt_kind:
+        nbytes += 4 * n * C * 2 * (1 + ring_cost.OPT_N_STATE[opt_kind])
+        ops += n * C * ring_cost.OPT_FLOPS_PER_ELEM[opt_kind]
+    return nbytes, ops
+
+
+def ring_cost_stages(dev) -> dict:
+    """B.a: ``ops.ring_cost.decompose`` driven by the ring reduce-scatter
+    kernel's ablate= instantiations, timed by device time: at the MLP's
+    shape (n=8, 41,975,808 f32, streaming stages, the SGD update) and at 4
+    MiB a rank (resident stages, no optimizer).  Every stage of
+    ``stages_for`` is measured (a stage error fails the phase).  Before
+    them: the ablate=None instantiation's SASS and output digests against
+    the tree from before the stage parameter (``RING_RS_SASS``,
+    ``RING_RS_DIGESTS``), and its bits against the plain version at both
+    shapes."""
+    import torch
+    from fpga_ai_nic_tpu_torch import optim
+    from fpga_ai_nic_tpu_torch.ops import ring_cost, ring_cuda
+    from fpga_ai_nic_tpu_torch.utils.config import (
+        BFPConfig, OptimizerConfig, OptimizerSpec)
+    sass = ring_rs_sass()
+    digests = ring_rs_digests(dev)
+    emit(phase="ring_rs_unchanged", sass=sass, pinned_sass=RING_RS_SASS,
+         digests=digests, pinned_digests=RING_RS_DIGESTS)
+    if sass != RING_RS_SASS or digests != RING_RS_DIGESTS:
+        raise AssertionError("the ablate=None ring_rs kernel changed: "
+                             f"{sass} / {digests}")
+    cfg = BFPConfig(codec="pallas")
+    n = 8
+    ring_cuda.ABLATE_LAUNCHES.clear()
+    rows, decs = {}, {}
+    for label, L, streaming, opt in (("mlp", 41_975_808, True, "sgd"),
+                                     ("4MiB", 1 << 20, False, None)):
+        C = L // n
+        x = torch.randn((n, L), generator=torch.Generator(device=dev)
+                        .manual_seed(13), device=dev)
+        se = ring_cuda.pick_slice_elems(C, 8192, cfg.block_size)
+        if opt:
+            def run(ab):
+                return ring_cuda.loopback_update_microbench(
+                    x, n, opt_kind=opt, compression=cfg, slice_elems=se,
+                    streaming=streaming, ablate=ab)
+            zeros = torch.zeros((n, C), device=dev)
+            plain = ring_cuda.ring_reduce_scatter_update_plain(
+                x, zeros, {k: zeros for k in OptimizerSpec(
+                    kind=opt).state_keys},
+                optim.fused_hyperparams(OptimizerConfig(
+                    kind=opt, learning_rate=1e-3), 0, device=dev),
+                opt_kind=opt, compression=cfg)[1]
+            del zeros
+        else:
+            def run(ab):
+                return ring_cuda.loopback_microbench(
+                    x, n, compression=cfg, slice_elems=se,
+                    streaming=streaming, ablate=ab)
+            plain = ring_cuda.ring_reduce_scatter_update_plain(
+                x, None, {}, None, opt_kind=None, compression=cfg)[0]
+        require_equal(f"ring_rs ablate=None at {label}", [(run(None),
+                                                           plain)])
+        del plain
+        plain_ms = cuda_ms(lambda: ring_cuda.ring_reduce_scatter_update_plain(
+            x, None, {}, None, opt_kind=None, compression=cfg), 2)
+        times = {}
+
+        def measure(ab):
+            times[ab] = device_ms(lambda: run(ab), 10, ("ring_rs_kernel",))
+            return times[ab] * 1e-3
+
+        dec = ring_cost.decompose(measure, streaming, 4 * n * L,
+                                  fused_opt=opt is not None)
+        want = set(ring_cost.stages_for(streaming, opt is not None))
+        if dec.get("stage_errors") or set(dec["stages"]) != want:
+            raise AssertionError(f"ring_cost_stages ({label}): "
+                                 f"{dec.get('stage_errors')}, measured "
+                                 f"{sorted(dec['stages'])} of {sorted(want)}")
+        for st in (None,) + tuple(ring_cost.stages_for(streaming,
+                                                       opt is not None)):
+            nb, ops = stage_work(st, streaming, n, L, opt)
+            rows[(label, st)] = {"ms": times[st], "bound": bound(nb, ops),
+                                 "plain_ms": plain_ms, "streaming": streaming,
+                                 "opt_kind": opt, "shape": f"n={n}, L={L}"}
+        emit(phase="ring_cost_stages", shape=label, n=n, L=L,
+             streaming=streaming, opt_kind=opt,
+             stage_ms={str(k): v for k, v in times.items()},
+             stage_bound_ms={str(st): rows[(label, st)]["bound"][0]
+                             for st in times},
+             decompose=dec)
+        decs[label] = dec
+        del x
+        torch.cuda.empty_cache()
+    launches = {f"{'stream' if k[0] else 'resident'}:{k[1]}": v
+                for k, v in ring_cuda.ABLATE_LAUNCHES.items()}
+    return {"rows": rows, "decompose": decs, "launches": launches,
+            "sass": sass}
 
 
 # -- integrity: the ring's checksum pair and the row checksum kernel ----------
@@ -4960,6 +5396,11 @@ def main() -> int:
     # -- 4b. the main path with integrity checks, and its fault controls ----------
     integ_launches = integrity_path(dev, kernels, mcfg, cfg_main, bx, by)
 
+    # -- 4c-4e. ZeRO-3, the hierarchical ring, the ring kernel's stages -----------
+    fsdp = fsdp_path(dev, kernels, mcfg, sgd, bx, by)
+    hier = hier_path(dev, kernels, mcfg, sgd, bx, by)
+    stages = ring_cost_stages(dev)
+
     # -- 6. the int8 codec path and the convergence eval ---------------------------
     int8_launches = int8_train_path(dev, kernels, sgd, bx, by)
     del bx, by
@@ -5123,6 +5564,24 @@ def main() -> int:
     for name in ("bfp_encode", "bfp_decode"):
         launches[name] = codec_launches[name]
     launches["row_checksums"] = integ_launches["row_checksums"]
+    fsdp_from = ("fsdp_path (6 steps, MLP, fsdp=8: the gather's backward, "
+                 "no optimizer)")
+    results["ring_rs_update"]["extra"].update(
+        fsdp_launches=fsdp["launches"]["ring_rs_update"],
+        fsdp_launches_from=fsdp_from, fsdp_shape=fsdp["rs"]["shape"],
+        fsdp_device_ms=fsdp["rs"]["device_ms"],
+        fsdp_call_ms=fsdp["rs"]["call_ms"],
+        fsdp_plain_ms=fsdp["rs"]["plain_ms"],
+        fsdp_bound_ms=fsdp["rs"]["bound"][0],
+        fsdp_bound_by=fsdp["rs"]["bound"][1],
+        ablate_none_sass=stages["sass"])
+    results["ring_ag"]["extra"].update(
+        fsdp_launches=fsdp["launches"]["ring_ag"],
+        fsdp_launches_from="fsdp_path (6 steps: the gather's forward)")
+    for name in ("bfp_encode", "bfp_decode"):
+        results[name].setdefault("extra", {}).update(
+            hier_launches={k: r["launches"][name] for k, r in hier.items()},
+            hier_launches_from="hier_path (4 steps each: phase B's hops)")
     pair = ring_pair[("full", "sgd")]
     results["ring_rs_update"]["extra"].update(
         integrity_launches=integ_launches["ring_rs_update"],
@@ -5331,6 +5790,27 @@ def main() -> int:
                        bias_tol_ratio=max(max(tcb[c]["tol_ratio"].values())
                                           for c in tcb))
         out.append(row)
+    for (label, st), r in stages["rows"].items():
+        if st is None:
+            continue
+        form = "stream" if r["streaming"] else "resident"
+        bound_ms, bound_by = r["bound"]
+        out.append({
+            "name": f"ring_rs_ablate[{label}:{form}:{st}]", "route": "cuda",
+            "source": PORT + "/csrc/ring_rs.cu",
+            "replaces": REF + ("/ops/ring_pallas.py:777" if r["streaming"]
+                               else "/ops/ring_pallas.py:397"),
+            "launches": stages["launches"][f"{form}:{st}"],
+            "launches_from": "ring_cost_stages",
+            "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": r["shape"], "opt_kind": r["opt_kind"],
+            "ms_is": "device time", "full_kernel_ms": stages["rows"][
+                (label, None)]["ms"],
+            "max_abs_err_of": ("the ablate=None instantiation against the "
+                               "plain version at this shape (an ablated "
+                               "variant computes garbage by design)"),
+            "plain_ms_of": "the plain reduce-scatter at this shape"})
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

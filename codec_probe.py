@@ -3,6 +3,7 @@
 
     python3 codec_probe.py [--root DIR] [--control] [--step] [--flash]
                            [--flash64]
+    python3 codec_probe.py --ring [--root DIR]
 
 Times ``int8_encode`` (both roundings), ``int8_decode``, ``bfp_encode`` and
 ``bfp_decode`` at the main paths' shapes (``chip_smoke.py``'s), each by the
@@ -31,8 +32,16 @@ builds the head_dim-64 forward, dq and dk/dv for other blocks an SM than
 ``DQ_BLOCKS<64>`` / ``DKV_BLOCKS<64>``, compiled beside the port's
 libraries) and times each
 build's launch at BERT-base's attention shape with the key bias (device
-time), beside its registers and spills.  Each result is one JSON line;
-the last line sums them up.  Without a card it exits nonzero.
+time), beside its registers and spills.  ``--ring`` alone (no codec
+timing) reads the ring reduce-scatter kernel of the checkout at
+``--root``: the SASS instructions, registers and local bytes of its B=16
+instantiations without and with the checksum pair (named as either tree
+builds them: ``...ELi127EE`` since the ablate= stage parameter, ``...EEv``
+before it), sha256 digests of its outputs on seeded inputs
+(``chip_smoke.ring_rs_digests``) and its device time at 4 MiB a rank and at
+the MLP's shape (SGD); run it on the parent and this tree in one call.
+Each result is one JSON line; the last line sums them up.  Without a card
+it exits nonzero.
 """
 
 from __future__ import annotations
@@ -362,6 +371,31 @@ def flash64_blocks(cs, dev) -> dict:
     return rows
 
 
+def ring_rows(cs, dev) -> dict:
+    """The ring reduce-scatter kernel of the imported tree: SASS of its B=16
+    instantiations, output digests, device time (SGD) at two shapes."""
+    import torch
+    from fpga_ai_nic_tpu_torch import optim
+    from fpga_ai_nic_tpu_torch.ops import _build, ring_cuda
+    from fpga_ai_nic_tpu_torch.utils.config import BFPConfig, OptimizerConfig
+    _build.build(("ring_rs.cu",))
+    out = {"sass": cs.ring_rs_sass(hasattr(ring_cuda, "ABLATE_MASKS")),
+           "digests": cs.ring_rs_digests(dev)}
+    hyper = optim.fused_hyperparams(
+        OptimizerConfig(kind="sgd", learning_rate=0.1), 0, device=dev)
+    for label, L in (("4MiB", 1 << 20), ("mlp", 41_975_808)):
+        g = torch.Generator(device=dev).manual_seed(11)
+        x = torch.randn((8, L), generator=g, device=dev)
+        w = torch.randn((8, L // 8), generator=g, device=dev) * 0.02
+        out[label + "_device_ms"] = cs.device_ms(
+            lambda: ring_cuda.ring_reduce_scatter_update_fused(
+                x, w, {}, hyper, opt_kind="sgd",
+                compression=BFPConfig(codec="pallas")), 20,
+            ("ring_rs_kernel",))
+        del x, w
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE,
@@ -370,6 +404,7 @@ def main() -> int:
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--flash", action="store_true")
     ap.add_argument("--flash64", action="store_true")
+    ap.add_argument("--ring", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -386,8 +421,13 @@ def main() -> int:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[0]
-    _build.build(("int8_codec.cu", "bfp_codec.cu"))
     out = {"root": root, "card": smi}
+    if args.ring:
+        out["ring"] = ring_rows(cs, dev)
+        cs.emit(phase="probe_ring", **out["ring"])
+        print(json.dumps(out), flush=True)
+        return 0
+    _build.build(("int8_codec.cu", "bfp_codec.cu"))
     cs.emit(phase="probe_start", **out)
 
     N = cs.INT8_PATH_ELEMS

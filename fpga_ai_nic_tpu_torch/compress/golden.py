@@ -1,10 +1,11 @@
 """Numpy golden models of the int8 and top-k codecs and the codec-generic
-ring golden — the port's own copy of the JAX package's
+flat and hierarchical ring goldens — the port's own copy of the JAX package's
 ``compress/golden.py`` (numpy only).
 
 The golden is the bit-level specification: the port's torch codecs
 (``compress.int8``, ``compress.topk``), the CUDA int8 kernels
-(``csrc/int8_codec.cu``) and the plain rings (``ops.ring``) are held equal
+(``csrc/int8_codec.cu``) and the plain rings (``ops.ring``,
+``ops.ring_hier``) are held equal
 to it bit for bit, including top-k's tie rule and int8's stochastic-rounding
 hash.
 
@@ -224,6 +225,98 @@ def ring_all_gather(owned: np.ndarray,
 def ring_all_reduce(shards: np.ndarray,
                     roundtrip: Optional[RoundtripFn] = None) -> np.ndarray:
     return ring_all_gather(ring_reduce_scatter(shards, roundtrip), roundtrip)
+
+
+# ---------------------------------------------------------------------------
+# hierarchical (intra x inter) 2-stage ring golden (spec for ops.ring_hier:
+# raw f32 on the fast intra hop, ``roundtrip`` only on the slow inter hop)
+# ---------------------------------------------------------------------------
+
+def hier_reduce_scatter(shards: np.ndarray, n_intra: int,
+                        roundtrip: Optional[RoundtripFn] = None
+                        ) -> np.ndarray:
+    """[n, L] per-rank inputs -> [n, L//n] owned reduced chunks with
+    natural ownership (rank d ends with chunk d): phase A, the codec-free
+    flat-ring schedule inside each group of ``n_intra`` consecutive ranks
+    (unit = the ng*C elements whose intra index matches), then phase B, the
+    flat-ring schedule across groups with ``roundtrip`` on every hop
+    payload."""
+    n, L = shards.shape
+    ni = int(n_intra)
+    assert n % ni == 0 and L % n == 0, (n, ni, L)
+    ng, C = n // ni, L // n
+    # units[d, j'] = concat over g' of chunk g'*ni + j' of rank d
+    units = (shards.reshape(n, ng, ni, C).astype(np.float32)
+             .transpose(0, 2, 1, 3).reshape(n, ni, ng * C).copy())
+    for s in range(ni - 1):          # phase A: intra, raw (no roundtrip)
+        sends = [units[d, (d % ni - s - 1) % ni] for d in range(n)]
+        for d in range(n):
+            g, j = d // ni, d % ni
+            src = g * ni + (j - 1) % ni          # intra predecessor
+            units[d, (j - s - 2) % ni] += sends[src]
+    # own[d, q] = group-partial sum of chunk q*ni + (d % ni)
+    own = np.stack([units[d, d % ni].reshape(ng, C) for d in range(n)])
+    for s in range(ng - 1):          # phase B: inter, codec on the wire
+        sends = [_rt(own[d, (d // ni - s - 1) % ng], roundtrip)
+                 for d in range(n)]
+        for d in range(n):
+            g, j = d // ni, d % ni
+            src = ((g - 1) % ng) * ni + j        # inter predecessor
+            own[d, (g - s - 2) % ng] += sends[src]
+    return np.stack([own[d, d // ni] for d in range(n)])
+
+
+def hier_all_gather(owned: np.ndarray, n_intra: int,
+                    roundtrip: Optional[RoundtripFn] = None) -> np.ndarray:
+    """[n, C] owned chunks -> [n, n*C] replicas: the codec inter gather
+    first (each chunk quantized once when it crosses the slow boundary,
+    forwarded verbatim), then the raw intra gather.  With n_inter == 1
+    nothing is quantized (no slow boundary exists)."""
+    n, C = owned.shape
+    ni = int(n_intra)
+    assert n % ni == 0, (n, ni)
+    ng = n // ni
+    owned = owned.astype(np.float32)
+    # phase B': inter all-gather across groups (members share j)
+    blocks = np.zeros((n, ng, C), np.float32)
+    if ng > 1:
+        carry = np.stack([_rt(owned[d], roundtrip) for d in range(n)])
+        for d in range(n):
+            blocks[d, d // ni] = carry[d]
+        for s in range(ng - 1):
+            nxt = np.empty_like(carry)
+            for d in range(n):
+                g, j = d // ni, d % ni
+                nxt[d] = carry[((g - 1) % ng) * ni + j]
+            carry = nxt
+            for d in range(n):
+                blocks[d, (d // ni - s - 1) % ng] = carry[d]
+    else:
+        for d in range(n):
+            blocks[d, 0] = owned[d]
+    # phase A': raw intra all-gather of the [ng*C] block
+    flat = blocks.reshape(n, ng * C)
+    out = np.zeros((n, ni, ng * C), np.float32)
+    carry = flat.copy()
+    for d in range(n):
+        out[d, d % ni] = carry[d]
+    for s in range(ni - 1):
+        nxt = np.empty_like(carry)
+        for d in range(n):
+            g, j = d // ni, d % ni
+            nxt[d] = carry[g * ni + (j - 1) % ni]
+        carry = nxt
+        for d in range(n):
+            out[d, (d % ni - s - 1) % ni] = carry[d]
+    # out[d, p] = chunks {q*ni + p}; restore natural chunk order
+    return (out.reshape(n, ni, ng, C).transpose(0, 2, 1, 3)
+            .reshape(n, n * C))
+
+
+def hier_all_reduce(shards: np.ndarray, n_intra: int,
+                    roundtrip: Optional[RoundtripFn] = None) -> np.ndarray:
+    return hier_all_gather(hier_reduce_scatter(shards, n_intra, roundtrip),
+                           n_intra, roundtrip)
 
 
 # ---------------------------------------------------------------------------

@@ -63,6 +63,35 @@
 // same registers, so on one card the pair checks the encode/decode bytes,
 // not a link.  The sums are uint32 and wrap, so the order of the atomics
 // does not change them: the pair is the same on every run.
+//
+// The ablate= stages (ring_pallas.py _rs_kernel ablate=, :450-464, and
+// _rs_stream_kernel, :816-827) compile one part of the same chain walk, so
+// timing each variant attributes the ring's time to its stages
+// (ops/ring_cost.py).  The stage is the kernel's last template parameter,
+// a mask of these flags (Stage below), each the counterpart of a flag of
+// the TPU kernels:
+//   ld    hop 0's load of x[c+1], and without decode the load of each
+//         sender's x that the next encode reads (the TPU's slice load);
+//   stld  each later rank's load of its x[r, c] (the store-load);
+//   enc   the encode; rdma the hand-off of the frame to the next rank;
+//   dec   the decode and add; wb the owner's write of g; upd the update.
+// ST_ALL is the kernel as it was (ablate=None): the template parameter was
+// added last, the other stages' code is compiled out of it, so it keeps its
+// SASS and its bits.  The TPU's VMEM-resident kernel reads x and writes g
+// through the pallas_call's own DMAs whatever ablate says, so on the card
+// the resident stages each carry ld, stld and wb (ops/ring_cuda.py
+// ABLATE_MASKS); the streaming ones are JAX's do_* sets.
+//
+// An ablated variant computes garbage by design (JAX's too), but all of
+// it: a stage's result feeds a word each thread writes, so the compiler
+// removes nothing the variant times.  What stands in for a missing stage:
+// registers seeded from the thread index, and a decode without its encode
+// reads a stale frame with the running sum's bits XORed into it (one logic
+// op a word), so each hop's decode depends on the hop before, as it does
+// through the encode, and none is hoisted or dropped.
+// On one card rdma has no wire: the frame is the thread's registers, so
+// its variant reads near the skeleton's time, and only rings across cards
+// (ROADMAP A.11) give the wire a time of its own.
 #include <cstring>
 
 #include "bfp.cuh"
@@ -70,6 +99,11 @@
 using namespace bfp;
 
 enum OptKind { OPT_NONE = 0, OPT_SGD = 1, OPT_MOMENTUM = 2, OPT_ADAMW = 3 };
+// The ablate= stage flags (header); ST_ALL = ablate=None.
+enum Stage {
+  ST_LD = 1, ST_ENC = 2, ST_RDMA = 4, ST_STLD = 8, ST_DEC = 16, ST_WB = 32,
+  ST_UPD = 64, ST_ALL = 127
+};
 // optim.py hyper layout: H_LR, H_WD, H_MOM, H_B2, H_EPS, H_RC1, H_RC2
 enum Hyper { H_LR = 0, H_WD, H_MOM, H_B2, H_EPS, H_RC1, H_RC2 };
 
@@ -147,13 +181,71 @@ __device__ __forceinline__ unsigned warp_sum(unsigned v) {
   return v;
 }
 
+// What the ablated variants put where a stage is compiled out (header).
+__device__ __forceinline__ unsigned fold4(float4 v) {
+  return __float_as_uint(v.x) ^ __float_as_uint(v.y) ^ __float_as_uint(v.z) ^
+         __float_as_uint(v.w);
+}
+
+__device__ __forceinline__ float4 xor4(float4 a, float4 b) {
+  return make_float4(__uint_as_float(__float_as_uint(a.x) ^ __float_as_uint(b.x)),
+                     __uint_as_float(__float_as_uint(a.y) ^ __float_as_uint(b.y)),
+                     __uint_as_float(__float_as_uint(a.z) ^ __float_as_uint(b.z)),
+                     __uint_as_float(__float_as_uint(a.w) ^ __float_as_uint(b.w)));
+}
+
+__device__ __forceinline__ char4 xor_c4(char4 c, unsigned k) {
+  unsigned u = as_u32(c) ^ k;
+  char4 out;
+  memcpy(&out, &u, 4);
+  return out;
+}
+
+template <int B>
+__device__ __forceinline__ unsigned fold_frame(const char4 (&m)[B], char4 s) {
+  unsigned f = as_u32(s);
+#pragma unroll
+  for (int k = 0; k < B; ++k) f ^= as_u32(m[k]);
+  return f;
+}
+
+// Values in [1, 2) from the thread index: the running sum without a load.
+template <int B>
+__device__ __forceinline__ void seed_quad(long long gid, float4 (&v)[B]) {
+#pragma unroll
+  for (int k = 0; k < B; ++k) {
+    const unsigned h = ((unsigned)gid * 0x9E3779B9u) ^ (unsigned)(k * 0x85EBCA6B);
+    v[k] = make_float4(__uint_as_float(0x3F800000u | (h & 0x7FFFFFu)),
+                       __uint_as_float(0x3F800000u | ((h >> 3) & 0x7FFFFFu)),
+                       __uint_as_float(0x3F800000u | ((h >> 6) & 0x7FFFFFu)),
+                       __uint_as_float(0x3F800000u | ((h >> 9) & 0x7FFFFFu)));
+  }
+}
+
+// A frame without an encode: mantissa bytes from the thread index, scale
+// exponents in [-4, 3].
+template <int B>
+__device__ __forceinline__ void seed_frame(long long gid, char4 (&m)[B],
+                                           char4& s) {
+#pragma unroll
+  for (int k = 0; k < B; ++k)
+    m[k] = xor_c4(make_char4(0, 0, 0, 0), (unsigned)gid * 0x01000193u + k);
+  const signed char e = (signed char)((gid & 7) - 4);
+  s = make_char4(e, e, e, e);
+}
+
 // One thread's chain: the quad at offset `off` of chunk c through every
 // rank, then the owner's writes.  With CHK, each hop's frame checksum is
 // summed over the warp (one tile row of one chunk: the same slice, sender
 // and receiver) and added to the block's per-rank partials `spair`.
-template <int B, bool CHK>
+template <int B, bool CHK, int ST = ST_ALL>
 __device__ __forceinline__ void rs_chain(const RsArgs& a, long long gid,
                                          unsigned* spair) {
+  constexpr bool LD = ST & ST_LD, ENC = ST & ST_ENC, STLD = ST & ST_STLD;
+  constexpr bool DEC = ST & ST_DEC, WB = ST & ST_WB, UPD = ST & ST_UPD;
+  constexpr bool ABL = ST != ST_ALL;        // an ablate= variant
+  static_assert(!ABL || !CHK, "ablated variants carry no checksum pair");
+  static_assert(!ABL || !(ENC && DEC), "encode with decode is ST_ALL");
   const long long per_chunk = a.C / (4LL * B);
   const int c = (int)(gid / per_chunk);                      // the chunk
   const long long rem = gid % per_chunk;
@@ -173,19 +265,43 @@ __device__ __forceinline__ void rs_chain(const RsArgs& a, long long gid,
 
   float4 v[B];
   int r = (c + 1) % a.n;                  // hop 0: rank c+1 sends x as is
-  {
+  [[maybe_unused]] unsigned sink = 0u;    // an ablated variant's result
+  if constexpr (LD) {
     const float* xs = xc + r * row;
 #pragma unroll
     for (int k = 0; k < B; ++k)
       v[k] = *reinterpret_cast<const float4*>(xs + k * LANES);
+    if constexpr (ABL) {                  // a decode may overwrite it
+#pragma unroll
+      for (int k = 0; k < B; ++k) sink ^= fold4(v[k]);
+    }
+  } else {
+    seed_quad<B>(gid, v);
   }
+  [[maybe_unused]] char4 stale[B];        // the frame without an encode
+  [[maybe_unused]] char4 stale_s;
+  if constexpr (!ENC) seed_frame<B>(gid, stale, stale_s);
   for (int j = 1; j < a.n; ++j) {         // rank r+1 receives r's frame
     const int sender = r;
     r = (r + 1 == a.n) ? 0 : r + 1;
     const float* xs = xc + r * row;
     char4 m[B];
     char4 s;
-    encode_quad<B>(v, a.mant_bits, a.rtz, m, s);
+    if constexpr (ENC) {
+      encode_quad<B>(v, a.mant_bits, a.rtz, m, s);
+    } else {
+      // a decode's stale frame takes the running sum's bits, so each hop
+      // depends on the one before, as through the encode
+#pragma unroll
+      for (int k = 0; k < B; ++k)
+        m[k] = DEC ? xor_c4(stale[k], __float_as_uint(v[k].x)) : stale[k];
+      s = DEC ? xor_c4(stale_s, __float_as_uint(v[0].y) & 0x01010101u)
+              : stale_s;
+    }
+    if constexpr (ABL) {
+      sink ^= (unsigned)sender;
+      if constexpr (ENC) sink ^= fold_frame<B>(m, s);
+    }
     if constexpr (CHK) {
       // the emission checksum of the bytes encode_quad made; the bytes
       // decode4 reads below are these registers, so the arrival checksum
@@ -200,17 +316,43 @@ __device__ __forceinline__ void rs_chain(const RsArgs& a, long long gid,
         atomicAdd(spair + 2 * r + 1, hw * part);
       }
     }
+    if constexpr (DEC) {
 #pragma unroll
-    for (int k = 0; k < B; ++k)
-      v[k] = add4(*reinterpret_cast<const float4*>(xs + k * LANES),
-                  decode4(m[k], s));
+      for (int k = 0; k < B; ++k) {
+        float4 xk;
+        if constexpr (STLD)
+          xk = *reinterpret_cast<const float4*>(xs + k * LANES);
+        else
+          xk = v[k];
+        v[k] = add4(xk, decode4(m[k], s));
+      }
+    } else if constexpr (LD || STLD) {
+      // no sum: the load is the next encode's input (ld), or kept alive
+      // in the running registers (stld, the hbm and resident variants)
+#pragma unroll
+      for (int k = 0; k < B; ++k) {
+        const float4 xk = *reinterpret_cast<const float4*>(xs + k * LANES);
+        v[k] = (ENC || !STLD) ? xk : xor4(v[k], xk);
+      }
+    }
+    if constexpr (ABL && !ENC && !DEC) sink ^= fold_frame<B>(m, s);
   }
 
   // r == c: the owner of the chunk
   const long long own = (long long)c * a.C + off;
+  if constexpr (WB) {
+    if constexpr (ABL)                    // the variant's other results
+      v[0].x = __uint_as_float(__float_as_uint(v[0].x) ^ sink);
 #pragma unroll
-  for (int k = 0; k < B; ++k)
-    *reinterpret_cast<float4*>(a.g_out + own + k * LANES) = v[k];
+    for (int k = 0; k < B; ++k)
+      *reinterpret_cast<float4*>(a.g_out + own + k * LANES) = v[k];
+  } else {
+    // one word a thread: the variant's registers folded together
+#pragma unroll
+    for (int k = 0; k < B; ++k) sink ^= fold4(v[k]);
+    a.g_out[own] = __uint_as_float(sink);
+  }
+  if constexpr (!UPD) return;
   if (a.opt_kind == OPT_NONE) return;
   const float nf = (float)a.n;
 #pragma unroll
@@ -253,14 +395,14 @@ __device__ __forceinline__ void rs_chain(const RsArgs& a, long long gid,
 // most 128 registers a thread) for B <= 16: left free, the compiler gave
 // the B = 16 kernel 164 registers once rs_chain became a function, one
 // block an SM, and 0.80 ms in place of 0.67 at the MLP shape.
-template <int B, bool CHK>
+template <int B, bool CHK, int ST = ST_ALL>
 __global__ void __launch_bounds__(THREADS, B <= 16 ? 2 : 1)
     ring_rs_kernel(RsArgs a) {
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long live = a.C / (4LL * B) * a.n;
   if constexpr (!CHK) {
     if (gid >= live) return;
-    rs_chain<B, false>(a, gid, nullptr);
+    rs_chain<B, false, ST>(a, gid, nullptr);
   } else {
     extern __shared__ unsigned spair[];                  // [n, 2]
     for (int i = threadIdx.x; i < 2 * a.n; i += blockDim.x) spair[i] = 0u;
@@ -298,5 +440,46 @@ extern "C" int ring_rs_launch(const float* x, float* g_out, const float* w,
     ring_rs_kernel<BS, false><<<grid_for(n_threads), THREADS, 0, stream>>>(a)
   BFP_DISPATCH_BLOCK(block_size, RS)
 #undef RS
+  return (int)cudaGetLastError();
+}
+
+// One launch of an ablate= variant (the Stage mask `stage`): no checksum
+// pair; the masks ops/ring_cuda.py ABLATE_MASKS names, anything else
+// refused with cudaErrorInvalidValue.
+extern "C" int ring_rs_ablate_launch(const float* x, float* g_out,
+                                     const float* w, float* w_out,
+                                     const float* m_in, float* m_out,
+                                     const float* v_in, float* v_out,
+                                     const float* hyper, int n, long long C,
+                                     int block_size, int mant_bits, int rtz,
+                                     int opt_kind, int stage,
+                                     cudaStream_t stream) {
+  const RsArgs a{x, g_out, w, w_out, m_in, m_out, v_in, v_out, hyper,
+                 nullptr, n, C, 0, mant_bits, rtz, opt_kind};
+  const long long n_threads = (long long)n * (C / (4LL * block_size));
+  constexpr int IO = ST_LD | ST_STLD | ST_WB;   // the resident form's DMAs
+#define RS_ST(BS, MASK)                                                     \
+  case MASK:                                                                \
+    ring_rs_kernel<BS, false, MASK><<<grid_for(n_threads), THREADS, 0,     \
+                                      stream>>>(a);                         \
+    break
+#define RS_ABL(BS)                                                          \
+  switch (stage) {                                                          \
+    RS_ST(BS, 0);                                                           \
+    RS_ST(BS, ST_LD | ST_ENC);                                              \
+    RS_ST(BS, ST_RDMA);                                                     \
+    RS_ST(BS, ST_STLD | ST_DEC | ST_WB);                                    \
+    RS_ST(BS, IO);                                                          \
+    RS_ST(BS, ST_UPD);                                                      \
+    RS_ST(BS, IO | ST_ENC);                                                 \
+    RS_ST(BS, IO | ST_RDMA);                                                \
+    RS_ST(BS, IO | ST_DEC);                                                 \
+    RS_ST(BS, IO | ST_UPD);                                                 \
+    default:                                                                \
+      return (int)cudaErrorInvalidValue;                                    \
+  }
+  BFP_DISPATCH_BLOCK(block_size, RS_ABL)
+#undef RS_ABL
+#undef RS_ST
   return (int)cudaGetLastError();
 }

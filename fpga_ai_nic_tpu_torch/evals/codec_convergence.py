@@ -5,21 +5,24 @@ Train the same model through the same explicit ring, compressed and
 uncompressed, and compare final losses.  Every arm uses ``impl="ring"``
 and one trainer, the ZeRO-1 ``DPTrainer`` (``trainer="dp"``, the default
 here and the one the comparison uses) or the bucketed ``DDPTrainer``
-(``"ddp"``, which carries no error-feedback residual), and all arms are
-paired on common random numbers (the same initial weights and batch
-stream per seed), so the final-loss ratio isolates the wire codec; for
+(``"ddp"``, which carries no error-feedback residual); the ``*_fsdp``
+models take the ZeRO-3 ``FSDPTrainer`` whatever ``trainer`` says, its
+compressed gather quantizing the weight stream and its backward
+reduce-scatter the gradient stream.  All arms are paired on common random
+numbers (the same initial weights and batch stream per seed), so the
+final-loss ratio isolates the wire codec; for
 error-feedback codecs (top-k) the arm also carries the residual through
 ``TrainState.codec_state``.
 
 Ported: ``run_curve``, ``run_codec_comparison``, ``codec_static_table``
 and ``codec_error_table`` for the models ``mlp``, ``mlp_canonical``,
 ``bert`` (the tiny BERT on masked-LM batches of 32 tokens, each carrying
-the global target count, ``models.bert.with_global_count``) and
+the global target count, ``models.bert.with_global_count``),
 ``resnet`` (the tiny ResNet on 16x16 images, sync-BN over the ranks
-through ``models.resnet.dp_loss_fn``).  Not ported: ``mlp_fsdp`` (the
-ZeRO-3 trainer, A.5), which raises ``NotImplementedError``.  The batch
-stream is the reference's numpy stream; the initial weights come from a
-torch generator unless ``params=`` hands them in (a test passes JAX's).
+through ``models.resnet.dp_loss_fn``) and ``mlp_fsdp`` (the eval MLP
+under ZeRO-3, ``parallel.fsdp``).  The batch stream is the reference's
+numpy stream; the initial weights come from a torch generator unless
+``params=`` hands them in (a test passes JAX's).
 """
 
 from __future__ import annotations
@@ -35,13 +38,13 @@ from ..device import DeviceLike, resolve_device
 from ..models import bert, mlp, resnet
 from ..ops import bfp, fused_update
 from ..parallel.ddp import DDPTrainer
+from ..parallel.fsdp import FSDPTrainer
 from ..parallel.mesh import VirtualRanks
 from ..parallel.train import DPTrainer
 from ..utils.config import (BFPConfig, CollectiveConfig, MeshConfig,
                             MLPConfig, OptimizerConfig, TrainConfig)
 
-MODELS = ("mlp", "mlp_canonical", "bert", "resnet")
-_UNPORTED = {"mlp_fsdp": "A.5"}
+MODELS = ("mlp", "mlp_canonical", "bert", "resnet", "mlp_fsdp")
 TRAINERS = {"dp": DPTrainer, "ddp": DDPTrainer}
 BERT_SEQ = 32               # the reference eval's masked-LM batches
 
@@ -54,16 +57,14 @@ DEFAULT_CODECS: Tuple[Tuple[str, Tuple], ...] = (
 
 
 def _check_model(model: str) -> None:
-    if model in _UNPORTED:
-        raise NotImplementedError(
-            f"model {model!r} is not ported: ROADMAP {_UNPORTED[model]}")
     if model not in MODELS:
         raise ValueError(model)
 
 
 def mlp_config(model: str) -> MLPConfig:
-    """The eval's MLP: 128-256-256-32 ("mlp"), or the reference
-    benchmark's 2048-wide layers with depth cut to 3 ("mlp_canonical")."""
+    """The eval's MLP: 128-256-256-32 ("mlp", "mlp_fsdp"), or the
+    reference benchmark's 2048-wide layers with depth cut to 3
+    ("mlp_canonical")."""
     _check_model(model)
     if model in ("bert", "resnet"):
         raise ValueError(f"{model} is not an MLP: see models.{model}")
@@ -119,7 +120,8 @@ def run_curve(model: str, steps: int = 200, *, batch: int = 32,
               params: Optional[dict] = None,
               device: DeviceLike = "cuda") -> Dict:
     """Train ``model`` for ``steps`` over ``n_dev`` virtual ranks through
-    the explicit ring (AdamW, lr 3e-3) with ``trainer`` ("dp" or "ddp").
+    the explicit ring (AdamW, lr 3e-3) with ``trainer`` ("dp" or "ddp";
+    ``FSDPTrainer`` over n_dev fsdp ranks for ``mlp_fsdp``).
     ``codec=None`` is the uncompressed baseline; ``mantissa_bits=m`` means
     BFP at that width.  Returns ``{"losses", "steps", "final_loss"}``,
     losses recorded every ``record_every`` steps; ``final_loss`` is the
@@ -134,14 +136,17 @@ def run_curve(model: str, steps: int = 200, *, batch: int = 32,
         codec = "bfp"
         codec_opts = tuple(codec_opts) + (("mantissa_bits", mantissa_bits),)
     dev = resolve_device(device)
+    fsdp = model.endswith("_fsdp")
     cfg = TrainConfig(
-        iters=steps, global_batch=batch, mesh=MeshConfig(dp=n_dev),
+        iters=steps, global_batch=batch,
+        mesh=MeshConfig(fsdp=n_dev) if fsdp else MeshConfig(dp=n_dev),
         collective=CollectiveConfig(impl="ring", codec=codec,
                                     codec_opts=tuple(codec_opts),
                                     bucket_elems=1 << 16),
         optimizer=OptimizerConfig(kind="adamw", learning_rate=3e-3))
     c = fused_update.resolve_codec(cfg.collective)
-    if trainer == "ddp" and c is not None and c.error_feedback:
+    if trainer == "ddp" and not fsdp and c is not None \
+            and c.error_feedback:
         raise ValueError("error-feedback codecs need trainer='dp' "
                          "(DDPTrainer does not carry the residual)")
     gen = torch.Generator().manual_seed(seed)
@@ -160,7 +165,8 @@ def run_curve(model: str, steps: int = 200, *, batch: int = 32,
         mcfg = mlp_config(model)
         loss_fn = lambda p, b: mlp.loss_fn(p, b, mcfg)  # noqa: E731
         params = mlp.init(gen, mcfg, dev) if params is None else params
-    tr = TRAINERS[trainer](loss_fn, VirtualRanks(n_dev, dev), cfg)
+    cls = FSDPTrainer if fsdp else TRAINERS[trainer]
+    tr = cls(loss_fn, VirtualRanks(n_dev, dev), cfg)
     state = tr.init_state(params)
     sharded = [tr.shard_batch(b) for b in batches]
     losses: List[float] = []

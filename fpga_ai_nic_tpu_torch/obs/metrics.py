@@ -1,7 +1,8 @@
-"""Serving-plane request telemetry — the port's own copy of
-``RequestSpans`` and ``percentile`` from the JAX package's
-``obs/metrics.py`` (those need no JAX; the rest of that module, the in-graph
-training metrics, is not ported).
+"""Serving-plane request telemetry and the trainers' static codec facts —
+the port's own copy of ``RequestSpans``, ``percentile`` and
+``codec_static_metrics`` from the JAX package's ``obs/metrics.py`` (those
+need no JAX; the rest of that module, the in-graph training metrics, is not
+ported).
 """
 
 from __future__ import annotations
@@ -11,7 +12,20 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from .events import EventStream
 
-__all__ = ["RequestSpans", "percentile"]
+__all__ = ["RequestSpans", "codec_static_metrics", "percentile"]
+
+
+def codec_static_metrics(codec: Any, n_elems: int) -> Dict[str, Any]:
+    """A codec's static facts for a trainer's ``obs_static_metrics``:
+    declared compression ratio, declared error bound, wire bytes of one
+    pass of an [n_elems] gradient ({} without a codec)."""
+    if codec is None:
+        return {}
+    return {"codec": codec.name,
+            "compression_ratio_vs_f32":
+                round(float(codec.compression_ratio_vs_f32), 4),
+            "declared_error_bound": float(codec.error_bound),
+            "wire_bytes_per_pass": int(codec.wire_bytes(n_elems))}
 
 
 def percentile(sorted_vals: List[float], q: float) -> float:

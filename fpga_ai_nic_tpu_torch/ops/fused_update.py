@@ -15,10 +15,18 @@ fused kernels carry the wire.
 Routing, as in the JAX package: ``fused_kernel=True`` on a CUDA tensor
 runs the fused CUDA ring (``ops.ring_cuda``) with the update on its final
 hop; everywhere else (a CPU tensor, ``impl="xla"``, the separate-op ring,
-n == 1) the same update formula (``optim.fused_apply_flat``) runs right
-after the reduce, and the ring takes the *configured* codec — with
-``BFPConfig(codec="pallas")`` that is the sublane layout, so the CPU route
-and the kernels quantize in the same blocks.
+``topology="hier"``, n == 1) the same update formula
+(``optim.fused_apply_flat``) runs right after the reduce, and the ring
+takes the *configured* codec — with ``BFPConfig(codec="pallas")`` that is
+the sublane layout, so the CPU route and the kernels quantize in the same
+blocks.  ``topology="hier"`` takes the two-stage rings of
+``ops.ring_hier`` (the codec on the slow inter hop only) for every
+collective; the config refuses it with ``fused_kernel``, as the JAX
+package's does.
+
+``AllGatherFlat`` is the gather as an autograd function, ZeRO-3's
+gather-on-use (``parallel.fsdp``): forward ``all_gather_flat``, backward
+``reduce_scatter`` of the cotangent.
 
 ``integrity=True`` on the three collectives appends the exact wire verdict
 (``ops.integrity``): frame conservation on the rings (the per-rank payload
@@ -38,6 +46,7 @@ import torch
 from . import integrity as integrity_lib
 from . import ring as ring_ops
 from . import ring_cuda
+from . import ring_hier
 from .. import optim
 from ..utils.config import CollectiveConfig, OptimizerConfig, OptimizerSpec
 
@@ -62,21 +71,28 @@ def resolve_codec(coll: CollectiveConfig):
 def pad_multiple(coll: CollectiveConfig, n: int) -> int:
     """Padding multiple of flat vectors fed to the n-way collective: each
     rank's chunk must be a whole number of codec units, and of
-    (block, 128)-lane tiles when the fused kernels carry the wire."""
+    (block, 128)-lane tiles when the fused kernels carry the wire or the
+    codec takes the sublane layout (``Codec.unit_elems``: its kernels take
+    whole tiles).  The JAX package pads to tiles on the fused route only;
+    its separate-op ring with a sublane codec asserts whole tiles at run
+    time instead, so this differs only where JAX's raises."""
     codec = resolve_codec(coll)
     if codec is not None:
         if coll.fused_kernel:
             return n * codec.pad_elems * ring_cuda.LANES
-        return n * codec.pad_elems
+        return n * codec.unit_elems(codec.pad_elems)
     return n
 
 
 def wire_bytes_for(coll: CollectiveConfig, L: int, n: int,
                    codec: Any = "__resolve__") -> int:
     """Per-rank wire bytes of one all-reduce of an [L]-element f32 vector
-    under this config; pass ``codec=None`` for the raw-f32 accounting."""
+    under this config (the topology's accounting); pass ``codec=None`` for
+    the raw-f32 accounting."""
     if codec == "__resolve__":
         codec = resolve_codec(coll)
+    if coll.topology == "hier":
+        return ring_hier.wire_bytes_per_device(L, n, coll.intra_size, codec)
     return ring_ops.wire_bytes_per_device(L, n, codec)
 
 
@@ -242,6 +258,10 @@ def reduce_scatter(flat_g: torch.Tensor, coll: CollectiveConfig,
     if coll.impl == "xla":
         out = flat_g.reshape(n, n, L // n).sum(dim=0)
         return (out, _true(out)) if integrity else out
+    if coll.topology == "hier":
+        return ring_hier.hier_reduce_scatter(
+            flat_g, coll.intra_size, compression=resolve_codec(coll),
+            slice_elems=coll.slice_elems, integrity=integrity)
     if _kernel_route(coll, flat_g):
         res = ring_cuda.ring_reduce_scatter_fused(
             flat_g, compression=_fused_bfp_cfg(coll),
@@ -262,11 +282,12 @@ def reduce_scatter_update(flat_g: torch.Tensor, w_own: torch.Tensor,
     Returns ``(g_own_sum [n, C], w_new [n, C], opt_state_new)``, and the
     wire verdict last with ``integrity``.  On the CUDA kernel route the
     update retires inside the kernel (``update_route_gatable`` is False
-    there); every other route applies the same formula after the reduce."""
+    there); every other route applies the same formula after the reduce.
+    ``topology="hier"`` always takes that shared-formula route."""
     spec = OptimizerSpec.from_optimizer(opt_cfg)
     n, L = flat_g.shape
     hyper = optim.fused_hyperparams(opt_cfg, step, device=flat_g.device)
-    if _kernel_route(coll, flat_g) and n > 1:
+    if _kernel_route(coll, flat_g) and n > 1 and coll.topology == "flat":
         res = ring_cuda.ring_reduce_scatter_update_fused(
             flat_g, w_own, opt_state, hyper, opt_kind=spec.kind,
             compression=_fused_bfp_cfg(coll),
@@ -289,7 +310,8 @@ def update_route_gatable(coll: CollectiveConfig, n: int = 0,
     step is the only recovery.  ``n`` 0 or ``device`` None mean unknown:
     the kernel route is then assumed reachable."""
     on_card = device is None or torch.device(device).type == "cuda"
-    return not (coll.fused_kernel and n != 1 and on_card)
+    return not (coll.fused_kernel and n != 1 and coll.topology == "flat"
+                and on_card)
 
 
 def error_feedback_encode(codec, flat_g: torch.Tensor, residual: torch.Tensor
@@ -310,15 +332,16 @@ def ring_all_reduce_routed(x: torch.Tensor, coll: CollectiveConfig
                            ) -> torch.Tensor:
     """Explicit-ring sum all-reduce [n, L] -> [n, L] (every row the sums)
     under the config's routing, as the JAX function routes it for the
-    bucketed DDP trainer: ``fused_kernel`` takes the fused BFP ring
+    bucketed DDP trainer: ``topology="hier"`` takes the two-stage rings
+    (``ring_hier.hier_all_reduce``), ``fused_kernel`` the fused BFP ring
     (``ring_cuda.ring_all_reduce_fused``: the kernels on a CUDA tensor,
     their plain versions on the CPU), otherwise the ``ops.ring`` rings with
-    the configured codec.  ``topology="hier"`` is not ported (ROADMAP
-    A.5).  No integrity seam: the DDP trainer refuses integrity_check, as
-    the JAX one does."""
+    the configured codec.  No integrity seam: the DDP trainer refuses
+    integrity_check, as the JAX one does."""
     if coll.topology == "hier":
-        raise NotImplementedError(
-            "topology='hier' (ops.ring_hier) is not ported: ROADMAP A.5")
+        return ring_hier.hier_all_reduce(
+            x, coll.intra_size, compression=resolve_codec(coll),
+            slice_elems=coll.slice_elems)
     if coll.fused_kernel:
         return ring_cuda.ring_all_reduce_fused(
             x, compression=_fused_bfp_cfg(coll))
@@ -334,6 +357,10 @@ def all_gather_flat(owned: torch.Tensor, coll: CollectiveConfig,
     if coll.impl == "xla":
         out = owned.reshape(1, n * C).expand(n, n * C)
         return (out, _true(out)) if integrity else out
+    if coll.topology == "hier":
+        return ring_hier.hier_all_gather(
+            owned, coll.intra_size, compression=resolve_codec(coll),
+            integrity=integrity)
     if _kernel_route(coll, owned):
         out = ring_cuda.ring_all_gather_fused(
             owned, compression=_fused_bfp_cfg(coll))
@@ -341,3 +368,39 @@ def all_gather_flat(owned: torch.Tensor, coll: CollectiveConfig,
             else out
     return ring_ops.ring_all_gather(owned, resolve_codec(coll),
                                     integrity=integrity)
+
+
+class AllGatherFlat(torch.autograd.Function):
+    """``all_gather_flat`` with its transpose as the backward: ZeRO-3's
+    gather-on-use inside autograd (the JAX package's
+    ``all_gather_flat_vjp``).
+
+    forward:  the ring all-gather of the (optionally codec-encoded-once)
+              master shards ``[n, C] -> [n, n*C]``: every rank's replica
+              sees the same quantized bytes (on the fused route the
+              ``ring_ag`` kernel);
+    backward: the per-hop-compressed ring reduce-scatter of the cotangent
+              ``[n, n*C] -> [n, C]`` (on the fused route the ``ring_rs``
+              kernel without an optimizer), the same routing as the
+              forward.
+
+    With compression the loss and its gradient are taken at the quantized
+    parameters while the optimizer updates the exact f32 masters:
+    straight-through estimation, the contract of the ZeRO-1 trainers'
+    compressed weight gather."""
+
+    @staticmethod
+    def forward(ctx, owned: torch.Tensor, coll: CollectiveConfig
+                ) -> torch.Tensor:
+        ctx.coll = coll
+        return all_gather_flat(owned, coll)
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        return reduce_scatter(ct.contiguous(), ctx.coll), None
+
+
+def all_gather_flat_vjp(owned: torch.Tensor, coll: CollectiveConfig
+                        ) -> torch.Tensor:
+    """Differentiable ``all_gather_flat`` (``AllGatherFlat``)."""
+    return AllGatherFlat.apply(owned, coll)

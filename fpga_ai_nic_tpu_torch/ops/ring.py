@@ -20,9 +20,9 @@ encoding each rank alone only when each rank's part is a whole number of
 the codec's layout units (``Codec.unit_elems``: a compression unit, or a
 whole (block, 128)-lane tile in the sublane layout); otherwise the rings
 raise ``ValueError``, as the JAX package's sublane kernels assert.  The
-padding (``fused_update.pad_multiple``) guarantees whole compression units;
-whole tiles only where the fused kernels pad for them or the length
-happens to tile.  These are the plain versions the fused CUDA ring kernels
+padding (``fused_update.pad_multiple``) guarantees whole layout units:
+whole tiles where the fused kernels carry the wire or the codec takes the
+sublane layout.  These are the plain versions the fused CUDA ring kernels
 (``ops.ring_cuda``) are held against.
 
 ``integrity=True`` (``ops.integrity``) checksums every message's encoded
@@ -41,7 +41,7 @@ what the receive-side checksums read.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -103,9 +103,19 @@ def _tap_wire(payload: Payload, point: str) -> Payload:
     return tuple(out)
 
 
-def _hop(payload: torch.Tensor) -> torch.Tensor:
-    """Rows [n, ...] -> what each rank receives from its left neighbour."""
-    return torch.roll(payload, shifts=1, dims=0)
+Perm = Optional[Sequence[Tuple[int, int]]]
+
+
+def _hop(payload: torch.Tensor, perm: Perm = None) -> torch.Tensor:
+    """Rows [n, ...] -> what each rank receives: from its left neighbour,
+    or with ``perm`` ([(src, dst), ...], every rank a destination once)
+    ``received[dst] = payload[src]``."""
+    if perm is None:
+        return torch.roll(payload, shifts=1, dims=0)
+    src = [0] * payload.shape[0]
+    for a, b in perm:
+        src[b] = a
+    return payload[torch.tensor(src, device=payload.device)]
 
 
 def check_whole_units(codec, per_rank_elems: int) -> None:
@@ -147,19 +157,22 @@ def _checked(chk: Optional[Carry], w: int, frame_checksum: FrameChecksum,
 def _send(payload: torch.Tensor, codec,
           slice_elems: Optional[int] = None, chk: Optional[Carry] = None,
           msg_base: int = 0,
-          frame_checksum: FrameChecksum = _integrity.row_checksums):
+          frame_checksum: FrameChecksum = _integrity.row_checksums,
+          perm: Perm = None):
     """One ring hop of every rank's [C] payload ([n, C]), codec-compressed
     on the wire when ``codec`` is set.  When the codec allows it the hop
     goes as [slice_elems] slices, which bounds the codec's temporaries and
     leaves the bits unchanged.  With ``chk`` (the (send, recv) carry) slice
     k is message ``msg_base + k``; returns ``received`` or ``(received,
-    chk')``."""
+    chk')``.  ``perm`` replaces the next-neighbour permutation: the seam
+    ``ops.ring_hier`` drives its intra and inter subring hops through, so
+    the wire taps and checksums see those hops too."""
     if codec is None:
         if chk is None and _WIRE_TAP is None:
-            return _hop(payload)
+            return _hop(payload, perm)
         w = _integrity.hop_weight(msg_base)
         chk = _checked(chk, w, frame_checksum, (payload,), 0)
-        arrived = _tap_wire((_hop(payload),), "ring.wire")
+        arrived = _tap_wire((_hop(payload, perm),), "ring.wire")
         chk = _checked(chk, w, frame_checksum, arrived, 1)
         return arrived[0] if chk is None else (arrived[0], chk)
     n, C = payload.shape
@@ -171,7 +184,8 @@ def _send(payload: torch.Tensor, codec,
         wire = tuple(p.reshape(n, -1) for p in codec.encode(part))
         w = _integrity.hop_weight(msg_base + k)
         chk = _checked(chk, w, frame_checksum, wire, 0)
-        arrived = _tap_wire(tuple(_hop(p) for p in wire), "ring.wire")
+        arrived = _tap_wire(tuple(_hop(p, perm) for p in wire),
+                            "ring.wire")
         chk = _checked(chk, w, frame_checksum, arrived, 1)
         out[:, off:off + S] = codec.decode(
             tuple(p.reshape(-1) for p in arrived), n * S,

@@ -1,0 +1,394 @@
+"""Per-stage cost model of the fused ring pipeline — the port of the JAX
+package's ``ops/ring_cost.py`` (pure arithmetic).
+
+A pipelined hop runs at the rate of its slowest resource, not the sum of
+its stages.  The instrument is the ring reduce-scatter kernel's
+``ablate=`` stages (``ops.ring_cuda.loopback_microbench`` /
+``loopback_update_microbench``): each variant runs the same schedule with
+one stage compiled in, so its time is that stage's schedule time with the
+skeleton included.  ``decompose`` combines those times into a predicted
+pipeline time, a ``pipeline_efficiency`` and the binding stage.
+
+Resource model (why the terms combine the way they do):
+
+  codec  encode and decode+accumulate run in one instruction stream (the
+         TPU's VPU; on the card the SM's ALUs, where one thread runs a
+         chain's encode and decode one after the other), so they add.
+         Each ablated run carries the skeleton once (ablate="skeleton"),
+         so the sum subtracts it once:  t_vpu = t_enc + t_dec - t_skel.
+         The fused optimizer's update ("update") joins the same sum.
+  wire   the hand-off of the frame ("rdma"), its own engine, overlapped
+         with the codec.  On one card the ring runs in loopback and the
+         frame never leaves the thread's registers, so the wire term is
+         the skeleton's time; only rings across cards (ROADMAP A.11) give
+         it a value of its own.
+  HBM    the x loads, the store-loads and the write of g ("hbm", the
+         streaming form's stage), overlapped with both.
+
+  t_model             = max(t_vpu, t_rdma, t_hbm)
+  pipeline_efficiency = t_model / t_full   (1.0 = perfectly hidden)
+  binding stage       = argmax of the terms (keys "vpu", "rdma", "hbm",
+                        JAX's names)
+
+The same serial-codec reasoning gives the break-even model: encode and
+decode share the ALUs, so the compute bound per byte is their sum.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence
+
+# stage names understood by ring_cuda's ablate= (skeleton = the bare
+# schedule, no stage work; update = the fused in-kernel optimizer stage,
+# fused-opt kernels only)
+STAGES_RESIDENT = ("skeleton", "encode", "rdma", "decode")
+STAGES_STREAMING = ("skeleton", "encode", "rdma", "decode", "hbm")
+
+# per-optimizer state-tensor count (w excluded) and rough update FLOPs
+# per element — the static half of the fused-optimizer stage accounting
+# (the measured half is ablate="update")
+OPT_N_STATE = {"sgd": 0, "momentum": 1, "adamw": 2}
+OPT_FLOPS_PER_ELEM = {"sgd": 4, "momentum": 6, "adamw": 14}
+
+
+def stages_for(streaming: bool, fused_opt: bool = False) -> Sequence[str]:
+    base = STAGES_STREAMING if streaming else STAGES_RESIDENT
+    return base + ("update",) if fused_opt else base
+
+
+def optimizer_roofline(opt_kind: str, chunk_bytes: int,
+                       hbm_gbps: float = 0.0) -> dict:
+    """Static accounting of the STANDALONE (unfused) ZeRO-1 optimizer
+    pass the fused kernel absorbs: per step and replica it reads the
+    reduced gradient shard + master shard and writes the master, plus a
+    read+write of every moment-state shard — all over HBM, with nothing
+    to overlap against.  That byte count / the HBM rate is the minimum
+    exposed time the fused path wins back.
+
+    chunk_bytes: the owned f32 shard (L/n * 4).  hbm_gbps <= 0 omits the
+    time estimate (bytes are still exact)."""
+    ns = OPT_N_STATE[opt_kind]
+    # read g_own + read w + write w + (read + write) per moment tensor
+    traffic = chunk_bytes * (3 + 2 * ns)
+    out = {
+        "opt_kind": opt_kind,
+        "n_state_tensors": ns,
+        "moment_state_bytes": chunk_bytes * ns,
+        "standalone_hbm_bytes": traffic,
+        "update_flops_per_elem": OPT_FLOPS_PER_ELEM[opt_kind],
+        "model": ("standalone optimizer pass = (3 + 2*n_state) * "
+                  "chunk_bytes over HBM (read g_own, read+write w, "
+                  "read+write each moment); the fused kernel folds this "
+                  "into the final-hop decodes where the remaining ring "
+                  "hops hide it"),
+    }
+    if hbm_gbps and hbm_gbps > 0:
+        out["standalone_roofline_s"] = traffic / (hbm_gbps * 1e9)
+    return out
+
+
+def model_pipeline(stage_s: Mapping[str, float],
+                   full_s: Optional[float] = None,
+                   expect_update: bool = False) -> dict:
+    """Combine per-stage schedule times (seconds) into the predicted
+    pipeline time.
+
+    stage_s maps ablate names -> slope-measured seconds for the ablated
+    schedule; non-positive or missing entries are treated as unmeasured
+    (a non-positive slope means noise swamped the chain difference — the
+    caller must not fabricate a rate from it).  full_s is the full
+    pipeline's measured time; when given, pipeline_efficiency and the
+    modeled-vs-measured error are included.
+
+    Returns a dict with:
+      modeled_s             predicted pipeline time (max over resources)
+      binding_stage         "vpu" / "rdma" / "hbm" — the resource that
+                            bounds the hop (vpu = encode+decode serial)
+      terms_s               per-resource predicted times
+      pipeline_efficiency   modeled_s / full_s (when full_s > 0)
+      model_rel_err         (full_s - modeled_s) / modeled_s — how much
+                            slower the real schedule runs than a
+                            perfectly-overlapped one
+      valid                 False when the VPU term could not be formed
+    """
+    def get(name):
+        t = stage_s.get(name)
+        return float(t) if t is not None and t > 0 else None
+
+    skel, enc, dec = get("skeleton"), get("encode"), get("decode")
+    upd = get("update")
+    # the fused-optimizer update shares the VPU instruction stream with
+    # encode/decode, so its schedule time ADDS to the serial VPU term
+    # (same reasoning as encode+decode; its state-slice DMAs ride along
+    # inside the measured stage).  expect_update marks a fused-opt
+    # schedule whose update slope drowned — the model is then partial.
+    vpu_parts = [p for p in (enc, dec, upd) if p is not None]
+    n_expected = 3 if expect_update else 2
+    terms = {}
+    vpu_partial = False
+    if len(vpu_parts) == n_expected:
+        # each ablated run includes the skeleton once; the serial VPU sum
+        # must count it once, not n_expected times
+        terms["vpu"] = sum(vpu_parts) - (len(vpu_parts) - 1) * (skel or 0.0)
+    elif vpu_parts:
+        # part of the VPU cost is unmeasured: keep the MEASURED serial
+        # sum (skeleton counted once) as a FLOOR for the display — the
+        # tightest bound the surviving slopes support — but the model is
+        # not valid: a confident modeled_t_ms from part of the serial
+        # chain would be exactly the fabricated-rate failure this module
+        # exists to prevent
+        terms["vpu"] = sum(vpu_parts) - (len(vpu_parts) - 1) * (skel or 0.0)
+        vpu_partial = True
+    rdma, hbm = get("rdma"), get("hbm")
+    if rdma is not None:
+        terms["rdma"] = rdma
+    if hbm is not None:
+        terms["hbm"] = hbm
+    # a resource can never run the schedule faster than the bare skeleton
+    if skel is not None:
+        terms = {k: max(v, skel) for k, v in terms.items()}
+
+    out = {"stage_s": {k: v for k, v in stage_s.items()},
+           "terms_s": terms,
+           "valid": bool(terms) and ("vpu" in terms) and not vpu_partial}
+    if vpu_partial:
+        out["vpu_partial"] = True     # one codec stage's slope drowned
+    if terms:
+        binding = max(terms, key=lambda k: terms[k])
+        out["binding_stage"] = binding
+        # a confident modeled time / efficiency from an incomplete term
+        # set would be a fabricated rate — emit them only when valid
+        if out["valid"]:
+            out["modeled_s"] = terms[binding]
+            if full_s is not None and full_s > 0:
+                out["full_s"] = float(full_s)
+                out["pipeline_efficiency"] = terms[binding] / full_s
+                out["model_rel_err"] = ((full_s - terms[binding])
+                                        / terms[binding])
+    return out
+
+
+def codec_rates(stages: Mapping[str, Mapping[str, float]],
+                payload_bytes: int):
+    """(encode_gbps, decode_gbps) for break_even from a decomposition
+    row's `stages` — SKELETON-CORRECTED: each ablated schedule time
+    includes the bare control loop once, and break_even's serial model
+    adds the two stage costs, so feeding it raw ablated rates would
+    count the skeleton twice (understating the combined codec rate and
+    biasing the verdict against BFP).  Per-byte the asymptotic stage
+    cost is (t_stage - t_skeleton) / bytes.  Returns (0, 0) when either
+    stage is missing or the subtraction is non-positive (skeleton-bound
+    measurement: no honest asymptotic rate exists)."""
+    skel = (stages.get("skeleton") or {}).get("t_ms", 0.0)
+    rates = []
+    for name in ("encode", "decode"):
+        t = (stages.get(name) or {}).get("t_ms")
+        if t is None or t - skel <= 0:
+            return 0.0, 0.0
+        rates.append(payload_bytes / ((t - skel) * 1e-3) / 1e9)
+    return rates[0], rates[1]
+
+
+# candidate per-direction link rates (GB/s): DCN-class multi-host, the
+# reference's own 100GbE wire (hw/bfp_adapter.sv sat on a 100G MAC), and
+# the ICI classes.  These are the documented fallback: break-even tables
+# route through `link_rate_candidates`, which adds a measured rate when a
+# calibration carries one, and the outputs carry a `calibrated` flag so
+# model-only rows can be told apart.
+DEFAULT_LINK_RATES = (5.0, 12.5, 45.0, 90.0, 180.0)
+
+
+def link_rate_candidates(calibration=None) -> dict:
+    """Per-direction link-rate candidates for break-even tables: the
+    measured inter-axis rate of ``calibration`` (an object with
+    ``inter_calibrated``, ``inter_gbps`` and ``inter_source``, when it
+    carries one) joins the documented DEFAULT_LINK_RATES constants.
+    Returns {"rates", "calibrated", "measured_gbps", "source"}; with no
+    calibration the rates are exactly the fallback constants and
+    calibrated is False.  The port has no tuner yet (ROADMAP A.5's
+    ``tune/``), so no calibration is loaded when none is passed."""
+    if calibration is None or not calibration.inter_calibrated:
+        return {"rates": tuple(DEFAULT_LINK_RATES), "calibrated": False,
+                "measured_gbps": None,
+                "source": "DEFAULT_LINK_RATES (documented fallback)"}
+    w = round(float(calibration.inter_gbps), 3)
+    rates = tuple(sorted(set(DEFAULT_LINK_RATES) | {w}))
+    return {"rates": rates, "calibrated": True, "measured_gbps": w,
+            "source": calibration.inter_source}
+
+
+def hop_cost(raw_bytes: float, wire_bytes: float, link_gbps: float,
+             encode_gbps: float = 0.0, decode_gbps: float = 0.0) -> dict:
+    """Modeled seconds for one pipelined collective phase moving
+    ``wire_bytes`` over a ``link_gbps`` wire while the VPU encodes AND
+    decodes ``raw_bytes`` of f32 payload (serial — the stages share the
+    VPU, module docstring): t = max(t_wire, t_vpu).  encode/decode <= 0
+    means no codec on this hop (t_vpu = 0, the raw fast-hop case)."""
+    t_wire = wire_bytes / (link_gbps * 1e9) if link_gbps > 0 else 0.0
+    t_vpu = 0.0
+    if encode_gbps and encode_gbps > 0 and encode_gbps != float("inf"):
+        t_vpu += raw_bytes / (encode_gbps * 1e9)
+    if decode_gbps and decode_gbps > 0 and decode_gbps != float("inf"):
+        t_vpu += raw_bytes / (decode_gbps * 1e9)
+    t = max(t_wire, t_vpu)
+    return {"t_s": t, "t_wire_s": t_wire, "t_vpu_s": t_vpu,
+            "binding": "wire" if t_wire >= t_vpu else "vpu"}
+
+
+def hier_phase_bytes(payload_elems: int, n: int, n_intra: int,
+                     wire_bytes_per_elems=None) -> dict:
+    """Exact per-device elements/bytes per phase of one hierarchical
+    ALL-REDUCE (RS + AG) of a [payload_elems] f32 vector: the topology
+    terms of the cost model (ops.ring_hier owns the authoritative
+    per-collective accounting via HierarchicalPlan; this is the model's
+    float-friendly view).  ``wire_bytes_per_elems(elems) -> bytes``
+    prices the inter hop (None = raw f32)."""
+    ni = max(1, int(n_intra))
+    ng = n // ni
+    intra_elems = 2 * (ni - 1) * (payload_elems // ni)
+    inter_elems = 2 * (ng - 1) * (payload_elems // n)
+    price = wire_bytes_per_elems or (lambda e: e * 4)
+    return {"n_intra": ni, "n_inter": ng,
+            "intra_elems": intra_elems, "intra_bytes": intra_elems * 4,
+            "inter_elems": inter_elems,
+            "inter_raw_bytes": inter_elems * 4,
+            "inter_wire_bytes": int(price(inter_elems)),
+            "hops": 2 * (ni - 1) + 2 * (ng - 1)}
+
+
+def break_even(encode_gbps: float, decode_gbps: float,
+               wire_ratio_fused: float, wire_ratio_xla: float,
+               link_rates: Sequence[float] = DEFAULT_LINK_RATES,
+               source: str = "", calibrated: bool = False) -> dict:
+    """Per-link-rate verdict: does the BFP wire path beat a bf16 psum?
+
+    Per f32 payload byte and hop: the BFP ring pays the wire
+    (1/r_fused)/W AND the serial VPU codec 1/enc + 1/dec (encode and
+    decode share the VPU — see module docstring; this replaces the old
+    max(1/enc, 1/dec) model, whose self-inconsistency round 4 proved);
+    whichever is larger binds, because the fused kernel overlaps codec
+    and wire.  The bf16 psum moves half the f32 bytes at the link rate:
+    0.5/W.  To win at all the codec must sustain the harmonic-combined
+    rate 1/(1/enc + 1/dec) > 2*W; the max speedup is r_fused/2.
+    """
+    rows = {}
+    t_vpu = ((1.0 / encode_gbps if encode_gbps else 9e9)
+             + (1.0 / decode_gbps if decode_gbps else 9e9))
+    for W in link_rates:
+        t_bf16 = 0.5 / W
+        t_bfp = max((1.0 / wire_ratio_fused) / W, t_vpu)
+        rows[f"link_{W:g}GBps"] = {
+            "bfp_speedup_vs_bf16_psum": round(t_bf16 / t_bfp, 3),
+            "bfp_wins": t_bfp < t_bf16,
+            "required_codec_gbps_to_win": round(2 * W, 1),
+        }
+    combined = (1.0 / t_vpu) if t_vpu < 9e8 else 0.0
+    return {
+        "model": ("hop time per f32 byte = max(1/(r_fused*W), "
+                  "1/encode + 1/decode) vs bf16 psum's 1/(2*W); encode "
+                  "and decode SHARE the VPU so their costs add (the "
+                  "harmonic-combined codec rate must exceed 2*W to win "
+                  "at all), and the max speedup is r_fused/2 (fused wire "
+                  "ratio includes the 8-row RDMA tile padding; the XLA "
+                  "ring's unpadded ratio is wire_ratio_vs_f32)"),
+        # False = every link rate below is a documented fallback
+        # constant, not a measurement (route rates through
+        # link_rate_candidates)
+        "calibrated": bool(calibrated),
+        "codec_rates_source": source,
+        "encode_gbps": round(encode_gbps, 2),
+        "decode_gbps": round(decode_gbps, 2),
+        "combined_codec_gbps": round(combined, 2),
+        "wire_ratio_vs_f32": round(wire_ratio_xla, 3),
+        "wire_ratio_fused_vs_f32": round(wire_ratio_fused, 3),
+        "per_link_rate": rows,
+    }
+
+
+def codec_break_even(codec, encode_gbps: float, decode_gbps: float,
+                     link_rates: Sequence[float] = DEFAULT_LINK_RATES,
+                     source: str = "", calibrated: bool = False) -> dict:
+    """`break_even` parameterized by a registered compress.Codec: the wire
+    ratio comes from the codec's own byte accounting instead of the
+    hard-wired BFP frame math, so the per-link verdict table extends to
+    topk/int8 (and any plugin) unchanged.  The serial-VPU model is
+    codec-agnostic — encode and decode of ANY codec share the VPU, so
+    their per-byte costs add."""
+    r = float(codec.compression_ratio_vs_f32)
+    out = break_even(encode_gbps, decode_gbps, r, r, link_rates,
+                     source=source or f"codec '{codec.name}' slope chains",
+                     calibrated=calibrated)
+    out["codec"] = codec.describe()
+    return out
+
+
+def codec_table(n_elems: int = 1 << 16) -> list:
+    """Static cost-model rows for every registered codec (wire ratio,
+    bytes/value, declared error bound, EF): the accounting half of a codec
+    bench; the measured half is the kernels' timed stages."""
+    from ..compress import available_codecs, get_codec
+    rows = []
+    for name in available_codecs():
+        c = get_codec(name)
+        n_use = n_elems - n_elems % c.pad_elems
+        rows.append(dict(c.describe(),
+                         wire_bytes_per_value=c.wire_bytes(n_use) / n_use,
+                         max_speedup_vs_bf16_psum=round(
+                             c.compression_ratio_vs_f32 / 2, 3)))
+    return rows
+
+
+def decompose(measure, streaming: bool, payload_bytes: int,
+              fused_opt: bool = False) -> dict:
+    """Run the full per-stage decomposition of one loopback row.
+
+    measure(ablate_or_None) -> seconds (slope-based; <= 0 means the
+    measurement drowned in noise and is dropped).  Returns the
+    model_pipeline dict extended with per-stage {t_ms, gbps} rows ready
+    for the artifact, or {"valid": False, ...} when the full-pipeline
+    measurement itself failed.  fused_opt adds the "update" stage (the
+    in-kernel optimizer) to the sweep and to the serial-VPU term."""
+    full_s = measure(None)
+    stage_s, stage_errors = {}, {}
+    for name in stages_for(streaming, fused_opt):
+        # a stage variant that fails must not cost the already-measured
+        # full rate (JAX's per-stage best-effort contract): its error is
+        # kept in stage_errors, and the model is then not valid
+        try:
+            t = measure(name)
+        except Exception as e:  # noqa: BLE001 — per-stage best-effort
+            stage_errors[name] = repr(e)[:200]
+            continue
+        if t is not None and t > 0:
+            stage_s[name] = t
+    out = model_pipeline(stage_s, full_s if full_s and full_s > 0 else None,
+                         expect_update=fused_opt)
+    out["stages"] = {
+        k: {"t_ms": round(v * 1e3, 3),
+            "gbps": round(payload_bytes / v / 1e9, 2)}
+        for k, v in stage_s.items()}
+    if stage_errors:
+        out["stage_errors"] = stage_errors
+        out["valid"] = False
+        # a missing resource term could have been the binding one — no
+        # confident model claims from an incomplete decomposition
+        for k in ("modeled_s", "pipeline_efficiency", "model_rel_err",
+                  "full_s"):
+            out.pop(k, None)
+    out["payload_bytes"] = payload_bytes
+    del out["stage_s"]
+    if full_s is not None and full_s > 0:
+        out["t_ms"] = round(full_s * 1e3, 3)
+        out["pipeline_gbps"] = round(payload_bytes / full_s / 1e9, 2)
+    else:
+        out["valid"] = False
+        out["error"] = ("non-positive slope on the full pipeline "
+                        "(noise swamped the chain-length difference)")
+    if "modeled_s" in out:
+        out["modeled_t_ms"] = round(out.pop("modeled_s") * 1e3, 3)
+    if "pipeline_efficiency" in out:
+        out["pipeline_efficiency"] = round(out["pipeline_efficiency"], 3)
+    if "model_rel_err" in out:
+        out["model_rel_err"] = round(out["model_rel_err"], 3)
+    out.pop("full_s", None)
+    return out

@@ -30,6 +30,15 @@ computes the same pair through ``ops.ring.ring_reduce_scatter_pair``, the
 numpy twin is ``ops.ring_golden.ring_reduce_scatter_pair``, and
 ``ops.integrity.conservation_ok(pair[:, 0], pair[:, 1])`` is the verdict.
 The gradient, master and moment bits are those of integrity off.
+
+``loopback_microbench`` / ``loopback_update_microbench`` are the TPU
+module's stage-attribution instruments: with ``ablate=`` one stage of the
+reduce-scatter's chain walk is compiled in (``csrc/ring_rs.cu``, the
+stage mask its last template parameter; ``ABLATE_MASKS``), and
+``ops.ring_cost.decompose`` combines the variants' times.  Their outputs
+are garbage by design, so they launch on a CUDA tensor only; each ablated
+launch counts on ``RING_RS_ABLATE.launches`` and on ``ABLATE_LAUNCHES``
+by (form, stage).
 """
 
 from __future__ import annotations
@@ -60,6 +69,30 @@ RING_RS = Kernel("ring_rs_update", "ring_rs.cu", "ring_rs_launch",
 RING_AG = Kernel("ring_ag", "ring_ag.cu", "ring_ag_launch",
                  [ctypes.c_void_p] * 2
                  + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3)
+RING_RS_ABLATE = Kernel("ring_rs_ablate", "ring_rs.cu",
+                        "ring_rs_ablate_launch",
+                        [ctypes.c_void_p] * 9
+                        + [ctypes.c_int, ctypes.c_longlong]
+                        + [ctypes.c_int] * 5)
+
+# csrc/ring_rs.cu's Stage flags, and each ablate= stage as a mask of them.
+# Streaming: JAX's _rs_stream_kernel do_* sets (encode = ld + enc, decode =
+# stld + dec + wb, hbm = ld + stld + wb).  Resident: the TPU's resident
+# kernel moves x in and g out through the pallas_call's own DMAs whatever
+# ablate says, so each of its stages carries ld, stld and wb.
+ST_LD, ST_ENC, ST_RDMA, ST_STLD, ST_DEC, ST_WB, ST_UPD = (
+    1, 2, 4, 8, 16, 32, 64)
+_IO = ST_LD | ST_STLD | ST_WB
+ABLATE_MASKS = {
+    True: {"skeleton": 0, "encode": ST_LD | ST_ENC, "rdma": ST_RDMA,
+           "decode": ST_STLD | ST_DEC | ST_WB, "hbm": _IO,
+           "update": ST_UPD},
+    False: {"skeleton": _IO, "encode": _IO | ST_ENC,
+            "rdma": _IO | ST_RDMA, "decode": _IO | ST_DEC,
+            "update": _IO | ST_UPD},
+}
+# launches of each ablated instantiation, by (streaming, stage)
+ABLATE_LAUNCHES: Dict[Tuple[bool, str], int] = {}
 
 
 def _cfg(compression: Optional[BFPConfig]) -> BFPConfig:
@@ -158,9 +191,11 @@ def _launch_rs(x: torch.Tensor, cfg: BFPConfig, opt_kind: Optional[str],
                w_own: Optional[torch.Tensor],
                state: Tuple[torch.Tensor, ...],
                hyper: Optional[torch.Tensor],
-               pair_slice: Optional[int] = None):
+               pair_slice: Optional[int] = None,
+               ablate: Optional[Tuple[bool, str]] = None):
     """One launch; ``pair_slice`` (a frame's elements) adds the checksum
-    pair as a fourth output."""
+    pair as a fourth output; ``ablate`` ((streaming, stage)) launches
+    that stage's instantiation instead (``ABLATE_MASKS``)."""
     n, L = x.shape
     C = L // n
     B = cfg.block_size
@@ -188,6 +223,14 @@ def _launch_rs(x: torch.Tensor, cfg: BFPConfig, opt_kind: Optional[str],
     def p(t):
         return None if t is None else ptr(t)
 
+    if ablate is not None:
+        streaming, stage = ablate
+        RING_RS_ABLATE(ptr(x), ptr(g_out), p(w_own), p(w_out), p(m_in),
+                       p(m_out), p(v_in), p(v_out), p(hyper), n, C, B,
+                       cfg.mantissa_bits, int(cfg.rounding == "rtz"),
+                       OPT_CODES[opt_kind], ABLATE_MASKS[streaming][stage])
+        ABLATE_LAUNCHES[ablate] = ABLATE_LAUNCHES.get(ablate, 0) + 1
+        return g_out, w_out, outs
     pair = tps = None
     if pair_slice is not None:
         if n > 6144:
@@ -287,3 +330,84 @@ def ring_all_reduce_fused(x: torch.Tensor, *,
     return ring_all_gather_fused(
         ring_reduce_scatter_fused(x, compression=compression),
         compression=compression)
+
+
+# -- stage attribution (ablate=) ----------------------------------------------
+
+def _check_loopback(x: torch.Tensor, virtual_n: int, cfg: BFPConfig,
+                    slice_elems: int, streaming: bool,
+                    ablate: Optional[str]) -> int:
+    """JAX's loopback validation; returns the chunk C."""
+    if x.dim() != 2 or x.shape[0] != virtual_n or x.shape[1] % virtual_n:
+        raise ValueError(f"x must be [virtual_n={virtual_n}, L] with L % "
+                         f"virtual_n == 0, got {tuple(x.shape)}")
+    C = x.shape[1] // virtual_n
+    if C % slice_elems or slice_elems % (cfg.block_size * LANES):
+        raise ValueError((C, slice_elems, cfg.block_size * LANES))
+    if ablate == "hbm" and not streaming:
+        raise ValueError("'hbm' ablates the streaming kernel's slice "
+                         "load/store stages; the resident kernel has none")
+    if ablate is not None and ablate not in ABLATE_MASKS[streaming]:
+        raise ValueError(f"unknown ablate stage {ablate!r}")
+    if ablate is not None and x.device.type != "cuda":
+        raise ValueError("ablate= variants are timing instruments of the "
+                         "CUDA kernel (their outputs are garbage by design): "
+                         "give them a CUDA tensor")
+    return C
+
+
+def loopback_microbench(x: torch.Tensor, virtual_n: int = 4, *,
+                        compression: Optional[BFPConfig] = None,
+                        slice_elems: int = 8192, streaming: bool = False,
+                        ablate: Optional[str] = None) -> torch.Tensor:
+    """The fused reduce-scatter of ``virtual_n`` ranks on one card, for
+    timing: x [virtual_n, L] (the ranks' gradient rows; JAX's takes one
+    device's [L] and addresses every hop to itself) -> [virtual_n, L /
+    virtual_n].  ``ablate=None`` is the kernel itself (``ring_rs_kernel``,
+    its plain version on a CPU tensor); ``ablate=`` one of
+    ``ops.ring_cost.stages_for(streaming)`` but "update" compiles in that
+    stage alone (``ABLATE_MASKS``), with a garbage result.
+    ``streaming`` picks JAX's HBM-streaming stage sets ("hbm" exists only
+    there); the card runs one kernel for both forms.  ``slice_elems`` is
+    validated as JAX's (whole tiles dividing the chunk) and changes nothing
+    here: the kernel's frames never leave a thread's registers."""
+    cfg = _cfg(compression)
+    if ablate == "update":
+        raise ValueError("ablate='update' needs a fused optimizer "
+                         "(loopback_update_microbench)")
+    _check_loopback(x, virtual_n, cfg, slice_elems, streaming, ablate)
+    if ablate is None:
+        return ring_reduce_scatter_fused(x, compression=cfg)
+    return _launch_rs(x, cfg, None, None, (), None,
+                      ablate=(streaming, ablate))[0]
+
+
+def loopback_update_microbench(x: torch.Tensor, virtual_n: int = 4, *,
+                               opt_kind: str = "adamw",
+                               hyper: Optional[torch.Tensor] = None,
+                               compression: Optional[BFPConfig] = None,
+                               slice_elems: int = 8192,
+                               streaming: bool = False,
+                               ablate: Optional[str] = None
+                               ) -> torch.Tensor:
+    """``loopback_microbench`` with the fused optimizer: zero master and
+    state shards [virtual_n, C] updated where each chunk's sum completes;
+    returns the updated masters (garbage when ablated).  ``ablate`` adds
+    "update", the optimizer stage alone.  ``hyper`` defaults to JAX's
+    (``optim.fused_hyperparams`` at lr 1e-3, step 0)."""
+    cfg = _cfg(compression)
+    spec = OptimizerSpec(kind=opt_kind)
+    C = _check_loopback(x, virtual_n, cfg, slice_elems, streaming, ablate)
+    if hyper is None:
+        from ..utils.config import OptimizerConfig
+        hyper = optim.fused_hyperparams(
+            OptimizerConfig(kind=opt_kind, learning_rate=1e-3), 0,
+            device=x.device)
+    w = torch.zeros((virtual_n, C), dtype=torch.float32, device=x.device)
+    st = {k: torch.zeros_like(w) for k in spec.state_keys}
+    if ablate is None:
+        return ring_reduce_scatter_update_fused(
+            x, w, st, hyper, opt_kind=opt_kind, compression=cfg)[1]
+    return _launch_rs(x, cfg, opt_kind, w,
+                      tuple(st[k] for k in spec.state_keys), hyper,
+                      ablate=(streaming, ablate))[1]

@@ -1,5 +1,6 @@
 """Virtual data-parallel ranks and the trainers of the port."""
 
 from .ddp import DDPState, DDPTrainer
+from .fsdp import FSDPState, FSDPTrainer
 
-__all__ = ["DDPState", "DDPTrainer"]
+__all__ = ["DDPState", "DDPTrainer", "FSDPState", "FSDPTrainer"]

@@ -34,7 +34,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 import torch
 
 from .mesh import VirtualRanks
-from .train import rank_grads
+from .train import rank_grads, refuse_fsdp
 from .. import optim
 from ..ops import bucketed, fused_update
 from ..utils.config import CollectiveConfig, TrainConfig
@@ -58,6 +58,7 @@ class DDPTrainer:
 
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig):
+        refuse_fsdp(cfg)
         if ranks.sp != 1:
             raise NotImplementedError(
                 f"sp={ranks.sp}: sequence parallelism runs on "

@@ -1,5 +1,5 @@
-"""Virtual ranks on one card — what stands in for the JAX package's dp, sp,
-ep and pp mesh axes (``parallel/mesh.py``).
+"""Virtual ranks on one card — what stands in for the JAX package's dp,
+fsdp, sp, ep and pp mesh axes (``parallel/mesh.py``).
 
 The port runs the reference's 1-D data-parallel ring in loopback: n ranks
 share one device, every per-rank tensor is stacked over the ranks as its
@@ -28,6 +28,10 @@ one parameter row a (pp, dp) rank (``parallel.sharded``,
 ``parallel.pipeline``).  With sp or ep too the batch keeps the layout
 above, and a stage's trees are the pp index into the parameter rows
 (``P((pp, ep, dp))``).
+
+An fsdp axis (ZeRO-3, ``parallel.fsdp.FSDPTrainer``) runs alone, as JAX's
+FSDPTrainer shards over its fsdp axis only: its ranks are stacked as the
+leading dimension and split the batch as dp ranks do.
 """
 
 from __future__ import annotations
@@ -88,18 +92,26 @@ class VirtualRanks:
         return tuple(self.shard(x) for x in batch)
 
 
-UNPORTED_AXES = {"fsdp": "ROADMAP A.5 (parallel/fsdp.py)",
-                 "tp": "ROADMAP A.5 (the tp axis of parallel/sharded.py)"}
+UNPORTED_AXES = {"tp": "ROADMAP A.5 (the tp axis of parallel/sharded.py)"}
 
 
 def make_ranks(cfg: MeshConfig, device: DeviceLike = "cuda"
                ) -> VirtualRanks:
     """The dp, sp, ep and pp axes of a MeshConfig as virtual ranks on
-    ``device``; the other axes are not ported."""
+    ``device``, or its fsdp axis alone (ZeRO-3, ``parallel.fsdp``: the
+    fsdp ranks stacked as the leading dimension, JAX's 1-D fsdp mesh); tp
+    is not ported."""
     for name, size in cfg.axis_sizes():
         if name in UNPORTED_AXES and size != 1:
             raise NotImplementedError(
                 f"mesh axis {name}={size} is not ported: "
-                f"{UNPORTED_AXES[name]}; the port runs dp, sp, ep and pp")
+                f"{UNPORTED_AXES[name]}; the port runs dp, sp, ep and pp, "
+                "or fsdp")
+    if cfg.fsdp != 1:
+        if cfg.nproc != cfg.fsdp:
+            raise NotImplementedError(
+                f"fsdp={cfg.fsdp} with other axes ({cfg}): FSDPTrainer "
+                "shards over the fsdp axis alone, as the JAX package's")
+        return VirtualRanks(cfg.fsdp, resolve_device(device))
     return VirtualRanks(cfg.dp, resolve_device(device), cfg.sp, cfg.ep,
                         cfg.pp)

@@ -91,7 +91,8 @@ import numpy as np
 import torch
 
 from .mesh import UNPORTED_AXES, VirtualRanks
-from .train import DPTrainer, Params, TrainState, _rank_leaves
+from .train import (DPTrainer, Params, TrainState, _rank_leaves,
+                    refuse_fsdp)
 from .. import optim
 from ..ops import fused_update
 from ..utils.config import TrainConfig
@@ -197,6 +198,7 @@ class ShardedTrainer(DPTrainer):
                 "loss_and_grads_fn (explicit-gradient schedule) does not "
                 "compose with accum_steps > 1 — fold accumulation into "
                 "the schedule's num_microbatches instead")
+        refuse_fsdp(cfg)
         for name, size in cfg.mesh.axis_sizes():
             if name not in ("dp", "sp", "ep", "pp") and size != 1:
                 raise NotImplementedError(

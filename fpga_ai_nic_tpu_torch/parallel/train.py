@@ -45,7 +45,8 @@ import torch
 
 from .mesh import VirtualRanks
 from .. import optim
-from ..ops import fused_update
+from ..obs import metrics as obs_metrics
+from ..ops import fused_update, ring_hier
 from ..runtime import chaos
 from ..utils.config import TrainConfig
 
@@ -152,6 +153,33 @@ def joint_grads(loss_fn: Callable, replicas: torch.Tensor,
     return flat_g, losses.detach().mean()
 
 
+def refuse_fsdp(cfg: TrainConfig) -> None:
+    """The ZeRO-1 and bucketed trainers refuse an fsdp mesh axis: ZeRO-3
+    runs on ``parallel.fsdp.FSDPTrainer``, as in the JAX package."""
+    if cfg.mesh.fsdp != 1:
+        raise NotImplementedError(
+            f"fsdp={cfg.mesh.fsdp}: fully sharded data parallelism (ZeRO-3) "
+            "runs on FSDPTrainer (parallel.fsdp)")
+
+
+def static_metrics(n: int, coll, codec, padded_len: int) -> dict:
+    """The trainers' static telemetry (JAX's ``obs_static_metrics`` keys):
+    flat layout, declared codec properties, wire bytes of one all-reduce
+    under the topology and raw, and the hierarchical plan under
+    ``topology="hier"``."""
+    d = {"padded_len": padded_len, "n_devices": n, "impl": coll.impl,
+         "topology": coll.topology}
+    d.update(obs_metrics.codec_static_metrics(codec, padded_len))
+    d["wire_bytes_per_allreduce"] = fused_update.wire_bytes_for(
+        coll, padded_len, n)
+    d["raw_bytes_per_allreduce"] = fused_update.wire_bytes_for(
+        coll, padded_len, n, codec=None)
+    if coll.topology == "hier":
+        d["hier_plan"] = ring_hier.plan_hier(
+            padded_len, n, coll.intra_size, codec).describe()
+    return d
+
+
 def rank_grads(loss_fn: Callable, replicas: torch.Tensor,
                meta: fused_update.FlatMeta, batch,
                write: Optional[Callable[[int, List[torch.Tensor]],
@@ -177,6 +205,7 @@ class DPTrainer:
 
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig):
+        refuse_fsdp(cfg)
         if (cfg.mesh.nproc != ranks.n * ranks.sp * ranks.ep * ranks.pp
                 or cfg.mesh.dp != ranks.n or cfg.mesh.sp != ranks.sp
                 or cfg.mesh.ep != ranks.ep or cfg.mesh.pp != ranks.pp):
@@ -384,6 +413,16 @@ class DPTrainer:
             new, diag = res
             return new, dict(diag, loss=loss)
         return res, loss
+
+    # -- telemetry ------------------------------------------------------------
+
+    def obs_static_metrics(self) -> dict:
+        """Static telemetry (``static_metrics``): flat layout, declared
+        codec properties, wire bytes of one all-reduce, ``hier_plan``."""
+        if self._meta is None:
+            raise RuntimeError("call init_state first")
+        return static_metrics(self.n, self.cfg.collective, self._codec,
+                              self._meta.padded_len)
 
     # -- restore --------------------------------------------------------------
 

@@ -9,7 +9,7 @@ CUDA kernels of ``ops.bfp_cuda`` / ``ops.ring_cuda`` implement.
 
 Values this port does not implement yet raise ``NotImplementedError`` at
 construction (``codec="auto"`` in either spelling and int8's
-``backend="auto"``, ``topology="hier"``) or at trainer construction
+``backend="auto"``) or at trainer construction
 (``parallel.train.DPTrainer``: in-graph metrics, accumulation, plan
 adaptation, mesh axes other than dp), never silently.
 ``collective.integrity_check`` is ported on ``DPTrainer``;
@@ -302,9 +302,6 @@ class CollectiveConfig:
         if self.codec == "auto":
             raise NotImplementedError(
                 "CollectiveConfig.codec='auto' (the autotuner) is not ported")
-        if self.topology == "hier":
-            raise NotImplementedError(
-                "topology='hier' (ops.ring_hier) is not ported")
         if self.codec is not None or self.fused_kernel:
             if self.fused_kernel and (self.impl != "ring"
                                       or (self.compression is None

@@ -65,9 +65,10 @@ def test_static_tables_equal_jax():
 
 # the arms that raised until their ROADMAP item was ported keep their
 # cases: ("bert", "dp") and ("resnet", "dp") (A.6, the BERT and ResNet
-# models) and ("mlp", "ddp") (A.4's bucketed DDP trainer) now train;
-# mlp_fsdp still raises
-PORTED_ARMS = {("bert", "dp"), ("resnet", "dp"), ("mlp", "ddp")}
+# models), ("mlp", "ddp") (A.4's bucketed DDP trainer) and ("mlp_fsdp",
+# "dp") (A.5's ZeRO-3 trainer) now train
+PORTED_ARMS = {("bert", "dp"), ("resnet", "dp"), ("mlp", "ddp"),
+               ("mlp_fsdp", "dp")}
 
 
 @pytest.mark.parametrize("model,trainer,roadmap", [

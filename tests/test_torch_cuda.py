@@ -1321,3 +1321,131 @@ def test_pp_axes_moe_on_card(cuda_device):
     st, _ = tr.step(st, tr.shard_batch(batch))
     torch.cuda.synchronize()
     assert _launches() == [before[0], before[1] + 4]
+
+
+# -- ZeRO-3, the hierarchical ring, the ring kernel's ablate= stages ----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streaming,opt", [(False, None), (True, None),
+                                           (True, "sgd"), (False, "adamw")])
+def test_ring_rs_ablate_stages_launch_on_card(cuda_device, streaming, opt):
+    """Every ablate= stage of ``ring_cost.stages_for`` launches one ablated
+    instantiation (counted by stage) and gives finite-shaped output;
+    ablate=None is the kernel itself, bit-equal to its plain version; the
+    validation is JAX's."""
+    from fpga_ai_nic_tpu_torch.ops import ring_cost
+    n, C = 4, 4 * TILE
+    x = torch.from_numpy(_shards(n, C, 5)).to(cuda_device)
+    cfg = BFPConfig(codec="pallas")
+    if opt:
+        def run(ab):
+            return ring_cuda.loopback_update_microbench(
+                x, n, opt_kind=opt, compression=cfg, slice_elems=TILE,
+                streaming=streaming, ablate=ab)
+        spec = OptimizerSpec(kind=opt)
+        z = torch.zeros((n, C), device=cuda_device)
+        want = ring_cuda.ring_reduce_scatter_update_plain(
+            x, z, {k: z for k in spec.state_keys},
+            optim.fused_hyperparams(OptimizerConfig(kind=opt,
+                                                    learning_rate=1e-3),
+                                    0, device=cuda_device),
+            opt_kind=opt, compression=cfg)[1]
+    else:
+        def run(ab):
+            return ring_cuda.loopback_microbench(
+                x, n, compression=cfg, slice_elems=TILE, streaming=streaming,
+                ablate=ab)
+        want = ring_cuda.ring_reduce_scatter_update_plain(
+            x, None, {}, None, opt_kind=None, compression=cfg)[0]
+    assert torch.equal(run(None), want)
+    for stage in ring_cost.stages_for(streaming, opt is not None):
+        before = ring_cuda.ABLATE_LAUNCHES.get((streaming, stage), 0)
+        out = run(stage)
+        torch.cuda.synchronize()
+        assert out.shape == (n, C)
+        assert ring_cuda.ABLATE_LAUNCHES[(streaming, stage)] == before + 1
+    if not streaming:
+        with pytest.raises(ValueError, match="resident"):
+            run("hbm")
+    with pytest.raises(ValueError, match="fused optimizer"):
+        ring_cuda.loopback_microbench(x, n, compression=cfg,
+                                      slice_elems=TILE, ablate="update")
+
+
+def _mlp_trainer(cls, coll, mesh, dev):
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.parallel.mesh import make_ranks
+    from fpga_ai_nic_tpu_torch.utils.config import MLPConfig, TrainConfig
+    m = MLPConfig(layer_sizes=(256,) * 4)
+    cfg = TrainConfig(global_batch=64, mesh=mesh, collective=coll,
+                      optimizer=OptimizerConfig(kind="sgd",
+                                                learning_rate=0.1))
+    tr = cls(lambda p, b: mlp.loss_fn(p, b, m), make_ranks(mesh, dev), cfg)
+    st = tr.init_state(mlp.init(torch.Generator().manual_seed(1), m, dev))
+    g = torch.Generator().manual_seed(2)
+    batch = tr.shard_batch((torch.randn((64, 256), generator=g),
+                            torch.randint(0, 256, (64,), generator=g)))
+    return tr, st, batch
+
+
+@pytest.mark.cuda
+def test_fsdp_step_on_card_matches_cpu(cuda_device):
+    """FSDPTrainer on the ring kernels (the gather's forward ``ring_ag``,
+    its backward the RS kernel): one launch of each a step; two steps'
+    masters against the same trainer on the CPU (the plain versions)
+    within three BFP grid steps of an update, the losses within 1e-4."""
+    from fpga_ai_nic_tpu_torch.parallel.fsdp import FSDPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (CollectiveConfig,
+                                                    MeshConfig)
+    coll = CollectiveConfig(impl="ring", compression=BFPConfig(
+        codec="pallas"), fused_kernel=True, fused_optimizer=True)
+    mesh = MeshConfig(fsdp=4)
+    out = {}
+    for d in ("cpu", "cuda"):
+        tr, st, batch = _mlp_trainer(FSDPTrainer, coll, mesh,
+                                     torch.device(d))
+        w0 = st.w_own.cpu()
+        before = _launches()
+        for _ in range(2):
+            st, loss = tr.step(st, batch)
+        launched = [a - b for a, b in zip(_launches(), before)]
+        out[d] = (st.w_own.cpu(), float(loss), launched)
+    assert out["cuda"][2] == [2, 2] and out["cpu"][2] == [0, 0]
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
+    # a GEMM's other summation order may move a gradient across a BFP
+    # rounding boundary: one grid step (2^-6 of a block max) of an update
+    upd = float((out["cpu"][0] - w0).abs().max())
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= \
+        3 * 2.0 ** -6 * upd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ni", [2, 4])
+def test_hier_step_on_card_runs_the_codec_kernels(cuda_device, ni):
+    """DPTrainer with topology="hier" and the sublane BFP codec: phase B
+    runs the ``bfp_codec.cu`` kernels on every slow hop (their launches
+    counted), and the masters equal the same step through the plain codec
+    on the card."""
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (CollectiveConfig,
+                                                    MeshConfig)
+    coll = CollectiveConfig(impl="ring", compression=BFPConfig(
+        codec="pallas"), topology="hier", intra_size=ni,
+        fused_optimizer=True)
+    tr, st, batch = _mlp_trainer(DPTrainer, coll, MeshConfig(dp=8),
+                                 cuda_device)
+    flat_g, _ = tr.grads(st, batch)
+    before = (bfp_cuda.ENCODE.launches, bfp_cuda.DECODE.launches)
+    new = tr.apply_grads(st, flat_g)
+    ng = 8 // ni
+    assert (bfp_cuda.ENCODE.launches - before[0],
+            bfp_cuda.DECODE.launches - before[1]) == (ng, 2 * ng - 1)
+    saved = bfp_cuda.bfp_encode, bfp_cuda.bfp_decode
+    bfp_cuda.bfp_encode = bfp_cuda.bfp_encode_plain
+    bfp_cuda.bfp_decode = bfp_cuda.bfp_decode_plain
+    try:
+        plain = tr.apply_grads(st, flat_g)
+    finally:
+        bfp_cuda.bfp_encode, bfp_cuda.bfp_decode = saved
+    assert torch.equal(new.w_own, plain.w_own)
+    assert torch.equal(new.replicas, plain.replicas)

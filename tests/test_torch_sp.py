@@ -393,9 +393,17 @@ def test_sp_on_unported_trainers_and_axes_raises():
     with pytest.raises(ValueError, match="does not describe"):
         ShardedTrainer(lambda p, b: None, VirtualRanks(2, torch.device(
             "cpu")), cfg)
-    for axis, item in (("tp", "A.5"), ("fsdp", "A.5")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_ranks(MeshConfig(dp=2, **{axis: 2}), "cpu")
+    with pytest.raises(NotImplementedError, match="A.5"):
+        make_ranks(MeshConfig(dp=2, tp=2), "cpu")
+    # fsdp is ported (tests/test_torch_fsdp.py): FSDPTrainer runs the fsdp
+    # axis alone, and the other trainers refuse it
+    with pytest.raises(NotImplementedError, match="fsdp axis alone"):
+        make_ranks(MeshConfig(dp=2, fsdp=2), "cpu")
+    fr = make_ranks(MeshConfig(fsdp=2), "cpu")
+    for cls in (DPTrainer, DDPTrainer, ShardedTrainer):
+        with pytest.raises(NotImplementedError, match="FSDPTrainer"):
+            cls(lambda p, b: None, fr, TrainConfig(
+                global_batch=4, mesh=MeshConfig(fsdp=2)))
     # pp is ported (tests/test_torch_pp.py), and together with sp and ep
     # (tests/test_torch_pp_axes.py)
     assert make_ranks(MeshConfig(dp=2, pp=2), "cpu").pp == 2
