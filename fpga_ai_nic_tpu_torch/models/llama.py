@@ -9,8 +9,8 @@ The parameter tree keeps the JAX layout, so weights carry across unchanged
 [D, kv*hd], "wo" [H*hd, D], "mlp_norm", "w1"/"w3" [D, F], "w2" [F, D]}]}``
 and a projection is ``h @ w``; a MoE layer (``moe_experts > 0``) holds
 ``"moe": {"wr" [D, E] f32, "w1"/"w3" [E, D, F], "w2" [E, F, D]}`` in
-place of ``w1``/``w3``/``w2`` (``ops.moe``).  ``tp_axis`` and ``dp_axis``
-raise ``NotImplementedError``.  ``remat=True`` recomputes each decoder
+place of ``w1``/``w3``/``w2`` (``ops.moe``).  ``dp_axis`` raises
+``NotImplementedError``.  ``remat=True`` recomputes each decoder
 block in the backward (``torch.utils.checkpoint``, JAX's
 ``jax.checkpoint`` of the block): a layer keeps only its input, on every
 route (the dense and sp blocks, and a layer of the joint-ranks graph as
@@ -52,6 +52,24 @@ gathered one in the 1F1B schedules (JAX's choice), and a MoE stage
 routes each microbatch of every rank at once.  ``pp_dp_loss_fn`` and
 ``pp_dp_loss_and_grads_fn`` are the trainers' MoE pipeline losses over
 all dp x ep ranks.
+
+``tp_axis`` (tensor parallelism, JAX's Megatron split): ``params`` is the
+list of the tp ranks' trees (``param_specs(cfg, tp_axis="tp",
+tp_size=tp)``, ``parallel.sharded.split_ep``; with ``ep_axis`` each ep
+rank's entry is such a list), rank r holding query heads ``r H/tp`` on,
+its kv heads (or, when tp exceeds the kv heads, the one kv head ``r
+n_kv // tp`` sliced from replicated ``wk``/``wv``: ``_kv_rep_slice``),
+its slice of the FFN hidden (of each expert's with MoE) and of the vocab.
+The replicated leaves (the embedding, the norms, the router) are read
+from rank 0's tree.  The column products run a rank at a time and their
+heads are concatenated in rank order, which is the unsharded head order,
+so attention is one call over every rank's heads (one flash launch a
+layer, as at tp = 1); the row-parallel products (``wo``, ``w2``) give
+each rank's partial, added in rank order in the activation dtype (JAX's
+``psum`` over tp).  The loss takes the tp ranks' vocab shards of the
+logits without gathering them (``_vocab_parallel_nll``), and a dp rank's
+loss is one value whatever its tp, so it is differentiated once.  pp with
+tp raises (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -72,6 +90,7 @@ from ..ops.ring_attention import (flash_attention_remat, full_attention,
                                   gathered_attention, pallas_route,
                                   ring_attention)
 from ..parallel import pipeline
+from ..parallel.mesh import Spec, spec_dims
 
 Params = Dict[str, Any]
 
@@ -183,30 +202,53 @@ def init(generator: torch.Generator, cfg: LlamaConfig,
     return params
 
 
-def param_specs(cfg: LlamaConfig) -> Params:
-    """Which leaves shard over ep on their leading axis (``"ep"``) and
-    which replicate (None): JAX's ``param_specs(cfg, tp_axis=None,
-    ep_axis="ep")`` reduced to the ep axis, the trainer's layout
-    (``parallel.sharded.split_ep``)."""
-    layer: Dict[str, Any] = {k: None for k in (
-        "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")}
+def param_specs(cfg: LlamaConfig, tp_axis: Optional[str] = None,
+                ep_axis: Optional[str] = "ep",
+                tp_size: Optional[int] = None) -> Params:
+    """JAX's ``param_specs``: how each leaf splits over the mesh, the
+    trainer's layout (``parallel.sharded.split_ep``).  Megatron's column
+    split over ``tp_axis`` (``Spec(None, "tp")``: ``wq``, ``wk``, ``wv``,
+    ``w1``, ``w3``, ``lm_head``) and row split (``Spec("tp", None)``:
+    ``wo``, ``w2``); the norms and the embedding replicate (None).  MoE
+    experts split over ``ep_axis`` on their leading axis and their hidden
+    over tp (``ops.moe.param_specs``); the router replicates.  ``tp_size``
+    (the tp extent): where it does not divide ``n_kv_heads``, ``wk`` and
+    ``wv`` replicate and each rank slices its kv head
+    (``_kv_rep_slice``).  Without tp the specs are the shorthand strings
+    (``"ep"`` at the experts) of the ep layout.  Where the port's default
+    differs from JAX's (``ep_axis="ep"``, JAX's None), an ep extent of 1
+    makes it the same layout."""
+    col = Spec(None, tp_axis) if tp_axis is not None else None
+    row = Spec(tp_axis, None) if tp_axis is not None else None
+    kv = col
+    if (tp_axis is not None and tp_size is not None
+            and cfg.n_kv_heads % tp_size != 0):
+        kv = None   # kv-head replication: sliced a rank in _kv_rep_slice
+    layer: Dict[str, Any] = {"attn_norm": None, "wq": col, "wk": kv,
+                             "wv": kv, "wo": row, "mlp_norm": None}
     if cfg.moe is not None:
-        layer["moe"] = moe_ops.param_specs()
+        layer["moe"] = moe_ops.param_specs(ep_axis, tp_axis)
     else:
-        layer.update(w1=None, w3=None, w2=None)
-    return {"tok_emb": None, "final_norm": None, "lm_head": None,
+        layer.update(w1=col, w3=col, w2=row)
+    return {"tok_emb": None, "final_norm": None, "lm_head": col,
             "layers": [{k: dict(v) if isinstance(v, dict) else v
                         for k, v in layer.items()}
                        for _ in range(cfg.n_layers)]}
 
 
-def params_from_jax(tree: Params, device: DeviceLike = "cuda") -> Params:
+def params_from_jax(tree: Params, device: DeviceLike = "cuda", *,
+                    specs: Any = None, grid: Any = None) -> Any:
     """The JAX package's parameter pytree, with numpy arrays at its leaves
     (``jax.tree_util.tree_map(np.asarray, params)``), as this port's tree:
     same keys, layout and values (bfloat16 leaves keep their bits).  The
     stacked tree of JAX's ``stack_params`` (``"layers"`` a dict of
     ``[n_layers, ...]`` leaves, in model or ``interleave_layers`` order)
-    comes across stacked."""
+    comes across stacked.  With ``specs`` (``param_specs(cfg,
+    tp_axis="tp", tp_size=tp)``) and ``grid`` (``{"tp": tp}``, or an int
+    for the one axis the specs name): the shards' trees instead, in grid
+    order (``shard_params``: what JAX's ``NamedSharding`` of the
+    unsharded tree puts on each device; ``parallel.sharded.join_ep``
+    gives the tree back)."""
     dev = resolve_device(device)
 
     def leaf(a: Any) -> torch.Tensor:
@@ -225,7 +267,17 @@ def params_from_jax(tree: Params, device: DeviceLike = "cuda") -> Params:
     out["layers"] = ({k: node(v) for k, v in layers.items()}
                      if isinstance(layers, dict) else
                      [{k: node(v) for k, v in lyr.items()} for lyr in layers])
-    return out
+    return out if specs is None else shard_params(out, specs, grid)
+
+
+def shard_params(params: Params, specs: Any, grid: Any) -> List[Params]:
+    """The whole tree as the shards' trees (``parallel.sharded.split_ep``
+    over ``specs`` and ``grid``), each leaf a contiguous tensor of its
+    own (a replicated leaf copied into every shard)."""
+    from ..parallel.sharded import split_ep
+    return [tree_map(lambda t: t.clone(memory_format=torch.contiguous_format),
+                     t)
+            for t in split_ep(params, specs, grid)]
 
 
 def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -278,14 +330,112 @@ def _rope(x: torch.Tensor, pos: torch.Tensor,
     return out.to(x.dtype)
 
 
-def _shard_counts(cfg: LlamaConfig,
-                  tp_axis: Optional[str] = None) -> Tuple[int, int]:
-    """(n_heads, n_kv) per rank; only ``tp_axis=None`` (one rank) is
-    ported."""
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "tensor parallelism (tp_axis) is not ported yet")
-    return cfg.n_heads, cfg.n_kv_heads
+def _shard_counts(cfg: LlamaConfig, tp: int = 1) -> Tuple[int, int]:
+    """Per-rank (n_heads, n_kv) head counts over ``tp`` ranks, with JAX's
+    errors; n_kv == 0 flags kv-head replication (tp > n_kv: wk/wv
+    replicate and each rank slices ONE kv head, its query group's)."""
+    n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
+    if tp == 1:
+        return n_heads, n_kv
+    if n_heads % tp:
+        raise ValueError(f"tp={tp} must divide n_heads={n_heads}")
+    n_heads //= tp
+    if n_kv % tp == 0:
+        n_kv //= tp
+    elif tp % n_kv == 0:
+        n_kv = 0            # replicated-kv mode: 1 sliced head a rank
+    else:
+        raise ValueError(
+            f"tp={tp} must divide n_kv_heads={cfg.n_kv_heads}, or be a "
+            f"multiple of it (kv-head replication)")
+    return n_heads, n_kv
+
+
+def _units(p: Any) -> List[Params]:
+    """One rank's trees: its tp ranks' (a list) or the one tree."""
+    return p if isinstance(p, list) else [p]
+
+
+def _layer(p: Any, i: int) -> Any:
+    """Layer i of one rank's tree, or of each of its tp ranks' trees."""
+    return ([u["layers"][i] for u in p] if isinstance(p, list)
+            else p["layers"][i])
+
+
+def _check_tp(params: Any, tp_axis: Optional[str]) -> int:
+    """The tp extent of ``params``: the length of its list of the tp
+    ranks' trees with ``tp_axis``, 1 without."""
+    if tp_axis is None:
+        return 1
+    if not isinstance(params, list) or not params or not all(
+            isinstance(p, dict) for p in params):
+        raise ValueError("with tp_axis, params is the list of the tp ranks' "
+                         "trees (param_specs(cfg, tp_axis='tp', tp_size=tp), "
+                         "parallel.sharded.split_ep)")
+    return len(params)
+
+
+def _kv_rep_slice(lyr: Params, cfg: LlamaConfig, r: int, tp: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kv-head replication (tp > n_kv): wk/wv arrive replicated; rank r
+    slices the ONE kv head serving its query group, ``g = r n_kv // tp``
+    (its n_heads/tp query heads all map to it because n_kv | tp).  The
+    slice's backward adds the rank's cotangent into that head's columns;
+    the trainer's sum over the tp rows ties the replicas (JAX's psum).
+    Shared by training and decoding.  Returns (wk, wv), ONE head each."""
+    Hd = cfg.head_dim
+    if lyr["wk"].shape[1] != cfg.n_kv_heads * Hd:
+        raise ValueError(
+            f"tp={tp} > n_kv_heads={cfg.n_kv_heads} needs wk/wv "
+            f"REPLICATED over tp (local width {lyr['wk'].shape[1]}, "
+            f"expected {cfg.n_kv_heads * Hd}) — pass tp_size to "
+            f"param_specs/stacked_param_specs")
+    g = (r * cfg.n_kv_heads) // tp
+    return (lyr["wk"][:, g * Hd:(g + 1) * Hd],
+            lyr["wv"][:, g * Hd:(g + 1) * Hd])
+
+
+def _col(h: torch.Tensor, ws: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Column-parallel product: each tp rank's ``h @ w``, concatenated in
+    rank order on the last axis (for the heads, the unsharded order)."""
+    if len(ws) == 1:
+        return h @ ws[0]
+    return torch.cat([h @ w for w in ws], dim=-1)
+
+
+def _row_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The tp ranks' row-parallel partials added in rank order, in their
+    dtype (JAX's ``psum`` over tp)."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def _qkv(lyrs: Sequence[Params], h: torch.Tensor, cfg: LlamaConfig,
+         n_kv: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v ``[.., S, heads Hd]`` of every tp rank of ``lyrs``, heads in
+    rank order; ``n_kv`` the per-rank kv heads (0: replicated, one sliced
+    head a rank)."""
+    tp = len(lyrs)
+    if n_kv == 0:
+        wk, wv = zip(*(_kv_rep_slice(lyr, cfg, r, tp)
+                       for r, lyr in enumerate(lyrs)))
+    else:
+        wk = [lyr["wk"] for lyr in lyrs]
+        wv = [lyr["wv"] for lyr in lyrs]
+    return (_col(h, [lyr["wq"] for lyr in lyrs]), _col(h, wk),
+            _col(h, wv))
+
+
+def _out_proj(att: torch.Tensor, lyrs: Sequence[Params]) -> torch.Tensor:
+    """``att @ wo``, row-parallel over the tp ranks: rank r's columns of
+    ``att`` (its heads) times its rows of ``wo``, the partials summed."""
+    if len(lyrs) == 1:
+        return att @ lyrs[0]["wo"]
+    w = att.shape[-1] // len(lyrs)
+    return _row_sum([att[..., r * w:(r + 1) * w] @ lyr["wo"]
+                     for r, lyr in enumerate(lyrs)])
 
 
 def _positions(S: int, sp_axis: Optional[str] = None,
@@ -300,7 +450,7 @@ def _positions(S: int, sp_axis: Optional[str] = None,
                             device=device)[:, None] + pos
 
 
-def _attention(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
+def _attention(lyr: Any, x: torch.Tensor, pos: torch.Tensor,
                cfg: LlamaConfig, n_heads: int, n_kv: int,
                sp_axis: Optional[str] = None,
                sp_attn: str = "ring") -> torch.Tensor:
@@ -308,13 +458,19 @@ def _attention(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
     attention, ``x + att @ wo``.  x: [B, S, D], or [n_sp, B, S, D] with
     ``sp_axis``, the shards attending through ``ring_attention``
     (``sp_attn="ring"``) or ``gathered_attention`` (``"gather"``, JAX's
-    form inside the 1F1B schedules)."""
+    form inside the 1F1B schedules).  ``lyr`` is the layer, or its tp
+    ranks' layers (a list; ``n_heads``/``n_kv`` per rank, ``_shard_counts``):
+    every rank's heads then attend in one call, and ``wo`` is
+    row-parallel."""
     lead, S = x.shape[:-2], x.shape[-2]
     Hd = cfg.head_dim
-    h = _rmsnorm(x, lyr["attn_norm"], cfg.norm_eps)
-    q = (h @ lyr["wq"]).reshape(*lead, S, n_heads, Hd).transpose(-3, -2)
-    k = (h @ lyr["wk"]).reshape(*lead, S, n_kv, Hd).transpose(-3, -2)
-    v = (h @ lyr["wv"]).reshape(*lead, S, n_kv, Hd).transpose(-3, -2)
+    lyrs = _units(lyr)
+    h = _rmsnorm(x, lyrs[0]["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(lyrs, h, cfg, n_kv)
+    n_heads, n_kv = n_heads * len(lyrs), max(n_kv, 1) * len(lyrs)
+    q = q.reshape(*lead, S, n_heads, Hd).transpose(-3, -2)
+    k = k.reshape(*lead, S, n_kv, Hd).transpose(-3, -2)
+    v = v.reshape(*lead, S, n_kv, Hd).transpose(-3, -2)
     q = _rope(q, pos, cfg)
     k = _rope(k, pos, cfg)
     # GQA: the flash kernels read grouped K/V (on the sp ring: 1/G of the
@@ -343,30 +499,42 @@ def _attention(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
     else:
         att = full_attention(q, k, v, causal=True)
     att = att.transpose(-3, -2).reshape(*lead, S, n_heads * Hd)
-    return x + att @ lyr["wo"]
+    return x + _out_proj(att, lyrs)
 
 
-def _dense_ffn(lyr: Params, h: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: silu in f32, back to the activation dtype."""
+def _dense_ffn(lyr: Any, h: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: silu in f32, back to the activation dtype.  ``lyr`` a list
+    of the tp ranks' layers: each rank's SwiGLU over its hidden slice,
+    the row-parallel partials summed (``_row_sum``)."""
+    if isinstance(lyr, list):
+        return _row_sum([_dense_ffn(one, h) for one in lyr])
     gate = F.silu((h @ lyr["w1"]).to(torch.float32)).to(h.dtype)
     return (gate * (h @ lyr["w3"])) @ lyr["w2"]
 
 
-def _block(lyr: Params, x: torch.Tensor, pos: torch.Tensor,
+def _moe_shards(units: Sequence[List[Params]]) -> List[Params]:
+    """The expert shards of the ep ranks' layer units for
+    ``ops.moe.moe_ranks``: tp major, ``shards[t n_ep + e]``."""
+    return [u[t]["moe"] for t in range(len(units[0])) for u in units]
+
+
+def _block(lyr: Any, x: torch.Tensor, pos: torch.Tensor,
            cfg: LlamaConfig, n_heads: int, n_kv: int,
            sp_axis: Optional[str] = None
            ) -> Tuple[torch.Tensor, Optional[moe_ops.AuxParts]]:
     """One decoder layer: pre-norm attention + SwiGLU or MoE FFN.  x:
     [B, S, D], or [n_sp, B, S, D] with ``sp_axis`` (each sp shard routes
-    its own tokens, as a JAX sp rank does).  Returns ``(x, parts)``:
-    the MoE layer's aux statistics over its tokens, None when dense."""
+    its own tokens, as a JAX sp rank does); ``lyr`` the layer or its tp
+    ranks' layers.  Returns ``(x, parts)``: the MoE layer's aux
+    statistics over its tokens, None when dense."""
     x = _attention(lyr, x, pos, cfg, n_heads, n_kv, sp_axis)
-    h = _rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
-    if "moe" not in lyr:
+    lyrs = _units(lyr)
+    h = _rmsnorm(x, lyrs[0]["mlp_norm"], cfg.norm_eps)
+    if "moe" not in lyrs[0]:
         return x + _dense_ffn(lyr, h), None
     hs = h if sp_axis is not None else h[None]
-    ff, parts = moe_ops.moe_ranks(lyr["moe"]["wr"], [lyr["moe"]], hs,
-                                  cfg.moe)
+    ff, parts = moe_ops.moe_ranks(lyrs[0]["moe"]["wr"], _moe_shards([lyrs]),
+                                  hs, cfg.moe, len(lyrs))
     return x + (ff if sp_axis is not None else ff[0]), parts
 
 
@@ -381,15 +549,19 @@ def _moe_group(lyrs: Sequence[Params], hs: Sequence[torch.Tensor],
                cfg: LlamaConfig
                ) -> Tuple[torch.Tensor, moe_ops.AuxParts]:
     """One ep group's MoE layer: ``hs`` its ranks' normed activations,
-    ``[B, S, D]`` each, or ``[n_sp, B, S_local, D]`` with sp.  Every (ep,
+    ``[B, S, D]`` each, or ``[n_sp, B, S_local, D]`` with sp; ``lyrs``
+    its ranks' layers (each a list of its tp ranks' with tp).  Every (ep,
     sp) device is a source of the exchange, routing its own tokens with
-    its ep rank's router copy; returns the outputs stacked as ``hs``."""
+    its ep rank's router copy (tp rank 0's); returns the outputs stacked
+    as ``hs``, each expert's tp partials summed."""
+    units = [_units(lyr) for lyr in lyrs]
     x = torch.stack(hs)
-    wr = torch.stack([lyr["moe"]["wr"] for lyr in lyrs])
+    wr = torch.stack([u[0]["moe"]["wr"] for u in units])
     if x.dim() == 5:                            # [n_ep, n_sp, B, S, D]
         wr = wr.repeat_interleave(x.shape[1], dim=0)
-    ff, parts = moe_ops.moe_ranks(wr, [lyr["moe"] for lyr in lyrs],
-                                  x.flatten(0, x.dim() - 4), cfg.moe)
+    ff, parts = moe_ops.moe_ranks(wr, _moe_shards(units),
+                                  x.flatten(0, x.dim() - 4), cfg.moe,
+                                  len(units[0]))
     return ff.reshape(x.shape), parts
 
 
@@ -403,15 +575,15 @@ def _layer_groups(lyrs: Sequence[Sequence[Params]], sizes: Sequence[int],
     ``sp_attn``), the FFN dense a rank or MoE over the group.  Returns
     the new activations in the same order and the MoE statistics pooled
     over the groups (None when dense)."""
-    n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
+    n_heads, n_kv = _shard_counts(cfg, len(_units(lyrs[0][0])))
     out, parts, at = [], [], 0
     for g_lyrs, k in zip(lyrs, sizes):
         xg = [_attention(lyr, x, pos, cfg, n_heads, n_kv, sp_axis, sp_attn)
               for lyr, x in zip(g_lyrs, flat[at:at + k])]
         at += k
-        hs = [_rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
+        hs = [_rmsnorm(x, _units(lyr)[0]["mlp_norm"], cfg.norm_eps)
               for lyr, x in zip(g_lyrs, xg)]
-        if "moe" in g_lyrs[0]:
+        if "moe" in _units(g_lyrs[0])[0]:
             ff, p = _moe_group(g_lyrs, hs, cfg)
             parts.append(p)
         else:
@@ -431,17 +603,20 @@ def _forward_groups(groups: Sequence[Sequence[Params]],
     The dense parts run a rank at a time on its own tree, each MoE layer
     over the group's stacked ranks; with ``remat`` each layer, all groups
     at once, is recomputed in the backward.  Returns the logits, shaped
-    as the tokens plus ``V`` a group, and each MoE layer's statistics
-    pooled over every group (JAX's psum over all token axes)."""
+    as the tokens plus ``V`` a group (where a rank is the list of its tp
+    ranks' trees, a list of the tp ranks' vocab shards a group), and each
+    MoE layer's statistics pooled over every group (JAX's psum over all
+    token axes)."""
     S = tokens[0].shape[-1]
     pos = _positions(S, sp_axis, tokens[0].device,
                      n_sp=tokens[0].shape[1] if sp_axis else 1)
-    xs = [t["tok_emb"][tok.long()] for trees, toks in zip(groups, tokens)
+    xs = [_units(t)[0]["tok_emb"][tok.long()]
+          for trees, toks in zip(groups, tokens)
           for t, tok in zip(trees, toks)]
     sizes = [len(trees) for trees in groups]
     layer_parts = []
     for i in range(cfg.n_layers):
-        args = ([[t["layers"][i] for t in trees] for trees in groups],
+        args = ([[_layer(t, i) for t in trees] for trees in groups],
                 sizes, pos, cfg, sp_axis, "ring", *xs)
         xs, parts = (checkpoint(_layer_groups, *args, use_reentrant=False)
                      if remat else _layer_groups(*args))
@@ -449,10 +624,27 @@ def _forward_groups(groups: Sequence[Sequence[Params]],
             layer_parts.append(parts)
     it = iter(xs)
     xs = [[next(it) for _ in range(k)] for k in sizes]
-    logits = [torch.stack([_rmsnorm(x, t["final_norm"], cfg.norm_eps)
-                           @ t["lm_head"] for t, x in zip(trees, xg)])
+    logits = [_stack_heads([_head(t, x, cfg) for t, x in zip(trees, xg)])
               for trees, xg in zip(groups, xs)]
     return logits, layer_parts
+
+
+def _head(p: Any, x: torch.Tensor, cfg: LlamaConfig) -> Any:
+    """The final norm and the head of one rank: logits ``[.., V]``, or with
+    its tp ranks' trees their vocab shards, a list of ``[.., V/tp]``."""
+    units = _units(p)
+    x = _rmsnorm(x, units[0]["final_norm"], cfg.norm_eps)
+    if isinstance(p, dict):
+        return x @ p["lm_head"]
+    return [x @ u["lm_head"] for u in units]
+
+
+def _stack_heads(outs: Sequence[Any]) -> Any:
+    """The ranks' ``_head`` outputs stacked: one tensor, or a list of one
+    a tp rank's vocab shard."""
+    if isinstance(outs[0], list):
+        return [torch.stack(col) for col in zip(*outs)]
+    return torch.stack(outs)
 
 
 def _check_ep(params: Any, tokens: torch.Tensor,
@@ -467,58 +659,97 @@ def _check_ep(params: Any, tokens: torch.Tensor,
 
 def apply(params: Any, tokens: torch.Tensor, cfg: LlamaConfig, *,
           tp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
-          ep_axis: Optional[str] = None, with_aux: bool = False,
-          remat: bool = False):
+          ep_axis: Optional[str] = None, gather_logits: bool = True,
+          with_aux: bool = False, remat: bool = False):
     """tokens [B, S] -> logits [B, S, vocab] in the model dtype; with
     ``sp_axis``, tokens [n_sp, B, S_local] -> [n_sp, B, S_local, vocab];
     with ``ep_axis``, params the ep ranks' trees and tokens [n_ep, B, S]
     -> [n_ep, B, S, vocab] (with both, [n_ep, n_sp, B, S_local] ->
-    [n_ep, n_sp, B, S_local, vocab]).  ``with_aux``: ``(logits, aux)``,
-    the MoE load-balance term over every token of the call (0 when
-    dense).  ``remat``: each block recomputed in the backward."""
+    [n_ep, n_sp, B, S_local, vocab]).  With ``tp_axis``, params the tp
+    ranks' trees (with ``ep_axis``, each ep rank's a list of them): the
+    logits are gathered over tp, or with ``gather_logits=False`` stay the
+    tp ranks' vocab shards, a list of ``[.., vocab/tp]``.  ``with_aux``:
+    ``(logits, aux)``, the MoE load-balance term over every token of the
+    call (0 when dense).  ``remat``: each block recomputed in the
+    backward."""
     if ep_axis is not None:
         _check_ep(params, tokens, sp_axis)
-        _shard_counts(cfg, tp_axis)
+        for p in params:
+            tp = _check_tp(p, tp_axis)
+        _shard_counts(cfg, tp)
         logits, layer_parts = _forward_groups([params], [tokens], cfg,
                                               sp_axis, remat)
         logits = logits[0]
     else:
+        tp = _check_tp(params, tp_axis)
         if tokens.dim() != (2 if sp_axis is None else 3):
             raise ValueError(f"tokens must be [B, S] (or [n_sp, B, S_local] "
                              f"with sp_axis), got {tuple(tokens.shape)}")
         S = tokens.shape[-1]
-        n_heads, n_kv = _shard_counts(cfg, tp_axis)
+        n_heads, n_kv = _shard_counts(cfg, tp)
         pos = _positions(S, sp_axis, tokens.device, n_sp=tokens.shape[0])
-        x = params["tok_emb"][tokens.long()]                # [.., S, D]
+        x = _units(params)[0]["tok_emb"][tokens.long()]     # [.., S, D]
         layer_parts = []
-        for lyr in params["layers"]:
-            args = (lyr, x, pos, cfg, n_heads, n_kv, sp_axis)
+        for i in range(cfg.n_layers):
+            args = (_layer(params, i), x, pos, cfg, n_heads, n_kv, sp_axis)
             x, parts = (checkpoint(_block, *args, use_reentrant=False)
                         if remat else _block(*args))
             if parts is not None:
                 layer_parts.append(parts)
-        x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        logits = x @ params["lm_head"]
+        logits = _head(params, x, cfg)
+    if tp_axis is not None and gather_logits:
+        logits = torch.cat(logits, dim=-1)
     if not with_aux:
         return logits
-    return logits, _aux(layer_parts, cfg, logits.device)
+    dev = (logits[0] if isinstance(logits, list) else logits).device
+    return logits, _aux(layer_parts, cfg, dev)
 
 
-def _token_nll(logits: torch.Tensor,
-               safe_labels: torch.Tensor) -> torch.Tensor:
-    """Per-token NLL [B, S] from f32 log-softmax."""
+def _vocab_parallel_nll(logits: Sequence[torch.Tensor],
+                        labels: torch.Tensor, tp_axis: str) -> torch.Tensor:
+    """Per-token NLL from the tp ranks' vocab shards of the logits
+    ``[.., V/tp]`` each, without gathering them — JAX's Megatron-style
+    distributed softmax cross-entropy: the max (a stability shift, no
+    gradient) over the ranks, the exp-sums and the target logit summed
+    over them in rank order (JAX's pmax and psums over ``tp_axis``).  One
+    value a token, so each shard's gradient is counted once."""
+    lfs = [lg.to(torch.float32) for lg in logits]
+    Vl = lfs[0].shape[-1]
+    m = lfs[0].detach().amax(dim=-1)
+    for lf in lfs[1:]:
+        m = torch.maximum(m, lf.detach().amax(dim=-1))
+    z = _row_sum([torch.exp(lf - m[..., None]).sum(dim=-1) for lf in lfs])
+    zero = torch.zeros((), dtype=torch.float32, device=m.device)
+    tgt = []
+    for r, lf in enumerate(lfs):
+        local = labels.long() - r * Vl
+        in_range = (local >= 0) & (local < Vl)
+        safe = torch.clamp(local, 0, Vl - 1)
+        t = lf.gather(-1, safe[..., None])[..., 0]
+        tgt.append(torch.where(in_range, t, zero))
+    return torch.log(z) + m - _row_sum(tgt)
+
+
+def _token_nll(logits: Any, safe_labels: torch.Tensor,
+               tp_axis: Optional[str] = None) -> torch.Tensor:
+    """Per-token NLL [B, S] from f32 log-softmax; with ``tp_axis`` the
+    logits are the tp ranks' vocab shards (``_vocab_parallel_nll``)."""
+    if tp_axis is not None:
+        return _vocab_parallel_nll(logits, safe_labels, tp_axis)
     logz = torch.log_softmax(logits.to(torch.float32), dim=-1)
     return -logz.gather(-1, safe_labels.long()[..., None])[..., 0]
 
 
-def _masked_nll(logits: torch.Tensor,
-                labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(per-token NLL with -100 labels zeroed, the valid mask)."""
+def _masked_nll(logits: Any, labels: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(per-token NLL with -100 labels zeroed, the valid mask); logits a
+    list are the tp ranks' vocab shards."""
     valid = labels >= 0
     safe = torch.where(valid, labels, torch.zeros_like(labels))
-    nll = torch.where(valid, _token_nll(logits, safe),
+    tp_axis = "tp" if isinstance(logits, list) else None
+    nll = torch.where(valid, _token_nll(logits, safe, tp_axis),
                       torch.zeros((), dtype=torch.float32,
-                                  device=logits.device))
+                                  device=labels.device))
     return nll, valid
 
 
@@ -547,10 +778,13 @@ def loss_fn(params: Any, batch, cfg: LlamaConfig, *,
     ``ep_axis``, params the ep ranks' trees; [n_ep, n_sp, B, S_local]
     with both); -100 entries are ignored.
     With ``sp_axis`` or ``ep_axis`` the value is the token-weighted mean
-    over all the shards, as each JAX rank's.  ``dp_axis`` raises: a dense
-    model's per-rank loss and the trainer's uniform dp average equal the
-    JAX dp_axis weighting when every label is valid, as in
-    ``train_llama``; a MoE model trains through ``dp_loss_fn``."""
+    over all the shards, as each JAX rank's.  With ``tp_axis`` params is
+    the tp ranks' trees (``apply``) and the NLL comes from the vocab
+    shards (``_vocab_parallel_nll``): one value, whatever the tp.
+    ``dp_axis`` raises: a dense model's per-rank loss and the trainer's
+    uniform dp average equal the JAX dp_axis weighting when every label
+    is valid, as in ``train_llama``; a MoE model trains through
+    ``dp_loss_fn``."""
     if dp_axis is not None:
         raise NotImplementedError(
             "dp_axis (the masked-label dp weighting inside a sharded "
@@ -558,7 +792,8 @@ def loss_fn(params: Any, batch, cfg: LlamaConfig, *,
             "gradients (a MoE model takes llama.dp_loss_fn)")
     tokens, labels = batch
     out = apply(params, tokens, cfg, tp_axis=tp_axis, sp_axis=sp_axis,
-                ep_axis=ep_axis, with_aux=cfg.moe is not None, remat=remat)
+                ep_axis=ep_axis, gather_logits=False,
+                with_aux=cfg.moe is not None, remat=remat)
     logits = out[0] if cfg.moe is not None else out
     nll, valid = _masked_nll(logits, labels)
     loss = _weighted_loss(nll.sum(), valid.sum())
@@ -566,7 +801,8 @@ def loss_fn(params: Any, batch, cfg: LlamaConfig, *,
 
 
 def dp_loss_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1, *,
-               n_sp: int = 1, remat: bool = False) -> Callable:
+               n_sp: int = 1, tp_axis: Optional[str] = None,
+               remat: bool = False) -> Callable:
     """The trainers' loss of a MoE Llama over n_dp x n_ep ranks at once,
     marked ``joint_ranks`` (``parallel.train.joint_grads``):
     ``(params_per_rank, batch) -> [n_dp n_ep]`` losses, rank (d, e) at
@@ -577,6 +813,10 @@ def dp_loss_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1, *,
     ``parallel.mesh.VirtualRanks.shard``) and each rank runs its sp ring
     over its shards; a rank's loss then sums its shards' tokens (JAX's
     psum over sp).  ``remat``: each layer recomputed in the backward.
+    With ``tp_axis`` the trees come as ``ShardedTrainer`` gives them at
+    tp > 1, ``params[t][e n_dp + d]`` (its ``P((tp, ep, dp))`` rows), rank
+    (d, e)'s tp trees ``[params[t][e n_dp + d] for t]``; the losses are
+    still one a (dp, ep) rank.
 
     JAX's ``loss_fn(dp_axis="dp", ep_axis="ep"[, sp_axis="sp"])``: every
     value is the global token-weighted cross-entropy plus the aux over
@@ -591,8 +831,12 @@ def dp_loss_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1, *,
 
     def loss(params_per_rank, batch):
         toks, labels = (b.reshape(*lead, *b.shape[-2:]) for b in batch)
-        groups = [[params_per_rank[e * n_dp + d] for e in range(n_ep)]
-                  for d in range(n_dp)]
+        if tp_axis is not None:
+            groups = [[[p[e * n_dp + d] for p in params_per_rank]
+                       for e in range(n_ep)] for d in range(n_dp)]
+        else:
+            groups = [[params_per_rank[e * n_dp + d] for e in range(n_ep)]
+                      for d in range(n_dp)]
         logits, layer_parts = _forward_groups(groups, list(toks), cfg,
                                               sp_axis, remat)
         sums, counts = [], []
@@ -634,29 +878,40 @@ def stack_params(params: Params) -> Params:
     return out
 
 
-def stacked_param_specs(cfg: LlamaConfig,
-                        ep_axis: Optional[str] = None) -> Params:
-    """JAX's ``stacked_param_specs(cfg, tp_axis=None, ep_axis=...)``:
-    ``"pp"`` at the stacked layer leaves (split on their layer axis, one
-    slice a stage); with ``ep_axis``, ``"pp,ep"`` at a MoE layer's
-    experts (JAX's ``P("pp", "ep")``: the layer axis over pp, then the
-    expert axis over ep) and ``"pp"`` at its router, which replicates
-    over ep; None at ``tok_emb``, ``final_norm`` and ``lm_head`` (every
-    stage holds them; ``parallel.sharded.split_ep``)."""
+def stacked_param_specs(cfg: LlamaConfig, ep_axis: Optional[str] = None,
+                        tp_axis: Optional[str] = None,
+                        tp_size: Optional[int] = None) -> Params:
+    """JAX's ``stacked_param_specs(cfg, tp_axis=..., ep_axis=...,
+    tp_size=...)``: ``"pp"`` at the stacked layer leaves (split on their
+    layer axis, one slice a stage); with ``ep_axis``, ``"pp,ep"`` at a MoE
+    layer's experts (JAX's ``P("pp", "ep")``: the layer axis over pp, then
+    the expert axis over ep) and ``"pp"`` at its router, which replicates
+    over ep; with ``tp_axis``, a layer leaf's ``param_specs`` behind its
+    layer axis (``Spec("pp", None, "tp")``); ``tok_emb``, ``final_norm``
+    and ``lm_head`` as ``param_specs`` gives them (every stage holds
+    them; ``parallel.sharded.split_ep``)."""
+    base = param_specs(cfg, tp_axis, ep_axis, tp_size)
+
     def one(spec):
-        return "pp," + spec if spec is not None and ep_axis is not None \
-            else "pp"
-    layer = param_specs(cfg)["layers"][0]
-    return {"tok_emb": None, "final_norm": None, "lm_head": None,
+        dims = spec_dims(spec)
+        if not dims:
+            return "pp"
+        if tp_axis is None:
+            return ",".join(("pp",) + dims)
+        return Spec("pp", *dims)
+    return {"tok_emb": base["tok_emb"], "final_norm": base["final_norm"],
+            "lm_head": base["lm_head"],
             "layers": {k: ({kk: one(vv) for kk, vv in v.items()}
                            if isinstance(v, dict) else one(v))
-                       for k, v in layer.items()}}
+                       for k, v in base["layers"][0].items()}}
 
 
 def _check_pp(tp_axis: Optional[str] = None,
               dp_axis: Optional[str] = None) -> None:
     if tp_axis is not None:
-        raise NotImplementedError("pp with tp is not ported: ROADMAP A.5")
+        raise NotImplementedError(
+            "pp with tp is not ported: ROADMAP A.5 (pp with tp, the item "
+            "after the tp axis)")
     if dp_axis is not None:
         raise NotImplementedError(
             "dp_axis is a JAX mesh axis; the port's dp ranks carry the "

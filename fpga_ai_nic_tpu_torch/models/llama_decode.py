@@ -1,8 +1,18 @@
 """Incremental (KV-cache) decoding for the Llama family — the port of the
-JAX package's ``models/llama_decode.py`` (without its tensor-parallel
-branches).  A MoE layer runs ``ops.moe.moe_ffn`` on the call's tokens, no
-ep: capacity is over all ``B T`` tokens of the call, idle and padded rows
-included, in token-major order, as JAX's does at the same shapes.
+JAX package's ``models/llama_decode.py``.  A MoE layer runs the MoE FFN on
+the call's tokens, no ep: capacity is over all ``B T`` tokens of the call,
+idle and padded rows included, in token-major order, as JAX's does at the
+same shapes.
+
+With ``tp_axis`` (JAX's tp branches) ``params`` is the list of the tp
+ranks' trees (``llama.param_specs(cfg, tp_axis="tp", ep_axis=None,
+tp_size=tp)``); as in training, the tp ranks' heads attend in one call
+(rank r's kv heads, or under kv-head replication its one sliced head,
+``llama._kv_rep_slice``), ``wo`` and ``w2`` are row-parallel with the
+partials added in rank order, and the logits are gathered over tp, so
+every rank would argmax the same rows.  A cache or pool then holds every
+rank's kv heads on its heads axis, ``kv_local_heads(cfg, tp) * tp`` of
+them, rank r's the r-th block: JAX's global pool, sharded on that axis.
 
 Two caches: ``init_cache`` allocates a contiguous ``[B, kv, max_seq, hd]``
 cache per layer for ``forward``/``generate``; the serving plane's
@@ -15,14 +25,14 @@ versions return a new one.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops import moe as moe_ops
 from . import llama
-from .llama import LlamaConfig, Params
+from .llama import LlamaConfig
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -40,15 +50,18 @@ def kv_local_heads(cfg: LlamaConfig, tp_size: int = 1) -> int:
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_seq: int, *,
-               dtype: Optional[str] = None,
-               device: DeviceLike = "cuda") -> Cache:
-    """Per-layer K/V cache [B, kv, max_seq, head_dim], zero-filled.  The
-    whole extent is allocated up front for every layer, K and V: the right
-    trade for one fixed-shape ``generate()`` call, the wrong one for a
-    serving plane (see ``serve.paged.init_pool``)."""
+               dtype: Optional[str] = None, device: DeviceLike = "cuda",
+               tp_size: int = 1) -> Cache:
+    """Per-layer K/V cache [B, kv, max_seq, head_dim], zero-filled; with
+    ``tp_size`` every tp rank's kv heads, ``kv_local_heads(cfg, tp) * tp``
+    (JAX's per-rank cache, ``init_cache(tp_size=)``, is one block of it).
+    The whole extent is allocated up front for every layer, K and V: the
+    right trade for one fixed-shape ``generate()`` call, the wrong one for
+    a serving plane (see ``serve.paged.init_pool``)."""
     dev = resolve_device(device)
     dt = getattr(torch, dtype or cfg.dtype)
-    shape = (batch, kv_local_heads(cfg), max_seq, cfg.head_dim)
+    shape = (batch, kv_local_heads(cfg, tp_size) * tp_size, max_seq,
+             cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=dt, device=dev),
              "v": torch.zeros(shape, dtype=dt, device=dev)}
             for _ in range(cfg.n_layers)]
@@ -86,45 +99,69 @@ def _cached_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return out.reshape(B, H, T, hd)
 
 
-def _ffn(lyr: Dict, h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def _ffn(lyr: Any, h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     """SwiGLU (silu in f32, back to the activation dtype), or the MoE FFN
-    over h's tokens (its aux is training's, dropped here)."""
-    if "moe" in lyr:
-        return moe_ops.moe_ffn(lyr["moe"], h, cfg.moe)[0]
+    over h's tokens (its aux is training's, dropped here); ``lyr`` the
+    layer or its tp ranks' layers, whose partials are summed."""
+    lyrs = llama._units(lyr)
+    if "moe" in lyrs[0]:
+        y, _ = moe_ops.moe_ranks(lyrs[0]["moe"]["wr"],
+                                 llama._moe_shards([lyrs]), h[None],
+                                 cfg.moe, len(lyrs))
+        return y[0]
     return llama._dense_ffn(lyr, h)
 
 
-def forward(params: Params, tokens: torch.Tensor, cache: Cache,
+def _heads(params: Any, tp_axis: Optional[str], cfg: LlamaConfig
+           ) -> Tuple[int, int, int]:
+    """(tp, the per-rank kv heads of ``_shard_counts`` (0: replicated),
+    every rank's query heads, every rank's kv heads)."""
+    tp = llama._check_tp(params, tp_axis)
+    n_heads, n_kv = llama._shard_counts(cfg, tp)
+    return n_kv, n_heads * tp, max(n_kv, 1) * tp
+
+
+def _logits(params: Any, x: torch.Tensor, cfg: LlamaConfig,
+            tp_axis: Optional[str]) -> torch.Tensor:
+    """The head; with tp, the vocab shards gathered (JAX's all_gather)."""
+    logits = llama._head(params, x, cfg)
+    return torch.cat(logits, dim=-1) if tp_axis is not None else logits
+
+
+def forward(params: Any, tokens: torch.Tensor, cache: Cache,
             pos: int, cfg: LlamaConfig, *, tp_axis: Optional[str] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """Run ``tokens [B, T]`` (positions pos..pos+T-1) through the decoder,
     writing their K/V into ``cache`` in place and reading it back.
-    Returns (logits [B, T, vocab], cache)."""
+    Returns (logits [B, T, vocab], cache).  ``tp_axis``: params the tp
+    ranks' trees, the cache every rank's kv heads (``init_cache(...,
+    tp_size=)``)."""
     B, T = tokens.shape
     Hd = cfg.head_dim
-    n_heads, n_kv = llama._shard_counts(cfg, tp_axis)
+    n_kv_rank, n_heads, n_kv = _heads(params, tp_axis, cfg)
     sm_scale = Hd ** -0.5
     pos = int(pos)
     positions = pos + llama._positions(T, device=tokens.device)
 
-    x = params["tok_emb"][tokens.long()]
-    for lyr, c in zip(params["layers"], cache):
-        h = llama._rmsnorm(x, lyr["attn_norm"], cfg.norm_eps)
-        q = (h @ lyr["wq"]).reshape(B, T, n_heads, Hd).transpose(1, 2)
-        k = (h @ lyr["wk"]).reshape(B, T, n_kv, Hd).transpose(1, 2)
-        v = (h @ lyr["wv"]).reshape(B, T, n_kv, Hd).transpose(1, 2)
+    x = llama._units(params)[0]["tok_emb"][tokens.long()]
+    for i, c in enumerate(cache):
+        lyr = llama._layer(params, i)
+        lyrs = llama._units(lyr)
+        h = llama._rmsnorm(x, lyrs[0]["attn_norm"], cfg.norm_eps)
+        q, k, v = llama._qkv(lyrs, h, cfg, n_kv_rank)
+        q = q.reshape(B, T, n_heads, Hd).transpose(1, 2)
+        k = k.reshape(B, T, n_kv, Hd).transpose(1, 2)
+        v = v.reshape(B, T, n_kv, Hd).transpose(1, 2)
         q = llama._rope(q, positions, cfg)
         k = llama._rope(k, positions, cfg)
         c["k"][:, :, pos:pos + T] = k.to(c["k"].dtype)
         c["v"][:, :, pos:pos + T] = v.to(c["v"].dtype)
         att = _cached_attend(q, c["k"], c["v"], pos, n_heads, n_kv, sm_scale)
         att = att.to(x.dtype).transpose(1, 2).reshape(B, T, n_heads * Hd)
-        x = x + att @ lyr["wo"]
-        h = llama._rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
+        x = x + llama._out_proj(att, lyrs)
+        h = llama._rmsnorm(x, lyrs[0]["mlp_norm"], cfg.norm_eps)
         x = x + _ffn(lyr, h, cfg)
-
-    x = llama._rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"], cache
+    return _logits(params, x, cfg, tp_axis), cache
 
 
 def _rope_rows(x: torch.Tensor, pos: torch.Tensor,
@@ -145,7 +182,7 @@ def _rope_rows(x: torch.Tensor, pos: torch.Tensor,
 ATTEND_IMPLS = ("kernel", "reference")
 
 
-def forward_paged(params: Params, tokens: torch.Tensor, pool: Cache,
+def forward_paged(params: Any, tokens: torch.Tensor, pool: Cache,
                   page_table: torch.Tensor, pos: torch.Tensor,
                   cfg: LlamaConfig, *, page_size: int,
                   tp_axis: Optional[str] = None,
@@ -178,7 +215,10 @@ def forward_paged(params: Params, tokens: torch.Tensor, pool: Cache,
     ``P*page_size`` positions for the same token stream and chunk
     schedule, for any page assignment and a dirty pool: masked positions
     score exactly -1e30 in both, their softmax weights are exactly 0, and
-    0 times a finite value never moves an f32 sum."""
+    0 times a finite value never moves an f32 sum.  ``tp_axis``: params
+    the tp ranks' trees and the pool every rank's kv heads
+    (``serve.paged.init_pool(..., tp_size=)``), which one kernel call
+    attends."""
     if attend_impl not in ATTEND_IMPLS:
         raise ValueError(f"forward_paged: unknown attend_impl="
                          f"{attend_impl!r}; expected one of {ATTEND_IMPLS}")
@@ -187,7 +227,7 @@ def forward_paged(params: Params, tokens: torch.Tensor, pool: Cache,
     R, T = tokens.shape
     Hd = cfg.head_dim
     P = page_table.shape[1]
-    n_heads, n_kv = llama._shard_counts(cfg, tp_axis)
+    n_kv_rank, n_heads, n_kv = _heads(params, tp_axis, cfg)
     sm_scale = Hd ** -0.5
     dev = tokens.device
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
@@ -207,12 +247,15 @@ def forward_paged(params: Params, tokens: torch.Tensor, pool: Cache,
     flat_offs = (pos_grid % page_size).reshape(-1).long()
     gate = act[:, None, None, None]
 
-    x = params["tok_emb"][tokens.long()]
-    for lyr, pl in zip(params["layers"], pool):
-        h = llama._rmsnorm(x, lyr["attn_norm"], cfg.norm_eps)
-        q = (h @ lyr["wq"]).reshape(R, T, n_heads, Hd).transpose(1, 2)
-        k = (h @ lyr["wk"]).reshape(R, T, n_kv, Hd).transpose(1, 2)
-        v = (h @ lyr["wv"]).reshape(R, T, n_kv, Hd).transpose(1, 2)
+    x = llama._units(params)[0]["tok_emb"][tokens.long()]
+    for i, pl in enumerate(pool):
+        lyr = llama._layer(params, i)
+        lyrs = llama._units(lyr)
+        h = llama._rmsnorm(x, lyrs[0]["attn_norm"], cfg.norm_eps)
+        q, k, v = llama._qkv(lyrs, h, cfg, n_kv_rank)
+        q = q.reshape(R, T, n_heads, Hd).transpose(1, 2)
+        k = k.reshape(R, T, n_kv, Hd).transpose(1, 2)
+        v = v.reshape(R, T, n_kv, Hd).transpose(1, 2)
         q = _rope_rows(q, pos_grid, cfg)
         k = _rope_rows(k, pos_grid, cfg)
         pk, pv = pl["k"], pl["v"]
@@ -235,30 +278,30 @@ def forward_paged(params: Params, tokens: torch.Tensor, pool: Cache,
             cv = pv[idx].transpose(1, 2).reshape(R, n_kv, P * page_size, Hd)
             att = _cached_attend(q, ck, cv, pos, n_heads, n_kv, sm_scale)
         att = att.to(x.dtype).transpose(1, 2).reshape(R, T, n_heads * Hd)
-        x = x + att @ lyr["wo"]
-        h = llama._rmsnorm(x, lyr["mlp_norm"], cfg.norm_eps)
+        x = x + llama._out_proj(att, lyrs)
+        h = llama._rmsnorm(x, lyrs[0]["mlp_norm"], cfg.norm_eps)
         x = x + _ffn(lyr, h, cfg)
-
-    x = llama._rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"], pool
+    return _logits(params, x, cfg, tp_axis), pool
 
 
-def generate(params: Params, prompt: torch.Tensor, n_new: int,
+def generate(params: Any, prompt: torch.Tensor, n_new: int,
              cfg: LlamaConfig, *, max_seq: Optional[int] = None,
              tp_axis: Optional[str] = None, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Greedy (temperature=0) or sampled generation over a contiguous
     cache.  prompt: [B, S0] int; returns int32 [B, S0 + n_new].  One
     prefill call, then one ``forward`` per new token.  Sampling draws from
-    ``generator`` (torch's, so the samples are not JAX's)."""
+    ``generator`` (torch's, so the samples are not JAX's).  ``tp_axis``:
+    params the tp ranks' trees, the cache every rank's kv heads."""
     B, S0 = prompt.shape
     if n_new <= 0:
         return prompt
     max_seq = max_seq or (S0 + n_new)
     if max_seq < S0 + n_new:
         raise ValueError(f"max_seq={max_seq} < prompt {S0} + n_new {n_new}")
-    llama._shard_counts(cfg, tp_axis)
-    cache = init_cache(cfg, B, max_seq, device=prompt.device)
+    tp = llama._check_tp(params, tp_axis)
+    llama._shard_counts(cfg, tp)
+    cache = init_cache(cfg, B, max_seq, device=prompt.device, tp_size=tp)
 
     def pick(logits_last: torch.Tensor) -> torch.Tensor:
         if temperature == 0.0:
@@ -268,10 +311,10 @@ def generate(params: Params, prompt: torch.Tensor, n_new: int,
         return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
             torch.int32)
 
-    logits, cache = forward(params, prompt, cache, 0, cfg)
+    logits, cache = forward(params, prompt, cache, 0, cfg, tp_axis=tp_axis)
     toks = [pick(logits[:, -1])]
     for i in range(n_new - 1):
         logits, cache = forward(params, toks[-1][:, None], cache, S0 + i,
-                                cfg)
+                                cfg, tp_axis=tp_axis)
         toks.append(pick(logits[:, -1]))
     return torch.cat([prompt.to(torch.int32), torch.stack(toks, 1)], 1)

@@ -36,12 +36,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.mesh import Spec
 
 Params = Dict[str, torch.Tensor]
 
@@ -84,11 +85,21 @@ def init_ffn(generator: torch.Generator, dim: int, ffn_dim: int,
     return {"wr": wr, "w1": w1, "w3": w3, "w2": w2}
 
 
-def param_specs() -> Dict[str, Optional[str]]:
-    """Which leaves shard over ep on their leading (expert) axis: the
-    experts do, the router replicates (JAX's ``P("ep", None, None)`` and
-    ``P()``)."""
-    return {"wr": None, "w1": "ep", "w3": "ep", "w2": "ep"}
+def param_specs(ep_axis: Optional[str] = "ep",
+                tp_axis: Optional[str] = None) -> Dict[str, Any]:
+    """JAX's ``param_specs``: the experts shard over ep on their leading
+    (expert) axis, the router replicates (``P("ep", None, None)`` and
+    ``P()``).  With ``tp_axis`` each expert's SwiGLU splits its hidden
+    over tp as the dense FFN does, ``w1``/``w3`` by column
+    (``Spec(ep, None, "tp")``), ``w2`` by row (``Spec(ep, "tp", None)``):
+    each tp rank computes a partial expert output over its hidden slice,
+    which the layer sums over tp; routing and dispatch are the same on
+    every tp rank."""
+    if tp_axis is None:
+        return {"wr": None, "w1": ep_axis, "w3": ep_axis, "w2": ep_axis}
+    col = Spec(ep_axis, None, tp_axis)
+    return {"wr": None, "w1": col, "w3": col,
+            "w2": Spec(ep_axis, tp_axis, None)}
 
 
 def _expert_ffn(params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -185,7 +196,7 @@ def _parts(r: Routing, C: int) -> AuxParts:
 
 
 def moe_ranks(wr: torch.Tensor, shards: Sequence[Params], x: torch.Tensor,
-              cfg: MoEConfig):
+              cfg: MoEConfig, tp: int = 1):
     """The MoE FFN over ``n`` stacked source devices: ``x [n, B, S, D]``
     each device's local tokens (capacity and drop priority over its ``B
     S``), ``wr`` [D, E] or [n, D, E], ``shards`` the ep expert shards
@@ -193,10 +204,17 @@ def moe_ranks(wr: torch.Tensor, shards: Sequence[Params], x: torch.Tensor,
     all experts, or n = ep m: the m sp devices of each ep rank, ep major).
     Shard j's experts see every source's rows for them: with sp, the m
     (dp, sp) groups' all_to_alls of JAX side by side, which give the same
-    rows since an expert acts on each row alone.  Returns ``(y [n, B, S,
-    D], AuxParts)``."""
+    rows since an expert acts on each row alone.  With ``tp`` > 1,
+    ``shards`` holds every tp rank's ep shards, tp major (``shards[t ep +
+    j]``, each expert's hidden slice t): each tp rank's experts give their
+    partial outputs, which are combined a rank at a time and summed in
+    rank order (JAX's ``psum`` over tp after the combine).  Returns ``(y
+    [n, B, S, D], AuxParts)``."""
     n, B, S, D = x.shape
-    ep = len(shards)
+    if len(shards) % tp:
+        raise ValueError(f"{len(shards)} expert shards do not split over "
+                         f"tp={tp}")
+    ep = len(shards) // tp
     if n % ep:
         raise ValueError(f"{ep} expert shards for {n} source devices: "
                          "one a rank, one for all, or one a rank's sp "
@@ -221,12 +239,18 @@ def moe_ranks(wr: torch.Tensor, shards: Sequence[Params], x: torch.Tensor,
     # the exchange: shard j's rows of every source, source-major
     h = buf.reshape(n, ep, El, C, D).permute(1, 2, 0, 3, 4).reshape(
         ep, El, n * C, D)
-    out = torch.stack([_expert_ffn(shards[j], h[j]) for j in range(ep)])
-    ybuf = out.reshape(ep, El, n, C, D).permute(2, 0, 1, 3, 4).reshape(
-        n, E, C, D)
     w = (r.gates.reshape(n, T * k) * r.keep.to(torch.float32)).to(x.dtype)
-    ytok = ybuf[idx] * w[..., None]          # [n,T*k,D]
-    y = ytok.reshape(n, T, k, D).sum(dim=2).reshape(n, B, S, D)
+    ys = []
+    for t in range(tp):
+        out = torch.stack([_expert_ffn(shards[t * ep + j], h[j])
+                           for j in range(ep)])
+        ybuf = out.reshape(ep, El, n, C, D).permute(2, 0, 1, 3, 4).reshape(
+            n, E, C, D)
+        ytok = ybuf[idx] * w[..., None]          # [n,T*k,D]
+        ys.append(ytok.reshape(n, T, k, D).sum(dim=2).reshape(n, B, S, D))
+    y = ys[0]
+    for part in ys[1:]:
+        y = y + part
     return y, _parts(r, C)
 
 

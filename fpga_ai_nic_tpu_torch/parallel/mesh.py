@@ -1,5 +1,5 @@
 """Virtual ranks on one card — what stands in for the JAX package's dp,
-fsdp, sp, ep and pp mesh axes (``parallel/mesh.py``).
+fsdp, tp, sp, ep and pp mesh axes (``parallel/mesh.py``).
 
 The port runs the reference's 1-D data-parallel ring in loopback: n ranks
 share one device, every per-rank tensor is stacked over the ranks as its
@@ -29,6 +29,13 @@ one parameter row a (pp, dp) rank (``parallel.sharded``,
 above, and a stage's trees are the pp index into the parameter rows
 (``P((pp, ep, dp))``).
 
+A tp axis (tensor parallelism, Megatron's column/row split) does not
+split the batch either (JAX's ``_bspec`` never names tp): the tp ranks
+of a dp rank see the same batch shard and each holds its own slice of
+the weights, one parameter row a (tp, dp) rank, tp major
+(``P((tp, pp, ep, dp))``, JAX's ``_waxes``).  Which dimension of a leaf
+splits over which axis is its ``Spec``.
+
 An fsdp axis (ZeRO-3, ``parallel.fsdp.FSDPTrainer``) runs alone, as JAX's
 FSDPTrainer shards over its fsdp axis only: its ranks are stacked as the
 leading dimension and split the batch as dp ranks do.
@@ -37,7 +44,7 @@ leading dimension and split the batch as dp ranks do.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -45,22 +52,67 @@ from ..device import DeviceLike, resolve_device
 from ..utils.config import MeshConfig
 
 
+class Spec:
+    """Which mesh axis each dimension of a parameter leaf splits over —
+    JAX's ``PartitionSpec`` for the port's parameter trees: ``Spec(None,
+    "tp")`` splits dimension 1 over tp (a column-parallel weight),
+    ``Spec("ep", None, "tp")`` dimension 0 over ep and 2 over tp.  A spec
+    tree's leaf is a Spec, None (replicated) or the shorthand string of
+    the leading dimensions' axes (``"ep"``, ``"pp"``, ``"pp,ep"``:
+    ``Spec("pp", "ep")``); a Spec is one leaf of the tree walk (not a
+    tuple, which the walk would enter)."""
+
+    __slots__ = ("dims",)
+
+    def __init__(self, *dims: Optional[str]) -> None:
+        self.dims = tuple(dims)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Spec) and spec_dims(other) == spec_dims(
+            self)
+
+    def __hash__(self) -> int:
+        return hash(spec_dims(self))
+
+    def __repr__(self) -> str:
+        return f"Spec{self.dims!r}"
+
+
+SpecLike = Union[None, str, Spec]
+
+
+def spec_dims(spec: SpecLike) -> Tuple[Optional[str], ...]:
+    """A spec as one axis (or None) a leading dimension, trailing Nones
+    dropped: None -> (), ``"pp,ep"`` -> ("pp", "ep"), ``Spec(None, "tp",
+    None)`` -> (None, "tp")."""
+    if spec is None:
+        return ()
+    dims = (tuple(spec.split(",")) if isinstance(spec, str)
+            else spec.dims)
+    while dims and dims[-1] is None:
+        dims = dims[:-1]
+    return dims
+
+
 @dataclass(frozen=True)
 class VirtualRanks:
     """n data-parallel ranks stacked on one device, each holding ``ep``
     expert-parallel ranks, each of those ``sp`` sequence shards; each
-    rank's model split over ``pp`` pipeline stages."""
+    rank's model split over ``pp`` pipeline stages and ``tp`` tensor
+    ranks."""
 
     n: int
     device: torch.device
     sp: int = 1
     ep: int = 1
     pp: int = 1
+    tp: int = 1
 
     def __post_init__(self) -> None:
-        if min(self.n, self.sp, self.ep, self.pp) < 1:
+        if min(self.n, self.sp, self.ep, self.pp, self.tp) < 1:
             raise ValueError(f"need at least one rank, got dp={self.n}, "
-                             f"sp={self.sp}, ep={self.ep}, pp={self.pp}")
+                             f"sp={self.sp}, ep={self.ep}, pp={self.pp}, "
+                             f"tp={self.tp}")
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
         """[B, ...] global batch -> [n, B/n, ...] on the device: rank i
@@ -92,21 +144,15 @@ class VirtualRanks:
         return tuple(self.shard(x) for x in batch)
 
 
-UNPORTED_AXES = {"tp": "ROADMAP A.5 (the tp axis of parallel/sharded.py)"}
-
-
 def make_ranks(cfg: MeshConfig, device: DeviceLike = "cuda"
                ) -> VirtualRanks:
-    """The dp, sp, ep and pp axes of a MeshConfig as virtual ranks on
+    """The dp, tp, sp, ep and pp axes of a MeshConfig as virtual ranks on
     ``device``, or its fsdp axis alone (ZeRO-3, ``parallel.fsdp``: the
-    fsdp ranks stacked as the leading dimension, JAX's 1-D fsdp mesh); tp
-    is not ported."""
-    for name, size in cfg.axis_sizes():
-        if name in UNPORTED_AXES and size != 1:
-            raise NotImplementedError(
-                f"mesh axis {name}={size} is not ported: "
-                f"{UNPORTED_AXES[name]}; the port runs dp, sp, ep and pp, "
-                "or fsdp")
+    fsdp ranks stacked as the leading dimension, JAX's 1-D fsdp mesh)."""
+    if cfg.tp > 1 and cfg.pp > 1:
+        raise NotImplementedError(
+            f"pp={cfg.pp} with tp={cfg.tp} is not ported: ROADMAP A.5 "
+            "(pp with tp)")
     if cfg.fsdp != 1:
         if cfg.nproc != cfg.fsdp:
             raise NotImplementedError(
@@ -114,4 +160,4 @@ def make_ranks(cfg: MeshConfig, device: DeviceLike = "cuda"
                 "shards over the fsdp axis alone, as the JAX package's")
         return VirtualRanks(cfg.fsdp, resolve_device(device))
     return VirtualRanks(cfg.dp, resolve_device(device), cfg.sp, cfg.ep,
-                        cfg.pp)
+                        cfg.pp, cfg.tp)

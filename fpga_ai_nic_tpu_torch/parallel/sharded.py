@@ -1,6 +1,6 @@
 """ZeRO-1 sharded trainer over virtual ranks — the port of the JAX
-package's ``parallel/sharded.py`` (``ShardedTrainer``) for its dp, sp, ep
-and pp axes.
+package's ``parallel/sharded.py`` (``ShardedTrainer``) for its dp, tp,
+sp, ep and pp axes.
 
 The JAX step, phase by phase (``sharded.py`` ``step_fn``):
 
@@ -72,9 +72,26 @@ the router) over the stage's ep ranks; the dp phases run within each
 (pp, ep) group, and ``clip_norm`` weights a leaf 1 / (its copies over
 pp x ep).
 
+With tp > 1 (``MeshConfig(dp, tp=...)``, ``param_specs`` giving each
+leaf's ``mesh.Spec``, e.g. ``llama.param_specs(cfg, tp_axis="tp",
+tp_size=tp)``) the layout is JAX's ``P((tp, ep, dp))``: one flat row a
+(tp, dp) rank (with ep, ``(t n_ep + e) n_dp + d``), holding tp rank t's
+column or row slice of each split leaf and its copy of the replicated
+ones (the embedding, the norms, the router, and ``wk``/``wv`` where they
+replicate because tp exceeds the kv heads).  The tp ranks of a dp rank
+see the same batch shard (JAX's batch spec never names tp), and one loss
+takes the dp rank's tp trees at once (``llama.loss_fn(..., tp_axis=
+"tp")``; a MoE model's ``llama.dp_loss_fn(..., tp_axis="tp")`` every
+rank's): each dp rank's loss is differentiated once, since its tp ranks
+hold one value of it, and a backward a tp rank would count every
+gradient tp times.  The replicated leaves' gradients are then summed
+over the tp (and ep) rows and written into each, the dp phases run
+within each (tp, ep) group, one ring launch a group, and ``clip_norm``
+counts a replicated leaf 1/tp a copy.  pp with tp raises (ROADMAP A.5).
+
 As in the JAX package the fused optimizer kernel is not used: the update
-is ``optim.apply`` between the two collectives.  Other mesh axes (tp,
-fsdp) and ``accum_steps > 1`` raise ``NotImplementedError``;
+is ``optim.apply`` between the two collectives.  An fsdp mesh axis and
+``accum_steps > 1`` raise ``NotImplementedError``;
 ``loss_and_grads_fn`` with ``accum_steps > 1`` and ``integrity_check``
 raise ``ValueError``, as the JAX package's do (the latter is
 DPTrainer's).  The state is ``parallel.train.TrainState``; ``step``
@@ -90,19 +107,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .mesh import UNPORTED_AXES, VirtualRanks
+from .mesh import VirtualRanks, spec_dims
 from .train import (DPTrainer, Params, TrainState, _rank_leaves,
                     refuse_fsdp)
 from .. import optim
 from ..ops import fused_update
 from ..utils.config import TrainConfig
-
-
-def _spec_axes(spec: Optional[str]) -> Tuple[str, ...]:
-    """The mesh axis each leading dimension of a leaf splits over, from
-    its spec: None (replicated) -> (), ``"ep"`` -> ("ep",), ``"pp,ep"``
-    -> ("pp", "ep") (JAX's ``P("pp", "ep")``)."""
-    return () if spec is None else tuple(spec.split(","))
 
 
 def _shard_grid(specs: Any, n: Union[int, Dict[str, int]]
@@ -112,7 +122,7 @@ def _shard_grid(specs: Any, n: Union[int, Dict[str, int]]
     if isinstance(n, dict):
         return dict(n)
     names = {a for s in fused_update.tree_leaves(specs)
-             for a in _spec_axes(s)}
+             for a in spec_dims(s) if a is not None}
     if len(names) > 1:
         raise ValueError(f"specs name the axes {sorted(names)}: give "
                          "their sizes as a dict")
@@ -122,24 +132,33 @@ def _shard_grid(specs: Any, n: Union[int, Dict[str, int]]
 def split_ep(params: Params, specs: Any,
              n: Union[int, Dict[str, int]]) -> List[Params]:
     """The whole tree as the shards' local trees, one a point of the grid
-    ``n`` (``{"pp": pp, "ep": ep}``: shard ``s ep + e``, pp major; an int
-    for the one axis the specs name): a leaf's leading dimensions split
-    over the axes its spec names (``"ep"`` or ``"pp"`` the first,
-    ``"pp,ep"`` the first two; each shard's chunk a view), the others
-    shared."""
+    ``n`` (``{"tp": tp, "pp": pp, "ep": ep}``: shard ``(t pp + s) ep +
+    e``, tp major, JAX's ``_waxes`` order; an int for the one axis the
+    specs name): each dimension of a leaf splits over the axis its spec
+    gives it (``mesh.Spec``; ``"ep"`` or ``"pp"`` the first dimension,
+    ``"pp,ep"`` the first two; each shard's chunk a view, as JAX's
+    ``NamedSharding`` cuts a dimension into equal blocks; an axis the grid
+    does not name has extent 1), the others shared."""
     pairs = fused_update._leaves(params)
     paths = tuple(p for p, _ in pairs)
-    axes = [_spec_axes(s) for s in fused_update.tree_leaves(specs)]
-    if len(axes) != len(pairs):
+    dims = [spec_dims(s) for s in fused_update.tree_leaves(specs)]
+    if len(dims) != len(pairs):
         raise ValueError("param_specs does not match the params tree")
     grid = _shard_grid(specs, n)
+    for (path, leaf), names in zip(pairs, dims):
+        for d, a in enumerate(names):
+            if a is not None and leaf.shape[d] % grid.get(a, 1):
+                raise ValueError(f"{path}: dimension {d} of "
+                                 f"{tuple(leaf.shape)} does not split "
+                                 f"over {a}={grid[a]}")
     out = []
     for idx in itertools.product(*(range(k) for k in grid.values())):
         at = dict(zip(grid, idx))
         leaves = []
-        for (_, leaf), names in zip(pairs, axes):
+        for (_, leaf), names in zip(pairs, dims):
             for d, a in enumerate(names):
-                leaf = leaf.chunk(grid[a], dim=d)[at[a]]
+                if a in grid:
+                    leaf = leaf.chunk(grid[a], dim=d)[at[a]]
             leaves.append(leaf)
         out.append(fused_update.tree_from_leaves(paths, leaves))
     return out
@@ -155,7 +174,7 @@ def join_ep(trees: List[Params], specs: Any,
     cols = list(zip(*(fused_update.tree_leaves(t) for t in trees)))
     leaves = []
     for ls, spec in zip(cols, fused_update.tree_leaves(specs)):
-        names = _spec_axes(spec)
+        names = spec_dims(spec)
         parts = list(ls)
         # fold the grid from its minor axis: each step joins one axis
         for a in reversed(list(grid)):
@@ -167,13 +186,26 @@ def join_ep(trees: List[Params], specs: Any,
     return fused_update.tree_from_leaves(tuple(p for p, _ in pairs), leaves)
 
 
-def _sum_into_all(g: torch.Tensor) -> None:
-    """``g [k, ...]``: the k copies' sum, in order, written into each."""
-    acc = g[0]
-    for e in range(1, g.shape[0]):
-        acc.add_(g[e])
-    for e in range(1, g.shape[0]):
-        g[e].copy_(acc)
+def _merge_spans(spans: List[Tuple[int, int, Any]]
+                 ) -> List[Tuple[int, int, Any]]:
+    """``(start, end, key)`` spans with each run of neighbours of one key
+    merged into one span."""
+    out: List[Tuple[int, int, Any]] = []
+    for a, b, key in spans:
+        if out and out[-1][1] == a and out[-1][2] == key:
+            out[-1] = (out[-1][0], b, key)
+        else:
+            out.append((a, b, key))
+    return out
+
+
+def _sum_into_all(copies: List[torch.Tensor]) -> None:
+    """The copies' sum, in order, written into each."""
+    acc = copies[0]
+    for c in copies[1:]:
+        acc.add_(c)
+    for c in copies[1:]:
+        c.copy_(acc)
 
 
 class ShardedTrainer(DPTrainer):
@@ -199,12 +231,10 @@ class ShardedTrainer(DPTrainer):
                 "compose with accum_steps > 1 — fold accumulation into "
                 "the schedule's num_microbatches instead")
         refuse_fsdp(cfg)
-        for name, size in cfg.mesh.axis_sizes():
-            if name not in ("dp", "sp", "ep", "pp") and size != 1:
-                raise NotImplementedError(
-                    f"mesh axis {name}={size} is not ported: "
-                    f"{UNPORTED_AXES[name]}; ShardedTrainer runs the dp, "
-                    "sp, ep and pp axes")
+        if cfg.mesh.tp > 1 and cfg.mesh.pp > 1:
+            raise NotImplementedError(
+                f"pp={cfg.mesh.pp} with tp={cfg.mesh.tp} is not ported: "
+                "ROADMAP A.5 (pp with tp)")
         if loss_and_grads_fn is not None and ranks.pp == 1:
             raise NotImplementedError(
                 "loss_and_grads_fn without pp is not ported: the port's "
@@ -232,17 +262,25 @@ class ShardedTrainer(DPTrainer):
         if ranks.pp > 1 and param_specs is None:
             raise ValueError("pp > 1 needs param_specs: which leaves split "
                              "over the stages (llama.stacked_param_specs)")
+        if ranks.tp > 1 and param_specs is None:
+            raise ValueError("tp > 1 needs param_specs: which dimension of "
+                             "each leaf splits over tp (llama.param_specs("
+                             "cfg, tp_axis='tp', tp_size=tp))")
         super().__init__(loss_fn, ranks, cfg)
         # as in the JAX package, this trainer carries no error-feedback
         # residual: a codec's error_feedback flag is not read here
         self._ef = False
         self.loss_and_grads_fn = loss_and_grads_fn
-        # model shards a dp rank's parameters split into: its pp stages
-        # times its ep ranks, one flat row each (pp major)
-        self.n_shards = ranks.ep * ranks.pp
+        # model shards a dp rank's parameters split into: its tp ranks
+        # times its pp stages times its ep ranks, one flat row each (tp
+        # major)
+        self.n_shards = ranks.tp * ranks.pp * ranks.ep
         self.param_specs = param_specs
-        # leaves replicated over every shard, and (pp and ep together)
-        # the stage slices replicated over ep: flat spans of a row
+        # flat spans of a row whose leaves replicate over some shard axes,
+        # with those axes: (start, end, axes)
+        self._shard_spans: List[Tuple[int, int, Tuple[str, ...]]] = []
+        # (start, end) of the leaves every shard holds, and with ep of the
+        # split leaves that replicate over ep (a stage's attention)
         self._rep_spans: List[Tuple[int, int]] = []
         self._ep_rep_spans: List[Tuple[int, int]] = []
 
@@ -259,19 +297,23 @@ class ShardedTrainer(DPTrainer):
         local = split_ep(params, self.param_specs, self._grid())
         meta = fused_update.flat_meta(local[0], self.cfg.collective, self.n)
         self._meta = meta
-        spans, ep_spans, off = [], [], 0
+        shard, rep, ep_rep, off = [], [], [], 0
         for size, spec in zip(meta.sizes, fused_update.tree_leaves(
                 self.param_specs)):
-            axes = _spec_axes(spec)
-            into = (spans if not axes else ep_spans
-                    if self.ranks.ep > 1 and "ep" not in axes else None)
-            if into is not None:   # merge neighbouring spans
-                if into and into[-1][1] == off:
-                    into[-1] = (into[-1][0], off + size)
-                else:
-                    into.append((off, off + size))
+            dims = spec_dims(spec)
+            axes = tuple(a for a, k in self._grid().items()
+                         if k > 1 and a not in dims)
+            span = (off, off + size)
+            if axes:
+                shard.append(span + (axes,))
+            if not any(dims):
+                rep.append(span + (None,))
+            elif self.ranks.ep > 1 and "ep" not in dims:
+                ep_rep.append(span + (None,))
             off += size
-        self._rep_spans, self._ep_rep_spans = spans, ep_spans
+        self._shard_spans = _merge_spans(shard)
+        self._rep_spans = [s[:2] for s in _merge_spans(rep)]
+        self._ep_rep_spans = [s[:2] for s in _merge_spans(ep_rep)]
         if self.cfg.optimizer.clip_norm is not None:
             self._norm_weights = self.norm_weight_tables()
         flat = torch.empty((self.n_shards, meta.padded_len),
@@ -289,16 +331,17 @@ class ShardedTrainer(DPTrainer):
                           opt_state, 0, None, side)
 
     def _grid(self) -> Dict[str, int]:
-        """The shard axes of a dp rank's rows and their sizes, pp major."""
-        return {"pp": self.ranks.pp, "ep": self.ranks.ep}
+        """The shard axes of a dp rank's rows and their sizes, tp major."""
+        return {"tp": self.ranks.tp, "pp": self.ranks.pp,
+                "ep": self.ranks.ep}
 
     def norm_weight_tables(self) -> Tuple[np.ndarray, np.ndarray]:
-        """JAX's ``_norm_weight_tables`` over one flat row of the pp x ep
-        layout: ``(bounds [m + 1] int32, values [m] f32)``, a segment a
+        """JAX's ``_norm_weight_tables`` over one flat row of the tp x pp x
+        ep layout: ``(bounds [m + 1] int32, values [m] f32)``, a segment a
         leaf, its value 1 / (the product of the shard axes it does not
-        split over: each of those rows holds a copy), so 1/ep, 1/pp or
-        1/(pp ep) where it replicates and 1 where it is the shard's own
-        slice, then the padding at 0.  ``optim.global_norm`` reads them
+        split over: each of those rows holds a copy), so 1/tp, 1/ep, 1/pp
+        or their products where it replicates and 1 where it is the
+        shard's own slice, then the padding at 0.  ``optim.global_norm`` reads them
         over the ``[n_shards n_dp, C]`` owned shards."""
         if self._meta is None:
             raise RuntimeError("call init_state first")
@@ -307,7 +350,7 @@ class ShardedTrainer(DPTrainer):
                 self.param_specs)):
             rep = 1
             for a, k in self._grid().items():
-                if a not in _spec_axes(spec):
+                if a not in spec_dims(spec):
                     rep *= k
             bounds.append(bounds[-1] + size)
             values.append(1.0 / rep)
@@ -335,28 +378,36 @@ class ShardedTrainer(DPTrainer):
 
     def grads(self, state: TrainState, batch
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The ranks' backward; with ep or pp > 1, each replicated leaf's
-        gradient summed over the shards of its dp rank that hold a copy,
-        in row order, and written into each of their rows: a leaf every
-        shard holds over all of them (``loss_and_grads_fn`` gives the sum
-        over the stages itself, so only over ep), a stage's slice that
-        replicates over ep over the stage's ep ranks."""
-        if self.ranks.pp > 1:
-            flat_g, loss = self._stage_grads(state, batch)
+        """The ranks' backward; with tp, pp or ep > 1, each leaf's gradient
+        summed over the shards of its dp rank that hold a copy of it, in
+        row order, and written into each of their rows (JAX's varying-axes
+        psums): a leaf every shard holds over all of them, a slice that
+        replicates over some axes (a stage's attention over ep, the
+        embedding over tp) over those.  ``loss_and_grads_fn`` gives the
+        sum over the stages itself, so pp is left out there."""
+        if self.ranks.pp > 1 or self.ranks.tp > 1:
+            flat_g, loss = self._shard_grads(state, batch)
         else:
             flat_g, loss = super().grads(state, batch)
         if self.n_shards > 1:
-            g = flat_g.view(self.ranks.pp, self.ranks.ep, self.n, -1)
-            over_pp = self.loss_and_grads_fn is None
-            for a, b in self._rep_spans:
-                if over_pp:
-                    _sum_into_all(g[..., a:b].flatten(0, 1))
-                else:
-                    for s in range(self.ranks.pp):
-                        _sum_into_all(g[s, :, :, a:b])
-            for a, b in self._ep_rep_spans:
-                for s in range(self.ranks.pp):
-                    _sum_into_all(g[s, :, :, a:b])
+            grid = self._grid()
+            names, sizes = list(grid), list(grid.values())
+            g = flat_g.view(*sizes, self.n, -1)
+            for a, b, rep in self._shard_spans:
+                if self.loss_and_grads_fn is not None:
+                    rep = tuple(x for x in rep if x != "pp")
+                axes = [names.index(x) for x in rep]
+                free = [i for i in range(len(names)) if i not in axes]
+                for fixed in itertools.product(*(range(sizes[i])
+                                                 for i in free)):
+                    views = []
+                    for r in itertools.product(*(range(sizes[i])
+                                                 for i in axes)):
+                        at = dict(zip(free, fixed))
+                        at.update(zip(axes, r))
+                        views.append(g[tuple(at[i] for i in range(
+                            len(names)))][:, a:b])
+                    _sum_into_all(views)
         return flat_g, loss
 
     def _grad_tree(self, row: torch.Tensor) -> Params:
@@ -365,16 +416,21 @@ class ShardedTrainer(DPTrainer):
         return fused_update.unflatten_tree(row, meta._replace(
             dtypes=(torch.float32,) * len(meta.dtypes)))
 
-    def _stage_grads(self, state: TrainState, batch
+    def _shard_grads(self, state: TrainState, batch
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """pp > 1: each stage's gradients into its rows (``(s n_ep + e)
-        n_dp + d``) of a zeroed ``[pp n_ep n_dp, L_pad]`` f32 flat_g;
-        ``(flat_g, mean loss)``.  A loss marked ``joint_ranks`` (a MoE
-        model's: ``llama.pp_dp_loss_fn``, ``pp_dp_loss_and_grads_fn``)
-        takes every rank's stage trees at once, ``trees[s][e n_dp + d]``,
-        and the whole batch; any other one dp rank's stage trees and its
-        batch, a dp rank at a time."""
-        meta, n, pp = self._meta, self.n, self.ranks.pp
+        """pp or tp > 1: each stage's (tp rank's) gradients into its rows
+        (``(s n_ep + e) n_dp + d``) of a zeroed ``[k n_ep n_dp, L_pad]`` f32
+        flat_g, k the stages (tp ranks); ``(flat_g, mean loss)``.  A loss
+        marked ``joint_ranks`` (a MoE model's: ``llama.dp_loss_fn``,
+        ``pp_dp_loss_fn``, ``pp_dp_loss_and_grads_fn``) takes every rank's
+        trees at once, ``trees[s][e n_dp + d]``, and the whole batch; any
+        other one dp rank's k trees and its batch, a dp rank at a time, so
+        a dp rank's loss is differentiated once, never once a tp rank.  A
+        tree's leaf the loss leaves unused (a tp rank's copy of a
+        replicated leaf) gets a zero gradient; the shard sums of ``grads``
+        complete it."""
+        meta, n = self._meta, self.n
+        pp = self.ranks.pp * self.ranks.tp
         if meta is None:
             raise RuntimeError("call init_state first")
         N = self.ranks.ep * n

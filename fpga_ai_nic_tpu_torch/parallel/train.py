@@ -201,22 +201,24 @@ class DPTrainer:
     tensors with a leading global-batch axis, split over the ranks by
     ``shard_batch``."""
 
-    takes_sp = False     # ShardedTrainer's: the sp, ep and pp axes
+    takes_sp = False     # ShardedTrainer's: the tp, sp, ep and pp axes
 
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig):
         refuse_fsdp(cfg)
-        if (cfg.mesh.nproc != ranks.n * ranks.sp * ranks.ep * ranks.pp
+        if (cfg.mesh.nproc != (ranks.n * ranks.sp * ranks.ep * ranks.pp
+                               * ranks.tp)
                 or cfg.mesh.dp != ranks.n or cfg.mesh.sp != ranks.sp
-                or cfg.mesh.ep != ranks.ep or cfg.mesh.pp != ranks.pp):
+                or cfg.mesh.ep != ranks.ep or cfg.mesh.pp != ranks.pp
+                or cfg.mesh.tp != ranks.tp):
             raise ValueError(f"cfg.mesh ({cfg.mesh}) does not describe "
-                             f"{ranks.n} dp x {ranks.sp} sp x {ranks.ep} "
-                             f"ep x {ranks.pp} pp ranks")
-        for axis, size in (("sp", ranks.sp), ("ep", ranks.ep),
-                           ("pp", ranks.pp)):
+                             f"{ranks.n} dp x {ranks.tp} tp x {ranks.sp} "
+                             f"sp x {ranks.ep} ep x {ranks.pp} pp ranks")
+        for axis, size in (("tp", ranks.tp), ("sp", ranks.sp),
+                           ("ep", ranks.ep), ("pp", ranks.pp)):
             if size != 1 and not self.takes_sp:
                 raise NotImplementedError(
-                    f"{axis}={size}: sequence, expert and pipeline "
+                    f"{axis}={size}: tensor, sequence, expert and pipeline "
                     "parallelism run on ShardedTrainer, as in the JAX "
                     "package")
         coll = cfg.collective

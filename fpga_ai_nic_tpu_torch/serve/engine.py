@@ -23,6 +23,15 @@ requeued with its generated tokens kept, and re-admission replays them as
 ordinary prefill — greedy decoding makes the continuation token-exact.
 Every recovery is counted (``summary()["recovery"]``), so a caller that
 must not see one can check.
+
+``tp_mesh`` (JAX's tensor-parallel ticks): the tp ranks of one replica,
+virtual ranks on its card (a tp-only ``VirtualRanks`` or a
+``MeshConfig(tp=n)``).  The params are split by ``llama.param_specs``
+into the tp ranks' trees, the pool holds every rank's kv heads
+(``kv_local_heads(cfg, tp) * tp``: JAX's global pool, sharded on that
+axis) and both steps run ``forward_paged(..., tp_axis="tp")``, whose
+logits are gathered over tp, so the argmax is over the same rows as at
+tp = 1.  ``page_integrity`` with tp raises JAX's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -35,13 +44,15 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models import llama_decode
+from ..models import llama, llama_decode
 from ..models.llama import LlamaConfig, Params
 from ..obs.metrics import RequestSpans
 from ..ops import integrity as integrity_lib
 from ..runtime import chaos as chaos_lib
 from ..runtime.requests import DECODE, Request, RequestQueue, ServeStats
+from ..parallel.mesh import VirtualRanks
 from ..runtime.watchdog import DeviceHangError
+from ..utils.config import MeshConfig
 from ..utils.observability import Profiler
 from .paged import (PageAllocator, ServeConfig, contiguous_cache_bytes,
                     init_pool, page_table_bytes, pool_bytes)
@@ -53,6 +64,23 @@ Pool = List[Dict[str, torch.Tensor]]
 PrefillWork = Tuple[Request, int, int]
 StepOut = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                 Optional[torch.Tensor]]
+
+
+def _tp_extent(tp_mesh: Any) -> int:
+    """The tp ranks of ``tp_mesh``: None (one), a ``VirtualRanks`` or a
+    ``MeshConfig`` whose other axes are all 1."""
+    if tp_mesh is None:
+        return 1
+    if isinstance(tp_mesh, VirtualRanks):
+        others = (tp_mesh.n, tp_mesh.sp, tp_mesh.ep, tp_mesh.pp)
+    elif isinstance(tp_mesh, MeshConfig):
+        others = tuple(k for name, k in tp_mesh.axis_sizes() if name != "tp")
+    else:
+        raise TypeError(f"tp_mesh must be a VirtualRanks or a MeshConfig "
+                        f"of tp ranks, got {type(tp_mesh).__name__}")
+    if any(k != 1 for k in others):
+        raise ValueError(f"tp_mesh must hold tp ranks only: {tp_mesh}")
+    return tp_mesh.tp
 
 
 def _params_to(params: Any, dev: torch.device) -> Any:
@@ -72,10 +100,10 @@ class ServeEngine:
     and recovery token-exact.  Single-threaded host loop;
     ``runtime.requests`` holds the thread-safe seams (intake, stats).
 
-    Not ported yet, and refused at construction: ``tp_mesh`` (tensor
-    parallel ticks, ROADMAP A.7), roles other than ``"both"`` (the fleet's
-    prefill/decode split and KV handoff, A.7), ``chaos`` (fault injection,
-    A.8) and ``ServeConfig.step_timeout_s`` (the watchdog, A.8)."""
+    Not ported yet, and refused at construction: roles other than
+    ``"both"`` (the fleet's prefill/decode split and KV handoff, ROADMAP
+    A.7), ``chaos`` (fault injection, A.8) and
+    ``ServeConfig.step_timeout_s`` (the watchdog, A.8)."""
 
     def __init__(self, params: Params, cfg: LlamaConfig, scfg: ServeConfig,
                  *, profiler: Optional[Profiler] = None,
@@ -92,9 +120,6 @@ class ServeEngine:
             raise NotImplementedError(
                 f"role={role!r} (the fleet's prefill/decode split) waits for "
                 "ROADMAP A.7")
-        if tp_mesh is not None:
-            raise NotImplementedError(
-                "tp_mesh (tensor-parallel ticks) waits for ROADMAP A.7")
         if chaos is not None:
             raise NotImplementedError(
                 "chaos (fault injection) waits for ROADMAP A.8")
@@ -105,11 +130,27 @@ class ServeEngine:
         if attend_impl not in llama_decode.ATTEND_IMPLS:
             raise ValueError(f"attend_impl must be one of "
                              f"{llama_decode.ATTEND_IMPLS}: {attend_impl!r}")
-        self.device = resolve_device(device)
+        self.tp_size = _tp_extent(tp_mesh)
+        llama._shard_counts(cfg, self.tp_size)      # JAX's tp errors
+        if tp_mesh is not None and scfg.page_integrity:
+            # the checksum ledger is over the GLOBAL pool; JAX's tp tick
+            # sees only its kv shard and refuses the pair
+            raise ValueError(
+                "page_integrity is not supported with a tp-sharded tick "
+                "(the page-checksum ledger is global; shards see only "
+                "their kv slice)")
+        self.device = resolve_device(getattr(tp_mesh, "device", device))
         self.replica_id = int(replica_id)
         self.role = role
         self.attend_impl = attend_impl
+        self.tp_mesh = tp_mesh
+        self._tp_axis = "tp" if self.tp_size > 1 else None
         self.params = _params_to(params, self.device)
+        if self.tp_size > 1:
+            self.params = llama.shard_params(
+                self.params, llama.param_specs(cfg, "tp", None,
+                                               self.tp_size),
+                {"tp": self.tp_size})
         self.cfg = cfg
         self.scfg = scfg
         self.dtype = dtype
@@ -137,7 +178,7 @@ class ServeEngine:
 
     def _fresh_pool(self) -> Pool:
         return init_pool(self.cfg, self.scfg, dtype=self.dtype,
-                         device=self.device)
+                         device=self.device, tp_size=self.tp_size)
 
     def _fresh_ledger(self) -> Optional[torch.Tensor]:
         if not self.scfg.page_integrity:
@@ -172,8 +213,8 @@ class ServeEngine:
         bad_pages = self._page_check(pool, ledger)
         logits, pool = llama_decode.forward_paged(
             self.params, tokens, pool, table, pos, self.cfg,
-            page_size=self.scfg.page_size, active=active,
-            attend_impl=self.attend_impl)
+            page_size=self.scfg.page_size, tp_axis=self._tp_axis,
+            active=active, attend_impl=self.attend_impl)
         self.decode_calls += 1
         toks = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         new_ledger = (None if ledger is None
@@ -186,7 +227,8 @@ class ServeEngine:
         bad_pages = self._page_check(pool, ledger)
         logits, pool = llama_decode.forward_paged(
             self.params, tokens, pool, row, pos0, self.cfg,
-            page_size=self.scfg.page_size, attend_impl=self.attend_impl)
+            page_size=self.scfg.page_size, tp_axis=self._tp_axis,
+            attend_impl=self.attend_impl)
         self.prefill_calls += 1
         # the continuation at the chunk's last TRUE token — consumed only
         # when this chunk completes a fresh prefill
@@ -407,7 +449,8 @@ class ServeEngine:
             "max_pages_per_seq": scfg.max_pages_per_seq,
             "prefill_chunk": scfg.prefill_chunk,
             "page_table_bytes": page_table_bytes(scfg),
-            "pool_bytes": pool_bytes(self.cfg, scfg, dtype=self.dtype),
+            "pool_bytes": pool_bytes(self.cfg, scfg, dtype=self.dtype,
+                                     tp_size=self.tp_size),
             "contiguous_cache_bytes": contiguous_cache_bytes(
                 self.cfg, scfg.max_reqs, scfg.max_seq, dtype=self.dtype),
         }}

@@ -118,25 +118,29 @@ def _dtype(cfg: LlamaConfig, dtype: Optional[str]) -> torch.dtype:
 
 
 def init_pool(cfg: LlamaConfig, scfg: ServeConfig, *,
-              dtype: Optional[str] = None,
-              device: DeviceLike = "cuda") -> List[Dict[str, torch.Tensor]]:
+              dtype: Optional[str] = None, device: DeviceLike = "cuda",
+              tp_size: int = 1) -> List[Dict[str, torch.Tensor]]:
     """Per-layer paged K/V pools ``[n_pages, kv, page_size, hd]``,
-    zero-filled once — the only full-pool fill the serving plane does."""
+    zero-filled once — the only full-pool fill the serving plane does.
+    With ``tp_size`` the pool holds every tp rank's kv heads, ``kv =
+    kv_local_heads(cfg, tp) * tp`` (JAX's global pool, sharded on that
+    axis: more than ``n_kv_heads`` under kv-head replication)."""
     dev = resolve_device(device)
     dt = _dtype(cfg, dtype)
-    shape = (scfg.n_pages, llama_decode.kv_local_heads(cfg), scfg.page_size,
-             cfg.head_dim)
+    shape = (scfg.n_pages, llama_decode.kv_local_heads(cfg, tp_size)
+             * tp_size, scfg.page_size, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=dt, device=dev),
              "v": torch.zeros(shape, dtype=dt, device=dev)}
             for _ in range(cfg.n_layers)]
 
 
 def pool_bytes(cfg: LlamaConfig, scfg: ServeConfig, *,
-               dtype: Optional[str] = None) -> int:
-    """Exact bytes of the paged pool (all layers, K and V)."""
+               dtype: Optional[str] = None, tp_size: int = 1) -> int:
+    """Exact bytes of the paged pool (all layers, K and V; every tp rank's
+    kv heads with ``tp_size``)."""
     itemsize = torch.empty((), dtype=_dtype(cfg, dtype)).element_size()
-    per_layer = (2 * scfg.n_pages * llama_decode.kv_local_heads(cfg)
-                 * scfg.page_size * cfg.head_dim * itemsize)
+    per_layer = (2 * scfg.n_pages * llama_decode.kv_local_heads(cfg, tp_size)
+                 * tp_size * scfg.page_size * cfg.head_dim * itemsize)
     return cfg.n_layers * per_layer
 
 

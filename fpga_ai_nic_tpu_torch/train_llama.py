@@ -1,6 +1,6 @@
 """Llama training driver of the port — the counterpart of the JAX package's
-``examples/train_llama.py`` on its dp, sp, ep and pp axes (no tensor
-parallelism yet).  Prints one JSON line: first and last loss, tokens/s,
+``examples/train_llama.py`` on its dp, tp, sp, ep and pp axes (pp with
+tp raises: ROADMAP A.5).  Prints one JSON line: first and last loss, tokens/s,
 wall time, parameter counts (all, and those a token's products touch),
 mesh, and with pp the schedule's ``pipeline_cost``.
 
@@ -40,9 +40,17 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
       --microbatches=2 --pp_schedule=1f1b --optimizer.clip_norm=1.0 \\
       --iters=3 --collective.impl=ring \\
       --collective.compression.codec=pallas --collective.fused_kernel=true
+  python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
+      --model.n_layers=4 --model.attn_block=512 --seq=4096 \\
+      --global_batch=4 --mesh.dp=2 --mesh.tp=2 --iters=3 \\
+      --collective.impl=ring --collective.compression.codec=pallas \\
+      --collective.fused_kernel=true
   python -m fpga_ai_nic_tpu_torch.train_llama --model=tiny --device=cpu \\
       --model.attn_block=128 --seq=128 --global_batch=4 --mesh.dp=2 \\
       --iters=2
+  python -m fpga_ai_nic_tpu_torch.train_llama --model=tiny --device=cpu \\
+      --model.attn_block=16 --seq=64 --global_batch=4 --mesh.dp=2 \\
+      --mesh.tp=2 --iters=2
 
 Flags: ``--model=llama3_8b|tiny`` (default tiny) picks the base
 configuration and ``--model.<field>=`` overlays ``LlamaConfig`` fields;
@@ -80,6 +88,10 @@ each (dp, ep) rank's batch, the 1F1B schedules run the sp shards on the
 gathered attention, and a MoE model trains through
 ``llama.pp_dp_loss_fn`` / ``pp_dp_loss_and_grads_fn`` (every rank in one
 graph, the aux over the pooled statistics of each microbatch).
+``--mesh.tp=T`` splits each dp rank's model over T tensor ranks as JAX's
+driver does (``llama.param_specs(cfg, tp_axis="tp", tp_size=T)``: kv-head
+replication where T exceeds the kv heads; the loss with ``tp_axis="tp"``,
+one a dp rank): with dp, sp, ep and MoE layers, not with pp.
 """
 
 from __future__ import annotations
@@ -162,6 +174,7 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
         mcfg = dataclasses.replace(mcfg, **{name: coerce_value(
             _declared_type(mcfg, name), val)})
     cfg = from_flags(TrainConfig, rest)
+    llama._shard_counts(mcfg, cfg.mesh.tp)      # JAX's tp errors, up front
     sp = cfg.mesh.sp
     if cfg.mesh.ep > 1 and mcfg.moe is None:
         raise ValueError(f"--mesh.ep={cfg.mesh.ep} needs MoE layers "
@@ -207,9 +220,9 @@ def batches(mcfg: LlamaConfig, cfg: TrainConfig, seq: int,
 def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str,
           remat: bool = False, pipe: Pipeline = Pipeline()
           ) -> Tuple[ShardedTrainer, TrainState]:
-    """The trainer over ``cfg.mesh.dp`` x ``cfg.mesh.ep`` x
-    ``cfg.mesh.sp`` (x ``cfg.mesh.pp``) virtual ranks and its initial
-    state, from weights drawn on the device with seed ``cfg.seed``;
+    """The trainer over ``cfg.mesh.dp`` x ``cfg.mesh.tp`` x ``cfg.mesh.ep``
+    x ``cfg.mesh.sp`` (or with ``cfg.mesh.pp`` instead of tp) virtual
+    ranks and its initial state, from weights drawn on the device with seed ``cfg.seed``;
     ``remat`` goes to the loss (with pp the losses always recompute);
     ``pipe``: the pipeline flags."""
     ranks = make_ranks(cfg.mesh, device)
@@ -221,15 +234,19 @@ def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str,
             params["layers"] = pipeline.interleave_layers(
                 params["layers"], ranks.pp, pipe.virtual_stages)
         return tr, tr.init_state(params)
+    tp_axis = "tp" if ranks.tp > 1 else None
+    specs = llama.param_specs(mcfg, tp_axis, tp_size=ranks.tp)
     if mcfg.moe is not None:
         tr = ShardedTrainer(llama.dp_loss_fn(mcfg, ranks.n, ranks.ep,
-                                             n_sp=ranks.sp, remat=remat),
-                            ranks, cfg, param_specs=llama.param_specs(mcfg))
+                                             n_sp=ranks.sp, tp_axis=tp_axis,
+                                             remat=remat),
+                            ranks, cfg, param_specs=specs)
     else:
         sp_axis = "sp" if cfg.mesh.sp > 1 else None
         tr = ShardedTrainer(
-            lambda p, b: llama.loss_fn(p, b, mcfg, sp_axis=sp_axis,
-                                       remat=remat), ranks, cfg)
+            lambda p, b: llama.loss_fn(p, b, mcfg, tp_axis=tp_axis,
+                                       sp_axis=sp_axis, remat=remat), ranks,
+            cfg, param_specs=specs if tp_axis else None)
     return tr, tr.init_state(llama.init(gen, mcfg, ranks.device))
 
 

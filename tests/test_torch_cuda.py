@@ -1449,3 +1449,129 @@ def test_hier_step_on_card_runs_the_codec_kernels(cuda_device, ni):
         bfp_cuda.bfp_encode, bfp_cuda.bfp_decode = saved
     assert torch.equal(new.w_own, plain.w_own)
     assert torch.equal(new.replicas, plain.replicas)
+
+
+def _tp_trainer(mcfg, dp, tp, dev):
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.parallel.mesh import make_ranks
+    from fpga_ai_nic_tpu_torch.parallel.sharded import ShardedTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import MeshConfig, TrainConfig
+    from fpga_ai_nic_tpu_torch.utils.config import CollectiveConfig
+    cfg = TrainConfig(global_batch=4, mesh=MeshConfig(dp=dp, tp=tp),
+                      collective=CollectiveConfig(
+                          impl="ring", compression=BFPConfig(codec="pallas"),
+                          fused_kernel=True),
+                      optimizer=OptimizerConfig(kind="sgd",
+                                                learning_rate=0.1))
+    tp_axis = "tp" if tp > 1 else None
+    return ShardedTrainer(
+        lambda p, b: llama.loss_fn(p, b, mcfg, tp_axis=tp_axis),
+        make_ranks(cfg.mesh, dev), cfg,
+        param_specs=llama.param_specs(mcfg, tp_axis, tp_size=tp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_llama_step_on_card_kernel_vs_plain(cuda_device, tp):
+    """dp=2 x tp, bf16, head_dim 128 (4 heads over 2 kv heads: tp = 4
+    replicates them): one flash launch of each kernel a layer and dp rank
+    (every tp rank's heads in one call); the kernel route's loss and
+    gradients against the plain attention route's (relative L2 within
+    the Llama parity limit 0.05, loss within 2e-3); then one step: one
+    ring reduce-scatter and one all-gather a tp group, the replicas equal
+    within each group.  (At these widths a BFP block mixes a replicated
+    leaf with split ones, so the tp groups' copies of it round apart;
+    ``chip_smoke.py``'s full-width path holds them equal.)"""
+    import dataclasses
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
+    base = dataclasses.replace(
+        llama.LlamaConfig.tiny(dim=512, n_heads=4, n_kv_heads=2,
+                               ffn_dim=512, dtype="bfloat16"),
+        attn_block=128)
+    params = llama.init(torch.Generator(device=cuda_device).manual_seed(0),
+                        base, cuda_device)
+    batch = _seeded_batch(base.vocab, 4, 512)
+    kernels = (fa.FLASH_FWD, fa.FLASH_DQ, fa.FLASH_DKV)
+    runs = {}
+    for impl in ("pallas", "xla"):
+        tr = _tp_trainer(dataclasses.replace(base, attn_impl=impl), 2, tp,
+                         cuda_device)
+        st = tr.init_state(params)
+        b = tr.shard_batch(batch)
+        before = [k.launches for k in kernels]
+        g, loss = tr.grads(st, b)
+        torch.cuda.synchronize()
+        runs[impl] = (g, float(loss), [k.launches - n for k, n in
+                                       zip(kernels, before)], tr, st)
+    g_k, l_k, n_k, tr, st = runs["pallas"]
+    g_p, l_p, n_p = runs["xla"][:3]
+    assert n_k == [2 * base.n_layers] * 3 and n_p == [0, 0, 0]
+    rel = float((g_k - g_p).norm() / g_p.norm())
+    print(f"tp={tp} kernel vs plain: loss {l_k} / {l_p}, grad rel {rel}")
+    assert abs(l_k - l_p) <= 2e-3 and rel <= 0.05
+    before = _launches()
+    st = tr.apply_grads(st, g_k)
+    torch.cuda.synchronize()
+    assert _launches() == [before[0] + tp, before[1] + tp]
+    reps = st.replicas.view(tp, 2, -1)
+    assert bool((reps == reps[:, :1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_forward_paged_on_card(cuda_device, tp):
+    """The tp decode step on the card: every tp rank's kv heads in one
+    paged_attend launch a layer, the logits within 1e-3 of the tp = 1
+    kernel step's on the same pool (f32 model, bf16 pool; the tp sums in
+    another order) and the kernel within the plain route's."""
+    from fpga_ai_nic_tpu_torch.models import llama, llama_decode
+    from fpga_ai_nic_tpu_torch.serve import ServeConfig, init_pool
+    cfg = llama.LlamaConfig.tiny(dim=512, n_heads=4, n_kv_heads=2,
+                                 ffn_dim=512)
+    params = llama.init(torch.Generator(device=cuda_device).manual_seed(1),
+                        cfg, cuda_device)
+    shards = llama.shard_params(params, llama.param_specs(cfg, "tp", None, tp),
+                                {"tp": tp})
+    scfg = ServeConfig(max_reqs=4, page_size=16, max_pages_per_seq=4,
+                       n_pages=17, prefill_chunk=16)
+    rng = np.random.default_rng(2)
+    table = torch.from_numpy(rng.permutation(np.arange(1, 17)).reshape(
+        4, 4).astype(np.int32)).to(cuda_device)
+    pos = torch.tensor([3, 20, 40, 63], dtype=torch.int32,
+                       device=cuda_device)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1)).astype(
+        np.int32)).to(cuda_device)
+    kv = llama_decode.kv_local_heads(cfg, tp) * tp
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    pool = [{k: torch.randn((17, kv, 16, 128), generator=g,
+                            device=cuda_device).to(torch.bfloat16)
+             for k in ("k", "v")} for _ in range(cfg.n_layers)]
+    assert init_pool(cfg, scfg, dtype="bfloat16", device=cuda_device,
+                     tp_size=tp)[0]["k"].shape == pool[0]["k"].shape
+    # tp = 1 reads each rank's kv head block once: replicated heads (tp >
+    # n_kv) hold equal copies, so give it the first of each group
+    step = tp // cfg.n_kv_heads if tp > cfg.n_kv_heads else 1
+    pool1 = [{k: v[:, ::step].contiguous() for k, v in lyr.items()}
+             for lyr in pool]
+    if step > 1:
+        for lyr in pool:
+            for k, v in lyr.items():
+                v.copy_(v[:, ::step].repeat_interleave(step, dim=1))
+    before = paged_attend.PAGED_ATTEND.launches
+    got, _ = llama_decode.forward_paged(
+        shards, toks, [{k: v.clone() for k, v in lyr.items()}
+                       for lyr in pool], table, pos, cfg, page_size=16,
+        tp_axis="tp")
+    torch.cuda.synchronize()
+    assert paged_attend.PAGED_ATTEND.launches - before == cfg.n_layers
+    ref, _ = llama_decode.forward_paged(params, toks, pool1, table, pos, cfg,
+                                        page_size=16)
+    plain, _ = llama_decode.forward_paged(
+        shards, toks, [{k: v.clone() for k, v in lyr.items()}
+                       for lyr in pool], table, pos, cfg, page_size=16,
+        tp_axis="tp", attend_impl="reference")
+    err = float((got - ref).abs().max())
+    print(f"tp={tp} paged decode: max |tp - tp1| {err}, max |kernel - "
+          f"plain| {float((got - plain).abs().max())}")
+    assert err <= 1e-3 and float((got - plain).abs().max()) <= 1e-3

@@ -237,7 +237,8 @@ def test_unported_options_raise():
                        llama.loss_fn(params, batch, CFG))
     with pytest.raises(NotImplementedError, match="dp_axis"):
         llama.loss_fn(params, batch, CFG, dp_axis="dp")
-    with pytest.raises(NotImplementedError):
+    # tp_axis (ported: tests/test_torch_tp.py) takes the tp ranks' trees
+    with pytest.raises(ValueError, match="tp ranks' trees"):
         llama.loss_fn(params, batch, CFG, tp_axis="tp")
     # ep_axis (ported with MoE, tests/test_torch_moe.py) takes the ep
     # ranks' trees and [n_ep, B, S] tokens: one tree is refused
@@ -254,7 +255,7 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="n_sp"):
         llama.loss_fn(params, batch, CFG, sp_axis="sp")
     ranks = VirtualRanks(2, torch.device("cpu"))
-    for cfg in (TrainConfig(mesh=MeshConfig(dp=2, tp=2)),
+    for cfg in (TrainConfig(mesh=MeshConfig(dp=2, tp=2, pp=2)),
                 TrainConfig(mesh=MeshConfig(dp=2), accum_steps=2)):
         with pytest.raises(NotImplementedError):
             ShardedTrainer(lambda p, b: None, ranks, cfg)

@@ -129,7 +129,7 @@ def test_logit_guard_trips_on_nan_weights(world):
 
 @pytest.mark.parametrize("kw, what", [
     (dict(chaos=object()), "A.8"),
-    (dict(tp_mesh=object()), "A.7"),
+    (dict(role="prefill"), "A.7"),   # tp_mesh: tests/test_torch_tp_serve.py
     (dict(role="decode"), "A.7"),
 ])
 def test_unported_options_raise(world, kw, what):

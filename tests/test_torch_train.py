@@ -224,8 +224,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         CollectiveConfig(impl="ring", codec="int8",
                          codec_opts=(("backend", "auto"),))
-    with pytest.raises(NotImplementedError):
-        make_ranks(MeshConfig(dp=2, tp=2), "cpu")
+    with pytest.raises(NotImplementedError):     # pp with tp (A.5)
+        make_ranks(MeshConfig(dp=2, tp=2, pp=2), "cpu")
     ranks = VirtualRanks(2, torch.device("cpu"))
     for cfg in (TrainConfig(mesh=MeshConfig(dp=2), accum_steps=2),
                 TrainConfig(mesh=MeshConfig(dp=2), obs_metrics=True)):
