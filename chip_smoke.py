@@ -85,6 +85,21 @@ Phases, each printing JSON lines:
      fed by every ablate= stage's device time, at the MLP's shape
      (streaming stages, SGD) and at 4 MiB a rank (resident stages), each
      stage measured (a stage error fails the phase);
+  5e. the tuner on the MLP cell (dp=8, batch 5376, SGD):
+     ``live_calibrate`` (the uncompressed ring and every registered
+     codec timed by CUDA events on the card's virtual ranks, at 65,536
+     elements and at the MLP's payload: live-tier rates, not dryrun);
+     ``auto_dp_path`` (``DPTrainer`` with ``codec="auto"`` and live
+     calibration: the resolved plan, its modeled collective beside the
+     measured ring, two steps' masters bit-equal to a ``DPTrainer`` built
+     by hand with the resolved config); ``adaptive_path``
+     (``AdaptiveTrainer`` with 3 candidates: prewarm, steps, one
+     ``inject_shift``, the switch event, ``recompiles_across_switch`` 0
+     (by construction), the switching step's ms, wall ms, reserved bytes
+     and allocated segments beside a steady step's,
+     the masters one step after the switch bit-equal to the target
+     plan's trainer stepped from the migrated state, ms/step before and
+     after);
   6. the int8 codec path: ``DPTrainer`` on the canonical MLP at dp=2 (each
      rank's chunk of 20,981,760 elements is whole (16, 128) tiles without
      padding) with ``codec="int8"`` on the sublane kernels and fused SGD
@@ -304,12 +319,24 @@ Phases, each printing JSON lines:
      same pool snapshots within 0.1875, the tp ranks' heads out of rank
      order (the control) above it; the paged kernel timed on the
      snapshot's pool;
- 33. the ``kernels`` line (the offset instantiations' rows among them,
+ 33. ``pp_tp_flash_checks`` (the flash kernels at the pp x tp launch:
+     B=1, H=32, Hkv=8, S=4096, a microbatch with both tp ranks' heads),
+     ``llama_pp_tp_train_path`` (Llama-3-8B width, 4 layers, sequence
+     4096, batch 4 over dp=1 x pp=2 x tp=2, 4 microbatches, remat, GPipe,
+     1F1B and interleaved 1F1B (v=2): launches counted, replicas and the leaves that replicate
+     over tp checked, ``ring_ag`` checked bit for bit on sampled tiles
+     and timed on a (tp, pp) row, peak memory, a profile) and
+     ``llama_pp_tp_train_parity`` (at the path's sequence and
+     microbatches, under GPipe and 1F1B: two steps' masters at pp=2 x
+     tp=2 against pp=2 x tp=1 within 0.05 of the update, losses within
+     2e-3, the loss backwarded once a tp rank above the limit);
+ 34. the ``kernels`` line (the offset instantiations' rows among them,
      the ablated ring_rs instantiations' rows from ``ring_cost_stages``,
      their launches from ``llama_sp_train_path``; the MoE paths'
      launches and ring times as ``moe_*`` keys, the pipeline's as
      ``pp_*`` keys, the pipeline with sp and ep's as ``pp_sp_*`` and
-     ``moe_pp_*``, the tp paths' as ``tp_*`` and ``moe_tp_*``), then the
+     ``moe_pp_*``, the tp paths' as ``tp_*`` and ``moe_tp_*``, the pp x tp
+     path's as ``pp_tp_*``), then the
      last line ``{"ok": true, "device":
      {...}}``.
 
@@ -321,6 +348,7 @@ no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -4867,10 +4895,11 @@ def pp_axes_per_step(mcfg, cfg, pipe, schedule) -> dict:
     each flash call and one dq and dk/dv; GPipe's ring attention makes a
     call a visible hop (the sp diagonal ones without offsets, the past
     ones with), the 1F1B schedules' gathered attention one a shard (shard
-    0's without offsets, the others at q_offset i S_local with); one
-    ring_ag and, with dp > 1, one ring_rs_update a (pp, ep) group (at
-    dp = 1 the reduce-scatter is the identity and launches nothing)."""
-    sp, groups = cfg.mesh.sp, cfg.mesh.pp * cfg.mesh.ep
+    0's without offsets, the others at q_offset i S_local with); with tp
+    every tp rank's heads go through one call; one ring_ag and, with dp
+    > 1, one ring_rs_update a (tp, pp, ep) group (at dp = 1 the
+    reduce-scatter is the identity and launches nothing)."""
+    sp, groups = cfg.mesh.sp, cfg.mesh.tp * cfg.mesh.pp * cfg.mesh.ep
     units = cfg.mesh.dp * cfg.mesh.ep * pipe.microbatches * mcfg.n_layers
     diag, past = ((sp, sp * (sp - 1) // 2) if schedule == "gpipe"
                   else (1, sp - 1))
@@ -4891,16 +4920,19 @@ def pp_train_path(dev, kernels, argv, schedule, phase,
     (``PP_TRAIN_ARGV``: Llama-3-8B width over dp=2 x pp=2, sequence 4096,
     4 microbatches; ``PP_SP_TRAIN_ARGV``: over
     dp=2 x pp=2 x sp=2, sequence 8192; ``MOE_PP_TRAIN_ARGV``: Mixtral-8x7B
-    width over pp=2 x ep=2 x sp=2 at dp=1, a clip): one warm-up (with MoE
-    its routing statistics) and
+    width over pp=2 x ep=2 x sp=2 at dp=1, a clip; ``PP_TP_TRAIN_ARGV``:
+    Llama-3-8B width over dp=1 x pp=2 x tp=2): one warm-up (with MoE its
+    routing statistics) and
     ``--iters`` timed steps on one batch, launch counts zeroed just
     before the first step and read after the last
     (``pp_axes_per_step``); the replicas bit-equal within each (pp, ep)
     group, the leaves every row holds equal across the groups (replicas
     and masters), a stage's slices that replicate over ep equal across
-    its ep ranks, the loss falling, peak memory and ``pipeline_cost``;
-    the backward's own peak; with ``time_rings`` the ring kernels timed
-    on a stage group's gradient rows; two steps under the profiler."""
+    its ep ranks (with tp, a stage's slices that replicate over tp equal
+    across its tp ranks), the loss falling, peak memory and
+    ``pipeline_cost``; the backward's own peak; with ``time_rings`` the
+    ring kernels timed on a stage group's rows (at dp=1 the gather alone:
+    the reduce-scatter is the identity); two steps under the profiler."""
     import torch
     from fpga_ai_nic_tpu_torch import train_llama
     from fpga_ai_nic_tpu_torch.models import llama
@@ -4910,7 +4942,8 @@ def pp_train_path(dev, kernels, argv, schedule, phase,
     mcfg, cfg, seq, device = train_llama.parse(argv)
     pipe = train_llama.pipeline_flags(argv)
     n, pp, sp, ep = cfg.mesh.dp, cfg.mesh.pp, cfg.mesh.sp, cfg.mesh.ep
-    M, G = pipe.microbatches, cfg.mesh.pp * cfg.mesh.ep
+    tp = cfg.mesh.tp
+    M, G = pipe.microbatches, tp * pp * ep
     gc.collect()
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated(dev) / 1e9
@@ -4963,7 +4996,8 @@ def pp_train_path(dev, kernels, argv, schedule, phase,
                                  f"{per_step[name]}")
     reps = state.replicas.view(G, n, -1)
     masters = state.w_own.view(G, -1)
-    by_stage = masters.view(pp, ep, -1)
+    by_stage = masters.view(tp * pp, ep, -1)
+    by_tp = masters.view(tp, pp * ep, -1)
     checks = {
         "losses_finite": all(math.isfinite(v) for v in losses),
         "loss_falls": losses[-1] < losses[0],
@@ -4975,6 +5009,9 @@ def pp_train_path(dev, kernels, argv, schedule, phase,
         "stage_slices_equal_across_ep": all(
             bool((by_stage[:, :, a:b] == by_stage[:, :1, a:b]).all())
             for a, b in tr._ep_rep_spans),
+        "tp_replicated_slices_equal_across_tp": all(
+            bool((by_tp[:, :, a:b] == by_tp[:1, :, a:b]).all())
+            for a, b, axes in tr._shard_spans if "tp" in axes),
         "stage_slices_differ": not bool((masters[0] == masters[-1]).all()),
         "replicas_in_model_dtype": state.replicas.dtype == mcfg.torch_dtype}
     stats = None
@@ -4996,7 +5033,7 @@ def pp_train_path(dev, kernels, argv, schedule, phase,
         f"{mcfg.n_layers} layers, attn_impl {mcfg.attn_impl}, remat, random "
         "weights"), params=llama.num_params(mcfg),
          active_params=llama.active_params(mcfg), seq=seq,
-         global_batch=cfg.global_batch, dp=n, pp=pp, sp=sp, ep=ep,
+         global_batch=cfg.global_batch, dp=n, pp=pp, sp=sp, ep=ep, tp=tp,
          microbatches=M, virtual_stages=pipe.virtual_stages,
          held_at_start_gb=held_gb, tokens_per_step=cfg.global_batch * seq,
          collective=str(cfg.collective), optimizer=str(cfg.optimizer),
@@ -5010,7 +5047,7 @@ def pp_train_path(dev, kernels, argv, schedule, phase,
              k: v.tolist() for k, v in stats.items()}, checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"{phase} ({schedule}): {checks}")
-    del parts, reps, masters, by_stage
+    del parts, reps, masters, by_stage, by_tp
     torch.cuda.reset_peak_memory_stats(dev)
     state_gb = torch.cuda.memory_allocated(dev) / 1e9
     flat_g, _ = tr.grads(state, batch)
@@ -5023,6 +5060,7 @@ def pp_train_path(dev, kernels, argv, schedule, phase,
     row_len = int(state.replicas.shape[1])
     out = {"launches": None, "steps": steps, "row_len": row_len}
     if time_rings:
+        from fpga_ai_nic_tpu_torch.ops import ring_cuda
         g, w = flat_g[:n], state.w_own[:n]
         C = row_len // n
 
@@ -5031,16 +5069,46 @@ def pp_train_path(dev, kernels, argv, schedule, phase,
 
         def ag():
             return fused_update.all_gather_flat(w, cfg.collective)
+        # the gather at this path's own shape against the plain version,
+        # on whole tiles of each chunk (``tile_sample``), among them the
+        # tiles that hold byte offset 2^31 and flat offset 2^31 mod C
+        bfp = fused_update._fused_bfp_cfg(cfg.collective)
+        tile = bfp.block_size * ring_cuda.LANES
+        if C % tile:
+            raise AssertionError(f"{phase}: chunk {C} is not whole tiles "
+                                 f"of {tile}")
+        picks = sorted({0, 2 ** 29 % C // tile, 2 ** 31 % C // tile,
+                        C // tile // 2, C // tile - 1})
+        before = ring_cuda.RING_AG.launches
+        rep = ag()
+        if ring_cuda.RING_AG.launches != before + 1:
+            raise AssertionError(f"{phase}: ring_ag launched "
+                                 f"{ring_cuda.RING_AG.launches - before} "
+                                 "times in one call, expected 1")
+        require_equal(f"{phase}: ring_ag at n={n}, L={row_len}, sampled "
+                      "tiles", [(tile_sample(rep, n, tile, picks),
+                                 ring_cuda.ring_all_gather_plain(
+                                     tile_sample(w, 1, tile, picks), bfp))])
+        if not all(bool(torch.isfinite(r).all()) and bool((r == rep[0]).all())
+                   for r in rep):
+            raise AssertionError(f"{phase}: ring_ag replicas differ or are "
+                                 "not finite")
+        del rep
         rs_b, ag_b = ring_bytes(n, row_len, C)
         out["ring"] = {
-            "shape": (f"n={n}, L={row_len} (one stage group's rows: "
-                      f"{mcfg.n_layers // pp} layers and the embedding, "
-                      "final norm and head), no optimizer"),
-            "rs_device_ms": device_ms(rs, 5, ("ring_rs_kernel",)),
+            "shape": (f"n={n}, L={row_len} (one "
+                      f"{'(tp, pp)' if tp > 1 else 'stage'} group's rows: "
+                      f"{mcfg.n_layers // pp} layers"
+                      + (f" split over tp={tp}" if tp > 1 else "")
+                      + " and the embedding, final norm and head), no "
+                      "optimizer"),
+            "rs_device_ms": (device_ms(rs, 5, ("ring_rs_kernel",))
+                             if n > 1 else None),
             "rs_bound": bound(rs_b, 11 * n * row_len),
             "ag_device_ms": device_ms(ag, 5, ("ring_ag_kernel",)),
-            "ag_bound": bound(ag_b, 10 * n * C)}
-        emit(phase="llama_pp_ring_times", **out["ring"])
+            "ag_bound": bound(ag_b, 10 * n * C),
+            "ag_bitexact_at_tiles": picks, "tile_elems": tile}
+        emit(phase=phase.replace("train_path", "ring_times"), **out["ring"])
         del g, w
     del flat_g
     held = [state]
@@ -5307,7 +5375,8 @@ TP_FLASH_SHAPES = (        # name, B, H, n_kv at S=4096, causal: a dp rank
 TP_SERVE_REQUESTS = 8
 
 
-def tp_flash_checks(dev) -> dict:
+def tp_flash_checks(dev, shapes=TP_FLASH_SHAPES,
+                    phase="tp_flash_checks") -> dict:
     """The tensor-core flash kernels at the tp path's shapes: a dp rank's
     two sequences with both tp ranks' heads in one launch (B=2, H=32,
     Hkv=8, S=4096, causal, bf16: the path's launch) and one tp rank's
@@ -5319,7 +5388,7 @@ def tp_flash_checks(dev) -> dict:
     import torch.nn.functional as F
     from fpga_ai_nic_tpu_torch.ops import flash_attention as fa
     out = {}
-    for si, (name, B, H, n_kv) in enumerate(TP_FLASH_SHAPES):
+    for si, (name, B, H, n_kv) in enumerate(shapes):
         S = 4096
         g = torch.Generator(device=dev).manual_seed(400 + si)
 
@@ -5375,14 +5444,14 @@ def tp_flash_checks(dev) -> dict:
                                 for t in got.values()),
                   "within_tol": max(ratio.values()) <= 1.0,
                   "lse_within_tol": lse_err <= fa.LSE_TOL}
-        emit(phase="tp_flash_checks", shape=name, B=B, H=H, n_kv=n_kv, S=S,
+        emit(phase=phase, shape=name, B=B, H=H, n_kv=n_kv, S=S,
              hd=128, causal=True, tol_ratio=ratio, max_abs_err=err,
              lse_max_abs_err=lse_err, rows={
                  k: dict(r, bound_ms=r["bound"][0], bound_by=r["bound"][1])
                  for k, r in rows.items()}, library=FLASH_LIBRARY,
              checks=checks)
         if not all(checks.values()):
-            raise AssertionError(f"tp flash kernels ({name}): {checks}")
+            raise AssertionError(f"{phase} ({name}): {checks}")
         out[name] = rows
         del q, k, v, do, o, lse, delta, args, got, qr, kr, vr, lib_out
         torch.cuda.empty_cache()
@@ -5644,6 +5713,319 @@ def tp_serving_path(dev, cfg, kernels) -> dict:
             "parity": parity, "token_agreement_share": agree}
 
 
+PP_TP_TRAIN_ARGV = PP_MODEL_ARGV + [
+    "--seq=4096", "--global_batch=4", "--mesh.pp=2", "--mesh.tp=2",
+    "--microbatches=4", "--iters=3"] + PP_RING_ARGV
+PP_TP_SCHEDULES = ("gpipe", "1f1b", "1f1b-interleaved")
+PP_TP_FLASH_SHAPES = (     # name, B, H, n_kv at S=4096, causal
+    ("a microbatch, both tp ranks' heads, one launch", 1, 32, 8),)
+PP_TP_PARITY_ARGV = PP_MODEL_ARGV + [
+    "--seq=4096", "--global_batch=4", "--mesh.pp=2", "--mesh.tp=2",
+    "--microbatches=4", "--iters=2"] + PP_RING_ARGV
+PP_TP_PARITY_SCHEDULES = ("gpipe", "1f1b")
+
+
+def llama_pp_tp_train_parity(dev) -> None:
+    """Two SGD steps from the same seeded weights on the same batch
+    (``PP_TP_PARITY_ARGV``: the timed path's Llama-3-8B width, 4 layers,
+    sequence 4096, batch 4, 4 microbatches, remat, the BFP ring kernels)
+    at dp=1 x pp=2 x tp=2 against pp=2 x tp=1 under the same schedule,
+    for each of ``PP_TP_PARITY_SCHEDULES``: the losses within
+    ``PARITY_LOSS_TOL`` and the f32 masters (the tp and pp shards joined,
+    ``_whole_masters``) within ``PARITY_GRAD_REL_TOL`` of the reference's
+    two-step update, as an L2 distance over its norm.  The control, under
+    GPipe: the tp run with its loss backwarded once a tp rank (every
+    gradient tp times too large) must exceed the limit.  The reference's
+    masters are kept in host memory."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+
+    def run(flags, double_count=False):
+        mcfg, cfg, seq, device = train_llama.parse(flags)
+        pipe = train_llama.pipeline_flags(flags)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr, state = train_llama.build(mcfg, cfg, device, True, pipe)
+        init = (_whole_masters(tr, state).cpu() if cfg.mesh.tp == 1
+                else None)
+        if double_count:
+            loss_fn = tr.loss_fn
+            tr.loss_fn = lambda p, b: cfg.mesh.tp * loss_fn(p, b)
+        batch = tr.shard_batch(next(train_llama.batches(mcfg, cfg, seq, 1)))
+        losses = []
+        for _ in range(2):
+            state, loss = tr.step(state, batch)
+            losses.append(float(loss))
+        w = _whole_masters(tr, state).clone()
+        del tr, state, batch
+        torch.cuda.empty_cache()
+        return w, losses, init
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    tp1 = [a for a in PP_TP_PARITY_ARGV if a != "--mesh.tp=2"]
+    rows, refs, ctrl = {}, {}, None
+    for sched in PP_TP_PARITY_SCHEDULES:
+        flags = PP_SCHEDULES[sched]
+        ref, ref_losses, init = run(tp1 + flags)
+        ref = ref.cpu()
+        upd = math.sqrt(_diff(ref, init)[0])
+        del init
+        refs[sched] = {"losses": ref_losses, "update_norm": upd}
+        runs = [("pp2_tp2", False)]
+        if sched == "gpipe":
+            runs.append(("control_loss_per_tp_rank", True))
+        for name, dc in runs:
+            w, losses, _ = run(PP_TP_PARITY_ARGV + flags, dc)
+            d, equal = _diff(w, ref)
+            row = {"master_update_rel_err": math.sqrt(d) / upd,
+                   "masters_bitequal": equal, "losses": losses,
+                   "loss_diffs": [abs(a - b) for a, b in
+                                  zip(losses, ref_losses)]}
+            if dc:
+                ctrl = row
+            else:
+                rows[sched] = row
+            del w
+            torch.cuda.empty_cache()
+        del ref
+    checks = {"finite": all(math.isfinite(r["master_update_rel_err"])
+                            for r in rows.values()),
+              "masters_within_tol": all(
+                  r["master_update_rel_err"] <= PARITY_GRAD_REL_TOL
+                  for r in rows.values()),
+              "losses_within_tol": all(
+                  max(r["loss_diffs"]) <= PARITY_LOSS_TOL
+                  for r in rows.values()),
+              "control_above_tol": ctrl["master_update_rel_err"]
+              > PARITY_GRAD_REL_TOL}
+    emit(phase="llama_pp_tp_train_parity", argv=PP_TP_PARITY_ARGV,
+         schedules=PP_TP_PARITY_SCHEDULES,
+         reference="dp=1 x pp=2 x tp=1 under the same schedule, the same "
+         "kernels", references=refs, against=rows, control=ctrl,
+         control_schedule="gpipe", grad_tol=PARITY_GRAD_REL_TOL,
+         loss_tol=PARITY_LOSS_TOL,
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         checks=checks)
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"llama pp x tp training parity failed: "
+                             f"{checks}")
+
+
+# -- the tuner on the MLP cell ----------------------------------------------------
+
+TUNE_STEPS = 3              # timed steps before and after the switch
+
+
+def _mlp_cell(mcfg, sgd, bx, coll, **adapt_kw):
+    from fpga_ai_nic_tpu_torch.utils.config import (AdaptConfig, MeshConfig,
+                                                    TrainConfig)
+    return TrainConfig(global_batch=bx.shape[0], mesh=MeshConfig(dp=8),
+                       collective=coll, optimizer=sgd,
+                       adapt=AdaptConfig(**adapt_kw))
+
+
+def live_calibrate_phase(dev, smi) -> dict:
+    """``tune.adapt.live_calibrate`` on 8 virtual ranks of the card: the
+    uncompressed ring all-reduce (``ops.ring.ring_all_reduce``) and each
+    registered codec's default encode and decode, timed by CUDA events
+    (best of 2) at JAX's startup payload (65,536 elements) and at the
+    MLP's (41,975,808): the rates at the live tier, ``dryrun`` false."""
+    from fpga_ai_nic_tpu_torch import tune
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    out = {}
+    for label, elems in (("startup", 1 << 16), ("mlp", 41_975_808)):
+        cal = tune.adapt.live_calibrate(VirtualRanks(8, dev),
+                                        payload_elems=elems)
+        d = cal.describe()
+        out[label] = cal
+        emit(phase="live_calibrate", payload=label, payload_elems=elems,
+             card=smi, inter_gbps=cal.inter_gbps,
+             inter_source=cal.inter_source, dryrun=cal.dryrun,
+             calibrated=cal.calibrated, codec_rates=d["codec_rates"])
+        if cal.dryrun or not cal.inter_live or cal.inter_gbps <= 0:
+            raise AssertionError(f"live_calibrate ({label}): {d}")
+    return out
+
+
+def auto_dp_phase(dev, mcfg, sgd, bx, by) -> dict:
+    """``DPTrainer`` on the MLP cell (dp=8, batch 5376, SGD) with
+    ``CollectiveConfig(codec="auto")`` and live calibration armed
+    (``adapt.enabled``): the resolved plan; its modeled collective beside
+    the measured ring (the step's reduce-scatter and gather by CUDA
+    events on its own gradients); 1 warm-up and ``TUNE_STEPS`` timed
+    steps; the masters after two steps bit-equal to a ``DPTrainer``
+    built by hand with the resolved collective config."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import CollectiveConfig
+    cfg = _mlp_cell(mcfg, sgd, bx, CollectiveConfig(impl="ring",
+                                                    codec="auto"),
+                    enabled=True, live_calibration=True)
+    ranks = VirtualRanks(8, dev)
+
+    def loss(p, b):
+        return mlp.loss_fn(p, b, mcfg)
+
+    def init():
+        return mlp.init(torch.Generator().manual_seed(0), mcfg, dev)
+    torch.cuda.empty_cache()
+    tr = DPTrainer(loss, ranks, cfg)
+    state0 = tr.init_state(init())
+    plan = tr.obs_static_metrics()["tune"]
+    batch = tr.shard_batch((bx, by))
+    _, run = timed_steps(tr, state0, batch, {}, TUNE_STEPS)
+    g, _ = tr.grads(state0, batch)
+    coll = tr.cfg.collective
+    rs_ms = cuda_ms(lambda: fused_update.reduce_scatter(g, coll), 3)
+    ag_ms = cuda_ms(lambda: fused_update.all_gather_flat(state0.w_own,
+                                                         coll), 3)
+    del g
+    hand = DPTrainer(loss, ranks, dataclasses.replace(
+        cfg, collective=coll, adapt=dataclasses.replace(cfg.adapt,
+                                                        enabled=False)))
+    states = []
+    for t in (tr, hand):
+        st = state0 if t is tr else t.init_state(init())
+        for _ in range(2):
+            st, _ = t.step(st, batch)
+        states.append(st.w_own)
+    require_equal("codec='auto' masters against the hand-resolved "
+                  "trainer's", [tuple(states)])
+    emit(phase="auto_dp_path", model="MLP 10x2048x2048 f32", dp=8,
+         global_batch=cfg.global_batch, resolved={
+             "codec": coll.codec, "bucket_elems": coll.bucket_elems,
+             "topology": coll.topology, "pipeline_depth":
+                 coll.pipeline_depth, "intra_size": coll.intra_size},
+         plan=plan, modeled_collective_ms=plan["modeled_collective_ms"],
+         measured_ring_ms={"reduce_scatter": rs_ms, "all_gather": ag_ms,
+                           "sum": rs_ms + ag_ms, "timed_by": "CUDA events"},
+         masters_bitequal_to_hand_resolved=True, **run)
+    del tr, hand, state0, states, batch
+    torch.cuda.empty_cache()
+    return {"plan": plan, "ring_ms": rs_ms + ag_ms, **run}
+
+
+def adaptive_phase(dev, mcfg, sgd, bx, by, calibration) -> dict:
+    """``tune.adapt.AdaptiveTrainer`` on the MLP cell with 3 candidates
+    (``tune_topk`` under ``calibration``, the live rates measured at the
+    MLP's payload: at the startup payload every rate is host-bound and
+    one codec wins at every link rate, so a shift has nowhere to go):
+    prewarm,
+    ``TUNE_STEPS`` steps on the argmin plan, one ``inject_shift`` to a
+    rate whose re-priced argmin is another candidate, the switching step
+    and ``TUNE_STEPS`` more.  The switch event (from, to, step, bitwise),
+    ``recompiles_across_switch`` 0, the masters one step after the
+    switch bit-equal to the target plan's trainer stepped from the
+    migrated state, ms/step (CUDA events) before and after.  The
+    recompile count is 0 by construction (``prewarm`` steps every
+    candidate); what a switch can really change is read on the switching
+    step and the steps after it against the steady step before it
+    (``probe``): ms, host wall ms, and the bytes reserved and segments
+    allocated by the caching allocator.  The target's trainer steps once just before the switching
+    step, for the bit-equality reference."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.tune import adapt
+    from fpga_ai_nic_tpu_torch.utils.config import CollectiveConfig
+    cfg = _mlp_cell(mcfg, sgd, bx, CollectiveConfig(impl="ring",
+                                                    codec="auto"),
+                    enabled=True, live_calibration=True, n_candidates=3)
+    torch.cuda.empty_cache()
+    at = adapt.AdaptiveTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg),
+                               VirtualRanks(8, dev), cfg,
+                               calibration=calibration)
+    state = at.init_state(mlp.init(torch.Generator().manual_seed(0), mcfg,
+                                   dev))
+    batch = at.shard_batch((bx, by))
+    t0 = time.perf_counter()
+    at.prewarm(batch)
+    prewarm_s = time.perf_counter() - t0
+
+    def steps(state, k):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(k + 1)]
+        marks[0].record()
+        for m in marks[1:]:
+            state, _ = at.step(state, batch)
+            m.record()
+        torch.cuda.synchronize()
+        return state, [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+    def probe(state):
+        """One step with what a switch could change: its CUDA-event and
+        host wall ms, and the bytes the allocator reserved and the
+        segments it allocated (cudaMalloc) during it."""
+        torch.cuda.synchronize()
+        r0 = torch.cuda.memory_reserved(dev)
+        a0 = torch.cuda.memory_stats(dev).get("num_device_alloc", 0)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        state, _ = at.step(state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        return state, {
+            "ms": e0.elapsed_time(e1),
+            "wall_ms": 1e3 * (time.perf_counter() - t0),
+            "reserved_added_bytes": torch.cuda.memory_reserved(dev) - r0,
+            "segments_allocated": torch.cuda.memory_stats(dev).get(
+                "num_device_alloc", 0) - a0}
+    state, before = steps(state, TUNE_STEPS - 1)
+    state, steady = probe(state)
+    before.append(steady["ms"])
+    frm = at.active
+    rate = next((r for r in (1e-4, 1e4, 1.0, 100.0, 1e6)
+                 if at.controller.retarget(r) != frm), None)
+    if rate is None:
+        raise AssertionError(
+            "adaptive_path: no link rate moves the argmin off plan "
+            f"{frm}: {[p.describe()['codec'] for p in at.plans]}")
+    to = at.controller.retarget(rate)
+    at.controller.inject_shift(rate, step=at._step_i)
+    want, _ = at.trainers[to].step(at._migrate(state, frm, to), batch)
+    want = want.w_own.clone()
+    state, switching = probe(state)
+    require_equal("adaptive masters one step after the switch",
+                  [(state.w_own, want)])
+    del want
+    after_steps = []
+    for _ in range(TUNE_STEPS):
+        state, got = probe(state)
+        after_steps.append(got)
+    after = [p["ms"] for p in after_steps]
+    ev = at.switch_events[0]
+    checks = {"one_switch": at.switches == 1 and at.active == to,
+              "recompiles_across_switch_zero":
+                  at.recompiles_across_switch == 0,
+              "masters_bitequal_after_switch": True}
+    emit(phase="adaptive_path", model="MLP 10x2048x2048 f32", dp=8,
+         candidates=[p.describe() | {"calibration": None}
+                     for p in at.plans],
+         calibration=at.calibration.describe(), prewarm_s=prewarm_s,
+         injected_inter_gbps=rate,
+         switch={k: ev[k] for k in ("step", "from_plan", "to_plan",
+                                    "bitwise", "evidence")},
+         recompiles_across_switch=at.recompiles_across_switch,
+         recompiles_are="0 by construction: prewarm built every trainer "
+         "and stepped every candidate, so no kernel library or trainer is "
+         "left to a switch",
+         switching_step=switching, steady_step=steady,
+         steps_after_switch=after_steps,
+         ms_per_step_before=before, ms_per_step_after=after,
+         median_ms_before=sorted(before)[len(before) // 2],
+         median_ms_after=sorted(after)[len(after) // 2], checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"adaptive_path: {checks}")
+    del at, state, batch
+    torch.cuda.empty_cache()
+    return {"switch": ev, "before": before, "after": after,
+            "switching_step": switching, "steady_step": steady}
+
+
 def main() -> int:
     # the Llama training phase holds about 60 GB at its peak and frees and
     # reallocates 7-15 GB buffers every step; growable segments keep the
@@ -5869,6 +6251,11 @@ def main() -> int:
     hier = hier_path(dev, kernels, mcfg, sgd, bx, by)
     stages = ring_cost_stages(dev)
 
+    # -- 4f. the tuner on the MLP cell: live rates, codec="auto", a switch ----
+    live = live_calibrate_phase(dev, smi)
+    auto_dp_phase(dev, mcfg, sgd, bx, by)
+    adaptive_phase(dev, mcfg, sgd, bx, by, live["mlp"])
+
     # -- 6. the int8 codec path and the convergence eval ---------------------------
     int8_launches = int8_train_path(dev, kernels, sgd, bx, by)
     del bx, by
@@ -5976,6 +6363,16 @@ def main() -> int:
                                 "moe_tp_train_path")
     moe_train_parity(dev, moe_tp_run, "moe_tp_train_parity")
     tp_serve = tp_serving_path(dev, lcfg, serve_kernels)
+
+    # -- 33-35. pp with tp over dp=1 x pp=2 x tp=2: the launch, the path,
+    # its parity --------------------------------------------------------------
+    pp_tp_flash = tp_flash_checks(dev, PP_TP_FLASH_SHAPES,
+                                  "pp_tp_flash_checks")
+    pp_tp_runs = {sched: pp_train_path(dev, sp_kernels, PP_TP_TRAIN_ARGV,
+                                       sched, "llama_pp_tp_train_path",
+                                       time_rings=sched == "gpipe")
+                  for sched in PP_TP_SCHEDULES}
+    llama_pp_tp_train_parity(dev)
 
     # -- 28. the kernels line and the result ----------------------------------
     meta = {
@@ -6184,6 +6581,37 @@ def main() -> int:
             moe_tp_device_ms=mr_[key + "_device_ms"],
             moe_tp_bound_ms=mr_[key + "_bound"][0],
             moe_tp_bound_by=mr_[key + "_bound"][1])
+    pp_tp_from = (f"llama_pp_tp_train_path ({pp_tp_runs['gpipe']['steps']} "
+                  "steps a schedule, Llama-3-8B width, 4 layers, dp=1 x "
+                  "pp=2 x tp=2, 4 microbatches, remat)")
+    for name in flash_kernels:
+        t = pp_tp_flash[PP_TP_FLASH_SHAPES[0][0]][name]
+        results[name]["extra"].update(
+            pp_tp_shape=("B=1, H=32, Hkv=8, S=4096, hd=128, causal, bf16: a "
+                         "microbatch, both tp ranks' heads in one launch"),
+            pp_tp_launches={k: r["launches"][name]
+                            for k, r in pp_tp_runs.items()},
+            pp_tp_launches_from=pp_tp_from, pp_tp_ms=t["ms"],
+            pp_tp_call_ms=t["call_ms"], pp_tp_max_abs_err=t["max_abs_err"],
+            pp_tp_tol_ratio=t["tol_ratio"], pp_tp_plain_ms=t["plain_ms"],
+            pp_tp_library_ms=t["library_ms"], pp_tp_bound_ms=t["bound"][0],
+            pp_tp_bound_by=t["bound"][1])
+    pr_ = pp_tp_runs["gpipe"]["ring"]
+    results["ring_ag"]["extra"].update(
+        pp_tp_launches={k: r["launches"]["ring_ag"]
+                        for k, r in pp_tp_runs.items()},
+        pp_tp_launches_from=pp_tp_from + ", one a step for each of the 4 "
+        "(tp, pp) groups, the BFP roundtrip at n=1",
+        pp_tp_shape=pr_["shape"], pp_tp_device_ms=pr_["ag_device_ms"],
+        pp_tp_bound_ms=pr_["ag_bound"][0], pp_tp_bound_by=pr_["ag_bound"][1],
+        pp_tp_max_abs_err=0.0,
+        pp_tp_bitexact_at_tiles=pr_["ag_bitexact_at_tiles"],
+        pp_tp_tile_elems=pr_["tile_elems"])
+    results["ring_rs_update"]["extra"].update(
+        pp_tp_launches={k: r["launches"]["ring_rs_update"]
+                        for k, r in pp_tp_runs.items()},
+        pp_tp_launches_from=pp_tp_from + ": at dp=1 the reduce-scatter is "
+        "the identity")
     tp_paged = tp_serve["paged"]
     results["paged_attend"]["extra"] = dict(
         tp_serving_launches=tp_serve["launches"]["paged_attend"],

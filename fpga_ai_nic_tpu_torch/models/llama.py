@@ -68,8 +68,10 @@ layer, as at tp = 1); the row-parallel products (``wo``, ``w2``) give
 each rank's partial, added in rank order in the activation dtype (JAX's
 ``psum`` over tp).  The loss takes the tp ranks' vocab shards of the
 logits without gathering them (``_vocab_parallel_nll``), and a dp rank's
-loss is one value whatever its tp, so it is differentiated once.  pp with
-tp raises (ROADMAP A.5).
+loss is one value whatever its tp, so it is differentiated once.  Under
+pp a rank's tree of a stage is likewise the list of its tp ranks' trees
+of that stage (Megatron's 3-D layout: ``stacked_param_specs(cfg,
+tp_axis="tp", tp_size=tp)``).
 """
 
 from __future__ import annotations
@@ -906,12 +908,7 @@ def stacked_param_specs(cfg: LlamaConfig, ep_axis: Optional[str] = None,
                        for k, v in base["layers"][0].items()}}
 
 
-def _check_pp(tp_axis: Optional[str] = None,
-              dp_axis: Optional[str] = None) -> None:
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "pp with tp is not ported: ROADMAP A.5 (pp with tp, the item "
-            "after the tp axis)")
+def _check_pp(dp_axis: Optional[str] = None) -> None:
     if dp_axis is not None:
         raise NotImplementedError(
             "dp_axis is a JAX mesh axis; the port's dp ranks carry the "
@@ -948,24 +945,56 @@ def _pp_weight(batch, dp_size: Optional[int]
 
 def _pp_ranks(params: Sequence[Any], tokens: torch.Tensor,
               labels: torch.Tensor, sp_axis: Optional[str],
-              ep_axis: Optional[str]):
+              ep_axis: Optional[str], tp_axis: Optional[str] = None):
     """One dp rank's call as the ranks the pp cores take: ``(stages,
     tokens, labels, sizes)``, one rank, or with ``ep_axis`` its ep ranks
     (``params[s]`` their trees of stage s, tokens ``[n_ep, ...]``) as one
-    group."""
+    group.  With ``tp_axis`` a rank's tree of a stage is the list of its
+    tp ranks' trees (``_check_tp``)."""
     dims = 2 + (sp_axis is not None) + (ep_axis is not None)
     if tokens.dim() != dims:
         raise ValueError(
             f"tokens must be [B, S] ([n_sp, B, S_local] with sp_axis; "
             f"[n_ep, ...] ahead with ep_axis), got {tuple(tokens.shape)}")
     if ep_axis is None:
-        return [[p] for p in params], [tokens], [labels], [1]
-    if any(isinstance(p, dict) or len(p) != tokens.shape[0]
-           for p in params):
+        stages = [[p] for p in params]
+    elif any(isinstance(p, dict) or len(p) != tokens.shape[0]
+             for p in params):
         raise ValueError("with ep_axis, params[s] is the list of the ep "
                          "ranks' trees of stage s")
-    return ([list(p) for p in params], list(tokens), list(labels),
-            [tokens.shape[0]])
+    else:
+        stages = [list(p) for p in params]
+    for st in stages:
+        for unit in st:
+            if tp_axis is None and not isinstance(unit, dict):
+                raise ValueError("a list of a rank's trees needs tp_axis")
+            _check_tp(unit, tp_axis)
+    if ep_axis is None:
+        return stages, [tokens], [labels], [1]
+    return stages, list(tokens), list(labels), [tokens.shape[0]]
+
+
+def _stage_layers(unit: Any) -> Any:
+    """A rank's stacked layer slice: its tree's, or its tp ranks' (a
+    list)."""
+    return [u["layers"] for u in unit] if isinstance(unit, list) \
+        else unit["layers"]
+
+
+def _unstack_unit(layers: Any) -> List[Any]:
+    """A rank's stacked slice as its layers, each the layer's tree or its
+    tp ranks' layer trees (a list)."""
+    if isinstance(layers, list):
+        return [list(z) for z in zip(*(pipeline.unstack_layers(u)
+                                       for u in layers))]
+    return pipeline.unstack_layers(layers)
+
+
+def _head_params(unit: Any) -> Any:
+    """The head's leaves of a rank's tree (or of each of its tp ranks')."""
+    if isinstance(unit, list):
+        return [_head_params(u) for u in unit]
+    return {k: unit[k] for k in ("final_norm", "lm_head")}
 
 
 def _batch_first(xs: Sequence[torch.Tensor], sp: bool) -> torch.Tensor:
@@ -991,7 +1020,7 @@ def _pp_stage(cfg: LlamaConfig, sizes: Sequence[int], pos: torch.Tensor,
     R, sp = sum(sizes), sp_axis is not None
 
     def stage(layers, X):
-        per_rank = [pipeline.unstack_layers(layers[r]) for r in range(R)]
+        per_rank = [_unstack_unit(layers[r]) for r in range(R)]
         xs = [_rank_view(X, r, sp) for r in range(R)]
         aux = None
         for i in range(len(per_rank[0])):
@@ -1023,11 +1052,12 @@ def _pp_forward(stages, tokens, cfg: LlamaConfig, M: int,
     output ``[b, R, ...]`` and the aux (summed over the stages, a mean
     over the microbatches; 0 when dense)."""
     sp = sp_axis is not None
-    X = _batch_first([t["tok_emb"][tok.long()]
+    X = _batch_first([_units(t)[0]["tok_emb"][tok.long()]
                       for t, tok in zip(stages[0], tokens)], sp)
     return pipeline.pipeline_apply_aux(
         _pp_stage(cfg, sizes, _pp_pos(tokens, sp_axis), sp_axis, sp_attn,
-                  remat), [[t["layers"] for t in st] for st in stages], X, M)
+                  remat), [[_stage_layers(t) for t in st] for st in stages],
+        X, M)
 
 
 def _pp_gpipe(stages, tokens, labels, cfg: LlamaConfig, M: int,
@@ -1062,27 +1092,30 @@ def apply_pp(params: Sequence[Any], tokens: torch.Tensor,
     stage's head.  ``apply``'s layouts: with ``sp_axis`` tokens [n_sp, B,
     S_local], the shards attending by ``sp_attn``; with ``ep_axis``
     ``params[s]`` the ep ranks' trees of stage s and tokens [n_ep, ...].
-    ``with_aux``: ``(logits, aux)``, the MoE term (summed over the
-    stages, a mean over the microbatches).  ``remat``: each layer
-    recomputed in the backward."""
-    _check_pp(tp_axis)
+    With ``tp_axis`` each rank's tree of a stage is its tp ranks' list
+    and the logits are their vocab shards gathered.  ``with_aux``:
+    ``(logits, aux)``, the MoE term (summed over the stages, a mean over
+    the microbatches).  ``remat``: each layer recomputed in the
+    backward."""
     stages, toks, _, sizes = _pp_ranks(params, tokens, tokens, sp_axis,
-                                       ep_axis)
+                                       ep_axis, tp_axis)
     sp = sp_axis is not None
     X, aux = _pp_forward(stages, toks, cfg, num_microbatches, sizes,
                          sp_axis, sp_attn, remat)
-    logits = torch.stack([
-        _rmsnorm(_rank_view(X, r, sp), hp["final_norm"], cfg.norm_eps)
-        @ hp["lm_head"] for r, hp in enumerate(stages[-1])])
+    heads = [_head(hp, _rank_view(X, r, sp), cfg)
+             for r, hp in enumerate(stages[-1])]
+    logits = torch.stack([torch.cat(h, dim=-1) if isinstance(h, list)
+                          else h for h in heads])
     logits = logits if ep_axis is not None else logits[0]
     return (logits, aux) if with_aux else logits
 
 
-def _head_nll_sum(hp: Params, h: torch.Tensor, labels: torch.Tensor,
+def _head_nll_sum(hp: Any, h: torch.Tensor, labels: torch.Tensor,
                   cfg: LlamaConfig) -> torch.Tensor:
-    """The head on one microbatch: the NLL summed over its valid labels."""
-    logits = _rmsnorm(h, hp["final_norm"], cfg.norm_eps) @ hp["lm_head"]
-    return _masked_nll(logits, labels)[0].sum()
+    """The head on one microbatch: the NLL summed over its valid labels
+    (``hp`` a rank's head leaves, or its tp ranks': the vocab-parallel
+    NLL of ``_masked_nll``)."""
+    return _masked_nll(_head(hp, h, cfg), labels)[0].sum()
 
 
 def loss_fn_pp(params: Sequence[Any], batch, cfg: LlamaConfig, *,
@@ -1099,12 +1132,14 @@ def loss_fn_pp(params: Sequence[Any], batch, cfg: LlamaConfig, *,
     (tokens, labels, count)`` (a rank's shard of
     ``models.bert.with_global_count``) and ``dp_size=n``: ``n * local_sum
     / count``, JAX's ``dp_axis`` weighting (dense models; a MoE model's
-    dp ranks train through ``pp_dp_loss_fn``).  ``remat``: each layer
-    recomputed in the backward, as JAX's driver runs its pp losses."""
-    _check_pp(tp_axis, dp_axis)
+    dp ranks train through ``pp_dp_loss_fn``).  With ``tp_axis`` each
+    rank's tree of a stage is its tp ranks' list, the head's NLL the
+    vocab-parallel one.  ``remat``: each layer recomputed in the
+    backward, as JAX's driver runs its pp losses."""
+    _check_pp(dp_axis)
     _check_moe_dp(cfg, dp_size)
     stages, toks, labs, sizes = _pp_ranks(params, batch[0], batch[1],
-                                          sp_axis, ep_axis)
+                                          sp_axis, ep_axis, tp_axis)
     num, denom = _pp_weight(batch, dp_size)
     local, _, aux = _pp_gpipe(stages, toks, labs, cfg, num_microbatches,
                               sizes, sp_axis, sp_attn, remat)
@@ -1198,11 +1233,12 @@ def _pp_1f1b(stages, tokens, labels, cfg: LlamaConfig, M: int, v: int,
     def chunks(tree):
         return tree if v == 1 else tree_map(
             lambda t: t.reshape(v, t.shape[0] // v, *t.shape[1:]), tree)
-    layers = [[chunks(t["layers"]) for t in st] for st in stages]
-    d_out = None if out is None else [[chunks(o["layers"]) for o in os]
+    layers = [[chunks(_stage_layers(t)) for t in st] for st in stages]
+    d_out = None if out is None else [[chunks(_stage_layers(o)) for o in os]
                                       for os in out]
-    head = [{k: t[k] for k in ("final_norm", "lm_head")} for t in stages[-1]]
-    embs = [t["tok_emb"].detach().requires_grad_() for t in stages[0]]
+    head = [_head_params(t) for t in stages[-1]]
+    embs = [_units(t)[0]["tok_emb"].detach().requires_grad_()
+            for t in stages[0]]
     with torch.enable_grad():
         x_full = _batch_first([e[tok.long()] for e, tok in zip(embs, tokens)],
                               sp)
@@ -1220,24 +1256,30 @@ def _pp_1f1b(stages, tokens, labels, cfg: LlamaConfig, M: int, v: int,
         nll_sum, aux = M * mean_nll_sum, zero
     d_embs = torch.autograd.grad(x_full, embs, d_x.to(x_full.dtype))
     del x_full, d_x
+    tp = isinstance(stages[0][0], list)
     if out is None:
-        out = [[{"layers": tree_map(
-            lambda t: t.reshape(-1, *t.shape[2:]) if v > 1 else t,
-            d_layers[s][r])} for r in range(R)] for s in range(len(stages))]
-        reps = [{"tok_emb": d_embs[r].to(torch.float32),
-                 **d_head[r]} for r in range(R)]
-        for rep in reps:
-            for t in rep.values():
-                t.mul_(scale)
-        for row in out:
-            for r, o in enumerate(row):
-                o.update(reps[r])
+        embs = [d_embs[r].to(torch.float32).mul_(scale) for r in range(R)]
+        for t in tree_leaves(d_head):
+            t.mul_(scale)
+
+        def unit(layers, emb, hd):
+            return {"layers": tree_map(
+                lambda t: t.reshape(-1, *t.shape[2:]) if v > 1 else t,
+                layers), "tok_emb": emb, **hd}
+        # with tp, the embedding's copies past tp rank 0 stay zero until
+        # the trainer's tp sum (the head's leaves are each tp rank's own)
+        out = [[unit(d_layers[s][r], embs[r], d_head[r]) if not tp else
+                [unit(ly, embs[r] if t == 0 else torch.zeros_like(embs[r]),
+                      hd) for t, (ly, hd) in enumerate(zip(d_layers[s][r],
+                                                           d_head[r]))]
+                for r in range(R)] for s in range(len(stages))]
     else:
         for row in out:
             for r, o in enumerate(row):
-                o["tok_emb"].copy_(d_embs[r]).mul_(scale)
-                for k, g in d_head[r].items():
-                    o[k].copy_(g).mul_(scale)
+                _units(o)[0]["tok_emb"].copy_(d_embs[r]).mul_(scale)
+                for u, g in zip(_units(o), _units(d_head[r])):
+                    for k, gk in g.items():
+                        u[k].copy_(gk).mul_(scale)
     for row in d_layers:
         for r in range(R):
             for t in tree_leaves(row[r]):
@@ -1268,11 +1310,14 @@ def loss_and_grads_pp_1f1b(params: Sequence[Any], batch,
     the stages: the embedding's from stage 0, the head's from the last).
     ``out``: f32 trees of that structure to write the gradients into
     (zeroed, e.g. views of the trainer's flat rows), returned as
-    ``grads``."""
-    _check_pp(tp_axis, dp_axis)
+    ``grads``.  With ``tp_axis`` each rank's tree (and gradient tree)
+    of a stage is its tp ranks' list; a leaf that replicates over tp
+    gets its gradient in tp rank 0's tree, zero in the others' (the
+    trainer's tp sum completes them)."""
+    _check_pp(dp_axis)
     _check_moe_dp(cfg, dp_size)
     stages, toks, labs, sizes = _pp_ranks(params, batch[0], batch[1],
-                                          sp_axis, ep_axis)
+                                          sp_axis, ep_axis, tp_axis)
     num, denom = _pp_weight(batch, dp_size)
     one = ep_axis is None
     if one and out is not None:

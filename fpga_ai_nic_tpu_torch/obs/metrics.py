@@ -1,18 +1,133 @@
-"""Serving-plane request telemetry and the trainers' static codec facts —
-the port's own copy of ``RequestSpans``, ``percentile`` and
-``codec_static_metrics`` from the JAX package's ``obs/metrics.py`` (those
-need no JAX; the rest of that module, the in-graph training metrics, is not
-ported).
+"""Serving-plane request telemetry, the trainers' static codec facts and
+the host side of the metrics plane — the port's own copy of
+``RequestSpans``, ``percentile``, ``codec_static_metrics``, ``Ewma``,
+``MetricsSink``, ``use_sink``, ``active_sink`` and ``host_observe`` from
+the JAX package's ``obs/metrics.py`` (those need no JAX; the in-graph
+training metrics, ``tap``, are not ported: ROADMAP A.9).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from .events import EventStream
 
-__all__ = ["RequestSpans", "codec_static_metrics", "percentile"]
+__all__ = ["Ewma", "MetricsSink", "RequestSpans", "active_sink",
+           "codec_static_metrics", "host_observe", "percentile", "use_sink"]
+
+
+class Ewma:
+    """Exponentially-weighted moving average seeded with the first
+    observation: ``value`` is exactly the first sample until the second
+    arrives, never a decay up from zero (a zero-seeded EWMA reads its
+    warm-up as a downward shift, which the drift residuals of
+    ``tune.adapt`` would inherit)."""
+
+    def __init__(self, alpha: float) -> None:
+        assert 0.0 < alpha <= 1.0, alpha
+        self.alpha = float(alpha)
+        self.value: Optional[float] = None
+        self._lock = threading.Lock()
+
+    def update(self, v: float) -> float:
+        v = float(v)
+        with self._lock:
+            self.value = v if self.value is None \
+                else (1.0 - self.alpha) * self.value + self.alpha * v
+            return self.value
+
+
+class MetricsSink:
+    """Ambient receiver of host-delivered step metrics: latest values,
+    EWMAs of the loss and of the time between updates, and every update
+    mirrored into an EventStream as counter events when one is attached."""
+
+    def __init__(self, ewma_alpha: float = 0.1,
+                 events: Optional[EventStream] = None,
+                 static: Optional[Dict[str, Any]] = None) -> None:
+        assert 0.0 < ewma_alpha <= 1.0
+        self.ewma_alpha = ewma_alpha
+        self.events = events
+        self.static = dict(static or {})
+        self.latest: Dict[str, float] = {}
+        self._ewma: Dict[str, Ewma] = {}
+        self.n_updates = 0
+        self._last_t: Optional[float] = None
+        self._lock = threading.Lock()
+
+    def _ewma_update(self, name: str, value: float) -> None:
+        e = self._ewma.get(name)
+        if e is None:
+            e = self._ewma[name] = Ewma(self.ewma_alpha)
+        e.update(value)
+
+    def ewma_value(self, name: str) -> Optional[float]:
+        e = self._ewma.get(name)
+        return None if e is None else e.value
+
+    def update(self, values: Dict[str, float]) -> None:
+        now = time.perf_counter()
+        ev = self.events
+        with self._lock:
+            self.n_updates += 1
+            for name, v in values.items():
+                v = float(v)
+                self.latest[name] = v
+                if name == "loss":
+                    self._ewma_update("loss", v)
+            if self._last_t is not None:
+                self._ewma_update("step_time_s", now - self._last_t)
+            self._last_t = now
+        if ev is not None:
+            for name, v in values.items():
+                ev.counter(f"metric.{name}", float(v))
+
+    def as_dict(self) -> Dict[str, Any]:
+        with self._lock:
+            out: Dict[str, Any] = {
+                "n_updates": self.n_updates,
+                "latest": dict(self.latest),
+                "loss_ewma": self.ewma_value("loss"),
+                "step_time_ewma_s": self.ewma_value("step_time_s"),
+            }
+            if self.static:
+                out["static"] = dict(self.static)
+        return out
+
+
+_ACTIVE_SINK: Optional[MetricsSink] = None
+
+
+def active_sink() -> Optional[MetricsSink]:
+    return _ACTIVE_SINK
+
+
+class use_sink:
+    """Context manager binding the ambient sink ``host_observe`` delivers
+    to (the previous one restored on exit)."""
+
+    def __init__(self, sink: Optional[MetricsSink]) -> None:
+        self.sink = sink
+
+    def __enter__(self) -> Optional[MetricsSink]:
+        global _ACTIVE_SINK
+        self._prev = _ACTIVE_SINK
+        _ACTIVE_SINK = self.sink
+        return self.sink
+
+    def __exit__(self, *exc: Any) -> None:
+        global _ACTIVE_SINK
+        _ACTIVE_SINK = self._prev
+
+
+def host_observe(values: Dict[str, float]) -> None:
+    """Host-side metric delivery (e.g. the drift plane's ``tune.drift.*``
+    values): a no-op without an active sink."""
+    sink = _ACTIVE_SINK
+    if sink is not None:
+        sink.update(values)
 
 
 def codec_static_metrics(codec: Any, n_elems: int) -> Dict[str, Any]:

@@ -120,8 +120,10 @@ def tree_map(fn: Any, tree: Any) -> Dict[str, Any]:
 
 def tree_from_leaves(paths: Tuple[Path, ...], leaves: List[Any]
                      ) -> Dict[str, Any]:
-    """Rebuild the tree of dicts and lists that ``_leaves`` walked."""
-    root: Dict[str, Any] = {}
+    """Rebuild the tree of dicts and lists that ``_leaves`` walked (a list
+    at the top when the paths start with an index)."""
+    root: Any = [] if paths and paths[0] and isinstance(paths[0][0], int) \
+        else {}
     for path, leaf in zip(paths, leaves):
         node: Any = root
         for key, nxt in zip(path[:-1], path[1:]):
@@ -404,3 +406,27 @@ def all_gather_flat_vjp(owned: torch.Tensor, coll: CollectiveConfig
                         ) -> torch.Tensor:
     """Differentiable ``all_gather_flat`` (``AllGatherFlat``)."""
     return AllGatherFlat.apply(owned, coll)
+
+
+def repad_flat(v: torch.Tensor, meta: FlatMeta) -> torch.Tensor:
+    """A flat master or optimizer vector (1-D) re-fitted to ``meta``'s
+    padded length, value-exact: the live elements (``sum(meta.sizes)``)
+    do not depend on the mesh or the codec, and every pad element is
+    zero (``flatten_tree`` zero-pads, and the optimizers keep the pad
+    lanes at zero), so only the zero tail changes.  Fewer than the live
+    elements, or a nonzero tail past them, is another model's vector and
+    raises."""
+    total = sum(meta.sizes)
+    if v.shape[0] < total:
+        raise ValueError(
+            f"flat state of length {v.shape[0]} cannot hold this "
+            f"layout's {total} live elements: wrong checkpoint/model")
+    if v.shape[0] == meta.padded_len:
+        return v
+    tail = v[total:]
+    if tail.numel() and float(tail.abs().max()) != 0.0:
+        raise ValueError(
+            f"flat state of length {v.shape[0]} carries nonzero data "
+            f"past this layout's {total} live elements: wrong "
+            "checkpoint/model (refusing to truncate)")
+    return torch.nn.functional.pad(v[:total], (0, meta.padded_len - total))

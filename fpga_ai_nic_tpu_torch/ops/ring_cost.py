@@ -205,8 +205,14 @@ def link_rate_candidates(calibration=None) -> dict:
     carries one) joins the documented DEFAULT_LINK_RATES constants.
     Returns {"rates", "calibrated", "measured_gbps", "source"}; with no
     calibration the rates are exactly the fallback constants and
-    calibrated is False.  The port has no tuner yet (ROADMAP A.5's
-    ``tune/``), so no calibration is loaded when none is passed."""
+    calibrated is False.  With none passed, the port's banked calibration
+    is loaded first (``tune.calibration.load_calibration``)."""
+    if calibration is None:
+        try:
+            from ..tune.calibration import load_calibration
+            calibration = load_calibration()
+        except Exception:  # noqa: BLE001 — the model degrades, never dies
+            calibration = None
     if calibration is None or not calibration.inter_calibrated:
         return {"rates": tuple(DEFAULT_LINK_RATES), "calibrated": False,
                 "measured_gbps": None,

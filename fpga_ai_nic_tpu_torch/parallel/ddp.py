@@ -73,8 +73,7 @@ class DDPTrainer:
                 "JAX package; construct with integrity_check=False")
         for name, unported, item in (
                 ("accum_steps > 1", cfg.accum_steps != 1, "A.1"),
-                ("obs_metrics", cfg.obs_metrics, "A.9"),
-                ("adapt.enabled", cfg.adapt.enabled, "A.5")):
+                ("obs_metrics", cfg.obs_metrics, "A.9")):
             if unported:
                 raise NotImplementedError(
                     f"{name} is not ported: ROADMAP {item}")
@@ -84,10 +83,18 @@ class DDPTrainer:
         self.cfg = cfg
         self._meta: Optional[fused_update.FlatMeta] = None
         self._plan: Optional[bucketed.BucketPlan] = None
+        # codec="auto": the tuner owns codec, bucket_elems, depth and
+        # topology, resolved once at the first _ensure_meta (bucket_elems
+        # sizes this trainer's bucket plan)
+        self._tuned_plan = None
 
     # -- init -----------------------------------------------------------------
 
     def _ensure_meta(self, params_like) -> None:
+        from .. import tune as tune_lib
+        if tune_lib.needs_autotune(self.cfg.collective):
+            self.cfg, self._tuned_plan = tune_lib.resolve_train_config(
+                self.cfg, self.n, params_like)
         # the masters' flat layout: no codec and one rank, so no padding
         self._meta = fused_update.flat_meta(params_like, CollectiveConfig(),
                                             1)
@@ -102,7 +109,8 @@ class DDPTrainer:
 
     def obs_static_metrics(self) -> dict:
         """The bucketed collective's static accounting: buckets, per-rank
-        wire bytes of one all-reduce and the raw f32 bytes."""
+        wire bytes of one all-reduce and the raw f32 bytes; under
+        ``codec="auto"`` the resolved plan (``tune``)."""
         plan, coll = self.plan, self.cfg.collective
         codec = fused_update.resolve_codec(coll)
         d = {"n_devices": self.n, "impl": coll.impl,
@@ -116,6 +124,8 @@ class DDPTrainer:
                  for b in plan.buckets)}
         if codec is not None:
             d["codec"] = codec.name
+        if self._tuned_plan is not None:
+            d["tune"] = self._tuned_plan.describe()
         return d
 
     def init_state(self, params: Params) -> DDPState:

@@ -33,8 +33,8 @@ Parity contract (tests/test_torch_fsdp.py): the losses and masters of the
 port's ZeRO-1 ``DPTrainer`` on the same model, batch and optimizer, and of
 JAX's ``FSDPTrainer``.  Not ported, raising ``NotImplementedError`` with
 the ROADMAP item: checkpoint restore and live resharding (A.8),
-``accum_steps > 1`` (A.1), in-graph metrics (A.9); ``codec="auto"`` (the
-tuner) is refused by ``CollectiveConfig`` itself.
+``accum_steps > 1`` (A.1), in-graph metrics (A.9).  ``codec="auto"``
+resolves once at ``init_state`` (``tune``, as JAX's ``_resolve_auto``).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 import torch
 
 from .mesh import VirtualRanks
-from .train import rank_grads, static_metrics
+from .train import codec_flags, rank_grads, static_metrics
 from .. import optim
 from ..ops import fused_update
 from ..utils.config import OptimizerSpec, TrainConfig
@@ -127,10 +127,10 @@ class FSDPTrainer:
         self.ranks = ranks
         self.n = ranks.n
         self.cfg = cfg
-        codec = fused_update.resolve_codec(coll)
-        self._codec = codec
-        self._ef = (coll.impl == "ring" and codec is not None
-                    and codec.error_feedback)
+        # codec="auto": resolved once at init_state (tune), as DPTrainer's
+        # (JAX's FSDPTrainer takes no live calibration)
+        self._tuned_plan = None
+        self._codec, self._ef = codec_flags(coll)
         self._meta: Optional[fused_update.FlatMeta] = None
 
     @property
@@ -149,6 +149,11 @@ class FSDPTrainer:
     def init_state(self, params: Params) -> FSDPState:
         """Split replicated params into the ranks' master shards: the only
         copy that outlives the call (the ZeRO-3 memory claim)."""
+        from .. import tune as tune_lib
+        if tune_lib.needs_autotune(self.cfg.collective):
+            self.cfg, self._tuned_plan = tune_lib.resolve_train_config(
+                self.cfg, self.n, params, padded=True)
+            self._codec, self._ef = codec_flags(self.cfg.collective)
         coll, opt_cfg = self.cfg.collective, self.cfg.optimizer
         params = fused_update.tree_map(lambda t: t.to(self.ranks.device),
                                        params)
@@ -243,6 +248,8 @@ class FSDPTrainer:
         d = static_metrics(self.n, self.cfg.collective, self._codec,
                            self._require_meta().padded_len)
         d.pop("hier_plan", None)
+        if self._tuned_plan is not None:
+            d["tune"] = self._tuned_plan.describe()
         return d
 
     def gathered_params(self, state: FSDPState) -> Params:

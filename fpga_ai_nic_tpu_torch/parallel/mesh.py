@@ -34,7 +34,8 @@ split the batch either (JAX's ``_bspec`` never names tp): the tp ranks
 of a dp rank see the same batch shard and each holds its own slice of
 the weights, one parameter row a (tp, dp) rank, tp major
 (``P((tp, pp, ep, dp))``, JAX's ``_waxes``).  Which dimension of a leaf
-splits over which axis is its ``Spec``.
+splits over which axis is its ``Spec``.  With pp too, a (tp, pp, dp)
+rank holds its tp rank's slice of its stage (Megatron's 3-D layout).
 
 An fsdp axis (ZeRO-3, ``parallel.fsdp.FSDPTrainer``) runs alone, as JAX's
 FSDPTrainer shards over its fsdp axis only: its ranks are stacked as the
@@ -149,10 +150,6 @@ def make_ranks(cfg: MeshConfig, device: DeviceLike = "cuda"
     """The dp, tp, sp, ep and pp axes of a MeshConfig as virtual ranks on
     ``device``, or its fsdp axis alone (ZeRO-3, ``parallel.fsdp``: the
     fsdp ranks stacked as the leading dimension, JAX's 1-D fsdp mesh)."""
-    if cfg.tp > 1 and cfg.pp > 1:
-        raise NotImplementedError(
-            f"pp={cfg.pp} with tp={cfg.tp} is not ported: ROADMAP A.5 "
-            "(pp with tp)")
     if cfg.fsdp != 1:
         if cfg.nproc != cfg.fsdp:
             raise NotImplementedError(

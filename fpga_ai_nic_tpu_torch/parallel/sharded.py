@@ -87,7 +87,18 @@ hold one value of it, and a backward a tp rank would count every
 gradient tp times.  The replicated leaves' gradients are then summed
 over the tp (and ep) rows and written into each, the dp phases run
 within each (tp, ep) group, one ring launch a group, and ``clip_norm``
-counts a replicated leaf 1/tp a copy.  pp with tp raises (ROADMAP A.5).
+counts a replicated leaf 1/tp a copy.
+
+pp composes with tp (``MeshConfig(dp, tp=, pp=)``, Megatron's 3-D
+layout; ``llama.stacked_param_specs(cfg, tp_axis="tp", tp_size=tp)``):
+the rows are JAX's ``P((tp, pp, ep, dp))``, row ``((t n_pp + s) n_ep +
+e) n_dp + d``, and the loss takes each stage's tp ranks' trees as a
+list, ``stage_trees[s] = [tree of (t, s) for t]`` (with ``joint_ranks``
+``stage_trees[s][e n_dp + d]`` such a list).  The shard sums then run
+over every subset of (tp, pp, ep) that holds a leaf: the embedding and
+final norm over all three, the head over pp (its vocab shard is a tp
+rank's own), a stage's norms (and ``wk``/``wv`` under kv replication)
+over its tp rows.
 
 As in the JAX package the fused optimizer kernel is not used: the update
 is ``optim.apply`` between the two collectives.  An fsdp mesh axis and
@@ -231,10 +242,11 @@ class ShardedTrainer(DPTrainer):
                 "compose with accum_steps > 1 — fold accumulation into "
                 "the schedule's num_microbatches instead")
         refuse_fsdp(cfg)
-        if cfg.mesh.tp > 1 and cfg.mesh.pp > 1:
+        if cfg.collective.codec == "auto":
             raise NotImplementedError(
-                f"pp={cfg.mesh.pp} with tp={cfg.mesh.tp} is not ported: "
-                "ROADMAP A.5 (pp with tp)")
+                "codec='auto' resolves on DPTrainer, DDPTrainer and "
+                "FSDPTrainer, as in the JAX package: ShardedTrainer takes a "
+                "concrete codec")
         if loss_and_grads_fn is not None and ranks.pp == 1:
             raise NotImplementedError(
                 "loss_and_grads_fn without pp is not ported: the port's "
@@ -425,8 +437,9 @@ class ShardedTrainer(DPTrainer):
         ``pp_dp_loss_fn``, ``pp_dp_loss_and_grads_fn``) takes every rank's
         trees at once, ``trees[s][e n_dp + d]``, and the whole batch; any
         other one dp rank's k trees and its batch, a dp rank at a time, so
-        a dp rank's loss is differentiated once, never once a tp rank.  A
-        tree's leaf the loss leaves unused (a tp rank's copy of a
+        a dp rank's loss is differentiated once, never once a tp rank.
+        With both pp and tp the trees go as ``_stage_units`` gives them.
+        A tree's leaf the loss leaves unused (a tp rank's copy of a
         replicated leaf) gets a zero gradient; the shard sums of ``grads``
         complete it."""
         meta, n = self._meta, self.n
@@ -455,9 +468,11 @@ class ShardedTrainer(DPTrainer):
                 trees = [st[0] for st in trees]
                 outs = [o[0] for o in outs]
             if self.loss_and_grads_fn is not None:
-                loss, _ = self.loss_and_grads_fn(trees, b, out=outs)
+                loss, _ = self.loss_and_grads_fn(
+                    self._stage_units(trees, joint), b,
+                    out=self._stage_units(outs, joint))
             else:
-                loss = self.loss_fn(trees, b)
+                loss = self.loss_fn(self._stage_units(trees, joint), b)
                 flat = [t for st in leaves for ls in st for t in ls]
                 gs = torch.autograd.grad(loss.sum(), flat,
                                          allow_unused=True)
@@ -469,6 +484,20 @@ class ShardedTrainer(DPTrainer):
             del leaves, trees, outs
             losses.append(loss.detach().mean())
         return flat_g, torch.stack(losses).mean()
+
+    def _stage_units(self, trees: List[Any], joint: bool) -> List[Any]:
+        """The shards' trees (tp major: shard ``t pp + s``) as a pp loss
+        takes them with tp: stage s's list of its tp ranks' trees (with
+        ``joint``, rank r's entry of stage s that list); as given
+        without both axes."""
+        tp, pp = self.ranks.tp, self.ranks.pp
+        if tp == 1 or pp == 1:
+            return trees
+        if not joint:
+            return [[trees[t * pp + s] for t in range(tp)]
+                    for s in range(pp)]
+        return [[[trees[t * pp + s][r] for t in range(tp)]
+                 for r in range(len(trees[0]))] for s in range(pp)]
 
     def apply_grads(self, state: TrainState, flat_g: torch.Tensor,
                     codec_state: Optional[torch.Tensor] = None

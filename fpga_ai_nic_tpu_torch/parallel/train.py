@@ -45,10 +45,11 @@ import torch
 
 from .mesh import VirtualRanks
 from .. import optim
+from ..compress import Codec
 from ..obs import metrics as obs_metrics
 from ..ops import fused_update, ring_hier
 from ..runtime import chaos
-from ..utils.config import TrainConfig
+from ..utils.config import CollectiveConfig, TrainConfig
 
 Params = Any
 
@@ -193,6 +194,17 @@ def rank_grads(loss_fn: Callable, replicas: torch.Tensor,
     return fn(loss_fn, replicas, meta, batch, write, side)
 
 
+def codec_flags(coll: CollectiveConfig) -> Tuple[Optional[Codec], bool]:
+    """``(codec, error_feedback)`` of a collective config: none while it
+    is an unresolved ``codec="auto"``."""
+    from .. import tune as tune_lib
+    if tune_lib.needs_autotune(coll):
+        return None, False
+    codec = fused_update.resolve_codec(coll)
+    return codec, (coll.impl == "ring" and codec is not None
+                   and codec.error_feedback)
+
+
 class DPTrainer:
     """Per-rank gradients + fused collective over n virtual ranks.
 
@@ -224,11 +236,9 @@ class DPTrainer:
         coll = cfg.collective
         for name, unported in (
                 ("obs_metrics", cfg.obs_metrics),
-                ("accum_steps > 1", cfg.accum_steps != 1),
-                ("adapt.enabled", cfg.adapt.enabled)):
+                ("accum_steps > 1", cfg.accum_steps != 1)):
             if unported:
                 raise NotImplementedError(f"{name} is not ported")
-        codec = fused_update.resolve_codec(coll)
         if coll.fused_optimizer and cfg.optimizer.clip_norm is not None:
             raise ValueError(
                 "fused_optimizer cannot honor clip_norm: a global-norm clip "
@@ -237,20 +247,46 @@ class DPTrainer:
         self.ranks = ranks
         self.n = ranks.n
         self.cfg = cfg
-        self._codec = codec
-        self._ef = (coll.impl == "ring" and codec is not None
-                    and codec.error_feedback)
+        # codec="auto": codec, depth, bucket and topology resolve once at
+        # the first _ensure_meta or init_state, where the payload is known
+        self._tuned_plan = None
+        self._codec, self._ef = codec_flags(coll)
         self._meta = None
         # per-element norm weights of the clip (optim.global_norm); the
         # ep layout's tables (ShardedTrainer), None where every master
         # row holds distinct elements
         self._norm_weights = None
 
+    def _resolve_auto(self, params_like) -> None:
+        """The one resolution of a ``codec="auto"`` template (a no-op
+        otherwise), priced at the padded length its codec gives; with
+        ``cfg.adapt`` armed for live calibration, the rates are first
+        measured on these ranks (``tune.adapt.live_calibrate``, the live
+        tier)."""
+        from .. import tune as tune_lib
+        if not tune_lib.needs_autotune(self.cfg.collective):
+            return
+        acfg = self.cfg.adapt
+        calibration = (tune_lib.adapt.live_calibrate(self.ranks)
+                       if acfg.enabled and acfg.live_calibration else None)
+        self.cfg, self._tuned_plan = tune_lib.resolve_train_config(
+            self.cfg, self.n, params_like, calibration=calibration,
+            padded=True)
+        self._codec, self._ef = codec_flags(self.cfg.collective)
+
+    def _ensure_meta(self, params_like) -> None:
+        """The flat layout of a params tree (shapes and dtypes only),
+        resolving ``codec="auto"`` first."""
+        self._resolve_auto(params_like)
+        self._meta = fused_update.flat_meta(params_like, self.cfg.collective,
+                                            self.n)
+
     # -- init -----------------------------------------------------------------
 
     def init_state(self, params: Params) -> TrainState:
         """Split replicated params into the ranks' master shards; every
         rank starts from the given weights as they are."""
+        self._resolve_auto(params)
         coll, opt_cfg = self.cfg.collective, self.cfg.optimizer
         params = fused_update.tree_map(lambda t: t.to(self.ranks.device),
                                        params)
@@ -420,11 +456,15 @@ class DPTrainer:
 
     def obs_static_metrics(self) -> dict:
         """Static telemetry (``static_metrics``): flat layout, declared
-        codec properties, wire bytes of one all-reduce, ``hier_plan``."""
+        codec properties, wire bytes of one all-reduce, ``hier_plan``,
+        and under ``codec="auto"`` the resolved plan (``tune``)."""
         if self._meta is None:
             raise RuntimeError("call init_state first")
-        return static_metrics(self.n, self.cfg.collective, self._codec,
-                              self._meta.padded_len)
+        d = static_metrics(self.n, self.cfg.collective, self._codec,
+                           self._meta.padded_len)
+        if self._tuned_plan is not None:
+            d["tune"] = self._tuned_plan.describe()
+        return d
 
     # -- restore --------------------------------------------------------------
 

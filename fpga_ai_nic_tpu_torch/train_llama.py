@@ -1,6 +1,6 @@
 """Llama training driver of the port — the counterpart of the JAX package's
-``examples/train_llama.py`` on its dp, tp, sp, ep and pp axes (pp with
-tp raises: ROADMAP A.5).  Prints one JSON line: first and last loss, tokens/s,
+``examples/train_llama.py`` on its dp, tp, sp, ep and pp axes.  Prints
+one JSON line: first and last loss, tokens/s,
 wall time, parameter counts (all, and those a token's products touch),
 mesh, and with pp the schedule's ``pipeline_cost``.
 
@@ -45,6 +45,11 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
       --global_batch=4 --mesh.dp=2 --mesh.tp=2 --iters=3 \\
       --collective.impl=ring --collective.compression.codec=pallas \\
       --collective.fused_kernel=true
+  python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
+      --model.n_layers=4 --model.attn_block=512 --seq=4096 \\
+      --global_batch=4 --mesh.tp=2 --mesh.pp=2 --microbatches=4 \\
+      --pp_schedule=1f1b --iters=3 --collective.impl=ring \\
+      --collective.compression.codec=pallas --collective.fused_kernel=true
   python -m fpga_ai_nic_tpu_torch.train_llama --model=tiny --device=cpu \\
       --model.attn_block=128 --seq=128 --global_batch=4 --mesh.dp=2 \\
       --iters=2
@@ -220,9 +225,8 @@ def batches(mcfg: LlamaConfig, cfg: TrainConfig, seq: int,
 def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str,
           remat: bool = False, pipe: Pipeline = Pipeline()
           ) -> Tuple[ShardedTrainer, TrainState]:
-    """The trainer over ``cfg.mesh.dp`` x ``cfg.mesh.tp`` x ``cfg.mesh.ep``
-    x ``cfg.mesh.sp`` (or with ``cfg.mesh.pp`` instead of tp) virtual
-    ranks and its initial state, from weights drawn on the device with seed ``cfg.seed``;
+    """The trainer over ``cfg.mesh.dp`` x ``cfg.mesh.tp`` x ``cfg.mesh.pp``
+    x ``cfg.mesh.ep`` x ``cfg.mesh.sp`` virtual ranks and its initial state, from weights drawn on the device with seed ``cfg.seed``;
     ``remat`` goes to the loss (with pp the losses always recompute);
     ``pipe``: the pipeline flags."""
     ranks = make_ranks(cfg.mesh, device)
@@ -257,9 +261,12 @@ def _pp_trainer(mcfg: LlamaConfig, cfg: TrainConfig, ranks,
     ``loss_and_grads_pp_1f1b``, remat on; a MoE model through
     ``pp_dp_loss_fn`` / ``pp_dp_loss_and_grads_fn``, every rank at once.
     Every label is valid here, so a dense model's per-rank weighting
-    equals JAX's ``dp_axis`` one."""
+    equals JAX's ``dp_axis`` one.  With tp each stage's trees are its tp
+    ranks' (``stacked_param_specs(tp_axis="tp", tp_size=tp)``)."""
+    tp_axis = "tp" if ranks.tp > 1 else None
     specs = llama.stacked_param_specs(
-        mcfg, ep_axis="ep" if ranks.ep > 1 else None)
+        mcfg, ep_axis="ep" if ranks.ep > 1 else None, tp_axis=tp_axis,
+        tp_size=ranks.tp)
     M, v = pipe.microbatches, pipe.virtual_stages
     if mcfg.moe is not None:
         if pipe.schedule == "gpipe":
@@ -276,13 +283,14 @@ def _pp_trainer(mcfg: LlamaConfig, cfg: TrainConfig, ranks,
     if pipe.schedule == "gpipe":
         return ShardedTrainer(
             lambda p, b: llama.loss_fn_pp(p, b, mcfg, num_microbatches=M,
-                                          sp_axis=sp_axis, remat=True),
+                                          tp_axis=tp_axis, sp_axis=sp_axis,
+                                          remat=True),
             ranks, cfg, param_specs=specs)
     return ShardedTrainer(
         None, ranks, cfg, param_specs=specs,
         loss_and_grads_fn=lambda p, b, out=None: llama.loss_and_grads_pp_1f1b(
             p, b, mcfg, num_microbatches=M, virtual_stages=v,
-            sp_axis=sp_axis, remat=True, out=out))
+            tp_axis=tp_axis, sp_axis=sp_axis, remat=True, out=out))
 
 
 def main(argv: Sequence[str]) -> dict:

@@ -16,13 +16,17 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
       --collective.compression.codec=pallas \\
       --collective.fused_kernel=true --collective.fused_optimizer=true \\
       --collective.integrity_check=true
+  python -m fpga_ai_nic_tpu_torch.train_mlp --mesh.dp=8 \\
+      --collective.impl=ring --collective.codec=auto
 
 Flags split by prefix: ``--model.*`` -> MLPConfig, ``--device=`` picks the
 device (default cuda; it raises when CUDA is absent), everything else ->
 TrainConfig.  ``--bfp=1`` turns on the BFP wire codec and the explicit
 ring; it applies before the dotted flags, so they can refine it.
 ``--collective.codec=`` names a registered codec (bfp, int8, topk) and
-``--collective.codec_opts=key=value,...`` its options; ``--collective.impl=ring``
+``--collective.codec_opts=key=value,...`` its options (``auto``: the tuner
+picks codec, bucket and topology, and the JSON carries its plan under
+``tune``); ``--collective.impl=ring``
 must come first.  The ranks of ``--mesh.dp`` are virtual ranks on one
 card.  The printed JSON carries the codec's ``describe()`` (None when the
 wire is uncompressed).  With ``--collective.integrity_check=true`` a step
@@ -109,7 +113,8 @@ def main(argv: Sequence[str]) -> dict:
     for i, diag in enumerate(diags):
         chaos.check_step_diag(diag, i)
     fl = mlp.flops_per_sample(mcfg) * cfg.global_batch * cfg.iters
-    codec = fused_update.resolve_codec(cfg.collective)
+    codec = fused_update.resolve_codec(tr.cfg.collective)
+    tuned = tr.obs_static_metrics().get("tune")
     verdicts = ({"wire_ok": bool(diags[-1]["wire_ok"]),
                  "integrity_ok": bool(diags[-1]["integrity_ok"])}
                 if checked else {})
@@ -117,6 +122,7 @@ def main(argv: Sequence[str]) -> dict:
             "samples_per_sec": cfg.iters * cfg.global_batch / wall,
             "gflops": fl / wall / 1e9, "wall_s": wall,
             "codec": codec.describe() if codec is not None else None,
+            **({"tune": tuned} if tuned is not None else {}),
             "device": (torch.cuda.get_device_name(ranks.device)
                        if ranks.device.type == "cuda" else "cpu")}
 

@@ -8,10 +8,11 @@ Pallas or the TPU describe the reference package; in this port
 CUDA kernels of ``ops.bfp_cuda`` / ``ops.ring_cuda`` implement.
 
 Values this port does not implement yet raise ``NotImplementedError`` at
-construction (``codec="auto"`` in either spelling and int8's
-``backend="auto"``) or at trainer construction
-(``parallel.train.DPTrainer``: in-graph metrics, accumulation, plan
-adaptation, mesh axes other than dp), never silently.
+construction (``BFPConfig(codec="auto")`` and int8's ``backend="auto"``,
+codec backends: ROADMAP A.2) or at trainer construction
+(``parallel.train.DPTrainer``: in-graph metrics, accumulation, mesh axes
+other than dp), never silently.  ``CollectiveConfig(codec="auto")`` is the
+autotuner (``tune``), resolved by the trainers.
 ``collective.integrity_check`` is ported on ``DPTrainer``;
 ``ShardedTrainer`` refuses it with ``ValueError``, as the JAX package's
 does.
@@ -300,8 +301,7 @@ class CollectiveConfig:
                     "(a BFPConfig): the BFPConfig parameterizes the 'bfp' "
                     "codec only")
         if self.codec == "auto":
-            raise NotImplementedError(
-                "CollectiveConfig.codec='auto' (the autotuner) is not ported")
+            return      # the registry resolution happens at autotune time
         if self.codec is not None or self.fused_kernel:
             if self.fused_kernel and (self.impl != "ring"
                                       or (self.compression is None

@@ -438,8 +438,14 @@ def test_ddp_unported_options_raise():
         with pytest.raises(NotImplementedError, match=item):
             DDPTrainer(lambda p, b: None, ranks,
                        tcfg.TrainConfig(**base, **kw))
-    with pytest.raises(NotImplementedError):
-        tcfg.CollectiveConfig(impl="ring", codec="auto")
+    # codec="auto" resolves (tests/test_torch_tune.py): bucket_elems is
+    # the tuner's, and the plan is in the statics
+    auto = DDPTrainer(lambda p, b: None, ranks, tcfg.TrainConfig(
+        **base, collective=tcfg.CollectiveConfig(impl="ring", codec="auto")))
+    auto.init_state(bert.init(torch.Generator().manual_seed(0), BERT, "cpu"))
+    assert auto.cfg.collective.codec != "auto"
+    assert auto.obs_static_metrics()["tune"]["bucket_elems"] == \
+        auto.cfg.collective.bucket_elems
     tr = _port_trainer("xla", 2)
     with pytest.raises(RuntimeError, match="init_state"):
         tr.obs_static_metrics()

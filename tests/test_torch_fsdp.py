@@ -346,8 +346,11 @@ def test_unported_and_invalid_configurations_raise():
                      (dict(obs_metrics=True), "A.9")):
         with pytest.raises(NotImplementedError, match=item):
             _port_fsdp(dict(impl="ring"), **kw)
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        config.CollectiveConfig(impl="ring", codec="auto")
+    # codec="auto" resolves on FSDPTrainer (tests/test_torch_tune.py)
+    auto = _port_fsdp(dict(impl="ring", codec="auto"))
+    auto.init_state(mlp.from_jax_params(_jax_params(), CPU))
+    assert auto.cfg.collective.codec != "auto"
+    assert "tune" in auto.obs_static_metrics()
     with pytest.raises(ValueError, match="clip_norm"):
         _port_fsdp(dict(impl="ring", fused_optimizer=True),
                    opt=config.OptimizerConfig(clip_norm=1.0))

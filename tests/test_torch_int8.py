@@ -256,7 +256,8 @@ def test_port_imports_without_jax_or_ml_dtypes():
     mods = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                   pkg.__name__ + ".")]
     for m in ("compress.int8", "compress.topk", "compress.golden",
-              "ops.int8_cuda", "ops.moe", "evals.codec_convergence"):
+              "ops.int8_cuda", "ops.moe", "evals.codec_convergence",
+              "tune.calibration", "tune.autotune", "tune.adapt"):
         assert f"fpga_ai_nic_tpu_torch.{m}" in mods, m
     mods += ["chip_smoke", "codec_probe"]
     code = textwrap.dedent(f"""

@@ -255,10 +255,15 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="n_sp"):
         llama.loss_fn(params, batch, CFG, sp_axis="sp")
     ranks = VirtualRanks(2, torch.device("cpu"))
-    for cfg in (TrainConfig(mesh=MeshConfig(dp=2, tp=2, pp=2)),
-                TrainConfig(mesh=MeshConfig(dp=2), accum_steps=2)):
-        with pytest.raises(NotImplementedError):
-            ShardedTrainer(lambda p, b: None, ranks, cfg)
+    # pp with tp is ported (tests/test_torch_pp_tp.py): the trainer builds
+    pptp = MeshConfig(dp=2, tp=2, pp=2)
+    tr = ShardedTrainer(lambda p, b: None, VirtualRanks(
+        2, torch.device("cpu"), pp=2, tp=2), TrainConfig(mesh=pptp),
+        param_specs=llama.stacked_param_specs(CFG, tp_axis="tp", tp_size=2))
+    assert tr.n_shards == 4
+    with pytest.raises(NotImplementedError):
+        ShardedTrainer(lambda p, b: None, ranks, TrainConfig(
+            mesh=MeshConfig(dp=2), accum_steps=2))
     # as the JAX package's: integrity checks are DPTrainer's
     with pytest.raises(ValueError, match="DPTrainer only"):
         ShardedTrainer(lambda p, b: None, ranks, TrainConfig(

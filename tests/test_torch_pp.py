@@ -720,22 +720,25 @@ def test_norm_weight_tables_match_jax_pp():
 # -- (e) the refusals -------------------------------------------------------------
 
 def test_pp_refusals():
-    """What the pp path still refuses: tp (ROADMAP A.5) and JAX's
-    ``dp_axis`` (the port's dp ranks carry the global count in the
-    batch); a MoE model's loss of one dp rank with ``dp_size`` (its dp
-    ranks share the aux); pp with sp, ep and MoE layers runs
-    (``tests/test_torch_pp_axes.py``)."""
+    """What the pp path still refuses: JAX's ``dp_axis`` (the port's dp
+    ranks carry the global count in the batch); a MoE model's loss of one
+    dp rank with ``dp_size`` (its dp ranks share the aux); a stage given
+    as a dict with ``tp_axis`` (it takes the list of the tp ranks'
+    trees).  pp with sp, ep and MoE layers runs
+    (``tests/test_torch_pp_axes.py``), and with tp
+    (``tests/test_torch_pp_tp.py``)."""
     moe = dataclasses.replace(llama.LlamaConfig.tiny(n_layers=2),
                               moe_experts=4)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        make_ranks(MeshConfig(tp=2, pp=2), "cpu")
+    assert make_ranks(MeshConfig(tp=2, pp=2), "cpu").tp == 2
     pc = llama.LlamaConfig.tiny()
     toks = torch.zeros((2, 8), dtype=torch.int32)
+    stage = llama.stack_params(llama.init(torch.Generator().manual_seed(0),
+                                          pc, "cpu"))
     for fn in (llama.loss_fn_pp, llama.loss_and_grads_pp_1f1b):
-        for kw, item in ((dict(tp_axis="tp"), "A.5"),
-                         (dict(dp_axis="dp"), "with_global_count")):
-            with pytest.raises(NotImplementedError, match=item):
-                fn([], (toks, toks), pc, num_microbatches=1, **kw)
+        with pytest.raises(ValueError, match="tp ranks' trees"):
+            fn([stage], (toks, toks), pc, num_microbatches=1, tp_axis="tp")
+        with pytest.raises(NotImplementedError, match="with_global_count"):
+            fn([], (toks, toks), pc, num_microbatches=1, dp_axis="dp")
         with pytest.raises(NotImplementedError, match="pp_dp_loss_fn"):
             fn([], (toks, toks, torch.ones(1)), moe, num_microbatches=1,
                dp_size=2)

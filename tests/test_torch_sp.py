@@ -393,9 +393,9 @@ def test_sp_on_unported_trainers_and_axes_raises():
     with pytest.raises(ValueError, match="does not describe"):
         ShardedTrainer(lambda p, b: None, VirtualRanks(2, torch.device(
             "cpu")), cfg)
-    # tp is ported (tests/test_torch_tp.py); pp with tp is not
-    with pytest.raises(NotImplementedError, match="A.5"):
-        make_ranks(MeshConfig(dp=2, tp=2, pp=2), "cpu")
+    # tp is ported (tests/test_torch_tp.py), and pp with tp
+    # (tests/test_torch_pp_tp.py)
+    assert make_ranks(MeshConfig(dp=2, tp=2, pp=2), "cpu").pp == 2
     # fsdp is ported (tests/test_torch_fsdp.py): FSDPTrainer runs the fsdp
     # axis alone, and the other trainers refuse it
     with pytest.raises(NotImplementedError, match="fsdp axis alone"):

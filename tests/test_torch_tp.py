@@ -25,8 +25,9 @@ experts, top-2, capacity factor 16: nothing drops):
   at (dp, tp, ep) = (1, 4, 1) and (2, 2, 2);
 - (d) the clip: ``norm_weight_tables`` equal to JAX's, clipped steps
   against JAX's unsharded clipped steps;
-- (e) ``train_llama --mesh.tp`` on the CPU, and what stays refused: pp
-  with tp (ROADMAP A.5).
+- (e) ``train_llama --mesh.tp`` on the CPU, and pp with tp taken by the
+  ranks, the trainer, the pp losses and the driver (its parity:
+  ``tests/test_torch_pp_tp.py``).
 """
 
 import dataclasses
@@ -505,21 +506,31 @@ def test_train_llama_tp_on_cpu(extra):
 
 
 def test_pp_with_tp_stays_refused():
-    with pytest.raises(NotImplementedError, match="A.5"):
-        make_ranks(MeshConfig(dp=2, tp=2, pp=2), "cpu")
+    """pp with tp is ported (``tests/test_torch_pp_tp.py``): the ranks, the
+    trainer, the pp losses with ``tp_axis`` and the driver take it; a pp
+    loss given a rank's tp list without ``tp_axis`` refuses it."""
+    ranks = make_ranks(MeshConfig(dp=2, tp=2, pp=2), "cpu")
+    assert (ranks.n, ranks.tp, ranks.pp) == (2, 2, 2)
     cfg = TrainConfig(global_batch=4, mesh=MeshConfig(tp=2, pp=2))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        ShardedTrainer(lambda p, b: None, VirtualRanks(
-            1, torch.device("cpu"), pp=2, tp=2), cfg,
-            param_specs=llama.stacked_param_specs(
-                llama.LlamaConfig.tiny(), tp_axis="tp"))
+    tiny = llama.LlamaConfig.tiny()
+    tr = ShardedTrainer(lambda p, b: None, VirtualRanks(
+        1, torch.device("cpu"), pp=2, tp=2), cfg,
+        param_specs=llama.stacked_param_specs(tiny, tp_axis="tp"))
+    assert tr.n_shards == 4
     toks = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        llama.loss_fn_pp([], (toks, toks), llama.LlamaConfig.tiny(),
-                         num_microbatches=1, tp_axis="tp")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        train_llama.main(["--model=tiny", "--device=cpu", "--mesh.tp=2",
-                          "--mesh.pp=2", "--global_batch=2"])
+    rows = llama.shard_params(llama.stack_params(llama.init(
+        torch.Generator().manual_seed(0), tiny, "cpu")),
+        llama.stacked_param_specs(tiny, tp_axis="tp"), {"tp": 2, "pp": 2})
+    stages = [[rows[0], rows[2]], [rows[1], rows[3]]]
+    loss = llama.loss_fn_pp(stages, (toks, toks), tiny, num_microbatches=1,
+                            tp_axis="tp")
+    assert torch.isfinite(loss)
+    with pytest.raises(ValueError, match="tp_axis"):
+        llama.loss_fn_pp(stages, (toks, toks), tiny, num_microbatches=1)
+    out = train_llama.main(["--model=tiny", "--device=cpu", "--mesh.tp=2",
+                            "--mesh.pp=2", "--global_batch=2", "--seq=16",
+                            "--iters=1"])
+    assert (out["mesh"]["tp"], out["mesh"]["pp"]) == (2, 2)
 
 
 def test_tp_trainer_needs_specs_and_matching_ranks():

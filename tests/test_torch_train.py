@@ -31,8 +31,8 @@ from fpga_ai_nic_tpu_torch.models import mlp
 from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks, make_ranks
 from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
 from fpga_ai_nic_tpu_torch.utils.config import (
-    BFPConfig, CollectiveConfig, MeshConfig, MLPConfig, OptimizerConfig,
-    TrainConfig)
+    AdaptConfig, BFPConfig, CollectiveConfig, MeshConfig, MLPConfig,
+    OptimizerConfig, TrainConfig)
 
 N, BATCH, STEPS, LR = 4, 64, 3, 0.1
 SIZES = (256,) * 4
@@ -224,8 +224,18 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         CollectiveConfig(impl="ring", codec="int8",
                          codec_opts=(("backend", "auto"),))
-    with pytest.raises(NotImplementedError):     # pp with tp (A.5)
-        make_ranks(MeshConfig(dp=2, tp=2, pp=2), "cpu")
+    # pp with tp is ported (tests/test_torch_pp_tp.py)
+    assert make_ranks(MeshConfig(dp=2, tp=2, pp=2), "cpu").tp == 2
+    # codec="auto" resolves, and adapt.enabled arms its live calibration
+    # (tests/test_torch_tune.py, tests/test_torch_adapt.py)
+    auto = DPTrainer(lambda p, b: None, VirtualRanks(2, torch.device("cpu")),
+                     TrainConfig(mesh=MeshConfig(dp=2),
+                                 collective=CollectiveConfig(
+                                     impl="ring", codec="auto"),
+                                 adapt=AdaptConfig(enabled=True)))
+    auto.init_state({"w": torch.zeros(4096)})
+    plan = auto.obs_static_metrics()["tune"]
+    assert plan["calibration"]["inter_live"] and plan["dryrun"]
     ranks = VirtualRanks(2, torch.device("cpu"))
     for cfg in (TrainConfig(mesh=MeshConfig(dp=2), accum_steps=2),
                 TrainConfig(mesh=MeshConfig(dp=2), obs_metrics=True)):
