@@ -330,13 +330,39 @@ Phases, each printing JSON lines:
      microbatches, under GPipe and 1F1B: two steps' masters at pp=2 x
      tp=2 against pp=2 x tp=1 within 0.05 of the update, losses within
      2e-3, the loss backwarded once a tp rank above the limit);
+ 36. ``accum_path``: the MLP main path at ``accum_steps=4`` against 1
+     (both trainers' gradient rows at the same weights within rtol 2e-5
+     / atol 2e-6 at each of two steps; step 1's decoded ring sums apart
+     by at most one grid step of each element's BFP block; two steps'
+     masters following the decoded sums, and within JAX's tolerance plus
+     one such grid step a step; losses within 1e-5; one ring_rs_update
+     and one ring_ag launch a step at both),
+     then the Llama cell (batch 4 over dp=2) at ``accum_steps=2`` beside
+     1: ms/step, peak memory (not above), flash launches a step;
+ 37. ``llama_data_path``: ``train_llama --data=SURVEY.md
+     --accum_steps=2`` at the Llama cell (tokens/s, losses, the -100
+     share, the seconds to the first batch) and ``llama_data_parity``:
+     two such steps on the flash kernels against the plain attention
+     route (the update within 0.05, losses within 2e-3);
+ 38. ``codec_auto_path``: ``BFPConfig(codec="auto")`` and
+     ``Int8Codec(backend="auto")`` on the MLP: bit-equal to "pallas" at
+     tiling rank payloads (dp=8 fused, dp=2), to "xla" at one that does
+     not (dp=8 separate-op), each route's kernel launches counted;
+ 39. ``queued_path``: ``QueuedDDPTrainer`` (``--queue=explicit``) on the
+     MLP cell and on the BERT cell against the fused ``DDPTrainer``:
+     masters bit-equal after two and five steps, at most 8 in flight,
+     none abandoned, ms/step of both and the queue's counters;
+ 40. ``staging_check`` (right after the build): the port's
+     ``csrc/staging.cpp`` built with g++ and one native epoch equal to
+     the numpy path;
  34. the ``kernels`` line (the offset instantiations' rows among them,
      the ablated ring_rs instantiations' rows from ``ring_cost_stages``,
      their launches from ``llama_sp_train_path``; the MoE paths'
      launches and ring times as ``moe_*`` keys, the pipeline's as
      ``pp_*`` keys, the pipeline with sp and ep's as ``pp_sp_*`` and
      ``moe_pp_*``, the tp paths' as ``tp_*`` and ``moe_tp_*``, the pp x tp
-     path's as ``pp_tp_*``), then the
+     path's as ``pp_tp_*``, the new phases' launches as ``accum_*``,
+     ``data_path_*``, ``codec_auto_*`` and ``queued_*``), then the
      last line ``{"ok": true, "device":
      {...}}``.
 
@@ -6026,6 +6052,602 @@ def adaptive_phase(dev, mcfg, sgd, bx, by, calibration) -> dict:
             "switching_step": switching, "steady_step": steady}
 
 
+# -- accumulation, the text loader, the auto codecs, the queue (36-40) --------
+
+ACCUM_TOL = (2e-5, 2e-6)       # rtol, atol: JAX's single-shot accumulation
+ACCUM_LOSS_RTOL = 1e-5         # test (tests/test_accum_sched.py)
+LLAMA_CELL_ARGV = [a for a in TRAIN_ARGV if not a.startswith(
+    ("--global_batch=", "--iters="))] + ["--global_batch=4"]
+# on text SGD at the cell's lr 0.1 diverges within a few steps (the
+# uniform tokens of the synthetic batches carry no signal, real text
+# does), so the text run steps at 0.001
+DATA_ARGV = LLAMA_CELL_ARGV + [
+    "--data=" + os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "SURVEY.md"), "--accum_steps=2",
+                               "--iters=5", "--optimizer.learning_rate=0.001"]
+QUEUE_MLP_ARGV = ["--bfp=1", "--mesh.dp=8",
+                  "--collective.compression.codec=pallas",
+                  "--collective.fused_kernel=true",
+                  "--collective.fused_optimizer=true", "--global_batch=5376"]
+MAX_INFLIGHT = 8               # CollectiveConfig.max_inflight
+
+
+def _zero(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def _stepped(tr, state, batches, kernels):
+    """``tr.step`` over ``batches`` with CUDA events around each, the
+    launch counts zeroed just before: ``(state, losses, step_ms,
+    launches)``."""
+    import torch
+    _zero(kernels)
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(len(batches) + 1)]
+    losses = []
+    marks[0].record()
+    for b, mark in zip(batches, marks[1:]):
+        state, loss = tr.step(state, b)
+        losses.append(loss)
+        mark.record()
+    torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    return (state, losses, [a.elapsed_time(b) for a, b in
+                            zip(marks, marks[1:])],
+            {name: k.launches for name, k in kernels.items()})
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _within(a, b, rtol, atol) -> tuple:
+    """``(ok, max |a - b|, max |a - b| / (atol + rtol |b|))``."""
+    d = (a.double() - b.double()).abs()
+    lim = atol + rtol * b.double().abs()
+    return bool((d <= lim).all()), float(d.max()), float((d / lim).max())
+
+
+def _block_grid(x, block_size: int, mantissa_bits: int):
+    """One grid step of each element's BFP block, elementwise, for the
+    ``[n, C]`` rows ``x`` in the sublane layout (a block is ``block_size``
+    elements 128 apart in a tile): ``2^(floor(log2 max|block|) -
+    (mantissa_bits - 2))``, the step ``ops.bfp.encode_blocks`` rounds to."""
+    import torch
+    n, C = x.shape
+    xb = x.abs().reshape(n, -1, block_size, 128)
+    _, e = torch.frexp(xb.amax(dim=2, keepdim=True))
+    q = torch.ldexp(torch.ones_like(xb[:, :, :1]), e - 1 - (mantissa_bits - 2))
+    return q.expand_as(xb).reshape(n, C)
+
+
+def accum_mlp_path(dev, kernels, mcfg, sgd, bx, by) -> dict:
+    """The MLP main path (dp=8, batch 5376, the BFP ring kernels, fused
+    SGD) at ``accum_steps=4`` (168 rows a rank a microbatch) against 1 on
+    the same batch, from the same weights, two steps; the median of three
+    steps' ms after a warm-up (from fresh weights, before the compared
+    steps) and their peak memory; one ``ring_rs_update`` and one
+    ``ring_ag`` launch a step at both; the losses within 1e-5 relative.
+
+    The accumulation itself: at each step the accumulated gradient rows
+    (before the codec) of both trainers at the same weights (run 1's)
+    within JAX's tolerance (rtol 2e-5, atol 2e-6,
+    ``tests/test_accum_sched.py``).
+
+    The masters, on the BFP ring: each step's update reads the ring's
+    decoded sum G (the ``ring_rs`` kernel's output on the step's rows),
+    and the ring rounds every hop's partial sum to its block's grid, so a
+    row value on a rounding boundary in one summation order and not the
+    other moves G by a grid step of that element's block at that hop,
+    at most the grid of the largest scale a partial sum of the block
+    reaches (its max of ``sum_r |g_r|``, widened by 2^-4 for the hops'
+    rounding).  Held: at step 1 (same weights) each element of G differs
+    by at most that one grid step plus the rows' own difference; the two
+    runs' masters differ by what their decoded sums' updates differ by,
+    within JAX's tolerance; each master within JAX's tolerance plus
+    ``lr / n`` times one such grid step a step.  Step 2's G also carries
+    the gradients' response to step 1's masters, so it is read, not
+    bounded.  The masters beyond the plain tolerance are counted."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.ops import ring_cuda
+    from fpga_ai_nic_tpu_torch.parallel.mesh import make_ranks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (
+        BFPConfig, CollectiveConfig, MeshConfig, TrainConfig)
+    n = 8
+    bcfg = BFPConfig(codec="pallas")
+    rtol, atol = ACCUM_TOL
+    lr, B, m = sgd.learning_rate, bcfg.block_size, bcfg.mantissa_bits
+
+    def init(tr):
+        return tr.init_state(mlp.init(torch.Generator().manual_seed(0),
+                                      mcfg, dev))
+
+    trs, states, runs = {}, {}, {}
+    for a in (1, 4):
+        cfg = TrainConfig(global_batch=bx.shape[0], accum_steps=a,
+                          mesh=MeshConfig(dp=n), optimizer=sgd,
+                          collective=CollectiveConfig(
+                              impl="ring", compression=bcfg,
+                              fused_kernel=True, fused_optimizer=True))
+        gc.collect()
+        torch.cuda.empty_cache()
+        trs[a] = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg),
+                           make_ranks(cfg.mesh, dev), cfg)
+        batch = trs[a].shard_batch((bx, by))
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, _, ms, _ = _stepped(trs[a], init(trs[a]), [batch] * 4, kernels)
+        runs[a] = {"step_ms": ms[1:], "G": [], "losses": [], "launches": {},
+                   "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        states[a] = init(trs[a])
+
+    def ring_sum(g):
+        return ring_cuda.ring_reduce_scatter_fused(g, compression=bcfg)
+
+    grads, grids = [], []
+    for s in range(2):
+        g1, _ = trs[1].grads(states[1], batch)
+        g4, _ = trs[4].grads(states[1], batch)
+        grads.append(_within(g4, g1, rtol, atol))
+        grids.append(_block_grid(g1.abs().sum(0).reshape(n, -1)
+                                 * (1 + 2.0 ** -4), B, m).double())
+        runs[1]["G"].append(ring_sum(g1))
+        if s == 0:      # the same weights: run 4's own rows
+            runs[4]["G"].append(ring_sum(g4))
+            rows_diff = (g4.double() - g1.double()).abs().sum(0) \
+                .reshape(n, -1)
+        del g1, g4
+        if s == 1:
+            g4, _ = trs[4].grads(states[4], batch)
+            runs[4]["G"].append(ring_sum(g4))
+            del g4
+        for a in (1, 4):
+            states[a], losses, _, launches = _stepped(
+                trs[a], states[a], [batch], kernels)
+            runs[a]["losses"] += losses
+            for k, v in launches.items():
+                runs[a]["launches"][k] = runs[a]["launches"].get(k, 0) + v
+    r1, r4 = runs[1], runs[4]
+    w1, w4 = states[1].w_own.double(), states[4].w_own.double()
+    del trs, states
+    d = (w4 - w1).abs()
+    plain = atol + rtol * w1.abs()
+    flips = lr / n * (grids[0] + grids[1])
+    beyond = d > plain
+    n_beyond = int(beyond.sum())
+    dG = [G4.double() - G1.double() for G1, G4 in zip(r1["G"], r4["G"])]
+    # step 1: one grid step of the block's top scale at most, besides the
+    # rows' own difference
+    flip1 = (dG[0].abs() - rows_diff) / grids[0]
+    # the masters move by what the decoded sums' updates move them by
+    follow = (w4 - w1 + lr / n * (dG[0] + dG[1])).abs()
+    steps1 = (dG[0].abs() / grids[0])[beyond].round()
+    hist1 = {str(k): int((steps1 == k).sum()) for k in range(2)}
+    hist1["2+"] = int((steps1 >= 2).sum())
+    fin = [float((g.abs() / _block_grid(G1, B, m).double())[beyond].max())
+           if n_beyond else 0.0 for g, G1 in zip(dG, r1["G"])]
+    top2 = float((dG[1].abs() / grids[1])[beyond].max()) if n_beyond \
+        else 0.0
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(r4["losses"],
+                                                       r1["losses"]))
+    per_step = {a: {k: r["launches"][k] / 2 for k in ("ring_rs_update",
+                                                      "ring_ag")}
+                for a, r in runs.items()}
+    checks = {"grads_within_tol": all(ok for ok, _, _ in grads),
+              "ring_sums_one_grid_step_at_step_1": float(flip1.max())
+              <= 1.0,
+              "masters_follow_decoded_sums": bool((follow <= plain).all()),
+              "masters_within_tol_and_own_block_flips": bool(
+                  (d <= plain + flips).all()),
+              "losses_within_tol": loss_rel <= ACCUM_LOSS_RTOL,
+              "ring_launches_equal": per_step[1] == per_step[4] == {
+                  "ring_rs_update": 1, "ring_ag": 1}}
+    emit(phase="accum_path", cell="MLP 10x2048x2048 f32, dp=8, batch 5376, "
+         "BFP ring kernels, fused SGD lr 0.1", steps=2,
+         rows_a_rank_a_microbatch={a: bx.shape[0] // n // a for a in runs},
+         median_step_ms={a: _median(r["step_ms"]) for a, r in runs.items()},
+         step_ms={a: r["step_ms"] for a, r in runs.items()},
+         peak_mem_gb={a: r["peak_mem_gb"] for a, r in runs.items()},
+         losses={a: r["losses"] for a, r in runs.items()},
+         ring_launches_per_step=per_step, tol=ACCUM_TOL,
+         grad_max_abs_err=[e for _, e, _ in grads],
+         grad_err_over_tol=[q for _, _, q in grads],
+         ring_sum_step_1_max_excess_in_top_scale_steps=float(flip1.max()),
+         master_max_abs_err=float(d.max()),
+         masters_follow_err_over_tol=float((follow / plain).max()),
+         master_err_over_tol_and_own_block_flips=float(
+             (d / (plain + flips)).max()),
+         masters_beyond_plain_tol=n_beyond, masters_elems=int(w1.numel()),
+         beyond_step_1_ring_sum_diff_in_top_scale_steps=hist1,
+         beyond_ring_sum_diff_max_final_block_steps=fin,
+         beyond_step_2_ring_sum_diff_max_top_scale_steps=top2,
+         loss_rel_err=loss_rel, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"accum_path (MLP): {checks}")
+    out = {a: r["launches"] for a, r in runs.items()}
+    del runs, r1, r4, dG, grids
+    torch.cuda.empty_cache()
+    return out
+
+
+def _llama_run(dev, kernels, argv, timed=3):
+    """The ``train_llama`` driver's trainer from ``argv``: one warm-up and
+    ``timed`` steps on seeded batches; launches a step, the median ms,
+    peak memory."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    mcfg, cfg, seq, device = train_llama.parse(argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr, state = train_llama.build(mcfg, cfg, device)
+    batches = [tr.shard_batch(b) for b in train_llama.batches(
+        mcfg, cfg, seq, timed + 1)]
+    state, losses, step_ms, launches = _stepped(tr, state, batches, kernels)
+    out = {"losses": losses, "step_ms": step_ms[1:],
+           "median_step_ms": _median(step_ms[1:]),
+           "launches_per_step": {k: v / (timed + 1)
+                                 for k, v in launches.items()},
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "mcfg": mcfg, "cfg": cfg, "seq": seq,
+           "launches": launches}
+    del tr, state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def accum_llama_path(dev, kernels) -> dict:
+    """The Llama cell (Llama-3-8B width, 4 layers, seq 4096, batch 4 over
+    dp=2, the BFP ring kernels) at ``accum_steps=2`` beside 1: ms/step,
+    peak memory (which must not rise: a microbatch's activations are
+    half, the f32 rows shared), the flash launches a step (n_layers x dp
+    x accum_steps) and one ring launch of each a step at both."""
+    runs = {a: _llama_run(dev, kernels, LLAMA_CELL_ARGV
+                          + [f"--accum_steps={a}"]) for a in (1, 2)}
+    mcfg, n = runs[1]["mcfg"], runs[1]["cfg"].mesh.dp
+    checks = {f"flash_fwd_a{a}": r["launches_per_step"]["flash_fwd"]
+              == mcfg.n_layers * n * a for a, r in runs.items()}
+    checks.update({f"rings_a{a}": (r["launches_per_step"]["ring_rs_update"],
+                                   r["launches_per_step"]["ring_ag"])
+                   == (1, 1) for a, r in runs.items()})
+    checks["peak_not_above"] = runs[2]["peak_mem_gb"] <= runs[1][
+        "peak_mem_gb"]
+    emit(phase="accum_path", cell=(
+        "Llama-3-8B width, 4 layers, seq 4096, batch 4 over dp=2, BFP "
+        "ring kernels, SGD"), steps=3,
+         median_step_ms={a: r["median_step_ms"] for a, r in runs.items()},
+         step_ms={a: r["step_ms"] for a, r in runs.items()},
+         peak_mem_gb={a: r["peak_mem_gb"] for a, r in runs.items()},
+         losses={a: r["losses"] for a, r in runs.items()},
+         launches_per_step={a: {k: v for k, v in r["launches_per_step"]
+                                .items() if v} for a, r in runs.items()},
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"accum_path (Llama): {checks}")
+    return {a: r["launches"] for a, r in runs.items()}
+
+
+def llama_data_path(dev, kernels) -> dict:
+    """``train_llama.main`` with ``--data=SURVEY.md --accum_steps=2`` at the
+    Llama cell's width, SGD at lr 0.001 (byte tokens, boundary-masked
+    labels, the global count a microbatch): tokens/s, the losses (finite
+    and falling over six steps), the share of -100
+    labels, the host seconds to the first batch (256 windows of 4097
+    bytes fill the shuffle buffer first), launches; then two such steps
+    through the flash kernels (attn_impl="pallas") and the plain
+    attention route ("xla") from the same weights on the same batches:
+    the masters' update within 0.05 of the plain route's, the losses
+    within 2e-3."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(kernels)
+    out = train_llama.main(DATA_ARGV)
+    launches = {name: k.launches for name, k in kernels.items()}
+    mcfg, cfg, seq, _ = train_llama.parse(DATA_ARGV)
+    steps = cfg.iters + 1
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    checks = {"finite": all(math.isfinite(v) for v in out["losses"]),
+              "loss_falls": out["losses"][-1] < out["losses"][0],
+              "masked_labels": out["data"]["masked_share"] > 0,
+              "flash_per_step": per_step.get("flash_fwd") ==
+              mcfg.n_layers * cfg.mesh.dp * cfg.accum_steps,
+              "rings_per_step": (per_step.get("ring_rs_update"),
+                                 per_step.get("ring_ag")) == (1, 1)}
+    emit(phase="llama_data_path", argv=DATA_ARGV,
+         tokens_per_sec=out["tokens_per_sec"], losses=out["losses"],
+         masked_share=out["data"]["masked_share"],
+         first_batch_s=out["data"]["first_batch_s"], wall_s=out["wall_s"],
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         launches=launches, launches_per_step=per_step, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"llama_data_path: {checks}")
+    # parity: two microbatch-weighted steps, kernels against plain route
+    res = {}
+    for impl in ("pallas", "xla"):
+        argv = DATA_ARGV + [f"--model.attn_impl={impl}"]
+        m, c, s, device = train_llama.parse(argv)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr, st = train_llama.build(m, c, device, dp_size=c.mesh.dp)
+        w0 = st.w_own.to("cpu") if impl == "pallas" else None
+        losses = []
+        for b in train_llama.text_batches(train_llama.data_flag(argv), m, c,
+                                          s, 2):
+            st, loss = tr.step(st, tr.shard_batch(b))
+            losses.append(float(loss))
+        res[impl] = {"losses": losses, "w0": w0,
+                     "w": st.w_own.to("cpu") if impl == "pallas"
+                     else st.w_own}
+        del tr, st
+    w0 = res["pallas"]["w0"].view(-1)
+    wk, wp = res["pallas"]["w"].view(-1), res["xla"]["w"].view(-1)
+    num = den = 0.0
+    chunk = 1 << 27
+    for i in range(0, w0.numel(), chunk):
+        d0 = w0[i:i + chunk].to(dev)
+        dp_ = wp[i:i + chunk] - d0
+        dk = wk[i:i + chunk].to(dev) - d0
+        num += float((dk - dp_).double().square().sum())
+        den += float(dp_.double().square().sum())
+        del d0, dp_, dk
+    rel = math.sqrt(num / den)
+    loss_diff = max(abs(a - b) for a, b in zip(res["pallas"]["losses"],
+                                               res["xla"]["losses"]))
+    pchecks = {"update_within_tol": rel <= PARITY_GRAD_REL_TOL,
+               "losses_within_tol": loss_diff <= PARITY_LOSS_TOL,
+               "finite": math.isfinite(rel)}
+    emit(phase="llama_data_parity", steps=2, accum_steps=cfg.accum_steps,
+         losses_kernel=res["pallas"]["losses"],
+         losses_plain=res["xla"]["losses"], loss_diff=loss_diff,
+         loss_tol=PARITY_LOSS_TOL, update_rel_err=rel,
+         update_tol=PARITY_GRAD_REL_TOL, checks=pchecks)
+    del res, w0, wk, wp
+    torch.cuda.empty_cache()
+    if not all(pchecks.values()):
+        raise AssertionError(f"llama_data_parity: {pchecks}")
+    return {"launches": launches, "tokens_per_sec": out["tokens_per_sec"]}
+
+
+def codec_auto_path(dev, kernels, mcfg, sgd, bx, by) -> dict:
+    """The MLP main path with ``BFPConfig(codec="auto")`` and with
+    ``Int8Codec(backend="auto")``, each against the codec it must pick,
+    three steps from the same weights on the same batch, masters bit for
+    bit: at a rank payload of whole (16, 128) tiles (dp=8 fused:
+    5,246,976 elements a chunk; dp=2: 20,981,760) "pallas", at one that
+    does not tile (dp=8 separate-op ring: 5,245,440) "xla"; each route's
+    kernel launches counted (the sublane kernels launch where auto picks
+    them, and only there)."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.parallel.mesh import make_ranks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (
+        BFPConfig, CollectiveConfig, MeshConfig, TrainConfig)
+
+    def coll(codec, backend, **kw):
+        if codec == "bfp":
+            return CollectiveConfig(impl="ring", compression=BFPConfig(
+                codec=backend), fused_optimizer=True, **kw)
+        return CollectiveConfig(impl="ring", codec="int8", codec_opts=(
+            ("backend", backend),), fused_optimizer=True, **kw)
+
+    cases = (("bfp_fused_dp8", "bfp", 8, dict(fused_kernel=True), "pallas",
+              ("ring_rs_update", "ring_ag")),
+             ("bfp_ring_dp2", "bfp", 2, {}, "pallas",
+              ("bfp_encode", "bfp_decode")),
+             ("bfp_ring_dp8", "bfp", 8, {}, "xla",
+              ("bfp_encode", "bfp_decode")),
+             ("int8_ring_dp2", "int8", 2, {}, "pallas",
+              ("int8_encode", "int8_decode")),
+             ("int8_ring_dp8", "int8", 8, {}, "xla",
+              ("int8_encode", "int8_decode")))
+    rows, total = {}, dict.fromkeys(kernels, 0)
+    for name, codec, n, kw, want, route in cases:
+        got = {}
+        for backend in ("auto", want):
+            cfg = TrainConfig(global_batch=bx.shape[0], mesh=MeshConfig(dp=n),
+                              collective=coll(codec, backend, **kw),
+                              optimizer=sgd)
+            gc.collect()
+            torch.cuda.empty_cache()
+            tr = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg),
+                           make_ranks(cfg.mesh, dev), cfg)
+            state = tr.init_state(mlp.init(torch.Generator().manual_seed(0),
+                                           mcfg, dev))
+            batch = tr.shard_batch((bx, by))
+            state, losses, step_ms, launches = _stepped(
+                tr, state, [batch] * 3, kernels)
+            got[backend] = {"w": state.w_own, "ms": step_ms,
+                            "launches": launches,
+                            "chunk": tr._meta.padded_len // n}
+            del tr, state, batch
+        require_equal(f"codec_auto_path {name} masters",
+                      [(got["auto"]["w"], got[want]["w"])])
+        la = got["auto"]["launches"]
+        tiles = want == "pallas"
+        checks = {"same_launches": la == got[want]["launches"],
+                  "route_kernels": all((la[k] > 0) == tiles for k in route)}
+        rows[name] = {"picks": want, "rank_payload": got["auto"]["chunk"],
+                      "median_step_ms_auto": _median(got["auto"]["ms"][1:]),
+                      "median_step_ms_pinned": _median(got[want]["ms"][1:]),
+                      "launches": {k: v for k, v in la.items() if v},
+                      "masters_bitequal": True, "checks": checks}
+        for k, v in la.items():
+            total[k] += v
+        del got
+        if not all(checks.values()):
+            raise AssertionError(f"codec_auto_path {name}: {rows[name]}")
+    emit(phase="codec_auto_path", model="MLP 10x2048x2048 f32, batch 5376, "
+         "SGD lr 0.1 (fused formula), 3 steps a route", cases=rows)
+    torch.cuda.empty_cache()
+    return total
+
+
+def queued_mlp_path(dev, kernels, mcfg, bx, by) -> dict:
+    """``train_mlp --queue=explicit`` at the MLP cell (dp=8, batch 5376,
+    the fused BFP ring kernels a bucket): ``QueuedDDPTrainer`` against
+    the fused ``DDPTrainer`` on the same batch, masters bit-equal after
+    two steps and after five, at most 8 collectives in flight, none
+    abandoned; the median ms of steps 3-5 of both, the queue's counters;
+    then the driver's own JSON."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_mlp
+    from fpga_ai_nic_tpu_torch.parallel import DDPTrainer, QueuedDDPTrainer
+    from fpga_ai_nic_tpu_torch.parallel.mesh import make_ranks
+    from fpga_ai_nic_tpu_torch.models import mlp
+    _, cfg, device = train_mlp.parse(QUEUE_MLP_ARGV)
+    got = {}
+    for cls in (DDPTrainer, QueuedDDPTrainer):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = cls(lambda p, b: mlp.loss_fn(p, b, mcfg),
+                 make_ranks(cfg.mesh, device), cfg)
+        state = tr.init_state(mlp.init(torch.Generator().manual_seed(0),
+                                       mcfg, dev))
+        batch = tr.shard_batch((bx, by))
+        state, l2, _, _ = _stepped(tr, state, [batch, batch], kernels)
+        w2 = state.w_master.clone()
+        state, l4, ms, launches = _stepped(tr, state, [batch] * 3,
+                                           kernels)
+        got[cls.__name__] = {
+            "w2": w2, "w5": state.w_master, "losses": l2 + l4, "ms": ms,
+            "launches": launches, "buckets": len(tr.plan.buckets),
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "identical": bool((state.w_master == state.w_master[0]).all())}
+        if cls is QueuedDDPTrainer:
+            got[cls.__name__].update(
+                counters=tr.profiler.collectives.as_dict(),
+                max_outstanding=tr.queue.max_outstanding)
+        del tr, state, batch
+    f, q = got["DDPTrainer"], got["QueuedDDPTrainer"]
+    require_equal("queued_path MLP masters", [(q["w2"], f["w2"]),
+                                              (q["w5"], f["w5"])])
+    c = q["counters"]
+    checks = {"max_inflight": q["max_outstanding"] <= MAX_INFLIGHT,
+              "abandoned": c["abandoned"] == 0,
+              "issued_completed": c["issued"] == c["completed"]
+              == 5 * q["buckets"],
+              "same_launches": q["launches"] == f["launches"],
+              "replicas_identical": q["identical"] and f["identical"]}
+    del got
+    torch.cuda.empty_cache()
+    drv = train_mlp.main(QUEUE_MLP_ARGV + ["--queue=explicit", "--iters=3"])
+    emit(phase="queued_path", cell="MLP 10x2048x2048 f32, dp=8, batch 5376, "
+         "fused BFP ring kernels a bucket", n_buckets=q["buckets"],
+         median_step_ms_queued=_median(q["ms"]),
+         median_step_ms_fused=_median(f["ms"]), step_ms_queued=q["ms"],
+         step_ms_fused=f["ms"], losses=q["losses"],
+         peak_mem_gb={"fused": f["peak_mem_gb"], "queued": q["peak_mem_gb"]},
+         masters_bitequal_after=[2, 5], counters=c,
+         max_outstanding=q["max_outstanding"],
+         launches_per_step={k: v / 3 for k, v in q["launches"].items() if v},
+         driver={k: drv[k] for k in ("loss", "samples_per_sec", "wall_s",
+                                     "queue", "max_outstanding")},
+         driver_collectives=drv["profile"]["collectives"], checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"queued_path (MLP): {checks}")
+    return q["launches"]
+
+
+def queued_bert_path(dev, kernels) -> dict:
+    """``train_bert --queue=explicit`` at the BERT cell (BERT-base, seq 512,
+    batch 64 over dp=8, the fused BFP ring kernels a bucket, AdamW):
+    rank 0's masters after two steps and after five bit-equal to the
+    fused ``DDPTrainer``'s on the same batches, every rank's replica
+    equal, at most 8 collectives in flight, none abandoned; the median ms
+    of steps 3-5 of both and the queue's counters."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_bert
+    from fpga_ai_nic_tpu_torch.parallel.ddp import replicas_identical
+    mcfg, cfg, run = train_bert.parse(BERT_ARGV)
+    got = {}
+    for queue in ("fused", "explicit"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = dataclasses.replace(run, queue=queue)
+        tr, state = train_bert.build(mcfg, cfg, r)
+        stream = [tr.shard_batch(b) for b, _ in
+                  train_bert.batches(mcfg, cfg, r, 5)]
+        state, l2, _, _ = _stepped(tr, state, stream[:2], kernels)
+        w2 = state.w_master[0].to("cpu")
+        state, l4, ms, launches = _stepped(tr, state, stream[2:], kernels)
+        got[queue] = {"w2": w2, "w5": state.w_master[0].to("cpu"),
+                      "losses": l2 + l4, "ms": ms, "launches": launches,
+                      "buckets": len(tr.plan.buckets),
+                      "identical": replicas_identical(state),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
+                      / 1e9}
+        if queue == "explicit":
+            got[queue].update(counters=tr.profiler.collectives.as_dict(),
+                              max_outstanding=tr.queue.max_outstanding)
+        del tr, state, stream
+    f, q = got["fused"], got["explicit"]
+    require_equal("queued_path BERT masters", [(q["w2"], f["w2"]),
+                                               (q["w5"], f["w5"])])
+    c = q["counters"]
+    checks = {"max_inflight": q["max_outstanding"] <= MAX_INFLIGHT,
+              "abandoned": c["abandoned"] == 0,
+              "issued_completed": c["issued"] == c["completed"]
+              == 5 * q["buckets"],
+              "same_launches": q["launches"] == f["launches"],
+              "replicas_identical": q["identical"] and f["identical"],
+              "losses_equal": q["losses"] == f["losses"]}
+    emit(phase="queued_path", cell="BERT-base, seq 512, batch 64 over dp=8, "
+         "fused BFP ring kernels a bucket, AdamW", n_buckets=q["buckets"],
+         median_step_ms_queued=_median(q["ms"]),
+         median_step_ms_fused=_median(f["ms"]), step_ms_queued=q["ms"],
+         step_ms_fused=f["ms"], losses=q["losses"],
+         peak_mem_gb={"fused": f["peak_mem_gb"], "queued": q["peak_mem_gb"]},
+         masters_bitequal_after=[2, 5], counters=c,
+         max_outstanding=q["max_outstanding"],
+         launches_per_step={k: v / 3 for k, v in q["launches"].items() if v},
+         checks=checks)
+    del got
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"queued_path (BERT): {checks}")
+    return q["launches"]
+
+
+def staging_check() -> dict:
+    """The port's ``csrc/staging.cpp`` built here (g++ -O3 -pthread) and one
+    ``epochs_of(native=True)`` epoch against the numpy path, batch for
+    batch, with the host seconds of each."""
+    import numpy as np
+    from fpga_ai_nic_tpu_torch import data
+    from fpga_ai_nic_tpu_torch.runtime import native, staging
+    t0 = time.perf_counter()
+    staging.lib()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    arrays = {"x": rng.standard_normal((16384, 1024)).astype(np.float32),
+              "y": rng.integers(0, 1000, 16384).astype(np.int32)}
+    t0 = time.perf_counter()
+    want = list(data.epochs_of(arrays, 512, seed=0, epochs=1))
+    numpy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = list(data.epochs_of(arrays, 512, seed=0, epochs=1, native=True))
+    native_s = time.perf_counter() - t0
+    equal = len(got) == len(want) == 32 and all(
+        np.array_equal(g[k], w[k]) for g, w in zip(got, want) for k in arrays)
+    emit(phase="staging_check", library=native.lib_path("staging.cpp").name,
+         build_s=build_s, batches=len(got), batch_rows=512,
+         row_bytes=1024 * 4, numpy_s=numpy_s, native_s=native_s,
+         equal=equal)
+    if not equal:
+        raise AssertionError("staging_check: the native epoch differs")
+    return {"build_s": build_s}
+
+
 def main() -> int:
     # the Llama training phase holds about 60 GB at its peak and frees and
     # reallocates 7-15 GB buffers every step; growable segments keep the
@@ -6067,6 +6689,7 @@ def main() -> int:
     print(smi, flush=True)
     emit(phase="build", seconds=_build.timed_build(),
          sources=list(_build.SOURCES), flags=list(_build.NVCC_FLAGS))
+    staging_check()
 
     cfg = BFPConfig(codec="pallas")
     B = cfg.block_size
@@ -6256,6 +6879,11 @@ def main() -> int:
     auto_dp_phase(dev, mcfg, sgd, bx, by)
     adaptive_phase(dev, mcfg, sgd, bx, by, live["mlp"])
 
+    # -- 36, 38, 39. accumulation, the auto codecs, the queue on the MLP cell
+    accum_mlp = accum_mlp_path(dev, kernels, mcfg, sgd, bx, by)
+    auto_codec_launches = codec_auto_path(dev, kernels, mcfg, sgd, bx, by)
+    queued_mlp = queued_mlp_path(dev, kernels, mcfg, bx, by)
+
     # -- 6. the int8 codec path and the convergence eval ---------------------------
     int8_launches = int8_train_path(dev, kernels, sgd, bx, by)
     del bx, by
@@ -6289,6 +6917,10 @@ def main() -> int:
     llama_train_parity(dev, train)
     auto = auto_route(dev)
 
+    # -- 36-37. the Llama cell with accumulation, and on the repo's text -----
+    accum_llama = accum_llama_path(dev, serve_kernels)
+    data_run = llama_data_path(dev, serve_kernels)
+
     # -- 12b-12d. sequence parallelism: the offsets, the dp x sp Llama path -----
     offsets = flash_offset_checks(dev)
     sp_kernels = dict(
@@ -6311,6 +6943,7 @@ def main() -> int:
                         flash_dkv_generic=flash_attention.FLASH_DKV_GENERIC)
     bert_run = bert_train_path(dev, bert_kernels)
     bert_train_parity(dev, bert_run)
+    queued_bert = queued_bert_path(dev, bert_kernels)
 
     # -- 16-17. ResNet-50: sync-BN DP with the fused momentum SGD -------------
     resnet_run = resnet_train_path(dev, bert_kernels)
@@ -6612,6 +7245,42 @@ def main() -> int:
                         for k, r in pp_tp_runs.items()},
         pp_tp_launches_from=pp_tp_from + ": at dp=1 the reduce-scatter is "
         "the identity")
+    new_from = {
+        "accum_mlp": ("accum_path (MLP, dp=8, 2 compared steps at "
+                      "accum_steps 1 and 4)"),
+        "accum_llama": ("accum_path (Llama cell, 4 steps at accum_steps 1 "
+                        "and 2)"),
+        "data": "llama_data_path (6 steps, accum_steps=2)",
+        "codec_auto": ("codec_auto_path (5 cases, 3 steps each of auto and "
+                       "the pinned codec)"),
+        "queued_mlp": "queued_path (MLP, dp=8, 3 timed steps)",
+        "queued_bert": "queued_path (BERT, dp=8, 3 timed steps)"}
+    for name in ("ring_rs_update", "ring_ag"):
+        results[name]["extra"].update(
+            accum_launches={a: r[name] for a, r in accum_mlp.items()},
+            accum_launches_from=new_from["accum_mlp"],
+            accum_llama_launches={a: r[name]
+                                  for a, r in accum_llama.items()},
+            accum_llama_launches_from=new_from["accum_llama"],
+            data_path_launches=data_run["launches"][name],
+            data_path_launches_from=new_from["data"],
+            codec_auto_launches=auto_codec_launches[name],
+            codec_auto_launches_from=new_from["codec_auto"],
+            queued_mlp_launches=queued_mlp[name],
+            queued_mlp_launches_from=new_from["queued_mlp"],
+            queued_bert_launches=queued_bert[name],
+            queued_bert_launches_from=new_from["queued_bert"])
+    for name in ("bfp_encode", "bfp_decode", "int8_encode", "int8_decode"):
+        results[name].setdefault("extra", {}).update(
+            codec_auto_launches=auto_codec_launches[name],
+            codec_auto_launches_from=new_from["codec_auto"])
+    for name in flash_kernels:
+        results[name]["extra"].update(
+            accum_llama_launches={a: r[name]
+                                  for a, r in accum_llama.items()},
+            accum_llama_launches_from=new_from["accum_llama"],
+            data_path_launches=data_run["launches"][name],
+            data_path_launches_from=new_from["data"])
     tp_paged = tp_serve["paged"]
     results["paged_attend"]["extra"] = dict(
         tp_serving_launches=tp_serve["launches"]["paged_attend"],

@@ -15,6 +15,9 @@ module names so each counterpart is easy to find:
   models/mlp.py         the canonical MLP (JAX weight layout [in, out])
   parallel/mesh.py      VirtualRanks: n ranks on one card, in loopback
   parallel/train.py     DPTrainer: per-rank grads, fused RS+update, AG
+  parallel/accum.py     gradient accumulation over microbatches
+  parallel/queued.py    QueuedDDPTrainer on runtime/queue.py (streams)
+  data.py text.py       loaders, epochs (native staging), text batches
   train_mlp.py          the training driver (``python -m ...train_mlp``)
   models/llama.py       Llama config, init, norms, rope (serving subset)
   models/llama_decode.py  forward / forward_paged / generate
@@ -22,10 +25,11 @@ module names so each counterpart is easy to find:
   ops/integrity.py      exact checksums: KV pages, wire payloads, verdicts
   serve/                paged pool, scheduling rules, batcher, ServeEngine
   runtime/chaos.py      the collective integrity guard and fault plans
-  runtime/ obs/         request intake, telemetry
-  utils/observability.py  Profiler and recovery stats
+  runtime/ obs/         request intake, the queue, staging, telemetry
+  utils/observability.py  Profiler, collective and recovery stats
   serve_llama.py        the serving driver (``python -m ...serve_llama``)
 
 Nothing here imports JAX or the JAX package.  Kernel sources live in
-``csrc/`` and are built by ``nvcc`` at first use (``ops/_build.py``).
+``csrc/`` and are built by ``nvcc`` at first use (``ops/_build.py``); the
+host staging engine ``csrc/staging.cpp`` by g++ (``runtime/native.py``).
 """

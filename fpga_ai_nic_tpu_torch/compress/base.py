@@ -60,6 +60,15 @@ class Codec(abc.ABC):
         when each is a whole number of these."""
         return self.pad_elems
 
+    def for_payload(self, n_elems: int, device: torch.device) -> "Codec":
+        """The codec that encodes one rank's [n_elems] payload on
+        ``device``: itself, or for a backend that decides per payload
+        ("auto") the concrete layout it picks there.  The one place that
+        decision is taken: a collective pins its codec once, on one
+        rank's chunk (``as_codec``), before it encodes every rank's
+        payload in one call."""
+        return self
+
     def sliceable(self, chunk_elems: int, slice_elems: Optional[int]) -> bool:
         """May a [chunk_elems] hop be sent as [slice_elems] slices with
         identical bits?  True only when slicing cannot change the unit
@@ -146,15 +155,31 @@ def resolve(coll: Any) -> Optional[Codec]:
     return None
 
 
-def as_codec(compression: Any) -> Optional[Codec]:
+def check_pinned(name: str, device: torch.device) -> None:
+    """An "auto" codec not pinned by ``Codec.for_payload`` encodes only on
+    the CPU, where it is flat16 whatever the payload.  On a card one
+    rank's payload decides, which a call over every rank's payload cannot
+    see, so there it raises."""
+    if torch.device(device).type == "cuda":
+        raise ValueError(
+            f"codec {name!r} with an 'auto' layout on a CUDA tensor: pin it "
+            "to one rank's payload first (Codec.for_payload, as_codec)")
+
+
+def as_codec(compression: Any, per_rank_elems: Optional[int] = None,
+             device: Optional[torch.device] = None) -> Optional[Codec]:
     """Normalize a ring-level ``compression=`` argument: None, a Codec, or
-    a bare BFPConfig."""
-    if compression is None or isinstance(compression, Codec):
-        return compression
-    from ..utils.config import BFPConfig
-    if isinstance(compression, BFPConfig):
+    a bare BFPConfig.  With ``per_rank_elems`` (one rank's chunk) and
+    ``device``, an "auto" codec comes back pinned to the layout that
+    chunk takes there, so the rings below never see "auto"."""
+    if compression is not None and not isinstance(compression, Codec):
+        from ..utils.config import BFPConfig
+        if not isinstance(compression, BFPConfig):
+            raise TypeError(
+                f"compression must be None, a compress.Codec, or a "
+                f"BFPConfig; got {type(compression).__name__}")
         from .bfp import BFPCodec
-        return BFPCodec(cfg=compression)
-    raise TypeError(
-        f"compression must be None, a compress.Codec, or a BFPConfig; "
-        f"got {type(compression).__name__}")
+        compression = BFPCodec(cfg=compression)
+    if compression is None or per_rank_elems is None:
+        return compression
+    return compression.for_payload(per_rank_elems, device)

@@ -4,7 +4,14 @@
 ``BFPConfig.codec`` picks the block partition, and that choice is part of
 the bit contract: "xla" is the "flat16" layout (``ops.bfp``, plain torch on
 any device), "pallas" the "sublane" layout (``ops.bfp_cuda``: the CUDA
-kernels on a CUDA tensor, their plain versions on a CPU tensor).
+kernels on a CUDA tensor, their plain versions on a CPU tensor).  "auto"
+decides per payload, as JAX's ``use_pallas`` does on a TPU: the sublane
+kernels for a CUDA tensor whose rank payload is whole (block, 128)-lane
+tiles, else (and always on the CPU) the flat16 ops.  ``for_payload``
+takes that decision, once a collective, on one rank's chunk
+(``compress.base.as_codec``); an unpinned "auto" encodes as flat16 on the
+CPU and raises on a CUDA tensor.  "auto" pads a flat vector as flat16
+does, so the payloads it decides on are JAX's.
 ``plain=True`` pins the sublane codec to its plain torch version on every
 device — what the fused ring kernels' plain versions use, so that holding
 a kernel against its plain version never runs a kernel on both sides.
@@ -17,16 +24,23 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from .base import Codec, register
+from .base import Codec, check_pinned, register
 from ..ops import bfp as _bfp_flat
 from ..ops import bfp_cuda as _bfp_sub
 from ..utils.config import BFPConfig
 
 
+def tiles(cfg: BFPConfig, n_elems: int) -> bool:
+    """Is a [n_elems] payload whole (block, 128)-lane tiles?"""
+    return n_elems % (cfg.block_size * _bfp_sub.LANES) == 0
+
+
 def use_pallas(cfg: BFPConfig, n_elems: int) -> bool:
-    """Does this payload take the sublane layout?  (``codec="auto"`` is
-    refused at BFPConfig construction in this port.)"""
-    return cfg.codec == "pallas"
+    """Does this [n_elems] payload take the sublane layout on a card?
+    "pallas" always; "auto" when the payload is whole tiles (JAX's rule
+    for its TPU kernels)."""
+    return cfg.codec == "pallas" or (cfg.codec == "auto"
+                                     and tiles(cfg, n_elems))
 
 
 def codec_pair(cfg: BFPConfig, n_elems: int, plain: bool = False
@@ -65,23 +79,42 @@ class BFPCodec(Codec):
         self.error_feedback = bool(error_feedback)
         self.plain = plain
 
+    def _layout(self, device: torch.device) -> BFPConfig:
+        if self.cfg.codec != "auto":
+            return self.cfg
+        check_pinned(self.name, device)
+        return replace(self.cfg, codec="xla")
+
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        enc, _ = codec_pair(self.cfg, x.shape[0], self.plain)
+        enc, _ = codec_pair(self._layout(x.device), x.shape[0], self.plain)
         return tuple(enc(x))
 
     def decode(self, payload: Tuple[torch.Tensor, ...], n_elems: int,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
         mant, se = payload
-        _, dec = codec_pair(self.cfg, n_elems, self.plain)
+        _, dec = codec_pair(self._layout(mant.device), n_elems, self.plain)
         return dec(mant, se, dtype)
+
+    def for_payload(self, n_elems: int, device: torch.device) -> "BFPCodec":
+        """"auto" pinned for one rank's [n_elems] payload on ``device``:
+        "pallas" on a CUDA device where the payload takes the sublane
+        kernels (``use_pallas``), else "xla".  Any other backend is
+        returned as it is."""
+        if self.cfg.codec != "auto":
+            return self
+        pick = ("pallas" if torch.device(device).type == "cuda"
+                and use_pallas(self.cfg, n_elems) else "xla")
+        return BFPCodec(replace(self.cfg, codec=pick),
+                        self.error_feedback, self.plain)
 
     @property
     def pad_elems(self) -> int:
         return self.cfg.block_size
 
     def unit_elems(self, n_elems: int) -> int:
-        # the sublane layout's unit is a whole (block, 128)-lane tile
-        if use_pallas(self.cfg, n_elems):
+        # the sublane layout's unit is a whole (block, 128)-lane tile;
+        # "auto" pads and joins payloads as flat16 does (JAX's padding)
+        if self.cfg.codec == "pallas":
             return self.cfg.block_size * _bfp_sub.LANES
         return self.cfg.block_size
 

@@ -19,8 +19,12 @@ Backends, each a distinct bit stream (the block partition differs):
     must be a whole number of (block, 128)-lane tiles; the dp=8 canonical
     MLP's rank chunk (5,245,440 = 512 x 10245 elements) is not, and JAX's
     kernel asserts on it too, so the canonical int8 path runs at dp=2.
-  - "auto" (pallas on a TPU when the payload tiles) is not ported: it
-    raises ``NotImplementedError`` (ROADMAP A.2).
+  - "auto": the sublane kernels for a CUDA tensor whose rank payload is
+    whole (block, 128)-lane tiles, else (and always on the CPU) flat16,
+    JAX's rule for its TPU kernels.  It pads and joins payloads as flat16
+    does.  ``for_payload`` takes the decision, once a collective, on one
+    rank's chunk (``compress.base.as_codec``); unpinned it encodes as
+    flat16 on the CPU and raises on a CUDA tensor.
 
 ``plain=True`` pins the sublane layout to its plain torch version on every
 device, as ``BFPCodec(plain=True)`` does, so a kernel is never compared
@@ -33,7 +37,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from .base import Codec, register
+from .base import Codec, check_pinned, register
 from ..ops import int8_cuda
 
 
@@ -68,10 +72,6 @@ class Int8Codec(Codec):
         assert rounding in int8_cuda.ROUNDINGS, rounding
         assert backend in ("xla", "pallas", "auto"), backend
         assert block_size >= 2
-        if backend == "auto":
-            raise NotImplementedError(
-                "Int8Codec(backend='auto') is not ported (ROADMAP A.2): "
-                "pick 'xla' (flat16 layout) or 'pallas' (sublane layout)")
         self.block_size = int(block_size)
         self.rounding = rounding
         self.seed = int(seed)
@@ -84,7 +84,24 @@ class Int8Codec(Codec):
         """The "pallas" backend's lane-column blocks (else flat16)."""
         return self.backend == "pallas"
 
+    def _tiles(self, n_elems: int) -> bool:
+        return n_elems % (self.block_size * int8_cuda.LANES) == 0
+
+    def for_payload(self, n_elems: int, device: torch.device) -> "Int8Codec":
+        """"auto" pinned for one rank's [n_elems] payload on ``device``:
+        "pallas" on a CUDA device where the payload is whole tiles, else
+        "xla" (``compress.base.Codec.for_payload``); other backends as
+        they are."""
+        if self.backend != "auto":
+            return self
+        pick = ("pallas" if torch.device(device).type == "cuda"
+                and self._tiles(n_elems) else "xla")
+        return Int8Codec(self.block_size, self.rounding, self.seed, pick,
+                         self.error_feedback, self.plain)
+
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.backend == "auto":
+            check_pinned(self.name, x.device)
         if not self.sublane:
             enc = int8_encode
         elif self.plain:
@@ -96,6 +113,8 @@ class Int8Codec(Codec):
     def decode(self, payload: Tuple[torch.Tensor, ...], n_elems: int,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
         q, scale = payload
+        if self.backend == "auto":
+            check_pinned(self.name, q.device)
         if not self.sublane:
             dec = int8_decode
         elif self.plain:

@@ -14,8 +14,10 @@ final-loss ratio isolates the wire codec; for
 error-feedback codecs (top-k) the arm also carries the residual through
 ``TrainState.codec_state``.
 
-Ported: ``run_curve``, ``run_codec_comparison``, ``codec_static_table``
-and ``codec_error_table`` for the models ``mlp``, ``mlp_canonical``,
+Ported: ``run_curve``, ``run_comparison`` (the BFP mantissa sweep, on
+``DDPTrainer`` as JAX's), ``run_comparison_multiseed``,
+``run_codec_comparison``, ``codec_static_table`` and ``codec_error_table``
+for the models ``mlp``, ``mlp_canonical``,
 ``bert`` (the tiny BERT on masked-LM batches of 32 tokens, each carrying
 the global target count, ``models.bert.with_global_count``),
 ``resnet`` (the tiny ResNet on 16x16 images, sync-BN over the ranks
@@ -28,7 +30,7 @@ numpy stream; the initial weights come from a torch generator unless
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -178,6 +180,61 @@ def run_curve(model: str, steps: int = 200, *, batch: int = 32,
             rec_steps.append(i + 1)
     final = float(np.mean(losses[-max(tail_k, 1):]))
     return {"losses": losses, "steps": rec_steps, "final_loss": final}
+
+
+def run_comparison(model: str, steps: int = 200, *,
+                   mantissa_sweep: Sequence[int] = (8, 6, 4),
+                   batch: int = 32, n_dev: int = 8, seed: int = 0,
+                   n_batches: int = 4, tail_k: int = 1,
+                   params: Optional[dict] = None,
+                   device: DeviceLike = "cuda") -> Dict:
+    """Uncompressed baseline + one BFP arm per mantissa width on the
+    bucketed ``DDPTrainer`` (JAX's ``run_curve`` default), paired on
+    common random numbers: each arm's ``final_loss_ratio`` (arm /
+    baseline) differs from the baseline by per-hop quantization alone."""
+    kw = dict(batch=batch, n_dev=n_dev, seed=seed, n_batches=n_batches,
+              tail_k=tail_k, trainer="ddp", params=params, device=device)
+    out: Dict = {"model": model, "steps": steps, "tail_k": tail_k,
+                 "baseline": run_curve(model, steps, **kw)}
+    base = out["baseline"]["final_loss"]
+    for m in mantissa_sweep:
+        arm = run_curve(model, steps, mantissa_bits=m, **kw)
+        arm["final_loss_ratio"] = arm["final_loss"] / base
+        out[f"bfp_m{m}"] = arm
+    return out
+
+
+def run_comparison_multiseed(model: str, steps: int = 200, *,
+                             seeds: Sequence[int] = (0, 1, 2, 3, 4),
+                             mantissa_sweep: Sequence[int] = (8, 6, 4),
+                             batch: int = 32, n_dev: int = 8,
+                             n_batches: int = 4, tail_k: int = 8,
+                             params_of: Optional[Callable[[int], dict]] = None,
+                             device: DeviceLike = "cuda") -> Dict:
+    """``run_comparison`` over several seeds (each seed's arms share its
+    initial weights and batch stream), with the per-seed paired ratios
+    and their mean, standard deviation, minimum and maximum per
+    mantissa width.  ``params_of(seed)``: a seed's initial weights (the
+    seeded torch initialisation without it)."""
+    runs = [run_comparison(model, steps, mantissa_sweep=mantissa_sweep,
+                           batch=batch, n_dev=n_dev, seed=s,
+                           n_batches=n_batches, tail_k=tail_k,
+                           params=None if params_of is None
+                           else params_of(s), device=device)
+            for s in seeds]
+    out: Dict = {"model": model, "steps": steps, "seeds": list(seeds),
+                 "tail_k": tail_k, "pairing": "common-random-numbers",
+                 "per_seed": runs}
+    for m in mantissa_sweep:
+        ratios = [r[f"bfp_m{m}"]["final_loss_ratio"] for r in runs]
+        out[f"bfp_m{m}"] = {
+            "paired_ratios": ratios,
+            "ratio_mean": float(np.mean(ratios)),
+            "ratio_std": float(np.std(ratios)),
+            "ratio_min": float(np.min(ratios)),
+            "ratio_max": float(np.max(ratios)),
+        }
+    return out
 
 
 def run_codec_comparison(model: str, steps: int = 200, *,

@@ -191,15 +191,27 @@ def apply(params: Params, tokens: torch.Tensor, cfg: BertConfig,
     return h @ params["tok_emb"].T + params["mlm_bias"]     # tied decoder
 
 
-def with_global_count(batch: Tuple[torch.Tensor, ...], n: int
-                      ) -> Tuple[torch.Tensor, ...]:
+def with_global_count(batch: Tuple[torch.Tensor, ...], n: int,
+                      accum_steps: int = 1) -> Tuple[torch.Tensor, ...]:
     """``(tokens, labels)`` of a global batch -> ``(tokens, labels,
     count)``: ``count`` is an int64 [n] tensor, every entry the global
-    number of masked-LM targets (labels >= 0), so each of the n ranks'
-    shards carries it."""
+    number of targets (labels >= 0), so each of the n ranks' shards
+    carries it.  With ``accum_steps`` = a > 1 it is ``[n a]``: rank i's
+    a entries the counts of the a microbatches (``parallel.accum``:
+    microbatch k is rows ``k m .. (k + 1) m - 1`` of every rank's shard),
+    each over all n ranks, as JAX psums the count inside each
+    microbatch."""
     tokens, labels = batch
-    count = (labels >= 0).sum().reshape(1).to(torch.int64)
-    return tokens, labels, count.expand(n).contiguous()
+    if accum_steps == 1:
+        count = (labels >= 0).sum().reshape(1).to(torch.int64)
+        return tokens, labels, count.expand(n).contiguous()
+    if labels.shape[0] % (n * accum_steps):
+        raise ValueError(f"a global batch of {labels.shape[0]} does not "
+                         f"split into {n} ranks x {accum_steps} "
+                         "microbatches")
+    counts = (labels >= 0).reshape(n, accum_steps, -1).sum(
+        dim=(0, 2)).to(torch.int64)
+    return tokens, labels, counts.repeat(n)
 
 
 def loss_fn(params: Params, batch, cfg: BertConfig, *,

@@ -772,7 +772,8 @@ def _grad_scale(x: torch.Tensor, n: float) -> torch.Tensor:
 def loss_fn(params: Any, batch, cfg: LlamaConfig, *,
             tp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
             dp_axis: Optional[str] = None, ep_axis: Optional[str] = None,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False,
+            dp_size: Optional[int] = None) -> torch.Tensor:
     """Next-token cross-entropy plus the MoE load-balance term.  batch =
     (tokens, labels), both [B, S] (or [n_sp, B, S_local] with
     ``sp_axis``: the stacked shards, labels the globally shifted targets,
@@ -785,19 +786,27 @@ def loss_fn(params: Any, batch, cfg: LlamaConfig, *,
     shards (``_vocab_parallel_nll``): one value, whatever the tp.
     ``dp_axis`` raises: a dense model's per-rank loss and the trainer's
     uniform dp average equal the JAX dp_axis weighting when every label
-    is valid, as in ``train_llama``; a MoE model trains through
-    ``dp_loss_fn``."""
+    is valid; with masked labels a dp rank's batch carries the global
+    count, ``(tokens, labels, count)`` (``models.bert.with_global_count``)
+    and ``dp_size=n`` gives ``n * local_sum / count``, JAX's ``dp_axis``
+    weighting (dense models; a MoE model trains through ``dp_loss_fn``)."""
     if dp_axis is not None:
         raise NotImplementedError(
             "dp_axis (the masked-label dp weighting inside a sharded "
-            "program) is not ported; ShardedTrainer averages per-rank "
-            "gradients (a MoE model takes llama.dp_loss_fn)")
-    tokens, labels = batch
+            "program) is not ported; a dp rank's batch carries the global "
+            "count (models.bert.with_global_count) with dp_size=n (a MoE "
+            "model takes llama.dp_loss_fn)")
+    tokens, labels = batch[0], batch[1]
+    if len(batch) == 3 or dp_size is not None:
+        _check_moe_dp(cfg, dp_size)
     out = apply(params, tokens, cfg, tp_axis=tp_axis, sp_axis=sp_axis,
                 ep_axis=ep_axis, gather_logits=False,
                 with_aux=cfg.moe is not None, remat=remat)
     logits = out[0] if cfg.moe is not None else out
     nll, valid = _masked_nll(logits, labels)
+    if len(batch) == 3 or dp_size is not None:
+        num, denom = _pp_weight(batch, dp_size)
+        return num * nll.sum() / denom
     loss = _weighted_loss(nll.sum(), valid.sum())
     return loss + out[1] if cfg.moe is not None else loss
 

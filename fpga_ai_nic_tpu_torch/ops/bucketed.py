@@ -13,8 +13,9 @@ bucket (``bucket_locals``), and each bucket is reduced by one collective
 ``fused_kernel``, or a sum over the rows for ``impl="xla"``).  Everything
 stays f32 from the copy to the update (``all_reduce_bucketed_flat``), as
 the JAX function keeps a bf16 model's dp-mean out of the leaf dtype.
-Reductions run one bucket after the other, after the backward: the
-explicit issue/wait queue that overlaps them with it is ROADMAP A.4.
+Reductions run one bucket after the other, after the backward
+(``parallel.ddp``), or one issue a bucket through the explicit queue
+(``parallel.queued``, ``runtime.queue``).
 """
 
 from __future__ import annotations
@@ -82,14 +83,18 @@ def bucket_rows(plan: BucketPlan, n: int, device) -> List[torch.Tensor]:
 
 
 def bucket_locals(leaves: Sequence[torch.Tensor], plan: BucketPlan,
-                  out: Sequence[torch.Tensor]) -> None:
+                  out: Sequence[torch.Tensor], add: bool = False) -> None:
     """One rank's gradient leaves (forward tree order) -> its rows of
     ``bucket_rows`` (``out``, in issue order): each leaf copied once into
-    its place."""
+    its place, or with ``add`` added to it in f32 (accumulation)."""
     for b, vec in zip(plan.buckets, out):
         off = 0
         for i, size in zip(b.leaf_ids, b.sizes):
-            vec[off:off + size].copy_(leaves[i].reshape(-1))
+            dst = vec[off:off + size]
+            if add:
+                dst.add_(leaves[i].reshape(-1))
+            else:
+                dst.copy_(leaves[i].reshape(-1))
             off += size
 
 

@@ -24,10 +24,6 @@ blocks.  ``topology="hier"`` takes the two-stage rings of
 collective; the config refuses it with ``fused_kernel``, as the JAX
 package's does.
 
-``AllGatherFlat`` is the gather as an autograd function, ZeRO-3's
-gather-on-use (``parallel.fsdp``): forward ``all_gather_flat``, backward
-``reduce_scatter`` of the cotangent.
-
 ``integrity=True`` on the three collectives appends the exact wire verdict
 (``ops.integrity``): frame conservation on the rings (the per-rank payload
 checksums of ``ops.ring``, or the checksum pair of the fused
@@ -325,6 +321,7 @@ def error_feedback_encode(codec, flat_g: torch.Tensor, residual: torch.Tensor
     ranks encoded in one codec call (``ring.check_whole_units``)."""
     n, L = flat_g.shape
     g_comp = flat_g + residual
+    codec = codec.for_payload(L, flat_g.device)
     ring_ops.check_whole_units(codec, L)
     g_wire = codec.roundtrip(g_comp.reshape(-1)).reshape(n, L)
     return g_wire, g_comp - g_wire
@@ -370,42 +367,6 @@ def all_gather_flat(owned: torch.Tensor, coll: CollectiveConfig,
             else out
     return ring_ops.ring_all_gather(owned, resolve_codec(coll),
                                     integrity=integrity)
-
-
-class AllGatherFlat(torch.autograd.Function):
-    """``all_gather_flat`` with its transpose as the backward: ZeRO-3's
-    gather-on-use inside autograd (the JAX package's
-    ``all_gather_flat_vjp``).
-
-    forward:  the ring all-gather of the (optionally codec-encoded-once)
-              master shards ``[n, C] -> [n, n*C]``: every rank's replica
-              sees the same quantized bytes (on the fused route the
-              ``ring_ag`` kernel);
-    backward: the per-hop-compressed ring reduce-scatter of the cotangent
-              ``[n, n*C] -> [n, C]`` (on the fused route the ``ring_rs``
-              kernel without an optimizer), the same routing as the
-              forward.
-
-    With compression the loss and its gradient are taken at the quantized
-    parameters while the optimizer updates the exact f32 masters:
-    straight-through estimation, the contract of the ZeRO-1 trainers'
-    compressed weight gather."""
-
-    @staticmethod
-    def forward(ctx, owned: torch.Tensor, coll: CollectiveConfig
-                ) -> torch.Tensor:
-        ctx.coll = coll
-        return all_gather_flat(owned, coll)
-
-    @staticmethod
-    def backward(ctx, ct: torch.Tensor):
-        return reduce_scatter(ct.contiguous(), ctx.coll), None
-
-
-def all_gather_flat_vjp(owned: torch.Tensor, coll: CollectiveConfig
-                        ) -> torch.Tensor:
-    """Differentiable ``all_gather_flat`` (``AllGatherFlat``)."""
-    return AllGatherFlat.apply(owned, coll)
 
 
 def repad_flat(v: torch.Tensor, meta: FlatMeta) -> torch.Tensor:

@@ -211,7 +211,7 @@ def _reduce_scatter(x, compression, slice_elems, frame_checksum):
     chk = _integrity.zero_carry(n, x.device) if checked else None
     if n == 1:
         return (x,) + chk if checked else x
-    codec = as_codec(compression)
+    codec = as_codec(compression, L // n, x.device)
     x = _tap(x, "ring.reduce_scatter")
     chunks = x.reshape(n, n, L // n).clone()
     ranks = torch.arange(n, device=x.device)
@@ -248,7 +248,7 @@ def ring_all_gather(owned: torch.Tensor, compression=None,
     Frames are encoded once and forwarded verbatim, so all replicas are
     bitwise equal."""
     n, C = owned.shape
-    codec = as_codec(compression)
+    codec = as_codec(compression, C, owned.device)
     owned = _tap(owned, "ring.all_gather")
     if n == 1:
         out = owned if codec is None else codec.roundtrip(

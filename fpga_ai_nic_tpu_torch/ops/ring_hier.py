@@ -168,13 +168,13 @@ def hier_reduce_scatter(x: torch.Tensor, n_intra: int, *,
     hop, on one message counter spanning both phases (intra hop s is
     message s, inter hop s slice k is (ni-1) + s*stride + k), and returns
     ``(owned, wire_ok)``."""
-    codec = as_codec(compression)
     ni = int(n_intra)
     n, L = x.shape
     ng = check_factorization(n, ni)
     if L % n:
         raise ValueError(f"need flat length divisible by {n}, got "
                          f"{tuple(x.shape)}")
+    codec = as_codec(compression, L // n, x.device)
     if n == 1:
         return (x, torch.tensor(True, device=x.device)) if integrity else x
     C = L // n
@@ -221,10 +221,10 @@ def hier_all_gather(owned: torch.Tensor, n_intra: int, *,
     [n, n * C] in natural chunk order (with ``integrity=True``:
     ``(gathered, wire_ok)``, inter hop s message s, intra hop s message
     (ng-1) + s of the gather's carry)."""
-    codec = as_codec(compression)
     ni = int(n_intra)
     n, C = owned.shape
     ng = check_factorization(n, ni)
+    codec = as_codec(compression, C, owned.device)
     owned = ring_ops._tap(owned, "ring_hier.all_gather")
     if n == 1:
         out1 = owned if codec is None else codec.roundtrip(

@@ -2,5 +2,7 @@
 
 from .ddp import DDPState, DDPTrainer
 from .fsdp import FSDPState, FSDPTrainer
+from .queued import QueuedDDPTrainer
 
-__all__ = ["DDPState", "DDPTrainer", "FSDPState", "FSDPTrainer"]
+__all__ = ["DDPState", "DDPTrainer", "FSDPState", "FSDPTrainer",
+           "QueuedDDPTrainer"]

@@ -17,14 +17,15 @@ are ``[n, L]``: the gathered gradient rows are bitwise equal and the
 update is deterministic, so the ranks' replicas stay bit-identical, which
 a caller can check (``replicas_identical``).
 
-The loss is the mean of the per-rank losses.  The buckets are reduced one
-after the other once the backward is done: the explicit issue/wait queue
-that overlaps them with it (``runtime/queue.py``, ``parallel/queued.py``)
-is ROADMAP A.4.  ``integrity_check`` raises ``ValueError`` as the JAX
-trainer's does (its bucketed reduces do not carry the verdicts);
-accumulation, in-graph metrics, plan adaptation and restore raise
-``NotImplementedError`` naming their ROADMAP items (``codec="auto"``
-already raises in ``CollectiveConfig``).
+The loss is the mean of the per-rank losses.  With ``accum_steps > 1``
+each microbatch's gradient leaves are added in f32 into the same bucket
+rows (``parallel.accum``), which are scaled by ``1 / accum_steps`` before
+the buckets are reduced, once a step.  The buckets are reduced one after
+the other once the backward is done; ``parallel.queued.QueuedDDPTrainer``
+issues them through the explicit issue/wait queue instead.
+``integrity_check`` raises ``ValueError`` as the JAX trainer's does (its
+bucketed reduces do not carry the verdicts); in-graph metrics and restore
+raise ``NotImplementedError`` naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from . import accum
 from .mesh import VirtualRanks
 from .train import rank_grads, refuse_fsdp
 from .. import optim
@@ -71,12 +73,9 @@ class DDPTrainer:
                 "integrity_check is implemented on DPTrainer only: the "
                 "bucketed DDP reduces do not carry the verdicts, as in the "
                 "JAX package; construct with integrity_check=False")
-        for name, unported, item in (
-                ("accum_steps > 1", cfg.accum_steps != 1, "A.1"),
-                ("obs_metrics", cfg.obs_metrics, "A.9")):
-            if unported:
-                raise NotImplementedError(
-                    f"{name} is not ported: ROADMAP {item}")
+        if cfg.obs_metrics:
+            raise NotImplementedError("obs_metrics is not ported: "
+                                      "ROADMAP A.9")
         self.loss_fn = loss_fn
         self.ranks = ranks
         self.n = ranks.n
@@ -163,16 +162,23 @@ class DDPTrainer:
     def grads(self, state: DDPState, batch
               ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """Per-rank backward into the bucket rows: ``(rows, mean loss)``,
-        rows ``[n, padded_len]`` f32 a bucket, in issue order."""
+        rows ``[n, padded_len]`` f32 a bucket, in issue order, accumulated
+        over ``cfg.accum_steps`` microbatches (``accum.accumulate``)."""
         plan = self.plan
-        rows = bucketed.bucket_rows(plan, self.n, state.replicas.device)
 
-        def write(i: int, leaves: List[torch.Tensor]) -> None:
-            bucketed.bucket_locals(leaves, plan, [r[i] for r in rows])
+        def one(mb, into):
+            rows = into if into is not None else bucketed.bucket_rows(
+                plan, self.n, state.replicas.device)
 
-        _, loss = rank_grads(self.loss_fn, state.replicas, self._meta,
-                             batch, write)
-        return rows, loss
+            def write(i: int, leaves: List[torch.Tensor]) -> None:
+                bucketed.bucket_locals(leaves, plan, [r[i] for r in rows],
+                                       add=into is not None)
+
+            _, loss = rank_grads(self.loss_fn, state.replicas, self._meta,
+                                 mb, write)
+            return rows, loss
+
+        return accum.accumulate(one, batch, self.cfg.accum_steps)
 
     def all_reduce(self, rows: List[torch.Tensor]) -> torch.Tensor:
         """The bucketed mean all-reduce: ``[n, L]`` f32, every rank's row

@@ -9,31 +9,38 @@ full parameters exist only inside the step, gathered on use:
     flat   = all_gather(w_own)            # [n, L] transient replicas
     params = unflatten(flat[i])           # rank i's model-dtype leaves
     loss   = loss_fn(params, batch[i])    # every rank, one graph
-    g_sum  = d(sum_i loss_i)/d(w_own)     # the gather's backward: the
-                                          # reduce-scatter of the cotangent
+    ct     = d(sum_i loss_i)/d(flat)      # [n, L] f32 cotangent
+    g_sum  = reduce_scatter(ct)           # the gather's transpose
     w_own' = opt(w_own, g_sum / n)
 
-The gather is ``fused_update.AllGatherFlat``, an autograd function whose
-forward is ``all_gather_flat`` (the ``ring_ag`` kernel on the fused route)
-and whose backward is ``reduce_scatter`` of the cotangent (the ``ring_rs``
-kernel without an optimizer); one backward of the summed losses runs it.
-No gather of updated weights follows the update: the next step's gather
+The gather is ``fused_update.all_gather_flat`` (the ``ring_ag`` kernel on
+the fused route), run once a step without autograd; each rank's leaves
+are cut from its gathered row (``_RankLeaves``), whose backward writes
+every leaf's gradient into one ``[n, L_pad]`` f32 cotangent.  The
+reduce-scatter of that cotangent (the ``ring_rs`` kernel without an
+optimizer) is the gather's transpose, JAX's ``all_gather_flat_vjp``
+written out.  With ``accum_steps > 1`` (JAX: the loss accumulated under
+one gather, ``accum.accumulated_loss``) each microbatch's cotangent is
+added in f32 into microbatch 0's, the sum is scaled by
+``1 / accum_steps`` (``accum.accumulate``) and reduce-scattered once: one
+``ring_ag`` and one ``ring_rs`` a step at every ``accum_steps``.  No
+gather of updated weights follows the update: the next step's gather
 reads the new shards.  The gather runs in f32 (master precision), as in
 JAX.  With a compressed ring the loss is taken at the quantized parameters
 while the update goes to the exact masters (straight-through).
 
 A codec that declares error feedback (top-k) takes the explicit route of
-JAX's ``shard_step_ef``: the gather without autograd, each rank's gradient
-with respect to its gathered row (``parallel.train.rank_grads``), the
-compensate-then-compress ``fused_update.error_feedback_encode``, then
-``reduce_scatter_update`` or ``reduce_scatter``; the residual rides in
-``FSDPState.codec_state``.
+JAX's ``shard_step_ef``: each rank's gradient with respect to its gathered
+row (``parallel.train.rank_grads``, accumulated the same way), the
+compensate-then-compress ``fused_update.error_feedback_encode`` once a
+step, then ``reduce_scatter_update`` or ``reduce_scatter``; the residual
+rides in ``FSDPState.codec_state``.
 
-Parity contract (tests/test_torch_fsdp.py): the losses and masters of the
-port's ZeRO-1 ``DPTrainer`` on the same model, batch and optimizer, and of
-JAX's ``FSDPTrainer``.  Not ported, raising ``NotImplementedError`` with
-the ROADMAP item: checkpoint restore and live resharding (A.8),
-``accum_steps > 1`` (A.1), in-graph metrics (A.9).  ``codec="auto"``
+Parity contract (tests/test_torch_fsdp.py, tests/test_torch_accum.py): the
+losses and masters of the port's ZeRO-1 ``DPTrainer`` on the same model,
+batch and optimizer, and of JAX's ``FSDPTrainer``.  Not ported, raising
+``NotImplementedError`` with the ROADMAP item: checkpoint restore and
+live resharding (A.8), in-graph metrics (A.9).  ``codec="auto"``
 resolves once at ``init_state`` (``tune``, as JAX's ``_resolve_auto``).
 """
 
@@ -43,6 +50,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from . import accum
 from .mesh import VirtualRanks
 from .train import codec_flags, rank_grads, static_metrics
 from .. import optim
@@ -107,12 +115,9 @@ class FSDPTrainer:
             raise ValueError(f"cfg.mesh ({cfg.mesh}) does not describe "
                              f"{ranks.n} fsdp ranks alone")
         coll = cfg.collective
-        for name, unported, item in (
-                ("accum_steps > 1", cfg.accum_steps != 1, "A.1"),
-                ("obs_metrics", cfg.obs_metrics, "A.9")):
-            if unported:
-                raise NotImplementedError(
-                    f"{name} is not ported: ROADMAP {item}")
+        if cfg.obs_metrics:
+            raise NotImplementedError("obs_metrics is not ported: "
+                                      "ROADMAP A.9")
         if coll.fused_optimizer and cfg.optimizer.clip_norm is not None:
             raise ValueError(
                 "fused_optimizer cannot honor clip_norm (same contract as "
@@ -205,16 +210,26 @@ class FSDPTrainer:
         self._require_meta()
         if self._ef:
             return self._step_ef(state, batch)
-        w = state.w_own.detach().requires_grad_()
-        # all-gather on use; its backward is the reduce-scatter that lands
-        # the summed gradients on the owning shards
-        losses = self._losses(
-            fused_update.all_gather_flat_vjp(w, self.cfg.collective), batch)
-        (g_sum,) = torch.autograd.grad(losses.sum(), [w])
-        del w
+        coll = self.cfg.collective
+        # all-gather on use; the reduce-scatter of the summed cotangent
+        # lands the summed gradients on the owning shards
+        flat = fused_update.all_gather_flat(state.w_own, coll).detach() \
+            .requires_grad_()
+
+        def one(mb, into):
+            losses = self._losses(flat, mb)
+            (ct,) = torch.autograd.grad(losses.sum(), [flat])
+            if into is not None:
+                ct = into.add_(ct)
+            return ct, losses.detach()
+
+        ct, losses = accum.accumulate(one, batch, self.cfg.accum_steps)
+        del flat
+        g_sum = fused_update.reduce_scatter(ct, coll)
+        del ct
         w_new, opt_state = self._update(state, g_sum)
         return (FSDPState(w_new, opt_state, state.step + 1,
-                          state.codec_state), losses.detach().mean())
+                          state.codec_state), losses.mean())
 
     def _step_ef(self, state: FSDPState, batch):
         """The error-feedback variant: the gradient collective is explicit
@@ -222,7 +237,15 @@ class FSDPTrainer:
         the per-hop-compressed reduce-scatter."""
         coll = self.cfg.collective
         flat = fused_update.all_gather_flat(state.w_own, coll)
-        flat_g, loss = rank_grads(self.loss_fn, flat, self._meta, batch)
+        meta = self._meta
+
+        def one(mb, into):
+            write = None if into is None else (
+                lambda i, gs: accum.add_leaves(gs, meta, into[i]))
+            flat_g, loss = rank_grads(self.loss_fn, flat, meta, mb, write)
+            return (into if flat_g is None else flat_g), loss
+
+        flat_g, loss = accum.accumulate(one, batch, self.cfg.accum_steps)
         del flat
         g_wire, resid = fused_update.error_feedback_encode(
             self._codec, flat_g, state.codec_state)

@@ -100,12 +100,18 @@ final norm over all three, the head over pp (its vocab shard is a tp
 rank's own), a stage's norms (and ``wk``/``wv`` under kv replication)
 over its tp rows.
 
+``accum_steps > 1`` (``parallel.accum``) cuts every rank's local batch
+into microbatches and runs the backward once a microbatch, adding the
+gradients in f32 into the same rows; the shard sums, the scale by ``1 /
+accum_steps`` and the dp phases then run once a step.  It composes with
+tp, sp, ep and GPipe (each microbatch then goes through the pipeline's
+own ``num_microbatches``).
+
 As in the JAX package the fused optimizer kernel is not used: the update
-is ``optim.apply`` between the two collectives.  An fsdp mesh axis and
-``accum_steps > 1`` raise ``NotImplementedError``;
-``loss_and_grads_fn`` with ``accum_steps > 1`` and ``integrity_check``
-raise ``ValueError``, as the JAX package's do (the latter is
-DPTrainer's).  The state is ``parallel.train.TrainState``; ``step``
+is ``optim.apply`` between the two collectives.  An fsdp mesh axis raises
+``NotImplementedError``; ``loss_and_grads_fn`` with ``accum_steps > 1``
+and ``integrity_check`` raise ``ValueError``, as the JAX package's do
+(the latter is DPTrainer's).  The state is ``parallel.train.TrainState``; ``step``
 drops the flat gradients before the update, so at full width they never
 coexist with the gathered replicas.
 """
@@ -118,6 +124,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import accum
 from .mesh import VirtualRanks, spec_dims
 from .train import (DPTrainer, Params, TrainState, _rank_leaves,
                     refuse_fsdp)
@@ -251,9 +258,6 @@ class ShardedTrainer(DPTrainer):
             raise NotImplementedError(
                 "loss_and_grads_fn without pp is not ported: the port's "
                 "takes the pp stages (the 1F1B schedules, pp > 1)")
-        if cfg.accum_steps != 1:
-            raise NotImplementedError(
-                "accum_steps > 1 is not ported: ROADMAP A.1")
         if cfg.collective.integrity_check:
             raise ValueError(
                 "integrity_check is implemented on DPTrainer only (both "
@@ -398,7 +402,9 @@ class ShardedTrainer(DPTrainer):
         embedding over tp) over those.  ``loss_and_grads_fn`` gives the
         sum over the stages itself, so pp is left out there."""
         if self.ranks.pp > 1 or self.ranks.tp > 1:
-            flat_g, loss = self._shard_grads(state, batch)
+            flat_g, loss = accum.accumulate(
+                lambda mb, into: self._shard_grads(state, mb, into), batch,
+                self.cfg.accum_steps, self._lead)
         else:
             flat_g, loss = super().grads(state, batch)
         if self.n_shards > 1:
@@ -428,7 +434,8 @@ class ShardedTrainer(DPTrainer):
         return fused_update.unflatten_tree(row, meta._replace(
             dtypes=(torch.float32,) * len(meta.dtypes)))
 
-    def _shard_grads(self, state: TrainState, batch
+    def _shard_grads(self, state: TrainState, batch,
+                     into: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """pp or tp > 1: each stage's (tp rank's) gradients into its rows
         (``(s n_ep + e) n_dp + d``) of a zeroed ``[k n_ep n_dp, L_pad]`` f32
@@ -441,14 +448,16 @@ class ShardedTrainer(DPTrainer):
         With both pp and tp the trees go as ``_stage_units`` gives them.
         A tree's leaf the loss leaves unused (a tp rank's copy of a
         replicated leaf) gets a zero gradient; the shard sums of ``grads``
-        complete it."""
+        complete it.  ``into``: rows of an earlier microbatch that this
+        one's gradients are added to in f32 (accumulation)."""
         meta, n = self._meta, self.n
         pp = self.ranks.pp * self.ranks.tp
         if meta is None:
             raise RuntimeError("call init_state first")
         N = self.ranks.ep * n
-        flat_g = torch.zeros((pp * N, meta.padded_len), dtype=torch.float32,
-                             device=state.replicas.device)
+        flat_g = into if into is not None else torch.zeros(
+            (pp * N, meta.padded_len), dtype=torch.float32,
+            device=state.replicas.device)
         fn = self.loss_and_grads_fn or self.loss_fn
         if getattr(fn, "joint_ranks", False):
             calls = [([list(range(s * N, (s + 1) * N)) for s in range(pp)],
@@ -479,7 +488,7 @@ class ShardedTrainer(DPTrainer):
                 del flat
                 for v, g in zip(fused_update.tree_leaves(outs), gs):
                     if g is not None:
-                        v.copy_(g)
+                        (v.add_ if into is not None else v.copy_)(g)
                 del gs
             del leaves, trees, outs
             losses.append(loss.detach().mean())

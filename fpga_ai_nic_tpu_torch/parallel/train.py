@@ -18,6 +18,12 @@ A codec that declares error feedback (top-k by default; any codec with
 rank's gradient locally (``fused_update.error_feedback_encode``), carrying
 what it dropped in ``TrainState.codec_state`` ([n, L_pad]).
 
+With ``accum_steps > 1`` the backward runs once a microbatch of every
+rank's local batch (``parallel.accum``), adding each microbatch's
+gradients in f32 into the same flat rows, which are then scaled by
+``1 / accum_steps``: the collective, the update and the error feedback
+still run once a step.
+
 The loss is the mean of the per-rank losses.  ``step`` = ``grads``, then
 ``error_feedback``, then ``apply_grads``; the parts are public so a caller
 can run the same compensated gradients through another collective
@@ -43,6 +49,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from . import accum
 from .mesh import VirtualRanks
 from .. import optim
 from ..compress import Codec
@@ -234,11 +241,8 @@ class DPTrainer:
                     "parallelism run on ShardedTrainer, as in the JAX "
                     "package")
         coll = cfg.collective
-        for name, unported in (
-                ("obs_metrics", cfg.obs_metrics),
-                ("accum_steps > 1", cfg.accum_steps != 1)):
-            if unported:
-                raise NotImplementedError(f"{name} is not ported")
+        if cfg.obs_metrics:
+            raise NotImplementedError("obs_metrics is not ported")
         if coll.fused_optimizer and cfg.optimizer.clip_norm is not None:
             raise ValueError(
                 "fused_optimizer cannot honor clip_norm: a global-norm clip "
@@ -247,6 +251,9 @@ class DPTrainer:
         self.ranks = ranks
         self.n = ranks.n
         self.cfg = cfg
+        # rank axes ahead of a rank's local batch in a sharded batch leaf
+        # ([n, (ep,) (sp,) B_local, ...]): where microbatches are cut
+        self._lead = 1 + (ranks.ep > 1) + (ranks.sp > 1)
         # codec="auto": codec, depth, bucket and topology resolve once at
         # the first _ensure_meta or init_state, where the payload is known
         self._tuned_plan = None
@@ -329,11 +336,21 @@ class DPTrainer:
     def grads(self, state: TrainState, batch
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The ranks' backward (``rank_grads``): ``(flat_g [n, L_pad],
-        mean loss)``."""
-        if self._meta is None:
+        mean loss)``, accumulated over ``cfg.accum_steps`` microbatches
+        (``accum.accumulate``: microbatch k of every rank at once)."""
+        meta = self._meta
+        if meta is None:
             raise RuntimeError("call init_state first")
-        return rank_grads(self.loss_fn, state.replicas, self._meta, batch,
-                          side=state.side)
+
+        def one(mb, into):
+            write = None if into is None else (
+                lambda i, gs: accum.add_leaves(gs, meta, into[i]))
+            flat_g, loss = rank_grads(self.loss_fn, state.replicas, meta,
+                                      mb, write, side=state.side)
+            return (into if flat_g is None else flat_g), loss
+
+        return accum.accumulate(one, batch, self.cfg.accum_steps,
+                                self._lead)
 
     def error_feedback(self, state: TrainState, flat_g: torch.Tensor
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

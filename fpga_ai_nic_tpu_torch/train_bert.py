@@ -5,6 +5,8 @@ package's ``examples/train_bert.py`` (BASELINE.json's "BERT-base DP
 Examples (on the card; ``--device=cpu`` runs the plain versions instead):
   python -m fpga_ai_nic_tpu_torch.train_bert --model=base --seq=512 \\
       --bfp=1 --mesh.dp=8
+  python -m fpga_ai_nic_tpu_torch.train_bert --model=base --seq=512 \\
+      --bfp=1 --mesh.dp=8 --queue=explicit
   python -m fpga_ai_nic_tpu_torch.train_bert --model=tiny --device=cpu \\
       --bfp=1 --mesh.dp=2 --iters=2
 
@@ -15,8 +17,10 @@ each sequence's valid length is drawn uniformly from [pad-min, seq] and
 the tail is ``pad_id``, so the mask rides the flash kernels' key-bias
 channel on the card; ``--trainer=ddp|dp`` (default ddp) picks the
 bucketed ``DDPTrainer`` or the ZeRO-1 ``DPTrainer``; ``--queue=fused``
-(the default; ``explicit``, the host issue/wait queue, is ROADMAP A.4 and
-raises); ``--bfp=1`` puts the BFP wire on the ring the way the port
+(the default) or ``explicit``: the ``DDPTrainer``'s buckets issued one
+collective a bucket through the host issue/wait queue
+(``parallel.queued.QueuedDDPTrainer``, JAX's flag), whose counters the
+JSON carries under ``collectives`` and ``max_outstanding``; ``--bfp=1`` puts the BFP wire on the ring the way the port
 carries it, ``impl="ring"`` with ``BFPConfig(codec="pallas")`` and
 ``fused_kernel=True`` (the fused ring kernels: one reduce-scatter and one
 all-gather launch a bucket), before the dotted flags, which may refine
@@ -54,7 +58,9 @@ from .models.bert import BertConfig
 from .ops import fused_update
 from .parallel.ddp import DDPTrainer
 from .parallel.mesh import make_ranks
+from .parallel.queued import QueuedDDPTrainer
 from .parallel.train import DPTrainer
+from .utils.observability import CollectiveStats
 from .utils.config import TrainConfig, _declared_type, coerce_value, from_flags
 
 MODELS = {"base": BertConfig.bert_base, "tiny": BertConfig.tiny}
@@ -75,11 +81,13 @@ class Run:
     pad_min: int
     trainer: str
     device: str
+    queue: str = "fused"
 
 
 def parse(argv: Sequence[str]) -> Tuple[BertConfig, TrainConfig, Run]:
     """``(BertConfig, TrainConfig, Run)`` from the flags."""
     model, seq, pad_min, trainer, device = "tiny", 64, None, "ddp", "cuda"
+    queue = "fused"
     bfp = False
     overlays: List[Tuple[str, str]] = []
     rest: List[str] = []
@@ -98,14 +106,10 @@ def parse(argv: Sequence[str]) -> Tuple[BertConfig, TrainConfig, Run]:
         elif key == "--bfp":
             bfp = coerce_value(bool, val)
         elif key == "--queue":
-            if val == "explicit":
-                raise NotImplementedError(
-                    "--queue=explicit (the host issue/wait queue, "
-                    "runtime/queue.py and parallel/queued.py) is not "
-                    "ported: ROADMAP A.4")
-            if val != "fused":
+            if val not in ("fused", "explicit"):
                 raise ValueError(f"--queue must be fused or explicit, got "
                                  f"{val!r}")
+            queue = val
         elif key == "--device":
             device = val
         else:
@@ -114,6 +118,9 @@ def parse(argv: Sequence[str]) -> Tuple[BertConfig, TrainConfig, Run]:
         raise ValueError(f"--model must be one of {sorted(MODELS)}")
     if trainer not in TRAINERS:
         raise ValueError(f"--trainer must be one of {sorted(TRAINERS)}")
+    if queue == "explicit" and trainer != "ddp":
+        raise ValueError("--queue=explicit issues the DDP trainer's buckets "
+                         "(--trainer=ddp)")
     mcfg = MODELS[model]()
     for name, val in overlays:
         if name not in {f.name for f in dataclasses.fields(mcfg)}:
@@ -127,7 +134,7 @@ def parse(argv: Sequence[str]) -> Tuple[BertConfig, TrainConfig, Run]:
     pad_min = seq // 2 if pad_min is None else pad_min
     if not 1 <= pad_min <= seq:
         raise ValueError(f"--pad-min must lie in [1, seq], got {pad_min}")
-    return mcfg, cfg, Run(seq, pad_min, trainer, device)
+    return mcfg, cfg, Run(seq, pad_min, trainer, device, queue)
 
 
 def make_batch(rng: np.random.Generator, mcfg: BertConfig, batch: int,
@@ -161,7 +168,7 @@ def batches(mcfg: BertConfig, cfg: TrainConfig, run: Run, count: int
                                          run.seq, run.pad_min)
         yield bert.with_global_count(
             (torch.from_numpy(toks), torch.from_numpy(labels)),
-            cfg.mesh.dp), valid
+            cfg.mesh.dp, cfg.accum_steps), valid
 
 
 def build(mcfg: BertConfig, cfg: TrainConfig, run: Run):
@@ -169,8 +176,9 @@ def build(mcfg: BertConfig, cfg: TrainConfig, run: Run):
     state, from weights drawn on the device with seed ``cfg.seed``."""
     ranks = make_ranks(cfg.mesh, run.device)
     n = cfg.mesh.dp
-    tr = TRAINERS[run.trainer](
-        lambda p, b: bert.loss_fn(p, b, mcfg, dp_size=n), ranks, cfg)
+    cls = (QueuedDDPTrainer if run.queue == "explicit"
+           else TRAINERS[run.trainer])
+    tr = cls(lambda p, b: bert.loss_fn(p, b, mcfg, dp_size=n), ranks, cfg)
     gen = torch.Generator(device=ranks.device).manual_seed(cfg.seed)
     return tr, tr.init_state(bert.init(gen, mcfg, ranks.device))
 
@@ -190,6 +198,8 @@ def main(argv: Sequence[str]) -> dict:
         losses.append(loss)
         if i == 0:                       # warm-up: kernel builds
             losses[0] = float(losses[0])
+            if run.queue == "explicit":  # count the timed steps alone
+                tr.profiler.collectives = CollectiveStats()
             t0 = time.perf_counter()
     losses = [float(v) for v in losses]  # waits for the device
     wall = time.perf_counter() - t0
@@ -207,6 +217,10 @@ def main(argv: Sequence[str]) -> dict:
                       if dev.type == "cuda" else "cpu")}
     if run.trainer == "ddp":
         out["n_buckets"] = len(tr.plan.buckets)
+    out["queue"] = run.queue
+    if run.queue == "explicit":
+        out["collectives"] = tr.profiler.collectives.as_dict()
+        out["max_outstanding"] = tr.queue.max_outstanding
     if dev.type == "cuda":
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out

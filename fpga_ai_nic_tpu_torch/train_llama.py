@@ -56,15 +56,28 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
   python -m fpga_ai_nic_tpu_torch.train_llama --model=tiny --device=cpu \\
       --model.attn_block=16 --seq=64 --global_batch=4 --mesh.dp=2 \\
       --mesh.tp=2 --iters=2
+  python -m fpga_ai_nic_tpu_torch.train_llama --model=llama3_8b \\
+      --model.n_layers=4 --model.attn_block=512 --seq=4096 \\
+      --global_batch=4 --mesh.dp=2 --accum_steps=2 --data=SURVEY.md \\
+      --iters=3 --collective.impl=ring \\
+      --collective.compression.codec=pallas --collective.fused_kernel=true
 
 Flags: ``--model=llama3_8b|tiny`` (default tiny) picks the base
 configuration and ``--model.<field>=`` overlays ``LlamaConfig`` fields;
 ``--seq=`` (default 64) is the sequence length; ``--device=`` (default
 cuda; it raises when CUDA is absent); ``--remat=`` (default false, JAX's
 flag) recomputes each decoder block in the backward; everything else
-goes to ``TrainConfig``.  Batches are seeded uniform tokens, one per step, as
-the JAX driver's ``make_batch`` draws them; the first step is a warm-up
-outside the timed window.  The ranks of ``--mesh.dp`` and ``--mesh.sp``
+goes to ``TrainConfig`` (``--accum_steps=`` among it: each dp rank's
+batch in that many microbatches, ``parallel.accum``).  Batches are seeded
+uniform tokens, one per step, as the JAX driver's ``make_batch`` draws
+them, or with ``--data=PATH`` (a text file, or a directory of ``*.txt``)
+``text.lm_batches`` over ``text.ByteTokenizer`` ids, seeded with
+``--seed`` and cycling the text (``epochs=None``), as JAX's driver reads
+it.  Those labels mask document starts with -100, so each batch carries
+the global valid count, one a microbatch
+(``models.bert.with_global_count``), and the loss takes ``dp_size=n``:
+JAX's ``dp_axis`` weighting (dense models without sp).  The first step is
+a warm-up outside the timed window.  The ranks of ``--mesh.dp`` and ``--mesh.sp``
 are virtual ranks on one card: with sp > 1 each dp rank's loss runs over
 its sp sequence shards (``llama.loss_fn(..., sp_axis="sp")``, ring
 attention across them; the labels are the globally shifted targets, so
@@ -102,16 +115,18 @@ one a dp rank): with dp, sp, ep and MoE layers, not with pp.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import sys
 import time
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import text
 from .device import resolve_device
-from .models import llama
+from .models import bert, llama
 from .models.llama import LlamaConfig
 from .parallel import pipeline
 from .parallel.mesh import make_ranks
@@ -168,7 +183,8 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
             seq = int(val)
         elif key == "--device":
             device = val
-        elif key != "--remat" and key not in PIPELINE_FLAGS:
+        elif key not in ("--remat", "--data") and \
+                key not in PIPELINE_FLAGS:
             rest.append(a)
     if model not in MODELS:
         raise ValueError(f"--model must be one of {sorted(MODELS)}")
@@ -200,6 +216,33 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
     return mcfg, cfg, seq, device
 
 
+def data_flag(argv: Sequence[str]) -> Optional[str]:
+    """JAX's ``--data=`` flag (the last one given; None without)."""
+    path = None
+    for a in argv:
+        key, _, val = a.partition("=")
+        if key == "--data":
+            path = val
+    return path
+
+
+def text_batches(path: str, mcfg: LlamaConfig, cfg: TrainConfig, seq: int,
+                 count: int) -> Iterator[Tuple[torch.Tensor, ...]]:
+    """``count`` batches of ``text.lm_batches`` over ``path`` (byte ids,
+    seeded with ``cfg.seed``, the text cycled), each with the global
+    valid count of every microbatch (``bert.with_global_count``)."""
+    tok = text.ByteTokenizer()
+    if mcfg.vocab < tok.vocab_size:
+        raise ValueError(f"--model.vocab={mcfg.vocab} < the tokenizer's "
+                         f"vocab {tok.vocab_size}")
+    stream = text.lm_batches(path, tok, batch_size=cfg.global_batch,
+                             seq_len=seq, seed=cfg.seed, epochs=None)
+    for toks, labels in itertools.islice(stream, count):
+        yield bert.with_global_count(
+            (torch.from_numpy(toks), torch.from_numpy(labels)),
+            cfg.mesh.dp, cfg.accum_steps)
+
+
 def remat_flag(argv: Sequence[str]) -> bool:
     """JAX's ``--remat=`` flag (the last one given; false without)."""
     remat = False
@@ -223,16 +266,25 @@ def batches(mcfg: LlamaConfig, cfg: TrainConfig, seq: int,
 
 
 def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str,
-          remat: bool = False, pipe: Pipeline = Pipeline()
+          remat: bool = False, pipe: Pipeline = Pipeline(),
+          dp_size: Optional[int] = None
           ) -> Tuple[ShardedTrainer, TrainState]:
     """The trainer over ``cfg.mesh.dp`` x ``cfg.mesh.tp`` x ``cfg.mesh.pp``
-    x ``cfg.mesh.ep`` x ``cfg.mesh.sp`` virtual ranks and its initial state, from weights drawn on the device with seed ``cfg.seed``;
+    x ``cfg.mesh.ep`` x ``cfg.mesh.sp`` virtual ranks and its initial
+    state, from weights drawn on the device with seed ``cfg.seed``;
     ``remat`` goes to the loss (with pp the losses always recompute);
-    ``pipe``: the pipeline flags."""
+    ``pipe``: the pipeline flags; ``dp_size``: the dense loss's global
+    count weighting (batches carrying the count)."""
     ranks = make_ranks(cfg.mesh, device)
+    if dp_size is not None and (mcfg.moe is not None or ranks.sp > 1):
+        raise NotImplementedError(
+            "the global-count batches (--data=) train dense models "
+            "without sp: the count leaf has no sequence axis to shard, "
+            "and a MoE model's ranks pool their statistics "
+            "(llama.dp_loss_fn)")
     gen = torch.Generator(device=ranks.device).manual_seed(cfg.seed)
     if ranks.pp > 1:
-        tr = _pp_trainer(mcfg, cfg, ranks, pipe)
+        tr = _pp_trainer(mcfg, cfg, ranks, pipe, dp_size)
         params = llama.stack_params(llama.init(gen, mcfg, ranks.device))
         if pipe.schedule == "1f1b-interleaved":
             params["layers"] = pipeline.interleave_layers(
@@ -249,13 +301,15 @@ def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str,
         sp_axis = "sp" if cfg.mesh.sp > 1 else None
         tr = ShardedTrainer(
             lambda p, b: llama.loss_fn(p, b, mcfg, tp_axis=tp_axis,
-                                       sp_axis=sp_axis, remat=remat), ranks,
+                                       sp_axis=sp_axis, remat=remat,
+                                       dp_size=dp_size), ranks,
             cfg, param_specs=specs if tp_axis else None)
     return tr, tr.init_state(llama.init(gen, mcfg, ranks.device))
 
 
 def _pp_trainer(mcfg: LlamaConfig, cfg: TrainConfig, ranks,
-                pipe: Pipeline) -> ShardedTrainer:
+                pipe: Pipeline, dp_size: Optional[int] = None
+                ) -> ShardedTrainer:
     """The pp trainer of JAX's driver (``examples/train_llama.py:96-131``):
     GPipe through ``loss_fn_pp``, the 1F1B schedules through
     ``loss_and_grads_pp_1f1b``, remat on; a MoE model through
@@ -283,14 +337,15 @@ def _pp_trainer(mcfg: LlamaConfig, cfg: TrainConfig, ranks,
     if pipe.schedule == "gpipe":
         return ShardedTrainer(
             lambda p, b: llama.loss_fn_pp(p, b, mcfg, num_microbatches=M,
-                                          tp_axis=tp_axis, sp_axis=sp_axis,
-                                          remat=True),
+                                          dp_size=dp_size, tp_axis=tp_axis,
+                                          sp_axis=sp_axis, remat=True),
             ranks, cfg, param_specs=specs)
     return ShardedTrainer(
         None, ranks, cfg, param_specs=specs,
         loss_and_grads_fn=lambda p, b, out=None: llama.loss_and_grads_pp_1f1b(
-            p, b, mcfg, num_microbatches=M, virtual_stages=v,
-            tp_axis=tp_axis, sp_axis=sp_axis, remat=True, out=out))
+            p, b, mcfg, num_microbatches=M, dp_size=dp_size,
+            virtual_stages=v, tp_axis=tp_axis, sp_axis=sp_axis, remat=True,
+            out=out))
 
 
 def main(argv: Sequence[str]) -> dict:
@@ -298,10 +353,21 @@ def main(argv: Sequence[str]) -> dict:
     dev = resolve_device(device)
     remat = remat_flag(argv)
     pipe = pipeline_flags(argv)
-    tr, state = build(mcfg, cfg, device, remat, pipe)
+    path = data_flag(argv)
+    tr, state = build(mcfg, cfg, device, remat, pipe,
+                      None if path is None else cfg.mesh.dp)
+    t_data = time.perf_counter()
+    stream = (batches(mcfg, cfg, seq, cfg.iters + 1) if path is None
+              else text_batches(path, mcfg, cfg, seq, cfg.iters + 1))
     losses = []
+    masked, labels_seen = 0, 0
     t0 = 0.0
-    for i, batch in enumerate(batches(mcfg, cfg, seq, cfg.iters + 1)):
+    first_batch_s = None
+    for i, batch in enumerate(stream):
+        if first_batch_s is None:
+            first_batch_s = time.perf_counter() - t_data
+        masked += int((batch[1] < 0).sum())
+        labels_seen += batch[1].numel()
         state, loss = tr.step(state, tr.shard_batch(batch))
         losses.append(loss)
         if i == 0:                       # warm-up: kernel builds
@@ -314,10 +380,14 @@ def main(argv: Sequence[str]) -> dict:
            "tokens_per_sec": cfg.iters * cfg.global_batch * seq / wall,
            "wall_s": wall, "params": llama.num_params(mcfg),
            "active_params": llama.active_params(mcfg),
+           "losses": losses, "accum_steps": cfg.accum_steps,
            "mesh": {"dp": m.dp, "tp": m.tp, "sp": m.sp, "pp": m.pp,
                     "ep": m.ep}, "remat": remat or m.pp > 1,
            "device": (torch.cuda.get_device_name(dev)
                       if dev.type == "cuda" else "cpu")}
+    if path is not None:
+        out["data"] = {"path": path, "masked_share": masked / labels_seen,
+                       "first_batch_s": first_batch_s}
     if m.pp > 1:
         out["pipeline_cost"] = pipeline.cost_model(
             pipe.microbatches, m.pp, schedule=pipe.schedule,

@@ -18,11 +18,19 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
       --collective.integrity_check=true
   python -m fpga_ai_nic_tpu_torch.train_mlp --mesh.dp=8 \\
       --collective.impl=ring --collective.codec=auto
+  python -m fpga_ai_nic_tpu_torch.train_mlp --bfp=1 --mesh.dp=8 \\
+      --collective.compression.codec=pallas \\
+      --collective.fused_kernel=true --queue=explicit
 
 Flags split by prefix: ``--model.*`` -> MLPConfig, ``--device=`` picks the
 device (default cuda; it raises when CUDA is absent), everything else ->
 TrainConfig.  ``--bfp=1`` turns on the BFP wire codec and the explicit
 ring; it applies before the dotted flags, so they can refine it.
+``--queue=fused`` (the default) trains on ``DPTrainer``; ``--queue=explicit``
+on ``parallel.queued.QueuedDDPTrainer``, the bucketed all-reduce issued
+one collective a bucket through the host issue/wait queue (JAX's
+flag), and the JSON carries its counters (``profile``:
+``collectives``, the timed steps alone, and ``max_outstanding``).
 ``--collective.codec=`` names a registered codec (bfp, int8, topk) and
 ``--collective.codec_opts=key=value,...`` its options (``auto``: the tuner
 picks codec, bucket and topology, and the JSON carries its plan under
@@ -48,15 +56,31 @@ import torch
 from .models import mlp
 from .ops import fused_update
 from .parallel.mesh import make_ranks
+from .parallel.queued import QueuedDDPTrainer
 from .parallel.train import DPTrainer
 from .runtime import chaos
 from .utils.config import MLPConfig, TrainConfig, from_flags
+from .utils.observability import CollectiveStats
 
 _TRUE, _FALSE = ("1", "true", "yes", "on"), ("0", "false", "no", "off")
 
 
+def queue_flag(argv: Sequence[str]) -> str:
+    """JAX's ``--queue=fused|explicit`` (the last one given)."""
+    mode = "fused"
+    for a in argv:
+        key, _, val = a.partition("=")
+        if key == "--queue":
+            if val not in ("fused", "explicit"):
+                raise ValueError(f"--queue must be fused|explicit, got "
+                                 f"{val!r}")
+            mode = val
+    return mode
+
+
 def parse(argv: Sequence[str]):
-    """``(MLPConfig, TrainConfig, device)`` from the driver's flags."""
+    """``(MLPConfig, TrainConfig, device)`` from the driver's flags
+    (``--queue`` is read by ``queue_flag``)."""
     model_flags: List[str] = []
     rest: List[str] = []
     bfp = False
@@ -71,7 +95,7 @@ def parse(argv: Sequence[str]):
             bfp = val.lower() in _TRUE
         elif key == "--device":
             device = val
-        else:
+        elif key != "--queue":
             rest.append(a)
     if bfp:
         rest = ["--collective.impl=ring",
@@ -82,8 +106,10 @@ def parse(argv: Sequence[str]):
 
 def main(argv: Sequence[str]) -> dict:
     mcfg, cfg, device = parse(argv)
+    queue = queue_flag(argv)
     ranks = make_ranks(cfg.mesh, device)
-    tr = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg), ranks, cfg)
+    cls = QueuedDDPTrainer if queue == "explicit" else DPTrainer
+    tr = cls(lambda p, b: mlp.loss_fn(p, b, mcfg), ranks, cfg)
     state = tr.init_state(mlp.init(torch.Generator().manual_seed(cfg.seed),
                                    mcfg, ranks.device))
     rng = np.random.default_rng(cfg.seed)
@@ -105,6 +131,8 @@ def main(argv: Sequence[str]) -> dict:
 
     state, loss = step(state)                    # warm-up: kernel builds
     float(loss)
+    if queue == "explicit":                      # count the timed steps
+        tr.profiler.collectives = CollectiveStats()
     t0 = time.perf_counter()
     for _ in range(cfg.iters):
         state, loss = step(state)
@@ -123,6 +151,10 @@ def main(argv: Sequence[str]) -> dict:
             "gflops": fl / wall / 1e9, "wall_s": wall,
             "codec": codec.describe() if codec is not None else None,
             **({"tune": tuned} if tuned is not None else {}),
+            "queue": queue,
+            **({"profile": tr.profiler.report(),
+                "max_outstanding": tr.queue.max_outstanding}
+               if queue == "explicit" else {}),
             "device": (torch.cuda.get_device_name(ranks.device)
                        if ranks.device.type == "cuda" else "cpu")}
 

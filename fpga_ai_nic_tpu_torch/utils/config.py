@@ -7,11 +7,12 @@ Pallas or the TPU describe the reference package; in this port
 ``BFPConfig.codec="pallas"`` selects the "sublane" block layout, which the
 CUDA kernels of ``ops.bfp_cuda`` / ``ops.ring_cuda`` implement.
 
-Values this port does not implement yet raise ``NotImplementedError`` at
-construction (``BFPConfig(codec="auto")`` and int8's ``backend="auto"``,
-codec backends: ROADMAP A.2) or at trainer construction
-(``parallel.train.DPTrainer``: in-graph metrics, accumulation, mesh axes
-other than dp), never silently.  ``CollectiveConfig(codec="auto")`` is the
+``BFPConfig(codec="auto")`` (and int8's ``backend="auto"``) picks the
+sublane CUDA kernels for a CUDA payload of whole (block, 128)-lane tiles
+and the flat16 ops otherwise (``compress.bfp.use_pallas``).  Values this
+port does not implement yet raise ``NotImplementedError`` at trainer
+construction (in-graph metrics; mesh axes a trainer does not take),
+never silently.  ``CollectiveConfig(codec="auto")`` is the
 autotuner (``tune``), resolved by the trainers.
 ``collective.integrity_check`` is ported on ``DPTrainer``;
 ``ShardedTrainer`` refuses it with ``ValueError``, as the JAX package's
@@ -66,10 +67,6 @@ class BFPConfig:
         assert 2 <= self.mantissa_bits <= 8
         assert self.rounding in ("nearest", "rtz")
         assert self.codec in ("auto", "xla", "pallas")
-        if self.codec == "auto":
-            raise NotImplementedError(
-                "BFPConfig.codec='auto' is not ported: pick 'xla' (flat16 "
-                "blocks) or 'pallas' (sublane blocks, the CUDA kernels)")
 
     @property
     def compression_ratio_vs_f32(self) -> float:

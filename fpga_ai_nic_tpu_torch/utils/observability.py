@@ -1,10 +1,9 @@
-"""Profiler facade: named wall-clock buckets, recovery accounting and the
-structured event stream underneath — the port's own copy of
-``RecoveryStats`` and ``Profiler`` from the JAX package's
-``utils/observability.py`` (those need no JAX).  The collective counters
-of that module belong to the trainers' queued path and are not ported
-yet, so ``Profiler`` here has no ``collectives``.  Counters change only
-inside locked ``record_*`` methods.
+"""Profiler facade: named wall-clock buckets, collective and recovery
+accounting and the structured event stream underneath — the port's own
+copy of ``CollectiveStats``, ``RecoveryStats`` and ``Profiler`` from the
+JAX package's ``utils/observability.py`` (those need no JAX).  The
+explicit queue (``runtime.queue``) records into ``Profiler.collectives``.
+Counters change only inside locked ``record_*`` methods.
 """
 
 from __future__ import annotations
@@ -23,6 +22,63 @@ from ..obs.events import EventStream
 def _lock_field():
     # per-instance lock as a non-compared dataclass field
     return field(default_factory=threading.Lock, repr=False, compare=False)
+
+
+@dataclass
+class CollectiveStats:
+    """Issue/completion accounting of the queued collectives: counts, wire
+    and raw bytes, latency (issue to ready), stall (blocked in ``wait``)
+    and overlap (issue to the start of ``wait``), and tickets abandoned
+    by recovery."""
+
+    issued: int = 0
+    completed: int = 0
+    abandoned: int = 0        # inflight tickets dropped by recovery
+    wire_bytes: int = 0
+    raw_bytes: int = 0
+    # running latency aggregates (O(1) memory)
+    latency_sum_s: float = 0.0
+    latency_max_s: float = 0.0
+    stall_s: float = 0.0      # blocked inside wait()
+    overlap_s: float = 0.0    # issue -> wait gap
+    _lock: threading.Lock = _lock_field()
+
+    def record_issue(self, raw_bytes: int = 0, wire_bytes: int = 0) -> None:
+        with self._lock:
+            self.issued += 1
+            self.raw_bytes += raw_bytes
+            self.wire_bytes += wire_bytes or raw_bytes
+
+    def record_completion(self, latency_s: float, stall_s: float,
+                          overlap_s: float) -> None:
+        with self._lock:
+            self.completed += 1
+            self.latency_sum_s += latency_s
+            self.latency_max_s = max(self.latency_max_s, latency_s)
+            self.stall_s += stall_s
+            self.overlap_s += overlap_s
+
+    def record_abandoned(self, n: int = 1) -> None:
+        with self._lock:
+            self.abandoned += n
+
+    def as_dict(self) -> Dict:
+        with self._lock:
+            n = self.completed
+            return {
+                "issued": self.issued,
+                "completed": self.completed,
+                "abandoned": self.abandoned,
+                "wire_bytes": self.wire_bytes,
+                "raw_bytes": self.raw_bytes,
+                "compression_ratio": (self.raw_bytes / self.wire_bytes
+                                      if self.wire_bytes else 1.0),
+                "mean_latency_ms": (self.latency_sum_s / n * 1e3) if n
+                                   else 0.0,
+                "max_latency_ms": self.latency_max_s * 1e3,
+                "stall_s": self.stall_s,
+                "overlap_s": self.overlap_s,
+            }
 
 
 @dataclass
@@ -166,14 +222,16 @@ class RecoveryStats:
 
 
 class Profiler:
-    """Named wall-clock buckets + recovery stats + the structured event
-    stream underneath.  One instance per engine; cheap enough to leave
-    on.  Each ``bucket()`` also lands a span in ``self.events``."""
+    """Named wall-clock buckets + collective and recovery stats + the
+    structured event stream underneath.  One instance per engine; cheap
+    enough to leave on.  Each ``bucket()`` also lands a span in
+    ``self.events``."""
 
     def __init__(self, events: Optional[EventStream] = None,
                  capacity: int = 1 << 16):
         self.buckets: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self.collectives = CollectiveStats()
         self.recovery = RecoveryStats()
         self.events = events if events is not None else EventStream(capacity)
         self._lock = threading.Lock()
@@ -199,6 +257,7 @@ class Profiler:
         return {
             "buckets_s": buckets,
             "counts": counts,
+            "collectives": self.collectives.as_dict(),
             "recovery": self.recovery.as_dict(),
             "events": self.events.summary(),
         }

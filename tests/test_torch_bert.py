@@ -235,8 +235,13 @@ def test_driver_batches_pad_and_mask():
 
 
 def test_driver_raises_on_explicit_queue_and_without_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A.4"):
-        train_bert.parse(["--queue=explicit"])
+    # the explicit queue is ported (tests/test_torch_queue.py); a bad mode
+    # and the ZeRO-1 trainer with it raise
+    assert train_bert.parse(["--queue=explicit"])[2].queue == "explicit"
+    with pytest.raises(ValueError, match="fused or explicit"):
+        train_bert.parse(["--queue=async"])
+    with pytest.raises(ValueError, match="trainer=ddp"):
+        train_bert.parse(["--queue=explicit", "--trainer=dp"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         train_bert.main(["--model=tiny", "--iters=1"])

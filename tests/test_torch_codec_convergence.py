@@ -110,3 +110,44 @@ def test_bert_curve_matches_jax(trainer):
                            jax.tree_util.tree_map(np.asarray, params),
                            "cpu"), device="cpu")
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
+
+
+def _jax_mlp_params(seed):
+    params, _, _ = jax_cc._make_batches("mlp", 1, 32, seed)
+    return mlp.from_jax_params(jax.tree_util.tree_map(np.asarray, params),
+                               "cpu")
+
+
+def test_bfp_comparison_matches_jax():
+    """``run_comparison`` (the BFP mantissa sweep on DDPTrainer, JAX's
+    ``run_curve`` default) against JAX's at a tiny size, through the
+    ``evals.bfp_convergence`` shim as JAX's callers reach it."""
+    from fpga_ai_nic_tpu.evals import bfp_convergence as jax_bc
+    from fpga_ai_nic_tpu_torch.evals import bfp_convergence as bc
+    assert bc.run_comparison is cc.run_comparison
+    assert set(bc.__all__) == set(jax_bc.__all__)
+    want = jax_bc.run_comparison("mlp", 6, mantissa_sweep=(8, 4))
+    got = bc.run_comparison("mlp", 6, mantissa_sweep=(8, 4),
+                            params=_jax_mlp_params(0), device="cpu")
+    for arm in ("baseline", "bfp_m8", "bfp_m4"):
+        assert got[arm]["steps"] == want[arm]["steps"]
+        np.testing.assert_allclose(got[arm]["losses"], want[arm]["losses"],
+                                   rtol=RTOL)
+    for arm in ("bfp_m8", "bfp_m4"):
+        np.testing.assert_allclose(got[arm]["final_loss_ratio"],
+                                   want[arm]["final_loss_ratio"], rtol=RTOL)
+
+
+def test_bfp_comparison_multiseed_matches_jax():
+    want = jax_cc.run_comparison_multiseed("mlp", 5, seeds=(0, 1),
+                                           mantissa_sweep=(6,), tail_k=1)
+    got = cc.run_comparison_multiseed("mlp", 5, seeds=(0, 1),
+                                      mantissa_sweep=(6,), tail_k=1,
+                                      params_of=_jax_mlp_params,
+                                      device="cpu")
+    assert got["seeds"] == [0, 1] and len(got["per_seed"]) == 2
+    np.testing.assert_allclose(got["bfp_m6"]["paired_ratios"],
+                               want["bfp_m6"]["paired_ratios"], rtol=RTOL)
+    for k in ("ratio_mean", "ratio_min", "ratio_max"):
+        np.testing.assert_allclose(got["bfp_m6"][k], want["bfp_m6"][k],
+                                   rtol=RTOL)

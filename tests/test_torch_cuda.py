@@ -1575,3 +1575,66 @@ def test_tp_forward_paged_on_card(cuda_device, tp):
     print(f"tp={tp} paged decode: max |tp - tp1| {err}, max |kernel - "
           f"plain| {float((got - plain).abs().max())}")
     assert err <= 1e-3 and float((got - plain).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_auto_codecs_dispatch_on_card_tensors(cuda_device):
+    """BFPConfig(codec="auto") and Int8Codec(backend="auto") on card
+    tensors: pinned on a payload of whole tiles it launches the sublane
+    kernels and equals "pallas" bit for bit; pinned on one that does not
+    it launches none and equals "xla"; unpinned it raises."""
+    from fpga_ai_nic_tpu_torch import compress
+    from fpga_ai_nic_tpu_torch.compress.bfp import BFPCodec
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for n, tiles in ((2048 * 6, True), (2048 * 6 + 16, False)):
+        x = torch.randn(n, generator=g, device=cuda_device)
+        for auto, pallas, xla, enc in (
+                (BFPCodec(BFPConfig(codec="auto")),
+                 BFPCodec(BFPConfig(codec="pallas")),
+                 BFPCodec(BFPConfig(codec="xla")), bfp_cuda.ENCODE),
+                (compress.Int8Codec(backend="auto"),
+                 compress.Int8Codec(backend="pallas"),
+                 compress.Int8Codec(backend="xla"), int8_cuda.ENCODE)):
+            with pytest.raises(ValueError, match="pin it"):
+                auto.roundtrip(x)
+            before = enc.launches
+            got = auto.for_payload(n, x.device).roundtrip(x)
+            torch.cuda.synchronize()
+            assert (enc.launches - before == 1) == tiles
+            want = (pallas if tiles else xla).roundtrip(x)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_queue_side_stream_orders_and_keeps_buffers(cuda_device):
+    """An issue runs on the queue's side stream after the work queued
+    before it; the wait orders the current stream after it; the inputs
+    freed while the side stream still reads them are not reused early
+    (record_stream): the result equals the synchronous collective."""
+    from fpga_ai_nic_tpu_torch.runtime.queue import CollectiveQueue
+    from fpga_ai_nic_tpu_torch.utils.config import CollectiveConfig
+    streams = []
+
+    def fn(x):
+        streams.append(torch.cuda.current_stream(cuda_device))
+        y = x
+        for _ in range(20):              # long enough to overlap
+            y = y * 1.0001 + 1.0
+        return y
+
+    q = CollectiveQueue(fn, CollectiveConfig(max_inflight=2))
+    base = torch.randn(1 << 22, device=cuda_device)
+    want = fn(base.clone())
+    tickets = []
+    for _ in range(4):
+        x = base.clone() * 2 - base       # made on the current stream
+        tickets.append(q.issue(x))
+        del x                             # freed while the side reads it
+        torch.empty(1 << 22, device=cuda_device).fill_(7.0)
+    assert q.max_outstanding == 2
+    outs = [q.wait(t) for t in tickets]
+    assert all(s != torch.cuda.current_stream(cuda_device)
+               for s in streams[1:])
+    for o in outs:
+        torch.testing.assert_close(o, want, rtol=0, atol=0)
+    assert q.profiler.collectives.completed == 4

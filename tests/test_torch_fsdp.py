@@ -315,21 +315,34 @@ def test_fsdp_error_feedback_bitequal_to_jax(fused):
 
 
 def test_gather_backward_is_the_reduce_scatter():
-    """``all_gather_flat_vjp``'s backward on a cotangent equals
-    ``reduce_scatter`` of it, on the flat ring and the hier ring."""
+    """The step's gradient on the owned shards is ``reduce_scatter`` of
+    the cotangent at the gathered rows (the gather's transpose), on the
+    flat ring and the hier ring: a linear loss whose cotangent is its
+    coefficients gives the masters of the update from that reduce-scatter,
+    bit for bit."""
     rng = np.random.default_rng(3)
-    for coll in (config.CollectiveConfig(impl="ring", codec="bfp"),
-                 config.CollectiveConfig(impl="ring", topology="hier",
-                                         intra_size=2, codec="int8")):
-        w = torch.from_numpy(rng.standard_normal((N, 512)).astype(
-            np.float32)).requires_grad_()
-        ct = torch.from_numpy(rng.standard_normal((N, N * 512)).astype(
-            np.float32))
-        out = fused_update.all_gather_flat_vjp(w, coll)
-        assert torch.equal(out.detach(),
-                           fused_update.all_gather_flat(w.detach(), coll))
-        (g,) = torch.autograd.grad(out, [w], ct)
-        assert torch.equal(g, fused_update.reduce_scatter(ct, coll))
+    shapes = [s for k in sorted(LIN_SHAPES) for s in LIN_SHAPES[k]]
+    params = {k: [torch.from_numpy(
+        (rng.standard_normal(s) * 0.1).astype(np.float32)) for s in v]
+        for k, v in LIN_SHAPES.items()}
+    sgd = config.OptimizerConfig(kind="sgd", learning_rate=0.1)
+    for coll in (dict(impl="ring", codec="bfp"),
+                 dict(impl="ring", topology="hier", intra_size=2,
+                      codec="int8")):
+        tr = FSDPTrainer(_linear_loss_port, VirtualRanks(N, CPU),
+                         _cfg(config, coll, opt=sgd))
+        st0 = tr.init_state(params)
+        meta = tr._meta
+        coef = [(rng.standard_normal((N,) + s) * 2).astype(np.float32)
+                for s in shapes]
+        st, _ = tr.step(st0, tr.shard_batch(tuple(torch.from_numpy(c)
+                                                  for c in coef)))
+        ct = torch.zeros((N, meta.padded_len))
+        ct[:, :sum(meta.sizes)] = torch.from_numpy(np.concatenate(
+            [c.reshape(N, -1) for c in coef], axis=1))
+        w_want, _ = tr._update(st0, fused_update.reduce_scatter(
+            ct, tr.cfg.collective))
+        assert torch.equal(st.w_own, w_want)
 
 
 def test_unported_and_invalid_configurations_raise():
@@ -342,10 +355,10 @@ def test_unported_and_invalid_configurations_raise():
                      (tr.state_from_reshard, ({}, 0, None))):
         with pytest.raises(NotImplementedError, match="A.8"):
             fn(*args)
-    for kw, item in ((dict(accum_steps=2), "A.1"),
-                     (dict(obs_metrics=True), "A.9")):
-        with pytest.raises(NotImplementedError, match=item):
-            _port_fsdp(dict(impl="ring"), **kw)
+    with pytest.raises(NotImplementedError, match="A.9"):
+        _port_fsdp(dict(impl="ring"), obs_metrics=True)
+    # accumulation is ported (tests/test_torch_accum.py)
+    assert _port_fsdp(dict(impl="ring"), accum_steps=2).cfg.accum_steps == 2
     # codec="auto" resolves on FSDPTrainer (tests/test_torch_tune.py)
     auto = _port_fsdp(dict(impl="ring", codec="auto"))
     auto.init_state(mlp.from_jax_params(_jax_params(), CPU))

@@ -204,7 +204,8 @@ def test_codec_facts_equal_jax():
 
 def test_registry_and_config():
     """get_codec("int8") works; fused_kernel with int8 raises the
-    reference's ValueError; backend="auto" raises naming ROADMAP A.2."""
+    reference's ValueError; backend="auto" resolves per payload
+    (tests/test_torch_codec_auto.py)."""
     assert compress.available_codecs() == ("bfp", "int8", "topk")
     assert isinstance(compress.get_codec("int8"), compress.Int8Codec)
     cfg = CollectiveConfig(impl="ring", codec="int8",
@@ -212,8 +213,9 @@ def test_registry_and_config():
     assert compress.resolve(cfg).backend == "pallas"
     with pytest.raises(ValueError, match="cannot ride the fused"):
         CollectiveConfig(impl="ring", codec="int8", fused_kernel=True)
-    with pytest.raises(NotImplementedError, match="A.2"):
-        compress.Int8Codec(backend="auto")
+    auto = compress.Int8Codec(backend="auto")
+    assert auto.backend == "auto"
+    assert auto.for_payload(2048, torch.device("cpu")).backend == "xla"
 
 
 def test_kernel_wrappers_refuse_bad_shapes():

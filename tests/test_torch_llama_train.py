@@ -261,9 +261,9 @@ def test_unported_options_raise():
         2, torch.device("cpu"), pp=2, tp=2), TrainConfig(mesh=pptp),
         param_specs=llama.stacked_param_specs(CFG, tp_axis="tp", tp_size=2))
     assert tr.n_shards == 4
-    with pytest.raises(NotImplementedError):
-        ShardedTrainer(lambda p, b: None, ranks, TrainConfig(
-            mesh=MeshConfig(dp=2), accum_steps=2))
+    # accumulation is ported (tests/test_torch_accum.py)
+    assert ShardedTrainer(lambda p, b: None, ranks, TrainConfig(
+        mesh=MeshConfig(dp=2), accum_steps=2)).cfg.accum_steps == 2
     # as the JAX package's: integrity checks are DPTrainer's
     with pytest.raises(ValueError, match="DPTrainer only"):
         ShardedTrainer(lambda p, b: None, ranks, TrainConfig(
