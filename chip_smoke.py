@@ -355,6 +355,24 @@ Phases, each printing JSON lines:
  40. ``staging_check`` (right after the build): the port's
      ``csrc/staging.cpp`` built with g++ and one native epoch equal to
      the numpy path;
+ 41. the serving fleet (after 8, on its random weights and serving
+     config: Llama-3-8B, 32 layers, replicas as slots on the card sharing
+     the weights, a pool each; seeded tick-domain traffic, 12 requests,
+     prompts of 128-1024 tokens, 16-32 new): ``fleet_path`` (1 prefill +
+     2 decode replicas: every stream equal to the single engine's, one
+     handoff a request, no replay, each role only its step, paged_attend
+     and row_checksums launches against the steps; one 64-page handoff
+     bit for bit, bystanders and source unchanged, timed beside its
+     bound; the walls of fleet, single engine, fleet, single engine in
+     that order), ``fleet_kill`` (a decode replica preempted at tick 11: its
+     live requests migrate, streams byte-identical to ``fleet_path``'s,
+     no replay, MTTR), ``fleet_handoff_integrity`` (a ``wirebit`` on the
+     first handoff's wire: the landed-page check trips, one retry, no
+     replay, streams unchanged), ``fleet_autoscale`` (the herd on a
+     1 + 1 fleet with 4 slots a replica and one spare slot: the
+     autoscaler scales out, no token lost, every stream not replayed
+     equal to the single engine's; its decisions and SLO snapshot);
+     then ``generate_llama``'s default run;
  34. the ``kernels`` line (the offset instantiations' rows among them,
      the ablated ring_rs instantiations' rows from ``ring_cost_stages``,
      their launches from ``llama_sp_train_path``; the MoE paths'
@@ -362,7 +380,8 @@ Phases, each printing JSON lines:
      ``pp_*`` keys, the pipeline with sp and ep's as ``pp_sp_*`` and
      ``moe_pp_*``, the tp paths' as ``tp_*`` and ``moe_tp_*``, the pp x tp
      path's as ``pp_tp_*``, the new phases' launches as ``accum_*``,
-     ``data_path_*``, ``codec_auto_*`` and ``queued_*``), then the
+     ``data_path_*``, ``codec_auto_*`` and ``queued_*``, the fleet's as
+     ``fleet_*``), then the
      last line ``{"ok": true, "device":
      {...}}``.
 
@@ -2581,6 +2600,394 @@ def serving_parity(dev, cfg, scfg, run, label="") -> None:
                          "generate_margin": float(top2[0] - top2[1])})
     emit(phase=label + "serving_vs_generate", streams=len(run["reqs"]),
          token_equal=equal, first_divergences=diverged)
+
+
+# -- the serving fleet: Llama-3-8B replicas as slots on the card ---------------
+
+FLEET_SEED = 17
+FLEET_REQUESTS = 12
+FLEET_LENGTHS = dict(prompt_lo=PROMPT_MIN, prompt_hi=PROMPT_MAX,
+                     output_lo=16, output_hi=32)
+# the traffic's schedule is in fleet ticks, the same on any machine: at
+# tick 11 the loaded-most decode replica holds three live requests
+FLEET_KILL_TICK = 11
+FLEET_HANDOFF_PAGES = 64       # a 1024-token prompt's pages: the timed move
+
+
+def _fleet_traffic(kind):
+    from fpga_ai_nic_tpu_torch.serve import traffic
+    if kind == "steady":
+        cfg = traffic.steady_config(FLEET_REQUESTS, FLEET_SEED,
+                                    base_interval_ticks=1.0, **FLEET_LENGTHS)
+    else:
+        cfg = traffic.thundering_herd_config(FLEET_REQUESTS, FLEET_SEED,
+                                             **FLEET_LENGTHS)
+    return traffic.generate(cfg)
+
+
+def _fleet_run(dev, params, cfg, scfg, wl, kernels, *, fcfg=None, slots=3,
+               plan=None, autoscale=False) -> dict:
+    """A ``ServeFleet`` (``devices`` the card ``slots`` times) driven over
+    ``wl`` by ``serve_fleet.drive``, the autoscaler closing the loop where
+    asked; the launch counts are zeroed just before the drive and read just
+    after.  Checks what every fleet run must give: every request its
+    ``max_new`` tokens, paged_attend launched once a layer a step, no
+    engine recovery and no guard trip."""
+    import torch
+    from fpga_ai_nic_tpu_torch import serve_fleet
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    from fpga_ai_nic_tpu_torch.serve import Autoscaler, FleetConfig, ServeFleet
+    fleet = ServeFleet(params, cfg, scfg, fcfg or FleetConfig(1, 2),
+                       chaos=plan, devices=[dev] * slots)
+    scaler = (Autoscaler(fleet, fleet.slo, events=fleet.profiler.events)
+              if autoscale else None)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.values():
+        k.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    with chaos.activate(plan):
+        reqs = serve_fleet.drive(fleet, wl, cfg.vocab, autoscaler=scaler)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    s = fleet.summary()
+    calls = sum(r["prefill_calls"] + r["decode_calls"]
+                for r in s["replicas"])
+    if s["completed"] != len(wl) or any(
+            len(r.generated) != r.max_new
+            or not all(0 <= t < cfg.vocab for t in r.generated)
+            for r in reqs):
+        raise AssertionError("fleet: not every request got its tokens")
+    if launches["paged_attend"] != cfg.n_layers * calls:
+        raise AssertionError(
+            f"fleet: paged_attend launched {launches['paged_attend']} times, "
+            f"expected {cfg.n_layers} x {calls} steps")
+    if any(k for name, k in launches.items()
+           if name not in ("paged_attend", "row_checksums")):
+        raise AssertionError(f"fleet launched other kernels {launches}")
+    faults = {k: s[k] for k in ("serve_recoveries", "page_trips",
+                                "logit_trips")}
+    if any(faults.values()):
+        raise AssertionError(f"fleet: recoveries or guard trips {faults}")
+    return {"fleet": fleet, "reqs": reqs, "summary": s, "wall": wall,
+            "launches": launches, "calls": calls, "scaler": scaler,
+            "streams": [list(r.generated) for r in reqs],
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def _fleet_numbers(r) -> dict:
+    s = r["summary"]
+    w = s["slo"]["windows"]
+    return dict(
+        ticks=s["ticks"], wall_s=r["wall"],
+        output_tok_s=s["tokens_out"] / r["wall"],
+        ttft_ticks={q: w["ttft"][q] for q in ("p50", "p99")},
+        tpot_ticks={q: w["tpot"][q] for q in ("p50", "p99")},
+        queue_wait_p95_ticks=w["queue_wait"]["p95"],
+        ttft_p95_s=s["requests"]["ttft_p95_s"],
+        tpot_p95_s=s["requests"]["tpot_p95_s"],
+        handoffs=s["handoffs"], handoff_wire_bytes=s["handoff_wire_bytes"],
+        handoff_host_bytes=s["handoff_host_bytes"],
+        handoff_integrity_trips=s["handoff_integrity_trips"],
+        fleet_replays=s["fleet_replays"], kills=s["kills"],
+        grows=s["grows"], evictions=s["evictions"],
+        mttr_mean_s=s["recovery"]["mttr_mean_s"],
+        replicas=[{k: x[k] for k in ("replica", "role", "alive",
+                                     "prefill_calls", "decode_calls")}
+                  for x in s["replicas"]],
+        launches=r["launches"], peak_mem_gb=r["peak_mem_gb"])
+
+
+def handoff_check(dev, cfg, scfg, fleet) -> dict:
+    """One ``FLEET_HANDOFF_PAGES``-page move between two replicas' pools
+    after the run (their pages hold the run's KV): the moved pages bit for
+    bit, the destination's other pages and the whole source unchanged (by
+    page checksums); then the move timed by CUDA events, with and without
+    the landed-page check, beside its bound (each moved byte read once and
+    written once)."""
+    import torch
+    from fpga_ai_nic_tpu_torch.ops import integrity
+    from fpga_ai_nic_tpu_torch.serve import handoff
+    src = fleet.replicas[0].engine.pool
+    dst = fleet.replicas[1].engine.pool
+    n = FLEET_HANDOFF_PAGES
+    src_pages = list(range(1, n + 1))
+    dst_pages = list(range(scfg.n_pages - 1, scfg.n_pages - 1 - n, -1))
+    plan = handoff.plan_for(cfg, scfg, n)
+    src_chk = integrity.page_checksums(src)
+    dst_chk = integrity.page_checksums(dst)
+    handoff.apply_handoff(plan, src, dst, src_pages, dst_pages)
+    sync(dev)
+    si = torch.tensor(src_pages, device=dev)
+    di = torch.tensor(dst_pages, device=dev)
+    for lyr_s, lyr_d in zip(src, dst):
+        for key in ("k", "v"):
+            if not torch.equal(lyr_d[key].index_select(0, di).view(
+                    torch.int16), lyr_s[key].index_select(0, si).view(
+                    torch.int16)):
+                raise AssertionError("handoff: a moved page differs")
+    after = integrity.page_checksums(dst)
+    keep = torch.ones(scfg.n_pages, dtype=torch.bool, device=dev)
+    keep[di] = False
+    if not (torch.equal(after[keep], dst_chk[keep])
+            and torch.equal(after[di], src_chk[si])
+            and torch.equal(integrity.page_checksums(src), src_chk)):
+        raise AssertionError("handoff: a bystander or source page changed")
+    expect = src_chk[si].cpu().numpy().astype("uint32")
+    ms = cuda_ms(lambda: handoff.apply_handoff(plan, src, dst, src_pages,
+                                               dst_pages), 10, 2)
+    ms_checked = cuda_ms(lambda: handoff.apply_handoff(
+        plan, src, dst, src_pages, dst_pages, expect=expect), 10, 2)
+    return {"pages": n, "wire_bytes": plan.wire_bytes(), "ms": ms,
+            "checked_ms": ms_checked,
+            "bound_ms": 1e3 * 2 * plan.wire_bytes() / HBM_BYTES_PER_S,
+            "bound_by": "bytes", "bitexact": True, "bystanders_equal": True,
+            "source_equal": True}
+
+
+def _single_run(dev, params, cfg, scfg, wl) -> dict:
+    """The single engine (role "both", ``scfg``) on ``wl``'s prompts, all
+    submitted before its first tick; wall s of the run, synchronised."""
+    import torch
+    from fpga_ai_nic_tpu_torch.serve import ServeEngine
+    eng = ServeEngine(params, cfg, scfg, device=dev)
+    reqs = [eng.submit(p, t.max_new) for p, t in
+            zip(wl.prompts(cfg.vocab), wl.requests)]
+    sync(dev)
+    t0 = time.perf_counter()
+    eng.run()
+    sync(dev)
+    out = {"wall": time.perf_counter() - t0, "ticks": eng.ticks,
+           "steps": eng.prefill_calls + eng.decode_calls,
+           "streams": [list(r.generated) for r in reqs]}
+    eng.pool = []
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _free_fleet(r) -> None:
+    """Drop a fleet run's pools (the engines' closures hold cycles)."""
+    import torch
+    for rep in r.pop("fleet").replicas:
+        rep.engine.pool = []
+    r.pop("scaler", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fleet_path(dev, cfg, scfg, params, kernels, smi) -> dict:
+    """The disaggregated fleet (1 prefill + 2 decode replicas) on the
+    steady traffic, against the single engine (role "both", same config)
+    on the same prompts.  The walls are taken in the order fleet, single,
+    fleet, single: the first fleet run is the first on fresh pools, so
+    only the later pair compares warm runs."""
+    wl = _fleet_traffic("steady")
+    r = _fleet_run(dev, params, cfg, scfg, wl, kernels)
+    s = r["summary"]
+    if s["handoffs"] != len(wl) or s["fleet_replays"] or s["kills"]:
+        raise AssertionError(f"fleet_path: handoffs {s['handoffs']}, "
+                             f"replays {s['fleet_replays']}")
+    for x in s["replicas"]:
+        if (x["role"] == "prefill" and x["decode_calls"]) or (
+                x["role"] == "decode" and x["prefill_calls"]):
+            raise AssertionError(f"fleet_path: a role ran the other step {x}")
+    # the ledger: each step verifies its input pool and records its
+    # output's (two launches), each handoff checks its landed pages (one)
+    if r["launches"]["row_checksums"] != 2 * r["calls"] + s["handoffs"]:
+        raise AssertionError(
+            f"fleet_path: {r['launches']['row_checksums']} row_checksums "
+            f"launches, expected 2 x {r['calls']} + {s['handoffs']}")
+    moved = handoff_check(dev, cfg, scfg, r["fleet"])
+    numbers = _fleet_numbers(r)
+    _free_fleet(r)
+    single = _single_run(dev, params, cfg, scfg, wl)
+    again = _fleet_run(dev, params, cfg, scfg, wl, kernels)
+    _free_fleet(again)
+    single_again = _single_run(dev, params, cfg, scfg, wl)
+    equal = sum(a == b for a, b in zip(r["streams"], single["streams"]))
+    repeat_equal = (again["streams"] == r["streams"]
+                    and single_again["streams"] == single["streams"])
+    emit(phase="fleet_path", card=smi, model=(
+        f"Llama-3-8B width, {cfg.n_layers} layers, {cfg.dtype}, random "
+        "weights"), fleet="1 prefill + 2 decode, slots on one card",
+         traffic=wl.summary(), serve_config={
+             f: getattr(scfg, f) for f in SERVE_SHAPE},
+         single_engine_equal=equal, single_engine_ticks=single["ticks"],
+         steps={"fleet": r["calls"], "single": single["steps"]},
+         walls_in_run_order={"fleet_1": r["wall"],
+                             "single_1": single["wall"],
+                             "fleet_2": again["wall"],
+                             "single_2": single_again["wall"]},
+         repeat_streams_equal=repeat_equal, handoff=moved, **numbers)
+    if equal != len(wl):
+        raise AssertionError(f"fleet_path: {len(wl) - equal} streams differ "
+                             "from the single engine's")
+    if not repeat_equal:
+        raise AssertionError("fleet_path: a repeated run's streams differ")
+    return {"streams": r["streams"], "summary": s, "launches": r["launches"],
+            "first_handoff_tick": r["reqs"][0].first_tick + 1,
+            "handoff": moved}
+
+
+def fleet_kill(dev, cfg, scfg, params, kernels, path, smi) -> dict:
+    """``fleet_path``'s traffic with the loaded-most decode replica
+    preempted at ``FLEET_KILL_TICK``: its live requests migrate over the
+    handoff; every stream byte-identical to ``fleet_path``'s."""
+    import torch
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    plan = chaos.FaultPlan([chaos.FaultSpec(
+        "preemption", "fleet.membership", step=FLEET_KILL_TICK)],
+        seed=FLEET_SEED)
+    r = _fleet_run(dev, params, cfg, scfg, _fleet_traffic("steady"),
+                   kernels, plan=plan)
+    s = r["summary"]
+    kill = [e["attrs"] for e in r["fleet"].profiler.events.snapshot()
+            if e["name"] == "fleet.membership"]
+    equal = sum(a == b for a, b in zip(r["streams"], path["streams"]))
+    emit(phase="fleet_kill", card=smi, kill_tick=FLEET_KILL_TICK,
+         membership=kill, chaos_fired=len(plan.fired),
+         streams_equal_fleet_path=equal,
+         handoffs_fleet_path=path["summary"]["handoffs"],
+         recovery=s["recovery"], **_fleet_numbers(r))
+    if not (len(plan.fired) == 1 and s["kills"] == 1 and kill
+            and kill[0]["migrated"] >= 1):
+        raise AssertionError(f"fleet_kill: no kill with live work {kill}")
+    if s["fleet_replays"] or s["serve_recoveries"]:
+        raise AssertionError("fleet_kill: a request was replayed")
+    if s["handoffs"] <= path["summary"]["handoffs"]:
+        raise AssertionError("fleet_kill: no migration handoff")
+    if equal != len(path["streams"]):
+        raise AssertionError(f"fleet_kill: {len(path['streams']) - equal} "
+                             "streams differ from fleet_path's")
+    _free_fleet(r)
+    return {"launches": r["launches"], "summary": s}
+
+
+def fleet_handoff_integrity(dev, cfg, scfg, params, kernels, path,
+                            smi) -> dict:
+    """``fleet_path``'s run with a ``wirebit`` fault on the wire of its
+    first handoff (the tick after request 1's prefill finished): the
+    landed-page check (``row_checksums``) trips, the one bounded retry
+    re-sends the intact pages; no replay, streams equal to
+    ``fleet_path``'s."""
+    import torch
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    if not scfg.page_integrity:
+        raise AssertionError("fleet_handoff_integrity needs page_integrity")
+    step = path["first_handoff_tick"]
+    plan = chaos.FaultPlan([chaos.FaultSpec(
+        "corruption", "serve.handoff", step=step, mode="wirebit",
+        fraction=0.001)], seed=FLEET_SEED)
+    chaos.install_wire_tap()
+    try:
+        r = _fleet_run(dev, params, cfg, scfg, _fleet_traffic("steady"),
+                       kernels, plan=plan)
+    finally:
+        chaos.uninstall_wire_tap()
+    s = r["summary"]
+    equal = sum(a == b for a, b in zip(r["streams"], path["streams"]))
+    want_chk = 2 * r["calls"] + s["handoffs"] + s["handoff_integrity_trips"]
+    emit(phase="fleet_handoff_integrity", card=smi, wirebit_tick=step,
+         chaos_fired=len(plan.fired), streams_equal_fleet_path=equal,
+         row_checksums_expected=want_chk, **_fleet_numbers(r))
+    if not (len(plan.fired) == 1 and s["handoff_integrity_trips"] >= 1):
+        raise AssertionError("fleet_handoff_integrity: no trip")
+    if s["fleet_replays"] or s["serve_recoveries"]:
+        raise AssertionError("fleet_handoff_integrity: a request replayed")
+    if r["launches"]["row_checksums"] != want_chk:
+        raise AssertionError(
+            f"fleet_handoff_integrity: {r['launches']['row_checksums']} "
+            f"row_checksums launches, expected {want_chk}")
+    if equal != len(path["streams"]):
+        raise AssertionError("fleet_handoff_integrity: streams differ")
+    _free_fleet(r)
+    return {"launches": r["launches"], "summary": s}
+
+
+def fleet_autoscale(dev, cfg, scfg, params, kernels, smi) -> dict:
+    """The closed loop on thundering-herd traffic: a 1-prefill, 1-decode
+    fleet with 4 slots a replica and ``serve_fleet.SPARE_SLOTS`` spare
+    slot on the card, the autoscaler reading the fleet's windowed SLO
+    metrics every tick.  Each stream is held against the single engine's
+    (same config) for its prompt: a request that went through the fleet's
+    replay tier re-prefills its generated tokens, where the single engine
+    decoded them, so only the others must be equal; each replayed
+    stream's first divergence is reported with the margin of the single
+    engine's token there."""
+    from fpga_ai_nic_tpu_torch import serve_fleet
+    from fpga_ai_nic_tpu_torch.models import llama_decode
+    from fpga_ai_nic_tpu_torch.serve import FleetConfig
+    import torch
+    scfg4 = dataclasses.replace(scfg, max_reqs=4)
+    wl = _fleet_traffic("herd")
+    r = _fleet_run(dev, params, cfg, scfg4, wl, kernels,
+                   fcfg=FleetConfig(1, 1), slots=2 + serve_fleet.SPARE_SLOTS,
+                   autoscale=True)
+    s = r["summary"]
+    block = serve_fleet.slo_block(s, r["reqs"], r["scaler"])
+    replayed = sorted({e["attrs"]["uid"]
+                       for e in r["fleet"].profiler.events.snapshot()
+                       if e["name"] == "fleet.replay"})
+    _free_fleet(r)
+    single = _single_run(dev, params, cfg, scfg4, wl)
+    prompts = wl.prompts(cfg.vocab)
+    equal, diverged = [], []
+    for req, ref in zip(r["reqs"], single["streams"]):
+        if req.generated == ref:
+            equal.append(req.uid)
+            continue
+        k = next(i for i, (a, b) in enumerate(zip(ref, req.generated))
+                 if a != b)
+        ctx = torch.cat([torch.from_numpy(prompts[req.uid - 1]).to(dev),
+                         torch.tensor(ref[:k], dtype=torch.int32,
+                                      device=dev)])
+        cache = llama_decode.init_cache(cfg, 1, len(ctx), device=dev)
+        logits, _ = llama_decode.forward(params, ctx[None], cache, 0, cfg)
+        top2 = logits[0, -1].float().topk(2).values
+        diverged.append({"uid": req.uid, "replayed": req.uid in replayed,
+                         "at": k, "fleet": req.generated[k],
+                         "single": ref[k],
+                         "single_margin": float(top2[0] - top2[1])})
+        del cache, logits
+    emit(phase="fleet_autoscale", card=smi, max_reqs=4,
+         spare_slots=serve_fleet.SPARE_SLOTS, slo_block=block, slo=s["slo"],
+         replayed_uids=replayed, single_engine_equal=len(equal),
+         single_engine_ticks=single["ticks"], first_divergences=diverged,
+         **_fleet_numbers(r))
+    if block["scale_outs"] < 1 or block["tokens_lost"]:
+        raise AssertionError(f"fleet_autoscale: {block}")
+    if any(not d["replayed"] for d in diverged):
+        raise AssertionError("fleet_autoscale: a stream that was not "
+                             f"replayed differs from the single engine's "
+                             f"{diverged}")
+    return {"launches": r["launches"], "summary": s, "slo_block": block}
+
+
+def generate_llama_phase(dev, smi) -> None:
+    """``generate_llama``'s default run on the card, as one line."""
+    from fpga_ai_nic_tpu_torch import generate_llama
+    t0 = time.perf_counter()
+    out = generate_llama.main([])
+    wall = time.perf_counter() - t0
+    emit(phase="generate_llama", card=smi, wall_s=wall, **out)
+    if out["tokens"] != 1 + len(out["prompt"]) + 16 or not all(
+            0 <= t < 384 for t in out["continuation_ids"]):
+        raise AssertionError(f"generate_llama: {out}")
+
+
+def fleet_phases(dev, cfg, scfg, params, kernels, smi) -> dict:
+    path = fleet_path(dev, cfg, scfg, params, kernels, smi)
+    runs = {"path": path,
+            "kill": fleet_kill(dev, cfg, scfg, params, kernels, path, smi),
+            "integrity": fleet_handoff_integrity(dev, cfg, scfg, params,
+                                                 kernels, path, smi),
+            "autoscale": fleet_autoscale(dev, cfg, scfg, params, kernels,
+                                         smi)}
+    generate_llama_phase(dev, smi)
+    return runs
 
 
 # -- the Llama training path: ShardedTrainer at Llama-3-8B width ----------------
@@ -6909,6 +7316,9 @@ def main() -> int:
             f"launches, expected 2 x {calls} steps")
     serving_profile(dev, lcfg, srv, run)
     serving_parity(dev, lcfg, srv, run)
+
+    # -- 41. the serving fleet on the same weights, then generate_llama -----
+    fleet = fleet_phases(dev, lcfg, srv, run["params"], serve_kernels, smi)
     del run["params"], run["snaps"], run["reqs"]
     torch.cuda.empty_cache()
 
@@ -7294,6 +7704,22 @@ def main() -> int:
         tp_plain_ms=tp_paged["plain_ms"],
         tp_library_ms=tp_paged["library_ms"],
         tp_bound_ms=tp_paged["bound"][0], tp_bound_by=tp_paged["bound"][1])
+    fleet_from = {
+        "path": "fleet_path (1 prefill + 2 decode replicas, 12 requests)",
+        "kill": "fleet_kill (fleet_path's traffic, a replica killed)",
+        "integrity": ("fleet_handoff_integrity (fleet_path's traffic, a "
+                      "wirebit on a handoff)"),
+        "autoscale": ("fleet_autoscale (herd traffic, 1 + 1 replicas of 4 "
+                      "slots, a spare)")}
+    for name in ("paged_attend", "row_checksums"):
+        results[name].setdefault("extra", {}).update(
+            fleet_launches={k: r["launches"][name] for k, r in fleet.items()},
+            fleet_launches_from=fleet_from)
+    results["paged_attend"]["extra"].update(
+        fleet_handoff_pages=fleet["path"]["handoff"]["pages"],
+        fleet_handoff_ms=fleet["path"]["handoff"]["ms"],
+        fleet_handoff_checked_ms=fleet["path"]["handoff"]["checked_ms"],
+        fleet_handoff_bound_ms=fleet["path"]["handoff"]["bound_ms"])
     for name, (src, repl) in meta.items():
         r = results[name]
         bound_ms, bound_by = r["bound"]

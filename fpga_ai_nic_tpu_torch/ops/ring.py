@@ -63,7 +63,8 @@ def set_fault_tap(tap: Optional[Callable]) -> None:
 
 def set_wire_tap(tap: Optional[Callable]) -> None:
     """Install (or remove, None) the wire tap ``tap(array, point)``, called
-    once per rank per payload array of each message that rank receives."""
+    once per rank per payload array of each message that rank receives (and
+    once per page block of a KV migration, ``tap_wire_array``)."""
     global _WIRE_TAP
     _WIRE_TAP = tap
 
@@ -101,6 +102,12 @@ def _tap_wire(payload: Payload, point: str) -> Payload:
                     out[j] = payload[j].clone()
                 out[j][r] = got
     return tuple(out)
+
+
+def tap_wire_array(x: torch.Tensor, point: str) -> torch.Tensor:
+    """One received array of a point-to-point transfer (a KV migration's
+    page block) through the wire tap, as a whole."""
+    return x if _WIRE_TAP is None else _WIRE_TAP(x, point)
 
 
 Perm = Optional[Sequence[Tuple[int, int]]]

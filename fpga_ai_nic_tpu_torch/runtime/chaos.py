@@ -23,13 +23,21 @@ stored bit of an encoded frame: finite, in-band) through the wire tap, on
 each rank's received payload arrays.  The corrupted indices and bits derive
 from ``numpy.random.default_rng`` of (plan seed, spec step) exactly as in
 the JAX package, so a plan flips the same words in both.  As in the JAX
-package, the fused ring kernels are not tapped.  Every other fault kind and
-site (hang, slowdown, exception, preemption, the queue, staging, serving,
-reshard and checkpoint sites) is not ported: ROADMAP A.8.
+package, the fused ring kernels are not tapped.
+
+The serving fleet's two sites are ported too: ``fire(site)`` is JAX's host
+hook (hang and slowdown sleep ``duration_s``, preemption raises
+``InjectedPreemption``, exception ``InjectedFault``) at
+``"fleet.membership"`` and ``"serve.handoff"``, and a ``wirebit`` spec at
+``"serve.handoff"`` flips bits of a migrating page block through the wire
+tap's ``"handoff.wire"`` point.  Every other fault kind and site (the
+queue, staging, the serving tick, reshard and checkpoint sites) is not
+ported: ROADMAP A.8.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -40,7 +48,7 @@ __all__ = [
     "FAULT_KINDS", "SITES", "CORRUPTION_MODES",
     "InjectedFault", "InjectedPreemption", "IntegrityError",
     "WireIntegrityError",
-    "FaultSpec", "FaultPlan", "NormDriftGuard",
+    "FaultSpec", "FaultPlan", "NormDriftGuard", "state_buffers_alive",
     "chunk_checksums", "collective_integrity", "integrity_tol",
     "check_step_diag", "install_collective_tap", "uninstall_collective_tap",
     "install_wire_tap", "uninstall_wire_tap", "activate",
@@ -57,11 +65,22 @@ CORRUPTION_MODES = ("nan", "bitflip", "scale", "wirebit", "stale_manifest")
 # modes of the value tap; "wirebit" belongs to the wire tap
 _VALUE_MODES = ("nan", "bitflip", "scale")
 # wire-tap point -> the site whose wirebit specs fire there
-_WIRE_POINT_SITES = {"ring.wire": "collective"}
+_WIRE_POINT_SITES = {"ring.wire": "collective",
+                     "handoff.wire": "serve.handoff"}
+# the host hook's kinds, and the sites where the port fires them
+_HOST_KINDS = ("hang", "slowdown", "exception", "preemption")
+_HOST_SITES = ("fleet.membership", "serve.handoff")
 
 
 class InjectedFault(RuntimeError):
     """A fault raised on purpose by a fault plan (transient by contract)."""
+
+    def __init__(self, spec: "FaultSpec"):
+        super().__init__(f"injected {spec.kind} at {spec.site} "
+                         f"(step {spec.step})")
+        self.spec = spec
+        self.kind = spec.kind
+        self.site = spec.site
 
 
 class InjectedPreemption(InjectedFault):
@@ -82,13 +101,16 @@ class WireIntegrityError(IntegrityError):
 @dataclass(frozen=True)
 class FaultSpec:
     """One planned fault: fire ``kind`` at ``site`` on step ``step``;
-    ``mode`` / ``fraction`` shape the corruption (``fraction`` of the
-    elements, at least one).  Ported: kind "corruption" at site
-    "collective"."""
+    ``duration_s`` is the sleep of a hang or slowdown; ``mode`` /
+    ``fraction`` shape the corruption (``fraction`` of the elements, at
+    least one).  Ported: corruption at "collective"; hang, slowdown,
+    exception and preemption at "fleet.membership" and "serve.handoff";
+    wirebit corruption at "serve.handoff"."""
 
     kind: str
     site: str
     step: int
+    duration_s: float = 0.25
     mode: str = "nan"
     fraction: float = 0.01
 
@@ -99,10 +121,17 @@ class FaultSpec:
             raise ValueError(f"unknown fault site {self.site!r}")
         if self.mode not in CORRUPTION_MODES:
             raise ValueError(f"unknown corruption mode {self.mode!r}")
-        if self.kind != "corruption" or self.site != "collective":
+        ported = ((self.kind == "corruption" and self.site == "collective")
+                  or (self.kind in _HOST_KINDS and self.site in _HOST_SITES)
+                  or (self.kind == "corruption"
+                      and self.site == "serve.handoff"
+                      and self.mode == "wirebit"))
+        if not ported:
             raise NotImplementedError(
-                f"fault {self.kind!r} at {self.site!r} is not ported (only "
-                "corruption at the collective site): ROADMAP A.8")
+                f"fault {self.kind!r} (mode {self.mode!r}) at {self.site!r} "
+                "is not ported (corruption at the collective site; hang, "
+                "slowdown, exception and preemption at the fleet sites; "
+                "wirebit at serve.handoff): ROADMAP A.8")
         if self.mode == "stale_manifest":
             raise ValueError("mode='stale_manifest' only exists at the "
                              "checkpoint sites")
@@ -113,15 +142,19 @@ class FaultPlan:
     Each spec fires at most once, so a retry of the same step runs clean.
 
         plan.begin_step(i)                  # before step i
+        plan.fire(site)                     # host boundary: sleep or raise
         plan.collective_payload(a)          # value tap, per rank row
         plan.wire_payload(a, "ring.wire")   # wire tap, per payload array
-    """
+
+    ``events`` (an ``obs.events.EventStream`` or None) receives a
+    ``chaos.fire`` instant for every spec that fires."""
 
     def __init__(self, faults: Iterable[FaultSpec] = (), seed: int = 0):
         self.faults: Tuple[FaultSpec, ...] = tuple(faults)
         self.seed = seed
         self.fired: List[FaultSpec] = []
         self._step = -1
+        self.events = None
 
     def begin_step(self, step: int) -> None:
         self._step = int(step)
@@ -150,7 +183,23 @@ class FaultPlan:
         if limit is not None:
             out = out[:limit]
         self.fired.extend(out)
+        if self.events is not None:
+            for s in out:
+                self.events.instant("chaos.fire", kind=s.kind, site=s.site,
+                                    step=s.step)
         return out
+
+    def fire(self, site: str) -> None:
+        """The host boundary hook: sleeps for hang/slowdown, raises for
+        preemption (``InjectedPreemption``) and exception
+        (``InjectedFault``), one raise a call.  Corruption specs are left
+        to the taps."""
+        for spec in self._take(site, ("hang", "slowdown")):
+            time.sleep(spec.duration_s)
+        for spec in self._take(site, ("preemption",), limit=1):
+            raise InjectedPreemption(spec)
+        for spec in self._take(site, ("exception",), limit=1):
+            raise InjectedFault(spec)
 
     def collective_payload(self, arr: np.ndarray) -> np.ndarray:
         """The value tap: the first rank to arrive takes every pending
@@ -234,10 +283,12 @@ def _from_numpy(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(a).to(like.device)
 
 
-def _run_tap(x: torch.Tensor, modes: Sequence[str], hook) -> torch.Tensor:
-    """``x`` itself unless the active plan fires; then a corrupted copy."""
+def _run_tap(x: torch.Tensor, site: str, modes: Sequence[str],
+             hook) -> torch.Tensor:
+    """``x`` itself unless the active plan fires at ``site``; then a
+    corrupted copy."""
     plan = _ACTIVE_PLAN
-    if plan is None or not plan.armed("collective", modes):
+    if plan is None or not plan.armed(site, modes):
         return x
     a = _to_numpy(x)
     got = hook(plan, a)
@@ -245,14 +296,15 @@ def _run_tap(x: torch.Tensor, modes: Sequence[str], hook) -> torch.Tensor:
 
 
 def _tap_fn(x: torch.Tensor, point: str) -> torch.Tensor:
-    return _run_tap(x, _VALUE_MODES,
+    return _run_tap(x, "collective", _VALUE_MODES,
                     lambda plan, a: plan.collective_payload(a))
 
 
 def _wire_tap_fn(x: torch.Tensor, point: str) -> torch.Tensor:
-    if point not in _WIRE_POINT_SITES:
+    site = _WIRE_POINT_SITES.get(point)
+    if site is None:
         return x
-    return _run_tap(x, ("wirebit",),
+    return _run_tap(x, site, ("wirebit",),
                     lambda plan, a: plan.wire_payload(a, point))
 
 
@@ -269,8 +321,9 @@ def uninstall_collective_tap() -> None:
 
 
 def install_wire_tap() -> None:
-    """Route each rank's received encoded payload arrays through the active
-    plan's wirebit hook."""
+    """Route each rank's received encoded payload arrays, and each page
+    block of a KV migration (``serve.handoff``), through the active plan's
+    wirebit hook."""
     from ..ops import ring
     ring.set_wire_tap(_wire_tap_fn)
 
@@ -296,6 +349,21 @@ class activate:
         global _ACTIVE_PLAN
         _ACTIVE_PLAN = self._prev
         return False
+
+
+def state_buffers_alive(state: Any) -> bool:
+    """True while every tensor of a state tree (dicts, lists, tuples) still
+    holds its storage: the gate between migrating a dying replica's state
+    and replaying it (a tensor whose storage was released reads as
+    dead)."""
+    if isinstance(state, dict):
+        return all(state_buffers_alive(v) for v in state.values())
+    if isinstance(state, (list, tuple)):
+        return all(state_buffers_alive(v) for v in state)
+    if isinstance(state, torch.Tensor):
+        need = state.numel() * state.element_size()
+        return need == 0 or state.untyped_storage().nbytes() >= need
+    return True
 
 
 # ---------------------------------------------------------------------------

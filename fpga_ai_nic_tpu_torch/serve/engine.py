@@ -1,6 +1,5 @@
 """Serving engine — continuous batching over the paged decode path; the
-port of the JAX package's ``serve/engine.py`` at its default role
-``"both"``.
+port of the JAX package's ``serve/engine.py``.
 
 The host loop runs discrete TICKS.  Each tick the scheduler
 (``scheduler.ContinuousBatcher``) decides which requests occupy the static
@@ -9,9 +8,19 @@ run — one prefill chunk (``[1, prefill_chunk]`` tokens of the oldest
 prefilling request) and one decode step (``[max_reqs, 1]`` tokens, every
 decoding slot, empty slots masked), both through
 ``llama_decode.forward_paged``, whose attention is the paged gather-attend
-kernel on the card.  PyTorch runs eagerly: there is no traced program, so
-the JAX engine's trace counters have no counterpart here (CUDA graphs of
-the two steps are later work).
+kernel on the card.  PyTorch runs eagerly: there is no traced program.
+``trace_counts()`` reads 1 for a step the engine has run and 0 for one it
+has not (what JAX's counted jit reads after warm-up).
+``recompiles_steady()`` is 0 by construction: nothing is traced, and each
+kernel source is built and loaded once a process (``ops._build``), so no
+tick, kill or scale event can compile again.
+
+Roles (the fleet's disaggregation, ``serve.fleet``): a ``"prefill"``
+replica admits and prefills but never decodes; a ``"decode"`` replica
+admits nothing and decodes only requests the fleet hands it with their KV
+pages (``ContinuousBatcher.adopt``); ``"both"`` does all of it.
+``record_landed_pages`` and ``ledger_entries`` keep the page ledger
+through a migration.
 
 Two guards gate a tick before any of its tokens reach a stream: the exact
 per-page checksum ledger (``ServeConfig.page_integrity``: each step
@@ -38,7 +47,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,9 +109,8 @@ class ServeEngine:
     and recovery token-exact.  Single-threaded host loop;
     ``runtime.requests`` holds the thread-safe seams (intake, stats).
 
-    Not ported yet, and refused at construction: roles other than
-    ``"both"`` (the fleet's prefill/decode split and KV handoff, ROADMAP
-    A.7), ``chaos`` (fault injection, A.8) and
+    Not ported yet, and refused at construction: ``chaos`` (fault
+    injection into the tick, A.8; the fleet's own sites are ported) and
     ``ServeConfig.step_timeout_s`` (the watchdog, A.8)."""
 
     def __init__(self, params: Params, cfg: LlamaConfig, scfg: ServeConfig,
@@ -116,10 +124,6 @@ class ServeEngine:
                  attend_impl: str = "kernel") -> None:
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"role must be both|prefill|decode: {role!r}")
-        if role != "both":
-            raise NotImplementedError(
-                f"role={role!r} (the fleet's prefill/decode split) waits for "
-                "ROADMAP A.7")
         if chaos is not None:
             raise NotImplementedError(
                 "chaos (fault injection) waits for ROADMAP A.8")
@@ -185,6 +189,29 @@ class ServeEngine:
             return None
         return torch.zeros((self.scfg.n_pages,), dtype=torch.int64,
                            device=self.device)
+
+    def record_landed_pages(self, pages: Sequence[int],
+                            checksums: Any) -> None:
+        """Ledger entries for pages written outside the engine's steps: a
+        KV migration lands page blocks directly into the pool, and the
+        destination records their checksums, or its next step's input
+        check would trip on the migration.  Called for a rejected landing
+        too: those pages stay free and dirty, and a dirty page must still
+        agree with the ledger."""
+        if self.ledger is None:
+            return
+        idx = torch.as_tensor(np.asarray(pages, np.int64),
+                              device=self.device)
+        self.ledger[idx] = torch.as_tensor(
+            np.asarray(checksums, np.uint32).astype(np.int64),
+            device=self.device)
+
+    def ledger_entries(self, pages: Sequence[int]) -> np.ndarray:
+        """uint32 ``[len(pages)]``: the ledger's write-time checksums of
+        ``pages`` (what a migration's landed bytes must still hash to)."""
+        assert self.ledger is not None, "page_integrity is off"
+        return self.ledger.cpu().numpy()[
+            np.asarray(pages, np.int64)].astype(np.uint32)
 
     # -- the two device steps (shapes fixed by ServeConfig) ------------------
 
@@ -275,14 +302,19 @@ class ServeEngine:
         for req in self.queue.pop_arrived():
             self.batcher.enqueue(req)
         now = time.perf_counter()
-        for req in self.batcher.admit():
-            self.stats.record_admitted()
-            if math.isnan(req.t_admit):
-                req.t_admit = now
+        if self.role != "decode":
+            # a decode replica takes work only through the fleet's KV
+            # handoff (batcher.adopt); its waiting list holds evictions,
+            # which the fleet replays through a prefill replica
+            for req in self.batcher.admit():
+                self.stats.record_admitted()
+                if math.isnan(req.t_admit):
+                    req.t_admit = now
         # decode first, then prefill: prefill's page demand may evict the
         # NEWEST decoder, so the batch is re-filtered before dispatch
-        dec = self.batcher.decode_batch()
-        pre = self.batcher.prefill_work()
+        dec = self.batcher.decode_batch() if self.role != "prefill" else []
+        pre = (self.batcher.prefill_work()
+               if self.role != "decode" else None)
         dec = [r for r in dec if r.state == DECODE and r.slot >= 0]
         if pre is None and not dec:
             return False
@@ -439,6 +471,17 @@ class ServeEngine:
 
     # -- introspection -------------------------------------------------------
 
+    def trace_counts(self) -> Dict[str, int]:
+        """1 for each step the engine has run, 0 for one it has not: what
+        JAX's counted jit reads once warm (one trace a program)."""
+        return {"prefill": int(self.prefill_calls > 0),
+                "decode": int(self.decode_calls > 0)}
+
+    def recompiles_steady(self) -> int:
+        """JAX's count of retraces after warm-up; always 0 here: the port
+        runs eagerly and loads each kernel source once a process."""
+        return 0
+
     def obs_static_metrics(self) -> Dict[str, Any]:
         """Static serving facts; the byte accounting is exact."""
         scfg = self.scfg
@@ -477,6 +520,8 @@ class ServeEngine:
             "page_util_peak": round(peak / usable, 4),
             "throughput_tok_s": (round(stats["tokens_out"] / wall, 2)
                                  if wall > 0 else None),
+            "trace_counts": self.trace_counts(),
+            "recompiles_steady": self.recompiles_steady(),
             "page_integrity": bool(self.scfg.page_integrity),
             "page_trips": self.page_trips,
             "logit_trips": self.logit_trips,

@@ -31,7 +31,7 @@ import dataclasses
 import json
 import sys
 from dataclasses import fields
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,12 +52,17 @@ SERVE_DEFAULTS: Dict[str, Any] = {
     "n_pages": 2049, "prefill_chunk": 256}
 
 
-def parse(argv: Sequence[str]
+def parse(argv: Sequence[str], defaults: Optional[Dict[str, Any]] = None,
+          serve_defaults: Optional[Dict[str, Any]] = None
           ) -> Tuple[Dict[str, Any], ServeConfig, LlamaConfig]:
-    """(options, ServeConfig, LlamaConfig) from ``--name=value`` flags."""
-    opts = dict(DEFAULTS)
+    """(options, ServeConfig, LlamaConfig) from ``--name=value`` flags; the
+    options are ``defaults`` (this driver's ``DEFAULTS``) overridden by
+    their flags, the ServeConfig ``serve_defaults`` by its fields'."""
+    defaults = DEFAULTS if defaults is None else defaults
+    opts = dict(defaults)
     overlays: List[Tuple[str, str]] = []
-    serve_kw = dict(SERVE_DEFAULTS)
+    serve_kw = dict(SERVE_DEFAULTS if serve_defaults is None
+                    else serve_defaults)
     serve_fields = {f.name: f.type for f in fields(ServeConfig)}
     for a in argv:
         key, eq, val = a.partition("=")
@@ -67,7 +72,7 @@ def parse(argv: Sequence[str]
         if name.startswith("model."):
             overlays.append((name[len("model."):], val))
         elif name in opts:
-            opts[name] = type(DEFAULTS[name])(val)
+            opts[name] = type(defaults[name])(val)
         elif name == "page_integrity":
             serve_kw[name] = val.lower() in ("1", "true", "yes", "on")
         elif name in serve_fields:
@@ -78,11 +83,16 @@ def parse(argv: Sequence[str]
         raise ValueError(f"--model must be one of {sorted(MODELS)}")
     cfg = MODELS[opts["model"]]()
     for name, val in overlays:
-        if name not in {f.name for f in dataclasses.fields(cfg)}:
-            raise ValueError(f"unknown LlamaConfig field {name!r}")
-        cfg = dataclasses.replace(cfg, **{name: coerce_value(
-            _declared_type(cfg, name), val)})
+        cfg = overlay(cfg, name, val)
     return opts, ServeConfig(**serve_kw), cfg
+
+
+def overlay(cfg: LlamaConfig, name: str, val: str) -> LlamaConfig:
+    """``cfg`` with field ``name`` set from the flag value ``val``."""
+    if name not in {f.name for f in dataclasses.fields(cfg)}:
+        raise ValueError(f"unknown LlamaConfig field {name!r}")
+    return dataclasses.replace(cfg, **{name: coerce_value(
+        _declared_type(cfg, name), val)})
 
 
 def make_prompts(seed: int, n: int, lo: int, hi: int,

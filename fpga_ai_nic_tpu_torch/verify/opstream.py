@@ -1,7 +1,9 @@
-"""The hierarchical two-hop phase program — the port's copy of what the JAX
-package's ``ops/ring_hier.py`` takes from its ``verify/opstream.py``
-(``intra_perm``, ``inter_perm``, ``HierPhase``, ``HierProgram``,
-``hier_program``), in plain Python.
+"""Protocol programs the port takes from the JAX package's
+``verify/opstream.py``, in plain Python: the hierarchical two-hop phase
+program of ``ops/ring_hier.py`` (``intra_perm``, ``inter_perm``,
+``HierPhase``, ``HierProgram``, ``hier_program``) and the block order of a
+KV migration (``HandoffMove``, ``handoff_program``), which
+``serve.handoff.apply_handoff`` iterates.
 
 One definition of the phases, their subring permutations and the
 conservation message ids, consumed by ``ops.ring_hier``.  The port's rings
@@ -76,3 +78,20 @@ def hier_program(n: int, ni: int, s_inter: int = 1) -> HierProgram:
         rs_inter=HierPhase("rs_inter", ng - 1, s_inter, ni - 1, pb),
         ag_inter=HierPhase("ag_inter", ng - 1, 1, 0, pb),
         ag_intra=HierPhase("ag_intra", ni - 1, 1, ng - 1, pa))
+
+
+class HandoffMove(NamedTuple):
+    """One gathered page block of a KV migration: pool index in
+    layer-major K-then-V order, equal to its odd-multiplier index in
+    ``ops.integrity.gathered_page_checksums`` (a block-order change is a
+    weight change)."""
+
+    pool: int
+    msg: int
+
+
+def handoff_program(n_layers: int) -> List[HandoffMove]:
+    """The block order of one KV migration: ``serve.handoff.apply_handoff``
+    gathers, sends and writes the blocks in this order, and the landed-page
+    checksum weights block j by 2j + 1."""
+    return [HandoffMove(i, i) for i in range(2 * n_layers)]

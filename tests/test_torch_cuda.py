@@ -1638,3 +1638,95 @@ def test_queue_side_stream_orders_and_keeps_buffers(cuda_device):
     for o in outs:
         torch.testing.assert_close(o, want, rtol=0, atol=0)
     assert q.profiler.collectives.completed == 4
+
+
+@pytest.mark.cuda
+def test_handoff_bitexact_on_card(cuda_device):
+    """A KV migration between two bf16 pools on the card: the moved pages
+    land bit for bit, the destination's other pages and the source keep
+    theirs, and the landed checksums (one ``row_checksums`` launch over
+    the gathered blocks) equal the source ledger's and the CPU move's."""
+    from fpga_ai_nic_tpu_torch.serve import handoff
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    shape = (33, 8, 16, 128)
+
+    def pool():
+        return [{k: torch.randn(shape, generator=g, device=cuda_device).to(
+            torch.bfloat16) for k in ("k", "v")} for _ in range(3)]
+
+    src, dst = pool(), pool()
+    src_h = [{k: v.cpu() for k, v in lyr.items()} for lyr in src]
+    dst_h = [{k: v.cpu() for k, v in lyr.items()} for lyr in dst]
+    src_pages, dst_pages = [3, 17, 9, 32], [1, 30, 2, 11]
+    plan = handoff.make_plan(n_layers=3, kv_local=8, page_size=16,
+                             head_dim=128, n_pages=33, n_move=4,
+                             dtype="bfloat16")
+    ledger = integrity.page_checksums_plain(src_h).numpy().astype(np.uint32)
+    before = integrity.ROW_CHECKSUMS.launches
+    _, _, ok, landed = handoff.apply_handoff(
+        plan, src, dst, src_pages, dst_pages, expect=ledger[src_pages])
+    torch.cuda.synchronize()
+    assert ok and integrity.ROW_CHECKSUMS.launches == before + 1
+    np.testing.assert_array_equal(landed, ledger[src_pages])
+    _, want_dst = handoff.apply_handoff(
+        plan, [dict(lyr) for lyr in src_h],
+        [{k: v.clone() for k, v in lyr.items()} for lyr in dst_h],
+        src_pages, dst_pages)
+    keep = [p for p in range(33) if p not in dst_pages]
+    for li in range(3):
+        for k in ("k", "v"):
+            got = dst[li][k].cpu()
+            assert torch.equal(got.view(torch.int16),
+                               want_dst[li][k].view(torch.int16))
+            assert torch.equal(got[dst_pages].view(torch.int16),
+                               src_h[li][k][src_pages].view(torch.int16))
+            assert torch.equal(got[keep].view(torch.int16),
+                               dst_h[li][k][keep].view(torch.int16))
+            assert torch.equal(src[li][k].cpu().view(torch.int16),
+                               src_h[li][k].view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_prefill_replica_never_launches_decode_on_card(cuda_device):
+    """A 1-prefill, 1-decode fleet on the card (f32 model at head_dim 128,
+    bf16 pools, both replicas slots of the card): the prefill replica's
+    decode step is never called, the decode replica's prefill step never,
+    one paged_attend launch a layer a step, and the streams equal the
+    single engine's."""
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.serve import (FleetConfig, ServeConfig,
+                                             ServeEngine, ServeFleet)
+    cfg = llama.LlamaConfig.tiny(dim=512, n_heads=4, n_kv_heads=2,
+                                 ffn_dim=512)
+    params = llama.init(torch.Generator(device=cuda_device).manual_seed(1),
+                        cfg, cuda_device)
+    scfg = ServeConfig(max_reqs=4, page_size=16, max_pages_per_seq=8,
+                       n_pages=65, prefill_chunk=32)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(20, 90, 5)]
+    fleet = ServeFleet(params, cfg, scfg, FleetConfig(1, 1),
+                       dtype="bfloat16", devices=[cuda_device] * 2)
+    pre = fleet.replicas[0].engine
+
+    def never(*args, **kwargs):
+        raise AssertionError("a prefill replica ran a decode step")
+
+    pre._decode_step = never
+    reqs = [fleet.submit(p, max_new=6) for p in prompts]
+    before = paged_attend.PAGED_ATTEND.launches
+    s = fleet.run()
+    torch.cuda.synchronize()
+    calls = sum(r["prefill_calls"] + r["decode_calls"]
+                for r in s["replicas"])
+    assert paged_attend.PAGED_ATTEND.launches - before == \
+        cfg.n_layers * calls
+    roles = {r["role"]: r for r in s["replicas"]}
+    assert roles["prefill"]["decode_calls"] == 0
+    assert roles["decode"]["prefill_calls"] == 0
+    assert s["handoffs"] == len(prompts) and s["fleet_replays"] == 0
+    eng = ServeEngine(params, cfg, scfg, dtype="bfloat16",
+                      device=cuda_device)
+    single = [eng.submit(p, max_new=6) for p in prompts]
+    eng.run()
+    assert [r.generated for r in reqs] == [r.generated for r in single]

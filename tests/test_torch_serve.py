@@ -133,12 +133,35 @@ def test_logit_guard_trips_on_nan_weights(world):
     (dict(role="decode"), "A.7"),
 ])
 def test_unported_options_raise(world, kw, what):
-    _, params, _, _ = world
-    with pytest.raises(NotImplementedError, match=what):
-        ServeEngine(params, CFG, ServeConfig(), device="cpu", **kw)
+    """A.8's options (``chaos``, ``step_timeout_s``) still raise.  A.7's
+    roles, refused here until the fleet was ported, now run as JAX's
+    ``_tick`` runs them: a prefill replica prefills and never decodes (its
+    finished prefills wait for a fleet's handoff); a decode replica admits
+    nothing, so its submissions stay waiting."""
+    _, params, prompts, _ = world
     with pytest.raises(NotImplementedError, match="A.8"):
         ServeEngine(params, CFG, ServeConfig(step_timeout_s=1.0),
-                    device="cpu")
+                    device="cpu", **({} if what == "A.8" else kw))
+    if what == "A.8":
+        with pytest.raises(NotImplementedError, match=what):
+            ServeEngine(params, CFG, ServeConfig(), device="cpu", **kw)
+        return
+    eng = ServeEngine(params, CFG, ServeConfig(n_pages=40, **SHAPE),
+                      device="cpu", **kw)
+    reqs = [eng.submit(p, max_new=MAX_NEW) for p in prompts]
+    for _ in range(12):
+        eng.tick()
+    if kw["role"] == "prefill":
+        assert eng.prefill_calls > 0 and eng.decode_calls == 0
+        assert eng.trace_counts() == {"prefill": 1, "decode": 0}
+        # a finished prefill holds its first token and waits in DECODE
+        assert all(len(r.generated) <= 1 for r in reqs)
+        assert any(r.state == "decode" for r in reqs)
+    else:
+        assert eng.prefill_calls == eng.decode_calls == 0
+        assert eng.trace_counts() == {"prefill": 0, "decode": 0}
+        assert not eng.batcher.live and len(eng.batcher.waiting) == len(reqs)
+    assert eng.summary()["role"] == kw["role"]
 
 
 def test_pool_bytes_exact_and_allocator():
@@ -241,7 +264,9 @@ def test_port_imports_without_jax():
     mods = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                   pkg.__name__ + ".")]
     for m in ("serve.engine", "ops.flash_attention", "ops.ring_attention",
-              "parallel.sharded", "train_llama"):
+              "parallel.sharded", "train_llama", "serve.fleet",
+              "serve.handoff", "serve.traffic", "serve.autoscale",
+              "obs.slo", "serve_fleet", "generate_llama"):
         assert f"fpga_ai_nic_tpu_torch.{m}" in mods, m
     mods.append("chip_smoke")
     code = textwrap.dedent(f"""

@@ -17,7 +17,8 @@ kv heads) and a tiny MoE Llama (experts' hidden split over tp):
   serving the streams of the tp = 1 engine and of JAX's engine, evictions
   included (JAX's own tp engine test is red: ROADMAP C.4);
 - the refusals: ``page_integrity`` with tp (JAX's ``ValueError``), a
-  tp_mesh with other axes, pp with tp.
+  tp_mesh with other axes, pp with tp; and the roles with tp (a prefill
+  replica's pages handed to a decode replica give the tp = 1 stream).
 """
 
 import dataclasses
@@ -37,8 +38,8 @@ from fpga_ai_nic_tpu.serve import ServeConfig as JaxServeConfig
 from fpga_ai_nic_tpu.serve import ServeEngine as JaxServeEngine
 from fpga_ai_nic_tpu_torch.models import llama, llama_decode as dec
 from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
-from fpga_ai_nic_tpu_torch.serve import (ServeConfig, ServeEngine, init_pool,
-                                         pool_bytes)
+from fpga_ai_nic_tpu_torch.serve import (ServeConfig, ServeEngine, handoff,
+                                         init_pool, pool_bytes)
 from fpga_ai_nic_tpu_torch.utils.config import MeshConfig
 
 JC = jax_llama.LlamaConfig.tiny()
@@ -254,9 +255,35 @@ def test_tp_engine_refusals(world):
     with pytest.raises(ValueError, match="must divide n_heads"):
         ServeEngine(params, pc, scfg, device="cpu",
                     tp_mesh=MeshConfig(tp=3))
-    # roles other than "both", chaos and the watchdog still wait
-    for kw, item in ((dict(role="decode"), "A.7"),
-                     (dict(chaos=object()), "A.8")):
-        with pytest.raises(NotImplementedError, match=item):
-            ServeEngine(params, pc, scfg, device="cpu",
-                        tp_mesh=MeshConfig(tp=2), **kw)
+    # chaos and the watchdog still wait for A.8
+    with pytest.raises(NotImplementedError, match="A.8"):
+        ServeEngine(params, pc, scfg, device="cpu",
+                    tp_mesh=MeshConfig(tp=2), chaos=object())
+    # the roles, refused with tp until the fleet was ported, run with tp
+    # as JAX's engine allows: a prefill replica prefills only, its pages
+    # hand off to a decode replica, which decodes only; the stream is the
+    # tp = 1 engine's
+    _, prompts = world[0], world[2]
+    (ref,), _ = _serve(ServeEngine(params, pc, scfg, device="cpu"),
+                       prompts[:1])
+    pre, dcd = (ServeEngine(params, pc, scfg, device="cpu",
+                            tp_mesh=MeshConfig(tp=2), role=role)
+                for role in ("prefill", "decode"))
+    req = pre.submit(prompts[0], MAX_NEW)
+    dcd.submit(prompts[1], MAX_NEW)          # a decode replica admits none
+    while req.state != "decode":
+        pre.tick()
+        dcd.tick()
+    src = pre.batcher.pages_of(req)
+    dst = dcd.alloc.alloc(len(src))
+    handoff.apply_handoff(handoff.plan_for(pc, scfg, len(src)), pre.pool,
+                          dcd.pool, src, dst)
+    pre.batcher.release(req)
+    assert dcd.batcher.adopt(req, dst) is not None
+    while not req.done:
+        assert pre.tick() is False
+        dcd.tick()
+    assert req.generated == ref.generated
+    assert pre.trace_counts() == {"prefill": 1, "decode": 0}
+    assert dcd.trace_counts() == {"prefill": 0, "decode": 1}
+    assert len(dcd.batcher.waiting) == 1
