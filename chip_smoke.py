@@ -117,8 +117,8 @@ Phases, each printing JSON lines:
   8. serving parity: one decode step's and one prefill chunk's operands,
      snapshotted during the run, through ``forward_paged`` with the kernel
      and with the gathered-view reference (logit error within a stated
-     limit that three fault controls exceed); and the 24 streams against
-     the port's contiguous-cache ``generate()``, counted;
+     limit that three fault controls exceed); and the first 8 streams
+     against the port's contiguous-cache ``generate()``, counted;
   9. the Llama training path: ``ShardedTrainer`` as the ``train_llama``
      driver builds it, Llama-3-8B width with 4 layers (random weights from
      a seed), attn_block 512 on the flash kernels, sequence 4096, global
@@ -237,7 +237,7 @@ Phases, each printing JSON lines:
  20. ``moe_serving_path``: ``ServeEngine`` at Mixtral-8x7B width with 8
      layers, the serving path's config and requests, its parity (routing
      pinned to the kernel route's, the unpinned error reported) and its
-     streams against ``generate()``, counted;
+     first 8 streams against ``generate()``, counted;
  21. ``moe_sp_hop_checks``, ``moe_sp_train_path`` and
      ``moe_sp_train_parity``: sp with MoE over dp=2 x sp=2 x ep=2 at
      Mixtral-8x7B width, remat and a clip (the hop's flash kernels, the
@@ -283,11 +283,11 @@ Phases, each printing JSON lines:
      batch 4 over dp=1 x pp=2 x ep=2 x sp=2, 2 microbatches, remat, clip
      1.0, under GPipe and 1F1B: as 24, plus ``drop_frac`` (at dp=1 the
      reduce-scatter is the identity: no ring_rs_update launches);
- 26. ``llama_pp_sp_train_parity``: 23 at sequence 4096 over dp=2 x pp=2 x
+ 26. ``llama_pp_sp_train_parity``: 23 at sequence 2048 over dp=2 x pp=2 x
      sp=2 (GPipe on the plain attention, 1F1B, interleaved 1F1B and the
      dp=2 x sp=2 path at pp=1 against GPipe on the kernels);
  27. ``moe_pp_train_parity``: at Mixtral-8x7B width, 2 layers, sequence
-     4096, batch 4 over dp=1 x pp=2 x ep=2 x sp=2, capacity factor 4
+     2048, batch 4 over dp=1 x pp=2 x ep=2 x sp=2, capacity factor 4
      (nothing drops): the whole tree's gradient under 1F1B, GPipe on the
      plain attention and the sp x ep path at pp=1 against GPipe on the
      kernels, the experts pinned to the reference's a token at a time,
@@ -327,7 +327,7 @@ Phases, each printing JSON lines:
      over tp checked, ``ring_ag`` checked bit for bit on sampled tiles
      and timed on a (tp, pp) row, peak memory, a profile) and
      ``llama_pp_tp_train_parity`` (at the path's sequence and
-     microbatches, under GPipe and 1F1B: two steps' masters at pp=2 x
+     microbatches and 2 layers, under GPipe and 1F1B: two steps' masters at pp=2 x
      tp=2 against pp=2 x tp=1 within 0.05 of the update, losses within
      2e-3, the loss backwarded once a tp rank above the limit);
  36. ``accum_path``: the MLP main path at ``accum_steps=4`` against 1
@@ -373,6 +373,27 @@ Phases, each printing JSON lines:
      autoscaler scales out, no token lost, every stream not replayed
      equal to the single engine's; its decisions and SLO snapshot);
      then ``generate_llama``'s default run;
+ 42. ``elastic_path`` (after the MLP phases): JAX's seven fault cells on
+     ``ElasticTrainer`` over the main path's trainer with integrity on
+     (4 steps a cell, mirrored checkpoints every 2 steps, ``keep_last=2``,
+     the fault at step 3; the collective cell on the codec route, the
+     others on the fused kernels): each spec fires once, the masters end
+     bit-equal to the fault-free steps, ``slowdown@staging`` recovers
+     nothing; MTTR, save seconds by part, every watchdog thread joined;
+ 43. ``durability_path``: the same state, ``shards=8``, mirrored: audit,
+     peer repair bit-exact, a double corruption refused, a stale
+     manifest walked back, kill and diskfull at ``ckpt.save``, an
+     emergency dump, a BFP-compressed save (ratio, error bound), the
+     restored step bit-equal at dp=8 and finite at dp=4;
+ 44. ``serve_chaos_path`` (after 41, on the serving weights): 8 requests
+     fault-free, then under a hang past ``step_timeout_s``, an exception,
+     a preemption, a ``wirebit`` and a ``nan`` corruption of the pool
+     (the page ledger trips), then a ``nan`` with the ledger off (the
+     logit guard trips); streams equal to the fault-free ones or apart
+     at a top-2 margin under 0.1;
+ 45. ``ckpt_driver_path`` (after ``auto_route``): ``train_llama --save=``
+     at the tiny config, then ``generate_llama --ckpt=``, equal to
+     ``generate()`` on the restored parameters;
  34. the ``kernels`` line (the offset instantiations' rows among them,
      the ablated ring_rs instantiations' rows from ``ring_cost_stages``,
      their launches from ``llama_sp_train_path``; the MoE paths'
@@ -381,7 +402,8 @@ Phases, each printing JSON lines:
      ``moe_pp_*``, the tp paths' as ``tp_*`` and ``moe_tp_*``, the pp x tp
      path's as ``pp_tp_*``, the new phases' launches as ``accum_*``,
      ``data_path_*``, ``codec_auto_*`` and ``queued_*``, the fleet's as
-     ``fleet_*``), then the
+     ``fleet_*``, the restore tier's as ``elastic_*``, ``durability_*``,
+     ``serve_chaos_*`` and ``ckpt_driver_*``), then the
      last line ``{"ok": true, "device":
      {...}}``.
 
@@ -2479,6 +2501,10 @@ def serving_profile(dev, cfg, scfg, run) -> dict:
 # control (last key dropped) by 0.59 and 0.36; the limit sits between, six
 # bf16 steps at the logits' magnitude (4 to 8).
 PARITY_LOGIT_TOL = 0.1875
+# streams held against generate() after serving parity: the first 8 of
+# the run's (cut from all 24 to make room for the restore tier's phases:
+# one generate a stream at 32 layers is the phase's whole cost)
+VS_GENERATE_STREAMS = 8
 PARITY_CONTROLS = ("last_key_dropped", "newest_page_hidden", "pages_rotated")
 
 
@@ -2501,8 +2527,9 @@ def serving_parity(dev, cfg, scfg, run, label="") -> None:
     """Kernel against the gathered-view reference on the snapshotted
     operands: the largest logit error must stay within PARITY_LOGIT_TOL,
     every fault control must exceed it, most rows' top-2 margin must exceed
-    the error, and there the argmax must agree.  Then the served streams
-    against the port's contiguous-cache ``generate()``, counted.  With MoE
+    the error, and there the argmax must agree.  Then the first
+    ``VS_GENERATE_STREAMS`` served streams against the port's
+    contiguous-cache ``generate()``, counted.  With MoE
     layers the reference and the controls take the kernel route's expert
     choices (``pinned_routing``): a near tie that the two attention
     routes' rounding decides differently moves a row's logits by more
@@ -2581,7 +2608,8 @@ def serving_parity(dev, cfg, scfg, run, label="") -> None:
             raise AssertionError(f"serving parity ({kind}) failed: {checks}")
         del lk, lr, controls
     equal, diverged = 0, []
-    for req, p in zip(run["reqs"], run["prompts"]):
+    for req, p in zip(run["reqs"][:VS_GENERATE_STREAMS],
+                      run["prompts"]):
         prompt = torch.from_numpy(p).to(dev)
         ref = llama_decode.generate(params, prompt[None], MAX_NEW, cfg)[
             0, len(p):].tolist()
@@ -2598,7 +2626,8 @@ def serving_parity(dev, cfg, scfg, run, label="") -> None:
         diverged.append({"uid": req.uid, "prompt_len": len(p), "at": k,
                          "served": req.generated[k], "generate": ref[k],
                          "generate_margin": float(top2[0] - top2[1])})
-    emit(phase=label + "serving_vs_generate", streams=len(run["reqs"]),
+    emit(phase=label + "serving_vs_generate",
+         streams=min(VS_GENERATE_STREAMS, len(run["reqs"])),
          token_equal=equal, first_divergences=diverged)
 
 
@@ -5205,7 +5234,7 @@ def llama_pp_train_parity(dev, argv=PP_PARITY_ARGV,
                           pp1="pp1_dp2") -> None:
     """Two SGD steps at Llama-3-8B width, 4 layers, sequence 2048, batch 4
     over dp=2 x pp=2, 2 microbatches (``PP_PARITY_ARGV``; or ``argv``:
-    ``PP_SP_PARITY_ARGV``, sequence 4096 over dp=2 x pp=2 x sp=2, the
+    ``PP_SP_PARITY_ARGV``, sequence 2048 over dp=2 x pp=2 x sp=2, the
     phase ``llama_pp_sp_train_parity``), each from the same seeded
     weights and batch: GPipe on the kernels is the reference; GPipe on
     the plain attention route (attn_impl xla), 1F1B and interleaved 1F1B
@@ -5315,10 +5344,12 @@ MOE_PP_TRAIN_ARGV = MOE_MODEL_ARGV + [
     "--mesh.ep=2", "--mesh.sp=2", "--microbatches=2", "--iters=3"
 ] + PP_RING_ARGV + ["--optimizer.clip_norm=1.0"]
 MOE_PP_SCHEDULES = ("gpipe", "1f1b")
+# sequence 2048 (cut from 4096 to make room for the restore tier's
+# phases; the interleaved run keeps the 4 layers): 1024 tokens an sp shard
 PP_SP_PARITY_ARGV = PP_MODEL_ARGV + [
-    "--seq=4096", "--global_batch=4", "--mesh.dp=2", "--mesh.pp=2",
+    "--seq=2048", "--global_batch=4", "--mesh.dp=2", "--mesh.pp=2",
     "--mesh.sp=2", "--microbatches=2", "--iters=2"] + PP_RING_ARGV
-MOE_PP_PARITY_SEQ = 4096
+MOE_PP_PARITY_SEQ = 2048      # cut from 4096, as PP_SP_PARITY_ARGV
 MOE_PP_PARITY_CF = 4.0        # E / top_k: nothing drops at any cut
 
 
@@ -6152,15 +6183,17 @@ PP_TP_TRAIN_ARGV = PP_MODEL_ARGV + [
 PP_TP_SCHEDULES = ("gpipe", "1f1b", "1f1b-interleaved")
 PP_TP_FLASH_SHAPES = (     # name, B, H, n_kv at S=4096, causal
     ("a microbatch, both tp ranks' heads, one launch", 1, 32, 8),)
+# 2 layers (cut from the timed path's 4 to make room for the restore
+# tier's phases): one layer a stage under GPipe and 1F1B
 PP_TP_PARITY_ARGV = PP_MODEL_ARGV + [
-    "--seq=4096", "--global_batch=4", "--mesh.pp=2", "--mesh.tp=2",
-    "--microbatches=4", "--iters=2"] + PP_RING_ARGV
+    "--model.n_layers=2", "--seq=4096", "--global_batch=4", "--mesh.pp=2",
+    "--mesh.tp=2", "--microbatches=4", "--iters=2"] + PP_RING_ARGV
 PP_TP_PARITY_SCHEDULES = ("gpipe", "1f1b")
 
 
 def llama_pp_tp_train_parity(dev) -> None:
     """Two SGD steps from the same seeded weights on the same batch
-    (``PP_TP_PARITY_ARGV``: the timed path's Llama-3-8B width, 4 layers,
+    (``PP_TP_PARITY_ARGV``: the timed path's Llama-3-8B width at 2 layers,
     sequence 4096, batch 4, 4 microbatches, remat, the BFP ring kernels)
     at dp=1 x pp=2 x tp=2 against pp=2 x tp=1 under the same schedule,
     for each of ``PP_TP_PARITY_SCHEDULES``: the losses within
@@ -7055,6 +7088,513 @@ def staging_check() -> dict:
     return {"build_s": build_s}
 
 
+# -- 42-45. A.8's restore tier: the elastic loop, the durability plane, the
+# serving tick's faults, the checkpoint drivers ------------------------------
+
+ELASTIC_STEPS = 4          # a cell's steps; the fault fires at step 3
+ELASTIC_CKPT_EVERY = 2     # so a fault at step 3 rewinds to step 2
+ELASTIC_TIMEOUT_FLOOR_S = 1.0   # step_timeout_s: this, or 20 warm steps
+ELASTIC_CELLS = [          # JAX's seven (tests/test_chaos.py:226-234)
+    ("exception", "queue.issue", "nan"),
+    ("preemption", "queue.issue", "nan"),
+    ("hang", "queue.wait", "nan"),
+    ("slowdown", "staging", "nan"),
+    ("corruption", "staging", "nan"),
+    ("corruption", "queue.wait", "nan"),
+    ("corruption", "collective", "scale"),
+]
+
+
+def _disk_free_gb(path) -> float:
+    import shutil
+    return shutil.disk_usage(path).free / 1e9
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def _shard_file(c, step, j, mirror=False) -> str:
+    """The file of shard ``j`` of step ``step``'s stored ``w_own``."""
+    entry = next(e for e in c.read_manifest(step)["leaves"]
+                 if e["path"] == ["w_own"])
+    rec = entry["shards"][j]
+    return os.path.join(c._path(step), rec["mirror" if mirror else "file"])
+
+
+def _elastic_trainer(dev, mcfg, sgd, bx, by, fused):
+    """The main path's MLP trainer (full width, dp=8, global batch 5376,
+    SGD lr 0.1) with ``integrity_check=True``: on the fused BFP ring
+    kernels, or with ``fused=False`` on the codec route (the unfused rings
+    on the ``bfp_codec.cu`` kernels, the route the collective tap sees)."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (
+        BFPConfig, CollectiveConfig, MeshConfig, TrainConfig)
+    coll = CollectiveConfig(impl="ring", compression=BFPConfig(codec="pallas"),
+                            fused_kernel=fused, fused_optimizer=True,
+                            integrity_check=True)
+    cfg = TrainConfig(global_batch=5376, mesh=MeshConfig(dp=8),
+                      collective=coll, optimizer=sgd)
+    tr = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg), VirtualRanks(8, dev),
+                   cfg)
+    st = tr.init_state(mlp.init(torch.Generator().manual_seed(0), mcfg, dev))
+    return tr, st, tr.shard_batch((bx, by))
+
+
+def _plain_steps(tr, st, batch, n):
+    """``n`` plain steps; returns the states after each."""
+    out = []
+    for _ in range(n):
+        st, _ = tr.step(st, batch)
+        out.append(st)
+    return out
+
+
+def elastic_path(dev, kernels, mcfg, sgd, bx, by, smi) -> dict:
+    """JAX's seven fault cells on ``ElasticTrainer`` over the main path's
+    trainer at full width (integrity on, mirrored checkpoints every 2
+    steps, ``keep_last=2``, 4 steps a cell, the fault at step 3).  Each
+    trainer takes a clean step first (the kernels are built; its second
+    step times the warm step that sizes ``step_timeout_s``).  Six cells
+    run on the fused BFP ring kernels, ``corruption@collective`` on the
+    codec route.  A cell's launch counts are zeroed just before its run
+    and read just after; its final masters must be bit-equal to the same
+    route's fault-free steps, every spec fire once, ``slowdown@staging``
+    recover nothing, and every watchdog thread be joined before the next
+    cell."""
+    import shutil
+    import tempfile
+    import torch
+    from fpga_ai_nic_tpu_torch.parallel.elastic import (ElasticConfig,
+                                                        ElasticTrainer)
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    t_phase = time.perf_counter()
+    routes = {}
+    for fused in (True, False):
+        tr, st0, batch = _elastic_trainer(dev, mcfg, sgd, bx, by, fused)
+        tr.step(st0, batch)                       # clean step: warm
+        sync(dev)
+        t0 = time.perf_counter()
+        tr.step(st0, batch)
+        sync(dev)
+        warm_ms = 1e3 * (time.perf_counter() - t0)
+        ref = _plain_steps(tr, st0, batch, ELASTIC_STEPS)[-1].w_own.clone()
+        routes[fused] = (tr, st0, batch, warm_ms, ref)
+    codec_equals_fused = bool(torch.equal(routes[True][4], routes[False][4]))
+    warm_ms = max(r[3] for r in routes.values())
+    timeout = max(ELASTIC_TIMEOUT_FLOOR_S, 20 * warm_ms / 1e3)
+    root = tempfile.mkdtemp(prefix="elastic_")
+    emit(phase="elastic_setup", card=smi, warm_step_ms={
+        "fused": routes[True][3], "codec": routes[False][3]},
+         step_timeout_s=timeout, hang_s=timeout + 1.0,
+         codec_route_masters_equal_fused=codec_equals_fused,
+         disk_free_gb=_disk_free_gb(root), ckpt_dir=root)
+    ecfg = ElasticConfig(step_timeout_s=timeout, max_retries=3,
+                         backoff_s=0.01, ckpt_every=ELASTIC_CKPT_EVERY,
+                         ckpt_keep_last=2, ckpt_mirror=True)
+    launches_all = {name: 0 for name in kernels}
+    cells = {}
+    chaos.install_collective_tap()
+    try:
+        for kind, site, mode in ELASTIC_CELLS:
+            fused = site != "collective"
+            tr, st0, batch, _, ref = routes[fused]
+            plan = chaos.FaultPlan([chaos.FaultSpec(
+                kind, site, step=3, mode=mode,
+                duration_s=timeout + 1.0 if kind == "hang" else 0.2)],
+                seed=11)
+            d = os.path.join(root, f"{kind}@{site}")
+            for k in kernels.values():
+                k.launches = 0
+            sync(dev)
+            t0 = time.perf_counter()
+            with chaos.activate(plan):
+                et = ElasticTrainer(tr, d, ecfg, plan=plan,
+                                    stage_fn=plan.stage)
+                st, metrics = et.run(st0, lambda i: batch, ELASTIC_STEPS)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            launches = {name: k.launches for name, k in kernels.items()}
+            t0 = time.perf_counter()
+            alive = et.join(60.0)
+            join_s = time.perf_counter() - t0
+            rec = et.profiler.recovery.as_dict()
+            equal = bool(torch.equal(st.w_own, ref))
+            save = dict(et.ckpt.last_save)
+            cell = {"fired": [(f.kind, f.site, f.step) for f in plan.fired],
+                    "faults": rec["faults"], "recoveries": rec["recoveries"],
+                    "restores": rec["checkpoint_restores"],
+                    "mttr_mean_s": rec["mttr_mean_s"],
+                    "mttr_max_s": rec["mttr_max_s"], "wall_s": wall,
+                    "join_s": join_s, "threads_alive": alive,
+                    "route": "fused" if fused else "codec",
+                    "masters_bitequal": equal, "step": st.step,
+                    "loss": float(metrics["loss"]), "last_save_s": save,
+                    "ckpt_bytes": _dir_bytes(d), "launches": launches}
+            cells[f"{kind}@{site}"] = cell
+            emit(phase="elastic_path", cell=f"{kind}@{site}", card=smi,
+                 **cell)
+            for name, v in launches.items():
+                launches_all[name] += v
+            shutil.rmtree(d, ignore_errors=True)
+            path_kernels = (("ring_rs_update", "ring_ag") if fused else
+                            ("bfp_encode", "bfp_decode"))
+            bad = [n for n in path_kernels if launches[n] == 0]
+            if (len(plan.fired) != 1 or not equal or alive
+                    or st.step != ELASTIC_STEPS or bad
+                    or (rec["faults_total"] != 0) == (kind == "slowdown")
+                    or (kind != "slowdown"
+                        and rec["checkpoint_restores"] < 1)):
+                raise AssertionError(f"elastic_path {kind}@{site}: {cell}")
+    finally:
+        chaos.uninstall_collective_tap()
+        shutil.rmtree(root, ignore_errors=True)
+    emit(phase="elastic_path_total", card=smi,
+         wall_s=time.perf_counter() - t_phase, launches=launches_all)
+    fused_tr, st0, batch, _, _ = routes[True]
+    return {"launches": launches_all, "cells": cells,
+            "trainer": (fused_tr, st0, batch), "timeout": timeout}
+
+
+def durability_path(dev, kernels, trainer, mcfg, sgd, bx, by, smi) -> dict:
+    """The durability plane on the main path's full-width state (dp=8:
+    w_own 41,975,808 f32, 167.9 MB; a mirrored step 335.8 MB), with
+    ``shards=8`` and ``mirror=True``: the audit clean; a flipped stored
+    bit of a primary shard repaired bit-exact from its peer; primary and
+    mirror both flipped refused; a stale manifest walked back; ``kill``
+    and ``diskfull`` at ``ckpt.save`` leaving exactly the previous
+    verified step; an emergency dump flagged; a ``BFPConfig()``-
+    compressed save's size ratio and its roundtrip error within JAX's
+    bound (``tests/test_checkpoint.py:18``); the state restored at dp=8
+    takes a step bit-equal to the uninterrupted run's, and a restore at
+    dp=4 (``repad_flat``) takes a finite step.  Each save's seconds split
+    into host pull, encode, checksums and write."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    from fpga_ai_nic_tpu_torch.utils import checkpoint as ckpt
+    from fpga_ai_nic_tpu_torch.utils.config import (BFPConfig, MeshConfig,
+                                                    TrainConfig)
+    t_phase = time.perf_counter()
+    tr, st0, batch = trainer
+    for k in kernels.values():
+        k.launches = 0
+    s2, s3 = _plain_steps(tr, st0, batch, 3)[1:]
+    sync(dev)
+    want = s2.w_own.reshape(-1).cpu().numpy()
+    root = tempfile.mkdtemp(prefix="durability_")
+    out = {"disk_free_gb": _disk_free_gb(root)}
+    checks = {}
+    try:
+        d = os.path.join(root, "mirrored")
+        c = ckpt.Checkpointer(d, shards=8, mirror=True, keep_last=2)
+        c.save(2, s2)
+        out["save_s"] = dict(c.last_save)
+        out["step_bytes"] = _dir_bytes(c._path(2))
+        t0 = time.perf_counter()
+        checks["audit_clean"] = c.audit_step(2).ok
+        out["audit_s"] = time.perf_counter() - t0
+        ckpt.flip_stored_bit(_shard_file(c, 2, 3), byte_off=4 * 12345)
+        t0 = time.perf_counter()
+        rep = c.audit_step(2, repair=True)
+        out["repair_s"] = time.perf_counter() - t0
+        checks["repaired_bitexact"] = (
+            len(rep.repaired) == 1 and rep.repair_wire_bytes ==
+            want.nbytes // 8
+            and np.array_equal(c.restore(2)["w_own"], want))
+        out["repair_wire_bytes"] = rep.repair_wire_bytes
+        c.save(3, s3)
+        shutil.copyfile(os.path.join(c._path(2), ckpt.MANIFEST_FILE),
+                        os.path.join(c._path(3), ckpt.MANIFEST_FILE))
+        step, tree = c.restore_latest_verified()
+        checks["stale_manifest_walks_back"] = (
+            step == 2 and np.array_equal(tree["w_own"], want))
+        for mirror in (False, True):
+            ckpt.flip_stored_bit(_shard_file(c, 2, 5, mirror))
+        try:
+            c.restore(2)
+            checks["double_corruption_refused"] = False
+        except ckpt.CheckpointIntegrityError:
+            checks["double_corruption_refused"] = True
+        shutil.rmtree(d)
+        # save interrupts: the op stream cut at half its ops
+        for kind in ("kill", "diskfull"):
+            plan = chaos.FaultPlan([chaos.FaultSpec(kind, "ckpt.save", step=3,
+                                                    fraction=0.5)])
+            d = os.path.join(root, kind)
+            c = ckpt.Checkpointer(d, shards=8, mirror=True, keep_last=2,
+                                  chaos=plan)
+            c.save(2, s2)
+            plan.begin_step(3)
+            try:
+                c.save(3, s3)
+                raised = None
+            except (chaos.InjectedFault, OSError) as err:
+                raised = type(err).__name__
+            c2 = ckpt.Checkpointer(d, shards=8, mirror=True)
+            checks[f"{kind}_leaves_previous_step"] = (
+                raised is not None and len(plan.fired) == 1
+                and c2.latest_step(verified=True) == 2
+                and np.array_equal(c2.restore(2)["w_own"], want))
+            out[f"{kind}_raised"] = raised
+            if kind == "kill":
+                # an emergency dump over the leftovers
+                c2.save(3, s3, emergency=True)
+                checks["emergency_flagged"] = (
+                    c2.is_emergency(3) and c2.audit_step(3).ok
+                    and c2.latest_step(verified=True) == 3)
+            shutil.rmtree(d)
+        # one compressed save
+        d = os.path.join(root, "bfp")
+        c = ckpt.Checkpointer(d, compress=BFPConfig())
+        c.save(2, s2)
+        out["compressed_save_s"] = dict(c.last_save)
+        comp = _dir_bytes(c._path(2))
+        got = c.restore(2)["w_own"]
+        err = float(np.abs(got - want).max())
+        lim = 2 ** -6 * max(float(np.abs(want).max()), 1e-9) * 2
+        out.update(compressed_bytes=comp,
+                   compressed_ratio=comp / want.nbytes,
+                   compressed_max_abs_err=err, compressed_err_bound=lim)
+        checks["compressed_within_bound"] = err <= lim
+        shutil.rmtree(d)
+        # restores that train: dp=8 bit-equal, dp=4 finite
+        payload = {"w_own": want, "opt_state": {}, "step": np.int32(2)}
+        t0 = time.perf_counter()
+        back = tr.restore_state(payload)
+        sync(dev)
+        out["restore_state_s"] = time.perf_counter() - t0
+        got3, _ = tr.step(back, batch)
+        checks["restored_step_bitequal"] = bool(torch.equal(got3.w_own,
+                                                            s3.w_own))
+        del back, got3
+        cfg4 = TrainConfig(global_batch=5376, mesh=MeshConfig(dp=4),
+                           collective=tr.cfg.collective, optimizer=sgd)
+        tr4 = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg),
+                        VirtualRanks(4, dev), cfg4)
+        st4 = tr4.restore_state(payload, params_like=mlp.init(
+            torch.Generator().manual_seed(0), mcfg, "cpu"))
+        st4, diag = tr4.step(st4, tr4.shard_batch((bx, by)))
+        out["dp4_padded_len"] = tr4._meta.padded_len
+        out["dp4_loss"] = float(diag["loss"])
+        checks["dp4_step_finite"] = bool(
+            math.isfinite(out["dp4_loss"])
+            and torch.isfinite(st4.w_own).all())
+        del st4, tr4
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sync(dev)
+    launches = {name: k.launches for name, k in kernels.items()}
+    emit(phase="durability_path", card=smi, checks=checks,
+         wall_s=time.perf_counter() - t_phase, launches=launches, **out)
+    if not all(checks.values()) or launches["ring_rs_update"] == 0 \
+            or launches["ring_ag"] == 0:
+        raise AssertionError(f"durability_path: {checks} {launches}")
+    return {"launches": launches, "checks": checks, **out}
+
+
+SERVE_CHAOS_REQUESTS = 8
+
+
+def _judge_streams(dev, cfg, params, prompts, want, got) -> dict:
+    """Each stream against the fault-free engine's: equal, or diverging
+    only at a token whose fault-free top-2 margin (the contiguous
+    forward's logits at that point) is under ``PARITY_TIE_MARGIN``."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import llama_decode
+    equal, diverged = 0, []
+    for p, ref, gen in zip(prompts, want, got):
+        if gen == ref:
+            equal += 1
+            continue
+        k = next(i for i, (a, b) in enumerate(zip(ref, gen)) if a != b)
+        ctx = torch.cat([torch.from_numpy(p).to(dev),
+                         torch.tensor(ref[:k], dtype=torch.int32,
+                                      device=dev)])
+        cache = llama_decode.init_cache(cfg, 1, len(ctx), device=dev)
+        logits, _ = llama_decode.forward(params, ctx[None], cache, 0, cfg)
+        top2 = logits[0, -1].float().topk(2).values
+        diverged.append({"at": k, "got": gen[k], "want": ref[k],
+                         "margin": float(top2[0] - top2[1])})
+        del cache, logits
+    return {"equal": equal, "diverged": diverged,
+            "ok": all(d["margin"] < PARITY_TIE_MARGIN for d in diverged)}
+
+
+PARITY_TIE_MARGIN = 0.1
+
+
+def serve_chaos_path(dev, cfg, scfg, params, kernels, smi) -> dict:
+    """The serving phase's engine (Llama-3-8B, 32 layers, its config with
+    ``page_integrity=True``, its weights) on 8 requests: fault-free, then
+    under a plan at ``serve.step`` — a hang past ``step_timeout_s``, an
+    exception, a preemption, a ``wirebit`` corruption of the pool (the
+    page ledger trips) and a ``nan`` one (with the ledger on, the ledger
+    trips first) — then a ``nan`` corruption with the ledger off (the
+    logit guard trips).  ``step_timeout_s`` stands 10x above the slowest
+    warm fault-free tick (2 s at least); tick 0 of each run is clean.  Streams are judged
+    against the fault-free engine's (``_judge_streams``: a replayed
+    request re-prefills its tokens in another GEMM shape, so a bf16 near
+    tie may flip).  Every watchdog thread is joined before the phase
+    ends."""
+    import torch
+    from fpga_ai_nic_tpu_torch import serve_llama
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    from fpga_ai_nic_tpu_torch.serve import ServeEngine
+    t_phase = time.perf_counter()
+    prompts = serve_llama.make_prompts(SERVE_SEED + 3, SERVE_CHAOS_REQUESTS,
+                                       PROMPT_MIN, PROMPT_MAX, cfg.vocab)
+    eng = ServeEngine(params, cfg, scfg, device=dev)
+    ref = [eng.submit(p, MAX_NEW) for p in prompts]
+    sync(dev)
+    t0 = time.perf_counter()
+    s0 = eng.run()
+    sync(dev)
+    free_wall = time.perf_counter() - t0
+    ticks_ms = [e["dur_ns"] / 1e6 for e in eng.profiler.events.snapshot()
+                if e["name"] == "serve.tick" and "dur_ns" in e]
+    # the slowest warm tick (the first may still load a kernel library)
+    tick_max_ms = max(ticks_ms[1:])
+    want = [list(r.generated) for r in ref]
+    eng.pool = []
+    del eng
+    timeout = max(2.0, 10 * tick_max_ms / 1e3)
+    runs = {}
+    for label, pi, specs in (
+            ("ledger_on", True, [
+                chaos.FaultSpec("hang", "serve.step", step=2,
+                                duration_s=timeout + 1.5),
+                chaos.FaultSpec("exception", "serve.step", step=4),
+                chaos.FaultSpec("preemption", "serve.step", step=6),
+                chaos.FaultSpec("corruption", "serve.step", step=8,
+                                mode="wirebit"),
+                chaos.FaultSpec("corruption", "serve.step", step=10,
+                                mode="nan")]),
+            ("ledger_off", False, [
+                chaos.FaultSpec("corruption", "serve.step", step=3,
+                                mode="nan")])):
+        plan = chaos.FaultPlan(specs, seed=9)
+        eng = ServeEngine(params, cfg, dataclasses.replace(
+            scfg, page_integrity=pi, step_timeout_s=timeout, backoff_s=0.0),
+            device=dev, chaos=plan)
+        reqs = [eng.submit(p, MAX_NEW) for p in prompts]
+        for k in kernels.values():
+            k.launches = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        with chaos.activate(plan):
+            s = eng.run()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        t0 = time.perf_counter()
+        alive = eng.join_watchdog(60.0)
+        join_s = time.perf_counter() - t0
+        judged = _judge_streams(dev, cfg, params, prompts, want,
+                                [list(r.generated) for r in reqs])
+        run = {"fired": [(f.kind, f.step, f.mode) for f in plan.fired],
+               "faults": s["recovery"]["faults"],
+               "recoveries": s["serve_recoveries"],
+               "mttr_mean_s": s["recovery"]["mttr_mean_s"],
+               "page_trips": s["page_trips"],
+               "logit_trips": s["logit_trips"], "ticks": s["ticks"],
+               "wall_s": wall, "join_s": join_s, "threads_alive": alive,
+               "streams_equal": judged["equal"],
+               "streams_diverged_at_near_tie": judged["diverged"],
+               "launches": launches}
+        runs[label] = run
+        emit(phase="serve_chaos_path", run=label, card=smi,
+             page_integrity=pi, step_timeout_s=timeout,
+             tick_max_fault_free_ms=tick_max_ms,
+             fault_free_wall_s=free_wall, fault_free_ticks=s0["ticks"], **run)
+        eng.pool = []
+        del eng
+        torch.cuda.empty_cache()
+        trips_ok = ((s["page_trips"] >= 2 and s["logit_trips"] == 0) if pi
+                    else (s["logit_trips"] >= 1 and s["page_trips"] == 0))
+        if (len(plan.fired) != len(specs) or alive or not judged["ok"]
+                or s["serve_recoveries"] != len(
+                    [f for f in specs if f.kind != "slowdown"])
+                or not trips_ok or launches["paged_attend"] == 0
+                or (pi and launches["row_checksums"] == 0)):
+            raise AssertionError(f"serve_chaos_path {label}: {run}")
+    emit(phase="serve_chaos_total", wall_s=time.perf_counter() - t_phase)
+    return {"launches": {k: sum(r["launches"][k] for r in runs.values())
+                         for k in kernels}, "runs": runs}
+
+
+CKPT_DRIVER_ARGV = ["--model=tiny", "--model.vocab=384",
+                    "--model.attn_block=128", "--seq=128",
+                    "--global_batch=4", "--mesh.dp=2", "--iters=2",
+                    "--collective.impl=ring",
+                    "--collective.compression.codec=pallas",
+                    "--collective.fused_kernel=true"]
+
+
+def ckpt_driver_path(dev, kernels, smi) -> dict:
+    """``train_llama --save=`` at the tiny config on the card (f32, head
+    dim 16: the second flash family; the BFP ring kernels), launches
+    counted over the driver's run; the saved step's audit clean; then
+    ``generate_llama --ckpt=`` on the card, whose continuation must equal
+    ``generate()`` on the restored parameters in this process."""
+    import shutil
+    import tempfile
+    import torch
+    from fpga_ai_nic_tpu_torch import generate_llama, train_llama
+    from fpga_ai_nic_tpu_torch.models import llama_decode
+    from fpga_ai_nic_tpu_torch.utils import checkpoint as ckpt
+    d = tempfile.mkdtemp(prefix="ckpt_driver_")
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = train_llama.main(CKPT_DRIVER_ARGV + [f"--save={d}"])
+        sync(dev)
+        train_s = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        c = ckpt.Checkpointer(d)
+        audit = c.audit_step(c.latest_step())
+        t0 = time.perf_counter()
+        gen = generate_llama.main([f"--ckpt={d}"])
+        gen_s = time.perf_counter() - t0
+        opts = generate_llama.parse([f"--ckpt={d}"])
+        cfg = opts["cfg"]
+        params = generate_llama.restore_params(d, cfg, dev)
+        from fpga_ai_nic_tpu_torch import text
+        tok = text.ByteTokenizer()
+        ids = torch.tensor([[tok.bos_id] + tok.encode(opts["prompt"])],
+                           dtype=torch.int32, device=dev)
+        again = llama_decode.generate(params, ids, opts["new"], cfg)
+        direct = again[0, ids.shape[1]:].tolist()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    checks = {"audit_clean": audit.ok,
+              "continuation_equals_generate": direct == gen[
+                  "continuation_ids"],
+              "finite": math.isfinite(out["loss_last"]),
+              "ring_kernels_launched": launches["ring_rs_update"] > 0
+              and launches["ring_ag"] > 0,
+              "flash_launched": any(launches[n] > 0 for n in launches
+                                    if n.startswith("flash"))}
+    emit(phase="ckpt_driver_path", card=smi, argv=CKPT_DRIVER_ARGV,
+         train_s=train_s, generate_s=gen_s, loss_last=out["loss_last"],
+         checkpoint=os.path.basename(out["checkpoint"]),
+         process=out["process"], continuation_ids=gen["continuation_ids"],
+         launches=launches, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"ckpt_driver_path: {checks}")
+    return {"launches": launches}
+
+
 def main() -> int:
     # the Llama training phase holds about 60 GB at its peak and frees and
     # reallocates 7-15 GB buffers every step; growable segments keep the
@@ -7291,6 +7831,13 @@ def main() -> int:
     auto_codec_launches = codec_auto_path(dev, kernels, mcfg, sgd, bx, by)
     queued_mlp = queued_mlp_path(dev, kernels, mcfg, bx, by)
 
+    # -- 42-43. the elastic loop's seven cells, the durability plane -------
+    elastic = elastic_path(dev, kernels, mcfg, sgd, bx, by, smi)
+    durability = durability_path(dev, kernels, elastic.pop("trainer"), mcfg,
+                                 sgd, bx, by, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 6. the int8 codec path and the convergence eval ---------------------------
     int8_launches = int8_train_path(dev, kernels, sgd, bx, by)
     del bx, by
@@ -7319,6 +7866,9 @@ def main() -> int:
 
     # -- 41. the serving fleet on the same weights, then generate_llama -----
     fleet = fleet_phases(dev, lcfg, srv, run["params"], serve_kernels, smi)
+    # -- 44. faults inside the serving tick, on the same weights -----------
+    serve_chaos = serve_chaos_path(dev, lcfg, srv, run["params"],
+                                   serve_kernels, smi)
     del run["params"], run["snaps"], run["reqs"]
     torch.cuda.empty_cache()
 
@@ -7326,6 +7876,12 @@ def main() -> int:
     train = llama_train_path(dev, serve_kernels)
     llama_train_parity(dev, train)
     auto = auto_route(dev)
+    # -- 45. train_llama --save= and generate_llama --ckpt= on the card ----
+    ckpt_driver = ckpt_driver_path(dev, dict(
+        kernels, **{name: getattr(flash_attention, name.upper())
+                    for name in ("flash_fwd", "flash_dq", "flash_dkv",
+                                 "flash_fwd_generic", "flash_dq_generic",
+                                 "flash_dkv_generic")}), smi)
 
     # -- 36-37. the Llama cell with accumulation, and on the repo's text -----
     accum_llama = accum_llama_path(dev, serve_kernels)
@@ -7720,6 +8276,30 @@ def main() -> int:
         fleet_handoff_ms=fleet["path"]["handoff"]["ms"],
         fleet_handoff_checked_ms=fleet["path"]["handoff"]["checked_ms"],
         fleet_handoff_bound_ms=fleet["path"]["handoff"]["bound_ms"])
+    a8_from = {
+        "elastic": ("elastic_path (7 cells of 4 steps, MLP full width, dp=8, "
+                    "integrity on; the collective cell on the codec route)"),
+        "durability": ("durability_path (3 steps, 2 restores that train, "
+                       "one at dp=4)"),
+        "serve_chaos": ("serve_chaos_path (Llama-3-8B, 8 requests, two "
+                        "runs under fault plans)"),
+        "ckpt_driver": "ckpt_driver_path (train_llama --save=, tiny, dp=2)"}
+    for name in ("ring_rs_update", "ring_ag", "bfp_encode", "bfp_decode",
+                 "row_checksums"):
+        results[name].setdefault("extra", {}).update(
+            elastic_launches=elastic["launches"][name],
+            elastic_launches_from=a8_from["elastic"],
+            durability_launches=durability["launches"][name],
+            durability_launches_from=a8_from["durability"])
+    for name in ("ring_rs_update", "ring_ag", "flash_fwd_generic",
+                 "flash_dq_generic", "flash_dkv_generic"):
+        results[name].setdefault("extra", {}).update(
+            ckpt_driver_launches=ckpt_driver["launches"][name],
+            ckpt_driver_launches_from=a8_from["ckpt_driver"])
+    for name in ("paged_attend", "row_checksums"):
+        results[name].setdefault("extra", {}).update(
+            serve_chaos_launches=serve_chaos["launches"][name],
+            serve_chaos_launches_from=a8_from["serve_chaos"])
     for name, (src, repl) in meta.items():
         r = results[name]
         bound_ms, bound_by = r["bound"]

@@ -13,7 +13,10 @@ Flags are ``--name=value``: ``--prompt``, ``--new``, ``--temperature``,
 ``--model.<field>=`` (``LlamaConfig.tiny()`` with vocab 384, as the JAX
 driver), ``--seed`` (the random weights, and with ``--temperature`` the
 sampling generator), ``--device`` (default cuda; it raises when CUDA is
-absent).  ``--ckpt`` raises: checkpoints are ROADMAP A.8.
+absent), ``--ckpt=DIR``: the weights of the latest step of a dp-only
+checkpoint (``train_llama --save=``: the flat masters ``w_own`` in
+forward leaf order), with JAX's size check: a tp, pp or ep layout (its
+rows flatten each rank's local shapes) or a layout sidecar is refused.
 """
 
 from __future__ import annotations
@@ -28,20 +31,21 @@ import torch
 from . import serve_llama, text
 from .device import resolve_device
 from .models import llama, llama_decode
+from .ops import fused_update
+from .utils.checkpoint import Checkpointer
+from .utils.config import CollectiveConfig
 
 
 def parse(argv: Sequence[str]) -> Dict[str, Any]:
     opts: Dict[str, Any] = {"prompt": "the quick brown fox", "new": 16,
-                            "temperature": 0.0, "seed": 0, "device": "cuda"}
+                            "temperature": 0.0, "seed": 0, "device": "cuda",
+                            "ckpt": ""}
     cfg = dataclasses.replace(llama.LlamaConfig.tiny(), vocab=384)
     for a in argv:
         key, eq, val = a.partition("=")
         name = key.removeprefix("--")
         if not key.startswith("--") or not eq:
             raise ValueError(f"expected --name=value, got {a!r}")
-        if name == "ckpt":
-            raise NotImplementedError(
-                "--ckpt (restoring a checkpoint) waits for ROADMAP A.8")
         if name.startswith("model."):
             cfg = serve_llama.overlay(cfg, name[len("model."):], val)
         elif name in opts:
@@ -50,6 +54,31 @@ def parse(argv: Sequence[str]) -> Dict[str, Any]:
             raise ValueError(f"unknown flag {key}")
     opts["cfg"] = cfg
     return opts
+
+
+def restore_params(ckpt_dir: str, cfg: llama.LlamaConfig,
+                   device: torch.device) -> llama.Params:
+    """The params of the latest step under ``ckpt_dir`` (JAX's
+    ``examples/generate_llama.py``): the audited restore (a step with a
+    layout sidecar is refused there), then the flat masters unflattened
+    in forward leaf order after JAX's size check, which refuses the
+    sharded layouts."""
+    c = Checkpointer(ckpt_dir)
+    step = c.latest_step()
+    if step is None:
+        raise SystemExit(f"no checkpoint found in {ckpt_dir}")
+    payload = c.restore(step)
+    shapes = llama.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    meta = fused_update.flat_meta(shapes, CollectiveConfig(), 1)
+    flat = torch.from_numpy(payload["w_own"])
+    total = sum(meta.sizes)
+    if not total <= flat.shape[0] <= meta.padded_len + (1 << 16):
+        raise SystemExit(
+            f"checkpoint w_own has {flat.shape[0]} elements; expected "
+            f"~{total} — this looks like a tp/pp/ep-sharded layout, which "
+            "this driver cannot restore")
+    return fused_update.unflatten_tree(flat[:meta.padded_len].to(device),
+                                       meta)
 
 
 def main(argv: Sequence[str],
@@ -62,6 +91,8 @@ def main(argv: Sequence[str],
         raise ValueError(f"--model.vocab={cfg.vocab} < the tokenizer's "
                          f"{tok.vocab_size}")
     dev = resolve_device(opts["device"])
+    if params is None and opts["ckpt"]:
+        params = restore_params(opts["ckpt"], cfg, dev)
     if params is None:
         params = serve_llama.random_params(cfg, opts["seed"], dev)
     ids = torch.tensor([[tok.bos_id] + tok.encode(opts["prompt"])],

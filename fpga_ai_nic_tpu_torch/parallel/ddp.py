@@ -24,8 +24,10 @@ the buckets are reduced, once a step.  The buckets are reduced one after
 the other once the backward is done; ``parallel.queued.QueuedDDPTrainer``
 issues them through the explicit issue/wait queue instead.
 ``integrity_check`` raises ``ValueError`` as the JAX trainer's does (its
-bucketed reduces do not carry the verdicts); in-graph metrics and restore
-raise ``NotImplementedError`` naming their ROADMAP items.
+bucketed reduces do not carry the verdicts); in-graph metrics raise
+``NotImplementedError`` naming ROADMAP A.9.  ``restore_state`` takes a
+``utils.checkpoint`` payload, which stores rank 0's master row (JAX's
+replicated vector).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 from . import accum
 from .mesh import VirtualRanks
-from .train import rank_grads, refuse_fsdp
+from .train import rank_grads, refuse_fsdp, restored_tensor
 from .. import optim
 from ..ops import bucketed, fused_update
 from ..utils.config import CollectiveConfig, TrainConfig
@@ -149,9 +151,27 @@ class DDPTrainer:
         return w if w.dtype == dt else w.to(dt)
 
     def restore_state(self, restored: dict, params_like=None) -> DDPState:
-        raise NotImplementedError(
-            "DDPTrainer.restore_state (utils/checkpoint.py) is not ported: "
-            "ROADMAP A.8")
+        """DDPState from a ``utils.checkpoint`` restore payload (the
+        replicated master ``w_master`` and moments once, ``step``): every
+        rank's row is the stored vector, and the working weights are
+        rebuilt from it.  The layout must be known: call ``init_state``
+        first or pass ``params_like``."""
+        if params_like is not None:
+            self._ensure_meta(params_like)
+        if self._meta is None:
+            raise RuntimeError("flat layout unknown: call init_state "
+                               "first or pass params_like")
+        dev = self.ranks.device
+
+        def rows(v):
+            w = restored_tensor(v, dev).reshape(1, -1).to(torch.float32)
+            return w.repeat(self.n, 1)
+
+        w_master = rows(restored["w_master"])
+        opt_state = {k: rows(v) for k, v in restored["opt_state"].items()}
+        replicas = self._working(w_master)
+        return DDPState(fused_update.unflatten_tree(replicas[0], self._meta),
+                        replicas, w_master, opt_state, int(restored["step"]))
 
     def shard_batch(self, batch) -> Tuple[torch.Tensor, ...]:
         """[B, ...] host tensors -> [n, B/n, ...] on the ranks' device."""

@@ -38,10 +38,12 @@ rides in ``FSDPState.codec_state``.
 
 Parity contract (tests/test_torch_fsdp.py, tests/test_torch_accum.py): the
 losses and masters of the port's ZeRO-1 ``DPTrainer`` on the same model,
-batch and optimizer, and of JAX's ``FSDPTrainer``.  Not ported, raising
-``NotImplementedError`` with the ROADMAP item: checkpoint restore and
-live resharding (A.8), in-graph metrics (A.9).  ``codec="auto"``
-resolves once at ``init_state`` (``tune``, as JAX's ``_resolve_auto``).
+batch and optimizer, and of JAX's ``FSDPTrainer``.  ``restore_state``
+takes a ``utils.checkpoint`` payload (JAX's stored layout, re-padded onto
+this rank count).  Not ported, raising ``NotImplementedError`` with the
+ROADMAP item: live resharding (A.8's reshard slice), in-graph metrics
+(A.9).  ``codec="auto"`` resolves once at ``init_state`` (``tune``, as
+JAX's ``_resolve_auto``).
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ import torch
 
 from . import accum
 from .mesh import VirtualRanks
-from .train import codec_flags, rank_grads, static_metrics
+from .train import codec_flags, rank_grads, restored_rows, static_metrics
 from .. import optim
 from ..ops import fused_update
 from ..utils.config import OptimizerSpec, TrainConfig
@@ -151,24 +153,33 @@ class FSDPTrainer:
 
     # -- init -----------------------------------------------------------------
 
-    def init_state(self, params: Params) -> FSDPState:
-        """Split replicated params into the ranks' master shards: the only
-        copy that outlives the call (the ZeRO-3 memory claim)."""
+    def _resolve_auto(self, params_like) -> None:
+        """The one resolution of a ``codec="auto"`` template (a no-op
+        otherwise), priced at the padded length."""
         from .. import tune as tune_lib
         if tune_lib.needs_autotune(self.cfg.collective):
             self.cfg, self._tuned_plan = tune_lib.resolve_train_config(
-                self.cfg, self.n, params, padded=True)
+                self.cfg, self.n, params_like, padded=True)
             self._codec, self._ef = codec_flags(self.cfg.collective)
+
+    def _init_codec_state(self) -> Optional[torch.Tensor]:
+        """Zeroed per-rank error-feedback residuals [n, L_pad]."""
+        if not self._ef:
+            return None
+        return self._codec.state_init((self.n, self._meta.padded_len),
+                                      self.ranks.device)
+
+    def init_state(self, params: Params) -> FSDPState:
+        """Split replicated params into the ranks' master shards: the only
+        copy that outlives the call (the ZeRO-3 memory claim)."""
+        self._resolve_auto(params)
         coll, opt_cfg = self.cfg.collective, self.cfg.optimizer
         params = fused_update.tree_map(lambda t: t.to(self.ranks.device),
                                        params)
         w_own, opt_state, meta = fused_update.init_master_shard(
             params, coll, opt_cfg, self.n)
         self._meta = meta
-        codec_state = (self._codec.state_init((self.n, meta.padded_len),
-                                              self.ranks.device)
-                       if self._ef else None)
-        return FSDPState(w_own, opt_state, 0, codec_state)
+        return FSDPState(w_own, opt_state, 0, self._init_codec_state())
 
     def shard_batch(self, batch) -> Tuple[torch.Tensor, ...]:
         """[B, ...] host tensors -> [n, B/n, ...] on the ranks' device."""
@@ -285,20 +296,33 @@ class FSDPTrainer:
         return fused_update.unflatten_tree(flat[0].clone(), meta)
 
     def restore_state(self, restored: dict, params_like=None) -> FSDPState:
-        raise NotImplementedError(
-            "FSDPTrainer.restore_state (checkpoints, utils/checkpoint.py) is "
-            "not ported: ROADMAP A.8")
+        """FSDPState from a ``utils.checkpoint`` restore payload (the same
+        stored layout as the ZeRO-1 trainers': the global ``w_own`` and
+        moments, ``step``), re-padded onto this rank count; the
+        error-feedback residual restarts at zero.  The layout must be
+        known: call ``init_state`` first or pass ``params_like``."""
+        if params_like is not None:
+            self._resolve_auto(params_like)
+            self._meta = fused_update.flat_meta(
+                params_like, self.cfg.collective, self.n)
+        meta = self._require_meta()
+        dev = self.ranks.device
+        return FSDPState(
+            restored_rows(restored["w_own"], meta, self.n, dev),
+            {k: restored_rows(v, meta, self.n, dev)
+             for k, v in restored["opt_state"].items()},
+            int(restored["step"]), self._init_codec_state())
 
     def reshard_leaves(self, state: FSDPState) -> dict:
         raise NotImplementedError(
             "FSDPTrainer.reshard_leaves (parallel/reshard.py) is not "
-            "ported: ROADMAP A.8")
+            "ported: ROADMAP A.8, its live reshard slice")
 
     def state_from_reshard(self, leaves: dict, step: int,
                            codec_state: Any) -> FSDPState:
         raise NotImplementedError(
             "FSDPTrainer.state_from_reshard (parallel/reshard.py) is not "
-            "ported: ROADMAP A.8")
+            "ported: ROADMAP A.8, its live reshard slice")
 
 
 __all__: List[str] = ["FSDPState", "FSDPTrainer"]

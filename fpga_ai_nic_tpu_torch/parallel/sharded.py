@@ -127,7 +127,7 @@ import torch
 from . import accum
 from .mesh import VirtualRanks, spec_dims
 from .train import (DPTrainer, Params, TrainState, _rank_leaves,
-                    refuse_fsdp)
+                    refuse_fsdp, restored_tensor)
 from .. import optim
 from ..ops import fused_update
 from ..utils.config import TrainConfig
@@ -302,14 +302,11 @@ class ShardedTrainer(DPTrainer):
 
     # -- the ep / pp layout ----------------------------------------------------
 
-    def init_state(self, params: Params) -> TrainState:
-        """Every (dp, shard) rank's master shard of its shard's flat row
-        (``P((ep, dp))`` or ``P((pp, dp))``); with one shard,
-        ``DPTrainer.init_state``."""
-        if self.n_shards == 1:
-            return super().init_state(params)
-        params = fused_update.tree_map(lambda t: t.to(self.ranks.device),
-                                       params)
+    def _layout(self, params: Params) -> List[Params]:
+        """The tp x pp x ep layout of a params tree (shapes and dtypes
+        are read): the flat meta of a shard's row, the spans of the
+        leaves each shard axis replicates, the clip's norm tables; returns
+        the shards' trees."""
         local = split_ep(params, self.param_specs, self._grid())
         meta = fused_update.flat_meta(local[0], self.cfg.collective, self.n)
         self._meta = meta
@@ -332,6 +329,18 @@ class ShardedTrainer(DPTrainer):
         self._ep_rep_spans = [s[:2] for s in _merge_spans(ep_rep)]
         if self.cfg.optimizer.clip_norm is not None:
             self._norm_weights = self.norm_weight_tables()
+        return local
+
+    def init_state(self, params: Params) -> TrainState:
+        """Every (dp, shard) rank's master shard of its shard's flat row
+        (``P((ep, dp))`` or ``P((pp, dp))``); with one shard,
+        ``DPTrainer.init_state``."""
+        if self.n_shards == 1:
+            return super().init_state(params)
+        params = fused_update.tree_map(lambda t: t.to(self.ranks.device),
+                                       params)
+        local = self._layout(params)
+        meta = self._meta
         flat = torch.empty((self.n_shards, meta.padded_len),
                            dtype=torch.float32, device=self.ranks.device)
         for t, row in zip(local, flat):
@@ -577,6 +586,32 @@ class ShardedTrainer(DPTrainer):
         if self.n_shards == 1:
             return super().params_from_master(w_own)
         return super().params_from_master(self._groups(w_own)[0])
+
+    def restore_state(self, restored: dict, params_like=None) -> TrainState:
+        """TrainState from a ``utils.checkpoint`` restore payload: with
+        shard axes, the stored global vectors are JAX's ``P((tp, pp, ep,
+        dp))`` rows end to end (no re-padding, as in the JAX package), and
+        each shard group's replicas are rebuilt by its gather; with none,
+        ``DPTrainer.restore_state``.  ``params_like``: the whole params
+        tree (as ``init_state`` takes it) when ``init_state`` has not
+        run."""
+        if self.n_shards == 1:
+            return super().restore_state(restored, params_like)
+        if params_like is not None:
+            self._layout(params_like)
+        if self._meta is None:
+            raise RuntimeError("flat layout unknown: call init_state "
+                               "first or pass params_like")
+        dev = self.ranks.device
+
+        def rows(v):
+            return restored_tensor(v, dev).to(torch.float32).reshape(
+                self.n_shards * self.n, -1).contiguous()
+
+        return self._gather(rows(restored["w_own"]),
+                            {k: rows(v) for k, v in
+                             restored["opt_state"].items()},
+                            int(restored["step"]))
 
     def step(self, state: TrainState, batch
              ) -> Tuple[TrainState, torch.Tensor]:

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import accum
@@ -159,6 +160,24 @@ def joint_grads(loss_fn: Callable, replicas: torch.Tensor,
         write(i, gs[i * k:(i + 1) * k])
         gs[i * k:(i + 1) * k] = [None] * k
     return flat_g, losses.detach().mean()
+
+
+def restored_tensor(v: Any, device: torch.device) -> torch.Tensor:
+    """A restored checkpoint leaf (numpy, or a tensor) on ``device``."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    return torch.from_numpy(np.array(v, copy=True)).to(device)
+
+
+def restored_rows(v: Any, meta: fused_update.FlatMeta, n: int,
+                  device: torch.device) -> torch.Tensor:
+    """A stored global flat vector (JAX's ``P(ax)`` layout) as this
+    layout's ``[n, C]`` rank rows, re-padded to its padded length
+    (``fused_update.repad_flat``: a checkpoint written at another rank
+    count restores value-exact)."""
+    flat = fused_update.repad_flat(restored_tensor(v, device).reshape(-1)
+                                   .to(torch.float32), meta)
+    return flat.reshape(n, -1).contiguous()
 
 
 def refuse_fsdp(cfg: TrainConfig) -> None:
@@ -492,3 +511,24 @@ class DPTrainer:
             raise RuntimeError("call init_state first")
         replicas = fused_update.all_gather_flat(w_own, self.cfg.collective)
         return self._rank0(*self._working(replicas[:1]))
+
+    def restore_state(self, restored: dict, params_like=None) -> TrainState:
+        """TrainState from a ``utils.checkpoint`` restore payload (JAX's
+        stored layout: the global ``w_own`` and moments, ``step``).  The
+        layout must be known: call ``init_state`` first or pass
+        ``params_like`` (a params tree; only shapes and dtypes are read).
+        The vectors are re-padded onto this rank count
+        (``restored_rows``), the replicas rebuilt by the step's own gather
+        phase, and the error-feedback residual restarts at zero, as in
+        the JAX package."""
+        if params_like is not None:
+            self._ensure_meta(params_like)
+        if self._meta is None:
+            raise RuntimeError("flat layout unknown: call init_state "
+                               "first or pass params_like")
+        dev = self.ranks.device
+        w_own = restored_rows(restored["w_own"], self._meta, self.n, dev)
+        opt_state = {k: restored_rows(v, self._meta, self.n, dev)
+                     for k, v in restored["opt_state"].items()}
+        return self._gather(w_own, opt_state, int(restored["step"]),
+                            self._init_codec_state())

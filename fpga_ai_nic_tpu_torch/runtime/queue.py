@@ -25,8 +25,15 @@ The bounded window blocks ``issue`` on the oldest ticket once
 were ever outstanding at once.  Issues, completions, latency, stall
 (blocked in ``wait``), overlap (issue to ``wait``) and abandoned tickets
 are counted in ``profiler.collectives``; each completion lands a
-``collective`` span (lane ``queue``) in ``profiler.events``.  The fault
-plans of the issue/wait sites (``chaos=``) are ROADMAP A.8.
+``collective`` span (lane ``queue``) in ``profiler.events``.
+
+``chaos`` (a ``runtime.chaos.FaultPlan``) fires at the two host-visible
+points, as in the JAX package: ``queue.issue`` before the launch (a hang,
+slowdown, exception or preemption; a corruption damages the issued
+arguments) and ``queue.wait`` before the wait (a corruption damages the
+waited result).  A ticket abandoned by recovery fires nothing and records
+nothing: a timed-out attempt that wakes later must not take the live
+run's specs.
 """
 
 from __future__ import annotations
@@ -75,12 +82,8 @@ class CollectiveQueue:
     def __init__(self, fn: Callable, coll: CollectiveConfig,
                  profiler: Optional[Profiler] = None,
                  chaos: Optional[Any] = None) -> None:
-        if chaos is not None:
-            raise NotImplementedError(
-                "fault plans at the queue's issue/wait sites are not "
-                "ported: ROADMAP A.8 (the port's plans have the collective "
-                "site only)")
         self.fn = fn
+        self.chaos = chaos
         self.coll = coll
         self.profiler = profiler or Profiler()
         self.max_outstanding = 0
@@ -133,12 +136,16 @@ class CollectiveQueue:
                     break
                 head = self._inflight[0]
             self.wait(head)                       # the window is full
+        if self.chaos is not None and epoch == self._epoch:
+            self.chaos.fire("queue.issue")        # may sleep or raise
         with self._lock:
             alive = epoch == self._epoch
         if not alive:
             # recovery abandoned the window while this issue waited
             self.profiler.collectives.record_abandoned()
             return Ticket(0, None, time.perf_counter(), abandoned=True)
+        if self.chaos is not None:
+            args = self.chaos.corrupt("queue.issue", args)
         result, event = self._launch(args)
         t = Ticket(0, result, time.perf_counter(), raw_bytes=raw_bytes,
                    wire_bytes=wire_bytes or raw_bytes, event=event)
@@ -163,6 +170,8 @@ class CollectiveQueue:
         if ticket.abandoned:
             ticket.waited = True
             return ticket.result
+        if self.chaos is not None:
+            self.chaos.fire("queue.wait")
         t0 = time.perf_counter()
         if ticket.event is not None:
             ticket.event.synchronize()
@@ -177,6 +186,9 @@ class CollectiveQueue:
                 self._inflight.remove(ticket)
             except ValueError:
                 pass
+        if self.chaos is not None:
+            # the waited result is what the caller consumes
+            ticket.result = self.chaos.corrupt("queue.wait", ticket.result)
         now = time.perf_counter()
         ticket.waited = True
         ticket.ready_at = now

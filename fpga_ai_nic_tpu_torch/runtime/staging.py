@@ -9,9 +9,11 @@ buffers, so batch k+1 stages while Python hands batch k on
 slot's buffer, valid until ``release(slot)``.
 
 The library is the port's own copy of the source, built at first use by
-``runtime.native.load_native``; it raises when it cannot be built.  The
-fault plans of the JAX package's staging site (``chaos=``) are ROADMAP
-A.8.
+``runtime.native.load_native``; it raises when it cannot be built.
+``chaos`` (a ``runtime.chaos.FaultPlan``) fires at the ``staging`` site as
+in the JAX package: ``submit`` fires (a hang, slowdown, exception or
+preemption) and ``wait`` damages the staged batch on a corruption spec
+(a copy; the slot's view is returned untouched otherwise).
 """
 
 from __future__ import annotations
@@ -66,10 +68,7 @@ class Stager:
 
     def _init(self, sizes, chaos=None):
         self._pool = None
-        if chaos is not None:
-            raise NotImplementedError(
-                "fault plans at the staging site are not ported: ROADMAP "
-                "A.8 (the port's plans have the collective site only)")
+        self.chaos = chaos
         self._l = lib()
         arr = (ctypes.c_int64 * len(sizes))(*sizes)
         self._pool = self._l.stage_create_sized(arr, len(sizes))
@@ -88,6 +87,8 @@ class Stager:
         Raises when no free slot fits the job: slots return to the pool
         only through ``release()``, which only this thread calls, so a
         blocking native wait would deadlock."""
+        if self.chaos is not None:
+            self.chaos.fire("staging")
         src = np.ascontiguousarray(src)
         idx = np.ascontiguousarray(idx, np.int64)
         if idx.size and (idx.min() < 0 or idx.max() >= src.shape[0]):
@@ -127,7 +128,10 @@ class Stager:
         self._waited.add(slot)
         n = int(np.prod(shape, dtype=np.int64))
         buf = (ctypes.c_char * (n * dtype.itemsize)).from_address(ptr)
-        return np.frombuffer(buf, dtype=dtype).reshape(shape)
+        out = np.frombuffer(buf, dtype=dtype).reshape(shape)
+        if self.chaos is not None:
+            out = self.chaos.corrupt("staging", out)
+        return out
 
     def release(self, slot: int) -> None:
         """Return a slot to the pool, waiting for its gather first if the

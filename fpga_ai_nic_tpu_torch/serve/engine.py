@@ -33,6 +33,20 @@ ordinary prefill — greedy decoding makes the continuation token-exact.
 Every recovery is counted (``summary()["recovery"]``), so a caller that
 must not see one can check.
 
+Faults inside the tick (JAX's ``serve/engine.py``): ``chaos`` (a
+``runtime.chaos.FaultPlan``) fires at ``serve.step`` once a tick, inside
+its device work (a hang or slowdown sleeps, an exception or preemption
+raises, a corruption damages a copy of the tick's pool: the page ledger
+or the logit guard must catch it before a token is emitted), and
+``ServeConfig.step_timeout_s`` bounds each tick's device work with a
+``runtime.watchdog.Watchdog`` (the tick synchronises on its results
+inside the bound).  The pool is written in place by the steps, so the
+tick's closure takes the pool, the ledger, the page table and the
+requests' positions on the engine thread before the worker starts: a
+timed-out tick that wakes after recovery writes only into the abandoned
+pool, and ``_recover`` allocates a new one (never zeroing the old one in
+place).  ``join_watchdog`` waits for such ticks.
+
 ``tp_mesh`` (JAX's tensor-parallel ticks): the tp ranks of one replica,
 virtual ranks on its card (a tp-only ``VirtualRanks`` or a
 ``MeshConfig(tp=n)``).  The params are split by ``llama.param_specs``
@@ -60,7 +74,7 @@ from ..ops import integrity as integrity_lib
 from ..runtime import chaos as chaos_lib
 from ..runtime.requests import DECODE, Request, RequestQueue, ServeStats
 from ..parallel.mesh import VirtualRanks
-from ..runtime.watchdog import DeviceHangError
+from ..runtime.watchdog import DeviceHangError, Watchdog
 from ..utils.config import MeshConfig
 from ..utils.observability import Profiler
 from .paged import (PageAllocator, ServeConfig, contiguous_cache_bytes,
@@ -106,12 +120,9 @@ class ServeEngine:
     """Continuous-batching inference engine over ``forward_paged``.
 
     Greedy (argmax) sampling: determinism is what makes eviction replay
-    and recovery token-exact.  Single-threaded host loop;
-    ``runtime.requests`` holds the thread-safe seams (intake, stats).
-
-    Not ported yet, and refused at construction: ``chaos`` (fault
-    injection into the tick, A.8; the fleet's own sites are ported) and
-    ``ServeConfig.step_timeout_s`` (the watchdog, A.8)."""
+    and recovery token-exact.  Single-threaded host loop (a tick's device
+    work runs on the watchdog's worker with ``step_timeout_s``);
+    ``runtime.requests`` holds the thread-safe seams (intake, stats)."""
 
     def __init__(self, params: Params, cfg: LlamaConfig, scfg: ServeConfig,
                  *, profiler: Optional[Profiler] = None,
@@ -124,13 +135,6 @@ class ServeEngine:
                  attend_impl: str = "kernel") -> None:
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"role must be both|prefill|decode: {role!r}")
-        if chaos is not None:
-            raise NotImplementedError(
-                "chaos (fault injection) waits for ROADMAP A.8")
-        if scfg.step_timeout_s is not None:
-            raise NotImplementedError(
-                "ServeConfig.step_timeout_s (the watchdog) waits for "
-                "ROADMAP A.8")
         if attend_impl not in llama_decode.ATTEND_IMPLS:
             raise ValueError(f"attend_impl must be one of "
                              f"{llama_decode.ATTEND_IMPLS}: {attend_impl!r}")
@@ -163,6 +167,9 @@ class ServeEngine:
         self.queue = RequestQueue(events=self.profiler.events,
                                   stats=self.stats)
         self.spans = RequestSpans(self.profiler.events)
+        self.chaos = chaos
+        self.watchdog = (Watchdog(scfg.step_timeout_s)
+                         if scfg.step_timeout_s is not None else None)
         self.alloc = PageAllocator(scfg.n_pages)
         self.batcher = ContinuousBatcher(scfg, self.alloc, stats=self.stats)
         self.pool: Pool = self._fresh_pool()
@@ -323,10 +330,11 @@ class ServeEngine:
                                        n_decode=len(dec),
                                        prefill=pre is not None):
             try:
-                out = self._device_tick(pre, dec)
+                pool, out = self._device_tick(pre, dec)
             except Exception as err:  # noqa: BLE001 — the recovery boundary
                 self._recover(err)
                 return True
+        self.pool = pool
         if self.ledger is not None and out.get("ledger") is not None:
             self.ledger = out["ledger"]
         self._consec_failures = 0
@@ -337,17 +345,19 @@ class ServeEngine:
         self.ticks += 1
         return True
 
-    def _device_tick(self, pre: Optional[PrefillWork],
-                     dec: List[Request]) -> Dict[str, Any]:
-        """All device work of one tick.  The pool is updated in place;
-        a tick that raises leaves it to ``_recover``, which replaces it."""
+    def _device_tick(self, pre: Optional[PrefillWork], dec: List[Request]
+                     ) -> Tuple[Pool, Dict[str, Any]]:
+        """All device work of one tick as a closure the watchdog can bound:
+        ``(pool, out)``.  Everything the closure reads of the engine (the
+        pool, the ledger, the page table, the requests' slots, tokens and
+        positions, the tick number) is taken here, on the engine thread,
+        before the worker starts, so a timed-out tick that wakes after
+        ``_recover`` runs against the abandoned pool, never the new one."""
         scfg = self.scfg
         dev = self.device
-        table = torch.from_numpy(self.batcher.table.copy()).to(dev)
-        ledger = self.ledger
-        out: Dict[str, Any] = {}
-        corrupted = False
-        bad_pages = 0
+        table_np = self.batcher.table.copy()
+        pool_in, ledger_in, tick = self.pool, self.ledger, self.ticks
+        pre_snap: Optional[Tuple[np.ndarray, int, int, int, int]] = None
         if pre is not None:
             req, start, n_true = pre
             full = np.concatenate(
@@ -356,46 +366,73 @@ class ServeEngine:
             pre_tokens[0, :n_true] = full[start:start + n_true]
             final = start + n_true >= req.replay_len
             last = (req.replay_len - 1 - start) if final else 0
-            tok, bad, nbad, ledger = self._prefill_step(
-                self.pool, torch.from_numpy(pre_tokens).to(dev),
-                table[req.slot:req.slot + 1].contiguous(),
-                torch.tensor([start], dtype=torch.int32, device=dev),
-                last, ledger)
-            self.prefill_tokens += n_true
-            if nbad is not None:
-                bad_pages += int(nbad)                     # waits
-            out["prefill_tok"] = int(tok)                  # waits
-            corrupted |= bool(bad)
-        if dec:
-            R = scfg.max_reqs
-            toks = np.zeros((R, 1), np.int32)
-            pos = np.zeros((R,), np.int32)
-            act = np.zeros((R,), bool)
-            for r in dec:
-                toks[r.slot, 0] = r.generated[-1]
-                pos[r.slot] = r.n_tokens
-                act[r.slot] = True
-            ntok, bad, nbad, ledger = self._decode_step(
-                self.pool, torch.from_numpy(toks).to(dev), table,
-                torch.from_numpy(pos).to(dev), torch.from_numpy(act).to(dev),
-                ledger)
-            if nbad is not None:
-                bad_pages += int(nbad)                     # waits
-            out["decode_toks"] = ntok.cpu().numpy()        # waits
-            corrupted |= bool(bad)
-        if bad_pages:
-            # the EXACT tier tripped first: some page's bytes changed
-            # outside the ledger-keeping steps — gated before _apply, so
-            # no poisoned token was emitted
-            raise chaos_lib.WireIntegrityError(
-                f"serve tick {self.ticks}: {bad_pages} KV pool page(s) "
-                "failed their exact checksum against the write-time ledger")
-        if corrupted:
-            raise chaos_lib.IntegrityError(
-                f"serve tick {self.ticks} produced non-finite/garbage "
-                "logits — gated before emission")
-        out["ledger"] = ledger
-        return out
+            pre_snap = (pre_tokens, req.slot, start, last, n_true)
+        dec_snap = [(r.slot, r.generated[-1], r.n_tokens) for r in dec]
+
+        def work() -> Tuple[Pool, Dict[str, Any]]:
+            pool, ledger = pool_in, ledger_in
+            if self.chaos is not None:
+                self.chaos.begin_step(tick)
+                self.chaos.fire("serve.step")      # may sleep or raise
+                # a corruption spec damages a copy of the tick's pool: the
+                # ledger or the logit guard must catch it before emission
+                pool = self.chaos.corrupt("serve.step", pool)
+            table = torch.from_numpy(table_np).to(dev)
+            out: Dict[str, Any] = {}
+            corrupted = False
+            bad_pages = 0
+            if pre_snap is not None:
+                pre_tokens, slot, start, last, n_true = pre_snap
+                tok, bad, nbad, ledger = self._prefill_step(
+                    pool, torch.from_numpy(pre_tokens).to(dev),
+                    table[slot:slot + 1].contiguous(),
+                    torch.tensor([start], dtype=torch.int32, device=dev),
+                    last, ledger)
+                self.prefill_tokens += n_true
+                if nbad is not None:
+                    bad_pages += int(nbad)                 # waits
+                out["prefill_tok"] = int(tok)              # waits
+                corrupted |= bool(bad)
+            if dec_snap:
+                R = scfg.max_reqs
+                toks = np.zeros((R, 1), np.int32)
+                pos = np.zeros((R,), np.int32)
+                act = np.zeros((R,), bool)
+                for slot, tok_in, n_tok in dec_snap:
+                    toks[slot, 0] = tok_in
+                    pos[slot] = n_tok
+                    act[slot] = True
+                ntok, bad, nbad, ledger = self._decode_step(
+                    pool, torch.from_numpy(toks).to(dev), table,
+                    torch.from_numpy(pos).to(dev),
+                    torch.from_numpy(act).to(dev), ledger)
+                if nbad is not None:
+                    bad_pages += int(nbad)                 # waits
+                out["decode_toks"] = ntok.cpu().numpy()    # waits
+                corrupted |= bool(bad)
+            if bad_pages:
+                # the EXACT tier tripped first: some page's bytes changed
+                # outside the ledger-keeping steps — gated before _apply,
+                # so no poisoned token was emitted
+                raise chaos_lib.WireIntegrityError(
+                    f"serve tick {tick}: {bad_pages} KV pool page(s) "
+                    "failed their exact checksum against the write-time "
+                    "ledger")
+            if corrupted:
+                raise chaos_lib.IntegrityError(
+                    f"serve tick {tick} produced non-finite/garbage "
+                    "logits — gated before emission")
+            out["ledger"] = ledger
+            return pool, out
+
+        if self.watchdog is not None:
+            return self.watchdog.run(work)
+        return work()
+
+    def join_watchdog(self, timeout_s: float = 60.0) -> int:
+        """Wait for every timed-out tick's thread (``Watchdog.join``);
+        returns how many still run (0 without ``step_timeout_s``)."""
+        return 0 if self.watchdog is None else self.watchdog.join(timeout_s)
 
     def _apply(self, pre: Optional[PrefillWork], dec: List[Request],
                out: Dict[str, Any]) -> None:
@@ -457,6 +494,8 @@ class ServeEngine:
         self.batcher.release_all()
         self.alloc = PageAllocator(self.scfg.n_pages)
         self.batcher.rebind(self.alloc)
+        # a new pool, never the old one zeroed in place: a timed-out tick
+        # may still write into the old one
         self.pool = []
         self.pool = self._fresh_pool()
         self.ledger = self._fresh_ledger()

@@ -110,6 +110,12 @@ graph, the aux over the pooled statistics of each microbatch).
 driver does (``llama.param_specs(cfg, tp_axis="tp", tp_size=T)``: kv-head
 replication where T exceeds the kv heads; the loss with ``tp_axis="tp"``,
 one a dp rank): with dp, sp, ep and MoE layers, not with pp.
+``--save=DIR`` checkpoints the final state at step ``--iters`` through
+``utils.checkpoint.Checkpointer`` (JAX's stored layout; under the
+interleaved schedule with the layout sidecar, so a restore that does not
+declare the same layer order is refused).  The JSON carries ``process``
+(``parallel.multihost.process_info()``); ``multihost.initialize()`` runs
+first (a no-op for one process).
 """
 
 from __future__ import annotations
@@ -128,10 +134,11 @@ from . import text
 from .device import resolve_device
 from .models import bert, llama
 from .models.llama import LlamaConfig
-from .parallel import pipeline
+from .parallel import multihost, pipeline
 from .parallel.mesh import make_ranks
 from .parallel.sharded import ShardedTrainer
 from .parallel.train import TrainState
+from .utils.checkpoint import Checkpointer
 from .utils.config import TrainConfig, _declared_type, coerce_value, from_flags
 
 MODELS = {"llama3_8b": LlamaConfig.llama3_8b, "tiny": LlamaConfig.tiny}
@@ -183,7 +190,7 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
             seq = int(val)
         elif key == "--device":
             device = val
-        elif key not in ("--remat", "--data") and \
+        elif key not in ("--remat", "--data", "--save") and \
                 key not in PIPELINE_FLAGS:
             rest.append(a)
     if model not in MODELS:
@@ -216,12 +223,13 @@ def parse(argv: Sequence[str]) -> Tuple[LlamaConfig, TrainConfig, int, str]:
     return mcfg, cfg, seq, device
 
 
-def data_flag(argv: Sequence[str]) -> Optional[str]:
-    """JAX's ``--data=`` flag (the last one given; None without)."""
+def data_flag(argv: Sequence[str], name: str = "--data") -> Optional[str]:
+    """JAX's ``--data=`` flag, or another path flag (``--save``): the last
+    one given; None without."""
     path = None
     for a in argv:
         key, _, val = a.partition("=")
-        if key == "--data":
+        if key == name:
             path = val
     return path
 
@@ -349,6 +357,7 @@ def _pp_trainer(mcfg: LlamaConfig, cfg: TrainConfig, ranks,
 
 
 def main(argv: Sequence[str]) -> dict:
+    multihost.initialize()
     mcfg, cfg, seq, device = parse(argv)
     dev = resolve_device(device)
     remat = remat_flag(argv)
@@ -383,6 +392,7 @@ def main(argv: Sequence[str]) -> dict:
            "losses": losses, "accum_steps": cfg.accum_steps,
            "mesh": {"dp": m.dp, "tp": m.tp, "sp": m.sp, "pp": m.pp,
                     "ep": m.ep}, "remat": remat or m.pp > 1,
+           "process": multihost.process_info(),
            "device": (torch.cuda.get_device_name(dev)
                       if dev.type == "cuda" else "cpu")}
     if path is not None:
@@ -392,6 +402,18 @@ def main(argv: Sequence[str]) -> dict:
         out["pipeline_cost"] = pipeline.cost_model(
             pipe.microbatches, m.pp, schedule=pipe.schedule,
             virtual_stages=pipe.virtual_stages)
+    save_dir = data_flag(argv, "--save")
+    if save_dir:
+        # the interleaved schedule's masters are in its layer order: the
+        # sidecar makes a restore that declares another order refuse
+        layout = None
+        if pipe.schedule == "1f1b-interleaved":
+            layout = {"layers_order": "interleaved-device-major",
+                      "pp": m.pp, "virtual_stages": pipe.virtual_stages}
+        out["checkpoint"] = Checkpointer(save_dir).save(
+            cfg.iters, state, layout=layout)
+        if layout:
+            out["checkpoint_layout"] = layout
     return out
 
 

@@ -59,6 +59,7 @@ from .parallel.mesh import make_ranks
 from .parallel.queued import QueuedDDPTrainer
 from .parallel.train import DPTrainer
 from .runtime import chaos
+from .runtime.watchdog import Watchdog
 from .utils.config import MLPConfig, TrainConfig, from_flags
 from .utils.observability import CollectiveStats
 
@@ -129,14 +130,17 @@ def main(argv: Sequence[str]) -> dict:
         diags.append(out)               # verdicts read after the timing
         return state, out["loss"]
 
-    state, loss = step(state)                    # warm-up: kernel builds
-    float(loss)
+    # a step or the final wait that wedges raises DeviceHangError instead
+    # of blocking the driver forever (JAX's driver: Watchdog(600))
+    wd = Watchdog(timeout_s=600.0)
+    state, loss = wd.run(step, state)            # warm-up: kernel builds
+    wd.run(float, loss)
     if queue == "explicit":                      # count the timed steps
         tr.profiler.collectives = CollectiveStats()
     t0 = time.perf_counter()
     for _ in range(cfg.iters):
-        state, loss = step(state)
-    loss = float(loss)                           # waits for the device
+        state, loss = wd.run(step, state)
+    loss = wd.run(float, loss)                   # waits for the device
     wall = time.perf_counter() - t0
     for i, diag in enumerate(diags):
         chaos.check_step_diag(diag, i)

@@ -1730,3 +1730,149 @@ def test_prefill_replica_never_launches_decode_on_card(cuda_device):
     single = [eng.submit(p, max_new=6) for p in prompts]
     eng.run()
     assert [r.generated for r in reqs] == [r.generated for r in single]
+
+
+# -- A.8's restore tier on the card: elastic cells, durability, tick faults --
+
+
+def _elastic_trainer(dev, fused):
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (CollectiveConfig,
+                                                    MeshConfig)
+    coll = CollectiveConfig(impl="ring", compression=BFPConfig(codec="pallas"),
+                            fused_kernel=fused, fused_optimizer=True,
+                            integrity_check=True)
+    return _mlp_trainer(DPTrainer, coll, MeshConfig(dp=8), dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,site,mode", [
+    ("exception", "queue.issue", "nan"), ("preemption", "queue.issue", "nan"),
+    ("hang", "queue.wait", "nan"), ("slowdown", "staging", "nan"),
+    ("corruption", "staging", "nan"), ("corruption", "queue.wait", "nan"),
+    ("corruption", "collective", "scale")])
+def test_elastic_cells_on_card(cuda_device, tmp_path, kind, site, mode):
+    """JAX's seven cells on the card at a small MLP, dp=8: the fused BFP
+    ring kernels (the collective cell on the codec route, whose rings are
+    tapped), a clean step before the plan is armed; the final masters
+    bit-equal to the fault-free steps, every watchdog thread joined."""
+    from fpga_ai_nic_tpu_torch.ops import bfp_cuda
+    from fpga_ai_nic_tpu_torch.parallel.elastic import (ElasticConfig,
+                                                        ElasticTrainer)
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    fused = site != "collective"
+    tr, st0, batch = _elastic_trainer(cuda_device, fused)
+    ref = st0
+    for _ in range(4):
+        ref, _ = tr.step(ref, batch)
+    kernels = ((ring_cuda.RING_RS, ring_cuda.RING_AG) if fused else
+               (bfp_cuda.ENCODE, bfp_cuda.DECODE))
+    before = [k.launches for k in kernels]
+    plan = chaos.FaultPlan([chaos.FaultSpec(
+        kind, site, step=3, mode=mode,
+        duration_s=3.0 if kind == "hang" else 0.2)], seed=11)
+    cfg = ElasticConfig(step_timeout_s=2.0, max_retries=3, backoff_s=0.01,
+                        ckpt_every=2, ckpt_keep_last=2)
+    chaos.install_collective_tap()
+    try:
+        with chaos.activate(plan):
+            et = ElasticTrainer(tr, str(tmp_path), cfg, plan=plan,
+                                stage_fn=plan.stage)
+            st, _ = et.run(st0, lambda i: batch, 4)
+    finally:
+        chaos.uninstall_collective_tap()
+    assert et.join(30.0) == 0
+    torch.cuda.synchronize()
+    rec = et.profiler.recovery.as_dict()
+    assert len(plan.fired) == 1 and st.step == 4
+    assert torch.equal(st.w_own, ref.w_own)
+    assert rec["faults_total"] == (0 if kind == "slowdown" else 1), rec
+    assert all(k.launches > b for k, b in zip(kernels, before))
+
+
+@pytest.mark.cuda
+def test_durability_on_card(cuda_device, tmp_path):
+    """A card state saved with shards and mirrors: a flipped primary bit
+    repaired bit-exact, both copies flipped refused, a kill at ckpt.save
+    leaving the previous step; the restored state's step bit-equal to the
+    uninterrupted one, and a restore at dp=4 stepping finitely."""
+    from fpga_ai_nic_tpu_torch.parallel.mesh import make_ranks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    from fpga_ai_nic_tpu_torch.utils import checkpoint as ckpt
+    from fpga_ai_nic_tpu_torch.utils.config import MeshConfig
+    tr, st, batch = _elastic_trainer(cuda_device, True)
+    st, _ = tr.step(st, batch)
+    nxt, _ = tr.step(st, batch)
+    plan = chaos.FaultPlan([chaos.FaultSpec("kill", "ckpt.save", step=2,
+                                            fraction=0.5)])
+    c = ckpt.Checkpointer(str(tmp_path), shards=8, mirror=True, chaos=plan)
+    c.save(1, st)
+    want = st.w_own.reshape(-1).cpu().numpy()
+    entry = next(e for e in c.read_manifest(1)["leaves"]
+                 if e["path"] == ["w_own"])
+    shard = [c._path(1) + "/" + entry["shards"][j][k]
+             for j, k in ((3, "file"), (5, "file"), (5, "mirror"))]
+    ckpt.flip_stored_bit(shard[0], byte_off=64)
+    rep = c.audit_step(1, repair=True)
+    assert len(rep.repaired) == 1 and rep.repair_wire_bytes == want.nbytes // 8
+    np.testing.assert_array_equal(c.restore(1)["w_own"], want)
+    plan.begin_step(2)
+    with pytest.raises(chaos.InjectedFault):
+        c.save(2, nxt)
+    assert c.latest_step(verified=True) == 1
+    back = tr.restore_state(c.restore(1))
+    got, _ = tr.step(back, batch)
+    assert torch.equal(got.w_own, nxt.w_own)
+    for f in shard[1:]:
+        ckpt.flip_stored_bit(f)
+    with pytest.raises(ckpt.CheckpointIntegrityError, match="also bad"):
+        c.restore(1)
+    tr4, _, _ = _mlp_trainer(DPTrainer, tr.cfg.collective, MeshConfig(dp=4),
+                             cuda_device)
+    st4 = tr4.restore_state({"w_own": want, "opt_state": {},
+                             "step": np.int32(1)})
+    _, diag = tr4.step(st4, tr4.shard_batch(tuple(
+        b.reshape(-1, *b.shape[2:]).cpu() for b in batch)))
+    assert np.isfinite(float(diag["loss"]))
+
+
+@pytest.mark.cuda
+def test_serve_tick_faults_on_card(cuda_device):
+    """An f32 model at head_dim 128 with bf16 pools and the page ledger:
+    a hang past step_timeout_s, an exception, a preemption and a wirebit
+    of the pool, each recovered; the ledger trips on the wirebit; the
+    streams equal the fault-free engine's; the timed-out tick's thread
+    joined."""
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    from fpga_ai_nic_tpu_torch.serve import ServeConfig, ServeEngine
+    cfg = llama.LlamaConfig.tiny(dim=512, n_heads=4, n_kv_heads=2,
+                                 ffn_dim=512)
+    params = llama.init(torch.Generator(device=cuda_device).manual_seed(1),
+                        cfg, cuda_device)
+    shape = dict(max_reqs=4, page_size=16, max_pages_per_seq=8, n_pages=65,
+                 prefill_chunk=32, page_integrity=True, backoff_s=0.0)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(20, 90, 5)]
+    eng = ServeEngine(params, cfg, ServeConfig(**shape), dtype="bfloat16",
+                      device=cuda_device)
+    want = [eng.submit(p, max_new=6) for p in prompts]
+    eng.run()
+    plan = chaos.FaultPlan([
+        chaos.FaultSpec("hang", "serve.step", step=1, duration_s=2.0),
+        chaos.FaultSpec("exception", "serve.step", step=3),
+        chaos.FaultSpec("preemption", "serve.step", step=5),
+        chaos.FaultSpec("corruption", "serve.step", step=7, mode="wirebit")],
+        seed=9)
+    eng = ServeEngine(params, cfg, ServeConfig(step_timeout_s=1.0, **shape),
+                      dtype="bfloat16", device=cuda_device, chaos=plan)
+    got = [eng.submit(p, max_new=6) for p in prompts]
+    before = paged_attend.PAGED_ATTEND.launches
+    s = eng.run()
+    assert eng.join_watchdog(30.0) == 0
+    assert paged_attend.PAGED_ATTEND.launches > before
+    assert len(plan.fired) == 4 and s["page_trips"] == 1
+    assert s["serve_recoveries"] == 4
+    assert [r.generated for r in got] == [r.generated for r in want]

@@ -451,6 +451,10 @@ def test_ddp_unported_options_raise():
     with pytest.raises(RuntimeError, match="init_state"):
         tr.obs_static_metrics()
     tr.init_state(bert.init(torch.Generator().manual_seed(0), BERT, "cpu"))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tr.restore_state({})
+    # restore_state is ported (tests/test_torch_checkpoint.py): a payload
+    # of JAX's stored layout rebuilds every rank's row
+    st = tr.restore_state({"w_master": np.zeros(tr._meta.padded_len,
+                                                 np.float32),
+                           "opt_state": {}, "step": np.int32(3)})
+    assert st.step == 3 and not bool(st.w_master.any())
     assert tr.obs_static_metrics()["n_buckets"] == len(tr.plan.buckets)

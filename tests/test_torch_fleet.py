@@ -369,8 +369,8 @@ def test_fleet_config_and_slots(world):
 
 def test_fleet_fault_sites_fire_as_jax():
     """``fire`` sleeps for hang and slowdown and raises one preemption or
-    exception a call, in JAX's order; the fleet sites' kinds are ported,
-    every other still waits for A.8."""
+    exception a call, in JAX's order; the other sites' specs construct
+    as JAX's do (or raise JAX's ValueError)."""
     def specs(mod):
         return [mod.FaultSpec("slowdown", "fleet.membership", step=0,
                               duration_s=0.001),
@@ -400,11 +400,11 @@ def test_fleet_fault_sites_fire_as_jax():
                               ("fault", "exception", "fleet.membership"),
                               "ok"]
     chaos.FaultSpec("corruption", "serve.handoff", step=0, mode="wirebit")
-    for kw in (dict(kind="corruption", site="serve.handoff", mode="nan"),
-               dict(kind="preemption", site="serve.step"),
-               dict(kind="exception", site="collective")):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            chaos.FaultSpec(step=0, **kw)
+    chaos.FaultSpec("corruption", "serve.handoff", step=0, mode="nan")
+    chaos.FaultSpec("preemption", "serve.step", step=0)
+    for mod in (chaos, jax_chaos):
+        with pytest.raises((ValueError, AssertionError)):
+            mod.FaultSpec("exception", "collective", step=0)
     pool = [{"k": torch.zeros(3, 2), "v": torch.zeros(3, 2)}]
     assert chaos.state_buffers_alive(pool)
     pool[0]["v"].untyped_storage().resize_(0)
@@ -440,7 +440,7 @@ def test_serve_fleet_driver_on_cpu(scenario):
         serve_fleet.main(TINY_FLEET + ["--scenario=bogus"])
 
 
-def test_generate_llama_equals_jax_driver():
+def test_generate_llama_equals_jax_driver(tmp_path):
     spec = importlib.util.spec_from_file_location(
         "jax_generate_llama", os.path.join(
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -462,5 +462,7 @@ def test_generate_llama_equals_jax_driver():
                                    "--temperature=0.8", "--seed=3"])
     assert sampled == generate_llama.main(["--device=cpu", "--new=8",
                                            "--temperature=0.8", "--seed=3"])
-    with pytest.raises(NotImplementedError, match="A.8"):
-        generate_llama.main(["--device=cpu", "--ckpt=ckpts"])
+    # --ckpt restores a checkpoint (tests/test_torch_checkpoint.py); an
+    # empty directory has none, as JAX's driver says
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        generate_llama.main(["--device=cpu", f"--ckpt={tmp_path}"])

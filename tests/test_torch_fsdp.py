@@ -350,11 +350,14 @@ def test_unported_and_invalid_configurations_raise():
     the other trainers refuse an fsdp axis."""
     tr = _port_fsdp(dict(impl="ring"))
     st = tr.init_state(mlp.from_jax_params(_jax_params(), CPU))
-    for fn, args in ((tr.restore_state, ({},)),
-                     (tr.reshard_leaves, (st,)),
+    for fn, args in ((tr.reshard_leaves, (st,)),
                      (tr.state_from_reshard, ({}, 0, None))):
         with pytest.raises(NotImplementedError, match="A.8"):
             fn(*args)
+    # restore_state is ported (tests/test_torch_checkpoint.py)
+    back = tr.restore_state({"w_own": st.w_own.reshape(-1).numpy(),
+                             "opt_state": {}, "step": np.int32(0)})
+    assert torch.equal(back.w_own, st.w_own)
     with pytest.raises(NotImplementedError, match="A.9"):
         _port_fsdp(dict(impl="ring"), obs_metrics=True)
     # accumulation is ported (tests/test_torch_accum.py)

@@ -332,10 +332,14 @@ def test_fault_plan_corrupts_the_same_words_as_jax(mode, dtype, seed, step,
 
 
 def test_unported_fault_kinds_and_sites_raise():
+    """Only the live reshard tier's wire stays unported (the next slice of
+    ROADMAP A.8); the kinds and sites refused before now construct as in
+    JAX (tests/test_torch_chaos_sites.py fires them)."""
     with pytest.raises(NotImplementedError, match="A.8"):
-        chaos.FaultSpec("hang", "collective", step=0)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        chaos.FaultSpec("corruption", "serve.step", step=0, mode="wirebit")
+        chaos.FaultSpec("corruption", "reshard.transfer", step=0,
+                        mode="wirebit")
+    chaos.FaultSpec("hang", "collective", step=0)
+    chaos.FaultSpec("corruption", "serve.step", step=0, mode="wirebit")
     with pytest.raises(ValueError):
         chaos.FaultSpec("corruption", "nowhere", step=0)
 

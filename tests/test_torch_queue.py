@@ -10,7 +10,8 @@
 * The window bounds the inflight count; the counters are live; the
   per-bucket wire accounting is JAX's.
 * ``CollectiveStats`` equals JAX's for the same records; the queue's
-  ``wait_all`` / ``abandon`` / ``outstanding``; fault plans raise (A.8).
+  ``wait_all`` / ``abandon`` / ``outstanding``; a fault plan fires at
+  the issue site (its kinds: ``tests/test_torch_chaos_sites.py``).
 * ``train_mlp`` and ``train_bert`` with ``--queue=explicit`` on the CPU.
 """
 
@@ -31,6 +32,7 @@ from fpga_ai_nic_tpu_torch import train_bert, train_mlp
 from fpga_ai_nic_tpu_torch.models import mlp
 from fpga_ai_nic_tpu_torch.parallel import DDPTrainer, QueuedDDPTrainer
 from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+from fpga_ai_nic_tpu_torch.runtime import chaos
 from fpga_ai_nic_tpu_torch.runtime.queue import CollectiveQueue
 from fpga_ai_nic_tpu_torch.utils import config as tcfg
 from fpga_ai_nic_tpu_torch.utils import observability as obs
@@ -205,8 +207,14 @@ def test_queue_wait_all_abandon_and_refusals():
     assert q.profiler.collectives.abandoned == 1
     assert q.wait(t) is t.result
     assert q.profiler.collectives.completed == 3
-    with pytest.raises(NotImplementedError, match="A.8"):
-        CollectiveQueue(lambda x: x, tcfg.CollectiveConfig(), chaos=object())
+    # a fault plan at the issue/wait sites fires (tests/
+    # test_torch_chaos_sites.py holds its kinds)
+    plan = chaos.FaultPlan([chaos.FaultSpec("exception", "queue.issue",
+                                            step=0)])
+    plan.begin_step(0)
+    with pytest.raises(chaos.InjectedFault):
+        CollectiveQueue(lambda x: x, tcfg.CollectiveConfig(),
+                        chaos=plan).issue(torch.ones(2))
 
 
 def test_train_mlp_explicit_queue_on_cpu():

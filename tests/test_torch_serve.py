@@ -128,23 +128,25 @@ def test_logit_guard_trips_on_nan_weights(world):
 
 
 @pytest.mark.parametrize("kw, what", [
-    (dict(chaos=object()), "A.8"),
+    (dict(chaos=chaos.FaultPlan([])), "A.8"),
     (dict(role="prefill"), "A.7"),   # tp_mesh: tests/test_torch_tp_serve.py
     (dict(role="decode"), "A.7"),
 ])
 def test_unported_options_raise(world, kw, what):
-    """A.8's options (``chaos``, ``step_timeout_s``) still raise.  A.7's
-    roles, refused here until the fleet was ported, now run as JAX's
-    ``_tick`` runs them: a prefill replica prefills and never decodes (its
-    finished prefills wait for a fleet's handoff); a decode replica admits
-    nothing, so its submissions stay waiting."""
-    _, params, prompts, _ = world
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ServeEngine(params, CFG, ServeConfig(step_timeout_s=1.0),
-                    device="cpu", **({} if what == "A.8" else kw))
+    """A.8's options (``chaos``, ``step_timeout_s``), refused here until
+    the restore tier was ported, now serve: with an empty plan and a
+    watchdog the streams are JAX's (tests/test_torch_serve_chaos.py fires
+    the plans).  A.7's roles, refused here until the fleet was ported, now
+    run as JAX's ``_tick`` runs them: a prefill replica prefills and never
+    decodes (its finished prefills wait for a fleet's handoff); a decode
+    replica admits nothing, so its submissions stay waiting."""
+    _, params, prompts, ref = world
     if what == "A.8":
-        with pytest.raises(NotImplementedError, match=what):
-            ServeEngine(params, CFG, ServeConfig(), device="cpu", **kw)
+        eng = ServeEngine(params, CFG, ServeConfig(
+            n_pages=40, step_timeout_s=60.0, **SHAPE), device="cpu", **kw)
+        reqs, s = _serve(eng, prompts)
+        assert [r.generated for r in reqs] == ref
+        assert s["serve_recoveries"] == 0 and eng.join_watchdog(5.0) == 0
         return
     eng = ServeEngine(params, CFG, ServeConfig(n_pages=40, **SHAPE),
                       device="cpu", **kw)

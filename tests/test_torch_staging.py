@@ -184,5 +184,15 @@ def test_release_before_wait_is_safe(rng):
 
 
 def test_stager_refuses_fault_plans():
-    with pytest.raises(NotImplementedError, match="A.8"):
-        staging.Stager(1, 64, chaos=object())
+    """A fault plan no longer refused: the staging site fires at submit
+    (tests/test_torch_chaos_sites.py holds its corruption)."""
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    plan = chaos.FaultPlan([chaos.FaultSpec("preemption", "staging",
+                                            step=0)])
+    plan.begin_step(0)
+    st = staging.Stager(1, 64, chaos=plan)
+    try:
+        with pytest.raises(chaos.InjectedPreemption):
+            st.submit(np.zeros((4, 2), np.float32), np.arange(2))
+    finally:
+        st.close()

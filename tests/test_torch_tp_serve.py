@@ -255,10 +255,14 @@ def test_tp_engine_refusals(world):
     with pytest.raises(ValueError, match="must divide n_heads"):
         ServeEngine(params, pc, scfg, device="cpu",
                     tp_mesh=MeshConfig(tp=3))
-    # chaos and the watchdog still wait for A.8
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ServeEngine(params, pc, scfg, device="cpu",
-                    tp_mesh=MeshConfig(tp=2), chaos=object())
+    # chaos and the watchdog, refused until A.8's restore tier was
+    # ported, construct with tp as JAX's engine allows
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    eng = ServeEngine(params, pc, ServeConfig(page_integrity=False,
+                                              step_timeout_s=30.0, **SHAPE),
+                      device="cpu", tp_mesh=MeshConfig(tp=2),
+                      chaos=chaos.FaultPlan([]))
+    assert eng.watchdog.timeout_s == 30.0 and eng.chaos.faults == ()
     # the roles, refused with tp until the fleet was ported, run with tp
     # as JAX's engine allows: a prefill replica prefills only, its pages
     # hand off to a decode replica, which decodes only; the stream is the
