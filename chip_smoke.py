@@ -394,6 +394,32 @@ Phases, each printing JSON lines:
  45. ``ckpt_driver_path`` (after ``auto_route``): ``train_llama --save=``
      at the tiny config, then ``generate_llama --ckpt=``, equal to
      ``generate()`` on the restored parameters;
+ 46. ``reshard_path`` (after 43, MLP full width): the main trainer (dp=8,
+     fused BFP ring kernels, SGD lr 0.1) two steps, moved to dp=4 by
+     ``parallel.reshard`` and held against the same state built at dp=4
+     by the restore path (masters and replicas bit-equal), a third step
+     on each (masters and loss bit-equal); fused AdamW (three leaves) and
+     int8 with error feedback (the residual against the numpy golden)
+     moved 8 -> 4; the dp=4 state shrunk to 2 and grown to 8 (value-
+     exact); each move's transfer timed by CUDA events against its bytes
+     bound with integrity off and on in turns, a one-word wirebit at
+     ``reshard.transfer`` tripping the checked transfer, peak memory, the
+     wire and seed counters equal to the plan's bytes, and the plans'
+     bytes at the JAX package's layout checked against its numbers;
+ 47. ``elastic_reshard_path``: ``ElasticTrainer`` with
+     ``ReshardPolicy(shrink_to=(4, 2))``, prewarmed, integrity on: two
+     preemptions recovered by reshard (dp=8 -> 4 -> 2, no checkpoint
+     read), the masters bit-equal to a run stepping natively at those
+     widths; the same preemption under the reshard and the restore tier
+     in turns (MTTR of both); a wirebit on the reshard wire falling
+     through to the restore tier;
+ 48. ``obs_path``: the main path with ``obs_metrics`` off and on in turns
+     (ms/step, launches off equal to the main path's, masters bit-equal),
+     ``codec_obs_rel_err`` within the declared bound (BFP; int8 at dp=2),
+     the on steps under ``torch.profiler`` in a ``torch_profile`` span and
+     the timeline written and parsed back (events a lane),
+     ``train_mlp --trace-dir`` on the fused route and on
+     ``--queue=explicit`` (the trace summaries), ``obs_demo`` on the card;
  34. the ``kernels`` line (the offset instantiations' rows among them,
      the ablated ring_rs instantiations' rows from ``ring_cost_stages``,
      their launches from ``llama_sp_train_path``; the MoE paths'
@@ -403,7 +429,9 @@ Phases, each printing JSON lines:
      path's as ``pp_tp_*``, the new phases' launches as ``accum_*``,
      ``data_path_*``, ``codec_auto_*`` and ``queued_*``, the fleet's as
      ``fleet_*``, the restore tier's as ``elastic_*``, ``durability_*``,
-     ``serve_chaos_*`` and ``ckpt_driver_*``), then the
+     ``serve_chaos_*`` and ``ckpt_driver_*``, the reshard tier's and
+     observability's as ``reshard_*``, ``elastic_reshard_*`` and
+     ``obs_*``), then the
      last line ``{"ok": true, "device":
      {...}}``.
 
@@ -415,6 +443,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -7093,7 +7122,10 @@ def staging_check() -> dict:
 
 ELASTIC_STEPS = 4          # a cell's steps; the fault fires at step 3
 ELASTIC_CKPT_EVERY = 2     # so a fault at step 3 rewinds to step 2
-ELASTIC_TIMEOUT_FLOOR_S = 1.0   # step_timeout_s: this, or 20 warm steps
+# step_timeout_s: this, or 20 warm steps.  A cell's first step is cold (its
+# queue's new side stream has no cached blocks, and the step-0 save runs
+# beside it): a floor of 1 s let a slow host's first step pass for a hang
+ELASTIC_TIMEOUT_FLOOR_S = 5.0
 ELASTIC_CELLS = [          # JAX's seven (tests/test_chaos.py:226-234)
     ("exception", "queue.issue", "nan"),
     ("preemption", "queue.issue", "nan"),
@@ -7595,6 +7627,560 @@ def ckpt_driver_path(dev, kernels, smi) -> dict:
     return {"launches": launches}
 
 
+# -- A.8's live reshard tier and A.9's observability (the MLP cell) ---------
+
+RESHARD_LIVE = 41_963_520             # MLPConfig()'s live elements
+RESHARD_JAX_PADDED = 41_963_520       # the JAX package's padded_len, n=8/4/2
+RESHARD_JAX_BYTES = {                 # (wire, seed) of its plans there
+    "main 8->4": (146_872_320, 0), "adamw 8->4": (440_616_960, 0),
+    "shrink 4->2": (125_890_560, 0), "grow 4->8": (0, 146_872_320)}
+RESHARD_REPS = 5                      # timed transfers a turn
+# one flipped word: the odd word weights guarantee a single corrupted
+# word is seen; several +-2 flips can cancel in the weighted sum (a
+# 40-word flip of one AdamW segment did, on the CPU rehearsal)
+RESHARD_FLIP = 1e-9
+
+
+def _mlp_dp(dev, mcfg, n, coll, opt, bx, by, obs=False):
+    """A DPTrainer on the MLP cell at dp=n (batch 5376) and its batch."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import MeshConfig, TrainConfig
+    tr = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg), VirtualRanks(n, dev),
+                   TrainConfig(global_batch=5376, mesh=MeshConfig(dp=n),
+                               collective=coll, optimizer=opt,
+                               obs_metrics=obs))
+    st = tr.init_state(mlp.init(torch.Generator().manual_seed(0), mcfg, dev))
+    return tr, st, tr.shard_batch((bx, by))
+
+
+def _host_state(st) -> dict:
+    """Copies of what a move reads (the move releases its sources)."""
+    return {"w_own": st.w_own.clone(), "step": int(st.step),
+            "opt_state": {k: v.clone() for k, v in st.opt_state.items()},
+            "codec_state": (None if st.codec_state is None
+                            else st.codec_state.clone())}
+
+
+def _restored(tr_tgt, tr_src, host):
+    """The same logical state built at the target width by the restore
+    path (``repad_flat``), the native twin of a move."""
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    return tr_tgt.restore_state(
+        {"w_own": host["w_own"].reshape(-1), "step": host["step"],
+         "opt_state": {k: v.reshape(-1)
+                       for k, v in host["opt_state"].items()}},
+        params_like=fused_update.params_like_from_meta(tr_src._meta))
+
+
+def _clone_state(tr, host):
+    """A state of ``tr`` (the source) from copies of ``host``, to be moved
+    (the move releases them; ``restore_state`` keeps a card tensor it is
+    given)."""
+    st = _restored(tr, tr, {
+        "w_own": host["w_own"].clone(), "step": host["step"],
+        "opt_state": {k: v.clone() for k, v in host["opt_state"].items()}})
+    if host["codec_state"] is not None:
+        st = st._replace(codec_state=host["codec_state"].clone())
+    return st
+
+
+def _move(dev, name, tr_s, tr_t, st, host, smi, native=None,
+          golden_resid=None) -> dict:
+    """One move at full width: the transfer timed against its bound with
+    integrity off and on in turns, a wirebit at ``reshard.transfer``
+    tripping the checked transfer, then the donated move itself (peak
+    memory, the wire and seed counters against the plan), its leaves
+    bit-equal to ``native``'s (the restore path's) and the residual to
+    the host golden."""
+    import numpy as np
+    import torch
+    from fpga_ai_nic_tpu_torch.parallel import reshard as rs
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    plan = rs.plan_for(tr_s, tr_t)
+    names = list(tr_s.reshard_leaves(st))
+    leaves = [dict(w_own=host["w_own"], **{
+        f"opt.{k}": v for k, v in host["opt_state"].items()})[k]
+        for k in names]
+    resid = host["codec_state"]
+    times = {False: [], True: []}
+    for integ in (False, True, True, False):
+        times[integ].append(cuda_ms(lambda: rs.transfer(
+            plan, leaves, resid, integrity=integ), RESHARD_REPS))
+    ms, ms_chk = (min(times[False]), min(times[True]))
+    resid_bytes = 0 if plan.residual is None else 4 * RESHARD_LIVE * (
+        plan.flat.n_src + plan.flat.n_tgt)
+    b_ms, b_by = bound(plan.n_flat_leaves * 2 * 4 * RESHARD_LIVE
+                       + resid_bytes, 0)
+    # the exact tier: one flipped bit on a segment's wire trips it
+    chaos.install_wire_tap()
+    tripped = False
+    try:
+        fp = chaos.FaultPlan([chaos.FaultSpec(
+            "corruption", "reshard.transfer", step=0, mode="wirebit",
+            fraction=RESHARD_FLIP)], seed=5)
+        with chaos.activate(fp):
+            fp.begin_step(0)
+            try:
+                rs.reshard_state(tr_s, tr_t, _clone_state(tr_s, host),
+                                 integrity=True)
+            except chaos.WireIntegrityError:
+                tripped = len(fp.fired) == 1
+    finally:
+        chaos.uninstall_wire_tap()
+    gc.collect()
+    sync(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rs.reset_wire_counters()
+    moved = rs.reshard_state(tr_s, tr_t, st)
+    sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    wire = dict(rs.WIRE)
+    jax_plan = rs.make_plan(RESHARD_LIVE, plan.flat.n_src,
+                            RESHARD_JAX_PADDED, plan.flat.n_tgt,
+                            RESHARD_JAX_PADDED,
+                            n_flat_leaves=plan.n_flat_leaves,
+                            residual=plan.residual is not None)
+    checks = {"wire_counter": wire["bytes"] == plan.wire_bytes(),
+              "seed_counter": wire["seed_bytes"] == plan.seed_bytes(),
+              "tripped": tripped,
+              "donated": not chaos.state_buffers_alive(st)}
+    if name in RESHARD_JAX_BYTES:
+        checks["jax_layout_bytes"] = (
+            (jax_plan.wire_bytes(), jax_plan.seed_bytes())
+            == RESHARD_JAX_BYTES[name])
+    if native is not None:
+        checks["masters_bitequal"] = bool(torch.equal(moved.w_own,
+                                                      native.w_own))
+        checks["moments_bitequal"] = all(
+            torch.equal(moved.opt_state[k], native.opt_state[k])
+            for k in native.opt_state)
+        checks["replicas_bitequal"] = bool(torch.equal(moved.replicas,
+                                                       native.replicas))
+    if golden_resid is not None:
+        checks["residual_equals_golden"] = bool(np.array_equal(
+            moved.codec_state.cpu().numpy(), golden_resid))
+    row = {"move": name, "n_src": plan.flat.n_src, "n_tgt": plan.flat.n_tgt,
+           "leaves": names, "residual": plan.residual is not None,
+           "padded_src": plan.flat.padded_src,
+           "padded_tgt": plan.flat.padded_tgt,
+           "wire_bytes": plan.wire_bytes(), "seed_bytes": plan.seed_bytes(),
+           "counted": wire, "jax_layout_wire_bytes": jax_plan.wire_bytes(),
+           "jax_layout_seed_bytes": jax_plan.seed_bytes(),
+           "transfer_ms": ms, "transfer_ms_turns": times[False],
+           "integrity_ms": ms_chk, "integrity_ms_turns": times[True],
+           "integrity_overhead": ms_chk / ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_ms_per_leaf": bound(2 * 4 * RESHARD_LIVE,
+                                                        0)[0],
+           "peak_gb": peak / 1e9, "before_gb": before / 1e9,
+           "peak_over_before_gb": (peak - before) / 1e9, "checks": checks}
+    emit(phase="reshard_path", card=smi, **row)
+    if not all(checks.values()):
+        raise AssertionError(f"reshard_path {name}: {checks}")
+    return moved
+
+
+def reshard_path(dev, kernels, mcfg, sgd, bx, by, smi) -> dict:
+    """A.8's live reshard at the MLP cell's full width, one card: the main
+    trainer (dp=8, fused BFP ring kernels, SGD lr 0.1) two steps, moved to
+    dp=4, held against the same state built at dp=4 by the restore path
+    (masters and replicas bit-equal), a third step on each (masters and
+    loss bit-equal); fused AdamW (three leaves) and int8 with error
+    feedback (the residual against the golden on the host) moved 8 -> 4;
+    the moved dp=4 state shrunk to 2 and grown to 8.  Each move: the
+    transfer by CUDA events against its bytes bound, with integrity off
+    and on in turns, a tripped wirebit, peak memory, and the wire counter
+    equal to the plan's bytes.  The plans' bytes at the JAX package's
+    layout (41,963,520 at n=8/4/2) are checked beside the port's (the
+    fused kernels pad the chunks to whole (16, 128) tiles)."""
+    import torch
+    from fpga_ai_nic_tpu_torch.parallel import reshard as rs
+    from fpga_ai_nic_tpu_torch.utils.config import (
+        BFPConfig, CollectiveConfig, OptimizerConfig)
+    t_phase = time.perf_counter()
+    fused = CollectiveConfig(impl="ring", compression=BFPConfig(codec="pallas"),
+                             fused_kernel=True, fused_optimizer=True)
+    _zero(kernels)
+    tr8, st, b8 = _mlp_dp(dev, mcfg, 8, fused, sgd, bx, by)
+    for _ in range(2):
+        st, _ = tr8.step(st, b8)
+    tr4, _, b4 = _mlp_dp(dev, mcfg, 4, fused, sgd, bx, by)
+    host = _host_state(st)
+    native = _restored(tr4, tr8, host)
+    moved = _move(dev, "main 8->4", tr8, tr4, st, host, smi, native=native)
+    del st, host
+    s_m, l_m = tr4.step(moved, b4)
+    s_n, l_n = tr4.step(native, b4)
+    third = {"masters_bitequal": bool(torch.equal(s_m.w_own, s_n.w_own)),
+             "loss_bitequal": float(l_m) == float(l_n),
+             "loss": float(l_m)}
+    launches_main = {k: v.launches for k, v in kernels.items()}
+    emit(phase="reshard_third_step", card=smi, **third,
+         launches=launches_main)
+    if not (third["masters_bitequal"] and third["loss_bitequal"]):
+        raise AssertionError(f"reshard_path third step: {third}")
+    del moved, native, s_n
+    moves = {}
+    # fused AdamW + BFP: three leaves
+    adamw = OptimizerConfig(kind="adamw", learning_rate=1e-4)
+    tra, sa, ba = _mlp_dp(dev, mcfg, 8, fused, adamw, bx, by)
+    sa, _ = tra.step(sa, ba)
+    tra4 = _mlp_dp(dev, mcfg, 4, fused, adamw, bx, by)[0]
+    host = _host_state(sa)
+    moves["adamw"] = _move(dev, "adamw 8->4", tra, tra4, sa, host, smi,
+                           native=_restored(tra4, tra, host))
+    del sa, host, moves["adamw"], tra, tra4, ba
+    gc.collect()
+    # int8 with error feedback (the sublane kernels, unfused ring): the
+    # residual against the golden twin on the host
+    i8 = CollectiveConfig(impl="ring", codec="int8", codec_opts=(
+        ("error_feedback", True), ("backend", "pallas")))
+    tri, si, bi = _mlp_dp(dev, mcfg, 8, i8, sgd, bx, by)
+    for _ in range(2):
+        si, _ = tri.step(si, bi)
+    tri4 = _mlp_dp(dev, mcfg, 4, i8, sgd, bx, by)[0]
+    host = _host_state(si)
+    golden = rs.golden_redistribute_residual(
+        host["codec_state"].cpu().numpy(), RESHARD_LIVE, 4,
+        tri4._meta.padded_len)
+    moves["int8"] = _move(dev, "int8-ef 8->4", tri, tri4, si, host, smi,
+                          native=_restored(tri4, tri, host),
+                          golden_resid=golden)
+    del si, host, golden, moves["int8"], tri, tri4, bi
+    gc.collect()
+    # the stepped dp=4 state, shrunk to 2 and grown to 8
+    host4 = _host_state(s_m)
+    tr2 = _mlp_dp(dev, mcfg, 2, fused, sgd, bx, by)[0]
+    _move(dev, "shrink 4->2", tr4, tr2, s_m, host4, smi,
+          native=_restored(tr2, tr4, host4))
+    tr8g = _mlp_dp(dev, mcfg, 8, fused, sgd, bx, by)[0]
+    grown = _move(dev, "grow 4->8", tr4, tr8g, _clone_state(tr4, host4),
+                  host4, smi, native=_restored(tr8g, tr4, host4))
+    live = host4["w_own"].reshape(-1)[:RESHARD_LIVE]
+    exact = bool(torch.equal(grown.w_own.reshape(-1)[:RESHARD_LIVE], live))
+    launches = {k: v.launches for k, v in kernels.items()}
+    emit(phase="reshard_path_total", card=smi, grow_value_exact=exact,
+         wall_s=time.perf_counter() - t_phase, launches=launches)
+    if not exact:
+        raise AssertionError("reshard_path: the grow is not value-exact")
+    del grown, s_m, host4
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def _plain_widths(dev, mcfg, sgd, bx, by, factory, widths, steps):
+    """Masters of a run that trains ``widths[i]`` ranks for ``steps[i]``
+    steps, moving between them through the restore path."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    tr = factory(widths[0])
+    st = tr.init_state(mlp.init(torch.Generator().manual_seed(0), mcfg, dev))
+    for i, (n, k) in enumerate(zip(widths, steps)):
+        if i:
+            nxt = factory(n)
+            st = _restored(nxt, tr, _host_state(st))
+            tr = nxt
+        batch = tr.shard_batch((bx, by))
+        for _ in range(k):
+            st, _ = tr.step(st, batch)
+    return st.w_own
+
+
+def elastic_reshard_path(dev, kernels, mcfg, sgd, bx, by, smi) -> dict:
+    """The MLP cell under ``ElasticTrainer`` with ``ReshardPolicy(factory,
+    shrink_to=(4, 2))``, prewarmed, integrity on (the main path's fused BFP
+    ring kernels, SGD lr 0.1, checkpoints every 2 steps, mirrored): a
+    preemption at step 2 recovers by reshard to dp=4 with no checkpoint
+    read, a second at step 4 re-arms onto dp=2; the final masters
+    bit-equal to a run stepping natively at the same widths.  Then the
+    same seeded preemption under the reshard tier and under the restore
+    tier, in turns (MTTR of both), and a wirebit at ``reshard.transfer``
+    falling through to the restore tier (masters equal to the fault-free
+    steps)."""
+    import shutil
+    import tempfile
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.parallel.elastic import (
+        ElasticConfig, ElasticTrainer, ReshardPolicy)
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    from fpga_ai_nic_tpu_torch.utils.config import (
+        BFPConfig, CollectiveConfig, MeshConfig, TrainConfig)
+    t_phase = time.perf_counter()
+    coll = CollectiveConfig(impl="ring", compression=BFPConfig(codec="pallas"),
+                            fused_kernel=True, fused_optimizer=True,
+                            integrity_check=True)
+
+    def factory(n):
+        return DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg),
+                         VirtualRanks(n, dev),
+                         TrainConfig(global_batch=5376, mesh=MeshConfig(dp=n),
+                                     collective=coll, optimizer=sgd))
+
+    tr8 = factory(8)
+    st0 = tr8.init_state(mlp.init(torch.Generator().manual_seed(0), mcfg, dev))
+    batch = tr8.shard_batch((bx, by))
+    tr8.step(st0, batch)                          # warm
+    ecfg = ElasticConfig(step_timeout_s=ELASTIC_TIMEOUT_FLOOR_S * 2,
+                         max_retries=3, backoff_s=0.01, ckpt_every=2,
+                         ckpt_keep_last=2, ckpt_mirror=True)
+    root = tempfile.mkdtemp(prefix="elastic_reshard_")
+    launches_all = {name: 0 for name in kernels}
+
+    def run(tag, specs, n_steps, shrink_to=None, taps=False):
+        plan = chaos.FaultPlan(specs, seed=11)
+        d = os.path.join(root, tag)
+        pol = (ReshardPolicy(factory, shrink_to=shrink_to)
+               if shrink_to is not None else None)
+        if taps:
+            chaos.install_wire_tap()
+        try:
+            with chaos.activate(plan):
+                et = ElasticTrainer(tr8, d, ecfg, plan=plan, reshard=pol)
+                t0 = time.perf_counter()
+                et.prewarm_reshard(st0, batch)
+                prewarm_s = time.perf_counter() - t0
+                _zero(kernels)
+                sync(dev)
+                t0 = time.perf_counter()
+                st, _ = et.run(st0, lambda i: batch, n_steps)
+                sync(dev)
+                wall = time.perf_counter() - t0
+        finally:
+            if taps:
+                chaos.uninstall_wire_tap()
+        launches = {k: v.launches for k, v in kernels.items()}
+        for k, v in launches.items():
+            launches_all[k] += v
+        rec = et.profiler.recovery.as_dict()
+        out = {"fired": [(f.kind, f.site, f.step) for f in plan.fired],
+               "faults": rec["faults"], "reshards": rec["reshards"],
+               "restores": rec["checkpoint_restores"],
+               "mttr_reshard_s": rec["mttr_reshard_mean_s"],
+               "mttr_restore_s": rec["mttr_restore_mean_s"],
+               "width": et.trainer.n, "step": st.step, "wall_s": wall,
+               "prewarm_s": prewarm_s, "launches": launches,
+               "reshard_failed": sum(
+                   e["name"] == "reshard.failed"
+                   for e in et.profiler.events.snapshot()),
+               "threads_alive": et.join(60.0)}
+        shutil.rmtree(d, ignore_errors=True)
+        return st, out
+
+    try:
+        pre = [chaos.FaultSpec("preemption", "queue.issue", step=2),
+               chaos.FaultSpec("preemption", "queue.issue", step=4)]
+        st, ladder = run("ladder", pre, 6, shrink_to=(4, 2))
+        want = _plain_widths(dev, mcfg, sgd, bx, by, factory, (8, 4, 2),
+                             (2, 2, 2))
+        ladder["masters_bitequal_native"] = bool(torch.equal(st.w_own,
+                                                             want))
+        del st, want
+        emit(phase="elastic_reshard_path", cell="ladder (4, 2)", card=smi,
+             **ladder)
+        turns = []
+        for tier in ("reshard", "restore", "reshard", "restore"):
+            _, r = run(f"mttr_{len(turns)}", pre[:1], 4,
+                       shrink_to=4 if tier == "reshard" else None)
+            turns.append(dict(r, tier=tier))
+            emit(phase="elastic_reshard_mttr", card=smi, **turns[-1])
+        clean = _plain_widths(dev, mcfg, sgd, bx, by, factory, (8,), (4,))
+        st, fall = run("wirebit", pre[:1] + [chaos.FaultSpec(
+            "corruption", "reshard.transfer", step=2, mode="wirebit",
+            fraction=RESHARD_FLIP)], 4, shrink_to=4, taps=True)
+        fall["masters_bitequal_clean"] = bool(torch.equal(st.w_own, clean))
+        del st, clean
+        emit(phase="elastic_reshard_path", cell="wirebit@reshard.transfer",
+             card=smi, **fall)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    mttr = {t: [r[f"mttr_{t}_s"] for r in turns if r["tier"] == t]
+            for t in ("reshard", "restore")}
+    checks = {
+        "ladder": (ladder["faults"] == {"shrinkable": 2}
+                   and ladder["reshards"] == 2 and ladder["restores"] == 0
+                   and ladder["width"] == 2 and ladder["step"] == 6
+                   and ladder["masters_bitequal_native"]),
+        "turns": all((r["reshards"], r["restores"]) == (
+            (1, 0) if r["tier"] == "reshard" else (0, 1)) for r in turns),
+        "fall_through": (fall["reshards"] == 0 and fall["restores"] == 1
+                         and fall["reshard_failed"] == 1
+                         and len(fall["fired"]) == 2 and fall["width"] == 8
+                         and fall["masters_bitequal_clean"]),
+        "threads_joined": not any(r["threads_alive"]
+                                  for r in [ladder, fall] + turns)}
+    emit(phase="elastic_reshard_path_total", card=smi, mttr_s=mttr,
+         checks=checks, wall_s=time.perf_counter() - t_phase,
+         launches=launches_all)
+    if not all(checks.values()):
+        raise AssertionError(f"elastic_reshard_path: {checks}")
+    return {"launches": launches_all, "mttr": mttr}
+
+
+OBS_STEPS = 3               # steps a turn (off, on, on, off)
+TRACE_ARGV = QUEUE_MLP_ARGV + ["--iters=3"]
+
+
+def _lanes(tl) -> dict:
+    """Complete events a timeline lane ("process / thread" names)."""
+    names, counts = {}, {}
+    for e in tl["traceEvents"]:
+        if e["ph"] == "M":
+            key = (e["pid"], e.get("tid"))
+            names[key] = e["args"]["name"]
+    for e in tl["traceEvents"]:
+        if e["ph"] not in ("X", "C", "i"):
+            continue
+        proc = names.get((e["pid"], None), str(e["pid"]))
+        thread = names.get((e["pid"], e.get("tid")), str(e.get("tid")))
+        lane = f"{proc} / {thread}"
+        counts[lane] = counts.get(lane, 0) + 1
+    return counts
+
+
+def obs_path(dev, kernels, mcfg, sgd, bx, by, smi) -> dict:
+    """A.9 on the MLP main path (dp=8, fused BFP ring kernels, SGD): steps
+    with ``obs_metrics`` off and on in turns (ms/step of both, the launches
+    off equal to the main path's, the masters after both bit-equal), the
+    BFP codec's observed error within its declared bound (and int8's at
+    dp=2); the on steps captured under ``torch.profiler`` inside a
+    ``torch_profile`` span, the timeline written and parsed back (events a
+    lane); ``train_mlp --trace-dir`` on the fused route and on
+    ``--queue=explicit`` (each trace's summary); ``obs_demo`` on the
+    card."""
+    import shutil
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fpga_ai_nic_tpu_torch import obs_demo, train_mlp
+    from fpga_ai_nic_tpu_torch.obs import metrics as obs_metrics
+    from fpga_ai_nic_tpu_torch.obs import timeline
+    from fpga_ai_nic_tpu_torch.utils import trace_analysis as ta
+    from fpga_ai_nic_tpu_torch.utils.config import (
+        BFPConfig, CollectiveConfig)
+    from fpga_ai_nic_tpu_torch.utils.observability import Profiler
+    t_phase = time.perf_counter()
+    coll = CollectiveConfig(impl="ring", compression=BFPConfig(codec="pallas"),
+                            fused_kernel=True, fused_optimizer=True)
+    runs = {}
+    for obs in (False, True):
+        tr, st, batch = _mlp_dp(dev, mcfg, 8, coll, sgd, bx, by, obs=obs)
+        st, _ = tr.step(st, batch)                 # warm
+        runs[obs] = [tr, st, batch]
+    prof = Profiler()
+    sink = obs_metrics.MetricsSink(events=prof.events,
+                                   static=runs[True][0].obs_static_metrics())
+    ms = {False: [], True: []}
+    launches = {}
+    root = tempfile.mkdtemp(prefix="obs_path_")
+    trace_dir = os.path.join(root, "torch_trace")
+    try:
+        with obs_metrics.use_sink(sink):
+            for turn, obs in enumerate((False, True, True, False)):
+                tr, st, batch = runs[obs]
+                _zero(kernels)
+                capture = obs and turn == 2
+                cm = (profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA])
+                      if capture else None)
+                sync(dev)
+                with (prof.events.span(timeline.DEFAULT_ANCHOR_SPAN)
+                      if capture else contextlib.nullcontext()):
+                    with (cm if capture else contextlib.nullcontext()):
+                        t0 = time.perf_counter()
+                        for _ in range(OBS_STEPS):
+                            with prof.bucket("step"):
+                                st, loss = tr.step(st, batch)
+                                float(loss)
+                        sync(dev)
+                        ms[obs].append(1e3 * (time.perf_counter() - t0)
+                                       / OBS_STEPS)
+                runs[obs][1] = st
+                launches.setdefault(obs, {k: v.launches
+                                          for k, v in kernels.items()})
+                if capture:
+                    os.makedirs(trace_dir, exist_ok=True)
+                    cm.export_chrome_trace(os.path.join(
+                        trace_dir, "obs_path.pt.trace.json"))
+        latest = dict(sink.latest)
+        events_path = prof.dump_events(os.path.join(root, "events.jsonl"))
+        tl_path = timeline.write(os.path.join(root, "timeline.json"),
+                                 timeline.build(events_jsonl=events_path,
+                                                trace_dir=trace_dir))
+        with open(tl_path) as f:
+            tl = json.load(f)
+        lanes = _lanes(tl)
+        same = bool(torch.equal(runs[True][1].w_own, runs[False][1].w_own))
+        bound_bfp = sink.static["declared_error_bound"]
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        # int8 at dp=2 (the int8 path's layout), one step with metrics on
+        i8 = CollectiveConfig(impl="ring", codec="int8", codec_opts=(
+            ("backend", "pallas"),), fused_optimizer=True)
+        tri, si, bi = _mlp_dp(dev, mcfg, 2, i8, sgd, bx, by, obs=True)
+        sink8 = obs_metrics.MetricsSink(static=tri.obs_static_metrics())
+        with obs_metrics.use_sink(sink8):
+            tri.step(si, bi)
+        int8 = {"codec_obs_rel_err": sink8.latest["codec_obs_rel_err"],
+                "declared_error_bound":
+                    sink8.static["declared_error_bound"]}
+        del tri, si, bi
+        gc.collect()
+        torch.cuda.empty_cache()
+        drivers = {}
+        for route, extra in (("fused", []), ("explicit",
+                                             ["--queue=explicit"])):
+            d = os.path.join(root, f"trace_{route}")
+            out = train_mlp.main(TRACE_ARGV + extra + [f"--trace-dir={d}"])
+            drivers[route] = {"loss": out["loss"],
+                              "samples_per_sec": out["samples_per_sec"],
+                              "wall_s": out["wall_s"],
+                              "trace_analysis": out["trace_analysis"],
+                              "streams": {
+                                  plane: r["n_streams"] for plane, r in
+                                  ta.analyze_trace(d)["devices"].items()}}
+            gc.collect()
+            torch.cuda.empty_cache()
+        demo = obs_demo.run(steps=3, out_dir=os.path.join(root, "demo"),
+                            trace=True, device="cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    per_step = {"ring_rs_update": 1, "ring_ag": 1}
+    off_ok = all(launches[False][k] == OBS_STEPS * per_step.get(k, 0)
+                 for k in launches[False])
+    checks = {
+        "launches_off_equal_main_path": off_ok,
+        "masters_bitequal_on_off": same,
+        "metric_keys": set(latest) == {"codec_obs_rel_err", "grad_norm",
+                                       "loss"},
+        "bfp_within_bound": 0 < latest["codec_obs_rel_err"] <= bound_bfp,
+        "int8_within_bound": 0 < int8["codec_obs_rel_err"]
+        <= int8["declared_error_bound"],
+        "timeline_device_lane": tl["otherData"]["n_device_intervals"] > 0
+        and tl["otherData"]["device_alignment"] == "anchored",
+        "traces_summarized": all("error" not in r["trace_analysis"]
+                                 for r in drivers.values()),
+        "demo_device_intervals": demo["timeline"]["n_device_intervals"] > 0}
+    emit(phase="obs_path", card=smi, steps_a_turn=OBS_STEPS,
+         ms_per_step_off=ms[False], ms_per_step_on=ms[True],
+         launches_off=launches[False], launches_on=launches[True],
+         latest=latest, declared_error_bound=bound_bfp, int8=int8,
+         timeline_other=tl["otherData"], timeline_lanes=lanes,
+         drivers=drivers, demo_timeline=demo["timeline"],
+         demo_latest=demo["metrics"]["latest"], checks=checks,
+         wall_s=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise AssertionError(f"obs_path: {checks}")
+    return {"launches": launches[True], "drivers": drivers}
+
+
 def main() -> int:
     # the Llama training phase holds about 60 GB at its peak and frees and
     # reallocates 7-15 GB buffers every step; growable segments keep the
@@ -7835,6 +8421,13 @@ def main() -> int:
     elastic = elastic_path(dev, kernels, mcfg, sgd, bx, by, smi)
     durability = durability_path(dev, kernels, elastic.pop("trainer"), mcfg,
                                  sgd, bx, by, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 46-48. the live reshard tier, under the elastic loop; observability
+    reshard = reshard_path(dev, kernels, mcfg, sgd, bx, by, smi)
+    elastic_rs = elastic_reshard_path(dev, kernels, mcfg, sgd, bx, by, smi)
+    obs = obs_path(dev, kernels, mcfg, sgd, bx, by, smi)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -8300,6 +8893,24 @@ def main() -> int:
         results[name].setdefault("extra", {}).update(
             serve_chaos_launches=serve_chaos["launches"][name],
             serve_chaos_launches_from=a8_from["serve_chaos"])
+    a89_from = {
+        "reshard": ("reshard_path (MLP full width: 2 + 1 steps at dp=8 -> "
+                    "4, AdamW 1 step, int8-EF 2 steps; the transfers' "
+                    "integrity launches)"),
+        "elastic_reshard": ("elastic_reshard_path (6 runs: the (4, 2) "
+                            "ladder, 4 MTTR turns, the wirebit "
+                            "fall-through; integrity on)"),
+        "obs": (f"obs_path (the first obs_metrics=True turn, {OBS_STEPS} "
+                "steps: the BFP roundtrip of codec_obs_rel_err)")}
+    for name in ("ring_rs_update", "ring_ag", "bfp_encode", "bfp_decode",
+                 "int8_encode", "int8_decode", "row_checksums"):
+        results[name].setdefault("extra", {}).update(
+            reshard_launches=reshard["launches"][name],
+            reshard_launches_from=a89_from["reshard"],
+            elastic_reshard_launches=elastic_rs["launches"][name],
+            elastic_reshard_launches_from=a89_from["elastic_reshard"],
+            obs_launches=obs["launches"][name],
+            obs_launches_from=a89_from["obs"])
     for name, (src, repl) in meta.items():
         r = results[name]
         bound_ms, bound_by = r["bound"]

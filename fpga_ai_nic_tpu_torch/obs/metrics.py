@@ -1,21 +1,36 @@
-"""Serving-plane request telemetry, the trainers' static codec facts and
-the host side of the metrics plane — the port's own copy of
-``RequestSpans``, ``percentile``, ``codec_static_metrics``, ``Ewma``,
-``MetricsSink``, ``use_sink``, ``active_sink`` and ``host_observe`` from
-the JAX package's ``obs/metrics.py`` (those need no JAX; the in-graph
-training metrics, ``tap``, are not ported: ROADMAP A.9).
+"""The metrics plane: serving-plane request telemetry, the trainers' static
+codec facts and step metrics — the port of the JAX package's
+``obs/metrics.py`` (``RequestSpans``, ``percentile``,
+``codec_static_metrics``, ``Ewma``, ``MetricsSink``, ``use_sink``,
+``active_sink``, ``host_observe``, ``tap``, ``codec_observed_error``,
+``l2_norm``).
+
+A trainer built with ``TrainConfig(obs_metrics=True)`` hands each step's
+metric scalars (0-d tensors: ``loss``, ``grad_norm``, ``codec_obs_rel_err``,
+``ef_resid_norm``) to the active sink through ``tap``.  JAX's tap is a
+callback inside the compiled step that runs when the device reaches it;
+here ``tap`` records the scalars with a CUDA event behind them and syncs
+nothing: the sink converts them once the event has completed (its next
+delivery looks without waiting; a read of ``latest`` or ``as_dict`` waits),
+so they arrive after the step's own loss fetch.  ``tap(..., enabled=False)``
+returns its argument and launches nothing (a thunk is never called): the
+JAX package's compiled-out contract.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+import torch
 
 from .events import EventStream
 
 __all__ = ["Ewma", "MetricsSink", "RequestSpans", "active_sink",
-           "codec_static_metrics", "host_observe", "percentile", "use_sink"]
+           "codec_observed_error", "codec_static_metrics", "host_observe",
+           "l2_norm", "percentile", "tap", "use_sink"]
 
 
 class Ewma:
@@ -51,11 +66,15 @@ class MetricsSink:
         self.ewma_alpha = ewma_alpha
         self.events = events
         self.static = dict(static or {})
-        self.latest: Dict[str, float] = {}
+        self._latest: Dict[str, float] = {}
         self._ewma: Dict[str, Ewma] = {}
-        self.n_updates = 0
+        self._n_updates = 0
         self._last_t: Optional[float] = None
         self._lock = threading.Lock()
+        # tapped steps not yet converted: (names, values, event or None,
+        # host time of the tap)
+        self._pending: Deque[Tuple[Tuple[str, ...], torch.Tensor, Any,
+                                   float]] = deque()
 
     def _ewma_update(self, name: str, value: float) -> None:
         e = self._ewma.get(name)
@@ -67,14 +86,17 @@ class MetricsSink:
         e = self._ewma.get(name)
         return None if e is None else e.value
 
-    def update(self, values: Dict[str, float]) -> None:
-        now = time.perf_counter()
+    def update(self, values: Dict[str, float],
+               t: Optional[float] = None) -> None:
+        """Deliver one step's values (``t``: the step's host time,
+        default now)."""
+        now = time.perf_counter() if t is None else t
         ev = self.events
         with self._lock:
-            self.n_updates += 1
+            self._n_updates += 1
             for name, v in values.items():
                 v = float(v)
-                self.latest[name] = v
+                self._latest[name] = v
                 if name == "loss":
                     self._ewma_update("loss", v)
             if self._last_t is not None:
@@ -84,11 +106,56 @@ class MetricsSink:
             for name, v in values.items():
                 ev.counter(f"metric.{name}", float(v))
 
+    def defer(self, values: Dict[str, torch.Tensor]) -> None:
+        """A tapped step's 0-d tensors, converted once the device has
+        computed them: on a card one stacked copy into pinned host memory
+        rides the stream behind the step, and an event marks it done.  The
+        steps already done are delivered now, without a wait (``drain``)."""
+        names = tuple(values)
+        vec = torch.stack([values[k].to(torch.float32).reshape(())
+                           for k in names])
+        event = None
+        if vec.is_cuda:
+            host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+            host.copy_(vec, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(vec.device))
+            vec = host
+        with self._lock:
+            self._pending.append((names, vec, event, time.perf_counter()))
+        self.drain(wait=False)
+
+    def drain(self, wait: bool = True) -> None:
+        """Deliver the pending tapped steps in order; without ``wait``,
+        stop at the first whose values the device has not finished."""
+        while True:
+            with self._lock:
+                if not self._pending:
+                    return
+                names, vec, event, t = self._pending[0]
+                if event is not None and not event.query():
+                    if not wait:
+                        return
+                    event.synchronize()
+                self._pending.popleft()
+            self.update(dict(zip(names, vec.tolist())), t=t)
+
+    @property
+    def latest(self) -> Dict[str, float]:
+        self.drain()
+        return self._latest
+
+    @property
+    def n_updates(self) -> int:
+        self.drain()
+        return self._n_updates
+
     def as_dict(self) -> Dict[str, Any]:
+        self.drain()
         with self._lock:
             out: Dict[str, Any] = {
-                "n_updates": self.n_updates,
-                "latest": dict(self.latest),
+                "n_updates": self._n_updates,
+                "latest": dict(self._latest),
                 "loss_ewma": self.ewma_value("loss"),
                 "step_time_ewma_s": self.ewma_value("step_time_s"),
             }
@@ -128,6 +195,58 @@ def host_observe(values: Dict[str, float]) -> None:
     sink = _ACTIVE_SINK
     if sink is not None:
         sink.update(values)
+
+
+def tap(out: Any, metrics: Any, enabled: bool = True) -> Any:
+    """Hand ``metrics`` (name -> 0-d tensor, or a zero-argument thunk
+    returning that dict) to the active sink and return ``out`` unchanged.
+    ``enabled=False`` returns ``out`` itself and computes nothing (a thunk
+    is never called); without an active sink nothing is computed either.
+    No sync: the sink converts the values once the device has them."""
+    if not enabled:
+        return out
+    sink = _ACTIVE_SINK
+    if sink is None:
+        return out
+    if callable(metrics):
+        metrics = metrics()
+    if metrics:
+        sink.defer({k: v.detach() for k, v in sorted(metrics.items())})
+    return out
+
+
+def codec_observed_error(codec: Any, x: torch.Tensor,
+                         quantized: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Observed per-unit relative roundtrip error of ``codec`` on ``x``
+    (the ranks' rows ``[n, L]``, or one flat vector), the maximum over
+    every unit of every rank (JAX's per-device value under ``pmax``):
+    max |x - roundtrip(x)| / max |x| over each compression unit of
+    ``pad_elems`` elements.  A unit is contiguous in the flat layout (the
+    JAX package's definition); in the sublane layout (``unit_elems`` a
+    whole (block, 128)-lane tile) it is a tile's column, the block the
+    codec scales together.  ``quantized`` is roundtrip(x) where the caller
+    has it (the error-feedback wire vector); otherwise one roundtrip is
+    spent, every rank's row in one codec call."""
+    L = x.shape[-1]
+    c = codec.for_payload(L, x.device)
+    if quantized is None:
+        quantized = c.roundtrip(x.reshape(-1)).reshape(x.shape)
+    pe = c.pad_elems
+    lanes = c.unit_elems(L) // pe
+    units = x.reshape(-1, pe, lanes).to(torch.float32)
+    inf = float("inf")        # the max-abs norm: no |x| temporary
+    err = torch.linalg.vector_norm(
+        units - quantized.reshape(-1, pe, lanes).to(torch.float32), inf,
+        dim=1)
+    unit_max = torch.linalg.vector_norm(units, inf, dim=1)
+    return (err / unit_max.clamp_min(1e-20)).amax()
+
+
+def l2_norm(x: torch.Tensor) -> torch.Tensor:
+    """The global L2 norm of the ranks' rows (JAX's ``psum`` of each
+    device's squares, then the square root)."""
+    return torch.sqrt((x.to(torch.float32) ** 2).sum())
 
 
 def codec_static_metrics(codec: Any, n_elems: int) -> Dict[str, Any]:

@@ -152,6 +152,16 @@ def flat_meta(tree: Any, coll: CollectiveConfig, n: int) -> FlatMeta:
                     total + (-total) % m)
 
 
+def params_like_from_meta(meta: FlatMeta) -> Any:
+    """A params tree of meta-device tensors (shapes and dtypes, no
+    storage) rebuilt from flattening metadata: what a target trainer's
+    ``_ensure_meta`` reads when a live state arrives from another rank
+    count (``parallel.reshard``) instead of from ``init_state``."""
+    return tree_from_leaves(meta.keys, [
+        torch.empty(s, dtype=d, device="meta")
+        for s, d in zip(meta.shapes, meta.dtypes)])
+
+
 def flatten_leaves(leaves: List[torch.Tensor], meta: FlatMeta,
                    out: torch.Tensor = None) -> torch.Tensor:
     """Copy leaves in tree order into one flat f32 [padded_len] vector

@@ -24,8 +24,9 @@ the buckets are reduced, once a step.  The buckets are reduced one after
 the other once the backward is done; ``parallel.queued.QueuedDDPTrainer``
 issues them through the explicit issue/wait queue instead.
 ``integrity_check`` raises ``ValueError`` as the JAX trainer's does (its
-bucketed reduces do not carry the verdicts); in-graph metrics raise
-``NotImplementedError`` naming ROADMAP A.9.  ``restore_state`` takes a
+bucketed reduces do not carry the verdicts); ``obs_metrics=True`` is
+accepted and adds nothing, as in the JAX package (``QueuedDDPTrainer``
+delivers the loss on the host).  ``restore_state`` takes a
 ``utils.checkpoint`` payload, which stores rank 0's master row (JAX's
 replicated vector).
 """
@@ -75,9 +76,6 @@ class DDPTrainer:
                 "integrity_check is implemented on DPTrainer only: the "
                 "bucketed DDP reduces do not carry the verdicts, as in the "
                 "JAX package; construct with integrity_check=False")
-        if cfg.obs_metrics:
-            raise NotImplementedError("obs_metrics is not ported: "
-                                      "ROADMAP A.9")
         self.loss_fn = loss_fn
         self.ranks = ranks
         self.n = ranks.n

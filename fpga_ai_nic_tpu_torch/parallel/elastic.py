@@ -1,5 +1,5 @@
-"""Elastic recovery loop, the restore tier — the port of the JAX package's
-``parallel/elastic.py``.
+"""Elastic recovery loop — the port of the JAX package's
+``parallel/elastic.py``: the live reshard tier, then the restore tier.
 
 ``runtime.watchdog`` detects, ``utils.checkpoint`` restores; this module
 composes them, with ``parallel.multihost`` control-plane re-init and the
@@ -20,12 +20,22 @@ every detected fault into a bounded recovery:
         on failure:
             classify -> record fault (observability.RecoveryStats)
             preemption: multihost re-init
-            restore the last verified checkpoint -> retry with backoff
+            shrinkable (a preemption, the state alive, a rung armed):
+                tier 1: move the live state onto the armed width
+                (parallel.reshard) and retry this step there
+            otherwise, or when the move fails:
+                tier 2: restore the last verified checkpoint -> retry
+                with backoff
 
-The JAX package's first tier, the live mesh reshard
-(``ElasticTrainer(reshard=ReshardPolicy(...))``), is the next slice of
-ROADMAP A.8; here ``reshard=`` raises, and every fault takes the restore
-tier (as in the JAX package when no policy is armed).
+``ElasticTrainer(reshard=ReshardPolicy(factory, shrink_to=(4, 2)))`` arms
+tier 1: a ladder of widths, re-armed after each move (bounded by
+``max_reshards``), rungs equal to the current width skipped.  With
+``prewarm`` the move and one step of the target trainer run first on a
+zeros ghost of the state (``prewarm_reshard``): in eager PyTorch that
+builds the target's kernels and warms the allocator, so a recovery's
+MTTR is the move itself.  The caller's batches stay laid out for the
+trainer it handed in; after a move each is re-laid for the current
+width (``_place``).
 
 The bound covers the device work: the attempt waits on its ticket (the
 queue synchronises on the ticket's CUDA event) inside the watchdog's
@@ -50,7 +60,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -61,13 +71,64 @@ from ..runtime.watchdog import DeviceHangError, Heartbeat, Watchdog
 from ..utils.checkpoint import Checkpointer
 from ..utils.observability import Profiler
 
-__all__ = ["ElasticConfig", "ElasticTrainer", "RecoveryExhausted"]
+__all__ = ["ElasticConfig", "ElasticTrainer", "RecoveryExhausted",
+           "ReshardPolicy"]
+
+
+def _zeros_like(tree: Any) -> Any:
+    """A ghost of a state tree: every tensor a zeros tensor of its shape,
+    dtype and device (NamedTuples, dicts, lists and tuples kept)."""
+    if isinstance(tree, torch.Tensor):
+        return torch.zeros_like(tree)
+    if isinstance(tree, dict):
+        return {k: _zeros_like(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zeros_like(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zeros_like(v) for v in tree)
+    return tree
 
 
 class RecoveryExhausted(RuntimeError):
     """A step kept failing after max_retries recoveries: the fault is not
     transient (or the recovery path itself is broken); escalate instead
     of looping forever."""
+
+
+@dataclass
+class ReshardPolicy:
+    """Arms the first recovery tier: survive a preemption by moving the
+    live state to another width (``parallel.reshard``) instead of a
+    checkpoint restore and replay.
+
+    ``trainer_factory(n) -> trainer`` builds a trainer of width ``n`` with
+    the same loss, model and wire format.  ``shrink_to`` is the target
+    width, or a ladder of widths (e.g. ``(4, 2)``); a target larger than
+    the current width is a scale-out (the grow's seeding applies).  With
+    ``prewarm``, ``ElasticTrainer.prewarm_reshard`` runs the move and the
+    target's step ahead of the fault on a zeros ghost.  After a move the
+    tier re-arms onto the next rung, at most ``max_reshards`` moves (None:
+    the ladder's length); a rung equal to the current width is skipped;
+    when the ladder or the bound is spent the policy disarms and the next
+    fault takes the restore tier."""
+
+    trainer_factory: Callable[[int], Any]
+    shrink_to: Union[int, Sequence[int]]
+    prewarm: bool = True
+    max_reshards: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        if not self.rungs():
+            raise ValueError("shrink_to needs at least one target width")
+        bad = [n for n in self.rungs() if n <= 0]
+        if bad:
+            raise ValueError(f"non-positive target width(s) {bad} in "
+                             f"shrink_to={self.shrink_to}")
+
+    def rungs(self) -> Tuple[int, ...]:
+        if isinstance(self.shrink_to, int):
+            return (self.shrink_to,)
+        return tuple(int(n) for n in self.shrink_to)
 
 
 @dataclass(frozen=True)
@@ -94,7 +155,8 @@ class ElasticConfig:
 class ElasticTrainer:
     """Supervised wrapper around a trainer (``DPTrainer``, ``DDPTrainer``,
     ``FSDPTrainer``, ``ShardedTrainer``: ``step``, ``restore_state``,
-    ``cfg.collective``).
+    ``cfg.collective``; ``reshard=`` takes ``DPTrainer`` and
+    ``FSDPTrainer``, which carry ``reshard_leaves``).
 
     ``plan`` (a ``runtime.chaos.FaultPlan``) is for fault-injection runs:
     the loop arms it a step and routes the step through a
@@ -110,17 +172,17 @@ class ElasticTrainer:
                  plan: Optional[chaos_lib.FaultPlan] = None,
                  stage_fn: Optional[Callable[[Any], Any]] = None,
                  profiler: Optional[Profiler] = None,
-                 reshard: Any = None):
-        if reshard is not None:
-            raise NotImplementedError(
-                "ElasticTrainer(reshard=...): the live mesh reshard tier "
-                "(parallel/reshard.py, ReshardPolicy) is not ported: "
-                "ROADMAP A.8, its reshard slice; every fault takes the "
-                "restore tier")
+                 reshard: Optional[ReshardPolicy] = None):
         self.trainer = trainer
         self.cfg = cfg or ElasticConfig()
         self.plan = plan
         self.stage_fn = stage_fn
+        self.reshard_policy = reshard
+        self._reshard_trainer = None     # (target width, trainer), lazy
+        self._rung_idx = 0               # ladder position (skips no-ops)
+        self._reshards_done = 0          # moves made (max_reshards)
+        # the width the caller's batches are laid out for (_place)
+        self._batch_n = getattr(trainer, "n", None)
         self.profiler = profiler or Profiler()
         self.watchdog = Watchdog(self.cfg.step_timeout_s)
         self.heartbeat = Heartbeat(stall_after_s=self.cfg.stall_after_s)
@@ -198,8 +260,12 @@ class ElasticTrainer:
 
     # -- recovery ---------------------------------------------------------------
 
-    def _classify(self, err: BaseException) -> str:
+    def _classify(self, err: BaseException, state: Any = None) -> str:
         if isinstance(err, chaos_lib.InjectedPreemption):
+            # with a rung armed and the pre-step state alive the live
+            # state can move (tier 1); a dead one only restores
+            if self._reshard_available(state):
+                return "shrinkable"
             return "preemption"
         if isinstance(err, DeviceHangError):
             return "hang"
@@ -210,6 +276,92 @@ class ElasticTrainer:
         if isinstance(err, chaos_lib.InjectedFault):
             return err.kind
         return "error"
+
+    # -- tier 1: the live reshard --------------------------------------------
+
+    def _next_width(self) -> Optional[int]:
+        """The armed target width, or None when the ladder or the bound is
+        spent.  Rungs equal to the current width are skipped."""
+        pol = self.reshard_policy
+        if pol is None:
+            return None
+        if pol.max_reshards is not None \
+                and self._reshards_done >= pol.max_reshards:
+            return None
+        for w in pol.rungs()[self._rung_idx:]:
+            if w != self.trainer.n:
+                return w
+        return None
+
+    def _reshard_available(self, state) -> bool:
+        return (self._next_width() is not None and state is not None
+                and chaos_lib.state_buffers_alive(state))
+
+    def _ensure_reshard_trainer(self):
+        target = self._next_width()
+        assert target is not None, "no reshard rung armed"
+        if self._reshard_trainer is None \
+                or self._reshard_trainer[0] != target:
+            pol = self.reshard_policy
+            self._reshard_trainer = (target, pol.trainer_factory(target))
+        return self._reshard_trainer[1]
+
+    def _do_reshard(self, state):
+        """Move the live state to the armed width and swap the loop onto
+        the new trainer (the queue's dispatch reads ``self.trainer`` at
+        call time).  After a move the tier re-arms onto the next rung;
+        a spent ladder disarms the policy."""
+        from . import reshard as reshard_lib
+        tgt = self._ensure_reshard_trainer()
+        rungs = self.reshard_policy.rungs()
+        while rungs[self._rung_idx] == self.trainer.n:
+            self._rung_idx += 1          # the no-op rungs being skipped
+        new_state = reshard_lib.reshard_state(
+            self.trainer, tgt, state, events=self.profiler.events)
+        self.trainer = tgt
+        self._rung_idx += 1              # past the rung just used
+        self._reshards_done += 1
+        self._reshard_trainer = None
+        if self._next_width() is None:
+            self.reshard_policy = None   # ladder or bound spent
+        return new_state
+
+    def _place(self, batch):
+        """A caller's batch, laid out for the width of the trainer handed
+        in, re-laid for the current trainer's (the identity until a move):
+        each leaf's rank axis merged back into the global batch, then
+        ``shard_batch``."""
+        n = getattr(self.trainer, "n", None)
+        if n == self._batch_n or self._batch_n is None:
+            return batch
+        return self.trainer.shard_batch(tuple(
+            b.reshape(-1, *b.shape[2:]) for b in batch))
+
+    def prewarm_reshard(self, state, batch=None) -> None:
+        """Run the tier-1 path ahead of the fault on a zeros ghost of
+        ``state`` (the live state is never donated into a warm-up): the
+        move, and with a ``batch`` (laid out as the caller's) one step of
+        the target trainer.  Eager PyTorch compiles nothing; this builds
+        the target's kernels and warms the allocator at the target's
+        shapes."""
+        from . import reshard as reshard_lib
+        pol = self.reshard_policy
+        if pol is None or not pol.prewarm:
+            return
+        tgt = self._ensure_reshard_trainer()
+        ghost = _zeros_like(state)
+        with self.profiler.bucket("reshard.prewarm"):
+            gstate = reshard_lib.reshard_state(self.trainer, tgt, ghost)
+            if batch is not None:
+                cur, self.trainer = self.trainer, tgt
+                try:
+                    tgt.step(gstate, self._place(batch))
+                finally:
+                    self.trainer = cur
+            if gstate.w_own.is_cuda:
+                torch.cuda.synchronize(gstate.w_own.device)
+
+    # -- tier 2: checkpoint restore --------------------------------------------
 
     def _restore(self):
         """The last verified state of the checkpoint directory: every leaf
@@ -276,11 +428,16 @@ class ElasticTrainer:
         retry, up to ``cfg.max_retries`` recoveries.  ``batch_fn`` (step ->
         batch) re-fetches the batch of a step the restore rewound to."""
         step_i = int(state.step)
+        # the caller's batch is laid out for the width it handed in; after
+        # a move the loop runs at another (the identity otherwise)
+        raw = batch
+        batch = self._place(raw)
         if self.plan is not None:
             self.plan.begin_step(step_i)
         t_fault = None
         event = None
         restored = False
+        resharded = False
         for attempt in range(self.cfg.max_retries + 1):
             try:
                 new_state, metrics = self.watchdog.run(
@@ -289,7 +446,7 @@ class ElasticTrainer:
                 metrics = self._check(metrics, step_i)
                 self._check_state(new_state, step_i)
             except Exception as err:  # noqa: BLE001 — the recovery boundary
-                kind = self._classify(err)
+                kind = self._classify(err, state)
                 now = time.monotonic()
                 t_fault = t_fault if t_fault is not None else now
                 ev = self.profiler.recovery.record_fault(
@@ -308,10 +465,27 @@ class ElasticTrainer:
                         f"step {step_i} failed {attempt + 1} times "
                         f"(last: {kind}); giving up after max_retries="
                         f"{self.cfg.max_retries}") from err
-                if kind == "preemption":
+                if kind in ("preemption", "shrinkable"):
                     # the process lost its device: control-plane re-init
                     # (a no-op for one process)
                     multihost.initialize()
+                if kind == "shrinkable":
+                    # tier 1: move the live state onto the armed width, no
+                    # disk and no replay; the retry runs this step there.
+                    # Any failure falls through to tier 2
+                    try:
+                        with self.profiler.bucket("reshard"):
+                            state = self._do_reshard(state)
+                        resharded = True
+                        if batch_fn is not None:
+                            raw = batch_fn(step_i)
+                        batch = self._place(raw)
+                        time.sleep(self.cfg.backoff_s * (2 ** attempt))
+                        continue
+                    except Exception as rerr:  # noqa: BLE001 — tier fallback
+                        self.profiler.events.instant(
+                            "reshard.failed", step=step_i,
+                            error=repr(rerr)[:200])
                 with self.profiler.bucket("restore"):
                     state = self._restore()
                 restored = True
@@ -320,7 +494,8 @@ class ElasticTrainer:
                     # the rewound step, on its batch and its fault arming
                     step_i = int(state.step)
                     if batch_fn is not None:
-                        batch = batch_fn(step_i)
+                        raw = batch_fn(step_i)
+                        batch = self._place(raw)
                     if self.plan is not None:
                         self.plan.begin_step(step_i)
                 time.sleep(self.cfg.backoff_s * (2 ** attempt))
@@ -328,9 +503,14 @@ class ElasticTrainer:
                 if t_fault is not None:
                     self.profiler.recovery.record_recovery(
                         time.monotonic() - t_fault, restored=restored,
-                        event=event)
+                        resharded=resharded, event=event)
                     self.profiler.events.instant(
-                        "recovered", step=step_i, restored=restored)
+                        "recovered", step=step_i, restored=restored,
+                        resharded=resharded)
+                if resharded and self.reshard_policy is not None:
+                    # the tier re-armed onto the next rung: warm it now,
+                    # outside the measured recovery
+                    self.prewarm_reshard(new_state, raw)
                 self.heartbeat.beat()
                 return new_state, metrics
         raise AssertionError("unreachable")

@@ -40,10 +40,11 @@ Parity contract (tests/test_torch_fsdp.py, tests/test_torch_accum.py): the
 losses and masters of the port's ZeRO-1 ``DPTrainer`` on the same model,
 batch and optimizer, and of JAX's ``FSDPTrainer``.  ``restore_state``
 takes a ``utils.checkpoint`` payload (JAX's stored layout, re-padded onto
-this rank count).  Not ported, raising ``NotImplementedError`` with the
-ROADMAP item: live resharding (A.8's reshard slice), in-graph metrics
-(A.9).  ``codec="auto"`` resolves once at ``init_state`` (``tune``, as
-JAX's ``_resolve_auto``).
+this rank count); ``reshard_leaves`` / ``state_from_reshard`` carry a live
+move (``parallel.reshard``).  ``obs_metrics=True`` taps ``loss`` and
+``grad_norm`` (and, with error feedback, ``codec_obs_rel_err`` and
+``ef_resid_norm``) to the active sink, JAX's keys.  ``codec="auto"``
+resolves once at ``init_state`` (``tune``, as JAX's ``_resolve_auto``).
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from . import accum
 from .mesh import VirtualRanks
 from .train import codec_flags, rank_grads, restored_rows, static_metrics
 from .. import optim
+from ..obs import metrics as obs_metrics
 from ..ops import fused_update
 from ..utils.config import OptimizerSpec, TrainConfig
 
@@ -117,9 +119,6 @@ class FSDPTrainer:
             raise ValueError(f"cfg.mesh ({cfg.mesh}) does not describe "
                              f"{ranks.n} fsdp ranks alone")
         coll = cfg.collective
-        if cfg.obs_metrics:
-            raise NotImplementedError("obs_metrics is not ported: "
-                                      "ROADMAP A.9")
         if coll.fused_optimizer and cfg.optimizer.clip_norm is not None:
             raise ValueError(
                 "fused_optimizer cannot honor clip_norm (same contract as "
@@ -161,6 +160,13 @@ class FSDPTrainer:
             self.cfg, self._tuned_plan = tune_lib.resolve_train_config(
                 self.cfg, self.n, params_like, padded=True)
             self._codec, self._ef = codec_flags(self.cfg.collective)
+
+    def _ensure_meta(self, params_like) -> None:
+        """The flat layout of a params tree (shapes and dtypes only),
+        resolving ``codec="auto"`` first."""
+        self._resolve_auto(params_like)
+        self._meta = fused_update.flat_meta(params_like,
+                                            self.cfg.collective, self.n)
 
     def _init_codec_state(self) -> Optional[torch.Tensor]:
         """Zeroed per-rank error-feedback residuals [n, L_pad]."""
@@ -215,12 +221,19 @@ class FSDPTrainer:
         return optim.apply(opt_cfg, state.w_own, g_own, state.opt_state,
                            state.step)
 
+    def _metrics(self) -> Optional[dict]:
+        """A dict for the step's metrics under ``obs_metrics`` with an
+        active sink, else None (nothing computed)."""
+        return ({} if self.cfg.obs_metrics
+                and obs_metrics.active_sink() is not None else None)
+
     def step(self, state: FSDPState, batch) -> Tuple[FSDPState,
                                                      torch.Tensor]:
         """One step: ``(new state, mean loss)``."""
         self._require_meta()
         if self._ef:
             return self._step_ef(state, batch)
+        m = self._metrics()
         coll = self.cfg.collective
         # all-gather on use; the reduce-scatter of the summed cotangent
         # lands the summed gradients on the owning shards
@@ -238,9 +251,15 @@ class FSDPTrainer:
         del flat
         g_sum = fused_update.reduce_scatter(ct, coll)
         del ct
+        if m is not None:
+            m["grad_norm"] = obs_metrics.l2_norm(g_sum / self.n)
         w_new, opt_state = self._update(state, g_sum)
+        loss = losses.mean()
+        if m is not None:
+            m["loss"] = loss
+            obs_metrics.tap(loss, m)
         return (FSDPState(w_new, opt_state, state.step + 1,
-                          state.codec_state), losses.mean())
+                          state.codec_state), loss)
 
     def _step_ef(self, state: FSDPState, batch):
         """The error-feedback variant: the gradient collective is explicit
@@ -260,17 +279,29 @@ class FSDPTrainer:
         del flat
         g_wire, resid = fused_update.error_feedback_encode(
             self._codec, flat_g, state.codec_state)
+        m = self._metrics()
+        if m is not None:
+            m["codec_obs_rel_err"] = obs_metrics.codec_observed_error(
+                self._codec, flat_g + state.codec_state, quantized=g_wire)
+            m["ef_resid_norm"] = obs_metrics.l2_norm(resid)
         del flat_g
         if coll.fused_optimizer:
-            _, w_new, opt_state = fused_update.reduce_scatter_update(
+            g_sum, w_new, opt_state = fused_update.reduce_scatter_update(
                 g_wire, state.w_own, state.opt_state, state.step, coll,
                 self.cfg.optimizer)
+            if m is not None:
+                m["grad_norm"] = obs_metrics.l2_norm(g_sum / self.n)
         else:
             g_own = fused_update.reduce_scatter(g_wire, coll) / self.n
+            if m is not None:
+                m["grad_norm"] = obs_metrics.l2_norm(g_own)
             g_own = optim.clip_by_global_norm(self.cfg.optimizer, g_own)
             w_new, opt_state = optim.apply(self.cfg.optimizer, state.w_own,
                                            g_own, state.opt_state,
                                            state.step)
+        if m is not None:
+            m["loss"] = loss
+            obs_metrics.tap(loss, m)
         return FSDPState(w_new, opt_state, state.step + 1, resid), loss
 
     # -- telemetry and materialization ----------------------------------------
@@ -302,9 +333,7 @@ class FSDPTrainer:
         error-feedback residual restarts at zero.  The layout must be
         known: call ``init_state`` first or pass ``params_like``."""
         if params_like is not None:
-            self._resolve_auto(params_like)
-            self._meta = fused_update.flat_meta(
-                params_like, self.cfg.collective, self.n)
+            self._ensure_meta(params_like)
         meta = self._require_meta()
         dev = self.ranks.device
         return FSDPState(
@@ -313,16 +342,20 @@ class FSDPTrainer:
              for k, v in restored["opt_state"].items()},
             int(restored["step"]), self._init_codec_state())
 
+    # -- live resharding (parallel.reshard) -----------------------------------
+
     def reshard_leaves(self, state: FSDPState) -> dict:
-        raise NotImplementedError(
-            "FSDPTrainer.reshard_leaves (parallel/reshard.py) is not "
-            "ported: ROADMAP A.8, its live reshard slice")
+        """The state's flat leaves in the shared transfer naming; ZeRO-3
+        holds no replicas, so the masters and moments are the whole
+        state (the residual rides its own plan)."""
+        from . import reshard as reshard_lib
+        return reshard_lib.pack_state_leaves(state.w_own, state.opt_state)
 
     def state_from_reshard(self, leaves: dict, step: int,
                            codec_state: Any) -> FSDPState:
-        raise NotImplementedError(
-            "FSDPTrainer.state_from_reshard (parallel/reshard.py) is not "
-            "ported: ROADMAP A.8, its live reshard slice")
+        from . import reshard as reshard_lib
+        w_own, opt_state = reshard_lib.split_state_leaves(leaves)
+        return FSDPState(w_own, opt_state, int(step), codec_state)
 
 
 __all__: List[str] = ["FSDPState", "FSDPTrainer"]

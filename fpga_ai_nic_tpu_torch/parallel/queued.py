@@ -22,7 +22,8 @@ separate-op ring here for its wire-byte lint; the per-bucket wire
 counters below are the same either way).  Each bucket's declared wire
 and raw bytes ride its ticket into ``profiler.collectives``, and the
 first step lands one ``bucket<i>.compression_ratio`` counter a bucket in
-``profiler.events``.
+``profiler.events``.  With ``obs_metrics`` the step's loss is delivered to
+the active sink on the host (``obs.metrics.host_observe``), as JAX's is.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 
 from .ddp import DDPState, DDPTrainer
 from .mesh import VirtualRanks
+from ..obs import metrics as obs_metrics
 from ..ops import bucketed, fused_update
 from ..runtime.queue import CollectiveQueue
 from ..utils.config import TrainConfig
@@ -87,6 +89,10 @@ class QueuedDDPTrainer(DDPTrainer):
 
         with self.profiler.bucket("update"):
             new = self.update(state, bucketed.assemble_flat(means(), plan))
+        if self.cfg.obs_metrics:
+            # delivered on the host: the queue has waited for every
+            # bucket, and the loss was computed before them
+            obs_metrics.host_observe({"loss": float(loss)})
         return new, loss
 
 

@@ -349,11 +349,17 @@ class ShardedTrainer(DPTrainer):
         w_own = flat.reshape(self.n_shards * self.n, -1)
         opt_state = optim.init_state(self.cfg.optimizer, w_own.shape,
                                      device=w_own.device)
-        replicas, side = self._working(flat)
+        return self._initial(w_own, opt_state, None)
+
+    def _initial(self, w_own: torch.Tensor, opt_state: optim.OptState,
+                 codec_state: Optional[torch.Tensor]) -> TrainState:
+        if self.n_shards == 1:
+            return super()._initial(w_own, opt_state, codec_state)
+        replicas, side = self._working(w_own.reshape(self.n_shards, -1))
         replicas = replicas.repeat_interleave(self.n, dim=0)
         side = None if side is None else side.repeat_interleave(self.n, 0)
         return TrainState(self._rank0(replicas, side), replicas, w_own,
-                          opt_state, 0, None, side)
+                          opt_state, 0, codec_state, side)
 
     def _grid(self) -> Dict[str, int]:
         """The shard axes of a dp rank's rows and their sizes, tp major."""
@@ -591,7 +597,8 @@ class ShardedTrainer(DPTrainer):
         """TrainState from a ``utils.checkpoint`` restore payload: with
         shard axes, the stored global vectors are JAX's ``P((tp, pp, ep,
         dp))`` rows end to end (no re-padding, as in the JAX package), and
-        each shard group's replicas are rebuilt by its gather; with none,
+        each shard group's replicas are rebuilt by its gather (at step 0
+        laid as ``init_state`` lays them); with none,
         ``DPTrainer.restore_state``.  ``params_like``: the whole params
         tree (as ``init_state`` takes it) when ``init_state`` has not
         run."""
@@ -608,10 +615,10 @@ class ShardedTrainer(DPTrainer):
             return restored_tensor(v, dev).to(torch.float32).reshape(
                 self.n_shards * self.n, -1).contiguous()
 
-        return self._gather(rows(restored["w_own"]),
+        return self._landed(rows(restored["w_own"]),
                             {k: rows(v) for k, v in
                              restored["opt_state"].items()},
-                            int(restored["step"]))
+                            int(restored["step"]), None)
 
     def step(self, state: TrainState, batch
              ) -> Tuple[TrainState, torch.Tensor]:

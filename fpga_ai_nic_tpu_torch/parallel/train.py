@@ -260,8 +260,6 @@ class DPTrainer:
                     "parallelism run on ShardedTrainer, as in the JAX "
                     "package")
         coll = cfg.collective
-        if cfg.obs_metrics:
-            raise NotImplementedError("obs_metrics is not ported")
         if coll.fused_optimizer and cfg.optimizer.clip_norm is not None:
             raise ValueError(
                 "fused_optimizer cannot honor clip_norm: a global-norm clip "
@@ -319,11 +317,29 @@ class DPTrainer:
         w_own, opt_state, meta = fused_update.init_master_shard(
             params, coll, opt_cfg, self.n)
         self._meta = meta
+        return self._initial(w_own, opt_state, self._init_codec_state())
+
+    def _initial(self, w_own: torch.Tensor, opt_state: optim.OptState,
+                 codec_state: Optional[torch.Tensor]) -> TrainState:
+        """The step-0 state of the masters ``w_own``: every rank's
+        working weights are the masters as they are, cast, not gathered."""
         replicas, side = self._working(w_own.reshape(1, -1))
         replicas = replicas.expand(self.n, -1)
         side = None if side is None else side.expand(self.n, -1)
         return TrainState(self._rank0(replicas, side), replicas, w_own,
-                          opt_state, 0, self._init_codec_state(), side)
+                          opt_state, 0, codec_state, side)
+
+    def _landed(self, w_own: torch.Tensor, opt_state: optim.OptState,
+                step: int, codec_state: Optional[torch.Tensor]
+                ) -> TrainState:
+        """The state of masters that land from outside a step (a restore,
+        a reshard), built as the uninterrupted run built it: after a step
+        the replicas are what its gather made, so the same gather rebuilds
+        them; at step 0 they are ``init_state``'s, the masters as they
+        are, which a lossy wire codec's gather would round."""
+        if step == 0:
+            return self._initial(w_own, opt_state, codec_state)
+        return self._gather(w_own, opt_state, step, codec_state)
 
     def _working(self, flat: torch.Tensor
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -383,11 +399,15 @@ class DPTrainer:
                                                   state.codec_state)
 
     def apply_grads(self, state: TrainState, flat_g: torch.Tensor,
-                    codec_state: Optional[torch.Tensor] = None):
+                    codec_state: Optional[torch.Tensor] = None,
+                    metrics: Optional[dict] = None):
         """Phase 1 (reduce-scatter + update) and phase 2 (all-gather).
         ``codec_state``: the residual ``error_feedback`` returned (the
         new state keeps ``state.codec_state`` when it is None).  Returns
-        the new TrainState, or ``(state, diag)`` with integrity on."""
+        the new TrainState, or ``(state, diag)`` with integrity on.
+        ``metrics`` (a dict, ``obs_metrics``) receives the pre-clip
+        ``grad_norm`` of the reduced gradient (and ``integrity_err`` on
+        the unfused route with integrity on)."""
         coll = self.cfg.collective
         if codec_state is None:
             codec_state = state.codec_state
@@ -403,11 +423,14 @@ class DPTrainer:
             if not icheck:
                 return self.update(
                     state, fused_update.reduce_scatter(flat_g, coll) / self.n,
-                    codec_state)
+                    codec_state, metrics=metrics)
             g_red, wire_ok = fused_update.reduce_scatter(flat_g, coll,
                                                          integrity=True)
             diag = self._diag(expect, l1, g_red, tol, wire_ok)
-            return self.update(state, g_red / self.n, codec_state, diag)
+            if metrics is not None:
+                metrics["integrity_err"] = diag["integrity_err"]
+            return self.update(state, g_red / self.n, codec_state, diag,
+                               metrics=metrics)
         res = fused_update.reduce_scatter_update(
             flat_g, state.w_own, state.opt_state, state.step, coll,
             self.cfg.optimizer, integrity=icheck)
@@ -418,6 +441,9 @@ class DPTrainer:
                                                  flat_g.device):
                 w_new, opt_state, codec_state = self._gate(
                     diag, state, w_new, opt_state, codec_state)
+        if metrics is not None:
+            metrics["grad_norm"] = (diag["grad_norm"] if icheck else
+                                    obs_metrics.l2_norm(res[0] / self.n))
         return self._gather(w_new, opt_state, state.step + 1, codec_state,
                             diag)
 
@@ -445,12 +471,17 @@ class DPTrainer:
 
     def update(self, state: TrainState, g_own: torch.Tensor,
                codec_state: Optional[torch.Tensor] = None,
-               diag: Optional[dict] = None):
+               diag: Optional[dict] = None,
+               metrics: Optional[dict] = None):
         """The unfused phase 1 after the reduce-scatter (clip, optimizer
         on the owned shards ``g_own [n, C]``, already divided by n), then
         phase 2.  With ``diag`` (the reduce-scatter's verdicts, integrity
-        on) the update is gated by them and ``(state, diag)`` returned."""
+        on) the update is gated by them and ``(state, diag)`` returned.
+        ``metrics`` receives the pre-clip ``grad_norm``."""
         opt_cfg = self.cfg.optimizer
+        if metrics is not None:
+            metrics["grad_norm"] = (diag["grad_norm"] if diag is not None
+                                    else obs_metrics.l2_norm(g_own))
         g_own = optim.clip_by_global_norm(opt_cfg, g_own,
                                           self._norm_weights)
         w_new, opt_state = optim.apply(opt_cfg, state.w_own, g_own,
@@ -479,10 +510,32 @@ class DPTrainer:
 
     def step(self, state: TrainState, batch):
         """One step: ``(state, loss)``, or ``(state, diag)`` with the loss
-        in ``diag`` when integrity is on."""
+        in ``diag`` when integrity is on.  With ``cfg.obs_metrics`` and an
+        active sink (``obs.metrics.use_sink``) the step's ``loss``,
+        ``grad_norm`` and, with a codec, ``codec_obs_rel_err`` (the
+        maximum over the ranks; the error-feedback wire vector is
+        roundtrip(g + residual) already, otherwise one roundtrip is spent)
+        and ``ef_resid_norm`` go to it through ``obs.metrics.tap``; off,
+        nothing of them is computed."""
         flat_g, loss = self.grads(state, batch)
+        m = ({} if self.cfg.obs_metrics
+             and obs_metrics.active_sink() is not None else None)
+        flat_raw = flat_g
         flat_g, codec_state = self.error_feedback(state, flat_g)
-        res = self.apply_grads(state, flat_g, codec_state)
+        if m is not None and self._codec is not None:
+            if self._ef:
+                m["codec_obs_rel_err"] = obs_metrics.codec_observed_error(
+                    self._codec, flat_raw + state.codec_state,
+                    quantized=flat_g)
+                m["ef_resid_norm"] = obs_metrics.l2_norm(codec_state)
+            else:
+                m["codec_obs_rel_err"] = obs_metrics.codec_observed_error(
+                    self._codec, flat_g)
+        del flat_raw
+        res = self.apply_grads(state, flat_g, codec_state, metrics=m)
+        if m is not None:
+            m["loss"] = loss
+            obs_metrics.tap(loss, m)
         if self.cfg.collective.integrity_check:
             new, diag = res
             return new, dict(diag, loss=loss)
@@ -519,8 +572,9 @@ class DPTrainer:
         ``params_like`` (a params tree; only shapes and dtypes are read).
         The vectors are re-padded onto this rank count
         (``restored_rows``), the replicas rebuilt by the step's own gather
-        phase, and the error-feedback residual restarts at zero, as in
-        the JAX package."""
+        phase (at step 0 laid as ``init_state`` lays them: ``_landed``),
+        and the error-feedback residual restarts at zero, as in the JAX
+        package."""
         if params_like is not None:
             self._ensure_meta(params_like)
         if self._meta is None:
@@ -530,5 +584,34 @@ class DPTrainer:
         w_own = restored_rows(restored["w_own"], self._meta, self.n, dev)
         opt_state = {k: restored_rows(v, self._meta, self.n, dev)
                      for k, v in restored["opt_state"].items()}
-        return self._gather(w_own, opt_state, int(restored["step"]),
+        return self._landed(w_own, opt_state, int(restored["step"]),
                             self._init_codec_state())
+
+    # -- live resharding (parallel.reshard) -----------------------------------
+
+    def reshard_leaves(self, state: TrainState) -> dict:
+        """The state's flat leaves in the shared transfer naming
+        (``reshard.pack_state_leaves``): the masters and optimizer moments.
+        The replicas are rebuilt from the landed masters, not moved, and
+        the error-feedback residual rides its own per-rank plan.  A MoE
+        router's side rows have no reshard (JAX's trainers hold no side
+        leaves), so a state with them is refused."""
+        from . import reshard as reshard_lib
+        if state.side is not None:
+            raise ValueError(
+                "reshard moves the flat masters only: this state holds "
+                "side leaves of another dtype (a MoE router), which the "
+                "JAX package's reshard has no plan for; use "
+                "checkpoint-restore")
+        return reshard_lib.pack_state_leaves(state.w_own, state.opt_state)
+
+    def state_from_reshard(self, leaves: dict, step: int,
+                           codec_state: Optional[torch.Tensor]
+                           ) -> TrainState:
+        """This trainer's state from landed reshard leaves: the replicas
+        rebuilt as a checkpoint restore rebuilds them (``_landed``), so a
+        resharded state and a restored one are built identically (the
+        bit-parity contract)."""
+        from . import reshard as reshard_lib
+        w_own, opt_state = reshard_lib.split_state_leaves(leaves)
+        return self._landed(w_own, opt_state, int(step), codec_state)

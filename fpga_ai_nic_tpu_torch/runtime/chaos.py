@@ -23,9 +23,9 @@ damaged: ``nan``, ``bitflip`` of an exponent bit, ``scale``, or
 checksum).  The durability kinds ``kill`` and ``diskfull`` interrupt a
 save's file-op sequence at ``fraction`` of its ops; ``wirebit`` and
 ``stale_manifest`` corrupt a committed step at rest
-(``damage_checkpoint``).  The ``reshard.transfer`` site belongs to the
-live reshard tier, which is not ported (ROADMAP A.8's reshard slice): a
-spec there raises.
+(``damage_checkpoint``).  ``reshard.transfer`` is the live reshard's wire
+(``parallel.reshard``'s row copies, tapped at ``"reshard.wire"``): it takes
+``wirebit`` corruption only.
 
 Everything is deterministic under a fixed seed: the plan's spec list, the
 corrupted indices and the flipped bits derive from
@@ -146,8 +146,13 @@ def state_buffers_alive(state: Any) -> bool:
     if isinstance(state, (list, tuple)):
         return all(state_buffers_alive(v) for v in state)
     if isinstance(state, torch.Tensor):
-        need = state.numel() * state.element_size()
-        return need == 0 or state.untyped_storage().nbytes() >= need
+        if state.numel() == 0:
+            return True
+        # the bytes the view reaches (an expanded view's stride 0 reuses)
+        last = state.storage_offset() + sum(
+            (n - 1) * st for n, st in zip(state.shape, state.stride()))
+        need = (last + 1) * state.element_size()
+        return state.untyped_storage().nbytes() >= need
     return True
 
 
@@ -173,11 +178,13 @@ class FaultSpec:
             raise ValueError(f"unknown fault site {self.site!r}")
         if self.mode not in CORRUPTION_MODES:
             raise ValueError(f"unknown corruption mode {self.mode!r}")
-        if self.site == "reshard.transfer":
-            raise NotImplementedError(
-                "the 'reshard.transfer' site is the live reshard tier's "
-                "wire (parallel/reshard.py), which is not ported: ROADMAP "
-                "A.8, its reshard slice")
+        if self.site == "reshard.transfer" and (
+                self.kind != "corruption" or self.mode != "wirebit"):
+            raise ValueError(
+                "the 'reshard.transfer' site is the transfer program's "
+                "wire tap: only corruption mode='wirebit' specs can fire "
+                "there (the tap pops wirebit alone; hang/slowdown belong to "
+                "the host boundaries around the transfer)")
         if self.kind in DURABILITY_KINDS and self.site != "ckpt.save":
             raise ValueError(
                 f"{self.kind!r} only exists at the 'ckpt.save' site: it "

@@ -21,6 +21,9 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
   python -m fpga_ai_nic_tpu_torch.train_mlp --bfp=1 --mesh.dp=8 \\
       --collective.compression.codec=pallas \\
       --collective.fused_kernel=true --queue=explicit
+  python -m fpga_ai_nic_tpu_torch.train_mlp --bfp=1 --mesh.dp=8 \\
+      --collective.compression.codec=pallas \\
+      --collective.fused_kernel=true --iters=3 --trace-dir=/tmp/mlp_trace
 
 Flags split by prefix: ``--model.*`` -> MLPConfig, ``--device=`` picks the
 device (default cuda; it raises when CUDA is absent), everything else ->
@@ -41,14 +44,22 @@ wire is uncompressed).  With ``--collective.integrity_check=true`` a step
 returns its diagnostics dict (``parallel.train``): the loss is read from
 it, each step goes through ``runtime.chaos.check_step_diag``, and the JSON
 carries the last step's ``wire_ok`` and ``integrity_ok``.
+``--trace-dir=PATH`` (JAX's flag) runs the timed loop under
+``torch.profiler`` (host operators and, on a card, every kernel and copy),
+writes its chrome trace to ``PATH/train_mlp.pt.trace.json`` and puts the
+trace's overlap summary (``utils.trace_analysis``: collective and copy
+time covered by compute on another stream vs exposed) in the JSON under
+``trace_analysis``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import sys
 import time
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -66,6 +77,16 @@ from .utils.observability import CollectiveStats
 _TRUE, _FALSE = ("1", "true", "yes", "on"), ("0", "false", "no", "off")
 
 
+def trace_flag(argv: Sequence[str]) -> Optional[str]:
+    """JAX's ``--trace-dir=PATH`` (the last one given), or None."""
+    out = None
+    for a in argv:
+        key, _, val = a.partition("=")
+        if key == "--trace-dir":
+            out = val
+    return out
+
+
 def queue_flag(argv: Sequence[str]) -> str:
     """JAX's ``--queue=fused|explicit`` (the last one given)."""
     mode = "fused"
@@ -81,7 +102,8 @@ def queue_flag(argv: Sequence[str]) -> str:
 
 def parse(argv: Sequence[str]):
     """``(MLPConfig, TrainConfig, device)`` from the driver's flags
-    (``--queue`` is read by ``queue_flag``)."""
+    (``--queue`` is read by ``queue_flag``, ``--trace-dir`` by
+    ``trace_flag``)."""
     model_flags: List[str] = []
     rest: List[str] = []
     bfp = False
@@ -96,7 +118,7 @@ def parse(argv: Sequence[str]):
             bfp = val.lower() in _TRUE
         elif key == "--device":
             device = val
-        elif key != "--queue":
+        elif key not in ("--queue", "--trace-dir"):
             rest.append(a)
     if bfp:
         rest = ["--collective.impl=ring",
@@ -108,6 +130,7 @@ def parse(argv: Sequence[str]):
 def main(argv: Sequence[str]) -> dict:
     mcfg, cfg, device = parse(argv)
     queue = queue_flag(argv)
+    trace_dir = trace_flag(argv)
     ranks = make_ranks(cfg.mesh, device)
     cls = QueuedDDPTrainer if queue == "explicit" else DPTrainer
     tr = cls(lambda p, b: mlp.loss_fn(p, b, mcfg), ranks, cfg)
@@ -138,10 +161,18 @@ def main(argv: Sequence[str]) -> dict:
     if queue == "explicit":                      # count the timed steps
         tr.profiler.collectives = CollectiveStats()
     t0 = time.perf_counter()
-    for _ in range(cfg.iters):
-        state, loss = wd.run(step, state)
-    loss = wd.run(float, loss)                   # waits for the device
+    with (_profiler(ranks.device) if trace_dir
+          else contextlib.nullcontext()) as prof:
+        for _ in range(cfg.iters):
+            state, loss = wd.run(step, state)
+        loss = wd.run(float, loss)               # waits for the device
+        if trace_dir and ranks.device.type == "cuda":
+            wd.run(torch.cuda.synchronize, ranks.device)
     wall = time.perf_counter() - t0
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir,
+                                              "train_mlp.pt.trace.json"))
     for i, diag in enumerate(diags):
         chaos.check_step_diag(diag, i)
     fl = mlp.flops_per_sample(mcfg) * cfg.global_batch * cfg.iters
@@ -159,8 +190,39 @@ def main(argv: Sequence[str]) -> dict:
             **({"profile": tr.profiler.report(),
                 "max_outstanding": tr.queue.max_outstanding}
                if queue == "explicit" else {}),
+            **({"trace_analysis": _trace_summary(trace_dir, ranks.device)}
+               if trace_dir else {}),
             "device": (torch.cuda.get_device_name(ranks.device)
                        if ranks.device.type == "cuda" else "cpu")}
+
+
+def _profiler(device):
+    """``torch.profiler`` over the host operators of every thread (the
+    watchdog runs each step in its own) and, on a card, every kernel and
+    copy.  Where the installed torch has no ``profile_all_threads`` the
+    trace holds the device events and this thread's operators."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return profile(activities=acts, experimental_config=(
+            _ExperimentalConfig(profile_all_threads=True)))
+    except (ImportError, TypeError):
+        return profile(activities=acts)
+
+
+def _trace_summary(trace_dir: str, device) -> dict:
+    """The trace's overlap summary (device events on a card, the host's
+    operators on the CPU); an unreadable trace gives ``{"error": ...}``,
+    never the loss of the run's result."""
+    from .utils import trace_analysis as ta
+    analyze = (ta.analyze_trace if device.type == "cuda"
+               else ta.analyze_cpu_trace)
+    try:
+        return ta.summarize(analyze(trace_dir))
+    except (FileNotFoundError, ValueError) as e:
+        return {"error": f"{type(e).__name__}: {e}"}
 
 
 if __name__ == "__main__":

@@ -97,10 +97,14 @@ def test_unknown_and_reshard_specs_raise():
         chaos.FaultSpec("corruption", "nowhere", step=0)
     with pytest.raises(ValueError):
         chaos.FaultSpec("melt", "staging", step=0)
-    # the live reshard tier's wire is the next slice of ROADMAP A.8
-    with pytest.raises(NotImplementedError, match="reshard"):
+    # the live reshard tier's wire takes wirebit corruption only, as in
+    # the JAX package (tests/test_torch_reshard.py fires it)
+    spec = chaos.FaultSpec("corruption", "reshard.transfer", step=0,
+                           mode="wirebit")
+    assert spec.site in chaos.WIRE_SITES
+    with pytest.raises(ValueError, match="reshard"):
         chaos.FaultSpec("corruption", "reshard.transfer", step=0,
-                        mode="wirebit")
+                        mode="nan")
 
 
 def test_site_and_step_routing_fires_each_spec_once():

@@ -1876,3 +1876,107 @@ def test_serve_tick_faults_on_card(cuda_device):
     assert len(plan.fired) == 4 and s["page_trips"] == 1
     assert s["serve_recoveries"] == 4
     assert [r.generated for r in got] == [r.generated for r in want]
+
+
+# ---------------------------------------------------------------------------
+# the live reshard tier and the step metrics (A.8, A.9) on the card
+# ---------------------------------------------------------------------------
+
+def _fused_coll(integrity=False):
+    from fpga_ai_nic_tpu_torch.utils.config import CollectiveConfig
+    return CollectiveConfig(impl="ring", compression=BFPConfig(codec="pallas"),
+                            fused_kernel=True, fused_optimizer=True,
+                            integrity_check=integrity)
+
+
+@pytest.mark.cuda
+def test_reshard_parity_on_card(cuda_device):
+    """Two steps at dp=8 on the ring kernels, a move to dp=4 against the
+    same state built at dp=4 by the restore path: masters and replicas
+    bit-equal, the wire counter equal to the plan, the next step's masters
+    and loss bit-equal; the checked transfer one ``row_checksums`` launch
+    a side."""
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    from fpga_ai_nic_tpu_torch.parallel import reshard as rs
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import MeshConfig
+    tr8, st, b8 = _mlp_trainer(DPTrainer, _fused_coll(), MeshConfig(dp=8),
+                               cuda_device)
+    for _ in range(2):
+        st, _ = tr8.step(st, b8)
+    tr4, _, b4 = _mlp_trainer(DPTrainer, _fused_coll(), MeshConfig(dp=4),
+                              cuda_device)
+    native = tr4.restore_state(
+        {"w_own": st.w_own.reshape(-1).clone(), "opt_state": {},
+         "step": st.step},
+        params_like=fused_update.params_like_from_meta(tr8._meta))
+    plan = rs.plan_for(tr8, tr4)
+    rs.reset_wire_counters()
+    before = integrity.ROW_CHECKSUMS.launches
+    moved = rs.reshard_state(tr8, tr4, st, integrity=True)
+    assert integrity.ROW_CHECKSUMS.launches - before == 2
+    assert rs.WIRE["bytes"] == plan.wire_bytes()
+    assert torch.equal(moved.w_own, native.w_own)
+    assert torch.equal(moved.replicas, native.replicas)
+    s_m, l_m = tr4.step(moved, b4)
+    s_n, l_n = tr4.step(native, b4)
+    assert torch.equal(s_m.w_own, s_n.w_own) and float(l_m) == float(l_n)
+
+
+@pytest.mark.cuda
+def test_reshard_wirebit_trips_on_card(cuda_device):
+    """One flipped word on a segment's wire: the checked transfer raises
+    before the state is handed over."""
+    from fpga_ai_nic_tpu_torch.parallel import reshard as rs
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.runtime import chaos
+    from fpga_ai_nic_tpu_torch.utils.config import MeshConfig
+    tr8, st, b8 = _mlp_trainer(DPTrainer, _fused_coll(), MeshConfig(dp=8),
+                               cuda_device)
+    st, _ = tr8.step(st, b8)
+    tr4 = _mlp_trainer(DPTrainer, _fused_coll(), MeshConfig(dp=4),
+                       cuda_device)[0]
+    plan = chaos.FaultPlan([chaos.FaultSpec(
+        "corruption", "reshard.transfer", step=0, mode="wirebit",
+        fraction=1e-9)], seed=5)
+    chaos.install_wire_tap()
+    try:
+        with chaos.activate(plan):
+            plan.begin_step(0)
+            with pytest.raises(chaos.WireIntegrityError):
+                rs.reshard_state(tr8, tr4, st, integrity=True)
+    finally:
+        chaos.uninstall_wire_tap()
+    assert len(plan.fired) == 1
+
+
+@pytest.mark.cuda
+def test_obs_metrics_launches_on_card(cuda_device):
+    """``obs_metrics`` off launches what the step launches (one
+    ``ring_rs_update`` and one ``ring_ag``, no codec kernel); on, one BFP
+    roundtrip more (``codec_obs_rel_err``), the masters bit-equal and the
+    observed error within the declared bound."""
+    import dataclasses
+    from fpga_ai_nic_tpu_torch.obs import metrics as obs_metrics
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import MeshConfig
+    out = {}
+    for obs in (False, True):
+        tr, st, batch = _mlp_trainer(DPTrainer, _fused_coll(),
+                                     MeshConfig(dp=8), cuda_device)
+        tr.cfg = dataclasses.replace(tr.cfg, obs_metrics=obs)
+        sink = obs_metrics.MetricsSink(static=tr.obs_static_metrics())
+        ks = (ring_cuda.RING_RS, ring_cuda.RING_AG, bfp_cuda.ENCODE,
+              bfp_cuda.DECODE)
+        before = [k.launches for k in ks]
+        with obs_metrics.use_sink(sink):
+            st, loss = tr.step(st, batch)
+            float(loss)
+        out[obs] = ([k.launches - b for k, b in zip(ks, before)], st, sink)
+    assert out[False][0] == [1, 1, 0, 0]
+    assert out[True][0] == [1, 1, 1, 1]
+    assert torch.equal(out[True][1].w_own, out[False][1].w_own)
+    sink = out[True][2]
+    assert out[False][2].n_updates == 0
+    assert 0 < sink.latest["codec_obs_rel_err"] <= \
+        sink.static["declared_error_bound"]

@@ -433,9 +433,10 @@ def test_ddp_unported_options_raise():
         DDPTrainer(lambda p, b: None, ranks, tcfg.TrainConfig(
             **base, collective=tcfg.CollectiveConfig(
                 impl="ring", integrity_check=True)))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        DDPTrainer(lambda p, b: None, ranks,
-                   tcfg.TrainConfig(**base, obs_metrics=True))
+    # obs_metrics is accepted and adds nothing, as JAX's DDPTrainer
+    # (tests/test_torch_obs.py steps one)
+    assert DDPTrainer(lambda p, b: None, ranks, tcfg.TrainConfig(
+        **base, obs_metrics=True)).cfg.obs_metrics
     # accumulation is ported (tests/test_torch_accum.py)
     assert DDPTrainer(lambda p, b: None, ranks, tcfg.TrainConfig(
         **base, accum_steps=2)).cfg.accum_steps == 2

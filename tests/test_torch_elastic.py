@@ -164,6 +164,53 @@ def test_elastic_loop_survives_fault(tap, tmp_path, kind, site, mode):
     assert jax_ckpt.Checkpointer(str(tmp_path)).audit_step(last).ok
 
 
+_LOSSY = {"bfp": dict(compression=config.BFPConfig()),
+          "int8": dict(codec="int8")}
+
+
+def _lossy_trainer(wire):
+    import dataclasses
+    m = config.MLPConfig(layer_sizes=SIZES, dtype="float32")
+    cfg = _cfg(config)
+    cfg = dataclasses.replace(cfg, collective=dataclasses.replace(
+        cfg.collective, **_LOSSY[wire]))
+    tr = DPTrainer(lambda p, b: mlp.loss_fn(p, b, m),
+                   VirtualRanks(8, torch.device("cpu")), cfg)
+    state = tr.init_state(mlp.from_jax_params(_jax_params(), "cpu"))
+    x, y = _data()
+    return tr, state, tr.shard_batch((torch.from_numpy(x),
+                                      torch.from_numpy(y)))
+
+
+@pytest.mark.parametrize("wire", sorted(_LOSSY))
+def test_rewind_to_step0_is_bit_exact_on_a_lossy_wire(tap, tmp_path, wire):
+    """A fault before the first save after step 0 rewinds to the step-0
+    checkpoint.  With a lossy wire codec the restored replicas must be the
+    masters as they are (``init_state``'s), not the gather's rounding of
+    them: the run ends bit-equal to its fault-free twin, and the restored
+    step-0 state equals the initial one."""
+    tr, state0, batch = _lossy_trainer(wire)
+    clean = state0
+    for _ in range(4):
+        clean, _ = tr.step(clean, batch)
+    plan = chaos.FaultPlan([chaos.FaultSpec("exception", "queue.issue",
+                                            step=1)], seed=11)
+    cfg = ElasticConfig(step_timeout_s=30.0, max_retries=3, backoff_s=0.01,
+                        ckpt_every=2)
+    with chaos.activate(plan):
+        et = ElasticTrainer(tr, str(tmp_path), cfg, plan=plan,
+                            stage_fn=plan.stage)
+        state, _ = et.run(state0, lambda i: batch, 4)
+    assert et.join(10.0) == 0
+    rec = et.profiler.recovery.as_dict()
+    assert len(plan.fired) == 1 and rec["checkpoint_restores"] == 1, rec
+    assert torch.equal(state.w_own, clean.w_own)
+    back = tr.restore_state(et.ckpt.restore(0))
+    assert back.step == 0
+    assert torch.equal(back.replicas, state0.replicas)
+    assert torch.equal(back.w_own, state0.w_own)
+
+
 def test_elastic_recovery_replays_to_identical_loss(tap):
     finals = []
     for faults in ([], [chaos.FaultSpec("exception", "queue.issue", step=2)]):
@@ -235,9 +282,19 @@ def test_recovery_stats_shape_equals_jax():
 
 
 def test_reshard_tier_is_the_next_slice(tmp_path):
-    tr, _, _ = _make_trainer()
-    with pytest.raises(NotImplementedError, match="reshard slice"):
-        ElasticTrainer(tr, str(tmp_path), _ECFG, reshard=object())
+    """The live reshard tier is ported (tests/test_torch_reshard.py holds
+    its cells): a policy arms it, its first rung is the target, and a
+    preemption with the state alive classifies as shrinkable."""
+    from fpga_ai_nic_tpu_torch.parallel.elastic import ReshardPolicy
+    tr, state, _ = _make_trainer()
+    et = ElasticTrainer(tr, str(tmp_path), _ECFG,
+                        reshard=ReshardPolicy(lambda n: None, shrink_to=4))
+    assert et.reshard_policy.rungs() == (4,) and et._next_width() == 4
+    err = chaos.InjectedPreemption(
+        chaos.FaultSpec("preemption", "queue.issue", step=0))
+    assert et._classify(err, state) == "shrinkable"
+    assert ElasticTrainer(tr, str(tmp_path), _ECFG)._classify(
+        err, state) == "preemption"
 
 
 # ---------------------------------------------------------------------------

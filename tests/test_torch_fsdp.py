@@ -346,20 +346,22 @@ def test_gather_backward_is_the_reduce_scatter():
 
 
 def test_unported_and_invalid_configurations_raise():
-    """What keeps raising names its ROADMAP item; JAX's ValueErrors stay;
-    the other trainers refuse an fsdp axis."""
+    """JAX's ValueErrors stay; the other trainers refuse an fsdp axis.
+    The live reshard's leaves and in-graph metrics are ported
+    (tests/test_torch_reshard.py, tests/test_torch_obs.py)."""
     tr = _port_fsdp(dict(impl="ring"))
     st = tr.init_state(mlp.from_jax_params(_jax_params(), CPU))
-    for fn, args in ((tr.reshard_leaves, (st,)),
-                     (tr.state_from_reshard, ({}, 0, None))):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            fn(*args)
+    leaves = tr.reshard_leaves(st)
+    assert list(leaves) == ["w_own"] + [f"opt.{k}"
+                                        for k in sorted(st.opt_state)]
+    back = tr.state_from_reshard(leaves, 3, None)
+    assert back.step == 3 and back.w_own is st.w_own
+    assert all(back.opt_state[k] is v for k, v in st.opt_state.items())
     # restore_state is ported (tests/test_torch_checkpoint.py)
     back = tr.restore_state({"w_own": st.w_own.reshape(-1).numpy(),
                              "opt_state": {}, "step": np.int32(0)})
     assert torch.equal(back.w_own, st.w_own)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        _port_fsdp(dict(impl="ring"), obs_metrics=True)
+    assert _port_fsdp(dict(impl="ring"), obs_metrics=True).cfg.obs_metrics
     # accumulation is ported (tests/test_torch_accum.py)
     assert _port_fsdp(dict(impl="ring"), accum_steps=2).cfg.accum_steps == 2
     # codec="auto" resolves on FSDPTrainer (tests/test_torch_tune.py)

@@ -259,7 +259,9 @@ def test_port_imports_without_jax_or_ml_dtypes():
                                                   pkg.__name__ + ".")]
     for m in ("compress.int8", "compress.topk", "compress.golden",
               "ops.int8_cuda", "ops.moe", "evals.codec_convergence",
-              "tune.calibration", "tune.autotune", "tune.adapt"):
+              "tune.calibration", "tune.autotune", "tune.adapt",
+              "parallel.reshard", "utils.trace_analysis", "obs.timeline",
+              "obs_demo"):
         assert f"fpga_ai_nic_tpu_torch.{m}" in mods, m
     mods += ["chip_smoke", "codec_probe"]
     code = textwrap.dedent(f"""

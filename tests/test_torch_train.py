@@ -236,9 +236,9 @@ def test_unported_options_raise():
     plan = auto.obs_static_metrics()["tune"]
     assert plan["calibration"]["inter_live"] and plan["dryrun"]
     ranks = VirtualRanks(2, torch.device("cpu"))
-    with pytest.raises(NotImplementedError):
-        DPTrainer(lambda p, b: None, ranks,
-                  TrainConfig(mesh=MeshConfig(dp=2), obs_metrics=True))
+    # obs_metrics is ported (tests/test_torch_obs.py)
+    assert DPTrainer(lambda p, b: None, ranks, TrainConfig(
+        mesh=MeshConfig(dp=2), obs_metrics=True)).cfg.obs_metrics
     # accumulation is ported (tests/test_torch_accum.py)
     assert DPTrainer(lambda p, b: None, ranks, TrainConfig(
         mesh=MeshConfig(dp=2), accum_steps=2)).cfg.accum_steps == 2
