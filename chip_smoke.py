@@ -117,7 +117,7 @@ Phases, each printing JSON lines:
   8. serving parity: one decode step's and one prefill chunk's operands,
      snapshotted during the run, through ``forward_paged`` with the kernel
      and with the gathered-view reference (logit error within a stated
-     limit that three fault controls exceed); and the first 8 streams
+     limit that three fault controls exceed); and the first 4 streams
      against the port's contiguous-cache ``generate()``, counted;
   9. the Llama training path: ``ShardedTrainer`` as the ``train_llama``
      driver builds it, Llama-3-8B width with 4 layers (random weights from
@@ -188,7 +188,7 @@ Phases, each printing JSON lines:
      dk/dv, one ring reduce-scatter and one all-gather a bucket, nothing
      else), every
      rank's replica bit-identical after every step, a falling loss, then
-     a profile of two steps (flash, ring, GEMMs, the rest);
+     a profile of one step (flash, ring, GEMMs, the rest);
  15. ``bert_train_parity``: loss_fn's gradients on one rank's padded batch
      at BERT-base width and 2 layers through the kernels and through the
      plain softmax route, within the Llama parity limits, and the kernels
@@ -205,7 +205,7 @@ Phases, each printing JSON lines:
      batch falling, peak memory; one more step whose gradients also go
      through the plain collectives (masters and momentum shards
      bit-equal); ring_rs_update (momentum) and ring_ag timed at this
-     shape (n=8, 3,194,880 f32 a rank); a profile of two steps (ring,
+     shape (n=8, 3,194,880 f32 a rank); a profile of one step (ring,
      convolutions, the fc GEMM, the BN/elementwise rest, idle share);
      then ``train_resnet.main`` with its loader drawing the stream on
      the host;
@@ -237,7 +237,7 @@ Phases, each printing JSON lines:
  20. ``moe_serving_path``: ``ServeEngine`` at Mixtral-8x7B width with 8
      layers, the serving path's config and requests, its parity (routing
      pinned to the kernel route's, the unpinned error reported) and its
-     first 8 streams against ``generate()``, counted;
+     first 4 streams against ``generate()``, counted;
  21. ``moe_sp_hop_checks``, ``moe_sp_train_path`` and
      ``moe_sp_train_parity``: sp with MoE over dp=2 x sp=2 x ep=2 at
      Mixtral-8x7B width, remat and a clip (the hop's flash kernels, the
@@ -259,7 +259,7 @@ Phases, each printing JSON lines:
      idle share); ``llama_pp_memory`` sets the schedules' peaks side by
      side (the 1F1B run at 8 microbatches is cut to make room for the tp
      phases);
- 23. ``llama_pp_train_parity``: at that width, sequence 2048, batch 4
+ 23. ``llama_pp_train_parity``: at that width, sequence 1024, batch 4
      over dp=2 x pp=2, 2 microbatches, two steps each: GPipe on the plain
      attention route, 1F1B, interleaved 1F1B and the dp=2 path at pp=1
      against GPipe on the kernels, the losses within 2e-3 and the
@@ -283,11 +283,11 @@ Phases, each printing JSON lines:
      batch 4 over dp=1 x pp=2 x ep=2 x sp=2, 2 microbatches, remat, clip
      1.0, under GPipe and 1F1B: as 24, plus ``drop_frac`` (at dp=1 the
      reduce-scatter is the identity: no ring_rs_update launches);
- 26. ``llama_pp_sp_train_parity``: 23 at sequence 2048 over dp=2 x pp=2 x
+ 26. ``llama_pp_sp_train_parity``: 23 at sequence 1024 over dp=2 x pp=2 x
      sp=2 (GPipe on the plain attention, 1F1B, interleaved 1F1B and the
      dp=2 x sp=2 path at pp=1 against GPipe on the kernels);
  27. ``moe_pp_train_parity``: at Mixtral-8x7B width, 2 layers, sequence
-     2048, batch 4 over dp=1 x pp=2 x ep=2 x sp=2, capacity factor 4
+     1024, batch 4 over dp=1 x pp=2 x ep=2 x sp=2, capacity factor 4
      (nothing drops): the whole tree's gradient under 1F1B, GPipe on the
      plain attention and the sp x ep path at pp=1 against GPipe on the
      kernels, the experts pinned to the reference's a token at a time,
@@ -326,7 +326,7 @@ Phases, each printing JSON lines:
      1F1B and interleaved 1F1B (v=2): launches counted, replicas and the leaves that replicate
      over tp checked, ``ring_ag`` checked bit for bit on sampled tiles
      and timed on a (tp, pp) row, peak memory, a profile) and
-     ``llama_pp_tp_train_parity`` (at the path's sequence and
+     ``llama_pp_tp_train_parity`` (at sequence 2048, the path's
      microbatches and 2 layers, under GPipe and 1F1B: two steps' masters at pp=2 x
      tp=2 against pp=2 x tp=1 within 0.05 of the update, losses within
      2e-3, the loss backwarded once a tp rank above the limit);
@@ -420,6 +420,12 @@ Phases, each printing JSON lines:
      the timeline written and parsed back (events a lane),
      ``train_mlp --trace-dir`` on the fused route and on
      ``--queue=explicit`` (the trace summaries), ``obs_demo`` on the card;
+ 49. ``helpers_path`` (after 48): ``fused_update.all_reduce_mean`` of the
+     MLP's gradient tree at dp=8 on the ring kernels, bit-equal to the
+     plain route and, at 4 MiB a rank, to the numpy ring golden;
+     ``bucketed.all_reduce_bucketed`` of BERT-base's bf16 gradients, each
+     leaf bit-equal to its flat segment; ``bfp.bfp_ste`` forward and
+     gradient bit-equal; each item's ms and launches;
  34. the ``kernels`` line (the offset instantiations' rows among them,
      the ablated ring_rs instantiations' rows from ``ring_cost_stages``,
      their launches from ``llama_sp_train_path``; the MoE paths'
@@ -431,7 +437,7 @@ Phases, each printing JSON lines:
      ``fleet_*``, the restore tier's as ``elastic_*``, ``durability_*``,
      ``serve_chaos_*`` and ``ckpt_driver_*``, the reshard tier's and
      observability's as ``reshard_*``, ``elastic_reshard_*`` and
-     ``obs_*``), then the
+     ``obs_*``, the helpers' as ``helpers_*``), then the
      last line ``{"ok": true, "device":
      {...}}``.
 
@@ -561,6 +567,12 @@ def sync(dev) -> None:
     import torch
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+# steps profiled on the BERT and ResNet-50 paths (cut from 2 on a slow
+# host: reading back their traces, tens of thousands of kernels a step,
+# took 21 and 29 s of host time)
+HOST_HEAVY_PROFILE_STEPS = 1
 
 
 def profile_run(phase: str, run, steps: int, groups=None, op_groups=None,
@@ -2530,10 +2542,11 @@ def serving_profile(dev, cfg, scfg, run) -> dict:
 # control (last key dropped) by 0.59 and 0.36; the limit sits between, six
 # bf16 steps at the logits' magnitude (4 to 8).
 PARITY_LOGIT_TOL = 0.1875
-# streams held against generate() after serving parity: the first 8 of
-# the run's (cut from all 24 to make room for the restore tier's phases:
-# one generate a stream at 32 layers is the phase's whole cost)
-VS_GENERATE_STREAMS = 8
+# streams held against generate() after serving parity: the first 4 of
+# the run's (cut from all 24 to make room for the restore tier's phases,
+# then from 8 on a slow host: one generate a stream at 32 layers is the
+# phase's whole cost)
+VS_GENERATE_STREAMS = 4
 PARITY_CONTROLS = ("last_key_dropped", "newest_page_hidden", "pages_rotated")
 
 
@@ -4327,7 +4340,8 @@ def bert_train_path(dev, kernels) -> dict:
     def train_step():
         held[0], _ = tr.step(held[0], next(extra)[0])
 
-    profile_run("bert_train_profile", train_step, 2, groups=TRAIN_GROUPS)
+    profile_run("bert_train_profile", train_step, HOST_HEAVY_PROFILE_STEPS,
+                groups=TRAIN_GROUPS)
     del tr, held, stream
     torch.cuda.empty_cache()
     return {"launches": launches, "mcfg": mcfg, "cfg": cfg, "run": run}
@@ -4548,8 +4562,9 @@ def resnet_train_path(dev, kernels) -> dict:
     def train_step():
         held[0], _ = tr.step(held[0], batch)
 
-    prof = profile_run("resnet_train_profile", train_step, 2,
-                       groups=RESNET_GROUPS, op_groups=RESNET_OP_GROUPS)
+    prof = profile_run("resnet_train_profile", train_step,
+                       HOST_HEAVY_PROFILE_STEPS, groups=RESNET_GROUPS,
+                       op_groups=RESNET_OP_GROUPS)
     del tr, held, batch
     torch.cuda.empty_cache()
     # train_resnet as a user runs it: the loader draws each batch on the
@@ -5217,9 +5232,19 @@ PP_SCHEDULES = {"gpipe": ["--pp_schedule=gpipe"],
 # 1F1B's forward unit, its backward unit's stage forward, and that
 # forward's layer recomputed in the backward
 PP_FWD_PER_UNIT = {"gpipe": 2, "1f1b": 3, "1f1b-interleaved": 3}
-PP_PARITY_ARGV = PP_MODEL_ARGV + [
-    "--seq=2048", "--global_batch=4", "--mesh.dp=2", "--mesh.pp=2",
+PP_PARITY_ARGV = PP_MODEL_ARGV + [    # sequence cut from 2048 (a slow host)
+    "--seq=1024", "--global_batch=4", "--mesh.dp=2", "--mesh.pp=2",
     "--microbatches=2", "--iters=2"] + PP_RING_ARGV
+
+
+def _host(t):
+    """A copy of ``t`` in page-locked host memory: a parity reference held
+    off the card, copied at the link's rate both ways (``.cpu()`` into
+    pageable memory ran at about 2.8 GB/s, 2.7 s a 7.6 GB master vector)."""
+    import torch
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
 
 
 def _diff(a, b, chunk=1 << 27) -> tuple:
@@ -5261,9 +5286,9 @@ def pp_master_leaves(tr, state, layer_of) -> dict:
 def llama_pp_train_parity(dev, argv=PP_PARITY_ARGV,
                           phase="llama_pp_train_parity",
                           pp1="pp1_dp2") -> None:
-    """Two SGD steps at Llama-3-8B width, 4 layers, sequence 2048, batch 4
+    """Two SGD steps at Llama-3-8B width, 4 layers, sequence 1024, batch 4
     over dp=2 x pp=2, 2 microbatches (``PP_PARITY_ARGV``; or ``argv``:
-    ``PP_SP_PARITY_ARGV``, sequence 2048 over dp=2 x pp=2 x sp=2, the
+    ``PP_SP_PARITY_ARGV``, sequence 1024 over dp=2 x pp=2 x sp=2, the
     phase ``llama_pp_sp_train_parity``), each from the same seeded
     weights and batch: GPipe on the kernels is the reference; GPipe on
     the plain attention route (attn_impl xla), 1F1B and interleaved 1F1B
@@ -5308,7 +5333,7 @@ def llama_pp_train_parity(dev, argv=PP_PARITY_ARGV,
 
     torch.cuda.reset_peak_memory_stats(dev)
     tr, ref_state, ref_losses, ref_layer = run(PP_SCHEDULES["gpipe"])
-    ref_state = ref_state._replace(w_own=ref_state.w_own.cpu())
+    ref_state = ref_state._replace(w_own=_host(ref_state.w_own))
     ref = pp_master_leaves(tr, ref_state, ref_layer)
     torch.cuda.empty_cache()
     tr0, init_state, _, _ = run(PP_SCHEDULES["gpipe"], steps=0)
@@ -5373,12 +5398,13 @@ MOE_PP_TRAIN_ARGV = MOE_MODEL_ARGV + [
     "--mesh.ep=2", "--mesh.sp=2", "--microbatches=2", "--iters=3"
 ] + PP_RING_ARGV + ["--optimizer.clip_norm=1.0"]
 MOE_PP_SCHEDULES = ("gpipe", "1f1b")
-# sequence 2048 (cut from 4096 to make room for the restore tier's
-# phases; the interleaved run keeps the 4 layers): 1024 tokens an sp shard
+# sequence 1024 (cut from 4096 to make room for the restore tier's
+# phases, then from 2048 on a slow host; the interleaved run keeps the 4
+# layers): 512 tokens an sp shard, one attention block
 PP_SP_PARITY_ARGV = PP_MODEL_ARGV + [
-    "--seq=2048", "--global_batch=4", "--mesh.dp=2", "--mesh.pp=2",
+    "--seq=1024", "--global_batch=4", "--mesh.dp=2", "--mesh.pp=2",
     "--mesh.sp=2", "--microbatches=2", "--iters=2"] + PP_RING_ARGV
-MOE_PP_PARITY_SEQ = 2048      # cut from 4096, as PP_SP_PARITY_ARGV
+MOE_PP_PARITY_SEQ = 1024      # cut from 4096, as PP_SP_PARITY_ARGV
 MOE_PP_PARITY_CF = 4.0        # E / top_k: nothing drops at any cut
 
 
@@ -5811,9 +5837,9 @@ def moe_pp_train_parity(dev) -> None:
     ref = token_pinned_routing(moe)
     with ref:
         l_ref, g_ref = grads("gpipe")
-    g_ref = [g.float().cpu() for g in g_ref]
-    norm = math.sqrt(sum(float(g.square().sum(dtype=torch.float64))
+    norm = math.sqrt(sum(float(g.float().square().sum(dtype=torch.float64))
                          for g in g_ref))
+    g_ref = [_host(g.float()) for g in g_ref]
     torch.cuda.empty_cache()
     res, unpinned = {}, {}
     for name, args in (("1f1b", ("1f1b",)),
@@ -5984,7 +6010,8 @@ def llama_tp_train_parity(dev) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         tr, state = train_llama.build(mcfg, cfg, device)
-        init = _whole_masters(tr, state).cpu() if cfg.mesh.tp == 1 else None
+        init = _host(_whole_masters(tr, state)) if cfg.mesh.tp == 1 \
+            else None
         if double_count:
             loss_fn = tr.loss_fn
             tr.loss_fn = lambda p, b: cfg.mesh.tp * loss_fn(p, b)
@@ -6214,8 +6241,8 @@ PP_TP_FLASH_SHAPES = (     # name, B, H, n_kv at S=4096, causal
     ("a microbatch, both tp ranks' heads, one launch", 1, 32, 8),)
 # 2 layers (cut from the timed path's 4 to make room for the restore
 # tier's phases): one layer a stage under GPipe and 1F1B
-PP_TP_PARITY_ARGV = PP_MODEL_ARGV + [
-    "--model.n_layers=2", "--seq=4096", "--global_batch=4", "--mesh.pp=2",
+PP_TP_PARITY_ARGV = PP_MODEL_ARGV + [    # sequence cut from 4096
+    "--model.n_layers=2", "--seq=2048", "--global_batch=4", "--mesh.pp=2",
     "--mesh.tp=2", "--microbatches=4", "--iters=2"] + PP_RING_ARGV
 PP_TP_PARITY_SCHEDULES = ("gpipe", "1f1b")
 
@@ -6223,7 +6250,7 @@ PP_TP_PARITY_SCHEDULES = ("gpipe", "1f1b")
 def llama_pp_tp_train_parity(dev) -> None:
     """Two SGD steps from the same seeded weights on the same batch
     (``PP_TP_PARITY_ARGV``: the timed path's Llama-3-8B width at 2 layers,
-    sequence 4096, batch 4, 4 microbatches, remat, the BFP ring kernels)
+    sequence 2048, batch 4, 4 microbatches, remat, the BFP ring kernels)
     at dp=1 x pp=2 x tp=2 against pp=2 x tp=1 under the same schedule,
     for each of ``PP_TP_PARITY_SCHEDULES``: the losses within
     ``PARITY_LOSS_TOL`` and the f32 masters (the tp and pp shards joined,
@@ -6241,7 +6268,7 @@ def llama_pp_tp_train_parity(dev) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         tr, state = train_llama.build(mcfg, cfg, device, True, pipe)
-        init = (_whole_masters(tr, state).cpu() if cfg.mesh.tp == 1
+        init = (_host(_whole_masters(tr, state)) if cfg.mesh.tp == 1
                 else None)
         if double_count:
             loss_fn = tr.loss_fn
@@ -6262,8 +6289,8 @@ def llama_pp_tp_train_parity(dev) -> None:
     for sched in PP_TP_PARITY_SCHEDULES:
         flags = PP_SCHEDULES[sched]
         ref, ref_losses, init = run(tp1 + flags)
-        ref = ref.cpu()
-        upd = math.sqrt(_diff(ref, init)[0])
+        upd = math.sqrt(_diff(ref, init)[0])   # on the card, init pinned
+        ref = _host(ref)
         del init
         refs[sched] = {"losses": ref_losses, "update_norm": upd}
         runs = [("pp2_tp2", False)]
@@ -8181,6 +8208,156 @@ def obs_path(dev, kernels, mcfg, sgd, bx, by, smi) -> dict:
     return {"launches": launches[True], "drivers": drivers}
 
 
+HELPERS_GOLDEN_ELEMS = 1 << 20      # 4 MiB of f32 a rank: the host golden
+HELPERS_REPS = 3                    # timed calls of each helper
+HELPERS_MLP = {}                    # MLPConfig fields: the canonical MLP
+HELPERS_BERT_ARGV = BERT_ARGV       # train_bert's BERT-base, BFP, dp=8
+HELPERS_STE_ELEMS = 41_963_520      # the canonical MLP's live elements
+
+
+def helpers_path(dev, kernels, smi) -> dict:
+    """The public helpers that run the ring kernels, at full width:
+    ``fused_update.all_reduce_mean`` of the canonical MLP's gradient tree
+    (10 x 2048 x 2048 f32 and biases, dp=8, the main path's BFP collective
+    config: one ``ring_rs_update`` and one ``ring_ag`` launch), bit-equal
+    to the same call on the plain route on the card, and at 4 MiB a rank
+    bit-equal to the numpy ring golden (sublane layout) / 8 on the host;
+    ``bucketed.all_reduce_bucketed`` of BERT-base's gradient tree (bf16,
+    dp=8, ``train_bert``'s BFP config: one launch of each a bucket), each
+    leaf bit-equal to its segment of ``all_reduce_bucketed_flat`` under the
+    same plan cast to the leaf dtype; ``bfp.bfp_ste`` at the MLP's flat
+    width, the forward bit-equal to ``bfp_roundtrip`` and the gradient the
+    incoming one bit for bit.  Each item's launch counts are zeroed just
+    before its call and read just after; its ms is the call's, CUDA
+    events around ``HELPERS_REPS`` calls."""
+    import numpy as np
+    import torch
+    from fpga_ai_nic_tpu_torch import train_bert
+    from fpga_ai_nic_tpu_torch.models import bert, mlp
+    from fpga_ai_nic_tpu_torch.ops import bfp, bucketed, fused_update
+    from fpga_ai_nic_tpu_torch.ops import ring_golden
+    from fpga_ai_nic_tpu_torch.utils.config import (BFPConfig,
+                                                    CollectiveConfig,
+                                                    MLPConfig)
+    n = 8
+    cfg = BFPConfig(codec="pallas")
+    coll = CollectiveConfig(impl="ring", compression=cfg, fused_kernel=True,
+                            fused_optimizer=True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {"launches": {name: 0 for name in kernels}}
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        res = fn()
+        sync(dev)
+        got = {name: k.launches for name, k in kernels.items()}
+        for name, v in got.items():
+            out["launches"][name] += v
+        return res, got
+
+    def stacked(shape, dtype=torch.float32):
+        return (torch.randn((n,) + tuple(shape), generator=gen, device=dev)
+                * 1e-2).to(dtype)
+
+    # all_reduce_mean at the MLP's width, kernels against the plain route
+    params = mlp.init(torch.Generator().manual_seed(0),
+                      MLPConfig(**HELPERS_MLP), dev)
+    tree = fused_update.tree_map(lambda p: stacked(p.shape), params)
+    del params
+    red, got = counted(lambda: fused_update.all_reduce_mean(tree, coll))
+    if (got["ring_rs_update"], got["ring_ag"]) != (1, 1) or any(
+            v for k, v in got.items() if k not in ("ring_rs_update",
+                                                  "ring_ag")):
+        raise AssertionError(f"all_reduce_mean: launches {got}")
+    with plain_collectives():
+        plain = fused_update.all_reduce_mean(tree, coll)
+    require_equal("all_reduce_mean", list(zip(
+        fused_update.tree_leaves(red), fused_update.tree_leaves(plain))))
+    ms = cuda_ms(lambda: fused_update.all_reduce_mean(tree, coll),
+                 HELPERS_REPS)
+    with plain_collectives():
+        plain_ms = cuda_ms(lambda: fused_update.all_reduce_mean(tree, coll),
+                           1)
+    elems = sum(t[0].numel() for t in fused_update.tree_leaves(tree))
+    del tree, red, plain
+    small = {"w": stacked((HELPERS_GOLDEN_ELEMS,))}
+    red_small, got_small = counted(
+        lambda: fused_update.all_reduce_mean(small, coll))
+    meta = fused_update.flat_meta(fused_update.per_rank_tree(small), coll, n)
+    rows = fused_update.flatten_rows(small, meta).cpu().numpy()
+    want = ring_golden.ring_all_reduce(rows, cfg, layout="sublane") / n
+    golden_equal = bool(np.array_equal(
+        red_small["w"].cpu().numpy(), want[:, :HELPERS_GOLDEN_ELEMS]))
+    if not golden_equal:
+        raise AssertionError("all_reduce_mean at 4 MiB a rank differs from "
+                             "the numpy ring golden")
+    emit(phase="helpers_path", item="all_reduce_mean",
+         model="MLP 10x2048x2048 f32", dp=n, elems_per_rank=elems, ms=ms,
+         plain_ms=plain_ms, launches=got, plain_bitequal=True,
+         golden_elems_per_rank=HELPERS_GOLDEN_ELEMS,
+         golden_launches=got_small, golden_bitequal=golden_equal)
+    out["all_reduce_mean"] = {"ms": ms, "plain_ms": plain_ms,
+                              "launches": got}
+    del small, red_small
+
+    # all_reduce_bucketed on BERT-base's gradient tree
+    bcfg, tcfg, _run = train_bert.parse(HELPERS_BERT_ARGV)
+    bcoll = tcfg.collective
+    shapes = bert.init(torch.Generator(device=dev).manual_seed(0), bcfg,
+                       dev)
+    grads = fused_update.tree_map(lambda p: stacked(p.shape, p.dtype),
+                                  shapes)
+    plan = bucketed.plan_buckets(shapes, bcoll, n)
+    del shapes
+    red, got = counted(lambda: bucketed.all_reduce_bucketed(grads, bcoll,
+                                                            plan))
+    nb = len(plan.buckets)
+    if (got["ring_rs_update"], got["ring_ag"]) != (nb, nb):
+        raise AssertionError(f"all_reduce_bucketed: launches {got}, "
+                             f"{nb} buckets")
+    leaves = fused_update.tree_leaves(grads)
+    rows = bucketed.bucket_rows(plan, n, dev)
+    for r in range(n):
+        bucketed.bucket_locals([leaf[r] for leaf in leaves], plan,
+                               [row[r] for row in rows])
+    flat = bucketed.all_reduce_bucketed_flat(rows, bcoll, plan)
+    pairs, off = [], 0
+    for g, x in zip(fused_update.tree_leaves(red), leaves):
+        size = x[0].numel()
+        pairs.append((g, flat[:, off:off + size].reshape(x.shape)
+                      .to(x.dtype)))
+        off += size
+    require_equal("all_reduce_bucketed", pairs)
+    del flat, pairs, red
+    ms = cuda_ms(lambda: bucketed.all_reduce_bucketed(grads, bcoll, plan),
+                 HELPERS_REPS)
+    emit(phase="helpers_path", item="all_reduce_bucketed",
+         model="BERT-base gradients, bf16", dp=n, buckets=nb,
+         elems_per_rank=sum(x[0].numel() for x in leaves), ms=ms,
+         launches=got, flat_segments_bitequal=True)
+    out["all_reduce_bucketed"] = {"ms": ms, "launches": got, "buckets": nb}
+    del grads, leaves, rows
+
+    # bfp_ste at the MLP's flat width
+    L = HELPERS_STE_ELEMS
+    x = (torch.randn(L, generator=gen, device=dev) * 3).requires_grad_(True)
+    g_in = torch.randn(L, generator=gen, device=dev)
+    y, got = counted(lambda: bfp.bfp_ste(x))
+    y.backward(g_in)
+    require_equal("bfp_ste forward",
+                  [(y.detach(), bfp.bfp_roundtrip(x.detach(), BFPConfig()))])
+    require_equal("bfp_ste gradient", [(x.grad, g_in)])
+    ms = cuda_ms(lambda: bfp.bfp_ste(x), HELPERS_REPS)
+    emit(phase="helpers_path", item="bfp_ste", elems=L, ms=ms,
+         launches=got, forward_bitequal=True, grad_bitequal=True)
+    out["bfp_ste"] = {"ms": ms, "launches": got}
+    del x, y, g_in
+    torch.cuda.empty_cache()
+    emit(phase="helpers_path", card=smi, launches=out["launches"])
+    return out
+
+
 def main() -> int:
     # the Llama training phase holds about 60 GB at its peak and frees and
     # reallocates 7-15 GB buffers every step; growable segments keep the
@@ -8428,6 +8605,11 @@ def main() -> int:
     reshard = reshard_path(dev, kernels, mcfg, sgd, bx, by, smi)
     elastic_rs = elastic_reshard_path(dev, kernels, mcfg, sgd, bx, by, smi)
     obs = obs_path(dev, kernels, mcfg, sgd, bx, by, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 49. the public helpers that run the ring kernels ------------------
+    helpers = helpers_path(dev, kernels, smi)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -8911,6 +9093,13 @@ def main() -> int:
             elastic_reshard_launches_from=a89_from["elastic_reshard"],
             obs_launches=obs["launches"][name],
             obs_launches_from=a89_from["obs"])
+    for name in ("ring_rs_update", "ring_ag", "bfp_encode", "bfp_decode"):
+        results[name].setdefault("extra", {}).update(
+            helpers_launches=helpers["launches"][name],
+            helpers_launches_from=(
+                "helpers_path (all_reduce_mean: MLP full width and 4 MiB a "
+                "rank, dp=8; all_reduce_bucketed: BERT-base gradients, one "
+                "launch of each a bucket; bfp_ste: plain torch)"))
     for name, (src, repl) in meta.items():
         r = results[name]
         bound_ms, bound_by = r["bound"]

@@ -79,6 +79,39 @@ def bfp_roundtrip(x: torch.Tensor, cfg: BFPConfig) -> torch.Tensor:
     return bfp_decode(mant, se, cfg.block_size, x.dtype)
 
 
+class _BfpSte(torch.autograd.Function):
+    """BFP quantization forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, block_size: int,
+                mantissa_bits: int) -> torch.Tensor:
+        mant, se = bfp_encode(x, block_size, mantissa_bits)
+        return bfp_decode(mant, se, block_size, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None, None
+
+
+def bfp_ste(x: torch.Tensor, block_size: int = 16,
+            mantissa_bits: int = 8) -> torch.Tensor:
+    """Straight-through estimator: ``bfp_decode(bfp_encode(x))`` (the flat
+    layout, round to nearest) in the forward pass, the incoming gradient
+    unchanged in the backward, so a model trains through a simulated
+    compressed channel."""
+    return _BfpSte.apply(x, block_size, mantissa_bits)
+
+
+def pad_to_block(x: torch.Tensor, block_size: int
+                 ) -> Tuple[torch.Tensor, int]:
+    """Flatten + zero-pad to a block multiple: ``(flat, pad)``."""
+    flat = x.reshape(-1)
+    pad = (-flat.shape[0]) % block_size
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat, pad
+
+
 def wire_bytes(n_elems: int, cfg: BFPConfig) -> int:
     """Bytes on the wire: mantissas + one scale byte per block."""
     assert n_elems % cfg.block_size == 0

@@ -135,6 +135,21 @@ def bfp_decode(mant: np.ndarray, scale_exp: np.ndarray, block_size: int = 16,
     return _from_blocks(x, mant.shape, block_size, layout).astype(dtype)
 
 
+def max_abs_error_bound(x: np.ndarray, block_size: int = 16,
+                        mantissa_bits: int = 8) -> np.ndarray:
+    """Per-element worst-case |x - decode(encode(x))| bound (flat layout).
+
+    One half ULP of the block grid for nearest, one ULP for rtz; callers
+    asserting the bound should pick the mode's factor.  Returns the grid
+    spacing 2**scale_exp per element (the "rtz" bound; halve for nearest).
+    """
+    xb = _split_blocks(np.asarray(x, np.float32), block_size)
+    emax = biased_exponent(xb).max(axis=-1)
+    scale_exp = np.clip(emax - 127 - (mantissa_bits - 2), -126, 126)
+    grid = np.ldexp(np.float32(1.0), scale_exp)
+    return np.broadcast_to(grid[..., None], xb.shape).reshape(x.shape)
+
+
 def wire_bits(n_elems: int, block_size: int = 16, mantissa_bits: int = 8) -> int:
     """Bits on the wire for n_elems values (ref frame: 136b per 16 fp32,
     hw/bfp_adapter.sv:76 BFP_SIZE = EXP_SIZE + NUM_FP*MANT_SIZE)."""

@@ -20,7 +20,8 @@ Reductions run one bucket after the other, after the backward
 
 from __future__ import annotations
 
-from typing import Iterable, List, NamedTuple, Sequence, Tuple
+from typing import (Any, Iterable, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -142,6 +143,26 @@ def all_reduce_bucketed_flat(rows: List[torch.Tensor],
     n = rows[0].shape[0]
     return assemble_flat((reduce_bucket(rows.pop(0), coll)
                           for _ in plan.buckets), plan, div=n)
+
+
+def all_reduce_bucketed(grads: Any, coll: CollectiveConfig,
+                        plan: Optional[BucketPlan] = None) -> Any:
+    """Mean all-reduce of a gradient tree of stacked per-rank leaves
+    ``[n, ...]``, one collective a bucket: every leaf replaced by its dp
+    mean, each rank's row, in the leaf's own dtype.  The values are
+    ``all_reduce_bucketed_flat``'s under the same plan, cast per leaf."""
+    leaves = fused_update.tree_leaves(grads)
+    n = leaves[0].shape[0]
+    if plan is None:
+        plan = plan_buckets(fused_update.per_rank_tree(grads), coll, n)
+    rows = bucket_rows(plan, n, leaves[0].device)
+    for b, vec in zip(plan.buckets, rows):
+        off = 0
+        for i, size in zip(b.leaf_ids, b.sizes):
+            vec[:, off:off + size].copy_(leaves[i].reshape(n, size))
+            off += size
+    return fused_update.unflatten_rows(
+        all_reduce_bucketed_flat(rows, coll, plan), plan)
 
 
 def bucket_wire_bytes(plan: BucketPlan, n: int,

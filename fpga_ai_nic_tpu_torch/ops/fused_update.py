@@ -358,6 +358,68 @@ def ring_all_reduce_routed(x: torch.Tensor, coll: CollectiveConfig
                                     slice_elems=coll.slice_elems)
 
 
+def per_rank_tree(tree: Any) -> Any:
+    """One rank's view of a tree of stacked per-rank leaves ``[n, ...]``
+    (row 0 of each): the shapes and dtypes ``flat_meta`` reads."""
+    return tree_map(lambda leaf: leaf[0], tree)
+
+
+def flatten_rows(tree: Any, meta: FlatMeta) -> torch.Tensor:
+    """A tree of stacked per-rank leaves ``[n, ...]`` -> ``[n, padded_len]``
+    f32 rows, each rank's leaves in tree order, zero-padded."""
+    leaves = tree_leaves(tree)
+    n = leaves[0].shape[0]
+    out = torch.empty((n, meta.padded_len), dtype=torch.float32,
+                      device=leaves[0].device)
+    off = 0
+    for leaf, size in zip(leaves, meta.sizes):
+        out[:, off:off + size].copy_(leaf.reshape(n, size))
+        off += size
+    out[:, off:] = 0
+    return out
+
+
+def unflatten_rows(rows: torch.Tensor, meta: Any) -> Any:
+    """Inverse of ``flatten_rows``: ``[n, >= L]`` f32 rows -> the tree of
+    ``[n, ...]`` leaves, each cast to its own dtype (``meta``: a
+    ``FlatMeta`` or a ``bucketed.BucketPlan``, their keys, shapes and
+    dtypes)."""
+    n, leaves, off = rows.shape[0], [], 0
+    for shape, dtype in zip(meta.shapes, meta.dtypes):
+        size = int(np.prod(shape)) if shape else 1
+        leaves.append(rows[:, off:off + size].reshape((n,) + shape)
+                      .to(dtype))
+        off += size
+    return tree_from_leaves(meta.keys, leaves)
+
+
+def all_reduce_mean(tree: Any, coll: CollectiveConfig) -> Any:
+    """Plain (unfused) mean all-reduce of a gradient tree of stacked
+    per-rank leaves ``[n, ...]``, for training loops that keep a separate
+    optimizer: every rank's row becomes the dp mean, in the leaf's dtype.
+    ``impl="xla"`` sums each leaf over the ranks in its own dtype (JAX's
+    psum); otherwise the tree is flattened to f32 rows, reduced by one
+    ``ring_all_reduce_routed`` (the fused BFP ring kernels with
+    ``fused_kernel`` on a card) and divided by n."""
+    leaves = tree_leaves(tree)
+    n = leaves[0].shape[0]
+    if coll.impl == "xla":
+        return tree_map(lambda g: (g.sum(dim=0, keepdim=True) / n)
+                        .expand_as(g), tree)
+    meta = flat_meta(per_rank_tree(tree), coll, n)
+    red = ring_all_reduce_routed(flatten_rows(tree, meta), coll)
+    return unflatten_rows(red / n, meta)
+
+
+def shard_slice(flat: torch.Tensor) -> torch.Tensor:
+    """Each rank's chunk of its flat vector: ``[n, L]`` rows -> ``[n,
+    L/n]``, row i the chunk i of row i (natural order)."""
+    n, L = flat.shape
+    c = L // n
+    idx = torch.arange(n, device=flat.device)
+    return flat.reshape(n, n, c)[idx, idx]
+
+
 def all_gather_flat(owned: torch.Tensor, coll: CollectiveConfig,
                     integrity: bool = False):
     """[n, C] owned chunks -> [n, n*C] replicas; with ``integrity``,

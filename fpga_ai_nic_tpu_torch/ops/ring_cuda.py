@@ -411,3 +411,38 @@ def loopback_update_microbench(x: torch.Tensor, virtual_n: int = 4, *,
     return _launch_rs(x, cfg, opt_kind, w,
                       tuple(st[k] for k in spec.state_keys), hyper,
                       ablate=(streaming, ablate))[1]
+
+
+def _rs_op_stream(n: int, S: int, depth: Optional[int]):
+    """The flat ring reduce-scatter's op stream and slot window, from the
+    one emitter (``verify.opstream.rs_op_stream``, at the JAX package's
+    Pallas ring's default depth)."""
+    from ..verify import opstream as _opstream
+    return _opstream.rs_op_stream(n, S, depth)
+
+
+def simulate_rs_protocol(n: int, S: int, depth: Optional[int] = None,
+                         seed: int = 0, max_events: int = 2_000_000) -> int:
+    """Race/deadlock check of the ring's credit protocol at model level:
+    the RS op stream on n simulated nodes under a randomized scheduler
+    with blocking semaphores and asynchronous wire transfers (a started
+    transfer lands at an arbitrary later scheduler event).  Fails with a
+    ``verify.mc.Violation`` (an AssertionError) on deadlock, a recv- or
+    send-slot overwrite, or a decode that finds another emission than the
+    schedule expects; returns the number of scheduler events on success.
+
+    The randomized mode of the model checker (``verify.mc.run_random``),
+    with the JAX package's legacy settings: no credit-bound assert and no
+    at-exit strictness (the exhaustive checker owns boundedness and
+    leaks).  The protocol is the JAX package's Pallas ring's: this card's
+    loopback ring keeps each frame in a thread's registers and runs no
+    slot window."""
+    from ..verify import mc as _mc
+    from ..verify import opstream as _opstream
+    ops, n_slots = _rs_op_stream(n, S, depth)
+    model = _opstream.RingModel(
+        n, ops, n_slots,
+        meta={"n": n, "S": S, "depth": depth, "seed": seed})
+    model.credit_bound = len(ops)
+    model.strict_terminal = False
+    return _mc.run_random(model, seed=seed, max_events=max_events)

@@ -142,3 +142,22 @@ def ring_reduce_scatter_pair(shards: np.ndarray, compression: BFPConfig,
             chunks[i, (i - s - 2) % n] += sends[(i - 1) % n]
     return (np.stack([chunks[i, i] for i in range(n)]),
             pair.astype(np.uint32))
+
+
+def fused_allreduce_sgd(grad_shards: np.ndarray, weights: np.ndarray,
+                        lr: float,
+                        compression: Optional[BFPConfig] = None,
+                        layout: str = "flat16") -> np.ndarray:
+    """The reference's defining fusion: reduce-scatter gradients, apply the
+    SGD update to the owned weight chunk, all-gather *updated weights*
+    (hw/weight_update.sv:441-452 w_new = -lr*g + w; the gather phase
+    distributes w_new, not gradients — hw/all_reduce.sv:996-1086).
+
+    grad_shards: [n, L]; weights: [L] (replicated). Returns [n, L] updated
+    replicas (identical across devices)."""
+    n, L = grad_shards.shape
+    g_owned = ring_reduce_scatter(grad_shards, compression, layout)
+    w_chunks = weights.reshape(n, L // n).astype(np.float32)
+    w_new_owned = np.stack([w_chunks[i] - np.float32(lr) * g_owned[i]
+                            for i in range(n)])
+    return ring_all_gather(w_new_owned, compression, layout)

@@ -96,9 +96,12 @@ class CollectiveQueue:
         self._streams: Dict[torch.device, torch.cuda.Stream] = {}
 
     def _side(self, device: torch.device) -> torch.cuda.Stream:
-        if device not in self._streams:
-            self._streams[device] = torch.cuda.Stream(device)
-        return self._streams[device]
+        # under the lock: a watchdog worker's issue and the main thread's
+        # may both make the device's first side stream
+        with self._lock:
+            if device not in self._streams:
+                self._streams[device] = torch.cuda.Stream(device)
+            return self._streams[device]
 
     def _launch(self, args: tuple):
         """``(result, event)``: the collective on the side stream of the

@@ -249,7 +249,6 @@ class ServeEngine:
             self.params, tokens, pool, table, pos, self.cfg,
             page_size=self.scfg.page_size, tp_axis=self._tp_axis,
             active=active, attend_impl=self.attend_impl)
-        self.decode_calls += 1
         toks = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         new_ledger = (None if ledger is None
                       else integrity_lib.page_checksums(pool))
@@ -263,7 +262,6 @@ class ServeEngine:
             self.params, tokens, pool, row, pos0, self.cfg,
             page_size=self.scfg.page_size, tp_axis=self._tp_axis,
             attend_impl=self.attend_impl)
-        self.prefill_calls += 1
         # the continuation at the chunk's last TRUE token — consumed only
         # when this chunk completes a fresh prefill
         nxt = torch.argmax(logits[0, last], dim=-1).to(torch.int32)
@@ -335,6 +333,13 @@ class ServeEngine:
                 self._recover(err)
                 return True
         self.pool = pool
+        # the step counters are the engine thread's: taken here, where the
+        # tick's result is, so a timed-out tick's worker writes none
+        if pre is not None:
+            self.prefill_calls += 1
+            self.prefill_tokens += pre[2]
+        if dec:
+            self.decode_calls += 1
         if self.ledger is not None and out.get("ledger") is not None:
             self.ledger = out["ledger"]
         self._consec_failures = 0
@@ -388,7 +393,6 @@ class ServeEngine:
                     table[slot:slot + 1].contiguous(),
                     torch.tensor([start], dtype=torch.int32, device=dev),
                     last, ledger)
-                self.prefill_tokens += n_true
                 if nbad is not None:
                     bad_pages += int(nbad)                 # waits
                 out["prefill_tok"] = int(tok)              # waits

@@ -502,6 +502,7 @@ class Checkpointer:
         self._bg: Optional[threading.Thread] = None
         self._bg_exc: Optional[BaseException] = None
         self.last_save: Dict[str, float] = {}
+        self._stats_lock = threading.Lock()   # orders last_save's writers
         self._recover_leftovers()
 
     # -- paths --------------------------------------------------------------
@@ -931,8 +932,9 @@ class Checkpointer:
         ops = self._plan_write_ops(step, tree, layout, emergency, shards)
         t2 = time.perf_counter()
         self._exec_ops(ops)
-        self.last_save.update(encode_s=t1 - t0, checksum_s=t2 - t1,
-                              write_s=time.perf_counter() - t2)
+        with self._stats_lock:      # the background save's thread
+            self.last_save.update(encode_s=t1 - t0, checksum_s=t2 - t1,
+                                  write_s=time.perf_counter() - t2)
         if self.chaos is not None:
             # durability damage-at-rest (file bit-flip / stale manifest)
             # fires AFTER the commit: the fault models rot/operator
@@ -953,8 +955,10 @@ class Checkpointer:
         path (async: the path it will commit to)."""
         t0 = time.perf_counter()
         tree = self._host_tree(state)
-        self.last_save = {"pull_s": time.perf_counter() - t0}
+        pull_s = time.perf_counter() - t0
         self.wait_until_finished()       # serialize with the previous save
+        with self._stats_lock:
+            self.last_save = {"pull_s": pull_s}
         self._migrate_legacy_layout()
         shards = self.shards if shards is None else shards
         if self._async:

@@ -62,6 +62,11 @@ class CollectiveStats:
         with self._lock:
             self.abandoned += n
 
+    def record_latency(self, seconds: float) -> None:
+        with self._lock:
+            self.latency_sum_s += seconds
+            self.latency_max_s = max(self.latency_max_s, seconds)
+
     def as_dict(self) -> Dict:
         with self._lock:
             n = self.completed

@@ -1980,3 +1980,80 @@ def test_obs_metrics_launches_on_card(cuda_device):
     assert out[False][2].n_updates == 0
     assert 0 < sink.latest["codec_obs_rel_err"] <= \
         sink.static["declared_error_bound"]
+
+
+# -- the public helpers that run the ring kernels -----------------------------
+
+def _plain_fused(monkeypatch):
+    """The fused ring wrappers as their plain versions on the same card
+    tensors (the plain route)."""
+    def rs(x, *, compression=None, slice_elems=None, integrity=False):
+        res = ring_cuda.ring_reduce_scatter_update_plain(
+            x, None, {}, None, opt_kind=None, compression=compression,
+            slice_elems=slice_elems, integrity=integrity)
+        return (res[0], res[3]) if integrity else res[0]
+
+    monkeypatch.setattr(ring_cuda, "ring_reduce_scatter_fused", rs)
+    monkeypatch.setattr(ring_cuda, "ring_all_gather_fused",
+                        lambda owned, *, compression=None:
+                        ring_cuda.ring_all_gather_plain(owned, compression))
+
+
+def _helper_tree(dev, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(5)
+    return {"a": torch.randn((8, 64, 130), generator=g, device=dev)
+            .to(dtype),
+            "b": [torch.randn((8, 3000), generator=g, device=dev).to(dtype),
+                  torch.randn((8, 7), generator=g, device=dev).to(dtype)]}
+
+
+@pytest.mark.cuda
+def test_all_reduce_mean_on_card(cuda_device, monkeypatch):
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    from fpga_ai_nic_tpu_torch.utils.config import CollectiveConfig
+    coll = CollectiveConfig(impl="ring", compression=BFPConfig(codec="pallas"),
+                            fused_kernel=True, fused_optimizer=True)
+    tree = _helper_tree(cuda_device)
+    before = _launches()
+    got = fused_update.all_reduce_mean(tree, coll)
+    assert [a - b for a, b in zip(_launches(), before)] == [1, 1]
+    _plain_fused(monkeypatch)
+    want = fused_update.all_reduce_mean(tree, coll)
+    for a, b in zip(fused_update.tree_leaves(got),
+                    fused_update.tree_leaves(want)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_all_reduce_bucketed_on_card(cuda_device, monkeypatch, dtype):
+    from fpga_ai_nic_tpu_torch.ops import bucketed, fused_update
+    from fpga_ai_nic_tpu_torch.utils.config import CollectiveConfig
+    coll = CollectiveConfig(impl="ring", compression=BFPConfig(codec="pallas"),
+                            fused_kernel=True, fused_optimizer=True,
+                            bucket_elems=4096)
+    tree = _helper_tree(cuda_device, dtype)
+    plan = bucketed.plan_buckets(fused_update.per_rank_tree(tree), coll, 8)
+    before = _launches()
+    got = bucketed.all_reduce_bucketed(tree, coll, plan)
+    nb = len(plan.buckets)
+    assert [a - b for a, b in zip(_launches(), before)] == [nb, nb]
+    _plain_fused(monkeypatch)
+    want = bucketed.all_reduce_bucketed(tree, coll, plan)
+    for a, b in zip(fused_update.tree_leaves(got),
+                    fused_update.tree_leaves(want)):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bfp_ste_on_card(cuda_device):
+    from fpga_ai_nic_tpu_torch.ops import bfp
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = _mixed(torch.randn(1 << 16, generator=g, device=cuda_device), 6)
+    x.requires_grad_(True)
+    y = bfp.bfp_ste(x)
+    g_in = torch.randn(1 << 16, generator=g, device=cuda_device)
+    y.backward(g_in)
+    assert torch.equal(y.detach(), bfp.bfp_roundtrip(x.detach().cpu(),
+                                                     BFPConfig()).cuda())
+    assert torch.equal(x.grad, g_in)

@@ -261,7 +261,9 @@ def test_port_imports_without_jax_or_ml_dtypes():
               "ops.int8_cuda", "ops.moe", "evals.codec_convergence",
               "tune.calibration", "tune.autotune", "tune.adapt",
               "parallel.reshard", "utils.trace_analysis", "obs.timeline",
-              "obs_demo"):
+              "obs_demo", "verify.opstream", "verify.sched", "verify.mc",
+              "verify.replay", "verify.lockset", "verify.__main__",
+              "lint.engine", "lint.findings", "lint.suppress"):
         assert f"fpga_ai_nic_tpu_torch.{m}" in mods, m
     mods += ["chip_smoke", "codec_probe"]
     code = textwrap.dedent(f"""
