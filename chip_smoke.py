@@ -426,6 +426,25 @@ Phases, each printing JSON lines:
      ``bucketed.all_reduce_bucketed`` of BERT-base's bf16 gradients, each
      leaf bit-equal to its flat segment; ``bfp.bfp_ste`` forward and
      gradient bit-equal; each item's ms and launches;
+ 50. ``llama_data_axes_path`` (after ``llama_data_path``): ``train_llama
+     --data=SURVEY.md`` at Llama-3-8B width over dp=2 x sp=2 and at
+     Mixtral-8x7B width over dp=2 x ep=2, 1 layer and 2 steps each,
+     finite losses, the flash kernels every step, the rings once a step;
+ 51. ``explicit_grads_path``: ``ShardedTrainer(loss_and_grads_fn=)`` at
+     pp = 1 (Llama-3-8B width, 1 layer, dp=2, 2 steps), masters and
+     replicas bit-equal to the autograd route's;
+ 52. ``eval_bfp_path`` (after the codec convergence eval): ``eval_bfp
+     --models=mlp_fsdp`` at 20 steps and 2 seeds into a temporary
+     directory, finite losses;
+ 53. ``hop_kernel_checks`` and ``procs_ring_path`` (after 49): the
+     cross-process hop kernels (``csrc/ring_hop.cu``) against their plain
+     versions at the MLP row's chunk over 4 ranks, BFP and raw f32
+     frames, ms beside the bytes bound; 4 worker processes on the card
+     (gloo group, CUDA IPC peer buffers, killed on a timeout): the ring
+     on ``MLPConfig()``'s flat row under SGD and AdamW, BFP and f32
+     frames, bit-equal to the one-process route, then 4
+     steps of ``DPTrainer`` across them bit-equal to ``DPTrainer(dp=4)``
+     in this process, the median step ms of both after the first;
  34. the ``kernels`` line (the offset instantiations' rows among them,
      the ablated ring_rs instantiations' rows from ``ring_cost_stages``,
      their launches from ``llama_sp_train_path``; the MoE paths'
@@ -437,7 +456,9 @@ Phases, each printing JSON lines:
      ``fleet_*``, the restore tier's as ``elastic_*``, ``durability_*``,
      ``serve_chaos_*`` and ``ckpt_driver_*``, the reshard tier's and
      observability's as ``reshard_*``, ``elastic_reshard_*`` and
-     ``obs_*``, the helpers' as ``helpers_*``), then the
+     ``obs_*``, the helpers' as ``helpers_*``, the ``--data=`` axes' as
+     ``data_axes_*``; the hop kernels' launches are rank 0's of
+     ``procs_ring_path``), then the
      last line ``{"ok": true, "device":
      {...}}``.
 
@@ -8358,6 +8379,398 @@ def helpers_path(dev, kernels, smi) -> dict:
     return out
 
 
+# -- 50-53. --data= with sp and MoE, the explicit-gradient hook, the BFP
+# convergence driver, the ring across processes -----------------------------
+
+DATA_AXES_ARGV = {
+    # Llama-3-8B width over dp=2 x sp=2: 1 layer, one 4096-token
+    # sequence a dp rank (two 2048-token shards)
+    "sp": ["--model=llama3_8b", "--model.n_layers=1",
+           "--model.attn_block=512", "--model.attn_impl=auto", "--seq=4096",
+           "--global_batch=2", "--mesh.dp=2", "--mesh.sp=2"],
+    # Mixtral-8x7B width over dp=2 x ep=2: 1 layer, batch 4
+    "moe": MOE_MODEL_ARGV + ["--model.n_layers=1", "--model.attn_block=512",
+                             "--model.attn_impl=auto", "--seq=4096",
+                             "--global_batch=4", "--mesh.dp=2",
+                             "--mesh.ep=2"]}
+DATA_AXES_TAIL = ["--iters=1", "--collective.impl=ring",
+                  "--collective.compression.codec=pallas",
+                  "--collective.fused_kernel=true", "--optimizer.kind=sgd",
+                  "--optimizer.learning_rate=0.001",
+                  "--data=" + os.path.join(os.path.dirname(
+                      os.path.abspath(__file__)), "SURVEY.md")]
+FLASH_PATH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def llama_data_axes_path(dev, kernels) -> dict:
+    """``train_llama.main --data=SURVEY.md`` with sp (Llama-3-8B width, dp=2
+    x sp=2) and with MoE layers (Mixtral-8x7B width, dp=2 x ep=2), 1
+    layer and 2 steps each (the warm-up and one timed), SGD at lr 0.001:
+    finite losses, masked labels, each tensor-core flash kernel launched
+    every step, one launch of each ring kernel a step."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    out = {}
+    for name, base in DATA_AXES_ARGV.items():
+        argv = base + DATA_AXES_TAIL
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero(kernels)
+        run = train_llama.main(argv)
+        launches = {k: v.launches for k, v in kernels.items() if v.launches}
+        steps = len(run["losses"])
+        checks = {"finite": all(math.isfinite(v) for v in run["losses"]),
+                  "steps": steps == 2,
+                  "masked_labels": run["data"]["masked_share"] > 0,
+                  "flash_every_step": all(
+                      launches.get(k, 0) >= steps
+                      for k in FLASH_PATH_KERNELS),
+                  "rings_per_step": (launches.get("ring_rs_update", 0),
+                                     launches.get("ring_ag", 0)) == (
+                      steps * run["mesh"]["ep"], steps * run["mesh"]["ep"])}
+        emit(phase="llama_data_axes_path", cell=name, argv=argv,
+             losses=run["losses"], masked_share=run["data"]["masked_share"],
+             tokens_per_sec=run["tokens_per_sec"], wall_s=run["wall_s"],
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             launches=launches, checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"llama_data_axes_path ({name}): {checks}")
+        out[name] = {"launches": launches, "steps": steps}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+EXPLICIT_ARGV = [a for a in TRAIN_ARGV if not a.startswith(
+    ("--model.n_layers=", "--iters="))] + ["--model.n_layers=1",
+                                           "--iters=2"]
+
+
+def explicit_grads_path(dev, kernels) -> None:
+    """``ShardedTrainer(loss_and_grads_fn=)`` at pp = 1: Llama-3-8B width,
+    1 layer, dp=2, the BFP ring kernels, 2 steps through an explicit
+    gradient function (autograd of ``llama.loss_fn`` written as a
+    function, called a dp rank at a time) against the autograd route
+    from the same weights on the same batches: masters and replicas
+    bit-equal, the losses equal."""
+    import torch
+    from fpga_ai_nic_tpu_torch import train_llama
+    from fpga_ai_nic_tpu_torch.models import llama
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    from fpga_ai_nic_tpu_torch.parallel.mesh import make_ranks
+    from fpga_ai_nic_tpu_torch.parallel.sharded import ShardedTrainer
+    mcfg, cfg, seq, device = train_llama.parse(EXPLICIT_ARGV)
+
+    def loss_and_grads(params, batch):
+        pairs = fused_update._leaves(params)
+        leaves = [t.detach().requires_grad_() for _, t in pairs]
+        keys = tuple(p for p, _ in pairs)
+        loss = llama.loss_fn(fused_update.tree_from_leaves(keys, leaves),
+                             batch, mcfg)
+        gs = torch.autograd.grad(loss, leaves)
+        return loss.detach(), fused_update.tree_from_leaves(keys, list(gs))
+
+    ranks = make_ranks(cfg.mesh, device)
+    res = {}
+    for route in ("autograd", "explicit"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = (ShardedTrainer(lambda p, b: llama.loss_fn(p, b, mcfg), ranks,
+                             cfg) if route == "autograd" else
+              ShardedTrainer(None, ranks, cfg,
+                             loss_and_grads_fn=loss_and_grads))
+        state = tr.init_state(llama.init(torch.Generator(
+            device=dev).manual_seed(cfg.seed), mcfg, dev))
+        batches = [tr.shard_batch(b) for b in train_llama.batches(
+            mcfg, cfg, seq, cfg.iters)]
+        state, losses, step_ms, launches = _stepped(tr, state, batches,
+                                                    kernels)
+        res[route] = {"losses": losses, "step_ms": step_ms,
+                      "launches": {k: v for k, v in launches.items() if v},
+                      "w_own": state.w_own if route == "explicit"
+                      else _host(state.w_own),
+                      "replicas": state.replicas if route == "explicit"
+                      else _host(state.replicas)}
+        del tr, state, batches
+    _, w_eq = _diff(res["explicit"]["w_own"], res["autograd"]["w_own"])
+    _, r_eq = _diff(res["explicit"]["replicas"], res["autograd"]["replicas"])
+    checks = {"masters_bitequal": w_eq, "replicas_bitequal": r_eq,
+              "losses_equal": res["explicit"]["losses"]
+              == res["autograd"]["losses"],
+              "same_launches": res["explicit"]["launches"]
+              == res["autograd"]["launches"]}
+    emit(phase="explicit_grads_path", argv=EXPLICIT_ARGV,
+         losses={k: r["losses"] for k, r in res.items()},
+         step_ms={k: r["step_ms"] for k, r in res.items()},
+         launches={k: r["launches"] for k, r in res.items()}, checks=checks)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"explicit_grads_path: {checks}")
+
+
+EVAL_BFP_ARGV = ["--models=mlp_fsdp", "--multiseed_steps=20", "--seeds=0,1"]
+
+
+def eval_bfp_path(dev) -> None:
+    """``python -m fpga_ai_nic_tpu_torch.eval_bfp --models=mlp_fsdp`` at 20
+    steps and 2 seeds on the card, into a temporary directory: finite
+    losses in every arm, JAX's report keys, the card in the provenance."""
+    import shutil
+    import tempfile
+    from fpga_ai_nic_tpu_torch import eval_bfp
+    tmp = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        eval_bfp.main(EVAL_BFP_ARGV + [f"--out={tmp}/r.json"])
+        wall = time.perf_counter() - t0
+        with open(f"{tmp}/r.json") as f:
+            rep = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs = rep["mlp_fsdp"]["per_seed"]
+    losses = [v for r in runs for arm in r.values() if isinstance(arm, dict)
+              and "losses" in arm for v in arm["losses"]]
+    checks = {"keys": {"steps", "n_devices", "codec_error", "mlp_fsdp",
+                       "_provenance"} <= set(rep),
+              "finite": all(math.isfinite(v) for v in losses),
+              "card": "NVIDIA" in (rep["_provenance"]["nvidia_smi"] or "")}
+    emit(phase="eval_bfp_path", argv=EVAL_BFP_ARGV, wall_s=wall,
+         ratios={f"m{m}": rep["mlp_fsdp"][f"bfp_m{m}"]["paired_ratios"]
+                 for m in (8, 6, 4)}, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"eval_bfp_path: {checks}")
+
+
+PROCS_WORLD = 4
+PROCS_STEPS = 4     # the first step is cold in both runs: medians skip it
+PROCS_TIMEOUT_S = 600.0
+PROCS_SPEC = {"device": "cuda", "seed": 0, "codec": "bfp",
+              "opt_kinds": ("sgd", "adamw"), "layer_sizes": (2048,) * 11,
+              "global_batch": 5376, "steps": PROCS_STEPS, "opt": "sgd",
+              "lr": 0.1}
+# each worker's allocator without growable segments: their buffers are
+# shared through CUDA IPC handles
+PROCS_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:False"}
+HOP_OPS = {"rs": 11, "ag": 2}     # operations an element: enc + dec + add
+
+
+def procs_row() -> int:
+    """``MLPConfig()``'s flat row padded for the fused ring at dp=4."""
+    from fpga_ai_nic_tpu_torch.ops import fused_update
+    from fpga_ai_nic_tpu_torch.parallel import procs
+    sizes = PROCS_SPEC["layer_sizes"]
+    live = sum(a * b + b for a, b in zip(sizes, sizes[1:]))
+    m = fused_update.pad_multiple(procs._coll(PROCS_SPEC), PROCS_WORLD)
+    return -(-live // m) * m
+
+
+def hop_kernel_checks(dev, L: int, world: int) -> dict:
+    """``ring_hop_rs`` and ``ring_hop_ag`` (``csrc/ring_hop.cu``) against
+    their plain versions on the same card tensors at the MLP row's chunk
+    over ``world`` ranks, every launch form (the reduce-scatter's first,
+    middle and last with SGD and AdamW; the all-gather's first and
+    forwarding) on both wires (BFP frames and raw f32 frames), bit for
+    bit, repeat launches bit-equal; a middle BFP hop's time (the step's
+    n-2 of n) as device time (``device_ms``) and as whole launches (CUDA
+    events), the plain version's, and the bytes bound (each input read
+    once, each output written once)."""
+    import torch
+    from fpga_ai_nic_tpu_torch import optim
+    from fpga_ai_nic_tpu_torch.ops import ring_procs
+    from fpga_ai_nic_tpu_torch.utils.config import BFPConfig, OptimizerConfig
+    C = L // world
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(C, generator=gen, device=dev) * 3
+    x[::97] = 0
+    w = torch.randn(C, generator=gen, device=dev) * 0.02
+    st = {k: torch.rand(C, generator=gen, device=dev) * 0.01
+          for k in ("m", "v")}
+    peer = torch.randn(C, generator=gen, device=dev)
+    out = {}
+
+    def check_forms(wire, name):
+        """Every launch form on ``wire``; the arrived frame it used."""
+        F = wire.frame_bytes
+
+        def frames():
+            return (torch.empty(F, dtype=torch.uint8, device=dev),
+                    torch.empty(F, dtype=torch.uint8, device=dev))
+
+        recv = frames()[0]
+        ring_procs.encode_frame(peer, wire, recv)
+        # the reduce-scatter: first (x only), middle, last with each
+        # optimizer
+        for form, rv in (("first", None), ("middle", recv)):
+            a, b = frames()
+            ring_procs.rs_hop(x, rv, a, wire, n=world)
+            ring_procs.rs_hop_plain(x, rv, b, wire, n=world)
+            require_equal(f"ring_hop_rs ({name} {form})", [(a, b)])
+            c = a.clone()
+            ring_procs.rs_hop(x, rv, a, wire, n=world)
+            require_equal(f"ring_hop_rs ({name} {form}, repeat)", [(a, c)])
+        for kind in ("sgd", "adamw"):
+            opt = OptimizerConfig(kind=kind, learning_rate=1e-2,
+                                  weight_decay=0.01)
+            keys = optim.OptimizerSpec.from_optimizer(opt).state_keys
+            hyper = optim.fused_hyperparams(opt, 3, device=dev)
+            s = {k: st[k] for k in keys}
+            got = ring_procs.rs_hop(x, recv, None, wire, n=world, last=True,
+                                    w=w, state=s, hyper=hyper, opt_kind=kind)
+            want = ring_procs.rs_hop_plain(x, recv, None, wire, n=world,
+                                           last=True, w=w, state=s,
+                                           hyper=hyper, opt_kind=kind)
+            require_equal(f"ring_hop_rs ({name} last, {kind})",
+                          [(got[0], want[0]), (got[1], want[1])]
+                          + [(got[2][k], want[2][k]) for k in keys])
+        # the all-gather: the owned chunk's encode, a forwarded frame
+        for form, rv in (("first", None), ("forward", recv)):
+            (a, b), sa, sb = (frames(), torch.empty_like(x),
+                              torch.empty_like(x))
+            ring_procs.ag_hop(w, rv, a, sa, wire)
+            ring_procs.ag_hop_plain(w, rv, b, sb, wire)
+            require_equal(f"ring_hop_ag ({name} {form})", [(a, b), (sa, sb)])
+        return recv
+
+    check_forms(ring_procs.wire_for(C, None), "f32")
+    wire = ring_procs.wire_for(C, BFPConfig(codec="pallas"))
+    F = wire.frame_bytes
+    recv = check_forms(wire, "bfp")
+    opt = OptimizerConfig(kind="adamw", learning_rate=1e-2, weight_decay=0.01)
+    hyper = optim.fused_hyperparams(opt, 3, device=dev)
+    last_ms = cuda_ms(lambda: ring_procs.rs_hop(
+        x, recv, None, wire, n=world, last=True, w=w, state=st,
+        hyper=hyper, opt_kind="adamw"), 20, 3)
+    last_plain = cuda_ms(lambda: ring_procs.rs_hop_plain(
+        x, recv, None, wire, n=world, last=True, w=w, state=st,
+        hyper=hyper, opt_kind="adamw"), 3)
+    send = torch.empty(F, dtype=torch.uint8, device=dev)
+    slot = torch.empty_like(x)
+    rs_call = cuda_ms(lambda: ring_procs.rs_hop(x, recv, send, wire,
+                                                n=world), 20, 3)
+    rs_ms = device_ms(lambda: ring_procs.rs_hop(x, recv, send, wire,
+                                                n=world), 20,
+                      ("ring_hop_rs_kernel",))
+    rs_plain = cuda_ms(lambda: ring_procs.rs_hop_plain(
+        x, recv, send, wire, n=world), 3)
+    ag_call = cuda_ms(lambda: ring_procs.ag_hop(w, recv, send, slot, wire),
+                      20, 3)
+    ag_ms = device_ms(lambda: ring_procs.ag_hop(w, recv, send, slot, wire),
+                      20, ("ring_hop_ag_kernel",))
+    ag_plain = cuda_ms(lambda: ring_procs.ag_hop_plain(w, recv, send, slot,
+                                                       wire), 3)
+    out["ring_hop_rs"] = {
+        "max_abs_err": 0.0, "ms": rs_ms, "plain_ms": rs_plain,
+        "bound": bound(4 * C + 2 * F, HOP_OPS["rs"] * C),
+        "extra": {"shape": f"a middle hop: chunk C={C} of an [L={L}] row "
+                           f"over W={world}, frame {F} bytes",
+                  "ms_is": "device time", "call_ms": rs_call,
+                  "last_adamw_ms": last_ms, "last_adamw_plain_ms": last_plain,
+                  "last_adamw_bound_ms": bound(
+                      4 * C + F + 3 * 4 * C + 4 * C + 3 * 4 * C,
+                      (HOP_OPS["rs"] + 12) * C)[0]}}
+    out["ring_hop_ag"] = {
+        "max_abs_err": 0.0, "ms": ag_ms, "plain_ms": ag_plain,
+        "bound": bound(2 * F + 4 * C, HOP_OPS["ag"] * C),
+        "extra": {"shape": f"a forwarding hop: chunk C={C}, frame {F} "
+                           "bytes", "ms_is": "device time",
+                  "call_ms": ag_call}}
+    emit(phase="hop_kernel_checks", C=C, frame_bytes=F, bitexact=True,
+         wires=["f32", "bfp"],
+         **{k: {kk: vv for kk, vv in r.items()} for k, r in out.items()})
+    del x, recv, w, st, peer, send, slot
+    torch.cuda.empty_cache()
+    return out
+
+
+def procs_ring_path(dev, smi) -> dict:
+    """The data-parallel main path with its ranks as processes: first the
+    one-process ``DPTrainer(dp=4)`` on ``MLPConfig()`` (global batch 5376,
+    the BFP ring kernels, fused SGD) for ``PROCS_STEPS`` steps, each
+    rank's master and replica rows hashed; then ``PROCS_WORLD`` worker
+    processes on this card (``parallel.procs.spawn``, a gloo group, CUDA
+    IPC peer buffers, killed after ``PROCS_TIMEOUT_S``): the cross-process
+    reduce-scatter + update + all-gather on the full flat row under SGD
+    and AdamW, with BFP frames and with raw f32 frames, each rank's owned
+    chunk, masters, moments and replica bit-equal to the one-process route
+    on the stacked rows (the loopback kernels under BFP); then the same
+    steps of the cross-process ``DPTrainer``, every row's hash equal to
+    the one-process trainer's, one ``ring_hop_rs`` and one ``ring_hop_ag``
+    launch a hop (W of each a step in each process).  Step ms of both,
+    the ring's ms a collective pair."""
+    import torch
+    from fpga_ai_nic_tpu_torch.models import mlp
+    from fpga_ai_nic_tpu_torch.parallel import procs
+    from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+    from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
+    from fpga_ai_nic_tpu_torch.utils.config import (MeshConfig, MLPConfig,
+                                                    TrainConfig)
+    W = PROCS_WORLD
+    spec = dict(PROCS_SPEC, L=procs_row(), device=dev.type)
+    mcfg = MLPConfig(layer_sizes=spec["layer_sizes"])
+    cfg = TrainConfig(global_batch=spec["global_batch"],
+                      mesh=MeshConfig(dp=W), collective=procs._coll(spec),
+                      optimizer=procs._opt(spec["opt"], spec["lr"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = DPTrainer(lambda p, b: mlp.loss_fn(p, b, mcfg), VirtualRanks(W, dev),
+                   cfg)
+    state = tr.init_state(mlp.init(torch.Generator().manual_seed(
+        spec["seed"]), mcfg, dev))
+    if state.replicas.shape[1] != spec["L"]:
+        raise AssertionError(f"padded row {state.replicas.shape[1]} != "
+                             f"{spec['L']}")
+    batch = tr.shard_batch(procs.global_batch(spec, dev))
+    ref = {"losses": [], "w_own": [], "replicas": [], "step_ms": []}
+    for _ in range(PROCS_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, loss = tr.step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ref["step_ms"].append(start.elapsed_time(end))
+        ref["losses"].append(float(loss))
+        ref["w_own"].append([procs.digest(state.w_own[r]) for r in range(W)])
+        ref["replicas"].append([procs.digest(state.replicas[r])
+                                for r in range(W)])
+    del tr, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = procs.spawn(procs.ring_and_steps, W, (spec,),
+                      timeout=PROCS_TIMEOUT_S, env=PROCS_ENV)
+    wall = time.perf_counter() - t0
+    per_step = {"ring_hop_rs": W * PROCS_STEPS, "ring_hop_ag": W * PROCS_STEPS}
+    checks = {
+        "ring_bitequal": all(all(r["ring"]["equal"].values()) for r in res),
+        "masters_bitequal": all(r["w_own"] == [d[i] for d in ref["w_own"]]
+                                for i, r in enumerate(res)),
+        "replicas_bitequal": all(
+            r["replica"] == [d[i] for d in ref["replicas"]]
+            for i, r in enumerate(res)),
+        "losses_equal": all(r["losses"] == ref["losses"] for r in res),
+        "launches": all(r["launches"] == per_step for r in res),
+        "devices": [r["device"] for r in res]}
+    checks["devices"] = all(d.startswith("cuda") for d in checks["devices"])
+    emit(phase="procs_ring_path", world=W, row=spec["L"],
+         model="MLP 10x2048x2048 f32", global_batch=spec["global_batch"],
+         steps=PROCS_STEPS, devices=[r["device"] for r in res],
+         spawn_wall_s=wall, ring_ms={k: [r["ring"]["ms"][k] for r in res]
+                                     for k in res[0]["ring"]["ms"]},
+         step_ms=[r["step_ms"] for r in res], one_process_step_ms=ref[
+             "step_ms"], median_step_ms=_median(res[0]["step_ms"][1:]),
+         one_process_median_step_ms=_median(ref["step_ms"][1:]),
+         losses=ref["losses"], launches=res[0]["launches"], checks=checks,
+         card=smi)
+    if not all(checks.values()):
+        raise AssertionError(f"procs_ring_path: {checks}")
+    return {"launches": res[0]["launches"], "steps": PROCS_STEPS,
+            "median_step_ms": _median(res[0]["step_ms"][1:]),
+            "one_process_median_step_ms": _median(ref["step_ms"][1:])}
+
+
 def main() -> int:
     # the Llama training phase holds about 60 GB at its peak and frees and
     # reallocates 7-15 GB buffers every step; growable segments keep the
@@ -8613,10 +9026,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 53. the ring across processes: the hop kernels, the MLP path ------
+    hops = hop_kernel_checks(dev, procs_row(), PROCS_WORLD)
+    procs_run = procs_ring_path(dev, smi)
+
     # -- 6. the int8 codec path and the convergence eval ---------------------------
     int8_launches = int8_train_path(dev, kernels, sgd, bx, by)
     del bx, by
     codec_convergence(dev)
+    eval_bfp_path(dev)
 
     # -- 7-8. the serving path, its profile and its parity ------------------------
     flash_kernels = {"flash_fwd": flash_attention.FLASH_FWD,
@@ -8671,6 +9089,9 @@ def main() -> int:
         flash_fwd_generic=flash_attention.FLASH_FWD_GENERIC,
         flash_dq_generic=flash_attention.FLASH_DQ_GENERIC,
         flash_dkv_generic=flash_attention.FLASH_DKV_GENERIC)
+    # -- 50-51. --data= with sp and MoE; the explicit-gradient hook --------
+    data_axes = llama_data_axes_path(dev, sp_kernels)
+    explicit_grads_path(dev, kernels)
     sp_run = llama_sp_train_path(dev, sp_kernels)
     llama_sp_parity(dev, sp_run)
     remat_run = llama_sp_train_path(dev, sp_kernels, remat=True)
@@ -8796,7 +9217,24 @@ def main() -> int:
                         REF + "/compress/int8.py:148"),
         "row_checksums": (PORT + "/csrc/checksum.cu",
                           REF + "/ops/integrity.py:163"),
+        "ring_hop_rs": (PORT + "/csrc/ring_hop.cu",
+                        REF + "/ops/ring_pallas.py:777"),
+        "ring_hop_ag": (PORT + "/csrc/ring_hop.cu",
+                        REF + "/ops/ring_pallas.py:1301"),
     }
+    procs_from = (f"procs_ring_path ({PROCS_WORLD} processes, "
+                  f"{procs_run['steps']} steps of DPTrainer on MLPConfig(): "
+                  f"{PROCS_WORLD} launches a step in each process; rank 0's "
+                  "count)")
+    for name in ("ring_hop_rs", "ring_hop_ag"):
+        results[name] = hops[name]
+        launches[name] = procs_run["launches"][name]
+        results[name]["extra"].update(
+            launches_from=procs_from, library=None,
+            library_none=("no PyTorch call computes a BFP ring hop with "
+                          "the fused update"),
+            step_ms=procs_run["median_step_ms"],
+            one_process_step_ms=procs_run["one_process_median_step_ms"])
     launches["paged_attend"] = run["launches"]["paged_attend"]
     for name in flash_kernels:
         launches[name] = train["launches"][name]
@@ -8890,7 +9328,9 @@ def main() -> int:
         "ms": dec_row["ms"], "plain_ms": dec_row["plain_ms"],
         "bound": dec_row["bound"], "library_ms": dec_row["library_ms"]}
     also = {"ring_rs_update": REF + "/ops/ring_pallas.py:397",
-            "ring_ag": REF + "/ops/ring_pallas.py:1144"}
+            "ring_ag": REF + "/ops/ring_pallas.py:1144",
+            "ring_hop_rs": REF + "/ops/ring_pallas.py:397",
+            "ring_hop_ag": REF + "/ops/ring_pallas.py:1144"}
     out = []
     pp_axes_from = {
         "pp_sp": (f"llama_pp_sp_train_path ({pp_sp_runs['gpipe']['steps']} "
@@ -9017,6 +9457,11 @@ def main() -> int:
             codec_auto_launches_from=new_from["codec_auto"])
     for name in flash_kernels:
         results[name]["extra"].update(
+            data_axes_launches={k: r["launches"].get(name, 0)
+                                for k, r in data_axes.items()},
+            data_axes_launches_from=("llama_data_axes_path (2 steps each: "
+                                     "Llama-3-8B width dp=2 x sp=2, "
+                                     "Mixtral-8x7B width dp=2 x ep=2)"),
             accum_llama_launches={a: r[name]
                                   for a, r in accum_llama.items()},
             accum_llama_launches_from=new_from["accum_llama"],

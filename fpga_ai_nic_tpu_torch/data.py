@@ -21,7 +21,7 @@ from typing import Any, Callable, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .parallel.mesh import VirtualRanks
+from .parallel.mesh import CountedBatch, VirtualRanks
 
 
 class ShardedLoader:
@@ -41,9 +41,10 @@ class ShardedLoader:
              ) -> Tuple[torch.Tensor, ...]:
         if self._ranks.device.type != "cuda":
             return self._ranks.shard_batch(batch)
-        return self._ranks.shard_batch(tuple(
-            x.pin_memory().to(self._ranks.device, non_blocking=True)
-            for x in batch))
+        moved = tuple(x.pin_memory().to(self._ranks.device,
+                                        non_blocking=True) for x in batch)
+        return self._ranks.shard_batch(CountedBatch(moved) if isinstance(
+            batch, CountedBatch) else moved)
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, ...]]:
         window: deque = deque()

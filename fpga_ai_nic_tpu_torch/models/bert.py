@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from ..device import DeviceLike, resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.ring_attention import pallas_route
+from ..parallel.mesh import CountedBatch
 
 Params = Dict[str, Any]
 _NEG = -1e30
@@ -192,26 +193,30 @@ def apply(params: Params, tokens: torch.Tensor, cfg: BertConfig,
 
 
 def with_global_count(batch: Tuple[torch.Tensor, ...], n: int,
-                      accum_steps: int = 1) -> Tuple[torch.Tensor, ...]:
+                      accum_steps: int = 1, ep: int = 1
+                      ) -> Tuple[torch.Tensor, ...]:
     """``(tokens, labels)`` of a global batch -> ``(tokens, labels,
-    count)``: ``count`` is an int64 [n] tensor, every entry the global
+    count)``, a ``CountedBatch``: ``count`` is an int64 [n] tensor, every entry the global
     number of targets (labels >= 0), so each of the n ranks' shards
     carries it.  With ``accum_steps`` = a > 1 it is ``[n a]``: rank i's
     a entries the counts of the a microbatches (``parallel.accum``:
     microbatch k is rows ``k m .. (k + 1) m - 1`` of every rank's shard),
     each over all n ranks, as JAX psums the count inside each
-    microbatch."""
+    microbatch.  ``ep``: each dp rank's rows split over its ep ranks
+    first (JAX's ``P((dp, ep))``), so microbatch k takes the k-th part of
+    every (dp, ep) rank's rows; the count stays one a dp rank and
+    microbatch (``VirtualRanks.shard_count`` replicates it over ep)."""
     tokens, labels = batch
     if accum_steps == 1:
         count = (labels >= 0).sum().reshape(1).to(torch.int64)
-        return tokens, labels, count.expand(n).contiguous()
-    if labels.shape[0] % (n * accum_steps):
+        return CountedBatch((tokens, labels, count.expand(n).contiguous()))
+    if labels.shape[0] % (n * ep * accum_steps):
         raise ValueError(f"a global batch of {labels.shape[0]} does not "
-                         f"split into {n} ranks x {accum_steps} "
+                         f"split into {n * ep} ranks x {accum_steps} "
                          "microbatches")
-    counts = (labels >= 0).reshape(n, accum_steps, -1).sum(
+    counts = (labels >= 0).reshape(n * ep, accum_steps, -1).sum(
         dim=(0, 2)).to(torch.int64)
-    return tokens, labels, counts.repeat(n)
+    return CountedBatch((tokens, labels, counts.repeat(n)))
 
 
 def loss_fn(params: Params, batch, cfg: BertConfig, *,

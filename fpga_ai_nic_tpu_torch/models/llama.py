@@ -835,13 +835,19 @@ def dp_loss_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1, *,
     n_dp times the unsharded one (the CE through each rank's own tokens,
     the aux once), which the trainer's ep sum of the replicated leaves
     and its dp average (sum / n_dp) turn into the single-device
-    gradient."""
+    gradient.
+
+    A batch with a third leaf, the global label count of each microbatch
+    (``models.bert.with_global_count``, ``[n_dp, (n_ep,) a]`` as
+    ``VirtualRanks.shard_count`` lays it), divides by that count
+    (``_joint_denom``); the ranks of one call pool the same labels, so
+    the value and the bits are those of the pooled count."""
     n = n_dp * n_ep
     sp_axis = "sp" if n_sp > 1 else None
     lead = (n_dp, n_ep) + ((n_sp,) if n_sp > 1 else ())
 
     def loss(params_per_rank, batch):
-        toks, labels = (b.reshape(*lead, *b.shape[-2:]) for b in batch)
+        toks, labels = (b.reshape(*lead, *b.shape[-2:]) for b in batch[:2])
         if tp_axis is not None:
             groups = [[[p[e * n_dp + d] for p in params_per_rank]
                        for e in range(n_ep)] for d in range(n_dp)]
@@ -856,8 +862,7 @@ def dp_loss_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1, *,
             sums.append(nll.reshape(n_ep, -1).sum(dim=1))
             counts.append(valid.reshape(n_ep, -1).sum(dim=1))
         local = torch.stack(sums, dim=1).reshape(n)       # [ep, dp] order
-        denom = torch.clamp(torch.stack(counts, dim=1).reshape(n).sum(),
-                            min=1).to(torch.float32)
+        denom = _joint_denom(batch, torch.stack(counts).sum())
         ce = (local.sum() / denom).detach() + n_dp * (
             local - local.detach()) / denom
         aux = _aux(layer_parts, cfg, local.device)
@@ -915,6 +920,14 @@ def stacked_param_specs(cfg: LlamaConfig, ep_axis: Optional[str] = None,
             "layers": {k: ({kk: one(vv) for kk, vv in v.items()}
                            if isinstance(v, dict) else one(v))
                        for k, v in base["layers"][0].items()}}
+
+
+def _joint_denom(batch, pooled: torch.Tensor) -> torch.Tensor:
+    """The CE denominator of a loss over every rank at once: the global
+    label count the batch carries as its third leaf (every entry of a
+    microbatch the same), else the labels the call pools."""
+    count = batch[2].reshape(-1)[0] if len(batch) == 3 else pooled
+    return torch.clamp(count, min=1).to(torch.float32)
 
 
 def _check_pp(dp_axis: Optional[str] = None) -> None:
@@ -1193,7 +1206,7 @@ def pp_dp_loss_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1, *,
                                        num_microbatches, [n_ep] * n_dp,
                                        sp_axis, sp_attn, remat)
         local = torch.stack([local[i] for i in inv])     # row order
-        denom = torch.clamp(counts.sum(), min=1).to(torch.float32)
+        denom = _joint_denom(batch, counts.sum())
         ce = (local.sum() / denom).detach() + n_dp * (
             local - local.detach()) / denom
         return ce + aux.detach() + n_dp * (aux - aux.detach()) / n
@@ -1359,8 +1372,7 @@ def pp_dp_loss_and_grads_fn(cfg: LlamaConfig, n_dp: int, n_ep: int = 1, *,
         stages = [[st[r] for r in order] for st in stage_trees]
         outs = None if out is None else [[os[r] for r in order]
                                          for os in out]
-        denom = torch.clamp(sum((lab >= 0).sum() for lab in labels),
-                            min=1).to(torch.float32)
+        denom = _joint_denom(batch, sum((lab >= 0).sum() for lab in labels))
         nll_sum, aux, grads = _pp_1f1b(
             stages, toks, labels, cfg, num_microbatches, virtual_stages,
             [n_ep] * n_dp, sp_axis, remat, n_dp, denom, float(n_dp), outs)

@@ -31,10 +31,10 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-HEADERS = ("bfp.cuh", "hopper_mma.cuh", "attn_fwd.cuh")
+HEADERS = ("bfp.cuh", "hopper_mma.cuh", "attn_fwd.cuh", "ring_update.cuh")
 SOURCES = ("bfp_codec.cu", "ring_rs.cu", "ring_ag.cu", "paged_attend.cu",
            "flash_attn.cu", "flash_bwd.cu", "flash_generic.cu",
-           "int8_codec.cu", "checksum.cu")
+           "int8_codec.cu", "checksum.cu", "ring_hop.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-ftz=false", "-prec-div=true", "-prec-sqrt=true")

@@ -37,7 +37,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import accum
+from . import accum, multihost
 from .mesh import VirtualRanks
 from .train import rank_grads, refuse_fsdp, restored_tensor
 from .. import optim
@@ -64,6 +64,7 @@ class DDPTrainer:
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig):
         refuse_fsdp(cfg)
+        multihost.refuse_processes(type(self).__name__)
         if ranks.sp != 1:
             raise NotImplementedError(
                 f"sp={ranks.sp}: sequence parallelism runs on "

@@ -53,7 +53,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import accum
+from . import accum, multihost
 from .mesh import VirtualRanks
 from .train import codec_flags, rank_grads, restored_rows, static_metrics
 from .. import optim
@@ -114,6 +114,7 @@ class FSDPTrainer:
 
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig):
+        multihost.refuse_processes("FSDPTrainer")
         if (cfg.mesh.fsdp != ranks.n or cfg.mesh.nproc != ranks.n
                 or (ranks.sp, ranks.ep, ranks.pp) != (1, 1, 1)):
             raise ValueError(f"cfg.mesh ({cfg.mesh}) does not describe "

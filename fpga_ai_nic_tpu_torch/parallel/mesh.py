@@ -140,9 +140,37 @@ class VirtualRanks:
                          *x.shape[2:]).transpose(len(lead),
                                                  len(lead) + 1).contiguous()
 
+    def shard_count(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-rank count leaf, ``[n a]`` int64
+        (``models.bert.with_global_count``: dp rank i's a entries, the
+        global label count of each microbatch) -> ``[n, a]``, or ``[n, ep,
+        a]`` with ep: it replicates over the ep ranks and the sp shards of
+        its dp rank, as JAX's psum of the count over the batch axes leaves
+        the same global count on every device, while each shard's labels
+        are still counted against it."""
+        if x.shape[0] % self.n:
+            raise ValueError(f"a count leaf of {x.shape[0]} entries does "
+                             f"not split over {self.n} dp ranks")
+        x = x.to(self.device).reshape(self.n, -1)
+        if self.ep > 1:
+            x = x[:, None].expand(self.n, self.ep, x.shape[1]).contiguous()
+        return x
+
     def shard_batch(self, batch: Sequence[torch.Tensor]
                     ) -> Tuple[torch.Tensor, ...]:
+        """Each leaf through ``shard``, the last leaf of a
+        ``CountedBatch`` through ``shard_count``."""
+        if isinstance(batch, CountedBatch):
+            *leaves, count = batch
+            return tuple(self.shard(x) for x in leaves) + (
+                self.shard_count(count),)
         return tuple(self.shard(x) for x in batch)
+
+
+class CountedBatch(tuple):
+    """A global batch whose last leaf is its per-rank label count
+    (``models.bert.with_global_count``), which ``shard_batch`` lays out by
+    ``shard_count``: that leaf has no rows of its own to split."""
 
 
 def make_ranks(cfg: MeshConfig, device: DeviceLike = "cuda"

@@ -14,8 +14,12 @@
   virtual ranks take the rows it loaded.
 - ``barrier()``: every process arrives before any leaves.
 
-The port's trainers run their ranks as virtual ranks of one process (one
-card); ROADMAP A.11 carries the rings across cards.
+``DPTrainer`` spans processes (one rank a process, ``ops.ring_procs``:
+the fused BFP ring over CUDA IPC peer buffers on one node, gloo sends for
+CPU rows); the other trainers run their ranks as virtual ranks of one
+process and refuse a process group of more than one (``refuse_processes``,
+ROADMAP A.11).  The group is gloo: it carries control (barriers, IPC
+handles, the loss) and the CPU rows' frames; NCCL is not used.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["initialize", "process_info", "local_batch_to_global",
-           "barrier"]
+           "barrier", "world_size", "process_index", "refuse_processes"]
 
 _initialized = False
 
@@ -39,7 +43,7 @@ def initialize(coordinator_address: Optional[str] = None,
     the argument, else torchrun's environment (``MASTER_ADDR`` and
     ``MASTER_PORT`` as ``tcp://addr:port``, ``WORLD_SIZE``, ``RANK``).  No
     coordinator and at most one process: nothing to coordinate, a no-op.
-    The backend is NCCL where CUDA is available, else gloo."""
+    The backend is gloo (the module docstring)."""
     global _initialized
     if _initialized or (dist.is_available() and dist.is_initialized()):
         _initialized = True
@@ -60,9 +64,8 @@ def initialize(coordinator_address: Optional[str] = None,
             f"rank (got {coord!r}, {nproc!r}, {pid!r})")
     if not coord.startswith(("tcp://", "file://", "env://")):
         coord = f"tcp://{coord}"
-    dist.init_process_group(
-        "nccl" if torch.cuda.is_available() else "gloo",
-        init_method=coord, world_size=nproc, rank=pid)
+    dist.init_process_group("gloo", init_method=coord, world_size=nproc,
+                            rank=pid)
     _initialized = True
 
 
@@ -81,12 +84,34 @@ def process_info() -> dict:
             "global_devices": local * nproc}
 
 
+def world_size() -> int:
+    """The processes of the group (1 without one)."""
+    return dist.get_world_size() if _group() else 1
+
+
+def process_index() -> int:
+    return dist.get_rank() if _group() else 0
+
+
+def refuse_processes(what: str) -> None:
+    """Raise for ``what`` under a group of more than one process."""
+    if world_size() > 1:
+        raise NotImplementedError(
+            f"{what} across processes is not ported (ROADMAP A.11): "
+            "DPTrainer spans processes with BFP (sublane) or no codec "
+            "and a fused optimizer; "
+            "here run one process with virtual ranks")
+
+
 def local_batch_to_global(batch: Any, trainer: Any) -> Any:
     """The trainer's sharded batch from this process's rows: with one
     process ``trainer.shard_batch(batch)``.  With several, the process's
-    rows are its share of the global batch in rank order, and its virtual
-    ranks shard them: each process holds the ranks that consume its
-    rows, so no process ever holds the whole batch."""
+    rows are its share of the global batch in rank order (process i the
+    rows rank i takes), the one rank it holds their only shard: no
+    process ever holds the whole batch."""
+    if getattr(trainer, "world", 1) > 1:
+        from .mesh import VirtualRanks
+        return VirtualRanks(1, trainer.ranks.device).shard_batch(batch)
     return trainer.shard_batch(batch)
 
 

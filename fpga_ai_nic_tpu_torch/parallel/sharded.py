@@ -54,7 +54,11 @@ the stages (the embedding's come from stage 0, the head's from the
 last: JAX's psum over pp).  ``loss_and_grads_fn(stage_params, batch,
 out=...) -> (loss, grads)`` (the 1F1B schedules,
 ``llama.loss_and_grads_pp_1f1b``) writes its gradients, the replicated
-leaves' already summed, into ``out``, the stages' f32 rows.  The dp
+leaves' already summed, into ``out``, the stages' f32 rows.  At pp = 1
+(and tp = 1) ``loss_and_grads_fn(params, batch) -> (loss, grads)`` is
+JAX's explicit-gradient hook: called a dp rank at a time (or once over
+every rank, marked ``joint_ranks``) where autograd would run, its
+gradient trees copied into the rows; the rest of the step is unchanged.  The dp
 phases then run within each stage group, as within an ep group;
 ``clip_norm`` counts a replicated leaf 1/pp a copy.
 
@@ -124,7 +128,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from . import accum
+from . import accum, multihost
 from .mesh import VirtualRanks, spec_dims
 from .train import (DPTrainer, Params, TrainState, _rank_leaves,
                     refuse_fsdp, restored_tensor)
@@ -243,6 +247,7 @@ class ShardedTrainer(DPTrainer):
     def __init__(self, loss_fn: Optional[Callable], ranks: VirtualRanks,
                  cfg: TrainConfig, *, param_specs: Any = None,
                  loss_and_grads_fn: Optional[Callable] = None):
+        multihost.refuse_processes("ShardedTrainer")
         if loss_and_grads_fn is not None and cfg.accum_steps > 1:
             raise ValueError(
                 "loss_and_grads_fn (explicit-gradient schedule) does not "
@@ -254,10 +259,6 @@ class ShardedTrainer(DPTrainer):
                 "codec='auto' resolves on DPTrainer, DDPTrainer and "
                 "FSDPTrainer, as in the JAX package: ShardedTrainer takes a "
                 "concrete codec")
-        if loss_and_grads_fn is not None and ranks.pp == 1:
-            raise NotImplementedError(
-                "loss_and_grads_fn without pp is not ported: the port's "
-                "takes the pp stages (the 1F1B schedules, pp > 1)")
         if cfg.collective.integrity_check:
             raise ValueError(
                 "integrity_check is implemented on DPTrainer only (both "
@@ -420,6 +421,8 @@ class ShardedTrainer(DPTrainer):
             flat_g, loss = accum.accumulate(
                 lambda mb, into: self._shard_grads(state, mb, into), batch,
                 self.cfg.accum_steps, self._lead)
+        elif self.loss_and_grads_fn is not None:
+            flat_g, loss = self._explicit_grads(state, batch)
         else:
             flat_g, loss = super().grads(state, batch)
         if self.n_shards > 1:
@@ -442,6 +445,40 @@ class ShardedTrainer(DPTrainer):
                             len(names)))][:, a:b])
                     _sum_into_all(views)
         return flat_g, loss
+
+    def _explicit_grads(self, state: TrainState, batch
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pp = tp = 1 with ``loss_and_grads_fn``: ``(flat_g [n_ep n_dp,
+        L_pad] f32, mean loss)``, the function called where
+        ``per_rank_grads`` / ``joint_grads`` would run autograd, JAX's
+        ``loss_and_grads_fn(params, batch) -> (loss, grads)``: a rank at a
+        time with its own tree (working weights, detached) and batch
+        shard, or, marked ``joint_ranks``, once over every rank's tree
+        and the whole batch, ``(losses [n], grads a tree a rank)``.  Each
+        rank's gradient tree is copied into its row; ``grads`` then takes
+        the ep sums as for autograd's."""
+        meta = self._meta
+        if meta is None:
+            raise RuntimeError("call init_state first")
+        reps, side = state.replicas, state.side
+        n = reps.shape[0]
+        trees = [fused_update.unflatten_tree(
+            reps[i], meta, None if side is None else side[i])
+            for i in range(n)]
+        flat_g = torch.empty((n, meta.padded_len), dtype=torch.float32,
+                             device=reps.device)
+        fn = self.loss_and_grads_fn
+        if getattr(fn, "joint_ranks", False):
+            losses, grads = fn(trees, batch)
+            for i, g in enumerate(grads):
+                fused_update.flatten_tree(g, meta, out=flat_g[i])
+            return flat_g, losses.detach().mean()
+        losses = []
+        for i, tree in enumerate(trees):
+            loss, g = fn(tree, tuple(b[i] for b in batch))
+            fused_update.flatten_tree(g, meta, out=flat_g[i])
+            losses.append(loss.detach())
+        return flat_g, torch.stack(losses).mean()
 
     def _grad_tree(self, row: torch.Tensor) -> Params:
         """A flat f32 gradient row as a tree of views, one a leaf."""

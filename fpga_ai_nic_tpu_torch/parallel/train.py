@@ -30,6 +30,23 @@ can run the same compensated gradients through another collective
 (``chip_smoke.py`` does).  Nothing is updated in place: a step returns a
 new TrainState.
 
+With a process group of W > 1 processes (``parallel.multihost``) the
+trainer spans them, one rank a process, as the JAX ``DPTrainer`` runs over
+the global devices after ``multihost.initialize()``: ``cfg.mesh.dp`` must
+be W, the state holds this rank's rows (a ``[1, L_pad]`` replica, ``[1,
+C]`` master and moment shards), the batch is this process's rows
+(``multihost.local_batch_to_global``), its forward and backward are the
+one-process loop's for that rank, phase 1 and phase 2 run over
+``ops.ring_procs`` (the ``csrc/ring_hop.cu`` kernels writing into the
+neighbours' CUDA IPC buffers, or gloo sends for CPU rows), and the loss is
+the mean of every process's.  It takes BFP in the sublane layout or no
+codec, with each fused optimizer (``fused_optimizer=True``); the
+unfused update, int8, top-k, error feedback, ``integrity_check``,
+``accum_steps > 1``, a ``joint_ranks`` loss (sync-BN), ``clip_norm``,
+the step metrics, a restore and a reshard raise ``NotImplementedError``
+naming ROADMAP A.11 there, as do the other trainers.  One process is
+unchanged.
+
 ``CollectiveConfig(integrity_check=True)`` guards the collective with two
 tiers (``runtime.chaos``): the value tier (chunk sums against the input's,
 within ``integrity_tol``, and non-finite counts) and the exact tier
@@ -50,14 +67,14 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from . import accum
+from . import accum, multihost
 from .mesh import VirtualRanks
 from .. import optim
 from ..compress import Codec
 from ..obs import metrics as obs_metrics
-from ..ops import fused_update, ring_hier
+from ..ops import fused_update, ring_hier, ring_procs
 from ..runtime import chaos
-from ..utils.config import CollectiveConfig, TrainConfig
+from ..utils.config import CollectiveConfig, OptimizerSpec, TrainConfig
 
 Params = Any
 
@@ -280,6 +297,95 @@ class DPTrainer:
         # ep layout's tables (ShardedTrainer), None where every master
         # row holds distinct elements
         self._norm_weights = None
+        # processes the ranks span, this one's rank, and its ring
+        # (ops.ring_procs, opened at init_state) when there are several
+        self.world = multihost.world_size()
+        self.rank = multihost.process_index() if self.world > 1 else 0
+        self._ring: Optional[ring_procs.ProcRing] = None
+        if self.world > 1:
+            self._check_processes()
+
+    # -- across processes -----------------------------------------------------
+
+    def _check_processes(self) -> None:
+        """What the cross-process ring takes (the class docstring)."""
+        cfg, coll = self.cfg, self.cfg.collective
+        if cfg.mesh.dp != self.world:
+            raise ValueError(f"cfg.mesh.dp={cfg.mesh.dp} under a process "
+                             f"group of {self.world}: one rank a process")
+
+        refuse = multihost.refuse_processes
+        if coll.impl != "ring" or coll.topology != "flat":
+            refuse(f"impl={coll.impl!r}, topology={coll.topology!r} (the "
+                   "flat explicit ring only)")
+        codec = self._codec
+        if codec is None and coll.codec is not None:
+            refuse(f"codec={coll.codec!r}")
+        if codec is not None and (codec.name != "bfp" or self._ef):
+            refuse(f"the {codec.name} codec"
+                   + (" with error feedback" if self._ef else ""))
+        if codec is not None and not (coll.fused_kernel
+                                      or codec.cfg.codec == "pallas"):
+            refuse("BFP in the flat16 layout")
+        for flag, what in ((not coll.fused_optimizer,
+                            "fused_optimizer=False (the update runs on the "
+                            "ring's last hop)"),
+                           (coll.integrity_check, "integrity_check"),
+                           (cfg.accum_steps > 1, "accum_steps > 1"),
+                           (getattr(self.loss_fn, "joint_ranks", False),
+                            "a joint_ranks loss (sync-BN)"),
+                           (cfg.optimizer.clip_norm is not None,
+                            "clip_norm"),
+                           (cfg.obs_metrics, "obs_metrics")):
+            if flag:
+                refuse(what)
+
+    def _proc_initial(self, w_own: torch.Tensor,
+                      opt_state: optim.OptState) -> TrainState:
+        """``_initial`` of this process's rank: the replica the masters as
+        they are, its own master and moment rows, its ring opened."""
+        replicas, side = self._working(w_own.reshape(1, -1))
+        r = slice(self.rank, self.rank + 1)
+        w_row = w_own[r].clone()
+        opt_rows = {k: v[r].clone() for k, v in opt_state.items()}
+        del w_own, opt_state
+        if self._ring is None:
+            codec = self._codec
+            self._ring = ring_procs.open_ring(
+                self.rank, self.world, w_row.shape[1],
+                None if codec is None else codec.cfg, w_row.device)
+        return TrainState(self._rank0(replicas, side), replicas, w_row,
+                          opt_rows, 0, None, side)
+
+    def _proc_mean(self, loss: torch.Tensor) -> torch.Tensor:
+        """The mean of every process's loss (the one-process trainer's
+        mean over its ranks), gathered over the gloo group."""
+        import torch.distributed as dist
+        mine = loss.detach().reshape(1).to("cpu", torch.float32)
+        parts = [torch.empty_like(mine) for _ in range(self.world)]
+        dist.all_gather(parts, mine)
+        return torch.cat(parts).to(loss.device).mean()
+
+    def _proc_apply(self, state: TrainState, flat_g: torch.Tensor
+                    ) -> TrainState:
+        """Phase 1 over the cross-process ring, the fused update on the
+        owned shard at its last hop; then phase 2."""
+        opt_cfg = self.cfg.optimizer
+        spec = OptimizerSpec.from_optimizer(opt_cfg)
+        hyper = optim.fused_hyperparams(opt_cfg, state.step,
+                                        device=flat_g.device)
+        _, w_new, st = self._ring.reduce_scatter_update(
+            flat_g[0], state.w_own[0],
+            {k: v[0] for k, v in state.opt_state.items()}, hyper, spec.kind)
+        return self._gather(w_new[None], {k: v[None] for k, v in st.items()},
+                            state.step + 1)
+
+    def close(self) -> None:
+        """Release the cross-process ring's buffers (every process calls
+        it; a no-op in one process)."""
+        if self._ring is not None:
+            self._ring.close()
+            self._ring = None
 
     def _resolve_auto(self, params_like) -> None:
         """The one resolution of a ``codec="auto"`` template (a no-op
@@ -317,6 +423,8 @@ class DPTrainer:
         w_own, opt_state, meta = fused_update.init_master_shard(
             params, coll, opt_cfg, self.n)
         self._meta = meta
+        if self.world > 1:
+            return self._proc_initial(w_own, opt_state)
         return self._initial(w_own, opt_state, self._init_codec_state())
 
     def _initial(self, w_own: torch.Tensor, opt_state: optim.OptState,
@@ -363,8 +471,12 @@ class DPTrainer:
                                       self.ranks.device)
 
     def shard_batch(self, batch) -> Tuple[torch.Tensor, ...]:
-        """[B, ...] host tensors -> [n, B/n, ...] on the ranks' device."""
-        return self.ranks.shard_batch(batch)
+        """[B, ...] host tensors -> [n, B/n, ...] on the ranks' device;
+        across processes this process's rank's rows, [1, B/n, ...]."""
+        out = self.ranks.shard_batch(batch)
+        if self.world > 1:
+            return tuple(x[self.rank:self.rank + 1] for x in out)
+        return out
 
     # -- step -----------------------------------------------------------------
 
@@ -384,8 +496,11 @@ class DPTrainer:
                                       mb, write, side=state.side)
             return (into if flat_g is None else flat_g), loss
 
-        return accum.accumulate(one, batch, self.cfg.accum_steps,
-                                self._lead)
+        flat_g, loss = accum.accumulate(one, batch, self.cfg.accum_steps,
+                                        self._lead)
+        if self.world > 1:
+            loss = self._proc_mean(loss)
+        return flat_g, loss
 
     def error_feedback(self, state: TrainState, flat_g: torch.Tensor
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -408,6 +523,8 @@ class DPTrainer:
         ``metrics`` (a dict, ``obs_metrics``) receives the pre-clip
         ``grad_norm`` of the reduced gradient (and ``integrity_err`` on
         the unfused route with integrity on)."""
+        if self.world > 1:
+            return self._proc_apply(state, flat_g)
         coll = self.cfg.collective
         if codec_state is None:
             codec_state = state.codec_state
@@ -498,8 +615,11 @@ class DPTrainer:
                 diag: Optional[dict] = None):
         """Phase 2; with ``diag``, its verdict is ANDed into ``wire_ok``
         and ``(state, diag)`` returned."""
-        gathered = fused_update.all_gather_flat(
-            w_new, self.cfg.collective, integrity=diag is not None)
+        if self.world > 1:
+            gathered = self._ring.all_gather(w_new[0])[None]
+        else:
+            gathered = fused_update.all_gather_flat(
+                w_new, self.cfg.collective, integrity=diag is not None)
         if diag is not None:
             gathered, ag_ok = gathered
             diag = dict(diag, wire_ok=diag["wire_ok"] & ag_ok)
@@ -562,6 +682,7 @@ class DPTrainer:
         gather phase."""
         if self._meta is None:
             raise RuntimeError("call init_state first")
+        multihost.refuse_processes("params_from_master")
         replicas = fused_update.all_gather_flat(w_own, self.cfg.collective)
         return self._rank0(*self._working(replicas[:1]))
 
@@ -575,6 +696,7 @@ class DPTrainer:
         phase (at step 0 laid as ``init_state`` lays them: ``_landed``),
         and the error-feedback residual restarts at zero, as in the JAX
         package."""
+        multihost.refuse_processes("restore_state")
         if params_like is not None:
             self._ensure_meta(params_like)
         if self._meta is None:
@@ -597,6 +719,7 @@ class DPTrainer:
         router's side rows have no reshard (JAX's trainers hold no side
         leaves), so a state with them is refused."""
         from . import reshard as reshard_lib
+        multihost.refuse_processes("a reshard")
         if state.side is not None:
             raise ValueError(
                 "reshard moves the flat masters only: this state holds "

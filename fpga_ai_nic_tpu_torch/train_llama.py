@@ -76,7 +76,10 @@ them, or with ``--data=PATH`` (a text file, or a directory of ``*.txt``)
 it.  Those labels mask document starts with -100, so each batch carries
 the global valid count, one a microbatch
 (``models.bert.with_global_count``), and the loss takes ``dp_size=n``:
-JAX's ``dp_axis`` weighting (dense models without sp).  The first step is
+JAX's ``dp_axis`` weighting.  With sp the count replicates over a dp
+rank's sequence shards (``VirtualRanks.shard_count``), each shard's labels
+summed against it; a MoE model's joint loss (``llama.dp_loss_fn``, the
+pp forms too) divides its pooled CE by it.  The first step is
 a warm-up outside the timed window.  The ranks of ``--mesh.dp`` and ``--mesh.sp``
 are virtual ranks on one card: with sp > 1 each dp rank's loss runs over
 its sp sequence shards (``llama.loss_fn(..., sp_axis="sp")``, ring
@@ -248,7 +251,7 @@ def text_batches(path: str, mcfg: LlamaConfig, cfg: TrainConfig, seq: int,
     for toks, labels in itertools.islice(stream, count):
         yield bert.with_global_count(
             (torch.from_numpy(toks), torch.from_numpy(labels)),
-            cfg.mesh.dp, cfg.accum_steps)
+            cfg.mesh.dp, cfg.accum_steps, cfg.mesh.ep)
 
 
 def remat_flag(argv: Sequence[str]) -> bool:
@@ -284,12 +287,6 @@ def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str,
     ``pipe``: the pipeline flags; ``dp_size``: the dense loss's global
     count weighting (batches carrying the count)."""
     ranks = make_ranks(cfg.mesh, device)
-    if dp_size is not None and (mcfg.moe is not None or ranks.sp > 1):
-        raise NotImplementedError(
-            "the global-count batches (--data=) train dense models "
-            "without sp: the count leaf has no sequence axis to shard, "
-            "and a MoE model's ranks pool their statistics "
-            "(llama.dp_loss_fn)")
     gen = torch.Generator(device=ranks.device).manual_seed(cfg.seed)
     if ranks.pp > 1:
         tr = _pp_trainer(mcfg, cfg, ranks, pipe, dp_size)

@@ -589,8 +589,9 @@ def test_train_llama_data_accum_on_cpu(tmp_path):
         train_llama.main(["--model=tiny", "--device=cpu", "--seq=32",
                           "--global_batch=8", "--mesh.dp=2", "--iters=1",
                           f"--data={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="without sp"):
-        train_llama.main(["--model=tiny", "--device=cpu", "--seq=256",
-                          "--model.vocab=384", "--global_batch=4",
-                          "--mesh.dp=2", "--mesh.sp=2", "--iters=1",
-                          f"--data={tmp_path}"])
+    # with sp the count replicates over the sequence shards
+    out = train_llama.main(["--model=tiny", "--device=cpu", "--seq=256",
+                            "--model.vocab=384", "--global_batch=4",
+                            "--mesh.dp=2", "--mesh.sp=2", "--iters=1",
+                            f"--data={tmp_path}"])
+    assert np.isfinite(out["losses"]).all() and len(out["losses"]) == 2

@@ -2057,3 +2057,43 @@ def test_bfp_ste_on_card(cuda_device):
     assert torch.equal(y.detach(), bfp.bfp_roundtrip(x.detach().cpu(),
                                                      BFPConfig()).cuda())
     assert torch.equal(x.grad, g_in)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [BFPConfig(codec="pallas"), None],
+                         ids=["bfp", "f32"])
+def test_hop_kernels_on_card(cuda_device, cfg):
+    """``csrc/ring_hop.cu`` against its plain versions: every launch form
+    of the cross-process ring's hops, bit for bit, one launch each."""
+    from fpga_ai_nic_tpu_torch.ops import ring_procs
+    C = 16 * 128 * 8
+    wire = ring_procs.wire_for(C, cfg)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x = _mixed(torch.randn(C, generator=g, device=cuda_device) * 3, 9)
+    recv = torch.empty(wire.frame_bytes, dtype=torch.uint8,
+                       device=cuda_device)
+    ring_procs.encode_frame(torch.randn(C, generator=g, device=cuda_device),
+                            wire, recv)
+    w = torch.randn(C, generator=g, device=cuda_device) * 0.1
+    st = {k: torch.rand(C, generator=g, device=cuda_device) for k in "mv"}
+    hyper = optim.fused_hyperparams(OptimizerConfig(kind="adamw"), 2,
+                                    device=cuda_device)
+    rs, ag = ring_procs.RING_HOP_RS, ring_procs.RING_HOP_AG
+    for rv in (None, recv):
+        a, b = (torch.empty_like(recv) for _ in range(2))
+        before = rs.launches
+        ring_procs.rs_hop(x, rv, a, wire, n=4)
+        assert rs.launches == before + 1
+        ring_procs.rs_hop_plain(x, rv, b, wire, n=4)
+        assert torch.equal(a, b)
+        sa, sb = torch.empty_like(x), torch.empty_like(x)
+        ring_procs.ag_hop(w, rv, a, sa, wire)
+        ring_procs.ag_hop_plain(w, rv, b, sb, wire)
+        assert torch.equal(a, b) and torch.equal(sa, sb)
+    got = ring_procs.rs_hop(x, recv, None, wire, n=4, last=True, w=w,
+                            state=st, hyper=hyper, opt_kind="adamw")
+    want = ring_procs.rs_hop_plain(x, recv, None, wire, n=4, last=True, w=w,
+                                   state=st, hyper=hyper, opt_kind="adamw")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert all(torch.equal(got[2][k], want[2][k]) for k in "mv")
+    assert ag.launches >= 2

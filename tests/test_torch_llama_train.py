@@ -269,10 +269,11 @@ def test_unported_options_raise():
         ShardedTrainer(lambda p, b: None, ranks, TrainConfig(
             mesh=MeshConfig(dp=2), collective=CollectiveConfig(
                 impl="ring", integrity_check=True)))
-    with pytest.raises(NotImplementedError, match="loss_and_grads_fn"):
-        ShardedTrainer(lambda p, b: None, ranks,
-                       TrainConfig(mesh=MeshConfig(dp=2)),
-                       loss_and_grads_fn=lambda p, b: None)
+    # loss_and_grads_fn without pp is ported
+    # (tests/test_torch_explicit_grads.py): the trainer builds
+    assert ShardedTrainer(None, ranks, TrainConfig(mesh=MeshConfig(dp=2)),
+                          loss_and_grads_fn=lambda p, b: None
+                          ).loss_and_grads_fn is not None
 
 
 class _F32ReplicaTrainer(ShardedTrainer):

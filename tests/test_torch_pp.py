@@ -760,9 +760,11 @@ def test_pp_refusals():
                        loss_and_grads_fn=lambda p, b: None)
     dp_cfg = TrainConfig(global_batch=8, mesh=MeshConfig(dp=2),
                          collective=CollectiveConfig(impl="xla"))
-    with pytest.raises(NotImplementedError, match="without pp"):
-        ShardedTrainer(None, make_ranks(dp_cfg.mesh, "cpu"), dp_cfg,
-                       loss_and_grads_fn=lambda p, b: None)
+    # without pp it is JAX's explicit-gradient hook
+    # (tests/test_torch_explicit_grads.py): the trainer builds
+    assert ShardedTrainer(None, make_ranks(dp_cfg.mesh, "cpu"), dp_cfg,
+                          loss_and_grads_fn=lambda p, b: None
+                          ).loss_and_grads_fn is not None
     pp_cfg = dataclasses.replace(dp_cfg, mesh=MeshConfig(dp=2, pp=2))
     with pytest.raises(ValueError, match="param_specs"):
         ShardedTrainer(lambda p, b: None, make_ranks(pp_cfg.mesh, "cpu"),
