@@ -55,7 +55,7 @@ Phases, each printing JSON lines:
      route (fused_kernel=False: the unfused rings on the bfp_encode /
      bfp_decode kernels), launches counted, masters and replicas
      bit-equal;
-  5. two more training steps under torch.profiler: device time by group
+  5. one more training step under torch.profiler: device time by group
      (the port's kernels, GEMMs, the rest) and the device's idle share;
      then ``integrity_path``: the same trainer with
      ``integrity_check=True``, 1 warm-up and 5 timed steps (both verdicts
@@ -105,7 +105,7 @@ Phases, each printing JSON lines:
      padding) with ``codec="int8"`` on the sublane kernels and fused SGD
      — 1 warm-up and 5 timed steps, launch counts checked; one more step's
      gradients through ``Int8Codec(plain=True)``, whose masters and
-     replicas must be bit-equal; a profile of two steps; then the codec
+     replicas must be bit-equal; a profile of one step; then the codec
      convergence eval (baseline, top-k with error feedback, int8) on the
      eval MLP at dp=8 for 40 steps, which reports loss ratios;
   7. the serving path: ``ServeEngine`` on Llama-3-8B (all 32 layers, bf16,
@@ -157,7 +157,7 @@ Phases, each printing JSON lines:
      counted (32 a step of the flash kernels without offsets and 48 of
      their offset instantiations, one ring_rs_update and one ring_ag, no
      second-family launch), replicas bit-equal, the loss falling; then a
-     profile of two steps (flash, ring, the K/V rotations, GEMMs, the
+     profile of one step (flash, ring, the K/V rotations, GEMMs, the
      rest);
  12d. ``llama_sp_parity``: at that width, sequence 8192 and 2 layers,
      one row: the sp=4 kernel ring's loss and gradients against sp=1 (the
@@ -225,8 +225,8 @@ Phases, each printing JSON lines:
      each tensor-core flash kernel, one ring_rs_update and one ring_ag an
      ep group), replicas bit-equal within each ep group and their
      replicated leaves across the groups, the f32 router held apart, the
-     loss falling; the ring kernels timed at this shape; a profile of two
-     steps (flash, ring, expert GEMMs, dense GEMMs, dispatch/combine, the
+     loss falling; the ring kernels timed at this shape; a profile of one
+     step (flash, ring, expert GEMMs, dense GEMMs, dispatch/combine, the
      rest);
  19. ``moe_train_parity``: at that width, 1 layer, one sequence on each
      of ep=2 ranks: the kernel route's loss and gradients against the
@@ -255,7 +255,7 @@ Phases, each printing JSON lines:
      group), replicas bit-equal within each stage group and the
      replicated leaves across the groups, the loss falling, peak memory,
      ``pipeline_cost``; under GPipe the ring kernels timed at the stage
-     row's shape; a profile of two steps (flash, ring, GEMMs, the rest;
+     row's shape; a profile of one step (flash, ring, GEMMs, the rest;
      idle share); ``llama_pp_memory`` sets the schedules' peaks side by
      side (the 1F1B run at 8 microbatches is cut to make room for the tp
      phases);
@@ -277,7 +277,7 @@ Phases, each printing JSON lines:
      instantiation
      (``pp_axes_per_step``), the replicas and the replicated leaves
      checked, the loss falling, the step's and the backward's peaks,
-     ``pipeline_cost``, a profile of two steps;
+     ``pipeline_cost``, a profile of one step;
  25. ``moe_pp_train_path``: the pipeline with ep, sp and MoE layers, at
      Mixtral-8x7B width, 2 layers (one a stage), sequence 8192, global
      batch 4 over dp=1 x pp=2 x ep=2 x sp=2, 2 microbatches, remat, clip
@@ -445,6 +445,21 @@ Phases, each printing JSON lines:
      frames, bit-equal to the one-process route, then 4
      steps of ``DPTrainer`` across them bit-equal to ``DPTrainer(dp=4)``
      in this process, the median step ms of both after the first;
+ 54. ``procs_drivers_path``, ``procs_llama_path`` and ``procs_hop_shapes``
+     (after 53): the model drivers with their ranks as processes on the
+     card, 3 steps each from the driver's own ``parse`` and ``build``, held
+     bit for bit against the one-process trainer at the same dp, seed and
+     batches (every loss, every master and replica row's sha256): one
+     spawn of 4 processes runs ``train_bert``'s ``DDPTrainer`` (BERT-base,
+     sequence 512, 8 sequences a rank, the BFP bucket rings) and
+     ``train_resnet``'s sync-BN ``DPTrainer`` (ResNet-50 at 224x224, 32
+     images a rank, cuDNN's deterministic algorithms; the control, each
+     process its own moments, must move the masters), one of 2 processes
+     ``train_llama``'s ``ShardedTrainer`` (Llama-3-8B width, 4 layers,
+     sequence 4096); ms a step against one process, the ring's share,
+     exchanges a step, peak GB a process, the hop and flash launches; then
+     the hop kernels at the three paths' chunks against their plain
+     versions and bytes bounds;
  34. the ``kernels`` line (the offset instantiations' rows among them,
      the ablated ring_rs instantiations' rows from ``ring_cost_stages``,
      their launches from ``llama_sp_train_path``; the MoE paths'
@@ -458,7 +473,9 @@ Phases, each printing JSON lines:
      observability's as ``reshard_*``, ``elastic_reshard_*`` and
      ``obs_*``, the helpers' as ``helpers_*``, the ``--data=`` axes' as
      ``data_axes_*``; the hop kernels' launches are rank 0's of
-     ``procs_ring_path``), then the
+     ``procs_ring_path``, those of the drivers' paths and their times at
+     their chunks ``bert_*``, ``resnet_*`` and ``llama_*``, the flash
+     kernels' in the drivers' processes ``procs_*``), then the
      last line ``{"ok": true, "device":
      {...}}``.
 
@@ -594,6 +611,10 @@ def sync(dev) -> None:
 # host: reading back their traces, tens of thousands of kernels a step,
 # took 21 and 29 s of host time)
 HOST_HEAVY_PROFILE_STEPS = 1
+# steps profiled on the other training paths (cut from 2 to make room for
+# the model drivers across processes: the ten pipeline profiles took 106
+# s of a 1070-s run, mostly reading their traces back)
+PROFILE_STEPS = 1
 
 
 def profile_run(phase: str, run, steps: int, groups=None, op_groups=None,
@@ -1020,7 +1041,7 @@ def fsdp_path(dev, kernels, mcfg, sgd, bx, by) -> dict:
     def step():
         held[0], _ = tr.step(held[0], batch)
 
-    groups = profile_run("fsdp_profile", step, 2, groups={
+    groups = profile_run("fsdp_profile", step, PROFILE_STEPS, groups={
         "ring": ("ring_rs_kernel", "ring_ag_kernel")})
     del held, state0, batch, tr
     torch.cuda.empty_cache()
@@ -1119,7 +1140,7 @@ def hier_path(dev, kernels, mcfg, sgd, bx, by) -> dict:
         def step():
             held[0], _ = tr.step(held[0], batch)
 
-        profile_run("hier_profile", step, 2, groups={
+        profile_run("hier_profile", step, PROFILE_STEPS, groups={
             "bfp_codec": ("bfp_encode_kernel", "bfp_decode_kernel")},
             intra_size=ni)
         del held
@@ -1886,7 +1907,7 @@ def int8_train_path(dev, kernels, sgd, batch_x, batch_y) -> dict:
     sublane kernels on the ring: one warm-up and five timed steps (CUDA
     events), launch counts zeroed just before and read just after; then
     ``int8_plain_step``: the same gradients through ``Int8Codec(plain=True)``
-    must give bit-equal masters and replicas; then a profile of two steps."""
+    must give bit-equal masters and replicas; then a profile of one step."""
     import torch
     from fpga_ai_nic_tpu_torch import compress
     from fpga_ai_nic_tpu_torch.models import mlp
@@ -1977,7 +1998,7 @@ def int8_train_path(dev, kernels, sgd, batch_x, batch_y) -> dict:
     def train_step():
         held[0], _ = tr.step(held[0], batch)
 
-    profile_run("int8_profile", train_step, 2,
+    profile_run("int8_profile", train_step, PROFILE_STEPS,
                 groups={"int8": INT8_KERNELS})
     del tr, held, batch
     torch.cuda.empty_cache()
@@ -3104,8 +3125,8 @@ def llama_train_path(dev, kernels, argv=TRAIN_ARGV,
     layer and dp rank, every tp rank's heads in one launch; one ring
     reduce-scatter and all-gather a (tp) group); the replicas bit-equal
     within each group and their replicated leaves across the groups;
-    with tp the ring kernels timed on the path's own rows; then two more
-    steps under the profiler."""
+    with tp the ring kernels timed on the path's own rows; then one more
+    step under the profiler."""
     import torch
     from fpga_ai_nic_tpu_torch import train_llama
     from fpga_ai_nic_tpu_torch.models import llama
@@ -3219,7 +3240,8 @@ def llama_train_path(dev, kernels, argv=TRAIN_ARGV,
     def train_step():
         held[0], _ = tr.step(held[0], next(extra))
 
-    prof = profile_run(phase.replace("path", "profile"), train_step, 2,
+    prof = profile_run(phase.replace("path", "profile"), train_step,
+                       PROFILE_STEPS,
                        groups=TRAIN_GROUPS)
     out["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
     out["profile"] = prof
@@ -3804,7 +3826,7 @@ def llama_sp_train_path(dev, kernels, remat=False) -> dict:
     without offsets and sp (sp - 1) / 2 past hops on their offset
     instantiations, the forwards twice with ``remat``; one ring_rs_update
     and one ring_ag), replicas bit-equal, a finite loss that falls on the
-    repeated batch; then two more steps under the profiler.  With
+    repeated batch; then one more step under the profiler.  With
     ``remat`` (``--remat=true``, the phase ``llama_sp_remat_path``) the
     trainer's gradients at its final state are also taken with the loss
     without remat (``remat_grads``)."""
@@ -3882,7 +3904,8 @@ def llama_sp_train_path(dev, kernels, remat=False) -> dict:
     def train_step():
         held[0], _ = tr.step(held[0], batch)
 
-    prof = profile_run(phase.replace("path", "profile"), train_step, 2,
+    prof = profile_run(phase.replace("path", "profile"), train_step,
+                       PROFILE_STEPS,
                        groups=SP_GROUPS)
     out = {"launches": launches, "mcfg": mcfg, "cfg": cfg, "seq": seq,
            "steps": steps, "step_ms": step_ms, "median_step_ms": median,
@@ -4437,7 +4460,7 @@ RESNET_ARGV = ["--model=resnet50", "--image-size=224", "--mesh.dp=8",
                "--optimizer.momentum=0.9", "--optimizer.weight_decay=1e-4",
                "--iters=5"]
 RESNET_WARMUP = 2          # cuDNN picks its algorithms on the first calls
-RESNET_LOADER_ITERS = 3
+RESNET_LOADER_ITERS = 1    # cut from 3 (the drivers across processes)
 RESNET_PARITY_BATCH = 64   # cut from 256: three graphs of it are held
 RESNET_GROUPS = {"ring": ("ring_rs_kernel", "ring_ag_kernel"),
                  "port_other": tuple(k for k in PORT_KERNELS if k not in (
@@ -4494,7 +4517,7 @@ def resnet_train_path(dev, kernels) -> dict:
     replica bit-equal after every step and a falling loss; one more step
     whose gradients also go through the plain collectives (masters and
     momentum shards bit-equal); the ring kernels timed at this shape; a
-    profile of two steps; then ``train_resnet.main``, its loader drawing the
+    profile of one step; then ``train_resnet.main``, its loader drawing the
     stream on the host."""
     import torch
     from fpga_ai_nic_tpu_torch import optim, train_resnet
@@ -4796,7 +4819,7 @@ def moe_train_path(dev, kernels, argv=MOE_TRAIN_ARGV,
     all-gather an ep group); the replicas bit-equal within each ep group
     and their replicated leaves across the groups, the router held apart
     in f32; without sp, the ring kernels timed at this shape on the
-    path's own gradient rows; then two steps under the profiler."""
+    path's own gradient rows; then one step under the profiler."""
     import torch
     from fpga_ai_nic_tpu_torch import optim, train_llama
     from fpga_ai_nic_tpu_torch.models import llama
@@ -4972,7 +4995,8 @@ def moe_train_path(dev, kernels, argv=MOE_TRAIN_ARGV,
     def train_step():
         held[0], _ = tr.step(held[0], batch)
 
-    prof = profile_run(phase.replace("path", "profile"), train_step, 2,
+    prof = profile_run(phase.replace("path", "profile"), train_step,
+                       PROFILE_STEPS,
                        groups=SP_GROUPS if sp > 1 else TRAIN_GROUPS,
                        op_groups=MOE_OP_GROUPS)
     out["profile"] = prof
@@ -5243,7 +5267,7 @@ PP_MODEL_ARGV = ["--model=llama3_8b", "--model.n_layers=4",
                  "--model.attn_block=512", "--model.attn_impl=auto"]
 PP_TRAIN_ARGV = PP_MODEL_ARGV + [
     "--seq=4096", "--global_batch=8", "--mesh.dp=2", "--mesh.pp=2",
-    "--microbatches=4", "--iters=3"] + PP_RING_ARGV
+    "--microbatches=4", "--iters=2"] + PP_RING_ARGV
 PP_SCHEDULES = {"gpipe": ["--pp_schedule=gpipe"],
                 "1f1b": ["--pp_schedule=1f1b"],
                 "1f1b-interleaved": ["--pp_schedule=1f1b-interleaved",
@@ -5412,11 +5436,11 @@ def llama_pp_train_parity(dev, argv=PP_PARITY_ARGV,
 
 PP_SP_TRAIN_ARGV = PP_MODEL_ARGV + [
     "--seq=8192", "--global_batch=4", "--mesh.dp=2", "--mesh.pp=2",
-    "--mesh.sp=2", "--microbatches=2", "--iters=3"] + PP_RING_ARGV
+    "--mesh.sp=2", "--microbatches=2", "--iters=2"] + PP_RING_ARGV
 MOE_PP_TRAIN_ARGV = MOE_MODEL_ARGV + [
     "--model.n_layers=2", "--model.attn_block=512", "--model.attn_impl=auto",
     "--seq=8192", "--global_batch=4", "--mesh.dp=1", "--mesh.pp=2",
-    "--mesh.ep=2", "--mesh.sp=2", "--microbatches=2", "--iters=3"
+    "--mesh.ep=2", "--mesh.sp=2", "--microbatches=2", "--iters=2"
 ] + PP_RING_ARGV + ["--optimizer.clip_norm=1.0"]
 MOE_PP_SCHEDULES = ("gpipe", "1f1b")
 # sequence 1024 (cut from 4096 to make room for the restore tier's
@@ -5472,7 +5496,7 @@ def pp_train_path(dev, kernels, argv, schedule, phase,
     across its tp ranks), the loss falling, peak memory and
     ``pipeline_cost``; the backward's own peak; with ``time_rings`` the
     ring kernels timed on a stage group's rows (at dp=1 the gather alone:
-    the reduce-scatter is the identity); two steps under the profiler."""
+    the reduce-scatter is the identity); one step under the profiler."""
     import torch
     from fpga_ai_nic_tpu_torch import train_llama
     from fpga_ai_nic_tpu_torch.models import llama
@@ -5657,7 +5681,8 @@ def pp_train_path(dev, kernels, argv, schedule, phase,
     def train_step():
         held[0], _ = tr.step(held[0], batch)
 
-    prof = profile_run(phase.replace("path", "profile"), train_step, 2,
+    prof = profile_run(phase.replace("path", "profile"), train_step,
+                       PROFILE_STEPS,
                        groups=SP_GROUPS,
                        op_groups=MOE_OP_GROUPS if mcfg.moe else None,
                        schedule=schedule)
@@ -6256,7 +6281,7 @@ def tp_serving_path(dev, cfg, kernels) -> dict:
 
 PP_TP_TRAIN_ARGV = PP_MODEL_ARGV + [
     "--seq=4096", "--global_batch=4", "--mesh.pp=2", "--mesh.tp=2",
-    "--microbatches=4", "--iters=3"] + PP_RING_ARGV
+    "--microbatches=4", "--iters=2"] + PP_RING_ARGV
 PP_TP_SCHEDULES = ("gpipe", "1f1b", "1f1b-interleaved")
 PP_TP_FLASH_SHAPES = (     # name, B, H, n_kv at S=4096, causal
     ("a microbatch, both tp ranks' heads, one launch", 1, 32, 8),)
@@ -8771,6 +8796,316 @@ def procs_ring_path(dev, smi) -> dict:
             "one_process_median_step_ms": _median(ref["step_ms"][1:])}
 
 
+# -- the model drivers across processes (ROADMAP A.11) ----------------------
+
+DRIVERS_STEPS = 3
+DRIVERS_TIMEOUT_S = 600.0
+# train_bert's path: BERT-base, sequence 512, 8 sequences a rank, dp=4,
+# AdamW, the BFP bucket rings (a bucket one cross-process all-reduce)
+BERT_PROCS_ARGV = ["--model=base", "--seq=512", f"--pad-min={BERT_PAD_MIN}",
+                   "--bfp=1", "--mesh.dp=4"]
+# train_resnet's path: ResNet-50 at 224x224, 32 images a rank, dp=4,
+# sync-BN across the processes, momentum SGD fused on the ring
+RESNET_PROCS_ARGV = ["--model=resnet50", "--image-size=224", "--mesh.dp=4",
+                     "--global_batch=128", "--bfp=1",
+                     "--collective.fused_optimizer=true",
+                     "--optimizer.kind=momentum",
+                     "--optimizer.learning_rate=0.1",
+                     "--optimizer.momentum=0.9",
+                     "--optimizer.weight_decay=1e-4"]
+# train_llama's path: the Llama cell's flags (Llama-3-8B width, 4 layers,
+# sequence 4096, one sequence a rank, dp=2, BFP, SGD)
+LLAMA_PROCS_ARGV = [a for a in TRAIN_ARGV if not a.startswith("--iters=")]
+# sync-BN across processes against one graph: both pool the moments and
+# sum their cotangents in rank order (resnet.RankMoments and
+# ProcessMoments), so the bits agree where each rank's own kernels do:
+# cuDNN's deterministic algorithms in both runs.  The gate is bit-equality;
+# the control (each process its own moments) must move the masters by
+# more than SYNC_BN_CONTROL_MIN of their largest move from the start
+SYNC_BN_CONTROL_MIN = 0.01
+
+
+def _procs_hop_row(dev, name, C, world, cfg, form, opt=None) -> dict:
+    """One hop kernel's device time at a driver path's chunk ``C`` (the L2
+    flushed before each launch): the launch form that path runs most
+    (``form``: "rs_middle", "rs_last" (with ``opt``'s fused update, or
+    none), "ag_forward" or "ag_last"), against its plain version on the
+    same tensors (bit for bit) and the bytes bound (each input read once,
+    each output written once)."""
+    import torch
+    from fpga_ai_nic_tpu_torch import optim
+    from fpga_ai_nic_tpu_torch.ops import ring_procs
+    wire = ring_procs.wire_for(C, cfg)
+    F = wire.frame_bytes
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(C, generator=gen, device=dev)
+    recv = torch.empty(F, dtype=torch.uint8, device=dev)
+    ring_procs.encode_frame(torch.randn(C, generator=gen, device=dev), wire,
+                            recv)
+    send = torch.empty_like(recv)
+    kw, state_bytes, upd_ops = {}, 0, 0
+    if opt is not None:
+        keys = optim.OptimizerSpec.from_optimizer(opt).state_keys
+        kw = dict(w=torch.randn(C, generator=gen, device=dev) * 0.02,
+                  state={k: torch.rand(C, generator=gen, device=dev) * 0.01
+                         for k in keys},
+                  hyper=optim.fused_hyperparams(opt, 3, device=dev),
+                  opt_kind=opt.kind)
+        state_bytes, upd_ops = 2 * 4 * C * (1 + len(keys)), 12 * C
+    if form == "rs_middle":
+        def run(plain=False):
+            fn = ring_procs.rs_hop_plain if plain else ring_procs.rs_hop
+            fn(x, recv, send, wire, n=world)
+            return (send,)
+        names, nbytes = ("ring_hop_rs_kernel",), 4 * C + 2 * F
+        ops = HOP_OPS["rs"] * C
+    elif form == "rs_last":
+        def run(plain=False):
+            fn = ring_procs.rs_hop_plain if plain else ring_procs.rs_hop
+            g, w, st = fn(x, recv, None, wire, n=world, last=True, **kw)
+            return (g,) + (() if w is None else (w,) + tuple(st.values()))
+        names = ("ring_hop_rs_kernel",)
+        nbytes = 4 * C + F + 4 * C + state_bytes
+        ops = (ABLATE_OPS["dec"] + 1) * C + upd_ops
+    else:
+        slot = torch.empty_like(x)
+        fwd = send if form == "ag_forward" else None
+
+        def run(plain=False):
+            fn = ring_procs.ag_hop_plain if plain else ring_procs.ag_hop
+            fn(x, recv, fwd, slot, wire)
+            return (slot,) + (() if fwd is None else (fwd,))
+        names = ("ring_hop_ag_kernel",)
+        nbytes = F + 4 * C + (F if fwd is not None else 0)
+        ops = HOP_OPS["ag"] * C
+    got = [t.clone() for t in run()]
+    want = run(plain=True)
+    require_equal(f"{name} {form}", list(zip(got, want)))
+    del got, want
+    # the BERT and ResNet hops touch 36-39 MB, which the 50 MB L2 holds
+    # from one launch to the next: each timed launch follows a 64 MB write
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def cold():
+        l2.zero_()
+        return run()
+    row = {"shape": (f"{form}: chunk C={C} over W={world}, frame {F} bytes"
+                     + (f", {opt.kind}" if opt is not None else "")),
+           "device_ms": device_ms(cold, 10, names), "l2": "flushed",
+           "call_ms": cuda_ms(run, 10),
+           "plain_ms": cuda_ms(lambda: run(plain=True), 2),
+           "bound": bound(nbytes, ops), "max_abs_err": 0.0}
+    del x, recv, send, kw, l2
+    return row
+
+
+def _drivers_spawn(dev, specs, world, phase, smi, controls=()) -> dict:
+    """Each spec of ``specs`` but the ``controls`` in this process (the
+    one-process trainer at the same dp, seed and batches), its memory
+    released, then every spec across ``world`` processes on this card (one
+    spawn, back to back); by spec name, ``(the processes' results, this
+    process's or None)``."""
+    import torch
+    from fpga_ai_nic_tpu_torch.parallel import procs
+    refs = {name: None for name in controls}
+    for name, spec in specs.items():
+        if name in controls:
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        refs[name] = procs.driver_run(0, 1, spec)
+        refs[name]["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = procs.spawn(procs.drivers, world, (list(specs.values()),),
+                      timeout=DRIVERS_TIMEOUT_S, env=PROCS_ENV)
+    wall = time.perf_counter() - t0
+    emit(phase=phase + "_spawn", world=world, specs=list(specs),
+         spawn_wall_s=wall, one_process_wall_s={k: r["wall_s"] for k, r
+                                                in refs.items() if r},
+         held_gb=torch.cuda.memory_allocated(dev) / 1e9, card=smi)
+    return {name: ([r[i] for r in res], refs[name])
+            for i, name in enumerate(specs)}
+
+
+def _driver_numbers(got, want) -> dict:
+    """What a driver's phase prints: ms a step after the first across the
+    processes (each process's median) against the one-process step, the
+    ring's share of a step, the exchanges a step, peak GB a process, the
+    launches a process."""
+    med = [_median(g["step_ms"][1:]) for g in got]
+    ring = [_median([r / s for r, s in zip(g["ring_ms"][1:],
+                                            g["step_ms"][1:])]) for g in got]
+    return {"step_ms": [g["step_ms"] for g in got],
+            "median_step_ms": med,
+            "one_process_step_ms": want["step_ms"],
+            "one_process_median_step_ms": _median(want["step_ms"][1:]),
+            "over_one_process": _median(med) / _median(want["step_ms"][1:]),
+            "ring_ms": [g["ring_ms"] for g in got], "ring_share": ring,
+            "exchanges_a_step": got[0]["exchanges"][-1],
+            "exchange_ms": [g["exchange_ms"] for g in got],
+            "peak_gb": [g.get("peak_gb") for g in got],
+            "one_process_peak_gb": want.get("peak_gb"),
+            "launches": got[0]["launches"],
+            "losses": want["losses"], "devices": [g["device"] for g in got]}
+
+
+def _bitequal_checks(got, want, steps_digested) -> dict:
+    return {"losses_equal": all(g["losses"] == want["losses"] for g in got),
+            "masters_bitequal": all(
+                g["masters"] == [[d[r]] for d in want["masters"]]
+                for r, g in enumerate(got)),
+            "replicas_bitequal": all(
+                g["replicas"] == [[d[r]] for d in want["replicas"]]
+                for r, g in enumerate(got)),
+            "digested_steps": all(len(g["masters"]) == steps_digested
+                                  for g in got),
+            "on_the_card": all(g["device"].startswith("cuda") for g in got)}
+
+
+def procs_drivers_path(dev, smi) -> dict:
+    """``train_bert``'s and ``train_resnet``'s paths with their ranks as 4
+    processes on this card (``procs.drivers``, one spawn, back to back),
+    each held bit for bit against the one-process trainer at dp=4 on the
+    same seed and batches (every step's loss, every master and replica
+    row's sha256 after every step): BERT-base's ``DDPTrainer`` (a BFP
+    bucket one cross-process all-reduce) and ResNet-50's sync-BN
+    ``DPTrainer`` (the moments through ``ring_procs.rank_gather``, two
+    exchanges a BN layer; cuDNN's deterministic algorithms in both runs),
+    with the fault control (each process its own moments) moving the
+    masters by more than ``SYNC_BN_CONTROL_MIN`` of their move.  Launches
+    counted in each process: the hop kernels (a bucket W of each; the
+    ResNet row W of each a step) and BERT's flash kernels (12 of each a
+    step)."""
+    import numpy as np
+    world = 4
+    base = {"device": dev.type, "steps": DRIVERS_STEPS}
+    specs = {"bert": dict(base, driver="bert", argv=BERT_PROCS_ARGV),
+             "resnet": dict(base, driver="resnet", argv=RESNET_PROCS_ARGV,
+                            masters=True, cudnn_deterministic=True),
+             "resnet_control": dict(base, driver="resnet",
+                                    argv=RESNET_PROCS_ARGV, masters=True,
+                                    sync_bn=False, cudnn_deterministic=True)}
+    runs = _drivers_spawn(dev, specs, world, "procs_drivers", smi,
+                          controls=("resnet_control",))
+    got, want = runs["bert"]
+    buckets = want["buckets"]
+    nb = len(buckets)
+    per_step = {"ring_hop_rs": nb * world, "ring_hop_ag": nb * world,
+                "flash_fwd": 12, "flash_dq": 12, "flash_dkv": 12}
+    checks = _bitequal_checks(got, want, DRIVERS_STEPS)
+    checks["launches"] = all(
+        g["launches"] == {k: DRIVERS_STEPS * v for k, v in per_step.items()}
+        for g in got)
+    bert = _driver_numbers(got, want)
+    emit(phase="procs_bert_path", model="BERT-base, seq 512, 8 sequences a "
+         "rank", world=world, steps=DRIVERS_STEPS, n_buckets=nb,
+         bucket_padded_lens=buckets, launches_per_step=per_step,
+         checks=checks, card=smi, **bert)
+    if not all(checks.values()):
+        raise AssertionError(f"procs_bert_path: {checks}")
+
+    got, want = runs["resnet"]
+    ctl, _ = runs["resnet_control"]
+    w0 = np.concatenate(want["w_initial"])
+    w1 = np.concatenate(want["w_final"])
+    move = float(np.abs(w1 - w0).max())
+
+    def rel(res):
+        w = np.concatenate([g["w_final"][0] for g in res])
+        return float(np.abs(w - w1).max()) / move
+
+    bn_layers = 1 + sum(3 * k + 1 for k in (3, 4, 6, 3))
+    checks = _bitequal_checks(got, want, DRIVERS_STEPS)
+    checks.update(
+        control_above=rel(ctl) > SYNC_BN_CONTROL_MIN,
+        control_forward_differs=all(g["losses"][0] != want["losses"][0]
+                                    for g in ctl),
+        exchanges=all(g["exchanges"] == [2 * bn_layers] * DRIVERS_STEPS
+                      for g in got),
+        launches=all(g["launches"]["ring_hop_rs"] == DRIVERS_STEPS * world
+                     and g["launches"]["ring_hop_ag"] == DRIVERS_STEPS * world
+                     for g in got))
+    resnet = _driver_numbers(got, want)
+    emit(phase="procs_resnet_path", model="ResNet-50, 224x224, 32 images a "
+         "rank, sync-BN", world=world, steps=DRIVERS_STEPS,
+         masters_rel_err=rel(got), control_rel_err=rel(ctl),
+         control_min=SYNC_BN_CONTROL_MIN, masters_move=move,
+         first_loss_bitequal=all(g["losses"][0] == want["losses"][0]
+                                 for g in got),
+         cudnn_deterministic=True, control_losses=ctl[0]["losses"],
+         checks=checks, card=smi, **resnet)
+    if not all(checks.values()):
+        raise AssertionError(f"procs_resnet_path: {checks}")
+    return {"bert": dict(bert, buckets=buckets, per_step=per_step),
+            "resnet": dict(resnet, row_len=want["row_len"])}
+
+
+def procs_llama_path(dev, smi) -> dict:
+    """``train_llama``'s path with its ranks as 2 processes on this card:
+    ``ShardedTrainer`` at Llama-3-8B width (``LLAMA_PROCS_ARGV``), held
+    bit for bit against the one-process trainer at dp=2 on the same seed
+    and batches (every step's loss; every master and replica row's sha256
+    after the last step); the hop kernels (W of each a step) and the flash
+    kernels (4 of each a step) counted in each process."""
+    world = 2
+    spec = {"device": dev.type, "steps": DRIVERS_STEPS, "driver": "llama",
+            "argv": LLAMA_PROCS_ARGV, "digest": "last"}
+    got, want = _drivers_spawn(dev, {"llama": spec}, world,
+                               "procs_llama", smi)["llama"]
+    per_step = {"ring_hop_rs": world, "ring_hop_ag": world, "flash_fwd": 4,
+                "flash_dq": 4, "flash_dkv": 4}
+    checks = _bitequal_checks(got, want, 1)
+    checks["launches"] = all(
+        g["launches"] == {k: DRIVERS_STEPS * v for k, v in per_step.items()}
+        for g in got)
+    out = _driver_numbers(got, want)
+    emit(phase="procs_llama_path", model="Llama-3-8B width, 4 layers, "
+         "seq 4096, one sequence a rank", world=world, steps=DRIVERS_STEPS,
+         row_len=want["row_len"], launches_per_step=per_step, checks=checks,
+         card=smi, **out)
+    if not all(checks.values()):
+        raise AssertionError(f"procs_llama_path: {checks}")
+    return dict(out, row_len=want["row_len"], per_step=per_step)
+
+
+def procs_hop_shapes(dev, drivers, llama, smi) -> dict:
+    """The hop kernels at the three new paths' chunks: BERT-base's largest
+    bucket over W=4 (a middle reduce-scatter hop, a forwarding gather hop),
+    ResNet-50's row over W=4 (the middle hop, and the last with the fused
+    momentum update) and Llama's row over W=2 (the last reduce-scatter hop
+    without an update, the gather's receiving hop): device time, whole
+    launches, the plain version and the bytes bound, bit-equal to the
+    plain version."""
+    import torch
+    from fpga_ai_nic_tpu_torch.utils.config import BFPConfig, OptimizerConfig
+    cfg = BFPConfig(codec="pallas")
+    mom = OptimizerConfig(kind="momentum", learning_rate=0.1, momentum=0.9,
+                          weight_decay=1e-4)
+    C_bert = max(drivers["bert"]["buckets"]) // 4
+    C_res = drivers["resnet"]["row_len"] // 4
+    C_llama = llama["row_len"] // 2
+    rows = {}
+    for key, C, world, form, opt in (
+            ("bert_rs", C_bert, 4, "rs_middle", None),
+            ("bert_ag", C_bert, 4, "ag_forward", None),
+            ("resnet_rs", C_res, 4, "rs_middle", None),
+            ("resnet_rs_last", C_res, 4, "rs_last", mom),
+            ("resnet_ag", C_res, 4, "ag_forward", None),
+            ("llama_rs", C_llama, 2, "rs_last", None),
+            ("llama_ag", C_llama, 2, "ag_last", None)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows[key] = _procs_hop_row(dev, key, C, world, cfg, form, opt)
+    emit(phase="procs_hop_shapes", card=smi, bitexact=True,
+         **{k: dict(r, bound_ms=r["bound"][0], bound_by=r["bound"][1])
+            for k, r in rows.items()})
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     # the Llama training phase holds about 60 GB at its peak and frees and
     # reallocates 7-15 GB buffers every step; growable segments keep the
@@ -8985,7 +9320,7 @@ def main() -> int:
     def train_step():
         held[0], _ = tr.step(held[0], batch)
 
-    profile_run("profile", train_step, 2)
+    profile_run("profile", train_step, PROFILE_STEPS)
     del tr, held, batch, ranks
     torch.cuda.empty_cache()
 
@@ -9029,6 +9364,11 @@ def main() -> int:
     # -- 53. the ring across processes: the hop kernels, the MLP path ------
     hops = hop_kernel_checks(dev, procs_row(), PROCS_WORLD)
     procs_run = procs_ring_path(dev, smi)
+    # -- 54-56. the model drivers across processes: BERT-base and ResNet-50
+    # over 4 processes, Llama-3-8B width over 2; the hops at their shapes
+    drivers_run = procs_drivers_path(dev, smi)
+    llama_procs = procs_llama_path(dev, smi)
+    hop_shapes = procs_hop_shapes(dev, drivers_run, llama_procs, smi)
 
     # -- 6. the int8 codec path and the convergence eval ---------------------------
     int8_launches = int8_train_path(dev, kernels, sgd, bx, by)
@@ -9235,10 +9575,42 @@ def main() -> int:
                           "the fused update"),
             step_ms=procs_run["median_step_ms"],
             one_process_step_ms=procs_run["one_process_median_step_ms"])
+    drivers_from = {
+        "bert": (f"procs_bert_path ({DRIVERS_STEPS} steps, BERT-base, 4 "
+                 f"processes, {len(drivers_run['bert']['buckets'])} buckets: "
+                 "4 launches a bucket and step in each process; rank 0's "
+                 "count)"),
+        "resnet": (f"procs_resnet_path ({DRIVERS_STEPS} steps, ResNet-50 "
+                   "sync-BN, 4 processes: 4 a step in each process)"),
+        "llama": (f"procs_llama_path ({DRIVERS_STEPS} steps, Llama-3-8B "
+                  "width, 2 processes: 2 a step in each process)")}
+    for name, keys in (("ring_hop_rs", ("bert_rs", "resnet_rs", "llama_rs")),
+                       ("ring_hop_ag", ("bert_ag", "resnet_ag", "llama_ag"))):
+        extra = results[name]["extra"]
+        for key, path in zip(keys, ("bert", "resnet", "llama")):
+            r = hop_shapes[key]
+            extra.update({
+                f"{path}_launches": (llama_procs if path == "llama" else
+                                     drivers_run[path])["launches"][name],
+                f"{path}_launches_from": drivers_from[path],
+                f"{path}_shape": r["shape"],
+                f"{path}_device_ms": r["device_ms"],
+                f"{path}_call_ms": r["call_ms"],
+                f"{path}_plain_ms": r["plain_ms"],
+                f"{path}_bound_ms": r["bound"][0],
+                f"{path}_bound_by": r["bound"][1]})
+    r = hop_shapes["resnet_rs_last"]
+    results["ring_hop_rs"]["extra"].update(
+        resnet_last_shape=r["shape"], resnet_last_device_ms=r["device_ms"],
+        resnet_last_plain_ms=r["plain_ms"], resnet_last_bound_ms=r["bound"][0])
     launches["paged_attend"] = run["launches"]["paged_attend"]
     for name in flash_kernels:
         launches[name] = train["launches"][name]
         results[name] = flash[name]
+        results[name].setdefault("extra", {}).update(
+            procs_launches=llama_procs["launches"][name],
+            procs_launches_from=drivers_from["llama"].replace(
+                "2 a step", "4 a step"))
     for name in OFFSET_KERNELS:
         launches[name] = sp_run["launches"][name]
         results[name] = offsets[name]
@@ -9288,6 +9660,11 @@ def main() -> int:
     for name, r in bert_flash["tensor_cores_hd64"].items():
         launches[name] = bert_run["launches"][name[:-len("_hd64")]]
         results[name] = r
+        results[name].setdefault("extra", {}).update(
+            procs_launches=drivers_run["bert"]["launches"][
+                name[:-len("_hd64")]],
+            procs_launches_from=drivers_from["bert"].replace(
+                "4 launches a bucket and step", "12 a step"))
     rr, mr, pr = resnet_run["ring"], moe_run["ring"], pp_runs["gpipe"]["ring"]
     pp_from = (f"llama_pp_train_path ({pp_runs['gpipe']['steps']} steps a "
                "schedule, Llama-3-8B width, dp=2 x pp=2, 4 microbatches)")

@@ -10,7 +10,9 @@ card each batch is copied from pinned host memory with
 ``non_blocking=True``, so the copies queue behind the step the card is
 running, as JAX's ``device_put`` rides its async dispatch.  The host work
 that makes a batch (``make_batch``) is not hidden: it runs on the caller's
-thread between steps.
+thread between steps.  Under a process group of W > 1 (one rank a
+process) each process places only its own rows of every host batch
+(``multihost.process_rows``), as one rank: ``[1, B/W, ...]``.
 """
 
 from __future__ import annotations
@@ -21,24 +23,30 @@ from typing import Any, Callable, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .parallel import multihost
 from .parallel.mesh import CountedBatch, VirtualRanks
 
 
 class ShardedLoader:
     """An iterable of host batches (tuples of CPU tensors with a leading
     global-batch axis) as an iterator of batches split over ``ranks``
-    (``[n, B/n, ...]`` on their device), ``prefetch`` of them in flight."""
+    (``[n, B/n, ...]`` on their device), ``prefetch`` of them in flight;
+    under a process group, this process's rows as its one rank."""
 
     def __init__(self, source: Iterable[Tuple[torch.Tensor, ...]],
                  ranks: VirtualRanks, prefetch: int = 2):
         if prefetch < 1:
             raise ValueError(f"prefetch must be at least 1, got {prefetch}")
         self._source = source
-        self._ranks = ranks
+        self._world = multihost.world_size()
+        self._ranks = (VirtualRanks(1, ranks.device) if self._world > 1
+                       else ranks)
         self._prefetch = prefetch
 
     def _put(self, batch: Tuple[torch.Tensor, ...]
              ) -> Tuple[torch.Tensor, ...]:
+        if self._world > 1:
+            batch = multihost.process_rows(batch)
         if self._ranks.device.type != "cuda":
             return self._ranks.shard_batch(batch)
         moved = tuple(x.pin_memory().to(self._ranks.device,

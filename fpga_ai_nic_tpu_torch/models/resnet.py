@@ -32,6 +32,19 @@ every BN layer) and ``dp_loss_fn`` marks it ``joint_ranks`` for the
 trainers, which take one backward of the summed losses
 (``parallel.train.joint_grads``).  ``bn_axis="dp"`` anywhere else raises.
 
+The pooling is one autograd function a BN layer, so its backward is
+written out rather than left to autograd's accumulation order: each rank
+gets its own copy of the pooled moments (and computes its variance and
+scale from it), and the backward sums the copies' cotangents in rank
+order, over n, into every rank's moments (``RankMoments``).  Across
+processes (a process group of W > 1, one rank a process) each process
+runs its one rank and a BN layer pools through ``ProcessMoments``: the
+same forward over every rank's f32 ``[2, C]`` (mean and E[x^2]) gathered
+in rank order (``ops.ring_procs.rank_gather``, the gloo group on CPU
+copies), the same backward over the gathered cotangents, so the two
+compute the same bits wherever each rank's own kernels do.  Every process
+reaches the same exchanges in the same order: two a BN layer and step.
+
 Running statistics are not part of the gradient step: ``compute_stats``
 is an EMA calibration pass, as in the JAX package.
 """
@@ -172,24 +185,89 @@ def _max_pool(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(xc, 3, 2).permute(0, 2, 3, 1)
 
 
+def _pool(parts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ranks' ``[n, 2, C]`` moments -> the pooled (mean, m2), each the
+    mean over the ranks of a contiguous ``[n, C]``, as ``lax.pmean``."""
+    return parts[:, 0].contiguous().mean(0), parts[:, 1].contiguous().mean(0)
+
+
+def _rank_sum(parts: torch.Tensor) -> torch.Tensor:
+    """``[n, 2, C]`` cotangents summed in rank order."""
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc += p
+    return acc
+
+
+class RankMoments(torch.autograd.Function):
+    """A BN layer's moments pooled over this process's n ranks:
+    ``apply(local_0, ..., local_{n-1})`` (each ``[2, C]``: mean and E[x^2])
+    -> ``(mean_0, m2_0, ..., mean_{n-1}, m2_{n-1})``, rank i's copy of
+    the pooled moments; backward: the copies' cotangents summed in rank
+    order, over n, into every rank's moments."""
+
+    @staticmethod
+    def forward(ctx, *local: torch.Tensor):
+        mean, m2 = _pool(torch.stack(local))
+        return tuple(t.clone() for _ in local for t in (mean, m2))
+
+    @staticmethod
+    def backward(ctx, *grads: torch.Tensor):
+        n = len(grads) // 2
+        g = _rank_sum(torch.stack([torch.stack(grads[2 * i:2 * i + 2])
+                                   for i in range(n)])) / n
+        return (g,) * n
+
+
+class ProcessMoments(torch.autograd.Function):
+    """``RankMoments`` over the W processes of the group, one rank a
+    process (the module docstring): ``apply(local [2, C], W) -> (mean,
+    m2)``, this rank's copy."""
+
+    @staticmethod
+    def forward(ctx, local: torch.Tensor, world: int):
+        from ..ops import ring_procs
+        ctx.world = world
+        return _pool(ring_procs.rank_gather(local, world))
+
+    @staticmethod
+    def backward(ctx, g_mean: torch.Tensor, g_m2: torch.Tensor):
+        from ..ops import ring_procs
+        parts = ring_procs.rank_gather(torch.stack([g_mean, g_m2]),
+                                       ctx.world)
+        return _rank_sum(parts) / ctx.world, None
+
+
 def _bn(xs: List[torch.Tensor], bns: List[Dict[str, torch.Tensor]],
-        cfg: ResNetConfig, stats: Optional[Dict[str, torch.Tensor]] = None
-        ) -> List[torch.Tensor]:
+        cfg: ResNetConfig, stats: Optional[Dict[str, torch.Tensor]] = None,
+        world: int = 1) -> List[torch.Tensor]:
     """One BN layer over the ranks' activations ``xs`` (each rank with its
     own ``bns`` entry).  Train mode (``stats`` None): each rank's f32
     moments over (N, H, W), averaged over the ranks as ``lax.pmean``
-    averages them (one rank: its own moments).  Eval mode: the given
-    running statistics."""
+    averages them (``RankMoments``; one rank: its own moments), and with
+    ``world`` > 1 over the processes' ranks (``ProcessMoments``; ``xs``
+    this process's one rank).  Eval mode: the given running statistics,
+    shared."""
     xfs = [x.to(torch.float32) for x in xs]
-    if stats is None:
-        mean = torch.stack([xf.mean((0, 1, 2)) for xf in xfs]).mean(0)
-        m2 = torch.stack([xf.square().mean((0, 1, 2)) for xf in xfs]).mean(0)
-        var = m2 - mean.square()
+    if stats is not None:
+        pooled = [(stats["mean"], stats["var"], None)] * len(xs)
     else:
-        mean, var = stats["mean"], stats["var"]
-    inv = torch.rsqrt(var + cfg.bn_eps)
-    return [((xf - mean) * inv).to(x.dtype) * bn["scale"] + bn["bias"]
-            for x, xf, bn in zip(xs, xfs, bns)]
+        local = [torch.stack([xf.mean((0, 1, 2)), xf.square().mean((0, 1, 2))])
+                 for xf in xfs]
+        if world > 1:
+            (loc,) = local
+            moments = ProcessMoments.apply(loc, world)
+        else:
+            moments = RankMoments.apply(*local)
+        pooled = [(moments[2 * i], None, moments[2 * i + 1])
+                  for i in range(len(xs))]
+    out = []
+    for x, xf, bn, (mean, var, m2) in zip(xs, xfs, bns, pooled):
+        if var is None:
+            var = m2 - mean.square()
+        inv = torch.rsqrt(var + cfg.bn_eps)
+        out.append(((xf - mean) * inv).to(x.dtype) * bn["scale"] + bn["bias"])
+    return out
 
 
 def _relu(xs: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -265,25 +343,36 @@ def loss_fn(params: Params, batch, cfg: ResNetConfig, *,
 
 
 def loss_fn_ranks(params_per_rank: Sequence[Params], batch,
-                  cfg: ResNetConfig) -> torch.Tensor:
+                  cfg: ResNetConfig, world: int = 1) -> torch.Tensor:
     """Every rank's loss [n] with sync-BN over the n ranks, as JAX's
     ``loss_fn(p, b, cfg, bn_axis="dp")`` gives it inside ``shard_map``:
     batch = (images [n, b, H, W, 3], labels [n, b]); rank i's rows go
     through ``params_per_rank[i]``, and every BN layer normalises with the
-    mean over the ranks of their moments (the shards are equal)."""
+    mean over the ranks of their moments (the shards are equal).  With
+    ``world`` W > 1 this process holds one rank of W processes' (n = 1)
+    and the moments pool over the processes (``ProcessMoments``)."""
     x, y = batch
     logits = _forward(list(params_per_rank), list(x), cfg,
-                      lambda hs, bns: _bn(hs, bns, cfg))
+                      lambda hs, bns: _bn(hs, bns, cfg, world=world))
     return torch.stack([_xent(lg, yi) for lg, yi in zip(logits, y)])
 
 
-def dp_loss_fn(cfg: ResNetConfig) -> Callable:
+def dp_loss_fn(cfg: ResNetConfig, sync: bool = True) -> Callable:
     """The trainers' sync-BN loss: ``(params_per_rank, batch) -> [n]``,
     marked ``joint_ranks`` so ``DPTrainer`` and ``DDPTrainer``
-    differentiate all ranks in one graph."""
+    differentiate all ranks in one graph.  Built under a process group of
+    W > 1 its BN layers pool across the processes (``loss.processes`` =
+    W, which the trainers read); ``sync=False`` there gives each process
+    its own rank's moments, no exchange: the fault control of the
+    cross-process checks."""
+    from ..parallel import multihost
+    world = multihost.world_size()
+
     def loss(params_per_rank, batch):
-        return loss_fn_ranks(params_per_rank, batch, cfg)
+        return loss_fn_ranks(params_per_rank, batch, cfg,
+                             world if sync else 1)
     loss.joint_ranks = True
+    loss.processes = world
     return loss
 
 

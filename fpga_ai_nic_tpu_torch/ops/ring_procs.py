@@ -39,6 +39,18 @@ fallback:
   writing into the next rank's buffers, the caller stepping every rank
   through launch k before launch k+1.
 
+A port's buffers are sized once, for the largest frame its ring will
+carry (``open_ring(max_frame=)``): every collective of a ``ProcRing``
+takes its own ``Wire`` (a DDP bucket's chunk), its frames the first
+``frame_bytes`` of those buffers, so the handles go round once for all
+the buckets.  ``ProcRing.all_reduce`` is the reduce-scatter without an
+update, then the all-gather of the owned sum:
+``ring_cuda.ring_all_reduce_fused`` as 2n hops.
+
+``rank_gather`` is the small exchange of sync-BN's moments: every
+process's tensor, stacked in rank order, over the gloo group on CPU
+copies (``RANK_GATHERS`` counts the calls and their host seconds).
+
 ``proc_device`` places process i on ``cuda:i`` when the host has n cards
 (peer access between them), else every process on ``cuda:0``; only the
 one-card form has run (an H100 host with one card): the form with a card
@@ -50,6 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -245,10 +258,12 @@ def ag_hop(owned: torch.Tensor, recv: Optional[torch.Tensor],
 
 class GlooPort:
     """One rank's frames over a gloo group: sends from a local staging
-    buffer with ``isend``, receives into two local buffers with ``irecv``."""
+    buffer with ``isend``, receives into two local buffers with ``irecv``.
+    ``frame_bytes``: the largest frame (the buffers' size)."""
 
     def __init__(self, rank: int, n: int, frame_bytes: int, group=None):
         self.rank, self.n, self.group = rank, n, group
+        self.frame_bytes = frame_bytes
         self.bufs = torch.zeros((2, frame_bytes), dtype=torch.uint8)
         self.stage = torch.zeros(frame_bytes, dtype=torch.uint8)
 
@@ -258,12 +273,14 @@ class GlooPort:
     def send(self, k: int) -> torch.Tensor:
         return self.stage
 
-    def done(self, k: int) -> None:
+    def done(self, k: int, nbytes: int) -> None:
+        """Hop k's frame (its first ``nbytes``) to the right neighbour,
+        the left one's into ``recv(k)``."""
         import torch.distributed as dist
-        reqs = [dist.isend(self.stage, (self.rank + 1) % self.n,
+        reqs = [dist.isend(self.stage[:nbytes], (self.rank + 1) % self.n,
                            group=self.group),
-                dist.irecv(self.bufs[k % 2], (self.rank - 1) % self.n,
-                           group=self.group)]
+                dist.irecv(self.bufs[k % 2, :nbytes],
+                           (self.rank - 1) % self.n, group=self.group)]
         for r in reqs:
             r.wait()
 
@@ -277,13 +294,15 @@ class GlooPort:
 
 class IpcPort:
     """One rank's frames in CUDA IPC peer buffers: a hop's kernel writes
-    into the right neighbour's ``bufs[k % 2]``, opened from its handle."""
+    into the right neighbour's ``bufs[k % 2]``, opened from its handle.
+    ``frame_bytes``: the largest frame (the buffers' size)."""
 
     def __init__(self, rank: int, n: int, frame_bytes: int,
                  device: torch.device, group=None):
         import torch.distributed as dist
         from torch.multiprocessing.reductions import reduce_tensor
         self.rank, self.n, self.group, self.device = rank, n, group, device
+        self.frame_bytes = frame_bytes
         self.bufs = torch.zeros((2, frame_bytes), dtype=torch.uint8,
                                 device=device)
         torch.cuda.synchronize(device)
@@ -300,7 +319,7 @@ class IpcPort:
     def send(self, k: int) -> torch.Tensor:
         return self.peer[k % 2]
 
-    def done(self, k: int) -> None:
+    def done(self, k: int, nbytes: int = 0) -> None:
         """The hop's frame is in the neighbour's memory for every rank."""
         import torch.distributed as dist
         torch.cuda.current_stream(self.device).synchronize()
@@ -327,7 +346,7 @@ class LoopbackPorts:
     def __init__(self, n: int, frame_bytes: int, device="cpu"):
         self.bufs = [torch.zeros((2, frame_bytes), dtype=torch.uint8,
                                  device=device) for _ in range(n)]
-        self.n = n
+        self.n, self.frame_bytes = n, frame_bytes
 
     def port(self, rank: int) -> "_LoopbackPort":
         return _LoopbackPort(self, rank)
@@ -336,6 +355,7 @@ class LoopbackPorts:
 class _LoopbackPort:
     def __init__(self, group: LoopbackPorts, rank: int):
         self.g, self.rank = group, rank
+        self.frame_bytes = group.frame_bytes
 
     def recv(self, k: int) -> torch.Tensor:
         return self.g.bufs[self.rank][k % 2]
@@ -343,7 +363,7 @@ class _LoopbackPort:
     def send(self, k: int) -> torch.Tensor:
         return self.g.bufs[(self.rank + 1) % self.g.n][k % 2]
 
-    def done(self, k: int) -> None:
+    def done(self, k: int, nbytes: int = 0) -> None:
         """The caller steps every rank through a launch before the next."""
 
     def fence(self) -> None:
@@ -358,64 +378,125 @@ class _LoopbackPort:
 class ProcRing:
     """Rank ``rank`` of an n-rank ring over ``port`` (one of the transports
     above), for [n C] rows.  ``rs_launch`` / ``ag_launch`` are one launch
-    each (the hop functions); ``reduce_scatter_update`` and ``all_gather``
-    run them with the port's exchange between them."""
+    each (the hop functions); ``reduce_scatter_update``, ``all_gather``
+    and ``all_reduce`` run them with the port's exchange between them.
+    ``wire`` is the default wire; each call may take another whose frame
+    fits the port's buffers.  ``seconds``: host time inside the
+    collectives, from their first launch to their fence."""
 
     def __init__(self, rank: int, n: int, wire: Wire, port):
         if n < 2:
             raise ValueError("a ring across processes needs n >= 2")
         self.rank, self.n, self.wire, self.port = rank, n, wire, port
+        self._check_wire(wire)
+        self.seconds = 0.0
 
-    def _chunk(self, row: torch.Tensor, c: int) -> torch.Tensor:
-        C = self.wire.C
-        return row[c * C:(c + 1) * C]
+    def _check_wire(self, wire: Wire) -> Wire:
+        if wire.frame_bytes > self.port.frame_bytes:
+            raise ValueError(f"a frame of {wire.frame_bytes} bytes does not "
+                             f"fit the port's {self.port.frame_bytes}")
+        return wire
 
-    def _frames(self, k: int):
-        return (self.port.recv(k - 1) if k > 0 else None,
-                self.port.send(k) if k < self.n - 1 else None)
+    def _chunk(self, row: torch.Tensor, c: int, wire: Wire) -> torch.Tensor:
+        return row[c * wire.C:(c + 1) * wire.C]
+
+    def _frames(self, k: int, wire: Wire):
+        F = wire.frame_bytes
+        return (self.port.recv(k - 1)[:F] if k > 0 else None,
+                self.port.send(k)[:F] if k < self.n - 1 else None)
 
     def rs_launch(self, k: int, x: torch.Tensor, w=None, state=None,
-                  hyper=None, opt_kind: Optional[str] = None):
-        recv, send = self._frames(k)
-        return rs_hop(self._chunk(x, (self.rank - k - 1) % self.n), recv,
-                      send, self.wire, n=self.n, last=k == self.n - 1, w=w,
+                  hyper=None, opt_kind: Optional[str] = None,
+                  wire: Optional[Wire] = None):
+        wire = wire or self.wire
+        recv, send = self._frames(k, wire)
+        return rs_hop(self._chunk(x, (self.rank - k - 1) % self.n, wire),
+                      recv, send, wire, n=self.n, last=k == self.n - 1, w=w,
                       state=state, hyper=hyper, opt_kind=opt_kind)
 
-    def ag_launch(self, k: int, owned: torch.Tensor,
-                  replica: torch.Tensor) -> None:
-        recv, send = self._frames(k)
+    def ag_launch(self, k: int, owned: torch.Tensor, replica: torch.Tensor,
+                  wire: Optional[Wire] = None) -> None:
+        wire = wire or self.wire
+        recv, send = self._frames(k, wire)
         ag_hop(owned, recv, send,
-               self._chunk(replica, (self.rank - k) % self.n), self.wire)
+               self._chunk(replica, (self.rank - k) % self.n, wire), wire)
 
     def reduce_scatter_update(self, x: torch.Tensor, w=None, state=None,
-                              hyper=None, opt_kind: Optional[str] = None):
+                              hyper=None, opt_kind: Optional[str] = None,
+                              wire: Optional[Wire] = None):
         """This rank's ``(g_sum [C], w_new, new_state)`` of the ring
         reduce-scatter of the ranks' ``[n C]`` rows ``x``, the update on
-        its owned chunk (``opt_kind`` None: no update)."""
-        if x.shape != (self.n * self.wire.C,):
-            raise ValueError(f"a row is [{self.n * self.wire.C}], got "
+        its owned chunk (``opt_kind`` None: no update, ``(g_sum, None,
+        {})``)."""
+        wire = self._check_wire(wire or self.wire)
+        if x.shape != (self.n * wire.C,):
+            raise ValueError(f"a row is [{self.n * wire.C}], got "
                              f"{tuple(x.shape)}")
+        t0 = time.perf_counter()
         for k in range(self.n):
-            res = self.rs_launch(k, x, w, state, hyper, opt_kind)
+            res = self.rs_launch(k, x, w, state, hyper, opt_kind, wire)
             if k < self.n - 1:
-                self.port.done(k)
+                self.port.done(k, wire.frame_bytes)
         self.port.fence()
+        self.seconds += time.perf_counter() - t0
         return res
 
-    def all_gather(self, owned: torch.Tensor) -> torch.Tensor:
+    def all_gather(self, owned: torch.Tensor,
+                   wire: Optional[Wire] = None) -> torch.Tensor:
         """This rank's [n C] replica: slot j the decoded frame of rank j's
         owned chunk."""
-        replica = torch.empty(self.n * self.wire.C, dtype=torch.float32,
+        wire = self._check_wire(wire or self.wire)
+        replica = torch.empty(self.n * wire.C, dtype=torch.float32,
                               device=owned.device)
+        t0 = time.perf_counter()
         for k in range(self.n):
-            self.ag_launch(k, owned, replica)
+            self.ag_launch(k, owned, replica, wire)
             if k < self.n - 1:
-                self.port.done(k)
+                self.port.done(k, wire.frame_bytes)
         self.port.fence()
+        self.seconds += time.perf_counter() - t0
         return replica
+
+    def all_reduce(self, x: torch.Tensor,
+                   wire: Optional[Wire] = None) -> torch.Tensor:
+        """This rank's [n C] sums of the ranks' ``[n C]`` rows: the
+        reduce-scatter without an update, then the all-gather of the owned
+        sum (on BFP frames the gather rounds each sum once), as
+        ``ring_cuda.ring_all_reduce_fused`` computes every rank's row."""
+        g, _, _ = self.reduce_scatter_update(x, wire=wire)
+        return self.all_gather(g, wire)
 
     def close(self) -> None:
         self.port.close()
+
+
+@dataclasses.dataclass
+class ExchangeCount:
+    """Calls of an exchange and their host seconds."""
+
+    calls: int = 0
+    seconds: float = 0.0
+
+
+RANK_GATHERS = ExchangeCount()
+
+
+def rank_gather(t: torch.Tensor, world: int, group=None) -> torch.Tensor:
+    """Every process's ``t`` (one shape and dtype in all), stacked in rank
+    order: ``[world, *t.shape]`` on ``t``'s device.  The gloo group carries
+    CPU copies (a card's tensor is copied to the host first, which waits
+    for it); no library all-reduce, so any sum over the stack is the
+    caller's, in rank order.  Every process must call it at the same
+    point of its program."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    mine = t.detach().to("cpu").contiguous()
+    parts = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(parts, mine, group=group)
+    out = torch.stack(parts).to(t.device)
+    RANK_GATHERS.calls += 1
+    RANK_GATHERS.seconds += time.perf_counter() - t0
+    return out
 
 
 def proc_device(rank: int, n: int, device="cuda") -> torch.device:
@@ -432,12 +513,16 @@ def proc_device(rank: int, n: int, device="cuda") -> torch.device:
 
 
 def open_ring(rank: int, n: int, C: int, cfg: Optional[BFPConfig],
-              device: torch.device, group=None) -> ProcRing:
-    """This process's rank of the ring, its transport chosen by the rows'
-    device: gloo sends for CPU rows, CUDA IPC peer buffers for CUDA rows."""
+              device: torch.device, group=None,
+              max_frame: int = 0) -> ProcRing:
+    """This process's rank of the ring (default wire: chunk ``C``, codec
+    ``cfg``), its transport chosen by the rows' device: gloo sends for CPU
+    rows, CUDA IPC peer buffers for CUDA rows, sized for the larger of the
+    wire's frame and ``max_frame`` (other wires' frames)."""
     wire = wire_for(C, cfg)
+    F = max(wire.frame_bytes, max_frame)
     if device.type == "cpu":
-        port = GlooPort(rank, n, wire.frame_bytes, group)
+        port = GlooPort(rank, n, F, group)
     else:
-        port = IpcPort(rank, n, wire.frame_bytes, device, group)
+        port = IpcPort(rank, n, F, device, group)
     return ProcRing(rank, n, wire, port)

@@ -29,6 +29,21 @@ accepted and adds nothing, as in the JAX package (``QueuedDDPTrainer``
 delivers the loss on the host).  ``restore_state`` takes a
 ``utils.checkpoint`` payload, which stores rank 0's master row (JAX's
 replicated vector).
+
+Under a process group of W > 1 (``parallel.multihost``) the trainer at
+dp = W spans the processes, one rank a process, as JAX's runs over the
+global devices after ``multihost.initialize()``: the state holds this
+rank's ``[1, L]`` master, moments and replica, the batch is this
+process's rows (``multihost.local_batch_to_global``), the loss the mean of
+every process's, and each bucket is one all-reduce over
+``ops.ring_procs`` (``ProcRing.all_reduce``: the ``csrc/ring_hop.cu``
+kernels into the neighbours' CUDA IPC buffers, gloo sends for CPU rows),
+the buffers opened once at the largest bucket's frame; the mean and the
+replicated optimizer are the one-process trainer's on the one row (its
+per-rank ``clip_norm`` is local).  What ``train.check_processes``
+refuses, ``accum_steps > 1`` among it, and a restore raise
+``NotImplementedError`` naming ROADMAP A.11 there, as
+``QueuedDDPTrainer`` does.
 """
 
 from __future__ import annotations
@@ -39,9 +54,10 @@ import torch
 
 from . import accum, multihost
 from .mesh import VirtualRanks
-from .train import rank_grads, refuse_fsdp, restored_tensor
+from .train import (check_processes, codec_flags, rank_grads, refuse_fsdp,
+                    restored_tensor)
 from .. import optim
-from ..ops import bucketed, fused_update
+from ..ops import bucketed, fused_update, ring_procs
 from ..utils.config import CollectiveConfig, TrainConfig
 
 Params = Any
@@ -64,7 +80,6 @@ class DDPTrainer:
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig):
         refuse_fsdp(cfg)
-        multihost.refuse_processes(type(self).__name__)
         if ranks.sp != 1:
             raise NotImplementedError(
                 f"sp={ranks.sp}: sequence parallelism runs on "
@@ -87,6 +102,35 @@ class DDPTrainer:
         # topology, resolved once at the first _ensure_meta (bucket_elems
         # sizes this trainer's bucket plan)
         self._tuned_plan = None
+        # processes the ranks span, this one's rank, the rows it holds, and
+        # its ring with a wire a bucket (opened at init_state)
+        self.world = multihost.world_size()
+        self.rank = multihost.process_index() if self.world > 1 else 0
+        self._rows = 1 if self.world > 1 else self.n
+        self._ring: Optional[ring_procs.ProcRing] = None
+        self._wires: Tuple[ring_procs.Wire, ...] = ()
+        if self.world > 1:
+            codec, ef = codec_flags(cfg.collective)
+            check_processes(cfg, self.world, codec, ef, loss_fn)
+
+    def _open_ring(self, device: torch.device) -> None:
+        """This rank's ring: a wire a bucket, the buffers sized once for
+        the largest bucket's frame."""
+        codec = fused_update.resolve_codec(self.cfg.collective)
+        cfg = None if codec is None else codec.cfg
+        self._wires = tuple(ring_procs.wire_for(b.padded_len // self.world,
+                                                cfg)
+                            for b in self.plan.buckets)
+        self._ring = ring_procs.open_ring(
+            self.rank, self.world, self._wires[0].C, cfg, device,
+            max_frame=max(w.frame_bytes for w in self._wires))
+
+    def close(self) -> None:
+        """Release the cross-process ring's buffers (every process calls
+        it; a no-op in one process)."""
+        if self._ring is not None:
+            self._ring.close()
+            self._ring = None
 
     # -- init -----------------------------------------------------------------
 
@@ -130,12 +174,15 @@ class DDPTrainer:
 
     def init_state(self, params: Params) -> DDPState:
         """Every rank's master is the given weights in f32; the optimizer
-        state starts at zero."""
+        state starts at zero.  Across processes this rank's row, its ring
+        opened."""
         params = fused_update.tree_map(lambda t: t.to(self.ranks.device),
                                        params)
         self._ensure_meta(params)
         flat = fused_update.flatten_tree(params, self._meta)
-        w_master = flat.reshape(1, -1).repeat(self.n, 1)
+        w_master = flat.reshape(1, -1).repeat(self._rows, 1)
+        if self.world > 1 and self._ring is None:
+            self._open_ring(w_master.device)
         opt_state = optim.init_state(self.cfg.optimizer, w_master.shape,
                                      device=w_master.device)
         replicas = self._working(w_master)
@@ -155,6 +202,7 @@ class DDPTrainer:
         rank's row is the stored vector, and the working weights are
         rebuilt from it.  The layout must be known: call ``init_state``
         first or pass ``params_like``."""
+        multihost.refuse_processes("restore_state")
         if params_like is not None:
             self._ensure_meta(params_like)
         if self._meta is None:
@@ -173,21 +221,27 @@ class DDPTrainer:
                         replicas, w_master, opt_state, int(restored["step"]))
 
     def shard_batch(self, batch) -> Tuple[torch.Tensor, ...]:
-        """[B, ...] host tensors -> [n, B/n, ...] on the ranks' device."""
-        return self.ranks.shard_batch(batch)
+        """[B, ...] host tensors -> [n, B/n, ...] on the ranks' device;
+        across processes this process's rank's rows, [1, B/n, ...]."""
+        out = self.ranks.shard_batch(batch)
+        if self.world > 1:
+            return tuple(x[self.rank:self.rank + 1] for x in out)
+        return out
 
     # -- step -----------------------------------------------------------------
 
     def grads(self, state: DDPState, batch
               ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """Per-rank backward into the bucket rows: ``(rows, mean loss)``,
-        rows ``[n, padded_len]`` f32 a bucket, in issue order, accumulated
-        over ``cfg.accum_steps`` microbatches (``accum.accumulate``)."""
+        rows ``[n, padded_len]`` f32 a bucket (across processes ``[1,
+        padded_len]``, the loss every process's mean), in issue order,
+        accumulated over ``cfg.accum_steps`` microbatches
+        (``accum.accumulate``)."""
         plan = self.plan
 
         def one(mb, into):
             rows = into if into is not None else bucketed.bucket_rows(
-                plan, self.n, state.replicas.device)
+                plan, self._rows, state.replicas.device)
 
             def write(i: int, leaves: List[torch.Tensor]) -> None:
                 bucketed.bucket_locals(leaves, plan, [r[i] for r in rows],
@@ -197,11 +251,19 @@ class DDPTrainer:
                                  mb, write)
             return rows, loss
 
-        return accum.accumulate(one, batch, self.cfg.accum_steps)
+        rows, loss = accum.accumulate(one, batch, self.cfg.accum_steps)
+        return rows, multihost.process_mean(loss)
 
     def all_reduce(self, rows: List[torch.Tensor]) -> torch.Tensor:
         """The bucketed mean all-reduce: ``[n, L]`` f32, every rank's row
-        its dp-mean gradient in forward leaf order (``rows`` consumed)."""
+        its dp-mean gradient in forward leaf order (``rows`` consumed).
+        Across processes ``[1, L]``: each bucket one ``ProcRing.all_reduce``
+        on its own wire, divided by W where ``bucketed.assemble_flat``
+        divides the one-process sums."""
+        if self.world > 1:
+            return bucketed.assemble_flat(
+                (self._ring.all_reduce(rows.pop(0)[0], w)[None]
+                 for w in self._wires), self.plan, div=self.world)
         return bucketed.all_reduce_bucketed_flat(rows, self.cfg.collective,
                                                  self.plan)
 

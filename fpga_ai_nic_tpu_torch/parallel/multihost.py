@@ -11,15 +11,22 @@
 - ``local_batch_to_global()``: each process feeds its own rows of the
   batch.  With one process it is the trainer's ``shard_batch``, as JAX's
   degenerates to a plain ``device_put``; with several, each process's
-  virtual ranks take the rows it loaded.
+  virtual ranks take the rows it loaded.  ``process_rows()`` cuts a host
+  global batch to this process's rows (a ``CountedBatch``'s count leaf
+  to its rank's entries).
+- ``process_device()``: this process's device (``ring_procs.proc_device``
+  under a group, the device asked for without one).
+- ``process_mean()``: the mean of every process's scalar (the loss).
 - ``barrier()``: every process arrives before any leaves.
 
-``DPTrainer`` spans processes (one rank a process, ``ops.ring_procs``:
-the fused BFP ring over CUDA IPC peer buffers on one node, gloo sends for
-CPU rows); the other trainers run their ranks as virtual ranks of one
-process and refuse a process group of more than one (``refuse_processes``,
-ROADMAP A.11).  The group is gloo: it carries control (barriers, IPC
-handles, the loss) and the CPU rows' frames; NCCL is not used.
+``DPTrainer``, ``DDPTrainer`` and ``ShardedTrainer`` at dp span processes
+(one rank a process, ``ops.ring_procs``: the fused BFP ring over CUDA IPC
+peer buffers on one node, gloo sends for CPU rows), sync-BN's moments
+through ``ring_procs.rank_gather``; what they do not take there, and the
+other trainers, refuse a process group of more than one
+(``refuse_processes``, ROADMAP A.11).  The group is gloo: it carries
+control (barriers, IPC handles, the loss, sync-BN's moments) and the CPU
+rows' frames; NCCL is not used.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["initialize", "process_info", "local_batch_to_global",
-           "barrier", "world_size", "process_index", "refuse_processes"]
+           "barrier", "world_size", "process_index", "refuse_processes",
+           "process_rows", "process_device", "process_mean"]
 
 _initialized = False
 
@@ -98,8 +106,8 @@ def refuse_processes(what: str) -> None:
     if world_size() > 1:
         raise NotImplementedError(
             f"{what} across processes is not ported (ROADMAP A.11): "
-            "DPTrainer spans processes with BFP (sublane) or no codec "
-            "and a fused optimizer; "
+            "DPTrainer (a fused optimizer), DDPTrainer and ShardedTrainer "
+            "at dp span processes with BFP (sublane) or no codec; "
             "here run one process with virtual ranks")
 
 
@@ -113,6 +121,58 @@ def local_batch_to_global(batch: Any, trainer: Any) -> Any:
         from .mesh import VirtualRanks
         return VirtualRanks(1, trainer.ranks.device).shard_batch(batch)
     return trainer.shard_batch(batch)
+
+
+def process_rows(batch: Any, rank: Optional[int] = None,
+                 world: Optional[int] = None) -> Any:
+    """Process ``rank``'s rows (default: this process's) of a host global
+    batch, a tuple of leaves with a leading batch axis: rows ``rank B /
+    world`` onward, and of a ``CountedBatch`` (``bert.with_global_count``)
+    its count leaf's entries of that rank.  One process: the batch as it
+    is."""
+    from .mesh import CountedBatch
+    world = world_size() if world is None else world
+    rank = process_index() if rank is None else rank
+    if world == 1:
+        return batch
+    *leaves, last = batch
+
+    def rows(x):
+        if x.shape[0] % world:
+            raise ValueError(f"a batch leaf of {x.shape[0]} rows does not "
+                             f"split over {world} processes")
+        b = x.shape[0] // world
+        return x[rank * b:(rank + 1) * b]
+    if isinstance(batch, CountedBatch):
+        return CountedBatch(tuple(rows(x) for x in leaves) + (rows(last),))
+    return type(batch)(rows(x) for x in batch)
+
+
+def process_device(device: Any = "cuda") -> torch.device:
+    """This process's device: ``device`` itself (resolved) without a
+    group; under one, the CPU when asked, else its card
+    (``ring_procs.proc_device``), made the current one."""
+    from ..device import resolve_device
+    from ..ops import ring_procs
+    if world_size() == 1:
+        return resolve_device(device)
+    dev = ring_procs.proc_device(process_index(), world_size(), device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def process_mean(value: torch.Tensor) -> torch.Tensor:
+    """The mean over the processes of every process's scalar (the
+    one-process trainer's mean over its ranks of the rank losses, in rank
+    order), gathered over the gloo group; the value itself without a
+    group."""
+    if world_size() == 1:
+        return value
+    mine = value.detach().reshape(1).to("cpu", torch.float32)
+    parts = [torch.empty_like(mine) for _ in range(world_size())]
+    dist.all_gather(parts, mine)
+    return torch.cat(parts).to(value.device).mean()
 
 
 def barrier(name: str = "barrier") -> None:

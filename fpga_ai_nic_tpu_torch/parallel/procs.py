@@ -21,6 +21,24 @@ loopback kernels on a card, their plain versions on the CPU); then
 sha256 of its master and replica rows, for the caller to hold against
 ``DPTrainer(dp=world)`` in one process.
 
+``driver_run(rank, world, spec)`` is one of the model drivers' paths
+(``spec["driver"]``: ``train_bert``'s ``DDPTrainer``, ``train_resnet``'s
+sync-BN ``DPTrainer`` or ``train_llama``'s ``ShardedTrainer``, built by
+the driver's own ``parse`` and ``build`` from ``spec["argv"]``, each
+process feeding its rows of the driver's seeded batches) for
+``spec["steps"]`` steps: each step's loss, the sha256 of every master and
+replica row this process holds (after each step, or the last only),
+the launches of the hop kernels and of the tensor-core flash kernels,
+step, ring and sync-BN exchange times, the flat row's length (and a
+DDP trainer's buckets'), and peak GB; with ``spec["masters"]`` the
+master rows themselves, before the first step and after the last;
+with ``spec["cudnn_deterministic"]`` cuDNN's deterministic algorithms
+for the run (a convolution's weight gradient may otherwise add in
+another order from run to run).  In one process (no group) the same
+function runs the one-process trainer at the same dp over virtual ranks:
+the reference the caller holds the processes against.  ``drivers(rank, world, specs)`` runs
+several back to back in one spawn.
+
 The processes run on the card (``spec["device"]`` "cuda": CUDA IPC peer
 buffers) unless the caller asks for the CPU (gloo sends):
 
@@ -35,6 +53,7 @@ its rank from the environment).  Each prints one JSON line.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import os
@@ -135,8 +154,19 @@ def spawn(fn: Callable, world: int, args: Sequence[Any] = (),
 
 
 def digest(t: torch.Tensor) -> str:
-    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
-                          ).hexdigest()
+    """The sha256 of a tensor's bytes (any dtype, bf16 included)."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(b).hexdigest()
+
+
+def digests(ts) -> List[str]:
+    """``digest`` of each tensor, a thread each (the copy to the host and
+    sha256 run without the interpreter lock: a Llama-3-8B-width row is
+    3.8 GB)."""
+    from concurrent.futures import ThreadPoolExecutor
+    ts = list(ts)
+    with ThreadPoolExecutor(max(1, len(ts))) as pool:
+        return list(pool.map(digest, ts))
 
 
 def _coll(spec: dict):
@@ -271,6 +301,159 @@ def ring_and_steps(rank: int, world: int, spec: dict) -> dict:
                                                      device)}
     out.update(trainer_steps(rank, world, spec, device))
     return out
+
+
+DRIVER_SPEC = {"device": "cuda", "steps": 3, "digest": "each",
+               "params": None, "sync_bn": True, "masters": False,
+               "cudnn_deterministic": False, "explicit_grads": False}
+
+
+def explicit_grads(loss_fn: Callable) -> Callable:
+    """``loss_fn(params, batch)`` as JAX's explicit-gradient hook,
+    ``(params, batch) -> (loss, grads)``: autograd of it, written out."""
+    from ..ops import fused_update
+
+    def loss_and_grads(params, batch):
+        pairs = fused_update._leaves(params)
+        leaves = [t.detach().requires_grad_() for _, t in pairs]
+        keys = tuple(p for p, _ in pairs)
+        loss = loss_fn(fused_update.tree_from_leaves(keys, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), fused_update.tree_from_leaves(keys, list(grads))
+    return loss_and_grads
+
+
+def _session(spec: dict):
+    """``(trainer, state, host batches)`` of ``spec["driver"]`` built by the
+    driver's own functions from ``spec["argv"]`` on ``spec["device"]``;
+    ``spec["params"]`` (a numpy tree in the JAX package's layout) in place
+    of the seeded weights when given; with ``spec["explicit_grads"]``
+    (Llama) the trainer takes the loss through ``loss_and_grads_fn``
+    (``explicit_grads``) from the same weights."""
+    argv = list(spec["argv"]) + [f"--device={spec['device']}"]
+    name, steps, params = spec["driver"], spec["steps"], spec["params"]
+    if name == "bert":
+        from .. import train_bert as d
+        from ..models import bert as model
+        mcfg, cfg, run = d.parse(argv)
+        tr, state = d.build(mcfg, cfg, run)
+        host = [b for b, _ in d.batches(mcfg, cfg, run, steps)]
+        port = model.from_jax_params
+    elif name == "resnet":
+        from .. import train_resnet as d
+        from ..models import resnet as model
+        mcfg, cfg, size, device = d.parse(argv)
+        tr, state = d.build(mcfg, cfg, device, spec["sync_bn"])
+        host = list(d.batches(mcfg, cfg, size, steps))
+        port = model.from_jax_params
+    elif name == "llama":
+        from .. import train_llama as d
+        from ..models import llama as model
+        mcfg, cfg, seq, device = d.parse(argv)
+        if spec["explicit_grads"]:
+            from .mesh import make_ranks
+            from .sharded import ShardedTrainer
+            ranks = make_ranks(cfg.mesh, multihost.process_device(device))
+            tr = ShardedTrainer(None, ranks, cfg, loss_and_grads_fn=(
+                explicit_grads(lambda p, b: model.loss_fn(p, b, mcfg))))
+            state = tr.init_state(model.init(torch.Generator(
+                device=ranks.device).manual_seed(cfg.seed), mcfg,
+                ranks.device))
+        else:
+            tr, state = d.build(mcfg, cfg, device)
+        host = list(d.batches(mcfg, cfg, seq, steps))
+        port = model.params_from_jax
+    else:
+        raise ValueError(f"unknown driver {name!r}")
+    if params is not None:
+        del state
+        state = tr.init_state(port(params, tr.ranks.device))
+    return tr, state, host
+
+
+def _masters(state) -> torch.Tensor:
+    """The f32 master rows: ``DDPState.w_master`` or ``TrainState.w_own``."""
+    return state.w_master if hasattr(state, "w_master") else state.w_own
+
+
+def driver_run(rank: int, world: int, spec: dict) -> dict:
+    """This process's run of one driver's path (the module docstring)."""
+    from ..ops import flash_attention, ring_procs
+    spec = dict(DRIVER_SPEC, **spec)
+    dev = multihost.process_device(spec["device"])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = spec["cudnn_deterministic"]
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    tr, state, host = _session(spec)
+    batches = [multihost.local_batch_to_global(multihost.process_rows(b), tr)
+               for b in host]
+    del host
+    kernels = {"ring_hop_rs": ring_procs.RING_HOP_RS,
+               "ring_hop_ag": ring_procs.RING_HOP_AG,
+               "flash_fwd": flash_attention.FLASH_FWD,
+               "flash_dq": flash_attention.FLASH_DQ,
+               "flash_dkv": flash_attention.FLASH_DKV}
+    ring, ex = tr._ring, ring_procs.RANK_GATHERS
+    out: Dict[str, Any] = {"driver": spec["driver"], "device": str(dev),
+                           "rows": _masters(state).shape[0],
+                           "row_len": state.replicas.shape[1], "losses": [],
+                           "masters": [], "replicas": [], "step_ms": [],
+                           "ring_ms": [], "exchanges": [], "exchange_ms": []}
+    if hasattr(tr, "plan"):
+        out["buckets"] = [b.padded_len for b in tr.plan.buckets]
+    if spec["masters"]:
+        out["w_initial"] = [w.cpu().numpy() for w in _masters(state)]
+    for k in kernels.values():
+        k.launches = 0
+    for i, b in enumerate(batches):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        multihost.barrier()
+        r0, e0, s0 = (ring.seconds if ring else 0.0), ex.calls, ex.seconds
+        t0 = time.perf_counter()
+        state, loss = tr.step(state, b)
+        loss = float(loss)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["ring_ms"].append(1e3 * ((ring.seconds if ring else 0.0) - r0))
+        out["exchanges"].append(ex.calls - e0)
+        out["exchange_ms"].append(1e3 * (ex.seconds - s0))
+        out["losses"].append(loss)
+        if spec["digest"] == "each" or i == len(batches) - 1:
+            out["masters"].append(digests(_masters(state)))
+            out["replicas"].append(digests(state.replicas))
+    out["launches"] = {n: k.launches for n, k in kernels.items()}
+    if spec["masters"]:
+        out["w_final"] = [w.cpu().numpy() for w in _masters(state)]
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    tr.close()
+    del tr, state, batches
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def drivers(rank: int, world: int, specs: Sequence[dict]) -> List[dict]:
+    """``driver_run`` of each spec, back to back."""
+    return [driver_run(rank, world, s) for s in specs]
+
+
+def run_main(rank: int, world: int, module: str,
+             argv: Sequence[str]) -> Any:
+    """A driver module's ``main(argv)`` (e.g.
+    ``"fpga_ai_nic_tpu_torch.train_bert"``) in this process of the group:
+    what a launcher's process runs."""
+    import importlib
+    return importlib.import_module(module).main(list(argv))
 
 
 def main(argv: Sequence[str]) -> None:

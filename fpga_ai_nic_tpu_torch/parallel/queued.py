@@ -32,6 +32,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from . import multihost
 from .ddp import DDPState, DDPTrainer
 from .mesh import VirtualRanks
 from ..obs import metrics as obs_metrics
@@ -48,6 +49,7 @@ class QueuedDDPTrainer(DDPTrainer):
 
     def __init__(self, loss_fn: Callable, ranks: VirtualRanks,
                  cfg: TrainConfig, profiler: Optional[Profiler] = None):
+        multihost.refuse_processes("QueuedDDPTrainer")
         super().__init__(loss_fn, ranks, cfg)
         self.profiler = profiler or Profiler()
         self.queue = CollectiveQueue(self.reduce_fn, cfg.collective,

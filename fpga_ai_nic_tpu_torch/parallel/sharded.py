@@ -111,6 +111,17 @@ accum_steps`` and the dp phases then run once a step.  It composes with
 tp, sp, ep and GPipe (each microbatch then goes through the pipeline's
 own ``num_microbatches``).
 
+Under a process group of W > 1 (``parallel.multihost``) the trainer at
+dp = W spans the processes, one dp rank a process, as
+``DPTrainer`` does (its ``_proc_initial`` and ``_gather``): phase 2 is the
+ring reduce-scatter without an update over ``ops.ring_procs``, then the
+division by n and ``optim.apply`` on this rank's ``[1, C]`` shard, then
+the ring all-gather; ``loss_and_grads_fn`` is taken there a rank at a
+time.  tp, sp, ep or pp > 1, ``clip_norm`` (its norm spans the ranks)
+and what ``train.check_processes`` refuses (a ``joint_ranks`` loss that
+does not pool across the processes among it) raise
+``NotImplementedError`` naming ROADMAP A.11.
+
 As in the JAX package the fused optimizer kernel is not used: the update
 is ``optim.apply`` between the two collectives.  An fsdp mesh axis raises
 ``NotImplementedError``; ``loss_and_grads_fn`` with ``accum_steps > 1``
@@ -131,7 +142,7 @@ import torch
 from . import accum, multihost
 from .mesh import VirtualRanks, spec_dims
 from .train import (DPTrainer, Params, TrainState, _rank_leaves,
-                    refuse_fsdp, restored_tensor)
+                    check_processes, refuse_fsdp, restored_tensor)
 from .. import optim
 from ..ops import fused_update
 from ..utils.config import TrainConfig
@@ -247,7 +258,6 @@ class ShardedTrainer(DPTrainer):
     def __init__(self, loss_fn: Optional[Callable], ranks: VirtualRanks,
                  cfg: TrainConfig, *, param_specs: Any = None,
                  loss_and_grads_fn: Optional[Callable] = None):
-        multihost.refuse_processes("ShardedTrainer")
         if loss_and_grads_fn is not None and cfg.accum_steps > 1:
             raise ValueError(
                 "loss_and_grads_fn (explicit-gradient schedule) does not "
@@ -283,11 +293,11 @@ class ShardedTrainer(DPTrainer):
             raise ValueError("tp > 1 needs param_specs: which dimension of "
                              "each leaf splits over tp (llama.param_specs("
                              "cfg, tp_axis='tp', tp_size=tp))")
+        self.loss_and_grads_fn = loss_and_grads_fn
         super().__init__(loss_fn, ranks, cfg)
         # as in the JAX package, this trainer carries no error-feedback
         # residual: a codec's error_feedback flag is not read here
         self._ef = False
-        self.loss_and_grads_fn = loss_and_grads_fn
         # model shards a dp rank's parameters split into: its tp ranks
         # times its pp stages times its ep ranks, one flat row each (tp
         # major)
@@ -300,6 +310,18 @@ class ShardedTrainer(DPTrainer):
         # split leaves that replicate over ep (a stage's attention)
         self._rep_spans: List[Tuple[int, int]] = []
         self._ep_rep_spans: List[Tuple[int, int]] = []
+
+    def _check_processes(self) -> None:
+        """At dp across processes (the module docstring): every shard axis
+        1, no clip, and ``train.check_processes``."""
+        for axis, size in (("tp", self.ranks.tp), ("sp", self.ranks.sp),
+                           ("ep", self.ranks.ep), ("pp", self.ranks.pp)):
+            if size != 1:
+                multihost.refuse_processes(f"ShardedTrainer at {axis}={size}")
+        check_processes(self.cfg, self.world, self._codec, False,
+                        self.loss_and_grads_fn or self.loss_fn,
+                        ((self.cfg.optimizer.clip_norm is not None,
+                          "clip_norm"),))
 
     # -- the ep / pp layout ----------------------------------------------------
 
@@ -478,7 +500,7 @@ class ShardedTrainer(DPTrainer):
             loss, g = fn(tree, tuple(b[i] for b in batch))
             fused_update.flatten_tree(g, meta, out=flat_g[i])
             losses.append(loss.detach())
-        return flat_g, torch.stack(losses).mean()
+        return flat_g, multihost.process_mean(torch.stack(losses).mean())
 
     def _grad_tree(self, row: torch.Tensor) -> Params:
         """A flat f32 gradient row as a tree of views, one a leaf."""
@@ -569,6 +591,9 @@ class ShardedTrainer(DPTrainer):
 
     def _reduce(self, flat_g: torch.Tensor) -> torch.Tensor:
         coll = self.cfg.collective
+        if self.world > 1:
+            g, _, _ = self._ring.reduce_scatter_update(flat_g[0])
+            return (g / self.n)[None]
         if self.n_shards == 1:
             return fused_update.reduce_scatter(flat_g, coll) / self.n
         out = torch.empty((flat_g.shape[0], flat_g.shape[1] // self.n),

@@ -40,12 +40,13 @@ one-process loop's for that rank, phase 1 and phase 2 run over
 ``ops.ring_procs`` (the ``csrc/ring_hop.cu`` kernels writing into the
 neighbours' CUDA IPC buffers, or gloo sends for CPU rows), and the loss is
 the mean of every process's.  It takes BFP in the sublane layout or no
-codec, with each fused optimizer (``fused_optimizer=True``); the
-unfused update, int8, top-k, error feedback, ``integrity_check``,
-``accum_steps > 1``, a ``joint_ranks`` loss (sync-BN), ``clip_norm``,
-the step metrics, a restore and a reshard raise ``NotImplementedError``
-naming ROADMAP A.11 there, as do the other trainers.  One process is
-unchanged.
+codec, with each fused optimizer (``fused_optimizer=True``), and sync-BN's
+loss (``models.resnet.dp_loss_fn`` built under the group: its moments
+pooled across the processes, ``loss_fn.processes``); the unfused update,
+int8, top-k, error feedback, ``integrity_check``, ``accum_steps > 1``,
+any other ``joint_ranks`` loss, ``clip_norm``, the step metrics, a
+restore and a reshard raise ``NotImplementedError`` naming ROADMAP A.11
+there (``check_processes``).  One process is unchanged.
 
 ``CollectiveConfig(integrity_check=True)`` guards the collective with two
 tiers (``runtime.chaos``): the value tier (chunk sums against the input's,
@@ -237,6 +238,43 @@ def rank_grads(loss_fn: Callable, replicas: torch.Tensor,
     return fn(loss_fn, replicas, meta, batch, write, side)
 
 
+def check_processes(cfg: TrainConfig, world: int, codec: Optional[Codec],
+                    ef: bool, loss_fn: Optional[Callable],
+                    flags: Tuple[Tuple[bool, str], ...] = ()) -> None:
+    """What every trainer across W > 1 processes takes, else
+    ``multihost.refuse_processes``: one dp rank a process, the flat
+    explicit ring with BFP in the sublane layout or no codec, no error
+    feedback, no ``integrity_check``, ``accum_steps`` 1, no step metrics,
+    and a ``joint_ranks`` loss only where it pools across the processes
+    (``loss_fn.processes == world``: sync-BN's); then each ``(flag,
+    what)`` of the trainer's own."""
+    coll = cfg.collective
+    if cfg.mesh.dp != world:
+        raise ValueError(f"cfg.mesh.dp={cfg.mesh.dp} under a process "
+                         f"group of {world}: one rank a process")
+    refuse = multihost.refuse_processes
+    if coll.impl != "ring" or coll.topology != "flat":
+        refuse(f"impl={coll.impl!r}, topology={coll.topology!r} (the "
+               "flat explicit ring only)")
+    if codec is None and coll.codec is not None:
+        refuse(f"codec={coll.codec!r}")
+    if codec is not None and (codec.name != "bfp" or ef):
+        refuse(f"the {codec.name} codec" + (" with error feedback" if ef
+                                            else ""))
+    if codec is not None and not (coll.fused_kernel
+                                  or codec.cfg.codec == "pallas"):
+        refuse("BFP in the flat16 layout")
+    joint = (getattr(loss_fn, "joint_ranks", False)
+             and getattr(loss_fn, "processes", 1) != world)
+    for flag, what in ((coll.integrity_check, "integrity_check"),
+                       (cfg.accum_steps > 1, "accum_steps > 1"),
+                       (joint, "a joint_ranks loss that does not pool "
+                               "across the processes (sync-BN's does)"),
+                       (cfg.obs_metrics, "obs_metrics")) + tuple(flags):
+        if flag:
+            refuse(what)
+
+
 def codec_flags(coll: CollectiveConfig) -> Tuple[Optional[Codec], bool]:
     """``(codec, error_feedback)`` of a collective config: none while it
     is an unresolved ``codec="auto"``."""
@@ -308,37 +346,15 @@ class DPTrainer:
     # -- across processes -----------------------------------------------------
 
     def _check_processes(self) -> None:
-        """What the cross-process ring takes (the class docstring)."""
-        cfg, coll = self.cfg, self.cfg.collective
-        if cfg.mesh.dp != self.world:
-            raise ValueError(f"cfg.mesh.dp={cfg.mesh.dp} under a process "
-                             f"group of {self.world}: one rank a process")
-
-        refuse = multihost.refuse_processes
-        if coll.impl != "ring" or coll.topology != "flat":
-            refuse(f"impl={coll.impl!r}, topology={coll.topology!r} (the "
-                   "flat explicit ring only)")
-        codec = self._codec
-        if codec is None and coll.codec is not None:
-            refuse(f"codec={coll.codec!r}")
-        if codec is not None and (codec.name != "bfp" or self._ef):
-            refuse(f"the {codec.name} codec"
-                   + (" with error feedback" if self._ef else ""))
-        if codec is not None and not (coll.fused_kernel
-                                      or codec.cfg.codec == "pallas"):
-            refuse("BFP in the flat16 layout")
-        for flag, what in ((not coll.fused_optimizer,
-                            "fused_optimizer=False (the update runs on the "
-                            "ring's last hop)"),
-                           (coll.integrity_check, "integrity_check"),
-                           (cfg.accum_steps > 1, "accum_steps > 1"),
-                           (getattr(self.loss_fn, "joint_ranks", False),
-                            "a joint_ranks loss (sync-BN)"),
-                           (cfg.optimizer.clip_norm is not None,
-                            "clip_norm"),
-                           (cfg.obs_metrics, "obs_metrics")):
-            if flag:
-                refuse(what)
+        """What the cross-process ring takes (``check_processes``, and the
+        update on the ring's last hop)."""
+        cfg = self.cfg
+        check_processes(cfg, self.world, self._codec, self._ef, self.loss_fn,
+                        ((not cfg.collective.fused_optimizer,
+                          "fused_optimizer=False (the update runs on the "
+                          "ring's last hop)"),
+                         (cfg.optimizer.clip_norm is not None,
+                          "clip_norm")))
 
     def _proc_initial(self, w_own: torch.Tensor,
                       opt_state: optim.OptState) -> TrainState:
@@ -356,15 +372,6 @@ class DPTrainer:
                 None if codec is None else codec.cfg, w_row.device)
         return TrainState(self._rank0(replicas, side), replicas, w_row,
                           opt_rows, 0, None, side)
-
-    def _proc_mean(self, loss: torch.Tensor) -> torch.Tensor:
-        """The mean of every process's loss (the one-process trainer's
-        mean over its ranks), gathered over the gloo group."""
-        import torch.distributed as dist
-        mine = loss.detach().reshape(1).to("cpu", torch.float32)
-        parts = [torch.empty_like(mine) for _ in range(self.world)]
-        dist.all_gather(parts, mine)
-        return torch.cat(parts).to(loss.device).mean()
 
     def _proc_apply(self, state: TrainState, flat_g: torch.Tensor
                     ) -> TrainState:
@@ -498,9 +505,7 @@ class DPTrainer:
 
         flat_g, loss = accum.accumulate(one, batch, self.cfg.accum_steps,
                                         self._lead)
-        if self.world > 1:
-            loss = self._proc_mean(loss)
-        return flat_g, loss
+        return flat_g, multihost.process_mean(loss)
 
     def error_feedback(self, state: TrainState, flat_g: torch.Tensor
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

@@ -5,6 +5,8 @@ package's ``examples/train_bert.py`` (BASELINE.json's "BERT-base DP
 Examples (on the card; ``--device=cpu`` runs the plain versions instead):
   python -m fpga_ai_nic_tpu_torch.train_bert --model=base --seq=512 \\
       --bfp=1 --mesh.dp=8
+  torchrun --nproc_per_node=4 -m fpga_ai_nic_tpu_torch.train_bert \\
+      --model=base --seq=512 --bfp=1 --mesh.dp=4
   python -m fpga_ai_nic_tpu_torch.train_bert --model=base --seq=512 \\
       --bfp=1 --mesh.dp=8 --queue=explicit
   python -m fpga_ai_nic_tpu_torch.train_bert --model=tiny --device=cpu \\
@@ -39,6 +41,15 @@ elsewhere; each batch carries the global target count
 timed window; ``tokens_per_sec`` is the JAX driver's quantity, ``iters *
 global_batch * seq / wall`` (every position, padding included), and
 ``valid_tokens_per_sec`` counts the valid tokens alone.
+
+``multihost.initialize()`` runs first (a no-op for one process).  Under a
+launcher's group of W processes (``--mesh.dp=W``) each process is one
+rank of the ``DDPTrainer`` (``parallel.ddp``: a bucket a cross-process
+ring all-reduce), draws the global batch from the seed and feeds its own
+rows (``multihost.process_rows``, ``local_batch_to_global``); every
+process prints its JSON, ``process`` (``multihost.process_info()``) and
+``peak_mem_gb`` its own.  ``--trainer=dp`` spans processes too;
+``--queue=explicit`` does not (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -52,10 +63,10 @@ from typing import Iterator, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .device import resolve_device
 from .models import bert
 from .models.bert import BertConfig
 from .ops import fused_update
+from .parallel import multihost
 from .parallel.ddp import DDPTrainer
 from .parallel.mesh import make_ranks
 from .parallel.queued import QueuedDDPTrainer
@@ -172,9 +183,10 @@ def batches(mcfg: BertConfig, cfg: TrainConfig, run: Run, count: int
 
 
 def build(mcfg: BertConfig, cfg: TrainConfig, run: Run):
-    """The trainer over ``cfg.mesh.dp`` virtual ranks and its initial
-    state, from weights drawn on the device with seed ``cfg.seed``."""
-    ranks = make_ranks(cfg.mesh, run.device)
+    """The trainer over ``cfg.mesh.dp`` virtual ranks (across processes,
+    this process's one) and its initial state, from weights drawn on the
+    device with seed ``cfg.seed``."""
+    ranks = make_ranks(cfg.mesh, multihost.process_device(run.device))
     n = cfg.mesh.dp
     cls = (QueuedDDPTrainer if run.queue == "explicit"
            else TRAINERS[run.trainer])
@@ -184,11 +196,12 @@ def build(mcfg: BertConfig, cfg: TrainConfig, run: Run):
 
 
 def main(argv: Sequence[str]) -> dict:
+    multihost.initialize()
     mcfg, cfg, run = parse(argv)
-    dev = resolve_device(run.device)
+    dev = multihost.process_device(run.device)
     tr, state = build(mcfg, cfg, run)
-    stream = [(tr.shard_batch(b), valid)
-              for b, valid in batches(mcfg, cfg, run, cfg.iters + 1)]
+    stream = [(multihost.local_batch_to_global(multihost.process_rows(b), tr),
+               valid) for b, valid in batches(mcfg, cfg, run, cfg.iters + 1)]
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     losses = []
@@ -223,6 +236,8 @@ def main(argv: Sequence[str]) -> dict:
         out["max_outstanding"] = tr.queue.max_outstanding
     if dev.type == "cuda":
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["process"] = multihost.process_info()
+    tr.close()
     return out
 
 

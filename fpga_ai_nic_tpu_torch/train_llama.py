@@ -53,6 +53,11 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
   python -m fpga_ai_nic_tpu_torch.train_llama --model=tiny --device=cpu \\
       --model.attn_block=128 --seq=128 --global_batch=4 --mesh.dp=2 \\
       --iters=2
+  torchrun --nproc_per_node=2 -m fpga_ai_nic_tpu_torch.train_llama \\
+      --model=llama3_8b --model.n_layers=4 --model.attn_block=512 \\
+      --seq=4096 --global_batch=2 --mesh.dp=2 --iters=3 \\
+      --collective.impl=ring --collective.compression.codec=pallas \\
+      --collective.fused_kernel=true
   python -m fpga_ai_nic_tpu_torch.train_llama --model=tiny --device=cpu \\
       --model.attn_block=16 --seq=64 --global_batch=4 --mesh.dp=2 \\
       --mesh.tp=2 --iters=2
@@ -118,7 +123,11 @@ one a dp rank): with dp, sp, ep and MoE layers, not with pp.
 interleaved schedule with the layout sidecar, so a restore that does not
 declare the same layer order is refused).  The JSON carries ``process``
 (``parallel.multihost.process_info()``); ``multihost.initialize()`` runs
-first (a no-op for one process).
+first (a no-op for one process).  Under a launcher's group of W processes
+at ``--mesh.dp=W`` (tp = sp = ep = pp = 1) each process is one dp rank of
+the ``ShardedTrainer``, its rings across the processes
+(``ops.ring_procs``), feeding its own rows of each batch; the other axes
+and ``--save`` there raise ``NotImplementedError`` (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -134,7 +143,6 @@ import numpy as np
 import torch
 
 from . import text
-from .device import resolve_device
 from .models import bert, llama
 from .models.llama import LlamaConfig
 from .parallel import multihost, pipeline
@@ -286,7 +294,7 @@ def build(mcfg: LlamaConfig, cfg: TrainConfig, device: str,
     ``remat`` goes to the loss (with pp the losses always recompute);
     ``pipe``: the pipeline flags; ``dp_size``: the dense loss's global
     count weighting (batches carrying the count)."""
-    ranks = make_ranks(cfg.mesh, device)
+    ranks = make_ranks(cfg.mesh, multihost.process_device(device))
     gen = torch.Generator(device=ranks.device).manual_seed(cfg.seed)
     if ranks.pp > 1:
         tr = _pp_trainer(mcfg, cfg, ranks, pipe, dp_size)
@@ -356,7 +364,9 @@ def _pp_trainer(mcfg: LlamaConfig, cfg: TrainConfig, ranks,
 def main(argv: Sequence[str]) -> dict:
     multihost.initialize()
     mcfg, cfg, seq, device = parse(argv)
-    dev = resolve_device(device)
+    dev = multihost.process_device(device)
+    if data_flag(argv, "--save"):
+        multihost.refuse_processes("--save (a checkpoint)")
     remat = remat_flag(argv)
     pipe = pipeline_flags(argv)
     path = data_flag(argv)
@@ -374,7 +384,8 @@ def main(argv: Sequence[str]) -> dict:
             first_batch_s = time.perf_counter() - t_data
         masked += int((batch[1] < 0).sum())
         labels_seen += batch[1].numel()
-        state, loss = tr.step(state, tr.shard_batch(batch))
+        state, loss = tr.step(state, multihost.local_batch_to_global(
+            multihost.process_rows(batch), tr))
         losses.append(loss)
         if i == 0:                       # warm-up: kernel builds
             losses[0] = float(losses[0])
@@ -411,6 +422,7 @@ def main(argv: Sequence[str]) -> dict:
             cfg.iters, state, layout=layout)
         if layout:
             out["checkpoint_layout"] = layout
+    tr.close()
     return out
 
 

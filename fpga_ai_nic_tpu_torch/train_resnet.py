@@ -11,6 +11,10 @@ Examples (on the card; ``--device=cpu`` runs the plain versions instead):
       --optimizer.learning_rate=0.1 --optimizer.weight_decay=1e-4 --iters=5
   python -m fpga_ai_nic_tpu_torch.train_resnet --model=tiny --device=cpu \\
       --mesh.dp=2 --global_batch=8 --iters=2
+  torchrun --nproc_per_node=4 -m fpga_ai_nic_tpu_torch.train_resnet \\
+      --model=resnet50 --image-size=224 --mesh.dp=4 --global_batch=128 \\
+      --bfp=1 --collective.fused_optimizer=true \\
+      --optimizer.kind=momentum --iters=5
 
 Flags: ``--model=tiny|resnet50`` (default tiny); ``--image-size=``
 (default 32); ``--bfp=1`` puts the BFP wire on the ring the way the port
@@ -30,6 +34,12 @@ to nearest even) and labels ``integers(0, num_classes, B)`` in int32; it
 reaches the ranks through ``data.ShardedLoader`` (pinned host memory,
 two batches in flight).  The first step is a warm-up outside the timed
 window; ``samples_per_sec`` is JAX's ``iters * global_batch / wall``.
+
+``multihost.initialize()`` runs first (a no-op for one process).  Under a
+launcher's group of W processes (``--mesh.dp=W``) each process is one
+rank of the trainer, its BN layers pooling their moments across the
+processes (``resnet.ProcessMoments``), and its loader places only its own
+rows of each batch; every process prints its JSON with ``process``.
 """
 
 from __future__ import annotations
@@ -43,10 +53,10 @@ import numpy as np
 import torch
 
 from . import data
-from .device import resolve_device
 from .models import resnet
 from .models.resnet import ResNetConfig
 from .ops import fused_update
+from .parallel import multihost
 from .parallel.mesh import make_ranks
 from .parallel.train import DPTrainer
 from .utils.config import TrainConfig, coerce_value, from_flags
@@ -98,18 +108,23 @@ def batches(mcfg: ResNetConfig, cfg: TrainConfig, size: int, count: int
         seed=cfg.seed, num_batches=count)
 
 
-def build(mcfg: ResNetConfig, cfg: TrainConfig, device: str):
-    """The trainer over ``cfg.mesh.dp`` virtual ranks and its initial
-    state, from weights drawn on the device with seed ``cfg.seed``."""
-    ranks = make_ranks(cfg.mesh, device)
-    tr = DPTrainer(resnet.dp_loss_fn(mcfg), ranks, cfg)
+def build(mcfg: ResNetConfig, cfg: TrainConfig, device: str,
+          sync_bn: bool = True):
+    """The trainer over ``cfg.mesh.dp`` virtual ranks (across processes,
+    this process's one) and its initial state, from weights drawn on the
+    device with seed ``cfg.seed``; ``sync_bn=False`` across processes:
+    each process's own moments (``resnet.dp_loss_fn(sync=False)``, a
+    fault control)."""
+    ranks = make_ranks(cfg.mesh, multihost.process_device(device))
+    tr = DPTrainer(resnet.dp_loss_fn(mcfg, sync_bn), ranks, cfg)
     gen = torch.Generator(device=ranks.device).manual_seed(cfg.seed)
     return tr, tr.init_state(resnet.init(gen, mcfg, ranks.device))
 
 
 def main(argv: Sequence[str]) -> dict:
+    multihost.initialize()
     mcfg, cfg, size, device = parse(argv)
-    dev = resolve_device(device)
+    dev = multihost.process_device(device)
     tr, state = build(mcfg, cfg, device)
     loader = data.ShardedLoader(batches(mcfg, cfg, size, cfg.iters + 1),
                                 tr.ranks, prefetch=2)
@@ -137,6 +152,8 @@ def main(argv: Sequence[str]) -> dict:
                       if dev.type == "cuda" else "cpu")}
     if dev.type == "cuda":
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["process"] = multihost.process_info()
+    tr.close()
     return out
 
 

@@ -16,7 +16,10 @@
   AdamW; each run under a 180-s limit of its own;
 - (d) what stays refused at W > 1 raises ``NotImplementedError`` naming
   A.11 (the world size patched to 2: the checks run before any process
-  group is used); the run takes the card unless asked for the CPU.
+  group is used), and what spans processes since (``DDPTrainer``,
+  sync-BN's loss, ``ShardedTrainer`` at dp) is taken there; the run
+  takes the card unless asked for the CPU.  The drivers across processes
+  are ``tests/test_torch_procs_drivers.py``'s.
 """
 
 import dataclasses
@@ -27,12 +30,13 @@ import torch
 from torch_threads import one_torch_thread  # noqa: F401
 
 from fpga_ai_nic_tpu_torch import optim
-from fpga_ai_nic_tpu_torch.models import mlp, resnet
+from fpga_ai_nic_tpu_torch.models import llama, mlp, resnet
 from fpga_ai_nic_tpu_torch.ops import bfp_golden, ring_golden, ring_procs
 from fpga_ai_nic_tpu_torch.parallel import multihost, procs
 from fpga_ai_nic_tpu_torch.parallel.ddp import DDPTrainer
 from fpga_ai_nic_tpu_torch.parallel.fsdp import FSDPTrainer
 from fpga_ai_nic_tpu_torch.parallel.mesh import VirtualRanks
+from fpga_ai_nic_tpu_torch.parallel.queued import QueuedDDPTrainer
 from fpga_ai_nic_tpu_torch.parallel.sharded import ShardedTrainer
 from fpga_ai_nic_tpu_torch.parallel.train import DPTrainer
 from fpga_ai_nic_tpu_torch.utils.config import (
@@ -169,6 +173,19 @@ BFP_RING = CollectiveConfig(impl="ring", compression=SUBLANE,
                             fused_kernel=True, fused_optimizer=True)
 
 
+def _on(cls, coll=BFP_RING, mesh=None, loss=None, accum_steps=1, **kw):
+    """A trainer of ``cls`` on 2 CPU ranks (``mesh``: its axes, dp=2)."""
+    mesh = mesh or MeshConfig(dp=2)
+    ranks = VirtualRanks(mesh.dp, torch.device("cpu"), mesh.sp, mesh.ep,
+                         mesh.pp, mesh.tp)
+    return cls(loss or (lambda p, b: None), ranks,
+               TrainConfig(global_batch=8, mesh=mesh, collective=coll,
+                           accum_steps=accum_steps), **kw)
+
+
+TINY = llama.LlamaConfig.tiny()
+
+
 @pytest.mark.parametrize("make", [
     lambda: _dp(CollectiveConfig(impl="ring", codec="int8")),
     lambda: _dp(CollectiveConfig(impl="ring", codec="topk")),
@@ -178,20 +195,39 @@ BFP_RING = CollectiveConfig(impl="ring", compression=SUBLANE,
     lambda: _dp(dataclasses.replace(BFP_RING, fused_optimizer=False)),
     lambda: _dp(dataclasses.replace(BFP_RING, integrity_check=True)),
     lambda: _dp(BFP_RING, accum_steps=2),
-    lambda: _dp(BFP_RING, loss=resnet.dp_loss_fn(resnet.ResNetConfig.tiny())),
+    lambda: _dp(BFP_RING, loss=llama.dp_loss_fn(TINY, 2, 1)),
     lambda: _dp(CollectiveConfig(impl="xla")),
     lambda: _dp(CollectiveConfig(impl="ring", compression=BFPConfig())),
-    lambda: DDPTrainer(lambda p, b: None, VirtualRanks(
-        2, torch.device("cpu")), TrainConfig(mesh=MeshConfig(dp=2))),
+    lambda: _on(DDPTrainer, CollectiveConfig(impl="ring", codec="int8")),
     lambda: FSDPTrainer(lambda p, b: None, VirtualRanks(
         2, torch.device("cpu")), TrainConfig(mesh=MeshConfig(fsdp=2))),
-    lambda: ShardedTrainer(lambda p, b: None, VirtualRanks(
-        2, torch.device("cpu")), TrainConfig(mesh=MeshConfig(dp=2)))],
+    lambda: _on(ShardedTrainer, mesh=MeshConfig(dp=2, tp=2),
+                param_specs=llama.param_specs(TINY, "tp", tp_size=2)),
+    lambda: _on(ShardedTrainer, mesh=MeshConfig(dp=2, sp=2)),
+    lambda: _on(QueuedDDPTrainer),
+    lambda: _on(DDPTrainer, accum_steps=2),
+    lambda: _on(ShardedTrainer, CollectiveConfig(
+        impl="ring", compression=SUBLANE, fused_kernel=True),
+        loss=llama.dp_loss_fn(TINY, 2, 1))],
     ids=["int8", "topk", "error_feedback", "unfused", "integrity", "accum",
-         "sync_bn", "xla", "bfp_flat16", "ddp", "fsdp", "sharded"])
+         "joint_loss", "xla", "bfp_flat16", "ddp_int8", "fsdp", "sharded_tp",
+         "sharded_sp", "queued", "ddp_accum", "sharded_joint_loss"])
 def test_refusals_across_processes(two_processes, make):
     with pytest.raises(NotImplementedError, match="A.11"):
         make()
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _on(DDPTrainer),
+    lambda: _dp(BFP_RING, loss=resnet.dp_loss_fn(resnet.ResNetConfig.tiny())),
+    lambda: _on(ShardedTrainer, CollectiveConfig(
+        impl="ring", compression=SUBLANE, fused_kernel=True))],
+    ids=["ddp", "sync_bn", "sharded"])
+def test_spans_processes(two_processes, make):
+    """What spans processes since: its construction under a group of 2
+    checks what it is given and keeps its rank."""
+    tr = make()
+    assert (tr.world, tr.rank) == (2, 0)
 
 
 def test_world_must_be_dp(two_processes):
@@ -210,3 +246,22 @@ def test_processes_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         procs.ring_and_steps(0, 2, {})
     assert ring_procs.proc_device(0, 2, "cpu").type == "cpu"
+
+
+def test_process_rows_cut_counted_batches():
+    """A process's rows of a host global batch: rows ``rank B / W`` on, a
+    ``CountedBatch``'s count leaf cut to that rank's entries (its mark
+    kept); one process gets the batch as it is; rows that do not split
+    raise."""
+    from fpga_ai_nic_tpu_torch.parallel.mesh import CountedBatch
+    x = torch.arange(12).reshape(6, 2)
+    count = torch.tensor([7, 7, 7, 8, 8, 8])      # 3 ranks x 2 microbatches
+    got = multihost.process_rows(CountedBatch((x, x + 1, count)), 1, 3)
+    assert isinstance(got, CountedBatch)
+    assert torch.equal(got[0], x[2:4]) and torch.equal(got[1], x[2:4] + 1)
+    assert torch.equal(got[2], count[2:4])
+    plain = multihost.process_rows((x,), 2, 3)
+    assert type(plain) is tuple and torch.equal(plain[0], x[4:])
+    assert multihost.process_rows((x,), 0, 1)[0] is x
+    with pytest.raises(ValueError, match="does not split"):
+        multihost.process_rows((x,), 0, 4)
